@@ -1,0 +1,484 @@
+// K1 flash_attention_packed and K3 flash_attention (bhld): one strided
+// online-softmax attention kernel.
+//
+// Replaces (TPU):
+//   K1: vidseg_diffusion_tpu/ops/attention.py:_flash_kernel_packed
+//       (via _flash_attention_packed_impl) and, for the spatial sites with
+//       L < 512, _small_seq_kernel (via _small_batched_attention_impl).
+//   K3: vidseg_diffusion_tpu/ops/attention.py:_flash_kernel
+//       (via _flash_attention_impl).
+//
+// Both read q/k/v through (batch, row, head) element strides, so the packed
+// [B, L, H*D] projections (K1) and the head-major [B, H, L, D] layout (K3) run
+// with no transpose. Math follows the JAX kernels: q is pre-scaled by
+// scale*log2(e) and rounded to the input dtype, the softmax is base 2, and
+// the p that feeds P.V is rounded to the input dtype and summed as rounded
+// (the denominator the TPU kernel takes from a ones column in P.V).
+//
+// What bounds it on the H100: at the main-path shapes (ds1 [28, 5824, 5*64],
+// VAE [n, 1, 5824, 512]) the work is ~4*L^2*D flops per (batch, head) with
+// only O(L*D) bytes, far above the card's ops:byte ridge, so it is bound by
+// arithmetic. Each (q-tile, head) block walks the keys in key tiles,
+// keeping the running max, denominator and output on chip, so no logits ever
+// reach device memory. The ragged key tail is masked to -inf; ragged query
+// rows compute on zeros and are not stored. Two kernels:
+// - bf16 K1 (every spatial UNet site, D = 64) runs on the tensor cores with
+//   mma.sync (flash_fwd_mma_kernel, below);
+// - fp32 inputs and K3 (CLIP D = 80, VAE D = 512) run flash_fwd_kernel, fp32
+//   FMAs on shared-memory tiles (4x4 register micro-tiles per thread for
+//   S = Q K^T and for P V). The wide D=512 VAE head uses 32-row tiles and
+//   ~200 KB of dynamic shared memory (cudaFuncSetAttribute below).
+// Overlapping copies with the math (cp.async / TMA) and wgmma are next.
+#include "common.cuh"
+
+namespace vs {
+
+template <int D, int BQ, int BK>
+struct FlashSmem {
+  static constexpr int QS = D + 1;   // padded row strides: no bank conflicts
+  static constexpr int KS = D + 1;
+  static constexpr int PS = BK + 1;
+  static constexpr int floats = BQ * QS + BK * KS + BK * D + BQ * PS + 3 * BQ;
+  static constexpr size_t bytes = sizeof(float) * floats;
+};
+
+template <typename T, int D, int BQ, int BK>
+__global__ void __launch_bounds__(256) flash_fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, int H, int Lq, int Lk,
+    long long qsb, long long qsl, long long qsh,
+    long long ksb, long long ksl, long long ksh,
+    long long vsb, long long vsl, long long vsh,
+    long long osb, long long osl, long long osh, float qscale) {
+  using S = FlashSmem<D, BQ, BK>;
+  static_assert(D % 16 == 0 && BQ % 16 == 0 && BK % 16 == 0, "tile shape");
+  constexpr int RQ = BQ / 16;  // query rows per thread
+  constexpr int RK = BK / 16;  // key columns per thread (S tile)
+  constexpr int RD = D / 16;   // output columns per thread
+  constexpr float NEG_INF = -INFINITY;
+
+  extern __shared__ float smem[];
+  float* Qs = smem;                 // [BQ][QS]
+  float* Ks = Qs + BQ * S::QS;      // [BK][KS]
+  float* Vs = Ks + BK * S::KS;      // [BK][D]
+  float* Ps = Vs + BK * D;          // [BQ][PS]
+  float* row_m = Ps + BQ * S::PS;   // running max (base-2 logits)
+  float* row_l = row_m + BQ;        // running denominator
+  float* row_a = row_l + BQ;        // this tile's rescale factor
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * BQ;
+
+  const T* qb = q + b * qsb + h * qsh;
+  const T* kb = k + b * ksb + h * ksh;
+  const T* vb = v + b * vsb + h * vsh;
+  T* ob = o + b * osb + h * osh;
+
+  for (int e = tid; e < BQ * D; e += 256) {
+    const int r = e / D, d = e % D;
+    float val = 0.f;
+    if (q0 + r < Lq) val = round_to<T>(to_f<T>(qb[(long long)(q0 + r) * qsl + d]) * qscale);
+    Qs[r * S::QS + d] = val;
+  }
+  if (tid < BQ) {
+    row_m[tid] = NEG_INF;
+    row_l[tid] = 0.f;
+  }
+
+  float acc[RQ][RD];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i)
+#pragma unroll
+    for (int j = 0; j < RD; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < Lk; k0 += BK) {
+    __syncthreads();  // previous tile's Ks/Vs/Ps reads are done
+    for (int e = tid; e < BK * D; e += 256) {
+      const int r = e / D, d = e % D;
+      float kv = 0.f, vv = 0.f;
+      if (k0 + r < Lk) {
+        kv = to_f<T>(kb[(long long)(k0 + r) * ksl + d]);
+        vv = to_f<T>(vb[(long long)(k0 + r) * vsl + d]);
+      }
+      Ks[r * S::KS + d] = kv;
+      Vs[r * D + d] = vv;
+    }
+    __syncthreads();
+
+    // S = Q K^T for this key tile (already in base-2 units via qscale)
+    float s[RQ][RK];
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < RK; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[RQ], kv[RK];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) qv[i] = Qs[(ty + 16 * i) * S::QS + d];
+#pragma unroll
+      for (int j = 0; j < RK; ++j) kv[j] = Ks[(tx + 16 * j) * S::KS + d];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int j = 0; j < RK; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < RK; ++j) {
+        const int c = tx + 16 * j;
+        Ps[(ty + 16 * i) * S::PS + c] = (k0 + c < Lk) ? s[i][j] : NEG_INF;
+      }
+    __syncthreads();
+
+    // online softmax: one warp per row, 8 warps
+    for (int r = warp; r < BQ; r += 8) {
+      float* prow = Ps + r * S::PS;
+      float mx = NEG_INF;
+      for (int c = lane; c < BK; c += 32) mx = fmaxf(mx, prow[c]);
+      mx = warp_max(mx);
+      const float m_old = row_m[r];
+      const float m_new = fmaxf(m_old, mx);  // finite: every tile has a live key
+      float sum = 0.f;
+      for (int c = lane; c < BK; c += 32) {
+        const float p = round_to<T>(exp2f(prow[c] - m_new));
+        prow[c] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = exp2f(m_old - m_new);  // 0 on the first tile
+        row_l[r] = alpha * row_l[r] + sum;
+        row_m[r] = m_new;
+        row_a[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // acc = alpha * acc + P V
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const float a = row_a[ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < RD; ++j) acc[i][j] *= a;
+    }
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float pv[RQ], vv[RD];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) pv[i] = Ps[(ty + 16 * i) * S::PS + kk];
+#pragma unroll
+      for (int j = 0; j < RD; ++j) vv[j] = Vs[kk * D + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int j = 0; j < RD; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int r = ty + 16 * i;
+    if (q0 + r < Lq) {
+      const float l = row_l[r];
+      T* orow = ob + (long long)(q0 + r) * osl;
+#pragma unroll
+      for (int j = 0; j < RD; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] / l);
+    }
+  }
+}
+
+template <typename T, int D, int BQ, int BK>
+int launch_flash(const void* q, const void* k, const void* v, void* o, int B, int H,
+                 int Lq, int Lk, const long long* st, float qscale, cudaStream_t stream) {
+  using S = FlashSmem<D, BQ, BK>;
+  auto kern = flash_fwd_kernel<T, D, BQ, BK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Lq + BQ - 1) / BQ, B * H);
+  kern<<<grid, 256, S::bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), H, Lq, Lk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], st[9], st[10], st[11], qscale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_head_dim(int D, const void* q, const void* k, const void* v, void* o,
+                      int B, int H, int Lq, int Lk, const long long* st, float qscale,
+                      cudaStream_t stream) {
+  switch (D) {
+    case 64:
+      return launch_flash<T, 64, 64, 64>(q, k, v, o, B, H, Lq, Lk, st, qscale, stream);
+    case 80:
+      return launch_flash<T, 80, 64, 64>(q, k, v, o, B, H, Lq, Lk, st, qscale, stream);
+    case 512:
+      return launch_flash<T, 512, 32, 32>(q, k, v, o, B, H, Lq, Lk, st, qscale, stream);
+    default:
+      return kErrUnsupported;
+  }
+}
+
+int flash_entry(int dtype, int D, const void* q, const void* k, const void* v, void* o,
+                int B, int H, int Lq, int Lk, const long long* strides, float qscale,
+                void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B * H > 65535) return kErrBadArgument;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16)
+    return dispatch_head_dim<__nv_bfloat16>(D, q, k, v, o, B, H, Lq, Lk, strides, qscale, s);
+  if (dtype == kFloat32)
+    return dispatch_head_dim<float>(D, q, k, v, o, B, H, Lq, Lk, strides, qscale, s);
+  return kErrUnsupported;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 K1 on the tensor cores: mma.sync.m16n8k16 (bf16 in, fp32 accumulate).
+//
+// Four warps per block, each owning 16 of the block's 64 query rows. Q (pre-
+// scaled, rounded to bf16) stays in registers as A fragments for the whole
+// key loop. Per 64-key tile: S = Q K^T with K's rows read straight from
+// shared memory as B fragments; the online softmax runs on the S
+// accumulators in registers (a row's 4 owning lanes reduce with shuffles);
+// p is rounded to bf16 and repacked in place as the A operand of P V (the
+// m16n8 accumulator layout equals the m16k16 A layout), and V's B fragments
+// come from ldmatrix.trans. Shared-memory rows are padded by 16 bytes, so
+// fragment loads and ldmatrix hit 32 distinct banks. Global loads are
+// 16-byte vectors: every row stride must be a multiple of 8 elements and the
+// base pointers 16-byte aligned (the wrapper checks; the projections are
+// contiguous). Copies are not yet overlapped with the math (no cp.async).
+
+__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* smem_ptr) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk,
+    long long qsb, long long qsl, long long qsh,
+    long long ksb, long long ksl, long long ksh,
+    long long vsb, long long vsl, long long vsh,
+    long long osb, long long osl, long long osh, float qscale) {
+  constexpr int BQ = 64, BK = 64;
+  constexpr int DP = D + 8;       // padded smem row, in elements
+  constexpr int V8 = D / 8;       // 16-byte vectors per row
+  constexpr int KS = D / 16;      // k-steps of S = Q K^T
+  constexpr int NS = BK / 8;      // n-tiles of S
+  constexpr int NO = D / 8;       // n-tiles of O
+  static_assert(D % 16 == 0 && NO % 2 == 0, "head dim");
+  constexpr float NEG_INF = -INFINITY;
+
+  __shared__ __align__(16) __nv_bfloat16 Qs[BQ * DP];
+  __shared__ __align__(16) __nv_bfloat16 Ks[BK * DP];
+  __shared__ __align__(16) __nv_bfloat16 Vs[BK * DP];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * BQ;
+  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
+  const __nv_bfloat16* kb = k + b * ksb + h * ksh;
+  const __nv_bfloat16* vb = v + b * vsb + h * vsh;
+  __nv_bfloat16* ob = o + b * osb + h * osh;
+
+  for (int e = tid; e < BQ * V8; e += 128) {
+    const int r = e / V8, c = (e % V8) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (q0 + r < Lq) {
+      val = *reinterpret_cast<const uint4*>(qb + (long long)(q0 + r) * qsl + c);
+      __nv_bfloat16* x = reinterpret_cast<__nv_bfloat16*>(&val);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) x[u] = __float2bfloat16(__bfloat162float(x[u]) * qscale);
+    }
+    *reinterpret_cast<uint4*>(&Qs[r * DP + c]) = val;
+  }
+  __syncthreads();
+
+  const int r0 = warp * 16 + gid;  // this lane's two query rows: r0, r0 + 8
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int c = ks * 16 + tig * 2;
+    qf[ks][0] = *reinterpret_cast<const uint32_t*>(&Qs[r0 * DP + c]);
+    qf[ks][1] = *reinterpret_cast<const uint32_t*>(&Qs[(r0 + 8) * DP + c]);
+    qf[ks][2] = *reinterpret_cast<const uint32_t*>(&Qs[r0 * DP + c + 8]);
+    qf[ks][3] = *reinterpret_cast<const uint32_t*>(&Qs[(r0 + 8) * DP + c + 8]);
+  }
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF};
+  float l_part[2] = {0.f, 0.f};  // this lane's share of the row denominators
+
+  for (int k0 = 0; k0 < Lk; k0 += BK) {
+    __syncthreads();  // every warp is done reading the previous K/V tile
+    for (int e = tid; e < BK * V8; e += 128) {
+      const int r = e / V8, c = (e % V8) * 8;
+      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+      if (k0 + r < Lk) {
+        kv = *reinterpret_cast<const uint4*>(kb + (long long)(k0 + r) * ksl + c);
+        vv = *reinterpret_cast<const uint4*>(vb + (long long)(k0 + r) * vsl + c);
+      }
+      *reinterpret_cast<uint4*>(&Ks[r * DP + c]) = kv;
+      *reinterpret_cast<uint4*>(&Vs[r * DP + c]) = vv;
+    }
+    __syncthreads();
+
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const __nv_bfloat16* krow = &Ks[(j * 8 + gid) * DP + ks * 16 + tig * 2];
+        mma_bf16_16816(s[j], qf[ks], *reinterpret_cast<const uint32_t*>(krow),
+                       *reinterpret_cast<const uint32_t*>(krow + 8));
+      }
+    }
+
+    // online softmax on the accumulators: s[j][0..1] are row r0, s[j][2..3]
+    // row r0 + 8, at key columns k0 + 8j + 2 tig + {0, 1}
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (k0 + j * 8 + tig * 2 + (u & 1) >= Lk) s[j][u] = NEG_INF;
+        mx[u >> 1] = fmaxf(mx[u >> 1], s[j][u]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_run[i], mx[i]);  // finite: key k0 is live
+      alpha[i] = exp2f(m_run[i] - m_new);          // 0 on the first tile
+      m_run[i] = m_new;
+      l_part[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float p = round_to<__nv_bfloat16>(exp2f(s[j][u] - m_run[u >> 1]));
+        s[j][u] = p;
+        l_part[u >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // acc += P V, 16 keys per k-step
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16x2(s[2 * kk][0], s[2 * kk][1]), pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      // ldmatrix x4: lanes 8i..8i+7 address matrix i = rows kk*16 + (i&1)*8 + (lane&7)
+      // at columns (n + (i>>1))*8, i.e. B fragments of n-tiles n and n + 1
+      const int mrow = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, &Vs[mrow * DP + (n + (lane >> 4)) * 8]);
+        mma_bf16_16816(acc[n], pa, bv[0], bv[1]);
+        mma_bf16_16816(acc[n + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_part[i] += __shfl_xor_sync(0xffffffffu, l_part[i], 1);
+    l_part[i] += __shfl_xor_sync(0xffffffffu, l_part[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    if (row >= Lq) continue;
+    const float l = l_part[i];
+    __nv_bfloat16* orow = ob + (long long)row * osl;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + tig * 2) =
+          pack_bf16x2(acc[n][2 * i] / l, acc[n][2 * i + 1] / l);
+    }
+  }
+}
+
+int launch_flash_mma64(const void* q, const void* k, const void* v, void* o, int B, int H,
+                       int Lq, int Lk, const long long* st, float qscale, cudaStream_t stream) {
+  // q/k/v: 16-byte vector loads (aligned bases, strides in whole vectors);
+  // o: bf16x2 stores
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v);
+  if (bases % 16 || reinterpret_cast<uintptr_t>(o) % 4) return kErrBadArgument;
+  for (int i = 0; i < 12; ++i)
+    if (st[i] % (i < 9 ? 8 : 2)) return kErrBadArgument;
+  dim3 grid((Lq + 63) / 64, B * H);
+  flash_fwd_mma_kernel<64><<<grid, 128, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, Lq, Lk, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], qscale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace vs
+
+// strides: 12 element strides (batch, row, head) for q, k, v, o in that order;
+// the head-dim stride must be 1. bf16 runs on the tensor cores, fp32 on FMAs.
+extern "C" int vs_flash_attention_packed(int dtype, int D, const void* q, const void* k,
+                                         const void* v, void* o, int B, int H, int Lq,
+                                         int Lk, const long long* strides, float qscale,
+                                         void* stream) {
+  if (D != 64) return vs::kErrUnsupported;  // every spatial UNet site has 64-dim heads
+  if (dtype != vs::kBFloat16)
+    return vs::flash_entry(dtype, D, q, k, v, o, B, H, Lq, Lk, strides, qscale, stream);
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B * H > 65535) return vs::kErrBadArgument;
+  return vs::launch_flash_mma64(q, k, v, o, B, H, Lq, Lk, strides, qscale,
+                                static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int vs_flash_attention_bhld(int dtype, int D, const void* q, const void* k,
+                                       const void* v, void* o, int B, int H, int Lq,
+                                       int Lk, const long long* strides, float qscale,
+                                       void* stream) {
+  return vs::flash_entry(dtype, D, q, k, v, o, B, H, Lq, Lk, strides, qscale, stream);
+}
+
+extern "C" const char* vs_error_string(int code) {
+  if (code == vs::kErrUnsupported) return "dtype or size not built into the kernel";
+  if (code == vs::kErrBadArgument) return "size or alignment out of the kernel's range";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

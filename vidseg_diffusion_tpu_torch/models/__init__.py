@@ -1,0 +1,1 @@
+"""models of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""ops of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,151 @@
+"""Build and load the hand-written Hopper kernels (csrc/*.cu).
+
+The kernels are compiled with nvcc from the package's own sources into one
+shared library with a plain C interface, on first use, into `_build/` next
+to the package (listed in .gitignore), and bound with ctypes. The library
+name carries a hash of the sources, so an edited kernel is rebuilt and a
+stale build is never loaded. Nothing here runs at import time: the CPU
+tests import every module of the port on a machine without nvcc.
+
+There is no fallback. Without nvcc, or on a card other than sm_90, loading
+raises; a wrapper handed a CUDA tensor launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Optional
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _find_nvcc() -> Optional[str]:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    return None
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile csrc/*.cu into _build/ (skipped when this source hash is
+    already built). Returns the library path; the compiler's output, with
+    ptxas's register and spill report, is kept in _build/build.log."""
+    lib_path = os.path.join(BUILD_DIR, f"libvidseg_kernels-{_source_hash()}.so")
+    if os.path.isfile(lib_path):
+        return lib_path
+    nvcc = _find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "cannot build the CUDA kernels: nvcc was not found on PATH, in "
+            "$CUDA_HOME/bin or in /usr/local/cuda/bin. The PyTorch port has no "
+            "fallback for CUDA tensors; CPU tensors use the plain versions."
+        )
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+_SIGNATURES = {
+    # dtype, D, q, k, v, o, B, H, Lq, Lk, strides[12], qscale, stream
+    "vs_flash_attention_packed": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P],
+    "vs_flash_attention_bhld": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P],
+    # dtype, D, q, k, v, o, nvid, t, S, H, qscale, stream
+    "vs_temporal_attention_direct": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # dtype, x, w, bias, y, B, T, M, Cin, Cout, kt, stream
+    "vs_temporal_conv_1x1": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; raises when it cannot."""
+    lib = ctypes.CDLL(build())
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
+    lib.vs_error_string.argtypes = [_I]
+    lib.vs_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_cuda_tensors(name: str, *tensors: torch.Tensor) -> torch.dtype:
+    """Device/dtype checks shared by the wrappers: every tensor on one CUDA
+    device, one dtype out of float32/bfloat16. Returns the dtype."""
+    dev = tensors[0].device
+    dtype = tensors[0].dtype
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on one CUDA device, got {t.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: mixed dtypes {dtype} and {t.dtype}")
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {dtype} not supported (float32, bfloat16)")
+    return dtype
+
+
+def call(name: str, *args) -> None:
+    """Invoke a kernel entry point on the current stream; raise on a nonzero
+    return (a refused launch or an argument the kernel was not built for)."""
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        msg = lib.vs_error_string(rc).decode()
+        raise RuntimeError(f"{name} failed: {msg} (code {rc})")
+
+
+def strides_arg(*tensors: torch.Tensor, dims=(0, 1, 2)):
+    """Pack (batch, row, head) element strides of each 4-D tensor for the
+    flash kernels; the last (head-dim) stride must be 1."""
+    vals = []
+    for t in tensors:
+        if t.stride(-1) != 1:
+            raise ValueError("flash kernels need a unit stride on the head dim")
+        vals.extend(int(t.stride(d)) for d in dims)
+    return (ctypes.c_longlong * len(vals))(*vals)

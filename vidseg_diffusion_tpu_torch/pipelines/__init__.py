@@ -1,0 +1,1 @@
+"""pipelines of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""scripts of the PyTorch port (see the package docstring)."""
