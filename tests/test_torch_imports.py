@@ -35,7 +35,8 @@ def test_port_imports_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     expected = {"ops.attention", "ops.temporal_conv", "models.unet", "models.vae", "models.clip",
                 "engine.vidseg", "engine.build", "pipelines.single_video", "io.convert",
-                "scripts.svd_single_video_inference"}
+                "scripts.svd_single_video_inference", "diffusion.loss", "engine.train", "utils.ema",
+                "scripts.train_path", "scripts.profile_train"}
     assert expected <= {m.split(".", 1)[1] for m in res["modules"]}
     assert res["jax"] == []
 
@@ -54,5 +55,6 @@ def test_kernel_library_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_packaged_and_hashed():
     srcs = [os.path.basename(p) for p in _cuda._sources()]
-    assert srcs == ["flash_attention.cu", "temporal_attention.cu", "temporal_conv.cu"]
+    assert srcs == ["flash_attention.cu", "flash_attention_bwd.cu", "temporal_attention.cu",
+                    "temporal_attention_bwd.cu", "temporal_conv.cu"]
     assert len(_cuda._source_hash()) == 16

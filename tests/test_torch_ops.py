@@ -78,6 +78,31 @@ def test_small_batched_attention_matches_pallas(b, lq, h):
     _close(tatt.small_batched_attention(T(q), T(k), T(v)), want)
 
 
+# -- K1 save_lse and K5 ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("lq,lk", [(128, 128), (200, 200), (200, 77)])
+def test_flash_attention_packed_backward_plain_matches_pallas(lq, lk):
+    """The plain K5 on JAX's saved LSE and output against the Pallas dq and
+    dk/dv kernels in interpret mode (L = 200: the ragged tails of both
+    grids); the plain save_lse LSE against the Pallas one."""
+    b, h, d = 2, 2, 16
+    q, g = _arrays(lq + 1, (b, lq, h * d), (b, lq, h * d))
+    k, v = _arrays(lk + 2, (b, lk, h * d), (b, lk, h * d))
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    out, lse = jatt._flash_attention_packed_impl(jq, jk, jv, heads=h, save_lse=True, interpret=True)
+    want = jatt._flash_attention_packed_bwd_impl(jq, jk, jv, out, lse, jg, heads=h, interpret=True)
+    t_out, t_lse = tatt.flash_attention_packed_reference(T(q), T(k), T(v), heads=h, save_lse=True)
+    _close(t_out, out)
+    _close(t_lse, lse)
+    before = tatt.flash_attention_packed_backward_reference.calls
+    got = tatt.flash_attention_packed_backward(T(q), T(k), T(v), T(np.array(out)), T(np.array(lse)),
+                                               T(g), heads=h)
+    assert tatt.flash_attention_packed_backward_reference.calls == before + 1  # CPU -> plain version
+    for a, w in zip(got, want):
+        _close(a, w)
+
+
 # -- K2 ---------------------------------------------------------------------
 
 
@@ -97,6 +122,83 @@ def test_temporal_attention_direct_unaligned_s_matches_jax_dispatch(s):
     q, k, v = _arrays(s, (b * t, s, h, d), (b * t, s, h, d), (b * t, s, h, d))
     want = jatt.temporal_attention_direct(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), t=t)
     _close(tatt.temporal_attention_direct(T(q), T(k), T(v), t=t), want)
+
+
+# -- K6 ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,t,s,h,d", [(2, 3, 32, 2, 16), (1, 14, 16, 2, 8)])
+def test_temporal_attention_direct_backward_plain_matches_pallas(b, t, s, h, d):
+    """The plain K6 against jax.vjp of the direct-layout kernel in interpret
+    mode, whose VJP runs the Pallas tiny-seq backward on the canonical
+    transposes."""
+    q, k, v, g = _arrays(s + t + 5, *[(b * t, s, h, d)] * 4)
+    jfn = lambda q_, k_, v_: jatt.temporal_attention_direct(q_, k_, v_, t=t, force=True, interpret=True)
+    out, vjp = jax.vjp(jfn, *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    got = tatt.temporal_attention_direct_backward(T(q), T(k), T(v), T(np.array(out)), T(g), t=t)
+    for a, w in zip(got, want):
+        _close(a, w)
+
+
+# -- gradients through the kernel wrappers -----------------------------------
+
+
+def _grads(fn, inputs, g):
+    xs = [T(a).requires_grad_() for a in inputs]
+    fn(*xs).backward(T(g))
+    return [x.grad for x in xs]
+
+
+_FUNCTIONS = {
+    "K1/K5": (lambda q, k, v: tatt.flash_attention_packed(q, k, v, heads=2),
+              lambda q, k, v: tatt.flash_attention_packed_reference(q, k, v, heads=2),
+              [(2, 70, 32)] * 3, (2, 70, 32)),
+    "K2/K6": (lambda q, k, v: tatt.temporal_attention_direct(q, k, v, t=5),
+              lambda q, k, v: tatt.temporal_attention_direct_reference(q, k, v, t=5),
+              [(10, 6, 2, 16)] * 3, (10, 6, 2, 16)),
+    "K4": (ttc.temporal_conv_1x1, ttc.temporal_conv_1x1_reference,
+           [(2, 5, 12, 16), (3, 16, 24), (24,)], (2, 5, 12, 24)),
+}
+
+
+@pytest.mark.parametrize("name", list(_FUNCTIONS))
+def test_kernel_functions_backward_match_autograd_of_plain_forward(name):
+    """On CPU tensors that require grad, each kernel wrapper runs as a
+    torch.autograd.Function whose backward is its backward kernel's plain
+    version; its gradients equal autograd's through the plain forward."""
+    fn, plain, shapes, out_shape = _FUNCTIONS[name]
+    inputs = _arrays(21, *shapes)
+    (g,) = _arrays(22, out_shape)
+    with torch.no_grad():
+        assert fn(*map(T, inputs)).grad_fn is None  # no grad: the forward alone
+    out = fn(*[T(a).requires_grad_() for a in inputs])
+    assert out.grad_fn is not None and "Backward" in type(out.grad_fn).__name__
+    for a, w in zip(_grads(fn, inputs, g), _grads(plain, inputs, g)):
+        _close(a, w, atol=2e-5, rtol=2e-5)
+
+
+def test_temporal_conv_grads_match_jax():
+    """K4's Function against jax.grad through the Pallas temporal conv's
+    custom_vjp (interpret mode); dx is the conv of g with reversed,
+    transposed taps."""
+    x, w, bias, g = _arrays(23, (2, 5, 12, 16), (3, 16, 24), (24,), (2, 5, 12, 24))
+    jfn = lambda x_, w_, b_: jtc.temporal_conv_1x1(x_, w_, b_, interpret=True)
+    _, vjp = jax.vjp(jfn, *map(jnp.asarray, (x, w, bias)))
+    want = vjp(jnp.asarray(g))
+    for a, ww in zip(_grads(ttc.temporal_conv_1x1, (x, w, bias), g), want):
+        _close(a, ww, atol=5e-5, rtol=5e-5)
+
+
+def test_flash_attention_bhld_refuses_a_gradient():
+    """K3 has no backward yet: an input that needs one raises (naming the
+    ROADMAP item) instead of returning a detached output."""
+    (x,) = _arrays(24, (1, 2, 20, 16))
+    xt = T(x).requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tatt.flash_attention(xt, xt, xt)
+    with torch.no_grad():
+        _close(tatt.flash_attention(xt, xt, xt), tatt.flash_attention_reference(T(x), T(x), T(x)))
 
 
 # -- K3 ---------------------------------------------------------------------
@@ -171,6 +273,11 @@ def test_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         ttc.temporal_conv_1x1(torch.empty((1, 2, 4, 8), device="meta"),
                               torch.empty((3, 8, 8), device="meta"), torch.empty((8,), device="meta"))
+    lse = torch.empty((1, 16, 1), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tatt.flash_attention_packed_backward(q, q, q, q, lse, q, heads=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tatt.temporal_attention_direct_backward(x4, x4, x4, x4, x4, t=2)
 
 
 # -- GroupNorm, image ops, segmentation, kmeans ------------------------------

@@ -76,6 +76,7 @@ def load_model_spec(path: str, num_steps: Optional[int] = None, num_frames: Opti
         merge_strategy=p.get("merge_strategy", "learned_with_images"),
         merge_factor=p.get("merge_factor", 0.5),
         video_kernel_size=tuple(p.get("video_kernel_size", (3, 1, 1))), dtype=dtype,
+        remat=bool(p.get("use_checkpoint", False)),
     )
 
     fs = _expect(root["first_stage_config"], "AutoencodingEngine")

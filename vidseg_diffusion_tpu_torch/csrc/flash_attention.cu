@@ -29,6 +29,12 @@
 //   S = Q K^T and for P V). The wide D=512 VAE head uses 32-row tiles and
 //   ~200 KB of dynamic shared memory (cudaFuncSetAttribute below).
 // Overlapping copies with the math (cp.async / TMA) and wgmma are next.
+//
+// Training (K1 only): with a non-null `lse` the kernels also write each
+// row's base-2 logsumexp m + log2(l) per head, fp32 [B, Lq, H] (the JAX
+// kernel's save_lse output, attention.py:404-405, :431-433), from the final
+// running max m and the denominator l summed from the rounded p. The
+// backward (K5, flash_attention_bwd.cu) recomputes p = exp2(s - lse) from it.
 #include "common.cuh"
 
 namespace vs {
@@ -45,7 +51,7 @@ struct FlashSmem {
 template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(256) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int H, int Lq, int Lk,
+    T* __restrict__ o, float* __restrict__ lse, int H, int Lq, int Lk,
     long long qsb, long long qsl, long long qsh,
     long long ksb, long long ksl, long long ksh,
     long long vsb, long long vsl, long long vsh,
@@ -180,6 +186,8 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
     }
   }
 
+  if (lse != nullptr && tid < BQ && q0 + tid < Lq)
+    lse[((long long)b * Lq + q0 + tid) * H + h] = row_m[tid] + log2f(row_l[tid]);
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int r = ty + 16 * i;
@@ -193,8 +201,9 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
 }
 
 template <typename T, int D, int BQ, int BK>
-int launch_flash(const void* q, const void* k, const void* v, void* o, int B, int H,
-                 int Lq, int Lk, const long long* st, float qscale, cudaStream_t stream) {
+int launch_flash(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                 int H, int Lq, int Lk, const long long* st, float qscale,
+                 cudaStream_t stream) {
   using S = FlashSmem<D, BQ, BK>;
   auto kern = flash_fwd_kernel<T, D, BQ, BK>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -203,36 +212,37 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int B, in
   dim3 grid((Lq + BQ - 1) / BQ, B * H);
   kern<<<grid, 256, S::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Lq, Lk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], qscale);
+      static_cast<T*>(o), lse, H, Lq, Lk, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], st[9], st[10], st[11], qscale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_head_dim(int D, const void* q, const void* k, const void* v, void* o,
-                      int B, int H, int Lq, int Lk, const long long* st, float qscale,
-                      cudaStream_t stream) {
+                      float* lse, int B, int H, int Lq, int Lk, const long long* st,
+                      float qscale, cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch_flash<T, 64, 64, 64>(q, k, v, o, B, H, Lq, Lk, st, qscale, stream);
+      return launch_flash<T, 64, 64, 64>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
     case 80:
-      return launch_flash<T, 80, 64, 64>(q, k, v, o, B, H, Lq, Lk, st, qscale, stream);
+      return launch_flash<T, 80, 64, 64>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
     case 512:
-      return launch_flash<T, 512, 32, 32>(q, k, v, o, B, H, Lq, Lk, st, qscale, stream);
+      return launch_flash<T, 512, 32, 32>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
     default:
       return kErrUnsupported;
   }
 }
 
 int flash_entry(int dtype, int D, const void* q, const void* k, const void* v, void* o,
-                int B, int H, int Lq, int Lk, const long long* strides, float qscale,
-                void* stream) {
+                float* lse, int B, int H, int Lq, int Lk, const long long* strides,
+                float qscale, void* stream) {
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B * H > 65535) return kErrBadArgument;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16)
-    return dispatch_head_dim<__nv_bfloat16>(D, q, k, v, o, B, H, Lq, Lk, strides, qscale, s);
+    return dispatch_head_dim<__nv_bfloat16>(D, q, k, v, o, lse, B, H, Lq, Lk, strides,
+                                            qscale, s);
   if (dtype == kFloat32)
-    return dispatch_head_dim<float>(D, q, k, v, o, B, H, Lq, Lk, strides, qscale, s);
+    return dispatch_head_dim<float>(D, q, k, v, o, lse, B, H, Lq, Lk, strides, qscale, s);
   return kErrUnsupported;
 }
 
@@ -276,7 +286,8 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 template <int D>
 __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int H, int Lq, int Lk,
     long long qsb, long long qsl, long long qsh,
     long long ksb, long long ksl, long long ksh,
     long long vsb, long long vsl, long long vsh,
@@ -428,6 +439,7 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
     const int row = q0 + r0 + 8 * i;
     if (row >= Lq) continue;
     const float l = l_part[i];
+    if (lse != nullptr && tig == 0) lse[((long long)b * Lq + row) * H + h] = m_run[i] + log2f(l);
     __nv_bfloat16* orow = ob + (long long)row * osl;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
@@ -437,8 +449,9 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
   }
 }
 
-int launch_flash_mma64(const void* q, const void* k, const void* v, void* o, int B, int H,
-                       int Lq, int Lk, const long long* st, float qscale, cudaStream_t stream) {
+int launch_flash_mma64(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                       int H, int Lq, int Lk, const long long* st, float qscale,
+                       cudaStream_t stream) {
   // q/k/v: 16-byte vector loads (aligned bases, strides in whole vectors);
   // o: bf16x2 stores
   const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -449,8 +462,9 @@ int launch_flash_mma64(const void* q, const void* k, const void* v, void* o, int
   dim3 grid((Lq + 63) / 64, B * H);
   flash_fwd_mma_kernel<64><<<grid, 128, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, Lq, Lk, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], qscale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+      qscale);
   return (int)cudaGetLastError();
 }
 
@@ -458,15 +472,17 @@ int launch_flash_mma64(const void* q, const void* k, const void* v, void* o, int
 
 // strides: 12 element strides (batch, row, head) for q, k, v, o in that order;
 // the head-dim stride must be 1. bf16 runs on the tensor cores, fp32 on FMAs.
+// lse: NULL, or fp32 [B, Lq, H] contiguous for the base-2 logsumexp.
 extern "C" int vs_flash_attention_packed(int dtype, int D, const void* q, const void* k,
-                                         const void* v, void* o, int B, int H, int Lq,
-                                         int Lk, const long long* strides, float qscale,
-                                         void* stream) {
+                                         const void* v, void* o, void* lse, int B, int H,
+                                         int Lq, int Lk, const long long* strides,
+                                         float qscale, void* stream) {
   if (D != 64) return vs::kErrUnsupported;  // every spatial UNet site has 64-dim heads
+  float* l = static_cast<float*>(lse);
   if (dtype != vs::kBFloat16)
-    return vs::flash_entry(dtype, D, q, k, v, o, B, H, Lq, Lk, strides, qscale, stream);
+    return vs::flash_entry(dtype, D, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, stream);
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B * H > 65535) return vs::kErrBadArgument;
-  return vs::launch_flash_mma64(q, k, v, o, B, H, Lq, Lk, strides, qscale,
+  return vs::launch_flash_mma64(q, k, v, o, l, B, H, Lq, Lk, strides, qscale,
                                 static_cast<cudaStream_t>(stream));
 }
 
@@ -474,7 +490,7 @@ extern "C" int vs_flash_attention_bhld(int dtype, int D, const void* q, const vo
                                        const void* v, void* o, int B, int H, int Lq,
                                        int Lk, const long long* strides, float qscale,
                                        void* stream) {
-  return vs::flash_entry(dtype, D, q, k, v, o, B, H, Lq, Lk, strides, qscale, stream);
+  return vs::flash_entry(dtype, D, q, k, v, o, nullptr, B, H, Lq, Lk, strides, qscale, stream);
 }
 
 extern "C" const char* vs_error_string(int code) {

@@ -1,5 +1,5 @@
 """Denoiser pre-conditioning (PyTorch): VScalingWithEDMcNoise, the SVD
-scaling of vidseg_diffusion_tpu/diffusion/scaling.py."""
+scaling, and EpsScaling, of vidseg_diffusion_tpu/diffusion/scaling.py."""
 
 from __future__ import annotations
 
@@ -19,3 +19,11 @@ class VScalingWithEDMcNoise:
         c_in = 1.0 / (sigma**2 + 1.0) ** 0.5
         c_noise = 0.25 * torch.log(sigma)
         return c_skip, c_out, c_in, c_noise
+
+
+@dataclasses.dataclass(frozen=True)
+class EpsScaling:
+    """epsilon-prediction scaling (denoiser_scaling.py:29-37)."""
+
+    def __call__(self, sigma: torch.Tensor):
+        return torch.ones_like(sigma), -sigma, 1.0 / (sigma**2 + 1.0) ** 0.5, sigma

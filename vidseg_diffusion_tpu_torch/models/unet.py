@@ -8,6 +8,11 @@ tensors are [(b t), H, W, C]; the temporal (kt,1,1) convolutions run on
 config exactly as the reference's constructor loops build it, so module
 names are the sgm state-dict keys (input_blocks.{i}.{j}, middle_block,
 output_blocks, out).
+
+With `UNetConfig.remat` (the reference's use_checkpoint) each VideoResBlock
+and SpatialVideoTransformer runs under torch.utils.checkpoint while grad
+is enabled: its activations are recomputed in the backward instead of
+kept. Inference (no grad) and blocks with VidSeg hooks run as they are.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from vidseg_diffusion_tpu_torch.models.layers import (
     AlphaBlender,
@@ -66,6 +72,9 @@ class UNetConfig:
     merge_factor: float = 0.5
     video_kernel_size: Tuple[int, ...] = (3, 1, 1)
     dtype: torch.dtype = torch.float32
+    # per-block activation recompute in the backward (use_checkpoint; the
+    # JAX package's nn.remat with the default full-recompute policy)
+    remat: bool = False
 
     def block_layout(self):
         """Per input/output block (kind, ch, ds, attn, ...), reproducing the
@@ -275,13 +284,22 @@ class UNetModel(nn.Module):
         if context is not None:
             context = context.to(dt)
         t = num_video_frames
+        remat = cfg.remat and torch.is_grad_enabled()
+
+        def call(m, *args):
+            if remat:
+                return checkpoint(m, *args, use_reentrant=False)
+            return m(*args)
 
         def run_block(mods, h, mod=None, inj=None, sow=None):
             for m in mods:
                 if isinstance(m, VideoResBlock):
-                    h = m(h, emb, t, image_only_indicator)
+                    h = call(m, h, emb, t, image_only_indicator)
                 elif isinstance(m, SpatialVideoTransformer):
-                    h = m(h, context, t, image_only_indicator, mod, inj, sow)
+                    if mod is None and inj is None and sow is None:
+                        h = call(m, h, context, t, image_only_indicator)
+                    else:
+                        h = m(h, context, t, image_only_indicator, mod, inj, sow)
                 else:
                     h = m(h)
             return h

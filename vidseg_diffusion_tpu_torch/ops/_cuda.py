@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels (csrc/*.cu).
 
-The kernels are compiled with nvcc from the package's own sources into one
-shared library with a plain C interface, on first use, into `_build/` next
-to the package (listed in .gitignore), and bound with ctypes. The library
+The kernels are compiled with nvcc from the package's own sources, one nvcc
+process per source file, all started together, then linked into one shared
+library with a plain C interface, on first use, into `_build/` next to the
+package (listed in .gitignore), and bound with ctypes. The library
 name carries a hash of the sources, so an edited kernel is rebuilt and a
 stale build is never loaded. Nothing here runs at import time: the CPU
 tests import every module of the port on a machine without nvcc.
@@ -20,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from typing import Optional
 
 import torch
@@ -30,7 +32,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -62,8 +64,9 @@ def _source_hash() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu into _build/ (skipped when this source hash is
-    already built). Returns the library path; the compiler's output, with
-    ptxas's register and spill report, is kept in _build/build.log."""
+    already built): one nvcc per source in parallel, then one link. Returns
+    the library path; the compilers' output, with ptxas's register and
+    spill report, is kept in _build/build.log."""
     lib_path = os.path.join(BUILD_DIR, f"libvidseg_kernels-{_source_hash()}.so")
     if os.path.isfile(lib_path):
         return lib_path
@@ -76,12 +79,33 @@ def build() -> str:
         )
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    log, errors = [], []
+    t0 = time.perf_counter()
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        log.append(f"{' '.join(cmd)}\n[done after {time.perf_counter() - t0:.1f} s]\n{out}{err}")
+        if proc.returncode != 0:
+            errors.append(f"{cmd[-1]} ({proc.returncode}):\n{err[-4000:]}")
+    objs = [obj for _, obj, _ in jobs]
+    if not errors:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            errors.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        f.write("\n".join(log))
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -91,11 +115,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 _SIGNATURES = {
+    # dtype, D, q, k, v, o, lse (NULL: none), B, H, Lq, Lk, strides[12], qscale, stream
+    "vs_flash_attention_packed": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P],
     # dtype, D, q, k, v, o, B, H, Lq, Lk, strides[12], qscale, stream
-    "vs_flash_attention_packed": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P],
     "vs_flash_attention_bhld": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P],
+    # dtype, D, q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Lq, Lk, strides[24],
+    # qscale, scale, stream
+    "vs_flash_attention_packed_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _P, _F, _F, _P],
     # dtype, D, q, k, v, o, nvid, t, S, H, qscale, stream
     "vs_temporal_attention_direct": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # dtype, D, q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, stream
+    "vs_temporal_attention_direct_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                         _I, _I, _I, _I, _F, _F, _P],
     # dtype, x, w, bias, y, B, T, M, Cin, Cout, kt, stream
     "vs_temporal_conv_1x1": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -142,7 +174,8 @@ def call(name: str, *args) -> None:
 
 def strides_arg(*tensors: torch.Tensor, dims=(0, 1, 2)):
     """Pack (batch, row, head) element strides of each 4-D tensor for the
-    flash kernels; the last (head-dim) stride must be 1."""
+    flash kernels (forward and backward); the last (head-dim) stride must
+    be 1."""
     vals = []
     for t in tensors:
         if t.stride(-1) != 1:

@@ -1,9 +1,10 @@
-"""Attention: plain PyTorch versions and the wrappers of kernels K1, K2, K3.
+"""Attention: plain PyTorch versions and the wrappers of kernels K1, K2, K3,
+K5 and K6.
 
 Counterpart of vidseg_diffusion_tpu/ops/attention.py. Layouts are the JAX
-package's: packed [B, L, H*D] for K1, [B, L, H, D] ("blhd") at the module
-sites, [(b t), s, H, D] for the direct temporal layout (K2) and [B, H, L, D]
-("bhld") for K3.
+package's: packed [B, L, H*D] for K1 and its backward K5, [B, L, H, D]
+("blhd") at the module sites, [(b t), s, H, D] for the direct temporal
+layout (K2 and its backward K6) and [B, H, L, D] ("bhld") for K3.
 
 Each kernel wrapper takes its plain version for tensors on the CPU and
 launches its CUDA kernel (csrc/) for tensors on a CUDA device, or raises;
@@ -11,10 +12,21 @@ there is no fallback between the two. Each wrapper and each plain version
 carries a plain integer counter (`.launches` / `.calls`) that a run can read
 to show which path it took.
 
+Gradients: when grad mode is on and an input requires grad, K1 and K2 run
+inside a torch.autograd.Function (the JAX package's custom_vjp, attention.py
+:1273-1535) whose backward is K5 (packed flash backward) or K6 (direct-layout
+temporal backward) on CUDA and their plain versions on the CPU, so both
+devices have the same autograd structure. K1 then also writes the per-row
+base-2 logsumexp that K5 reads. Otherwise (inference, torch.no_grad) the
+wrappers launch the forward kernel alone: no LSE, no saved tensors. K3 has
+no backward yet and refuses inputs that need one.
+
 The plain versions of the kernels reproduce the kernels' arithmetic: q
 pre-scaled by scale*log2(e) in the input dtype, a base-2 softmax, and the p
 that feeds P.V rounded to the input dtype with the denominator summed from
-the rounded p (ops/attention.py:377-396, :505 of the JAX package).
+the rounded p (ops/attention.py:377-396, :505 of the JAX package); the
+backward versions round ds, and p where it feeds dV, to the input dtype
+before the products (attention.py:813-906, :1068-1120).
 """
 
 from __future__ import annotations
@@ -34,13 +46,22 @@ def _rounded_qscale(scale: float, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(scale * LOG2_E, dtype=dtype)
 
 
-def _attention_base2(q, k, v, scale):
-    """The kernels' math on blhd [B, L, H, D] inputs; returns fp32 blhd."""
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _attention_base2(q, k, v, scale, with_lse: bool = False):
+    """The kernels' math on blhd [B, L, H, D] inputs; returns fp32 blhd, and
+    with_lse the base-2 logsumexp m + log2(l) as fp32 [B, L, H]."""
     qs = (q * _rounded_qscale(scale, q.dtype).to(q.device)).float()
     s = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
-    p = torch.exp2(s - s.amax(dim=-1, keepdim=True)).to(v.dtype).float()
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
-    return out / p.sum(dim=-1).permute(0, 2, 1)[..., None]
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m).to(v.dtype).float()
+    l = p.sum(dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / l.permute(0, 2, 1)[..., None]
+    if not with_lse:
+        return out
+    return out, (m[..., 0] + torch.log2(l)).permute(0, 2, 1)
 
 
 def mha_reference(q, k, v, scale: Optional[float] = None, layout: str = "bhld"):
@@ -61,63 +82,181 @@ def mha_reference(q, k, v, scale: Optional[float] = None, layout: str = "bhld"):
 mha_reference.calls = 0
 
 
-# -- K1: packed flash attention --------------------------------------------
+# -- K1: packed flash attention (forward, optional LSE) ------------------------
 
 
-def flash_attention_packed_reference(q, k, v, heads: int, scale: Optional[float] = None):
-    """Plain version of K1 on packed [B, L, H*D]."""
+def flash_attention_packed_reference(q, k, v, heads: int, scale: Optional[float] = None,
+                                     save_lse: bool = False):
+    """Plain version of K1 on packed [B, L, H*D]; save_lse also returns the
+    base-2 LSE [B, L, H] fp32 (the JAX package's save_lse output)."""
     flash_attention_packed_reference.calls += 1
     b, lq, hd = q.shape
     lk = k.shape[1]
     d = hd // heads
     scale = 1.0 / math.sqrt(d) if scale is None else scale
-    out = _attention_base2(
+    res = _attention_base2(
         q.reshape(b, lq, heads, d), k.reshape(b, lk, heads, d),
-        v.reshape(b, lk, heads, d), scale,
+        v.reshape(b, lk, heads, d), scale, with_lse=save_lse,
     )
-    return out.reshape(b, lq, hd).to(q.dtype)
+    if save_lse:
+        return res[0].reshape(b, lq, hd).to(q.dtype), res[1]
+    return res.reshape(b, lq, hd).to(q.dtype)
 
 
 flash_attention_packed_reference.calls = 0
 
 
-def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None):
-    """K1: online-softmax attention on packed [B, L, H*D] (any L, D = 64),
-    read through the tensors' strides with no transpose."""
-    if q.device.type == "cpu":
-        return flash_attention_packed_reference(q, k, v, heads, scale)
-    dtype = _cuda.check_cuda_tensors("flash_attention_packed", q, k, v)
+def _check_packed(name, q, k, v, heads):
+    dtype = _cuda.check_cuda_tensors(name, q, k, v)
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
-        raise ValueError(f"flash_attention_packed: bad shapes {q.shape} {k.shape} {v.shape}")
+        raise ValueError(f"{name}: bad shapes {q.shape} {k.shape} {v.shape}")
+    b, _, hd = q.shape
+    if k.shape[0] != b or k.shape[2] != hd or hd % heads:
+        raise ValueError(f"{name}: bad shapes {q.shape} {k.shape}, heads={heads}")
+    return dtype
+
+
+def _check_bf16_rows(name, dtype, strides, n_vec, *tensors):
+    """The bf16 tensor-core kernels load rows as 16-byte vectors: the first
+    `n_vec` strides must be whole vectors and the base pointers aligned."""
+    if dtype == torch.bfloat16 and (any(s % 8 for s in strides[:n_vec])
+                                    or any(t.data_ptr() % 16 for t in tensors)):
+        raise ValueError(f"{name}: bf16 q/k/v rows must be 16-byte aligned")
+
+
+def _flash_attention_packed_forward(q, k, v, heads: int, scale: Optional[float], save_lse: bool):
+    """K1 on CUDA tensors (the plain version on CPU): out, or (out, lse)."""
+    if q.device.type == "cpu":
+        return flash_attention_packed_reference(q, k, v, heads, scale, save_lse=save_lse)
+    dtype = _check_packed("flash_attention_packed", q, k, v, heads)
     b, lq, hd = q.shape
     lk = k.shape[1]
-    if k.shape[0] != b or k.shape[2] != hd or hd % heads:
-        raise ValueError(f"flash_attention_packed: bad shapes {q.shape} {k.shape}, heads={heads}")
     d = hd // heads
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     out = torch.empty((b, lq, heads, d), dtype=dtype, device=q.device)
+    lse = torch.empty((b, lq, heads), dtype=torch.float32, device=q.device) if save_lse else None
     strides = _cuda.strides_arg(q.view(b, lq, heads, d), k.view(b, lk, heads, d),
                                 v.view(b, lk, heads, d), out)
-    if dtype == torch.bfloat16 and (any(s % 8 for s in strides[:9])
-                                    or any(t.data_ptr() % 16 for t in (q, k, v))):
-        raise ValueError("flash_attention_packed: bf16 q/k/v rows must be 16-byte aligned")
+    _check_bf16_rows("flash_attention_packed", dtype, strides, 9, q, k, v)
     _cuda.call(
         "vs_flash_attention_packed", _cuda.DTYPE_CODES[dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if save_lse else None,
         b, heads, lq, lk, strides, float(_rounded_qscale(scale, dtype)),
     )
     flash_attention_packed.launches += 1
-    return out.view(b, lq, hd)
+    out = out.view(b, lq, hd)
+    return (out, lse) if save_lse else out
+
+
+class _FlashAttentionPacked(torch.autograd.Function):
+    """K1 forward with LSE; K5 backward (the JAX package's _fap custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, scale):
+        out, lse = _flash_attention_packed_forward(q, k, v, heads, scale, save_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.heads, ctx.scale = heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_packed_backward(
+            q, k, v, out, lse, g.contiguous(), ctx.heads, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None):
+    """K1: online-softmax attention on packed [B, L, H*D] (any L, D = 64),
+    read through the tensors' strides with no transpose. Differentiable:
+    with grad on, the backward is K5."""
+    if _needs_grad(q, k, v):
+        return _FlashAttentionPacked.apply(q, k, v, heads, scale)
+    return _flash_attention_packed_forward(q, k, v, heads, scale, save_lse=False)
 
 
 flash_attention_packed.launches = 0
+
+
+# -- K5: packed flash-attention backward ---------------------------------------
+
+
+def flash_attention_packed_backward_reference(q, k, v, out, lse, g, heads: int,
+                                              scale: Optional[float] = None):
+    """Plain version of K5 (_flash_attention_packed_bwd_impl): p recomputed
+    as exp2(qf k^T - lse) with qf = q*scale*log2(e) in the input dtype,
+    delta = rowsum(g * out) per head in fp32, ds = p * (g v^T - delta); ds,
+    and p where it feeds dv, rounded to the input dtype; dq scaled by
+    `scale`, dk divided by log2(e). Returns (dq, dk, dv) packed."""
+    flash_attention_packed_backward_reference.calls += 1
+    b, lq, hd = q.shape
+    lk = k.shape[1]
+    d = hd // heads
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    dt = q.dtype
+    qf = (q * _rounded_qscale(scale, dt).to(q.device)).reshape(b, lq, heads, d).float()
+    kf = k.reshape(b, lk, heads, d).float()
+    vf = v.reshape(b, lk, heads, d).float()
+    gf = g.to(dt).reshape(b, lq, heads, d).float()
+    delta = (g.float() * out.float()).reshape(b, lq, heads, d).sum(-1)        # [B, Lq, H]
+    p = torch.exp2(torch.einsum("bqhd,bkhd->bhqk", qf, kf) - lse.permute(0, 2, 1)[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = (p * (dp - delta.permute(0, 2, 1)[..., None])).to(dt).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), gf)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * (1.0 / LOG2_E)
+    return (dq.reshape(b, lq, hd).to(dt), dk.reshape(b, lk, hd).to(k.dtype),
+            dv.reshape(b, lk, hd).to(v.dtype))
+
+
+flash_attention_packed_backward_reference.calls = 0
+
+
+def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
+                                    scale: Optional[float] = None):
+    """K5: (dq, dk, dv) of K1 from its saved LSE, on packed [B, L, H*D]
+    through strides; two kernels, dq over key tiles and dk/dv over query
+    tiles, each the only writer of its outputs. The plain version on CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_packed_backward_reference(q, k, v, out, lse, g, heads, scale)
+    dtype = _check_packed("flash_attention_packed_backward", q, k, v, heads)
+    _cuda.check_cuda_tensors("flash_attention_packed_backward", q, out, g)
+    b, lq, hd = q.shape
+    lk = k.shape[1]
+    d = hd // heads
+    if out.shape != q.shape or g.shape != q.shape or lse.shape != (b, lq, heads):
+        raise ValueError(f"flash_attention_packed_backward: bad shapes out {out.shape}, "
+                         f"g {g.shape}, lse {lse.shape} for q {q.shape}")
+    if lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError("flash_attention_packed_backward: lse must be contiguous fp32 on q's device")
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    dq = torch.empty((b, lq, heads, d), dtype=dtype, device=q.device)
+    dk = torch.empty((b, lk, heads, d), dtype=dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((b, lq, heads), dtype=torch.float32, device=q.device)  # scratch
+    r4 = lambda t, l: t.view(b, l, heads, d)
+    strides = _cuda.strides_arg(r4(q, lq), r4(k, lk), r4(v, lk), r4(out, lq), r4(g, lq), dq, dk, dv)
+    _check_bf16_rows("flash_attention_packed_backward", dtype, strides, 15, q, k, v, out, g)
+    _cuda.call(
+        "vs_flash_attention_packed_bwd", _cuda.DTYPE_CODES[dtype], d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, heads, lq, lk, strides, float(_rounded_qscale(scale, dtype)), float(scale),
+    )
+    flash_attention_packed_backward.launches += 1
+    return dq.view(b, lq, hd), dk.view(b, lk, hd), dv.view(b, lk, hd)
+
+
+flash_attention_packed_backward.launches = 0
 
 
 def small_batched_attention(q, k, v, scale: Optional[float] = None):
     """Attention on [B, L, H, D]. The TPU folds many short problems
     (L < 512) into one MXU tile (_small_seq_kernel); on the GPU short and
     long problems alike are rows of K1's grid on the packed view, so this
-    also serves dot_product_attention's long spatial sites."""
+    also serves dot_product_attention's long spatial sites (and K5 their
+    backward)."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
     out = flash_attention_packed(
@@ -156,20 +295,23 @@ def temporal_attention_direct_reference(q, k, v, t: int, scale: Optional[float] 
 temporal_attention_direct_reference.calls = 0
 
 
-def temporal_attention_direct(q, k, v, t: int, scale: Optional[float] = None):
-    """K2: softmax over the t frames of each (video, token, head), read from
-    the spatial token layout [(b t), s, H, D] (contiguous, D = 64, t <= 32,
-    any s)."""
+def _check_temporal(name, t, *tensors):
+    dtype = _cuda.check_cuda_tensors(name, *tensors)
+    q = tensors[0]
+    if q.dim() != 4 or any(x.shape != q.shape for x in tensors):
+        raise ValueError(f"{name}: bad shapes {[tuple(x.shape) for x in tensors]}")
+    if q.shape[0] % t or not 0 < t <= 32:
+        raise ValueError(f"{name}: rows {q.shape[0]} vs t={t}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    return dtype
+
+
+def _temporal_attention_direct_forward(q, k, v, t: int, scale: Optional[float]):
     if q.device.type == "cpu":
         return temporal_attention_direct_reference(q, k, v, t, scale)
-    dtype = _cuda.check_cuda_tensors("temporal_attention_direct", q, k, v)
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"temporal_attention_direct: bad shapes {q.shape} {k.shape} {v.shape}")
+    dtype = _check_temporal("temporal_attention_direct", t, q, k, v)
     bt, s, h, d = q.shape
-    if bt % t or not 0 < t <= 32:
-        raise ValueError(f"temporal_attention_direct: rows {bt} vs t={t}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("temporal_attention_direct: inputs must be contiguous")
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     out = torch.empty_like(q)
     _cuda.call(
@@ -181,7 +323,89 @@ def temporal_attention_direct(q, k, v, t: int, scale: Optional[float] = None):
     return out
 
 
+class _TemporalAttentionDirect(torch.autograd.Function):
+    """K2 forward; K6 backward (the JAX package's _tad custom_vjp, without
+    its canonical-layout transposes)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, t, scale):
+        out = _temporal_attention_direct_forward(q, k, v, t, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.t, ctx.scale = t, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = temporal_attention_direct_backward(q, k, v, out, g.contiguous(), ctx.t, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def temporal_attention_direct(q, k, v, t: int, scale: Optional[float] = None):
+    """K2: softmax over the t frames of each (video, token, head), read from
+    the spatial token layout [(b t), s, H, D] (contiguous, D = 64, t <= 32,
+    any s). Differentiable: with grad on, the backward is K6."""
+    if _needs_grad(q, k, v):
+        return _TemporalAttentionDirect.apply(q, k, v, t, scale)
+    return _temporal_attention_direct_forward(q, k, v, t, scale)
+
+
 temporal_attention_direct.launches = 0
+
+
+# -- K6: direct-layout temporal-attention backward -----------------------------
+
+
+def temporal_attention_direct_backward_reference(q, k, v, out, g, t: int,
+                                                 scale: Optional[float] = None):
+    """Plain version of K6 (_small_seq_bwd_kernel's math on the t-length
+    problems): the softmax recomputed as the true weights e / sum(e) in fp32,
+    delta = rowsum(g * out), ds = p * (g v^T - delta); ds, and p where it
+    feeds dv, rounded to the input dtype. [(b t), s, H, D] in and out."""
+    temporal_attention_direct_backward_reference.calls += 1
+    bt, s, h, d = q.shape
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    dt = q.dtype
+    can = lambda x: _to_canonical(x, t).float()
+    qf = can(q * _rounded_qscale(scale, dt).to(q.device))
+    kf, vf, gf = can(k), can(v), can(g.to(dt))
+    delta = (can(g) * can(out)).sum(-1).permute(0, 2, 1)[..., None]   # [(b s), h, t, 1]
+    s2 = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    e = torch.exp2(s2 - s2.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = (p * (dp - delta)).to(dt).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), gf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * (1.0 / LOG2_E)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    back = lambda x, like: _from_canonical(x, t, bt // t).to(like.dtype)
+    return back(dq, q), back(dk, k), back(dv, v)
+
+
+temporal_attention_direct_backward_reference.calls = 0
+
+
+def temporal_attention_direct_backward(q, k, v, out, g, t: int, scale: Optional[float] = None):
+    """K6: (dq, dk, dv) of K2, read and written in the UNet-native
+    [(b t), s, H, D] layout (no canonical transposes); one warp per
+    (video, token, head) problem. The plain version on CPU."""
+    if q.device.type == "cpu":
+        return temporal_attention_direct_backward_reference(q, k, v, out, g, t, scale)
+    dtype = _check_temporal("temporal_attention_direct_backward", t, q, k, v, out, g)
+    bt, s, h, d = q.shape
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _cuda.call(
+        "vs_temporal_attention_direct_bwd", _cuda.DTYPE_CODES[dtype], d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        bt // t, t, s, h, float(_rounded_qscale(scale, dtype)), float(scale),
+    )
+    temporal_attention_direct_backward.launches += 1
+    return dq, dk, dv
+
+
+temporal_attention_direct_backward.launches = 0
 
 
 # -- K3: bhld flash attention -------------------------------------------------
@@ -202,7 +426,15 @@ flash_attention_reference.calls = 0
 
 def flash_attention(q, k, v, scale: Optional[float] = None):
     """K3: flash attention on bhld [B, H, L, D] through strides (D in
-    {64, 80, 512}: the VAE's single 512-dim head and CLIP's 80-dim heads)."""
+    {64, 80, 512}: the VAE's single 512-dim head and CLIP's 80-dim heads).
+    Forward only: its backward (the JAX package routes it to the packed
+    backward with heads=1, attention.py:1211-1261) comes with the
+    autoencoder-training slice, so an input that needs a gradient raises
+    instead of returning a detached output."""
+    if _needs_grad(q, k, v):
+        raise NotImplementedError(
+            "flash_attention (K3) has no backward yet: it comes with the autoencoder-training "
+            "slice (ROADMAP Queue A item 12); call it under torch.no_grad()")
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
     dtype = _cuda.check_cuda_tensors("flash_attention", q, k, v)
@@ -255,5 +487,13 @@ PLAIN_COUNTERS = (
     flash_attention_packed_reference,
     temporal_attention_direct_reference,
     flash_attention_reference,
+    flash_attention_packed_backward_reference,
+    temporal_attention_direct_backward_reference,
 )
-KERNEL_COUNTERS = (flash_attention_packed, temporal_attention_direct, flash_attention)
+KERNEL_COUNTERS = (
+    flash_attention_packed,
+    temporal_attention_direct,
+    flash_attention,
+    flash_attention_packed_backward,
+    temporal_attention_direct_backward,
+)

@@ -5,8 +5,8 @@
 Runs the main path of scripts/main_path.py (the run chip_smoke.py checks:
 svd.yaml at full width, random bf16 weights, 14 synthetic 448x832 frames)
 once to warm up, then once more under torch.profiler. Prints the stage
-seconds, the device time by kernel name (top 30) and the device busy share
-of the profiled run's wall time.
+seconds, the device time by group and by kernel name (top 30) and the
+device busy share of the profiled run's wall time.
 """
 
 import json
@@ -15,6 +15,45 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+
+
+# device-time groups, by kernel name: the port's kernels (csrc/, namespace
+# vs::), the vendor GEMM / convolution kernels, and everything else
+# (PyTorch's elementwise, reduction, norm and copy kernels)
+_GROUPS = (("port kernels (csrc)", ("vs::",)),
+           ("GEMM / conv (cuBLAS, cuDNN)", ("nvjet", "xmma", "gemm", "cutlass", "cudnn", "conv")))
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    return next((g for g, keys in _GROUPS if any(k.lower() in low for k in keys)), "other (PyTorch)")
+
+
+def device_time_report(prof, wall: float, top: int = 30, unprofiled_wall: float = None) -> str:
+    """Device busy and idle share of `wall` seconds (and of `unprofiled_wall`,
+    the same work timed without the profiler's host overhead), the device
+    time by group and by kernel name (top `top`) from a torch.profiler run.
+    User annotations (record_function ranges) are not kernels and not
+    counted."""
+    events = prof.key_averages()
+    attr = "device_time_total" if hasattr(events[0], "device_time_total") else "cuda_time_total"
+    kernels = [e for e in events if getattr(e, attr) > 0 and e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(getattr(e, attr) for e in kernels)
+    lines = [f"wall {wall:.2f} s, device busy {busy_us / 1e6:.3f} s "
+             f"({100 * busy_us / 1e6 / wall:.1f}%), idle share {100 * (1 - busy_us / 1e6 / wall):.1f}%"]
+    if unprofiled_wall:
+        lines.append(f"unprofiled wall {unprofiled_wall:.3f} s: idle share "
+                     f"{100 * (1 - busy_us / 1e6 / unprofiled_wall):.1f}%")
+    groups = {}
+    for e in kernels:
+        groups[_group(e.key)] = groups.get(_group(e.key), 0) + getattr(e, attr)
+    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        lines.append(f"{us / 1e6:9.3f} s {100 * us / busy_us:5.1f}%  {g}")
+    for e in sorted(kernels, key=lambda e: -getattr(e, attr))[:top]:
+        us = getattr(e, attr)
+        lines.append(f"{us / 1e6:9.3f} s {100 * us / busy_us:5.1f}%  {e.count:7d}x  {e.key[:110]}")
+    return "\n".join(lines)
 
 
 def main():
@@ -39,15 +78,7 @@ def main():
         wall = time.perf_counter() - t0
     print("profiled stages_s", json.dumps({k: round(v, 3) for k, v in stages.items()}), flush=True)
 
-    events = prof.key_averages()
-    attr = "device_time_total" if hasattr(events[0], "device_time_total") else "cuda_time_total"
-    kernels = [e for e in events if getattr(e, attr) > 0 and e.device_type.name == "CUDA"]
-    busy_us = sum(getattr(e, attr) for e in kernels)
-    print(f"wall {wall:.2f} s, device busy {busy_us / 1e6:.2f} s "
-          f"({100 * busy_us / 1e6 / wall:.1f}%), idle share {100 * (1 - busy_us / 1e6 / wall):.1f}%")
-    for e in sorted(kernels, key=lambda e: -getattr(e, attr))[:30]:
-        us = getattr(e, attr)
-        print(f"{us / 1e6:9.3f} s {100 * us / busy_us:5.1f}%  {e.count:7d}x  {e.key[:110]}")
+    print(device_time_report(prof, wall))
 
 
 if __name__ == "__main__":
