@@ -7,10 +7,15 @@ Phases, in order; any failure exits non-zero:
 1. card: print `nvidia-smi --query-gpu=name,power.limit`.
 2. build: compile the kernels from vidseg_diffusion_tpu_torch/csrc with nvcc
    (one process per source, in parallel).
-3. kernels: each kernel (K1-K6) against its plain PyTorch version on the same
-   bf16 inputs at the shapes of its path (K1-K4 inference, K5/K6 and K4's dx
-   launch training); errors within the stated bounds, kernel and plain
-   times with CUDA events; K1's saved LSE against the plain LSE.
+3. kernels: each kernel (K1-K10) against its plain PyTorch version on the same
+   inputs at the shapes of its path (K1-K4, K7, K8 inference; K5, K6, K9, K10
+   and K4's dx launch training; bf16, the GroupNorm kernels also fp32);
+   errors within the stated bounds; kernel and plain times with CUDA events
+   beside the kernel's bound (bytes over the card's memory rate or
+   operations over its peak rate, whichever is larger) and the time of the
+   one PyTorch call that computes the same function (a yardstick only: no
+   path runs it); K1's saved LSE against the plain LSE; K7's statistics
+   against fp64 statistics of the same input.
 4. unet: one full-width SVD UNet forward in fp32 (random weights, a 16x16
    latent, 2 frames) on the card through the kernels vs the same weights on
    the CPU through the plain versions.
@@ -23,24 +28,33 @@ Phases, in order; any failure exits non-zero:
    run_single_video on 14 synthetic 448x832 frames, 25 steps, modulate step
    17, 2 masks, decoding_t 7) under torch.no_grad; the inference kernels
    must launch exactly as many times as the configuration implies (K1 832,
-   K2 832, K3 43, K4 2520), the backward kernels and the plain versions
+   K2 832, K3 43, K4 2520; K7 and K8 once per GroupNorm module per UNet, VAE
+   encoder and VAE decoder call), the backward kernels and the plain versions
    never; latents and labels must be finite and shaped; the +lambda and
    -lambda runs must differ, and the outside-mask latents must equal the
    cached trajectory exactly.
-7. train: the full-width training step of
+7. inject: the same run with is_injected_features (the feature pass caches
+   the temporal q/k of the nine attention-bearing output blocks on the device,
+   about 1.1 GB per cached step; every modulated run injects them from step
+   17 on): the same checks and launch counts, 9 blocks x 8 gated steps x 4
+   runs injected sites, final latents that differ from the un-injected run's;
+   stage seconds and peak device memory.
+8. train: the full-width training step of
    vidseg_diffusion_tpu_torch/scripts/train_path.py (svd.yaml UNet, bf16,
    remat, 2 x 14 frames of 56x104 latents, Adam, EMA): a warm-up step, then
    TRAIN_STEPS steps; the loss finite at every step, every gradient finite,
    the self-attention q/k/v projections' gradients non-zero (spatial and
    temporal), the last step taken by every parameter with a gradient and
-   by the EMA (check_last_update), K1, K2, K4, K5 and K6 launched and no
-   plain version called; step time and peak memory.
+   by the EMA (check_last_update), K1, K2, K4, K5, K6 and K7-K10 launched
+   and no plain version called; step time and peak memory.
 
 Before the last line come the kernels JSON (per kernel: launches in the run
-of its path, worst error, kernel and plain ms at its headline shape) and the
-card's name and power limit; the last line is {"ok": true, "device": ...}.
+of its path and in the other runs, worst error, kernel, plain, bound and
+library-call ms at its headline shape) and the card's name and power limit;
+the last line is {"ok": true, "device": ...}.
 """
 
+import gc
 import json
 import math
 import os
@@ -75,16 +89,43 @@ KERNELS = {
         id="K6", source="vidseg_diffusion_tpu_torch/csrc/temporal_attention_bwd.cu",
         replaces="vidseg_diffusion_tpu/ops/attention.py:1167", rms_tol=2e-4,
     ),
+    "group_norm_stats": dict(
+        id="K7", source="vidseg_diffusion_tpu_torch/csrc/group_norm.cu",
+        replaces="vidseg_diffusion_tpu/ops/norm.py:91", rms_tol=5e-4,
+    ),
+    "group_norm_apply": dict(
+        id="K8", source="vidseg_diffusion_tpu_torch/csrc/group_norm.cu",
+        replaces="vidseg_diffusion_tpu/ops/norm.py:183", rms_tol=5e-4,
+    ),
+    "group_norm_backward_stats": dict(
+        id="K9", source="vidseg_diffusion_tpu_torch/csrc/group_norm_bwd.cu",
+        replaces="vidseg_diffusion_tpu/ops/norm.py:258", rms_tol=5e-4,
+    ),
+    "group_norm_backward_apply": dict(
+        id="K10", source="vidseg_diffusion_tpu_torch/csrc/group_norm_bwd.cu",
+        replaces="vidseg_diffusion_tpu/ops/norm.py:294", rms_tol=5e-4,
+    ),
 }
 INFERENCE_KERNELS = ("flash_attention_packed", "temporal_attention_direct", "flash_attention",
-                     "temporal_conv_1x1")
+                     "temporal_conv_1x1", "group_norm_stats", "group_norm_apply")
 TRAIN_KERNELS = ("flash_attention_packed", "temporal_attention_direct", "temporal_conv_1x1",
-                 "flash_attention_packed_backward", "temporal_attention_direct_backward")
+                 "flash_attention_packed_backward", "temporal_attention_direct_backward",
+                 "group_norm_stats", "group_norm_apply", "group_norm_backward_stats",
+                 "group_norm_backward_apply")
 # launches of the inference main path, implied by its configuration: 52 UNet
 # calls x 16 spatial / 16 temporal self-attention sites and 44 temporal
 # convs (+ 29 per decoder chunk x 8), 32 CLIP layers + 11 VAE attentions
 MAIN_LAUNCHES = {"flash_attention_packed": 832, "temporal_attention_direct": 832,
                  "flash_attention": 43, "temporal_conv_1x1": 2520}
+# calls of the main path per model: 8 feature-pass + 4 runs x 11 UNet steps; the
+# first-stage encoder on 2 chunks of 7 frames + the conditioning-frame
+# encoder; the decoder on 2 chunks per run. K7 and K8 launch once per
+# GroupNorm module per call (gn_launches).
+MAIN_CALLS = {"unet": 52, "encoder": 3, "decoder": 8}
+INJECT_BLOCKS, INJECT_STEPS = 9, 8   # attention-bearing output blocks; steps 17..24
+# Published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds:
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 outside the tensor cores
 # Kernel output vs plain version, both from the same bf16 inputs: the plain
 # version computes in fp32 and rounds once to bf16; the kernel accumulates in
 # fp32 in another order, so elements may land one bf16 step apart. Bounds:
@@ -96,7 +137,14 @@ MAIN_LAUNCHES = {"flash_attention_packed": 832, "temporal_attention_direct": 832
 #   1.4e-4 (its dx launch included), K2 0 (bit for bit), K5 4.8e-5 to 2.2e-4,
 #   K6 2.2e-5 to 3.9e-5 (worst of dq/dk/dv). A fault that moves every output
 #   by 1% reads 1e-2.
+# fp32 outputs (the GroupNorm kernels on fp32 activations, and their fp32
+# statistics and coefficients whatever the activation dtype): max |kernel -
+# plain| <= FP32_TOL * max |plain| and the same bound on the relative RMS
+# error; only the summation order differs. K7's mean (relative to the rms of
+# x) and inv-std (relative) vs fp64 statistics of the same input: STATS_TOL.
 MAX_STEPS = 2
+FP32_TOL = 1e-4
+STATS_TOL = 2e-5
 UNET_REL_TOL = 1e-4     # fp32 UNet, card (kernels) vs CPU (plain versions), x max |CPU|
 LSE_TOL = 5e-3          # K1's base-2 LSE vs the plain LSE, absolute (log2 units; reads <= 1.5e-3)
 # fp32 UNet gradients, card vs CPU, for every parameter:
@@ -141,9 +189,31 @@ def time_ms(fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
+def attn_work(b, h, lq, lk, d, backward=False):
+    """(bytes, flops, peak) of one attention call on bf16 inputs: q, k, v read
+    and o written once (backward: also o, g and the LSE read, dq, dk, dv
+    written); 2 matrix products forward (4 * lq * lk * d flops per head), 5
+    backward (S, dP, dV, dQ, dK)."""
+    q, kv = b * h * lq * d, b * h * lk * d
+    if backward:
+        return 2 * (4 * q + 4 * kv) + 4 * b * h * lq, 10 * b * h * lq * lk * d, "bf16"
+    return 2 * (2 * q + 2 * kv), 4 * b * h * lq * lk * d, "bf16"
+
+
+def tconv_work(b, t, m, cin, cout, kt=3):
+    """x, W, bias read and y written once; one [m, cin] x [cin, cout] product
+    per (frame, tap) pair whose source frame exists."""
+    pairs = sum(1 for f in range(t) for j in range(kt) if 0 <= f + j - kt // 2 < t)
+    return 2 * (b * t * m * (cin + cout) + kt * cin * cout + cout), 2 * b * pairs * m * cin * cout, "bf16"
+
+
 def kernel_cases(torch):
-    """(kernel, label, inputs builder, kernel call, plain call, timing iters)
-    at the main-path shapes (swan: 14 frames at 448x832, CFG batch 28)."""
+    """Cases at the main-path shapes (swan: 14 frames at 448x832, CFG batch
+    28): dicts of kernel, label, make (inputs builder), kern, plain, iters,
+    work (bytes, flops, peak) and library (inputs -> the one PyTorch call that
+    computes the same function, or None)."""
+    import torch.nn.functional as F
+
     from vidseg_diffusion_tpu_torch.ops import attention as A
     from vidseg_diffusion_tpu_torch.ops import temporal_conv as TC
 
@@ -188,26 +258,51 @@ def kernel_cases(torch):
         return lambda: (rn(b, t, m, c).to(bf), (rn(3, c, c) / (3 * c) ** 0.5).to(bf),
                         rn(b, t, m, c).to(bf))
 
+    # the library yardsticks: F.scaled_dot_product_attention on views of the
+    # same tensors (packed [B, L, H*64] as [B, H, L, 64]; the direct temporal
+    # layout [(b t), s, H, 64] as [b, s, H, t, 64]), its backward through
+    # autograd.grad, F.conv3d with a (3, 1, 1) kernel on the [B, C, T, M, 1] view
+    sdpa = F.scaled_dot_product_attention
+    heads_view = lambda x, h: x.view(x.shape[0], x.shape[1], h, 64).transpose(1, 2)
+    frames_view = lambda x: x.view(x.shape[0] // 14, 14, *x.shape[1:]).permute(0, 2, 3, 1, 4)
+
+    def sdpa_backward(qkv, g):
+        leaves = [x.detach().requires_grad_() for x in qkv]
+        out = sdpa(*leaves)
+        return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+    def conv3d_call(x, w, bias):
+        x5 = x.permute(0, 3, 1, 2).unsqueeze(-1)               # [B, Cin, T, M, 1]
+        w5 = w.permute(2, 1, 0).contiguous()[..., None, None]  # [Cout, Cin, kt, 1, 1]
+        return lambda: F.conv3d(x5, w5, bias, padding=(w.shape[0] // 2, 0, 0))
+
     cases = []
+    add = lambda **kw: cases.append(kw)
     # K1: spatial self-attention; ds1 compared on a B=2 slice of the CFG batch
     # (the plain version would hold ~19 GB of fp32 logits at B=28)
-    for label, b, l, h in (("ds1 B=2 slice [2,5824,5x64]", 2, 5824, 5),
-                           ("ds2 [28,1456,10x64]", 28, 1456, 10),
-                           ("ds4 [28,364,20x64]", 28, 364, 20),
-                           ("mid [28,91,20x64]", 28, 91, 20)):
-        cases.append(("flash_attention_packed", label, packed(b, l, h),
-                      A.flash_attention_packed, A.flash_attention_packed_reference, 3))
+    spatial = (("ds1 B=2 slice [2,5824,5x64]", 2, 5824, 5), ("ds2 [28,1456,10x64]", 28, 1456, 10),
+               ("ds4 [28,364,20x64]", 28, 364, 20), ("mid [28,91,20x64]", 28, 91, 20))
+    temporal = (("ds1 [28,5824,5,64] t=14", 5824, 5), ("ds2 [28,1456,10,64] t=14", 1456, 10),
+                ("ds4 [28,364,20,64] t=14", 364, 20), ("mid [28,91,20,64] t=14", 91, 20))
+    for label, b, l, h in spatial:
+        add(kernel="flash_attention_packed", label=label, make=packed(b, l, h),
+            kern=A.flash_attention_packed, plain=A.flash_attention_packed_reference, iters=3,
+            work=attn_work(b, h, l, l, 64),
+            library=lambda q, k, v, h: (lambda a=[heads_view(x, h) for x in (q, k, v)]: sdpa(*a)))
     # K2: temporal self-attention, t = 14 frames, two videos (uc, c)
-    for label, s, h in (("ds1 [28,5824,5,64] t=14", 5824, 5), ("ds2 [28,1456,10,64] t=14", 1456, 10),
-                        ("ds4 [28,364,20,64] t=14", 364, 20), ("mid [28,91,20,64] t=14", 91, 20)):
-        cases.append(("temporal_attention_direct", label, direct(28, s, h),
-                      lambda q, k, v: A.temporal_attention_direct(q, k, v, t=14),
-                      lambda q, k, v: A.temporal_attention_direct_reference(q, k, v, t=14), 5))
+    for label, s, h in temporal:
+        add(kernel="temporal_attention_direct", label=label, make=direct(28, s, h),
+            kern=lambda q, k, v: A.temporal_attention_direct(q, k, v, t=14),
+            plain=lambda q, k, v: A.temporal_attention_direct_reference(q, k, v, t=14), iters=5,
+            work=attn_work(2 * s, h, 14, 14, 64),
+            library=lambda q, k, v: (lambda a=[frames_view(x) for x in (q, k, v)]: sdpa(*a)))
     # K3: VAE mid attention (one 512-dim head, decoding_t = 7 frames) and CLIP
-    cases.append(("flash_attention", "VAE mid [7,1,5824,512]", bhld(7, 1, 5824, 512),
-                  A.flash_attention, A.flash_attention_reference, 2))
-    cases.append(("flash_attention", "CLIP ViT-H [1,16,257,80]", bhld(1, 16, 257, 80),
-                  A.flash_attention, A.flash_attention_reference, 5))
+    for label, shape, iters in (("VAE mid [7,1,5824,512]", (7, 1, 5824, 512), 2),
+                                ("CLIP ViT-H [1,16,257,80]", (1, 16, 257, 80), 5)):
+        add(kernel="flash_attention", label=label, make=bhld(*shape), kern=A.flash_attention,
+            plain=A.flash_attention_reference, iters=iters,
+            work=attn_work(shape[0], shape[1], shape[2], shape[2], shape[3]),
+            library=lambda q, k, v: (lambda: sdpa(q, k, v)))
     # K4: UNet time_stack per level (two videos of 14 frames), VAE decoder
     # time_stack per level and conv_out_time_mix (decoding_t = 7)
     for label, b, t, m, ci, co in (
@@ -221,8 +316,9 @@ def kernel_cases(torch):
         ("VAE 448x832 [1,7,372736,128]", 1, 7, 372736, 128, 128),
         ("VAE conv_out_time_mix [1,7,372736,3]", 1, 7, 372736, 3, 3),
     ):
-        cases.append(("temporal_conv_1x1", label, tconv(b, t, m, ci, co),
-                      TC.temporal_conv_1x1, TC.temporal_conv_1x1_reference, 3))
+        add(kernel="temporal_conv_1x1", label=label, make=tconv(b, t, m, ci, co),
+            kern=TC.temporal_conv_1x1, plain=TC.temporal_conv_1x1_reference, iters=3,
+            work=tconv_work(b, t, m, ci, co), library=conv3d_call)
     # training path (the train phase's batch of 2 videos x 14 frames):
     # K4's dx launch inside the temporal-conv backward (dW/db are matmuls),
     # K5 at every spatial self-attention width (ds1 on a B=2 slice: the
@@ -230,27 +326,189 @@ def kernel_cases(torch):
     # temporal one
     for label, m, c in (("dx UNet ds1 [2,14,5824,320]", 5824, 320),
                         ("dx UNet ds4 [2,14,364,1280]", 364, 1280)):
-        cases.append(("temporal_conv_1x1", label, tconv_bwd(2, 14, m, c),
-                      TC.temporal_conv_1x1_backward, TC.temporal_conv_1x1_backward_reference, 3))
-    for label, b, l, h in (("ds1 B=2 slice [2,5824,5x64]", 2, 5824, 5),
-                           ("ds2 [28,1456,10x64]", 28, 1456, 10),
-                           ("ds4 [28,364,20x64]", 28, 364, 20),
-                           ("mid [28,91,20x64]", 28, 91, 20)):
-        cases.append(("flash_attention_packed_backward", label, packed_bwd(b, l, h),
-                      A.flash_attention_packed_backward, A.flash_attention_packed_backward_reference, 3))
-    for label, s, h in (("ds1 [28,5824,5,64] t=14", 5824, 5), ("ds2 [28,1456,10,64] t=14", 1456, 10),
-                        ("ds4 [28,364,20,64] t=14", 364, 20), ("mid [28,91,20,64] t=14", 91, 20)):
-        cases.append(("temporal_attention_direct_backward", label, temporal_bwd(28, s, h),
-                      lambda q, k, v, o, g: A.temporal_attention_direct_backward(q, k, v, o, g, t=14),
-                      lambda q, k, v, o, g: A.temporal_attention_direct_backward_reference(
-                          q, k, v, o, g, t=14), 3))
+        bts, fl, pk = tconv_work(2, 14, m, c, c)
+        add(kernel="temporal_conv_1x1", label=label, make=tconv_bwd(2, 14, m, c),
+            kern=TC.temporal_conv_1x1_backward, plain=TC.temporal_conv_1x1_backward_reference,
+            iters=3, work=(2 * bts, 2 * fl, pk), library=None)  # dx and dW: two such products
+    for label, b, l, h in spatial:
+        add(kernel="flash_attention_packed_backward", label=label, make=packed_bwd(b, l, h),
+            kern=A.flash_attention_packed_backward, plain=A.flash_attention_packed_backward_reference,
+            iters=3, work=attn_work(b, h, l, l, 64, backward=True),
+            library=lambda q, k, v, o, lse, g, h: sdpa_backward([heads_view(x, h) for x in (q, k, v)],
+                                                                heads_view(g, h)))
+    for label, s, h in temporal:
+        add(kernel="temporal_attention_direct_backward", label=label, make=temporal_bwd(28, s, h),
+            kern=lambda q, k, v, o, g: A.temporal_attention_direct_backward(q, k, v, o, g, t=14),
+            plain=lambda q, k, v, o, g: A.temporal_attention_direct_backward_reference(
+                q, k, v, o, g, t=14),
+            iters=3, work=attn_work(2 * s, h, 14, 14, 64, backward=True),
+            library=lambda q, k, v, o, g: sdpa_backward([frames_view(x) for x in (q, k, v)],
+                                                        frames_view(g)))
+    return cases + group_norm_cases(torch, rn)
+
+
+def group_norm_cases(torch, rn):
+    """K7-K10 at the GroupNorm sites of the main paths: the UNet's ResBlock
+    norms (SiLU, eps 1e-5; [28, H, W, C] per level, the output blocks' skip
+    concatenations, the time_stack's 5-D [2, 14, H, W, C] whose statistics
+    span (t, H, W)), its transformer norms (no SiLU, eps 1e-6) and the VAE's
+    (SiLU, eps 1e-6; 4 channels per group at C = 128; one decoder chunk of 7
+    frames, 4-D per frame and 5-D per chunk). Every GroupNorm width of the
+    models is a multiple of 32, so no C = 3 k site exists; the element-load
+    path is covered by tests/test_torch_gpu.py. For each site the four
+    kernels see the same inputs as their plain versions: K8 the plain a, s;
+    K9 the plain statistics; K10 the plain coefficients. The library
+    yardstick is F.group_norm (+ F.silu) on the same data, for the whole
+    forward (K7 + K8) and, through autograd.grad, the whole backward (K9 +
+    K10), once on the channels-last view the port would hand it and once on
+    an NCHW-contiguous copy (the layout the library prefers)."""
+    import torch.nn.functional as F
+
+    from vidseg_diffusion_tpu_torch.ops import norm as N
+
+    bf, f32 = torch.bfloat16, torch.float32
+    sites = [
+        ("UNet ds1 [28,56,104,320]", (28, 56, 104, 320), bf, True, 1e-5),
+        ("UNet ds1 [28,56,104,320] no SiLU", (28, 56, 104, 320), bf, False, 1e-6),
+        ("UNet ds1 concat [28,56,104,960]", (28, 56, 104, 960), bf, True, 1e-5),
+        ("UNet ds4 [28,14,26,1280]", (28, 14, 26, 1280), bf, True, 1e-5),
+        ("UNet ds4 [28,14,26,1280] no SiLU", (28, 14, 26, 1280), bf, False, 1e-6),
+        ("UNet mid [28,7,13,1280]", (28, 7, 13, 1280), bf, False, 1e-6),
+        ("UNet ds8 concat [28,7,13,2560]", (28, 7, 13, 2560), bf, True, 1e-5),
+        ("UNet time_stack [2,14,56,104,320]", (2, 14, 56, 104, 320), bf, True, 1e-5),
+        ("VAE [7,448,832,128]", (7, 448, 832, 128), bf, True, 1e-6),
+        ("VAE time_stack [1,7,448,832,128]", (1, 7, 448, 832, 128), bf, True, 1e-6),
+        ("UNet ds1 [28,56,104,320] fp32", (28, 56, 104, 320), f32, True, 1e-5),
+        ("UNet mid [28,7,13,1280] fp32", (28, 7, 13, 1280), f32, False, 1e-6),
+        ("UNet time_stack [2,14,56,104,320] fp32", (2, 14, 56, 104, 320), f32, True, 1e-5),
+    ]
+    groups = 32
+    cases = []
+    for label, shape, dtype, silu, eps in sites:
+        shared = {}   # one set of inputs per site, built by the K7 case, freed by the K10 case
+
+        def inputs(shape=shape, dtype=dtype, silu=silu, eps=eps, shared=shared, label=label):
+            if shared:
+                return shared
+            c = shape[-1]
+            x = (rn(*shape) * 1.5 + 0.3).to(dtype)
+            w, b = (rn(c) * 0.5 + 1.0).to(dtype), rn(c).to(dtype)
+            dy = rn(*shape).to(dtype)
+            a, s, mean, inv = N.group_norm_affine_plain(x, w, b, groups, eps)
+            coef = N.group_norm_backward_coef_plain(x, dy, w, a, s, mean, inv, groups, silu)[0]
+            shared.update(x=x, w=w, b=b, dy=dy, a=a, s=s, mean=mean, inv=inv, coef=coef)
+            stats_vs_fp64(torch, N, label, x, w, b, groups, eps)
+            shared["library"] = group_norm_library(torch, F, x, w, b, dy, groups, eps, silu)
+            return shared
+
+        n, c, item = 1, shape[-1], 2 if dtype == bf else 4
+        for d in shape:
+            n *= d
+        small = 4 * shape[0] * c
+        pick = lambda *keys: (lambda inputs=inputs: tuple(inputs()[k] for k in keys))
+
+        def free(shared=shared):
+            shared.clear()
+
+        common = dict(iters=5, label=label, site=shared)
+        cases.append(dict(
+            kernel="group_norm_stats", make=pick("x", "w", "b"),
+            kern=lambda x, w, b, eps=eps: N.group_norm_stats(x, w, b, groups, eps),
+            plain=lambda x, w, b, eps=eps: N.group_norm_affine_plain(x, w, b, groups, eps),
+            work=(n * item + 2 * small, 3 * n, "fp32"),
+            library=lambda *a, shared=shared: shared["library"]["forward"], library_covers="K7+K8", **common))
+        cases.append(dict(
+            kernel="group_norm_apply", make=pick("x", "a", "s"),
+            kern=lambda x, a, s, silu=silu: N.group_norm_apply(x, a, s, silu),
+            plain=lambda x, a, s, silu=silu: N.group_norm_apply_plain(x, a, s, silu),
+            work=(2 * n * item + 2 * small, (8 if silu else 2) * n, "fp32"),
+            library=lambda *a, shared=shared: shared["library"]["forward"], library_covers="K7+K8", **common))
+        cases.append(dict(
+            kernel="group_norm_backward_stats", make=pick("x", "dy", "w", "a", "s", "mean", "inv"),
+            kern=lambda *a, silu=silu: split_coef(N.group_norm_backward_stats(*a, groups, silu)),
+            plain=lambda *a, silu=silu: split_coef(N.group_norm_backward_coef_plain(*a, groups, silu)),
+            work=(2 * n * item + 7 * small, (14 if silu else 3) * n, "fp32"),
+            library=lambda *a, shared=shared: shared["library"]["backward"], library_covers="K9+K10", **common))
+        cases.append(dict(
+            kernel="group_norm_backward_apply", make=pick("x", "dy", "a", "s", "coef"),
+            kern=lambda *a, silu=silu: N.group_norm_backward_apply(*a, silu),
+            plain=lambda *a, silu=silu: N.group_norm_backward_apply_plain(*a, silu),
+            work=(3 * n * item + 5 * small, (16 if silu else 4) * n, "fp32"),
+            library=lambda *a, shared=shared: shared["library"]["backward"], library_covers="K9+K10",
+            after=free, **common))
     return cases
+
+
+def split_coef(result):
+    """(coef [B, 3, C], dweight, dbias) -> (a2, b2, c2, dweight, dbias): each
+    coefficient is held to the bounds against its own largest value."""
+    coef, dw, db = result
+    return coef[:, 0], coef[:, 1], coef[:, 2], dw, db
+
+
+def stats_vs_fp64(torch, N, label, x, w, b, groups, eps):
+    """K7's mean and inv-std against fp64 statistics of the same input: the
+    fp32 partial sums (thread, block, chunk list) must not drift over up to
+    2.6 M elements per channel."""
+    _, _, mean, inv = N.group_norm_stats(x, w, b, groups, eps)
+    xg = x.reshape(x.shape[0], -1, groups, x.shape[-1] // groups)
+    mean64 = torch.stack([xg[i].double().mean(dim=(0, 2)) for i in range(x.shape[0])])
+    sq64 = torch.stack([xg[i].double().square().mean(dim=(0, 2)) for i in range(x.shape[0])])
+    inv64 = (sq64 - mean64 * mean64 + eps).rsqrt()
+    e_mean = ((mean.double() - mean64).abs() / sq64.sqrt()).max().item()
+    e_inv = (inv.double() / inv64 - 1).abs().max().item()
+    print(f"[kernels] K7 {label}: mean vs fp64 {e_mean:.2e} of rms(x), inv-std vs fp64 {e_inv:.2e} "
+          f"relative (tol {STATS_TOL:.0e})", flush=True)
+    check(e_mean <= STATS_TOL and e_inv <= STATS_TOL, f"K7 statistics drift from fp64 at {label}")
+
+
+def group_norm_library(torch, F, x, w, b, dy, groups, eps, silu):
+    """Times of F.group_norm (+ F.silu) forward and of its backward
+    (autograd.grad to x, weight, bias) on the same data: as the channels-last
+    view of x that the port holds, and on an NCHW-contiguous copy."""
+    perm = (0, x.dim() - 1) + tuple(range(1, x.dim() - 1))
+    out = {}
+    for layout, to in (("channels_last", lambda t: t.permute(perm)),
+                       ("nchw", lambda t: t.permute(perm).contiguous())):
+        leaves = [to(x).detach().requires_grad_(), w.detach().clone().requires_grad_(),
+                  b.detach().clone().requires_grad_()]
+        g = to(dy)
+
+        def forward(leaves=leaves):
+            y = F.group_norm(leaves[0], groups, leaves[1], leaves[2], eps)
+            return F.silu(y) if silu else y
+
+        y = forward()
+        with torch.no_grad():
+            out[f"forward_{layout}"] = time_ms(forward, 5)
+        out[f"backward_{layout}"] = time_ms(
+            lambda: torch.autograd.grad(y, leaves, g, retain_graph=True), 5)
+        del y, leaves, g
+    # the yardstick of record is the call on the port's own layout
+    return dict(forward=out["forward_channels_last"], backward=out["backward_channels_last"], **out)
+
+
+def compare(torch, out, ref, rms_tol):
+    """(ok, max |out - ref|, error in bf16 steps at max |ref| or, for fp32
+    outputs, relative to it; relative RMS error; max |ref|)."""
+    diff = out.float() - ref.float()
+    e = diff.abs().max().item()
+    pk = ref.float().abs().max().item()
+    rm = diff.norm().item() / max(ref.float().norm().item(), 1e-30)
+    finite = bool(torch.isfinite(out).all())
+    if out.dtype == torch.bfloat16:
+        step = 2.0 ** (math.floor(math.log2(pk)) - 7) if pk > 0 else 0.0
+        steps = e / step if step else (0.0 if e == 0 else math.inf)
+        return finite and steps <= MAX_STEPS and rm <= rms_tol, e, steps, rm, pk
+    rel = e / pk if pk > 0 else (0.0 if e == 0 else math.inf)
+    return finite and rel <= FP32_TOL and rm <= FP32_TOL, e, rel, rm, pk
 
 
 def phase_kernels(torch):
     rows = []
-    for kname, label, make, kern, plain, iters in kernel_cases(torch):
-        args = make()
+    for case in kernel_cases(torch):
+        kname, label, kern, plain, iters = (case[k] for k in ("kernel", "label", "kern", "plain", "iters"))
+        args = case["make"]()
         out = kern(*args)
         torch.cuda.synchronize()
         ref = plain(*args)
@@ -258,27 +516,41 @@ def phase_kernels(torch):
         # a backward returns several gradients: each is held to the bounds
         outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
         rms_tol = KERNELS[kname]["rms_tol"]
-        ok, err, rms, steps, peak = True, 0.0, 0.0, 0.0, 0.0
+        ok, err, rms, steps, rel, peak = True, 0.0, 0.0, 0.0, 0.0, 0.0
         for o, r in zip(outs, refs):
             check(o.shape == r.shape and o.dtype == r.dtype, f"{kname} {label}: shape/dtype")
-            diff = o.float() - r.float()
-            e = diff.abs().max().item()
-            pk = r.float().abs().max().item()
-            rm = diff.norm().item() / max(r.float().norm().item(), 1e-30)
-            step = 2.0 ** (math.floor(math.log2(pk)) - 7) if pk > 0 else 0.0
-            ok = ok and e <= MAX_STEPS * step and rm <= rms_tol and bool(torch.isfinite(o).all())
+            good, e, unit, rm, pk = compare(torch, o, r, rms_tol)
+            ok = ok and good
             err, rms, peak = max(err, e), max(rms, rm), max(peak, pk)
-            steps = max(steps, e / step if step else (0.0 if e == 0 else math.inf))
-            del diff
+            if o.dtype == torch.bfloat16:
+                steps = max(steps, unit)
+            else:
+                rel = max(rel, unit)
         ms = time_ms(lambda: kern(*args), iters)
         plain_ms = time_ms(lambda: plain(*args), iters)
-        row = dict(kernel=kname, shape=label, max_abs_err=err, bf16_steps=steps, max_abs_plain=peak,
-                   rel_rms_err=rms, ok=ok, ms=ms, plain_ms=plain_ms)
+        library_ms = None
+        if case.get("library") is not None:
+            lib = case["library"](*args)
+            library_ms = lib if isinstance(lib, float) else time_ms(lib, iters)
+            del lib
+        nbytes, flops, peak_key = case["work"]
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[peak_key] * 1e3
+        row = dict(kernel=kname, shape=label, max_abs_err=err, bf16_steps=steps, fp32_rel_err=rel,
+                   max_abs_plain=peak, rel_rms_err=rms, ok=ok, ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations",
+                   library_ms=library_ms, library_covers=case.get("library_covers"))
         rows.append(row)
+        lib_txt = "none" if library_ms is None else (
+            f"{library_ms:.3f} ms" + (f" ({case['library_covers']})" if case.get("library_covers") else ""))
         print(f"[kernels] {KERNELS[kname]['id']} {kname} {label}: max_abs_err={err:.3e} "
-              f"({steps:.2f} bf16 steps at max|plain| {peak:.3e}, tol {MAX_STEPS}) "
-              f"rel_rms_err={rms:.3e} (tol {rms_tol:.0e}) "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+              f"({steps:.2f} bf16 steps at max|plain| {peak:.3e}, tol {MAX_STEPS}; fp32 outputs "
+              f"{rel:.2e} relative, tol {FP32_TOL:.0e}) rel_rms_err={rms:.3e} (tol {rms_tol:.0e}) "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {row['bound_ms']:.3f} ms by "
+              f"{row['bound_by']}, library {lib_txt}", flush=True)
+        if "after" in case:  # the last case of a GroupNorm site: its four library timings
+            lib_times = {k: round(v, 3) for k, v in case["site"]["library"].items() if "_" in k}
+            print(f"[kernels] F.group_norm(+silu) {label}: ms {json.dumps(lib_times)}", flush=True)
+            case["after"]()
         del args, out, ref, outs, refs
         torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
@@ -403,20 +675,35 @@ def feeds_one_key_query(name):
 
 def kernel_fns():
     from vidseg_diffusion_tpu_torch.ops import attention as A
+    from vidseg_diffusion_tpu_torch.ops import norm as N
     from vidseg_diffusion_tpu_torch.ops import temporal_conv as TC
 
-    counters = list(A.KERNEL_COUNTERS) + [TC.temporal_conv_1x1]
+    counters = list(A.KERNEL_COUNTERS) + [TC.temporal_conv_1x1] + list(N.KERNEL_COUNTERS)
     plains = list(A.PLAIN_COUNTERS) + [TC.temporal_conv_1x1_reference,
-                                       TC.temporal_conv_1x1_backward_reference]
+                                       TC.temporal_conv_1x1_backward_reference] + list(N.PLAIN_COUNTERS)
     return counters, plains
 
 
 def reset_counts():
+    from vidseg_diffusion_tpu_torch.ops import norm as N
+
     counters, plains = kernel_fns()
     for f in counters:
         f.launches = 0
     for f in plains:
         f.calls = 0
+    N.group_norm.copies = 0
+
+
+def gn_launches(pipe):
+    """K7 / K8 launches the inference main path implies: one per GroupNorm
+    module per call of the model that holds it."""
+    from vidseg_diffusion_tpu_torch.models.layers import GroupNorm32
+
+    count = lambda m: sum(isinstance(x, GroupNorm32) for x in m.modules())
+    per_call = {"unet": count(pipe.unet), "encoder": count(pipe.first_stage.encoder),
+                "decoder": count(pipe.first_stage.decoder)}
+    return sum(MAIN_CALLS[k] * per_call[k] for k in MAIN_CALLS), per_call
 
 
 def read_counts():
@@ -424,21 +711,18 @@ def read_counts():
     return {f.__name__: f.launches for f in counters}, {f.__name__: f.calls for f in plains}
 
 
-def phase_main(torch):
+def run_main_path(torch, pipe, tag, injected):
+    """One run_single_video of scripts/main_path.py with its checks; returns
+    (launches, result)."""
     import numpy as np
 
+    from vidseg_diffusion_tpu_torch.ops import norm as N
     from vidseg_diffusion_tpu_torch.pipelines.single_video import run_single_video
     from vidseg_diffusion_tpu_torch.scripts import main_path
 
     t, hpx, wpx = main_path.NUM_FRAMES, main_path.HEIGHT, main_path.WIDTH
-    t0 = time.perf_counter()
-    pipe = main_path.build()
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in pipe.unet.parameters())
-    print(f"[main] built svd.yaml (UNet {n_params / 1e9:.3f} B params, bf16) in {build_s:.1f} s", flush=True)
-    frames, names, args = main_path.frames(), main_path.frame_names(), main_path.vidseg_args()
-
+    frames, names = main_path.frames(), main_path.frame_names()
+    args = main_path.vidseg_args(is_injected_features=injected)
     timings = {}
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -447,13 +731,17 @@ def phase_main(torch):
     total = time.perf_counter() - t0
     launches, plain_calls = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[main] run_single_video {total:.2f} s, stages_s "
+    print(f"[{tag}] run_single_video {total:.2f} s, stages_s "
           f"{json.dumps({k: round(v, 3) for k, v in timings.items()})}", flush=True)
-    print(f"[main] kernel launches {json.dumps(launches)}; plain calls {json.dumps(plain_calls)}; "
-          f"peak device memory {peak_gb:.1f} GB", flush=True)
+    print(f"[{tag}] kernel launches {json.dumps(launches)}; plain calls {json.dumps(plain_calls)}; "
+          f"GroupNorm input copies {N.group_norm.copies}; peak device memory {peak_gb:.1f} GB "
+          f"({card_line()})", flush=True)
 
+    n_gn, per_call = gn_launches(pipe)
     expected = {name: MAIN_LAUNCHES.get(name, 0) for name in launches}
-    check(launches == expected, f"inference launches {launches}, expected {expected} (no backward)")
+    expected["group_norm_stats"] = expected["group_norm_apply"] = n_gn
+    check(launches == expected, f"inference launches {launches}, expected {expected} (GroupNorm modules "
+                                f"per call {per_call}; no backward)")
     check(all(n == 0 for n in plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
     k = args.num_masks
     h, w = hpx // 8, wpx // 8
@@ -470,8 +758,52 @@ def phase_main(torch):
     outside = max(float(np.abs((fin[s, m] - last) * (1 - res.masks_latent[m][..., None])).max())
                   for s in range(2) for m in range(k))
     check(outside == 0.0, f"outside-mask latents deviate from the cached trajectory by {outside}")
-    print(f"[main] max|+lambda - -lambda| = {dpm:.4f}; outside-mask deviation = {outside}; "
+    print(f"[{tag}] max|+lambda - -lambda| = {dpm:.4f}; outside-mask deviation = {outside}; "
           f"labels used {sorted(int(v) for v in np.unique(res.seg_raw))}", flush=True)
+    return launches, res
+
+
+def phase_main(torch):
+    from vidseg_diffusion_tpu_torch.scripts import main_path
+
+    t0 = time.perf_counter()
+    pipe = main_path.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in pipe.unet.parameters())
+    print(f"[main] built svd.yaml (UNet {n_params / 1e9:.3f} B params, bf16) in {build_s:.1f} s", flush=True)
+    launches, res = run_main_path(torch, pipe, "main", injected=False)
+    check(res.injected_sites == 0 and res.injected_cache_bytes == 0, "the default run injected features")
+    return launches, pipe, res
+
+
+def phase_inject(torch, pipe, plain_res):
+    """The main path with is_injected_features, same frames, seed and weights."""
+    import numpy as np
+
+    # reckoned before the run: q and k of the 9 attention-bearing output blocks
+    # on the [uc; c] batch of 28 frames, bf16: three blocks each at 5824 x 320,
+    # 1456 x 640 and 364 x 1280 tokens x channels, per cached step
+    per_step = 2 * 28 * 2 * 3 * (5824 * 320 + 1456 * 640 + 364 * 1280)
+    print(f"[inject] expected q/k cache: {per_step / 1e9:.2f} GB per cached step, "
+          f"{INJECT_STEPS * per_step / 1e9:.2f} GB for {INJECT_STEPS} steps", flush=True)
+    launches, res = run_main_path(torch, pipe, "inject", injected=True)
+    n_sites = INJECT_BLOCKS * INJECT_STEPS * 2 * plain_res.masks.shape[0]
+    check(res.injected_cache_bytes == INJECT_STEPS * per_step,
+          f"q/k cache holds {res.injected_cache_bytes} bytes, expected {INJECT_STEPS * per_step}")
+    check(res.injected_sites == n_sites, f"{res.injected_sites} injected sites, expected {n_sites}")
+    # the feature pass is the same work in both runs; what it may differ by from run to run
+    # (vendor GEMM / convolution kernels need not be bitwise repeatable) is the noise floor
+    noise = float(np.abs(res.cached_xt - plain_res.cached_xt).max())
+    check(np.array_equal(res.masks, plain_res.masks), "the k-means masks changed with injection on")
+    moved = float(np.abs(res.final_latents - plain_res.final_latents).max())
+    check(moved > 10 * noise and moved > 0,
+          f"injected runs equal the un-injected ones up to run-to-run noise ({moved} vs {noise}): "
+          "the cached q/k never reached attention")
+    print(f"[inject] {res.injected_sites} injected sites ({INJECT_BLOCKS} blocks x {INJECT_STEPS} steps x "
+          f"{2 * plain_res.masks.shape[0]} runs), q/k cache {res.injected_cache_bytes / 1e9:.2f} GB; "
+          f"max |injected - un-injected final latents| = {moved:.4f} (feature passes differ by {noise})",
+          flush=True)
     return launches
 
 
@@ -510,8 +842,10 @@ def phase_train(torch):
     print(f"[train] {TRAIN_STEPS} steps: step_s {[round(x, 4) for x in times]}, losses "
           f"{[round(x, 6) for x in losses]}, peak device memory {peak_gb:.2f} GB ({card_line()})",
           flush=True)
-    print(f"[train] kernel launches {json.dumps(launches)}; plain calls {json.dumps(plain_calls)}",
-          flush=True)
+    from vidseg_diffusion_tpu_torch.ops import norm as N
+
+    print(f"[train] kernel launches {json.dumps(launches)}; plain calls {json.dumps(plain_calls)}; "
+          f"GroupNorm input copies {N.group_norm.copies}", flush=True)
 
     check(all(math.isfinite(x) for x in losses), f"loss not finite: {losses}")
     missing = []
@@ -610,8 +944,14 @@ def main():
         fn(torch)
         phases[name] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    launches = phase_main(torch)
+    launches, pipe, plain_res = phase_main(torch)
     phases["main"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inject_launches = phase_inject(torch, pipe, plain_res)
+    phases["inject"] = time.perf_counter() - t0
+    del pipe, plain_res
+    gc.collect()   # free the inference models before the training phase
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     train_launches = phase_train(torch)
     phases["train"] = time.perf_counter() - t0
@@ -624,6 +964,10 @@ def main():
         "temporal_conv_1x1": "UNet ds1 [2,14,5824,320]",
         "flash_attention_packed_backward": "ds1 B=2 slice [2,5824,5x64]",
         "temporal_attention_direct_backward": "ds1 [28,5824,5,64] t=14",
+        "group_norm_stats": "UNet ds1 [28,56,104,320]",
+        "group_norm_apply": "UNet ds1 [28,56,104,320]",
+        "group_norm_backward_stats": "UNet ds1 [28,56,104,320]",
+        "group_norm_backward_apply": "UNet ds1 [28,56,104,320]",
     }
     kernels = []
     for name, meta in KERNELS.items():
@@ -631,10 +975,13 @@ def main():
         head = next(r for r in mine if r["shape"] == headline[name])
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            # the run of its path: inference for K1-K4, training for K5/K6
+            # the run of its path: inference for K1-K4, K7, K8, training for K5, K6, K9, K10
             launches=launches[name] if name in INFERENCE_KERNELS else train_launches[name],
-            train_launches=train_launches[name], max_abs_err=max(r["max_abs_err"] for r in mine),
-            ms=head["ms"], plain_ms=head["plain_ms"],
+            inject_launches=inject_launches[name], train_launches=train_launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in mine), shape=head["shape"],
+            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=head["library_ms"],
+            library_covers=head["library_covers"],
         ))
     print(json.dumps({"kernels": kernels}))
     print(card)

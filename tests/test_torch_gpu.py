@@ -1,4 +1,4 @@
-"""The CUDA kernels (K1-K6) against their plain versions, on the card.
+"""The CUDA kernels (K1-K10) against their plain versions, on the card.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so on a machine with a card and no JAX it runs without the suite's
@@ -17,7 +17,9 @@ max |plain| and ||kernel - plain|| <= RMS_TOL * ||plain|| (per kernel, as
 chip_smoke.py); in fp32 both relative to 1e-4. A gradient that is 0 up to
 rounding (K6's dq and dk at t = 1) is measured against GRAD_FLOOR times the
 largest gradient of the same call. K1's saved LSE: within LSE_TOL (log2
-units) of the plain LSE.
+units) of the plain LSE. The GroupNorm kernels (K7 + K8 forward, K9 + K10
+backward) take the same bounds with RMS_TOL["GN"]; K7's mean and inv-std are
+also held to fp64 statistics of the same input (STATS_TOL, relative).
 """
 
 import math
@@ -26,11 +28,13 @@ import pytest
 import torch
 
 from vidseg_diffusion_tpu_torch.ops import attention as A
+from vidseg_diffusion_tpu_torch.ops import norm as N
 from vidseg_diffusion_tpu_torch.ops import temporal_conv as TC
 
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
-RMS_TOL = {"K4": 5e-4, "K5": 1e-3, "K6": 2e-4}  # bf16 backward; fp32 is FP32_TOL
+RMS_TOL = {"K4": 5e-4, "K5": 1e-3, "K6": 2e-4, "GN": 5e-4}  # bf16; fp32 is FP32_TOL
+STATS_TOL = 2e-5  # K7's fp32 mean (relative to the rms of x) and inv-std vs fp64
 MAX_STEPS = 2
 FP32_TOL = 1e-4
 GRAD_FLOOR = 1e-2  # fp32 rounding noise of K6's t = 1 dq reads 5.8e-7 at a largest gradient of 3.5
@@ -222,3 +226,91 @@ def test_autograd_through_the_kernels(cuda):
         A.flash_attention(x4, x4, x4)
     with torch.no_grad():
         assert A.flash_attention(x4, x4, x4).grad_fn is None
+
+
+GN_SHAPES = [((2, 6, 8, 32), 8), ((3, 7, 13, 64), 16), ((2, 14, 8, 8, 32), 8), ((28, 91, 1280), 32),
+             ((2, 33, 2560), 32), ((1, 5000, 128), 32), ((3, 17, 5, 6), 2), ((2, 9, 4, 36), 4)]
+
+
+def _gn_inputs(cuda, dtype, shape, seed=60):
+    c = shape[-1]
+    x = _randn(cuda, seed, dtype, *shape) * 1.5 + 0.3
+    w = _randn(cuda, seed + 1, dtype, c) * 0.5 + 1.0
+    b = _randn(cuda, seed + 2, dtype, c)
+    return x, w, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+@pytest.mark.parametrize("shape,groups", GN_SHAPES)
+def test_group_norm_forward(cuda, dt, silu, eps, shape, groups):
+    """K7 + K8 vs the plain forward; K7's statistics vs fp64."""
+    x, w, b = _gn_inputs(cuda, DTYPES[dt], shape)
+    launches = N.group_norm_stats.launches, N.group_norm_apply.launches
+    calls = N.group_norm_plain.calls
+    y = N.group_norm(x, w, b, groups, eps, silu=silu)
+    torch.cuda.synchronize()
+    assert (N.group_norm_stats.launches, N.group_norm_apply.launches) == (launches[0] + 1, launches[1] + 1)
+    assert N.group_norm_plain.calls == calls
+    _close_grads((y,), (N.group_norm_plain(x, w, b, groups, eps, silu=silu),), RMS_TOL["GN"])
+    _, _, mean, inv = N.group_norm_stats(x, w, b, groups, eps)
+    xd = x.double().reshape(shape[0], -1, groups, shape[-1] // groups)
+    mean64 = xd.mean(dim=(1, 3))
+    var64 = xd.var(dim=(1, 3), unbiased=False)
+    rms = xd.square().mean(dim=(1, 3)).sqrt()
+    assert ((mean.double() - mean64).abs() / rms).max().item() <= STATS_TOL
+    assert (inv.double() * (var64 + eps).sqrt() - 1).abs().max().item() <= STATS_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("shape,groups", GN_SHAPES)
+def test_group_norm_backward(cuda, dt, silu, shape, groups):
+    """K9 + K10 vs the plain coefficient-form backward on the forward's
+    statistics."""
+    x, w, b = _gn_inputs(cuda, DTYPES[dt], shape, seed=70)
+    dy = _randn(cuda, 75, DTYPES[dt], *shape)
+    a, s, mean, inv = N.group_norm_stats(x, w, b, groups, 1e-5)
+    launches = N.group_norm_backward_stats.launches, N.group_norm_backward_apply.launches
+    calls = N.group_norm_backward_plain.calls
+    coef, dw, db = N.group_norm_backward_stats(x, dy, w, a, s, mean, inv, groups, silu)
+    dx = N.group_norm_backward_apply(x, dy, a, s, coef, silu)
+    torch.cuda.synchronize()
+    assert (N.group_norm_backward_stats.launches, N.group_norm_backward_apply.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert N.group_norm_backward_plain.calls == calls
+    ref = N.group_norm_backward_plain(x, dy, w, a, s, mean, inv, groups, silu)
+    _close_grads((dx,), ref[:1], RMS_TOL["GN"])
+    _close_grads((dw, db), ref[1:], RMS_TOL["GN"])
+
+
+@pytest.mark.gpu
+def test_group_norm_autograd_and_strided_input(cuda):
+    """With grad on the CUDA path runs GroupNormFn (K9 + K10 in the backward),
+    agrees with autograd through the plain forward, and is the same from run
+    to run; a strided input is copied and counted."""
+    x, w, b = _gn_inputs(cuda, torch.float32, (2, 10, 12, 64), seed=80)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    y = N.group_norm(*leaves, 32, 1e-5, silu=True)
+    assert y.grad_fn is not None
+    before = N.group_norm_backward_stats.launches, N.group_norm_backward_apply.launches
+    y.square().sum().backward()
+    assert (N.group_norm_backward_stats.launches, N.group_norm_backward_apply.launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = [t.clone().requires_grad_() for t in (x, w, b)]
+    N.group_norm_plain(*plain, 32, 1e-5, silu=True).square().sum().backward()
+    _close_grads([t.grad for t in leaves], [t.grad for t in plain], None)
+    again = [t.clone().requires_grad_() for t in (x, w, b)]
+    N.group_norm(*again, 32, 1e-5, silu=True).square().sum().backward()
+    assert all(torch.equal(p.grad, q.grad) for p, q in zip(leaves, again))
+
+    xt = x.permute(0, 2, 1, 3)  # [2, 12, 10, 64], strided
+    copies = N.group_norm.copies
+    with torch.no_grad():
+        _close(N.group_norm(xt, w, b, 32), N.group_norm_plain(xt, w, b, 32))
+    assert N.group_norm.copies == copies + 1
+    with pytest.raises(ValueError, match="contiguous"):
+        N.group_norm_apply(xt, *N.group_norm_stats(x, w, b, 32, 1e-5)[:2], False)

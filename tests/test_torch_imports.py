@@ -1,12 +1,18 @@
-"""The PyTorch port imports no JAX, and its kernels never fall back.
+"""The PyTorch port imports no JAX and nothing of the JAX package, runs on
+the card unless asked for the CPU, and its kernels never fall back.
 
-Importing every module of vidseg_diffusion_tpu_torch in a fresh interpreter
-leaves jax and flax out of sys.modules. Loading the kernel library where
-nvcc cannot be found raises a clear error instead of returning anything.
+Importing every module of vidseg_diffusion_tpu_torch in a fresh interpreter,
+and reading its colour map, leaves jax, flax and every module of
+vidseg_diffusion_tpu out of sys.modules; no source line of the port or of
+chip_smoke.py names the JAX package in an import or an attribute path.
+Loading the kernel library where nvcc cannot be found raises a clear error
+instead of returning anything.
 """
 
+import glob
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -22,8 +28,13 @@ import vidseg_diffusion_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-print(json.dumps({"modules": names,
-                  "jax": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib"))}))
+foreign = lambda: sorted(m for m in sys.modules
+                         if m.split(".")[0] in ("jax", "flax", "jaxlib", "vidseg_diffusion_tpu"))
+after_import = foreign()
+from vidseg_diffusion_tpu_torch.engine.segmentation import soft_color_map
+palette = soft_color_map()
+print(json.dumps({"modules": names, "jax": after_import, "after_color_map": foreign(),
+                  "palette": list(palette.shape)}))
 """
 
 
@@ -36,9 +47,46 @@ def test_port_imports_no_jax():
     expected = {"ops.attention", "ops.temporal_conv", "models.unet", "models.vae", "models.clip",
                 "engine.vidseg", "engine.build", "pipelines.single_video", "io.convert",
                 "scripts.svd_single_video_inference", "diffusion.loss", "engine.train", "utils.ema",
-                "scripts.train_path", "scripts.profile_train"}
+                "scripts.train_path", "scripts.profile_train", "ops.norm", "io.video", "io.native"}
     assert expected <= {m.split(".", 1)[1] for m in res["modules"]}
     assert res["jax"] == []
+    assert res["after_color_map"] == [] and res["palette"] == [128, 3]
+
+
+def test_port_sources_do_not_name_the_jax_package():
+    """No import of, and no attribute path into, vidseg_diffusion_tpu in the
+    port's package or in chip_smoke.py (file paths in prose, written with
+    slashes, are how the docstrings name the JAX counterparts)."""
+    pattern = re.compile(r"vidseg_diffusion_tpu\.|import\s+vidseg_diffusion_tpu\b")
+    files = glob.glob(os.path.join(ROOT, "vidseg_diffusion_tpu_torch", "**", "*.py"), recursive=True)
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert len(files) > 40
+    hits = []
+    for path in files:
+        with open(path) as f:
+            for n, line in enumerate(f, 1):
+                if pattern.search(line):
+                    hits.append(f"{os.path.relpath(path, ROOT)}:{n}: {line.strip()}")
+    assert hits == []
+
+
+def test_entry_points_default_to_the_card():
+    """build_pipeline and the CLI run on cuda unless the caller asks for the
+    CPU; without a card the default raises instead of falling back."""
+    import inspect
+
+    import torch
+
+    from vidseg_diffusion_tpu_torch.engine.build import build_pipeline
+    from vidseg_diffusion_tpu_torch.scripts import svd_single_video_inference as cli
+    from vidseg_diffusion_tpu_torch.scripts import train_path
+
+    assert inspect.signature(build_pipeline).parameters["device"].default == "cuda"
+    assert cli.parse_args([]).device == "cuda" and cli.parse_args(["--device", "cpu"]).device == "cpu"
+    assert train_path.DEVICE == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            build_pipeline(os.path.join(ROOT, "configs/inference/svd_tiny.yaml"), num_steps=2, num_frames=2)
 
 
 def test_kernel_library_without_nvcc_raises(monkeypatch, tmp_path):
@@ -53,8 +101,32 @@ def test_kernel_library_without_nvcc_raises(monkeypatch, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
+def test_failed_build_is_not_repeated(monkeypatch, tmp_path):
+    """A compiler failure raises with the compiler's words, and every later
+    load in the process raises the same at once instead of compiling every
+    source again (each wrapper call would otherwise spend a build's time)."""
+    log = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!/bin/sh\necho run >> {log}\necho 'error: no such thing' >&2\nexit 1\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_cuda, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_cuda, "_find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_cuda, "_FAILED_BUILDS", {})
+    _cuda.load_library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="no such thing"):
+            _cuda.load_library()
+        calls = len(log.read_text().splitlines())
+        assert calls == len(_cuda._sources())
+        with pytest.raises(RuntimeError, match="no such thing"):
+            _cuda.load_library()
+        assert len(log.read_text().splitlines()) == calls
+    finally:
+        _cuda.load_library.cache_clear()
+
+
 def test_kernel_sources_are_packaged_and_hashed():
     srcs = [os.path.basename(p) for p in _cuda._sources()]
-    assert srcs == ["flash_attention.cu", "flash_attention_bwd.cu", "temporal_attention.cu",
-                    "temporal_attention_bwd.cu", "temporal_conv.cu"]
+    assert srcs == ["flash_attention.cu", "flash_attention_bwd.cu", "group_norm.cu", "group_norm_bwd.cu",
+                    "temporal_attention.cu", "temporal_attention_bwd.cu", "temporal_conv.cu"]
     assert len(_cuda._source_hash()) == 16

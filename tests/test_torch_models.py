@@ -167,6 +167,39 @@ def test_video_transformer_block_direct_layout(monkeypatch):
     _close(got, want, MODULE_TOL)
 
 
+def test_video_transformer_block_injection_direct_layout(monkeypatch):
+    """Injected temporal q/k, in the direct layout [(b t), s, H*D], replace
+    the computed ones where the gate is on (and not where it is off); a
+    folded-layout tensor [(b s), t, H*D] has the same element count and is
+    refused by the port's shape check."""
+    monkeypatch.delenv("VIDSEG_TEMPORAL_LAYOUT", raising=False)  # JAX default: direct
+    t, s, c = 3, 10, 16
+    rs = np.random.RandomState(11)
+    x = rs.randn(2 * t, s, c).astype(np.float32)
+    ctx = rs.randn(2 * t, 1, 24).astype(np.float32)
+    q, k = rs.randn(2, 2 * t, s, c).astype(np.float32)
+    jb = jvl.VideoTransformerBlock(heads=2, dim_head=8)
+    params = _init_tree(jb, 12, jnp.asarray(x), jnp.asarray(ctx), t)
+    tb = _load(tvl.VideoTransformerBlock(c, 2, 8, 24), params, convert.unet_key_fn)
+    outs = {}
+    for gate in (True, False):
+        jinj = jl.BlockInjection(attn1=jl.AttnInjection(gate=jnp.asarray(gate), q=jnp.asarray(q),
+                                                        k=jnp.asarray(k)))
+        want = _apply(jb, params, jnp.asarray(x), jnp.asarray(ctx), t, injection=jinj)
+        tinj = tl.BlockInjection(attn1=tl.AttnInjection(gate=torch.tensor(gate), q=torch.from_numpy(q),
+                                                        k=torch.from_numpy(k)))
+        sow = {}
+        outs[gate] = tb(torch.from_numpy(x), torch.from_numpy(ctx), t, None, tinj, sow)
+        _close(outs[gate], want, MODULE_TOL)
+        assert torch.equal(sow["attn1"]["q"], torch.from_numpy(q)) == gate
+    plain = tb(torch.from_numpy(x), torch.from_numpy(ctx), t)
+    assert torch.equal(outs[False], plain) and not torch.allclose(outs[True], plain)
+    folded = torch.from_numpy(q).reshape(2, t, s, c).transpose(1, 2).reshape(2 * s, t, c)
+    with pytest.raises(ValueError, match="injected"):
+        tb(torch.from_numpy(x), torch.from_numpy(ctx), t, None,
+           tl.BlockInjection(attn1=tl.AttnInjection(gate=torch.tensor(True), q=folded)))
+
+
 _TINY_UNET = dict(in_channels=8, out_channels=4, model_channels=32, num_res_blocks=1,
                   attention_resolutions=(2, 1), channel_mult=(1, 2), num_head_channels=16,
                   context_dim=24, adm_in_channels=12)

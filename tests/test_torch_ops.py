@@ -293,6 +293,151 @@ def test_group_norm_matches_jax(shape, groups):
     _close(tnorm.group_norm(T(x), T(s), T(b), groups, 1e-5, silu=True), want)
 
 
+# -- K7-K10: GroupNorm ---------------------------------------------------------
+
+GN_CASES = [((2, 6, 8, 32), 8), ((3, 7, 13, 64), 16), ((2, 14, 8, 8, 32), 8)]  # tests/test_ops_norm.py
+
+
+def _gn_arrays(shape, seed=0, near_constant=False):
+    rs = np.random.RandomState(seed)
+    c = shape[-1]
+    x = rs.randn(*shape).astype(np.float32) * 2.0 + 0.5
+    if near_constant:  # E[x^2] - E[x]^2 cancels: the variance clamp decides
+        x = (100.0 + 1e-4 * rs.randn(*shape)).astype(np.float32)
+    return x, (1.0 + 0.1 * rs.randn(c)).astype(np.float32), (0.1 * rs.randn(c)).astype(np.float32)
+
+
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("shape,groups", GN_CASES)
+def test_group_norm_plain_matches_pallas(shape, groups, silu):
+    """The plain forward (the oracle of K7 + K8) against the TPU kernels in
+    interpret mode: the fused group_norm_silu (stats + apply kernels; 4-D
+    input, the 5-D case flattened as its dispatcher does) and
+    group_norm_split (stats kernel + XLA apply). fp32, 1e-5."""
+    x, s, b = _gn_arrays(shape)
+    calls = tnorm.group_norm_plain.calls
+    got = tnorm.group_norm(T(x), T(s), T(b), groups, 1e-5, silu=silu)
+    assert tnorm.group_norm_plain.calls == calls + 1  # CPU -> plain version
+    x4 = jnp.asarray(x).reshape(shape[0], -1, shape[-2], shape[-1])
+    fused = jnorm.group_norm_silu(x4, jnp.asarray(s), jnp.asarray(b), groups=groups, eps=1e-5,
+                                  silu=silu, interpret=True).reshape(shape)
+    split = jnorm.group_norm_split(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b), groups=groups,
+                                   eps=1e-5, silu=silu, interpret=True)
+    _close(got, fused)
+    _close(got, split)
+
+
+@pytest.mark.parametrize("shape,groups", GN_CASES)
+def test_group_norm_near_constant_input_stays_finite(shape, groups):
+    """E[x^2] - E[x]^2 goes negative from fp32 rounding on a near-constant
+    group; the variance is clamped at 0 as in the JAX package
+    (norm.py:116-119), so the output is finite and bounded by the eps floor:
+    |x - mean| * rsqrt(eps). (The values themselves are rounding noise on
+    both sides and are not compared.)"""
+    x, s, b = _gn_arrays(shape, near_constant=True)
+    got = tnorm.group_norm(T(x), T(s), T(b), groups, 1e-5)
+    want = jnorm.group_norm_split(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b), groups=groups,
+                                  eps=1e-5, interpret=True)
+    bound = np.abs(s).max() * 1e-2 * 1e-5 ** -0.5 + np.abs(b).max()  # |x - mean| < 1e-2
+    assert bool(torch.isfinite(got).all()) and np.isfinite(np.asarray(want)).all()
+    assert got.abs().max().item() <= bound and np.abs(np.asarray(want)).max() <= bound
+
+
+@pytest.mark.parametrize("shape,groups", GN_CASES)
+def test_group_norm_plain_bf16_is_one_step_from_pallas(shape, groups):
+    """bf16 activations: statistics and the affine in fp32, one rounding at
+    the end, as the TPU kernels; equal up to one bf16 step of the output."""
+    x, s, b = _gn_arrays(shape, seed=1)
+    xb = T(x).to(torch.bfloat16)
+    got = tnorm.group_norm(xb, T(s), T(b), groups, 1e-6, silu=True).float().numpy()
+    x4 = jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16).reshape(shape[0], -1, shape[-2], shape[-1])
+    want = np.asarray(jnorm.group_norm_silu(x4, jnp.asarray(s), jnp.asarray(b), groups=groups, eps=1e-6,
+                                            silu=True, interpret=True).astype(jnp.float32)).reshape(shape)
+    step = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126))) - 7)
+    assert np.all(np.abs(got - want) <= step)
+
+
+def _gn_torch_grads(x, s, b, g, groups, silu, dtype=torch.float32):
+    """(dx, dgamma, dbeta) through GroupNormFn on the CPU: activations and
+    the incoming gradient in `dtype`, parameters in fp32."""
+    leaves = [T(x).to(dtype).requires_grad_(), T(s).requires_grad_(), T(b).requires_grad_()]
+    calls = tnorm.group_norm_backward_plain.calls
+    y = tnorm.group_norm(*leaves, groups, 1e-5, silu=silu)
+    assert isinstance(y.grad_fn, tnorm.GroupNormFn._backward_cls)
+    y.backward(T(g).to(dtype))
+    assert tnorm.group_norm_backward_plain.calls == calls + 1  # CPU -> plain coefficient form
+    return [t.grad.float().numpy() for t in leaves]
+
+
+@pytest.mark.parametrize("dt,tol", [("fp32", 2e-5), ("bf16", 5e-2)])
+@pytest.mark.parametrize("shape,groups", GN_CASES)
+def test_group_norm_backward_matches_pallas(shape, groups, dt, tol):
+    """GroupNormFn's backward on the CPU (the plain coefficient form, the
+    oracle of K9 + K10) against jax.grad through _gn, whose VJP is the Pallas
+    backward kernels in interpret mode (silu=False, all it covers): dx, dgamma,
+    dbeta, relative to the largest gradient; bf16 at the JAX test's 5e-2."""
+    x, s, b = _gn_arrays(shape, seed=2)
+    g = np.random.RandomState(3).randn(*shape).astype(np.float32)
+    jdt = jnp.float32 if dt == "fp32" else jnp.bfloat16
+    tdt = torch.float32 if dt == "fp32" else torch.bfloat16
+    xj, gj = jnp.asarray(x).astype(jdt), jnp.asarray(g).astype(jdt)
+    loss = lambda xx, ss, bb: jnp.sum(jnorm._gn(groups, 1e-5, True, xx, ss, bb).astype(jnp.float32)
+                                      * gj.astype(jnp.float32))
+    want = jax.grad(loss, argnums=(0, 1, 2))(xj, jnp.asarray(s), jnp.asarray(b))
+    xr, gr = np.array(xj.astype(jnp.float32)), np.array(gj.astype(jnp.float32))
+    for o, w in zip(_gn_torch_grads(xr, s, b, gr, groups, False, tdt), want):
+        w = np.asarray(w.astype(jnp.float32))
+        assert np.abs(o - w).max() <= tol * np.abs(w).max()
+
+
+@pytest.mark.parametrize("shape,groups", GN_CASES)
+def test_group_norm_silu_backward_matches_jax_grad(shape, groups):
+    """silu=True: the backward recomputes z = a x + s and uses
+    u = dy * d silu(z)/dz; against jax.grad of _gn_core(..., silu=True)."""
+    x, s, b = _gn_arrays(shape, seed=4)
+    g = np.random.RandomState(5).randn(*shape).astype(np.float32)
+    loss = lambda xx, ss, bb: jnp.sum(jnorm._gn_core(xx, ss, bb, groups, 1e-5, True)[0] * jnp.asarray(g))
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b))
+    for o, w in zip(_gn_torch_grads(x, s, b, g, groups, True), want):
+        assert np.abs(o - np.asarray(w)).max() <= 2e-5 * np.abs(np.asarray(w)).max()
+
+
+@pytest.mark.parametrize("silu", [False, True])
+def test_group_norm_fn_gradcheck_fp64(silu):
+    rs = np.random.RandomState(6)
+    x = torch.tensor(rs.randn(2, 3, 4, 8), dtype=torch.float64, requires_grad=True)
+    w = torch.tensor(1.0 + 0.3 * rs.randn(8), dtype=torch.float64, requires_grad=True)
+    b = torch.tensor(rs.randn(8), dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(lambda *a: tnorm.group_norm(*a, 4, 1e-5, silu), (x, w, b))
+
+
+def test_group_norm_saves_nothing_without_grad_and_counts_copies():
+    x, s, b = _gn_arrays((2, 5, 6, 16), seed=7)
+    leaves = [T(a).requires_grad_() for a in (x, s, b)]
+    with torch.no_grad():
+        assert tnorm.group_norm(*leaves, 4).grad_fn is None
+    assert tnorm.group_norm(T(x), T(s), T(b), 4).grad_fn is None   # nothing requires grad
+    copies = tnorm.group_norm.copies
+    xt = T(x).permute(0, 2, 1, 3)  # strided view: copied once, and counted
+    _close(tnorm.group_norm(xt, T(s), T(b), 4), tnorm.group_norm_plain(xt.contiguous(), T(s), T(b), 4))
+    assert tnorm.group_norm.copies == copies + 1
+    with pytest.raises(ValueError, match="divisible"):
+        tnorm.group_norm(T(x), T(s), T(b), 5)
+
+
+def test_group_norm_plan_covers_every_row():
+    """The chunking the wrappers hand to the kernels (rows per chunk a
+    multiple of the rows a block covers per pass, chunks * rows >= R), at the
+    main-path shapes and at odd ones."""
+    for b, r, c, itemsize in [(28, 5824, 320, 2), (28, 91, 1280, 2), (28, 91, 2560, 4), (1, 2609152, 128, 2),
+                              (7, 372736, 128, 2), (2, 81536, 320, 2), (3, 91, 6, 2), (1, 1, 32, 4)]:
+        vec, rows, chunks = tnorm._plan(b, r, c, itemsize, True)
+        assert vec in (1, 16 // itemsize) and c % vec == 0
+        assert rows * chunks >= r > rows * (chunks - 1)
+        assert rows % (256 // min(c // vec, 256)) == 0
+        assert tnorm._plan(b, r, c, itemsize, False)[0] == 1  # unaligned pointers: element loads
+
+
 @pytest.mark.parametrize("src,dst", [((16, 24), (7, 13)), ((4, 6), (8, 9)), ((30, 40), (224, 224)), ((5, 5), (5, 3))])
 def test_resize_bicubic_matches_jax(src, dst):
     (x,) = _arrays(11, (2, 3) + src)

@@ -6,7 +6,10 @@ into the port with io/convert.py) and the same random draws: the port is
 handed the cond-aug noise, the add_noise noise and the kmeans initial
 centres that the JAX pipeline draws from its keys. The JAX feature-pass x0,
 cached trajectory and final run latents are captured by wrapping its engine
-entry points (the JAX package is not changed).
+entry points (the JAX package is not changed). The same comparison runs a
+second time with is_injected_features: the temporal self-attention q/k that
+both feature passes cache (JAX in its default direct layout) must agree, and
+so must the injected runs.
 """
 
 import inspect
@@ -25,6 +28,7 @@ from vidseg_diffusion_tpu.models.clip import clip_vision_key_fn
 from vidseg_diffusion_tpu.ops.kmeans import _kmeanspp_init
 from vidseg_diffusion_tpu.pipelines.single_video import VidSegArgs as JArgs
 from vidseg_diffusion_tpu.pipelines.single_video import run_single_video as j_run
+from vidseg_diffusion_tpu_torch.engine import vidseg as tvidseg
 from vidseg_diffusion_tpu_torch.engine.build import build_pipeline as t_build
 from vidseg_diffusion_tpu_torch.io import convert
 from vidseg_diffusion_tpu_torch.pipelines.single_video import VidSegArgs, run_single_video
@@ -51,8 +55,8 @@ def _sd(tree, key_fn, strip=""):
     return {k: torch.tensor(v) for k, v in convert.jax_to_state_dict(np_tree, key_fn, strip).items()}
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def _run_both(out_dir, **flags):
+    """(JAX result, captured JAX tensors, port result, captured port cache)."""
     frames = np.random.RandomState(0).uniform(-1, 1, (T, HPX, WPX, 3)).astype(np.float32)
     names = [str(i) for i in range(T)]
     jp = j_build(CONFIG, num_steps=STEPS, num_frames=T)
@@ -67,6 +71,7 @@ def runs(tmp_path_factory):
         def run(*a, **kw):
             x0, cache = f(*a, **kw)
             captured.update(x0=np.asarray(x0), xt=np.asarray(cache["xt"]))
+            captured["qk"] = {n: np.asarray(v) for n, v in cache.items() if "_temporal_self_" in n}
             return x0, cache
 
         return run
@@ -80,7 +85,8 @@ def runs(tmp_path_factory):
     mp.setattr(eng, "jit_xt_cache", property(xt_cache))
     mp.setattr(eng, "modulated_runs_host_stepped", runs_stepped)
     try:
-        jres = j_run(jp, frames, names, JArgs(mesh="off", runs_chunk=1, **ARGS), write_outputs=False)
+        jres = j_run(jp, frames, names, JArgs(mesh="off", runs_chunk=1, **ARGS, **flags),
+                     write_outputs=False)
     finally:
         mp.undo()
 
@@ -94,17 +100,41 @@ def runs(tmp_path_factory):
     keys = jax.random.split(jax.random.fold_in(rng, 3), 10)
     init = np.array(jax.jit(jax.vmap(lambda k: _kmeanspp_init(k, pts, MASKS)))(keys))
 
-    tp = t_build(CONFIG, num_steps=STEPS, num_frames=T)
+    tp = t_build(CONFIG, num_steps=STEPS, num_frames=T, device="cpu")
     tp.unet.load_state_dict(_sd(jp.unet_params, unet_key_fn))
     tp.first_stage.encoder.load_state_dict(_sd(jp.first_stage.params_encoder, convert.vae_key_fn))
     tp.first_stage.decoder.load_state_dict(_sd(jp.first_stage.params_decoder, convert.vae_key_fn))
     closure = inspect.getclosurevars(jp.condition_video).nonlocals
     tp.clip.load_state_dict(_sd(closure["vparams"], clip_vision_key_fn, "visual."))
     tp.cond_encoder.load_state_dict(_sd(closure["cenc_params"], convert.vae_key_fn))
+    tcache = {}
+    orig_pass = tvidseg.VidSegEngine.xt_cache_pass
+
+    def xt_cache_pass(self, *a, **kw):
+        x0, cache = orig_pass(self, *a, **kw)
+        tcache.update(cache)
+        return x0, cache
+
+    mp.setattr(tvidseg.VidSegEngine, "xt_cache_pass", xt_cache_pass)
+    try:
+        tres = run_single_video(
+            tp, frames, names, VidSegArgs(feature_folder=str(out_dir), **ARGS, **flags),
+            write_outputs=out_dir is not None, cond_aug_noise=aug, noise=noise, kmeans_init=init)
+    finally:
+        mp.undo()
+    return jres, captured, tres, tcache
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
     out_dir = tmp_path_factory.mktemp("vidseg")
-    tres = run_single_video(tp, frames, names, VidSegArgs(feature_folder=str(out_dir), **ARGS),
-                            cond_aug_noise=aug, noise=noise, kmeans_init=init)
+    jres, captured, tres, _ = _run_both(out_dir)
     return jres, captured, tres, out_dir
+
+
+@pytest.fixture(scope="module")
+def injected_runs():
+    return _run_both(None, is_injected_features=True)
 
 
 def _rel_close(got, want, rtol):
@@ -158,8 +188,60 @@ def test_outputs_tree_written(runs):
     assert len(list(out_dir.glob("default/segmentation_map_raw/*/0.png"))) == 1
 
 
+def test_injection_harvest_matches_jax(injected_runs):
+    """The feature pass caches temporal self-attention q and k of every
+    attention-bearing output block, in the direct layout [(b t), s, H*D],
+    windowed from the first modulated step; equal to JAX's at 1e-4."""
+    _, cap, tres, tcache = injected_runs
+    names = sorted(n for n in tcache if "_temporal_self_" in n)
+    assert names and names == sorted(cap["qk"])
+    assert len(names) % 2 == 0 and tcache["t0"] == min(ARGS["modulate_timestep"])
+    for n in names:
+        got, want = tcache[n].numpy(), cap["qk"][n]
+        assert got.shape == want.shape and got.shape[:2] == (STEPS - tcache["t0"], 2 * T)
+        np.testing.assert_allclose(got, want, atol=1e-4 * max(1.0, float(np.abs(want).max())), rtol=0)
+    assert tres.injected_cache_bytes == sum(tcache[n].numel() * 4 for n in names)
+
+
+def test_injected_runs_match_jax(injected_runs):
+    jres, cap, tres, _ = injected_runs
+    _rel_close(tres.feature_x0, cap["x0"], LATENT_RTOL)
+    _rel_close(tres.final_latents, cap["finals"], LATENT_RTOL)
+    np.testing.assert_array_equal(tres.masks, jres.masks)
+    d = np.abs(tres.diff_maps - jres.diff_maps)
+    assert (d == 0).mean() >= 0.99 and d.max() <= 1
+    maxes = jres.diff_maps.max(axis=(-2, -1), keepdims=True)
+    norm = jres.diff_maps / (maxes + 1e-5)
+    top2 = np.sort(norm, axis=0)[-2:]
+    sure = (top2[1] - top2[0]) * maxes.min(axis=0) > 1.0
+    assert sure.mean() > 0.5
+    np.testing.assert_array_equal(tres.seg_raw[sure], jres.seg_raw[sure])
+
+
+def test_injection_changes_the_runs_and_counts_its_sites(runs, injected_runs):
+    """Injected runs differ from the un-injected ones (same frames, noise and
+    masks), still differ between +lambda and -lambda, keep the outside-mask
+    cells on the cached trajectory, and every (run, gated step, injected
+    block) took cached q/k."""
+    _, _, plain, _ = runs
+    _, _, tres, tcache = injected_runs
+    np.testing.assert_array_equal(plain.masks, tres.masks)
+    np.testing.assert_array_equal(plain.cached_xt, tres.cached_xt)
+    assert np.abs(plain.final_latents - tres.final_latents).max() > 1e-5  # exact 0 without injection
+    fin = tres.final_latents
+    assert np.abs(fin[0] - fin[1]).max() > 1e-3
+    for s in range(2):
+        for m in range(MASKS):
+            outside = (fin[s, m] - tres.cached_xt[-1]) * (1 - tres.masks_latent[m][..., None])
+            assert np.abs(outside).max() == 0.0
+    blocks = len([n for n in tcache if n.endswith("_temporal_self_q")])
+    gated_steps = STEPS - min(ARGS["modulate_timestep"])
+    assert tres.injected_sites == 2 * MASKS * gated_steps * blocks > 0
+    assert plain.injected_sites == 0 and plain.injected_cache_bytes == 0
+
+
 @pytest.mark.parametrize("flag,value", [
-    ("is_injected_features", True), ("is_refine_mask", True),
+    ("is_refine_mask", True),
     ("feature_extraction_mode", "match_gt_mask"), ("inversion_type", "inversion"),
 ])
 def test_unported_flags_raise(flag, value):
@@ -172,7 +254,7 @@ def test_unported_flags_raise(flag, value):
 def test_build_pipeline_loads_an_sgm_checkpoint(tmp_path):
     """A checkpoint with the reference's key names (open_clip's packed
     in_proj included) loads into the port's modules unchanged."""
-    src = t_build(CONFIG, num_steps=STEPS, num_frames=T, seed=3)
+    src = t_build(CONFIG, num_steps=STEPS, num_frames=T, seed=3, device="cpu")
     sd = {}
     for prefix, module in (("model.diffusion_model.", src.unet),
                            ("first_stage_model.encoder.", src.first_stage.encoder),
@@ -188,7 +270,7 @@ def test_build_pipeline_loads_an_sgm_checkpoint(tmp_path):
     sd.update({"conditioner.embedders.0.open_clip.model.visual." + k: v for k, v in clip.items()})
     path = tmp_path / "svd.ckpt"
     torch.save({"state_dict": sd}, path)
-    dst = t_build(CONFIG, ckpt_path=str(path), num_steps=STEPS, num_frames=T)
+    dst = t_build(CONFIG, ckpt_path=str(path), num_steps=STEPS, num_frames=T, device="cpu")
     for a, b in ((src.unet, dst.unet), (src.clip, dst.clip), (src.cond_encoder, dst.cond_encoder),
                  (src.first_stage.encoder, dst.first_stage.encoder),
                  (src.first_stage.decoder, dst.first_stage.decoder)):
@@ -196,11 +278,11 @@ def test_build_pipeline_loads_an_sgm_checkpoint(tmp_path):
         assert sa.keys() == sb.keys()
         assert all(torch.equal(sa[k], sb[k]) for k in sa)
     with pytest.raises(FileNotFoundError):
-        t_build(CONFIG, ckpt_path=str(tmp_path / "missing.ckpt"))
+        t_build(CONFIG, ckpt_path=str(tmp_path / "missing.ckpt"), device="cpu")
 
 
 def test_feature_timestep_before_cache_window_raises():
-    tp = t_build(CONFIG, num_steps=STEPS, num_frames=T)
+    tp = t_build(CONFIG, num_steps=STEPS, num_frames=T, device="cpu")
     frames = np.zeros((T, HPX, WPX, 3), np.float32)
     args = VidSegArgs(**{**ARGS, "feature_timestep": (1,)})
     with pytest.raises(ValueError, match="precedes the cache window"):

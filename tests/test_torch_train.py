@@ -285,6 +285,28 @@ def test_remat_gradients_equal_no_remat_bit_for_bit():
         assert torch.equal(plain(x, ts, ctx, y, **kw), remat(x, ts, ctx, y, **kw))
 
 
+def test_unet_backward_runs_group_norm_fn_once_per_site():
+    """Every GroupNorm module of the UNet goes through GroupNormFn: one plain
+    coefficient-form backward per module per loss.backward(), and with remat
+    one extra plain forward per module inside a checkpointed block."""
+    from vidseg_diffusion_tpu_torch.models.layers import GroupNorm32
+    from vidseg_diffusion_tpu_torch.ops import norm as tnorm
+
+    t = 2
+    inputs = _unet_inputs(t, 8)
+    for remat in (False, True):
+        tm = tunet.UNetModel(tunet.UNetConfig(remat=remat, **_GRAD_UNET))
+        randomize_(tm, torch.Generator().manual_seed(0))
+        sites = sum(isinstance(m, GroupNorm32) for m in tm.modules())
+        fwd, bwd = tnorm.group_norm_plain.calls, tnorm.group_norm_backward_plain.calls
+        grads = _port_grads(tm, inputs, t)
+        assert tnorm.group_norm_backward_plain.calls - bwd == sites
+        recomputed = sites - 1 if remat else 0   # all but the `out` norm sit in checkpointed blocks
+        assert tnorm.group_norm_plain.calls - fwd == sites + recomputed
+        gn = [n for n, m in tm.named_modules() if isinstance(m, GroupNorm32)]
+        assert all(grads[f"{n}.weight"] is not None and grads[f"{n}.bias"] is not None for n in gn)
+
+
 def test_training_setup_takes_a_step_on_a_tiny_unet():
     """scripts/train_path.py's network and loss drive the trainer on a tiny
     remat UNet: finite loss, every parameter with a gradient finite, the

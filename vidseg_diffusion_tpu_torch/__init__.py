@@ -1,4 +1,4 @@
-"""vidseg_diffusion_tpu_torch — the PyTorch/CUDA port of vidseg_diffusion_tpu.
+"""vidseg_diffusion_tpu_torch — the PyTorch/CUDA port of the vidseg_diffusion_tpu package.
 
 The SVD single-video VidSeg path on one NVIDIA H100: PyTorch modules for the
 model stack, and hand-written Hopper kernels (csrc/, CUDA C++ for sm_90a,

@@ -112,8 +112,9 @@ class Pipeline:
 
 def build_pipeline(config_path: str, ckpt_path: Optional[str] = None,
                    num_steps: Optional[int] = None, num_frames: Optional[int] = None,
-                   dtype: torch.dtype = torch.float32, device="cpu", seed: int = 0) -> Pipeline:
-    """Build the SVD stack in `dtype` on `device`: from `ckpt_path` (or the
+                   dtype: torch.dtype = torch.float32, device="cuda", seed: int = 0) -> Pipeline:
+    """Build the SVD stack in `dtype` on `device` (the card unless the
+    caller asks for the CPU; without a card the default raises): from `ckpt_path` (or the
     YAML's ckpt_path when that file exists), else random weights from
     `seed`. An explicit ckpt_path that does not exist raises."""
     device = torch.device(device)

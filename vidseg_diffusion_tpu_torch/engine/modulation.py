@@ -66,7 +66,13 @@ class ModulationConfig:
     num_steps: int = 25
     num_frames: int = 14
     is_injected_features: bool = False
+    # output blocks whose temporal self-attention takes the cached q/k
+    output_block_indices: Tuple[int, ...] = tuple(range(1, 12))
     is_latent_blending: bool = True
+
+    def inject_gate_for_step(self, i: int) -> bool:
+        """Injection is on from the first modulated step (sampling.py:185-194)."""
+        return self.is_injected_features and i >= min(self.modulate_timestep)
 
     def lam(self) -> torch.Tensor:
         return modulate_lambda_schedule(

@@ -51,12 +51,11 @@ def segmentation_argmax(diff: torch.Tensor, masks: Optional[torch.Tensor] = None
 
 def soft_color_map(n: int = 128, seed: int = 0) -> np.ndarray:
     """Palette for colorized label maps: the reference's 119-entry table
-    (vendored with the JAX package), extended by golden-ratio hues."""
+    (the package's assets/color_map_soft.txt), extended by golden-ratio hues."""
     import colorsys
 
-    import vidseg_diffusion_tpu
-
-    table = os.path.join(os.path.dirname(vidseg_diffusion_tpu.__file__), "assets", "color_map_soft.txt")
+    table = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "assets", "color_map_soft.txt")
     base = np.loadtxt(table, delimiter=",", dtype=np.int64).astype(np.uint8)
     if n <= base.shape[0]:
         return base[:n]

@@ -16,6 +16,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from vidseg_diffusion_tpu_torch.diffusion.loss import StandardDiffusionLoss
 from vidseg_diffusion_tpu_torch.utils.ema import EmaState, ema_init, ema_update
@@ -45,8 +46,10 @@ class DiffusionTrainStep:
         loss = self.loss_mod(self.network_factory(self.model), batch, cond,
                              generators=generators, sigma=sigma, noise=noise)
         loss.backward()
-        self.optimizer.step()
+        with record_function("vs:optimizer"):
+            self.optimizer.step()
         if self.ema is not None:
-            ema_update(self.ema, self.model, decay=self.ema_decay)
+            with record_function("vs:ema"):
+                ema_update(self.ema, self.model, decay=self.ema_decay)
         self.step_count += 1
         return loss.detach()

@@ -6,9 +6,12 @@ attention q/k and the post-step latent trajectory (`xt_cache_pass`, with the
 windowed cache contract: entries are indexed [i - t0] with t0 = cache["t0"]),
 and the (mask, +/-lambda) runs grid, runs outer and stepped, with latent
 blending and an `on_run_done` hook (the counterpart of
-modulated_runs_host_stepped's runs-outer branch, :1000-1018). Feature
-injection is not ported yet: an engine built with is_injected_features
-raises.
+modulated_runs_host_stepped's runs-outer branch, :1000-1018). With
+is_injected_features the feature pass also keeps the temporal self-attention
+q and k of the attention-bearing output blocks, and every modulated run
+replaces the computed q/k of those sites by the cached ones from the first
+modulated step on. The cache stays on the device (the JAX package's host-RAM
+streaming is a TPU workaround and is not ported).
 """
 
 from __future__ import annotations
@@ -22,9 +25,14 @@ from vidseg_diffusion_tpu_torch.diffusion.denoiser import Denoiser
 from vidseg_diffusion_tpu_torch.diffusion.guidance import LinearPredictionGuider
 from vidseg_diffusion_tpu_torch.diffusion.sampling import EulerEDMSampler
 from vidseg_diffusion_tpu_torch.engine.modulation import ModulationConfig
-from vidseg_diffusion_tpu_torch.models.layers import BlockModulation, Modulation
+from vidseg_diffusion_tpu_torch.models.layers import (
+    AttnInjection,
+    BlockInjection,
+    BlockModulation,
+    Modulation,
+)
 from vidseg_diffusion_tpu_torch.models.unet import UNetHooks, UNetModel
-from vidseg_diffusion_tpu_torch.models.video_layers import SiteModulation
+from vidseg_diffusion_tpu_torch.models.video_layers import SiteInjection, SiteModulation
 from vidseg_diffusion_tpu_torch.ops.image import resize_nearest
 
 Cond = Dict[str, torch.Tensor]
@@ -61,10 +69,38 @@ class HarvestSpec:
         return out
 
 
-def svd_harvest_spec(cluster_blocks: Sequence[int] = (8,)) -> HarvestSpec:
-    """Spatial self-attention q of the clustering blocks (the injection
-    harvest of temporal q/k is not ported yet)."""
-    return HarvestSpec(tuple((b, "spatial_self", "q") for b in cluster_blocks))
+def svd_harvest_spec(cluster_blocks: Sequence[int] = (8,), injection: bool = False,
+                     injection_blocks: Sequence[int] = tuple(range(3, 12))) -> HarvestSpec:
+    """Spatial self-attention q of the clustering blocks; with `injection`,
+    also the temporal self-attention q and k of the attention-bearing output
+    blocks (the only injected features the SVD path ever consumes)."""
+    entries = [(b, "spatial_self", "q") for b in cluster_blocks]
+    if injection:
+        for b in injection_blocks:
+            entries.append((b, "temporal_self", "q"))
+            entries.append((b, "temporal_self", "k"))
+    return HarvestSpec(tuple(entries))
+
+
+def _cache_step(cache: Dict, name: str, i: int) -> torch.Tensor:
+    """A (possibly windowed) step cache at absolute step i: entries are
+    indexed [i - t0] with t0 = cache["t0"] (absent: full length). The index
+    is clipped; gating keeps out-of-window values from being consumed."""
+    arr = cache[name]
+    return arr[min(max(i - int(cache.get("t0", 0)), 0), arr.shape[0] - 1)]
+
+
+def _injection_site_for_block(block: int, cache: Dict, i: int, gate: torch.Tensor
+                              ) -> Optional[SiteInjection]:
+    """The SiteInjection of one output block at step i from the device cache:
+    temporal self-attention q/k in the direct layout [(b t), s, H*D]. A block
+    without cached entries is not injected (the reference skips absent
+    feature files)."""
+    names = [HarvestSpec.name(block, "temporal_self", tensor) for tensor in ("q", "k")]
+    q, k = (_cache_step(cache, n, i) if n in cache else None for n in names)
+    if q is None and k is None:
+        return None
+    return SiteInjection(temporal=BlockInjection(attn1=AttnInjection(gate=gate, q=q, k=k)))
 
 
 def masks_to_latent(masks: torch.Tensor, latent_hw: Tuple[int, int]) -> torch.Tensor:
@@ -81,12 +117,7 @@ class VidSegEngine:
     guider: LinearPredictionGuider
     mod_cfg: ModulationConfig
     harvest: HarvestSpec = HarvestSpec()
-
-    def __post_init__(self):
-        if self.mod_cfg.is_injected_features:
-            raise NotImplementedError(
-                "feature injection and its q/k cache are not ported yet (ROADMAP Queue A)"
-            )
+    injected_sites: int = 0  # (block, step) sites that took cached q/k, over all runs
 
     def _denoise_fn(self, c: Cond, uc: Cond, hooks_fn=None, collect: bool = False):
         """denoise_fn(x, sigma, i) -> (guided denoised, harvested aux), with
@@ -132,21 +163,36 @@ class VidSegEngine:
             for name, arr in aux.items():
                 steps.setdefault(name, []).append(arr)
             steps.setdefault("xt", []).append(x)
-        cache = {name: torch.stack(v) for name, v in steps.items()}
+        cache: Dict = {}
+        for name in list(steps):  # one entry at a time: the lists are freed as they are stacked
+            cache[name] = torch.stack(steps.pop(name))
         cache["t0"] = t_start
         return x, cache
 
-    def _build_hooks_fn(self, masks_tokens: torch.Tensor, lam: torch.Tensor):
+    def _build_hooks_fn(self, masks_tokens: torch.Tensor, lam: torch.Tensor,
+                        cache: Optional[Dict] = None):
         """hooks_fn(i): the lambda * mask modulation of the modulated output
         blocks at step i (none on steps whose frame gate is all off: the
-        JAX package adds exact zeros there)."""
+        JAX package adds exact zeros there) and, with is_injected_features
+        and a cache, the cached temporal q/k of the injected output blocks
+        (none before the first modulated step: the JAX package's gate selects
+        the computed q/k there)."""
         cfg = self.mod_cfg
         table = cfg.step_frame_table()
+
+        def injection(i):
+            if cache is None or not cfg.inject_gate_for_step(i):
+                return {}
+            on = torch.ones((), dtype=torch.bool, device=masks_tokens.device)
+            sites = {b: _injection_site_for_block(b, cache, i, on) for b in cfg.output_block_indices}
+            sites = {b: s for b, s in sites.items() if s is not None}
+            self.injected_sites += len(sites)
+            return sites
 
         def hooks_fn(i):
             gate = table[i]
             if not gate.any():
-                return UNetHooks()
+                return UNetHooks(output_inj=injection(i))
             frame_gate = torch.from_numpy(gate).to(masks_tokens.device)
             mod = Modulation(
                 masks=masks_tokens, lam=lam.to(masks_tokens.device), frame_gate=frame_gate,
@@ -161,7 +207,8 @@ class VidSegEngine:
                 spatial=block if "spatial" in cfg.modulate_layer_type else None,
                 temporal=block if "temporal" in cfg.modulate_layer_type else None,
             )
-            return UNetHooks(output_mod={b: site for b in cfg.modulate_block_idx})
+            return UNetHooks(output_mod={b: site for b in cfg.modulate_block_idx},
+                             output_inj=injection(i))
 
         return hooks_fn
 
@@ -193,7 +240,8 @@ class VidSegEngine:
         finals = []
         for r in range(2 * m):
             lam = cfg.lam() * (1.0 if r < m else -1.0)
-            denoise_fn = self._denoise_fn(c, uc, hooks_fn=self._build_hooks_fn(masks_tokens[r % m], lam))
+            denoise_fn = self._denoise_fn(
+                c, uc, hooks_fn=self._build_hooks_fn(masks_tokens[r % m], lam, cache))
             mlat = masks_latent[r % m][..., None].to(x0.dtype)
             x = x0
             for i in range(t_start, sampler.num_steps):

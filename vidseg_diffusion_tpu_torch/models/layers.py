@@ -10,6 +10,11 @@ parameter trees onto the same names.
 The q/k harvest of the feature pass is a dict handed to CrossAttention
 (`sow`): the flat [B, L, H*D] q and k are stored there, the counterpart of
 the JAX package's flax `sow` into 'intermediates' (layers.py:375-380).
+
+The glue around the kernels runs under torch.profiler.record_function ranges
+named "vs:<site>" (GroupNorm, LayerNorm, GEGLU, linear, Conv2dNHWC,
+AlphaBlender, modulation), which scripts/profile_*.py use to split the
+device time of PyTorch's own kernels by what launched them.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from vidseg_diffusion_tpu_torch.ops.attention import (
     dot_product_attention,
@@ -63,17 +69,19 @@ class Conv2dNHWC(nn.Conv2d):
     way in or out."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(
-            x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
-            None if self.bias is None else self.bias.to(x.dtype),
-            self.stride, self.padding,
-        )
-        return y.permute(0, 2, 3, 1)
+        with record_function("vs:Conv2dNHWC"):
+            y = F.conv2d(
+                x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+                None if self.bias is None else self.bias.to(x.dtype),
+                self.stride, self.padding,
+            )
+            return y.permute(0, 2, 3, 1)
 
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     """nn.Linear in the activation's dtype (the JAX modules' `dtype=` cast)."""
-    return F.linear(x, layer.weight.to(x.dtype), None if layer.bias is None else layer.bias.to(x.dtype))
+    with record_function("vs:linear"):
+        return F.linear(x, layer.weight.to(x.dtype), None if layer.bias is None else layer.bias.to(x.dtype))
 
 
 class AlphaBlender(nn.Module):
@@ -92,15 +100,16 @@ class AlphaBlender(nn.Module):
         self.mix_factor = nn.Parameter(torch.full((1,), float(alpha)))
 
     def forward(self, x_spatial, x_temporal, image_only_indicator):
-        alpha = torch.sigmoid(self.mix_factor.float())
-        alpha = torch.where(image_only_indicator.bool(), torch.ones_like(alpha), alpha)  # [b, t]
-        b, t = alpha.shape
-        if self.broadcast == "bt":
-            alpha = alpha.reshape((b * t,) + (1,) * (x_spatial.dim() - 1))
-        else:
-            alpha = alpha.reshape((b, t) + (1,) * (x_spatial.dim() - 2))
-        alpha = alpha.to(x_spatial.dtype)
-        return alpha * x_spatial + (1.0 - alpha) * x_temporal
+        with record_function("vs:AlphaBlender"):
+            alpha = torch.sigmoid(self.mix_factor.float())
+            alpha = torch.where(image_only_indicator.bool(), torch.ones_like(alpha), alpha)  # [b, t]
+            b, t = alpha.shape
+            if self.broadcast == "bt":
+                alpha = alpha.reshape((b * t,) + (1,) * (x_spatial.dim() - 1))
+            else:
+                alpha = alpha.reshape((b, t) + (1,) * (x_spatial.dim() - 2))
+            alpha = alpha.to(x_spatial.dtype)
+            return alpha * x_spatial + (1.0 - alpha) * x_temporal
 
 
 class GEGLU(nn.Module):
@@ -109,8 +118,9 @@ class GEGLU(nn.Module):
         self.proj = nn.Linear(dim_in, dim_out * 2)
 
     def forward(self, x):
-        x, gate = linear(x, self.proj).chunk(2, dim=-1)
-        return x * F.gelu(gate, approximate="tanh")  # flax nn.gelu default
+        with record_function("vs:GEGLU"):
+            x, gate = linear(x, self.proj).chunk(2, dim=-1)
+            return x * F.gelu(gate, approximate="tanh")  # flax nn.gelu default
 
 
 class FeedForward(nn.Module):
@@ -143,13 +153,14 @@ class Modulation:
     def spatial_add(self, out: torch.Tensor) -> torch.Tensor:
         """out: [(2b t), L, C] spatial token layout (uc frames then cond)."""
         t = self.masks.shape[0]
-        scale = (
-            self.enabled.to(out.dtype) * self.frame_gate.to(out.dtype) * self.lam.to(out.dtype)
-        )
-        add = scale[:, None] * self.masks.to(out.dtype)  # [T, L]
         if out.shape[0] != 2 * t:
             raise ValueError(f"modulation expects the [uc; c] batch of {2 * t} rows, got {out.shape[0]}")
-        return out + torch.cat([add, add], dim=0)[:, :, None]
+        with record_function("vs:modulation"):
+            scale = (
+                self.enabled.to(out.dtype) * self.frame_gate.to(out.dtype) * self.lam.to(out.dtype)
+            )
+            add = scale[:, None] * self.masks.to(out.dtype)  # [T, L]
+            return out + torch.cat([add, add], dim=0)[:, :, None]
 
 
 @dataclasses.dataclass
@@ -276,7 +287,8 @@ class BasicTransformerBlock(nn.Module):
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    return F.layer_norm(x, ln.normalized_shape, ln.weight.to(x.dtype), ln.bias.to(x.dtype), ln.eps)
+    with record_function("vs:LayerNorm"):
+        return F.layer_norm(x, ln.normalized_shape, ln.weight.to(x.dtype), ln.bias.to(x.dtype), ln.eps)
 
 
 class SpatialTransformer(nn.Module):

@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from vidseg_diffusion_tpu_torch.models.layers import (
@@ -125,9 +126,10 @@ class TemporalConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, h, w, c = x.shape
-        wt = self.weight[:, :, :, 0, 0].permute(2, 1, 0).to(x.dtype).contiguous()  # [kt, Cin, Cout]
-        y = temporal_conv_1x1(x.reshape(b, t, h * w, c).contiguous(), wt, self.bias.to(x.dtype))
-        return y.reshape(b, t, h, w, -1)
+        with record_function("vs:TemporalConv"):
+            wt = self.weight[:, :, :, 0, 0].permute(2, 1, 0).to(x.dtype).contiguous()  # [kt, Cin, Cout]
+            y = temporal_conv_1x1(x.reshape(b, t, h * w, c).contiguous(), wt, self.bias.to(x.dtype))
+            return y.reshape(b, t, h, w, -1)
 
 
 class ResBlock(nn.Module):

@@ -62,14 +62,20 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+_FAILED_BUILDS = {}  # library path -> the compiler's errors, so a failed build is not repeated
+
+
 def build() -> str:
     """Compile csrc/*.cu into _build/ (skipped when this source hash is
     already built): one nvcc per source in parallel, then one link. Returns
     the library path; the compilers' output, with ptxas's register and
-    spill report, is kept in _build/build.log."""
+    spill report, is kept in _build/build.log. A failed build raises, and
+    raises again at once on every later call in the process."""
     lib_path = os.path.join(BUILD_DIR, f"libvidseg_kernels-{_source_hash()}.so")
     if os.path.isfile(lib_path):
         return lib_path
+    if lib_path in _FAILED_BUILDS:  # the same sources would fail the same way, a minute later
+        raise RuntimeError(_FAILED_BUILDS[lib_path])
     nvcc = _find_nvcc()
     if nvcc is None:
         raise RuntimeError(
@@ -105,7 +111,8 @@ def build() -> str:
     with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
         f.write("\n".join(log))
     if errors:
-        raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        _FAILED_BUILDS[lib_path] = "nvcc failed: " + "\n".join(errors)
+        raise RuntimeError(_FAILED_BUILDS[lib_path])
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -130,6 +137,18 @@ _SIGNATURES = {
                                          _I, _I, _I, _I, _F, _F, _P],
     # dtype, x, w, bias, y, B, T, M, Cin, Cout, kt, stream
     "vs_temporal_conv_1x1": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, x, partial, gamma, beta, wdtype, a, s, mean, inv, B, R, C, G, vec,
+    # rows_per_chunk, nchunks, eps, stream
+    "vs_group_norm_stats": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _F, _P],
+    # dtype, x, a, s, y, B, R, C, vec, rows_per_chunk, nchunks, silu, stream
+    "vs_group_norm_apply": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, x, dy, a, s, partial, gamma, wdtype, mean, inv, coef, dparam, B, R, C, G, vec,
+    # rows_per_chunk, nchunks, silu, stream
+    "vs_group_norm_bwd_stats": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _P],
+    # dtype, x, dy, a, s, coef, dx, B, R, C, vec, rows_per_chunk, nchunks, silu, stream
+    "vs_group_norm_bwd_apply": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,35 +1,338 @@
-"""GroupNorm with fp32 statistics (the JAX package's group_norm_xla math).
+"""GroupNorm (+ SiLU) with fp32 statistics: plain versions and the K7-K10 wrappers.
 
-Counterpart of vidseg_diffusion_tpu/ops/norm.py:420-481: per-(batch, group)
-statistics over every non-batch, non-channel axis, computed from per-channel
-sums in fp32 whatever the activation dtype, then one scale-shift and a cast
-back. The Pallas GN kernels of the JAX package are switched off on its main
-path and are not ported yet (ROADMAP Queue B).
+Counterpart of vidseg_diffusion_tpu/ops/norm.py. Statistics are per (batch,
+group) over every non-batch, non-channel axis of a channels-last x [B, ..., C],
+computed from per-channel sums in fp32 whatever the activation dtype, folded
+into a per-channel scale a and shift s, then y = x * a + s (optionally
+* sigmoid(y)) in fp32 and one cast back.
+
+On a CUDA tensor `group_norm` launches the hand-written kernels of
+csrc/group_norm.cu and csrc/group_norm_bwd.cu (or raises):
+
+- K7 `group_norm_stats`: one read of x -> a, s [B, C] and mean, inv [B, G]
+  (the JAX package's _stats_kernel + _affine_from_stats);
+- K8 `group_norm_apply`: one read, one write (its _apply_kernel);
+- K9 `group_norm_backward_stats`: one read of x and dy -> the coefficients
+  a2, b2, c2 [B, C] and dgamma, dbeta (its _gn_bwd_stats_kernel and the
+  coefficient math of _gn_bwd_pallas);
+- K10 `group_norm_backward_apply`: dx = a2 * u + b2 * x + c2 (its
+  _gn_bwd_apply_kernel).
+
+The JAX package keeps these kernels switched off on the TPU because XLA fuses
+the statistics into the preceding convolution; eager PyTorch fuses nothing,
+so here every CUDA call goes through them. With silu=True the backward
+kernels recompute z = a * x + s and use u = dy * d silu(z)/dz in place of
+dy (the JAX custom VJP covers silu=False only; this form is jax.grad of its
+_gn_core(..., silu=True)), so no fp32 activation is saved. On a CPU tensor the
+plain versions below run, forward and backward.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
+
+from vidseg_diffusion_tpu_torch.ops import _cuda
+
+_THREADS = 256        # threads per block of the streaming kernels (csrc/group_norm.cuh)
+_TILE_VECS = 256      # channel vectors per column tile
+_TARGET_BLOCKS = 1024  # about eight blocks per SM of an H100
 
 
-def group_norm(x, weight, bias, groups: int = 32, eps: float = 1e-5, silu: bool = False):
-    """x [B, ..., C] (channels last)."""
+def _stats_dtype(x):
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _rep(g, c):
+    """[B, G] -> [B, C]"""
+    return g.repeat_interleave(c // g.shape[1], dim=1)
+
+
+def group_norm_affine_plain(x, weight, bias, groups: int, eps: float):
+    """Plain version of K7: (a, s) [B, C] with y = x * a + s, and the (mean,
+    inv) [B, G] statistics, all fp32."""
     b, c = x.shape[0], x.shape[-1]
-    if c % groups:
-        raise ValueError(f"group_norm: {c} channels not divisible by {groups} groups")
+    ct = _stats_dtype(x)
     red = tuple(range(1, x.dim() - 1))
-    xf = x.float()
+    xf = x.to(ct)
     s = xf.sum(dim=red)                  # [B, C]
     ss = (xf * xf).sum(dim=red)          # [B, C]
     n = (x.numel() // (b * c)) * (c // groups)
     mean = s.view(b, groups, -1).sum(-1) / n
     var = (ss.view(b, groups, -1).sum(-1) / n - mean * mean).clamp_min(0.0)
     inv = torch.rsqrt(var + eps)
-    rep = c // groups
-    a = inv.repeat_interleave(rep, dim=1) * weight.float()
-    shift = bias.float() - (mean * inv).repeat_interleave(rep, dim=1) * weight.float()
-    bcast = (b,) + (1,) * (x.dim() - 2) + (c,)
-    y = xf * a.view(bcast) + shift.view(bcast)
+    a = _rep(inv, c) * weight.to(ct)
+    shift = bias.to(ct) - _rep(mean * inv, c) * weight.to(ct)
+    return a, shift, mean, inv
+
+
+def group_norm_apply_plain(x, a, s, silu: bool):
+    """Plain version of K8."""
+    bcast = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+    y = x.to(a.dtype) * a.view(bcast) + s.view(bcast)
     if silu:
         y = y * torch.sigmoid(y)
     return y.to(x.dtype)
+
+
+def group_norm_plain(x, weight, bias, groups: int = 32, eps: float = 1e-5, silu: bool = False):
+    """x [B, ..., C] (channels last): the plain forward."""
+    group_norm_plain.calls += 1
+    a, s, _, _ = group_norm_affine_plain(x, weight, bias, groups, eps)
+    return group_norm_apply_plain(x, a, s, silu)
+
+
+group_norm_plain.calls = 0
+
+
+def _upstream_plain(x, dy, a, s, silu: bool):
+    """(x, u) in the statistics dtype: u is the gradient that reaches the
+    affine output z = x * a + s (dy itself without SiLU)."""
+    ct = _stats_dtype(x)
+    xf, u = x.to(ct), dy.to(ct)
+    if silu:
+        bcast = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        z = xf * a.view(bcast) + s.view(bcast)
+        sg = torch.sigmoid(z)
+        u = u * sg * (1.0 + z * (1.0 - sg))
+    return xf, u
+
+
+def group_norm_backward_coef_plain(x, dy, weight, a, s, mean, inv, groups: int, silu: bool):
+    """Plain version of K9: coef [B, 3, C] = (a2, b2, c2) with
+    dx = a2 * u + b2 * x + c2, and (dweight, dbias) in weight's dtype
+    (norm.py:276-292 of the JAX package)."""
+    b, c = x.shape[0], x.shape[-1]
+    red = tuple(range(1, x.dim() - 1))
+    xf, u = _upstream_plain(x, dy, a, s, silu)
+    r1 = u.sum(dim=red)                  # [B, C]  sum u
+    rx = (u * xf).sum(dim=red)           # [B, C]  sum u x
+    n = (x.numel() // (b * c)) * (c // groups)
+    wf = weight.to(xf.dtype)[None]
+    grp = lambda t: t.view(b, groups, -1).sum(-1)
+    s_u = grp(r1 * wf)
+    s_ux = inv * (grp(rx * wf) - mean * s_u)
+    m1, m2 = s_u / n, s_ux / n
+    coef = torch.stack([_rep(inv, c) * wf, _rep(-inv * inv * m2, c),
+                        _rep(inv * (mean * inv * m2 - m1), c)], dim=1)
+    dweight = (_rep(inv, c) * (rx - _rep(mean, c) * r1)).sum(0).to(weight.dtype)
+    return coef, dweight, r1.sum(0).to(weight.dtype)
+
+
+def group_norm_backward_apply_plain(x, dy, a, s, coef, silu: bool):
+    """Plain version of K10."""
+    xf, u = _upstream_plain(x, dy, a, s, silu)
+    bcast = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+    a2, b2, c2 = (coef[:, i].view(bcast) for i in range(3))
+    return (a2 * u + b2 * xf + c2).to(x.dtype)
+
+
+def group_norm_backward_plain(x, dy, weight, a, s, mean, inv, groups: int, silu: bool):
+    """Plain backward in coefficient form (the arithmetic of K9 + K10):
+    (dx, dweight, dbias) from the forward's a, s [B, C] and mean, inv [B, G]."""
+    group_norm_backward_plain.calls += 1
+    coef, dweight, dbias = group_norm_backward_coef_plain(x, dy, weight, a, s, mean, inv, groups, silu)
+    return group_norm_backward_apply_plain(x, dy, a, s, coef, silu), dweight, dbias
+
+
+group_norm_backward_plain.calls = 0
+
+
+def _plan(b: int, r: int, c: int, itemsize: int, aligned: bool):
+    """How the kernels cut [B, R, C] (see csrc/group_norm.cuh): the channel
+    vector width in elements (16 bytes when C and the pointers allow it), the
+    rows per chunk and the chunk count, aiming at _TARGET_BLOCKS blocks."""
+    vec = 16 // itemsize
+    if c % vec or not aligned:
+        vec = 1
+    cv = c // vec
+    tiles = -(-cv // _TILE_VECS)
+    rows_per_pass = _THREADS // min(cv, _TILE_VECS)
+    max_chunks = max(1, _TARGET_BLOCKS // (b * tiles))
+    rows = max(4 * rows_per_pass, -(-r // max_chunks))
+    rows = -(-rows // rows_per_pass) * rows_per_pass
+    return vec, rows, -(-r // rows)
+
+
+def _flat(name, x, *same):
+    """Checks shared by the four wrappers; returns (dtype code, B, R, C, plan)."""
+    dtype = _cuda.check_cuda_tensors(name, x, *same)
+    if x.dim() < 2:
+        raise ValueError(f"{name}: needs [B, ..., C], got {tuple(x.shape)}")
+    for t in (x, *same):
+        if t.shape != x.shape or not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous and of one shape")
+    b, c = x.shape[0], x.shape[-1]
+    r = x.numel() // (b * c)
+    if min(b, r, c) < 1 or max(r, c) >= 2 ** 31:
+        raise ValueError(f"{name}: bad shape {tuple(x.shape)}")
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *same))
+    return _cuda.DTYPE_CODES[dtype], b, r, c, _plan(b, r, c, x.element_size(), aligned)
+
+
+def _check_params(name, x, groups, *params):
+    c = x.shape[-1]
+    if c % groups:
+        raise ValueError(f"{name}: {c} channels not divisible by {groups} groups")
+    for p in params:
+        if p.device != x.device or p.shape != (c,) or not p.is_contiguous():
+            raise ValueError(f"{name}: parameters must be contiguous [{c}] on {x.device}")
+        if p.dtype != params[0].dtype or p.dtype not in _cuda.DTYPE_CODES:
+            raise ValueError(f"{name}: parameter dtype {p.dtype}")
+    return _cuda.DTYPE_CODES[params[0].dtype]
+
+
+def group_norm_stats(x, weight, bias, groups: int, eps: float):
+    """K7 on a contiguous CUDA x [B, ..., C]: (a, s) fp32 [B, C], (mean, inv)
+    fp32 [B, G]. weight and bias are [C], fp32 or bf16."""
+    code, b, r, c, (vec, rows, chunks) = _flat("group_norm_stats", x)
+    wcode = _check_params("group_norm_stats", x, groups, weight, bias)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    partial = torch.empty((b, chunks + 1, 2, c), **f32)  # partial sums, then their totals
+    a, s = torch.empty((b, c), **f32), torch.empty((b, c), **f32)
+    mean, inv = torch.empty((b, groups), **f32), torch.empty((b, groups), **f32)
+    _cuda.call(
+        "vs_group_norm_stats", code, x.data_ptr(), partial.data_ptr(), weight.data_ptr(),
+        bias.data_ptr(), wcode, a.data_ptr(), s.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+        b, r, c, groups, vec, rows, chunks, float(eps),
+    )
+    group_norm_stats.launches += 1
+    return a, s, mean, inv
+
+
+group_norm_stats.launches = 0
+
+
+def _check_coef(name, x, *coefs, width=1):
+    want = (x.shape[0], x.shape[-1]) if width == 1 else (x.shape[0], width, x.shape[-1])
+    for t in coefs:
+        if (t.device != x.device or t.dtype != torch.float32 or t.shape != want
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: coefficients must be contiguous fp32 {want} on {x.device}")
+
+
+def group_norm_apply(x, a, s, silu: bool):
+    """K8 on a contiguous CUDA x: y = x * a[b, c] + s[b, c] (* sigmoid(y))."""
+    code, b, r, c, (vec, rows, chunks) = _flat("group_norm_apply", x)
+    _check_coef("group_norm_apply", x, a, s)
+    y = torch.empty_like(x)
+    _cuda.call(
+        "vs_group_norm_apply", code, x.data_ptr(), a.data_ptr(), s.data_ptr(), y.data_ptr(),
+        b, r, c, vec, rows, chunks, int(bool(silu)),
+    )
+    group_norm_apply.launches += 1
+    return y
+
+
+group_norm_apply.launches = 0
+
+
+def group_norm_backward_stats(x, dy, weight, a, s, mean, inv, groups: int, silu: bool):
+    """K9 on contiguous CUDA x, dy: coef fp32 [B, 3, C] (a2, b2, c2) for K10 and
+    (dweight, dbias) in weight's dtype."""
+    name = "group_norm_backward_stats"
+    code, b, r, c, (vec, rows, chunks) = _flat(name, x, dy)
+    wcode = _check_params(name, x, groups, weight)
+    _check_coef(name, x, a, s)
+    for t in (mean, inv):
+        if t.dtype != torch.float32 or t.shape != (b, groups) or not t.is_contiguous():
+            raise ValueError(f"{name}: mean and inv must be contiguous fp32 [{b}, {groups}]")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    partial = torch.empty((b, chunks + 1, 2, c), **f32)  # partial sums, then their totals
+    coef = torch.empty((b, 3, c), **f32)
+    dparam = torch.empty((b, 2, c), **f32)
+    _cuda.call(
+        "vs_group_norm_bwd_stats", code, x.data_ptr(), dy.data_ptr(), a.data_ptr(), s.data_ptr(),
+        partial.data_ptr(), weight.data_ptr(), wcode, mean.data_ptr(), inv.data_ptr(),
+        coef.data_ptr(), dparam.data_ptr(), b, r, c, groups, vec, rows, chunks, int(bool(silu)),
+    )
+    group_norm_backward_stats.launches += 1
+    dparam = dparam.sum(0).to(weight.dtype)  # [2, C]: batch items in index order
+    return coef, dparam[0], dparam[1]
+
+
+group_norm_backward_stats.launches = 0
+
+
+def group_norm_backward_apply(x, dy, a, s, coef, silu: bool):
+    """K10 on contiguous CUDA x, dy: dx = a2 * u + b2 * x + c2, u as in K9."""
+    name = "group_norm_backward_apply"
+    code, b, r, c, (vec, rows, chunks) = _flat(name, x, dy)
+    _check_coef(name, x, a, s)
+    _check_coef(name, x, coef, width=3)
+    dx = torch.empty_like(x)
+    _cuda.call(
+        "vs_group_norm_bwd_apply", code, x.data_ptr(), dy.data_ptr(), a.data_ptr(), s.data_ptr(),
+        coef.data_ptr(), dx.data_ptr(), b, r, c, vec, rows, chunks, int(bool(silu)),
+    )
+    group_norm_backward_apply.launches += 1
+    return dx
+
+
+group_norm_backward_apply.launches = 0
+
+
+def _contiguous(t):
+    """The kernels read [B, R, C] through one pointer: a strided input is
+    copied, and the copy is counted (group_norm.copies) so a run can show
+    whether a hot site pays for one."""
+    if t.is_contiguous():
+        return t
+    group_norm.copies += 1
+    return t.contiguous()
+
+
+def _forward(x, weight, bias, groups, eps, silu):
+    """(y, a, s, mean, inv): K7 + K8 on CUDA, the plain versions on CPU."""
+    if x.device.type == "cpu":
+        group_norm_plain.calls += 1
+        a, s, mean, inv = group_norm_affine_plain(x, weight, bias, groups, eps)
+        return group_norm_apply_plain(x, a, s, silu), a, s, mean, inv
+    a, s, mean, inv = group_norm_stats(x, weight, bias, groups, eps)
+    return group_norm_apply(x, a, s, silu), a, s, mean, inv
+
+
+class GroupNormFn(torch.autograd.Function):
+    """GroupNorm (+ SiLU) whose backward is K9 + K10 on CUDA and the plain
+    coefficient form on CPU. Saves x, the parameters and the [B, C] / [B, G]
+    statistics; never an fp32 activation."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups, eps, silu):
+        x = _contiguous(x)
+        y, a, s, mean, inv = _forward(x, weight, bias, groups, eps, silu)
+        ctx.save_for_backward(x, weight, a, s, mean, inv)
+        ctx.groups, ctx.silu = groups, silu
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, a, s, mean, inv = ctx.saved_tensors
+        dy = _contiguous(dy)
+        if x.device.type == "cpu":
+            dx, dw, db = group_norm_backward_plain(x, dy, weight, a, s, mean, inv,
+                                                   ctx.groups, ctx.silu)
+        else:
+            coef, dw, db = group_norm_backward_stats(x, dy, weight, a, s, mean, inv,
+                                                     ctx.groups, ctx.silu)
+            dx = group_norm_backward_apply(x, dy, a, s, coef, ctx.silu)
+        return dx, dw, db, None, None, None
+
+
+def group_norm(x, weight, bias, groups: int = 32, eps: float = 1e-5, silu: bool = False):
+    """GroupNorm (+ SiLU) of x [B, ..., C] (channels last). CUDA tensors go
+    through K7 + K8 (K9 + K10 in the backward) or raise; CPU tensors through
+    the plain versions. Under torch.no_grad() nothing is saved."""
+    if x.shape[-1] % groups:
+        raise ValueError(f"group_norm: {x.shape[-1]} channels not divisible by {groups} groups")
+    with record_function("vs:GroupNorm"):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
+            return GroupNormFn.apply(x, weight, bias, groups, eps, silu)
+        return _forward(_contiguous(x), weight, bias, groups, eps, silu)[0]
+
+
+group_norm.copies = 0
+
+KERNEL_COUNTERS = (group_norm_stats, group_norm_apply, group_norm_backward_stats,
+                   group_norm_backward_apply)
+PLAIN_COUNTERS = (group_norm_plain, group_norm_backward_plain)

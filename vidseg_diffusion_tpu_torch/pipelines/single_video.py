@@ -5,15 +5,17 @@ Counterpart of vidseg_diffusion_tpu/pipelines/single_video.py
 encode, add_noise, the feature/x_t pass with the q harvest, KMeans
 proto-masks, the 2*num_masks +/-lambda modulated runs with latent blending
 (each run decoded by the temporal VAE as soon as it finishes), uint8_wrap
-difference maps and the argmax. Stage seconds use the JAX package's keys.
+difference maps and the argmax; with is_injected_features the feature pass
+also caches the temporal self-attention q/k of every attention-bearing output
+block on the device and the modulated runs inject them (:315-322, :400-418,
+device branch). Stage seconds use the JAX package's keys.
 
 Random sites draw from their own torch.Generator seeded from args.seed; a
 caller (a parity test) can instead hand over the cond-aug noise, the
 add_noise noise and the kmeans initial centres JAX drew.
 
 Not ported yet (they raise NotImplementedError, see ROADMAP Queue A):
-feature injection, is_refine_mask, match_gt_mask and inversion_type
-'inversion'. The multi-device mesh and the host-RAM streaming of the JAX
+is_refine_mask, match_gt_mask and inversion_type 'inversion'. The multi-device mesh and the host-RAM streaming of the JAX
 package are TPU workarounds and are not ported.
 """
 
@@ -27,7 +29,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from vidseg_diffusion_tpu.io import video as vio
+from vidseg_diffusion_tpu_torch.io import video as vio
 from vidseg_diffusion_tpu_torch.engine.build import Pipeline
 from vidseg_diffusion_tpu_torch.engine.masks import kmeans_masks
 from vidseg_diffusion_tpu_torch.engine.modulation import ModulationConfig
@@ -87,6 +89,8 @@ class VidSegResult:
     cached_xt: np.ndarray          # [W, T, h, w, z] feature-pass trajectory from t0
     cache_t0: int
     masks_latent: np.ndarray       # [K, T, h, w] latent-blend masks
+    injected_sites: int = 0        # (block, step) sites that took cached q/k, all runs
+    injected_cache_bytes: int = 0  # device bytes of the cached temporal q/k
 
 
 def _not_ported(what: str):
@@ -94,8 +98,6 @@ def _not_ported(what: str):
 
 
 def _check_supported(args: VidSegArgs) -> None:
-    if args.is_injected_features:
-        raise _not_ported("is_injected_features (feature injection and its q/k cache)")
     if args.is_refine_mask:
         raise _not_ported("is_refine_mask (ops/matching.py dense tracking)")
     if args.feature_extraction_mode == "match_gt_mask":
@@ -138,6 +140,15 @@ def _resolve_blocks(unet_cfg, blocks: Sequence[int], mod_cfg: ModulationConfig):
         resolved.append(idx)
         divisors[idx] = attn[idx]
     return tuple(resolved), divisors
+
+
+def make_harvest(args: VidSegArgs, cluster_blocks: Sequence[int],
+                 injection_blocks: Sequence[int]) -> HarvestSpec:
+    """The feature pass's harvest: the clustering q, plus the temporal q/k of
+    `injection_blocks` with is_injected_features (single_video.py:199-216)."""
+    return svd_harvest_spec(cluster_blocks=tuple(cluster_blocks),
+                            injection=args.is_injected_features,
+                            injection_blocks=tuple(injection_blocks))
 
 
 def make_mod_config(args: VidSegArgs, num_frames: int) -> ModulationConfig:
@@ -194,8 +205,11 @@ def run_single_video(
     base_cfg = make_mod_config(args, t)
     cluster_blocks, cluster_div = _resolve_blocks(unet_cfg, _cluster_block_names(args), base_cfg)
     mod_blocks, mod_div = _resolve_blocks(unet_cfg, tuple(args.modulate_block_idx), base_cfg)
-    mod_cfg = dataclasses.replace(base_cfg, modulate_block_idx=mod_blocks)
-    engine = pipeline.make_engine(mod_cfg, svd_harvest_spec(cluster_blocks=cluster_blocks))
+    _, _, out_layout = unet_cfg.block_layout()
+    attn_blocks = tuple(i for i, s in enumerate(out_layout) if s.get("attn"))
+    mod_cfg = dataclasses.replace(base_cfg, modulate_block_idx=mod_blocks,
+                                  output_block_indices=attn_blocks)
+    engine = pipeline.make_engine(mod_cfg, make_harvest(args, cluster_blocks, attn_blocks))
     fs = pipeline.first_stage
 
     # ---- conditioning (svd_single_video_inference.py:282-312) -------------
@@ -282,13 +296,16 @@ def run_single_video(
         unique_labels=np.asarray(unique_labels), cluster_features=f32(feat),
         diff_maps=f32(diff), feature_x0=f32(x0), final_latents=f32(finals),
         cached_xt=f32(cache["xt"]), cache_t0=cache_t0, masks_latent=f32(masks_latent),
+        injected_sites=engine.injected_sites,
+        injected_cache_bytes=sum(v.numel() * v.element_size() for n, v in cache.items()
+                                 if "_temporal_self_" in n),
     )
 
 
 def _write_outputs(args, masks_px, decoded, seg_raw, seg_filtered, cluster_blocks,
                    frame_names, feat_t, unique_labels, ori_hw):
     """The reference's output tree: mask PNGs, modulated frames, label maps."""
-    from vidseg_diffusion_tpu.io.native import ParallelFrameWriter
+    from vidseg_diffusion_tpu_torch.io.native import ParallelFrameWriter
 
     base = os.path.join(args.feature_folder, args.exp_name)
     block_str = "_".join(f"output_block_{b}" for b in cluster_blocks)

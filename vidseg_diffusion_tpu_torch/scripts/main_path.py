@@ -3,7 +3,10 @@ profiles, defined once so both see the same work.
 
 configs/inference/svd.yaml at full width with random bf16 weights (seed 0),
 run_single_video on 14 synthetic 448x832 frames: 25 steps, modulate step 17,
-feature step 24, 2 masks, decoding_t 7, seed 1.
+feature step 24, 2 masks, decoding_t 7, seed 1; a second configuration is the
+same run with is_injected_features (the feature pass caches the temporal q/k
+of the nine attention-bearing output blocks on the device, the modulated runs
+inject them).
 """
 
 import os
@@ -39,6 +42,7 @@ def frame_names():
     return [str(i) for i in range(NUM_FRAMES)]
 
 
-def vidseg_args():
+def vidseg_args(is_injected_features: bool = False):
     return VidSegArgs(exp_name="main_path", num_steps=NUM_STEPS, modulate_timestep=(17,),
-                      feature_timestep=(24,), num_masks=2, decoding_t=7, seed=1)
+                      feature_timestep=(24,), num_masks=2, decoding_t=7, seed=1,
+                      is_injected_features=is_injected_features)

@@ -4,9 +4,15 @@
 
 Runs the main path of scripts/main_path.py (the run chip_smoke.py checks:
 svd.yaml at full width, random bf16 weights, 14 synthetic 448x832 frames)
-once to warm up, then once more under torch.profiler. Prints the stage
-seconds, the device time by group and by kernel name (top 30) and the
-device busy share of the profiled run's wall time.
+once to warm up, then once more under torch.profiler. Prints the card's
+name and power limit, the stage seconds, the device time by group and by
+kernel name (top 30), the device busy share of the profiled run's wall time,
+and the split of PyTorch's own kernels (everything that is neither a kernel
+of csrc/ nor a vendor GEMM / convolution) by what launched them: the port's
+"vs:<site>" record_function ranges (GroupNorm, LayerNorm, GEGLU, linear,
+Conv2dNHWC, TemporalConv, AlphaBlender, modulation, optimizer, ema), else
+the autograd node of the backward, else "outside any range". With --injected
+it profiles the is_injected_features configuration.
 """
 
 import json
@@ -32,7 +38,8 @@ def _group(name: str) -> str:
 def device_time_report(prof, wall: float, top: int = 30, unprofiled_wall: float = None) -> str:
     """Device busy and idle share of `wall` seconds (and of `unprofiled_wall`,
     the same work timed without the profiler's host overhead), the device
-    time by group and by kernel name (top `top`) from a torch.profiler run.
+    time by group and by kernel name (top `top`, and every kernel of csrc/)
+    from a torch.profiler run.
     User annotations (record_function ranges) are not kernels and not
     counted."""
     events = prof.key_averages()
@@ -50,10 +57,52 @@ def device_time_report(prof, wall: float, top: int = 30, unprofiled_wall: float 
         groups[_group(e.key)] = groups.get(_group(e.key), 0) + getattr(e, attr)
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         lines.append(f"{us / 1e6:9.3f} s {100 * us / busy_us:5.1f}%  {g}")
-    for e in sorted(kernels, key=lambda e: -getattr(e, attr))[:top]:
+    ranked = sorted(kernels, key=lambda e: -getattr(e, attr))
+    # the top kernels, then every kernel of csrc/ that is not among them
+    for e in ranked[:top] + [e for e in ranked[top:] if _group(e.key) == _GROUPS[0][0]]:
         us = getattr(e, attr)
         lines.append(f"{us / 1e6:9.3f} s {100 * us / busy_us:5.1f}%  {e.count:7d}x  {e.key[:110]}")
     return "\n".join(lines)
+
+
+def glue_split(prof, top: int = 25) -> str:
+    """Device time of the 'other (PyTorch)' kernels by the innermost
+    enclosing "vs:" record_function range of the op that launched them; for
+    kernels launched by the autograd engine outside any range, by the autograd
+    node ("bwd <Node>"). Reads the profiler's event tree: a CPU op event
+    lists the kernels it launched, and its cpu_parent chain leads to the
+    range."""
+    by_site, total = {}, 0.0
+    for ev in prof.events():
+        kernels = [k for k in getattr(ev, "kernels", ()) if _group(k.name) == "other (PyTorch)"]
+        if not kernels:
+            continue
+        site, node, up = None, None, ev
+        while up is not None and site is None:
+            if up.name.startswith("vs:"):
+                site = up.name
+            elif node is None and up.name.startswith("autograd::engine::evaluate_function: "):
+                node = "bwd " + up.name.split(": ", 1)[1]
+            up = up.cpu_parent
+        us = sum(k.duration for k in kernels)
+        key = site or node or "outside any range"
+        cell = by_site.setdefault(key, [0.0, 0])
+        cell[0] += us
+        cell[1] += len(kernels)
+        total += us
+    if not total:
+        return "PyTorch-kernel split: the profiler linked no kernel to a CPU op"
+    lines = [f"PyTorch's own kernels by launch site: {total / 1e6:.3f} s"]
+    for key, (us, n) in sorted(by_site.items(), key=lambda kv: -kv[1][0])[:top]:
+        lines.append(f"{us / 1e6:9.3f} s {100 * us / total:5.1f}%  {n:7d}x  {key}")
+    return "\n".join(lines)
+
+
+def card_line() -> str:
+    import subprocess
+
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
 
 
 def main():
@@ -65,8 +114,11 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_single_video needs a CUDA card")
+    injected = "--injected" in sys.argv[1:]
+    print(card_line(), "| is_injected_features", injected, flush=True)
     pipe = main_path.build()
-    frames, names, vargs = main_path.frames(), main_path.frame_names(), main_path.vidseg_args()
+    frames, names = main_path.frames(), main_path.frame_names()
+    vargs = main_path.vidseg_args(is_injected_features=injected)
     warm = {}
     run_single_video(pipe, frames, names, vargs, write_outputs=False, timings=warm)
     print("warm-up stages_s", json.dumps({k: round(v, 3) for k, v in warm.items()}), flush=True)
@@ -79,6 +131,7 @@ def main():
     print("profiled stages_s", json.dumps({k: round(v, 3) for k, v in stages.items()}), flush=True)
 
     print(device_time_report(prof, wall))
+    print(glue_split(prof))
 
 
 if __name__ == "__main__":

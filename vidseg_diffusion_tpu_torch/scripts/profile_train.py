@@ -8,13 +8,13 @@ checks: svd.yaml UNet at full width, bf16, remat, batch 2 x 14 frames of
 (host clock after torch.cuda.synchronize), then profiles one more step
 under torch.profiler. Prints the card's name and power limit, the step
 times, the peak device memory, the device time by group and by kernel name
-(top 30), and the device idle share of the profiled step and of the mean
-timed step (the profiler adds host time). The warm-up step includes the
+(top 30), the device idle share of the profiled step and of the mean
+timed step (the profiler adds host time), and the split of PyTorch's own
+kernels by launch site (profile_single_video.glue_split). The warm-up step includes the
 kernels' build in a fresh checkout.
 """
 
 import os
-import subprocess
 import sys
 import time
 
@@ -28,12 +28,15 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     from vidseg_diffusion_tpu_torch.scripts import train_path
-    from vidseg_diffusion_tpu_torch.scripts.profile_single_video import device_time_report
+    from vidseg_diffusion_tpu_torch.scripts.profile_single_video import (
+        card_line,
+        device_time_report,
+        glue_split,
+    )
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     trainer = train_path.build()
     latents, cond = train_path.batch()
     gens = train_path.generators()
@@ -58,6 +61,7 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     print(device_time_report(prof, wall, unprofiled_wall=sum(times) / len(times)))
+    print(glue_split(prof))
 
 
 if __name__ == "__main__":

@@ -4,10 +4,12 @@ scripts/sampling/svd_single_video_inference.py.
     python -m vidseg_diffusion_tpu_torch.scripts.svd_single_video_inference \
         --input_video_path path/to/frames --exp_name swan
 
-Frames load through vidseg_diffusion_tpu/io/video.py. The default device is
-cuda when a card is visible (bf16), else the CPU (fp32). Flags whose paths
-are not ported yet (feature injection, refinement, match_gt_mask,
-inversion) raise NotImplementedError.
+Frames load through vidseg_diffusion_tpu_torch/io/video.py. The run is on
+the card (--device cuda, bf16) and raises without one; --device cpu asks for
+the CPU (fp32 by default). --is_injected_features caches the feature pass's
+temporal self-attention q/k on the device and injects them into the
+modulated runs. Flags whose paths are not ported yet (refinement,
+match_gt_mask, inversion) raise NotImplementedError.
 """
 
 import argparse
@@ -50,7 +52,8 @@ def parse_args(argv=None):
                    help="frames decoded per VAE-decoder call")
     p.add_argument("--dtype", type=str, default=None, choices=["bfloat16", "float32"],
                    help="compute dtype (default: bfloat16 on cuda, float32 on the CPU)")
-    p.add_argument("--device", type=str, default=None, help="torch device (default: cuda if available)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; the default needs a CUDA card, 'cpu' runs the plain versions")
     return p.parse_args(argv)
 
 
@@ -66,13 +69,13 @@ def main(argv=None):
     args = parse_args(argv)
     import torch
 
-    from vidseg_diffusion_tpu.io.video import list_video_frames, load_frames
+    from vidseg_diffusion_tpu_torch.io.video import list_video_frames, load_frames
     from vidseg_diffusion_tpu_torch.engine.build import build_pipeline
     from vidseg_diffusion_tpu_torch.pipelines.single_video import VidSegArgs, run_single_video
 
     if not args.input_video_path:
         raise SystemExit("--input_video_path is required")
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}.get(
         args.dtype, torch.bfloat16 if device.type == "cuda" else torch.float32
     )
