@@ -7,9 +7,10 @@ Phases, in order; any failure exits non-zero:
 1. card: print `nvidia-smi --query-gpu=name,power.limit`.
 2. build: compile the kernels from vidseg_diffusion_tpu_torch/csrc with nvcc
    (one process per source, in parallel).
-3. kernels: each kernel (K1-K10) against its plain PyTorch version on the same
-   inputs at the shapes of its path (K1-K4, K7, K8 inference; K5, K6, K9, K10
-   and K4's dx launch training; bf16, the GroupNorm kernels also fp32);
+3. kernels: each kernel (K1-K12) against its plain PyTorch version on the same
+   inputs at the shapes of its path (K1-K4, K7, K8, K11, K12 inference; K5, K6,
+   K9, K10 and K4's dx launch training; bf16, the GroupNorm kernels, K11 and
+   K12 also fp32; K1 also at the SD cross-attention's 77 keys);
    errors within the stated bounds; kernel and plain times with CUDA events
    beside the kernel's bound (bytes over the card's memory rate or
    operations over its peak rate, whichever is larger) and the time of the
@@ -18,7 +19,8 @@ Phases, in order; any failure exits non-zero:
    against fp64 statistics of the same input.
 4. unet: one full-width SVD UNet forward in fp32 (random weights, a 16x16
    latent, 2 frames) on the card through the kernels vs the same weights on
-   the CPU through the plain versions.
+   the CPU through the plain versions; then the same for the full-width SD
+   2.1 image UNet with a 77-token context.
 5. train_grad: the same UNet in fp32 with remat, loss.backward() of the
    diffusion loss (explicit sigma and noise) on the card through the
    kernels and their backward kernels vs the CPU through the plain
@@ -29,8 +31,9 @@ Phases, in order; any failure exits non-zero:
    17, 2 masks, decoding_t 7) under torch.no_grad; the inference kernels
    must launch exactly as many times as the configuration implies (K1 832,
    K2 832, K3 43, K4 2520; K7 and K8 once per GroupNorm module per UNet, VAE
-   encoder and VAE decoder call), the backward kernels and the plain versions
-   never; latents and labels must be finite and shaped; the +lambda and
+   encoder and VAE decoder call; K11 four times per CrossAttention module and
+   K12 twice per ResBlock per UNet call: 13 312 and 2 288), the backward
+   kernels and the plain versions never; latents and labels must be finite and shaped; the +lambda and
    -lambda runs must differ, and the outside-mask latents must equal the
    cached trajectory exactly.
 7. inject: the same run with is_injected_features (the feature pass caches
@@ -39,17 +42,29 @@ Phases, in order; any failure exits non-zero:
    17 on): the same checks and launch counts, 9 blocks x 8 gated steps x 4
    runs injected sites, final latents that differ from the un-injected run's;
    stage seconds and peak device memory.
-8. train: the full-width training step of
+8. sd: the run of vidseg_diffusion_tpu_torch/scripts/sd_path.py
+   (configs/inference/sd_2_1.yaml at full width with random bf16 weights, the
+   same frames, the empty prompt, 25 steps, modulate block 7 at step 22, 4
+   masks, the SD blend window, decoding_t 7) under torch.no_grad: K1 at every
+   self- and cross-attention site (77 context tokens), K3 in the VAE's mid
+   attention, K7, K8, K11 and K12 exactly as often as the configuration
+   implies, K2 and K4 never, no backward kernel and no plain version; finite
+   latents and labels of the right shape, +lambda != -lambda, outside-mask
+   latents equal to the cached trajectory right after the last blended step
+   (read where they enter the next sampler step);
+   stage seconds and peak device memory.
+9. train: the full-width training step of
    vidseg_diffusion_tpu_torch/scripts/train_path.py (svd.yaml UNet, bf16,
    remat, 2 x 14 frames of 56x104 latents, Adam, EMA): a warm-up step, then
    TRAIN_STEPS steps; the loss finite at every step, every gradient finite,
    the self-attention q/k/v projections' gradients non-zero (spatial and
    temporal), the last step taken by every parameter with a gradient and
-   by the EMA (check_last_update), K1, K2, K4, K5, K6 and K7-K10 launched
-   and no plain version called; step time and peak memory.
+   by the EMA (check_last_update), K1, K2, K4, K5, K6, K7-K10, K11 and K12
+   launched exactly as often as a remat step of these modules implies
+   (train_launches) and no plain version called; step time and peak memory.
 
 Before the last line come the kernels JSON (per kernel: launches in the run
-of its path and in the other runs, worst error, kernel, plain, bound and
+of its path and in the other runs (injected, SD, training), worst error, kernel, plain, bound and
 library-call ms at its headline shape) and the card's name and power limit;
 the last line is {"ok": true, "device": ...}.
 """
@@ -105,23 +120,40 @@ KERNELS = {
         id="K10", source="vidseg_diffusion_tpu_torch/csrc/group_norm_bwd.cu",
         replaces="vidseg_diffusion_tpu/ops/norm.py:294", rms_tol=5e-4,
     ),
+    "matmul_bias": dict(
+        id="K11", source="vidseg_diffusion_tpu_torch/csrc/matmul_bias.cu",
+        replaces="vidseg_diffusion_tpu/ops/matmul.py:94", rms_tol=5e-4,
+    ),
+    "conv3x3_same": dict(
+        id="K12", source="vidseg_diffusion_tpu_torch/csrc/conv3x3.cu",
+        replaces="vidseg_diffusion_tpu/ops/conv3x3.py:116", rms_tol=5e-4,
+    ),
 }
 INFERENCE_KERNELS = ("flash_attention_packed", "temporal_attention_direct", "flash_attention",
-                     "temporal_conv_1x1", "group_norm_stats", "group_norm_apply")
+                     "temporal_conv_1x1", "group_norm_stats", "group_norm_apply", "matmul_bias",
+                     "conv3x3_same")
 TRAIN_KERNELS = ("flash_attention_packed", "temporal_attention_direct", "temporal_conv_1x1",
                  "flash_attention_packed_backward", "temporal_attention_direct_backward",
                  "group_norm_stats", "group_norm_apply", "group_norm_backward_stats",
-                 "group_norm_backward_apply")
+                 "group_norm_backward_apply", "matmul_bias", "conv3x3_same")
 # launches of the inference main path, implied by its configuration: 52 UNet
 # calls x 16 spatial / 16 temporal self-attention sites and 44 temporal
-# convs (+ 29 per decoder chunk x 8), 32 CLIP layers + 11 VAE attentions
+# convs (+ 29 per decoder chunk x 8), 32 CLIP layers + 11 VAE attentions; the
+# UNet's 64 CrossAttention modules x 4 projections and 22 ResBlocks x 2 convs
 MAIN_LAUNCHES = {"flash_attention_packed": 832, "temporal_attention_direct": 832,
-                 "flash_attention": 43, "temporal_conv_1x1": 2520}
+                 "flash_attention": 43, "temporal_conv_1x1": 2520,
+                 "matmul_bias": 52 * 256, "conv3x3_same": 52 * 44}
 # calls of the main path per model: 8 feature-pass + 4 runs x 11 UNet steps; the
 # first-stage encoder on 2 chunks of 7 frames + the conditioning-frame
 # encoder; the decoder on 2 chunks per run. K7 and K8 launch once per
-# GroupNorm module per call (gn_launches).
+# GroupNorm module per call, K11 four times per CrossAttention module and K12
+# twice per ResBlock per UNet call (module_launches).
 MAIN_CALLS = {"unet": 52, "encoder": 3, "decoder": 8}
+# the SD path (scripts/sd_path.py): 3 feature-pass + 8 runs x 6 UNet steps; the
+# encoder on 2 chunks of 7 frames; the decoder on 2 chunks per run. Its 32
+# CrossAttention modules (self and 77-key cross) each launch K1 once per call;
+# K3 is the VAE's mid attention, once per encoder / decoder chunk.
+SD_CALLS = {"unet": 51, "encoder": 2, "decoder": 16}
 INJECT_BLOCKS, INJECT_STEPS = 9, 8   # attention-bearing output blocks; steps 17..24
 # Published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds:
 HBM_BYTES_PER_S = 3.35e12
@@ -135,7 +167,8 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 ou
 #   sound readings at these shapes (PERF.md): K1 and K3 read 1.3e-3 to 2.4e-3
 #   (online softmax rounds p to bf16 against a running max), K4 1e-5 to
 #   1.4e-4 (its dx launch included), K2 0 (bit for bit), K5 4.8e-5 to 2.2e-4,
-#   K6 2.2e-5 to 3.9e-5 (worst of dq/dk/dv). A fault that moves every output
+#   K6 2.2e-5 to 3.9e-5 (worst of dq/dk/dv); K11 and K12 start from K4's
+#   bound (the same tile and accumulation). A fault that moves every output
 #   by 1% reads 1e-2.
 # fp32 outputs (the GroupNorm kernels on fp32 activations, and their fp32
 # statistics and coefficients whatever the activation dtype): max |kernel -
@@ -155,6 +188,14 @@ LSE_TOL = 5e-3          # K1's base-2 LSE vs the plain LSE, absolute (log2 units
 GRAD_REL_TOL = 1e-4
 GRAD_FLOOR = 1e-3
 TRAIN_STEPS = 3
+# launches of one training step (remat on: every ResBlock and transformer runs
+# its forward twice, in the step's forward and in the backward's recompute):
+# 16 spatial and 16 temporal self-attention sites x 2 forwards and 1 backward;
+# 44 temporal convs x (2 forwards + the dx launch of the backward). K7-K10,
+# K11 and K12 are reckoned from the modules (train_launches).
+TRAIN_LAUNCHES = {"flash_attention_packed": 32, "temporal_attention_direct": 32,
+                  "flash_attention_packed_backward": 16, "temporal_attention_direct_backward": 16,
+                  "temporal_conv_1x1": 132}
 
 
 def fail(msg):
@@ -207,6 +248,22 @@ def tconv_work(b, t, m, cin, cout, kt=3):
     return 2 * (b * t * m * (cin + cout) + kt * cin * cout + cout), 2 * b * pairs * m * cin * cout, "bf16"
 
 
+def matmul_work(m, k, n, bias, dtype="bf16"):
+    """x [m, k], W [n, k] (and the bias) read and y [m, n] written once; one
+    m x k x n product."""
+    item = 2 if dtype == "bf16" else 4
+    return item * (m * k + n * k + m * n + (n if bias else 0)), 2 * m * k * n, dtype
+
+
+def conv3x3_work(b, h, w, cin, cout, dtype="bf16"):
+    """x, the nine [cin, cout] taps, the bias read and y written once; per tap
+    one [cin] x [cin, cout] product for every output pixel whose source pixel
+    lies inside the image."""
+    item = 2 if dtype == "bf16" else 4
+    pairs = sum((h - abs(dy)) * (w - abs(dx)) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    return (item * (b * h * w * (cin + cout) + 9 * cin * cout + cout), 2 * b * pairs * cin * cout, dtype)
+
+
 def kernel_cases(torch):
     """Cases at the main-path shapes (swan: 14 frames at 448x832, CFG batch
     28): dicts of kernel, label, make (inputs builder), kern, plain, iters,
@@ -221,8 +278,9 @@ def kernel_cases(torch):
     g = torch.Generator(device=dev).manual_seed(0)
     rn = lambda *s: torch.randn(*s, generator=g, device=dev, dtype=torch.float32)
 
-    def packed(b, l, h):
-        return lambda: tuple(rn(b, l, h * 64).to(bf) for _ in range(3)) + (h,)
+    def packed(b, l, h, lk=None):
+        return lambda: (rn(b, l, h * 64).to(bf),) + tuple(rn(b, lk or l, h * 64).to(bf)
+                                                          for _ in range(2)) + (h,)
 
     def direct(b, s, h):
         return lambda: tuple(rn(b, s, h, 64).to(bf) for _ in range(3))
@@ -289,6 +347,12 @@ def kernel_cases(torch):
             kern=A.flash_attention_packed, plain=A.flash_attention_packed_reference, iters=3,
             work=attn_work(b, h, l, l, 64),
             library=lambda q, k, v, h: (lambda a=[heads_view(x, h) for x in (q, k, v)]: sdpa(*a)))
+    # K1 at the SD 2.1 cross-attention: 77 context tokens, the whole CFG batch
+    for label, l, h in (("SD cross ds1 [28,5824x77,5x64]", 5824, 5), ("SD cross mid [28,91x77,20x64]", 91, 20)):
+        add(kernel="flash_attention_packed", label=label, make=packed(28, l, h, lk=77),
+            kern=A.flash_attention_packed, plain=A.flash_attention_packed_reference, iters=3,
+            work=attn_work(28, h, l, 77, 64),
+            library=lambda q, k, v, h: (lambda a=[heads_view(x, h) for x in (q, k, v)]: sdpa(*a)))
     # K2: temporal self-attention, t = 14 frames, two videos (uc, c)
     for label, s, h in temporal:
         add(kernel="temporal_attention_direct", label=label, make=direct(28, s, h),
@@ -344,7 +408,68 @@ def kernel_cases(torch):
             iters=3, work=attn_work(2 * s, h, 14, 14, 64, backward=True),
             library=lambda q, k, v, o, g: sdpa_backward([frames_view(x) for x in (q, k, v)],
                                                         frames_view(g)))
-    return cases + group_norm_cases(torch, rn)
+    return cases + group_norm_cases(torch, rn) + gemm_cases(torch, rn)
+
+
+def gemm_cases(torch, rn):
+    """K11 at the CrossAttention projections and K12 at the ResBlock 3x3
+    convolutions of the main paths (CFG batch 28 at 56x104 latents). K11: the
+    q/k/v projections (no bias) and to_out (bias) per level, the to_k / to_v
+    of a one-token context (M = 28) and of SD 2.1's 77-token context (M =
+    2156, K = 1024). K12: per level, and the output blocks' skip
+    concatenations. bf16, and fp32 at a small and a ragged shape. Library:
+    F.linear, and F.conv2d on the channels-last view (as Conv2dNHWC runs it)."""
+    import torch.nn.functional as F
+
+    from vidseg_diffusion_tpu_torch.ops import conv3x3 as C3
+    from vidseg_diffusion_tpu_torch.ops import matmul as MM
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for label, m, k, n, bias, dtype in (
+        ("ds1 to_q [163072,320->320]", 163072, 320, 320, False, bf),
+        ("ds1 to_out [163072,320->320] bias", 163072, 320, 320, True, bf),
+        ("ds2 [40768,640->640]", 40768, 640, 640, False, bf),
+        ("ds4 to_out [10192,1280->1280] bias", 10192, 1280, 1280, True, bf),
+        ("mid [2548,1280->1280]", 2548, 1280, 1280, False, bf),
+        ("one-token to_k [28,1024->320]", 28, 1024, 320, False, bf),
+        ("SD to_k ds1 [2156,1024->320]", 2156, 1024, 320, False, bf),
+        ("SD to_v ds2 [2156,1024->640]", 2156, 1024, 640, False, bf),
+        ("SD to_k ds4 [2156,1024->1280]", 2156, 1024, 1280, False, bf),
+        ("ds2 [40768,640->640] bias fp32", 40768, 640, 640, True, f32),
+        ("SD to_k [2156,1024->320] fp32", 2156, 1024, 320, False, f32),
+    ):
+        def make(m=m, k=k, n=n, bias=bias, dtype=dtype):
+            return (rn(m, k).to(dtype), (rn(n, k) / k ** 0.5).to(dtype), rn(n).to(dtype) if bias else None)
+
+        cases.append(dict(
+            kernel="matmul_bias", label=label, make=make, kern=MM.matmul_bias, plain=MM.matmul_bias_plain,
+            iters=5, work=matmul_work(m, k, n, bias, "bf16" if dtype == bf else "fp32"),
+            library=lambda x, w, b: (lambda: F.linear(x, w, b))))
+    for label, b, h, w, cin, cout, dtype in (
+        ("ds1 [28,56,104,320->320]", 28, 56, 104, 320, 320, bf),
+        ("ds1 skip concat [28,56,104,960->320]", 28, 56, 104, 960, 320, bf),
+        ("ds2 [28,28,52,640->640]", 28, 28, 52, 640, 640, bf),
+        ("ds2 skip concat [28,28,52,1920->640]", 28, 28, 52, 1920, 640, bf),
+        ("ds4 [28,14,26,1280->1280]", 28, 14, 26, 1280, 1280, bf),
+        ("ds8 [28,7,13,1280->1280]", 28, 7, 13, 1280, 1280, bf),
+        ("ds8 skip concat [28,7,13,2560->1280]", 28, 7, 13, 2560, 1280, bf),
+        ("ds2 [4,28,52,640->640] fp32", 4, 28, 52, 640, 640, f32),
+        ("ds8 [28,7,13,1280->1280] fp32", 28, 7, 13, 1280, 1280, f32),
+    ):
+        def make(b=b, h=h, w=w, cin=cin, cout=cout, dtype=dtype):
+            return (rn(b, h, w, cin).to(dtype), (rn(cout, cin, 3, 3) / (9 * cin) ** 0.5).to(dtype),
+                    rn(cout).to(dtype))
+
+        def conv2d_call(x, wt, bias):
+            xn = x.permute(0, 3, 1, 2)   # the channels-last view of the NHWC data
+            return lambda: F.conv2d(xn, wt, bias, padding=1)
+
+        cases.append(dict(
+            kernel="conv3x3_same", label=label, make=make, kern=C3.conv3x3_same, plain=C3.conv3x3_plain,
+            iters=3, work=conv3x3_work(b, h, w, cin, cout, "bf16" if dtype == bf else "fp32"),
+            library=conv2d_call))
+    return cases
 
 
 def group_norm_cases(torch, rn):
@@ -559,8 +684,9 @@ def phase_kernels(torch):
 
 
 def phase_unet(torch):
-    """Full-width UNet forward: kernels on the card vs plain versions on the
-    CPU, same fp32 weights and inputs (TF32 off on the card)."""
+    """Full-width UNet forwards, the SVD video UNet and the SD 2.1 image UNet:
+    kernels on the card vs plain versions on the CPU, same fp32 weights and
+    inputs (TF32 off on the card)."""
     import copy
 
     from vidseg_diffusion_tpu_torch.config import load_model_spec
@@ -570,30 +696,34 @@ def phase_unet(torch):
     saved_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    spec = load_model_spec(os.path.join(ROOT, "configs/inference/svd.yaml"), num_frames=2)
-    unet = UNetModel(spec.unet_config).cuda()
-    randomize_(unet, torch.Generator(device="cuda").manual_seed(1))
-    cpu_unet = copy.deepcopy(unet).cpu()
-    g = torch.Generator().manual_seed(2)
     t, b = 2, 4  # [uc; c] of one 2-frame video
-    x = torch.randn(b, 16, 16, 8, generator=g)
-    ts = torch.randn(b, generator=g)
-    ctx = torch.randn(b, 1, 1024, generator=g)
-    y = torch.randn(b, 768, generator=g)
-    ioi = torch.zeros(2, t)
-    with torch.no_grad():
-        ref = cpu_unet(x, ts, ctx, y, num_video_frames=t, image_only_indicator=ioi)
-        out = unet(x.cuda(), ts.cuda(), ctx.cuda(), y.cuda(), num_video_frames=t,
-                   image_only_indicator=ioi.cuda()).cpu()
-    err = (out - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    print(f"[unet] full-width UNet fp32, card vs CPU: max_abs_err={err:.3e} "
-          f"(tol {UNET_REL_TOL * scale:.3e})", flush=True)
-    check(bool(torch.isfinite(out).all()), "UNet output not finite")
-    check(err <= UNET_REL_TOL * scale, "UNet on the card disagrees with the CPU plain path")
+    for config, video in (("svd.yaml", True), ("sd_2_1.yaml", False)):
+        spec = load_model_spec(os.path.join(ROOT, "configs/inference", config), num_frames=t)
+        unet = UNetModel(spec.unet_config).cuda()
+        randomize_(unet, torch.Generator(device="cuda").manual_seed(1))
+        cpu_unet = copy.deepcopy(unet).cpu()
+        g = torch.Generator().manual_seed(2)
+        x = torch.randn(b, 16, 16, spec.unet_config.in_channels, generator=g)
+        if video:
+            args = (x, torch.randn(b, generator=g), torch.randn(b, 1, 1024, generator=g),
+                    torch.randn(b, 768, generator=g))
+            kw = dict(num_video_frames=t, image_only_indicator=torch.zeros(2, t))
+        else:  # table indices as timesteps, the 77-token text context
+            args = (x, torch.randint(0, 1000, (b,), generator=g).float(), torch.randn(b, 77, 1024, generator=g))
+            kw = {}
+        with torch.no_grad():
+            ref = cpu_unet(*args, **kw)
+            out = unet(*(a.cuda() for a in args), **{k: v.cuda() if hasattr(v, "cuda") else v
+                                                     for k, v in kw.items()}).cpu()
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        print(f"[unet] full-width {config} UNet fp32, card vs CPU: max_abs_err={err:.3e} "
+              f"(tol {UNET_REL_TOL * scale:.3e})", flush=True)
+        check(bool(torch.isfinite(out).all()), f"{config} UNet output not finite")
+        check(err <= UNET_REL_TOL * scale, f"{config} UNet on the card disagrees with the CPU plain path")
+        del unet, cpu_unet
+        torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
-    del unet, cpu_unet
-    torch.cuda.empty_cache()
 
 
 def phase_train_grad(torch):
@@ -675,12 +805,15 @@ def feeds_one_key_query(name):
 
 def kernel_fns():
     from vidseg_diffusion_tpu_torch.ops import attention as A
+    from vidseg_diffusion_tpu_torch.ops import conv3x3 as C3
+    from vidseg_diffusion_tpu_torch.ops import matmul as MM
     from vidseg_diffusion_tpu_torch.ops import norm as N
     from vidseg_diffusion_tpu_torch.ops import temporal_conv as TC
 
-    counters = list(A.KERNEL_COUNTERS) + [TC.temporal_conv_1x1] + list(N.KERNEL_COUNTERS)
-    plains = list(A.PLAIN_COUNTERS) + [TC.temporal_conv_1x1_reference,
-                                       TC.temporal_conv_1x1_backward_reference] + list(N.PLAIN_COUNTERS)
+    counters = (list(A.KERNEL_COUNTERS) + [TC.temporal_conv_1x1] + list(N.KERNEL_COUNTERS)
+                + [MM.matmul_bias, C3.conv3x3_same])
+    plains = (list(A.PLAIN_COUNTERS) + [TC.temporal_conv_1x1_reference, TC.temporal_conv_1x1_backward_reference]
+              + list(N.PLAIN_COUNTERS) + [MM.matmul_bias_plain, C3.conv3x3_plain])
     return counters, plains
 
 
@@ -695,15 +828,38 @@ def reset_counts():
     N.group_norm.copies = 0
 
 
-def gn_launches(pipe):
-    """K7 / K8 launches the inference main path implies: one per GroupNorm
-    module per call of the model that holds it."""
-    from vidseg_diffusion_tpu_torch.models.layers import GroupNorm32
+def module_launches(pipe, calls):
+    """Launches an inference path implies from its modules and its `calls` per
+    model: K7 / K8 one per GroupNorm module per call of the model that holds
+    it; K11 four per CrossAttention module and K12 two per ResBlock per UNet
+    call. Returns ({kernel: launches}, modules per call)."""
+    from vidseg_diffusion_tpu_torch.models.layers import CrossAttention, GroupNorm32
+    from vidseg_diffusion_tpu_torch.models.unet import ResBlock
 
-    count = lambda m: sum(isinstance(x, GroupNorm32) for x in m.modules())
-    per_call = {"unet": count(pipe.unet), "encoder": count(pipe.first_stage.encoder),
-                "decoder": count(pipe.first_stage.decoder)}
-    return sum(MAIN_CALLS[k] * per_call[k] for k in MAIN_CALLS), per_call
+    count = lambda m, cls: sum(isinstance(x, cls) for x in m.modules())
+    models = {"unet": pipe.unet, "encoder": pipe.first_stage.encoder, "decoder": pipe.first_stage.decoder}
+    per_call = {k: count(m, GroupNorm32) for k, m in models.items()}
+    per_call.update(attention=count(pipe.unet, CrossAttention), resblock=count(pipe.unet, ResBlock))
+    n_gn = sum(calls[k] * per_call[k] for k in calls)
+    return {"group_norm_stats": n_gn, "group_norm_apply": n_gn,
+            "matmul_bias": 4 * per_call["attention"] * calls["unet"],
+            "conv3x3_same": 2 * per_call["resblock"] * calls["unet"]}, per_call
+
+
+def train_launches(unet):
+    """Launches one training step of the remat UNet implies: TRAIN_LAUNCHES and,
+    from the modules, K11 four per CrossAttention and K12 two per ResBlock in
+    each of the two forwards; K7 / K8 twice per GroupNorm but once for the
+    output norm, which no remat block holds; K9 / K10 once per GroupNorm."""
+    from vidseg_diffusion_tpu_torch.models.layers import CrossAttention, GroupNorm32
+    from vidseg_diffusion_tpu_torch.models.unet import ResBlock
+
+    count = lambda cls: sum(isinstance(x, cls) for x in unet.modules())
+    n_gn = count(GroupNorm32)
+    return dict(TRAIN_LAUNCHES, flash_attention=0,
+                group_norm_stats=2 * n_gn - 1, group_norm_apply=2 * n_gn - 1,
+                group_norm_backward_stats=n_gn, group_norm_backward_apply=n_gn,
+                matmul_bias=2 * 4 * count(CrossAttention), conv3x3_same=2 * 2 * count(ResBlock))
 
 
 def read_counts():
@@ -737,10 +893,12 @@ def run_main_path(torch, pipe, tag, injected):
           f"GroupNorm input copies {N.group_norm.copies}; peak device memory {peak_gb:.1f} GB "
           f"({card_line()})", flush=True)
 
-    n_gn, per_call = gn_launches(pipe)
+    by_module, per_call = module_launches(pipe, MAIN_CALLS)
+    check(all(by_module[k] == MAIN_LAUNCHES[k] for k in ("matmul_bias", "conv3x3_same")),
+          f"K11 / K12 launches reckoned from the modules {by_module} differ from {MAIN_LAUNCHES}")
     expected = {name: MAIN_LAUNCHES.get(name, 0) for name in launches}
-    expected["group_norm_stats"] = expected["group_norm_apply"] = n_gn
-    check(launches == expected, f"inference launches {launches}, expected {expected} (GroupNorm modules "
+    expected.update(by_module)
+    check(launches == expected, f"inference launches {launches}, expected {expected} (modules "
                                 f"per call {per_call}; no backward)")
     check(all(n == 0 for n in plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
     k = args.num_masks
@@ -807,6 +965,101 @@ def phase_inject(torch, pipe, plain_res):
     return launches
 
 
+def phase_sd(torch):
+    """The SD 2.1 path of scripts/sd_path.py with its checks; returns its
+    kernel launches."""
+    import numpy as np
+
+    from vidseg_diffusion_tpu_torch.diffusion.sampling import EulerEDMSampler
+    from vidseg_diffusion_tpu_torch.models.layers import CrossAttention
+    from vidseg_diffusion_tpu_torch.ops import conv3x3 as C3
+    from vidseg_diffusion_tpu_torch.ops import norm as N
+    from vidseg_diffusion_tpu_torch.pipelines.single_video import run_single_video
+    from vidseg_diffusion_tpu_torch.scripts import main_path, sd_path
+
+    t0 = time.perf_counter()
+    pipe = sd_path.build()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in pipe.unet.parameters())
+    n_text = sum(p.numel() for p in pipe.text.parameters())
+    print(f"[sd] built sd_2_1.yaml (image UNet {n_params / 1e9:.3f} B params, text tower "
+          f"{n_text / 1e9:.3f} B, bf16) in {time.perf_counter() - t0:.1f} s", flush=True)
+    args = sd_path.vidseg_args()
+    check(SD_CALLS["unet"] == sd_path.unet_calls(args.num_masks), "SD_CALLS disagrees with scripts/sd_path.py")
+    t, hpx, wpx = main_path.NUM_FRAMES, main_path.HEIGHT, main_path.WIDTH
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    relays = C3.conv3x3_same.relays
+    # the latents that enter the step after the blend window (it ends at step
+    # 23): the feature pass's first, then those of the 2 * num_masks runs
+    blend_end = sd_path.MODULATE_STEP + 1
+    after_blend = []
+    sampler_step = EulerEDMSampler.step
+
+    def recording_step(self, denoise_fn, x, sigma, next_sigma, i):
+        if i == blend_end + 1:
+            after_blend.append(x)
+        return sampler_step(self, denoise_fn, x, sigma, next_sigma, i)
+
+    EulerEDMSampler.step = recording_step
+    t0 = time.perf_counter()
+    try:
+        res = run_single_video(pipe, sd_path.frames(), sd_path.frame_names(), args, write_outputs=False,
+                               timings=timings, text_tokens=sd_path.text_tokens())
+    finally:
+        EulerEDMSampler.step = sampler_step
+    total = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[sd] run_single_video {total:.2f} s, stages_s "
+          f"{json.dumps({k: round(v, 3) for k, v in timings.items()})}", flush=True)
+    print(f"[sd] kernel launches {json.dumps(launches)}; plain calls {json.dumps(plain_calls)}; "
+          f"GroupNorm input copies {N.group_norm.copies}; conv weights re-laid "
+          f"{C3.conv3x3_same.relays - relays}; peak device memory {peak_gb:.1f} GB ({card_line()})", flush=True)
+
+    expected = {name: 0 for name in launches}
+    by_module, per_call = module_launches(pipe, SD_CALLS)
+    expected.update(by_module)
+    n_attn = sum(isinstance(m, CrossAttention) for m in pipe.unet.modules())
+    expected["flash_attention_packed"] = n_attn * SD_CALLS["unet"]       # self and 77-key cross sites
+    expected["flash_attention"] = SD_CALLS["encoder"] + SD_CALLS["decoder"]  # the VAE's mid attention
+    check(launches == expected, f"SD launches {launches}, expected {expected} (modules per call "
+                                f"{per_call}; K2, K4 and the backward kernels never)")
+    check(all(n == 0 for n in plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
+    check(C3.conv3x3_same.relays - relays == 2 * per_call["resblock"],
+          "the ResBlock conv weights were not re-laid exactly once each")
+    k = args.num_masks
+    h, w = hpx // 8, wpx // 8
+    fin = res.final_latents
+    check(fin.shape == (2, k, t, h, w, 4), f"final latents shape {fin.shape}")
+    check(np.isfinite(fin).all() and np.isfinite(res.feature_x0).all(), "latents not finite")
+    check(res.seg_raw.shape == (t, hpx, wpx) and res.seg_filtered.shape == (t, hpx, wpx),
+          f"label map shape {res.seg_raw.shape}")
+    check(set(np.unique(res.seg_raw)) <= set(range(k)), "labels out of range")
+    check(np.isfinite(res.diff_maps).all(), "difference maps not finite")
+    dpm = float(np.abs(fin[0] - fin[1]).max())
+    check(dpm > 0, "+lambda and -lambda runs are identical: modulation never reached the output")
+    # the SD blend window ends at step 23: right after it the outside-mask cells
+    # equal the cached trajectory, and the last step moves them again
+    check(blend_end < args.num_steps - 1 and len(after_blend) == 1 + 2 * k,
+          f"{len(after_blend)} passes entered step {blend_end + 1}, expected the feature pass and {2 * k} runs")
+    ori = res.cached_xt[blend_end - res.cache_t0]
+    pinned = torch.stack(after_blend[1:]).float().cpu().numpy().reshape(fin.shape)
+    outside = max(float(np.abs((pinned[s, m] - ori) * (1 - res.masks_latent[m][..., None])).max())
+                  for s in range(2) for m in range(k))
+    check(outside == 0.0, f"outside-mask latents deviate from the cached trajectory by {outside}")
+    inside = float(np.abs((pinned - ori[None, None]) * res.masks_latent[None, ..., None]).max())
+    check(inside > 0, "inside-mask latents equal the cached trajectory: the runs were not modulated")
+    print(f"[sd] max|+lambda - -lambda| = {dpm:.4f}; outside-mask deviation after step "
+          f"{blend_end} = {outside} (inside {inside:.4f}); labels used "
+          f"{sorted(int(v) for v in np.unique(res.seg_raw))}", flush=True)
+    del pipe, res, after_blend
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_train(torch):
     """TRAIN_STEPS steps of the full-width training setup after a warm-up."""
     from vidseg_diffusion_tpu_torch.scripts import train_path
@@ -866,6 +1119,9 @@ def phase_train(torch):
           f"last step: {n_grad} parameters with a gradient took it, {n_due} were due to move by more "
           f"than a bf16 step and moved, {n_moved} moved in all; every EMA tensor updated", flush=True)
     check(all(launches[k] > 0 for k in TRAIN_KERNELS), f"a kernel of the training path never launched: {launches}")
+    expected = {k: TRAIN_STEPS * n for k, n in train_launches(unet).items()}
+    check(launches == expected, f"training launches {launches}, expected {expected} "
+                                f"({TRAIN_STEPS} steps of a remat UNet)")
     check(all(n == 0 for n in plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
     del trainer, unet, params0, ema0
     torch.cuda.empty_cache()
@@ -950,8 +1206,11 @@ def main():
     inject_launches = phase_inject(torch, pipe, plain_res)
     phases["inject"] = time.perf_counter() - t0
     del pipe, plain_res
-    gc.collect()   # free the inference models before the training phase
+    gc.collect()   # free the SVD models before the SD and training phases
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sd_launches = phase_sd(torch)
+    phases["sd"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     train_launches = phase_train(torch)
     phases["train"] = time.perf_counter() - t0
@@ -968,6 +1227,8 @@ def main():
         "group_norm_apply": "UNet ds1 [28,56,104,320]",
         "group_norm_backward_stats": "UNet ds1 [28,56,104,320]",
         "group_norm_backward_apply": "UNet ds1 [28,56,104,320]",
+        "matmul_bias": "ds1 to_q [163072,320->320]",
+        "conv3x3_same": "ds1 [28,56,104,320->320]",
     }
     kernels = []
     for name, meta in KERNELS.items():
@@ -975,9 +1236,10 @@ def main():
         head = next(r for r in mine if r["shape"] == headline[name])
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            # the run of its path: inference for K1-K4, K7, K8, training for K5, K6, K9, K10
+            # the run of its path: inference for K1-K4, K7, K8, K11, K12, training for K5, K6, K9, K10
             launches=launches[name] if name in INFERENCE_KERNELS else train_launches[name],
-            inject_launches=inject_launches[name], train_launches=train_launches[name],
+            inject_launches=inject_launches[name], sd_launches=sd_launches[name],
+            train_launches=train_launches[name],
             max_abs_err=max(r["max_abs_err"] for r in mine), shape=head["shape"],
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],

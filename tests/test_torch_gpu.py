@@ -1,4 +1,4 @@
-"""The CUDA kernels (K1-K10) against their plain versions, on the card.
+"""The CUDA kernels (K1-K12) against their plain versions, on the card.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so on a machine with a card and no JAX it runs without the suite's
@@ -19,7 +19,9 @@ rounding (K6's dq and dk at t = 1) is measured against GRAD_FLOOR times the
 largest gradient of the same call. K1's saved LSE: within LSE_TOL (log2
 units) of the plain LSE. The GroupNorm kernels (K7 + K8 forward, K9 + K10
 backward) take the same bounds with RMS_TOL["GN"]; K7's mean and inv-std are
-also held to fp64 statistics of the same input (STATS_TOL, relative).
+also held to fp64 statistics of the same input (STATS_TOL, relative). K11
+(matmul_bias) and K12 (conv3x3_same) take chip_smoke.py's forward bounds too
+(2 bf16 steps at max |plain|, RMS_TOL["K11"] / ["K12"]; fp32 1e-4).
 """
 
 import math
@@ -28,12 +30,14 @@ import pytest
 import torch
 
 from vidseg_diffusion_tpu_torch.ops import attention as A
+from vidseg_diffusion_tpu_torch.ops import conv3x3 as C3
+from vidseg_diffusion_tpu_torch.ops import matmul as MM
 from vidseg_diffusion_tpu_torch.ops import norm as N
 from vidseg_diffusion_tpu_torch.ops import temporal_conv as TC
 
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
-RMS_TOL = {"K4": 5e-4, "K5": 1e-3, "K6": 2e-4, "GN": 5e-4}  # bf16; fp32 is FP32_TOL
+RMS_TOL = {"K4": 5e-4, "K5": 1e-3, "K6": 2e-4, "GN": 5e-4, "K11": 5e-4, "K12": 5e-4}  # bf16; fp32 is FP32_TOL
 STATS_TOL = 2e-5  # K7's fp32 mean (relative to the rms of x) and inv-std vs fp64
 MAX_STEPS = 2
 FP32_TOL = 1e-4
@@ -314,3 +318,154 @@ def test_group_norm_autograd_and_strided_input(cuda):
     assert N.group_norm.copies == copies + 1
     with pytest.raises(ValueError, match="contiguous"):
         N.group_norm_apply(xt, *N.group_norm_stats(x, w, b, 32, 1e-5)[:2], False)
+
+
+def _check_forward(fn, plain, rms_tol, *args):
+    """One launch of the wrapper (the plain version's counter does not move),
+    then the plain version, held to the forward bounds of the docstring."""
+    launches, calls = fn.launches, plain.calls
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == launches + 1 and plain.calls == calls
+    _close_grads((out,), (plain(*args),), rms_tol)
+    return out
+
+
+# ragged M (1, 28, 2156 rows), N (not a multiple of the 64- and 128-wide tiles),
+# K (not a multiple of the 32-deep slice, and of the 8-element vector: 20, 5)
+MM_SHAPES = [((28,), 1024, 320), ((2, 77, ), 1024, 640), ((3, 130), 320, 320), ((300,), 72, 200),
+             ((257,), 20, 50), ((1,), 64, 128), ((5, 7, 9), 5, 3), ((4, 91), 1280, 1280)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("lead,k,n", MM_SHAPES)
+def test_matmul_bias(cuda, dt, with_bias, lead, k, n):
+    dtype = DTYPES[dt]
+    x = _randn(cuda, 90, dtype, *lead, k)
+    w = _randn(cuda, 91, dtype, n, k, scale=k ** -0.5)
+    bias = _randn(cuda, 92, dtype, n) if with_bias else None
+    y = _check_forward(MM.matmul_bias, MM.matmul_bias_plain, RMS_TOL["K11"], x, w, bias)
+    assert y.shape == tuple(lead) + (n,) and y.is_contiguous()
+
+
+@pytest.mark.gpu
+def test_matmul_bias_unaligned_operands_and_refusals(cuda):
+    """A bias and an x that start off a 16-byte boundary (element loads), a
+    strided x (refused), mixed dtypes (refused)."""
+    bf = torch.bfloat16
+    x = _randn(cuda, 93, bf, 40 * 64 + 1)[1:].view(40, 64)
+    w = _randn(cuda, 94, bf, 48, 64, scale=0.125)
+    bias = _randn(cuda, 95, bf, 49)[1:]
+    _check_forward(MM.matmul_bias, MM.matmul_bias_plain, RMS_TOL["K11"], x, w, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        MM.matmul_bias(x[:, ::2], w[:, :32].contiguous())
+    with pytest.raises(ValueError, match="dtypes"):
+        MM.matmul_bias(x, w.float())
+
+
+# image-boundary rows: B*H*W not a multiple of the 128-row tile, so tiles span
+# two images; a 1-pixel-wide and a 1-pixel-high image; Cin off the slice and
+# the vector (20, 5); Cout off the tile widths
+C3_SHAPES = [(3, 7, 13, 64, 64), (2, 9, 5, 96, 320), (28, 7, 13, 40, 72), (2, 1, 11, 32, 32),
+             (2, 6, 1, 32, 48), (1, 1, 1, 64, 64), (2, 5, 6, 20, 50), (3, 4, 4, 5, 3), (1, 16, 16, 320, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("b,h,w,cin,cout", C3_SHAPES)
+def test_conv3x3_same(cuda, dt, with_bias, b, h, w, cin, cout):
+    dtype = DTYPES[dt]
+    x = _randn(cuda, 96, dtype, b, h, w, cin)
+    weight = _randn(cuda, 97, dtype, cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+    bias = _randn(cuda, 98, dtype, cout) if with_bias else None
+    y = _check_forward(C3.conv3x3_same, C3.conv3x3_plain, RMS_TOL["K12"], x, weight, bias)
+    # the plain version against the library convolution, in fp32 (TF32 off)
+    if dtype == torch.float32:
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        ref = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), weight, bias, padding=1).permute(0, 2, 3, 1)
+        torch.backends.cudnn.allow_tf32 = saved
+        _close_grads((y,), (ref,), None)
+
+
+@pytest.mark.gpu
+def test_conv3x3_images_do_not_mix(cuda):
+    """Each image of a batch convolves as it does alone: rows of a tile that
+    spans the last pixels of image b and the first of b + 1 read only their
+    own image's halo."""
+    bf = torch.bfloat16
+    x = _randn(cuda, 99, bf, 5, 6, 7, 64)
+    weight = _randn(cuda, 100, bf, 64, 64, 3, 3, scale=1 / 24)
+    bias = _randn(cuda, 101, bf, 64)
+    whole = C3.conv3x3_same(x, weight, bias)
+    for i in range(x.shape[0]):
+        assert torch.equal(whole[i:i + 1], C3.conv3x3_same(x[i:i + 1].contiguous(), weight, bias))
+
+
+@pytest.mark.gpu
+def test_conv3x3_weight_relay_is_cached_per_version(cuda):
+    x = _randn(cuda, 102, torch.bfloat16, 1, 4, 4, 32)
+    weight = _randn(cuda, 103, torch.bfloat16, 32, 32, 3, 3, scale=0.06)
+    before = C3.conv3x3_same.relays
+    y0 = C3.conv3x3_same(x, weight)
+    y1 = C3.conv3x3_same(x, weight)
+    assert C3.conv3x3_same.relays == before + 1 and torch.equal(y0, y1)
+    weight.mul_(2.0)
+    y2 = C3.conv3x3_same(x, weight)
+    assert C3.conv3x3_same.relays == before + 2
+    _close_grads((y2,), (C3.conv3x3_plain(x, weight),), RMS_TOL["K12"])
+
+
+@pytest.mark.gpu
+def test_conv3x3_module_with_fp32_weights_relays_once(cuda):
+    """A ResBlock conv that keeps fp32 parameters under bf16 activations: the
+    cast is part of the cached tap-major copy, so a second forward makes none."""
+    from vidseg_diffusion_tpu_torch.models.layers import Conv3x3NHWC
+
+    conv = Conv3x3NHWC(32, 48).to(cuda)
+    x = _randn(cuda, 111, torch.bfloat16, 2, 5, 7, 32)
+    before = C3.conv3x3_same.relays
+    with torch.no_grad():
+        y0 = conv(x)
+        y1 = conv(x)
+        want = C3.conv3x3_same(x, conv.weight.bfloat16(), conv.bias.bfloat16())
+    assert C3.conv3x3_same.relays == before + 2  # the module's copy, and the pre-cast weight's
+    assert y0.dtype == torch.bfloat16 and torch.equal(y0, y1) and torch.equal(y0, want)
+    with torch.no_grad():
+        conv(x)
+    assert C3.conv3x3_same.relays == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_autograd_through_matmul_bias_and_conv3x3(cuda, dt):
+    """With grad on the wrappers return outputs with a grad_fn, the forward is
+    one launch, and the gradients agree with autograd through the plain
+    versions; under no_grad nothing is recorded."""
+    dtype = DTYPES[dt]
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    x = _randn(cuda, 104, dtype, 3, 50, 72)
+    w = _randn(cuda, 105, dtype, 40, 72, scale=72 ** -0.5)
+    bias = _randn(cuda, 106, dtype, 40)
+    xc = _randn(cuda, 107, dtype, 2, 6, 5, 24)
+    wc = _randn(cuda, 108, dtype, 16, 24, 3, 3, scale=216 ** -0.5)
+    bc = _randn(cuda, 109, dtype, 16)
+    for fn, plain, args in ((MM.matmul_bias, MM.matmul_bias_plain, (x, w, bias)),
+                            (C3.conv3x3_same, C3.conv3x3_plain, (xc, wc, bc))):
+        leaves = [t.clone().requires_grad_() for t in args]
+        launches = fn.launches
+        y = fn(*leaves)
+        assert y.grad_fn is not None and fn.launches == launches + 1
+        g = _randn(cuda, 110, dtype, *y.shape)  # the same output gradient on both sides
+        y.backward(g)
+        assert fn.launches == launches + 1
+        ref = [t.clone().requires_grad_() for t in args]
+        plain(*ref).backward(g)
+        _close_grads([t.grad for t in leaves], [t.grad for t in ref], 5e-4)
+        with torch.no_grad():
+            assert fn(*leaves).grad_fn is None
+    torch.backends.cudnn.allow_tf32 = saved

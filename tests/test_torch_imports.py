@@ -47,7 +47,10 @@ def test_port_imports_no_jax():
     expected = {"ops.attention", "ops.temporal_conv", "models.unet", "models.vae", "models.clip",
                 "engine.vidseg", "engine.build", "pipelines.single_video", "io.convert",
                 "scripts.svd_single_video_inference", "diffusion.loss", "engine.train", "utils.ema",
-                "scripts.train_path", "scripts.profile_train", "ops.norm", "io.video", "io.native"}
+                "scripts.train_path", "scripts.profile_train", "ops.norm", "io.video", "io.native",
+                "ops.matmul", "ops.conv3x3", "io.tokenizer", "scripts.sd_path", "scripts.main_path",
+                "scripts.profile_single_video", "diffusion.denoiser", "diffusion.discretization",
+                "diffusion.guidance", "models.conditioner"}
     assert expected <= {m.split(".", 1)[1] for m in res["modules"]}
     assert res["jax"] == []
     assert res["after_color_map"] == [] and res["palette"] == [128, 3]
@@ -71,22 +74,27 @@ def test_port_sources_do_not_name_the_jax_package():
 
 
 def test_entry_points_default_to_the_card():
-    """build_pipeline and the CLI run on cuda unless the caller asks for the
-    CPU; without a card the default raises instead of falling back."""
+    """build_pipeline, the CLI and the full-width path scripts (SVD, SD 2.1,
+    training) run on cuda unless the caller asks for the CPU; without a card
+    the default raises instead of falling back."""
     import inspect
 
     import torch
 
     from vidseg_diffusion_tpu_torch.engine.build import build_pipeline
     from vidseg_diffusion_tpu_torch.scripts import svd_single_video_inference as cli
-    from vidseg_diffusion_tpu_torch.scripts import train_path
+    from vidseg_diffusion_tpu_torch.scripts import main_path, sd_path, train_path
 
     assert inspect.signature(build_pipeline).parameters["device"].default == "cuda"
+    for script in (main_path, sd_path):
+        assert inspect.signature(script.build).parameters["device"].default == "cuda"
     assert cli.parse_args([]).device == "cuda" and cli.parse_args(["--device", "cpu"]).device == "cpu"
     assert train_path.DEVICE == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             build_pipeline(os.path.join(ROOT, "configs/inference/svd_tiny.yaml"), num_steps=2, num_frames=2)
+        with pytest.raises((RuntimeError, AssertionError)):
+            build_pipeline(os.path.join(ROOT, "configs/inference/sd_tiny.yaml"), num_steps=2, num_frames=2)
 
 
 def test_kernel_library_without_nvcc_raises(monkeypatch, tmp_path):
@@ -127,6 +135,10 @@ def test_failed_build_is_not_repeated(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_packaged_and_hashed():
     srcs = [os.path.basename(p) for p in _cuda._sources()]
-    assert srcs == ["flash_attention.cu", "flash_attention_bwd.cu", "group_norm.cu", "group_norm_bwd.cu",
-                    "temporal_attention.cu", "temporal_attention_bwd.cu", "temporal_conv.cu"]
+    assert srcs == ["conv3x3.cu", "flash_attention.cu", "flash_attention_bwd.cu", "group_norm.cu",
+                    "group_norm_bwd.cu", "matmul_bias.cu", "temporal_attention.cu",
+                    "temporal_attention_bwd.cu", "temporal_conv.cu"]
     assert len(_cuda._source_hash()) == 16
+    # the shared headers are part of the hash: an edited tile rebuilds its kernels
+    headers = sorted(os.path.basename(p) for p in glob.glob(os.path.join(_cuda.CSRC, "*.cuh")))
+    assert headers == ["common.cuh", "gemm_tile.cuh", "group_norm.cuh"]

@@ -23,19 +23,35 @@ from vidseg_diffusion_tpu.io.checkpoint import (
     unet_key_fn as j_unet_key_fn,
     vae_key_fn as j_vae_key_fn,
 )
+from vidseg_diffusion_tpu.diffusion import denoiser as jden
+from vidseg_diffusion_tpu.diffusion import discretization as jdisc
+from vidseg_diffusion_tpu.diffusion import guidance as jguide
+from vidseg_diffusion_tpu.diffusion import sampling as jsamp
+from vidseg_diffusion_tpu.diffusion import scaling as jscal
+from vidseg_diffusion_tpu.engine import diffusion_engine as jde
+from vidseg_diffusion_tpu.io import tokenizer as jtok
 from vidseg_diffusion_tpu.models import clip as jclip
 from vidseg_diffusion_tpu.models import conditioner as jcond
 from vidseg_diffusion_tpu.models import layers as jl
 from vidseg_diffusion_tpu.models import unet as junet
 from vidseg_diffusion_tpu.models import vae as jvae
 from vidseg_diffusion_tpu.models import video_layers as jvl
+from vidseg_diffusion_tpu_torch.diffusion import denoiser as tden
+from vidseg_diffusion_tpu_torch.diffusion import discretization as tdisc
+from vidseg_diffusion_tpu_torch.diffusion import guidance as tguide
+from vidseg_diffusion_tpu_torch.diffusion import sampling as tsamp
+from vidseg_diffusion_tpu_torch.diffusion import scaling as tscal
+from vidseg_diffusion_tpu_torch.engine import diffusion_engine as tde
 from vidseg_diffusion_tpu_torch.io import convert
+from vidseg_diffusion_tpu_torch.io import tokenizer as ttok
 from vidseg_diffusion_tpu_torch.models import clip as tclip
 from vidseg_diffusion_tpu_torch.models import conditioner as tcond
 from vidseg_diffusion_tpu_torch.models import layers as tl
 from vidseg_diffusion_tpu_torch.models import unet as tunet
 from vidseg_diffusion_tpu_torch.models import vae as tvae
 from vidseg_diffusion_tpu_torch.models import video_layers as tvl
+from vidseg_diffusion_tpu_torch.ops import conv3x3 as tc3
+from vidseg_diffusion_tpu_torch.ops import matmul as tmm
 
 MODULE_TOL = 1e-4   # fp32 modules
 UNET_TOL = 2e-4     # fp32 whole UNet (the figure the verify recipe uses)
@@ -332,3 +348,233 @@ def test_svd_conditioner_routing_and_uc():
         assert want.keys() == got.keys() == {"crossattn", "vector", "concat"}
         for key in want:
             _close(got[key], want[key], 1e-5)  # fp32 sin/cos of args up to ~127
+
+
+# -- the SD 2.1 family: image UNet, text tower, image decoder, discrete denoiser --
+
+_TINY_IMAGE_UNET = dict(in_channels=4, out_channels=4, model_channels=32, num_res_blocks=1,
+                        attention_resolutions=(2, 1), channel_mult=(1, 2), num_head_channels=16,
+                        context_dim=24, adm_in_channels=None)
+_LK = 7   # context tokens: cross-attention with Lq != Lk and real to_k / to_v projections
+
+
+@pytest.fixture(scope="module")
+def tiny_image_unet():
+    """A tiny image UNet (video False, no class embedding), every leaf random."""
+    cfg = junet.UNetConfig(video=False, **_TINY_IMAGE_UNET)
+    t = 3
+    jm = junet.UNetModel(cfg)
+    params = _init_tree(jm, 19, jnp.zeros((2 * t, 8, 8, 4)), jnp.zeros((2 * t,)), jnp.zeros((2 * t, _LK, 24)))
+    tm = _load(tunet.UNetModel(tunet.UNetConfig(video=False, **_TINY_IMAGE_UNET)), params,
+               convert.unet_key_fn)
+    return jm, params, tm, t
+
+
+def test_image_unet_matches_jax_with_hooks(tiny_image_unet):
+    """The SD 2.1 UNet: ResBlock + SpatialTransformer, a 7-token context,
+    modulation on the spatial cross-attention and the ff output, injected
+    self- and cross-attention q/k, and the q/k harvest of both sites."""
+    jm, params, tm, t = tiny_image_unet
+    rs = np.random.RandomState(15)
+    x = rs.randn(2 * t, 8, 8, 4).astype(np.float32)
+    ts = rs.randint(0, 1000, 2 * t).astype(np.float32)
+    ctx = rs.randn(2 * t, _LK, 24).astype(np.float32)
+    _, _, out_layout = jm.config.block_layout()
+    blk = max(i for i, s in enumerate(out_layout) if s.get("attn") and s["ds"] == 1)
+    inj_blk = min(i for i, s in enumerate(out_layout) if s.get("attn") and s["ds"] == 2)
+    ch = out_layout[inj_blk]["ch"]
+    q1, k1, q2 = rs.randn(3, 2 * t, 16, ch).astype(np.float32)
+    k2 = rs.randn(2 * t, _LK, ch).astype(np.float32)
+    jmod, tmod = _mods(t, 64, 16)
+    jhooks = junet.UNetHooks(
+        output_mod={blk: jvl.SiteModulation(spatial=jl.BlockModulation(cross_attn=jmod, ff_out=jmod))},
+        output_inj={inj_blk: jvl.SiteInjection(spatial=jl.BlockInjection(
+            attn1=jl.AttnInjection(gate=jnp.asarray(True), q=jnp.asarray(q1), k=jnp.asarray(k1)),
+            attn2=jl.AttnInjection(gate=jnp.asarray(True), q=jnp.asarray(q2), k=jnp.asarray(k2))))},
+        sow_blocks=(blk,),
+    )
+    want, state = _apply(jm, params, *map(jnp.asarray, (x, ts, ctx)), hooks=jhooks, mutable=["intermediates"])
+    on = torch.tensor(True)
+    thooks = tunet.UNetHooks(
+        output_mod={blk: tvl.SiteModulation(spatial=tl.BlockModulation(cross_attn=tmod, ff_out=tmod))},
+        output_inj={inj_blk: tvl.SiteInjection(spatial=tl.BlockInjection(
+            attn1=tl.AttnInjection(gate=on, q=torch.from_numpy(q1), k=torch.from_numpy(k1)),
+            attn2=tl.AttnInjection(gate=on, q=torch.from_numpy(q2), k=torch.from_numpy(k2))))},
+        sow_blocks=(blk,), intermediates={},
+    )
+    with torch.no_grad():
+        got = tm(*map(torch.from_numpy, (x, ts, ctx)), hooks=thooks)
+        plain = tm(*map(torch.from_numpy, (x, ts, ctx)))
+    _close(got, want, UNET_TOL)
+    assert not torch.allclose(got, plain, atol=1e-3)
+    _close(plain, _apply(jm, params, *map(jnp.asarray, (x, ts, ctx))), UNET_TOL)
+    for attn, lk in (("attn1", 64), ("attn2", _LK)):
+        for name, l in (("q", 64), ("k", lk)):
+            jt = state["intermediates"][f"output_blocks_{blk}_1"]["transformer_blocks_0"][attn][name][0]
+            tt = thooks.intermediates[f"output_blocks_{blk}_1"]["transformer_blocks_0"][attn][name]
+            assert tuple(tt.shape) == (2 * t, l, out_layout[blk]["ch"])
+            _close(tt, jt, UNET_TOL)
+
+
+def test_image_unet_state_dict_round_trip(tiny_image_unet):
+    _, params, tm, _ = tiny_image_unet
+    assert not any(k.startswith("label_emb") or "time_stack" in k for k in tm.state_dict())
+    _round_trip(params, tm, j_unet_key_fn)
+
+
+def test_projections_and_resblock_convs_go_through_the_kernel_wrappers(tiny_unet, tiny_image_unet):
+    """Each CrossAttention calls matmul_bias once per projection (to_q, to_k,
+    to_v, to_out) and each ResBlock conv3x3_same once per 3x3 convolution, in
+    the video and the image UNet; no other layer does. On the CPU the wrappers
+    take their plain versions, whose call counters are read here."""
+    x = torch.from_numpy(np.random.RandomState(17).randn(4, 10, 16).astype(np.float32))
+    attn = tl.CrossAttention(16, 2, 8, context_dim=24)
+    calls = tmm.matmul_bias_plain.calls
+    with torch.no_grad():
+        attn(x, torch.zeros(4, 3, 24))
+    assert tmm.matmul_bias_plain.calls == calls + 4
+    res = tunet.ResBlock(32, 64, 16)
+    calls = tc3.conv3x3_plain.calls
+    with torch.no_grad():
+        res(torch.zeros(2, 4, 4, 32), torch.zeros(2, 16))
+    assert tc3.conv3x3_plain.calls == calls + 2
+    for (_, _, tm, t), video in ((tiny_unet, True), (tiny_image_unet, False)):
+        n_attn = sum(isinstance(m, tl.CrossAttention) for m in tm.modules())
+        n_res = sum(isinstance(m, tunet.ResBlock) for m in tm.modules())
+        assert n_attn > 0 and n_res > 0
+        cfg = tm.config
+        args = [torch.zeros(2 * t, 8, 8, cfg.in_channels), torch.zeros(2 * t), torch.zeros(2 * t, 1, 24)]
+        kw = dict(y=torch.zeros(2 * t, 12), num_video_frames=t, image_only_indicator=torch.zeros(2, t)) if video else {}
+        mm, c3 = tmm.matmul_bias_plain.calls, tc3.conv3x3_plain.calls
+        with torch.no_grad():
+            tm(*args, **kw)
+        assert tmm.matmul_bias_plain.calls - mm == 4 * n_attn
+        assert tc3.conv3x3_plain.calls - c3 == 2 * n_res
+
+
+def test_clip_text_tower():
+    """The OpenCLIP text tower in its SD 2.1 form (penultimate layer, then
+    ln_final) on the empty prompt's tokens and on random ids."""
+    kw = dict(width=64, heads=4, layers=3)
+    rs = np.random.RandomState(18)
+    tokens = np.concatenate([jtok.tokenize_empty(1), rs.randint(0, 49408, (2, 77)).astype(np.int32)])
+    jm = jclip.CLIPTextTransformer(jclip.CLIPTextConfig(**kw), penultimate=True)
+    params = _init_tree(jm, 6, jnp.zeros((1, 77), jnp.int32))
+    want = _apply(jm, params, jnp.asarray(tokens))
+    tm = _load(tclip.CLIPTextTransformer(tclip.CLIPTextConfig(**kw)), params, convert.clip_text_key_fn)
+    assert len(tm.transformer.resblocks) == 2   # the last block is never run, so never built
+    with torch.no_grad():
+        got = tm(torch.from_numpy(tokens))
+    assert tuple(got.shape) == (3, 77, 64)
+    _close(got, want, MODULE_TOL)
+    _round_trip(params, tm, jclip.clip_text_key_fn)
+    # causal: a change of the last token leaves the earlier positions alone
+    moved = tokens.copy()
+    moved[:, -1] = (moved[:, -1] + 1) % 49408
+    with torch.no_grad():
+        assert torch.equal(tm(torch.from_numpy(moved))[:, :-1], got[:, :-1])
+
+
+def test_tokenizer_copy_matches_jax_package():
+    np.testing.assert_array_equal(ttok.tokenize_empty(2), jtok.tokenize_empty(2))
+    np.testing.assert_array_equal(ttok.tokenize_empty(3, 16), jtok.tokenize_empty(3, 16))
+    np.testing.assert_array_equal(ttok.tokenize_empty(2), jtok.tokenize(["", " "]))
+    assert ttok.tokenize_empty(1).dtype == jtok.tokenize_empty(1).dtype
+    assert (ttok.SOT, ttok.EOT, ttok.CONTEXT_LENGTH) == (jtok.SOT, jtok.EOT, jtok.CONTEXT_LENGTH)
+
+
+def test_sd_text_conditioner_routes_to_crossattn():
+    rs = np.random.RandomState(20)
+    table = rs.randn(50, 8).astype(np.float32)
+    tokens = rs.randint(0, 50, (2, 77))
+    jc = jcond.build_sd_text_conditioner(lambda tok: jnp.asarray(table)[tok])
+    tc = tcond.build_sd_text_conditioner(lambda tok: torch.from_numpy(table)[tok])
+    jcu = jc.get_unconditional_conditioning({"txt_tokens": jnp.asarray(tokens)})
+    tcu = tc.get_unconditional_conditioning({"txt_tokens": torch.from_numpy(tokens)})
+    for want, got in zip(jcu, tcu):
+        assert want.keys() == got.keys() == {"crossattn"}
+        _close(got["crossattn"], want["crossattn"], 0)
+
+
+def test_vae_image_decoder_and_first_stage_quant_convs():
+    """The image decoder (SD 2.1: no time mix), and the first stage around it
+    with an AutoencoderKL checkpoint's 1x1 quant / post-quant convolutions."""
+    rs = np.random.RandomState(21)
+    frames = rs.uniform(-1, 1, (3, 64, 64, 3)).astype(np.float32)
+    z = rs.randn(3, 8, 8, 4).astype(np.float32)
+    jcfg, tcfg = jvae.VAEConfig(**_TINY_VAE), tvae.VAEConfig(**_TINY_VAE)
+    je, jd = jvae.Encoder(jcfg), jvae.Decoder(jcfg)
+    ep = _init_tree(je, 4, jnp.asarray(frames))
+    dp = _init_tree(jd, 5, jnp.asarray(z))
+    te = _load(tvae.Encoder(tcfg), ep, convert.vae_key_fn)
+    td = _load(tvae.Decoder(tcfg), dp, convert.vae_key_fn)
+    assert not any("time_stack" in k or "mix_factor" in k for k in td.state_dict())
+    with torch.no_grad():
+        _close(td(torch.from_numpy(z)), _apply(jd, dp, jnp.asarray(z)), MODULE_TOL)
+    _round_trip(dp, td, j_vae_key_fn)
+    qk, qb = rs.randn(1, 1, 8, 8).astype(np.float32) * 0.3, rs.randn(8).astype(np.float32) * 0.1
+    pk, pb = rs.randn(1, 1, 4, 4).astype(np.float32) * 0.5, rs.randn(4).astype(np.float32) * 0.1
+    jfs = jde.FirstStage(je, jd, ep, dp, scale_factor=0.18215, quant_conv=(qk, qb), post_quant_conv=(pk, pb))
+    quant, post = tl.Conv2dNHWC(8, 8, 1), tl.Conv2dNHWC(4, 4, 1)
+    quant.load_state_dict({"weight": torch.from_numpy(qk.transpose(3, 2, 0, 1).copy()), "bias": torch.from_numpy(qb)})
+    post.load_state_dict({"weight": torch.from_numpy(pk.transpose(3, 2, 0, 1).copy()), "bias": torch.from_numpy(pb)})
+    tfs = tde.FirstStage(te, td, 0.18215, quant, post)
+    _close(tfs.encode(torch.from_numpy(frames), chunk=2), jfs.encode(jnp.asarray(frames), chunk=2), MODULE_TOL)
+    _close(tfs.decode(torch.from_numpy(z), chunk=2), jfs.decode(jnp.asarray(z), chunk=2), MODULE_TOL)
+
+
+@pytest.mark.parametrize("n", [10, 25, 1000])
+def test_legacy_ddpm_discretization(n):
+    jd, td = jdisc.LegacyDDPMDiscretization(), tdisc.LegacyDDPMDiscretization()
+    for kw in (dict(), dict(do_append_zero=False, flip=True)):
+        np.testing.assert_array_equal(td(n, **kw).numpy(), np.asarray(jd(n, **kw)))
+
+
+def test_discrete_denoiser_with_vanilla_cfg_takes_a_euler_step():
+    """One Euler step of the SD 2.1 stack: DiscreteDenoiser (sigma snapped to
+    the 1000-entry table, c_noise the table index) with EpsScaling, VanillaCFG
+    on the [uc; c] batch, the LegacyDDPM sampler schedule."""
+    rs = np.random.RandomState(22)
+    x = rs.randn(3, 4, 4, 4).astype(np.float32)
+    w = rs.randn(4, 4).astype(np.float32) * 0.5
+    cu, cc = rs.randn(2, 3, 5, 4).astype(np.float32)
+    jden_ = jden.DiscreteDenoiser(jscal.EpsScaling(), jdisc.LegacyDDPMDiscretization())
+    tden_ = tden.DiscreteDenoiser(tscal.EpsScaling(), tdisc.LegacyDDPMDiscretization())
+    sig = np.array([0.03, 0.9, 14.6], np.float32)
+    idx = tden_.sigma_to_idx(torch.from_numpy(sig))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jden_.sigma_to_idx(jnp.asarray(sig))))
+    np.testing.assert_array_equal(tden_.possibly_quantize_sigma(torch.from_numpy(sig)).numpy(),
+                                  np.asarray(jden_.possibly_quantize_sigma(jnp.asarray(sig))))
+    jg, tg = jguide.VanillaCFG(scale=5.0), tguide.VanillaCFG(scale=5.0)
+    js = jsamp.EulerEDMSampler(jdisc.LegacyDDPMDiscretization(), num_steps=10)
+    ts = tsamp.EulerEDMSampler(tdisc.LegacyDDPMDiscretization(), num_steps=10)
+    np.testing.assert_array_equal(ts.sigmas().numpy(), np.asarray(js.sigmas()))
+    seen = {}
+
+    def jnet(xs, c_noise, cond):
+        seen["j"] = np.asarray(c_noise)
+        return jnp.tanh(xs @ jnp.asarray(w)) * (1 + c_noise[:, None, None, None] / 1000.0) + cond["crossattn"].mean(1)[:, None, None, :]
+
+    def tnet(xs, c_noise, cond):
+        seen["t"] = c_noise.numpy()
+        out = torch.tanh(xs @ torch.from_numpy(w)) * (1 + c_noise[:, None, None, None] / 1000.0)
+        return out + cond["crossattn"].mean(1)[:, None, None, :], {}
+
+    def jdenoise(xx, sigma, i):
+        s = jnp.full((xx.shape[0],), sigma, xx.dtype)
+        x_in, s_in, cond = jg.prepare_inputs(xx, s, {"crossattn": jnp.asarray(cc)}, {"crossattn": jnp.asarray(cu)})
+        return jg(jden_(jnet, x_in, s_in, cond), sigma), {}
+
+    def tdenoise(xx, sigma, i):
+        s = torch.full((xx.shape[0],), sigma, dtype=xx.dtype)
+        x_in, s_in, cond = tg.prepare_inputs(xx, s, {"crossattn": torch.from_numpy(cc)},
+                                             {"crossattn": torch.from_numpy(cu)})
+        den, aux = tden_(tnet, x_in, s_in, cond)
+        return tg(den, sigma), aux
+
+    sigmas = ts.sigmas().tolist()
+    want, _ = js.step(jdenoise, jnp.asarray(x), js.sigmas()[4], js.sigmas()[5], 4)
+    got, _ = ts.step(tdenoise, torch.from_numpy(x), sigmas[4], sigmas[5], 4)
+    np.testing.assert_array_equal(seen["t"], seen["j"])
+    assert seen["t"].dtype.kind == "i" and seen["t"].shape == (6,)
+    _close(got, want, 1e-5)

@@ -18,14 +18,18 @@ import torch
 
 from vidseg_diffusion_tpu.engine import segmentation as jseg
 from vidseg_diffusion_tpu.ops import attention as jatt
+from vidseg_diffusion_tpu.ops import conv3x3 as jc3
 from vidseg_diffusion_tpu.ops import image as jimg
 from vidseg_diffusion_tpu.ops import kmeans as jkm
+from vidseg_diffusion_tpu.ops import matmul as jmm
 from vidseg_diffusion_tpu.ops import norm as jnorm
 from vidseg_diffusion_tpu.ops import temporal_conv as jtc
 from vidseg_diffusion_tpu_torch.engine import segmentation as tseg
 from vidseg_diffusion_tpu_torch.ops import attention as tatt
+from vidseg_diffusion_tpu_torch.ops import conv3x3 as tc3
 from vidseg_diffusion_tpu_torch.ops import image as timg
 from vidseg_diffusion_tpu_torch.ops import kmeans as tkm
+from vidseg_diffusion_tpu_torch.ops import matmul as tmm
 from vidseg_diffusion_tpu_torch.ops import norm as tnorm
 from vidseg_diffusion_tpu_torch.ops import temporal_conv as ttc
 
@@ -159,6 +163,10 @@ _FUNCTIONS = {
               [(10, 6, 2, 16)] * 3, (10, 6, 2, 16)),
     "K4": (ttc.temporal_conv_1x1, ttc.temporal_conv_1x1_reference,
            [(2, 5, 12, 16), (3, 16, 24), (24,)], (2, 5, 12, 24)),
+    "K11": (tmm.matmul_bias, tmm.matmul_bias_plain, [(3, 17, 20), (24, 20), (24,)], (3, 17, 24)),
+    "K11 no bias": (tmm.matmul_bias, tmm.matmul_bias_plain, [(30, 20), (24, 20)], (30, 24)),
+    "K12": (tc3.conv3x3_same, tc3.conv3x3_plain, [(2, 5, 7, 8), (12, 8, 3, 3), (12,)], (2, 5, 7, 12)),
+    "K12 no bias": (tc3.conv3x3_same, tc3.conv3x3_plain, [(2, 5, 7, 8), (12, 8, 3, 3)], (2, 5, 7, 12)),
 }
 
 
@@ -256,6 +264,131 @@ def test_temporal_conv_plain_matches_pallas(b, t, m, cin, cout):
     _close(ttc.temporal_conv_1x1_reference(T(x), T(w), T(bias)), ref, atol=2e-5, rtol=2e-5)
 
 
+# -- K11, K12 ------------------------------------------------------------------
+
+MM_CASES = [(100, 64, 128), (28, 40, 24), (91, 72, 50), (2156, 32, 40), (1, 8, 8)]
+C3_CASES = [(2, 8, 12, 32, 32), (1, 6, 10, 16, 48), (2, 4, 7, 8, 8), (3, 1, 5, 8, 16), (2, 5, 1, 8, 8)]
+
+
+def _bf16_step(want):
+    """One bf16 rounding step at each element of `want` (fp32 numpy)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("m,k,n", MM_CASES)
+def test_matmul_bias_plain_matches_pallas(m, k, n, dt):
+    """The plain version (weight [N, K], nn.Linear's layout) against the
+    Pallas kernel in interpret mode (kernel [K, N]): fp32 1e-5, bf16 within
+    one bf16 step; a missing bias is JAX's zeros bias."""
+    x, w, bias = _arrays(m + n, (m, k), (n, k), (n,))
+    w *= k ** -0.5
+    if dt == "fp32":
+        want = jmm.matmul_bias(jnp.asarray(x), jnp.asarray(w.T), jnp.asarray(bias), interpret=True)
+        _close(tmm.matmul_bias(T(x), T(w), T(bias)), want)
+        want0 = jmm.matmul_bias(jnp.asarray(x), jnp.asarray(w.T), jnp.zeros((n,)), interpret=True)
+        _close(tmm.matmul_bias(T(x), T(w)), want0)
+        return
+    jb = lambda a: jnp.asarray(a, jnp.bfloat16)
+    want = np.asarray(jmm.matmul_bias(jb(x), jb(w.T), jb(bias), interpret=True).astype(jnp.float32))
+    got = tmm.matmul_bias(T(x).bfloat16(), T(w).bfloat16(), T(bias).bfloat16())
+    assert got.dtype == torch.bfloat16
+    assert (np.abs(got.float().numpy() - want) <= _bf16_step(want)).all()
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,w_,cin,cout", C3_CASES)
+def test_conv3x3_plain_matches_pallas(b, h, w_, cin, cout, dt):
+    """The plain version (weight [Cout, Cin, 3, 3], nn.Conv2d's layout) against
+    the Pallas kernel in interpret mode (kernel HWIO) and XLA's reference
+    convolution: fp32 1e-5, bf16 within one bf16 step."""
+    x, w, bias = _arrays(h * w_ + cout, (b, h, w_, cin), (cout, cin, 3, 3), (cout,))
+    x *= 0.3
+    w *= (9 * cin) ** -0.5
+    hwio = np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+    if dt == "fp32":
+        want = jc3.conv3x3_same(jnp.asarray(x), jnp.asarray(hwio), jnp.asarray(bias), interpret=True)
+        _close(tc3.conv3x3_same(T(x), T(w), T(bias)), want)
+        _close(tc3.conv3x3_plain(T(x), T(w), T(bias)),
+               jc3.conv3x3_reference(jnp.asarray(x), jnp.asarray(hwio), jnp.asarray(bias)))
+        _close(tc3.conv3x3_same(T(x), T(w)),
+               jc3.conv3x3_same(jnp.asarray(x), jnp.asarray(hwio), jnp.zeros((cout,)), interpret=True))
+        return
+    jb = lambda a: jnp.asarray(a, jnp.bfloat16)
+    want = np.asarray(jc3.conv3x3_same(jb(x), jb(hwio), jb(bias), interpret=True).astype(jnp.float32))
+    got = tc3.conv3x3_same(T(x).bfloat16(), T(w).bfloat16(), T(bias).bfloat16())
+    assert got.dtype == torch.bfloat16
+    assert (np.abs(got.float().numpy() - want) <= _bf16_step(want)).all()
+
+
+def test_matmul_bias_grads_match_jax():
+    """K11's Function against jax.grad through the Pallas kernel's custom_vjp
+    (interpret mode; tests/test_kernel_grads.py's loss)."""
+    x, w, bias = _arrays(31, (100, 64), (128, 64), (128,))
+    w *= 0.1
+    loss = lambda x_, w_, b_: jnp.sum(jmm.matmul_bias(x_, w_, b_, interpret=True) ** 2)
+    dx, dwt, db = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w.T), jnp.asarray(bias))
+    leaves = [T(a).requires_grad_() for a in (x, w, bias)]
+    tmm.matmul_bias(*leaves).square().sum().backward()
+    for got, want in zip(leaves, (dx, np.asarray(dwt).T, db)):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(want), rtol=2e-5,
+                                   atol=2e-5 * np.abs(np.asarray(want)).max())
+
+
+def test_conv3x3_grads_match_jax():
+    """K12's Function against jax.grad through the Pallas kernel's custom_vjp
+    (interpret mode), whose backward is the VJP of XLA's reference conv."""
+    x, w, bias = _arrays(32, (2, 6, 10, 16), (16, 16, 3, 3), (16,))
+    x *= 0.3
+    w *= 0.1
+    hwio = np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+    loss = lambda x_, w_, b_: jnp.sum(jc3.conv3x3_same(x_, w_, b_, interpret=True) ** 2)
+    dx, dw, db = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(hwio), jnp.asarray(bias))
+    leaves = [T(a).requires_grad_() for a in (x, w, bias)]
+    tc3.conv3x3_same(*leaves).square().sum().backward()
+    for got, want in zip(leaves, (dx, np.asarray(dw).transpose(3, 2, 0, 1), db)):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(want), rtol=2e-5,
+                                   atol=2e-5 * np.abs(np.asarray(want)).max())
+
+
+def test_conv3x3_tap_major_copy_is_cached_per_weight_version():
+    """The [9, Cout, Cin] copy K12 reads: tap 3*dy + dx holds W[:, :, dy, dx];
+    made once per weight tensor and again after the weight is written to."""
+    (w,) = _arrays(33, (6, 4, 3, 3))
+    wt = T(w.copy())
+    before = tc3.conv3x3_same.relays
+    w9 = tc3.tap_major(wt)
+    assert w9.shape == (9, 6, 4) and w9.is_contiguous()
+    for dy in range(3):
+        for dx in range(3):
+            np.testing.assert_array_equal(w9[3 * dy + dx].numpy(), w[:, :, dy, dx])
+    assert tc3.tap_major(wt) is w9 and tc3.conv3x3_same.relays == before + 1
+    wt.mul_(2.0)
+    assert tc3.tap_major(wt) is not w9 and tc3.conv3x3_same.relays == before + 2
+    np.testing.assert_array_equal(tc3.tap_major(wt)[4].numpy(), 2.0 * w[:, :, 1, 1])
+
+
+def test_conv3x3_mixed_dtype_weight_casts_once_in_the_cached_copy():
+    """An fp32 weight under bf16 activations: the tap-major copy is made in the
+    activation's dtype and found again on the next call; the result and the
+    gradients are those of the weight cast beforehand, dW in the weight's dtype."""
+    x, w, bias = _arrays(34, (2, 5, 6, 8), (12, 8, 3, 3), (12,))
+    wt = T(w * 0.2)
+    before = tc3.conv3x3_same.relays
+    w9 = tc3.tap_major(wt, torch.bfloat16)
+    assert w9.dtype == torch.bfloat16 and tc3.tap_major(wt, torch.bfloat16) is w9
+    assert tc3.conv3x3_same.relays == before + 1
+    assert torch.equal(w9[5], wt.bfloat16()[:, :, 1, 2])
+    xb, bb = T(x).bfloat16(), T(bias).bfloat16()
+    assert torch.equal(tc3.conv3x3_same(xb, wt, bb), tc3.conv3x3_same(xb, wt.bfloat16(), bb))
+    xg, wg = xb.clone().requires_grad_(), wt.clone().requires_grad_()
+    tc3.conv3x3_same(xg, wg, bb).float().square().sum().backward()
+    xr, wr = xb.clone().requires_grad_(), wt.bfloat16().requires_grad_()
+    tc3.conv3x3_same(xr, wr, bb).float().square().sum().backward()
+    assert wg.grad.dtype == torch.float32 and xg.grad.dtype == torch.bfloat16
+    assert torch.equal(xg.grad, xr.grad) and torch.equal(wg.grad, wr.grad.float())
+
+
 # -- wrappers never fall back -----------------------------------------------
 
 
@@ -273,6 +406,10 @@ def test_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         ttc.temporal_conv_1x1(torch.empty((1, 2, 4, 8), device="meta"),
                               torch.empty((3, 8, 8), device="meta"), torch.empty((8,), device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        tmm.matmul_bias(torch.empty((4, 8), device="meta"), torch.empty((6, 8), device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        tc3.conv3x3_same(torch.empty((1, 4, 4, 8), device="meta"), torch.empty((6, 8, 3, 3), device="meta"))
     lse = torch.empty((1, 16, 1), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tatt.flash_attention_packed_backward(q, q, q, q, lse, q, heads=1)

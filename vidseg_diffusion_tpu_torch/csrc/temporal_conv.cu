@@ -20,8 +20,9 @@
 // are fused into the store. bf16 runs on the tensor cores (mma.sync,
 // temporal_conv_mma_kernel below); fp32 on fp32 FMAs (temporal_conv_kernel:
 // an 8x8 register micro-tile per thread, rows and columns strided by 16 so
-// shared-memory reads are conflict-free). wgmma with TMA is next.
-#include "common.cuh"
+// shared-memory reads are conflict-free). wgmma with TMA is next. The mma.sync
+// and ldmatrix helpers are gemm_tile.cuh's, shared with K11 and K12.
+#include "gemm_tile.cuh"
 
 namespace vs {
 
@@ -122,22 +123,6 @@ __global__ void __launch_bounds__(256) temporal_conv_kernel(
 // fragments with ldmatrix.trans (both hit 32 distinct banks). VEC: Cin and
 // Cout are multiples of 8, so global loads are 16-byte vectors; otherwise
 // (the VAE's 3-channel conv_out_time_mix) element loads with bounds checks.
-
-__device__ __forceinline__ void tc_mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                                  uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void tc_ldmatrix_x4_trans(uint32_t r[4], const void* smem_ptr) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
 
 constexpr int MM_BK = 32;
 constexpr int MM_AP = MM_BK + 8;   // padded A row (elements)

@@ -1,5 +1,7 @@
-"""LinearPredictionGuider (PyTorch): per-frame CFG scale linspace(min, max, T)
-(vidseg_diffusion_tpu/diffusion/guidance.py, guiders.py:60-100).
+"""Classifier-free-guidance guiders (PyTorch) of
+vidseg_diffusion_tpu/diffusion/guidance.py: LinearPredictionGuider, per-frame
+CFG scale linspace(min, max, T) (SVD; guiders.py:60-100), and VanillaCFG, one
+scale (SD 2.1; guiders.py:24-42).
 
 The batch contract is the reference's and the VidSeg modulation depends on
 it: `prepare_inputs` doubles the batch as [uc; c] on axis 0 and `__call__`
@@ -17,6 +19,20 @@ _CONCAT_KEYS = ("vector", "crossattn", "concat")
 
 def concat_conds(c: Dict[str, torch.Tensor], uc: Dict[str, torch.Tensor]):
     return {k: torch.cat([uc[k], c[k]], dim=0) if k in _CONCAT_KEYS else c[k] for k in c}
+
+
+@dataclasses.dataclass(frozen=True)
+class VanillaCFG:
+    """x_u + scale * (x_c - x_u)."""
+
+    scale: float
+
+    def prepare_inputs(self, x, s, c, uc) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+        return torch.cat([x, x], dim=0), torch.cat([s, s], dim=0), concat_conds(c, uc)
+
+    def __call__(self, x: torch.Tensor, sigma) -> torch.Tensor:
+        x_u, x_c = x.chunk(2, dim=0)
+        return x_u + self.scale * (x_c - x_u)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,4 @@
-"""Euler EDM sampler (PyTorch), the SVD sampler of
+"""Euler EDM sampler (PyTorch), the sampler of both shipped pipelines, of
 vidseg_diffusion_tpu/diffusion/sampling.py (sampling.py:92-262 of the
 reference): the sigma schedule, the sqrt(1 + sigma_0^2) pre-scale and its
 inverse in `add_noise` (they cancel by construction, and VidSeg relies on
@@ -13,12 +13,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vidseg_diffusion_tpu_torch.diffusion.discretization import EDMDiscretization
+from vidseg_diffusion_tpu_torch.diffusion.discretization import Discretization
 
 
 @dataclasses.dataclass(frozen=True)
 class EulerEDMSampler:
-    discretization: EDMDiscretization
+    discretization: Discretization
     num_steps: int
 
     def sigmas(self) -> torch.Tensor:

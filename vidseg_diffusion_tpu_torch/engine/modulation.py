@@ -10,7 +10,7 @@ latent-blend window. Block / layer-type / attention-type gating stays static
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,9 +66,11 @@ class ModulationConfig:
     num_steps: int = 25
     num_frames: int = 14
     is_injected_features: bool = False
-    # output blocks whose temporal self-attention takes the cached q/k
+    # output blocks whose attention takes the cached q/k (SVD: temporal
+    # self-attention; SD: spatial self- and cross-attention)
     output_block_indices: Tuple[int, ...] = tuple(range(1, 12))
     is_latent_blending: bool = True
+    latent_mask_end: Optional[int] = None   # SVD: num_steps; SD: min(modulate_timestep) + 1
 
     def inject_gate_for_step(self, i: int) -> bool:
         """Injection is on from the first modulated step (sampling.py:185-194)."""
@@ -87,9 +89,11 @@ class ModulationConfig:
         )
 
     def blend_window(self) -> Tuple[int, int]:
-        """Steps whose outputs latent blending pins outside the mask:
-        min(modulate_timestep) through the last step."""
-        return min(self.modulate_timestep), self.num_steps
+        """Steps (first, last; both inclusive) whose outputs latent blending
+        pins outside the mask: from min(modulate_timestep) through
+        latent_mask_end, or through the last step when that is None."""
+        end = self.latent_mask_end if self.latent_mask_end is not None else self.num_steps
+        return min(self.modulate_timestep), end
 
     def block_resolution_divisor(self, block_idx: int) -> int:
         """Latent-to-token downscale of an output block: 0-2 -> 8, 3-5 -> 4,

@@ -1,7 +1,7 @@
 """The VidSeg engine (PyTorch): harvest pass and modulated runs.
 
 Counterpart of vidseg_diffusion_tpu/engine/vidseg.py for the single-device
-path: HarvestSpec / svd_harvest_spec, the feature/x_t pass that harvests
+path: HarvestSpec / svd_harvest_spec / sd_harvest_spec, the feature/x_t pass that harvests
 attention q/k and the post-step latent trajectory (`xt_cache_pass`, with the
 windowed cache contract: entries are indexed [i - t0] with t0 = cache["t0"]),
 and the (mask, +/-lambda) runs grid, runs outer and stepped, with latent
@@ -10,19 +10,20 @@ modulated_runs_host_stepped's runs-outer branch, :1000-1018). With
 is_injected_features the feature pass also keeps the temporal self-attention
 q and k of the attention-bearing output blocks, and every modulated run
 replaces the computed q/k of those sites by the cached ones from the first
-modulated step on. The cache stays on the device (the JAX package's host-RAM
+modulated step on; with the image UNet (SD 2.1) the injected features are
+the spatial self- and cross-attention q and k instead. The cache stays on the device (the JAX package's host-RAM
 streaming is a TPU workaround and is not ported).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 from vidseg_diffusion_tpu_torch.diffusion.denoiser import Denoiser
-from vidseg_diffusion_tpu_torch.diffusion.guidance import LinearPredictionGuider
+from vidseg_diffusion_tpu_torch.diffusion.guidance import LinearPredictionGuider, VanillaCFG
 from vidseg_diffusion_tpu_torch.diffusion.sampling import EulerEDMSampler
 from vidseg_diffusion_tpu_torch.engine.modulation import ModulationConfig
 from vidseg_diffusion_tpu_torch.models.layers import (
@@ -82,6 +83,20 @@ def svd_harvest_spec(cluster_blocks: Sequence[int] = (8,), injection: bool = Fal
     return HarvestSpec(tuple(entries))
 
 
+def sd_harvest_spec(cluster_blocks: Sequence[int] = (7,), injection: bool = False,
+                    injection_blocks: Sequence[int] = tuple(range(3, 12))) -> HarvestSpec:
+    """SD 2.1: spatial self-attention q of the clustering blocks; with
+    `injection`, the spatial self- and cross-attention q and k of the
+    attention-bearing output blocks (sd_pipeline_vspw.py:421-428)."""
+    entries = [(b, "spatial_self", "q") for b in cluster_blocks]
+    if injection:
+        for b in injection_blocks:
+            for site in ("spatial_self", "spatial_cross"):
+                entries.append((b, site, "q"))
+                entries.append((b, site, "k"))
+    return HarvestSpec(tuple(entries))
+
+
 def _cache_step(cache: Dict, name: str, i: int) -> torch.Tensor:
     """A (possibly windowed) step cache at absolute step i: entries are
     indexed [i - t0] with t0 = cache["t0"] (absent: full length). The index
@@ -90,17 +105,25 @@ def _cache_step(cache: Dict, name: str, i: int) -> torch.Tensor:
     return arr[min(max(i - int(cache.get("t0", 0)), 0), arr.shape[0] - 1)]
 
 
-def _injection_site_for_block(block: int, cache: Dict, i: int, gate: torch.Tensor
+def _injection_site_for_block(block: int, cache: Dict, i: int, gate: torch.Tensor, video: bool
                               ) -> Optional[SiteInjection]:
-    """The SiteInjection of one output block at step i from the device cache:
-    temporal self-attention q/k in the direct layout [(b t), s, H*D]. A block
-    without cached entries is not injected (the reference skips absent
-    feature files)."""
-    names = [HarvestSpec.name(block, "temporal_self", tensor) for tensor in ("q", "k")]
-    q, k = (_cache_step(cache, n, i) if n in cache else None for n in names)
-    if q is None and k is None:
+    """The SiteInjection of one output block at step i from the device cache.
+    Video UNet: temporal self-attention q/k in the direct layout [(b t), s,
+    H*D]. Image UNet: spatial self-attention (attn1) and cross-attention
+    (attn2) q/k. A site without cached entries is not injected (the reference
+    skips absent feature files)."""
+    def attn(site):
+        names = [HarvestSpec.name(block, site, tensor) for tensor in ("q", "k")]
+        q, k = (_cache_step(cache, n, i) if n in cache else None for n in names)
+        return None if q is None and k is None else AttnInjection(gate=gate, q=q, k=k)
+
+    if video:
+        a1 = attn("temporal_self")
+        return None if a1 is None else SiteInjection(temporal=BlockInjection(attn1=a1))
+    a1, a2 = attn("spatial_self"), attn("spatial_cross")
+    if a1 is None and a2 is None:
         return None
-    return SiteInjection(temporal=BlockInjection(attn1=AttnInjection(gate=gate, q=q, k=k)))
+    return SiteInjection(spatial=BlockInjection(attn1=a1, attn2=a2))
 
 
 def masks_to_latent(masks: torch.Tensor, latent_hw: Tuple[int, int]) -> torch.Tensor:
@@ -114,7 +137,7 @@ class VidSegEngine:
     unet: UNetModel
     denoiser: Denoiser
     sampler: EulerEDMSampler
-    guider: LinearPredictionGuider
+    guider: Union[LinearPredictionGuider, VanillaCFG]
     mod_cfg: ModulationConfig
     harvest: HarvestSpec = HarvestSpec()
     injected_sites: int = 0  # (block, step) sites that took cached q/k, over all runs
@@ -174,17 +197,17 @@ class VidSegEngine:
         """hooks_fn(i): the lambda * mask modulation of the modulated output
         blocks at step i (none on steps whose frame gate is all off: the
         JAX package adds exact zeros there) and, with is_injected_features
-        and a cache, the cached temporal q/k of the injected output blocks
-        (none before the first modulated step: the JAX package's gate selects
+        and a cache, the cached q/k of the injected output blocks (none before the first modulated step: the JAX package's gate selects
         the computed q/k there)."""
         cfg = self.mod_cfg
         table = cfg.step_frame_table()
+        video = self.unet.config.video
 
         def injection(i):
             if cache is None or not cfg.inject_gate_for_step(i):
                 return {}
             on = torch.ones((), dtype=torch.bool, device=masks_tokens.device)
-            sites = {b: _injection_site_for_block(b, cache, i, on) for b in cfg.output_block_indices}
+            sites = {b: _injection_site_for_block(b, cache, i, on, video) for b in cfg.output_block_indices}
             sites = {b: s for b, s in sites.items() if s is not None}
             self.injected_sites += len(sites)
             return sites
@@ -205,7 +228,7 @@ class VidSegEngine:
             )
             site = SiteModulation(
                 spatial=block if "spatial" in cfg.modulate_layer_type else None,
-                temporal=block if "temporal" in cfg.modulate_layer_type else None,
+                temporal=block if video and "temporal" in cfg.modulate_layer_type else None,
             )
             return UNetHooks(output_mod={b: site for b in cfg.modulate_block_idx},
                              output_inj=injection(i))

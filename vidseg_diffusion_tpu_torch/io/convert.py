@@ -2,8 +2,9 @@
 
 The port's modules carry the reference's sgm / open_clip state-dict key
 names, the names the JAX package's io/checkpoint.py key functions map its
-flax paths to. This module holds those three key functions (unet, vae,
-clip vision; the same rules, without the JAX package's jax imports) and
+flax paths to. This module holds those key functions (unet, image or video;
+vae, image or video decoder; clip vision; clip text: the same rules, without
+the JAX package's jax imports) and
 turns a flax parameter tree (nested dicts of numpy arrays) into a state dict
 for the port:
 
@@ -45,7 +46,7 @@ def _seq(name: str) -> str:
 
 
 def unet_key_fn(path: Path) -> str:
-    """flax path -> sgm key of the (video) UNet."""
+    """flax path -> sgm key of the UNet, image or video."""
     parts = [p for p in path[:-1] if p != "gn"]
     leaf = path[-1]
     segs = []
@@ -105,6 +106,13 @@ def vae_key_fn(path: Path) -> str:
         i += 1
     segs.append(_LEAF[leaf])
     return ".".join(segs)
+
+
+def clip_text_key_fn(path: Path) -> str:
+    """flax path -> open_clip key of the text tower."""
+    if path[-1] == "token_embedding":
+        return "token_embedding.weight"
+    return clip_vision_key_fn(path)[len("visual."):]
 
 
 def clip_vision_key_fn(path: Path) -> str:

@@ -7,6 +7,8 @@ embeddings of fps_id, motion_bucket_id and cond_aug -> vector [b, 768];
 the VAE mode-encoding of the noised first frame -> concat [b, h, w, 4].
 Outputs route by rank (2 -> vector, 3 -> crossattn, 4 -> concat) and
 `get_unconditional_conditioning` zeroes the outputs of the force-zero keys.
+The SD 2.1 conditioner (configs/inference/sd_2_1.yaml) is one OpenCLIP text
+embedder: token ids -> crossattn [b, 77, 1024].
 """
 
 from __future__ import annotations
@@ -72,3 +74,8 @@ def build_svd_conditioner(
         EmbedderSpec("cond_frames", vae_encode_fn),
         EmbedderSpec("cond_aug", lambda v: concat_timestep_embedder(v, 256)),
     ))
+
+
+def build_sd_text_conditioner(clip_text_fn: Callable[[torch.Tensor], torch.Tensor]) -> Conditioner:
+    """clip_text_fn: token ids [b, 77] -> hidden states [b, 77, 1024]."""
+    return Conditioner(embedders=(EmbedderSpec("txt_tokens", clip_text_fn),))

@@ -12,8 +12,9 @@ The q/k harvest of the feature pass is a dict handed to CrossAttention
 the JAX package's flax `sow` into 'intermediates' (layers.py:375-380).
 
 The glue around the kernels runs under torch.profiler.record_function ranges
-named "vs:<site>" (GroupNorm, LayerNorm, GEGLU, linear, Conv2dNHWC,
-AlphaBlender, modulation), which scripts/profile_*.py use to split the
+named "vs:<site>" (GroupNorm, LayerNorm, GEGLU, linear, Conv2dNHWC, Conv3x3,
+AlphaBlender, modulation; linear and Conv2dNHWC hold only the sites that
+stayed library calls), which scripts/profile_*.py use to split the
 device time of PyTorch's own kernels by what launched them.
 """
 
@@ -32,6 +33,8 @@ from vidseg_diffusion_tpu_torch.ops.attention import (
     dot_product_attention,
     temporal_attention_direct,
 )
+from vidseg_diffusion_tpu_torch.ops.conv3x3 import conv3x3_same
+from vidseg_diffusion_tpu_torch.ops.matmul import matmul_bias
 from vidseg_diffusion_tpu_torch.ops.norm import group_norm
 
 
@@ -76,6 +79,28 @@ class Conv2dNHWC(nn.Conv2d):
                 self.stride, self.padding,
             )
             return y.permute(0, 2, 3, 1)
+
+
+class Conv3x3NHWC(nn.Conv2d):
+    """The 3x3, stride-1, padding-1 convolution of a ResBlock on channels-last
+    [B, H, W, C] activations, through conv3x3_same (K12 on CUDA): the JAX
+    package's SpatialConv3x3 dispatch hook (models/unet.py:169-198).
+    Parameters are nn.Conv2d's (weight [Cout, Cin, 3, 3], bias). The weight
+    goes in as the parameter itself, whatever its dtype: the wrapper's cached
+    tap-major copy holds the cast to the activation's."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv3x3_same(x, self.weight, self.bias.to(x.dtype))
+
+
+def project(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """An attention projection in the activation's dtype through matmul_bias
+    (K11 on CUDA): the JAX package's dispatch hook in CrossAttention
+    (models/layers.py:348-365, :392-403)."""
+    return matmul_bias(x, layer.weight.to(x.dtype), None if layer.bias is None else layer.bias.to(x.dtype))
 
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -190,7 +215,8 @@ def _inject(computed, injected, gate):
 
 
 class CrossAttention(nn.Module):
-    """q/k/v projections + attention + output projection (attention.py:257-364).
+    """q/k/v projections + attention + output projection (attention.py:257-364);
+    the four projections go through matmul_bias (K11 on CUDA).
 
     Self-attention when context is None. `temporal`: x is the direct
     temporal layout [(b t), s, C] and attention runs across the `frames`
@@ -215,9 +241,9 @@ class CrossAttention(nn.Module):
         ctx = x if context is None else context.to(x.dtype)
         b, lq, _ = x.shape
         lk = ctx.shape[1]
-        q = linear(x, self.to_q)
-        k = linear(ctx, self.to_k)
-        v = linear(ctx, self.to_v)
+        q = project(x, self.to_q)
+        k = project(ctx, self.to_k)
+        v = project(ctx, self.to_v)
 
         def to_heads(flat, l):
             # a harvest of another layout has the same element count; refuse
@@ -238,7 +264,8 @@ class CrossAttention(nn.Module):
             out = temporal_attention_direct(q4, k4, v4, t=frames)
         else:
             out = dot_product_attention(q4, k4, v4, layout="blhd")
-        return linear(out.reshape(b, lq, h * dh), self.to_out[0])
+        # one key: `out` is V expanded over the queries, a view K11 cannot read
+        return project(out.reshape(b, lq, h * dh).contiguous(), self.to_out[0])
 
 
 @dataclasses.dataclass

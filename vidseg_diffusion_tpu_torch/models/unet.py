@@ -1,16 +1,21 @@
-"""The SVD video UNet (PyTorch), channels-last.
+"""The diffusion UNets (PyTorch), channels-last: the SVD video UNet and the
+SD 2.1 image UNet.
 
-Counterpart of vidseg_diffusion_tpu/models/unet.py with video=True:
-ResBlock, TemporalConv, TemporalResBlock3D, VideoResBlock and UNetModel with
-the VidSeg hooks (per-output-block modulation and the q/k harvest). Video
-tensors are [(b t), H, W, C]; the temporal (kt,1,1) convolutions run on
-[b, t, H*W, C] through K4 on CUDA. The block topology is built from the
+Counterpart of vidseg_diffusion_tpu/models/unet.py: ResBlock, TemporalConv,
+TemporalResBlock3D, VideoResBlock and UNetModel with the VidSeg hooks
+(per-output-block modulation, injection and the q/k harvest). With
+`UNetConfig.video` the blocks are VideoResBlock + SpatialVideoTransformer on
+video tensors [(b t), H, W, C], the temporal (kt,1,1) convolutions running on
+[b, t, H*W, C] through K4 on CUDA; without it they are plain ResBlock +
+SpatialTransformer, every frame an image of the batch, and there is no class
+embedding (adm_in_channels None). The two 3x3 convolutions of every ResBlock
+go through conv3x3_same (K12 on CUDA). The block topology is built from the
 config exactly as the reference's constructor loops build it, so module
 names are the sgm state-dict keys (input_blocks.{i}.{j}, middle_block,
 output_blocks, out).
 
-With `UNetConfig.remat` (the reference's use_checkpoint) each VideoResBlock
-and SpatialVideoTransformer runs under torch.utils.checkpoint while grad
+With `UNetConfig.remat` (the reference's use_checkpoint) each ResBlock and
+transformer runs under torch.utils.checkpoint while grad
 is enabled: its activations are recomputed in the backward instead of
 kept. Inference (no grad) and blocks with VidSeg hooks run as they are.
 """
@@ -29,7 +34,9 @@ from torch.utils.checkpoint import checkpoint
 from vidseg_diffusion_tpu_torch.models.layers import (
     AlphaBlender,
     Conv2dNHWC,
+    Conv3x3NHWC,
     GroupNorm32,
+    SpatialTransformer,
     linear,
     timestep_embedding,
 )
@@ -56,7 +63,8 @@ class UNetHooks:
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
-    """Static architecture config (configs/inference/svd.yaml network_config)."""
+    """Static architecture config (the network_config of
+    configs/inference/svd.yaml or, with video False, sd_2_1.yaml)."""
 
     in_channels: int = 8
     out_channels: int = 4
@@ -139,10 +147,10 @@ class ResBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, emb_dim: int):
         super().__init__()
-        self.in_layers = nn.ModuleList([GroupNorm32(cin), nn.SiLU(), Conv2dNHWC(cin, cout, 3, padding=1)])
+        self.in_layers = nn.ModuleList([GroupNorm32(cin), nn.SiLU(), Conv3x3NHWC(cin, cout)])
         self.emb_layers = nn.ModuleList([nn.SiLU(), nn.Linear(emb_dim, cout)])
         self.out_layers = nn.ModuleList(
-            [GroupNorm32(cout), nn.SiLU(), nn.Identity(), Conv2dNHWC(cout, cout, 3, padding=1)]
+            [GroupNorm32(cout), nn.SiLU(), nn.Identity(), Conv3x3NHWC(cout, cout)]
         )
         self.skip_connection = Conv2dNHWC(cin, cout, 1) if cin != cout else nn.Identity()
 
@@ -218,14 +226,14 @@ class Upsample(nn.Module):
 
 
 class UNetModel(nn.Module):
-    """VideoUNet: forward(x [(b t), H, W, Cin], timesteps [(b t)], context
-    [(b t), Lc, ctx], y [(b t), adm], num_video_frames, image_only_indicator
-    [b, t], hooks) -> [(b t), H, W, Cout] in x's dtype."""
+    """The UNet, video or image per config.video: forward(x [(b t), H, W, Cin],
+    timesteps [(b t)], context [(b t), Lc, ctx], y [(b t), adm] or None,
+    num_video_frames, image_only_indicator [b, t], hooks) -> [(b t), H, W,
+    Cout] in x's dtype. The image UNet ignores num_video_frames and
+    image_only_indicator."""
 
     def __init__(self, config: UNetConfig):
         super().__init__()
-        if not config.video:
-            raise NotImplementedError("the image (SD 2.1) UNet is not ported yet (ROADMAP Queue A)")
         self.config = cfg = config
         mc = cfg.model_channels
         emb_dim = mc * 4
@@ -238,12 +246,18 @@ class UNetModel(nn.Module):
         input_layout, middle, output_layout = cfg.block_layout()
 
         def res(cin, cout):
+            if not cfg.video:
+                return ResBlock(cin, cout, emb_dim)
             return VideoResBlock(cin, cout, emb_dim, cfg.merge_factor, cfg.merge_strategy,
                                  tuple(cfg.video_kernel_size))
 
         def attn(ch):
+            heads = ch // cfg.num_head_channels
+            if not cfg.video:
+                return SpatialTransformer(ch, heads, cfg.num_head_channels, cfg.context_dim,
+                                          depth=cfg.transformer_depth)
             return SpatialVideoTransformer(
-                ch, ch // cfg.num_head_channels, cfg.num_head_channels, cfg.context_dim,
+                ch, heads, cfg.num_head_channels, cfg.context_dim,
                 depth=cfg.transformer_depth, merge_factor=cfg.merge_factor,
                 merge_strategy=cfg.merge_strategy,
             )
@@ -302,6 +316,14 @@ class UNetModel(nn.Module):
                         h = call(m, h, context, t, image_only_indicator)
                     else:
                         h = m(h, context, t, image_only_indicator, mod, inj, sow)
+                elif isinstance(m, ResBlock):
+                    h = call(m, h, emb)
+                elif isinstance(m, SpatialTransformer):
+                    if mod is None and inj is None and sow is None:
+                        h = call(m, h, context)
+                    else:
+                        h = m(h, context, mod.spatial if mod is not None else None,
+                              inj.spatial if inj is not None else None, sow)
                 else:
                     h = m(h)
             return h

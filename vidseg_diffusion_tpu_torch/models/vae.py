@@ -1,9 +1,10 @@
-"""VAE encoder and (temporal, conv-only) decoder, channels-last (PyTorch).
+"""VAE encoder and decoders, channels-last (PyTorch).
 
-Counterpart of vidseg_diffusion_tpu/models/vae.py: Encoder, Decoder with
-`video_decoder` in time_mode 'conv-only' (the SVD VideoDecoder: every
+Counterpart of vidseg_diffusion_tpu/models/vae.py: Encoder; Decoder, either
+the image decoder (SD 2.1: VAEResnetBlocks, no time mix) or, with
+`video_decoder`, the SVD VideoDecoder in time_mode 'conv-only' (every
 ResnetBlock gains a (3,1,1) temporal ResBlock with a learned alpha merge,
-and conv_out a temporal mix conv), AttnBlock (single-head attention over
+and conv_out a temporal mix conv); AttnBlock (single-head attention over
 the latent's tokens: K3 on CUDA) and gaussian_sample. Module names are the
 sgm keys (down.{i}.block.{j}, mid.attn_1, up.{i}.upsample, conv_out.time_mix_conv).
 The 'all' / 'attn-only' time modes (VideoAttnBlock) are not ported yet.
@@ -191,23 +192,27 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    """The SVD VideoDecoder, time_mode 'conv-only' (model.py:604-748 +
-    temporal_ae.py:293-349): z [B, h, w, z] -> x [B, 8h, 8w, 3], the batch
+    """z [B, h, w, z] -> x [B, 8h, 8w, 3] (model.py:604-748). The image
+    decoder treats the batch as images; with `video_decoder` it is the SVD
+    VideoDecoder, time_mode 'conv-only' (temporal_ae.py:293-349), the batch
     being one video of `timesteps` frames."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
-        if not cfg.video_decoder or cfg.time_mode != "conv-only":
+        if cfg.video_decoder and cfg.time_mode != "conv-only":
             raise NotImplementedError(
-                "only the conv-only VideoDecoder is ported (time_mode 'all' / 'attn-only' and "
-                "the image decoder are ROADMAP Queue A items)"
+                "of the VideoDecoder only time_mode 'conv-only' is ported ('all' / 'attn-only' "
+                "need VideoAttnBlock, a ROADMAP Queue A item)"
             )
         self.config = cfg
         kernel = tuple(cfg.video_kernel_size)
         block_in = cfg.ch * cfg.ch_mult[-1]
+
+        def res(cin, cout):
+            return VideoVAEResnetBlock(cin, cout, kernel) if cfg.video_decoder else VAEResnetBlock(cin, cout)
+
         self.conv_in = Conv2dNHWC(cfg.z_channels, block_in, 3, padding=1)
-        self.mid = _Mid(VideoVAEResnetBlock(block_in, block_in, kernel), AttnBlock(block_in),
-                        VideoVAEResnetBlock(block_in, block_in, kernel))
+        self.mid = _Mid(res(block_in, block_in), AttnBlock(block_in), res(block_in, block_in))
         levels = [None] * len(cfg.ch_mult)
         cin = block_in
         for i_level in reversed(range(len(cfg.ch_mult))):
@@ -215,7 +220,7 @@ class Decoder(nn.Module):
             cout = cfg.ch * cfg.ch_mult[i_level]
             blocks = []
             for _ in range(cfg.num_res_blocks + 1):
-                blocks.append(VideoVAEResnetBlock(cin, cout, kernel))
+                blocks.append(res(cin, cout))
                 cin = cout
             level.block = nn.ModuleList(blocks)
             if i_level != 0:
@@ -223,18 +228,20 @@ class Decoder(nn.Module):
             levels[i_level] = level
         self.up = nn.ModuleList(levels)
         self.norm_out = _norm(cin)
-        self.conv_out = AE3DConv(cin, cfg.out_ch, kernel)
+        self.conv_out = (AE3DConv(cin, cfg.out_ch, kernel) if cfg.video_decoder
+                         else Conv2dNHWC(cin, cfg.out_ch, 3, padding=1))
 
-    def forward(self, z, timesteps: int):
+    def forward(self, z, timesteps: int = 1):
+        t = (timesteps,) if self.config.video_decoder else ()
         h = self.conv_in(z.to(self.config.dtype))
-        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h, timesteps)), timesteps)
+        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h, *t)), *t)
         for i_level in reversed(range(len(self.up))):
             level = self.up[i_level]
             for block in level.block:
-                h = block(h, timesteps)
+                h = block(h, *t)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
-        return self.conv_out(self.norm_out(h, silu=True), timesteps)
+        return self.conv_out(self.norm_out(h, silu=True), *t)
 
 
 def gaussian_sample(moments: torch.Tensor) -> torch.Tensor:

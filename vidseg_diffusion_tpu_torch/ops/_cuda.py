@@ -120,6 +120,7 @@ def build() -> str:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 _SIGNATURES = {
     # dtype, D, q, k, v, o, lse (NULL: none), B, H, Lq, Lk, strides[12], qscale, stream
@@ -149,6 +150,10 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _P],
     # dtype, x, dy, a, s, coef, dx, B, R, C, vec, rows_per_chunk, nchunks, silu, stream
     "vs_group_norm_bwd_apply": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, x, w [N, K], bias (NULL: none), y, M, K, N, stream
+    "vs_matmul_bias": [_I, _P, _P, _P, _P, _L, _I, _I, _P],
+    # dtype, x, w [9, Cout, Cin], bias (NULL: none), y, B, H, W, Cin, Cout, stream
+    "vs_conv3x3_same": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

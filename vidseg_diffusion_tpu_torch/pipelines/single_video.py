@@ -10,6 +10,14 @@ also caches the temporal self-attention q/k of every attention-bearing output
 block on the device and the modulated runs inject them (:315-322, :400-418,
 device branch). Stage seconds use the JAX package's keys.
 
+A pipeline built from an SD 2.1 YAML takes the image branch (:300, :363-369):
+the conditioning is the OpenCLIP text embedding of `text_tokens` (the empty
+prompt in the VidSeg pipelines) for c and uc alike, the clustering block is 7,
+every frame is an image of the UNet batch, the image VAE decodes, and with
+`sd_blend_window` latent blending stops one step after the first modulated
+one; is_injected_features caches and injects the spatial self- and
+cross-attention q/k.
+
 Random sites draw from their own torch.Generator seeded from args.seed; a
 caller (a parity test) can instead hand over the cond-aug noise, the
 add_noise noise and the kmeans initial centres JAX drew.
@@ -38,7 +46,12 @@ from vidseg_diffusion_tpu_torch.engine.segmentation import (
     segmentation_argmax,
     soft_color_map,
 )
-from vidseg_diffusion_tpu_torch.engine.vidseg import HarvestSpec, masks_to_latent, svd_harvest_spec
+from vidseg_diffusion_tpu_torch.engine.vidseg import (
+    HarvestSpec,
+    masks_to_latent,
+    sd_harvest_spec,
+    svd_harvest_spec,
+)
 from vidseg_diffusion_tpu_torch.ops.image import resize_bicubic
 
 
@@ -74,6 +87,9 @@ class VidSegArgs:
     # t_start of the modulated runs; None = max(0, min(modulate_timestep) - 3),
     # the reference's hardcoded 14 at the default modulate_timestep 17
     modulate_t_start: Optional[int] = None
+    # SD pipeline: latent blending ends at min(modulate_timestep) + 1
+    # (sd_pipeline_vspw.py:490); SVD blends through the last step
+    sd_blend_window: bool = False
 
 
 @dataclasses.dataclass
@@ -90,7 +106,7 @@ class VidSegResult:
     cache_t0: int
     masks_latent: np.ndarray       # [K, T, h, w] latent-blend masks
     injected_sites: int = 0        # (block, step) sites that took cached q/k, all runs
-    injected_cache_bytes: int = 0  # device bytes of the cached temporal q/k
+    injected_cache_bytes: int = 0  # device bytes of the cached q/k that are injected
 
 
 def _not_ported(what: str):
@@ -110,10 +126,12 @@ def _check_supported(args: VidSegArgs) -> None:
         raise ValueError(f"Invalid inversion type {args.inversion_type}")
 
 
-def _cluster_block_names(args: VidSegArgs) -> Tuple[int, ...]:
-    """Clustering blocks: 8, or 8, 7, 6 with is_aggre_attn
-    (svd_single_video_inference.py:361-364)."""
-    return (8, 7, 6) if args.is_aggre_attn else (8,)
+def _cluster_block_names(args: VidSegArgs, video: bool) -> Tuple[int, ...]:
+    """Clustering blocks: 8 for SVD (svd_single_video_inference.py:361-364),
+    7 for SD (sd_pipeline_vspw.py:639); with is_aggre_attn also the two
+    blocks before it."""
+    base = 8 if video else 7
+    return (base, base - 1, base - 2) if args.is_aggre_attn else (base,)
 
 
 def _resolve_blocks(unet_cfg, blocks: Sequence[int], mod_cfg: ModulationConfig):
@@ -142,13 +160,15 @@ def _resolve_blocks(unet_cfg, blocks: Sequence[int], mod_cfg: ModulationConfig):
     return tuple(resolved), divisors
 
 
-def make_harvest(args: VidSegArgs, cluster_blocks: Sequence[int],
+def make_harvest(args: VidSegArgs, video: bool, cluster_blocks: Sequence[int],
                  injection_blocks: Sequence[int]) -> HarvestSpec:
-    """The feature pass's harvest: the clustering q, plus the temporal q/k of
-    `injection_blocks` with is_injected_features (single_video.py:199-216)."""
-    return svd_harvest_spec(cluster_blocks=tuple(cluster_blocks),
-                            injection=args.is_injected_features,
-                            injection_blocks=tuple(injection_blocks))
+    """The feature pass's harvest: the clustering q, plus with
+    is_injected_features the q/k of `injection_blocks` (temporal self for the
+    video UNet, spatial self and cross for the image UNet;
+    single_video.py:199-216)."""
+    spec = svd_harvest_spec if video else sd_harvest_spec
+    return spec(cluster_blocks=tuple(cluster_blocks), injection=args.is_injected_features,
+                injection_blocks=tuple(injection_blocks))
 
 
 def make_mod_config(args: VidSegArgs, num_frames: int) -> ModulationConfig:
@@ -166,6 +186,7 @@ def make_mod_config(args: VidSegArgs, num_frames: int) -> ModulationConfig:
         num_frames=num_frames,
         is_injected_features=args.is_injected_features,
         is_latent_blending=args.is_latent_blending,
+        latent_mask_end=min(args.modulate_timestep) + 1 if args.sd_blend_window else None,
     )
 
 
@@ -185,6 +206,7 @@ def run_single_video(
     cond_aug_noise: Optional[np.ndarray] = None,   # [1, H, W, 3]
     noise: Optional[np.ndarray] = None,            # [T, H/8, W/8, z]
     kmeans_init: Optional[np.ndarray] = None,      # [n_init, K, C]
+    text_tokens: Optional[np.ndarray] = None,      # [1, 77] token ids, the SD 2.1 path
 ) -> VidSegResult:
     _check_supported(args)
     dev = pipeline.device
@@ -202,26 +224,33 @@ def run_single_video(
     t, hpx, wpx = frames.shape[:3]
     h_lat, w_lat = hpx // 8, wpx // 8
     unet_cfg = pipeline.spec.unet_config
+    video = unet_cfg.video
     base_cfg = make_mod_config(args, t)
-    cluster_blocks, cluster_div = _resolve_blocks(unet_cfg, _cluster_block_names(args), base_cfg)
+    cluster_blocks, cluster_div = _resolve_blocks(unet_cfg, _cluster_block_names(args, video), base_cfg)
     mod_blocks, mod_div = _resolve_blocks(unet_cfg, tuple(args.modulate_block_idx), base_cfg)
     _, _, out_layout = unet_cfg.block_layout()
     attn_blocks = tuple(i for i, s in enumerate(out_layout) if s.get("attn"))
     mod_cfg = dataclasses.replace(base_cfg, modulate_block_idx=mod_blocks,
                                   output_block_indices=attn_blocks)
-    engine = pipeline.make_engine(mod_cfg, make_harvest(args, cluster_blocks, attn_blocks))
+    engine = pipeline.make_engine(mod_cfg, make_harvest(args, video, cluster_blocks, attn_blocks))
     fs = pipeline.first_stage
 
     # ---- conditioning (svd_single_video_inference.py:282-312) -------------
     frames_t = torch.from_numpy(np.ascontiguousarray(frames, dtype=np.float32)).to(dev)
-    image = frames_t[:1]
-    if cond_aug_noise is None:
-        aug = torch.randn(image.shape, generator=_generator(args.seed, 1))
+    if video:
+        image = frames_t[:1]
+        if cond_aug_noise is None:
+            aug = torch.randn(image.shape, generator=_generator(args.seed, 1))
+        else:
+            aug = torch.tensor(np.asarray(cond_aug_noise, dtype=np.float32))
+        c, uc = pipeline.condition_video(
+            image, aug, float(args.fps_id), float(args.motion_bucket_id), args.cond_aug, t
+        )
     else:
-        aug = torch.tensor(np.asarray(cond_aug_noise, dtype=np.float32))
-    c, uc = pipeline.condition_video(
-        image, aug, float(args.fps_id), float(args.motion_bucket_id), args.cond_aug, t
-    )
+        if text_tokens is None:
+            raise ValueError("the SD path needs tokenized text (io/tokenizer.py: tokenize_empty)")
+        ctx = torch.repeat_interleave(pipeline.clip_apply(np.asarray(text_tokens)), t, dim=0)
+        c, uc = {"crossattn": ctx}, {"crossattn": ctx}
     mark("conditioning")
 
     # ---- steps 1+2: add_noise + feature/x_t pass ---------------------------
@@ -291,6 +320,7 @@ def run_single_video(
         _write_outputs(args, masks_np, decoded, seg_raw, seg_filtered, cluster_blocks,
                        frame_names, feat_t, unique_labels, ori_hw)
     f32 = lambda a: a.float().cpu().numpy()
+    injected = ("_temporal_self_",) if video else ("_spatial_self_", "_spatial_cross_")
     return VidSegResult(
         seg_raw=seg_raw, seg_filtered=seg_filtered, masks=masks_np,
         unique_labels=np.asarray(unique_labels), cluster_features=f32(feat),
@@ -298,7 +328,7 @@ def run_single_video(
         cached_xt=f32(cache["xt"]), cache_t0=cache_t0, masks_latent=f32(masks_latent),
         injected_sites=engine.injected_sites,
         injected_cache_bytes=sum(v.numel() * v.element_size() for n, v in cache.items()
-                                 if "_temporal_self_" in n),
+                                 if args.is_injected_features and any(s in n for s in injected)),
     )
 
 

@@ -1,6 +1,6 @@
 """Where the time goes in the port's main path on one CUDA card.
 
-    python3 -m vidseg_diffusion_tpu_torch.scripts.profile_single_video
+    python3 -m vidseg_diffusion_tpu_torch.scripts.profile_single_video [--injected | --sd]
 
 Runs the main path of scripts/main_path.py (the run chip_smoke.py checks:
 svd.yaml at full width, random bf16 weights, 14 synthetic 448x832 frames)
@@ -10,9 +10,13 @@ kernel name (top 30), the device busy share of the profiled run's wall time,
 and the split of PyTorch's own kernels (everything that is neither a kernel
 of csrc/ nor a vendor GEMM / convolution) by what launched them: the port's
 "vs:<site>" record_function ranges (GroupNorm, LayerNorm, GEGLU, linear,
-Conv2dNHWC, TemporalConv, AlphaBlender, modulation, optimizer, ema), else
-the autograd node of the backward, else "outside any range". With --injected
-it profiles the is_injected_features configuration.
+Conv2dNHWC, Conv3x3, TemporalConv, AlphaBlender, modulation, optimizer, ema),
+else the autograd node of the backward, else "outside any range". The
+attention projections and the ResBlock 3x3 convolutions are kernels of csrc/
+(K11 matmul_bias, K12 conv3x3): the linear and Conv2dNHWC ranges hold only the
+sites that stayed library calls, and Conv3x3 the re-laying of K12's weights.
+With --injected it profiles the is_injected_features configuration, with --sd
+the SD 2.1 path of scripts/sd_path.py.
 """
 
 import json
@@ -110,23 +114,25 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     from vidseg_diffusion_tpu_torch.pipelines.single_video import run_single_video
-    from vidseg_diffusion_tpu_torch.scripts import main_path
+    from vidseg_diffusion_tpu_torch.scripts import main_path, sd_path
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_single_video needs a CUDA card")
-    injected = "--injected" in sys.argv[1:]
-    print(card_line(), "| is_injected_features", injected, flush=True)
-    pipe = main_path.build()
+    injected, sd = "--injected" in sys.argv[1:], "--sd" in sys.argv[1:]
+    print(card_line(), "| is_injected_features", injected, "| sd_2_1", sd, flush=True)
+    if sd:
+        pipe, vargs, extra = sd_path.build(), sd_path.vidseg_args(), dict(text_tokens=sd_path.text_tokens())
+    else:
+        pipe, vargs, extra = main_path.build(), main_path.vidseg_args(is_injected_features=injected), {}
     frames, names = main_path.frames(), main_path.frame_names()
-    vargs = main_path.vidseg_args(is_injected_features=injected)
     warm = {}
-    run_single_video(pipe, frames, names, vargs, write_outputs=False, timings=warm)
+    run_single_video(pipe, frames, names, vargs, write_outputs=False, timings=warm, **extra)
     print("warm-up stages_s", json.dumps({k: round(v, 3) for k, v in warm.items()}), flush=True)
 
     stages = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_single_video(pipe, frames, names, vargs, write_outputs=False, timings=stages)
+        run_single_video(pipe, frames, names, vargs, write_outputs=False, timings=stages, **extra)
         wall = time.perf_counter() - t0
     print("profiled stages_s", json.dumps({k: round(v, 3) for k, v in stages.items()}), flush=True)
 
