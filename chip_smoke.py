@@ -168,7 +168,8 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 ou
 #   (online softmax rounds p to bf16 against a running max), K4 1e-5 to
 #   1.4e-4 (its dx launch included), K2 0 (bit for bit), K5 4.8e-5 to 2.2e-4,
 #   K6 2.2e-5 to 3.9e-5 (worst of dq/dk/dv); K11 and K12 start from K4's
-#   bound (the same tile and accumulation). A fault that moves every output
+#   bound (fp32 accumulation of bf16 products, one rounding: K12 reads 9e-5
+#   to 2.6e-4 at K = 9 * 320 to 9 * 2560). A fault that moves every output
 #   by 1% reads 1e-2.
 # fp32 outputs (the GroupNorm kernels on fp32 activations, and their fp32
 # statistics and coefficients whatever the activation dtype): max |kernel -

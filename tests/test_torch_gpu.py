@@ -129,13 +129,39 @@ def test_temporal_attention_direct(cuda, dt, b, t, s, h):
     _check(A.temporal_attention_direct, A.temporal_attention_direct_reference, q, k, v, t=t)
 
 
+# D = 512 (wgmma in bf16): Lq off the 64-row tile, Lq != Lk, a key tail off the
+# 32-key tile, the main path's 5824 tokens on one batch item; D = 80 and 64
+# (mma.sync in bf16): CLIP's 257 tokens, a ragged length, three heads
+K3_SHAPES = [(2, 1, 100, 100, 512), (1, 1, 130, 77, 512), (1, 1, 64, 33, 512), (1, 1, 5824, 5824, 512),
+             (1, 16, 257, 257, 80), (1, 2, 100, 37, 80), (2, 3, 70, 70, 64)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("b,h,l,d", [(2, 1, 100, 512), (1, 16, 257, 80), (2, 3, 70, 64)])
-def test_flash_attention_bhld(cuda, dt, b, h, l, d):
+@pytest.mark.parametrize("b,h,lq,lk,d", K3_SHAPES)
+def test_flash_attention_bhld(cuda, dt, b, h, lq, lk, d):
     dtype = DTYPES[dt]
-    q, k, v = (_randn(cuda, i, dtype, b, h, l, d) for i in (8, 9, 10))
+    q = _randn(cuda, 8, dtype, b, h, lq, d)
+    k, v = (_randn(cuda, i, dtype, b, h, lk, d) for i in (9, 10))
     _check(A.flash_attention, A.flash_attention_reference, q, k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("d", [512, 80])
+def test_flash_attention_bhld_strided_views(cuda, dt, d):
+    """[B, L, H, D] projections seen as bhld (CLIP's layout) and a batch slice
+    of a larger tensor are read in place through their strides; a bf16 view
+    that starts off a 16-byte boundary is refused."""
+    dtype = DTYPES[dt]
+    h = 1 if d == 512 else 3
+    q, k, v = (_randn(cuda, i, dtype, 3, 90, h, d).transpose(1, 2)[::2] for i in (14, 15, 16))
+    assert not q.is_contiguous()
+    _check(A.flash_attention, A.flash_attention_reference, q, k, v)
+    if dtype == torch.bfloat16:
+        x = _randn(cuda, 17, dtype, 40 * d + 1)[1:].view(1, 1, 40, d)
+        with pytest.raises(ValueError, match="aligned"):
+            A.flash_attention(x, x, x)
 
 
 @pytest.mark.gpu
@@ -365,11 +391,14 @@ def test_matmul_bias_unaligned_operands_and_refusals(cuda):
         MM.matmul_bias(x, w.float())
 
 
-# image-boundary rows: B*H*W not a multiple of the 128-row tile, so tiles span
-# two images; a 1-pixel-wide and a 1-pixel-high image; Cin off the slice and
-# the vector (20, 5); Cout off the tile widths
+# image-boundary rows: B*H*W not a multiple of the 256-row tile, tiles that span
+# two and three images (91- and 10-pixel images); 1- and 2-pixel-wide and
+# 1-pixel-high images; Cin off the 64-deep slice (96, 40, 32) and off the vector
+# (20, 5: the element-load tile); Cout off the 160-wide tile (72, 168, 50, 3); the
+# skip-concatenation widths 960 -> 320 and 2560 -> 1280 at a small image
 C3_SHAPES = [(3, 7, 13, 64, 64), (2, 9, 5, 96, 320), (28, 7, 13, 40, 72), (2, 1, 11, 32, 32),
-             (2, 6, 1, 32, 48), (1, 1, 1, 64, 64), (2, 5, 6, 20, 50), (3, 4, 4, 5, 3), (1, 16, 16, 320, 128)]
+             (2, 6, 1, 32, 48), (1, 1, 1, 64, 64), (2, 5, 6, 20, 50), (3, 4, 4, 5, 3), (1, 16, 16, 320, 128),
+             (2, 12, 12, 960, 320), (5, 3, 5, 2560, 1280), (30, 5, 2, 64, 168)]
 
 
 @pytest.mark.gpu

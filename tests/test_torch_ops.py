@@ -212,11 +212,31 @@ def test_flash_attention_bhld_refuses_a_gradient():
 # -- K3 ---------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("b,h,l,d", [(2, 1, 100, 128), (1, 4, 257, 16), (1, 1, 64, 512)])
-def test_flash_attention_bhld_plain_matches_pallas(b, h, l, d):
-    q, k, v = _arrays(l + d, (b, h, l, d), (b, h, l, d), (b, h, l, d))
-    want = jatt.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True)
-    _close(tatt.flash_attention(T(q), T(k), T(v)), want)
+# fp32: same math, 1e-5. bf16 (the dtype the card's tensor-core kernels take, at
+# the head dims they are built for: 512 and 80, ragged lengths, Lq != Lk): the
+# Pallas kernel rounds p to bf16 against a running max per key block, the plain
+# version against the row's max, so outputs may land a bf16 step apart; held to
+# the card's own bounds (chip_smoke.py): <= 2 bf16 steps at max |want| and a
+# relative RMS error <= 4e-3.
+K3_CASES = [(2, 1, 100, 100, 128, "fp32"), (1, 4, 257, 257, 16, "fp32"), (1, 1, 64, 64, 512, "fp32"),
+            (1, 1, 70, 70, 512, "bf16"), (1, 1, 130, 77, 512, "bf16"), (2, 1, 200, 200, 512, "bf16"),
+            (1, 2, 257, 257, 80, "bf16"), (1, 3, 100, 37, 80, "bf16"), (1, 1, 130, 77, 512, "fp32")]
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d,dt", K3_CASES)
+def test_flash_attention_bhld_plain_matches_pallas(b, h, lq, lk, d, dt):
+    q, k, v = _arrays(lq + d, (b, h, lq, d), (b, h, lk, d), (b, h, lk, d))
+    if dt == "fp32":
+        want = jatt.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True)
+        _close(tatt.flash_attention(T(q), T(k), T(v)), want)
+        return
+    jb = lambda a: jnp.asarray(a, jnp.bfloat16)
+    want = np.asarray(jatt.flash_attention(jb(q), jb(k), jb(v), interpret=True).astype(jnp.float32))
+    got = tatt.flash_attention(T(q).bfloat16(), T(k).bfloat16(), T(v).bfloat16())
+    assert got.dtype == torch.bfloat16
+    diff = got.float().numpy() - want
+    assert np.abs(diff).max() <= 2 * _bf16_step(np.abs(want).max())
+    assert np.linalg.norm(diff) <= 4e-3 * np.linalg.norm(want)
 
 
 # -- dispatcher ---------------------------------------------------------------
@@ -267,7 +287,9 @@ def test_temporal_conv_plain_matches_pallas(b, t, m, cin, cout):
 # -- K11, K12 ------------------------------------------------------------------
 
 MM_CASES = [(100, 64, 128), (28, 40, 24), (91, 72, 50), (2156, 32, 40), (1, 8, 8)]
-C3_CASES = [(2, 8, 12, 32, 32), (1, 6, 10, 16, 48), (2, 4, 7, 8, 8), (3, 1, 5, 8, 16), (2, 5, 1, 8, 8)]
+# the last two: widths of the card's 160-column tile (two whole tiles; one and a tail)
+C3_CASES = [(2, 8, 12, 32, 32), (1, 6, 10, 16, 48), (2, 4, 7, 8, 8), (3, 1, 5, 8, 16), (2, 5, 1, 8, 8),
+            (1, 5, 6, 16, 320), (2, 3, 2, 8, 168)]
 
 
 def _bf16_step(want):

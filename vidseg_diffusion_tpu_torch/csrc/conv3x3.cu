@@ -14,17 +14,29 @@
 // What bounds it on the H100: an implicit GEMM with M = B*H*W output pixels,
 // N = Cout and K = 9*Cin: 2*M*9*Cin*Cout flops against (M*Cin + 9*Cin*Cout +
 // M*Cout) elements, thousands of flops per byte, so the tensor cores. Design:
-// the shared tile (gemm_tile.cuh) with the nine taps as the outer K loop. A row
-// of the tile is one output pixel; for tap (dy, dx) it reads the Cin channels
-// of pixel (h+dy-1, w+dx-1) of its own image, or zeros when that pixel lies
-// outside it: the halo is a predicate on the load, nothing is padded or copied,
-// and a tile that spans two images mixes nothing, since every row decodes its
-// own (b, h, w). Bias add and cast are fused into the store; fp32 inputs take
-// the FMA tile. wgmma with TMA (im2col mode) is next.
+// the nine taps are part of the K loop of one tile. A row of the tile is one
+// output pixel; for tap (dy, dx) it reads the Cin channels of pixel (h+dy-1,
+// w+dx-1) of its own image, or zeros when that pixel lies outside it. Nothing
+// is padded or copied in device memory, and a tile that spans several images
+// mixes nothing. Bias add and cast are fused into the store.
+// - bf16 with Cin % 8 == 0 and 16-byte aligned x and w (every ResBlock of the
+//   UNets): the wgmma tile of wgmma_tile.cuh, 192 pixels x 160 channels per
+//   block, 64-channel slices through a five-stage ring that a producer thread
+//   fills by TMA. The activations come through an im2col tensor map of x: the
+//   hardware walks the tile's 192 pixels across image rows and images and
+//   writes zeros for the halo; the weights come through a tiled map. Stores
+//   are 16 bytes a thread;
+// - other bf16 shapes: the mma.sync tile of gemm_tile.cuh with element loads,
+//   whose rows decode their own (b, h, w) and take the halo as a predicate;
+// - fp32 (the card-vs-CPU checks): the FMA tile of gemm_tile.cuh, likewise.
+// The choice is made here, from the shapes and the pointers; nothing falls
+// back when a launch is refused.
 #include "gemm_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace vs {
 
+// The row source of the gemm_tile.cuh tiles.
 template <typename T>
 struct ConvRows {
   const T* x;
@@ -46,15 +58,44 @@ struct ConvRows {
   }
 };
 
-template <int NT, bool VEC>
+constexpr int C3_BM = 192;     // three consumer warpgroups, one block per SM
+constexpr int C3_BN = 160;     // divides 320, 640 and 1280
+constexpr int C3_STAGES = 5;   // 5 x 44 KB
+using C3Tile = WgmmaTile<C3_BM, C3_BN, C3_STAGES>;
+
+// The A box of the wgmma tile: C3_BM output pixels from flat pixel row0 on, read
+// at tap (dy, dx) = (tap / 3 - 1, tap % 3 - 1) through the im2col map of x.
+struct ConvIm2col {
+  const CUtensorMap* map;
+  int w, h, n;  // the tile's first pixel
+  __device__ __forceinline__ void operator()(uint32_t dst, uint32_t bar, int k0, int tap) const {
+    tma_load_im2col_4d(dst, map, bar, k0, w - 1, h - 1, n, tap % 3, tap / 3);
+  }
+};
+
+__global__ void __launch_bounds__(C3Tile::THREADS, 1) conv3x3_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+    const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y, long long R, int H, int W,
+    int Cin, int Cout, int ncol) {
+  extern __shared__ unsigned char conv_smem[];
+  const long long row0 = (long long)(blockIdx.x / ncol) * C3_BM;
+  const int col0 = (blockIdx.x % ncol) * C3_BN;
+  const long long bh = row0 / W;
+  const ConvIm2col load_a{&xmap, (int)(row0 - bh * W), (int)(bh % H), (int)(bh / H)};
+  wgmma_nk_tile<C3_BM, C3_BN, C3_STAGES>(load_a, &wmap, bias, y, 9, Cin, Cout, R, row0, col0,
+                                         smem_align_1024(conv_smem));
+}
+
+// bf16 shapes the wgmma tile does not take (Cin % 8 != 0 or unaligned bases)
+template <int NT>
 __global__ void __launch_bounds__(256, 2) conv3x3_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
     const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y, long long R, int H, int W,
     int Cin, int Cout, int ncol) {
   const long long row0 = (long long)(blockIdx.x / ncol) * GT_BM;
   const int col0 = (blockIdx.x % ncol) * 32 * NT;
-  gemm_nk_mma_tile<NT, VEC>(ConvRows<__nv_bfloat16>{x, H, W, Cin}, w, bias, y, 9, Cin, Cout, R, row0,
-                            col0);
+  gemm_nk_mma_tile<NT, false>(ConvRows<__nv_bfloat16>{x, H, W, Cin}, w, bias, y, 9, Cin, Cout, R, row0,
+                              col0);
 }
 
 __global__ void __launch_bounds__(256) conv3x3_fma_kernel(
@@ -65,20 +106,32 @@ __global__ void __launch_bounds__(256) conv3x3_fma_kernel(
   gemm_nk_fma_tile(ConvRows<float>{x, H, W, Cin}, w, bias, y, 9, Cin, Cout, R, row0, col0);
 }
 
+int launch_conv3x3_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, const __nv_bfloat16* bias,
+                         __nv_bfloat16* y, int B, int H, int W, int Cin, int Cout, cudaStream_t stream) {
+  // more than 48 KB of shared memory is opted into once per process
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv3x3_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C3Tile::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long R = (long long)B * H * W;
+  unsigned blocks;
+  int ncol;
+  if (!wgmma_grid(R, Cout, C3_BM, C3_BN, &blocks, &ncol)) return kErrBadArgument;
+  CUtensorMap xmap, wmap;
+  if (const int rc = wgmma_im2col3x3_map(x, B, H, W, Cin, C3_BM, &xmap)) return rc;
+  if (const int rc = wgmma_weight_map(w, 9, Cout, Cin, C3_BN, &wmap)) return rc;
+  conv3x3_wgmma_kernel<<<blocks, C3Tile::THREADS, C3Tile::BYTES, stream>>>(xmap, wmap, bias, y, R, H, W, Cin,
+                                                                         Cout, ncol);
+  return (int)cudaGetLastError();
+}
+
 template <int NT>
-int launch_conv3x3_mma(const void* x, const void* w, const void* bias, void* y, long long R, int H,
-                       int W, int Cin, int Cout, cudaStream_t stream) {
+int launch_conv3x3_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const __nv_bfloat16* bias,
+                       __nv_bfloat16* y, long long R, int H, int W, int Cin, int Cout,
+                       cudaStream_t stream) {
   unsigned blocks;
   int ncol;
   if (!gemm_grid(R, Cout, 32 * NT, &blocks, &ncol)) return kErrBadArgument;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* wb = static_cast<const __nv_bfloat16*>(w);
-  const auto* bb = static_cast<const __nv_bfloat16*>(bias);
-  auto* yb = static_cast<__nv_bfloat16*>(y);
-  if (gemm_vec_ok(x, w, Cin))
-    conv3x3_mma_kernel<NT, true><<<blocks, 256, 0, stream>>>(xb, wb, bb, yb, R, H, W, Cin, Cout, ncol);
-  else
-    conv3x3_mma_kernel<NT, false><<<blocks, 256, 0, stream>>>(xb, wb, bb, yb, R, H, W, Cin, Cout, ncol);
+  conv3x3_mma_kernel<NT><<<blocks, 256, 0, stream>>>(x, w, bias, y, R, H, W, Cin, Cout, ncol);
   return (int)cudaGetLastError();
 }
 
@@ -92,9 +145,13 @@ extern "C" int vs_conv3x3_same(int dtype, const void* x, const void* w, const vo
   const long long R = (long long)B * H * W;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == vs::kBFloat16) {
-    if (vs::gemm_wide_tile(Cout))
-      return vs::launch_conv3x3_mma<4>(x, w, bias, y, R, H, W, Cin, Cout, s);
-    return vs::launch_conv3x3_mma<2>(x, w, bias, y, R, H, W, Cin, Cout, s);
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    const auto* wb = static_cast<const __nv_bfloat16*>(w);
+    const auto* bb = static_cast<const __nv_bfloat16*>(bias);
+    auto* yb = static_cast<__nv_bfloat16*>(y);
+    if (vs::gemm_vec_ok(x, w, Cin)) return vs::launch_conv3x3_wgmma(xb, wb, bb, yb, B, H, W, Cin, Cout, s);
+    if (vs::gemm_wide_tile(Cout)) return vs::launch_conv3x3_mma<4>(xb, wb, bb, yb, R, H, W, Cin, Cout, s);
+    return vs::launch_conv3x3_mma<2>(xb, wb, bb, yb, R, H, W, Cin, Cout, s);
   }
   if (dtype == vs::kFloat32) {
     unsigned blocks;
@@ -107,3 +164,4 @@ extern "C" int vs_conv3x3_same(int dtype, const void* x, const void* w, const vo
   }
   return vs::kErrUnsupported;
 }
+

@@ -21,14 +21,18 @@
 // arithmetic. Each (q-tile, head) block walks the keys in key tiles,
 // keeping the running max, denominator and output on chip, so no logits ever
 // reach device memory. The ragged key tail is masked to -inf; ragged query
-// rows compute on zeros and are not stored. Two kernels:
-// - bf16 K1 (every spatial UNet site, D = 64) runs on the tensor cores with
-//   mma.sync (flash_fwd_mma_kernel, below);
-// - fp32 inputs and K3 (CLIP D = 80, VAE D = 512) run flash_fwd_kernel, fp32
-//   FMAs on shared-memory tiles (4x4 register micro-tiles per thread for
-//   S = Q K^T and for P V). The wide D=512 VAE head uses 32-row tiles and
-//   ~200 KB of dynamic shared memory (cudaFuncSetAttribute below).
-// Overlapping copies with the math (cp.async / TMA) and wgmma are next.
+// rows compute on zeros and are not stored. Three kernels:
+// - bf16 at D = 64 and 80 (K1 at every spatial UNet site; K3 at CLIP's 80-dim
+//   heads) runs on the tensor cores with mma.sync (flash_fwd_mma_kernel);
+// - bf16 K3 at D = 512 (the VAE's one-head mid attention) runs on wgmma
+//   (flash_fwd_wgmma512_kernel, below): a 64 x 512 fp32 output tile is 128
+//   accumulator registers a thread over 256 threads, so two warpgroups each
+//   own 256 output columns and keys arrive in 32-key tiles through a two-stage
+//   ring that one thread fills by TMA while the previous tile multiplies;
+// - fp32 inputs (the card-vs-CPU checks; no main path sends them) run
+//   flash_fwd_kernel, fp32 FMAs on shared-memory tiles (4x4 register
+//   micro-tiles per thread for S = Q K^T and for P V; D = 512 uses 32-row
+//   tiles and ~200 KB of dynamic shared memory).
 //
 // Training (K1 only): with a non-null `lse` the kernels also write each
 // row's base-2 logsumexp m + log2(l) per head, fp32 [B, Lq, H] (the JAX
@@ -36,6 +40,7 @@
 // running max m and the denominator l summed from the rounded p. The
 // backward (K5, flash_attention_bwd.cu) recomputes p = exp2(s - lse) from it.
 #include "common.cuh"
+#include "wgmma_tile.cuh"
 
 namespace vs {
 
@@ -206,9 +211,9 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, float* ls
                  cudaStream_t stream) {
   using S = FlashSmem<D, BQ, BK>;
   auto kern = flash_fwd_kernel<T, D, BQ, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::bytes);
-  if (err != cudaSuccess) return (int)err;
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid((Lq + BQ - 1) / BQ, B * H);
   kern<<<grid, 256, S::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -233,21 +238,16 @@ int dispatch_head_dim(int D, const void* q, const void* k, const void* v, void* 
   }
 }
 
-int flash_entry(int dtype, int D, const void* q, const void* k, const void* v, void* o,
-                float* lse, int B, int H, int Lq, int Lk, const long long* strides,
-                float qscale, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B * H > 65535) return kErrBadArgument;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16)
-    return dispatch_head_dim<__nv_bfloat16>(D, q, k, v, o, lse, B, H, Lq, Lk, strides,
-                                            qscale, s);
-  if (dtype == kFloat32)
-    return dispatch_head_dim<float>(D, q, k, v, o, lse, B, H, Lq, Lk, strides, qscale, s);
-  return kErrUnsupported;
+// The fp32 route of both entry points.
+int flash_entry_fp32(int D, const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                     int H, int Lq, int Lk, const long long* strides, float qscale, void* stream) {
+  return dispatch_head_dim<float>(D, q, k, v, o, lse, B, H, Lq, Lk, strides, qscale,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------
-// bf16 K1 on the tensor cores: mma.sync.m16n8k16 (bf16 in, fp32 accumulate).
+// bf16 at D = 64 (K1, K3) and D = 80 (K3) on the tensor cores: mma.sync.m16n8k16
+// (bf16 in, fp32 accumulate).
 //
 // Four warps per block, each owning 16 of the block's 64 query rows. Q (pre-
 // scaled, rounded to bf16) stays in registers as A fragments for the whole
@@ -449,18 +449,25 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
   }
 }
 
-int launch_flash_mma64(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                       int H, int Lq, int Lk, const long long* st, float qscale,
-                       cudaStream_t stream) {
-  // q/k/v: 16-byte vector loads (aligned bases, strides in whole vectors);
-  // o: bf16x2 stores
+// q/k/v rows are read as 16-byte vectors (aligned bases, strides in whole
+// vectors); o is written as bf16 pairs.
+bool flash_bf16_rows_ok(const void* q, const void* k, const void* v, const void* o,
+                        const long long* st) {
   const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v);
-  if (bases % 16 || reinterpret_cast<uintptr_t>(o) % 4) return kErrBadArgument;
+  if (bases % 16 || reinterpret_cast<uintptr_t>(o) % 4) return false;
   for (int i = 0; i < 12; ++i)
-    if (st[i] % (i < 9 ? 8 : 2)) return kErrBadArgument;
+    if (st[i] % (i < 9 ? 8 : 2)) return false;
+  return true;
+}
+
+template <int D>
+int launch_flash_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                     int H, int Lq, int Lk, const long long* st, float qscale,
+                     cudaStream_t stream) {
+  if (!flash_bf16_rows_ok(q, k, v, o, st)) return kErrBadArgument;
   dim3 grid((Lq + 63) / 64, B * H);
-  flash_fwd_mma_kernel<64><<<grid, 128, 0, stream>>>(
+  flash_fwd_mma_kernel<D><<<grid, 128, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
@@ -468,29 +475,286 @@ int launch_flash_mma64(const void* q, const void* k, const void* v, void* o, flo
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 K3 at D = 512 on wgmma. One block of two warpgroups per 64 query rows.
+//
+// Shared memory (193 KB, one block per SM): Q, pre-scaled and rounded to bf16,
+// stays for the whole key loop as eight [64 rows][64 d] panels; K and V tiles
+// of 32 keys arrive as eight [32 keys][64 d] panels each, in a ring of two
+// stages. Thread 0 asks TMA for the sixteen boxes of a tile (rank-4 tiled maps
+// over k and v through their batch, head and row strides; a key past Lk arrives
+// as zeros) once both warpgroups have handed the stage back (`empty`
+// mbarrier); the boxes report to the stage's `full` mbarrier, and the tile
+// after this one lands while this one multiplies. 16-byte cp.async copies from all threads fill shared memory at a
+// quarter of TMA's rate and took as long as the products. Every panel has
+// 128-byte rows under the 128-byte swizzle, the layout wgmma's descriptors
+// read: Q and K K-major (d contiguous) for S = Q K^T, V MN-major (its rows are
+// keys, the contraction index of P V).
+//
+// Per key tile both consumer warpgroups compute the whole S tile (32 x
+// m64n32k16 from shared memory) and its online softmax in registers, as the
+// mma.sync kernel does (the accumulator layout is the same: each warp owns 16
+// rows), so the rounded p never leaves the registers: it is repacked in place
+// as the A operand of P V, and each warpgroup multiplies it into its own 256 of
+// the 512 output columns (2 x m64n256k16, 128 accumulator registers a thread).
+// S is computed twice per block; what that buys is no exchange of p and no
+// barrier between the warpgroups beyond handing the stages back. What holds it
+// now is the chain inside a warpgroup: 32 small wgmmas for S, a wait, the
+// softmax, 2 wgmmas for P V, a wait; filling the ring by 16-byte cp.async
+// copies from all threads instead of TMA gave the same time. (A producer
+// warpgroup of its own leaves 168 registers a thread at the launch bound;
+// ptxas sizes the consumers by that bound, not by what setmaxnreg grants.)
+namespace f512 {
+constexpr int D = 512, BQ = 64, BK = 32, PANELS = D / 64, STAGES = 2;
+constexpr int THREADS = 256;
+constexpr int Q_PANEL = BQ * 128, KV_PANEL = BK * 128;
+constexpr int Q_BYTES = PANELS * Q_PANEL, KV_BYTES = PANELS * KV_PANEL;
+constexpr int STAGE_BYTES = 2 * KV_BYTES;
+constexpr int BAR_OFFSET = Q_BYTES + STAGES * STAGE_BYTES;  // full and empty mbarriers after the ring
+constexpr int SMEM_BYTES = BAR_OFFSET + 16 * STAGES + 1024;
+}  // namespace f512
+
+__global__ void __launch_bounds__(f512::THREADS, 1) flash_fwd_wgmma512_kernel(
+    const __nv_bfloat16* __restrict__ q, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk,
+    long long qsb, long long qsl, long long qsh, long long osb, long long osl, long long osh,
+    float qscale) {
+  using namespace f512;
+  constexpr float NEG_INF = -INFINITY;
+  extern __shared__ unsigned char flash_smem[];
+  const uint32_t sq = smem_u32(smem_align_1024(flash_smem));
+  const uint32_t sring = sq + Q_BYTES;
+  const uint32_t full_bar = sq + BAR_OFFSET, empty_bar = full_bar + 8 * STAGES;
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * BQ;
+  const int ntiles = (Lk + BK - 1) / BK;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, THREADS / 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // one thread asks TMA for the sixteen boxes of key tile j
+  auto load_kv = [&](int j) {
+    const int stage = j % STAGES;
+    const uint32_t sk = sring + stage * STAGE_BYTES, sv = sk + KV_BYTES, bar = full_bar + 8 * stage;
+    mbar_expect_tx(bar, STAGE_BYTES);
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) {
+      tma_load_4d(sk + p * KV_PANEL, &kmap, bar, p * 64, j * BK, h, b);
+      tma_load_4d(sv + p * KV_PANEL, &vmap, bar, p * 64, j * BK, h, b);
+    }
+  };
+  if (tid == 0) {
+    for (int j = 0; j < STAGES && j < ntiles; ++j) load_kv(j);
+  }
+
+  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
+  __nv_bfloat16* ob = o + b * osb + h * osh;
+  // 16-byte chunk c (0-63) of row r goes to panel c / 8, swizzled chunk c % 8
+#pragma unroll 4
+  for (int i = 0; i < BQ * 64 / THREADS; ++i) {
+    const int idx = tid + THREADS * i, r = idx >> 6, c = idx & 63;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (q0 + r < Lq) {
+      val = *reinterpret_cast<const uint4*>(qb + (long long)(q0 + r) * qsl + c * 8);
+      __nv_bfloat16* x = reinterpret_cast<__nv_bfloat16*>(&val);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) x[u] = __float2bfloat16(__bfloat162float(x[u]) * qscale);
+    }
+    const uint32_t dst = sq + (c >> 3) * Q_PANEL + sw128(r, c & 7);
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(val.x), "r"(val.y),
+                 "r"(val.z), "r"(val.w)
+                 : "memory");
+  }
+  fence_proxy_async();
+  __syncthreads();  // Q is in place for both warpgroups' wgmmas
+
+  float acc[128];  // rows 16 warp + gid (+ 8), columns 256 wg + 8 n + 2 tig (+ 1)
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF};
+  float l_part[2] = {0.f, 0.f};  // this lane's share of the row denominators
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * BK, stage = j % STAGES;
+    mbar_wait(full_bar + 8 * stage, (j / STAGES) & 1);
+    const uint32_t sk = sring + stage * STAGE_BYTES, sv = sk + KV_BYTES;
+
+    float s[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n32k16_ss(s, wgmma_desc(sq + p * Q_PANEL + kk * 32, 16, 1024),
+                           wgmma_desc(sk + p * KV_PANEL + kk * 32, 16, 1024), (p | kk) != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(s);
+
+    // online softmax on the accumulators: s[4 n + 0..1] are row gid, s[4 n + 2..3]
+    // row gid + 8, at key columns k0 + 8 n + 2 tig + {0, 1}
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (k0 + n * 8 + tig * 2 + (u & 1) >= Lk) s[4 * n + u] = NEG_INF;
+        mx[u >> 1] = fmaxf(mx[u >> 1], s[4 * n + u]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_run[i], mx[i]);  // finite: key k0 is live
+      alpha[i] = exp2f(m_run[i] - m_new);          // 0 on the first tile
+      m_run[i] = m_new;
+      l_part[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float p = round_to<__nv_bfloat16>(exp2f(s[4 * n + u] - m_run[u >> 1]));
+        s[4 * n + u] = p;
+        l_part[u >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 64; ++n) {
+      acc[4 * n] *= alpha[0];
+      acc[4 * n + 1] *= alpha[0];
+      acc[4 * n + 2] *= alpha[1];
+      acc[4 * n + 3] *= alpha[1];
+    }
+
+    // acc += P V on this warpgroup's four 64-column panels, 16 keys per step
+    uint32_t pa[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      pa[kk][0] = pack_bf16x2(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      wgmma_m64n256k16_rs_tb(acc, pa[kk], wgmma_desc(sv + wg * 4 * KV_PANEL + kk * 16 * 128, KV_PANEL, 1024),
+                             1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(acc);
+    if ((tid & 127) == 0) mbar_arrive(empty_bar + 8 * stage);  // this warpgroup is done with the stage
+    if (tid == 0 && j + STAGES < ntiles) {  // and once both are, the tile after next goes there
+      mbar_wait(empty_bar + 8 * stage, (j / STAGES) & 1);
+      load_kv(j + STAGES);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_part[i] += __shfl_xor_sync(0xffffffffu, l_part[i], 1);
+    l_part[i] += __shfl_xor_sync(0xffffffffu, l_part[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + gid + 8 * i;
+    if (row >= Lq) continue;
+    const float l = l_part[i];
+    __nv_bfloat16* orow = ob + (long long)row * osl + wg * 256 + tig * 2;
+#pragma unroll
+    for (int n = 0; n < 32; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8) =
+          pack_bf16x2(acc[4 * n + 2 * i] / l, acc[4 * n + 2 * i + 1] / l);
+  }
+}
+
+int launch_flash_wgmma512(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq,
+                          int Lk, const long long* st, float qscale, cudaStream_t stream) {
+  if (!flash_bf16_rows_ok(q, k, v, o, st)) return kErrBadArgument;
+  // more than 48 KB of shared memory is opted into once per process
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wgmma512_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f512::SMEM_BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  // k and v as [B, H, Lk, 512] through their (batch, row, head) strides: boxes of 64 d x 32 keys
+  CUtensorMap maps[2];
+  const void* bases[2] = {k, v};
+  for (int i = 0; i < 2; ++i) {
+    const long long* s = st + 3 * (i + 1);
+    const cuuint64_t dims[4] = {(cuuint64_t)f512::D, (cuuint64_t)Lk, (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)s[1] * 2, (cuuint64_t)s[2] * 2, (cuuint64_t)s[0] * 2};
+    const cuuint32_t box[4] = {64, f512::BK, 1, 1};
+    if (const int rc = wgmma_tiled_map(bases[i], 4, dims, strides, box, &maps[i])) return rc;
+  }
+  dim3 grid((Lq + f512::BQ - 1) / f512::BQ, B * H);
+  flash_fwd_wgmma512_kernel<<<grid, f512::THREADS, f512::SMEM_BYTES, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), maps[0], maps[1], static_cast<__nv_bfloat16*>(o), H, Lq, Lk,
+      st[0], st[1], st[2], st[9], st[10], st[11], qscale);
+  return (int)cudaGetLastError();
+}
+
+inline bool flash_sizes_ok(int B, int H, int Lq, int Lk) {
+  return B > 0 && H > 0 && Lq > 0 && Lk > 0 && B * H <= 65535;  // the grid's y limit
+}
+
 }  // namespace vs
 
 // strides: 12 element strides (batch, row, head) for q, k, v, o in that order;
-// the head-dim stride must be 1. bf16 runs on the tensor cores, fp32 on FMAs.
+// the head-dim stride must be 1. bf16 runs on the tensor cores (16-byte aligned
+// rows, or kErrBadArgument), fp32 on FMAs.
 // lse: NULL, or fp32 [B, Lq, H] contiguous for the base-2 logsumexp.
 extern "C" int vs_flash_attention_packed(int dtype, int D, const void* q, const void* k,
                                          const void* v, void* o, void* lse, int B, int H,
                                          int Lq, int Lk, const long long* strides,
                                          float qscale, void* stream) {
   if (D != 64) return vs::kErrUnsupported;  // every spatial UNet site has 64-dim heads
+  if (!vs::flash_sizes_ok(B, H, Lq, Lk)) return vs::kErrBadArgument;
   float* l = static_cast<float*>(lse);
-  if (dtype != vs::kBFloat16)
-    return vs::flash_entry(dtype, D, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, stream);
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B * H > 65535) return vs::kErrBadArgument;
-  return vs::launch_flash_mma64(q, k, v, o, l, B, H, Lq, Lk, strides, qscale,
-                                static_cast<cudaStream_t>(stream));
+  if (dtype == vs::kBFloat16)
+    return vs::launch_flash_mma<64>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale,
+                                    static_cast<cudaStream_t>(stream));
+  if (dtype == vs::kFloat32)
+    return vs::flash_entry_fp32(D, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, stream);
+  return vs::kErrUnsupported;
 }
 
+// D in {64, 80, 512}.
 extern "C" int vs_flash_attention_bhld(int dtype, int D, const void* q, const void* k,
                                        const void* v, void* o, int B, int H, int Lq,
                                        int Lk, const long long* strides, float qscale,
                                        void* stream) {
-  return vs::flash_entry(dtype, D, q, k, v, o, nullptr, B, H, Lq, Lk, strides, qscale, stream);
+  if (!vs::flash_sizes_ok(B, H, Lq, Lk)) return vs::kErrBadArgument;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == vs::kBFloat16) {
+    switch (D) {
+      case 64:
+        return vs::launch_flash_mma<64>(q, k, v, o, nullptr, B, H, Lq, Lk, strides, qscale, s);
+      case 80:
+        return vs::launch_flash_mma<80>(q, k, v, o, nullptr, B, H, Lq, Lk, strides, qscale, s);
+      case 512:
+        return vs::launch_flash_wgmma512(q, k, v, o, B, H, Lq, Lk, strides, qscale, s);
+      default:
+        return vs::kErrUnsupported;
+    }
+  }
+  if (dtype == vs::kFloat32)
+    return vs::flash_entry_fp32(D, q, k, v, o, nullptr, B, H, Lq, Lk, strides, qscale, stream);
+  return vs::kErrUnsupported;
 }
 
 extern "C" const char* vs_error_string(int code) {

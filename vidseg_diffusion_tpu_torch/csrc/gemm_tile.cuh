@@ -1,6 +1,7 @@
 // Tile code shared by the GEMM-shaped kernels: K4 (temporal_conv.cu) takes the
-// tensor-core helpers; K11 (matmul_bias.cu) and K12 (conv3x3.cu) take the whole
-// tile, since both are the same product
+// tensor-core helpers; K11 (matmul_bias.cu) takes the whole tile, and so does
+// K12 (conv3x3.cu) for fp32 and for the bf16 shapes its wgmma tile
+// (wgmma_tile.cuh) does not take, since both are the same product
 //
 //     y[r, n] = sum over taps j, channels k of A_j[r, k] * W[j, n, k]  (+ bias[n])
 //

@@ -426,7 +426,10 @@ flash_attention_reference.calls = 0
 
 def flash_attention(q, k, v, scale: Optional[float] = None):
     """K3: flash attention on bhld [B, H, L, D] through strides (D in
-    {64, 80, 512}: the VAE's single 512-dim head and CLIP's 80-dim heads).
+    {64, 80, 512}: the VAE's single 512-dim head and CLIP's 80-dim heads), so
+    a strided view (CLIP's [B, L, H, D] projections seen as bhld) is read in
+    place. bf16 runs on the tensor cores (wgmma at D = 512, mma.sync at 64 and
+    80) and needs 16-byte aligned rows; fp32 runs the FMA kernel.
     Forward only: its backward (the JAX package routes it to the packed
     backward with heads=1, attention.py:1211-1261) comes with the
     autoencoder-training slice, so an input that needs a gradient raises
@@ -443,11 +446,12 @@ def flash_attention(q, k, v, scale: Optional[float] = None):
     b, h, lq, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     out = torch.empty((b, h, lq, d), dtype=dtype, device=q.device)
+    strides = _cuda.strides_arg(q, k, v, out, dims=(0, 2, 1))
+    _check_bf16_rows("flash_attention", dtype, strides, 9, q, k, v)
     _cuda.call(
         "vs_flash_attention_bhld", _cuda.DTYPE_CODES[dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, lq, k.shape[2], _cuda.strides_arg(q, k, v, out, dims=(0, 2, 1)),
-        float(_rounded_qscale(scale, dtype)),
+        b, h, lq, k.shape[2], strides, float(_rounded_qscale(scale, dtype)),
     )
     flash_attention.launches += 1
     return out
