@@ -53,7 +53,24 @@ Phases, in order; any failure exits non-zero:
    latents equal to the cached trajectory right after the last blended step
    (read where they enter the next sampler step);
    stage seconds and peak device memory.
-9. train: the full-width training step of
+9. ae_grad: the full-width sd_2_1.yaml first stage (Encoder, quant convs,
+   image Decoder) in fp32 on 2 frames of 64x64 (an 8x8 latent, a 64-token
+   D = 512 mid attention) with LPIPS and the PatchGAN discriminator:
+   backward passes of the reconstruction loss (L1 + LPIPS + KL) and of the
+   discriminator loss with the adversarial term, on the card through the
+   kernels (K3 with its LSE, K13, K7-K10) vs the CPU through the plain
+   versions; every parameter's gradient within GRAD_REL_TOL by norm.
+10. ae_train: the full-width autoencoder training step of
+   vidseg_diffusion_tpu_torch/scripts/autoencoder_train_path.py (sd_2_1.yaml
+   first stage, bf16, LPIPS, discriminator, 2 frames of 448x832, Adam for both
+   phases, the adversarial term on from step 0): a warm-up step, then
+   TRAIN_STEPS steps; every logged loss finite and p_loss > 0, every gradient
+   finite, the mid attentions' q/k/v gradients non-zero, the last Adam step of
+   both phases taken by every parameter with a gradient (check_adam_step),
+   K3 = K13 = 2 and K7 = K8 = K9 = K10 = the first stage's GroupNorm modules
+   per step, every other kernel 0 and no plain version called; step time and
+   peak memory.
+11. train: the full-width training step of
    vidseg_diffusion_tpu_torch/scripts/train_path.py (svd.yaml UNet, bf16,
    remat, 2 x 14 frames of 56x104 latents, Adam, EMA): a warm-up step, then
    TRAIN_STEPS steps; the loss finite at every step, every gradient finite,
@@ -64,9 +81,10 @@ Phases, in order; any failure exits non-zero:
    (train_launches) and no plain version called; step time and peak memory.
 
 Before the last line come the kernels JSON (per kernel: launches in the run
-of its path and in the other runs (injected, SD, training), worst error, kernel, plain, bound and
-library-call ms at its headline shape) and the card's name and power limit;
-the last line is {"ok": true, "device": ...}.
+of its path and in the other runs (injected, SD, diffusion training,
+autoencoder training), worst error, kernel, plain, bound and library-call ms
+at its headline shape) and the card's name and power limit; the last line
+is {"ok": true, "device": ...}.
 """
 
 import gc
@@ -128,6 +146,12 @@ KERNELS = {
         id="K12", source="vidseg_diffusion_tpu_torch/csrc/conv3x3.cu",
         replaces="vidseg_diffusion_tpu/ops/conv3x3.py:116", rms_tol=5e-4,
     ),
+    # K3's gradient: JAX's _fa_bwd runs _flash_attention_packed_bwd_impl with
+    # heads=1, whose pl.pallas_calls are at :993 (dq) and :1025 (dk/dv)
+    "flash_attention_backward": dict(
+        id="K13", source="vidseg_diffusion_tpu_torch/csrc/flash_attention_bhld_bwd.cu",
+        replaces="vidseg_diffusion_tpu/ops/attention.py:1025", rms_tol=1e-3,
+    ),
 }
 INFERENCE_KERNELS = ("flash_attention_packed", "temporal_attention_direct", "flash_attention",
                      "temporal_conv_1x1", "group_norm_stats", "group_norm_apply", "matmul_bias",
@@ -136,6 +160,7 @@ TRAIN_KERNELS = ("flash_attention_packed", "temporal_attention_direct", "tempora
                  "flash_attention_packed_backward", "temporal_attention_direct_backward",
                  "group_norm_stats", "group_norm_apply", "group_norm_backward_stats",
                  "group_norm_backward_apply", "matmul_bias", "conv3x3_same")
+AE_KERNELS = ("flash_attention_backward",)   # the kernels whose path is autoencoder training
 # launches of the inference main path, implied by its configuration: 52 UNet
 # calls x 16 spatial / 16 temporal self-attention sites and 44 temporal
 # convs (+ 29 per decoder chunk x 8), 32 CLIP layers + 11 VAE attentions; the
@@ -167,7 +192,8 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 ou
 #   sound readings at these shapes (PERF.md): K1 and K3 read 1.3e-3 to 2.4e-3
 #   (online softmax rounds p to bf16 against a running max), K4 1e-5 to
 #   1.4e-4 (its dx launch included), K2 0 (bit for bit), K5 4.8e-5 to 2.2e-4,
-#   K6 2.2e-5 to 3.9e-5 (worst of dq/dk/dv); K11 and K12 start from K4's
+#   K6 2.2e-5 to 3.9e-5, K13 2.4e-5 to 3.6e-4 (worst of dq/dk/dv; K5's
+#   bound, the same math); K11 and K12 start from K4's
 #   bound (fp32 accumulation of bf16 products, one rounding: K12 reads 9e-5
 #   to 2.6e-4 at K = 9 * 320 to 9 * 2560). A fault that moves every output
 #   by 1% reads 1e-2.
@@ -180,7 +206,7 @@ MAX_STEPS = 2
 FP32_TOL = 1e-4
 STATS_TOL = 2e-5
 UNET_REL_TOL = 1e-4     # fp32 UNet, card (kernels) vs CPU (plain versions), x max |CPU|
-LSE_TOL = 5e-3          # K1's base-2 LSE vs the plain LSE, absolute (log2 units; reads <= 1.5e-3)
+LSE_TOL = 5e-3          # K1's and K3's base-2 LSE vs the plain LSE, absolute (log2 units; reads <= 1.5e-3)
 # fp32 UNet gradients, card vs CPU, for every parameter:
 # ||g_card - g_cpu|| <= GRAD_REL_TOL * max(||g_cpu||, GRAD_FLOOR * the largest
 # parameter gradient norm) (the forward agrees to ~5e-6 of its scale and the
@@ -188,7 +214,25 @@ LSE_TOL = 5e-3          # K1's base-2 LSE vs the plain LSE, absolute (log2 units
 # rounding, as the CPU tests found for biases that feed a GroupNorm group)
 GRAD_REL_TOL = 1e-4
 GRAD_FLOOR = 1e-3
+# the PatchGAN discriminator's parameter gradients, card vs CPU (ae_grad): it runs
+# library ops only, whose fp32 card numerics read 1.1e-3 on the reconstruction
+DISC_GRAD_TOL = 5e-3
 TRAIN_STEPS = 3
+HEADLINE = {  # the shape of its path each kernel is timed at
+    "flash_attention_packed": "ds1 B=2 slice [2,5824,5x64]",
+    "temporal_attention_direct": "ds1 [28,5824,5,64] t=14",
+    "flash_attention": "VAE mid [7,1,5824,512]",
+    "temporal_conv_1x1": "UNet ds1 [2,14,5824,320]",
+    "flash_attention_packed_backward": "ds1 B=2 slice [2,5824,5x64]",
+    "temporal_attention_direct_backward": "ds1 [28,5824,5,64] t=14",
+    "group_norm_stats": "UNet ds1 [28,56,104,320]",
+    "group_norm_apply": "UNet ds1 [28,56,104,320]",
+    "group_norm_backward_stats": "UNet ds1 [28,56,104,320]",
+    "group_norm_backward_apply": "UNet ds1 [28,56,104,320]",
+    "matmul_bias": "ds1 to_q [163072,320->320]",
+    "conv3x3_same": "ds1 [28,56,104,320->320]",
+    "flash_attention_backward": "VAE mid [2,1,5824,512]",
+}
 # launches of one training step (remat on: every ResBlock and transformer runs
 # its forward twice, in the step's forward and in the backward's recompute):
 # 16 spatial and 16 temporal self-attention sites x 2 forwards and 1 backward;
@@ -231,15 +275,15 @@ def time_ms(fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
-def attn_work(b, h, lq, lk, d, backward=False):
-    """(bytes, flops, peak) of one attention call on bf16 inputs: q, k, v read
-    and o written once (backward: also o, g and the LSE read, dq, dk, dv
-    written); 2 matrix products forward (4 * lq * lk * d flops per head), 5
-    backward (S, dP, dV, dQ, dK)."""
-    q, kv = b * h * lq * d, b * h * lk * d
+def attn_work(b, h, lq, lk, d, backward=False, dtype="bf16"):
+    """(bytes, flops, peak) of one attention call: q, k, v read and o
+    written once (backward: also o, g and the LSE read, dq, dk, dv written);
+    2 matrix products forward (4 * lq * lk * d flops per head), 5 backward
+    (S, dP, dV, dQ, dK)."""
+    q, kv, item = b * h * lq * d, b * h * lk * d, 2 if dtype == "bf16" else 4
     if backward:
-        return 2 * (4 * q + 4 * kv) + 4 * b * h * lq, 10 * b * h * lq * lk * d, "bf16"
-    return 2 * (2 * q + 2 * kv), 4 * b * h * lq * lk * d, "bf16"
+        return item * (4 * q + 4 * kv) + 4 * b * h * lq, 10 * b * h * lq * lk * d, dtype
+    return item * (2 * q + 2 * kv), 4 * b * h * lq * lk * d, dtype
 
 
 def tconv_work(b, t, m, cin, cout, kt=3):
@@ -305,6 +349,21 @@ def kernel_cases(torch):
                   f"(tol {LSE_TOL:.0e})", flush=True)
             check(err <= LSE_TOL, f"K1 LSE disagrees with the plain LSE: {err}")
             return q, k, v, out, lse, g, h
+        return make
+
+    def bhld_bwd(b, h, lq, lk, d, dtype=bf):
+        """(q, k, v, out, lse, g) with out and lse from K3's forward under a
+        gradient; K3's LSE is checked against the plain LSE here."""
+        def make():
+            q, g = (rn(b, h, lq, d).to(dtype) for _ in range(2))
+            k, v = (rn(b, h, lk, d).to(dtype) for _ in range(2))
+            out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
+            _, lse_ref = A.flash_attention_reference(q, k, v, save_lse=True)
+            err = (lse - lse_ref).abs().max().item()
+            print(f"[kernels] K3 LSE [{b},{h},{lq}x{lk},{d}] {dtype}: max |lse - plain| = {err:.3e} "
+                  f"(tol {LSE_TOL:.0e})", flush=True)
+            check(err <= LSE_TOL, f"K3 LSE disagrees with the plain LSE: {err}")
+            return q, k, v, out, lse, g
         return make
 
     def temporal_bwd(b, s, h):
@@ -409,6 +468,17 @@ def kernel_cases(torch):
             iters=3, work=attn_work(2 * s, h, 14, 14, 64, backward=True),
             library=lambda q, k, v, o, g: sdpa_backward([frames_view(x) for x in (q, k, v)],
                                                         frames_view(g)))
+    # K13: K3's gradient at the autoencoder step's VAE mid attention (2 frames
+    # of 448x832: 5824 tokens, one 512-dim head), at an Lq off the tiles with
+    # Lq != Lk, at CLIP's D = 80, and in fp32 (the ae_grad phase's 64 tokens)
+    for label, shape, dtype in (("VAE mid [2,1,5824,512]", (2, 1, 5824, 5824, 512), bf),
+                                ("[1,1,130x77,512]", (1, 1, 130, 77, 512), bf),
+                                ("CLIP [1,16,257,80]", (1, 16, 257, 257, 80), bf),
+                                ("[2,1,64,512] fp32", (2, 1, 64, 64, 512), torch.float32)):
+        add(kernel="flash_attention_backward", label=label, make=bhld_bwd(*shape, dtype=dtype),
+            kern=A.flash_attention_backward, plain=A.flash_attention_backward_reference, iters=3,
+            work=attn_work(*shape, backward=True, dtype="bf16" if dtype == bf else "fp32"),
+            library=lambda q, k, v, o, lse, g: sdpa_backward([q, k, v], g))
     return cases + group_norm_cases(torch, rn) + gemm_cases(torch, rn)
 
 
@@ -614,6 +684,24 @@ def group_norm_library(torch, F, x, w, b, dy, groups, eps, silu):
     return dict(forward=out["forward_channels_last"], backward=out["backward_channels_last"], **out)
 
 
+def sdpa_backends(torch, q, k, v):
+    """The scaled_dot_product_attention backends that take these inputs, in
+    PyTorch's order of preference (the first is the one the library call
+    runs)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    ok = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                torch.nn.functional.scaled_dot_product_attention(q, k, v)
+            ok.append(backend.name)
+        except RuntimeError:
+            pass
+    return ok
+
+
 def compare(torch, out, ref, rms_tol):
     """(ok, max |out - ref|, error in bf16 steps at max |ref| or, for fp32
     outputs, relative to it; relative RMS error; max |ref|)."""
@@ -659,6 +747,9 @@ def phase_kernels(torch):
             lib = case["library"](*args)
             library_ms = lib if isinstance(lib, float) else time_ms(lib, iters)
             del lib
+        if kname == "flash_attention_backward" and label == HEADLINE[kname]:
+            print(f"[kernels] SDPA backends that take {label}: {sdpa_backends(torch, *args[:3])} "
+                  "(the first is the library call's)", flush=True)
         nbytes, flops, peak_key = case["work"]
         by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[peak_key] * 1e3
         row = dict(kernel=kname, shape=label, max_abs_err=err, bf16_steps=steps, fp32_rel_err=rel,
@@ -857,7 +948,7 @@ def train_launches(unet):
 
     count = lambda cls: sum(isinstance(x, cls) for x in unet.modules())
     n_gn = count(GroupNorm32)
-    return dict(TRAIN_LAUNCHES, flash_attention=0,
+    return dict(TRAIN_LAUNCHES, flash_attention=0, flash_attention_backward=0,
                 group_norm_stats=2 * n_gn - 1, group_norm_apply=2 * n_gn - 1,
                 group_norm_backward_stats=n_gn, group_norm_backward_apply=n_gn,
                 matmul_bias=2 * 4 * count(CrossAttention), conv3x3_same=2 * 2 * count(ResBlock))
@@ -1129,43 +1220,225 @@ def phase_train(torch):
     return launches
 
 
+def phase_ae_grad(torch):
+    """The full-width first stage's gradients under the autoencoder losses,
+    on the card through the kernels (K3 with its LSE and K13 in the mid
+    attentions, K7-K10 at every GroupNorm) vs the CPU through the plain
+    versions; same fp32 weights, frames and posterior noise, TF32 off on the
+    card. Two backward passes, held by norm:
+    - the generator's reconstruction loss (L1 + LPIPS + KL) -> every
+      first-stage parameter within GRAD_REL_TOL, the library convolutions
+      without cuDNN;
+    - the discriminator loss on the frames and the detached reconstruction
+      plus the adversarial term -> every discriminator parameter within
+      DISC_GRAD_TOL, with cuDNN.
+    LPIPS and the discriminator run library ops only (no kernel of the
+    port). Measured on the card in fp32 against the CPU: with cuDNN, LPIPS's
+    unit normalization of VGG features moved the first stage's gradients by
+    1.5e-3 of a norm (fp32 against fp64 on the CPU: 2.4e-5; without cuDNN
+    3e-5); the discriminator's parameter gradients read 1.1e-3 with cuDNN and
+    2e-3 without on the reconstruction's input (2e-6 on frames in [-1, 1]),
+    and the data gradient it hands back to the reconstruction 2e-3, which is
+    not compared."""
+    import copy
+
+    from vidseg_diffusion_tpu_torch.models.lpips import autoencoder_reconstruction_loss, generator_adv_loss
+    from vidseg_diffusion_tpu_torch.models.regularizers import DiagonalGaussian
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+    from vidseg_diffusion_tpu_torch.scripts import autoencoder_train_path as ae_path
+
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    trainer, fs = ae_path.build(device="cuda", vae=ae_path.vae_config(torch.float32))
+    card = (fs, trainer.lpips_fn, trainer.discriminator)
+    cpu = tuple(copy.deepcopy(m) for m in card)
+    for m in cpu[1:]:
+        m.cpu()
+    for m in cpu[0].modules().values():
+        m.cpu()
+    g = torch.Generator().manual_seed(5)
+    x = torch.rand(2, 64, 64, 3, generator=g) * 2 - 1
+    noise = torch.randn(2, 8, 8, 4, generator=g)
+    cfg = trainer.cfg
+
+    def grads(first_stage, lpips, disc, dev):
+        xd = x.to(dev)
+        torch.backends.cudnn.enabled = dev == "cpu"
+        try:
+            post = DiagonalGaussian.from_moments(first_stage.moments(xd))
+            recon = first_stage.reconstruct(post.sample(noise.to(dev)))
+            rec_loss = autoencoder_reconstruction_loss(lpips, xd, recon, post.kl(), cfg)[0]
+            rec_loss.backward()
+        finally:
+            torch.backends.cudnn.enabled = True
+        r = recon.detach()
+        d_loss = trainer.d_loss_fn(disc(xd), disc(r)) + cfg.disc_weight * generator_adv_loss(disc(r))
+        d_loss.backward()
+        named = list(first_stage.modules().named_parameters()) + [(f"disc.{n}", p) for n, p in disc.named_parameters()]
+        return (rec_loss.item(), d_loss.item()), {n: p.grad for n, p in named}
+
+    launches = A.flash_attention.launches, A.flash_attention_backward.launches
+    t0 = time.perf_counter()
+    loss_card, g_card = grads(*card, "cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    check(A.flash_attention.launches - launches[0] == 2 and A.flash_attention_backward.launches - launches[1] == 2,
+          "the card's autoencoder backward did not run K3 and K13 once per mid attention")
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = grads(*cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    second = lambda n: n.startswith("disc.")
+    passes = ({n: v for n, v in g_cpu.items() if not second(n)}, {n: v for n, v in g_cpu.items() if second(n)})
+    worst = []
+    for mine, tol in zip(passes, (GRAD_REL_TOL, DISC_GRAD_TOL)):   # each against its own largest norm
+        floor = GRAD_FLOOR * max(gcpu.norm().item() for gcpu in mine.values())
+        for name, gcpu in mine.items():
+            gk = g_card[name]
+            check(gk is not None and gcpu is not None, f"gradient missing for {name}")
+            check(bool(torch.isfinite(gk).all()), f"gradient of {name} not finite on the card")
+            rel = (gk.cpu() - gcpu).norm().item() / max(gcpu.norm().item(), floor)
+            worst.append((rel / tol, rel, tol, name))
+    over, rel, tol, name = max(worst)
+    first = max(w for w in worst if w[2] == GRAD_REL_TOL)
+    print(f"[ae_grad] full-width sd_2_1.yaml first stage fp32 at 64x64, LPIPS and the discriminator: "
+          f"reconstruction / discriminator losses card {loss_card[0]:.6f} / {loss_card[1]:.6f} vs CPU "
+          f"{loss_cpu[0]:.6f} / {loss_cpu[1]:.6f}; {len(g_cpu)} gradients, worst relative error by norm: "
+          f"first stage {first[1]:.3e} ({first[3]}; tol {GRAD_REL_TOL:.0e}), overall {rel:.3e} ({name}; tol "
+          f"{tol:.0e}); card {card_s:.1f} s, CPU {cpu_s:.1f} s", flush=True)
+    for lk, lc in zip(loss_card, loss_cpu):
+        check(abs(lk - lc) <= UNET_REL_TOL * abs(lc), "a loss on the card disagrees with the CPU")
+    check(over <= 1.0, f"gradient of {name} on the card disagrees with the CPU: {rel} (tol {tol})")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
+    del trainer, fs, card, cpu, g_card, g_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ae_launches_per_step(fs):
+    """Launches one autoencoder step implies: K3 and K13 once per mid
+    attention (encoder and decoder, each on the whole batch); K7-K10 once per
+    GroupNorm module of the first stage (no remat); nothing else (the VAE's,
+    LPIPS's and the discriminator's convolutions are library calls in JAX too)."""
+    from vidseg_diffusion_tpu_torch.models.layers import GroupNorm32
+
+    n_gn = sum(isinstance(m, GroupNorm32) for mod in fs.modules().values() for m in mod.modules())
+    return dict(flash_attention=2, flash_attention_backward=2, group_norm_stats=n_gn, group_norm_apply=n_gn,
+                group_norm_backward_stats=n_gn, group_norm_backward_apply=n_gn)
+
+
+def phase_ae_train(torch):
+    """TRAIN_STEPS steps of the full-width autoencoder training setup after a
+    warm-up; returns its kernel launches."""
+    from vidseg_diffusion_tpu_torch.ops import norm as N
+    from vidseg_diffusion_tpu_torch.scripts import autoencoder_train_path as ae_path
+
+    t0 = time.perf_counter()
+    trainer, fs = ae_path.build()
+    x, noise = ae_path.batch(), ae_path.noise_generator()
+    gen_named = lambda: fs.modules().named_parameters()
+    disc = trainer.discriminator
+    n_gen = sum(p.numel() for _, p in gen_named())
+    n_disc = sum(p.numel() for p in disc.parameters())
+    print(f"[ae_train] built the sd_2_1.yaml first stage ({n_gen / 1e6:.1f} M params), LPIPS, the discriminator "
+          f"({n_disc / 1e6:.2f} M params), bf16, Adam x2 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    logs = trainer.step(x, 0, generator=noise)
+    torch.cuda.synchronize()
+    print(f"[ae_train] warm-up step {time.perf_counter() - t0:.2f} s, g_loss {logs['g_loss'].item():.5f}",
+          flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, all_logs = [], []
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_STEPS - 1:  # the weights before the step that check_adam_step reads
+            gen0 = [p.detach().clone() for _, p in gen_named()]
+            disc0 = [p.detach().clone() for p in disc.parameters()]
+        t0 = time.perf_counter()
+        logs = trainer.step(x, i + 1, generator=noise)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        all_logs.append({k: v.item() for k, v in logs.items()})
+    launches, plain_calls = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[ae_train] {TRAIN_STEPS} steps: step_s {[round(t, 4) for t in times]}, peak device memory "
+          f"{peak_gb:.2f} GB ({card_line()})", flush=True)
+    print(f"[ae_train] logs {json.dumps([{k: round(v, 6) for k, v in l.items()} for l in all_logs])}", flush=True)
+    print(f"[ae_train] kernel launches {json.dumps(launches)}; plain calls {json.dumps(plain_calls)}; "
+          f"GroupNorm input copies {N.group_norm.copies}", flush=True)
+
+    check(all(math.isfinite(v) for l in all_logs for v in l.values()), f"a logged loss is not finite: {all_logs}")
+    check(all(l["p_loss"] > 0 for l in all_logs), "the perceptual loss carries no signal")
+    named = list(gen_named()) + [(f"disc.{n}", p) for n, p in disc.named_parameters()]
+    for name, p in named:
+        check(p.grad is not None, f"{name} has no gradient")
+        check(bool(torch.isfinite(p.grad).all()), f"gradient of {name} not finite")
+    attn = [(n, p) for n, p in gen_named() if ".mid.attn_1." in n and n.split(".")[-2] in "qkv"]
+    check(len(attn) == 12, f"expected the q/k/v weights and biases of two mid attentions, got {len(attn)}")
+    zero = [n for n, p in attn if n.endswith(".weight") and not bool(p.grad.abs().max() > 0)]
+    check(not zero, f"mid-attention projections with a zero gradient (a detached kernel?): {zero}")
+    gen_counts = check_adam_step(torch, trainer.gen_optimizer, gen_named(), gen0, trainer.step_count)
+    disc_counts = check_adam_step(torch, trainer.disc_optimizer, disc.named_parameters(), disc0, trainer.step_count)
+    print(f"[ae_train] last step: generator {gen_counts[0]} parameters with a gradient, {gen_counts[1]} due to "
+          f"move and moved; discriminator {disc_counts[0]} with a gradient, {disc_counts[1]} due and moved",
+          flush=True)
+    expected = {k: 0 for k in launches}
+    expected.update({k: TRAIN_STEPS * n for k, n in ae_launches_per_step(fs).items()})
+    check(launches == expected, f"autoencoder launches {launches}, expected {expected} ({TRAIN_STEPS} steps)")
+    check(all(n == 0 for n in plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
+    del trainer, fs, gen0, disc0, named, attn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def check_last_update(torch, trainer, params0, ema0):
-    """The trainer's last step against its Adam state and the weights and
-    EMA from before it: every parameter with a gradient took every step,
-    each of its elements whose update (recomputed in fp32 from the state)
-    exceeds one bf16 step of the element's value changed, every other
-    parameter stayed, and every EMA tensor is the LitEma update of its old
-    value towards the new weights. (An element's update can be smaller than
-    half a bf16 step: the q/k projections' gradients at N(0, 0.02) weights
-    are ~1e-15, so Adam moves them by ~1e-11.) Returns the counts of
-    parameters with a gradient, due to move, and moved."""
-    group = trainer.optimizer.param_groups[0]
-    lr, (b1, b2), eps = group["lr"], group["betas"], group["eps"]
-    check(group["weight_decay"] == 0 and not group["amsgrad"], "check_last_update reads plain Adam")
-    n_grad = n_due = n_moved = 0
-    for (name, p), p0 in zip(trainer.model.named_parameters(), params0):
-        moved = not torch.equal(p, p0)
-        n_moved += moved
-        if p.grad is None:
-            check(not moved, f"{name} has no gradient but moved")
-            continue
-        n_grad += 1
-        state = trainer.optimizer.state[p]
-        check("step" in state, f"{name} has a gradient and no optimizer state")
-        step = int(state["step"])
-        check(step == trainer.step_count, f"{name} took {step} of {trainer.step_count} optimizer steps")
-        update = (lr / (1 - b1 ** step) * state["exp_avg"].float()
-                  / ((state["exp_avg_sq"].float() / (1 - b2 ** step)).sqrt() + eps))
-        bf16_step = torch.exp2(torch.log2(p0.float().abs()).clamp(min=-126) - 7)
-        due = update.abs() > bf16_step
-        n_due += bool(due.any())
-        check(bool((p[due] != p0[due]).all()), f"{name}: elements due to move by more than a bf16 step did not")
+    """The diffusion trainer's last step: check_adam_step on its model, and
+    every EMA tensor is the LitEma update of its old value towards the new
+    weights. Returns the counts of parameters with a gradient, due to move,
+    and moved."""
+    counts = check_adam_step(torch, trainer.optimizer, trainer.model.named_parameters(), params0,
+                             trainer.step_count)
     n = trainer.ema.num_updates
     d = min(trainer.ema_decay, (1.0 + n) / (10.0 + n))
     for (name, p) in trainer.model.named_parameters():
         e0 = ema0[name]
         check(torch.equal(trainer.ema.params[name], e0 - (e0 - p.detach()) * (1.0 - d)),
               f"the EMA of {name} did not take the last step's update")
+    return counts
+
+
+def check_adam_step(torch, optimizer, named_params, params0, step_count):
+    """An optimizer's last step against its Adam state and the weights from
+    before it: every parameter with a gradient took all `step_count` steps,
+    each of its elements whose update (recomputed in fp32 from the state)
+    exceeds one bf16 step of the element's value changed, and every other
+    parameter stayed. (An element's update can be smaller than half a bf16
+    step: the q/k projections' gradients at N(0, 0.02) weights are ~1e-15,
+    so Adam moves them by ~1e-11.) Returns the counts of parameters with a
+    gradient, due to move, and moved."""
+    group = optimizer.param_groups[0]
+    lr, (b1, b2), eps = group["lr"], group["betas"], group["eps"]
+    check(group["weight_decay"] == 0 and not group["amsgrad"], "check_adam_step reads plain Adam")
+    n_grad = n_due = n_moved = 0
+    for (name, p), p0 in zip(named_params, params0):
+        moved = not torch.equal(p, p0)
+        n_moved += moved
+        if p.grad is None:
+            check(not moved, f"{name} has no gradient but moved")
+            continue
+        n_grad += 1
+        state = optimizer.state[p]
+        check("step" in state, f"{name} has a gradient and no optimizer state")
+        step = int(state["step"])
+        check(step == step_count, f"{name} took {step} of {step_count} optimizer steps")
+        update = (lr / (1 - b1 ** step) * state["exp_avg"].float()
+                  / ((state["exp_avg_sq"].float() / (1 - b2 ** step)).sqrt() + eps))
+        bf16_step = torch.exp2(torch.log2(p0.float().abs()).clamp(min=-126) - 7)
+        due = update.abs() > bf16_step
+        n_due += bool(due.any())
+        check(bool((p[due] != p0[due]).all()), f"{name}: elements due to move by more than a bf16 step did not")
     return n_grad, n_due, n_moved
 
 
@@ -1215,32 +1488,27 @@ def main():
     t0 = time.perf_counter()
     train_launches = phase_train(torch)
     phases["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_ae_grad(torch)
+    phases["ae_grad"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ae_launches = phase_ae_train(torch)
+    phases["ae_train"] = time.perf_counter() - t0
     print(f"[phases] seconds {json.dumps({k: round(v, 1) for k, v in phases.items()})}", flush=True)
 
-    headline = {  # the shape of its path each kernel is timed at
-        "flash_attention_packed": "ds1 B=2 slice [2,5824,5x64]",
-        "temporal_attention_direct": "ds1 [28,5824,5,64] t=14",
-        "flash_attention": "VAE mid [7,1,5824,512]",
-        "temporal_conv_1x1": "UNet ds1 [2,14,5824,320]",
-        "flash_attention_packed_backward": "ds1 B=2 slice [2,5824,5x64]",
-        "temporal_attention_direct_backward": "ds1 [28,5824,5,64] t=14",
-        "group_norm_stats": "UNet ds1 [28,56,104,320]",
-        "group_norm_apply": "UNet ds1 [28,56,104,320]",
-        "group_norm_backward_stats": "UNet ds1 [28,56,104,320]",
-        "group_norm_backward_apply": "UNet ds1 [28,56,104,320]",
-        "matmul_bias": "ds1 to_q [163072,320->320]",
-        "conv3x3_same": "ds1 [28,56,104,320->320]",
-    }
     kernels = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
-        head = next(r for r in mine if r["shape"] == headline[name])
+        head = next(r for r in mine if r["shape"] == HEADLINE[name])
+        path_launches = (launches if name in INFERENCE_KERNELS
+                         else ae_launches if name in AE_KERNELS else train_launches)
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            # the run of its path: inference for K1-K4, K7, K8, K11, K12, training for K5, K6, K9, K10
-            launches=launches[name] if name in INFERENCE_KERNELS else train_launches[name],
+            # the run of its path: inference for K1-K4, K7, K8, K11, K12, diffusion training for
+            # K5, K6, K9, K10, autoencoder training for K13
+            launches=path_launches[name],
             inject_launches=inject_launches[name], sd_launches=sd_launches[name],
-            train_launches=train_launches[name],
+            train_launches=train_launches[name], ae_launches=ae_launches[name],
             max_abs_err=max(r["max_abs_err"] for r in mine), shape=head["shape"],
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],

@@ -1,4 +1,4 @@
-"""The CUDA kernels (K1-K12) against their plain versions, on the card.
+"""The CUDA kernels (K1-K13) against their plain versions, on the card.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so on a machine with a card and no JAX it runs without the suite's
@@ -21,10 +21,15 @@ units) of the plain LSE. The GroupNorm kernels (K7 + K8 forward, K9 + K10
 backward) take the same bounds with RMS_TOL["GN"]; K7's mean and inv-std are
 also held to fp64 statistics of the same input (STATS_TOL, relative). K11
 (matmul_bias) and K12 (conv3x3_same) take chip_smoke.py's forward bounds too
-(2 bf16 steps at max |plain|, RMS_TOL["K11"] / ["K12"]; fp32 1e-4).
+(2 bf16 steps at max |plain|, RMS_TOL["K11"] / ["K12"]; fp32 1e-4). K13
+(the bhld backward of K3) takes the backward bounds with RMS_TOL["K13"], on
+the LSE that K3 writes under a gradient (held to the plain LSE within
+LSE_TOL). Modules under autograd (the VAE's AttnBlock) hold the card's
+parameter gradients to the CPU's plain path within GRAD_REL_TOL by norm.
 """
 
 import math
+import os
 
 import pytest
 import torch
@@ -35,14 +40,17 @@ from vidseg_diffusion_tpu_torch.ops import matmul as MM
 from vidseg_diffusion_tpu_torch.ops import norm as N
 from vidseg_diffusion_tpu_torch.ops import temporal_conv as TC
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
-RMS_TOL = {"K4": 5e-4, "K5": 1e-3, "K6": 2e-4, "GN": 5e-4, "K11": 5e-4, "K12": 5e-4}  # bf16; fp32 is FP32_TOL
+RMS_TOL = {"K4": 5e-4, "K5": 1e-3, "K6": 2e-4, "GN": 5e-4, "K11": 5e-4, "K12": 5e-4,
+           "K13": 1e-3}  # bf16; fp32 is FP32_TOL
 STATS_TOL = 2e-5  # K7's fp32 mean (relative to the rms of x) and inv-std vs fp64
 MAX_STEPS = 2
 FP32_TOL = 1e-4
 GRAD_FLOOR = 1e-2  # fp32 rounding noise of K6's t = 1 dq reads 5.8e-7 at a largest gradient of 3.5
 LSE_TOL = 5e-3
+GRAD_REL_TOL = 1e-4  # fp32 module gradients, card vs CPU, by norm (chip_smoke.py's bound)
 
 
 @pytest.fixture
@@ -193,6 +201,146 @@ def test_flash_attention_packed_backward(cuda, dt, b, lq, lk, h):
            q, k, v, out, lse, g, h, rms_tol=RMS_TOL["K5"])
 
 
+# D = 512: Lq off the 16-row tiles, Lq != Lk both ways, the autoencoder step's
+# [2, 1, 5824, 512]; D = 80: CLIP's 257 tokens, a ragged length, three heads
+K13_SHAPES = [(2, 1, 100, 100, 512), (1, 1, 130, 77, 512), (1, 1, 72, 200, 512), (2, 1, 5824, 5824, 512),
+              (1, 16, 257, 257, 80), (1, 3, 100, 37, 80)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("b,h,lq,lk,d", K13_SHAPES)
+def test_flash_attention_bhld_backward(cuda, dt, b, h, lq, lk, d):
+    """K13 against its plain version on the LSE that K3 wrote; K3's LSE
+    (wgmma at D = 512, mma.sync at 80 in bf16; FMA in fp32) against the
+    plain LSE."""
+    dtype = DTYPES[dt]
+    q = _randn(cuda, 51, dtype, b, h, lq, d)
+    k, v = (_randn(cuda, i, dtype, b, h, lk, d) for i in (52, 53))
+    g = _randn(cuda, 54, dtype, b, h, lq, d)
+    out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
+    _, lse_ref = A.flash_attention_reference(q, k, v, save_lse=True)
+    assert lse.shape == (b, lq, h) and (lse - lse_ref).abs().max().item() <= LSE_TOL
+    _check(A.flash_attention_backward, A.flash_attention_backward_reference, q, k, v, out, lse, g,
+           rms_tol=RMS_TOL["K13"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_flash_attention_bhld_backward_strided_and_d64(cuda, dt):
+    """K13 reads [B, L, H, D] projections seen as bhld through their strides
+    and writes contiguous bhld gradients; at D = 64 the bhld backward runs
+    K5 on the same strides (K13's counter does not move)."""
+    dtype = DTYPES[dt]
+    q, k, v, g = (_randn(cuda, i, dtype, 2, 90, 3, 80).transpose(1, 2) for i in (55, 56, 57, 58))
+    out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
+    _check(A.flash_attention_backward, A.flash_attention_backward_reference, q, k, v, out, lse,
+           g.contiguous(), rms_tol=RMS_TOL["K13"])
+    q, k, v, g = (_randn(cuda, i, dtype, 2, 2, 100, 64) for i in (59, 60, 61, 62))
+    out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
+    k13, k5 = A.flash_attention_backward.launches, A.flash_attention_packed_backward.launches
+    got = A.flash_attention_backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert A.flash_attention_backward.launches == k13 and A.flash_attention_packed_backward.launches == k5 + 1
+    _close_grads(got, A.flash_attention_backward_reference(q, k, v, out, lse, g), RMS_TOL["K5"])
+
+
+@pytest.mark.gpu
+def test_vae_attn_block_autograd_matches_the_cpu(cuda):
+    """The VAE's AttnBlock (GroupNorm, 1x1 q/k/v, one 512-dim head, proj_out)
+    under autograd in fp32: on the card through K7/K8, K3 with its LSE, K13
+    and K9/K10, on the CPU through the plain versions; the input's and every
+    parameter's gradient within GRAD_REL_TOL by norm."""
+    import copy
+
+    from vidseg_diffusion_tpu_torch.models.vae import AttnBlock
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        block = AttnBlock(512).to(cuda)
+        gen = torch.Generator(device=cuda).manual_seed(63)
+        with torch.no_grad():
+            for p in block.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen, device=cuda) * (0.5 if p.dim() == 1 else 0.05))
+        cpu_block = copy.deepcopy(block).cpu()
+        x, g = _randn(cuda, 64, torch.float32, 2, 9, 11, 512), _randn(cuda, 65, torch.float32, 2, 9, 11, 512)
+        launches = A.flash_attention.launches, A.flash_attention_backward.launches
+
+        def grads(mod, dev):
+            xi = x.detach().to(dev).requires_grad_()
+            (mod(xi) * g.to(dev)).sum().backward()
+            return [xi.grad] + [p.grad for p in mod.parameters()]
+
+        card = grads(block, cuda)
+        torch.cuda.synchronize()
+        assert (A.flash_attention.launches, A.flash_attention_backward.launches) == (launches[0] + 1,
+                                                                                    launches[1] + 1)
+        cpu = grads(cpu_block, "cpu")
+        floor = GRAD_FLOOR * max(w.norm().item() for w in cpu)  # k's bias: a true gradient of 0
+        for a, w in zip(card, cpu):
+            assert a is not None and bool(torch.isfinite(a).all())
+            assert (a.cpu() - w).norm().item() <= GRAD_REL_TOL * max(w.norm().item(), floor)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.gpu
+def test_aggre_attn_tiny_pipeline_in_bf16_matches_the_cpu(cuda, tmp_path):
+    """run_single_video(is_aggre_attn=True) on svd_tiny.yaml in bf16, on the
+    card and on the CPU with the same weights and draws. The config takes
+    three output blocks per level (tests/test_torch_pipeline.py's
+    configuration) and 64-dim heads everywhere (UNet model_channels 64,
+    num_head_channels 64; CLIP one head of 64), the head dim the attention
+    kernels are built for (svd_tiny's own 16 is not). The block mean of
+    bf16 features is bit for bit the CPU's; the run's aggregated cluster
+    features come out bf16-valued (rounded once, as jnp.mean rounds) and
+    agree with the CPU's (relative RMS 0.1: bf16 through the feature pass,
+    the kernels accumulating in another order; a wrong block or a skipped
+    rounding step moves them by O(1)); finite latents, labels of the right
+    shape."""
+    import numpy as np
+
+    from vidseg_diffusion_tpu_torch.engine.build import build_pipeline
+    from vidseg_diffusion_tpu_torch.engine.masks import aggregate_blocks
+    from vidseg_diffusion_tpu_torch.pipelines.single_video import VidSegArgs, run_single_video
+
+    feats = [_randn(cuda, 70 + i, torch.bfloat16, 6, 64, 128, scale=3.0) for i in range(3)]
+    card_mean = aggregate_blocks(feats)
+    assert card_mean.dtype == torch.bfloat16
+    assert torch.equal(card_mean.cpu(), aggregate_blocks([f.cpu() for f in feats]))
+
+    with open(os.path.join(ROOT, "configs/inference/svd_tiny.yaml")) as f:
+        text = f.read()
+    for old, new in (("num_res_blocks: 1", "num_res_blocks: 2"), ("model_channels: 32", "model_channels: 64"),
+                     ("num_head_channels: 16", "num_head_channels: 64"), ("heads: 4", "heads: 1")):
+        assert old in text
+        text = text.replace(old, new, 1)   # the first num_res_blocks is the UNet's
+    config = tmp_path / "svd_tiny_3_blocks_64.yaml"
+    config.write_text(text)
+    t, hpx = 3, 64
+    frames = np.random.RandomState(0).uniform(-1, 1, (t, hpx, hpx, 3)).astype(np.float32)
+    args = VidSegArgs(num_steps=6, num_masks=2, modulate_timestep=(3,), feature_timestep=(5,), decoding_t=3,
+                      seed=1, is_aggre_attn=True)
+    rs = np.random.RandomState(2)
+    draws = dict(cond_aug_noise=rs.randn(1, hpx, hpx, 3).astype(np.float32),
+                 noise=rs.randn(t, hpx // 8, hpx // 8, 4).astype(np.float32))
+    pipes = {dev: build_pipeline(str(config), num_steps=6, num_frames=t, dtype=torch.bfloat16, device=dev, seed=4)
+             for dev in ("cuda", "cpu")}
+    for name in ("unet", "clip", "cond_encoder"):   # the same weights on both (the seeded draws are per device)
+        getattr(pipes["cuda"], name).load_state_dict(getattr(pipes["cpu"], name).state_dict())
+    for name in ("encoder", "decoder"):
+        getattr(pipes["cuda"].first_stage, name).load_state_dict(getattr(pipes["cpu"].first_stage, name).state_dict())
+    card, cpu = (run_single_video(pipes[dev], frames, [str(i) for i in range(t)], args, write_outputs=False, **draws)
+                 for dev in ("cuda", "cpu"))
+    feats = torch.from_numpy(card.cluster_features)
+    assert torch.equal(feats.bfloat16().float(), feats)
+    diff = np.linalg.norm(card.cluster_features - cpu.cluster_features)
+    assert diff <= 0.1 * np.linalg.norm(cpu.cluster_features)
+    assert np.isfinite(card.final_latents).all() and card.seg_raw.shape == (t, hpx, hpx)
+    assert set(np.unique(card.seg_raw)) <= {0, 1}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("b,t,s,h", [(2, 14, 20, 2), (2, 1, 16, 1), (1, 32, 9, 2), (3, 5, 91, 3)])
@@ -224,7 +372,7 @@ def test_temporal_conv_1x1_backward(cuda, dt, b, t, m, cin, cout):
 @pytest.mark.gpu
 def test_autograd_through_the_kernels(cuda):
     """On CUDA tensors that require grad the forward wrappers return outputs
-    with a grad_fn and the backward launches K5, K6 and K4; K3 refuses."""
+    with a grad_fn and the backward launches K5, K6, K4 and K13."""
     b, l, h, t = 2, 70, 2, 5
     q, k, v = (_randn(cuda, i, torch.bfloat16, b, l, h * 64).requires_grad_() for i in (41, 42, 43))
     out = A.flash_attention_packed(q, k, v, heads=h)
@@ -252,8 +400,11 @@ def test_autograd_through_the_kernels(cuda):
     assert all(a.grad is not None for a in (x, w, bias))
 
     x4 = _randn(cuda, 50, torch.bfloat16, 1, 1, 40, 512).requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        A.flash_attention(x4, x4, x4)
+    out = A.flash_attention(x4, x4, x4)
+    assert out.grad_fn is not None
+    before = A.flash_attention_backward.launches
+    out.float().square().sum().backward()
+    assert A.flash_attention_backward.launches == before + 1 and x4.grad.abs().sum() > 0
     with torch.no_grad():
         assert A.flash_attention(x4, x4, x4).grad_fn is None
 

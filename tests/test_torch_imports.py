@@ -50,7 +50,8 @@ def test_port_imports_no_jax():
                 "scripts.train_path", "scripts.profile_train", "ops.norm", "io.video", "io.native",
                 "ops.matmul", "ops.conv3x3", "io.tokenizer", "scripts.sd_path", "scripts.main_path",
                 "scripts.profile_single_video", "diffusion.denoiser", "diffusion.discretization",
-                "diffusion.guidance", "models.conditioner"}
+                "diffusion.guidance", "models.conditioner", "models.lpips", "models.regularizers",
+                "scripts.autoencoder_train_path"}
     assert expected <= {m.split(".", 1)[1] for m in res["modules"]}
     assert res["jax"] == []
     assert res["after_color_map"] == [] and res["palette"] == [128, 3]
@@ -75,19 +76,21 @@ def test_port_sources_do_not_name_the_jax_package():
 
 def test_entry_points_default_to_the_card():
     """build_pipeline, the CLI and the full-width path scripts (SVD, SD 2.1,
-    training) run on cuda unless the caller asks for the CPU; without a card
-    the default raises instead of falling back."""
+    diffusion and autoencoder training) run on cuda unless the caller asks
+    for the CPU; without a card the default raises instead of falling back."""
     import inspect
 
     import torch
 
     from vidseg_diffusion_tpu_torch.engine.build import build_pipeline
     from vidseg_diffusion_tpu_torch.scripts import svd_single_video_inference as cli
-    from vidseg_diffusion_tpu_torch.scripts import main_path, sd_path, train_path
+    from vidseg_diffusion_tpu_torch.scripts import autoencoder_train_path, main_path, sd_path, train_path
 
     assert inspect.signature(build_pipeline).parameters["device"].default == "cuda"
-    for script in (main_path, sd_path):
+    for script in (main_path, sd_path, autoencoder_train_path):
         assert inspect.signature(script.build).parameters["device"].default == "cuda"
+    for fn in (autoencoder_train_path.batch, autoencoder_train_path.noise_generator):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert cli.parse_args([]).device == "cuda" and cli.parse_args(["--device", "cpu"]).device == "cpu"
     assert train_path.DEVICE == "cuda"
     if not torch.cuda.is_available():
@@ -135,9 +138,9 @@ def test_failed_build_is_not_repeated(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_packaged_and_hashed():
     srcs = [os.path.basename(p) for p in _cuda._sources()]
-    assert srcs == ["conv3x3.cu", "flash_attention.cu", "flash_attention_bwd.cu", "group_norm.cu",
-                    "group_norm_bwd.cu", "matmul_bias.cu", "temporal_attention.cu",
-                    "temporal_attention_bwd.cu", "temporal_conv.cu"]
+    assert srcs == ["conv3x3.cu", "flash_attention.cu", "flash_attention_bhld_bwd.cu",
+                    "flash_attention_bwd.cu", "group_norm.cu", "group_norm_bwd.cu", "matmul_bias.cu",
+                    "temporal_attention.cu", "temporal_attention_bwd.cu", "temporal_conv.cu"]
     assert len(_cuda._source_hash()) == 16
     # the shared headers are part of the hash: an edited tile rebuilds its kernels
     headers = sorted(os.path.basename(p) for p in glob.glob(os.path.join(_cuda.CSRC, "*.cuh")))

@@ -199,14 +199,21 @@ def test_temporal_conv_grads_match_jax():
 
 
 def test_flash_attention_bhld_refuses_a_gradient():
-    """K3 has no backward yet: an input that needs one raises (naming the
-    ROADMAP item) instead of returning a detached output."""
-    (x,) = _arrays(24, (1, 2, 20, 16))
-    xt = T(x).requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tatt.flash_attention(xt, xt, xt)
+    """K3 takes a gradient now (the name is the one this test had while K3
+    refused one): with grad on, the output carries K3's autograd Function
+    (forward with the LSE, K13's plain backward on the CPU) and its gradients
+    match autograd of the plain forward at ragged Lq != Lk, H > 1; under
+    no_grad the forward alone runs, with no graph."""
+    q, k, v, g = _arrays(24, (2, 2, 20, 16), (2, 2, 13, 16), (2, 2, 13, 16), (2, 2, 20, 16))
     with torch.no_grad():
-        _close(tatt.flash_attention(xt, xt, xt), tatt.flash_attention_reference(T(x), T(x), T(x)))
+        out = tatt.flash_attention(*map(T, (q, k, v)))
+        assert out.grad_fn is None
+        _close(out, tatt.flash_attention_reference(*map(T, (q, k, v))))
+    calls = tatt.flash_attention_backward_reference.calls
+    got = _grads(tatt.flash_attention, (q, k, v), g)
+    assert tatt.flash_attention_backward_reference.calls == calls + 1
+    for a, w in zip(got, _grads(tatt.flash_attention_reference, (q, k, v), g)):
+        _close(a, w, atol=2e-5, rtol=2e-5)
 
 
 # -- K3 ---------------------------------------------------------------------

@@ -9,7 +9,8 @@ cached trajectory and final run latents are captured by wrapping its engine
 entry points (the JAX package is not changed). The same comparison runs a
 second time with is_injected_features: the temporal self-attention q/k that
 both feature passes cache (JAX in its default direct layout) must agree, and
-so must the injected runs.
+so must the injected runs; and a third time with is_aggre_attn (the cluster
+features are the mean of three blocks' q, rounded where jnp.mean rounds).
 """
 
 import inspect
@@ -30,6 +31,7 @@ from vidseg_diffusion_tpu.pipelines.single_video import VidSegArgs as JArgs
 from vidseg_diffusion_tpu.pipelines.single_video import run_single_video as j_run
 from vidseg_diffusion_tpu_torch.engine import vidseg as tvidseg
 from vidseg_diffusion_tpu_torch.engine.build import build_pipeline as t_build
+from vidseg_diffusion_tpu_torch.engine.masks import aggregate_blocks
 from vidseg_diffusion_tpu_torch.io import convert
 from vidseg_diffusion_tpu_torch.pipelines.single_video import VidSegArgs, run_single_video
 
@@ -55,11 +57,11 @@ def _sd(tree, key_fn, strip=""):
     return {k: torch.tensor(v) for k, v in convert.jax_to_state_dict(np_tree, key_fn, strip).items()}
 
 
-def _run_both(out_dir, **flags):
+def _run_both(out_dir, config=CONFIG, **flags):
     """(JAX result, captured JAX tensors, port result, captured port cache)."""
     frames = np.random.RandomState(0).uniform(-1, 1, (T, HPX, WPX, 3)).astype(np.float32)
     names = [str(i) for i in range(T)]
-    jp = j_build(CONFIG, num_steps=STEPS, num_frames=T)
+    jp = j_build(config, num_steps=STEPS, num_frames=T)
 
     captured = {}
     eng = jvidseg.VidSegEngine
@@ -100,7 +102,7 @@ def _run_both(out_dir, **flags):
     keys = jax.random.split(jax.random.fold_in(rng, 3), 10)
     init = np.array(jax.jit(jax.vmap(lambda k: _kmeanspp_init(k, pts, MASKS)))(keys))
 
-    tp = t_build(CONFIG, num_steps=STEPS, num_frames=T, device="cpu")
+    tp = t_build(config, num_steps=STEPS, num_frames=T, device="cpu")
     tp.unet.load_state_dict(_sd(jp.unet_params, unet_key_fn))
     tp.first_stage.encoder.load_state_dict(_sd(jp.first_stage.params_encoder, convert.vae_key_fn))
     tp.first_stage.decoder.load_state_dict(_sd(jp.first_stage.params_decoder, convert.vae_key_fn))
@@ -135,6 +137,22 @@ def runs(tmp_path_factory):
 @pytest.fixture(scope="module")
 def injected_runs():
     return _run_both(None, is_injected_features=True)
+
+
+@pytest.fixture(scope="module")
+def aggre_runs(tmp_path_factory):
+    """is_aggre_attn clusters on blocks 8, 7 and 6 of the reference UNet,
+    three blocks of one resolution; svd_tiny.yaml's output levels hold two
+    blocks each, so its third block resolves to the finer level and both
+    pipelines refuse to stack it. svd_tiny.yaml with num_res_blocks 2 (three
+    output blocks per level) runs it."""
+    with open(CONFIG) as f:
+        text = f.read()
+    unet = text.index("network_config:")
+    assert text.index("num_res_blocks: 1") > unet   # the UNet's comes first
+    path = tmp_path_factory.mktemp("aggre") / "svd_tiny_3_blocks.yaml"
+    path.write_text(text.replace("num_res_blocks: 1", "num_res_blocks: 2", 1))
+    return _run_both(None, config=str(path), is_aggre_attn=True)
 
 
 def _rel_close(got, want, rtol):
@@ -201,6 +219,47 @@ def test_injection_harvest_matches_jax(injected_runs):
         assert got.shape == want.shape and got.shape[:2] == (STEPS - tcache["t0"], 2 * T)
         np.testing.assert_allclose(got, want, atol=1e-4 * max(1.0, float(np.abs(want).max())), rtol=0)
     assert tres.injected_cache_bytes == sum(tcache[n].numel() * 4 for n in names)
+
+
+def _labels_match(jres, tres):
+    """Diff maps within one uint8 quantum (equal on >= 99% of pixels), labels
+    equal wherever JAX's top-2 margin exceeds one quantum (see
+    test_difference_maps_and_labels_match_jax)."""
+    d = np.abs(tres.diff_maps - jres.diff_maps)
+    assert (d == 0).mean() >= 0.99 and d.max() <= 1
+    maxes = jres.diff_maps.max(axis=(-2, -1), keepdims=True)
+    norm = jres.diff_maps / (maxes + 1e-5)
+    top2 = np.sort(norm, axis=0)[-2:]
+    sure = (top2[1] - top2[0]) * maxes.min(axis=0) > 1.0
+    assert sure.mean() > 0.5
+    np.testing.assert_array_equal(tres.seg_raw[sure], jres.seg_raw[sure])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_aggregate_blocks_matches_jnp_mean_bit_for_bit(dtype):
+    """--is_aggre_attn's block mean against jnp.mean(jnp.stack(feats), axis=0)
+    (the JAX pipeline's, single_video.py:452): the sum in fp32, times the
+    fp32 reciprocal of the count (what XLA makes of the division), one
+    rounding to the features' dtype, so bf16 stays bf16; every bit equal."""
+    rs = np.random.RandomState(3)
+    feats = [rs.randn(6, 40, 24).astype(np.float32) * 3 for _ in range(3)]
+    jf = [jnp.asarray(f, dtype) for f in feats]
+    want = np.asarray(jnp.mean(jnp.stack(jf), axis=0).astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    got = aggregate_blocks([torch.from_numpy(f).to(tdt) for f in feats])
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_aggre_attn_runs_match_jax(aggre_runs):
+    """is_aggre_attn on svd_tiny.yaml: the aggregated cluster features, the
+    masks, the latents (1e-3) and the labels equal JAX's."""
+    jres, cap, tres, _ = aggre_runs
+    np.testing.assert_allclose(tres.cluster_features, jres.cluster_features, atol=1e-3, rtol=1e-3)
+    np.testing.assert_array_equal(tres.masks, jres.masks)
+    _rel_close(tres.feature_x0, cap["x0"], LATENT_RTOL)
+    _rel_close(tres.final_latents, cap["finals"], LATENT_RTOL)
+    _labels_match(jres, tres)
 
 
 def test_injected_runs_match_jax(injected_runs):

@@ -88,6 +88,13 @@ def test_standard_diffusion_loss_matches_jax(loss_type, weighting):
 
 
 def test_sigma_samplers_and_lpips():
+    """The sigma samplers' draws, and the lpips loss type against JAX's: the
+    LPIPS distance of the denoised prediction to x0 (weights moved by
+    io/convert.py), averaged over the batch without the sigma weighting; a
+    missing lpips_fn raises."""
+    from vidseg_diffusion_tpu.models import lpips as jlp
+    from vidseg_diffusion_tpu_torch.models import lpips as tlp
+
     g = torch.Generator().manual_seed(0)
     s = tloss.EDMSigmaSampling()(4096, generator=g)
     # log sigma ~ N(-1.2, 1.2): the sample moments within 5 standard errors
@@ -95,9 +102,27 @@ def test_sigma_samplers_and_lpips():
     table = torch.tensor([0.1, 0.5, 2.0, 14.6])
     d = tloss.DiscreteSigmaSampling(table)(64, generator=g)
     assert set(d.tolist()) <= set(table.tolist()) and len(set(d.tolist())) > 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="lpips_fn"):
         tloss.StandardDiffusionLoss(tden.Denoiser(tscal.EpsScaling()), tloss.EDMSigmaSampling(),
                                     loss_type="lpips")
+
+    x0 = np.random.RandomState(5).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
+    jm = jlp.LPIPS()
+    params = _init_tree(jm, 6, jnp.asarray(x0), jnp.asarray(x0))
+    tm = _load(tlp.LPIPS(), params, convert.autoencoder_loss_key_fn)
+    jl = jloss.StandardDiffusionLoss(jden.Denoiser(jscal.EpsScaling()), jloss.EDMSigmaSampling(),
+                                     weighting=jloss.eps_weighting, loss_type="lpips",
+                                     lpips_fn=lambda a, b: jm.apply({"params": params}, a, b))
+    tl = tloss.StandardDiffusionLoss(tden.Denoiser(tscal.EpsScaling()), tloss.EDMSigmaSampling(),
+                                     weighting=tloss.eps_weighting, loss_type="lpips", lpips_fn=tm)
+    jnet = lambda x, c, cond: 0.5 * x
+    tnet = lambda x, c, cond: (0.5 * x, None)
+    rng = jax.random.PRNGKey(7)
+    want = jax.jit(lambda x: jl(jnet, rng, x, {}))(jnp.asarray(x0))
+    sigma, noise = _jax_draws(jl, rng, jnp.asarray(x0))
+    with torch.no_grad():
+        got = tl(tnet, T(x0), {}, sigma=T(sigma), noise=T(noise))
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-4, atol=1e-6)
 
 
 def test_loss_generators_are_one_per_site():

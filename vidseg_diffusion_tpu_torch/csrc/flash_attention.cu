@@ -34,11 +34,14 @@
 //   micro-tiles per thread for S = Q K^T and for P V; D = 512 uses 32-row
 //   tiles and ~200 KB of dynamic shared memory).
 //
-// Training (K1 only): with a non-null `lse` the kernels also write each
-// row's base-2 logsumexp m + log2(l) per head, fp32 [B, Lq, H] (the JAX
-// kernel's save_lse output, attention.py:404-405, :431-433), from the final
-// running max m and the denominator l summed from the rounded p. The
-// backward (K5, flash_attention_bwd.cu) recomputes p = exp2(s - lse) from it.
+// Training: with a non-null `lse` the kernels also write each row's base-2
+// logsumexp m + log2(l) per head, fp32 [B, Lq, H] (the JAX kernel's save_lse
+// output, attention.py:404-405, :431-433; for K3's one VAE head that is
+// [B*H, Lq], the layout of JAX's heads=1 forward under a gradient), from the
+// final running max m and the denominator l summed from the rounded p. The
+// backwards recompute p = exp2(s - lse) from it: K5 (flash_attention_bwd.cu)
+// for K1 and for K3 at D = 64, K13 (flash_attention_bhld_bwd.cu) for K3 at
+// D = 512 and 80.
 #include "common.cuh"
 #include "wgmma_tile.cuh"
 
@@ -516,7 +519,8 @@ constexpr int SMEM_BYTES = BAR_OFFSET + 16 * STAGES + 1024;
 
 __global__ void __launch_bounds__(f512::THREADS, 1) flash_fwd_wgmma512_kernel(
     const __nv_bfloat16* __restrict__ q, const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk,
+    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+    int H, int Lq, int Lk,
     long long qsb, long long qsl, long long qsh, long long osb, long long osl, long long osh,
     float qscale) {
   using namespace f512;
@@ -676,6 +680,8 @@ __global__ void __launch_bounds__(f512::THREADS, 1) flash_fwd_wgmma512_kernel(
     const int row = q0 + warp * 16 + gid + 8 * i;
     if (row >= Lq) continue;
     const float l = l_part[i];
+    // both warpgroups hold the same row max and sum: the first writes the LSE
+    if (lse != nullptr && wg == 0 && tig == 0) lse[((long long)b * Lq + row) * H + h] = m_run[i] + log2f(l);
     __nv_bfloat16* orow = ob + (long long)row * osl + wg * 256 + tig * 2;
 #pragma unroll
     for (int n = 0; n < 32; ++n)
@@ -684,8 +690,8 @@ __global__ void __launch_bounds__(f512::THREADS, 1) flash_fwd_wgmma512_kernel(
   }
 }
 
-int launch_flash_wgmma512(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq,
-                          int Lk, const long long* st, float qscale, cudaStream_t stream) {
+int launch_flash_wgmma512(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                          int Lq, int Lk, const long long* st, float qscale, cudaStream_t stream) {
   if (!flash_bf16_rows_ok(q, k, v, o, st)) return kErrBadArgument;
   // more than 48 KB of shared memory is opted into once per process
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -703,7 +709,7 @@ int launch_flash_wgmma512(const void* q, const void* k, const void* v, void* o, 
   }
   dim3 grid((Lq + f512::BQ - 1) / f512::BQ, B * H);
   flash_fwd_wgmma512_kernel<<<grid, f512::THREADS, f512::SMEM_BYTES, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), maps[0], maps[1], static_cast<__nv_bfloat16*>(o), H, Lq, Lk,
+      static_cast<const __nv_bfloat16*>(q), maps[0], maps[1], static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk,
       st[0], st[1], st[2], st[9], st[10], st[11], qscale);
   return (int)cudaGetLastError();
 }
@@ -733,27 +739,29 @@ extern "C" int vs_flash_attention_packed(int dtype, int D, const void* q, const 
   return vs::kErrUnsupported;
 }
 
-// D in {64, 80, 512}.
+// D in {64, 80, 512}. lse: NULL (inference), or fp32 [B, Lq, H] contiguous
+// under a gradient.
 extern "C" int vs_flash_attention_bhld(int dtype, int D, const void* q, const void* k,
-                                       const void* v, void* o, int B, int H, int Lq,
+                                       const void* v, void* o, void* lse, int B, int H, int Lq,
                                        int Lk, const long long* strides, float qscale,
                                        void* stream) {
   if (!vs::flash_sizes_ok(B, H, Lq, Lk)) return vs::kErrBadArgument;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == vs::kBFloat16) {
     switch (D) {
       case 64:
-        return vs::launch_flash_mma<64>(q, k, v, o, nullptr, B, H, Lq, Lk, strides, qscale, s);
+        return vs::launch_flash_mma<64>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
       case 80:
-        return vs::launch_flash_mma<80>(q, k, v, o, nullptr, B, H, Lq, Lk, strides, qscale, s);
+        return vs::launch_flash_mma<80>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
       case 512:
-        return vs::launch_flash_wgmma512(q, k, v, o, B, H, Lq, Lk, strides, qscale, s);
+        return vs::launch_flash_wgmma512(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
       default:
         return vs::kErrUnsupported;
     }
   }
   if (dtype == vs::kFloat32)
-    return vs::flash_entry_fp32(D, q, k, v, o, nullptr, B, H, Lq, Lk, strides, qscale, stream);
+    return vs::flash_entry_fp32(D, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, stream);
   return vs::kErrUnsupported;
 }
 

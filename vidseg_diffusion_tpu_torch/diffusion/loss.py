@@ -2,7 +2,7 @@
 
 Counterpart of vidseg_diffusion_tpu/diffusion/loss.py: the sigma samplers
 (sigma_sampling.py:6-31 of the reference), the eps / v / unit weightings
-(denoiser_weighting.py) and StandardDiffusionLoss with l2 and l1
+(denoiser_weighting.py) and StandardDiffusionLoss with l2, l1 and lpips
 (loss.py:12-105). Random draws take one explicit torch.Generator per site:
 the sigma draw and the noise draw, the two keys JAX splits from `rng`
 (loss.py:77). Both can also be handed in as tensors, so a test can give the
@@ -58,21 +58,22 @@ def unit_weighting(sigma):
 @dataclasses.dataclass(frozen=True)
 class StandardDiffusionLoss:
     """w(sigma) * ||D(x0 + sigma eps, sigma) - x0||^2 averaged over the batch
-    (loss.py:12-105), l2 or l1. The denoiser's network returns (out, aux),
-    and the loss uses out."""
+    (loss.py:12-105), l2 or l1; or lpips: `lpips_fn(pred, x0)` per sample
+    (models.lpips.LPIPS bound to its weights), without the sigma weighting,
+    as the reference applies it (loss.py:101-103). The denoiser's network
+    returns (out, aux), and the loss uses out."""
 
     denoiser: Denoiser
     sigma_sampler: Callable
     weighting: Callable = unit_weighting
     loss_type: str = "l2"
+    lpips_fn: Optional[Callable] = None
 
     def __post_init__(self):
-        if self.loss_type == "lpips":
-            raise NotImplementedError(
-                "loss_type='lpips' comes with the autoencoder-training slice "
-                "(ROADMAP Queue A item 12: models/lpips.py)")
-        if self.loss_type not in ("l2", "l1"):
+        if self.loss_type not in ("l2", "l1", "lpips"):
             raise ValueError(self.loss_type)
+        if self.loss_type == "lpips" and self.lpips_fn is None:
+            raise ValueError("loss_type='lpips' requires lpips_fn")
 
     def __call__(self, network, x0: torch.Tensor, cond: Dict[str, torch.Tensor],
                  generators: Optional[Tuple[torch.Generator, torch.Generator]] = None,
@@ -88,6 +89,8 @@ class StandardDiffusionLoss:
         sigma = sigma.to(device=x0.device, dtype=x0.dtype)
         noised = x0 + noise.to(x0.dtype) * append_dims(sigma, x0.dim())
         pred = self.denoiser(network, noised, sigma, cond)[0]
+        if self.loss_type == "lpips":
+            return self.lpips_fn(pred, x0).reshape(-1).mean()
         w = append_dims(self.weighting(sigma), x0.dim())
         err = (pred - x0) ** 2 if self.loss_type == "l2" else (pred - x0).abs()
         return (w * err).reshape(x0.shape[0], -1).mean(dim=1).mean()

@@ -8,6 +8,10 @@ loop (diffusion.py:117-151). For the temporal video decoder the chunk is
 the number of frames its temporal convolutions see. An AutoencoderKL
 checkpoint (SD 2.1) also carries the 1x1 quant_conv after the encoder and
 post_quant_conv before the decoder; the SVD first stage has neither.
+encode / decode run under torch.no_grad (inference); `moments` and
+`reconstruct` are the same modules under autograd, for autoencoder training
+(engine/train.py AutoencoderTrainStep), and `modules` holds what that
+training optimizes.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn as nn
 
 from vidseg_diffusion_tpu_torch.models.layers import Conv2dNHWC
 from vidseg_diffusion_tpu_torch.models.vae import Decoder, Encoder, gaussian_sample
@@ -35,23 +40,31 @@ class FirstStage:
     quant_conv: Optional[Conv2dNHWC] = None        # 1x1 on the moments
     post_quant_conv: Optional[Conv2dNHWC] = None   # 1x1 on the latents
 
+    def moments(self, x: torch.Tensor) -> torch.Tensor:
+        """[-1, 1] frames [B, H, W, 3] -> posterior moments [B, H/8, W/8, 2z]
+        (the encoder, then quant_conv), under autograd."""
+        moments = self.encoder(x)
+        return self.quant_conv(moments) if self.quant_conv is not None else moments
+
+    def reconstruct(self, z: torch.Tensor) -> torch.Tensor:
+        """Unscaled latents [B, h, w, z] -> frames [B, 8h, 8w, 3]
+        (post_quant_conv, then the decoder), under autograd."""
+        if self.post_quant_conv is not None:
+            z = self.post_quant_conv(z.to(self.decoder.config.dtype))
+        return self.decoder(z, z.shape[0])
+
+    def modules(self) -> nn.ModuleDict:
+        """The first stage's modules under the sgm AutoencoderKL prefixes."""
+        mods = dict(encoder=self.encoder, decoder=self.decoder, quant_conv=self.quant_conv,
+                    post_quant_conv=self.post_quant_conv)
+        return nn.ModuleDict({k: m for k, m in mods.items() if m is not None})
+
     @torch.no_grad()
     def encode(self, x: torch.Tensor, chunk: Optional[int] = None) -> torch.Tensor:
         """[-1, 1] frames [B, H, W, 3] -> scaled mode latents [B, H/8, W/8, z]."""
-        def enc(xc):
-            moments = self.encoder(xc)
-            if self.quant_conv is not None:
-                moments = self.quant_conv(moments)
-            return gaussian_sample(moments)
-
-        return self.scale_factor * _chunked(enc, x, chunk)
+        return self.scale_factor * _chunked(lambda xc: gaussian_sample(self.moments(xc)), x, chunk)
 
     @torch.no_grad()
     def decode(self, z: torch.Tensor, chunk: Optional[int] = None) -> torch.Tensor:
         """Scaled latents [B, h, w, z] -> [-1, 1] frames [B, 8h, 8w, 3]."""
-        def dec(zc):
-            if self.post_quant_conv is not None:
-                zc = self.post_quant_conv(zc.to(self.decoder.config.dtype))
-            return self.decoder(zc, zc.shape[0])
-
-        return _chunked(dec, z / self.scale_factor, chunk)
+        return _chunked(self.reconstruct, z / self.scale_factor, chunk)

@@ -7,7 +7,7 @@ refinement modes are not ported yet (ROADMAP Queue A).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +19,19 @@ from vidseg_diffusion_tpu_torch.ops.kmeans import kmeans_fit
 def _normalize(features: torch.Tensor) -> torch.Tensor:
     """Per-token max-abs channel normalization (feature_extraction.py:39)."""
     return features / features.abs().amax(dim=-1, keepdim=True)
+
+
+def aggregate_blocks(features: Sequence[torch.Tensor]) -> torch.Tensor:
+    """--is_aggre_attn: the mean over blocks (feature_extraction.py:739-745)
+    as the JAX pipeline's jnp.mean(jnp.stack(feats), axis=0) computes it: the
+    blocks summed in order in fp32 (bf16 and fp16 are upcast), times the
+    fp32 reciprocal of the count (XLA compiles jnp.mean's division by the
+    count into that product), rounded once to the features' dtype: bf16
+    features reach kmeans_masks as bf16, as in JAX."""
+    stacked = torch.stack(list(features))
+    acc = torch.float32 if stacked.dtype in (torch.bfloat16, torch.float16) else stacked.dtype
+    inv_count = torch.tensor(1.0 / stacked.shape[0], dtype=acc, device=stacked.device)
+    return (stacked.sum(dim=0, dtype=acc) * inv_count).to(stacked.dtype)
 
 
 def kmeans_masks(

@@ -6,7 +6,9 @@ flax paths to. This module holds those key functions (unet, image or video;
 vae, image or video decoder; clip vision; clip text: the same rules, without
 the JAX package's jax imports) and
 turns a flax parameter tree (nested dicts of numpy arrays) into a state dict
-for the port:
+for the port. The autoencoder-training losses (LPIPS with its VGG16 trunk,
+the PatchGAN discriminator) keep the flax module names, so their key
+function only joins the path:
 
     Dense kernel [in, out]                  -> Linear weight [out, in]
     Conv kernel HWIO [kh, kw, in, out]      -> Conv2d weight OIHW
@@ -132,6 +134,12 @@ def clip_vision_key_fn(path: Path) -> str:
     if leaf in ("positional_embedding", "class_embedding", "proj"):
         return "visual." + ".".join(segs + [leaf])
     return "visual." + ".".join(segs + [{"kernel": "weight", "scale": "weight", "bias": "bias"}[leaf]])
+
+
+def autoencoder_loss_key_fn(path: Path) -> str:
+    """flax path -> key of the port's LPIPS (vgg.conv_{i}, lin_{i}) or
+    NLayerDiscriminator (conv0, conv{i}, norm{i}, conv_out)."""
+    return ".".join(path[:-1] + (_LEAF[path[-1]],))
 
 
 def _flatten(tree: Dict, prefix: Path = ()) -> Dict[Path, np.ndarray]:

@@ -97,7 +97,9 @@ class AttnBlock(nn.Module):
     def forward(self, x):
         b, h, w, c = x.shape
         hn = self.norm(x)
-        q, k, v = (m(hn).reshape(b, 1, h * w, c) for m in (self.q, self.k, self.v))
+        # the projections come out channels-last (no copy); a convolution
+        # without cuDNN returns them NCHW, which K3 cannot read in place
+        q, k, v = (m(hn).reshape(b, 1, h * w, c).contiguous() for m in (self.q, self.k, self.v))
         out = dot_product_attention(q, k, v).reshape(b, h, w, c)
         return x + self.proj_out(out)
 

@@ -125,12 +125,15 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # dtype, D, q, k, v, o, lse (NULL: none), B, H, Lq, Lk, strides[12], qscale, stream
     "vs_flash_attention_packed": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P],
-    # dtype, D, q, k, v, o, B, H, Lq, Lk, strides[12], qscale, stream
-    "vs_flash_attention_bhld": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P],
+    # dtype, D, q, k, v, o, lse (NULL: none), B, H, Lq, Lk, strides[12], qscale, stream
+    "vs_flash_attention_bhld": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P],
     # dtype, D, q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Lq, Lk, strides[24],
     # qscale, scale, stream
     "vs_flash_attention_packed_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _P, _F, _F, _P],
+    # the same arguments, bhld strides
+    "vs_flash_attention_bhld_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _P, _F, _F, _P],
     # dtype, D, q, k, v, o, nvid, t, S, H, qscale, stream
     "vs_temporal_attention_direct": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # dtype, D, q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, stream

@@ -1,5 +1,5 @@
 """Attention: plain PyTorch versions and the wrappers of kernels K1, K2, K3,
-K5 and K6.
+K5, K6 and K13.
 
 Counterpart of vidseg_diffusion_tpu/ops/attention.py. Layouts are the JAX
 package's: packed [B, L, H*D] for K1 and its backward K5, [B, L, H, D]
@@ -12,14 +12,14 @@ there is no fallback between the two. Each wrapper and each plain version
 carries a plain integer counter (`.launches` / `.calls`) that a run can read
 to show which path it took.
 
-Gradients: when grad mode is on and an input requires grad, K1 and K2 run
-inside a torch.autograd.Function (the JAX package's custom_vjp, attention.py
-:1273-1535) whose backward is K5 (packed flash backward) or K6 (direct-layout
-temporal backward) on CUDA and their plain versions on the CPU, so both
-devices have the same autograd structure. K1 then also writes the per-row
-base-2 logsumexp that K5 reads. Otherwise (inference, torch.no_grad) the
-wrappers launch the forward kernel alone: no LSE, no saved tensors. K3 has
-no backward yet and refuses inputs that need one.
+Gradients: when grad mode is on and an input requires grad, K1, K2 and K3
+run inside a torch.autograd.Function (the JAX package's custom_vjps,
+attention.py:1207-1535) whose backward is K5 (packed flash backward), K6
+(direct-layout temporal backward) or K13 (bhld flash backward; K5 at D = 64)
+on CUDA and their plain versions on the CPU, so both devices have the same
+autograd structure. K1 and K3 then also write the per-row base-2 logsumexp
+that K5 and K13 read. Otherwise (inference, torch.no_grad) the wrappers
+launch the forward kernel alone: no LSE, no saved tensors.
 
 The plain versions of the kernels reproduce the kernels' arithmetic: q
 pre-scaled by scale*log2(e) in the input dtype, a base-2 softmax, and the p
@@ -190,6 +190,13 @@ def flash_attention_packed_backward_reference(q, k, v, out, lse, g, heads: int,
     and p where it feeds dv, rounded to the input dtype; dq scaled by
     `scale`, dk divided by log2(e). Returns (dq, dk, dv) packed."""
     flash_attention_packed_backward_reference.calls += 1
+    return _packed_backward_math(q, k, v, out, lse, g, heads, scale)
+
+
+flash_attention_packed_backward_reference.calls = 0
+
+
+def _packed_backward_math(q, k, v, out, lse, g, heads, scale):
     b, lq, hd = q.shape
     lk = k.shape[1]
     d = hd // heads
@@ -208,9 +215,6 @@ def flash_attention_packed_backward_reference(q, k, v, out, lse, g, heads: int,
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * (1.0 / LOG2_E)
     return (dq.reshape(b, lq, hd).to(dt), dk.reshape(b, lk, hd).to(k.dtype),
             dv.reshape(b, lk, hd).to(v.dtype))
-
-
-flash_attention_packed_backward_reference.calls = 0
 
 
 def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
@@ -408,20 +412,70 @@ def temporal_attention_direct_backward(q, k, v, out, g, t: int, scale: Optional[
 temporal_attention_direct_backward.launches = 0
 
 
-# -- K3: bhld flash attention -------------------------------------------------
+# -- K3: bhld flash attention (forward, LSE under a gradient) ------------------
 
 
-def flash_attention_reference(q, k, v, scale: Optional[float] = None):
-    """Plain version of K3 on bhld [B, H, L, D]."""
+def flash_attention_reference(q, k, v, scale: Optional[float] = None, save_lse: bool = False):
+    """Plain version of K3 on bhld [B, H, L, D]; save_lse also returns the
+    base-2 LSE fp32 [B, Lq, H] (for one head, JAX's [B*H, Lq] of the heads=1
+    forward under a gradient)."""
     flash_attention_reference.calls += 1
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
-    out = _attention_base2(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale
+    res = _attention_base2(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale, with_lse=save_lse
     )
-    return out.transpose(1, 2).to(q.dtype)
+    if save_lse:
+        return res[0].transpose(1, 2).to(q.dtype), res[1]
+    return res.transpose(1, 2).to(q.dtype)
 
 
 flash_attention_reference.calls = 0
+
+
+def _check_bhld(name, q, k, v):
+    dtype = _cuda.check_cuda_tensors(name, q, k, v)
+    if q.dim() != 4 or k.shape != v.shape or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"{name}: bad shapes {q.shape} {k.shape} {v.shape}")
+    return dtype
+
+
+def _flash_attention_forward(q, k, v, scale: Optional[float], save_lse: bool):
+    """K3 on CUDA tensors (the plain version on CPU): out, or (out, lse)."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale, save_lse=save_lse)
+    dtype = _check_bhld("flash_attention", q, k, v)
+    b, h, lq, d = q.shape
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    out = torch.empty((b, h, lq, d), dtype=dtype, device=q.device)
+    lse = torch.empty((b, lq, h), dtype=torch.float32, device=q.device) if save_lse else None
+    strides = _cuda.strides_arg(q, k, v, out, dims=(0, 2, 1))
+    _check_bf16_rows("flash_attention", dtype, strides, 9, q, k, v)
+    _cuda.call(
+        "vs_flash_attention_bhld", _cuda.DTYPE_CODES[dtype], d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if save_lse else None,
+        b, h, lq, k.shape[2], strides, float(_rounded_qscale(scale, dtype)),
+    )
+    flash_attention.launches += 1
+    return (out, lse) if save_lse else out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K3 forward with LSE; K13 backward (the JAX package's _fa custom_vjp:
+    _fa_fwd saves the LSE, _fa_bwd runs the packed backward with heads=1)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = _flash_attention_forward(q, k, v, scale, save_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, g.contiguous(), ctx.scale)
+        return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None):
@@ -430,34 +484,74 @@ def flash_attention(q, k, v, scale: Optional[float] = None):
     a strided view (CLIP's [B, L, H, D] projections seen as bhld) is read in
     place. bf16 runs on the tensor cores (wgmma at D = 512, mma.sync at 64 and
     80) and needs 16-byte aligned rows; fp32 runs the FMA kernel.
-    Forward only: its backward (the JAX package routes it to the packed
-    backward with heads=1, attention.py:1211-1261) comes with the
-    autoencoder-training slice, so an input that needs a gradient raises
-    instead of returning a detached output."""
+    Differentiable: with grad on, the forward also writes the LSE and the
+    backward is K13 (K5 at D = 64)."""
     if _needs_grad(q, k, v):
-        raise NotImplementedError(
-            "flash_attention (K3) has no backward yet: it comes with the autoencoder-training "
-            "slice (ROADMAP Queue A item 12); call it under torch.no_grad()")
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale)
-    dtype = _cuda.check_cuda_tensors("flash_attention", q, k, v)
-    if q.dim() != 4 or k.shape != v.shape or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
-        raise ValueError(f"flash_attention: bad shapes {q.shape} {k.shape} {v.shape}")
-    b, h, lq, d = q.shape
-    scale = 1.0 / math.sqrt(d) if scale is None else scale
-    out = torch.empty((b, h, lq, d), dtype=dtype, device=q.device)
-    strides = _cuda.strides_arg(q, k, v, out, dims=(0, 2, 1))
-    _check_bf16_rows("flash_attention", dtype, strides, 9, q, k, v)
-    _cuda.call(
-        "vs_flash_attention_bhld", _cuda.DTYPE_CODES[dtype], d,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, lq, k.shape[2], strides, float(_rounded_qscale(scale, dtype)),
-    )
-    flash_attention.launches += 1
-    return out
+        return _FlashAttention.apply(q, k, v, scale)
+    return _flash_attention_forward(q, k, v, scale, save_lse=False)
 
 
 flash_attention.launches = 0
+
+
+# -- K13: bhld flash-attention backward ----------------------------------------
+
+
+def flash_attention_backward_reference(q, k, v, out, lse, g, scale: Optional[float] = None):
+    """Plain version of K13: the packed backward's math with heads=1 on
+    [B*H, L, D] (what the JAX package's _fa_bwd runs); lse fp32 [B, Lq, H].
+    Returns (dq, dk, dv) bhld."""
+    flash_attention_backward_reference.calls += 1
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    flat = lambda t, l: t.reshape(b * h, l, d)
+    lse1 = lse.permute(0, 2, 1).reshape(b * h, lq, 1)
+    dq, dk, dv = _packed_backward_math(flat(q, lq), flat(k, lk), flat(v, lk), flat(out, lq), lse1,
+                                       flat(g, lq), 1, scale)
+    return dq.reshape(b, h, lq, d), dk.reshape(b, h, lk, d), dv.reshape(b, h, lk, d)
+
+
+flash_attention_backward_reference.calls = 0
+
+
+def flash_attention_backward(q, k, v, out, lse, g, scale: Optional[float] = None):
+    """K13: (dq, dk, dv) of K3 from its saved LSE, bhld [B, H, L, D] read and
+    written through strides; two kernels, dq over key tiles and dk/dv over
+    query tiles, each the only writer of its outputs. D = 512 and 80; D = 64
+    runs K5 on the same strides (the JAX package routes every head dim through
+    the one packed backward). The plain version on CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, out, lse, g, scale)
+    dtype = _check_bhld("flash_attention_backward", q, k, v)
+    _cuda.check_cuda_tensors("flash_attention_backward", q, out, g)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    if out.shape != q.shape or g.shape != q.shape or lse.shape != (b, lq, h):
+        raise ValueError(f"flash_attention_backward: bad shapes out {out.shape}, g {g.shape}, "
+                         f"lse {lse.shape} for q {q.shape}")
+    if lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError("flash_attention_backward: lse must be contiguous fp32 on q's device")
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
+    delta = torch.empty((b, lq, h), dtype=torch.float32, device=q.device)  # scratch
+    strides = _cuda.strides_arg(q, k, v, out, g, dq, dk, dv, dims=(0, 2, 1))
+    _check_bf16_rows("flash_attention_backward", dtype, strides, 15, q, k, v, out, g)
+    k5 = d == 64
+    _cuda.call(
+        "vs_flash_attention_packed_bwd" if k5 else "vs_flash_attention_bhld_bwd",
+        _cuda.DTYPE_CODES[dtype], d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, lq, lk, strides, float(_rounded_qscale(scale, dtype)), float(scale),
+    )
+    if k5:
+        flash_attention_packed_backward.launches += 1
+    else:
+        flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
 
 
 # -- dispatcher -------------------------------------------------------------
@@ -493,6 +587,7 @@ PLAIN_COUNTERS = (
     flash_attention_reference,
     flash_attention_packed_backward_reference,
     temporal_attention_direct_backward_reference,
+    flash_attention_backward_reference,
 )
 KERNEL_COUNTERS = (
     flash_attention_packed,
@@ -500,4 +595,5 @@ KERNEL_COUNTERS = (
     flash_attention,
     flash_attention_packed_backward,
     temporal_attention_direct_backward,
+    flash_attention_backward,
 )

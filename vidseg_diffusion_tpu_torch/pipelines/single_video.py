@@ -39,7 +39,7 @@ import torch
 
 from vidseg_diffusion_tpu_torch.io import video as vio
 from vidseg_diffusion_tpu_torch.engine.build import Pipeline
-from vidseg_diffusion_tpu_torch.engine.masks import kmeans_masks
+from vidseg_diffusion_tpu_torch.engine.masks import aggregate_blocks, kmeans_masks
 from vidseg_diffusion_tpu_torch.engine.modulation import ModulationConfig
 from vidseg_diffusion_tpu_torch.engine.segmentation import (
     compute_difference,
@@ -277,7 +277,7 @@ def run_single_video(
             "so features at earlier steps were never produced."
         )
     feats = [cache[HarvestSpec.name(b, "spatial_self", "q")][feat_t - cache_t0] for b in cluster_blocks]
-    feat = torch.stack(feats).float().mean(dim=0) if len(feats) > 1 else feats[0]
+    feat = aggregate_blocks(feats) if len(feats) > 1 else feats[0]
     div = cluster_div[cluster_blocks[0]]
     fh, fw = h_lat // div, w_lat // div
     init = None if kmeans_init is None else torch.tensor(np.asarray(kmeans_init, dtype=np.float32))

@@ -69,21 +69,21 @@ def device_time_report(prof, wall: float, top: int = 30, unprofiled_wall: float 
     return "\n".join(lines)
 
 
-def glue_split(prof, top: int = 25) -> str:
-    """Device time of the 'other (PyTorch)' kernels by the innermost
-    enclosing "vs:" record_function range of the op that launched them; for
-    kernels launched by the autograd engine outside any range, by the autograd
-    node ("bwd <Node>"). Reads the profiler's event tree: a CPU op event
-    lists the kernels it launched, and its cpu_parent chain leads to the
-    range."""
+def glue_split(prof, top: int = 25, group: str = "other (PyTorch)", prefix: str = "vs:") -> str:
+    """Device time of the kernels of `group` ('other (PyTorch)': PyTorch's
+    own) by the innermost enclosing record_function range whose name starts
+    with `prefix` of the op that launched them; for kernels launched by the
+    autograd engine outside any range, by the autograd node ("bwd <Node>").
+    Reads the profiler's event tree: a CPU op event lists the kernels it
+    launched, and its cpu_parent chain leads to the range."""
     by_site, total = {}, 0.0
     for ev in prof.events():
-        kernels = [k for k in getattr(ev, "kernels", ()) if _group(k.name) == "other (PyTorch)"]
+        kernels = [k for k in getattr(ev, "kernels", ()) if _group(k.name) == group]
         if not kernels:
             continue
         site, node, up = None, None, ev
         while up is not None and site is None:
-            if up.name.startswith("vs:"):
+            if up.name.startswith(prefix):
                 site = up.name
             elif node is None and up.name.startswith("autograd::engine::evaluate_function: "):
                 node = "bwd " + up.name.split(": ", 1)[1]
@@ -95,8 +95,8 @@ def glue_split(prof, top: int = 25) -> str:
         cell[1] += len(kernels)
         total += us
     if not total:
-        return "PyTorch-kernel split: the profiler linked no kernel to a CPU op"
-    lines = [f"PyTorch's own kernels by launch site: {total / 1e6:.3f} s"]
+        return f"{group} split: the profiler linked no kernel to a CPU op"
+    lines = [f"{group} kernels by launch site: {total / 1e6:.3f} s"]
     for key, (us, n) in sorted(by_site.items(), key=lambda kv: -kv[1][0])[:top]:
         lines.append(f"{us / 1e6:9.3f} s {100 * us / total:5.1f}%  {n:7d}x  {key}")
     return "\n".join(lines)
