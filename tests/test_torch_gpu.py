@@ -26,6 +26,11 @@ also held to fp64 statistics of the same input (STATS_TOL, relative). K11
 the LSE that K3 writes under a gradient (held to the plain LSE within
 LSE_TOL). Modules under autograd (the VAE's AttnBlock) hold the card's
 parameter gradients to the CPU's plain path within GRAD_REL_TOL by norm.
+K1 (bf16, D = 64, also through K3's bhld entry) and K11 (bf16 that TMA can
+address) run wgmma kernels: their wrappers' route counters
+(`.wgmma_launches`) must move with the launch counters, and an unaddressable
+K11 input must take the mma.sync tile; K1 takes chip_smoke.py's forward
+bounds there (RMS_TOL["K1"]).
 """
 
 import math
@@ -43,7 +48,7 @@ from vidseg_diffusion_tpu_torch.ops import temporal_conv as TC
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
-RMS_TOL = {"K4": 5e-4, "K5": 1e-3, "K6": 2e-4, "GN": 5e-4, "K11": 5e-4, "K12": 5e-4,
+RMS_TOL = {"K1": 4e-3, "K4": 5e-4, "K5": 1e-3, "K6": 2e-4, "GN": 5e-4, "K11": 5e-4, "K12": 5e-4,
            "K13": 1e-3}  # bf16; fp32 is FP32_TOL
 STATS_TOL = 2e-5  # K7's fp32 mean (relative to the rms of x) and inv-std vs fp64
 MAX_STEPS = 2
@@ -128,6 +133,89 @@ def test_flash_attention_packed_refuses_unaligned_bf16(cuda):
         A.flash_attention_packed(x, x, x, heads=1)
 
 
+# K1's wgmma kernel (bf16): one query row and one key, Lq off the 64-row tile
+# at 77 / 91 / 364 keys (the short-walk shape of the kernel), 5824 keys (the
+# long-walk shape: two warpgroups, 128-key tiles) with Lq on and off the tile
+K1_WGMMA_SHAPES = [(3, 1, 1, 2), (2, 1, 77, 2), (2, 77, 77, 3), (28, 91, 77, 4), (4, 91, 91, 20),
+                   (2, 364, 364, 20), (1, 5824, 77, 5), (1, 5824, 5824, 2), (2, 130, 5824, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,lq,lk,h", K1_WGMMA_SHAPES)
+def test_flash_attention_packed_wgmma_route(cuda, b, lq, lk, h):
+    """bf16 K1 runs the wgmma kernel (its route counter moves with its launch
+    counter) within chip_smoke.py's bounds of the plain version, and its
+    saved LSE within LSE_TOL of the plain LSE."""
+    bf = torch.bfloat16
+    q = _randn(cuda, 120, bf, b, lq, h * 64)
+    k, v = (_randn(cuda, s, bf, b, lk, h * 64) for s in (121, 122))
+    wg = A.flash_attention_packed.wgmma_launches
+    out = _check_forward(A.flash_attention_packed, A.flash_attention_packed_reference, RMS_TOL["K1"], q, k, v, h)
+    assert A.flash_attention_packed.wgmma_launches == wg + 1 and out.shape == q.shape
+    out2, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True)
+    _, lse_ref = A.flash_attention_packed_reference(q, k, v, h, save_lse=True)
+    assert torch.equal(out2, out) and lse.shape == (b, lq, h)
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,h", [(2, 300, 4), (1, 3000, 2)])
+def test_flash_attention_packed_reads_fused_qkv_slices_in_place(cuda, b, l, h):
+    """q, k, v as strided slices of one fused [B, L, 3*H*64] projection (a row
+    stride of 3*H*64) are read in place by the tensor maps: no copy, same
+    result as the plain version on contiguous copies."""
+    bf = torch.bfloat16
+    qkv = _randn(cuda, 123, bf, b, l, 3 * h * 64)
+    q, k, v = qkv.split(h * 64, dim=-1)
+    assert not q.is_contiguous() and q.stride(1) == 3 * h * 64
+    wg = A.flash_attention_packed.wgmma_launches
+    out = A.flash_attention_packed(q, k, v, h)
+    torch.cuda.synchronize()
+    assert A.flash_attention_packed.wgmma_launches == wg + 1
+    ref = A.flash_attention_packed_reference(q.contiguous(), k.contiguous(), v.contiguous(), h)
+    _close_grads((out,), (ref,), RMS_TOL["K1"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq,lk", [(300, 300), (130, 3000)])
+def test_flash_attention_packed_autograd_matches_the_plain_forward(cuda, lq, lk):
+    """Autograd through K1 (its wgmma kernel writing the LSE) and K5 against
+    autograd through the plain forward, same bf16 inputs and output gradient:
+    each of dq, dk, dv within 1e-2 of its norm. (K5 rounds p and ds to bf16
+    before its products, as the JAX kernels do, and autograd of the plain
+    forward does not; a wrong LSE or a wrong p moves the gradients by O(1).)"""
+    bf, h, b = torch.bfloat16, 2, 2
+    q = _randn(cuda, 124, bf, b, lq, h * 64)
+    k, v = (_randn(cuda, s, bf, b, lk, h * 64) for s in (125, 126))
+    g = _randn(cuda, 127, bf, b, lq, h * 64)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    k5 = A.flash_attention_packed_backward.launches
+    A.flash_attention_packed(*leaves, h).backward(g)
+    assert A.flash_attention_packed_backward.launches == k5 + 1
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    A.flash_attention_packed_reference(*ref, h).backward(g)
+    for got, want in zip(leaves, ref):
+        assert bool(torch.isfinite(got.grad).all())
+        rel = (got.grad.float() - want.grad.float()).norm().item() / want.grad.float().norm().item()
+        assert rel <= 1e-2, rel
+
+
+@pytest.mark.gpu
+def test_flash_attention_bhld_d64_takes_the_wgmma_kernel(cuda):
+    """K3 at D = 64 in bf16 (contiguous bhld and [B, L, H, D] seen as bhld)
+    runs K1's wgmma kernel: its route counter moves, the output and the LSE
+    agree with the plain version."""
+    bf = torch.bfloat16
+    for q, k, v in (tuple(_randn(cuda, i, bf, 2, 3, 100, 64) for i in (128, 129, 130)),
+                    tuple(_randn(cuda, i, bf, 2, 90, 3, 64).transpose(1, 2) for i in (131, 132, 133))):
+        wg = A.flash_attention.wgmma_launches
+        _check_forward(A.flash_attention, A.flash_attention_reference, RMS_TOL["K1"], q, k, v)
+        out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
+        assert A.flash_attention.wgmma_launches == wg + 2
+        _, lse_ref = A.flash_attention_reference(q, k, v, save_lse=True)
+        assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("b,t,s,h", [(2, 14, 20, 2), (2, 1, 16, 1), (1, 32, 9, 2), (3, 5, 91, 3)])
@@ -156,7 +244,7 @@ def test_flash_attention_bhld(cuda, dt, b, h, lq, lk, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("d", [512, 80])
+@pytest.mark.parametrize("d", [512, 80, 64])
 def test_flash_attention_bhld_strided_views(cuda, dt, d):
     """[B, L, H, D] projections seen as bhld (CLIP's layout) and a batch slice
     of a larger tensor are read in place through their strides; a bf16 view
@@ -525,6 +613,39 @@ def test_matmul_bias(cuda, dt, with_bias, lead, k, n):
     bias = _randn(cuda, 92, dtype, n) if with_bias else None
     y = _check_forward(MM.matmul_bias, MM.matmul_bias_plain, RMS_TOL["K11"], x, w, bias)
     assert y.shape == tuple(lead) + (n,) and y.is_contiguous()
+
+
+# K11's wgmma kernel: M below, around and far above the 128- and 192-row
+# tiles, N off the 160-wide tile (168), K off the 64-channel slice (1032)
+MM_WGMMA_SHAPES = [(1, 320, 320), (28, 1024, 1280), (193, 1032, 168), (193, 320, 1280), (28, 1032, 320),
+                   (2156, 1024, 1280), (163072, 320, 320), (163072, 1024, 168)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("m,k,n", MM_WGMMA_SHAPES)
+def test_matmul_bias_wgmma_route(cuda, with_bias, m, k, n):
+    """bf16 inputs that TMA can address run the wgmma kernel (the route
+    counter moves with the launch counter), within the forward bounds."""
+    bf = torch.bfloat16
+    x = _randn(cuda, 140, bf, m, k)
+    w = _randn(cuda, 141, bf, n, k, scale=k ** -0.5)
+    bias = _randn(cuda, 142, bf, n) if with_bias else None
+    wg = MM.matmul_bias.wgmma_launches
+    y = _check_forward(MM.matmul_bias, MM.matmul_bias_plain, RMS_TOL["K11"], x, w, bias)
+    assert MM.matmul_bias.wgmma_launches == wg + 1 and y.shape == (m, n)
+
+
+@pytest.mark.gpu
+def test_matmul_bias_unaddressable_k_takes_the_mma_sync_tile(cuda):
+    """K % 8 != 0 (x's rows off a 16-byte stride: TMA cannot address them) and
+    fp32 do not run the wgmma kernel; both stay within the bounds."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _randn(cuda, 143, dtype, 50, 65)
+        w = _randn(cuda, 144, dtype, 40, 65, scale=65 ** -0.5)
+        wg = MM.matmul_bias.wgmma_launches
+        _check_forward(MM.matmul_bias, MM.matmul_bias_plain, RMS_TOL["K11"], x, w, None)
+        assert MM.matmul_bias.wgmma_launches == wg
 
 
 @pytest.mark.gpu

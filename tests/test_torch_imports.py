@@ -51,7 +51,7 @@ def test_port_imports_no_jax():
                 "ops.matmul", "ops.conv3x3", "io.tokenizer", "scripts.sd_path", "scripts.main_path",
                 "scripts.profile_single_video", "diffusion.denoiser", "diffusion.discretization",
                 "diffusion.guidance", "models.conditioner", "models.lpips", "models.regularizers",
-                "scripts.autoencoder_train_path"}
+                "scripts.autoencoder_train_path", "scripts.time_kernels"}
     assert expected <= {m.split(".", 1)[1] for m in res["modules"]}
     assert res["jax"] == []
     assert res["after_color_map"] == [] and res["palette"] == [128, 3]

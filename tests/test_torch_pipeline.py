@@ -11,9 +11,13 @@ second time with is_injected_features: the temporal self-attention q/k that
 both feature passes cache (JAX in its default direct layout) must agree, and
 so must the injected runs; and a third time with is_aggre_attn (the cluster
 features are the mean of three blocks' q, rounded where jnp.mean rounds).
+A fourth run hands both the same precomputed masks (mask_override). The
+signature, cluster_feature_hw and the refusal of gt_mask / gt_state are held
+to the JAX function's too.
 """
 
 import inspect
+import types
 
 import jax
 import jax.numpy as jnp
@@ -27,13 +31,16 @@ from vidseg_diffusion_tpu.engine.masks import _normalize
 from vidseg_diffusion_tpu.io.checkpoint import unet_key_fn
 from vidseg_diffusion_tpu.models.clip import clip_vision_key_fn
 from vidseg_diffusion_tpu.ops.kmeans import _kmeanspp_init
+from vidseg_diffusion_tpu.config import load_model_spec as j_spec
 from vidseg_diffusion_tpu.pipelines.single_video import VidSegArgs as JArgs
+from vidseg_diffusion_tpu.pipelines.single_video import cluster_feature_hw as j_cluster_hw
 from vidseg_diffusion_tpu.pipelines.single_video import run_single_video as j_run
 from vidseg_diffusion_tpu_torch.engine import vidseg as tvidseg
 from vidseg_diffusion_tpu_torch.engine.build import build_pipeline as t_build
 from vidseg_diffusion_tpu_torch.engine.masks import aggregate_blocks
+from vidseg_diffusion_tpu_torch.config import load_model_spec as t_spec
 from vidseg_diffusion_tpu_torch.io import convert
-from vidseg_diffusion_tpu_torch.pipelines.single_video import VidSegArgs, run_single_video
+from vidseg_diffusion_tpu_torch.pipelines.single_video import VidSegArgs, cluster_feature_hw, run_single_video
 
 CONFIG = "configs/inference/svd_tiny.yaml"
 T, HPX, WPX, STEPS, MASKS, SEED = 3, 64, 64, 6, 2, 1
@@ -57,8 +64,9 @@ def _sd(tree, key_fn, strip=""):
     return {k: torch.tensor(v) for k, v in convert.jax_to_state_dict(np_tree, key_fn, strip).items()}
 
 
-def _run_both(out_dir, config=CONFIG, **flags):
-    """(JAX result, captured JAX tensors, port result, captured port cache)."""
+def _run_both(out_dir, config=CONFIG, mask_override=None, **flags):
+    """(JAX result, captured JAX tensors, port result, captured port cache);
+    mask_override goes to both run_single_videos."""
     frames = np.random.RandomState(0).uniform(-1, 1, (T, HPX, WPX, 3)).astype(np.float32)
     names = [str(i) for i in range(T)]
     jp = j_build(config, num_steps=STEPS, num_frames=T)
@@ -88,7 +96,7 @@ def _run_both(out_dir, config=CONFIG, **flags):
     mp.setattr(eng, "modulated_runs_host_stepped", runs_stepped)
     try:
         jres = j_run(jp, frames, names, JArgs(mesh="off", runs_chunk=1, **ARGS, **flags),
-                     write_outputs=False)
+                     write_outputs=False, mask_override=mask_override)
     finally:
         mp.undo()
 
@@ -121,7 +129,8 @@ def _run_both(out_dir, config=CONFIG, **flags):
     try:
         tres = run_single_video(
             tp, frames, names, VidSegArgs(feature_folder=str(out_dir), **ARGS, **flags),
-            write_outputs=out_dir is not None, cond_aug_noise=aug, noise=noise, kmeans_init=init)
+            write_outputs=out_dir is not None, mask_override=mask_override, cond_aug_noise=aug, noise=noise,
+            kmeans_init=init)
     finally:
         mp.undo()
     return jres, captured, tres, tcache
@@ -153,6 +162,23 @@ def aggre_runs(tmp_path_factory):
     path = tmp_path_factory.mktemp("aggre") / "svd_tiny_3_blocks.yaml"
     path.write_text(text.replace("num_res_blocks: 1", "num_res_blocks: 2", 1))
     return _run_both(None, config=str(path), is_aggre_attn=True)
+
+
+OVERRIDE_MASKS = 3   # not MASKS: the override, not args.num_masks, sets the run count
+
+
+@pytest.fixture(scope="module")
+def override_runs():
+    """Both pipelines on the same precomputed one-hot masks [K, T, fh*fw]
+    at the clustering block's token resolution: vertical bands, as an
+    object-shaped mask would be (per-token noise masks leave the K
+    difference maps too alike for the label check to say anything)."""
+    fh, fw = j_cluster_hw(types.SimpleNamespace(spec=j_spec(CONFIG, num_frames=T)),
+                          JArgs(**ARGS), HPX, WPX, T)
+    cols = np.arange(fh * fw) % fw
+    labels = np.broadcast_to(cols * OVERRIDE_MASKS // fw, (T, fh * fw))
+    masks = (labels[None] == np.arange(OVERRIDE_MASKS)[:, None, None]).astype(np.float32)
+    return _run_both(None, mask_override=masks) + (masks,)
 
 
 def _rel_close(got, want, rtol):
@@ -297,6 +323,68 @@ def test_injection_changes_the_runs_and_counts_its_sites(runs, injected_runs):
     gated_steps = STEPS - min(ARGS["modulate_timestep"])
     assert tres.injected_sites == 2 * MASKS * gated_steps * blocks > 0
     assert plain.injected_sites == 0 and plain.injected_cache_bytes == 0
+
+
+def test_mask_override_runs_match_jax(override_runs):
+    """mask_override replaces the clustering in both pipelines (JAX
+    single_video.py:458-463): the masks are the override's, the labels
+    arange(K), the latents within 1e-3 and the label maps JAX's."""
+    jres, cap, tres, _, masks = override_runs
+    k = OVERRIDE_MASKS
+    np.testing.assert_array_equal(tres.unique_labels, np.arange(k))
+    np.testing.assert_array_equal(tres.unique_labels, jres.unique_labels)
+    np.testing.assert_array_equal(tres.masks, jres.masks)
+    np.testing.assert_array_equal(tres.masks.reshape(masks.shape), masks)
+    assert tres.final_latents.shape == cap["finals"].shape == (2, k, T, HPX // 8, WPX // 8, 4)
+    _rel_close(tres.feature_x0, cap["x0"], LATENT_RTOL)
+    _rel_close(tres.final_latents, cap["finals"], LATENT_RTOL)
+    _labels_match(jres, tres)
+    assert set(np.unique(tres.seg_raw)) <= set(range(k))
+    assert tres.gt_state is None and jres.gt_state is None
+
+
+@pytest.mark.parametrize("config,hpx,wpx,flags,want", [
+    ("configs/inference/svd_tiny.yaml", 64, 64, {}, None),
+    ("configs/inference/sd_tiny.yaml", 64, 64, {}, None),
+    ("configs/inference/svd_tiny.yaml", 128, 192, {"is_aggre_attn": True}, None),
+    # the full-width configs at the main paths' 448x832 (56x104 latents): the
+    # clustering blocks 8 (SVD) and 7 (SD) sit at latent divisor 2
+    ("configs/inference/svd.yaml", 448, 832, {}, (28, 52)),
+    ("configs/inference/sd_2_1.yaml", 448, 832, {}, (28, 52)),
+])
+def test_cluster_feature_hw_matches_jax(config, hpx, wpx, flags, want):
+    """The clustering block's token resolution from the configs alone (no
+    model is built), equal to the JAX function's."""
+    got = cluster_feature_hw(types.SimpleNamespace(spec=t_spec(config, num_frames=T)),
+                             VidSegArgs(**flags), hpx, wpx, T)
+    ref = j_cluster_hw(types.SimpleNamespace(spec=j_spec(config, num_frames=T)), JArgs(**flags), hpx, wpx, T)
+    assert got == tuple(ref)
+    if want is not None:
+        assert got == want
+
+
+@pytest.mark.parametrize("which", ["gt_mask", "gt_state"])
+def test_gt_mask_and_state_raise_not_implemented(which):
+    """A caller written against the JAX signature (gt_mask 6th, gt_state 7th
+    positionally) gets the roadmap's NotImplementedError, not a TypeError."""
+    frames = np.zeros((T, HPX, WPX, 3), np.float32)
+    given = {"gt_mask": (np.zeros(16 * 16, np.int32), None), "gt_state": (None, object())}[which]
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 1"):
+        run_single_video(None, frames, ["0", "1", "2"], VidSegArgs(**ARGS), None, *given)
+
+
+def test_signature_follows_jax():
+    """run_single_video's parameters are JAX's, in JAX's order and with its
+    defaults, less `mesh` (not ported); the port's own draws follow as
+    keyword-only parameters."""
+    jsig = inspect.signature(j_run).parameters
+    tsig = inspect.signature(run_single_video).parameters
+    shared = [n for n in jsig if n != "mesh"]
+    positional = [n for n, p in tsig.items() if p.kind == p.POSITIONAL_OR_KEYWORD]
+    assert positional == shared
+    assert all(tsig[n].default == jsig[n].default for n in shared)
+    extra = [n for n, p in tsig.items() if p.kind == p.KEYWORD_ONLY]
+    assert extra == ["cond_aug_noise", "noise", "kmeans_init"]
 
 
 @pytest.mark.parametrize("flag,value", [

@@ -21,9 +21,13 @@
 // arithmetic. Each (q-tile, head) block walks the keys in key tiles,
 // keeping the running max, denominator and output on chip, so no logits ever
 // reach device memory. The ragged key tail is masked to -inf; ragged query
-// rows compute on zeros and are not stored. Three kernels:
-// - bf16 at D = 64 and 80 (K1 at every spatial UNet site; K3 at CLIP's 80-dim
-//   heads) runs on the tensor cores with mma.sync (flash_fwd_mma_kernel);
+// rows compute on zeros and are not stored. Four kernels:
+// - bf16 at D = 64 (K1 at every spatial UNet site, K3 at D = 64) runs on wgmma
+//   fed by TMA (flash_fwd_wgmma64_kernel, below): consumer warpgroups whose
+//   softmax and products interleave, K/V tiles through a ring filled by a
+//   producer warp;
+// - bf16 K3 at D = 80 (CLIP's heads) runs on the tensor cores with mma.sync
+//   (flash_fwd_mma_kernel);
 // - bf16 K3 at D = 512 (the VAE's one-head mid attention) runs on wgmma
 //   (flash_fwd_wgmma512_kernel, below): a 64 x 512 fp32 output tile is 128
 //   accumulator registers a thread over 256 threads, so two warpgroups each
@@ -249,8 +253,8 @@ int flash_entry_fp32(int D, const void* q, const void* k, const void* v, void* o
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 64 (K1, K3) and D = 80 (K3) on the tensor cores: mma.sync.m16n8k16
-// (bf16 in, fp32 accumulate).
+// bf16 K3 at D = 80 on the tensor cores: mma.sync.m16n8k16 (bf16 in, fp32
+// accumulate).
 //
 // Four warps per block, each owning 16 of the block's 64 query rows. Q (pre-
 // scaled, rounded to bf16) stays in registers as A fragments for the whole
@@ -714,6 +718,329 @@ int launch_flash_wgmma512(const void* q, const void* k, const void* v, void* o, 
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D = 64 (K1 at every spatial UNet site, K3 at D = 64) on wgmma fed by
+// TMA. A block holds NWG consumer warpgroups (64 query rows each) and one
+// producer warp.
+//
+// What bounds it: at D = 64 one score costs 4 * 64 = 256 tensor-core flops,
+// 1/16 of an SM clock at 4096 bf16 flops per clock and SM, and its exp2 costs
+// 1/16 of an SM clock too (16 MUFU results per clock and SM): the softmax is as
+// costly as the two products, so the bound on the tensor cores is reached only
+// when one warpgroup's exp2s run while another's wgmmas do. Design:
+// - the producer warp's first thread asks TMA for the block's Q box (rank-4
+//   tiled maps over q, k and v through their (batch, row, head) strides, read
+//   in place; a 64-element row is one 128-byte swizzled box row), then for the
+//   K and V tiles of BK keys through a ring of STAGES stages (`full` / `empty`
+//   mbarriers); rows past Lq or Lk arrive as zeros;
+// - each consumer warpgroup scales its 64 Q rows by scale * log2(e) in shared
+//   memory, rounded to bf16 once (then a proxy fence: wgmma reads through the
+//   async proxy), and per key tile computes S = Q K^T (4 x m64nBKk16 from
+//   shared memory, BK / 2 fp32 registers a thread), the online softmax in base
+//   2 on the accumulators (the ragged key tail masked to -inf), p rounded to
+//   bf16 and summed as rounded, and O += P V with p as the register A operand
+//   (BK / 16 x m64n64k16, V the MN-major B operand);
+// - inside a warpgroup, S of tile j and P V of tile j - 1 are issued together,
+//   so the softmax of tile j runs while P V of tile j - 1 multiplies; with two
+//   warpgroups, named barriers hand the turn to issue wgmmas round robin, which
+//   keeps one warpgroup's exp2s beside the other's products; with one, three
+//   blocks share an SM and interleave the same way on their own;
+// - the epilogue divides by the row sums, stages the 64 x 64 tile in the
+//   warpgroup's own Q rows and stores it 16 bytes a thread, ragged query rows
+//   not stored; with `lse` it writes m + log2(l).
+// Measured and dropped (PERF.md): three warpgroups a block (ptxas leaves 128
+// registers a thread at 416 threads and spills), two warpgroups with 64-key
+// tiles at two blocks an SM (96 registers, spills), four one-warpgroup blocks
+// an SM (wgmmas serialized for want of registers).
+template <int NWG_, int BK_, int STAGES_, int MINB_>
+struct F64 {
+  static constexpr int D = 64, BK = BK_, NWG = NWG_, BQ = 64 * NWG, STAGES = STAGES_, MINB = MINB_;
+  static constexpr int THREADS = 128 * NWG + 32;   // consumer warpgroups, then the producer warp
+  static constexpr int WG_Q_BYTES = 64 * 128, Q_BYTES = NWG * WG_Q_BYTES;
+  static constexpr int KV_BYTES = BK * 128, STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int BAR_OFFSET = Q_BYTES + STAGES * STAGE_BYTES;  // q, STAGES full, STAGES empty
+  static constexpr int SMEM_BYTES = BAR_OFFSET + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(BK == 64 || BK == 128, "key tile");
+};
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::MINB) flash_fwd_wgmma64_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+    int H, int Lq, int Lk, long long osb, long long osl, long long osh, float qscale) {
+  constexpr int D = C::D, BK = C::BK, NWG = C::NWG, BQ = C::BQ, STAGES = C::STAGES;
+  constexpr int WG_Q_BYTES = C::WG_Q_BYTES, Q_BYTES = C::Q_BYTES, KV_BYTES = C::KV_BYTES;
+  constexpr int STAGE_BYTES = C::STAGE_BYTES, BAR_OFFSET = C::BAR_OFFSET;
+  constexpr int NS = BK / 2;  // S accumulator registers a thread
+  constexpr float NEG_INF = -INFINITY;
+  extern __shared__ unsigned char flash_smem[];
+  const uint32_t sq = smem_u32(smem_align_1024(flash_smem));
+  const uint32_t sring = sq + Q_BYTES;
+  const uint32_t q_bar = sq + BAR_OFFSET, full_bar = q_bar + 8, empty_bar = full_bar + 8 * STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * BQ;
+  const int ntiles = (Lk + BK - 1) / BK;
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, NWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // the producer warp: one thread asks for Q, then keeps the K/V ring full
+    if (tid == 128 * NWG) {
+      mbar_expect_tx(q_bar, Q_BYTES);
+      tma_load_4d(sq, &qmap, q_bar, 0, q0, h, b);
+      for (int j = 0; j < ntiles; ++j) {
+        const int stage = j % STAGES;
+        if (j >= STAGES) mbar_wait(empty_bar + 8 * stage, ((j / STAGES) + 1) & 1);
+        const uint32_t sk = sring + stage * STAGE_BYTES, bar = full_bar + 8 * stage;
+        mbar_expect_tx(bar, STAGE_BYTES);
+        tma_load_4d(sk, &kmap, bar, 0, j * BK, h, b);
+        tma_load_4d(sk + KV_BYTES, &vmap, bar, 0, j * BK, h, b);
+      }
+    }
+    return;
+  }
+
+  const int t = tid & 127, warp = t >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int wsync = 1 + NWG + wg;  // this warpgroup's own named barrier; 1..NWG are the turns
+  const uint32_t sqw = sq + wg * WG_Q_BYTES;
+
+  // Q: this warpgroup's 64 rows scaled in place and rounded to bf16 once
+  mbar_wait(q_bar, 0);
+#pragma unroll
+  for (int i = 0; i < WG_Q_BYTES / 16 / 128; ++i) {
+    const uint32_t addr = sqw + (t + 128 * i) * 16;
+    uint4 val;
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(val.x), "=r"(val.y), "=r"(val.z), "=r"(val.w)
+                 : "r"(addr));
+    __nv_bfloat16* x = reinterpret_cast<__nv_bfloat16*>(&val);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) x[u] = __float2bfloat16(__bfloat162float(x[u]) * qscale);
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(val.x), "r"(val.y),
+                 "r"(val.z), "r"(val.w)
+                 : "memory");
+  }
+  fence_proxy_async();
+  bar_sync(wsync, 128);
+
+  float s[NS];      // S tile: rows 16 warp + gid (+ 8), key columns 8 n + 2 tig (+ 1)
+  float acc[32];    // O tile: the same rows, columns 8 n + 2 tig (+ 1)
+  uint32_t pa[BK / 16][4];  // the rounded p of the previous tile as the A operand of P V
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF};
+  float l_part[2] = {0.f, 0.f};  // this lane's share of the row denominators
+
+  auto issue_s = [&](int stage) {
+    const uint32_t sk = sring + stage * STAGE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if constexpr (BK == 128)
+        wgmma_m64n128k16_ss(s, wgmma_desc(sqw + kk * 32, 16, 1024), wgmma_desc(sk + kk * 32, 16, 1024), kk);
+      else
+        wgmma_m64n64k16_ss(s, wgmma_desc(sqw + kk * 32, 16, 1024), wgmma_desc(sk + kk * 32, 16, 1024), kk);
+    }
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int stage) {
+    const uint32_t sv = sring + stage * STAGE_BYTES + KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n64k16_rs_tb(acc, pa[kk], wgmma_desc(sv + kk * 16 * 128, KV_BYTES, 1024), 1);
+    wgmma_commit();
+  };
+  // the online softmax of key tile j on the accumulators: p = exp2(s - m) in
+  // place (fp32, not yet rounded); returns the rescale of the rows' old sums
+  auto softmax = [&](int j, float (&alpha)[2]) {
+    const int k0 = j * BK;
+    if (k0 + BK > Lk) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        if (k0 + (i >> 2) * 8 + tig * 2 + (i & 1) >= Lk) s[i] = NEG_INF;
+    }
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);  // finite: key k0 is live
+      alpha[r] = ex2_approx(m_run[r] - m_new);      // 0 on the first tile
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = ex2_approx(s[i] - m_run[(i >> 1) & 1]);
+  };
+  // p rounded to bf16 into the A fragments (16 keys a k-step) and summed as rounded
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t v = pack_bf16x2(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1]);
+        pa[kk][q] = v;
+        l_part[q & 1] += __uint_as_float(v << 16) + __uint_as_float(v & 0xffff0000u);
+      }
+    }
+  };
+  auto turn_sync = [&]() {
+    if constexpr (NWG > 1) bar_sync(1 + wg, 256);
+  };
+  auto turn_arrive = [&](bool last) {
+    if constexpr (NWG > 1) {
+      if (!(last && wg == NWG - 1)) bar_arrive(1 + (wg + 1) % NWG, 256);
+    }
+  };
+  if constexpr (NWG > 1) {
+    if (wg == NWG - 1) bar_arrive(1, 256);  // warpgroup 0 takes the first turn
+  }
+
+  // key tile 0: S alone
+  mbar_wait(full_bar, 0);
+  turn_sync();
+  wgmma_fence();
+  issue_s(0);
+  turn_arrive(ntiles == 1);
+  wgmma_wait<0>();
+  wgmma_fence_regs(s);
+  {
+    float alpha[2];
+    softmax(0, alpha);
+  }
+  pack_p();
+  for (int j = 1; j < ntiles; ++j) {
+    const int stage = j % STAGES, prev = (j - 1) % STAGES;
+    mbar_wait(full_bar + 8 * stage, (j / STAGES) & 1);
+    turn_sync();
+    wgmma_fence();
+    issue_s(stage);    // S of tile j ...
+    issue_pv(prev);    // ... and P V of tile j - 1, in flight together
+    turn_arrive(j == ntiles - 1);
+    wgmma_wait<1>();   // S is in
+    wgmma_fence_regs(s);
+    float alpha[2];
+    softmax(j, alpha);
+    wgmma_wait<0>();   // P V of tile j - 1 is done: its stage goes back, p's registers are free
+    wgmma_fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) asm volatile("" : "+r"(pa[kk][q])::"memory");
+    if (t == 0) mbar_arrive(empty_bar + 8 * prev);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    l_part[0] *= alpha[0];
+    l_part[1] *= alpha[1];
+    pack_p();
+  }
+  wgmma_fence();
+  issue_pv((ntiles - 1) % STAGES);
+  wgmma_wait<0>();
+  wgmma_fence_regs(acc);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_part[r] += __shfl_xor_sync(0xffffffffu, l_part[r], 1);
+    l_part[r] += __shfl_xor_sync(0xffffffffu, l_part[r], 2);
+  }
+  const int r_lo = warp * 16 + gid;  // this lane's rows in the warpgroup's 64: r_lo, r_lo + 8
+  const int row_base = q0 + wg * 64;
+  if (lse != nullptr && tig == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_base + r_lo + 8 * r;
+      if (row < Lq) lse[((long long)b * Lq + row) * H + h] = m_run[r] + log2f(l_part[r]);
+    }
+  }
+  // O / l into this warpgroup's Q rows (swizzled 16-byte chunks), then 16-byte stores
+  bar_sync(wsync, 128);  // every warp of the warpgroup is done with Q
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r_lo + 8 * r;
+      const uint32_t v = pack_bf16x2(acc[4 * n + 2 * r] / l_part[r], acc[4 * n + 2 * r + 1] / l_part[r]);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sqw + sw128(row, n) + tig * 4), "r"(v) : "memory");
+    }
+  }
+  bar_sync(wsync, 128);
+  __nv_bfloat16* ob = o + b * osb + h * osh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int idx = t + 128 * i, row = idx >> 3, c = idx & 7;
+    if (row_base + row >= Lq) continue;
+    uint4 val;
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(val.x), "=r"(val.y), "=r"(val.z), "=r"(val.w)
+                 : "r"(sqw + sw128(row, c))
+                 : "memory");
+    *reinterpret_cast<uint4*>(ob + (long long)(row_base + row) * osl + c * 8) = val;
+  }
+}
+
+// q, k, v [B, L, H, 64] through their (batch, row, head) strides as rank-4
+// tiled maps (64 d x `rows` rows a box), o written 16 bytes a thread.
+template <class C>
+int launch_flash_wgmma64_cfg(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                             int Lq, int Lk, const long long* st, float qscale, cudaStream_t stream) {
+  if (!flash_bf16_rows_ok(q, k, v, o, st) || reinterpret_cast<uintptr_t>(o) % 16 || st[9] % 8 ||
+      st[10] % 8 || st[11] % 8)
+    return kErrBadArgument;
+  // more than 48 KB of shared memory is opted into once per process
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wgmma64_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  const int rows[3] = {Lq, Lk, Lk}, box_rows[3] = {C::BQ, C::BK, C::BK};
+  for (int i = 0; i < 3; ++i) {
+    const long long* s = st + 3 * i;
+    const cuuint64_t dims[4] = {(cuuint64_t)C::D, (cuuint64_t)rows[i], (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)s[1] * 2, (cuuint64_t)s[2] * 2, (cuuint64_t)s[0] * 2};
+    const cuuint32_t box[4] = {64, (cuuint32_t)box_rows[i], 1, 1};
+    if (const int rc = wgmma_tiled_map(bases[i], 4, dims, strides, box, &maps[i])) return rc;
+  }
+  dim3 grid((Lq + C::BQ - 1) / C::BQ, B * H);
+  flash_fwd_wgmma64_kernel<C><<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk, st[9], st[10], st[11],
+      qscale);
+  return (int)cudaGetLastError();
+}
+
+// Two shapes of one kernel, chosen from Lk (times on the card in PERF.md):
+// - long key walks (Lk > 2048, the ds1 self-attention: 5824 keys): two
+//   warpgroups per block taking turns on the tensor cores, 128-key tiles;
+// - shorter ones (ds2, ds4, mid, the 77-key cross-attention): one warpgroup per
+//   block and three blocks per SM, 64-key tiles through a four-stage ring: the
+//   blocks' softmaxes and products interleave on their own, and a block's
+//   prologue and epilogue overlap the other blocks' work.
+using F64Long = F64<2, 128, 3, 1>;
+using F64Short = F64<1, 64, 4, 3>;
+
+int launch_flash_wgmma64(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                         int Lq, int Lk, const long long* st, float qscale, cudaStream_t stream) {
+  if (Lk > 2048)
+    return launch_flash_wgmma64_cfg<F64Long>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
+  return launch_flash_wgmma64_cfg<F64Short>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
+}
+
 inline bool flash_sizes_ok(int B, int H, int Lq, int Lk) {
   return B > 0 && H > 0 && Lq > 0 && Lk > 0 && B * H <= 65535;  // the grid's y limit
 }
@@ -721,48 +1048,63 @@ inline bool flash_sizes_ok(int B, int H, int Lq, int Lk) {
 }  // namespace vs
 
 // strides: 12 element strides (batch, row, head) for q, k, v, o in that order;
-// the head-dim stride must be 1. bf16 runs on the tensor cores (16-byte aligned
-// rows, or kErrBadArgument), fp32 on FMAs.
+// the head-dim stride must be 1. bf16 runs the D = 64 wgmma kernel (16-byte
+// aligned rows, or kErrBadArgument), fp32 the FMA kernel.
 // lse: NULL, or fp32 [B, Lq, H] contiguous for the base-2 logsumexp.
+// route (or NULL) receives the kernel that ran: 2 wgmma, 1 mma.sync, 0 fp32 FMAs.
 extern "C" int vs_flash_attention_packed(int dtype, int D, const void* q, const void* k,
                                          const void* v, void* o, void* lse, int B, int H,
                                          int Lq, int Lk, const long long* strides,
-                                         float qscale, void* stream) {
+                                         float qscale, int* route, void* stream) {
   if (D != 64) return vs::kErrUnsupported;  // every spatial UNet site has 64-dim heads
   if (!vs::flash_sizes_ok(B, H, Lq, Lk)) return vs::kErrBadArgument;
   float* l = static_cast<float*>(lse);
-  if (dtype == vs::kBFloat16)
-    return vs::launch_flash_mma<64>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale,
-                                    static_cast<cudaStream_t>(stream));
-  if (dtype == vs::kFloat32)
-    return vs::flash_entry_fp32(D, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, stream);
-  return vs::kErrUnsupported;
+  int r = -1, rc = vs::kErrUnsupported;
+  if (dtype == vs::kBFloat16) {
+    r = 2;
+    rc = vs::launch_flash_wgmma64(q, k, v, o, l, B, H, Lq, Lk, strides, qscale,
+                                  static_cast<cudaStream_t>(stream));
+  } else if (dtype == vs::kFloat32) {
+    r = 0;
+    rc = vs::flash_entry_fp32(D, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, stream);
+  }
+  if (route != nullptr) *route = r;
+  return rc;
 }
 
-// D in {64, 80, 512}. lse: NULL (inference), or fp32 [B, Lq, H] contiguous
-// under a gradient.
+// D in {64, 80, 512}: bf16 runs wgmma at 64 and 512, mma.sync at 80. lse:
+// NULL (inference), or fp32 [B, Lq, H] contiguous under a gradient. route as above.
 extern "C" int vs_flash_attention_bhld(int dtype, int D, const void* q, const void* k,
                                        const void* v, void* o, void* lse, int B, int H, int Lq,
-                                       int Lk, const long long* strides, float qscale,
+                                       int Lk, const long long* strides, float qscale, int* route,
                                        void* stream) {
   if (!vs::flash_sizes_ok(B, H, Lq, Lk)) return vs::kErrBadArgument;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  int r = -1, rc = vs::kErrUnsupported;
   if (dtype == vs::kBFloat16) {
     switch (D) {
       case 64:
-        return vs::launch_flash_mma<64>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
+        r = 2;
+        rc = vs::launch_flash_wgmma64(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
+        break;
       case 80:
-        return vs::launch_flash_mma<80>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
+        r = 1;
+        rc = vs::launch_flash_mma<80>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
+        break;
       case 512:
-        return vs::launch_flash_wgmma512(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
+        r = 2;
+        rc = vs::launch_flash_wgmma512(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
+        break;
       default:
-        return vs::kErrUnsupported;
+        break;
     }
+  } else if (dtype == vs::kFloat32) {
+    r = 0;
+    rc = vs::flash_entry_fp32(D, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, stream);
   }
-  if (dtype == vs::kFloat32)
-    return vs::flash_entry_fp32(D, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, stream);
-  return vs::kErrUnsupported;
+  if (route != nullptr) *route = r;
+  return rc;
 }
 
 extern "C" const char* vs_error_string(int code) {

@@ -36,6 +36,8 @@ NVCC_FLAGS = (
 )
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel an entry with a `route` out-parameter reports it ran
+ROUTES = {0: "fma", 1: "mma_sync", 2: "wgmma"}
 
 
 def _find_nvcc() -> Optional[str]:
@@ -123,10 +125,11 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 
 _SIGNATURES = {
-    # dtype, D, q, k, v, o, lse (NULL: none), B, H, Lq, Lk, strides[12], qscale, stream
-    "vs_flash_attention_packed": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P],
-    # dtype, D, q, k, v, o, lse (NULL: none), B, H, Lq, Lk, strides[12], qscale, stream
-    "vs_flash_attention_bhld": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P],
+    # dtype, D, q, k, v, o, lse (NULL: none), B, H, Lq, Lk, strides[12], qscale,
+    # route (int*: the kernel that ran, ROUTES), stream
+    "vs_flash_attention_packed": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P, _P],
+    # the same arguments, bhld strides
+    "vs_flash_attention_bhld": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P, _P],
     # dtype, D, q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Lq, Lk, strides[24],
     # qscale, scale, stream
     "vs_flash_attention_packed_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -153,8 +156,8 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _P],
     # dtype, x, dy, a, s, coef, dx, B, R, C, vec, rows_per_chunk, nchunks, silu, stream
     "vs_group_norm_bwd_apply": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # dtype, x, w [N, K], bias (NULL: none), y, M, K, N, stream
-    "vs_matmul_bias": [_I, _P, _P, _P, _P, _L, _I, _I, _P],
+    # dtype, x, w [N, K], bias (NULL: none), y, M, K, N, route (int*), stream
+    "vs_matmul_bias": [_I, _P, _P, _P, _P, _L, _I, _I, _P, _P],
     # dtype, x, w [9, Cout, Cin], bias (NULL: none), y, B, H, W, Cin, Cout, stream
     "vs_conv3x3_same": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -197,6 +200,14 @@ def call(name: str, *args) -> None:
     if rc != 0:
         msg = lib.vs_error_string(rc).decode()
         raise RuntimeError(f"{name} failed: {msg} (code {rc})")
+
+
+def call_routed(name: str, *args) -> str:
+    """`call` for an entry whose last argument before the stream is an int*
+    that receives the kernel it ran; returns that kernel's ROUTES name."""
+    route = ctypes.c_int(-1)
+    call(name, *args, ctypes.byref(route))
+    return ROUTES[route.value]
 
 
 def strides_arg(*tensors: torch.Tensor, dims=(0, 1, 2)):

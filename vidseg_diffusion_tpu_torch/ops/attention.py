@@ -138,13 +138,14 @@ def _flash_attention_packed_forward(q, k, v, heads: int, scale: Optional[float],
     strides = _cuda.strides_arg(q.view(b, lq, heads, d), k.view(b, lk, heads, d),
                                 v.view(b, lk, heads, d), out)
     _check_bf16_rows("flash_attention_packed", dtype, strides, 9, q, k, v)
-    _cuda.call(
+    route = _cuda.call_routed(
         "vs_flash_attention_packed", _cuda.DTYPE_CODES[dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if save_lse else None,
         b, heads, lq, lk, strides, float(_rounded_qscale(scale, dtype)),
     )
     flash_attention_packed.launches += 1
+    flash_attention_packed.wgmma_launches += route == "wgmma"
     out = out.view(b, lq, hd)
     return (out, lse) if save_lse else out
 
@@ -169,14 +170,17 @@ class _FlashAttentionPacked(torch.autograd.Function):
 
 def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None):
     """K1: online-softmax attention on packed [B, L, H*D] (any L, D = 64),
-    read through the tensors' strides with no transpose. Differentiable:
-    with grad on, the backward is K5."""
+    read through the tensors' strides with no transpose; bf16 runs the wgmma
+    kernel fed by TMA and needs 16-byte aligned rows (a view that is not is
+    refused), fp32 the FMA kernel. Differentiable: with grad on, the backward
+    is K5."""
     if _needs_grad(q, k, v):
         return _FlashAttentionPacked.apply(q, k, v, heads, scale)
     return _flash_attention_packed_forward(q, k, v, heads, scale, save_lse=False)
 
 
 flash_attention_packed.launches = 0
+flash_attention_packed.wgmma_launches = 0   # of .launches, those that ran the wgmma kernel
 
 
 # -- K5: packed flash-attention backward ---------------------------------------
@@ -450,13 +454,14 @@ def _flash_attention_forward(q, k, v, scale: Optional[float], save_lse: bool):
     lse = torch.empty((b, lq, h), dtype=torch.float32, device=q.device) if save_lse else None
     strides = _cuda.strides_arg(q, k, v, out, dims=(0, 2, 1))
     _check_bf16_rows("flash_attention", dtype, strides, 9, q, k, v)
-    _cuda.call(
+    route = _cuda.call_routed(
         "vs_flash_attention_bhld", _cuda.DTYPE_CODES[dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if save_lse else None,
         b, h, lq, k.shape[2], strides, float(_rounded_qscale(scale, dtype)),
     )
     flash_attention.launches += 1
+    flash_attention.wgmma_launches += route == "wgmma"
     return (out, lse) if save_lse else out
 
 
@@ -482,7 +487,7 @@ def flash_attention(q, k, v, scale: Optional[float] = None):
     """K3: flash attention on bhld [B, H, L, D] through strides (D in
     {64, 80, 512}: the VAE's single 512-dim head and CLIP's 80-dim heads), so
     a strided view (CLIP's [B, L, H, D] projections seen as bhld) is read in
-    place. bf16 runs on the tensor cores (wgmma at D = 512, mma.sync at 64 and
+    place. bf16 runs on the tensor cores (wgmma at D = 512 and 64, mma.sync at
     80) and needs 16-byte aligned rows; fp32 runs the FMA kernel.
     Differentiable: with grad on, the forward also writes the LSE and the
     backward is K13 (K5 at D = 64)."""
@@ -492,6 +497,7 @@ def flash_attention(q, k, v, scale: Optional[float] = None):
 
 
 flash_attention.launches = 0
+flash_attention.wgmma_launches = 0   # D = 64 and 512 in bf16
 
 
 # -- K13: bhld flash-attention backward ----------------------------------------

@@ -14,7 +14,11 @@ The JAX package routes a projection to its Pallas kernel only for m >= 4096
 on the TPU and keeps the route switched off by default (matmul.py:156-171):
 both are TPU findings about XLA's epilogue fusions. Eager PyTorch fuses no
 epilogue, so here every CUDA call launches K11 and every CPU call takes the
-plain version.
+plain version. On the card bf16 inputs that TMA can address (K % 8 == 0,
+16-byte aligned x and W: every projection of the UNets) run the persistent
+wgmma kernel; other bf16 inputs the mma.sync tile, fp32 the FMA tile. The
+kernel's entry reports which one ran: `matmul_bias.wgmma_launches` counts the
+wgmma launches beside `.launches`.
 
 Gradients (the JAX package's _mb custom_vjp, matmul.py:125-132, is closed-form
 matrix products outside any kernel): dx = g @ W, dW = g^T @ x, db = sum g, with
@@ -60,11 +64,12 @@ def _matmul_bias_forward(x, weight, bias):
     m = x.numel() // k
     y = torch.empty(x.shape[:-1] + (n,), dtype=dtype, device=x.device)
     if m:
-        _cuda.call(
+        route = _cuda.call_routed(
             "vs_matmul_bias", _cuda.DTYPE_CODES[dtype], x.data_ptr(), weight.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(), m, k, n,
         )
         matmul_bias.launches += 1
+        matmul_bias.wgmma_launches += route == "wgmma"
     return y
 
 
@@ -103,3 +108,4 @@ def matmul_bias(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
 
 
 matmul_bias.launches = 0
+matmul_bias.wgmma_launches = 0

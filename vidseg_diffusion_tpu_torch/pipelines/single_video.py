@@ -18,13 +18,17 @@ every frame is an image of the UNet batch, the image VAE decodes, and with
 one; is_injected_features caches and injects the spatial self- and
 cross-attention q/k.
 
-Random sites draw from their own torch.Generator seeded from args.seed; a
-caller (a parity test) can instead hand over the cond-aug noise, the
-add_noise noise and the kmeans initial centres JAX drew.
+The parameters are the JAX function's, in its order (:269-284), less its
+`mesh`: `mask_override` ([K, T, fh*fw] masks at the clustering block's token
+resolution, `cluster_feature_hw`) replaces the clustering as in JAX
+(:458-463). Random sites draw from their own torch.Generator seeded from
+args.seed; a caller (a parity test) can instead hand over, by keyword, the
+cond-aug noise, the add_noise noise and the kmeans initial centres JAX drew.
 
 Not ported yet (they raise NotImplementedError, see ROADMAP Queue A):
-is_refine_mask, match_gt_mask and inversion_type 'inversion'. The multi-device mesh and the host-RAM streaming of the JAX
-package are TPU workarounds and are not ported.
+is_refine_mask, match_gt_mask with its `gt_mask` / `gt_state` and
+inversion_type 'inversion'. The multi-device mesh and the host-RAM streaming
+of the JAX package are TPU workarounds and are not ported.
 """
 
 from __future__ import annotations
@@ -107,17 +111,21 @@ class VidSegResult:
     masks_latent: np.ndarray       # [K, T, h, w] latent-blend masks
     injected_sites: int = 0        # (block, step) sites that took cached q/k, all runs
     injected_cache_bytes: int = 0  # device bytes of the cached q/k that are injected
+    gt_state: Optional[object] = None  # the carried GT match state: None until match_gt_mask is ported
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP Queue A)")
+def _not_ported(what: str, item: Optional[int] = None):
+    where = "ROADMAP Queue A" + (f" item {item}" if item is not None else "")
+    return NotImplementedError(f"{what} is not ported to the PyTorch package yet ({where})")
 
 
-def _check_supported(args: VidSegArgs) -> None:
+def _check_supported(args: VidSegArgs, gt_mask=None, gt_state=None) -> None:
     if args.is_refine_mask:
         raise _not_ported("is_refine_mask (ops/matching.py dense tracking)")
     if args.feature_extraction_mode == "match_gt_mask":
-        raise _not_ported("feature_extraction_mode='match_gt_mask' (ops/knn.py)")
+        raise _not_ported("feature_extraction_mode='match_gt_mask' (ops/knn.py)", item=1)
+    if gt_mask is not None or gt_state is not None:
+        raise _not_ported("gt_mask / gt_state (match_gt_mask, knn_predict, GTMatchState)", item=1)
     if args.feature_extraction_mode != "kmeans_masks":
         raise ValueError(args.feature_extraction_mode)
     if args.inversion_type == "inversion":
@@ -158,6 +166,25 @@ def _resolve_blocks(unet_cfg, blocks: Sequence[int], mod_cfg: ModulationConfig):
         resolved.append(idx)
         divisors[idx] = attn[idx]
     return tuple(resolved), divisors
+
+
+def _cluster_site(unet_cfg, args: VidSegArgs, mod_cfg: ModulationConfig, h_lat: int,
+                  w_lat: int) -> Tuple[Tuple[int, ...], int, int]:
+    """The clustering blocks and their token resolution (fh, fw) at a latent
+    resolution: one rule for run_single_video's step 3 and cluster_feature_hw."""
+    blocks, div = _resolve_blocks(unet_cfg, _cluster_block_names(args, unet_cfg.video), mod_cfg)
+    d = div[blocks[0]]
+    return blocks, h_lat // d, w_lat // d
+
+
+def cluster_feature_hw(pipeline: Pipeline, args: VidSegArgs, hpx: int, wpx: int,
+                       num_frames: int) -> Tuple[int, int]:
+    """Token resolution (fh, fw) of the clustering block at a pixel
+    resolution: the resolution of `mask_override` and of GT masks
+    (single_video.py:157-170)."""
+    _, fh, fw = _cluster_site(pipeline.spec.unet_config, args, make_mod_config(args, num_frames),
+                              hpx // 8, wpx // 8)
+    return fh, fw
 
 
 def make_harvest(args: VidSegArgs, video: bool, cluster_blocks: Sequence[int],
@@ -201,14 +228,18 @@ def run_single_video(
     frame_names: Sequence[str],
     args: VidSegArgs,
     ori_hw: Optional[Tuple[int, int]] = None,
+    gt_mask: Optional[np.ndarray] = None,          # match_gt_mask: not ported, must be None
+    gt_state=None,                                 # match_gt_mask: not ported, must be None
+    text_tokens: Optional[np.ndarray] = None,      # [1, 77] token ids, the SD 2.1 path
     write_outputs: bool = True,
-    timings: Optional[Dict[str, float]] = None,
+    mask_override: Optional[np.ndarray] = None,    # [K, T, fh*fw] precomputed masks
+    timings: Optional[Dict[str, float]] = None,    # out-param: per-stage seconds
+    *,
     cond_aug_noise: Optional[np.ndarray] = None,   # [1, H, W, 3]
     noise: Optional[np.ndarray] = None,            # [T, H/8, W/8, z]
     kmeans_init: Optional[np.ndarray] = None,      # [n_init, K, C]
-    text_tokens: Optional[np.ndarray] = None,      # [1, 77] token ids, the SD 2.1 path
 ) -> VidSegResult:
-    _check_supported(args)
+    _check_supported(args, gt_mask, gt_state)
     dev = pipeline.device
     clock = {"t": time.perf_counter()}
 
@@ -226,7 +257,7 @@ def run_single_video(
     unet_cfg = pipeline.spec.unet_config
     video = unet_cfg.video
     base_cfg = make_mod_config(args, t)
-    cluster_blocks, cluster_div = _resolve_blocks(unet_cfg, _cluster_block_names(args, video), base_cfg)
+    cluster_blocks, fh, fw = _cluster_site(unet_cfg, args, base_cfg, h_lat, w_lat)
     mod_blocks, mod_div = _resolve_blocks(unet_cfg, tuple(args.modulate_block_idx), base_cfg)
     _, _, out_layout = unet_cfg.block_layout()
     attn_blocks = tuple(i for i, s in enumerate(out_layout) if s.get("attn"))
@@ -278,12 +309,16 @@ def run_single_video(
         )
     feats = [cache[HarvestSpec.name(b, "spatial_self", "q")][feat_t - cache_t0] for b in cluster_blocks]
     feat = aggregate_blocks(feats) if len(feats) > 1 else feats[0]
-    div = cluster_div[cluster_blocks[0]]
-    fh, fw = h_lat // div, w_lat // div
-    init = None if kmeans_init is None else torch.tensor(np.asarray(kmeans_init, dtype=np.float32))
-    masks_tok, unique_labels = kmeans_masks(
-        feat, args.num_masks, t, generator=_generator(args.seed, 3), init_centers=init
-    )
+    if mask_override is not None:
+        # externally supplied masks replace the clustering (JAX :458-463)
+        masks_tok = torch.as_tensor(np.asarray(mask_override), dtype=torch.float32,
+                                    device=feat.device).reshape(-1, t, fh * fw)
+        unique_labels = np.arange(masks_tok.shape[0])
+    else:
+        init = None if kmeans_init is None else torch.tensor(np.asarray(kmeans_init, dtype=np.float32))
+        masks_tok, unique_labels = kmeans_masks(
+            feat, args.num_masks, t, generator=_generator(args.seed, 3), init_centers=init
+        )
     k = masks_tok.shape[0]
     masks_px = masks_tok.reshape(k, t, fh, fw)
     mark("masks")
