@@ -7,17 +7,19 @@ Phases, in order; any failure exits non-zero:
 1. card: print `nvidia-smi --query-gpu=name,power.limit`.
 2. build: compile the kernels from vidseg_diffusion_tpu_torch/csrc with nvcc
    (one process per source, in parallel).
-3. kernels: each kernel (K1-K12) against its plain PyTorch version on the same
-   inputs at the shapes of its path (K1-K4, K7, K8, K11, K12 inference; K5, K6,
-   K9, K10 and K4's dx launch training; bf16, the GroupNorm kernels, K11 and
-   K12 also fp32; K1 also at the SD cross-attention's 77 keys);
+3. kernels: each kernel (K1-K13 and the one-launch GroupNorm forward)
+   against its plain PyTorch version on the same inputs at the shapes of its
+   path (K1-K4, K7, K8, the fused K7+K8, K11, K12 inference; K5, K6, K9, K10
+   and K4's dx launch training; bf16, the GroupNorm kernels, K4, K11 and K12
+   also fp32; K1 also at the SD cross-attention's 77 keys; K4 also at one and
+   two frames, one token a frame, one tap and Cin != Cout);
    errors within the stated bounds; kernel and plain times with CUDA events
    beside the kernel's bound (bytes over the card's memory rate or
    operations over its peak rate, whichever is larger) and the time of the
    one PyTorch call that computes the same function (a yardstick only: no
    path runs it); K1's saved LSE against the plain LSE (also at the 77-key
-   cross-attention); K7's statistics against fp64 statistics of the same
-   input; K11 also at N = 168 and K = 1032; K1's headline shape timed at the
+   cross-attention); K7's and the fused kernel's statistics against fp64
+   statistics of the same input; K11 also at N = 168 and K = 1032; K1's headline shape timed at the
    CFG batch of 28 beside SDPA.
 4. unet: one full-width SVD UNet forward in fp32 (random weights, a 16x16
    latent, 2 frames) on the card through the kernels vs the same weights on
@@ -32,12 +34,15 @@ Phases, in order; any failure exits non-zero:
    run_single_video on 14 synthetic 448x832 frames, 25 steps, modulate step
    17, 2 masks, decoding_t 7) under torch.no_grad; the inference kernels
    must launch exactly as many times as the configuration implies (K1 832,
-   K2 832, K3 43, K4 2520; K7 and K8 once per GroupNorm module per UNet, VAE
-   encoder and VAE decoder call; K11 four times per CrossAttention module and
-   K12 twice per ResBlock per UNet call: 13 312 and 2 288), the backward
-   kernels and the plain versions never, and every K1 and K11 launch must
-   have run its wgmma kernel (the wrappers' route counters, here and in the
-   inject, sd, train and ae_train phases); latents and labels must be finite and shaped; the +lambda and
+   K2 832, K3 43, K4 2520; one GroupNorm forward per GroupNorm module per
+   UNet, VAE encoder and VAE decoder call, by the route ops.norm.group_norm_route
+   gives its input: the fused kernel, or K7 and K8; K11 four times per
+   CrossAttention module and K12 twice per ResBlock per UNet call: 13 312 and
+   2 288), the backward kernels and the plain versions never, and every K1,
+   K4 and K11 launch must have run its wgmma kernel but the 8 K4 launches of
+   the VAE's 3-channel conv_out_time_mix, which run the narrow kernel (the
+   wrappers' route counters, here and in the inject, sd, train and ae_train
+   phases); latents and labels must be finite and shaped; the +lambda and
    -lambda runs must differ, and the outside-mask latents must equal the
    cached trajectory exactly.
 7. inject: the same run with is_injected_features (the feature pass caches
@@ -86,9 +91,9 @@ Phases, in order; any failure exits non-zero:
 
 Before the last line come the kernels JSON (per kernel: launches in the run
 of its path and in the other runs (injected, SD, diffusion training,
-autoencoder training), for K1 and K11 the launches of each run that took the
-wgmma kernel, worst error, kernel, plain, bound and library-call ms at its
-headline shape) and the card's name and power limit; the last line
+autoencoder training), for K1, K4 and K11 the launches of each run by the
+kernel that ran (`routes`), worst error, kernel, plain, bound and
+library-call ms at its headline shape) and the card's name and power limit; the last line
 is {"ok": true, "device": ...}.
 """
 
@@ -135,6 +140,12 @@ KERNELS = {
         id="K8", source="vidseg_diffusion_tpu_torch/csrc/group_norm.cu",
         replaces="vidseg_diffusion_tpu/ops/norm.py:183", rms_tol=5e-4,
     ),
+    # K7 + K8 in one launch where a slab of whole groups fits in shared memory:
+    # JAX's group_norm_silu runs both pallas_calls (_stats_pallas at :91, the apply at :183)
+    "group_norm_fused": dict(
+        id="K7+K8", source="vidseg_diffusion_tpu_torch/csrc/group_norm.cu",
+        replaces="vidseg_diffusion_tpu/ops/norm.py:183", rms_tol=5e-4,
+    ),
     "group_norm_backward_stats": dict(
         id="K9", source="vidseg_diffusion_tpu_torch/csrc/group_norm_bwd.cu",
         replaces="vidseg_diffusion_tpu/ops/norm.py:258", rms_tol=5e-4,
@@ -159,11 +170,11 @@ KERNELS = {
     ),
 }
 INFERENCE_KERNELS = ("flash_attention_packed", "temporal_attention_direct", "flash_attention",
-                     "temporal_conv_1x1", "group_norm_stats", "group_norm_apply", "matmul_bias",
-                     "conv3x3_same")
+                     "temporal_conv_1x1", "group_norm_stats", "group_norm_apply", "group_norm_fused",
+                     "matmul_bias", "conv3x3_same")
 TRAIN_KERNELS = ("flash_attention_packed", "temporal_attention_direct", "temporal_conv_1x1",
                  "flash_attention_packed_backward", "temporal_attention_direct_backward",
-                 "group_norm_stats", "group_norm_apply", "group_norm_backward_stats",
+                 "group_norm_stats", "group_norm_apply", "group_norm_fused", "group_norm_backward_stats",
                  "group_norm_backward_apply", "matmul_bias", "conv3x3_same")
 AE_KERNELS = ("flash_attention_backward",)   # the kernels whose path is autoencoder training
 # launches of the inference main path, implied by its configuration: 52 UNet
@@ -233,6 +244,7 @@ HEADLINE = {  # the shape of its path each kernel is timed at
     "temporal_attention_direct_backward": "ds1 [28,5824,5,64] t=14",
     "group_norm_stats": "UNet ds1 [28,56,104,320]",
     "group_norm_apply": "UNet ds1 [28,56,104,320]",
+    "group_norm_fused": "UNet mid [28,7,13,1280]",
     "group_norm_backward_stats": "UNet ds1 [28,56,104,320]",
     "group_norm_backward_apply": "UNet ds1 [28,56,104,320]",
     "matmul_bias": "ds1 to_q [163072,320->320]",
@@ -292,11 +304,12 @@ def attn_work(b, h, lq, lk, d, backward=False, dtype="bf16"):
     return item * (2 * q + 2 * kv), 4 * b * h * lq * lk * d, dtype
 
 
-def tconv_work(b, t, m, cin, cout, kt=3):
+def tconv_work(b, t, m, cin, cout, kt=3, dtype="bf16"):
     """x, W, bias read and y written once; one [m, cin] x [cin, cout] product
     per (frame, tap) pair whose source frame exists."""
     pairs = sum(1 for f in range(t) for j in range(kt) if 0 <= f + j - kt // 2 < t)
-    return 2 * (b * t * m * (cin + cout) + kt * cin * cout + cout), 2 * b * pairs * m * cin * cout, "bf16"
+    item = 2 if dtype == "bf16" else 4
+    return item * (b * t * m * (cin + cout) + kt * cin * cout + cout), 2 * b * pairs * m * cin * cout, dtype
 
 
 def matmul_work(m, k, n, bias, dtype="bf16"):
@@ -339,9 +352,9 @@ def kernel_cases(torch):
     def bhld(b, h, l, d):
         return lambda: tuple(rn(b, h, l, d).to(bf) for _ in range(3))
 
-    def tconv(b, t, m, cin, cout):
-        return lambda: (rn(b, t, m, cin).to(bf), (rn(3, cin, cout) / (3 * cin) ** 0.5).to(bf),
-                        rn(cout).to(bf))
+    def tconv(b, t, m, cin, cout, kt=3, dtype=bf):
+        return lambda: (rn(b, t, m, cin).to(dtype), (rn(kt, cin, cout) / (kt * cin) ** 0.5).to(dtype),
+                        rn(cout).to(dtype))
 
     def packed_bwd(b, l, h):
         """(q, k, v, out, lse, g, heads) with out and lse from K1's save_lse
@@ -460,21 +473,29 @@ def kernel_cases(torch):
             work=attn_work(shape[0], shape[1], shape[2], shape[2], shape[3]),
             library=lambda q, k, v: (lambda: sdpa(q, k, v)))
     # K4: UNet time_stack per level (two videos of 14 frames), VAE decoder
-    # time_stack per level and conv_out_time_mix (decoding_t = 7)
-    for label, b, t, m, ci, co in (
-        ("UNet ds1 [2,14,5824,320]", 2, 14, 5824, 320, 320),
-        ("UNet ds2 [2,14,1456,640]", 2, 14, 1456, 640, 640),
-        ("UNet ds4 [2,14,364,1280]", 2, 14, 364, 1280, 1280),
-        ("UNet ds8 [2,14,91,1280]", 2, 14, 91, 1280, 1280),
-        ("VAE 56x104 [1,7,5824,512]", 1, 7, 5824, 512, 512),
-        ("VAE 112x208 [1,7,23296,512]", 1, 7, 23296, 512, 512),
-        ("VAE 224x416 [1,7,93184,256]", 1, 7, 93184, 256, 256),
-        ("VAE 448x832 [1,7,372736,128]", 1, 7, 372736, 128, 128),
-        ("VAE conv_out_time_mix [1,7,372736,3]", 1, 7, 372736, 3, 3),
+    # time_stack per level and conv_out_time_mix (decoding_t = 7); then the
+    # wgmma kernel's edges (one frame, two frames and tokens off the tiles with
+    # Cin != Cout, one token a frame, one tap) and fp32 (the FMA tile)
+    for label, b, t, m, ci, co, kt, dtype in (
+        ("UNet ds1 [2,14,5824,320]", 2, 14, 5824, 320, 320, 3, bf),
+        ("UNet ds2 [2,14,1456,640]", 2, 14, 1456, 640, 640, 3, bf),
+        ("UNet ds4 [2,14,364,1280]", 2, 14, 364, 1280, 1280, 3, bf),
+        ("UNet ds8 [2,14,91,1280]", 2, 14, 91, 1280, 1280, 3, bf),
+        ("VAE 56x104 [1,7,5824,512]", 1, 7, 5824, 512, 512, 3, bf),
+        ("VAE 112x208 [1,7,23296,512]", 1, 7, 23296, 512, 512, 3, bf),
+        ("VAE 224x416 [1,7,93184,256]", 1, 7, 93184, 256, 256, 3, bf),
+        ("VAE 448x832 [1,7,372736,128]", 1, 7, 372736, 128, 128, 3, bf),
+        ("VAE conv_out_time_mix [1,7,372736,3]", 1, 7, 372736, 3, 3, 3, bf),
+        ("T=1 [2,1,5824,320]", 2, 1, 5824, 320, 320, 3, bf),
+        ("T=2 [3,2,1000,320->640]", 3, 2, 1000, 320, 640, 3, bf),
+        ("M=1 [28,14,1,1280]", 28, 14, 1, 1280, 1280, 3, bf),
+        ("kt=1 [2,14,364,1280]", 2, 14, 364, 1280, 1280, 1, bf),
+        ("fp32 [2,14,91,320]", 2, 14, 91, 320, 320, 3, torch.float32),
     ):
-        add(kernel="temporal_conv_1x1", label=label, make=tconv(b, t, m, ci, co),
+        dname = "bf16" if dtype == bf else "fp32"
+        add(kernel="temporal_conv_1x1", label=label, make=tconv(b, t, m, ci, co, kt, dtype),
             kern=TC.temporal_conv_1x1, plain=TC.temporal_conv_1x1_reference, iters=3,
-            work=tconv_work(b, t, m, ci, co), library=conv3d_call)
+            work=tconv_work(b, t, m, ci, co, kt, dname), library=conv3d_call)
     # training path (the train phase's batch of 2 videos x 14 frames):
     # K4's dx launch inside the temporal-conv backward (dW/db are matmuls),
     # K5 at every spatial self-attention width (ds1 on a B=2 slice: the
@@ -593,7 +614,11 @@ def group_norm_cases(torch, rn):
     yardstick is F.group_norm (+ F.silu) on the same data, for the whole
     forward (K7 + K8) and, through autograd.grad, the whole backward (K9 +
     K10), once on the channels-last view the port would hand it and once on
-    an NCHW-contiguous copy (the layout the library prefers)."""
+    an NCHW-contiguous copy (the layout the library prefers). Where
+    ops.norm.group_norm_route sends a site to the one-launch kernel
+    (group_norm_fused: ds2, ds4, mid, ds8 and the ds8 time_stack), that kernel
+    is held to the plain forward too (y, a, s, mean, inv), and its statistics
+    to fp64."""
     import torch.nn.functional as F
 
     from vidseg_diffusion_tpu_torch.ops import norm as N
@@ -603,11 +628,13 @@ def group_norm_cases(torch, rn):
         ("UNet ds1 [28,56,104,320]", (28, 56, 104, 320), bf, True, 1e-5),
         ("UNet ds1 [28,56,104,320] no SiLU", (28, 56, 104, 320), bf, False, 1e-6),
         ("UNet ds1 concat [28,56,104,960]", (28, 56, 104, 960), bf, True, 1e-5),
+        ("UNet ds2 [28,28,52,640]", (28, 28, 52, 640), bf, True, 1e-5),
         ("UNet ds4 [28,14,26,1280]", (28, 14, 26, 1280), bf, True, 1e-5),
         ("UNet ds4 [28,14,26,1280] no SiLU", (28, 14, 26, 1280), bf, False, 1e-6),
         ("UNet mid [28,7,13,1280]", (28, 7, 13, 1280), bf, False, 1e-6),
         ("UNet ds8 concat [28,7,13,2560]", (28, 7, 13, 2560), bf, True, 1e-5),
         ("UNet time_stack [2,14,56,104,320]", (2, 14, 56, 104, 320), bf, True, 1e-5),
+        ("UNet time_stack ds8 [2,14,7,13,1280]", (2, 14, 7, 13, 1280), bf, True, 1e-5),
         ("VAE [7,448,832,128]", (7, 448, 832, 128), bf, True, 1e-6),
         ("VAE time_stack [1,7,448,832,128]", (1, 7, 448, 832, 128), bf, True, 1e-6),
         ("UNet ds1 [28,56,104,320] fp32", (28, 56, 104, 320), f32, True, 1e-5),
@@ -617,9 +644,13 @@ def group_norm_cases(torch, rn):
     groups = 32
     cases = []
     for label, shape, dtype, silu, eps in sites:
-        shared = {}   # one set of inputs per site, built by the K7 case, freed by the K10 case
+        shared = {}   # one set of inputs per site, built by its first case, freed by the K10 case
+        n, c, item = 1, shape[-1], 2 if dtype == bf else 4
+        for d in shape:
+            n *= d
+        fused = N.group_norm_route(shape[0], n // (shape[0] * c), c, groups, item, True)[0] == "fused"
 
-        def inputs(shape=shape, dtype=dtype, silu=silu, eps=eps, shared=shared, label=label):
+        def inputs(shape=shape, dtype=dtype, silu=silu, eps=eps, shared=shared, label=label, fused=fused):
             if shared:
                 return shared
             c = shape[-1]
@@ -629,13 +660,13 @@ def group_norm_cases(torch, rn):
             a, s, mean, inv = N.group_norm_affine_plain(x, w, b, groups, eps)
             coef = N.group_norm_backward_coef_plain(x, dy, w, a, s, mean, inv, groups, silu)[0]
             shared.update(x=x, w=w, b=b, dy=dy, a=a, s=s, mean=mean, inv=inv, coef=coef)
-            stats_vs_fp64(torch, N, label, x, w, b, groups, eps)
+            stats_vs_fp64(torch, "K7", label, x, N.group_norm_stats(x, w, b, groups, eps)[2:], groups, eps)
+            if fused:
+                stats_vs_fp64(torch, "K7+K8 fused", label, x, N.group_norm_fused(x, w, b, groups, eps, silu)[3:],
+                              groups, eps)
             shared["library"] = group_norm_library(torch, F, x, w, b, dy, groups, eps, silu)
             return shared
 
-        n, c, item = 1, shape[-1], 2 if dtype == bf else 4
-        for d in shape:
-            n *= d
         small = 4 * shape[0] * c
         pick = lambda *keys: (lambda inputs=inputs: tuple(inputs()[k] for k in keys))
 
@@ -643,6 +674,13 @@ def group_norm_cases(torch, rn):
             shared.clear()
 
         common = dict(iters=5, label=label, site=shared)
+        if fused:
+            cases.append(dict(
+                kernel="group_norm_fused", make=pick("x", "w", "b"),
+                kern=lambda x, w, b, eps=eps, silu=silu: N.group_norm_fused(x, w, b, groups, eps, silu),
+                plain=lambda x, w, b, eps=eps, silu=silu: fused_plain(N, x, w, b, groups, eps, silu),
+                work=(2 * n * item + 4 * small, (8 if silu else 5) * n, "fp32"),
+                library=lambda *a, shared=shared: shared["library"]["forward"], library_covers="K7+K8", **common))
         cases.append(dict(
             kernel="group_norm_stats", make=pick("x", "w", "b"),
             kern=lambda x, w, b, eps=eps: N.group_norm_stats(x, w, b, groups, eps),
@@ -678,20 +716,26 @@ def split_coef(result):
     return coef[:, 0], coef[:, 1], coef[:, 2], dw, db
 
 
-def stats_vs_fp64(torch, N, label, x, w, b, groups, eps):
-    """K7's mean and inv-std against fp64 statistics of the same input: the
-    fp32 partial sums (thread, block, chunk list) must not drift over up to
+def fused_plain(N, x, w, b, groups, eps, silu):
+    """The plain versions of what group_norm_fused returns: (y, a, s, mean, inv)."""
+    a, s, mean, inv = N.group_norm_affine_plain(x, w, b, groups, eps)
+    return N.group_norm_apply_plain(x, a, s, silu), a, s, mean, inv
+
+
+def stats_vs_fp64(torch, kid, label, x, stats, groups, eps):
+    """A kernel's mean and inv-std against fp64 statistics of the same input:
+    the fp32 partial sums (thread, block, chunk list) must not drift over up to
     2.6 M elements per channel."""
-    _, _, mean, inv = N.group_norm_stats(x, w, b, groups, eps)
+    mean, inv = stats
     xg = x.reshape(x.shape[0], -1, groups, x.shape[-1] // groups)
     mean64 = torch.stack([xg[i].double().mean(dim=(0, 2)) for i in range(x.shape[0])])
     sq64 = torch.stack([xg[i].double().square().mean(dim=(0, 2)) for i in range(x.shape[0])])
     inv64 = (sq64 - mean64 * mean64 + eps).rsqrt()
     e_mean = ((mean.double() - mean64).abs() / sq64.sqrt()).max().item()
     e_inv = (inv.double() / inv64 - 1).abs().max().item()
-    print(f"[kernels] K7 {label}: mean vs fp64 {e_mean:.2e} of rms(x), inv-std vs fp64 {e_inv:.2e} "
+    print(f"[kernels] {kid} {label}: mean vs fp64 {e_mean:.2e} of rms(x), inv-std vs fp64 {e_inv:.2e} "
           f"relative (tol {STATS_TOL:.0e})", flush=True)
-    check(e_mean <= STATS_TOL and e_inv <= STATS_TOL, f"K7 statistics drift from fp64 at {label}")
+    check(e_mean <= STATS_TOL and e_inv <= STATS_TOL, f"{kid} statistics drift from fp64 at {label}")
 
 
 def group_norm_library(torch, F, x, w, b, dy, groups, eps, silu):
@@ -967,10 +1011,27 @@ def kernel_fns():
     return counters, plains
 
 
-# the kernels whose wrappers count the launches that ran their wgmma kernel
-# (`.wgmma_launches`, reported by the C entry): on every path each launch of
-# K1 (D = 64) and K11 (bf16 projections) must take it
-WGMMA_ROUTED = ("flash_attention_packed", "matmul_bias")
+# the kernels whose wrappers count the launches by the kernel that ran
+# (`.wgmma_launches`, `.narrow_launches`, reported by the C entry): on every
+# path each launch of K1 (D = 64) and K11 (bf16 projections) takes the wgmma
+# kernel, and each of K4 too but the narrow_launches the path implies (the VAE's
+# 3-channel conv_out_time_mix, once per decoder call)
+ROUTED = ("flash_attention_packed", "temporal_conv_1x1", "matmul_bias")
+GN_ROUTES = {"fused": 0, "stream": 0}   # GroupNorm32 calls per route since reset_counts()
+
+
+def count_group_norm_route(module, args):
+    """A forward pre-hook on every module: a GroupNorm32 call counts under the
+    route ops.norm.group_norm_route gives its input (a strided input is copied,
+    and the copy is aligned)."""
+    from vidseg_diffusion_tpu_torch.models.layers import GroupNorm32
+    from vidseg_diffusion_tpu_torch.ops import norm as N
+
+    if isinstance(module, GroupNorm32):
+        x = args[0]
+        b, c = x.shape[0], x.shape[-1]
+        aligned = not x.is_contiguous() or x.data_ptr() % 16 == 0
+        GN_ROUTES[N.group_norm_route(b, x.numel() // (b * c), c, module.groups, x.element_size(), aligned)[0]] += 1
 
 
 def reset_counts():
@@ -979,38 +1040,62 @@ def reset_counts():
     counters, plains = kernel_fns()
     for f in counters:
         f.launches = 0
-        if hasattr(f, "wgmma_launches"):
-            f.wgmma_launches = 0
+        for route in ("wgmma_launches", "narrow_launches"):
+            if hasattr(f, route):
+                setattr(f, route, 0)
     for f in plains:
         f.calls = 0
     N.group_norm.copies = 0
+    GN_ROUTES.update(fused=0, stream=0)
 
 
 def read_routes():
-    """{kernel: launches that ran its wgmma kernel} for the route-counting wrappers."""
+    """{kernel: {route: launches}} for the route-counting wrappers."""
     counters, _ = kernel_fns()
-    return {f.__name__: f.wgmma_launches for f in counters if hasattr(f, "wgmma_launches")}
+    return {f.__name__: {r: getattr(f, f"{r}_launches") for r in ("wgmma", "narrow") if hasattr(f, f"{r}_launches")}
+            for f in counters if hasattr(f, "wgmma_launches")}
 
 
 ROUTE_COUNTS = {}   # phase -> read_routes() after its run
 
 
-def check_routes(tag, launches):
+def check_routes(tag, launches, narrow=0):
     """Every K1 and K11 launch of the run took the wgmma kernel (none the
-    mma.sync tile or an FMA kernel); keeps and returns the route counts."""
+    mma.sync tile or an FMA kernel), and every K4 launch but `narrow` of them,
+    which took the narrow kernel; keeps and returns the route counts."""
     routes = read_routes()
-    for name in WGMMA_ROUTED:
-        check(routes[name] == launches[name],
-              f"[{tag}] {routes[name]} of {launches[name]} {name} launches ran the wgmma kernel")
+    want = {name: {"wgmma": launches[name]} for name in ROUTED}
+    want["temporal_conv_1x1"] = {"wgmma": launches["temporal_conv_1x1"] - narrow, "narrow": narrow}
+    got = {name: routes[name] for name in ROUTED}
+    check(got == want, f"[{tag}] launches by route {got}, expected {want}")
     ROUTE_COUNTS[tag] = routes
     return routes
 
 
+def narrow_tconv_sites(model):
+    """TemporalConv modules of a model whose widths the wgmma kernel does not
+    take (Cin or Cout % 8 != 0: the VAE decoder's conv_out_time_mix)."""
+    from vidseg_diffusion_tpu_torch.models.unet import TemporalConv
+
+    return sum(isinstance(m, TemporalConv) and (m.weight.shape[0] % 8 or m.weight.shape[1] % 8) > 0
+               for m in model.modules())
+
+
+def group_norm_expected(tag, n_gn):
+    """K7 / K8 (stream) and the fused kernel's launches by route, as the hook
+    counted the GroupNorm calls; their sum must be the n_gn the modules imply."""
+    check(GN_ROUTES["fused"] + GN_ROUTES["stream"] == n_gn,
+          f"[{tag}] GroupNorm calls by route {GN_ROUTES}, expected {n_gn} in all")
+    return {"group_norm_stats": GN_ROUTES["stream"], "group_norm_apply": GN_ROUTES["stream"],
+            "group_norm_fused": GN_ROUTES["fused"]}
+
+
 def module_launches(pipe, calls):
     """Launches an inference path implies from its modules and its `calls` per
-    model: K7 / K8 one per GroupNorm module per call of the model that holds
-    it; K11 four per CrossAttention module and K12 two per ResBlock per UNet
-    call. Returns ({kernel: launches}, modules per call)."""
+    model: one GroupNorm forward (K7 + K8 or the fused kernel) per GroupNorm
+    module per call of the model that holds it; K11 four per CrossAttention
+    module and K12 two per ResBlock per UNet call. Returns ({kernel or
+    "group_norm": launches}, modules per call)."""
     from vidseg_diffusion_tpu_torch.models.layers import CrossAttention, GroupNorm32
     from vidseg_diffusion_tpu_torch.models.unet import ResBlock
 
@@ -1019,23 +1104,22 @@ def module_launches(pipe, calls):
     per_call = {k: count(m, GroupNorm32) for k, m in models.items()}
     per_call.update(attention=count(pipe.unet, CrossAttention), resblock=count(pipe.unet, ResBlock))
     n_gn = sum(calls[k] * per_call[k] for k in calls)
-    return {"group_norm_stats": n_gn, "group_norm_apply": n_gn,
-            "matmul_bias": 4 * per_call["attention"] * calls["unet"],
+    return {"group_norm": n_gn, "matmul_bias": 4 * per_call["attention"] * calls["unet"],
             "conv3x3_same": 2 * per_call["resblock"] * calls["unet"]}, per_call
 
 
 def train_launches(unet):
     """Launches one training step of the remat UNet implies: TRAIN_LAUNCHES and,
     from the modules, K11 four per CrossAttention and K12 two per ResBlock in
-    each of the two forwards; K7 / K8 twice per GroupNorm but once for the
-    output norm, which no remat block holds; K9 / K10 once per GroupNorm."""
+    each of the two forwards; a GroupNorm forward (K7 + K8 or the fused kernel)
+    twice per GroupNorm but once for the output norm, which no remat block
+    holds; K9 / K10 once per GroupNorm."""
     from vidseg_diffusion_tpu_torch.models.layers import CrossAttention, GroupNorm32
     from vidseg_diffusion_tpu_torch.models.unet import ResBlock
 
     count = lambda cls: sum(isinstance(x, cls) for x in unet.modules())
     n_gn = count(GroupNorm32)
-    return dict(TRAIN_LAUNCHES, flash_attention=0, flash_attention_backward=0,
-                group_norm_stats=2 * n_gn - 1, group_norm_apply=2 * n_gn - 1,
+    return dict(TRAIN_LAUNCHES, flash_attention=0, flash_attention_backward=0, group_norm=2 * n_gn - 1,
                 group_norm_backward_stats=n_gn, group_norm_backward_apply=n_gn,
                 matmul_bias=2 * 4 * count(CrossAttention), conv3x3_same=2 * 2 * count(ResBlock))
 
@@ -1075,11 +1159,13 @@ def run_main_path(torch, pipe, tag, injected):
     check(all(by_module[k] == MAIN_LAUNCHES[k] for k in ("matmul_bias", "conv3x3_same")),
           f"K11 / K12 launches reckoned from the modules {by_module} differ from {MAIN_LAUNCHES}")
     expected = {name: MAIN_LAUNCHES.get(name, 0) for name in launches}
-    expected.update(by_module)
+    expected.update(group_norm_expected(tag, by_module.pop("group_norm")), **by_module)
     check(launches == expected, f"inference launches {launches}, expected {expected} (modules "
                                 f"per call {per_call}; no backward)")
     check(all(n == 0 for n in plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
-    print(f"[{tag}] wgmma launches {json.dumps(check_routes(tag, launches))}", flush=True)
+    narrow = MAIN_CALLS["decoder"] * narrow_tconv_sites(pipe.first_stage.decoder)
+    print(f"[{tag}] launches by route {json.dumps(check_routes(tag, launches, narrow))}; GroupNorm calls by "
+          f"route {json.dumps(GN_ROUTES)}", flush=True)
     k = args.num_masks
     h, w = hpx // 8, wpx // 8
     fin = res.final_latents
@@ -1199,14 +1285,15 @@ def phase_sd(torch):
 
     expected = {name: 0 for name in launches}
     by_module, per_call = module_launches(pipe, SD_CALLS)
-    expected.update(by_module)
+    expected.update(group_norm_expected("sd", by_module.pop("group_norm")), **by_module)
     n_attn = sum(isinstance(m, CrossAttention) for m in pipe.unet.modules())
     expected["flash_attention_packed"] = n_attn * SD_CALLS["unet"]       # self and 77-key cross sites
     expected["flash_attention"] = SD_CALLS["encoder"] + SD_CALLS["decoder"]  # the VAE's mid attention
     check(launches == expected, f"SD launches {launches}, expected {expected} (modules per call "
                                 f"{per_call}; K2, K4 and the backward kernels never)")
     check(all(n == 0 for n in plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
-    print(f"[sd] wgmma launches {json.dumps(check_routes('sd', launches))}", flush=True)
+    print(f"[sd] launches by route {json.dumps(check_routes('sd', launches))}; GroupNorm calls by route "
+          f"{json.dumps(GN_ROUTES)}", flush=True)
     check(C3.conv3x3_same.relays - relays == 2 * per_call["resblock"],
           "the ResBlock conv weights were not re-laid exactly once each")
     k = args.num_masks
@@ -1300,10 +1387,12 @@ def phase_train(torch):
           f"than a bf16 step and moved, {n_moved} moved in all; every EMA tensor updated", flush=True)
     check(all(launches[k] > 0 for k in TRAIN_KERNELS), f"a kernel of the training path never launched: {launches}")
     expected = {k: TRAIN_STEPS * n for k, n in train_launches(unet).items()}
+    expected.update(group_norm_expected("train", expected.pop("group_norm")))
     check(launches == expected, f"training launches {launches}, expected {expected} "
                                 f"({TRAIN_STEPS} steps of a remat UNet)")
     check(all(n == 0 for n in plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
-    print(f"[train] wgmma launches {json.dumps(check_routes('train', launches))}", flush=True)
+    print(f"[train] launches by route {json.dumps(check_routes('train', launches))}; GroupNorm calls by route "
+          f"{json.dumps(GN_ROUTES)}", flush=True)
     del trainer, unet, params0, ema0
     torch.cuda.empty_cache()
     return launches
@@ -1412,7 +1501,7 @@ def ae_launches_per_step(fs):
     from vidseg_diffusion_tpu_torch.models.layers import GroupNorm32
 
     n_gn = sum(isinstance(m, GroupNorm32) for mod in fs.modules().values() for m in mod.modules())
-    return dict(flash_attention=2, flash_attention_backward=2, group_norm_stats=n_gn, group_norm_apply=n_gn,
+    return dict(flash_attention=2, flash_attention_backward=2, group_norm=n_gn,
                 group_norm_backward_stats=n_gn, group_norm_backward_apply=n_gn)
 
 
@@ -1474,6 +1563,7 @@ def phase_ae_train(torch):
           flush=True)
     expected = {k: 0 for k in launches}
     expected.update({k: TRAIN_STEPS * n for k, n in ae_launches_per_step(fs).items()})
+    expected.update(group_norm_expected("ae_train", expected.pop("group_norm")))
     check(launches == expected, f"autoencoder launches {launches}, expected {expected} ({TRAIN_STEPS} steps)")
     check(all(n == 0 for n in plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
     check_routes("ae_train", launches)
@@ -1555,6 +1645,7 @@ def main():
         print(f"[build] ptxas: {len(regs)} kernel instances, registers {min(regs)}-{max(regs)}, "
               f"spill stores {spills} bytes", flush=True)
 
+    torch.nn.modules.module.register_module_forward_pre_hook(count_group_norm_route)
     phases = {}
     t0 = time.perf_counter()
     rows = phase_kernels(torch)
@@ -1592,9 +1683,10 @@ def main():
         head = next(r for r in mine if r["shape"] == HEADLINE[name])
         path_launches = (launches if name in INFERENCE_KERNELS
                          else ae_launches if name in AE_KERNELS else train_launches)
-        # K1 and K11: the launches of each path that ran the wgmma kernel (all of them, checked)
+        # K1, K4 and K11: the launches of each path by the kernel that ran (checked); the
+        # GroupNorm forward's routes are kernels of their own (K7 + K8, the fused K7+K8)
         routed = ({tag: ROUTE_COUNTS[tag][name] for tag in ("main", "inject", "sd", "train", "ae_train")}
-                  if name in WGMMA_ROUTED else None)
+                  if name in ROUTED else None)
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             # the run of its path: inference for K1-K4, K7, K8, K11, K12, diffusion training for
@@ -1605,7 +1697,7 @@ def main():
             max_abs_err=max(r["max_abs_err"] for r in mine), shape=head["shape"],
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
-            library_covers=head["library_covers"], wgmma_launches=routed,
+            library_covers=head["library_covers"], routes=routed,
         ))
     print(json.dumps({"kernels": kernels}))
     print(card)

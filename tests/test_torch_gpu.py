@@ -1,4 +1,5 @@
-"""The CUDA kernels (K1-K13) against their plain versions, on the card.
+"""The CUDA kernels (K1-K13, the fused GroupNorm forward) against their plain
+versions, on the card.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so on a machine with a card and no JAX it runs without the suite's
@@ -26,11 +27,14 @@ also held to fp64 statistics of the same input (STATS_TOL, relative). K11
 the LSE that K3 writes under a gradient (held to the plain LSE within
 LSE_TOL). Modules under autograd (the VAE's AttnBlock) hold the card's
 parameter gradients to the CPU's plain path within GRAD_REL_TOL by norm.
-K1 (bf16, D = 64, also through K3's bhld entry) and K11 (bf16 that TMA can
-address) run wgmma kernels: their wrappers' route counters
-(`.wgmma_launches`) must move with the launch counters, and an unaddressable
-K11 input must take the mma.sync tile; K1 takes chip_smoke.py's forward
-bounds there (RMS_TOL["K1"]).
+K1 (bf16, D = 64, also through K3's bhld entry), K11 and K4 (bf16 that TMA
+can address) run wgmma kernels: their wrappers' route counters
+(`.wgmma_launches`) must move with the launch counters, an unaddressable K11
+input must take the mma.sync tile and a K4 input off the 8-element vector or
+off a 16-byte boundary the narrow kernel (`.narrow_launches`); K1 takes
+chip_smoke.py's forward bounds there (RMS_TOL["K1"]). The GroupNorm forward
+takes the fused one-launch kernel or K7 + K8 as ops.norm.group_norm_route
+says, and is bitwise the same from run to run on either.
 """
 
 import math
@@ -269,7 +273,94 @@ def test_temporal_conv_1x1(cuda, dt, b, t, m, cin, cout):
     x = _randn(cuda, 11, dtype, b, t, m, cin)
     w = _randn(cuda, 12, dtype, 3, cin, cout, scale=(3 * cin) ** -0.5)
     bias = _randn(cuda, 13, dtype, cout)
+    routes = TC.temporal_conv_1x1.wgmma_launches, TC.temporal_conv_1x1.narrow_launches
     _check(TC.temporal_conv_1x1, TC.temporal_conv_1x1_reference, x, w, bias)
+    wgmma = dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0
+    narrow = dtype == torch.bfloat16 and not wgmma
+    assert (TC.temporal_conv_1x1.wgmma_launches, TC.temporal_conv_1x1.narrow_launches) == (
+        routes[0] + wgmma, routes[1] + narrow)
+
+
+# the wgmma kernel's edges: T = 1, 2, 14; M = 1, 91, 364, 5824 and off the
+# 128- and 192-row tiles; kt = 1, 3, 5; Cin != Cout; the UNet widths (160-wide
+# column tiles) and the VAE's 128, 256, 512 (128-wide); tiles per frame (M
+# 5824) and over the whole video (M 91, 364, 1000)
+K4_WGMMA_SHAPES = [(2, 14, 91, 1280, 1280, 3), (1, 14, 364, 320, 320, 3), (1, 2, 5824, 320, 320, 3),
+                   (2, 1, 1000, 320, 640, 3), (3, 2, 1, 128, 128, 3), (1, 7, 5824, 128, 128, 3),
+                   (1, 3, 700, 256, 256, 3), (1, 2, 91, 512, 512, 3), (2, 5, 91, 320, 320, 1),
+                   (1, 14, 300, 64, 200, 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,m,cin,cout,kt", K4_WGMMA_SHAPES)
+def test_temporal_conv_1x1_wgmma_route(cuda, b, t, m, cin, cout, kt):
+    """bf16 with Cin and Cout multiples of 8 runs the wgmma kernel (its route
+    counter moves with the launch counter), within the forward bounds."""
+    bf = torch.bfloat16
+    x = _randn(cuda, 14, bf, b, t, m, cin)
+    w = _randn(cuda, 15, bf, kt, cin, cout, scale=(kt * cin) ** -0.5)
+    bias = _randn(cuda, 16, bf, cout)
+    wg = TC.temporal_conv_1x1.wgmma_launches
+    y = _check_forward(TC.temporal_conv_1x1, TC.temporal_conv_1x1_reference, RMS_TOL["K4"], x, w, bias)
+    assert TC.temporal_conv_1x1.wgmma_launches == wg + 1 and y.shape == (b, t, m, cout)
+
+
+@pytest.mark.gpu
+def test_temporal_conv_1x1_narrow_route(cuda):
+    """bf16 that the wgmma kernel does not take (C = 3, as the VAE's
+    conv_out_time_mix; Cout or Cin off the 8-element vector; an x that starts
+    off a 16-byte boundary) runs the CUDA-core kernel; fp32 runs neither."""
+    bf = torch.bfloat16
+    cases = [(_randn(cuda, 17, bf, 1, 7, 5000, 3), 3), (_randn(cuda, 18, bf, 2, 3, 50, 3), 16),
+             (_randn(cuda, 19, bf, 2, 3, 50, 12), 8), (_randn(cuda, 20, bf, 2 * 3 * 40 * 64 + 1)[1:].view(2, 3, 40, 64), 64)]
+    for x, cout in cases:
+        cin = x.shape[-1]
+        w = _randn(cuda, 21, bf, 3, cin, cout, scale=(3 * cin) ** -0.5)
+        bias = _randn(cuda, 22, bf, cout)
+        routes = TC.temporal_conv_1x1.wgmma_launches, TC.temporal_conv_1x1.narrow_launches
+        _check_forward(TC.temporal_conv_1x1, TC.temporal_conv_1x1_reference, RMS_TOL["K4"], x, w, bias)
+        assert (TC.temporal_conv_1x1.wgmma_launches, TC.temporal_conv_1x1.narrow_launches) == (
+            routes[0], routes[1] + 1)
+    x = _randn(cuda, 23, torch.float32, 2, 5, 40, 64)
+    w = _randn(cuda, 24, torch.float32, 3, 64, 64, scale=0.07)
+    routes = TC.temporal_conv_1x1.wgmma_launches, TC.temporal_conv_1x1.narrow_launches
+    _check_forward(TC.temporal_conv_1x1, TC.temporal_conv_1x1_reference, None, x, w, w[0, 0])
+    assert (TC.temporal_conv_1x1.wgmma_launches, TC.temporal_conv_1x1.narrow_launches) == routes
+
+
+@pytest.mark.gpu
+def test_temporal_conv_module_caches_its_k_major_weight_and_takes_the_wgmma_dx(cuda):
+    """The TemporalConv module on the card: its Conv3d weight is re-laid K-major
+    once per weight version; with grad on, the backward's dx is one more wgmma
+    launch, and the gradients of x, weight and bias match autograd through the
+    plain forward on the same JAX-layout weight."""
+    from vidseg_diffusion_tpu_torch.models.unet import TemporalConv
+
+    bf = torch.bfloat16
+    mod = TemporalConv(320, 320).to(cuda, bf)
+    with torch.no_grad():
+        mod.weight.copy_(_randn(cuda, 25, bf, 320, 320, 3, 1, 1, scale=(3 * 320) ** -0.5))
+        mod.bias.copy_(_randn(cuda, 26, bf, 320))
+    x = _randn(cuda, 27, bf, 2, 14, 7, 13, 320)
+    relays = TC.temporal_conv_1x1.relays
+    with torch.no_grad():
+        y0, y1 = mod(x), mod(x)
+    assert TC.temporal_conv_1x1.relays == relays + 1 and torch.equal(y0, y1)
+    with torch.no_grad():
+        mod.weight.mul_(0.5)
+        mod(x)
+    assert TC.temporal_conv_1x1.relays == relays + 2
+    xg = x.clone().requires_grad_()
+    g = _randn(cuda, 28, bf, 2, 14, 7, 13, 320)
+    launches, wg = TC.temporal_conv_1x1.launches, TC.temporal_conv_1x1.wgmma_launches
+    mod(xg).backward(g)
+    assert (TC.temporal_conv_1x1.launches, TC.temporal_conv_1x1.wgmma_launches) == (launches + 2, wg + 2)
+    wj = mod.weight.detach()[:, :, :, 0, 0].permute(2, 1, 0).contiguous().requires_grad_()
+    bj = mod.bias.detach().clone().requires_grad_()
+    xr = x.clone().requires_grad_()
+    TC.temporal_conv_1x1_reference(xr.reshape(2, 14, 91, 320), wj, bj).reshape(g.shape).backward(g)
+    _close_grads((xg.grad, mod.weight.grad[:, :, :, 0, 0].permute(2, 1, 0), mod.bias.grad),
+                 (xr.grad, wj.grad, bj.grad), RMS_TOL["K4"])
 
 
 @pytest.mark.gpu
@@ -501,6 +592,11 @@ GN_SHAPES = [((2, 6, 8, 32), 8), ((3, 7, 13, 64), 16), ((2, 14, 8, 8, 32), 8), (
              ((2, 33, 2560), 32), ((1, 5000, 128), 32), ((3, 17, 5, 6), 2), ((2, 9, 4, 36), 4)]
 
 
+def _gn_route(x, groups):
+    b, c = x.shape[0], x.shape[-1]
+    return N.group_norm_route(b, x.numel() // (b * c), c, groups, x.element_size(), x.data_ptr() % 16 == 0)[0]
+
+
 def _gn_inputs(cuda, dtype, shape, seed=60):
     c = shape[-1]
     x = _randn(cuda, seed, dtype, *shape) * 1.5 + 0.3
@@ -515,13 +611,16 @@ def _gn_inputs(cuda, dtype, shape, seed=60):
 @pytest.mark.parametrize("eps", [1e-5, 1e-6])
 @pytest.mark.parametrize("shape,groups", GN_SHAPES)
 def test_group_norm_forward(cuda, dt, silu, eps, shape, groups):
-    """K7 + K8 vs the plain forward; K7's statistics vs fp64."""
+    """The forward (the fused kernel or K7 + K8, as group_norm_route says) vs
+    the plain forward; K7's statistics vs fp64."""
     x, w, b = _gn_inputs(cuda, DTYPES[dt], shape)
-    launches = N.group_norm_stats.launches, N.group_norm_apply.launches
+    launches = N.group_norm_stats.launches, N.group_norm_apply.launches, N.group_norm_fused.launches
     calls = N.group_norm_plain.calls
     y = N.group_norm(x, w, b, groups, eps, silu=silu)
     torch.cuda.synchronize()
-    assert (N.group_norm_stats.launches, N.group_norm_apply.launches) == (launches[0] + 1, launches[1] + 1)
+    fused = _gn_route(x, groups) == "fused"
+    assert (N.group_norm_stats.launches, N.group_norm_apply.launches, N.group_norm_fused.launches) == (
+        launches[0] + (not fused), launches[1] + (not fused), launches[2] + fused)
     assert N.group_norm_plain.calls == calls
     _close_grads((y,), (N.group_norm_plain(x, w, b, groups, eps, silu=silu),), RMS_TOL["GN"])
     _, _, mean, inv = N.group_norm_stats(x, w, b, groups, eps)
@@ -531,6 +630,48 @@ def test_group_norm_forward(cuda, dt, silu, eps, shape, groups):
     rms = xd.square().mean(dim=(1, 3)).sqrt()
     assert ((mean.double() - mean64).abs() / rms).max().item() <= STATS_TOL
     assert (inv.double() * (var64 + eps).sqrt() - 1).abs().max().item() <= STATS_TOL
+
+
+# the main paths' GroupNorm sites and their route in bf16 and in fp32 (fused
+# at ds2, ds4, mid, ds8 and, in bf16, the ds8 time_stack, whose fp32 slab is
+# 204 KB; K7 + K8 at ds1, its concatenation and the ds1 time_stack) and the
+# fused kernel's slab edge: 1536 rows of one group of 128 bytes (64 bf16 or 32
+# fp32 channels) fill its 196 608 bytes, one row more goes to K7 + K8
+GN_SITES = [((28, 14, 26, 1280), "fused", "fused"), ((28, 7, 13, 1280), "fused", "fused"),
+            ((28, 7, 13, 2560), "fused", "fused"), ((28, 28, 52, 640), "fused", "fused"),
+            ((2, 14, 7, 13, 1280), "fused", "stream"), ((28, 56, 104, 320), "stream", "stream"),
+            ((28, 56, 104, 960), "stream", "stream"), ((2, 14, 56, 104, 320), "stream", "stream"),
+            ((2, 1536, 2048), "fused", "fused"), ((2, 1537, 2048), "stream", "stream")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("shape,bf16_route,fp32_route", GN_SITES)
+def test_group_norm_routes_at_the_sites(cuda, dt, silu, shape, bf16_route, fp32_route):
+    """Each route where group_norm_route sends it (one launch on the fused one,
+    K7 + K8 on the other), y, a, s, mean and inv against the plain versions,
+    the statistics against fp64, and two runs bitwise equal."""
+    dtype = DTYPES[dt]
+    route = bf16_route if dtype == torch.bfloat16 else fp32_route
+    if dtype == torch.float32 and shape[-1] == 2048:
+        shape = shape[:-1] + (1024,)   # the same slab edge in fp32
+    x, w, b = _gn_inputs(cuda, dtype, shape, seed=90)
+    assert _gn_route(x, 32) == route
+    before = N.group_norm_stats.launches + N.group_norm_apply.launches + N.group_norm_fused.launches
+    y, a, s, mean, inv = N._forward(x, w, b, 32, 1e-5, silu)
+    torch.cuda.synchronize()
+    after = N.group_norm_stats.launches + N.group_norm_apply.launches + N.group_norm_fused.launches
+    assert after - before == (1 if route == "fused" else 2)
+    a_ref, s_ref, mean_ref, inv_ref = N.group_norm_affine_plain(x, w, b, 32, 1e-5)
+    _close_grads((y,), (N.group_norm_apply_plain(x, a_ref, s_ref, silu),), RMS_TOL["GN"])
+    _close_grads((a, s, mean, inv), (a_ref, s_ref, mean_ref, inv_ref), RMS_TOL["GN"])
+    xd = x.double().reshape(shape[0], -1, 32, shape[-1] // 32)
+    rms = xd.square().mean(dim=(1, 3)).sqrt()
+    assert ((mean.double() - xd.mean(dim=(1, 3))).abs() / rms).max().item() <= STATS_TOL
+    assert (inv.double() * (xd.var(dim=(1, 3), unbiased=False) + 1e-5).sqrt() - 1).abs().max().item() <= STATS_TOL
+    again = N._forward(x, w, b, 32, 1e-5, silu)
+    assert all(torch.equal(p, q) for p, q in zip((y, a, s, mean, inv), again))
 
 
 @pytest.mark.gpu

@@ -452,6 +452,33 @@ def test_projections_and_resblock_convs_go_through_the_kernel_wrappers(tiny_unet
         assert tc3.conv3x3_plain.calls - c3 == 2 * n_res
 
 
+def test_temporal_conv_and_video_resblock_match_jax():
+    """TemporalConv (its Conv3d weight handed to temporal_conv_1x1, which reads
+    the K-major copy on the card) and the VideoResBlock whose time_stack holds
+    two of them, against JAX's TemporalConv / VideoResBlock (temporal_conv_1x1's
+    math) on the same weights, at T = 3 and T = 1."""
+    rs = np.random.RandomState(19)
+    for t in (3, 1):
+        x5 = rs.randn(2, t, 4, 5, 16).astype(np.float32)
+        jc = junet.TemporalConv(24)
+        params = _init_tree(jc, 19, jnp.asarray(x5))
+        tc = _load(tunet.TemporalConv(16, 24), params, convert.unet_key_fn)
+        _close(tc(torch.from_numpy(x5)), _apply(jc, params, jnp.asarray(x5)), MODULE_TOL)
+
+        x = rs.randn(2 * t, 4, 5, 16).astype(np.float32)
+        emb = rs.randn(2 * t, 12).astype(np.float32)
+        jb = junet.VideoResBlock(out_channels=32)
+        ind = np.zeros((2, t), np.float32)
+        params = _init_tree(jb, 20, jnp.asarray(x), jnp.asarray(emb), num_video_frames=t,
+                            image_only_indicator=jnp.asarray(ind))
+        want = _apply(jb, params, jnp.asarray(x), jnp.asarray(emb), num_video_frames=t,
+                      image_only_indicator=jnp.asarray(ind))
+        tb = _load(tunet.VideoResBlock(16, 32, 12), params, convert.unet_key_fn)
+        got = tb(torch.from_numpy(x), torch.from_numpy(emb), num_video_frames=t,
+                 image_only_indicator=torch.from_numpy(ind))
+        _close(got, want, MODULE_TOL)
+
+
 def test_clip_text_tower():
     """The OpenCLIP text tower in its SD 2.1 form (penultimate layer, then
     ln_final) on the empty prompt's tokens and on random ids."""

@@ -163,6 +163,9 @@ _FUNCTIONS = {
               [(10, 6, 2, 16)] * 3, (10, 6, 2, 16)),
     "K4": (ttc.temporal_conv_1x1, ttc.temporal_conv_1x1_reference,
            [(2, 5, 12, 16), (3, 16, 24), (24,)], (2, 5, 12, 24)),
+    "K4 Conv3d weight": (ttc.temporal_conv_1x1,
+                         lambda x, w, b: ttc.temporal_conv_1x1_reference(x, w[:, :, :, 0, 0].permute(2, 1, 0), b),
+                         [(2, 5, 12, 16), (24, 16, 3, 1, 1), (24,)], (2, 5, 12, 24)),
     "K11": (tmm.matmul_bias, tmm.matmul_bias_plain, [(3, 17, 20), (24, 20), (24,)], (3, 17, 24)),
     "K11 no bias": (tmm.matmul_bias, tmm.matmul_bias_plain, [(30, 20), (24, 20)], (30, 24)),
     "K12": (tc3.conv3x3_same, tc3.conv3x3_plain, [(2, 5, 7, 8), (12, 8, 3, 3), (12,)], (2, 5, 7, 12)),
@@ -289,6 +292,63 @@ def test_temporal_conv_plain_matches_pallas(b, t, m, cin, cout):
     _close(ttc.temporal_conv_1x1(T(x), T(w), T(bias)), want, atol=2e-5, rtol=2e-5)
     ref = jtc.temporal_conv_1x1_reference(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias))
     _close(ttc.temporal_conv_1x1_reference(T(x), T(w), T(bias)), ref, atol=2e-5, rtol=2e-5)
+
+
+def test_temporal_conv_k_major_copy_is_cached_per_weight_version():
+    """The [kt, Cout, Cin] copy K4 reads: tap j holds W[:, :, j, 0, 0] of a
+    Conv3d weight (W[j].T of a JAX [kt, Cin, Cout] one); made once per weight
+    tensor and again after the weight is written to."""
+    (w,) = _arrays(35, (6, 4, 3, 1, 1))
+    wt = T(w.copy())
+    before = ttc.temporal_conv_1x1.relays
+    wk = ttc.k_major(wt)
+    assert wk.shape == (3, 6, 4) and wk.is_contiguous()
+    for j in range(3):
+        np.testing.assert_array_equal(wk[j].numpy(), w[:, :, j, 0, 0])
+    assert ttc.k_major(wt) is wk and ttc.temporal_conv_1x1.relays == before + 1
+    wt.mul_(2.0)
+    assert ttc.k_major(wt) is not wk and ttc.temporal_conv_1x1.relays == before + 2
+    np.testing.assert_array_equal(ttc.k_major(wt)[1].numpy(), 2.0 * w[:, :, 1, 0, 0])
+    wj = T(w[:, :, :, 0, 0].transpose(2, 1, 0).copy())   # the same weight in JAX's layout
+    assert torch.equal(ttc.k_major(wj), ttc.k_major(wt) / 2.0)
+    assert ttc.temporal_conv_1x1.relays == before + 3
+
+
+def test_temporal_conv_mixed_dtype_weight_casts_once_in_the_cached_copy():
+    """An fp32 Conv3d weight under bf16 activations: the K-major copy is made in
+    the activation's dtype and found again on the next call; the result and
+    the gradients are those of the weight cast beforehand, dW in the weight's
+    dtype and layout."""
+    x, w, bias = _arrays(36, (2, 3, 5, 8), (12, 8, 3, 1, 1), (12,))
+    wt = T(w * 0.2)
+    before = ttc.temporal_conv_1x1.relays
+    wk = ttc.k_major(wt, torch.bfloat16)
+    assert wk.dtype == torch.bfloat16 and ttc.k_major(wt, torch.bfloat16) is wk
+    assert ttc.temporal_conv_1x1.relays == before + 1
+    assert torch.equal(wk[2], wt.bfloat16()[:, :, 2, 0, 0])
+    xb, bb = T(x).bfloat16(), T(bias).bfloat16()
+    assert torch.equal(ttc.temporal_conv_1x1(xb, wt, bb), ttc.temporal_conv_1x1(xb, wt.bfloat16(), bb))
+    xg, wg = xb.clone().requires_grad_(), wt.clone().requires_grad_()
+    ttc.temporal_conv_1x1(xg, wg, bb).float().square().sum().backward()
+    xr, wr = xb.clone().requires_grad_(), wt.bfloat16().requires_grad_()
+    ttc.temporal_conv_1x1(xr, wr, bb).float().square().sum().backward()
+    assert wg.grad.dtype == torch.float32 and wg.grad.shape == wt.shape and xg.grad.dtype == torch.bfloat16
+    assert torch.equal(xg.grad, xr.grad) and torch.equal(wg.grad, wr.grad.float())
+
+
+def test_temporal_conv_dx_with_the_flipped_k_major_weight_matches_jax_vjp():
+    """The backward's K4 launch reads JAX's [kt, Cin, Cout] weight flipped
+    along the taps as its K-major [kt, N = Cin, K = Cout] operand: the plain
+    forward on g with that operand (each tap read transposed, as K-major) is
+    jax.vjp's dx of JAX's reference, at T = 1, 2 and 5 and kt = 3 and 5."""
+    for t, kt in ((1, 3), (2, 3), (5, 3), (5, 5)):
+        x, w, bias, g = _arrays(37 + t + kt, (2, t, 7, 8), (kt, 8, 12), (12,), (2, t, 7, 12))
+        _, vjp = jax.vjp(jtc.temporal_conv_1x1_reference, *map(jnp.asarray, (x, w, bias)))
+        want = vjp(jnp.asarray(g))[0]
+        operand = T(w).flip(0)                      # what the kernel path hands K4 for dx
+        dx = ttc.temporal_conv_1x1_reference(T(g), operand.transpose(1, 2), torch.zeros(8))
+        _close(dx, want, atol=2e-5, rtol=2e-5)
+        _close(ttc.temporal_conv_1x1_backward(T(x), T(w), T(g))[0], want, atol=2e-5, rtol=2e-5)
 
 
 # -- K11, K12 ------------------------------------------------------------------
@@ -594,14 +654,57 @@ def test_group_norm_saves_nothing_without_grad_and_counts_copies():
 def test_group_norm_plan_covers_every_row():
     """The chunking the wrappers hand to the kernels (rows per chunk a
     multiple of the rows a block covers per pass, chunks * rows >= R), at the
-    main-path shapes and at odd ones."""
+    main-path shapes and at odd ones, for K8-K10's grid and K7's."""
     for b, r, c, itemsize in [(28, 5824, 320, 2), (28, 91, 1280, 2), (28, 91, 2560, 4), (1, 2609152, 128, 2),
                               (7, 372736, 128, 2), (2, 81536, 320, 2), (3, 91, 6, 2), (1, 1, 32, 4)]:
-        vec, rows, chunks = tnorm._plan(b, r, c, itemsize, True)
-        assert vec in (1, 16 // itemsize) and c % vec == 0
+        for target in (tnorm._TARGET_BLOCKS, tnorm._STATS_TARGET_BLOCKS):   # K8-K10, and K7's one wave
+            vec, rows, chunks = tnorm._plan(b, r, c, itemsize, True, target)
+            assert vec in (1, 16 // itemsize) and c % vec == 0
+            assert rows * chunks >= r > rows * (chunks - 1)
+            assert rows % (256 // min(c // vec, 256)) == 0
+            assert tnorm._plan(b, r, c, itemsize, False, target)[0] == 1  # unaligned pointers: element loads
+
+
+# chip_smoke.py's GroupNorm sites (bf16 unless marked) and where the forward goes:
+# the fused one-launch kernel where one sample's slab of whole groups with rows of
+# a multiple of 16 bytes fits in 196 608 bytes of shared memory, K7 + K8 elsewhere
+GN_ROUTE_SITES = [
+    ((28, 56, 104, 320), 2, "stream", None),      # ds1: 4 groups of 10 channels, 466 KB
+    ((28, 56, 104, 960), 2, "stream", None),      # ds1 concat
+    ((28, 28, 52, 640), 2, "fused", 2),           # ds2: two groups of 20 channels, 116 KB
+    ((28, 28, 52, 1920), 2, "stream", None),      # ds2 concat: two groups of 60 channels, 349 KB
+    ((28, 14, 26, 1280), 2, "fused", 1),          # ds4: 29 KB
+    ((28, 7, 13, 1280), 2, "fused", 1),           # mid: 7 KB
+    ((28, 7, 13, 2560), 2, "fused", 1),           # ds8 concat: 15 KB
+    ((2, 14, 7, 13, 1280), 2, "fused", 1),        # time_stack ds8: 102 KB
+    ((2, 14, 14, 26, 1280), 2, "stream", None),   # time_stack ds4: 408 KB
+    ((2, 14, 56, 104, 320), 2, "stream", None),   # time_stack ds1
+    ((7, 448, 832, 128), 2, "stream", None),      # VAE
+    ((1, 7, 448, 832, 128), 2, "stream", None),   # VAE time_stack
+    ((7, 56, 104, 512), 2, "fused", 1),           # VAE mid: 16 channels of 2 bytes, 186 KB
+    ((28, 56, 104, 320), 4, "stream", None),      # ds1 fp32
+    ((28, 7, 13, 1280), 4, "fused", 1),           # mid fp32: 15 KB
+    ((2, 1536, 2048), 2, "fused", 1),             # the slab's edge: 1536 rows of 128 bytes
+    ((2, 1537, 2048), 2, "stream", None),         # one row more
+    ((28, 7, 13, 1280), 2, "stream", "unaligned"),  # x off a 16-byte boundary
+]
+
+
+@pytest.mark.parametrize("shape,itemsize,route,arg", GN_ROUTE_SITES)
+def test_group_norm_route_sends_each_site_where_it_fits(shape, itemsize, route, arg):
+    """group_norm_route at the main paths' GroupNorm sites (32 groups): the
+    fused kernel and its groups per block where the slab fits, else K7 + K8
+    with a plan that covers every row."""
+    b, c = shape[0], shape[-1]
+    r = int(np.prod(shape)) // (b * c)
+    got, detail = tnorm.group_norm_route(b, r, c, 32, itemsize, arg != "unaligned")
+    assert got == route
+    if route == "fused":
+        assert detail == arg and r * arg * (c // 32) * itemsize <= tnorm._SLAB_MAX_BYTES
+        assert arg * (c // 32) * itemsize % 16 == 0
+    else:
+        vec, rows, chunks = detail
         assert rows * chunks >= r > rows * (chunks - 1)
-        assert rows % (256 // min(c // vec, 256)) == 0
-        assert tnorm._plan(b, r, c, itemsize, False)[0] == 1  # unaligned pointers: element loads
 
 
 @pytest.mark.parametrize("src,dst", [((16, 24), (7, 13)), ((4, 6), (8, 9)), ((30, 40), (224, 224)), ((5, 5), (5, 3))])

@@ -2,7 +2,7 @@
 // group_norm_bwd.cu backward, K9 + K10).
 //
 // The activation is channels-last and contiguous, [B, R, C] with R every
-// non-batch, non-channel position. All four kernels walk it the same way: a
+// non-batch, non-channel position. The four streaming kernels walk it the same way: a
 // block owns one batch item, one tile of up to kTileVecs channel vectors and
 // one chunk of rows; thread (ty, tx) keeps channel vector tx of the tile and
 // visits rows ty, ty + rows_per_pass, ... of the chunk. A vector is VEC
@@ -10,9 +10,10 @@
 // threads of a warp read consecutive addresses and a thread's per-channel
 // coefficients or sums stay in registers for the whole chunk.
 //
-// The two statistics kernels write one partial sum per (batch, chunk, channel);
-// a second kernel adds the partials in a fixed order and a third, tiny one does
-// the per-group math: no float atomics, so the result is the same from run to
+// K9 writes one partial sum per (batch, chunk, channel); a second kernel adds
+// the partials in a fixed order and a third, tiny one does the per-group math.
+// K7 writes per-group partials and its last block of each batch item adds them
+// (group_norm.cu). No float atomics, so the result is the same from run to
 // run, and the chunking makes the fp32 summation a tree (thread, block, chunk
 // slices) instead of one long chain.
 #pragma once

@@ -13,25 +13,15 @@
 // sites are bound by memory, the 1280-wide ones by the tensor cores.
 //
 // bf16 with K % 8 == 0 and 16-byte aligned x and W (every projection of the
-// UNets): a persistent wgmma kernel fed by TMA. K is short here (5 to 20
-// slices of 64), so a block that did one output tile would spend as long
-// filling its ring and storing its tile as multiplying. Instead one block per
-// SM walks the output tiles (tile += gridDim.x; the column tiles of one row
-// block are neighbours, so blocks that run together share x's rows in L2):
-// - one producer thread (its own warp) asks TMA for the slices of its tiles,
-//   tile after tile, through a ring of STAGES stages: the x rows by a rank-2
-//   tiled map over [M, K] (BM rows x 64 channels a box, 128-byte swizzle), the
-//   W rows by the one-tap weight map (160 x 64). It runs ahead into the next
-//   tile while the consumers finish the current one. What lies outside M, N or
-//   K arrives as zeros;
-// - consumer warpgroups own 64 rows each (one m64n160k16 accumulator, 80 fp32
-//   registers a thread); per slice four wgmmas from shared memory, the stage
-//   handed back once the slice after it is issued;
-// - the epilogue of each warpgroup is its own: bias add in fp32 and one
-//   rounding into a staging tile of its 64 rows (not the ring, which the
-//   producer is filling), then 16-byte stores along N (element stores when
-//   N % 8 != 0), predicated on M and N; then it goes on to its next tile.
-// Two tile heights, 192 rows (three warpgroups, three stages) and 128 (two,
+// UNets): the persistent wgmma loop of wgmma_tile.cuh (shared with K4) fed by
+// TMA. K is short here (5 to 20 slices of 64), so a block that did one output
+// tile would spend as long filling its ring and storing its tile as
+// multiplying. Instead one block per SM walks the output tiles (the column
+// tiles of one row block are neighbours, so blocks that run together share
+// x's rows in L2): the x rows come by a rank-2 tiled map over [M, K] (BM rows x
+// 64 channels a box, 128-byte swizzle), the W rows by the one-tap weight map
+// (160 x 64); a producer warp runs ahead into the next tile, and each consumer
+// warpgroup stores its own 64 rows through a staging tile. Two tile heights, 192 rows (three warpgroups, three stages) and 128 (two,
 // four stages), whichever leaves an SM the fewer rows to walk. Measured and
 // dropped (PERF.md): the same tiles without persistence (one block per tile,
 // 1.1-1.2x slower at the large sites), 128 x 320 tiles that read x once (160
@@ -47,19 +37,27 @@
 
 namespace vs {
 
-template <int NWG_, int STAGES_>
-struct MB {
-  static constexpr int NWG = NWG_, STAGES = STAGES_;
-  static constexpr int BM = 64 * NWG, BN = 160;
-  static constexpr int CONSUMERS = 128 * NWG;
-  static constexpr int THREADS = CONSUMERS + 32;       // consumer warpgroups, then the producer warp
-  static constexpr int A_BYTES = BM * 128, B_BYTES = BN * 128, STAGE_BYTES = A_BYTES + B_BYTES;
-  static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
-  static constexpr int OUT_PITCH = BN + 8;             // staging row in elements: conflict-free, 16-byte rows
-  static constexpr int OUT_BYTES = BM * OUT_PITCH * 2;
-  static constexpr int BAR_OFFSET = RING_BYTES + OUT_BYTES;  // STAGES full, then STAGES empty mbarriers
-  static constexpr int SMEM_BYTES = BAR_OFFSET + 16 * STAGES + 1024;
-  static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
+// K11's walk of the persistent loop (wgmma_tile.cuh): x [M, K] by a rank-2
+// tiled map (BM rows x 64 channels a box), W [N, K] by the one-tap weight map;
+// the column tiles of one row block are neighbours.
+struct RowsWalk {
+  const CUtensorMap* xmap;
+  const CUtensorMap* wmap;
+  long long M;
+  int ncol, nk, bm, bn;
+  struct Tile {
+    long long out_row0;
+    int rows, col0;
+  };
+  __device__ __forceinline__ Tile tile(int i) const {
+    const long long row0 = (long long)(i / ncol) * bm;
+    return Tile{row0, (int)min((long long)bm, M - row0), (i % ncol) * bn};
+  }
+  __device__ __forceinline__ int slices(const Tile&) const { return nk; }
+  __device__ __forceinline__ void load(uint32_t a, uint32_t b, uint32_t bar, const Tile& t, int s) const {
+    tma_load_2d(a, xmap, bar, s * WT_BK, (int)t.out_row0);
+    tma_load_3d(b, wmap, bar, s * WT_BK, t.col0, 0);
+  }
 };
 
 template <class C>
@@ -67,117 +65,9 @@ __global__ void __launch_bounds__(C::THREADS, 1) matmul_bias_wgmma_kernel(
     const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
     const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y, long long M, int K, int N,
     int ncol, int ntiles) {
-  constexpr int NWG = C::NWG, STAGES = C::STAGES, BM = C::BM, BN = C::BN;
-  constexpr int CONSUMERS = C::CONSUMERS, A_BYTES = C::A_BYTES, STAGE_BYTES = C::STAGE_BYTES;
-  constexpr int RING_BYTES = C::RING_BYTES, OUT_PITCH = C::OUT_PITCH, BAR_OFFSET = C::BAR_OFFSET;
   extern __shared__ unsigned char mb_smem[];
-  unsigned char* smem = smem_align_1024(mb_smem);
-  const uint32_t sbase = smem_u32(smem);
-  const uint32_t full_bar = sbase + BAR_OFFSET, empty_bar = full_bar + 8 * STAGES;
-  const int tid = threadIdx.x, wg = tid >> 7;
-  const int nsl = (K + WT_BK - 1) / WT_BK;
-
-  if (tid == 0) {
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full_bar + 8 * s, 1);
-      mbar_init(empty_bar + 8 * s, NWG);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (wg == NWG) {
-    // the producer warp: one thread keeps the ring full across the block's tiles
-    if (tid == CONSUMERS) {
-      int stage = 0, it = 0;
-      uint32_t parity = 1;  // of the empty barriers: the ring's round before this one
-      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        const int row0 = (tile / ncol) * BM, col0 = (tile % ncol) * BN;
-        for (int k0 = 0; k0 < K; k0 += WT_BK, ++it) {
-          if (it >= STAGES) mbar_wait(empty_bar + 8 * stage, parity);
-          const uint32_t sa = sbase + stage * STAGE_BYTES, bar = full_bar + 8 * stage;
-          mbar_expect_tx(bar, STAGE_BYTES);
-          tma_load_2d(sa, &xmap, bar, k0, row0);
-          tma_load_3d(sa + A_BYTES, &wmap, bar, k0, col0, 0);
-          if (++stage == STAGES) {
-            stage = 0;
-            parity ^= 1;
-          }
-        }
-      }
-    }
-    return;
-  }
-
-  const int warp = (tid >> 5) & 3, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
-  const int wsync = 1 + wg;  // this warpgroup's named barrier
-  __nv_bfloat16* outs = reinterpret_cast<__nv_bfloat16*>(smem + RING_BYTES) + wg * 64 * OUT_PITCH;
-  const bool vec_out = N % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  int stage = 0;
-  uint32_t parity = 0;  // of the full barriers: the ring's current round
-  float acc[BN / 2];
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long row0 = (long long)(tile / ncol) * BM;
-    const int col0 = (tile % ncol) * BN;
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-    int prev = 0;
-    for (int s = 0; s < nsl; ++s) {
-      mbar_wait(full_bar + 8 * stage, parity);
-      const uint32_t sa = sbase + stage * STAGE_BYTES + wg * 64 * 128;
-      const uint32_t sb = sbase + stage * STAGE_BYTES + A_BYTES;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < WT_BK / 16; ++kk)
-        wgmma_m64n160k16_ss(acc, wgmma_desc(sa + kk * 32, 16, 1024), wgmma_desc(sb + kk * 32, 16, 1024), 1);
-      wgmma_commit();
-      wgmma_wait<1>();  // the slice before is done with its stage: hand it back
-      if (s > 0 && (tid & 127) == 0) mbar_arrive(empty_bar + 8 * prev);
-      prev = stage;
-      if (++stage == STAGES) {
-        stage = 0;
-        parity ^= 1;
-      }
-    }
-    wgmma_wait<0>();
-    wgmma_fence_regs(acc);
-    if ((tid & 127) == 0) mbar_arrive(empty_bar + 8 * prev);
-
-    // epilogue: this warpgroup's 64 rows through its staging rows
-    bar_sync(wsync, 128);  // its previous tile's stores have read the staging rows
-    const int r_lo = warp * 16 + gid;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int c = j * 8 + tig * 2;
-      float b0 = 0.f, b1 = 0.f;
-      if (bias != nullptr) {
-        if (col0 + c < N) b0 = __bfloat162float(bias[col0 + c]);
-        if (col0 + c + 1 < N) b1 = __bfloat162float(bias[col0 + c + 1]);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(&outs[r_lo * OUT_PITCH + c]) =
-          __floats2bfloat162_rn(acc[4 * j] + b0, acc[4 * j + 1] + b1);
-      *reinterpret_cast<__nv_bfloat162*>(&outs[(r_lo + 8) * OUT_PITCH + c]) =
-          __floats2bfloat162_rn(acc[4 * j + 2] + b0, acc[4 * j + 3] + b1);
-    }
-    bar_sync(wsync, 128);
-    const long long grow0 = row0 + wg * 64;
-    const int t = tid & 127;
-    if (vec_out) {
-      constexpr int CH = BN / 8;
-      for (int idx = t; idx < 64 * CH; idx += 128) {
-        const int r = idx / CH, c = (idx - r * CH) * 8;
-        if (grow0 + r < M && col0 + c < N)
-          *reinterpret_cast<uint4*>(y + (grow0 + r) * N + col0 + c) =
-              *reinterpret_cast<const uint4*>(&outs[r * OUT_PITCH + c]);
-      }
-    } else {
-      for (int idx = t; idx < 64 * BN; idx += 128) {
-        const int r = idx / BN, c = idx - r * BN;
-        if (grow0 + r < M && col0 + c < N) y[(grow0 + r) * N + col0 + c] = outs[r * OUT_PITCH + c];
-      }
-    }
-  }
+  const RowsWalk walk{&xmap, &wmap, M, ncol, (K + WT_BK - 1) / WT_BK, C::BM, C::BN};
+  wgmma_persistent<C>(walk, ntiles, bias, y, N, mb_smem);
 }
 
 template <int NT, bool VEC>
@@ -221,10 +111,9 @@ int launch_matmul_bias_wgmma_cfg(const void* x, const void* w, const void* bias,
   return (int)cudaGetLastError();
 }
 
-// rows one SM walks under a tiling of bm rows: its rounds of tiles times bm
+// rows one SM walks under a tiling of bm x 160
 inline long long mb_rows_per_sm(long long M, int N, int bm, int sms) {
-  const long long tiles = ((M + bm - 1) / bm) * ((N + 159) / 160);
-  return (tiles + sms - 1) / sms * bm;
+  return persistent_rows_per_sm(((M + bm - 1) / bm) * ((N + 159) / 160), bm, sms);
 }
 
 // 192 or 128 rows a tile, whichever leaves an SM the fewer rows to walk (the
@@ -234,12 +123,11 @@ inline long long mb_rows_per_sm(long long M, int N, int bm, int sms) {
 // one-token ones.
 int launch_matmul_bias_wgmma(const void* x, const void* w, const void* bias, void* y, long long M, int K,
                              int N, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  if (const cudaError_t rc = cudaGetDevice(&dev)) return (int)rc;
-  if (const cudaError_t rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) return (int)rc;
+  int sms = 0;
+  if (const int rc = device_sms(&sms)) return rc;
   if (mb_rows_per_sm(M, N, 192, sms) <= mb_rows_per_sm(M, N, 128, sms))
-    return launch_matmul_bias_wgmma_cfg<MB<3, 3>>(x, w, bias, y, M, K, N, sms, stream);
-  return launch_matmul_bias_wgmma_cfg<MB<2, 4>>(x, w, bias, y, M, K, N, sms, stream);
+    return launch_matmul_bias_wgmma_cfg<PersistentTile<3, 160, 3>>(x, w, bias, y, M, K, N, sms, stream);
+  return launch_matmul_bias_wgmma_cfg<PersistentTile<2, 160, 4>>(x, w, bias, y, M, K, N, sms, stream);
 }
 
 template <int NT>

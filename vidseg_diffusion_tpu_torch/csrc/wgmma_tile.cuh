@@ -1,7 +1,8 @@
-// wgmma building blocks and the GEMM tile built on them: K12 (conv3x3.cu)
-// takes the tile; K11 (matmul_bias.cu, a persistent one-tap version of it) and
-// K1 / K3 (flash_attention.cu) take the primitives. The tile
-// computes the same product as gemm_tile.cuh,
+// wgmma building blocks and the GEMM loops built on them: K12 (conv3x3.cu)
+// takes the one-tile loop (wgmma_nk_tile); K11 (matmul_bias.cu) and K4
+// (temporal_conv.cu) the persistent one (wgmma_persistent, at the end); K1 / K3
+// (flash_attention.cu) take the primitives. Both loops compute the same
+// product as gemm_tile.cuh,
 //
 //     y[r, n] = sum over taps j, channels k of A_j[r, k] * W[j, n, k]  (+ bias[n])
 //
@@ -396,6 +397,19 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint
 
 constexpr int WT_BK = 64;  // channels per slice: one 128-byte row
 
+// One m64nBNk16 wgmma, both operands K-major from shared memory, accumulating:
+// the tile widths the GEMM loops are built for.
+template <int BN>
+__device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t desc_a, uint64_t desc_b);
+template <>
+__device__ __forceinline__ void wgmma_ss<160>(float (&d)[80], uint64_t desc_a, uint64_t desc_b) {
+  wgmma_m64n160k16_ss(d, desc_a, desc_b, 1);
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  wgmma_m64n128k16_ss(d, desc_a, desc_b, 1);
+}
+
 // BM rows (64 per consumer warpgroup) x BN columns, a ring of STAGES stages;
 // 2 * BM consumer threads and one producer warpgroup. ptxas wants BN / 2 + 26
 // registers a thread at the launch bound to place one wgmma, whatever
@@ -522,6 +536,173 @@ __device__ __forceinline__ void wgmma_nk_tile(const LoadA& load_a, const CUtenso
       if (row0 + r < R && col0 + c < N) y[(row0 + r) * N + col0 + c] = outs[r * T::OUT_PITCH + c];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The persistent GEMM loop (K11, K4). One block per SM walks the output tiles
+// (tile += gridDim.x), so one tile's epilogue and the next one's first loads
+// overlap and no block pays a ring prologue per tile:
+// - one producer thread (its own warp) asks TMA for the slices of its tiles,
+//   tile after tile, through a ring of STAGES stages (A box BM x 64, W box
+//   BN x 64, 128-byte swizzle), running ahead into the next tile while the
+//   consumers finish the current one. What lies outside a tensor arrives as
+//   zeros;
+// - consumer warpgroups own 64 rows each (one m64nBNk16 accumulator, BN / 2
+//   fp32 registers a thread); per slice four wgmmas from shared memory, the
+//   stage handed back once the slice after it is issued;
+// - each warpgroup's epilogue is its own: bias add in fp32 and one rounding
+//   into a staging tile of its 64 rows (not the ring, which the producer is
+//   filling), then 16-byte stores along N (element stores when N % 8 != 0),
+//   predicated on the tile's rows and on N; then it goes on to its next tile.
+// What a caller supplies is the walk: which rows and columns tile i covers,
+// how many 64-channel slices its K loop has, and the two TMA loads of slice s:
+//
+//     struct Walk {
+//       struct Tile { long long out_row0; int rows, col0; ... };  // y rows out_row0.., `rows` of them exist
+//       Tile tile(int i) const;
+//       int slices(const Tile&) const;
+//       void load(uint32_t a, uint32_t b, uint32_t bar, const Tile&, int s) const;  // A_BYTES + B_BYTES to bar
+//     };
+template <int NWG_, int BN_, int STAGES_>
+struct PersistentTile {
+  static constexpr int NWG = NWG_, BN = BN_, STAGES = STAGES_;
+  static constexpr int BM = 64 * NWG;
+  static constexpr int CONSUMERS = 128 * NWG;
+  static constexpr int THREADS = CONSUMERS + 32;       // consumer warpgroups, then the producer warp
+  static constexpr int A_BYTES = BM * 128, B_BYTES = BN * 128, STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+  static constexpr int OUT_PITCH = BN + 8;             // staging row in elements: conflict-free, 16-byte rows
+  static constexpr int OUT_BYTES = BM * OUT_PITCH * 2;
+  static constexpr int BAR_OFFSET = RING_BYTES + OUT_BYTES;  // STAGES full, then STAGES empty mbarriers
+  static constexpr int SMEM_BYTES = BAR_OFFSET + 16 * STAGES + 1024;
+  static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
+  static_assert(B_BYTES % 1024 == 0 && STAGES >= 2, "tile shape");
+};
+
+// smem: the kernel's dynamic shared memory, C::SMEM_BYTES of it.
+template <class C, class Walk>
+__device__ __forceinline__ void wgmma_persistent(const Walk& walk, int ntiles, const __nv_bfloat16* __restrict__ bias,
+                                                 __nv_bfloat16* __restrict__ y, int N, unsigned char* smem_raw) {
+  constexpr int NWG = C::NWG, STAGES = C::STAGES, BN = C::BN;
+  constexpr int CONSUMERS = C::CONSUMERS, A_BYTES = C::A_BYTES, STAGE_BYTES = C::STAGE_BYTES;
+  constexpr int RING_BYTES = C::RING_BYTES, OUT_PITCH = C::OUT_PITCH, BAR_OFFSET = C::BAR_OFFSET;
+  unsigned char* smem = smem_align_1024(smem_raw);
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t full_bar = sbase + BAR_OFFSET, empty_bar = full_bar + 8 * STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, NWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // the producer warp: one thread keeps the ring full across the block's tiles
+    if (tid == CONSUMERS) {
+      int stage = 0, it = 0;
+      uint32_t parity = 1;  // of the empty barriers: the ring's round before this one
+      for (int i = blockIdx.x; i < ntiles; i += gridDim.x) {
+        const typename Walk::Tile t = walk.tile(i);
+        const int nsl = walk.slices(t);
+        for (int s = 0; s < nsl; ++s, ++it) {
+          if (it >= STAGES) mbar_wait(empty_bar + 8 * stage, parity);
+          const uint32_t sa = sbase + stage * STAGE_BYTES, bar = full_bar + 8 * stage;
+          mbar_expect_tx(bar, STAGE_BYTES);
+          walk.load(sa, sa + A_BYTES, bar, t, s);
+          if (++stage == STAGES) {
+            stage = 0;
+            parity ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = (tid >> 5) & 3, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int wsync = 1 + wg;  // this warpgroup's named barrier
+  __nv_bfloat16* outs = reinterpret_cast<__nv_bfloat16*>(smem + RING_BYTES) + wg * 64 * OUT_PITCH;
+  const bool vec_out = N % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  int stage = 0;
+  uint32_t parity = 0;  // of the full barriers: the ring's current round
+  float acc[BN / 2];
+  for (int i = blockIdx.x; i < ntiles; i += gridDim.x) {
+    const typename Walk::Tile t = walk.tile(i);
+    const int nsl = walk.slices(t);
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+    int prev = 0;
+    for (int s = 0; s < nsl; ++s) {
+      mbar_wait(full_bar + 8 * stage, parity);
+      const uint32_t sa = sbase + stage * STAGE_BYTES + wg * 64 * 128;
+      const uint32_t sb = sbase + stage * STAGE_BYTES + A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WT_BK / 16; ++kk)
+        wgmma_ss<BN>(acc, wgmma_desc(sa + kk * 32, 16, 1024), wgmma_desc(sb + kk * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();  // the slice before is done with its stage: hand it back
+      if (s > 0 && (tid & 127) == 0) mbar_arrive(empty_bar + 8 * prev);
+      prev = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        parity ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    wgmma_fence_regs(acc);
+    if ((tid & 127) == 0) mbar_arrive(empty_bar + 8 * prev);
+
+    // epilogue: this warpgroup's 64 rows through its staging rows
+    bar_sync(wsync, 128);  // its previous tile's stores have read the staging rows
+    const int r_lo = warp * 16 + gid;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = j * 8 + tig * 2;
+      float b0 = 0.f, b1 = 0.f;
+      if (bias != nullptr) {
+        if (t.col0 + c < N) b0 = __bfloat162float(bias[t.col0 + c]);
+        if (t.col0 + c + 1 < N) b1 = __bfloat162float(bias[t.col0 + c + 1]);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(&outs[r_lo * OUT_PITCH + c]) =
+          __floats2bfloat162_rn(acc[4 * j] + b0, acc[4 * j + 1] + b1);
+      *reinterpret_cast<__nv_bfloat162*>(&outs[(r_lo + 8) * OUT_PITCH + c]) =
+          __floats2bfloat162_rn(acc[4 * j + 2] + b0, acc[4 * j + 3] + b1);
+    }
+    bar_sync(wsync, 128);
+    const int rows = t.rows - wg * 64;  // of this warpgroup's 64 that exist
+    __nv_bfloat16* yw = y + (t.out_row0 + wg * 64) * N + t.col0;
+    const int l = tid & 127;
+    if (vec_out) {
+      constexpr int CH = BN / 8;
+      for (int idx = l; idx < 64 * CH; idx += 128) {
+        const int r = idx / CH, c = (idx - r * CH) * 8;
+        if (r < rows && t.col0 + c < N)
+          *reinterpret_cast<uint4*>(yw + (long long)r * N + c) = *reinterpret_cast<const uint4*>(&outs[r * OUT_PITCH + c]);
+      }
+    } else {
+      for (int idx = l; idx < 64 * BN; idx += 128) {
+        const int r = idx / BN, c = idx - r * BN;
+        if (r < rows && t.col0 + c < N) yw[(long long)r * N + c] = outs[r * OUT_PITCH + c];
+      }
+    }
+  }
+}
+
+// Rows one SM walks when `tiles` tiles of `bm` rows are spread over `sms` SMs:
+// its rounds of tiles times bm (the last round is the one that leaves SMs idle).
+inline long long persistent_rows_per_sm(long long tiles, int bm, int sms) { return (tiles + sms - 1) / sms * bm; }
+
+// SMs of the current device (0 and a CUDA error code on failure).
+inline int device_sms(int* sms) {
+  int dev = 0;
+  if (const cudaError_t rc = cudaGetDevice(&dev)) return (int)rc;
+  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 // Host side: tensor maps. The encoders live in libcuda; they are looked up

@@ -122,8 +122,8 @@ class UNetConfig:
 
 class TemporalConv(nn.Module):
     """(kt, 1, 1) video convolution with Conv3d parameters [Cout, Cin, kt, 1, 1]
-    (the reference's nn.Conv3d), computed by temporal_conv_1x1 (K4 on CUDA)
-    on x [b, t, H, W, C]."""
+    (the reference's nn.Conv3d), computed by temporal_conv_1x1 (K4 on CUDA,
+    which reads a cached K-major copy of the weight) on x [b, t, H, W, C]."""
 
     def __init__(self, cin: int, cout: int, kernel: Tuple[int, int, int] = (3, 1, 1)):
         super().__init__()
@@ -135,8 +135,7 @@ class TemporalConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, h, w, c = x.shape
         with record_function("vs:TemporalConv"):
-            wt = self.weight[:, :, :, 0, 0].permute(2, 1, 0).to(x.dtype).contiguous()  # [kt, Cin, Cout]
-            y = temporal_conv_1x1(x.reshape(b, t, h * w, c).contiguous(), wt, self.bias.to(x.dtype))
+            y = temporal_conv_1x1(x.reshape(b, t, h * w, c).contiguous(), self.weight, self.bias)
             return y.reshape(b, t, h, w, -1)
 
 

@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel an entry with a `route` out-parameter reports it ran
-ROUTES = {0: "fma", 1: "mma_sync", 2: "wgmma"}
+ROUTES = {0: "fma", 1: "mma_sync", 2: "wgmma", 3: "narrow"}
 
 
 def _find_nvcc() -> Optional[str]:
@@ -142,12 +142,14 @@ _SIGNATURES = {
     # dtype, D, q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, stream
     "vs_temporal_attention_direct_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                          _I, _I, _I, _I, _F, _F, _P],
-    # dtype, x, w, bias, y, B, T, M, Cin, Cout, kt, stream
-    "vs_temporal_conv_1x1": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # dtype, x, partial, gamma, beta, wdtype, a, s, mean, inv, B, R, C, G, vec,
+    # dtype, x, w [kt, Cout, Cin], bias (NULL: none), y, B, T, M, Cin, Cout, kt, route (int*), stream
+    "vs_temporal_conv_1x1": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # dtype, x, partial, counters, gamma, beta, wdtype, a, s, mean, inv, B, R, C, G, vec,
     # rows_per_chunk, nchunks, eps, stream
-    "vs_group_norm_stats": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    "vs_group_norm_stats": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _F, _P],
+    # dtype, x, gamma, beta, wdtype, y, a, s, mean, inv, B, R, C, G, groups per block, eps, silu, stream
+    "vs_group_norm_fused": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # dtype, x, a, s, y, B, R, C, vec, rows_per_chunk, nchunks, silu, stream
     "vs_group_norm_apply": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, x, dy, a, s, partial, gamma, wdtype, mean, inv, coef, dparam, B, R, C, G, vec,

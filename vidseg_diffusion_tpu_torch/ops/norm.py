@@ -7,11 +7,19 @@ into a per-channel scale a and shift s, then y = x * a + s (optionally
 * sigmoid(y)) in fp32 and one cast back.
 
 On a CUDA tensor `group_norm` launches the hand-written kernels of
-csrc/group_norm.cu and csrc/group_norm_bwd.cu (or raises):
+csrc/group_norm.cu and csrc/group_norm_bwd.cu (or raises). The forward takes
+one of two routes, which `group_norm_route` picks from the shape:
 
-- K7 `group_norm_stats`: one read of x -> a, s [B, C] and mean, inv [B, G]
-  (the JAX package's _stats_kernel + _affine_from_stats);
-- K8 `group_norm_apply`: one read, one write (its _apply_kernel);
+- `group_norm_fused` where one sample's slab of whole groups (rows of a
+  multiple of 16 bytes) fits in a block's shared memory (the UNet's ds2 to
+  mid sites): one launch reads x once and writes y, a, s, mean and inv;
+- elsewhere K7 `group_norm_stats`: one read of x -> a, s [B, C] and mean,
+  inv [B, G] in one launch (the JAX package's _stats_kernel +
+  _affine_from_stats), then K8 `group_norm_apply`: one read, one write (its
+  _apply_kernel);
+
+and the backward is
+
 - K9 `group_norm_backward_stats`: one read of x and dy -> the coefficients
   a2, b2, c2 [B, C] and dgamma, dbeta (its _gn_bwd_stats_kernel and the
   coefficient math of _gn_bwd_pallas);
@@ -37,6 +45,8 @@ from vidseg_diffusion_tpu_torch.ops import _cuda
 _THREADS = 256        # threads per block of the streaming kernels (csrc/group_norm.cuh)
 _TILE_VECS = 256      # channel vectors per column tile
 _TARGET_BLOCKS = 1024  # about eight blocks per SM of an H100
+_STATS_TARGET_BLOCKS = 528  # K7: one wave of four blocks an SM (csrc/group_norm.cu kStatsBlocksPerSM)
+_SLAB_MAX_BYTES = 196608  # the fused kernel's slab in shared memory (csrc/group_norm.cu kSlabMaxBytes)
 
 
 def _stats_dtype(x):
@@ -138,20 +148,32 @@ def group_norm_backward_plain(x, dy, weight, a, s, mean, inv, groups: int, silu:
 group_norm_backward_plain.calls = 0
 
 
-def _plan(b: int, r: int, c: int, itemsize: int, aligned: bool):
+def _plan(b: int, r: int, c: int, itemsize: int, aligned: bool, target: int = _TARGET_BLOCKS):
     """How the kernels cut [B, R, C] (see csrc/group_norm.cuh): the channel
     vector width in elements (16 bytes when C and the pointers allow it), the
-    rows per chunk and the chunk count, aiming at _TARGET_BLOCKS blocks."""
+    rows per chunk and the chunk count, aiming at `target` blocks."""
     vec = 16 // itemsize
     if c % vec or not aligned:
         vec = 1
     cv = c // vec
     tiles = -(-cv // _TILE_VECS)
     rows_per_pass = _THREADS // min(cv, _TILE_VECS)
-    max_chunks = max(1, _TARGET_BLOCKS // (b * tiles))
+    max_chunks = max(1, target // (b * tiles))
     rows = max(4 * rows_per_pass, -(-r // max_chunks))
     rows = -(-rows // rows_per_pass) * rows_per_pass
     return vec, rows, -(-r // rows)
+
+
+def group_norm_route(b: int, r: int, c: int, groups: int, itemsize: int, aligned: bool):
+    """The forward's route for x [B, R, C]: ("fused", gc) where gc whole groups
+    of one sample (the fewest whose rows are a multiple of 16 bytes) fit in the
+    fused kernel's shared-memory slab, else ("stream", the K7 / K8 plan)."""
+    cg = c // groups
+    if aligned:
+        gc = next((k for k in range(1, groups + 1) if groups % k == 0 and k * cg * itemsize % 16 == 0), None)
+        if gc is not None and r * gc * cg * itemsize <= _SLAB_MAX_BYTES and gc * cg <= _THREADS:
+            return "fused", gc
+    return "stream", _plan(b, r, c, itemsize, aligned)
 
 
 def _flat(name, x, *same):
@@ -182,18 +204,37 @@ def _check_params(name, x, groups, *params):
     return _cuda.DTYPE_CODES[params[0].dtype]
 
 
+def _statistics(x, b, c, groups, scratch=0):
+    """a, s fp32 [B, C], mean, inv fp32 [B, G] and `scratch` more floats, as
+    contiguous views of one allocation."""
+    buf = torch.empty(2 * b * c + 2 * b * groups + scratch, dtype=torch.float32, device=x.device)
+    a, s = buf[:b * c].view(b, c), buf[b * c:2 * b * c].view(b, c)
+    mean = buf[2 * b * c:2 * b * c + b * groups].view(b, groups)
+    inv = buf[2 * b * c + b * groups:2 * b * c + 2 * b * groups].view(b, groups)
+    return a, s, mean, inv, buf[2 * b * c + 2 * b * groups:]
+
+
+_COUNTERS = {}  # device -> int32 arrival counters of K7, zero between calls (each call leaves them zero)
+
+
+def _arrival_counters(device, b):
+    counters = _COUNTERS.get(device)
+    if counters is None or counters.numel() < b:
+        counters = _COUNTERS[device] = torch.zeros(max(b, 64), dtype=torch.int32, device=device)
+    return counters
+
+
 def group_norm_stats(x, weight, bias, groups: int, eps: float):
     """K7 on a contiguous CUDA x [B, ..., C]: (a, s) fp32 [B, C], (mean, inv)
-    fp32 [B, G]. weight and bias are [C], fp32 or bf16."""
-    code, b, r, c, (vec, rows, chunks) = _flat("group_norm_stats", x)
+    fp32 [B, G], in one launch. weight and bias are [C], fp32 or bf16."""
+    code, b, r, c, _ = _flat("group_norm_stats", x)
     wcode = _check_params("group_norm_stats", x, groups, weight, bias)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    partial = torch.empty((b, chunks + 1, 2, c), **f32)  # partial sums, then their totals
-    a, s = torch.empty((b, c), **f32), torch.empty((b, c), **f32)
-    mean, inv = torch.empty((b, groups), **f32), torch.empty((b, groups), **f32)
+    vec, rows, chunks = _plan(b, r, c, x.element_size(), x.data_ptr() % 16 == 0, _STATS_TARGET_BLOCKS)
+    tiles = -(-(c // vec) // _TILE_VECS)
+    a, s, mean, inv, partial = _statistics(x, b, c, groups, b * chunks * tiles * 2 * groups)
     _cuda.call(
-        "vs_group_norm_stats", code, x.data_ptr(), partial.data_ptr(), weight.data_ptr(),
-        bias.data_ptr(), wcode, a.data_ptr(), s.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+        "vs_group_norm_stats", code, x.data_ptr(), partial.data_ptr(), _arrival_counters(x.device, b).data_ptr(),
+        weight.data_ptr(), bias.data_ptr(), wcode, a.data_ptr(), s.data_ptr(), mean.data_ptr(), inv.data_ptr(),
         b, r, c, groups, vec, rows, chunks, float(eps),
     )
     group_norm_stats.launches += 1
@@ -201,6 +242,29 @@ def group_norm_stats(x, weight, bias, groups: int, eps: float):
 
 
 group_norm_stats.launches = 0
+
+
+def group_norm_fused(x, weight, bias, groups: int, eps: float, silu: bool):
+    """The one-launch forward on a contiguous CUDA x [B, ..., C] whose route
+    is "fused": (y, a, s, mean, inv) as group_norm_apply and group_norm_stats
+    would give them."""
+    code, b, r, c, _ = _flat("group_norm_fused", x)
+    wcode = _check_params("group_norm_fused", x, groups, weight, bias)
+    route, gc = group_norm_route(b, r, c, groups, x.element_size(), x.data_ptr() % 16 == 0)
+    if route != "fused":
+        raise ValueError(f"group_norm_fused: no slab of whole groups of {tuple(x.shape)} fits in shared memory")
+    y = torch.empty_like(x)
+    a, s, mean, inv, _ = _statistics(x, b, c, groups)
+    _cuda.call(
+        "vs_group_norm_fused", code, x.data_ptr(), weight.data_ptr(), bias.data_ptr(), wcode, y.data_ptr(),
+        a.data_ptr(), s.data_ptr(), mean.data_ptr(), inv.data_ptr(), b, r, c, groups, gc, float(eps),
+        int(bool(silu)),
+    )
+    group_norm_fused.launches += 1
+    return y, a, s, mean, inv
+
+
+group_norm_fused.launches = 0
 
 
 def _check_coef(name, x, *coefs, width=1):
@@ -283,11 +347,16 @@ def _contiguous(t):
 
 
 def _forward(x, weight, bias, groups, eps, silu):
-    """(y, a, s, mean, inv): K7 + K8 on CUDA, the plain versions on CPU."""
+    """(y, a, s, mean, inv): on CUDA the fused kernel or K7 + K8, as
+    group_norm_route says; the plain versions on CPU."""
     if x.device.type == "cpu":
         group_norm_plain.calls += 1
         a, s, mean, inv = group_norm_affine_plain(x, weight, bias, groups, eps)
         return group_norm_apply_plain(x, a, s, silu), a, s, mean, inv
+    b, c = x.shape[0], x.shape[-1]
+    r = x.numel() // max(1, b * c)
+    if group_norm_route(b, r, c, groups, x.element_size(), x.data_ptr() % 16 == 0)[0] == "fused":
+        return group_norm_fused(x, weight, bias, groups, eps, silu)
     a, s, mean, inv = group_norm_stats(x, weight, bias, groups, eps)
     return group_norm_apply(x, a, s, silu), a, s, mean, inv
 
@@ -321,8 +390,9 @@ class GroupNormFn(torch.autograd.Function):
 
 def group_norm(x, weight, bias, groups: int = 32, eps: float = 1e-5, silu: bool = False):
     """GroupNorm (+ SiLU) of x [B, ..., C] (channels last). CUDA tensors go
-    through K7 + K8 (K9 + K10 in the backward) or raise; CPU tensors through
-    the plain versions. Under torch.no_grad() nothing is saved."""
+    through the fused kernel or K7 + K8 (K9 + K10 in the backward) or raise;
+    CPU tensors through the plain versions. Under torch.no_grad() nothing is
+    saved."""
     if x.shape[-1] % groups:
         raise ValueError(f"group_norm: {x.shape[-1]} channels not divisible by {groups} groups")
     with record_function("vs:GroupNorm"):
@@ -333,6 +403,6 @@ def group_norm(x, weight, bias, groups: int = 32, eps: float = 1e-5, silu: bool 
 
 group_norm.copies = 0
 
-KERNEL_COUNTERS = (group_norm_stats, group_norm_apply, group_norm_backward_stats,
+KERNEL_COUNTERS = (group_norm_stats, group_norm_apply, group_norm_fused, group_norm_backward_stats,
                    group_norm_backward_apply)
 PLAIN_COUNTERS = (group_norm_plain, group_norm_backward_plain)
