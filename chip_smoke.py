@@ -40,7 +40,8 @@ Phases, in order; any failure exits non-zero:
    CrossAttention module and K12 twice per ResBlock per UNet call: 13 312 and
    2 288), the backward kernels and the plain versions never, and every K1,
    K4 and K11 launch must have run its wgmma kernel but the 8 K4 launches of
-   the VAE's 3-channel conv_out_time_mix, which run the narrow kernel (the
+   the VAE's 3-channel conv_out_time_mix, which run the narrow kernel, and
+   every K2 (and, in the train phase, K6) launch its tensor-core kernel (the
    wrappers' route counters, here and in the inject, sd, train and ae_train
    phases); latents and labels must be finite and shaped; the +lambda and
    -lambda runs must differ, and the outside-mask latents must equal the
@@ -91,8 +92,8 @@ Phases, in order; any failure exits non-zero:
 
 Before the last line come the kernels JSON (per kernel: launches in the run
 of its path and in the other runs (injected, SD, diffusion training,
-autoencoder training), for K1, K4 and K11 the launches of each run by the
-kernel that ran (`routes`), worst error, kernel, plain, bound and
+autoencoder training), for K1, K2, K4, K6 and K11 the launches of each run
+by the kernel that ran (`routes`), worst error, kernel, plain, bound and
 library-call ms at its headline shape) and the card's name and power limit; the last line
 is {"ok": true, "device": ...}.
 """
@@ -207,8 +208,9 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 ou
 # - ||kernel - plain||_2 <= rms_tol * ||plain||_2, per kernel above, from its
 #   sound readings at these shapes (PERF.md): K1 and K3 read 1.3e-3 to 2.4e-3
 #   (online softmax rounds p to bf16 against a running max), K4 1e-5 to
-#   1.4e-4 (its dx launch included), K2 0 (bit for bit), K5 4.8e-5 to 2.2e-4,
-#   K6 2.2e-5 to 3.9e-5, K13 2.4e-5 to 3.6e-4 (worst of dq/dk/dv; K5's
+#   1.4e-4 (its dx launch included), K2 3.4e-5 to 3.9e-5 (0 on CUDA cores
+#   before its tensor-core kernel summed in another order), K5 4.8e-5 to
+#   2.2e-4, K6 2.4e-5 to 5.3e-5, K13 2.4e-5 to 3.6e-4 (worst of dq/dk/dv; K5's
 #   bound, the same math); K11 and K12 start from K4's
 #   bound (fp32 accumulation of bf16 products, one rounding: K12 reads 9e-5
 #   to 2.6e-4 at K = 9 * 320 to 9 * 2560). A fault that moves every output
@@ -346,6 +348,14 @@ def kernel_cases(torch):
         return lambda: (rn(b, l, h * 64).to(bf),) + tuple(rn(b, lk or l, h * 64).to(bf)
                                                           for _ in range(2)) + (h,)
 
+    # K1's denominator at a site, as small_batched_attention picks it: the fp32
+    # sum of the p where max(Lq, Lk) < SHORT_SEQ, the rounded p's sum elsewhere
+    rounded = lambda lq, lk: max(lq, lk) >= A.SHORT_SEQ
+
+    def k1(lq, lk):
+        return (lambda q, k, v, h: A.flash_attention_packed(q, k, v, h, psum_rounded=rounded(lq, lk)),
+                lambda q, k, v, h: A.flash_attention_packed_reference(q, k, v, h, psum_rounded=rounded(lq, lk)))
+
     def direct(b, s, h):
         return lambda: tuple(rn(b, s, h, 64).to(bf) for _ in range(3))
 
@@ -361,8 +371,9 @@ def kernel_cases(torch):
         forward; K1's LSE is checked against the plain LSE here."""
         def make():
             q, k, v, g = (rn(b, l, h * 64).to(bf) for _ in range(4))
-            out, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True)
-            _, lse_ref = A.flash_attention_packed_reference(q, k, v, h, save_lse=True)
+            out, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True,
+                                                         psum_rounded=rounded(l, l))
+            _, lse_ref = A.flash_attention_packed_reference(q, k, v, h, save_lse=True, psum_rounded=rounded(l, l))
             err = (lse - lse_ref).abs().max().item()
             print(f"[kernels] K1 save_lse [{b},{l},{h}x64]: max |lse - plain| = {err:.3e} "
                   f"(tol {LSE_TOL:.0e})", flush=True)
@@ -428,8 +439,10 @@ def kernel_cases(torch):
         def make():
             q = rn(b, l, h * 64).to(bf)
             k, v = (rn(b, lk, h * 64).to(bf) for _ in range(2))
-            _, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True)
-            _, lse_ref = A.flash_attention_packed_reference(q, k, v, h, save_lse=True)
+            _, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True,
+                                                       psum_rounded=rounded(l, lk))
+            _, lse_ref = A.flash_attention_packed_reference(q, k, v, h, save_lse=True,
+                                                            psum_rounded=rounded(l, lk))
             err = (lse - lse_ref).abs().max().item()
             print(f"[kernels] K1 save_lse [{b},{l}x{lk},{h}x64]: max |lse - plain| = {err:.3e} "
                   f"(tol {LSE_TOL:.0e})", flush=True)
@@ -446,17 +459,17 @@ def kernel_cases(torch):
     temporal = (("ds1 [28,5824,5,64] t=14", 5824, 5), ("ds2 [28,1456,10,64] t=14", 1456, 10),
                 ("ds4 [28,364,20,64] t=14", 364, 20), ("mid [28,91,20,64] t=14", 91, 20))
     for label, b, l, h in spatial:
-        add(kernel="flash_attention_packed", label=label, make=packed(b, l, h),
-            kern=A.flash_attention_packed, plain=A.flash_attention_packed_reference, iters=3,
+        kern, plain = k1(l, l)
+        add(kernel="flash_attention_packed", label=label, make=packed(b, l, h), kern=kern, plain=plain, iters=3,
             work=attn_work(b, h, l, l, 64),
             library=lambda q, k, v, h: (lambda a=[heads_view(x, h) for x in (q, k, v)]: sdpa(*a)))
     # K1 at the SD 2.1 cross-attention: 77 context tokens, the whole CFG batch
     # (its LSE checked too); the headline shape at the CFG batch of the main
     # path (no plain comparison at B = 28: see above) is timed in phase_kernels
     for label, l, h in (("SD cross ds1 [28,5824x77,5x64]", 5824, 5), ("SD cross mid [28,91x77,20x64]", 91, 20)):
-        add(kernel="flash_attention_packed", label=label, make=packed_lse(28, l, h, 77),
-            kern=A.flash_attention_packed, plain=A.flash_attention_packed_reference, iters=3,
-            work=attn_work(28, h, l, 77, 64),
+        kern, plain = k1(l, 77)
+        add(kernel="flash_attention_packed", label=label, make=packed_lse(28, l, h, 77), kern=kern, plain=plain,
+            iters=3, work=attn_work(28, h, l, 77, 64),
             library=lambda q, k, v, h: (lambda a=[heads_view(x, h) for x in (q, k, v)]: sdpa(*a)))
     # K2: temporal self-attention, t = 14 frames, two videos (uc, c)
     for label, s, h in temporal:
@@ -1012,11 +1025,14 @@ def kernel_fns():
 
 
 # the kernels whose wrappers count the launches by the kernel that ran
-# (`.wgmma_launches`, `.narrow_launches`, reported by the C entry): on every
-# path each launch of K1 (D = 64) and K11 (bf16 projections) takes the wgmma
-# kernel, and each of K4 too but the narrow_launches the path implies (the VAE's
-# 3-channel conv_out_time_mix, once per decoder call)
-ROUTED = ("flash_attention_packed", "temporal_conv_1x1", "matmul_bias")
+# (`.wgmma_launches`, `.narrow_launches`, `.mma_launches`, reported by the C
+# entry): on every path each launch of K1 (D = 64) and K11 (bf16 projections)
+# takes the wgmma kernel, each of K4 too but the narrow_launches the path
+# implies (the VAE's 3-channel conv_out_time_mix, once per decoder call), and
+# each of K2 and K6 (bf16 everywhere) the tensor-core (mma.sync) kernel
+ROUTED = ("flash_attention_packed", "temporal_conv_1x1", "matmul_bias", "temporal_attention_direct",
+          "temporal_attention_direct_backward")
+ROUTE_NAMES = ("wgmma", "narrow", "mma")
 GN_ROUTES = {"fused": 0, "stream": 0}   # GroupNorm32 calls per route since reset_counts()
 
 
@@ -1040,9 +1056,9 @@ def reset_counts():
     counters, plains = kernel_fns()
     for f in counters:
         f.launches = 0
-        for route in ("wgmma_launches", "narrow_launches"):
-            if hasattr(f, route):
-                setattr(f, route, 0)
+        for route in ROUTE_NAMES:
+            if hasattr(f, f"{route}_launches"):
+                setattr(f, f"{route}_launches", 0)
     for f in plains:
         f.calls = 0
     N.group_norm.copies = 0
@@ -1052,8 +1068,8 @@ def reset_counts():
 def read_routes():
     """{kernel: {route: launches}} for the route-counting wrappers."""
     counters, _ = kernel_fns()
-    return {f.__name__: {r: getattr(f, f"{r}_launches") for r in ("wgmma", "narrow") if hasattr(f, f"{r}_launches")}
-            for f in counters if hasattr(f, "wgmma_launches")}
+    return {f.__name__: {r: getattr(f, f"{r}_launches") for r in ROUTE_NAMES if hasattr(f, f"{r}_launches")}
+            for f in counters if f.__name__ in ROUTED}
 
 
 ROUTE_COUNTS = {}   # phase -> read_routes() after its run
@@ -1061,11 +1077,14 @@ ROUTE_COUNTS = {}   # phase -> read_routes() after its run
 
 def check_routes(tag, launches, narrow=0):
     """Every K1 and K11 launch of the run took the wgmma kernel (none the
-    mma.sync tile or an FMA kernel), and every K4 launch but `narrow` of them,
-    which took the narrow kernel; keeps and returns the route counts."""
+    mma.sync tile or an FMA kernel), every K4 launch but `narrow` of them,
+    which took the narrow kernel, and every K2 and K6 launch the tensor-core
+    kernel (none the fp32 CUDA-core one); keeps and returns the route counts."""
     routes = read_routes()
-    want = {name: {"wgmma": launches[name]} for name in ROUTED}
+    want = {name: {"wgmma": launches[name]} for name in ("flash_attention_packed", "matmul_bias")}
     want["temporal_conv_1x1"] = {"wgmma": launches["temporal_conv_1x1"] - narrow, "narrow": narrow}
+    for name in ("temporal_attention_direct", "temporal_attention_direct_backward"):
+        want[name] = {"mma": launches[name]}
     got = {name: routes[name] for name in ROUTED}
     check(got == want, f"[{tag}] launches by route {got}, expected {want}")
     ROUTE_COUNTS[tag] = routes
@@ -1683,7 +1702,7 @@ def main():
         head = next(r for r in mine if r["shape"] == HEADLINE[name])
         path_launches = (launches if name in INFERENCE_KERNELS
                          else ae_launches if name in AE_KERNELS else train_launches)
-        # K1, K4 and K11: the launches of each path by the kernel that ran (checked); the
+        # K1, K2, K4, K6 and K11: the launches of each path by the kernel that ran (checked); the
         # GroupNorm forward's routes are kernels of their own (K7 + K8, the fused K7+K8)
         routed = ({tag: ROUTE_COUNTS[tag][name] for tag in ("main", "inject", "sd", "train", "ae_train")}
                   if name in ROUTED else None)

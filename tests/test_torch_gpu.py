@@ -32,7 +32,13 @@ can address) run wgmma kernels: their wrappers' route counters
 (`.wgmma_launches`) must move with the launch counters, an unaddressable K11
 input must take the mma.sync tile and a K4 input off the 8-element vector or
 off a 16-byte boundary the narrow kernel (`.narrow_launches`); K1 takes
-chip_smoke.py's forward bounds there (RMS_TOL["K1"]). The GroupNorm forward
+chip_smoke.py's forward bounds there (RMS_TOL["K1"]). K2 and K6 run on the
+tensor cores in bf16 and on CUDA cores in fp32: their `.mma_launches` counters
+move with every bf16 launch and with no fp32 one, within chip_smoke.py's
+bounds (RMS_TOL["K2"], ["K6"]). The attention kernels sum the softmax
+denominator as the JAX kernel of their site does (K1 at a short site and K3
+without a gradient: the fp32 p; K1 at a long site and K3 under a gradient: the
+rounded p), each held to the plain version with that sum. The GroupNorm forward
 takes the fused one-launch kernel or K7 + K8 as ops.norm.group_norm_route
 says, and is bitwise the same from run to run on either.
 """
@@ -52,7 +58,7 @@ from vidseg_diffusion_tpu_torch.ops import temporal_conv as TC
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
-RMS_TOL = {"K1": 4e-3, "K4": 5e-4, "K5": 1e-3, "K6": 2e-4, "GN": 5e-4, "K11": 5e-4, "K12": 5e-4,
+RMS_TOL = {"K1": 4e-3, "K2": 1e-3, "K3": 4e-3, "K4": 5e-4, "K5": 1e-3, "K6": 2e-4, "GN": 5e-4, "K11": 5e-4, "K12": 5e-4,
            "K13": 1e-3}  # bf16; fp32 is FP32_TOL
 STATS_TOL = 2e-5  # K7's fp32 mean (relative to the rms of x) and inv-std vs fp64
 MAX_STEPS = 2
@@ -227,6 +233,119 @@ def test_temporal_attention_direct(cuda, dt, b, t, s, h):
     dtype = DTYPES[dt]
     q, k, v = (_randn(cuda, i, dtype, b * t, s, h, 64) for i in (5, 6, 7))
     _check(A.temporal_attention_direct, A.temporal_attention_direct_reference, q, k, v, t=t)
+
+
+# K2 / K6 on their routes: one frame, the main path's 14, a full 16-frame box,
+# one frame past it and two full boxes (32-frame boxes, two row tiles); tokens
+# off the 8- and 4-token units; one head, the ds1 and the ds4 / mid head counts
+TEMPORAL_ROUTE_CASES = [(t, s, h) for t in (1, 14, 16, 17, 32) for s in (9, 91, 364) for h in (1, 5, 20)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("t,s,h", TEMPORAL_ROUTE_CASES)
+def test_temporal_attention_direct_mma_route(cuda, dt, t, s, h):
+    """bf16 K2 runs on the tensor cores (its route counter moves with its
+    launch counter), fp32 on CUDA cores (it does not), each within
+    chip_smoke.py's forward bounds of the plain version."""
+    dtype = DTYPES[dt]
+    q, k, v = (_randn(cuda, i, dtype, 2 * t, s, h, 64) for i in (140, 141, 142))
+    mma = A.temporal_attention_direct.mma_launches
+    launches, calls = A.temporal_attention_direct.launches, A.temporal_attention_direct_reference.calls
+    out = A.temporal_attention_direct(q, k, v, t=t)
+    torch.cuda.synchronize()
+    assert A.temporal_attention_direct.launches == launches + 1
+    assert A.temporal_attention_direct_reference.calls == calls
+    assert A.temporal_attention_direct.mma_launches == mma + (dtype == torch.bfloat16)
+    _close_grads((out,), (A.temporal_attention_direct_reference(q, k, v, t=t),), RMS_TOL["K2"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("t,s,h", TEMPORAL_ROUTE_CASES)
+def test_temporal_attention_direct_backward_mma_route(cuda, dt, t, s, h):
+    """bf16 K6 runs on the tensor cores, fp32 on CUDA cores (the route
+    counter says which), each within chip_smoke.py's backward bounds of the
+    plain version on every gradient."""
+    dtype = DTYPES[dt]
+    q, k, v, g = (_randn(cuda, i, dtype, 2 * t, s, h, 64) for i in (143, 144, 145, 146))
+    out = A.temporal_attention_direct_reference(q, k, v, t=t)
+    mma = A.temporal_attention_direct_backward.mma_launches
+    _check(A.temporal_attention_direct_backward, A.temporal_attention_direct_backward_reference,
+           q, k, v, out, g, t, rms_tol=RMS_TOL["K6"])
+    assert A.temporal_attention_direct_backward.mma_launches == mma + (dtype == torch.bfloat16)
+
+
+def _denominator_held(out, lse, plain, rounded):
+    """The output and LSE of a kernel told to sum the rounded p (or the fp32
+    p) against `plain(psum_rounded)` -> (out, lse) of either sum, at one key
+    tile, where the kernel's p equal the plain version's: at least 1 % of the
+    elements differ from the plain output with the other sum (inputs of std
+    1.5: 3-6 % on the CPU) and ten times fewer from the one with the same sum
+    (the summation order alone: 0.02 % at D = 64, 0.2 % at D = 512 on the
+    card), and the LSE lies ten times closer, on average, to the same sum's."""
+    own, other = plain(rounded), plain(not rounded)
+    frac = lambda ref: (out.float() != ref[0].float()).float().mean().item()
+    assert frac(other) >= 1e-2 and frac(own) <= 0.1 * frac(other), (frac(own), frac(other))
+    if lse is not None:
+        gap = lambda ref: (lse - ref[1]).abs().mean().item()
+        assert gap(own) <= 0.1 * gap(other), (gap(own), gap(other))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rounded", [False, True])
+def test_flash_attention_packed_sums_the_denominator_it_is_told(cuda, rounded):
+    """K1's wgmma kernel, 60 keys (one key tile): psum_rounded False (the
+    short sites) sums the fp32 p, True (the long sites) the rounded p, with
+    and without the LSE."""
+    bf, b, l, h = torch.bfloat16, 28, 60, 4
+    q, k, v = (_randn(cuda, 147 + i, bf, b, l, h * 64, scale=1.5) for i in range(3))
+    plain = lambda r: A.flash_attention_packed_reference(q, k, v, h, save_lse=True, psum_rounded=r)
+    wg = A.flash_attention_packed.wgmma_launches
+    out = A.flash_attention_packed(q, k, v, h, psum_rounded=rounded)
+    out_lse, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True, psum_rounded=rounded)
+    torch.cuda.synchronize()
+    assert A.flash_attention_packed.wgmma_launches == wg + 2 and torch.equal(out, out_lse)
+    _denominator_held(out, lse, plain, rounded)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,h", [(28, 91, 20), (28, 364, 20), (2, 600, 2)])
+def test_small_batched_attention_takes_the_denominator_of_its_site(cuda, b, l, h):
+    """small_batched_attention (every blhd site on the card) runs K1's wgmma
+    kernel with the fp32 sum at the short sites (max(Lq, Lk) < 512: the SVD
+    ds4 and mid spatial sites) and the rounded sum at the long ones: held to
+    the plain version with that sum within chip_smoke.py's K1 bounds."""
+    bf = torch.bfloat16
+    q, k, v = (_randn(cuda, 150 + i, bf, b, l, h, 64) for i in range(3))
+    wg = A.flash_attention_packed.wgmma_launches
+    out = A.small_batched_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert A.flash_attention_packed.wgmma_launches == wg + 1
+    packed = [x.reshape(b, l, h * 64) for x in (q, k, v)]
+    ref = A.flash_attention_packed_reference(*packed, h, psum_rounded=l >= A.SHORT_SEQ)
+    _close_grads((out.reshape(b, l, h * 64),), (ref,), RMS_TOL["K1"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,lk", [(512, 32), (64, 60), (80, 60)])
+def test_flash_attention_bhld_denominator_without_and_with_a_gradient(cuda, d, lk):
+    """K3 at one key tile: without a gradient the fp32 sum (D = 512, the VAE's
+    mid attention, and D = 64 on K1's kernel), with the LSE the rounded sum;
+    D = 80 (CLIP) keeps the rounded sum without a gradient too."""
+    bf = torch.bfloat16
+    q = _randn(cuda, 153, bf, 2, 3, 100, d, scale=1.5)
+    k, v = (_randn(cuda, 154 + i, bf, 2, 3, lk, d, scale=1.5) for i in range(2))
+    blhd = [x.transpose(1, 2) for x in (q, k, v)]
+
+    def plain(rounded):
+        out, lse = A._attention_base2(*blhd, d ** -0.5, with_lse=True, psum_rounded=rounded)
+        return out.transpose(1, 2).to(bf), lse
+
+    _denominator_held(A.flash_attention(q, k, v), None, plain, d == 80)
+    out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
+    torch.cuda.synchronize()
+    _denominator_held(out, lse, plain, True)
 
 
 # D = 512 (wgmma in bf16): Lq off the 64-row tile, Lq != Lk, a key tail off the

@@ -5,7 +5,8 @@ run in interpret mode (interpret=True, force=True where the dispatcher would
 otherwise pick the jnp path), as the JAX package's own tests run them. The
 port's kernel wrappers take their plain versions on CPU tensors, so these
 tests hold the plain versions (the oracles of the CUDA kernels) to the TPU
-kernels' math. Everything is fp32; tolerances are stated per test. The CUDA
+kernels' math. Everything is fp32 but the denominator tests, which need bf16
+to tell the two sums apart; tolerances are stated per test. The CUDA
 kernels themselves are compared with these plain versions on the card by
 tests/test_torch_gpu.py and chip_smoke.py.
 """
@@ -247,6 +248,94 @@ def test_flash_attention_bhld_plain_matches_pallas(b, h, lq, lk, d, dt):
     diff = got.float().numpy() - want
     assert np.abs(diff).max() <= 2 * _bf16_step(np.abs(want).max())
     assert np.linalg.norm(diff) <= 4e-3 * np.linalg.norm(want)
+
+
+# -- the softmax denominator in bf16 -------------------------------------------
+#
+# Each attention kernel of the port sums the denominator as the JAX kernel of
+# its site does: the fp32 sum of the unrounded p (_temporal_direct_kernel for K2,
+# _small_seq_kernel at K1's short sites, _flash_kernel for K3 without a
+# gradient) or the sum of the p rounded to bf16 (the packed kernel's fused_psum:
+# K1 at the long sites, K3 under a gradient). In fp32 the two agree, so these
+# run in bf16 (inputs of std 1.5 from numpy). Bound for each: every element
+# within one bf16 step of JAX's at max |JAX|, and at most 0.1 % of the
+# elements differing at all (the sums run in another order; the other
+# denominator puts 3-6 % of the elements a step off). The LSE of the cases
+# that save one: within LSE_BF16_TOL (log2 units; reads <= 2.8e-4 at 512 keys,
+# 1.3e-3 to 1.5e-3 with the other denominator).
+LSE_BF16_TOL = 5e-4
+
+
+def _bf16_inputs(seed, *shapes):
+    return [(a * 1.5).astype(np.float32) for a in _arrays(seed, *shapes)]
+
+
+def _holds_to_jax(got, want):
+    got = got.float().numpy()
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    diff = np.abs(got - want)
+    step = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    assert diff.max() <= step, (diff.max(), step)
+    assert np.mean(diff > 0) <= 1e-3, np.mean(diff > 0)
+
+
+_JB = lambda a: jnp.asarray(a, jnp.bfloat16)
+_TB = lambda a: T(a).bfloat16()
+
+
+@pytest.mark.parametrize("t", [14, 3])
+def test_temporal_attention_direct_bf16_sums_the_fp32_p(t):
+    """K2's plain version against the direct-layout Pallas kernel."""
+    shape = (2 * t, 32, 2, 64)
+    q, k, v = _bf16_inputs(t, shape, shape, shape)
+    want = jatt.temporal_attention_direct(_JB(q), _JB(k), _JB(v), t=t, force=True, interpret=True)
+    _holds_to_jax(tatt.temporal_attention_direct(_TB(q), _TB(k), _TB(v), t=t), want)
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_flash_attention_bhld_bf16_denominator(with_lse):
+    """K3's plain version without a gradient against _flash_attention_impl
+    (the fp32 sum); with its LSE against the packed kernel with heads = 1 and
+    fused_psum (the rounded sum), as _fa_fwd runs it under a gradient. At
+    D = 64: at D = 512 the summation order alone puts 0.15 % of the elements a
+    step apart (test_flash_attention_bhld_plain_matches_pallas holds D = 512 in
+    bf16 to two steps)."""
+    b, l, d = 1 + with_lse, 256, 64
+    shape = (b, 1, l, d)
+    q, k, v = _bf16_inputs(d + l, shape, shape, shape)
+    if not with_lse:
+        want = jatt._flash_attention_impl(_JB(q), _JB(k), _JB(v), interpret=True)
+        _holds_to_jax(tatt.flash_attention(_TB(q), _TB(k), _TB(v)), want)
+        return
+    flat = lambda a: _JB(a).reshape(b, l, d)
+    want, lse = jatt._flash_attention_packed_impl(flat(q), flat(k), flat(v), heads=1, save_lse=True,
+                                                  fused_psum=True, interpret=True)
+    got, got_lse = tatt.flash_attention_reference(_TB(q), _TB(k), _TB(v), save_lse=True)
+    _holds_to_jax(got.reshape(b, l, d), want)
+    assert np.abs(got_lse.numpy().reshape(b, l) - np.asarray(lse).reshape(b, l)).max() <= LSE_BF16_TOL
+
+
+@pytest.mark.parametrize("route", ["short", "long"])
+def test_flash_attention_packed_bf16_denominator(route):
+    """K1 through small_batched_attention, the port's route for every blhd
+    site: at a short site (max(Lq, Lk) < 512) against the folded tiny-seq
+    Pallas kernel (the fp32 sum); at a long one, with the LSE that K5 reads,
+    against the packed kernel with fused_psum (the rounded sum)."""
+    if route == "short":
+        shape = (4, 91, 4, 64)
+        q, k, v = _bf16_inputs(5, shape, shape, shape)
+        want = jatt.small_batched_attention(_JB(q), _JB(k), _JB(v), interpret=True)
+        _holds_to_jax(tatt.small_batched_attention(_TB(q), _TB(k), _TB(v)), want)
+        return
+    b, lq, lk, h = 2, 640, 77, 2
+    (q,) = _bf16_inputs(1, (b, lq, h * 64))
+    k, v = _bf16_inputs(2, (b, lk, h * 64), (b, lk, h * 64))
+    want, lse = jatt._flash_attention_packed_impl(_JB(q), _JB(k), _JB(v), heads=h, save_lse=True,
+                                                  fused_psum=True, interpret=True)
+    blhd = lambda a, l: _TB(a).reshape(b, l, h, 64)
+    _holds_to_jax(tatt.small_batched_attention(blhd(q, lq), blhd(k, lk), blhd(v, lk)).reshape(b, lq, -1), want)
+    _, got_lse = tatt.flash_attention_packed_reference(_TB(q), _TB(k), _TB(v), h, save_lse=True)
+    assert np.abs(got_lse.numpy() - np.asarray(lse)).max() <= LSE_BF16_TOL
 
 
 # -- dispatcher ---------------------------------------------------------------

@@ -12,8 +12,14 @@
 // [B, L, H*D] projections (K1) and the head-major [B, H, L, D] layout (K3) run
 // with no transpose. Math follows the JAX kernels: q is pre-scaled by
 // scale*log2(e) and rounded to the input dtype, the softmax is base 2, and
-// the p that feeds P.V is rounded to the input dtype and summed as rounded
-// (the denominator the TPU kernel takes from a ones column in P.V).
+// the p that feeds P.V is rounded to the input dtype. The denominator is the
+// one of the JAX kernel the call replaces, a compile-time flag of every bf16
+// kernel here (SUM_ROUNDED; the entries take it as `psum_rounded`): the sum of
+// the rounded p (_flash_kernel_packed with fused_psum, which takes it from a
+// ones column in P.V: K1 at the long sites, K3 under a gradient) or the fp32
+// sum of p before the rounding (_small_seq_kernel at K1's short sites,
+// _flash_kernel for K3 without a gradient). Rounding to fp32 is the identity,
+// so the fp32 kernel has no flag.
 //
 // What bounds it on the H100: at the main-path shapes (ds1 [28, 5824, 5*64],
 // VAE [n, 1, 5824, 512]) the work is ~4*L^2*D flops per (batch, head) with
@@ -42,7 +48,7 @@
 // logsumexp m + log2(l) per head, fp32 [B, Lq, H] (the JAX kernel's save_lse
 // output, attention.py:404-405, :431-433; for K3's one VAE head that is
 // [B*H, Lq], the layout of JAX's heads=1 forward under a gradient), from the
-// final running max m and the denominator l summed from the rounded p. The
+// final running max m and the denominator l (summed as SUM_ROUNDED says). The
 // backwards recompute p = exp2(s - lse) from it: K5 (flash_attention_bwd.cu)
 // for K1 and for K3 at D = 64, K13 (flash_attention_bhld_bwd.cu) for K3 at
 // D = 512 and 80.
@@ -290,7 +296,7 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+template <int D, bool SUM_ROUNDED>
 __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -403,9 +409,10 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
     for (int j = 0; j < NS; ++j) {
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float p = round_to<__nv_bfloat16>(exp2f(s[j][u] - m_run[u >> 1]));
+        const float e = exp2f(s[j][u] - m_run[u >> 1]);
+        const float p = round_to<__nv_bfloat16>(e);
         s[j][u] = p;
-        l_part[u >> 1] += p;
+        l_part[u >> 1] += SUM_ROUNDED ? p : e;
       }
     }
 #pragma unroll
@@ -468,13 +475,13 @@ bool flash_bf16_rows_ok(const void* q, const void* k, const void* v, const void*
   return true;
 }
 
-template <int D>
+template <int D, bool SUM_ROUNDED>
 int launch_flash_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                      int H, int Lq, int Lk, const long long* st, float qscale,
                      cudaStream_t stream) {
   if (!flash_bf16_rows_ok(q, k, v, o, st)) return kErrBadArgument;
   dim3 grid((Lq + 63) / 64, B * H);
-  flash_fwd_mma_kernel<D><<<grid, 128, 0, stream>>>(
+  flash_fwd_mma_kernel<D, SUM_ROUNDED><<<grid, 128, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
@@ -521,6 +528,7 @@ constexpr int BAR_OFFSET = Q_BYTES + STAGES * STAGE_BYTES;  // full and empty mb
 constexpr int SMEM_BYTES = BAR_OFFSET + 16 * STAGES + 1024;
 }  // namespace f512
 
+template <bool SUM_ROUNDED>
 __global__ void __launch_bounds__(f512::THREADS, 1) flash_fwd_wgmma512_kernel(
     const __nv_bfloat16* __restrict__ q, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
@@ -637,9 +645,10 @@ __global__ void __launch_bounds__(f512::THREADS, 1) flash_fwd_wgmma512_kernel(
     for (int n = 0; n < 4; ++n) {
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float p = round_to<__nv_bfloat16>(exp2f(s[4 * n + u] - m_run[u >> 1]));
+        const float e = exp2f(s[4 * n + u] - m_run[u >> 1]);
+        const float p = round_to<__nv_bfloat16>(e);
         s[4 * n + u] = p;
-        l_part[u >> 1] += p;
+        l_part[u >> 1] += SUM_ROUNDED ? p : e;
       }
     }
 #pragma unroll
@@ -694,12 +703,13 @@ __global__ void __launch_bounds__(f512::THREADS, 1) flash_fwd_wgmma512_kernel(
   }
 }
 
+template <bool SUM_ROUNDED>
 int launch_flash_wgmma512(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                           int Lq, int Lk, const long long* st, float qscale, cudaStream_t stream) {
   if (!flash_bf16_rows_ok(q, k, v, o, st)) return kErrBadArgument;
   // more than 48 KB of shared memory is opted into once per process
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wgmma512_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f512::SMEM_BYTES);
+      flash_fwd_wgmma512_kernel<SUM_ROUNDED>, cudaFuncAttributeMaxDynamicSharedMemorySize, f512::SMEM_BYTES);
   if (attr != cudaSuccess) return (int)attr;
   // k and v as [B, H, Lk, 512] through their (batch, row, head) strides: boxes of 64 d x 32 keys
   CUtensorMap maps[2];
@@ -712,7 +722,7 @@ int launch_flash_wgmma512(const void* q, const void* k, const void* v, void* o, 
     if (const int rc = wgmma_tiled_map(bases[i], 4, dims, strides, box, &maps[i])) return rc;
   }
   dim3 grid((Lq + f512::BQ - 1) / f512::BQ, B * H);
-  flash_fwd_wgmma512_kernel<<<grid, f512::THREADS, f512::SMEM_BYTES, stream>>>(
+  flash_fwd_wgmma512_kernel<SUM_ROUNDED><<<grid, f512::THREADS, f512::SMEM_BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), maps[0], maps[1], static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk,
       st[0], st[1], st[2], st[9], st[10], st[11], qscale);
   return (int)cudaGetLastError();
@@ -738,7 +748,8 @@ int launch_flash_wgmma512(const void* q, const void* k, const void* v, void* o, 
 //   async proxy), and per key tile computes S = Q K^T (4 x m64nBKk16 from
 //   shared memory, BK / 2 fp32 registers a thread), the online softmax in base
 //   2 on the accumulators (the ragged key tail masked to -inf), p rounded to
-//   bf16 and summed as rounded, and O += P V with p as the register A operand
+//   bf16 and summed as rounded or before the rounding (SUM_ROUNDED), and
+//   O += P V with p as the register A operand
 //   (BK / 16 x m64n64k16, V the MN-major B operand);
 // - inside a warpgroup, S of tile j and P V of tile j - 1 are issued together,
 //   so the softmax of tile j runs while P V of tile j - 1 multiplies; with two
@@ -769,7 +780,7 @@ __device__ __forceinline__ float ex2_approx(float x) {
   return y;
 }
 
-template <class C>
+template <class C, bool SUM_ROUNDED>
 __global__ void __launch_bounds__(C::THREADS, C::MINB) flash_fwd_wgmma64_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
@@ -888,7 +899,8 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB) flash_fwd_wgmma64_kernel(
 #pragma unroll
     for (int i = 0; i < NS; ++i) s[i] = ex2_approx(s[i] - m_run[(i >> 1) & 1]);
   };
-  // p rounded to bf16 into the A fragments (16 keys a k-step) and summed as rounded
+  // p rounded to bf16 into the A fragments (16 keys a k-step), summed as
+  // rounded or before the rounding
   auto pack_p = [&]() {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
@@ -896,7 +908,10 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB) flash_fwd_wgmma64_kernel(
       for (int q = 0; q < 4; ++q) {
         const uint32_t v = pack_bf16x2(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1]);
         pa[kk][q] = v;
-        l_part[q & 1] += __uint_as_float(v << 16) + __uint_as_float(v & 0xffff0000u);
+        if constexpr (SUM_ROUNDED)
+          l_part[q & 1] += __uint_as_float(v << 16) + __uint_as_float(v & 0xffff0000u);
+        else
+          l_part[q & 1] += s[8 * kk + 2 * q] + s[8 * kk + 2 * q + 1];
       }
     }
   };
@@ -997,7 +1012,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB) flash_fwd_wgmma64_kernel(
 
 // q, k, v [B, L, H, 64] through their (batch, row, head) strides as rank-4
 // tiled maps (64 d x `rows` rows a box), o written 16 bytes a thread.
-template <class C>
+template <class C, bool SUM_ROUNDED>
 int launch_flash_wgmma64_cfg(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                              int Lq, int Lk, const long long* st, float qscale, cudaStream_t stream) {
   if (!flash_bf16_rows_ok(q, k, v, o, st) || reinterpret_cast<uintptr_t>(o) % 16 || st[9] % 8 ||
@@ -1005,7 +1020,7 @@ int launch_flash_wgmma64_cfg(const void* q, const void* k, const void* v, void* 
     return kErrBadArgument;
   // more than 48 KB of shared memory is opted into once per process
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wgmma64_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+      flash_fwd_wgmma64_kernel<C, SUM_ROUNDED>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
@@ -1018,7 +1033,7 @@ int launch_flash_wgmma64_cfg(const void* q, const void* k, const void* v, void* 
     if (const int rc = wgmma_tiled_map(bases[i], 4, dims, strides, box, &maps[i])) return rc;
   }
   dim3 grid((Lq + C::BQ - 1) / C::BQ, B * H);
-  flash_fwd_wgmma64_kernel<C><<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
+  flash_fwd_wgmma64_kernel<C, SUM_ROUNDED><<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk, st[9], st[10], st[11],
       qscale);
   return (int)cudaGetLastError();
@@ -1034,11 +1049,12 @@ int launch_flash_wgmma64_cfg(const void* q, const void* k, const void* v, void* 
 using F64Long = F64<2, 128, 3, 1>;
 using F64Short = F64<1, 64, 4, 3>;
 
+template <bool SUM_ROUNDED>
 int launch_flash_wgmma64(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                          int Lq, int Lk, const long long* st, float qscale, cudaStream_t stream) {
   if (Lk > 2048)
-    return launch_flash_wgmma64_cfg<F64Long>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
-  return launch_flash_wgmma64_cfg<F64Short>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
+    return launch_flash_wgmma64_cfg<F64Long, SUM_ROUNDED>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
+  return launch_flash_wgmma64_cfg<F64Short, SUM_ROUNDED>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
 }
 
 inline bool flash_sizes_ok(int B, int H, int Lq, int Lk) {
@@ -1051,19 +1067,22 @@ inline bool flash_sizes_ok(int B, int H, int Lq, int Lk) {
 // the head-dim stride must be 1. bf16 runs the D = 64 wgmma kernel (16-byte
 // aligned rows, or kErrBadArgument), fp32 the FMA kernel.
 // lse: NULL, or fp32 [B, Lq, H] contiguous for the base-2 logsumexp.
+// psum_rounded: 1, the denominator sums the p rounded to bf16; 0, the fp32 p
+// (no effect in fp32).
 // route (or NULL) receives the kernel that ran: 2 wgmma, 1 mma.sync, 0 fp32 FMAs.
 extern "C" int vs_flash_attention_packed(int dtype, int D, const void* q, const void* k,
                                          const void* v, void* o, void* lse, int B, int H,
                                          int Lq, int Lk, const long long* strides,
-                                         float qscale, int* route, void* stream) {
+                                         float qscale, int psum_rounded, int* route, void* stream) {
   if (D != 64) return vs::kErrUnsupported;  // every spatial UNet site has 64-dim heads
   if (!vs::flash_sizes_ok(B, H, Lq, Lk)) return vs::kErrBadArgument;
   float* l = static_cast<float*>(lse);
   int r = -1, rc = vs::kErrUnsupported;
   if (dtype == vs::kBFloat16) {
     r = 2;
-    rc = vs::launch_flash_wgmma64(q, k, v, o, l, B, H, Lq, Lk, strides, qscale,
-                                  static_cast<cudaStream_t>(stream));
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    rc = psum_rounded ? vs::launch_flash_wgmma64<true>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s)
+                      : vs::launch_flash_wgmma64<false>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
   } else if (dtype == vs::kFloat32) {
     r = 0;
     rc = vs::flash_entry_fp32(D, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, stream);
@@ -1073,11 +1092,12 @@ extern "C" int vs_flash_attention_packed(int dtype, int D, const void* q, const 
 }
 
 // D in {64, 80, 512}: bf16 runs wgmma at 64 and 512, mma.sync at 80. lse:
-// NULL (inference), or fp32 [B, Lq, H] contiguous under a gradient. route as above.
+// NULL (inference), or fp32 [B, Lq, H] contiguous under a gradient.
+// psum_rounded and route as above.
 extern "C" int vs_flash_attention_bhld(int dtype, int D, const void* q, const void* k,
                                        const void* v, void* o, void* lse, int B, int H, int Lq,
-                                       int Lk, const long long* strides, float qscale, int* route,
-                                       void* stream) {
+                                       int Lk, const long long* strides, float qscale, int psum_rounded,
+                                       int* route, void* stream) {
   if (!vs::flash_sizes_ok(B, H, Lq, Lk)) return vs::kErrBadArgument;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
@@ -1086,15 +1106,18 @@ extern "C" int vs_flash_attention_bhld(int dtype, int D, const void* q, const vo
     switch (D) {
       case 64:
         r = 2;
-        rc = vs::launch_flash_wgmma64(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
+        rc = psum_rounded ? vs::launch_flash_wgmma64<true>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s)
+                          : vs::launch_flash_wgmma64<false>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
         break;
       case 80:
         r = 1;
-        rc = vs::launch_flash_mma<80>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
+        rc = psum_rounded ? vs::launch_flash_mma<80, true>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s)
+                          : vs::launch_flash_mma<80, false>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
         break;
       case 512:
         r = 2;
-        rc = vs::launch_flash_wgmma512(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
+        rc = psum_rounded ? vs::launch_flash_wgmma512<true>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s)
+                          : vs::launch_flash_wgmma512<false>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
         break;
       default:
         break;

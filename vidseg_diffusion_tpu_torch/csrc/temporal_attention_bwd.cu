@@ -15,18 +15,30 @@
 // to the input dtype before dq = scale * ds k and dk = ds^T qf / log2(e), p
 // rounded before dv = p^T g.
 //
-// What bounds it on the H100: each problem is t x t (t = 14 on the training
-// path) over 64-dim heads: ~10*t*t*D flops for 8*t*D elements moved, so
-// memory traffic and latency, as for K2. Design: one warp per problem, four
-// per block. The warp stages the problem's t rows of qf, k, v, g and o in
-// shared memory (loads coalesced along the head dim; rows padded to D + 1
-// floats so the per-lane row reads below are conflict-free). Lane i (< t)
-// then owns query row i: it recomputes the softmax in registers (t <= 32
-// logits), forms ds, writes dq row i and the rounded p and ds rows to shared
-// memory; after a warp barrier lane j owns key row j and sums dk and dv over
-// the t queries. The warp writes the three gradients back coalesced. Nothing
-// but q, k, v, o, g and the gradients touches device memory.
+// What bounds it on the H100: bytes. Each problem is t x t (t = 14 on the
+// training path) over 64-dim heads: 5 products of 2 t^2 D flops for 16 t D
+// bytes (q, k, v, o, g read, dq, dk, dv written once), about 9 flops a byte
+// against the card's ~295, so the least time is the traffic (0.250 ms at ds1,
+// [28, 5824, 5, 64]).
+//
+// bf16 (the training path) runs temporal_attn_bwd_mma_kernel on the tile of
+// temporal_tile.cuh that K2 uses: TMA brings a unit of 4 tokens x 16 frames of
+// one head of the five inputs (bf16 in shared memory, frames t..15 and tokens
+// past s as zeros) into a two-stage ring, and takes the three gradients out
+// from the slots of inputs that are no longer read. One warp per problem on
+// mma.sync.m16n8k16, every product 16 x 16 x 64 at t <= 16: q is scaled and
+// rounded in place (Qf); S = Qf K^T with columns >= t masked, p = e / sum(e) in
+// fp32 on the accumulators (quad shuffles); delta = rowsum(g o) from shared
+// memory; dP = G V^T; ds = round(p (dP - delta)); dQ = ds K * scale with ds
+// repacked as the A operand (dq leaves through o's rows); round(p) and ds go
+// to a small per-warp tile, from which ldmatrix.trans reads p^T and ds^T as A
+// operands of dV = round(p)^T G (through v's rows) and dK = ds^T Qf / log2(e)
+// (through k's rows). 16 < t <= 32 takes 32-frame boxes and two row tiles per
+// product. fp32 (the card-vs-CPU checks) runs temporal_attn_bwd_kernel: one
+// warp per problem on CUDA cores, the inputs staged as fp32 rows, lane i owning
+// query row i and then key row i.
 #include "common.cuh"
+#include "temporal_tile.cuh"
 
 namespace vs {
 
@@ -37,11 +49,11 @@ __host__ __device__ constexpr int bwd_warp_floats(int t, int D) {
   return 5 * t * (D + 1) + 2 * t * (t + 1);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(32 * kBwdWarps) temporal_attn_bwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ o, const T* __restrict__ g, T* __restrict__ dq, T* __restrict__ dk,
-    T* __restrict__ dv, int nvid, int t, int S, int H, float qscale, float scale) {
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ o, const float* __restrict__ g, float* __restrict__ dq, float* __restrict__ dk,
+    float* __restrict__ dv, int nvid, int t, int S, int H, float qscale, float scale) {
   constexpr int DP = D + 1;
   constexpr float kInvLog2E = 0.6931471805599453f;
   extern __shared__ float smem[];
@@ -59,8 +71,8 @@ __global__ void __launch_bounds__(32 * kBwdWarps) temporal_attn_bwd_kernel(
   float* Vs = Ks + t * DP;   // v; after the query pass, dv
   float* Gs = Vs + t * DP;   // g
   float* Os = Gs + t * DP;   // o; row i becomes dq once lane i has its delta
-  float* Ps = Os + t * DP;   // [t][TP] p rounded to T
-  float* DSs = Ps + t * TP;  // [t][TP] ds rounded to T
+  float* Ps = Os + t * DP;   // [t][TP] p
+  float* DSs = Ps + t * TP;  // [t][TP] ds
 
   const long long hd = (long long)H * D;
   const long long frame_stride = (long long)S * hd;
@@ -69,11 +81,11 @@ __global__ void __launch_bounds__(32 * kBwdWarps) temporal_attn_bwd_kernel(
   for (int e = lane; e < t * D; e += 32) {
     const int i = e / D, d = e % D;
     const long long off = base + i * frame_stride + d;
-    Qs[i * DP + d] = round_to<T>(to_f<T>(q[off]) * qscale);
-    Ks[i * DP + d] = to_f<T>(k[off]);
-    Vs[i * DP + d] = to_f<T>(v[off]);
-    Gs[i * DP + d] = to_f<T>(g[off]);
-    Os[i * DP + d] = to_f<T>(o[off]);
+    Qs[i * DP + d] = q[off] * qscale;
+    Ks[i * DP + d] = k[off];
+    Vs[i * DP + d] = v[off];
+    Gs[i * DP + d] = g[off];
+    Os[i * DP + d] = o[off];
   }
   __syncwarp();
 
@@ -109,8 +121,8 @@ __global__ void __launch_bounds__(32 * kBwdWarps) temporal_attn_bwd_kernel(
 #pragma unroll 8
         for (int d = 0; d < D; ++d) dp = fmaf(Gs[i * DP + d], Vs[j * DP + d], dp);
         const float p = sc[j] / sum;
-        Ps[i * TP + j] = round_to<T>(p);
-        sc[j] = round_to<T>(p * (dp - delta));  // ds
+        Ps[i * TP + j] = p;
+        sc[j] = p * (dp - delta);  // ds
         DSs[i * TP + j] = sc[j];
       }
     }
@@ -143,17 +155,17 @@ __global__ void __launch_bounds__(32 * kBwdWarps) temporal_attn_bwd_kernel(
   for (int e = lane; e < t * D; e += 32) {
     const int i = e / D, d = e % D;
     const long long off = base + i * frame_stride + d;
-    dq[off] = from_f<T>(Os[i * DP + d]);
-    dk[off] = from_f<T>(Ks[i * DP + d]);
-    dv[off] = from_f<T>(Vs[i * DP + d]);
+    dq[off] = Os[i * DP + d];
+    dk[off] = Ks[i * DP + d];
+    dv[off] = Vs[i * DP + d];
   }
 }
 
-template <typename T, int D>
-int launch_temporal_bwd(const void* q, const void* k, const void* v, const void* o,
-                        const void* g, void* dq, void* dk, void* dv, int nvid, int t, int S,
-                        int H, float qscale, float scale, cudaStream_t stream) {
-  auto kern = temporal_attn_bwd_kernel<T, D>;
+int launch_temporal_bwd_fp32(const void* q, const void* k, const void* v, const void* o,
+                             const void* g, void* dq, void* dk, void* dv, int nvid, int t, int S,
+                             int H, float qscale, float scale, cudaStream_t stream) {
+  constexpr int D = 64;
+  auto kern = temporal_attn_bwd_kernel<D>;
   const size_t smem = sizeof(float) * kBwdWarps * bwd_warp_floats(t, D);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -163,28 +175,224 @@ int launch_temporal_bwd(const void* q, const void* k, const void* v, const void*
   const long long blocks = (nprob + kBwdWarps - 1) / kBwdWarps;
   if (blocks > 0x7fffffffLL) return kErrBadArgument;
   kern<<<(unsigned)blocks, 32 * kBwdWarps, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const T*>(g), static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), nvid, t, S, H, qscale, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(g), static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), nvid, t, S, H, qscale, scale);
   return (int)cudaGetLastError();
+}
+
+// ---- bf16: tensor cores, TMA-fed tiles ------------------------------------------
+
+// inputs q, k, v, o, g; outputs dq (in o's slot), dk (k's), dv (v's). Units of 4
+// tokens (4 compute warps): 40 KB a stage at 16 frames, two stages, two blocks an
+// SM; per warp a bf16 tile of round(p) and one of ds, [FR][FR + 8] (rows padded
+// so that ldmatrix.trans and the pair stores hit distinct banks).
+template <int FR>
+using K6Tile = DirectTile<5, 3, FR, 4, 2, 2 * FR * (FR + 8) * 2>;
+
+template <int FR>
+struct K6Problem {
+  int t;
+  float qscale, scale;
+  static constexpr __device__ int out_slot(int j) { return j == 0 ? 3 : j; }
+
+  __device__ __forceinline__ void operator()(const uint32_t (&slot)[5], uint32_t scratch, int lane) const {
+    constexpr int MT = FR / 16, NK = FR / 8, PITCH = (FR + 8) * 2;  // bytes a row of the p / ds tiles
+    constexpr float kInvLog2E = 0.6931471805599453f;
+    const uint32_t sq = slot[0], sk = slot[1], sv = slot[2], so = slot[3], sg = slot[4];
+    const uint32_t sp = scratch, sds = scratch + FR * PITCH;
+    const int gid = lane >> 2, tig = lane & 3;
+
+    // Qf = round(q * qscale) in place: it is an operand of S and of dK
+    for (int c = lane; c < FR * 8; c += 32) {
+      uint4 x = tt_ld128(sq + 16 * c);
+      uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = tt_pack(tt_lo(w[j]) * qscale, tt_hi(w[j]) * qscale);
+      tt_st128(sq + 16 * c, x);
+    }
+    __syncwarp();
+
+    // per row tile of queries: p, ds, and dq
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      const int r0 = 16 * mi + gid;  // this lane's rows: r0, r0 + 8
+      float p[NK][4], ds[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) p[n][u] = ds[n][u] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {  // S = Qf K^T into p, dP = G V^T into ds
+        uint32_t aq[4], ag[4];
+        tt_ldsm(aq, tt_a_addr(sq, 16 * mi, ks, lane));
+        tt_ldsm(ag, tt_a_addr(sg, 16 * mi, ks, lane));
+#pragma unroll
+        for (int np = 0; np < NK / 2; ++np) {
+          uint32_t bk[4], bv[4];
+          tt_ldsm(bk, tt_bt_addr(sk, 16 * np, ks, lane));
+          tt_ldsm(bv, tt_bt_addr(sv, 16 * np, ks, lane));
+          tt_mma(p[2 * np], aq, bk[0], bk[1]);
+          tt_mma(p[2 * np + 1], aq, bk[2], bk[3]);
+          tt_mma(ds[2 * np], ag, bv[0], bv[1]);
+          tt_mma(ds[2 * np + 1], ag, bv[2], bv[3]);
+        }
+      }
+      // the true softmax p = e / sum(e) in fp32; keys >= t masked
+      float mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (8 * n + 2 * tig + (u & 1) >= t) p[n][u] = -INFINITY;
+          mx[u >> 1] = fmaxf(mx[u >> 1], p[n][u]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          p[n][u] = exp2f(p[n][u] - mx[u >> 1]);
+          l[u >> 1] += p[n][u];
+        }
+      // delta = rowsum(g o): this lane's 16 channels of each of its rows, then the quad's
+      float delta[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        float d = 0.f;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const uint4 gv = tt_ld128(sg + sw128(r0 + 8 * r, 2 * tig + c));
+          const uint4 ov = tt_ld128(so + sw128(r0 + 8 * r, 2 * tig + c));
+          const uint32_t* gw = reinterpret_cast<const uint32_t*>(&gv);
+          const uint32_t* ow = reinterpret_cast<const uint32_t*>(&ov);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) d += tt_lo(gw[j]) * tt_lo(ow[j]) + tt_hi(gw[j]) * tt_hi(ow[j]);
+        }
+        d += __shfl_xor_sync(0xffffffffu, d, 1);
+        delta[r] = d + __shfl_xor_sync(0xffffffffu, d, 2);
+      }
+      // ds = round(p (dP - delta)); round(p) and ds to this warp's tiles
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          p[n][u] /= l[u >> 1];
+          ds[n][u] = p[n][u] * (ds[n][u] - delta[u >> 1]);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t off = (r0 + 8 * r) * PITCH + (8 * n + 2 * tig) * 2;
+          tt_st32(sp + off, tt_pack(p[n][2 * r], p[n][2 * r + 1]));
+          tt_st32(sds + off, tt_pack(ds[n][2 * r], ds[n][2 * r + 1]));
+        }
+      }
+      // dQ = ds K * scale, ds repacked as the A operand (16 keys a k-step)
+      float acc[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NK / 2; ++kk) {
+        const uint32_t a[4] = {tt_pack(ds[2 * kk][0], ds[2 * kk][1]), tt_pack(ds[2 * kk][2], ds[2 * kk][3]),
+                               tt_pack(ds[2 * kk + 1][0], ds[2 * kk + 1][1]),
+                               tt_pack(ds[2 * kk + 1][2], ds[2 * kk + 1][3])};
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t b[4];
+          tt_ldsm_trans(b, tt_b_addr(sk, 16 * kk, np, lane));
+          tt_mma(acc[2 * np], a, b[0], b[1]);
+          tt_mma(acc[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+      // dq leaves through o's rows of this tile, once every lane's delta has read them
+      __syncwarp();
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        tt_st32(so + sw128(r0, n) + 4 * tig, tt_pack(acc[n][0] * scale, acc[n][1] * scale));
+        tt_st32(so + sw128(r0 + 8, n) + 4 * tig, tt_pack(acc[n][2] * scale, acc[n][3] * scale));
+      }
+    }
+    __syncwarp();  // the p and ds tiles are whole; k and v are read no more
+
+    // per row tile of keys: dV = round(p)^T G into v's rows, dK = ds^T Qf / log2(e) into k's
+#pragma unroll
+    for (int mj = 0; mj < MT; ++mj) {
+      const int r0 = 16 * mj + gid;
+#pragma unroll
+      for (int which = 0; which < 2; ++which) {
+        const uint32_t tile = which == 0 ? sp : sds, rhs = which == 0 ? sg : sq, dst = which == 0 ? sv : sk;
+        const float mul = which == 0 ? 1.f : kInvLog2E;
+        float acc[8][4];
+#pragma unroll
+        for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+        for (int kq = 0; kq < MT; ++kq) {  // 16 queries a k-step
+          uint32_t a[4];  // rows of the tile's transpose: keys 16 mj.., queries 16 kq..
+          tt_ldsm_trans(a, tile + (16 * kq + (lane & 7) + 8 * (lane >> 4)) * PITCH +
+                               (16 * mj + 8 * ((lane >> 3) & 1)) * 2);
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            uint32_t b[4];
+            tt_ldsm_trans(b, tt_b_addr(rhs, 16 * kq, np, lane));
+            tt_mma(acc[2 * np], a, b[0], b[1]);
+            tt_mma(acc[2 * np + 1], a, b[2], b[3]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          tt_st32(dst + sw128(r0, n) + 4 * tig, tt_pack(acc[n][0] * mul, acc[n][1] * mul));
+          tt_st32(dst + sw128(r0 + 8, n) + 4 * tig, tt_pack(acc[n][2] * mul, acc[n][3] * mul));
+        }
+      }
+    }
+  }
+};
+
+template <int FR>
+__global__ void __launch_bounds__(K6Tile<FR>::THREADS) temporal_attn_bwd_mma_kernel(
+    const __grid_constant__ DirectMaps<8> maps, int units, int H, int ntiles, int t, float qscale, float scale) {
+  extern __shared__ unsigned char temporal_bwd_smem[];
+  direct_walk<K6Tile<FR>>(maps, units, H, ntiles, temporal_bwd_smem, K6Problem<FR>{t, qscale, scale});
+}
+
+int launch_temporal_bwd_bf16(const void* q, const void* k, const void* v, const void* o, const void* g,
+                             void* dq, void* dk, void* dv, int nvid, int t, int S, int H, float qscale,
+                             float scale, cudaStream_t stream) {
+  const void* tensors[8] = {q, k, v, o, g, dq, dk, dv};
+  if (t <= 16)
+    return launch_direct<K6Tile<16>>(temporal_attn_bwd_mma_kernel<16>, tensors, nvid, t, S, H, stream, t,
+                                     qscale, scale);
+  return launch_direct<K6Tile<32>>(temporal_attn_bwd_mma_kernel<32>, tensors, nvid, t, S, H, stream, t, qscale,
+                                   scale);
 }
 
 }  // namespace vs
 
-// q, k, v, o, g, dq, dk, dv: contiguous [(nvid*t), S, H*D]
+// q, k, v, o, g, dq, dk, dv: contiguous [(nvid*t), S, H*D], D = 64 (bf16: 16-byte
+// aligned). route (or NULL) receives the kernel that ran: 1 mma.sync (bf16), 0
+// CUDA cores (fp32).
 extern "C" int vs_temporal_attention_direct_bwd(int dtype, int D, const void* q, const void* k,
                                                 const void* v, const void* o, const void* g,
                                                 void* dq, void* dk, void* dv, int nvid, int t,
                                                 int S, int H, float qscale, float scale,
-                                                void* stream) {
+                                                int* route, void* stream) {
   if (nvid <= 0 || S <= 0 || H <= 0 || t <= 0 || t > vs::kBwdFrames) return vs::kErrBadArgument;
   if (D != 64) return vs::kErrUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == vs::kBFloat16)
-    return vs::launch_temporal_bwd<__nv_bfloat16, 64>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H,
-                                                      qscale, scale, st);
-  if (dtype == vs::kFloat32)
-    return vs::launch_temporal_bwd<float, 64>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale,
-                                              scale, st);
-  return vs::kErrUnsupported;
+  int r = -1, rc = vs::kErrUnsupported;
+  if (dtype == vs::kBFloat16) {
+    r = 1;
+    rc = vs::launch_temporal_bwd_bf16(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st);
+  } else if (dtype == vs::kFloat32) {
+    r = 0;
+    rc = vs::launch_temporal_bwd_fp32(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st);
+  }
+  if (route != nullptr) *route = r;
+  return rc;
 }

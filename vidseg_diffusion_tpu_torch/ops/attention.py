@@ -23,10 +23,15 @@ launch the forward kernel alone: no LSE, no saved tensors.
 
 The plain versions of the kernels reproduce the kernels' arithmetic: q
 pre-scaled by scale*log2(e) in the input dtype, a base-2 softmax, and the p
-that feeds P.V rounded to the input dtype with the denominator summed from
-the rounded p (ops/attention.py:377-396, :505 of the JAX package); the
-backward versions round ds, and p where it feeds dV, to the input dtype
-before the products (attention.py:813-906, :1068-1120).
+that feeds P.V rounded to the input dtype. The denominator follows the JAX
+kernel each site replaces: the sum of the rounded p where that kernel is the
+packed one with fused_psum (attention.py:376-396 of the JAX package: K1 at
+the long sites, and K3 under a gradient, which _fa_fwd runs through it), the
+fp32 sum of the unrounded p elsewhere (_temporal_direct_kernel :1398-1403 for
+K2, _small_seq_kernel :590-595 for K1 at the short sites, _flash_kernel
+:147-156 for K3 without a gradient). The backward versions round ds, and p
+where it feeds dV, to the input dtype before the products
+(attention.py:813-906, :1068-1120).
 """
 
 from __future__ import annotations
@@ -50,14 +55,17 @@ def _needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def _attention_base2(q, k, v, scale, with_lse: bool = False):
+def _attention_base2(q, k, v, scale, with_lse: bool = False, psum_rounded: bool = True):
     """The kernels' math on blhd [B, L, H, D] inputs; returns fp32 blhd, and
-    with_lse the base-2 logsumexp m + log2(l) as fp32 [B, L, H]."""
+    with_lse the base-2 logsumexp m + log2(l) as fp32 [B, L, H]. The
+    denominator l sums the p rounded to the input dtype (psum_rounded: the
+    packed kernel's fused_psum) or the fp32 p before that rounding."""
     qs = (q * _rounded_qscale(scale, q.dtype).to(q.device)).float()
     s = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp2(s - m).to(v.dtype).float()
-    l = p.sum(dim=-1)
+    e = torch.exp2(s - m)
+    p = e.to(v.dtype).float()
+    l = (p if psum_rounded else e).sum(dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / l.permute(0, 2, 1)[..., None]
     if not with_lse:
         return out
@@ -86,9 +94,10 @@ mha_reference.calls = 0
 
 
 def flash_attention_packed_reference(q, k, v, heads: int, scale: Optional[float] = None,
-                                     save_lse: bool = False):
+                                     save_lse: bool = False, psum_rounded: bool = True):
     """Plain version of K1 on packed [B, L, H*D]; save_lse also returns the
-    base-2 LSE [B, L, H] fp32 (the JAX package's save_lse output)."""
+    base-2 LSE [B, L, H] fp32 (the JAX package's save_lse output);
+    psum_rounded as K1's (flash_attention_packed)."""
     flash_attention_packed_reference.calls += 1
     b, lq, hd = q.shape
     lk = k.shape[1]
@@ -96,7 +105,7 @@ def flash_attention_packed_reference(q, k, v, heads: int, scale: Optional[float]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     res = _attention_base2(
         q.reshape(b, lq, heads, d), k.reshape(b, lk, heads, d),
-        v.reshape(b, lk, heads, d), scale, with_lse=save_lse,
+        v.reshape(b, lk, heads, d), scale, with_lse=save_lse, psum_rounded=psum_rounded,
     )
     if save_lse:
         return res[0].reshape(b, lq, hd).to(q.dtype), res[1]
@@ -124,10 +133,12 @@ def _check_bf16_rows(name, dtype, strides, n_vec, *tensors):
         raise ValueError(f"{name}: bf16 q/k/v rows must be 16-byte aligned")
 
 
-def _flash_attention_packed_forward(q, k, v, heads: int, scale: Optional[float], save_lse: bool):
+def _flash_attention_packed_forward(q, k, v, heads: int, scale: Optional[float], save_lse: bool,
+                                    psum_rounded: bool = True):
     """K1 on CUDA tensors (the plain version on CPU): out, or (out, lse)."""
     if q.device.type == "cpu":
-        return flash_attention_packed_reference(q, k, v, heads, scale, save_lse=save_lse)
+        return flash_attention_packed_reference(q, k, v, heads, scale, save_lse=save_lse,
+                                                psum_rounded=psum_rounded)
     dtype = _check_packed("flash_attention_packed", q, k, v, heads)
     b, lq, hd = q.shape
     lk = k.shape[1]
@@ -142,7 +153,7 @@ def _flash_attention_packed_forward(q, k, v, heads: int, scale: Optional[float],
         "vs_flash_attention_packed", _cuda.DTYPE_CODES[dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if save_lse else None,
-        b, heads, lq, lk, strides, float(_rounded_qscale(scale, dtype)),
+        b, heads, lq, lk, strides, float(_rounded_qscale(scale, dtype)), int(psum_rounded),
     )
     flash_attention_packed.launches += 1
     flash_attention_packed.wgmma_launches += route == "wgmma"
@@ -154,8 +165,9 @@ class _FlashAttentionPacked(torch.autograd.Function):
     """K1 forward with LSE; K5 backward (the JAX package's _fap custom_vjp)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, heads, scale):
-        out, lse = _flash_attention_packed_forward(q, k, v, heads, scale, save_lse=True)
+    def forward(ctx, q, k, v, heads, scale, psum_rounded):
+        out, lse = _flash_attention_packed_forward(q, k, v, heads, scale, save_lse=True,
+                                                   psum_rounded=psum_rounded)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.heads, ctx.scale = heads, scale
         return out
@@ -165,18 +177,22 @@ class _FlashAttentionPacked(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_packed_backward(
             q, k, v, out, lse, g.contiguous(), ctx.heads, ctx.scale)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None):
+def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
+                           psum_rounded: bool = True):
     """K1: online-softmax attention on packed [B, L, H*D] (any L, D = 64),
     read through the tensors' strides with no transpose; bf16 runs the wgmma
     kernel fed by TMA and needs 16-byte aligned rows (a view that is not is
-    refused), fp32 the FMA kernel. Differentiable: with grad on, the backward
-    is K5."""
+    refused), fp32 the FMA kernel. The denominator sums the rounded p
+    (psum_rounded, JAX's fused_psum default) or the fp32 p (the short sites,
+    small_batched_attention); the LSE written under a gradient is m + log2 of
+    that same sum. Differentiable: with grad on, the backward is K5."""
     if _needs_grad(q, k, v):
-        return _FlashAttentionPacked.apply(q, k, v, heads, scale)
-    return _flash_attention_packed_forward(q, k, v, heads, scale, save_lse=False)
+        return _FlashAttentionPacked.apply(q, k, v, heads, scale, psum_rounded)
+    return _flash_attention_packed_forward(q, k, v, heads, scale, save_lse=False,
+                                           psum_rounded=psum_rounded)
 
 
 flash_attention_packed.launches = 0
@@ -259,17 +275,25 @@ def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
 flash_attention_packed_backward.launches = 0
 
 
+# Below this length (max of Lq, Lk) the JAX package's TPU dispatch sends a blhd
+# site to _small_seq_kernel, at and above it to the packed flash kernel
+# (attention.py:714, :1609-1622).
+SHORT_SEQ = 512
+
+
 def small_batched_attention(q, k, v, scale: Optional[float] = None):
     """Attention on [B, L, H, D]. The TPU folds many short problems
     (L < 512) into one MXU tile (_small_seq_kernel); on the GPU short and
     long problems alike are rows of K1's grid on the packed view, so this
     also serves dot_product_attention's long spatial sites (and K5 their
-    backward)."""
+    backward). The denominator is that of the JAX kernel the site replaces:
+    the fp32 sum of _small_seq_kernel where max(Lq, Lk) < SHORT_SEQ, the
+    rounded sum of the packed kernel's fused_psum elsewhere."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
     out = flash_attention_packed(
         q.reshape(b, lq, h * d), k.reshape(b, lk, h * d), v.reshape(b, lk, h * d),
-        heads=h, scale=scale,
+        heads=h, scale=scale, psum_rounded=max(lq, lk) >= SHORT_SEQ,
     )
     return out.reshape(b, lq, h, d)
 
@@ -290,12 +314,13 @@ def _from_canonical(x, t, b):
 
 
 def temporal_attention_direct_reference(q, k, v, t: int, scale: Optional[float] = None):
-    """Plain version of K2 on [(b t), s, H, D]."""
+    """Plain version of K2 on [(b t), s, H, D]: the denominator is the fp32
+    sum of the unrounded p, as in _temporal_direct_kernel."""
     temporal_attention_direct_reference.calls += 1
     bt, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     out = _attention_base2(
-        _to_canonical(q, t), _to_canonical(k, t), _to_canonical(v, t), scale
+        _to_canonical(q, t), _to_canonical(k, t), _to_canonical(v, t), scale, psum_rounded=False
     )
     return _from_canonical(out, t, bt // t).to(q.dtype)
 
@@ -322,12 +347,13 @@ def _temporal_attention_direct_forward(q, k, v, t: int, scale: Optional[float]):
     bt, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     out = torch.empty_like(q)
-    _cuda.call(
+    route = _cuda.call_routed(
         "vs_temporal_attention_direct", _cuda.DTYPE_CODES[dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         bt // t, t, s, h, float(_rounded_qscale(scale, dtype)),
     )
     temporal_attention_direct.launches += 1
+    temporal_attention_direct.mma_launches += route == "mma_sync"
     return out
 
 
@@ -352,13 +378,15 @@ class _TemporalAttentionDirect(torch.autograd.Function):
 def temporal_attention_direct(q, k, v, t: int, scale: Optional[float] = None):
     """K2: softmax over the t frames of each (video, token, head), read from
     the spatial token layout [(b t), s, H, D] (contiguous, D = 64, t <= 32,
-    any s). Differentiable: with grad on, the backward is K6."""
+    any s). bf16 runs on the tensor cores (mma.sync, q/k/v boxes by TMA), fp32
+    on CUDA cores. Differentiable: with grad on, the backward is K6."""
     if _needs_grad(q, k, v):
         return _TemporalAttentionDirect.apply(q, k, v, t, scale)
     return _temporal_attention_direct_forward(q, k, v, t, scale)
 
 
 temporal_attention_direct.launches = 0
+temporal_attention_direct.mma_launches = 0   # of .launches, those on the tensor cores (bf16)
 
 
 # -- K6: direct-layout temporal-attention backward -----------------------------
@@ -396,37 +424,51 @@ temporal_attention_direct_backward_reference.calls = 0
 def temporal_attention_direct_backward(q, k, v, out, g, t: int, scale: Optional[float] = None):
     """K6: (dq, dk, dv) of K2, read and written in the UNet-native
     [(b t), s, H, D] layout (no canonical transposes); one warp per
-    (video, token, head) problem. The plain version on CPU."""
+    (video, token, head) problem, bf16 on the tensor cores (mma.sync, the
+    five inputs in and the three gradients out by TMA), fp32 on CUDA cores.
+    The plain version on CPU."""
     if q.device.type == "cpu":
         return temporal_attention_direct_backward_reference(q, k, v, out, g, t, scale)
     dtype = _check_temporal("temporal_attention_direct_backward", t, q, k, v, out, g)
     bt, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _cuda.call(
+    route = _cuda.call_routed(
         "vs_temporal_attention_direct_bwd", _cuda.DTYPE_CODES[dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         bt // t, t, s, h, float(_rounded_qscale(scale, dtype)), float(scale),
     )
     temporal_attention_direct_backward.launches += 1
+    temporal_attention_direct_backward.mma_launches += route == "mma_sync"
     return dq, dk, dv
 
 
 temporal_attention_direct_backward.launches = 0
+temporal_attention_direct_backward.mma_launches = 0   # bf16, on the tensor cores
 
 
 # -- K3: bhld flash attention (forward, LSE under a gradient) ------------------
 
 
+def _k3_psum_rounded(d: int, save_lse: bool) -> bool:
+    """K3's denominator: under a gradient (with the LSE) the sum of the
+    rounded p, as _fa_fwd runs the packed kernel with fused_psum; without one
+    the fp32 sum of _flash_kernel. D = 80 (CLIP's heads) keeps the rounded
+    sum: JAX's TPU dispatch sends CLIP to mha_reference, which normalises p
+    before rounding it and which neither sum reproduces (ROADMAP §C)."""
+    return save_lse or d == 80
+
+
 def flash_attention_reference(q, k, v, scale: Optional[float] = None, save_lse: bool = False):
     """Plain version of K3 on bhld [B, H, L, D]; save_lse also returns the
     base-2 LSE fp32 [B, Lq, H] (for one head, JAX's [B*H, Lq] of the heads=1
-    forward under a gradient)."""
+    forward under a gradient); the denominator as _k3_psum_rounded says."""
     flash_attention_reference.calls += 1
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     res = _attention_base2(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale, with_lse=save_lse
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale, with_lse=save_lse,
+        psum_rounded=_k3_psum_rounded(q.shape[-1], save_lse),
     )
     if save_lse:
         return res[0].transpose(1, 2).to(q.dtype), res[1]
@@ -459,6 +501,7 @@ def _flash_attention_forward(q, k, v, scale: Optional[float], save_lse: bool):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if save_lse else None,
         b, h, lq, k.shape[2], strides, float(_rounded_qscale(scale, dtype)),
+        int(_k3_psum_rounded(d, save_lse)),
     )
     flash_attention.launches += 1
     flash_attention.wgmma_launches += route == "wgmma"

@@ -1,8 +1,9 @@
 """Device time of K1 (flash_attention_packed), K11 (matmul_bias), K4
-(temporal_conv_1x1) and the GroupNorm forward at the main paths' shapes,
-beside the one PyTorch call for the same function, on one CUDA card.
+(temporal_conv_1x1), the GroupNorm forward, K2 (temporal_attention_direct)
+and its backward K6 at the main paths' shapes, beside the one PyTorch call
+for the same function, on one CUDA card.
 
-    python3 -m vidseg_diffusion_tpu_torch.scripts.time_kernels [--only k11,k1,k4,gn]
+    python3 -m vidseg_diffusion_tpu_torch.scripts.time_kernels [--only k11,k1,k4,gn,k2,k6]
 
 Each call is captured 20 times into a CUDA graph and the replay is timed with
 CUDA events, so the readings are device time without the host's launch cost
@@ -17,11 +18,16 @@ through autograd.grad, which a graph cannot capture: both backward rows are
 CUDA events around back-to-back calls of over a millisecond); the GroupNorm forward as the paths call it
 (group_norm under no_grad, whichever kernels its route launches) at
 chip_smoke.py's GroupNorm sites beside F.group_norm (+ F.silu) on the
-channels-last view. Each row carries its bound (bytes over 3.35 TB/s or
+channels-last view. K2 is timed at chip_smoke.py's four temporal shapes (two
+videos of 14 frames, [28, s, H, 64]) beside SDPA on the canonical view of the
+same tensors ([b, s, H, t, 64], strided, no copy); K6 at the same shapes beside
+SDPA's backward through autograd.grad, both with CUDA events around
+back-to-back calls as K4's backward rows are (K6 also as a CUDA graph: its
+device time). Each row carries its bound (bytes over 3.35 TB/s or
 operations over 989 TFLOP/s, whichever is larger). Each output is also held
 to the plain version (bf16 steps at max |plain|, relative RMS error; K1's
 LSE too). Prints the card's name and power limit and ptxas's register /
-spill lines for the wgmma kernels.
+spill lines for the wgmma and the temporal-attention kernels.
 """
 
 import argparse
@@ -49,6 +55,8 @@ TCONV_SHAPES = [(2, 14, 5824, 320, 320, False), (2, 14, 1456, 640, 640, False), 
                 (2, 14, 91, 1280, 1280, False), (1, 7, 5824, 512, 512, False), (1, 7, 23296, 512, 512, False),
                 (1, 7, 93184, 256, 256, False), (1, 7, 372736, 128, 128, False), (1, 7, 372736, 3, 3, False),
                 (2, 14, 5824, 320, 320, True), (2, 14, 364, 1280, 1280, True)]
+# (S, H): the temporal self-attention sites per level (t = 14 frames, 2 videos)
+TEMPORAL_SHAPES = [(5824, 5), (1456, 10), (364, 20), (91, 20)]
 # (shape, dtype, silu, eps): chip_smoke.py's GroupNorm sites
 GN_SITES = [((28, 56, 104, 320), "bf16", True, 1e-5), ((28, 56, 104, 320), "bf16", False, 1e-6),
             ((28, 56, 104, 960), "bf16", True, 1e-5), ((28, 28, 52, 640), "bf16", True, 1e-5),
@@ -188,6 +196,47 @@ def time_group_norm(torch, F, rn):
         torch.cuda.empty_cache()
 
 
+def time_temporal(torch, F, rn, only):
+    """K2 (graph) and K6 (events and graph) at TEMPORAL_SHAPES beside SDPA
+    and its backward on the canonical view."""
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    bf, t, b = torch.bfloat16, 14, 28
+    frames = lambda x: x.view(b // t, t, *x.shape[1:]).permute(0, 2, 3, 1, 4)   # [videos, s, H, t, 64]
+    for s, h in TEMPORAL_SHAPES:
+        q, k, v, g = (rn(b, s, h, 64).to(bf) for _ in range(4))
+        n = b * s * h * 64   # elements of one tensor
+        flops = 4 * t * t * 64 * (b // t) * s * h   # S and P V per problem
+        if "k2" in only:
+            steps, rms = errors(A.temporal_attention_direct(q, k, v, t=t),
+                                A.temporal_attention_direct_reference(q, k, v, t=t))
+            lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(frames(q), frames(k), frames(v)), 5)
+            before = routes(A.temporal_attention_direct)
+            ms = graph_ms(torch, lambda: A.temporal_attention_direct(q, k, v, t=t), 5)
+            moved = {key: val - before[key] for key, val in routes(A.temporal_attention_direct).items()}
+            print(f"K2 [{b},{s},{h},64] t={t}: {ms:.4f} ms (SDPA {lib_ms:.4f}, bound "
+                  f"{bound_ms(4 * 2 * n, flops):.4f}), {steps:.2f} bf16 steps, rel. RMS {rms:.2e}; "
+                  f"routes over the timed launches {moved}", flush=True)
+        if "k6" in only:
+            o = A.temporal_attention_direct(q, k, v, t=t)
+            got = A.temporal_attention_direct_backward(q, k, v, o, g, t=t)
+            ref = A.temporal_attention_direct_backward_reference(q, k, v, o, g, t=t)
+            check = ", ".join("%.2f bf16 steps, rel. RMS %.2e" % errors(x, r) for x, r in zip(got, ref))
+            leaves = [frames(x).detach().requires_grad_() for x in (q, k, v)]
+            y = F.scaled_dot_product_attention(*leaves)
+            lib_ms = events_ms(torch, lambda: torch.autograd.grad(y, leaves, frames(g), retain_graph=True))
+            before = routes(A.temporal_attention_direct_backward)
+            ms = events_ms(torch, lambda: A.temporal_attention_direct_backward(q, k, v, o, g, t=t))
+            dev_ms = graph_ms(torch, lambda: A.temporal_attention_direct_backward(q, k, v, o, g, t=t), 5)
+            moved = {key: val - before[key] for key, val in routes(A.temporal_attention_direct_backward).items()}
+            print(f"K6 [{b},{s},{h},64] t={t} (CUDA events): {ms:.4f} ms (SDPA backward {lib_ms:.4f}, bound "
+                  f"{bound_ms(8 * 2 * n, 2.5 * flops):.4f}; device time {dev_ms:.4f}), {check}; routes over "
+                  f"the timed launches {moved}", flush=True)
+            del o, got, ref, leaves, y
+        del q, k, v, g
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
     import torch.nn.functional as F
@@ -197,7 +246,7 @@ def main():
     from vidseg_diffusion_tpu_torch.ops import matmul as MM
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", default="k11,k1,k4,gn", help="comma-separated: k11, k1, k4, gn")
+    parser.add_argument("--only", default="k11,k1,k4,gn,k2,k6", help="comma-separated: k11, k1, k4, gn, k2, k6")
     only = set(parser.parse_args().only.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels needs a CUDA card")
@@ -208,7 +257,7 @@ def main():
     with open(os.path.join(_cuda.BUILD_DIR, "build.log")) as f:
         log = f.read().splitlines()
     for i, line in enumerate(log):
-        if "Function properties for" in line and "wgmma" in line:
+        if "Function properties for" in line and ("wgmma" in line or "temporal_attn" in line):
             print("ptxas:", line.split("for ")[-1], "|", " | ".join(s.strip() for s in log[i + 1:i + 3]))
         if "C7512" in line:
             print("ptxas:", line.strip())
@@ -220,6 +269,8 @@ def main():
         time_tconv(torch, F, rn)
     if "gn" in only:
         time_group_norm(torch, F, rn)
+    if only & {"k2", "k6"}:
+        time_temporal(torch, F, rn, only)
     for m, k, n, with_bias in MM_SHAPES if "k11" in only else ():
         x, w = rn(m, k).to(bf), (rn(n, k) / k ** 0.5).to(bf)
         b = rn(n).to(bf) if with_bias else None
