@@ -20,7 +20,9 @@ Phases, in order; any failure exits non-zero:
    path runs it); K1's saved LSE against the plain LSE (also at the 77-key
    cross-attention); K7's and the fused kernel's statistics against fp64
    statistics of the same input; K11 also at N = 168 and K = 1032; K1's headline shape timed at the
-   CFG batch of 28 beside SDPA.
+   CFG batch of 28 beside SDPA, K5's at the training batch of 28 beside SDPA's backward; the
+   normalise-first kernels of K1 (SD 2.1's cross-attention at 5824 and 1456 queries, 77 keys) and
+   K3 (CLIP, D = 80) also held to mha_reference (one bf16 step, at most 0.1 % of the elements).
 4. unet: one full-width SVD UNet forward in fp32 (random weights, a 16x16
    latent, 2 frames) on the card through the kernels vs the same weights on
    the CPU through the plain versions; then the same for the full-width SD
@@ -43,7 +45,9 @@ Phases, in order; any failure exits non-zero:
    the VAE's 3-channel conv_out_time_mix, which run the narrow kernel, and
    every K2 (and, in the train phase, K6) launch its tensor-core kernel (the
    wrappers' route counters, here and in the inject, sd, train and ae_train
-   phases); latents and labels must be finite and shaped; the +lambda and
+   phases: also every K3 launch but CLIP's 32 on the wgmma kernel, CLIP's on
+   the normalise-first mode, every K5 and K13 launch on the wgmma kernels);
+   latents and labels must be finite and shaped; the +lambda and
    -lambda runs must differ, and the outside-mask latents must equal the
    cached trajectory exactly.
 7. inject: the same run with is_injected_features (the feature pass caches
@@ -58,7 +62,9 @@ Phases, in order; any failure exits non-zero:
    masks, the SD blend window, decoding_t 7) under torch.no_grad: K1 at every
    self- and cross-attention site (77 context tokens), K3 in the VAE's mid
    attention, K7, K8, K11 and K12 exactly as often as the configuration
-   implies, K2 and K4 never, no backward kernel and no plain version; finite
+   implies, K1's normalise-first mode at the 10 cross-attention sites with
+   5824 or 1456 queries per UNet call, K2 and K4 never, no backward kernel
+   and no plain version; finite
    latents and labels of the right shape, +lambda != -lambda, outside-mask
    latents equal to the cached trajectory right after the last blended step
    (read where they enter the next sampler step);
@@ -92,9 +98,11 @@ Phases, in order; any failure exits non-zero:
 
 Before the last line come the kernels JSON (per kernel: launches in the run
 of its path and in the other runs (injected, SD, diffusion training,
-autoencoder training), for K1, K2, K4, K6 and K11 the launches of each run
-by the kernel that ran (`routes`), worst error, kernel, plain, bound and
-library-call ms at its headline shape) and the card's name and power limit; the last line
+autoencoder training), for K1-K6, K11 and K13 the launches of each run by the
+kernel that ran (`routes`), worst error, kernel, plain, bound and
+library-call ms at its headline shape; the normalise-first kernels of K1 and
+K3 as entries of their own, their path the SD run and the main run; K5 also
+at the training batch) and the card's name and power limit; the last line
 is {"ok": true, "device": ...}.
 """
 
@@ -169,6 +177,17 @@ KERNELS = {
         id="K13", source="vidseg_diffusion_tpu_torch/csrc/flash_attention_bhld_bwd.cu",
         replaces="vidseg_diffusion_tpu/ops/attention.py:1025", rms_tol=1e-3,
     ),
+    # the normalise-first kernels of K1 (D = 64) and K3 (D = 80): the sites that
+    # JAX's TPU dispatch sends to no Pallas kernel but to mha_reference (:75,
+    # dispatched at :1644); the wrappers' .normalised_launches count them
+    "flash_attention_packed_normalised": dict(
+        id="K1 normalise-first", source="vidseg_diffusion_tpu_torch/csrc/flash_attention.cu",
+        replaces="vidseg_diffusion_tpu/ops/attention.py:75", rms_tol=4e-3, wrapper="flash_attention_packed",
+    ),
+    "flash_attention_normalised": dict(
+        id="K3 normalise-first", source="vidseg_diffusion_tpu_torch/csrc/flash_attention.cu",
+        replaces="vidseg_diffusion_tpu/ops/attention.py:75", rms_tol=4e-3, wrapper="flash_attention",
+    ),
 }
 INFERENCE_KERNELS = ("flash_attention_packed", "temporal_attention_direct", "flash_attention",
                      "temporal_conv_1x1", "group_norm_stats", "group_norm_apply", "group_norm_fused",
@@ -178,6 +197,11 @@ TRAIN_KERNELS = ("flash_attention_packed", "temporal_attention_direct", "tempora
                  "group_norm_stats", "group_norm_apply", "group_norm_fused", "group_norm_backward_stats",
                  "group_norm_backward_apply", "matmul_bias", "conv3x3_same")
 AE_KERNELS = ("flash_attention_backward",)   # the kernels whose path is autoencoder training
+# the normalise-first launches of a path: CLIP's 32 layers once a video (K3 at D
+# = 80); the SD 2.1 UNet's 10 cross-attention sites with 5824 or 1456 queries
+# and 77 keys (two input and three output blocks at ds1 and at ds2) per UNet call
+MAIN_NORMALISED = {"flash_attention": 32}
+SD_NORMALISED_PER_UNET = {"flash_attention_packed": 10}
 # launches of the inference main path, implied by its configuration: 52 UNet
 # calls x 16 spatial / 16 temporal self-attention sites and 44 temporal
 # convs (+ 29 per decoder chunk x 8), 32 CLIP layers + 11 VAE attentions; the
@@ -222,6 +246,7 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 ou
 # x) and inv-std (relative) vs fp64 statistics of the same input: STATS_TOL.
 MAX_STEPS = 2
 FP32_TOL = 1e-4
+MHA_DIFFERING = 1e-3    # share of the elements a normalise-first output may differ from mha_reference's
 STATS_TOL = 2e-5
 UNET_REL_TOL = 1e-4     # fp32 UNet, card (kernels) vs CPU (plain versions), x max |CPU|
 LSE_TOL = 5e-3          # K1's and K3's base-2 LSE vs the plain LSE, absolute (log2 units; reads <= 2.2e-3,
@@ -252,6 +277,8 @@ HEADLINE = {  # the shape of its path each kernel is timed at
     "matmul_bias": "ds1 to_q [163072,320->320]",
     "conv3x3_same": "ds1 [28,56,104,320->320]",
     "flash_attention_backward": "VAE mid [2,1,5824,512]",
+    "flash_attention_packed_normalised": "SD cross ds1 [28,5824x77,5x64]",
+    "flash_attention_normalised": "CLIP ViT-H [1,16,257,80]",
 }
 # launches of one training step (remat on: every ResBlock and transformer runs
 # its forward twice, in the step's forward and in the backward's recompute):
@@ -463,14 +490,32 @@ def kernel_cases(torch):
         add(kernel="flash_attention_packed", label=label, make=packed(b, l, h), kern=kern, plain=plain, iters=3,
             work=attn_work(b, h, l, l, 64),
             library=lambda q, k, v, h: (lambda a=[heads_view(x, h) for x in (q, k, v)]: sdpa(*a)))
-    # K1 at the SD 2.1 cross-attention: 77 context tokens, the whole CFG batch
-    # (its LSE checked too); the headline shape at the CFG batch of the main
-    # path (no plain comparison at B = 28: see above) is timed in phase_kernels
-    for label, l, h in (("SD cross ds1 [28,5824x77,5x64]", 5824, 5), ("SD cross mid [28,91x77,20x64]", 91, 20)):
+    # K1 at the SD 2.1 cross-attention's mid site: 77 context tokens at 91
+    # queries, the whole CFG batch, on the tiny-seq kernel's fp32 sum (its LSE
+    # checked too); the headline shape at the CFG batch of the main path (no
+    # plain comparison at B = 28: see above) is timed in phase_kernels
+    for label, l, h in (("SD cross mid [28,91x77,20x64]", 91, 20),):
         kern, plain = k1(l, 77)
         add(kernel="flash_attention_packed", label=label, make=packed_lse(28, l, h, 77), kern=kern, plain=plain,
             iters=3, work=attn_work(28, h, l, 77, 64),
             library=lambda q, k, v, h: (lambda a=[heads_view(x, h) for x in (q, k, v)]: sdpa(*a)))
+    # the normalise-first kernels at the sites JAX's TPU dispatch sends to
+    # mha_reference: the SD 2.1 cross-attention at 5824 and 1456 queries (K1, 77
+    # keys, one key tile), CLIP ViT-H (K3 at D = 80, 257 keys: two walks over the
+    # keys); each also held to mha_reference on the same inputs (`reference`)
+    packed_mha = lambda q, k, v, h: A.mha_reference(
+        *(x.view(x.shape[0], x.shape[1], h, 64) for x in (q, k, v)), layout="blhd").reshape(q.shape)
+    for label, l, h in (("SD cross ds1 [28,5824x77,5x64]", 5824, 5), ("SD cross ds2 [28,1456x77,10x64]", 1456, 10)):
+        add(kernel="flash_attention_packed_normalised", label=label, make=packed(28, l, h, 77),
+            kern=lambda q, k, v, h: A.flash_attention_packed(q, k, v, h, normalise_first=True),
+            plain=lambda q, k, v, h: A.flash_attention_packed_reference(q, k, v, h, normalise_first=True),
+            reference=packed_mha, iters=3, work=attn_work(28, h, l, 77, 64),
+            library=lambda q, k, v, h: (lambda a=[heads_view(x, h) for x in (q, k, v)]: sdpa(*a)))
+    add(kernel="flash_attention_normalised", label="CLIP ViT-H [1,16,257,80]", make=bhld(1, 16, 257, 80),
+        kern=lambda q, k, v: A.flash_attention(q, k, v, normalise_first=True),
+        plain=lambda q, k, v: A.flash_attention_reference(q, k, v, normalise_first=True),
+        reference=A.mha_reference, iters=5, work=attn_work(1, 16, 257, 257, 80),
+        library=lambda q, k, v: (lambda: sdpa(q, k, v)))
     # K2: temporal self-attention, t = 14 frames, two videos (uc, c)
     for label, s, h in temporal:
         add(kernel="temporal_attention_direct", label=label, make=direct(28, s, h),
@@ -840,6 +885,8 @@ def phase_kernels(torch):
             lib = case["library"](*args)
             library_ms = lib if isinstance(lib, float) else time_ms(lib, iters)
             del lib
+        if "reference" in case:
+            held_to_mha_reference(torch, KERNELS[kname]["id"], label, out, case["reference"](*args))
         if kname == "flash_attention_backward" and label == HEADLINE[kname]:
             print(f"[kernels] SDPA backends that take {label}: {sdpa_backends(torch, *args[:3])} "
                   "(the first is the library call's)", flush=True)
@@ -866,7 +913,46 @@ def phase_kernels(torch):
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     k1_at_cfg_batch(torch)
-    return rows
+    return rows, k5_at_train_batch(torch)
+
+
+def held_to_mha_reference(torch, kid, label, out, ref):
+    """The normalise-first route against mha_reference on the same inputs: every
+    element within one bf16 step at max |ref|, at most MHA_DIFFERING of the
+    elements differing (the CPU tests' bound; the flash sums put 56-61 % a step
+    off)."""
+    diff = (out.float() - ref.float()).abs()
+    step = 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
+    frac = (diff > 0).float().mean().item()
+    print(f"[kernels] {kid} {label} vs mha_reference: max {diff.max().item() / step:.2f} bf16 steps (tol 1), "
+          f"{frac:.2e} of the elements differ (tol {MHA_DIFFERING:.0e})", flush=True)
+    check(diff.max().item() <= step and frac <= MHA_DIFFERING, f"{kid} {label} departs from mha_reference")
+
+
+def k5_at_train_batch(torch):
+    """K5 at the training path's ds1 batch [28,5824,5x64] (the kernel cases
+    compare a B = 2 slice: the plain backward holds several [B, H, L, L] fp32
+    tensors): kernel and SDPA-backward times beside the bound, finite
+    gradients. Returns the row."""
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, go = (torch.randn(28, 5824, 320, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+    out, lse = A._flash_attention_packed_forward(q, k, v, 5, None, save_lse=True)
+    grads = A.flash_attention_packed_backward(q, k, v, out, lse, go, 5)
+    check(all(bool(torch.isfinite(x).all()) for x in grads), "K5 at [28,5824,5x64] is not finite")
+    ms = time_ms(lambda: A.flash_attention_packed_backward(q, k, v, out, lse, go, 5), 3)
+    hv = lambda x: x.view(28, 5824, 5, 64).transpose(1, 2)
+    leaves = [hv(x).detach().requires_grad_() for x in (q, k, v)]
+    y = torch.nn.functional.scaled_dot_product_attention(*leaves)
+    lib = time_ms(lambda: torch.autograd.grad(y, leaves, hv(go), retain_graph=True), 3)
+    nbytes, flops, peak = attn_work(28, 5, 5824, 5824, 64, backward=True)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[peak]) * 1e3
+    print(f"[kernels] K5 flash_attention_packed_backward ds1 at the training batch [28,5824,5x64] (time only): "
+          f"kernel {ms:.3f} ms, library {lib:.3f} ms, bound {bound:.3f} ms by operations", flush=True)
+    del q, k, v, go, out, lse, grads, leaves, y
+    torch.cuda.empty_cache()
+    return dict(shape="ds1 training batch [28,5824,5x64]", ms=ms, library_ms=lib, bound_ms=bound)
 
 
 def k1_at_cfg_batch(torch):
@@ -1026,13 +1112,18 @@ def kernel_fns():
 
 # the kernels whose wrappers count the launches by the kernel that ran
 # (`.wgmma_launches`, `.narrow_launches`, `.mma_launches`, reported by the C
-# entry): on every path each launch of K1 (D = 64) and K11 (bf16 projections)
+# entry, and `.normalised_launches`, the normalise-first mode): on every path
+# each launch of K1 (D = 64), K11 (bf16 projections), K5 and K13 (bf16 D = 512)
 # takes the wgmma kernel, each of K4 too but the narrow_launches the path
-# implies (the VAE's 3-channel conv_out_time_mix, once per decoder call), and
-# each of K2 and K6 (bf16 everywhere) the tensor-core (mma.sync) kernel
-ROUTED = ("flash_attention_packed", "temporal_conv_1x1", "matmul_bias", "temporal_attention_direct",
-          "temporal_attention_direct_backward")
-ROUTE_NAMES = ("wgmma", "narrow", "mma")
+# implies (the VAE's 3-channel conv_out_time_mix, once per decoder call), each
+# of K3 but CLIP's (the normalise-first mma.sync kernel at D = 80), and each of
+# K2 and K6 (bf16 everywhere) the tensor-core (mma.sync) kernel; K1 and K3 run
+# the normalise-first mode exactly at the sites MAIN_NORMALISED and
+# SD_NORMALISED_PER_UNET count
+ROUTED = ("flash_attention_packed", "flash_attention", "temporal_conv_1x1", "matmul_bias",
+          "temporal_attention_direct", "temporal_attention_direct_backward", "flash_attention_packed_backward",
+          "flash_attention_backward")
+ROUTE_NAMES = ("wgmma", "narrow", "mma", "normalised")
 GN_ROUTES = {"fused": 0, "stream": 0}   # GroupNorm32 calls per route since reset_counts()
 
 
@@ -1075,13 +1166,22 @@ def read_routes():
 ROUTE_COUNTS = {}   # phase -> read_routes() after its run
 
 
-def check_routes(tag, launches, narrow=0):
-    """Every K1 and K11 launch of the run took the wgmma kernel (none the
-    mma.sync tile or an FMA kernel), every K4 launch but `narrow` of them,
-    which took the narrow kernel, and every K2 and K6 launch the tensor-core
-    kernel (none the fp32 CUDA-core one); keeps and returns the route counts."""
+def check_routes(tag, launches, narrow=0, normalised=None):
+    """Every K1, K11, K5 and K13 launch of the run took the wgmma kernel (none
+    the mma.sync tile or an FMA kernel), every K3 launch but the `normalised`
+    ones (CLIP's, on the mma.sync kernel), every K4 launch but `narrow` of
+    them, which took the narrow kernel, and every K2 and K6 launch the
+    tensor-core kernel (none the fp32 CUDA-core one); K1 and K3 ran the
+    normalise-first mode `normalised[name]` times ({kernel: launches}); keeps
+    and returns the route counts."""
     routes = read_routes()
-    want = {name: {"wgmma": launches[name]} for name in ("flash_attention_packed", "matmul_bias")}
+    normalised = normalised or {}
+    want = {name: {"wgmma": launches[name]} for name in ("matmul_bias", "flash_attention_packed_backward",
+                                                          "flash_attention_backward")}
+    want["flash_attention_packed"] = {"wgmma": launches["flash_attention_packed"],
+                                      "normalised": normalised.get("flash_attention_packed", 0)}
+    nf3 = normalised.get("flash_attention", 0)
+    want["flash_attention"] = {"wgmma": launches["flash_attention"] - nf3, "normalised": nf3}
     want["temporal_conv_1x1"] = {"wgmma": launches["temporal_conv_1x1"] - narrow, "narrow": narrow}
     for name in ("temporal_attention_direct", "temporal_attention_direct_backward"):
         want[name] = {"mma": launches[name]}
@@ -1183,8 +1283,8 @@ def run_main_path(torch, pipe, tag, injected):
                                 f"per call {per_call}; no backward)")
     check(all(n == 0 for n in plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
     narrow = MAIN_CALLS["decoder"] * narrow_tconv_sites(pipe.first_stage.decoder)
-    print(f"[{tag}] launches by route {json.dumps(check_routes(tag, launches, narrow))}; GroupNorm calls by "
-          f"route {json.dumps(GN_ROUTES)}", flush=True)
+    print(f"[{tag}] launches by route {json.dumps(check_routes(tag, launches, narrow, MAIN_NORMALISED))}; "
+          f"GroupNorm calls by route {json.dumps(GN_ROUTES)}", flush=True)
     k = args.num_masks
     h, w = hpx // 8, wpx // 8
     fin = res.final_latents
@@ -1311,8 +1411,9 @@ def phase_sd(torch):
     check(launches == expected, f"SD launches {launches}, expected {expected} (modules per call "
                                 f"{per_call}; K2, K4 and the backward kernels never)")
     check(all(n == 0 for n in plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
-    print(f"[sd] launches by route {json.dumps(check_routes('sd', launches))}; GroupNorm calls by route "
-          f"{json.dumps(GN_ROUTES)}", flush=True)
+    normalised = {k: n * SD_CALLS["unet"] for k, n in SD_NORMALISED_PER_UNET.items()}
+    print(f"[sd] launches by route {json.dumps(check_routes('sd', launches, normalised=normalised))}; GroupNorm "
+          f"calls by route {json.dumps(GN_ROUTES)}", flush=True)
     check(C3.conv3x3_same.relays - relays == 2 * per_call["resblock"],
           "the ResBlock conv weights were not re-laid exactly once each")
     k = args.num_masks
@@ -1667,7 +1768,7 @@ def main():
     torch.nn.modules.module.register_module_forward_pre_hook(count_group_norm_route)
     phases = {}
     t0 = time.perf_counter()
-    rows = phase_kernels(torch)
+    rows, k5_train = phase_kernels(torch)
     phases["kernels"] = time.perf_counter() - t0
     for name, fn in (("unet", phase_unet), ("train_grad", phase_train_grad)):
         t0 = time.perf_counter()
@@ -1697,26 +1798,33 @@ def main():
     print(f"[phases] seconds {json.dumps({k: round(v, 1) for k, v in phases.items()})}", flush=True)
 
     kernels = []
+    tags = ("main", "inject", "sd", "train", "ae_train")
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         head = next(r for r in mine if r["shape"] == HEADLINE[name])
-        path_launches = (launches if name in INFERENCE_KERNELS
-                         else ae_launches if name in AE_KERNELS else train_launches)
-        # K1, K2, K4, K6 and K11: the launches of each path by the kernel that ran (checked); the
-        # GroupNorm forward's routes are kernels of their own (K7 + K8, the fused K7+K8)
-        routed = ({tag: ROUTE_COUNTS[tag][name] for tag in ("main", "inject", "sd", "train", "ae_train")}
-                  if name in ROUTED else None)
-        kernels.append(dict(
-            name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
+        if "wrapper" in meta:  # a normalise-first kernel: its wrapper's .normalised_launches in each run
+            runs = {tag: ROUTE_COUNTS[tag][meta["wrapper"]]["normalised"] for tag in tags}
+            runs["main"] = runs["sd" if name == "flash_attention_packed_normalised" else "main"]  # its path
+            routed = None
+        else:
             # the run of its path: inference for K1-K4, K7, K8, K11, K12, diffusion training for
             # K5, K6, K9, K10, autoencoder training for K13
-            launches=path_launches[name],
-            inject_launches=inject_launches[name], sd_launches=sd_launches[name],
-            train_launches=train_launches[name], ae_launches=ae_launches[name],
+            path_launches = (launches if name in INFERENCE_KERNELS
+                             else ae_launches if name in AE_KERNELS else train_launches)
+            runs = dict(main=path_launches[name], inject=inject_launches[name], sd=sd_launches[name],
+                        train=train_launches[name], ae_train=ae_launches[name])
+            # K1, K2, K3, K4, K5, K6, K11 and K13: the launches of each path by the kernel that ran
+            # (checked); the GroupNorm forward's routes are kernels of their own (K7 + K8, the fused K7+K8)
+            routed = {tag: ROUTE_COUNTS[tag][name] for tag in tags} if name in ROUTED else None
+        kernels.append(dict(
+            name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
+            launches=runs["main"], inject_launches=runs["inject"], sd_launches=runs["sd"],
+            train_launches=runs["train"], ae_launches=runs["ae_train"],
             max_abs_err=max(r["max_abs_err"] for r in mine), shape=head["shape"],
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             library_covers=head["library_covers"], routes=routed,
+            **({"train_batch": k5_train} if name == "flash_attention_packed_backward" else {}),
         ))
     print(json.dumps({"kernels": kernels}))
     print(card)

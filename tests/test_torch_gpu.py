@@ -38,7 +38,12 @@ move with every bf16 launch and with no fp32 one, within chip_smoke.py's
 bounds (RMS_TOL["K2"], ["K6"]). The attention kernels sum the softmax
 denominator as the JAX kernel of their site does (K1 at a short site and K3
 without a gradient: the fp32 p; K1 at a long site and K3 under a gradient: the
-rounded p), each held to the plain version with that sum. The GroupNorm forward
+rounded p), each held to the plain version with that sum; at the sites JAX's
+TPU dispatch sends to mha_reference (ops.attention.site_route) the dispatcher
+runs their normalise-first mode (`.normalised_launches`), held to
+mha_reference within one bf16 step and 0.1 % of the elements differing. K5 and
+K13 (bf16 D = 512) run wgmma kernels: `.wgmma_launches` moves with every bf16
+launch. The GroupNorm forward
 takes the fused one-launch kernel or K7 + K8 as ops.norm.group_norm_route
 says, and is bitwise the same from run to run on either.
 """
@@ -330,9 +335,10 @@ def test_small_batched_attention_takes_the_denominator_of_its_site(cuda, b, l, h
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,lk", [(512, 32), (64, 60), (80, 60)])
 def test_flash_attention_bhld_denominator_without_and_with_a_gradient(cuda, d, lk):
-    """K3 at one key tile: without a gradient the fp32 sum (D = 512, the VAE's
-    mid attention, and D = 64 on K1's kernel), with the LSE the rounded sum;
-    D = 80 (CLIP) keeps the rounded sum without a gradient too."""
+    """K3 at one key tile: without a gradient the fp32 sum (_flash_kernel: D =
+    512, the VAE's mid attention, D = 64 on K1's kernel and D = 80), with the
+    LSE the rounded sum. CLIP's D = 80 site takes the normalise-first route
+    from the dispatcher (test_normalise_first_route_holds_to_mha_reference)."""
     bf = torch.bfloat16
     q = _randn(cuda, 153, bf, 2, 3, 100, d, scale=1.5)
     k, v = (_randn(cuda, 154 + i, bf, 2, 3, lk, d, scale=1.5) for i in range(2))
@@ -342,10 +348,59 @@ def test_flash_attention_bhld_denominator_without_and_with_a_gradient(cuda, d, l
         out, lse = A._attention_base2(*blhd, d ** -0.5, with_lse=True, psum_rounded=rounded)
         return out.transpose(1, 2).to(bf), lse
 
-    _denominator_held(A.flash_attention(q, k, v), None, plain, d == 80)
+    _denominator_held(A.flash_attention(q, k, v), None, plain, False)
     out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
     torch.cuda.synchronize()
     _denominator_held(out, lse, plain, True)
+
+
+def _held_to_mha_reference(out, ref):
+    """tests/test_torch_ops.py's bound for the normalise-first route: every
+    element within one bf16 step of mha_reference's at max |ref|, at most
+    0.1 % of the elements differing (the flash sums put 56-61 % a step off)."""
+    assert out.shape == ref.shape and out.dtype == ref.dtype == torch.bfloat16
+    diff = (out.float() - ref.float()).abs()
+    step = 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
+    assert diff.max().item() <= step, (diff.max().item(), step)
+    assert (diff > 0).float().mean().item() <= 1e-3, (diff > 0).float().mean().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,shape", [
+    ("blhd", (28, 640, 77, 5)),    # the SD 2.1 cross-attention's 77 keys (5824 / 1456 queries on the path)
+    ("blhd", (2, 640, 300, 2)),    # more keys than a tile: the two-pass walk
+    ("blhd", (2, 77, 700, 2)),     # Lq < 512 <= Lk
+    ("blhd", (1, 91, 91, 4)),      # one video item: too few folded rows for the tiny-seq kernel
+    ("bhld", (1, 16, 257, 80)),    # CLIP ViT-H on the mma.sync kernel
+    ("bhld", (2, 1, 100, 64)),     # K3 at D = 64 on K1's kernel
+])
+def test_normalise_first_route_holds_to_mha_reference(cuda, layout, shape):
+    """At the sites JAX's TPU dispatch sends to mha_reference, dot_product_attention
+    runs K1 / K3 in the normalise-first mode (their `.normalised_launches` move,
+    bf16 on the tensor cores), held to mha_reference on the card; under a
+    gradient the same sites keep the flash route with its LSE."""
+    bf = torch.bfloat16
+    if layout == "blhd":
+        b, lq, lk, h = shape
+        q = _randn(cuda, 160, bf, b, lq, h, 64, scale=1.5)
+        k, v = (_randn(cuda, 161 + i, bf, b, lk, h, 64, scale=1.5) for i in range(2))
+        fn = A.flash_attention_packed
+    else:
+        b, h, lq, d = shape
+        q, k, v = (_randn(cuda, 163 + i, bf, b, h, lq, d, scale=1.5) for i in range(3))
+        fn = A.flash_attention
+    assert A.site_route(layout, q.shape[0], lq, k.shape[2 if layout == "bhld" else 1]) == "mha_reference"
+    before = fn.launches, fn.normalised_launches
+    out = A.dot_product_attention(q, k, v, layout=layout)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.normalised_launches) == (before[0] + 1, before[1] + 1)
+    _held_to_mha_reference(out, A.mha_reference(q, k, v, layout=layout))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    before = fn.launches, fn.normalised_launches
+    A.dot_product_attention(*leaves, layout=layout).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.normalised_launches) == (before[0] + 1, before[1])
+    assert all(x.grad is not None and bool(torch.isfinite(x.grad).all()) for x in leaves)
 
 
 # D = 512 (wgmma in bf16): Lq off the 64-row tile, Lq != Lk, a key tail off the
@@ -484,10 +539,13 @@ def test_temporal_conv_module_caches_its_k_major_weight_and_takes_the_wgmma_dx(c
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("b,lq,lk,h", [(2, 300, 300, 2), (28, 91, 91, 4), (2, 100, 37, 2), (1, 64, 200, 1)])
+@pytest.mark.parametrize("b,lq,lk,h", [(2, 300, 300, 2), (28, 91, 91, 4), (2, 100, 37, 2), (1, 64, 200, 1),
+                                       (3, 364, 364, 2), (1, 130, 300, 3), (2, 600, 90, 1)])
 def test_flash_attention_packed_backward(cuda, dt, b, lq, lk, h):
-    """K5 against its plain version on the LSE that K1 saved; K1's LSE
-    against the plain LSE."""
+    """K5 against its plain version on the LSE that K1 saved (ragged lengths,
+    Lq != Lk both ways, more rows than a block); K1's LSE against the plain
+    LSE; every bf16 launch on the wgmma kernels (`.wgmma_launches`), no fp32
+    one."""
     dtype = DTYPES[dt]
     q = _randn(cuda, 21, dtype, b, lq, h * 64)
     k, v = (_randn(cuda, s, dtype, b, lk, h * 64) for s in (22, 23))
@@ -495,8 +553,10 @@ def test_flash_attention_packed_backward(cuda, dt, b, lq, lk, h):
     out, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True)
     _, lse_ref = A.flash_attention_packed_reference(q, k, v, h, save_lse=True)
     assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    wg = A.flash_attention_packed_backward.wgmma_launches
     _check(A.flash_attention_packed_backward, A.flash_attention_packed_backward_reference,
            q, k, v, out, lse, g, h, rms_tol=RMS_TOL["K5"])
+    assert A.flash_attention_packed_backward.wgmma_launches == wg + (dtype == torch.bfloat16)
 
 
 # D = 512: Lq off the 16-row tiles, Lq != Lk both ways, the autoencoder step's
@@ -511,7 +571,8 @@ K13_SHAPES = [(2, 1, 100, 100, 512), (1, 1, 130, 77, 512), (1, 1, 72, 200, 512),
 def test_flash_attention_bhld_backward(cuda, dt, b, h, lq, lk, d):
     """K13 against its plain version on the LSE that K3 wrote; K3's LSE
     (wgmma at D = 512, mma.sync at 80 in bf16; FMA in fp32) against the
-    plain LSE."""
+    plain LSE. Every bf16 D = 512 launch runs the wgmma kernels
+    (`.wgmma_launches`), no D = 80 or fp32 one."""
     dtype = DTYPES[dt]
     q = _randn(cuda, 51, dtype, b, h, lq, d)
     k, v = (_randn(cuda, i, dtype, b, h, lk, d) for i in (52, 53))
@@ -519,8 +580,10 @@ def test_flash_attention_bhld_backward(cuda, dt, b, h, lq, lk, d):
     out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
     _, lse_ref = A.flash_attention_reference(q, k, v, save_lse=True)
     assert lse.shape == (b, lq, h) and (lse - lse_ref).abs().max().item() <= LSE_TOL
+    wg = A.flash_attention_backward.wgmma_launches
     _check(A.flash_attention_backward, A.flash_attention_backward_reference, q, k, v, out, lse, g,
            rms_tol=RMS_TOL["K13"])
+    assert A.flash_attention_backward.wgmma_launches == wg + (dtype == torch.bfloat16 and d == 512)
 
 
 @pytest.mark.gpu
@@ -537,9 +600,11 @@ def test_flash_attention_bhld_backward_strided_and_d64(cuda, dt):
     q, k, v, g = (_randn(cuda, i, dtype, 2, 2, 100, 64) for i in (59, 60, 61, 62))
     out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
     k13, k5 = A.flash_attention_backward.launches, A.flash_attention_packed_backward.launches
+    k5_wg = A.flash_attention_packed_backward.wgmma_launches
     got = A.flash_attention_backward(q, k, v, out, lse, g)
     torch.cuda.synchronize()
     assert A.flash_attention_backward.launches == k13 and A.flash_attention_packed_backward.launches == k5 + 1
+    assert A.flash_attention_packed_backward.wgmma_launches == k5_wg + (dtype == torch.bfloat16)
     _close_grads(got, A.flash_attention_backward_reference(q, k, v, out, lse, g), RMS_TOL["K5"])
 
 

@@ -327,7 +327,7 @@ def test_flash_attention_packed_bf16_denominator(route):
         want = jatt.small_batched_attention(_JB(q), _JB(k), _JB(v), interpret=True)
         _holds_to_jax(tatt.small_batched_attention(_TB(q), _TB(k), _TB(v)), want)
         return
-    b, lq, lk, h = 2, 640, 77, 2
+    b, lq, lk, h = 2, 640, 576, 2   # both lengths >= 512: JAX's dispatch runs the packed kernel here
     (q,) = _bf16_inputs(1, (b, lq, h * 64))
     k, v = _bf16_inputs(2, (b, lk, h * 64), (b, lk, h * 64))
     want, lse = jatt._flash_attention_packed_impl(_JB(q), _JB(k), _JB(v), heads=h, save_lse=True,
@@ -336,6 +336,76 @@ def test_flash_attention_packed_bf16_denominator(route):
     _holds_to_jax(tatt.small_batched_attention(blhd(q, lq), blhd(k, lk), blhd(v, lk)).reshape(b, lq, -1), want)
     _, got_lse = tatt.flash_attention_packed_reference(_TB(q), _TB(k), _TB(v), h, save_lse=True)
     assert np.abs(got_lse.numpy() - np.asarray(lse)).max() <= LSE_BF16_TOL
+
+
+# -- the normalise-first route (JAX's mha_reference sites) ----------------------
+
+
+@pytest.mark.parametrize("layout,shape", [
+    ("blhd", (2, 640, 77, 2, 64)),    # the SD 2.1 cross-attention's 77 keys: one key tile
+    ("blhd", (2, 640, 300, 2, 64)),   # keys over several tiles: the two-pass walk
+    ("bhld", (1, 2, 257, 257, 80)),   # CLIP ViT-H's 257 tokens at D = 80
+])
+def test_normalise_first_route_matches_mha_reference(layout, shape):
+    """Where JAX's TPU dispatch sends a site to mha_reference (lengths on both
+    sides of 512, bhld shorter than 512), the port's normalise-first plain
+    version (K1 through small_batched_attention, which takes the route from
+    site_route; K3 with normalise_first) holds to JAX's mha_reference in bf16
+    at _holds_to_jax's bound. The flash sums put 56-61 % of the elements a
+    step off here."""
+    if layout == "blhd":
+        b, lq, lk, h, d = shape
+        q, k, v = _bf16_inputs(lk, (b, lq, h, d), (b, lk, h, d), (b, lk, h, d))
+        assert tatt.site_route("blhd", b, lq, lk) == "mha_reference"
+        got = tatt.small_batched_attention(_TB(q), _TB(k), _TB(v))
+    else:
+        b, h, lq, lk, d = shape
+        q, k, v = _bf16_inputs(lk, (b, h, lq, d), (b, h, lk, d), (b, h, lk, d))
+        assert tatt.site_route("bhld", b, lq, lk) == "mha_reference"
+        got = tatt.flash_attention(_TB(q), _TB(k), _TB(v), normalise_first=True)
+    _holds_to_jax(got, jatt.mha_reference(_JB(q), _JB(k), _JB(v), layout=layout))
+
+
+# every attention site of the four paths at full width (B = 28 is the CFG batch
+# of 14 frames and the training batch of 2 x 14 frames; SD 2.1's 77-token text
+# context; CLIP ViT-H; the VAE's one 512-dim head at 448x832 and in ae_grad's
+# 64x64), then the edges: one video item at the mid level, and 511 / 512
+ROUTE_SITES = [
+    ("blhd", 28, 5824, 5824), ("blhd", 28, 1456, 1456), ("blhd", 28, 364, 364), ("blhd", 28, 91, 91),
+    ("blhd", 28, 5824, 1), ("blhd", 28, 91, 1), ("blhd", 28, 5824, 77), ("blhd", 28, 1456, 77),
+    ("blhd", 28, 364, 77), ("blhd", 28, 91, 77), ("blhd", 2, 5824, 5824),
+    ("bhld", 1, 257, 257), ("bhld", 7, 5824, 5824), ("bhld", 2, 5824, 5824), ("bhld", 2, 64, 64),
+    ("blhd", 1, 91, 91), ("blhd", 1, 91, 77), ("blhd", 2, 91, 91), ("blhd", 28, 16, 16), ("blhd", 3, 37, 37),
+    ("blhd", 2, 511, 511), ("blhd", 2, 512, 512), ("blhd", 2, 512, 511), ("blhd", 2, 511, 512),
+    ("blhd", 1, 600, 77), ("blhd", 2, 77, 600), ("bhld", 1, 511, 511), ("bhld", 1, 512, 512),
+    ("bhld", 1, 512, 511), ("bhld", 2, 5824, 1),
+]
+
+
+@pytest.mark.parametrize("layout,b,lq,lk", ROUTE_SITES)
+def test_site_route_is_jax_tpu_dispatch(monkeypatch, layout, b, lq, lk):
+    """JAX's dot_product_attention with the backend reported as "tpu" and its
+    four targets replaced by recorders (traced by jax.eval_shape: nothing is
+    computed) calls the function the port's site_route names."""
+    called = []
+
+    def recorder(name):
+        def record(q, k, v, *args, **kwargs):
+            called.append(name)
+            return jnp.zeros(q.shape, q.dtype)
+        return record
+
+    for attr, name in (("small_batched_attention", "small_batched"), ("flash_attention_packed", "flash"),
+                       ("flash_attention", "flash"), ("mha_reference", "mha_reference")):
+        monkeypatch.setattr(jatt, attr, recorder(name))
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    h, d = (16, 80) if layout == "bhld" and lq == 257 else (1 if layout == "bhld" else 5, 64)
+    dims = (lambda l: (b, h, l, d)) if layout == "bhld" else (lambda l: (b, l, h, d))
+    spec = lambda l: jax.ShapeDtypeStruct(dims(l), jnp.bfloat16)
+    jax.eval_shape(lambda q, k, v: jatt.dot_product_attention(q, k, v, layout=layout),
+                   spec(lq), spec(lk), spec(lk))
+    assert called == ([] if lk == 1 else [tatt.site_route(layout, b, lq, lk)])
+    assert lk == 1 or tatt.site_route(layout, b, lq, lk) != "one_key"
 
 
 # -- dispatcher ---------------------------------------------------------------

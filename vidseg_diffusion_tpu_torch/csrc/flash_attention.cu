@@ -21,6 +21,17 @@
 // _flash_kernel for K3 without a gradient). Rounding to fp32 is the identity,
 // so the fp32 kernel has no flag.
 //
+// Normalise first (sum mode 2 of the entries; the MODE template argument 2 of
+// flash_fwd_mma_kernel and flash_fwd_wgmma64_nf_kernel): the sites that the JAX
+// package's TPU dispatch sends to no Pallas kernel but to mha_reference
+// (attention.py:75-100, :1623-1644: lengths on both sides of 512, bhld shorter
+// than 512) compute S from the unscaled bf16 q with fp32 accumulation, multiply
+// it by scale * log2(e) in fp32 (the `qscale` of that mode), take the row max m
+// and l = sum exp2(s - m) in fp32, round p = exp2(s - m) / l to bf16, and sum
+// P.V in fp32 with no division after it. m and l come before any p is rounded:
+// from the one key tile where it holds every key, else from a first walk over
+// the key tiles that reads K alone.
+//
 // What bounds it on the H100: at the main-path shapes (ds1 [28, 5824, 5*64],
 // VAE [n, 1, 5824, 512]) the work is ~4*L^2*D flops per (batch, head) with
 // only O(L*D) bytes, far above the card's ops:byte ridge, so it is bound by
@@ -296,7 +307,7 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D, bool SUM_ROUNDED>
+template <int D, int MODE>
 __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -313,6 +324,7 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
   constexpr int NO = D / 8;       // n-tiles of O
   static_assert(D % 16 == 0 && NO % 2 == 0, "head dim");
   constexpr float NEG_INF = -INFINITY;
+  constexpr bool SUM_ROUNDED = MODE == 1, NF = MODE == 2;  // NF: qscale multiplies the fp32 logits
 
   __shared__ __align__(16) __nv_bfloat16 Qs[BQ * DP];
   __shared__ __align__(16) __nv_bfloat16 Ks[BK * DP];
@@ -334,7 +346,8 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
       val = *reinterpret_cast<const uint4*>(qb + (long long)(q0 + r) * qsl + c);
       __nv_bfloat16* x = reinterpret_cast<__nv_bfloat16*>(&val);
 #pragma unroll
-      for (int u = 0; u < 8; ++u) x[u] = __float2bfloat16(__bfloat162float(x[u]) * qscale);
+      for (int u = 0; u < 8; ++u)
+        if (!NF) x[u] = __float2bfloat16(__bfloat162float(x[u]) * qscale);
     }
     *reinterpret_cast<uint4*>(&Qs[r * DP + c]) = val;
   }
@@ -357,6 +370,66 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
   float m_run[2] = {NEG_INF, NEG_INF};
   float l_part[2] = {0.f, 0.f};  // this lane's share of the row denominators
 
+  // S = Q K^T of the key tile in Ks for this warp's 16 rows; normalise first:
+  // times qscale in fp32; keys past Lk masked to -inf
+  auto tile_s = [&](float (&s)[NS][4], int k0) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const __nv_bfloat16* krow = &Ks[(j * 8 + gid) * DP + ks * 16 + tig * 2];
+        mma_bf16_16816(s[j], qf[ks], *reinterpret_cast<const uint32_t*>(krow),
+                       *reinterpret_cast<const uint32_t*>(krow + 8));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (NF) s[j][u] *= qscale;
+        if (k0 + j * 8 + tig * 2 + (u & 1) >= Lk) s[j][u] = NEG_INF;
+      }
+  };
+  if constexpr (NF) {
+    // the first walk: K alone, the row max and the fp32 sum of exp2(s - m)
+    for (int k0 = 0; k0 < Lk; k0 += BK) {
+      __syncthreads();
+      for (int e = tid; e < BK * V8; e += 128) {
+        const int r = e / V8, c = (e % V8) * 8;
+        uint4 kv = make_uint4(0, 0, 0, 0);
+        if (k0 + r < Lk) kv = *reinterpret_cast<const uint4*>(kb + (long long)(k0 + r) * ksl + c);
+        *reinterpret_cast<uint4*>(&Ks[r * DP + c]) = kv;
+      }
+      __syncthreads();
+      float s[NS][4];
+      tile_s(s, k0);
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) mx[u >> 1] = fmaxf(mx[u >> 1], s[j][u]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m_run[i], mx[i]);  // finite: key k0 is live
+        l_part[i] *= exp2f(m_run[i] - m_new);
+        m_run[i] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) l_part[u >> 1] += exp2f(s[j][u] - m_run[u >> 1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // the whole row's sum in every lane of its quad
+      l_part[i] += __shfl_xor_sync(0xffffffffu, l_part[i], 1);
+      l_part[i] += __shfl_xor_sync(0xffffffffu, l_part[i], 2);
+    }
+  }
+
   for (int k0 = 0; k0 < Lk; k0 += BK) {
     __syncthreads();  // every warp is done reading the previous K/V tile
     for (int e = tid; e < BK * V8; e += 128) {
@@ -372,55 +445,48 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
     __syncthreads();
 
     float s[NS][4];
+    tile_s(s, k0);
+    // s[j][0..1] are row r0, s[j][2..3] row r0 + 8, at key columns
+    // k0 + 8j + 2 tig + {0, 1}
+    if constexpr (NF) {  // p = exp2(s - m) / l (times the reciprocal), rounded; nothing to rescale
+      const float inv[2] = {1.f / l_part[0], 1.f / l_part[1]};
 #pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
+        for (int u = 0; u < 4; ++u) s[j][u] = exp2f(s[j][u] - m_run[u >> 1]) * inv[u >> 1];
+    } else {  // online softmax on the accumulators
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) mx[u >> 1] = fmaxf(mx[u >> 1], s[j][u]);
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m_run[i], mx[i]);  // finite: key k0 is live
+        alpha[i] = exp2f(m_run[i] - m_new);          // 0 on the first tile
+        m_run[i] = m_new;
+        l_part[i] *= alpha[i];
+      }
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
-        const __nv_bfloat16* krow = &Ks[(j * 8 + gid) * DP + ks * 16 + tig * 2];
-        mma_bf16_16816(s[j], qf[ks], *reinterpret_cast<const uint32_t*>(krow),
-                       *reinterpret_cast<const uint32_t*>(krow + 8));
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float e = exp2f(s[j][u] - m_run[u >> 1]);
+          const float p = round_to<__nv_bfloat16>(e);
+          s[j][u] = p;
+          l_part[u >> 1] += SUM_ROUNDED ? p : e;
+        }
       }
-    }
-
-    // online softmax on the accumulators: s[j][0..1] are row r0, s[j][2..3]
-    // row r0 + 8, at key columns k0 + 8j + 2 tig + {0, 1}
-    float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (k0 + j * 8 + tig * 2 + (u & 1) >= Lk) s[j][u] = NEG_INF;
-        mx[u >> 1] = fmaxf(mx[u >> 1], s[j][u]);
+      for (int n = 0; n < NO; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
       }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_run[i], mx[i]);  // finite: key k0 is live
-      alpha[i] = exp2f(m_run[i] - m_new);          // 0 on the first tile
-      m_run[i] = m_new;
-      l_part[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float e = exp2f(s[j][u] - m_run[u >> 1]);
-        const float p = round_to<__nv_bfloat16>(e);
-        s[j][u] = p;
-        l_part[u >> 1] += SUM_ROUNDED ? p : e;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
     }
 
     // acc += P V, 16 keys per k-step
@@ -443,16 +509,18 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
     }
   }
 
+  if constexpr (!NF) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_part[i] += __shfl_xor_sync(0xffffffffu, l_part[i], 1);
-    l_part[i] += __shfl_xor_sync(0xffffffffu, l_part[i], 2);
+    for (int i = 0; i < 2; ++i) {
+      l_part[i] += __shfl_xor_sync(0xffffffffu, l_part[i], 1);
+      l_part[i] += __shfl_xor_sync(0xffffffffu, l_part[i], 2);
+    }
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + r0 + 8 * i;
     if (row >= Lq) continue;
-    const float l = l_part[i];
+    const float l = NF ? 1.f : l_part[i];  // normalise first: p was divided already
     if (lse != nullptr && tig == 0) lse[((long long)b * Lq + row) * H + h] = m_run[i] + log2f(l);
     __nv_bfloat16* orow = ob + (long long)row * osl;
 #pragma unroll
@@ -475,13 +543,13 @@ bool flash_bf16_rows_ok(const void* q, const void* k, const void* v, const void*
   return true;
 }
 
-template <int D, bool SUM_ROUNDED>
+template <int D, int MODE>
 int launch_flash_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                      int H, int Lq, int Lk, const long long* st, float qscale,
                      cudaStream_t stream) {
   if (!flash_bf16_rows_ok(q, k, v, o, st)) return kErrBadArgument;
   dim3 grid((Lq + 63) / 64, B * H);
-  flash_fwd_mma_kernel<D, SUM_ROUNDED><<<grid, 128, 0, stream>>>(
+  flash_fwd_mma_kernel<D, MODE><<<grid, 128, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
@@ -1010,32 +1078,234 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB) flash_fwd_wgmma64_kernel(
   }
 }
 
-// q, k, v [B, L, H, 64] through their (batch, row, head) strides as rank-4
-// tiled maps (64 d x `rows` rows a box), o written 16 bytes a thread.
+// the maps of the D = 64 kernels: q, k, v [B, L, H, 64] through their (batch,
+// row, head) strides, boxes of 64 d x `rows` rows (Q: bq, K and V: bk)
+inline int flash64_maps(const void* q, const void* k, const void* v, int B, int H, int Lq, int Lk,
+                        const long long* st, int bq, int bk, CUtensorMap* maps) {
+  const void* bases[3] = {q, k, v};
+  const int rows[3] = {Lq, Lk, Lk}, box_rows[3] = {bq, bk, bk};
+  for (int i = 0; i < 3; ++i) {
+    const long long* s = st + 3 * i;
+    const cuuint64_t dims[4] = {64, (cuuint64_t)rows[i], (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)s[1] * 2, (cuuint64_t)s[2] * 2, (cuuint64_t)s[0] * 2};
+    const cuuint32_t box[4] = {64, (cuuint32_t)box_rows[i], 1, 1};
+    if (const int rc = wgmma_tiled_map(bases[i], 4, dims, strides, box, &maps[i])) return rc;
+  }
+  return 0;
+}
+
+inline bool flash64_rows_ok(const void* q, const void* k, const void* v, const void* o, const long long* st) {
+  return flash_bf16_rows_ok(q, k, v, o, st) && reinterpret_cast<uintptr_t>(o) % 16 == 0 && st[9] % 8 == 0 &&
+         st[10] % 8 == 0 && st[11] % 8 == 0;
+}
+
+// q, k, v through rank-4 tiled maps (flash64_maps), o written 16 bytes a thread.
 template <class C, bool SUM_ROUNDED>
 int launch_flash_wgmma64_cfg(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                              int Lq, int Lk, const long long* st, float qscale, cudaStream_t stream) {
-  if (!flash_bf16_rows_ok(q, k, v, o, st) || reinterpret_cast<uintptr_t>(o) % 16 || st[9] % 8 ||
-      st[10] % 8 || st[11] % 8)
-    return kErrBadArgument;
+  if (!flash64_rows_ok(q, k, v, o, st)) return kErrBadArgument;
   // more than 48 KB of shared memory is opted into once per process
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_wgmma64_kernel<C, SUM_ROUNDED>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap maps[3];
-  const void* bases[3] = {q, k, v};
-  const int rows[3] = {Lq, Lk, Lk}, box_rows[3] = {C::BQ, C::BK, C::BK};
-  for (int i = 0; i < 3; ++i) {
-    const long long* s = st + 3 * i;
-    const cuuint64_t dims[4] = {(cuuint64_t)C::D, (cuuint64_t)rows[i], (cuuint64_t)H, (cuuint64_t)B};
-    const cuuint64_t strides[3] = {(cuuint64_t)s[1] * 2, (cuuint64_t)s[2] * 2, (cuuint64_t)s[0] * 2};
-    const cuuint32_t box[4] = {64, (cuuint32_t)box_rows[i], 1, 1};
-    if (const int rc = wgmma_tiled_map(bases[i], 4, dims, strides, box, &maps[i])) return rc;
-  }
+  if (const int rc = flash64_maps(q, k, v, B, H, Lq, Lk, st, C::BQ, C::BK, maps)) return rc;
   dim3 grid((Lq + C::BQ - 1) / C::BQ, B * H);
   flash_fwd_wgmma64_kernel<C, SUM_ROUNDED><<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk, st[9], st[10], st[11],
       qscale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at D = 64 in the normalise-first mode (the SD 2.1 cross-attention's 77
+// keys at 5824 and 1456 queries, K3 at D = 64 shorter than 512): one consumer
+// warpgroup of 64 query rows and a producer warp, 128-key tiles, so the 77 keys
+// are one tile and m and l come from it before any p is rounded. With more keys
+// than a tile the producer walks the key tiles twice: K alone first (the row
+// max and the fp32 sum, rescaled online), then K and V. Per tile S = Q K^T
+// from the unscaled q (4 x m64n128k16), times qscale in fp32, p = exp2(s - m)
+// times 1 / l in fp32 rounded to bf16 into the A fragments (the product with
+// the correctly rounded reciprocal is within one fp32 ulp of the quotient; a
+// division per score tripled the kernel's time), O += P V (8 x m64n64k16); the
+// output is O rounded once. Three blocks share an SM, so one block's loads and
+// epilogue overlap the others' products.
+using F64Nf = F64<1, 128, 2, 3>;
+
+__global__ void __launch_bounds__(F64Nf::THREADS, F64Nf::MINB) flash_fwd_wgmma64_nf_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk,
+    long long osb, long long osl, long long osh, float qscale) {
+  using C = F64Nf;
+  constexpr int BK = C::BK, STAGES = C::STAGES, KV_BYTES = C::KV_BYTES, STAGE_BYTES = C::STAGE_BYTES;
+  constexpr int NS = BK / 2;
+  constexpr float NEG_INF = -INFINITY;
+  extern __shared__ unsigned char flash_smem[];
+  const uint32_t sq = smem_u32(smem_align_1024(flash_smem));
+  const uint32_t sring = sq + C::Q_BYTES;
+  const uint32_t q_bar = sq + C::BAR_OFFSET, full_bar = q_bar + 8, empty_bar = full_bar + 8 * STAGES;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * 64;
+  const int ntiles = (Lk + BK - 1) / BK;
+  const int first = ntiles > 1 ? ntiles : 0;  // loads of the first walk (K alone)
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // the producer warp
+    if (tid == 128) {
+      mbar_expect_tx(q_bar, C::Q_BYTES);
+      tma_load_4d(sq, &qmap, q_bar, 0, q0, h, b);
+      for (int i = 0; i < first + ntiles; ++i) {
+        const int stage = i % STAGES, j = i < first ? i : i - first;
+        if (i >= STAGES) mbar_wait(empty_bar + 8 * stage, ((i / STAGES) + 1) & 1);
+        const uint32_t sk = sring + stage * STAGE_BYTES, bar = full_bar + 8 * stage;
+        mbar_expect_tx(bar, i < first ? KV_BYTES : STAGE_BYTES);
+        tma_load_4d(sk, &kmap, bar, 0, j * BK, h, b);
+        if (i >= first) tma_load_4d(sk + KV_BYTES, &vmap, bar, 0, j * BK, h, b);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  float s[NS];
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF};
+  float l_run[2] = {0.f, 0.f};
+  mbar_wait(q_bar, 0);
+
+  // S of load i in s: times qscale, keys past Lk at -inf; its stage stays full
+  auto tile_s = [&](int i, int j) {
+    const int stage = i % STAGES;
+    mbar_wait(full_bar + 8 * stage, (i / STAGES) & 1);
+    const uint32_t sk = sring + stage * STAGE_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n128k16_ss(s, wgmma_desc(sq + kk * 32, 16, 1024), wgmma_desc(sk + kk * 32, 16, 1024), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(s);
+#pragma unroll
+    for (int e = 0; e < NS; ++e) {
+      s[e] *= qscale;
+      if (j * BK + (e >> 2) * 8 + tig * 2 + (e & 1) >= Lk) s[e] = NEG_INF;
+    }
+  };
+  // the rows' max and fp32 sum of exp2(s - m) over the tile in s, merged
+  // online; with `keep` s is left holding exp2(s - m)
+  auto accumulate_ml = [&](bool keep) {
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int e = 0; e < NS; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);  // finite: the tile's first key is live
+      l_run[r] *= exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int e = 0; e < NS; ++e) {
+      const float x = exp2f(s[e] - m_run[(e >> 1) & 1]);
+      l_run[(e >> 1) & 1] += x;
+      if (keep) s[e] = x;
+    }
+  };
+  auto finish_l = [&]() {  // the whole row's sum in every lane of its quad
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    }
+  };
+
+  for (int i = 0; i < first; ++i) {  // the first walk: m and l
+    tile_s(i, i);
+    if (tid == 0) mbar_arrive(empty_bar + 8 * (i % STAGES));
+    accumulate_ml(false);
+  }
+  if (first) finish_l();
+  for (int j = 0; j < ntiles; ++j) {
+    const int i = first + j, stage = i % STAGES;
+    tile_s(i, j);
+    if (first) {
+#pragma unroll
+      for (int e = 0; e < NS; ++e) s[e] = exp2f(s[e] - m_run[(e >> 1) & 1]);
+    } else {  // one tile holds every key
+      accumulate_ml(true);
+      finish_l();
+    }
+    const float inv[2] = {1.f / l_run[0], 1.f / l_run[1]};
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const int e = 8 * kk + 2 * qq, r = qq & 1;
+        pa[kk][qq] = pack_bf16x2(s[e] * inv[r], s[e + 1] * inv[r]);
+      }
+    const uint32_t sv = sring + stage * STAGE_BYTES + KV_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n64k16_rs_tb(acc, pa[kk], wgmma_desc(sv + kk * 16 * 128, KV_BYTES, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(acc);
+    if (tid == 0) mbar_arrive(empty_bar + 8 * stage);
+  }
+
+  // O rounded once into the Q rows (swizzled 16-byte chunks), then 16-byte stores
+  const int r_lo = warp * 16 + gid;
+  bar_sync(1, 128);  // every warp is done with Q
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t v = pack_bf16x2(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sq + sw128(r_lo + 8 * r, n) + tig * 4), "r"(v) : "memory");
+    }
+  bar_sync(1, 128);
+  __nv_bfloat16* ob = o + b * osb + h * osh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int idx = tid + 128 * i, row = idx >> 3, c = idx & 7;
+    if (q0 + row >= Lq) continue;
+    uint4 val;
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(val.x), "=r"(val.y), "=r"(val.z), "=r"(val.w)
+                 : "r"(sq + sw128(row, c))
+                 : "memory");
+    *reinterpret_cast<uint4*>(ob + (long long)(q0 + row) * osl + c * 8) = val;
+  }
+}
+
+int launch_flash_wgmma64_nf(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk,
+                            const long long* st, float qscale, cudaStream_t stream) {
+  using C = F64Nf;
+  if (!flash64_rows_ok(q, k, v, o, st)) return kErrBadArgument;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wgmma64_nf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap maps[3];
+  if (const int rc = flash64_maps(q, k, v, B, H, Lq, Lk, st, 64, C::BK, maps)) return rc;
+  dim3 grid((Lq + 63) / 64, B * H);
+  flash_fwd_wgmma64_nf_kernel<<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), H, Lq, Lk, st[9], st[10], st[11], qscale);
   return (int)cudaGetLastError();
 }
 
@@ -1057,6 +1327,16 @@ int launch_flash_wgmma64(const void* q, const void* k, const void* v, void* o, f
   return launch_flash_wgmma64_cfg<F64Short, SUM_ROUNDED>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
 }
 
+// bf16 D = 64 by sum mode: the flash kernel with the fp32 (0) or the rounded
+// (1) sum, or the normalise-first kernel (2)
+inline int launch_flash_wgmma64_mode(int mode, const void* q, const void* k, const void* v, void* o, float* lse,
+                                     int B, int H, int Lq, int Lk, const long long* st, float qscale,
+                                     cudaStream_t stream) {
+  if (mode == 2) return launch_flash_wgmma64_nf(q, k, v, o, B, H, Lq, Lk, st, qscale, stream);
+  return mode ? launch_flash_wgmma64<true>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream)
+              : launch_flash_wgmma64<false>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
+}
+
 inline bool flash_sizes_ok(int B, int H, int Lq, int Lk) {
   return B > 0 && H > 0 && Lq > 0 && Lk > 0 && B * H <= 65535;  // the grid's y limit
 }
@@ -1067,22 +1347,23 @@ inline bool flash_sizes_ok(int B, int H, int Lq, int Lk) {
 // the head-dim stride must be 1. bf16 runs the D = 64 wgmma kernel (16-byte
 // aligned rows, or kErrBadArgument), fp32 the FMA kernel.
 // lse: NULL, or fp32 [B, Lq, H] contiguous for the base-2 logsumexp.
-// psum_rounded: 1, the denominator sums the p rounded to bf16; 0, the fp32 p
-// (no effect in fp32).
+// sum_mode: 1, the denominator sums the p rounded to bf16; 0, the fp32 p; 2,
+// normalise first (qscale then multiplies the fp32 logits; no lse). No effect
+// in fp32.
 // route (or NULL) receives the kernel that ran: 2 wgmma, 1 mma.sync, 0 fp32 FMAs.
 extern "C" int vs_flash_attention_packed(int dtype, int D, const void* q, const void* k,
                                          const void* v, void* o, void* lse, int B, int H,
                                          int Lq, int Lk, const long long* strides,
-                                         float qscale, int psum_rounded, int* route, void* stream) {
+                                         float qscale, int sum_mode, int* route, void* stream) {
   if (D != 64) return vs::kErrUnsupported;  // every spatial UNet site has 64-dim heads
-  if (!vs::flash_sizes_ok(B, H, Lq, Lk)) return vs::kErrBadArgument;
+  if (!vs::flash_sizes_ok(B, H, Lq, Lk) || sum_mode < 0 || sum_mode > 2 || (sum_mode == 2 && lse != nullptr))
+    return vs::kErrBadArgument;
   float* l = static_cast<float*>(lse);
   int r = -1, rc = vs::kErrUnsupported;
   if (dtype == vs::kBFloat16) {
     r = 2;
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    rc = psum_rounded ? vs::launch_flash_wgmma64<true>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s)
-                      : vs::launch_flash_wgmma64<false>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
+    rc = vs::launch_flash_wgmma64_mode(sum_mode, q, k, v, o, l, B, H, Lq, Lk, strides, qscale,
+                                       static_cast<cudaStream_t>(stream));
   } else if (dtype == vs::kFloat32) {
     r = 0;
     rc = vs::flash_entry_fp32(D, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, stream);
@@ -1091,14 +1372,15 @@ extern "C" int vs_flash_attention_packed(int dtype, int D, const void* q, const 
   return rc;
 }
 
-// D in {64, 80, 512}: bf16 runs wgmma at 64 and 512, mma.sync at 80. lse:
-// NULL (inference), or fp32 [B, Lq, H] contiguous under a gradient.
-// psum_rounded and route as above.
+// D in {64, 80, 512}: bf16 runs wgmma at 64 and 512, mma.sync at 80; the
+// normalise-first mode at 64 and 80. lse: NULL (inference), or fp32 [B, Lq, H]
+// contiguous under a gradient. sum_mode and route as above.
 extern "C" int vs_flash_attention_bhld(int dtype, int D, const void* q, const void* k,
                                        const void* v, void* o, void* lse, int B, int H, int Lq,
-                                       int Lk, const long long* strides, float qscale, int psum_rounded,
+                                       int Lk, const long long* strides, float qscale, int sum_mode,
                                        int* route, void* stream) {
-  if (!vs::flash_sizes_ok(B, H, Lq, Lk)) return vs::kErrBadArgument;
+  if (!vs::flash_sizes_ok(B, H, Lq, Lk) || sum_mode < 0 || sum_mode > 2 || (sum_mode == 2 && lse != nullptr))
+    return vs::kErrBadArgument;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   int r = -1, rc = vs::kErrUnsupported;
@@ -1106,18 +1388,19 @@ extern "C" int vs_flash_attention_bhld(int dtype, int D, const void* q, const vo
     switch (D) {
       case 64:
         r = 2;
-        rc = psum_rounded ? vs::launch_flash_wgmma64<true>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s)
-                          : vs::launch_flash_wgmma64<false>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
+        rc = vs::launch_flash_wgmma64_mode(sum_mode, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
         break;
       case 80:
         r = 1;
-        rc = psum_rounded ? vs::launch_flash_mma<80, true>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s)
-                          : vs::launch_flash_mma<80, false>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
+        rc = sum_mode == 2 ? vs::launch_flash_mma<80, 2>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s)
+             : sum_mode  ? vs::launch_flash_mma<80, 1>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s)
+                         : vs::launch_flash_mma<80, 0>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
         break;
-      case 512:
+      case 512:  // no normalise-first mode: no path runs a bf16 D = 512 site shorter than 512
         r = 2;
-        rc = psum_rounded ? vs::launch_flash_wgmma512<true>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s)
-                          : vs::launch_flash_wgmma512<false>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
+        rc = sum_mode == 2 ? vs::kErrUnsupported
+             : sum_mode  ? vs::launch_flash_wgmma512<true>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s)
+                         : vs::launch_flash_wgmma512<false>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
         break;
       default:
         break;

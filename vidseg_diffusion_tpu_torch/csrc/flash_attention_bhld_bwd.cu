@@ -19,28 +19,20 @@
 // dK) on O(L D) bytes, so arithmetic: at the autoencoder step's [2, 1, 5824,
 // 512] 3.47e11 flops, 0.351 ms at the bf16 tensor-core peak.
 //
-// Design. K5 keeps a warp's 16 rows x 64 accumulators in registers; at D = 512
-// a dk + dv tile of 64 keys would be 256 KB, more than an SM's shared memory.
-// Here the head dim is spread over the block's eight warps instead, and the
-// row tiles are 16 rows (one mma row tile). Two kernels, as on the TPU, each
-// the only writer of its outputs (no atomics: the same result every run):
-// - dq: a block owns 16 query rows (qf and g staged once, delta = rowsum(g o)
-//   written for the second kernel) and walks the keys in tiles of 64;
-// - dk/dv: a block owns 16 keys and walks the queries in tiles of 64.
-// Per tile the 16 x 64 S and dP tiles are 16 products of one mma n-tile each
-// (contracted over D), two per warp, written to shared memory in fp32; all
-// threads then form p and ds elementwise (rounded to the input dtype, the JAX
-// rounding points); then each warp multiplies them into its own D / 8 output
-// columns (dq += ds k; dv += p^T g, dk += ds^T qf). bf16 runs on the tensor
-// cores (mma.sync.m16n8k16, fp32 accumulate; the row-major operands of the
-// second products come through ldmatrix.trans); fp32 runs FMAs on the same
-// tiling (the card-vs-CPU checks). S and dP are computed in both kernels
-// (14 L^2 D flops in all), every block re-reads the other side's tiles from
-// L2, and copies do not overlap the products yet: a simple kernel that is
-// right first; a wgmma / TMA design is later work.
+// Design. Two kernels, as on the TPU, each the only writer of its outputs (no
+// atomics: the same result every run). bf16 at D = 512 runs on wgmma fed by
+// TMA (below, before the fp32 kernels): at D = 512 a dk + dv tile of 64 keys
+// would be 256 KB of fp32, every register of an SM, so the dk/dv kernel splits
+// the head dim of its outputs over two blocks and recomputes S^T and dP^T for
+// each. bf16 at D = 80 (CLIP, which no path trains) keeps the simple mma.sync
+// kernels that follow: a block owns 16 rows (one mma row tile), the 16 x 64 S
+// and dP tiles are parked in shared memory as fp32, and the head dim is spread
+// over eight warps; the row-major operands of the second products come through
+// ldmatrix.trans. fp32 runs FMAs on the same tiling (the card-vs-CPU checks).
 #include <string.h>
 
 #include "common.cuh"
+#include "wgmma_tile.cuh"
 
 namespace vs {
 namespace k13 {
@@ -376,6 +368,507 @@ int launch_mma(const void* q, const void* k, const void* v, const void* o, const
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at D = 512 on wgmma fed by TMA. A 64-row tile of a 512-dim operand is
+// eight 64 x 64 panels (8 KB each, 128-byte rows under the 128-byte swizzle);
+// q, k, v and g are read in place through rank-4 tiled maps over their (batch,
+// row, head) strides; rows past Lq or Lk arrive as zeros. Each block is two
+// warpgroups of the same 64 rows (256 threads: a producer warp of its own would
+// leave ptxas 168 registers a thread, and a warpgroup's 64 x 256 fp32 output is
+// 128 of them) and a ring of STAGES panel stages (`full` / `empty` mbarriers):
+// thread 0 asks TMA for the first STAGES loads, and refills a stage with the
+// load STAGES later once both warpgroups have handed it back.
+// - dq (bhld_bwd_dq_wgmma_kernel): a block owns 64 query rows, their q (scaled
+//   and rounded in place once) and g resident (128 KB). Per key tile of 64:
+//   phase A walks the eight (K, V) panel pairs, warpgroup 0 contracting S = qf
+//   K^T and warpgroup 1 dP = g V^T over the 512 columns (32 x m64n64k16 each);
+//   warpgroup 0 turns S into p = exp2(s - lse) (0 past Lk) and hands it to
+//   warpgroup 1 in fp32 through shared memory, which forms ds = p (dp - delta),
+//   rounds it into the register A operand of dQ += ds K and hands that back;
+//   phase B walks the eight K panels again, each warpgroup multiplying ds into
+//   its four 64-column panels of dQ (alternate panels: both work on every pair
+//   of stages). The 64 x 512 fp32 dQ tile is 128 registers a thread in each
+//   warpgroup. S, dP and dQ: 3 L^2 D flops a pair, nothing recomputed.
+// - dk/dv (bhld_bwd_dkv_wgmma_kernel): a block owns 64 keys, their K and V
+//   resident (128 KB), and one half of the head dim for its outputs: dV and dK
+//   of 64 keys x 512 would be 256 KB of fp32, every register of an SM, so each
+//   of the two warpgroups holds one 64 x 256 output (128 registers a thread),
+//   warpgroup 0 dV, warpgroup 1 dK. Per query tile of 64: phase A walks the
+//   eight (q, g) panel pairs, warpgroup 0 contracting S^T = K qf^T (scaling each
+//   q panel in place first) and warpgroup 1 dP^T = V g^T; warpgroup 0 forms p^T
+//   = exp2(s^T - lse) and hands it to warpgroup 1, which forms ds^T; phase B
+//   walks the four (q, g) panels of the block's half again (the first with the
+//   tile's LSE and delta, a [2][64] fp32 box of the scratch): dV += round(p^T) g
+//   and dK += ds^T qf. S^T and dP^T are recomputed for each half: the dq
+//   kernel runs 3 of the L x L x D products a (batch, head) and the dk/dv
+//   kernel 2 x (2 + 1), 9 in all, 18 L^2 D flops against the 10 L^2 D of the
+//   five products the math needs (PERF.md writes both beside the bound).
+// Ragged rows: a query row past Lq has zero q and g and adds nothing; a key past
+// Lk is zero in K and V, and the dq kernel masks its p to 0.
+namespace w512 {
+constexpr int D = 512, PANELS = 8, THREADS = 256, STAGES = 4;
+constexpr int PANEL = 64 * 128;                 // 64 rows x 64 d bf16
+constexpr int TILE = PANELS * PANEL;            // 64 rows x 512
+constexpr int XP_BYTES = 32 * 128 * 4;          // a warpgroup's 64 x 64 fp32 tile, thread-major
+constexpr int XA_BYTES = 16 * 128 * 4;          // its register A operand (4 k16 steps)
+// dq: q, g resident; stages of a K and a V panel; the p and ds hand-overs; rows
+constexpr int DQ_STAGE = 2 * PANEL;
+constexpr int DQ_RING = 2 * TILE, DQ_XP = DQ_RING + STAGES * DQ_STAGE, DQ_XA = DQ_XP + XP_BYTES;
+constexpr int DQ_ROWS = DQ_XA + XA_BYTES, DQ_BAR = DQ_ROWS + 64 * 8;
+constexpr int DQ_SMEM = DQ_BAR + 8 * (1 + 2 * STAGES) + 1024;
+// dk/dv: K, V resident; stages of a q and a g panel and a slot for the rows' LSE and delta
+constexpr int DKV_STAGE = 2 * PANEL + 1024;
+constexpr int DKV_RING = 2 * TILE, DKV_XP = DKV_RING + STAGES * DKV_STAGE, DKV_BAR = DKV_XP + XP_BYTES;
+constexpr int DKV_SMEM = DKV_BAR + 8 * (1 + 2 * STAGES) + 1024;
+static_assert(DQ_SMEM <= 232448 && DKV_SMEM <= 232448, "shared memory");
+}  // namespace w512
+
+__device__ __forceinline__ void ld_v4(uint32_t addr, uint4& v) {
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+}
+
+// `n` 16-byte chunks from `addr` on times `mul` (a bf16 value: the rounded q
+// prescale), rounded to bf16 in place, the `i`-th of `stride` threads; bf16x2
+// products round once, as JAX's fp32 product rounded to bf16 does (K5's
+// bw_scale_chunks)
+__device__ __forceinline__ void scale_chunks(uint32_t addr, int n, int i, int stride, float mul) {
+  const __nv_bfloat162 m2 = __float2bfloat162_rn(mul);
+  for (int c = i; c < n; c += stride) {
+    uint4 val;
+    ld_v4(addr + 16 * c, val);
+    __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) x[u] = __hmul2(x[u], m2);
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr + 16 * c), "r"(val.x), "r"(val.y),
+                 "r"(val.z), "r"(val.w)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) a[kk][q] = pack(x[8 * kk + 2 * q], x[8 * kk + 2 * q + 1]);
+}
+
+// acc (64 rows x 64 columns a panel, rows 16 warp + gid (+ 8)) times `mul` to
+// rows row0.. of dst (`rows` of them exist) at the columns col(m) of panel m
+template <class Col>
+__device__ __forceinline__ void store_panels(const float (&acc)[4][32], float mul, bf16* dst, long long row_stride,
+                                             int row0, int rows, const Col& col, int t) {
+  const int warp = t >> 5, gid = (t & 31) >> 2, tig = t & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + warp * 16 + gid + 8 * r;
+    if (row >= rows) continue;
+    bf16* drow = dst + (long long)row * row_stride;
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<uint32_t*>(drow + col(m) + 8 * n + 2 * tig) =
+            pack(acc[m][4 * n + 2 * r] * mul, acc[m][4 * n + 2 * r + 1] * mul);
+  }
+}
+
+__global__ void __launch_bounds__(w512::THREADS, 1) bhld_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap, const bf16* __restrict__ o,
+    const float* __restrict__ lse, float* __restrict__ scratch, bf16* __restrict__ dq, int H, int Lq, int Lk,
+    int lq_pad, long long osb, long long osl, long long osh, long long dqsb, long long dqsl, long long dqsh,
+    float qscale, float scale) {
+  using namespace w512;
+  extern __shared__ unsigned char k13_smem[];
+  const uint32_t base = smem_u32(smem_align_1024(k13_smem));
+  const uint32_t sq = base, sg = base + TILE, sring = base + DQ_RING;
+  const uint32_t sxp = base + DQ_XP, sxa = base + DQ_XA, srows = base + DQ_ROWS;
+  const uint32_t res_bar = base + DQ_BAR, full_bar = res_bar + 8, empty_bar = full_bar + 8 * STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * 64;
+  const int ntiles = (Lk + 63) / 64;
+
+  if (tid == 0) {
+    mbar_init(res_bar, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // load i of the ring: per key tile (K, V) panels 0-7, then K panels 0-7 again
+  const int nloads = 16 * ntiles;
+  auto issue = [&](int i) {
+    const int stage = i % STAGES, j = i / 16, p = i % 8;
+    const uint32_t st = sring + stage * DQ_STAGE, bar = full_bar + 8 * stage;
+    const bool with_v = (i % 16) < 8;
+    mbar_expect_tx(bar, with_v ? 2 * PANEL : PANEL);
+    tma_load_4d(st, &kmap, bar, 64 * p, 64 * j, h, b);
+    if (with_v) tma_load_4d(st + PANEL, &vmap, bar, 64 * p, 64 * j, h, b);
+  };
+  // this warpgroup is done with load i; thread 0 refills its stage with load
+  // i + STAGES once the other warpgroup is too
+  auto release = [&](int i) {
+    const int stage = i % STAGES;
+    if ((tid & 127) == 0) mbar_arrive(empty_bar + 8 * stage);
+    if (tid == 0 && i + STAGES < nloads) {
+      mbar_wait(empty_bar + 8 * stage, (i / STAGES) & 1);
+      issue(i + STAGES);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(res_bar, 2 * TILE);
+    for (int p = 0; p < PANELS; ++p) {
+      tma_load_4d(sq + p * PANEL, &qmap, res_bar, 64 * p, q0, h, b);
+      tma_load_4d(sg + p * PANEL, &gmap, res_bar, 64 * p, q0, h, b);
+    }
+    for (int i = 0; i < STAGES && i < nloads; ++i) issue(i);
+  }
+
+  const int t = tid & 127, warp = t >> 5, lane = t & 31, gid = lane >> 2, tig = lane & 3;
+  mbar_wait(res_bar, 0);
+  scale_chunks(sq, TILE / 16, tid, 256, qscale);
+  fence_proxy_async();
+  {  // delta = rowsum(g o): four threads a row, 128 elements each; g from shared memory
+    const int r = tid >> 2, quarter = tid & 3, row = q0 + r;
+    float acc = 0.f;
+    if (row < Lq) {
+      const bf16* orow = o + b * osb + h * osh + (long long)row * osl;
+#pragma unroll 4
+      for (int c = 16 * quarter; c < 16 * quarter + 16; ++c) {
+        uint4 gv;
+        ld_v4(sg + (c >> 3) * PANEL + sw128(r, c & 7), gv);
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * c);
+        const bf16* gx = reinterpret_cast<const bf16*>(&gv);
+        const bf16* ox = reinterpret_cast<const bf16*>(&ov);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) acc += __bfloat162float(gx[u]) * __bfloat162float(ox[u]);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (quarter == 0) {
+      const float l = row < Lq ? lse[((long long)b * Lq + row) * H + h] : 0.f;
+      asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(srows + 8 * r), "f"(l), "f"(acc) : "memory");
+      if (row < Lq) {
+        float* sc = scratch + (long long)blockIdx.y * lq_pad + row;
+        sc[0] = l;
+        sc[(long long)gridDim.y * lq_pad] = acc;
+      }
+    }
+  }
+  bar_sync(1, 256);  // qf is in place; the rows' LSE and delta are in
+  float lse_r[2], del_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(lse_r[r]), "=f"(del_r[r])
+                 : "r"(srows + 8 * (warp * 16 + gid + 8 * r)));
+  // hand-overs (named barriers of both warpgroups): 3 p written, 4 p read, 5 ds
+  // written, 6 ds read; each buffer starts empty
+  if (wg == 1) bar_arrive(4, 256);
+  if (wg == 0) bar_arrive(6, 256);
+
+  const uint32_t sx = wg == 0 ? sq : sg;  // this warpgroup's A operand in phase A
+  float acc[4][32];                       // dQ panels 2 m + wg
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[m][i] = 0.f;
+  for (int j = 0; j < ntiles; ++j) {
+    const bool last = j == ntiles - 1;
+    float x[32];  // warpgroup 0: S, warpgroup 1: dP
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) {
+      const int i = 16 * j + p, stage = i % STAGES;
+      const uint32_t st = sring + stage * DQ_STAGE + wg * PANEL;  // K or V panel p
+      mbar_wait(full_bar + 8 * stage, (i / STAGES) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_ss(x, wgmma_desc(sx + p * PANEL + kk * 32, 16, 1024), wgmma_desc(st + kk * 32, 16, 1024),
+                           p | kk);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (p > 0) release(i - 1);
+    }
+    wgmma_wait<0>();
+    wgmma_fence_regs(x);
+    release(16 * j + 7);
+    uint32_t a[4][4];
+    // element e: row 16 warp + gid + 8 ((e >> 1) & 1), key 64 j + 8 (e >> 2) + 2 tig + (e & 1)
+    if (wg == 0) {
+      const bool tail = 64 * j + 64 > Lk;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        x[e] = exp2f(x[e] - lse_r[(e >> 1) & 1]);
+        if (tail && 64 * j + (e >> 2) * 8 + tig * 2 + (e & 1) >= Lk) x[e] = 0.f;
+      }
+      bar_sync(4, 256);  // warpgroup 1 has read the last p
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(sxp + 4 * (128 * e + t)), "f"(x[e]) : "memory");
+      bar_arrive(3, 256);
+      bar_sync(5, 256);  // ds is in
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(a[e >> 2][e & 3]) : "r"(sxa + 4 * (128 * e + t)) : "memory");
+      if (!last) bar_arrive(6, 256);
+    } else {
+      bar_sync(3, 256);  // p is in
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        float p;
+        asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(p) : "r"(sxp + 4 * (128 * e + t)) : "memory");
+        x[e] = p * (x[e] - del_r[(e >> 1) & 1]);  // ds
+      }
+      if (!last) bar_arrive(4, 256);
+      pack_a(a, x);
+      bar_sync(6, 256);  // warpgroup 0 has read the last ds
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sxa + 4 * (128 * e + t)), "r"(a[e >> 2][e & 3]) : "memory");
+      bar_arrive(5, 256);
+    }
+    // phase B: dQ panel 2 m + wg += ds K[:, panel], K panels 0..7 of the tile again
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) {
+      const int i = 16 * j + 8 + p, stage = i % STAGES;
+      mbar_wait(full_bar + 8 * stage, (i / STAGES) & 1);
+      if ((p & 1) == wg) {
+        const uint32_t sk = sring + stage * DQ_STAGE;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n64k16_rs_tb(acc[p >> 1], a[kk], wgmma_desc(sk + kk * 2048, PANEL, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_fence_regs(acc[p >> 1]);
+      }
+      release(i);
+    }
+  }
+  store_panels(acc, scale, dq + b * dqsb + h * dqsh, dqsl, q0, Lq, [&](int m) { return 64 * (2 * m + wg); }, t);
+}
+
+__global__ void __launch_bounds__(w512::THREADS, 1) bhld_bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+    const __grid_constant__ CUtensorMap rowmap, bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Lq,
+    int Lk, long long dksb, long long dksl, long long dksh, long long dvsb, long long dvsl, long long dvsh,
+    float qscale) {
+  using namespace w512;
+  extern __shared__ unsigned char k13_smem[];
+  const uint32_t base = smem_u32(smem_align_1024(k13_smem));
+  const uint32_t sk = base, sv = base + TILE, sring = base + DKV_RING, sxp = base + DKV_XP;
+  const uint32_t res_bar = base + DKV_BAR, full_bar = res_bar + 8, empty_bar = full_bar + 8 * STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int k0 = blockIdx.x * 64, half = blockIdx.z;  // the block's 256 output columns: 256 half ..
+  const int ntiles = (Lq + 63) / 64;
+
+  if (tid == 0) {
+    mbar_init(res_bar, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // load i of the ring: per query tile (q, g) panels 0-7, then the half's four
+  // (q, g) panels again, the first with the tile's LSE and delta
+  const int nloads = 12 * ntiles;
+  auto issue = [&](int i) {
+    const int stage = i % STAGES, j = i / 12, n = i % 12;
+    const int p = n < 8 ? n : 4 * half + n - 8;
+    const uint32_t st = sring + stage * DKV_STAGE, bar = full_bar + 8 * stage;
+    mbar_expect_tx(bar, 2 * PANEL + (n == 8 ? 512 : 0));
+    tma_load_4d(st, &qmap, bar, 64 * p, 64 * j, h, b);
+    tma_load_4d(st + PANEL, &gmap, bar, 64 * p, 64 * j, h, b);
+    if (n == 8) tma_load_3d(st + 2 * PANEL, &rowmap, bar, 64 * j, blockIdx.y, 0);
+  };
+  auto release = [&](int i) {  // as in the dq kernel
+    const int stage = i % STAGES;
+    if ((tid & 127) == 0) mbar_arrive(empty_bar + 8 * stage);
+    if (tid == 0 && i + STAGES < nloads) {
+      mbar_wait(empty_bar + 8 * stage, (i / STAGES) & 1);
+      issue(i + STAGES);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(res_bar, 2 * TILE);
+    for (int p = 0; p < PANELS; ++p) {
+      tma_load_4d(sk + p * PANEL, &kmap, res_bar, 64 * p, k0, h, b);
+      tma_load_4d(sv + p * PANEL, &vmap, res_bar, 64 * p, k0, h, b);
+    }
+    for (int i = 0; i < STAGES && i < nloads; ++i) issue(i);
+  }
+
+  const int t = tid & 127, tig = t & 3;
+  const int wbar = 1 + wg;  // this warpgroup's own barrier
+  mbar_wait(res_bar, 0);
+  if (wg == 1) bar_arrive(4, 256);  // the p hand-over starts empty
+
+  const uint32_t sa = wg == 0 ? sk : sv;  // this warpgroup's A operand in phase A
+  float acc[4][32];                       // warpgroup 0: dV, 1: dK, columns 256 half + 64 m ..
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[m][i] = 0.f;
+  for (int j = 0; j < ntiles; ++j) {
+    const bool last = j == ntiles - 1;
+    float x[32];  // warpgroup 0: S^T, warpgroup 1: dP^T (rows keys, columns the tile's queries)
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) {
+      const int i = 12 * j + p, stage = i % STAGES;
+      const uint32_t st = sring + stage * DKV_STAGE;
+      mbar_wait(full_bar + 8 * stage, (i / STAGES) & 1);
+      if (wg == 0) {  // qf = round(q * qscale), panel p, in place
+        scale_chunks(st, PANEL / 16, t, 128, qscale);
+        fence_proxy_async();
+        bar_sync(wbar, 128);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_ss(x, wgmma_desc(sa + p * PANEL + kk * 32, 16, 1024),
+                           wgmma_desc(st + wg * PANEL + kk * 32, 16, 1024), p | kk);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (p > 0) release(i - 1);
+    }
+    wgmma_wait<0>();
+    wgmma_fence_regs(x);
+    release(12 * j + 7);
+    // phase B's first stage carries the tile's LSE (and delta 256 bytes on)
+    const int i8 = 12 * j + 8;
+    const uint32_t srow = sring + (i8 % STAGES) * DKV_STAGE + 2 * PANEL;
+    mbar_wait(full_bar + 8 * (i8 % STAGES), (i8 / STAGES) & 1);
+    uint32_t a[4][4];
+    // element e: key 16 warp + gid + 8 ((e >> 1) & 1), query 8 (e >> 2) + 2 tig + (e & 1)
+    if (wg == 0) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float l0, l1;
+        asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(l0), "=f"(l1) : "r"(srow + 4 * (8 * n + 2 * tig)));
+#pragma unroll
+        for (int u = 0; u < 4; ++u) x[4 * n + u] = exp2f(x[4 * n + u] - ((u & 1) ? l1 : l0));
+      }
+      bar_sync(4, 256);  // warpgroup 1 has read the last p^T
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(sxp + 4 * (128 * e + t)), "f"(x[e]) : "memory");
+      bar_arrive(3, 256);
+    } else {
+      bar_sync(3, 256);  // p^T is in
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float d0, d1;
+        asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                     : "=f"(d0), "=f"(d1)
+                     : "r"(srow + 256 + 4 * (8 * n + 2 * tig)));
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = 4 * n + u;
+          float p;
+          asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(p) : "r"(sxp + 4 * (128 * e + t)) : "memory");
+          x[e] = p * (x[e] - ((u & 1) ? d1 : d0));  // ds^T
+        }
+      }
+      if (!last) bar_arrive(4, 256);
+    }
+    pack_a(a, x);
+    // phase B: dV (warpgroup 0) += round(p^T) g, dK (1) += ds^T qf, panels 4 half + m
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int i = i8 + m, stage = i % STAGES;
+      const uint32_t st = sring + stage * DKV_STAGE;
+      if (m > 0) mbar_wait(full_bar + 8 * stage, (i / STAGES) & 1);
+      if (wg == 1) {  // qf of this panel, in place
+        scale_chunks(st, PANEL / 16, t, 128, qscale);
+        fence_proxy_async();
+        bar_sync(wbar, 128);
+      }
+      const uint32_t sb = wg == 0 ? st + PANEL : st;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_rs_tb(acc[m], a[kk], wgmma_desc(sb + kk * 2048, PANEL, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_regs(acc[m]);
+      release(i);
+    }
+  }
+  if (wg == 0)
+    store_panels(acc, 1.f, dv + b * dvsb + h * dvsh, dvsl, k0, Lk, [&](int m) { return 256 * half + 64 * m; }, t);
+  else
+    store_panels(acc, kInvLog2E, dk + b * dksb + h * dksh, dksl, k0, Lk,
+                 [&](int m) { return 256 * half + 64 * m; }, t);
+}
+
+// q, k, v, o, g [B, H, L, 512] through their strides (bases 16-byte aligned,
+// strides in whole 16-byte rows); scratch: [2, B*H, Lq rounded up to 4] fp32.
+int launch_wgmma512(const void* q, const void* k, const void* v, const void* o, const void* g, const float* lse,
+                    float* scratch, void* dq, void* dk, void* dv, int B, int H, int Lq, int Lk, const long long* st,
+                    float qscale, float scale, cudaStream_t stream) {
+  using namespace w512;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+                          reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(scratch);
+  const uintptr_t outs = reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+                         reinterpret_cast<uintptr_t>(dv);
+  if (bases % 16 || outs % 4) return kErrBadArgument;
+  for (int i = 0; i < 24; ++i)
+    if (st[i] % (i < 15 ? 8 : 2)) return kErrBadArgument;
+  static const cudaError_t attr_dq =
+      cudaFuncSetAttribute(bhld_bwd_dq_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM);
+  static const cudaError_t attr_dkv =
+      cudaFuncSetAttribute(bhld_bwd_dkv_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM);
+  if (attr_dq != cudaSuccess) return (int)attr_dq;
+  if (attr_dkv != cudaSuccess) return (int)attr_dkv;
+  // q, k, v, g: boxes of 64 d x 64 rows
+  CUtensorMap maps[4];
+  const void* srcs[4] = {q, k, v, g};
+  const int rows[4] = {Lq, Lk, Lk, Lq}, which[4] = {0, 1, 2, 4};
+  for (int i = 0; i < 4; ++i) {
+    const long long* s = st + 3 * which[i];
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows[i], (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)s[1] * 2, (cuuint64_t)s[2] * 2, (cuuint64_t)s[0] * 2};
+    const cuuint32_t box[4] = {64, 64, 1, 1};
+    if (const int rc = wgmma_tiled_map(srcs[i], 4, dims, strides, box, &maps[i])) return rc;
+  }
+  const int lq_pad = (Lq + 3) / 4 * 4;
+  CUtensorMap rowmap;  // the scratch's LSE and delta rows: boxes of 64 rows x both
+  {
+    const cuuint64_t dims[3] = {(cuuint64_t)Lq, (cuuint64_t)B * H, 2};
+    const cuuint64_t strides[2] = {(cuuint64_t)lq_pad * 4, (cuuint64_t)B * H * lq_pad * 4};
+    const cuuint32_t box[3] = {64, 1, 2};
+    if (const int rc = tma_tiled_map(CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_SWIZZLE_NONE, scratch, 3, dims,
+                                     strides, box, &rowmap))
+      return rc;
+  }
+  bhld_bwd_dq_wgmma_kernel<<<dim3((Lq + 63) / 64, B * H), w512::THREADS, DQ_SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(o), lse, scratch, static_cast<bf16*>(dq), H, Lq,
+      Lk, lq_pad, st[9], st[10], st[11], st[15], st[16], st[17], qscale, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bhld_bwd_dkv_wgmma_kernel<<<dim3((Lk + 63) / 64, B * H, 2), w512::THREADS, DKV_SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], rowmap, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Lq, Lk,
+      st[18], st[19], st[20], st[21], st[22], st[23], qscale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // fp32 on FMAs, the same tiling with 16-row tiles on both sides: 256 threads as
 // 16 rows x 16 column groups; a thread owns row r and the head-dim columns
 // cg + 16 j. fp32 rows are padded by one float (conflict-free columns).
@@ -580,12 +1073,14 @@ int launch_fma(const void* q, const void* k, const void* v, const void* o, const
 
 // q, k, v, o, g: [B, H, L, D] read through `strides` (24 element strides:
 // (batch, row, head) of q, k, v, o, g, dq, dk, dv; head-dim stride 1); lse:
-// fp32 [B, Lq, H] from K3; delta: fp32 [B, Lq, H] scratch (written by the dq
-// kernel, read by the dk/dv kernel, on the same stream). D in {80, 512}.
+// fp32 [B, Lq, H] from K3; delta: fp32 scratch of 2 * B * H * (Lq rounded up
+// to 4) (written by the dq kernel, read by the dk/dv kernel, on the same
+// stream). D in {80, 512}; route (or NULL) receives the kernels that ran: 2
+// wgmma (bf16 D = 512), 1 mma.sync (bf16 D = 80), 0 fp32 FMAs.
 extern "C" int vs_flash_attention_bhld_bwd(int dtype, int D, const void* q, const void* k, const void* v,
                                            const void* o, const void* g, const void* lse, void* delta,
                                            void* dq, void* dk, void* dv, int B, int H, int Lq, int Lk,
-                                           const long long* strides, float qscale, float scale,
+                                           const long long* strides, float qscale, float scale, int* route,
                                            void* stream) {
   using namespace vs::k13;
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B * H > 65535) return vs::kErrBadArgument;
@@ -594,14 +1089,18 @@ extern "C" int vs_flash_attention_bhld_bwd(int dtype, int D, const void* q, cons
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == vs::kBFloat16) {
-    if (D == 512) return launch_mma<512>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, strides, st, qscale, scale, s);
-    if (D == 80) return launch_mma<80>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, strides, st, qscale, scale, s);
-    return vs::kErrUnsupported;
+  int r = -1, rc = vs::kErrUnsupported;
+  if (dtype == vs::kBFloat16 && D == 512) {
+    r = 2;
+    rc = launch_wgmma512(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, strides, qscale, scale, s);
+  } else if (dtype == vs::kBFloat16 && D == 80) {
+    r = 1;
+    rc = launch_mma<80>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, strides, st, qscale, scale, s);
+  } else if (dtype == vs::kFloat32 && (D == 512 || D == 80)) {
+    r = 0;
+    rc = D == 512 ? launch_fma<512>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s)
+                  : launch_fma<80>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s);
   }
-  if (dtype == vs::kFloat32) {
-    if (D == 512) return launch_fma<512>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s);
-    if (D == 80) return launch_fma<80>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s);
-  }
-  return vs::kErrUnsupported;
+  if (route != nullptr) *route = r;
+  return rc;
 }

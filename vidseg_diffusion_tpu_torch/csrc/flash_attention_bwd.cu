@@ -13,21 +13,24 @@
 // before dq = scale * ds k and dk = ds^T qf / log2(e); p is rounded before
 // dv = p^T g. Two kernels, like the TPU's, each the only writer of its
 // outputs: dq walks the key tiles of its 64 query rows (and writes delta for
-// the second kernel), dk/dv walk the query tiles of their 64 keys. Both read
-// q/k/v/o/g through (batch, row, head) element strides, as K1 does. The
-// ragged key tail gets p = 0; ragged query rows compute on zeros (lse = +inf
-// in the dk/dv kernel, so their p is 0) and are never stored.
+// the second kernel), dk/dv walk the query tiles of their 64 keys; no
+// atomics, so every run gives the same result. Both read q/k/v/o/g through
+// (batch, row, head) element strides, as K1 does. The ragged key tail gets
+// p = 0; ragged query rows compute on zeros and are never stored.
 //
-// What bounds it on the H100: ~14*D flops per (query, key) pair (S and
-// g v^T recomputed in both kernels, plus the three products) on O(L*D)
-// bytes, so arithmetic, as for K1; the [L, L] logits never reach device
-// memory. bf16 runs on the tensor cores (mma.sync.m16n8k16, FA2 register
-// layout: an accumulator tile becomes the A operand of the next product,
-// the transposed operands come from ldmatrix.trans); fp32 runs fp32 FMAs on
-// shared-memory tiles (the fp32 UNet check). No copy/compute overlap yet.
+// What bounds it on the H100: 10 L^2 D flops per (batch, head) in the five
+// products (S and g v^T are recomputed in both kernels: 14 L^2 D executed) on
+// O(L D) bytes, so arithmetic, as for K1; the [L, L] logits never reach device
+// memory. At D = 64 each (query, key) pair also costs two exp2 (one a kernel)
+// on the MUFU, as much time as its products on the tensor cores, so the design
+// keeps two warpgroups a block, one's exponentials beside the other's wgmmas.
+// bf16 runs on wgmma fed by TMA (below: two warpgroups of 64 rows a block, the
+// walked side in 128-row tiles through a four-stage ring); fp32 runs fp32
+// FMAs on shared-memory tiles (the fp32 UNet check).
 #include <string.h>
 
 #include "common.cuh"
+#include "wgmma_tile.cuh"
 
 namespace vs {
 
@@ -348,155 +351,219 @@ int launch_bwd_fma(const void* q, const void* k, const void* v, const void* o, c
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync.m16n8k16 (bf16 in, fp32 accumulate),
-// 4 warps per block, each owning 16 rows of the block's 64 (query rows in
-// the dq kernel, key rows in the dk/dv kernel). Fragment layouts as in K1
-// (flash_attention.cu): an A fragment of rows r0 = 16*warp + lane/4 and
-// r0 + 8 is read from a padded smem row; a B fragment for X^T comes straight
-// from X's rows; a B fragment of a row-major X (the k dim along rows) comes
-// from ldmatrix.trans. 16-byte global loads: row strides in whole 8-element
-// vectors and 16-byte aligned bases (the wrapper and the entry check).
+// bf16 on wgmma fed by TMA. Both kernels are blocks of NWG = 2 warpgroups (64
+// rows each, 256 threads: a producer warp of its own would leave ptxas 168
+// registers a thread, and a warpgroup's S and dP tiles of 128 columns, its
+// accumulators and the A operands of its products take 225-254) and a ring of STAGES stages (`full` / `empty`
+// mbarriers) that the last warpgroup's first thread refills by TMA once both
+// have handed a stage back (the turns below make that warpgroup the last to
+// finish with a stage, so it never waits); q, k,
+// v and g are read in place through rank-4 tiled maps over their (batch, row,
+// head) strides, one 128-row x 64-d box (16 KB, 128-byte rows under the
+// 128-byte swizzle) a tile; rows past Lq or Lk arrive as zeros. The walked side
+// comes in 128-row tiles, so S and dP are m64n128k16 products from shared
+// memory (a 64-wide B would make them as bound by shared-memory reads as by the
+// tensor cores).
+// - dq (flash_bwd_dq_wgmma_kernel): a block owns 64 NWG query rows of one head,
+//   their q and g resident; each warpgroup scales its q rows by scale * log2(e)
+//   in shared memory, rounded to bf16 once (then a proxy fence: wgmma reads
+//   through the async proxy), computes delta = rowsum(g o) of its rows and writes
+//   it with the rows' LSE to the scratch ([2, B*H, Lq rounded up to 4] fp32, for
+//   the dk/dv kernel's TMA), then per key tile of the ring (K and V) S = qf K^T
+//   and dP = g V^T (8 x m64n128k16), p = exp2(s - lse) (0 past Lk), ds = p (dp -
+//   delta) rounded into the register A operand of dQ += ds K (8 x m64n64k16, K
+//   the MN-major B operand: its rows are the contraction);
+// - dk/dv (flash_bwd_dkv_wgmma_kernel): a block owns 64 NWG keys of one head,
+//   each warpgroup 64 with their K and V rows resident; the ring brings q, g and
+//   the rows' LSE and delta (a [2][128] fp32 box of the scratch) per query tile;
+//   each warpgroup scales its half of the rows of the next q tile in place while
+//   its products of this tile run, and hands the half over through an
+//   arrive-early named barrier that the other waits on only before that tile's
+//   products, so neither waits for the other; then S^T = K qf^T and dP^T = V g^T (the
+//   transposes are the operands' major-ness: both K-major), p^T = exp2(s^T -
+//   lse) and ds^T in registers, dV += round(p^T) g and dK += ds^T qf with the A
+//   operand from registers and g / qf the MN-major B operand. dK and dV (64 x 64
+//   fp32 each a warpgroup) stay in registers for the whole walk.
+// The two warpgroups take turns to issue their wgmmas (named barriers, as in K1's
+// forward), one turn a walked tile: the output products of tile j - 1 and S / dP
+// of tile j as one burst (dq: both in flight together; dk/dv: S^T and dP^T once
+// the products are done, since their registers and the products' A operands do
+// not fit together), so one warpgroup's exponentials run while the other's burst
+// does. With separate turns for S / dP and for the products the elementwise work
+// was not hidden: taking it out of the kernels saved 23-40 % of their time.
+// Ragged rows need no predicate but one: a query row past Lq has zero q and g,
+// so it adds nothing to dK or dV whatever its p; a key past Lk is zero in K and
+// V, and the dq kernel masks its p to 0 (exp2(-lse) alone could overflow).
+// Outputs are staged through the warpgroup's own spent tile and stored 16 bytes
+// a thread, rows past the end not stored.
+namespace k5w {
+constexpr int NWG = 2, THREADS = 128 * NWG;
+constexpr int T64 = 64 * 128, T128 = 2 * T64;           // 64- and 128-row x 64-d bf16 tiles
+constexpr int DQ_STAGES = 4, DQ_STAGE = 2 * T128;       // K, V
+constexpr int DQ_RES = 2 * T128;                        // q and g of the block's 128 rows
+constexpr int DQ_ROWS = DQ_RES + DQ_STAGES * DQ_STAGE;  // each warpgroup's rows' LSE and delta
+constexpr int DQ_BAR = DQ_ROWS + NWG * 64 * 8;
+constexpr int DQ_SMEM = DQ_BAR + 8 * (1 + 2 * DQ_STAGES) + 1024;
+constexpr int DKV_STAGES = 4, DKV_STAGE = 2 * T128 + 1024;  // q, g, the rows' LSE and delta (1 KB)
+constexpr int DKV_RES = 2 * T128;                           // K and V of the block's 128 keys
+constexpr int DKV_BAR = DKV_RES + DKV_STAGES * DKV_STAGE;   // res, full, empty
+constexpr int DKV_SMEM = DKV_BAR + 8 * (1 + 2 * DKV_STAGES) + 1024;
+// named barriers: 1..NWG the turns, 3, 4 each warpgroup's own, 5 + 2 w + parity
+// warpgroup w's half of a q tile scaled
+constexpr int SCALED_BAR = 5;
+}  // namespace k5w
 
-__device__ __forceinline__ void bw_mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void bw_ld_shared_v4(uint32_t addr, uint4& v) {
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void bw_st_shared_v4(uint32_t addr, const uint4& v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
-__device__ __forceinline__ void bw_ldmatrix_x4_trans(uint32_t r[4], const void* smem_ptr) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+__device__ __forceinline__ float bw_ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
+
+// Turns between the NWG warpgroups of a block to issue their wgmmas (named
+// barriers 1..NWG, one a warpgroup): wait for this warpgroup's turn, then hand
+// it to the next; the last hand-over of the block is skipped, so no barrier is
+// left half arrived when the block exits.
+struct BwTurns {
+  int wg, nwg;
+  __device__ __forceinline__ void start() const {
+    if (wg == nwg - 1) bar_arrive(1, 128 * nwg);   // warpgroup 0 takes the first turn
+  }
+  __device__ __forceinline__ void take() const { bar_sync(1 + wg, 128 * nwg); }
+  __device__ __forceinline__ void pass(bool last) const {
+    if (!(last && wg == nwg - 1)) bar_arrive(1 + (wg + 1) % nwg, 128 * nwg);
+  }
+};
 
 __device__ __forceinline__ uint32_t bw_pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-constexpr int MB_DP = BW_D + 8;   // padded bf16 smem row (16 bytes)
-constexpr int MB_V8 = BW_D / 8;   // 16-byte vectors per row
-constexpr int MB_KS = BW_D / 16;  // k-steps over the head dim
-constexpr int MB_NT = BW_T / 8;   // n-tiles over a 64-row tile
-constexpr int MB_NO = BW_D / 8;   // n-tiles over the head dim
-
-// A fragments (16 rows of this warp x 64) from a padded smem tile
-__device__ __forceinline__ void bw_load_a(uint32_t f[MB_KS][4], const __nv_bfloat16* tile, int r0,
-                                          int tig) {
+// `n` 16-byte chunks of shared memory from `addr` on, multiplied by `mul` (a
+// bf16 value: the rounded q prescale) and rounded to bf16 in place, `i`-th of
+// `stride` threads. bf16x2 products: the exact product of two bf16 values fits
+// in fp32, so one rounding to bf16 gives the bits of JAX's fp32 product rounded
+// to bf16.
+__device__ __forceinline__ void bw_scale_chunks(uint32_t addr, int n, int i, int stride, float mul) {
+  const __nv_bfloat162 m2 = __float2bfloat162_rn(mul);
+#pragma unroll 4
+  for (int c = i; c < n; c += stride) {
+    uint4 val;
+    bw_ld_shared_v4(addr + 16 * c, val);
+    __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&val);
 #pragma unroll
-  for (int ks = 0; ks < MB_KS; ++ks) {
-    const int c = ks * 16 + tig * 2;
-    f[ks][0] = *reinterpret_cast<const uint32_t*>(&tile[r0 * MB_DP + c]);
-    f[ks][1] = *reinterpret_cast<const uint32_t*>(&tile[(r0 + 8) * MB_DP + c]);
-    f[ks][2] = *reinterpret_cast<const uint32_t*>(&tile[r0 * MB_DP + c + 8]);
-    f[ks][3] = *reinterpret_cast<const uint32_t*>(&tile[(r0 + 8) * MB_DP + c + 8]);
+    for (int u = 0; u < 4; ++u) x[u] = __hmul2(x[u], m2);
+    bw_st_shared_v4(addr + 16 * c, val);
   }
 }
 
-// c[j] += A * X^T for the 8 n-tiles of the 64 rows of X (smem tile)
-__device__ __forceinline__ void bw_mma_xt(float c[MB_NT][4], uint32_t a[MB_KS][4],
-                                          const __nv_bfloat16* x, int gid, int tig) {
+// a warpgroup's 64 x 16 KS fp32 accumulator (rows 16 warp + gid (+ 8), columns
+// 8 n + 2 tig (+ 1)) as the register A operand of KS k16 steps, rounded
+template <int KS>
+__device__ __forceinline__ void bw_pack_a(uint32_t (&a)[KS][4], const float (&x)[8 * KS]) {
 #pragma unroll
-  for (int ks = 0; ks < MB_KS; ++ks) {
+  for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-    for (int j = 0; j < MB_NT; ++j) {
-      const __nv_bfloat16* row = &x[(j * 8 + gid) * MB_DP + ks * 16 + tig * 2];
-      bw_mma(c[j], a[ks], *reinterpret_cast<const uint32_t*>(row),
-             *reinterpret_cast<const uint32_t*>(row + 8));
+    for (int q = 0; q < 4; ++q) a[kk][q] = bw_pack(x[8 * kk + 2 * q], x[8 * kk + 2 * q + 1]);
+}
+
+// a warpgroup's 64 x 64 accumulator times `mul`, rounded, through its own
+// 1024-aligned spent tile `stage` (swizzled chunks) to rows row0.. of dst
+// (`rows` of them exist), 16 bytes a thread; `bar`: the warpgroup's barrier
+__device__ __forceinline__ void bw_store_tile(const float (&acc)[32], float mul, uint32_t stage, int bar,
+                                              __nv_bfloat16* dst, long long row_stride, int row0, int rows,
+                                              int t) {
+  const int warp = t >> 5, gid = (t & 31) >> 2, tig = t & 3;
+  bar_sync(bar, 128);  // every warp of the warpgroup is done with the tile
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t v = bw_pack(acc[4 * n + 2 * r] * mul, acc[4 * n + 2 * r + 1] * mul);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(stage + sw128(warp * 16 + gid + 8 * r, n) + tig * 4), "r"(v)
+                   : "memory");
     }
+  bar_sync(bar, 128);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int idx = t + 128 * i, row = idx >> 3, c = idx & 7;
+    if (row0 + row >= rows) continue;
+    uint4 val;
+    bw_ld_shared_v4(stage + sw128(row, c), val);
+    *reinterpret_cast<uint4*>(dst + (long long)(row0 + row) * row_stride + c * 8) = val;
   }
 }
 
-// acc += A * X with A from accumulator tiles c (16 rows x 64, the k dim) and
-// X a row-major smem tile [64 k rows][64]
-__device__ __forceinline__ void bw_mma_ax(float acc[MB_NO][4], float c[MB_NT][4],
-                                          const __nv_bfloat16* x, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < BW_T / 16; ++kk) {
-    const uint32_t a[4] = {bw_pack(c[2 * kk][0], c[2 * kk][1]), bw_pack(c[2 * kk][2], c[2 * kk][3]),
-                           bw_pack(c[2 * kk + 1][0], c[2 * kk + 1][1]),
-                           bw_pack(c[2 * kk + 1][2], c[2 * kk + 1][3])};
-    const int mrow = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-#pragma unroll
-    for (int n = 0; n < MB_NO; n += 2) {
-      uint32_t bx[4];
-      bw_ldmatrix_x4_trans(bx, &x[mrow * MB_DP + (n + (lane >> 4)) * 8]);
-      bw_mma(acc[n], a, bx[0], bx[1]);
-      bw_mma(acc[n + 1], a, bx[2], bx[3]);
-    }
-  }
-}
-
-// 64 rows x 64 of a strided global tensor -> padded smem (zeros past `rows`),
-// optionally multiplied by `mul` and rounded to bf16 (the q prescale)
-__device__ __forceinline__ void bw_stage(__nv_bfloat16* tile, const __nv_bfloat16* src,
-                                         long long row_stride, int r_begin, int rows, int tid,
-                                         bool scaled, float mul) {
-  for (int e = tid; e < BW_T * MB_V8; e += 128) {
-    const int r = e / MB_V8, c = (e % MB_V8) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r_begin + r < rows) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)(r_begin + r) * row_stride + c);
-      if (scaled) {
-        __nv_bfloat16* x = reinterpret_cast<__nv_bfloat16*>(&val);
-#pragma unroll
-        for (int u = 0; u < 8; ++u) x[u] = __float2bfloat16(__bfloat162float(x[u]) * mul);
-      }
-    }
-    *reinterpret_cast<uint4*>(&tile[r * MB_DP + c]) = val;
-  }
-}
-
-__device__ __forceinline__ void bw_store_rows(__nv_bfloat16* dst, long long row_stride, int row_base,
-                                              int r0, int rows, float acc[MB_NO][4], int tig,
-                                              float mul) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row_base + r0 + 8 * i;
-    if (row >= rows) continue;
-    __nv_bfloat16* drow = dst + (long long)row * row_stride;
-#pragma unroll
-    for (int n = 0; n < MB_NO; ++n)
-      *reinterpret_cast<uint32_t*>(drow + n * 8 + tig * 2) =
-          bw_pack(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
-  }
-}
-
-__global__ void __launch_bounds__(128) flash_bwd_dq_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
-    const __nv_bfloat16* __restrict__ g, const float* __restrict__ lse,
-    float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk,
-    BwdStrides st, float qscale, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[BW_T * MB_DP];
-  __shared__ __align__(16) __nv_bfloat16 Gs[BW_T * MB_DP];
-  __shared__ __align__(16) __nv_bfloat16 Ks[BW_T * MB_DP];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BW_T * MB_DP];
-  __shared__ float row_lse[BW_T], row_delta[BW_T];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
+__global__ void __launch_bounds__(k5w::THREADS, 1) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+    const __nv_bfloat16* __restrict__ o, const float* __restrict__ lse, float* __restrict__ scratch,
+    __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk, int lq_pad, long long osb, long long osl,
+    long long osh, long long dqsb, long long dqsl, long long dqsh, float qscale, float scale) {
+  using namespace k5w;
+  extern __shared__ unsigned char bw_smem[];
+  const uint32_t base = smem_u32(smem_align_1024(bw_smem));
+  const uint32_t sring = base + DQ_RES, srows = base + DQ_ROWS;
+  const uint32_t res_bar = base + DQ_BAR, full_bar = res_bar + 8, empty_bar = full_bar + 8 * DQ_STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * BW_T;
-  const __nv_bfloat16* qb = q + b * st.q[0] + h * st.q[2];
-  const __nv_bfloat16* kb = k + b * st.k[0] + h * st.k[2];
-  const __nv_bfloat16* vb = v + b * st.v[0] + h * st.v[2];
-  const __nv_bfloat16* ob = o + b * st.o[0] + h * st.o[2];
-  const __nv_bfloat16* gb = g + b * st.g[0] + h * st.g[2];
+  const int q0 = blockIdx.x * 64 * NWG;
+  const int ntiles = (Lk + 127) / 128;
 
-  bw_stage(Qs, qb, st.q[1], q0, Lq, tid, true, qscale);
-  bw_stage(Gs, gb, st.g[1], q0, Lq, tid, false, 1.f);
-  {  // delta = rowsum(g o): two threads per row, 32 elements each
-    const int r = tid >> 1, half = tid & 1, row = q0 + r;
+  if (tid == 0) {
+    mbar_init(res_bar, 1);
+#pragma unroll
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, NWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  auto issue = [&](int j) {  // key tile j: K and V
+    const int stage = j % DQ_STAGES;
+    const uint32_t st = sring + stage * DQ_STAGE, bar = full_bar + 8 * stage;
+    mbar_expect_tx(bar, DQ_STAGE);
+    tma_load_4d(st, &kmap, bar, 0, 128 * j, h, b);
+    tma_load_4d(st + T128, &vmap, bar, 0, 128 * j, h, b);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(res_bar, DQ_RES);
+    tma_load_4d(base, &qmap, res_bar, 0, q0, h, b);
+    tma_load_4d(base + T128, &gmap, res_bar, 0, q0, h, b);
+    for (int j = 0; j < DQ_STAGES && j < ntiles; ++j) issue(j);
+  }
+
+  const int t = tid & 127, warp = t >> 5, lane = t & 31, gid = lane >> 2, tig = lane & 3;
+  const int wbar = 1 + NWG + wg;  // this warpgroup's own named barrier; 1..NWG are the turns
+  const BwTurns turns{wg, NWG};
+  const uint32_t sq = base + wg * T64, sg = base + T128 + wg * T64, srow = srows + wg * 64 * 8;
+  const int row0 = q0 + 64 * wg;  // this warpgroup's first query row
+  mbar_wait(res_bar, 0);
+  bw_scale_chunks(sq, T64 / 16, t, 128, qscale);
+  fence_proxy_async();
+  {  // delta = rowsum(g o): two threads a row, 32 elements each; g from shared memory
+    const int r = t >> 1, half = t & 1, row = row0 + r;
     float acc = 0.f;
     if (row < Lq) {
+      const __nv_bfloat16* orow = o + b * osb + h * osh + (long long)row * osl;
 #pragma unroll
-      for (int c = half * 32; c < half * 32 + 32; c += 8) {
-        const uint4 gv = *reinterpret_cast<const uint4*>(gb + (long long)row * st.g[1] + c);
-        const uint4 ov = *reinterpret_cast<const uint4*>(ob + (long long)row * st.o[1] + c);
+      for (int c = 4 * half; c < 4 * half + 4; ++c) {
+        uint4 gv;
+        bw_ld_shared_v4(sg + sw128(r, c), gv);
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * c);
         const __nv_bfloat16* gx = reinterpret_cast<const __nv_bfloat16*>(&gv);
         const __nv_bfloat16* ox = reinterpret_cast<const __nv_bfloat16*>(&ov);
 #pragma unroll
@@ -505,145 +572,308 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_mma_kernel(
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     if (half == 0) {
-      const long long idx = ((long long)b * Lq + row) * H + h;
-      row_delta[r] = acc;
-      row_lse[r] = row < Lq ? lse[idx] : 0.f;
-      if (row < Lq) delta[idx] = acc;
+      const float l = row < Lq ? lse[((long long)b * Lq + row) * H + h] : 0.f;
+      asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(srow + 8 * r), "f"(l), "f"(acc) : "memory");
+      if (row < Lq) {
+        float* sc = scratch + (long long)blockIdx.y * lq_pad + row;
+        sc[0] = l;
+        sc[(long long)gridDim.y * lq_pad] = acc;
+      }
     }
   }
-  __syncthreads();
+  bar_sync(wbar, 128);  // q is scaled, the rows' LSE and delta are in
+  float lse_r[2], del_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(lse_r[r]), "=f"(del_r[r])
+                 : "r"(srow + 8 * (warp * 16 + gid + 8 * r)));
 
-  const int r0 = warp * 16 + gid;
-  uint32_t qf[MB_KS][4], gf[MB_KS][4];
-  bw_load_a(qf, Qs, r0, tig);
-  bw_load_a(gf, Gs, r0, tig);
-  const float lse_r[2] = {row_lse[r0], row_lse[r0 + 8]};
-  const float del_r[2] = {row_delta[r0], row_delta[r0 + 8]};
-
-  float acc[MB_NO][4];
+  float acc[32];
 #pragma unroll
-  for (int n = 0; n < MB_NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int k0 = 0; k0 < Lk; k0 += BW_T) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    bw_stage(Ks, kb, st.k[1], k0, Lk, tid, false, 1.f);
-    bw_stage(Vs, vb, st.v[1], k0, Lk, tid, false, 1.f);
-    __syncthreads();
-
-    float s[MB_NT][4], dp[MB_NT][4];
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  uint32_t a[8][4];  // ds of the last key tile, rounded, as the A operand of dQ += ds K
+  float s[64], dp[64];
+  auto stage_of = [&](int j) { return sring + (j % DQ_STAGES) * DQ_STAGE; };
+  auto issue_s = [&](int j) {  // S = qf K^T and dP = g V^T of key tile j, one group
+    const uint32_t sk = stage_of(j), sv = sk + T128;
 #pragma unroll
-    for (int j = 0; j < MB_NT; ++j)
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n128k16_ss(s, wgmma_desc(sq + kk * 32, 16, 1024), wgmma_desc(sk + kk * 32, 16, 1024), kk);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) s[j][u] = dp[j][u] = 0.f;
-    bw_mma_xt(s, qf, Ks, gid, tig);   // qf k^T
-    bw_mma_xt(dp, gf, Vs, gid, tig);  // g v^T
-    // s[j][0..1]: row r0, s[j][2..3]: row r0 + 8, keys k0 + 8j + 2 tig + {0, 1}
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n128k16_ss(dp, wgmma_desc(sg + kk * 32, 16, 1024), wgmma_desc(sv + kk * 32, 16, 1024), kk);
+    wgmma_commit();
+  };
+  auto issue_dq = [&](int j) {  // dQ += ds K of key tile j, one group
 #pragma unroll
-    for (int j = 0; j < MB_NT; ++j)
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_m64n64k16_rs_tb(acc, a[kk], wgmma_desc(stage_of(j) + kk * 2048, T128, 1024), 1);
+    wgmma_commit();
+  };
+  auto release = [&](int j) {  // key tile j's stage goes back; the last warpgroup refills it
+    const int stage = j % DQ_STAGES;
+    if (t == 0) mbar_arrive(empty_bar + 8 * stage);
+    if (wg == NWG - 1 && t == 0 && j + DQ_STAGES < ntiles) {
+      mbar_wait(empty_bar + 8 * stage, (j / DQ_STAGES) & 1);
+      issue(j + DQ_STAGES);
+    }
+  };
+  auto form_ds = [&](int j) {  // p = exp2(s - lse) (0 past Lk), ds = p (dp - delta) into a
+    wgmma_fence_regs(s);
+    wgmma_fence_regs(dp);
+    // s[4 n + 0..1] row gid, s[4 n + 2..3] row gid + 8 of the warp's 16, key 128 j + 8 n + 2 tig (+ 1)
+    if (128 * j + 128 > Lk) {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float p = (k0 + j * 8 + tig * 2 + (u & 1) < Lk) ? exp2f(s[j][u] - lse_r[u >> 1]) : 0.f;
-        s[j][u] = p * (dp[j][u] - del_r[u >> 1]);  // ds; rounded to bf16 in bw_mma_ax
+      for (int e = 0; e < 64; ++e) {
+        const int r = (e >> 1) & 1;
+        const float p = 128 * j + (e >> 2) * 8 + tig * 2 + (e & 1) < Lk ? bw_ex2(s[e] - lse_r[r]) : 0.f;
+        s[e] = p * (dp[e] - del_r[r]);
       }
-    bw_mma_ax(acc, s, Ks, lane);  // dq += ds k
+    } else {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        const int r = (e >> 1) & 1;
+        s[e] = bw_ex2(s[e] - lse_r[r]) * (dp[e] - del_r[r]);
+      }
+    }
+    bw_pack_a<8>(a, s);
+  };
+  // one turn a key tile: dQ of tile j - 1 and S, dP of tile j issued together, so this
+  // warpgroup's exponentials of tile j run while the other's products do
+  turns.start();
+  mbar_wait(full_bar, 0);
+  turns.take();
+  wgmma_fence();
+  issue_s(0);
+  turns.pass(false);
+  wgmma_wait<0>();
+  form_ds(0);
+  for (int j = 1; j < ntiles; ++j) {
+    mbar_wait(full_bar + 8 * (j % DQ_STAGES), (j / DQ_STAGES) & 1);
+    turns.take();
+    wgmma_fence();
+    issue_dq(j - 1);
+    issue_s(j);
+    turns.pass(false);
+    wgmma_wait<1>();
+    release(j - 1);
+    wgmma_wait<0>();
+    form_ds(j);
   }
-  bw_store_rows(dq + b * st.dq[0] + h * st.dq[2], st.dq[1], q0, r0, Lq, acc, tig, scale);
+  turns.take();
+  wgmma_fence();
+  issue_dq(ntiles - 1);
+  turns.pass(true);
+  wgmma_wait<0>();
+  wgmma_fence_regs(acc);
+  release(ntiles - 1);
+  bw_store_tile(acc, scale, sq, wbar, dq + b * dqsb + h * dqsh, dqsl, row0, Lq, t);
 }
 
-__global__ void __launch_bounds__(128) flash_bwd_dkv_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H, int Lq, int Lk,
-    BwdStrides st, float qscale) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[BW_T * MB_DP];
-  __shared__ __align__(16) __nv_bfloat16 Gs[BW_T * MB_DP];
-  __shared__ float row_lse[BW_T], row_delta[BW_T];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
+__global__ void __launch_bounds__(k5w::THREADS, 1) flash_bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+    const __grid_constant__ CUtensorMap rowmap, __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    int H, int Lq, int Lk, long long dksb, long long dksl, long long dksh, long long dvsb, long long dvsl,
+    long long dvsh, float qscale) {
+  using namespace k5w;
+  extern __shared__ unsigned char bw_smem[];
+  const uint32_t base = smem_u32(smem_align_1024(bw_smem));
+  const uint32_t sring = base + DKV_RES;
+  const uint32_t res_bar = base + DKV_BAR, full_bar = res_bar + 8, empty_bar = full_bar + 8 * DKV_STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int k0 = blockIdx.x * BW_T;
-  const __nv_bfloat16* qb = q + b * st.q[0] + h * st.q[2];
-  const __nv_bfloat16* gb = g + b * st.g[0] + h * st.g[2];
+  const int k0 = blockIdx.x * 64 * NWG;
+  const int ntiles = (Lq + 127) / 128;
 
-  // this warp's 16 keys (rows r0, r0 + 8) as A fragments, staged through Qs/Gs
-  bw_stage(Qs, k + b * st.k[0] + h * st.k[2], st.k[1], k0, Lk, tid, false, 1.f);
-  bw_stage(Gs, v + b * st.v[0] + h * st.v[2], st.v[1], k0, Lk, tid, false, 1.f);
-  __syncthreads();
-  const int r0 = warp * 16 + gid;
-  uint32_t kf[MB_KS][4], vf[MB_KS][4];
-  bw_load_a(kf, Qs, r0, tig);
-  bw_load_a(vf, Gs, r0, tig);
-  const bool key_ok[2] = {k0 + r0 < Lk, k0 + r0 + 8 < Lk};
-
-  float acc_dk[MB_NO][4], acc_dv[MB_NO][4];
+  if (tid == 0) {
+    mbar_init(res_bar, 1);
 #pragma unroll
-  for (int n = 0; n < MB_NO; ++n)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc_dk[n][u] = acc_dv[n][u] = 0.f;
-
-  for (int q0 = 0; q0 < Lq; q0 += BW_T) {
-    __syncthreads();  // every warp is done with the previous tile (or the K/V staging)
-    bw_stage(Qs, qb, st.q[1], q0, Lq, tid, true, qscale);
-    bw_stage(Gs, gb, st.g[1], q0, Lq, tid, false, 1.f);
-    if (tid < BW_T) {
-      const int row = q0 + tid;
-      const long long idx = ((long long)b * Lq + row) * H + h;
-      row_lse[tid] = row < Lq ? lse[idx] : INFINITY;  // ragged rows: p = 0
-      row_delta[tid] = row < Lq ? delta[idx] : 0.f;
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, NWG);
     }
-    __syncthreads();
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    // transposed tiles: rows = keys, columns = this tile's queries
-    float s[MB_NT][4], dp[MB_NT][4];
+  auto issue = [&](int j) {  // query tile j: q, g and the rows' LSE and delta
+    const int stage = j % DKV_STAGES;
+    const uint32_t st = sring + stage * DKV_STAGE, bar = full_bar + 8 * stage;
+    mbar_expect_tx(bar, DKV_STAGE);
+    tma_load_4d(st, &qmap, bar, 0, 128 * j, h, b);
+    tma_load_4d(st + T128, &gmap, bar, 0, 128 * j, h, b);
+    tma_load_3d(st + 2 * T128, &rowmap, bar, 128 * j, blockIdx.y, 0);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(res_bar, DKV_RES);
+    tma_load_4d(base, &kmap, res_bar, 0, k0, h, b);
+    tma_load_4d(base + T128, &vmap, res_bar, 0, k0, h, b);
+    for (int j = 0; j < DKV_STAGES && j < ntiles; ++j) issue(j);
+  }
+
+  const int t = tid & 127, tig = t & 3;
+  const uint32_t sk = base + wg * T64, sv = base + T128 + wg * T64;  // this warpgroup's 64 keys
+  const BwTurns turns{wg, NWG};
+  // qf = round(q * qscale) of tile j in place: this warpgroup's 64 of its 128 rows, then
+  // the half is handed over (arrive-early barrier 5 + 2 wg + j % 2, which the other waits on)
+  auto scale_half = [&](int j) {
+    const int stage = j % DKV_STAGES;
+    mbar_wait(full_bar + 8 * stage, (j / DKV_STAGES) & 1);
+    bw_scale_chunks(sring + stage * DKV_STAGE + wg * T64, T64 / 16, t, 128, qscale);
+    fence_proxy_async();
+    bar_arrive(SCALED_BAR + 2 * wg + (j & 1), 256);
+  };
+  float dk_acc[32], dv_acc[32];
 #pragma unroll
-    for (int j = 0; j < MB_NT; ++j)
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  uint32_t ap[8][4], as[8][4];  // round(p^T) and round(ds^T) of the last query tile
+  float st[64], dpt[64];        // S^T, dP^T: rows the warpgroup's keys, columns the tile's queries
+  auto stage_of = [&](int j) { return sring + (j % DKV_STAGES) * DKV_STAGE; };
+  auto issue_s = [&](int j) {  // S^T = K qf^T and dP^T = V g^T of query tile j, one group
+    const uint32_t sq = stage_of(j), sg = sq + T128;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) s[j][u] = dp[j][u] = 0.f;
-    bw_mma_xt(s, kf, Qs, gid, tig);   // k qf^T
-    bw_mma_xt(dp, vf, Gs, gid, tig);  // v g^T
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n128k16_ss(st, wgmma_desc(sk + kk * 32, 16, 1024), wgmma_desc(sq + kk * 32, 16, 1024), kk);
 #pragma unroll
-    for (int j = 0; j < MB_NT; ++j)
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n128k16_ss(dpt, wgmma_desc(sv + kk * 32, 16, 1024), wgmma_desc(sg + kk * 32, 16, 1024), kk);
+    wgmma_commit();
+  };
+  auto issue_dkv = [&](int j) {  // dV += round(p^T) g and dK += ds^T qf of query tile j, one group
+    const uint32_t sq = stage_of(j), sg = sq + T128;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) wgmma_m64n64k16_rs_tb(dv_acc, ap[kk], wgmma_desc(sg + kk * 2048, T128, 1024), 1);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) wgmma_m64n64k16_rs_tb(dk_acc, as[kk], wgmma_desc(sq + kk * 2048, T128, 1024), 1);
+    wgmma_commit();
+  };
+  auto release = [&](int j) {  // query tile j's stage goes back; the last warpgroup refills it
+    const int stage = j % DKV_STAGES;
+    if (t == 0) mbar_arrive(empty_bar + 8 * stage);
+    if (wg == NWG - 1 && t == 0 && j + DKV_STAGES < ntiles) {
+      mbar_wait(empty_bar + 8 * stage, (j / DKV_STAGES) & 1);
+      issue(j + DKV_STAGES);
+    }
+  };
+  auto form_ds = [&](int j) {  // p^T = exp2(s^T - lse), ds^T = p^T (dp^T - delta) into ap, as
+    wgmma_fence_regs(st);
+    wgmma_fence_regs(dpt);
+    const uint32_t srow = stage_of(j) + 2 * T128;
+    // element e: key 16 warp + gid + 8 ((e >> 1) & 1), query 8 (e >> 2) + 2 tig + (e & 1)
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      float l0, l1, d0, d1;
+      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(l0), "=f"(l1) : "r"(srow + 4 * (8 * n + 2 * tig)));
+      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                   : "=f"(d0), "=f"(d1)
+                   : "r"(srow + 512 + 4 * (8 * n + 2 * tig)));
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const int qc = j * 8 + tig * 2 + (u & 1);
-        const float p = key_ok[u >> 1] ? exp2f(s[j][u] - row_lse[qc]) : 0.f;
-        s[j][u] = p;                                  // rounded to bf16 in bw_mma_ax
-        dp[j][u] = p * (dp[j][u] - row_delta[qc]);    // ds
+        const int e = 4 * n + u;
+        const float p = bw_ex2(st[e] - ((u & 1) ? l1 : l0));
+        st[e] = p;
+        dpt[e] = p * (dpt[e] - ((u & 1) ? d1 : d0));
       }
-    bw_mma_ax(acc_dv, s, Gs, lane);   // dv += p^T g
-    bw_mma_ax(acc_dk, dp, Qs, lane);  // dk += ds^T qf
+    }
+    bw_pack_a<8>(ap, st);
+    bw_pack_a<8>(as, dpt);
+  };
+  // one turn a query tile: dV, dK of tile j - 1, then (once they are done and their A
+  // operands' registers free) S^T, dP^T of tile j, so each warpgroup's products run as one
+  // burst while the other forms its p^T and ds^T
+  mbar_wait(res_bar, 0);
+  scale_half(0);
+  turns.start();
+  bar_sync(SCALED_BAR + 2 * (1 - wg), 256);  // the other half of qf of tile 0 is in place
+  turns.take();
+  wgmma_fence();
+  issue_s(0);
+  turns.pass(false);
+  if (ntiles > 1) scale_half(1);
+  wgmma_wait<0>();
+  form_ds(0);
+  for (int j = 1; j < ntiles; ++j) {
+    bar_sync(SCALED_BAR + 2 * (1 - wg) + (j & 1), 256);  // the other half of qf of tile j is in place
+    turns.take();
+    wgmma_fence();
+    issue_dkv(j - 1);
+    wgmma_wait<0>();
+    wgmma_fence();
+    issue_s(j);
+    turns.pass(false);
+    release(j - 1);
+    if (j + 1 < ntiles) scale_half(j + 1);  // while the products run
+    wgmma_wait<0>();
+    form_ds(j);
   }
-  bw_store_rows(dk + b * st.dk[0] + h * st.dk[2], st.dk[1], k0, r0, Lk, acc_dk, tig, kInvLog2E);
-  bw_store_rows(dv + b * st.dv[0] + h * st.dv[2], st.dv[1], k0, r0, Lk, acc_dv, tig, 1.f);
+  turns.take();
+  wgmma_fence();
+  issue_dkv(ntiles - 1);
+  turns.pass(true);
+  wgmma_wait<0>();
+  wgmma_fence_regs(dv_acc);
+  wgmma_fence_regs(dk_acc);
+  release(ntiles - 1);
+  const int key0 = k0 + 64 * wg;
+  bw_store_tile(dk_acc, kInvLog2E, sk, 1 + NWG + wg, dk + b * dksb + h * dksh, dksl, key0, Lk, t);
+  bw_store_tile(dv_acc, 1.f, sv, 1 + NWG + wg, dv + b * dvsb + h * dvsh, dvsl, key0, Lk, t);
 }
 
-int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o, const void* g,
-                   const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
-                   int Lq, int Lk, const long long* strides, const BwdStrides& st, float qscale,
-                   float scale, cudaStream_t stream) {
+// q, k, v, o, g [B, L, H, 64] through their strides; bases 16-byte aligned and
+// strides in whole 16-byte rows (the wrapper checks q/k/v/o/g; dq/dk/dv are its
+// own contiguous outputs, checked here). delta: the [2, B*H, Lq rounded up to 4]
+// fp32 scratch.
+int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o, const void* g, const float* lse,
+                     float* scratch, void* dq, void* dk, void* dv, int B, int H, int Lq, int Lk,
+                     const long long* st, float qscale, float scale, cudaStream_t stream) {
+  using namespace k5w;
   const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
-                          reinterpret_cast<uintptr_t>(g);
-  const uintptr_t outs = reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
-                         reinterpret_cast<uintptr_t>(dv);
-  if (bases % 16 || outs % 4) return kErrBadArgument;
+                          reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(dq) |
+                          reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv) |
+                          reinterpret_cast<uintptr_t>(scratch);
+  if (bases % 16) return kErrBadArgument;
   for (int i = 0; i < 24; ++i)
-    if (strides[i] % (i < 15 ? 8 : 2)) return kErrBadArgument;
+    if (st[i] % 8) return kErrBadArgument;
+  static const cudaError_t attr_dq =
+      cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM);
+  static const cudaError_t attr_dkv =
+      cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM);
+  if (attr_dq != cudaSuccess) return (int)attr_dq;
+  if (attr_dkv != cudaSuccess) return (int)attr_dkv;
+  // q, k, v, g: boxes of 64 d x 128 rows
+  CUtensorMap maps[4];
+  const void* srcs[4] = {q, k, v, g};
+  const int rows[4] = {Lq, Lk, Lk, Lq}, which[4] = {0, 1, 2, 4};
+  for (int i = 0; i < 4; ++i) {
+    const long long* s = st + 3 * which[i];
+    const cuuint64_t dims[4] = {64, (cuuint64_t)rows[i], (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)s[1] * 2, (cuuint64_t)s[2] * 2, (cuuint64_t)s[0] * 2};
+    const cuuint32_t box[4] = {64, 128, 1, 1};
+    if (const int rc = wgmma_tiled_map(srcs[i], 4, dims, strides, box, &maps[i])) return rc;
+  }
+  // the scratch's LSE and delta rows: [2][B*H][lq_pad] fp32, boxes of 128 rows x both
+  const int lq_pad = (Lq + 3) / 4 * 4;
+  CUtensorMap rowmap;
+  {
+    const cuuint64_t dims[3] = {(cuuint64_t)Lq, (cuuint64_t)B * H, 2};
+    const cuuint64_t strides[2] = {(cuuint64_t)lq_pad * 4, (cuuint64_t)B * H * lq_pad * 4};
+    const cuuint32_t box[3] = {128, 1, 2};
+    if (const int rc = tma_tiled_map(CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_SWIZZLE_NONE, scratch, 3, dims,
+                                     strides, box, &rowmap))
+      return rc;
+  }
   using bf = __nv_bfloat16;
-  const bf* qt = static_cast<const bf*>(q);
-  const bf* kt = static_cast<const bf*>(k);
-  const bf* vt = static_cast<const bf*>(v);
-  const bf* gt = static_cast<const bf*>(g);
-  flash_bwd_dq_mma_kernel<<<dim3((Lq + BW_T - 1) / BW_T, B * H), 128, 0, stream>>>(
-      qt, kt, vt, static_cast<const bf*>(o), gt, lse, delta, static_cast<bf*>(dq), H, Lq, Lk, st,
-      qscale, scale);
+  flash_bwd_dq_wgmma_kernel<<<dim3((Lq + 64 * NWG - 1) / (64 * NWG), B * H), THREADS, DQ_SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const bf*>(o), lse, scratch, static_cast<bf*>(dq), H, Lq,
+      Lk, lq_pad, st[9], st[10], st[11], st[15], st[16], st[17], qscale, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_mma_kernel<<<dim3((Lk + BW_T - 1) / BW_T, B * H), 128, 0, stream>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), H, Lq, Lk, st,
-      qscale);
+  flash_bwd_dkv_wgmma_kernel<<<dim3((Lk + 64 * NWG - 1) / (64 * NWG), B * H), THREADS, DKV_SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], rowmap, static_cast<bf*>(dk), static_cast<bf*>(dv), H, Lq, Lk, st[18],
+      st[19], st[20], st[21], st[22], st[23], qscale);
   return (int)cudaGetLastError();
 }
 
@@ -651,14 +881,16 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o, c
 
 // q, k, v, o, g: [B, L, H*D] read through `strides` (24 element strides:
 // (batch, row, head) of q, k, v, o, g, dq, dk, dv; head-dim stride 1);
-// lse: fp32 [B, Lq, H] from K1; delta: fp32 [B, Lq, H] scratch (written by
-// the dq kernel, read by the dk/dv kernel, on the same stream).
+// lse: fp32 [B, Lq, H] from K1; delta: fp32 scratch of 2 * B * H * (Lq rounded
+// up to 4) (the dq kernel writes each row's delta there, and in bf16 its LSE,
+// for the dk/dv kernel on the same stream). route (or NULL) receives the
+// kernels that ran: 2 wgmma (bf16), 0 fp32 FMAs.
 extern "C" int vs_flash_attention_packed_bwd(int dtype, int D, const void* q, const void* k,
                                              const void* v, const void* o, const void* g,
                                              const void* lse, void* delta, void* dq, void* dk,
                                              void* dv, int B, int H, int Lq, int Lk,
                                              const long long* strides, float qscale,
-                                             float scale, void* stream) {
+                                             float scale, int* route, void* stream) {
   if (D != vs::BW_D) return vs::kErrUnsupported;
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B * H > 65535) return vs::kErrBadArgument;
   vs::BwdStrides st;
@@ -666,11 +898,14 @@ extern "C" int vs_flash_attention_packed_bwd(int dtype, int D, const void* q, co
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == vs::kBFloat16)
-    return vs::launch_bwd_mma(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, strides, st, qscale,
-                              scale, s);
-  if (dtype == vs::kFloat32)
-    return vs::launch_bwd_fma<float>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale,
-                                     scale, s);
-  return vs::kErrUnsupported;
+  int r = -1, rc = vs::kErrUnsupported;
+  if (dtype == vs::kBFloat16) {
+    r = 2;
+    rc = vs::launch_bwd_wgmma(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, strides, qscale, scale, s);
+  } else if (dtype == vs::kFloat32) {
+    r = 0;
+    rc = vs::launch_bwd_fma<float>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s);
+  }
+  if (route != nullptr) *route = r;
+  return rc;
 }

@@ -717,11 +717,11 @@ inline void* wgmma_libcuda_entry(const char* name) {
   return fn;
 }
 
-// A tiled map of a bf16 tensor of `rank` dims (innermost first, unit stride;
-// strides: bytes of dims 1.., multiples of 16) with `box` elements per dim
-// (64 innermost: one 128-byte row) under the 128-byte swizzle.
-inline int wgmma_tiled_map(const void* base, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
-                           const cuuint32_t* box, CUtensorMap* map) {
+// A tiled map of a tensor of `rank` dims (innermost first, unit stride;
+// strides: bytes of dims 1.., multiples of 16) with `box` elements per dim.
+inline int tma_tiled_map(CUtensorMapDataType dtype, CUtensorMapSwizzle swizzle, const void* base, int rank,
+                         const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                         CUtensorMap* map) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                               const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
                               CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
@@ -729,11 +729,18 @@ inline int wgmma_tiled_map(const void* base, int rank, const cuuint64_t* dims, c
   static const Encode encode = reinterpret_cast<Encode>(wgmma_libcuda_entry("cuTensorMapEncodeTiled"));
   if (encode == nullptr) return kErrUnsupported;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base),
-                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const CUresult rc = encode(map, dtype, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, elem,
+                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : kErrBadArgument;
+}
+
+// A bf16 tiled map with 64 elements innermost in a box (one 128-byte row)
+// under the 128-byte swizzle: the operand tiles of the wgmma kernels.
+inline int wgmma_tiled_map(const void* base, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box, CUtensorMap* map) {
+  return tma_tiled_map(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B, base, rank, dims, strides,
+                       box, map);
 }
 
 // W [taps, N, K] bf16 (K contiguous): boxes of 64 k x bn n x 1 tap.

@@ -126,18 +126,19 @@ _L = ctypes.c_longlong
 
 _SIGNATURES = {
     # dtype, D, q, k, v, o, lse (NULL: none), B, H, Lq, Lk, strides[12], qscale,
-    # psum_rounded (1: the denominator sums the rounded p, 0: the fp32 p),
-    # route (int*: the kernel that ran, ROUTES), stream
+    # sum_mode (0: the denominator sums the fp32 p, 1: the rounded p, 2: p is
+    # normalised in fp32 before it is rounded; qscale then multiplies the fp32
+    # logits), route (int*: the kernel that ran, ROUTES), stream
     "vs_flash_attention_packed": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _I, _P, _P],
     # the same arguments, bhld strides
     "vs_flash_attention_bhld": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _I, _P, _P],
-    # dtype, D, q, k, v, o, g, lse, delta, dq, dk, dv, B, H, Lq, Lk, strides[24],
-    # qscale, scale, stream
+    # dtype, D, q, k, v, o, g, lse, scratch (fp32 [2, B*H, Lq rounded up to 4]), dq,
+    # dk, dv, B, H, Lq, Lk, strides[24], qscale, scale, route (int*), stream
     "vs_flash_attention_packed_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _P, _F, _F, _P],
+                                      _I, _I, _I, _I, _P, _F, _F, _P, _P],
     # the same arguments, bhld strides
     "vs_flash_attention_bhld_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _P, _F, _F, _P],
+                                    _I, _I, _I, _I, _P, _F, _F, _P, _P],
     # dtype, D, q, k, v, o, nvid, t, S, H, qscale, route (int*), stream
     "vs_temporal_attention_direct": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     # dtype, D, q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, route (int*), stream

@@ -32,6 +32,15 @@ K2, _small_seq_kernel :590-595 for K1 at the short sites, _flash_kernel
 :147-156 for K3 without a gradient). The backward versions round ds, and p
 where it feeds dV, to the input dtype before the products
 (attention.py:813-906, :1068-1120).
+
+Routing: site_route mirrors the JAX package's TPU dispatch (dot_product_attention)
+case by case, and dot_product_attention and small_batched_attention take their
+kernel from it. Where JAX sends a site to no Pallas kernel but to mha_reference
+(mixed lengths on either side of 512, bhld shorter than 512, too few folded
+rows), the card runs K1 or K3 in their normalise-first mode: S from the
+unscaled q in fp32 times scale*log2(e), p = exp2(s - m) / l normalised in fp32
+before it is rounded to the input dtype, and no division after P.V
+(_attention_normalised is its plain version).
 """
 
 from __future__ import annotations
@@ -72,6 +81,36 @@ def _attention_base2(q, k, v, scale, with_lse: bool = False, psum_rounded: bool 
     return out, (m[..., 0] + torch.log2(l)).permute(0, 2, 1)
 
 
+def _attention_normalised(q, k, v, scale):
+    """mha_reference's math in the kernels' base 2 on blhd [B, L, H, D]: the
+    logits from the unscaled inputs in fp32 times scale*log2(e), the softmax
+    normalised in fp32, p rounded to the input dtype, P.V in fp32 with no
+    division after it. Returns fp32 blhd."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (scale * LOG2_E)
+    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    p = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype).float()
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+
+
+def _sum_mode(psum_rounded: bool, normalise_first: bool) -> int:
+    """The C entries' softmax mode: 0 the fp32 sum of p, 1 the sum of the
+    rounded p, 2 normalise first (mha_reference)."""
+    return 2 if normalise_first else int(psum_rounded)
+
+
+def _kernel_qscale(scale: float, dtype: torch.dtype, normalise_first: bool) -> float:
+    """What the kernels multiply by: scale*log2(e) rounded to the input dtype
+    (the q prescale of the Pallas kernels), or as the C float it is passed as,
+    on the fp32 logits (normalise first)."""
+    return scale * LOG2_E if normalise_first else float(_rounded_qscale(scale, dtype))
+
+
+def _refuse_normalised_grad(name, normalise_first, *tensors):
+    if normalise_first and _needs_grad(*tensors):
+        raise ValueError(f"{name}: the normalise-first route has no backward; a site that trains keeps "
+                         "the flash route (site_route)")
+
+
 def mha_reference(q, k, v, scale: Optional[float] = None, layout: str = "bhld"):
     """Plain attention with an fp32 softmax (the JAX package's mha_reference).
     layout 'bhld' [B, H, L, D] or 'blhd' [B, L, H, D]."""
@@ -94,15 +133,22 @@ mha_reference.calls = 0
 
 
 def flash_attention_packed_reference(q, k, v, heads: int, scale: Optional[float] = None,
-                                     save_lse: bool = False, psum_rounded: bool = True):
+                                     save_lse: bool = False, psum_rounded: bool = True,
+                                     normalise_first: bool = False):
     """Plain version of K1 on packed [B, L, H*D]; save_lse also returns the
     base-2 LSE [B, L, H] fp32 (the JAX package's save_lse output);
-    psum_rounded as K1's (flash_attention_packed)."""
+    psum_rounded and normalise_first as K1's (flash_attention_packed)."""
     flash_attention_packed_reference.calls += 1
     b, lq, hd = q.shape
     lk = k.shape[1]
     d = hd // heads
     scale = 1.0 / math.sqrt(d) if scale is None else scale
+    if normalise_first:
+        if save_lse:
+            raise ValueError("flash_attention_packed: the normalise-first route writes no LSE")
+        out = _attention_normalised(q.reshape(b, lq, heads, d), k.reshape(b, lk, heads, d),
+                                    v.reshape(b, lk, heads, d), scale)
+        return out.reshape(b, lq, hd).to(q.dtype)
     res = _attention_base2(
         q.reshape(b, lq, heads, d), k.reshape(b, lk, heads, d),
         v.reshape(b, lk, heads, d), scale, with_lse=save_lse, psum_rounded=psum_rounded,
@@ -134,11 +180,11 @@ def _check_bf16_rows(name, dtype, strides, n_vec, *tensors):
 
 
 def _flash_attention_packed_forward(q, k, v, heads: int, scale: Optional[float], save_lse: bool,
-                                    psum_rounded: bool = True):
+                                    psum_rounded: bool = True, normalise_first: bool = False):
     """K1 on CUDA tensors (the plain version on CPU): out, or (out, lse)."""
     if q.device.type == "cpu":
         return flash_attention_packed_reference(q, k, v, heads, scale, save_lse=save_lse,
-                                                psum_rounded=psum_rounded)
+                                                psum_rounded=psum_rounded, normalise_first=normalise_first)
     dtype = _check_packed("flash_attention_packed", q, k, v, heads)
     b, lq, hd = q.shape
     lk = k.shape[1]
@@ -153,10 +199,12 @@ def _flash_attention_packed_forward(q, k, v, heads: int, scale: Optional[float],
         "vs_flash_attention_packed", _cuda.DTYPE_CODES[dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if save_lse else None,
-        b, heads, lq, lk, strides, float(_rounded_qscale(scale, dtype)), int(psum_rounded),
+        b, heads, lq, lk, strides, _kernel_qscale(scale, dtype, normalise_first),
+        _sum_mode(psum_rounded, normalise_first),
     )
     flash_attention_packed.launches += 1
     flash_attention_packed.wgmma_launches += route == "wgmma"
+    flash_attention_packed.normalised_launches += normalise_first and route == "wgmma"
     out = out.view(b, lq, hd)
     return (out, lse) if save_lse else out
 
@@ -181,22 +229,26 @@ class _FlashAttentionPacked(torch.autograd.Function):
 
 
 def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
-                           psum_rounded: bool = True):
+                           psum_rounded: bool = True, normalise_first: bool = False):
     """K1: online-softmax attention on packed [B, L, H*D] (any L, D = 64),
     read through the tensors' strides with no transpose; bf16 runs the wgmma
     kernel fed by TMA and needs 16-byte aligned rows (a view that is not is
     refused), fp32 the FMA kernel. The denominator sums the rounded p
     (psum_rounded, JAX's fused_psum default) or the fp32 p (the short sites,
     small_batched_attention); the LSE written under a gradient is m + log2 of
-    that same sum. Differentiable: with grad on, the backward is K5."""
+    that same sum. normalise_first computes mha_reference's softmax instead
+    (p normalised in fp32, then rounded; no gradient). Differentiable
+    otherwise: with grad on, the backward is K5."""
+    _refuse_normalised_grad("flash_attention_packed", normalise_first, q, k, v)
     if _needs_grad(q, k, v):
         return _FlashAttentionPacked.apply(q, k, v, heads, scale, psum_rounded)
     return _flash_attention_packed_forward(q, k, v, heads, scale, save_lse=False,
-                                           psum_rounded=psum_rounded)
+                                           psum_rounded=psum_rounded, normalise_first=normalise_first)
 
 
 flash_attention_packed.launches = 0
 flash_attention_packed.wgmma_launches = 0   # of .launches, those that ran the wgmma kernel
+flash_attention_packed.normalised_launches = 0   # of .wgmma_launches, those in the normalise-first mode
 
 
 # -- K5: packed flash-attention backward ---------------------------------------
@@ -258,42 +310,81 @@ def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
     dq = torch.empty((b, lq, heads, d), dtype=dtype, device=q.device)
     dk = torch.empty((b, lk, heads, d), dtype=dtype, device=q.device)
     dv = torch.empty_like(dk)
-    delta = torch.empty((b, lq, heads), dtype=torch.float32, device=q.device)  # scratch
     r4 = lambda t, l: t.view(b, l, heads, d)
     strides = _cuda.strides_arg(r4(q, lq), r4(k, lk), r4(v, lk), r4(out, lq), r4(g, lq), dq, dk, dv)
     _check_bf16_rows("flash_attention_packed_backward", dtype, strides, 15, q, k, v, out, g)
-    _cuda.call(
+    route = _cuda.call_routed(
         "vs_flash_attention_packed_bwd", _cuda.DTYPE_CODES[dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), _bwd_scratch(b, heads, lq, q.device).data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, heads, lq, lk, strides, float(_rounded_qscale(scale, dtype)), float(scale),
     )
     flash_attention_packed_backward.launches += 1
+    flash_attention_packed_backward.wgmma_launches += route == "wgmma"
     return dq.view(b, lq, hd), dk.view(b, lk, hd), dv.view(b, lk, hd)
 
 
 flash_attention_packed_backward.launches = 0
+flash_attention_packed_backward.wgmma_launches = 0   # bf16, on the wgmma kernels
 
 
-# Below this length (max of Lq, Lk) the JAX package's TPU dispatch sends a blhd
-# site to _small_seq_kernel, at and above it to the packed flash kernel
-# (attention.py:714, :1609-1622).
+def _bwd_scratch(b, h, lq, device):
+    """fp32 scratch of the flash backwards (K5, K13): the dq kernel writes each
+    row's LSE and delta = rowsum(g * o) there as [2, B*H, Lq rounded up to 4]
+    (rows 16-byte aligned, read by the dk/dv kernel's TMA)."""
+    return torch.empty((2, b * h, (lq + 3) // 4 * 4), dtype=torch.float32, device=device)
+
+
+# The JAX package's TPU dispatch (dot_product_attention, attention.py:1584-1644):
+# below SHORT_SEQ (max of Lq, Lk) a blhd site folds `fold` problems into one
+# _small_seq_kernel tile if that gives at least SMALL_MIN_ROWS rows; with both
+# lengths at SHORT_SEQ or more it runs a flash kernel; everything else goes to
+# mha_reference (attention.py:714, :717, :1609-1644).
 SHORT_SEQ = 512
+SMALL_MIN_ROWS = 112
+
+
+def _best_fold(b: int, lq: int, lk: int) -> int:
+    """The largest divisor of B that is at most SHORT_SEQ // max(Lq, Lk): JAX's
+    _best_fold (attention.py:642-656) without its VMEM budget, which never
+    binds below 512 folded rows at these widths (the VMEM models are not
+    ported: ROADMAP, "Not to port")."""
+    cap = max(1, SHORT_SEQ // max(lq, lk))
+    return next(f for f in range(min(cap, b), 0, -1) if b % f == 0)
+
+
+def site_route(layout: str, b: int, lq: int, lk: int) -> str:
+    """Which function JAX's TPU dispatch runs at an attention site: "one_key"
+    (Lk = 1: V itself), "small_batched" (_small_seq_kernel; blhd only),
+    "flash" (the packed flash kernel for blhd, _flash_kernel for bhld) or
+    "mha_reference". The port runs K1 with the fp32 sum, K1 / K3 with theirs,
+    and K1 / K3 in the normalise-first mode at these."""
+    if lk == 1:
+        return "one_key"
+    if layout == "blhd" and max(lq, lk) < SHORT_SEQ and _best_fold(b, lq, lk) * lq >= SMALL_MIN_ROWS:
+        return "small_batched"
+    if lq >= SHORT_SEQ and lk >= SHORT_SEQ:
+        return "flash"
+    return "mha_reference"
 
 
 def small_batched_attention(q, k, v, scale: Optional[float] = None):
-    """Attention on [B, L, H, D]. The TPU folds many short problems
-    (L < 512) into one MXU tile (_small_seq_kernel); on the GPU short and
-    long problems alike are rows of K1's grid on the packed view, so this
-    also serves dot_product_attention's long spatial sites (and K5 their
-    backward). The denominator is that of the JAX kernel the site replaces:
-    the fp32 sum of _small_seq_kernel where max(Lq, Lk) < SHORT_SEQ, the
-    rounded sum of the packed kernel's fused_psum elsewhere."""
+    """Attention on [B, L, H, D] through K1 on the packed view, the kernel
+    that site_route names for the site: the fp32 sum of _small_seq_kernel
+    ("small_batched"), the rounded sum of the packed kernel's fused_psum
+    ("flash"), or the normalise-first mode ("mha_reference"). On the TPU
+    short problems fold into one MXU tile; on the GPU short and long problems
+    alike are rows of K1's grid. Under a gradient an "mha_reference" site keeps
+    K1 with the sum of its length (the rounded one from SHORT_SEQ on), whose
+    backward is K5: no path trains such a site."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
+    route = site_route("blhd", b, lq, lk)
+    normalise_first = route == "mha_reference" and not _needs_grad(q, k, v)
     out = flash_attention_packed(
         q.reshape(b, lq, h * d), k.reshape(b, lk, h * d), v.reshape(b, lk, h * d),
-        heads=h, scale=scale, psum_rounded=max(lq, lk) >= SHORT_SEQ,
+        heads=h, scale=scale, psum_rounded=max(lq, lk) >= SHORT_SEQ, normalise_first=normalise_first,
     )
     return out.reshape(b, lq, h, d)
 
@@ -451,24 +542,23 @@ temporal_attention_direct_backward.mma_launches = 0   # bf16, on the tensor core
 # -- K3: bhld flash attention (forward, LSE under a gradient) ------------------
 
 
-def _k3_psum_rounded(d: int, save_lse: bool) -> bool:
-    """K3's denominator: under a gradient (with the LSE) the sum of the
-    rounded p, as _fa_fwd runs the packed kernel with fused_psum; without one
-    the fp32 sum of _flash_kernel. D = 80 (CLIP's heads) keeps the rounded
-    sum: JAX's TPU dispatch sends CLIP to mha_reference, which normalises p
-    before rounding it and which neither sum reproduces (ROADMAP §C)."""
-    return save_lse or d == 80
-
-
-def flash_attention_reference(q, k, v, scale: Optional[float] = None, save_lse: bool = False):
+def flash_attention_reference(q, k, v, scale: Optional[float] = None, save_lse: bool = False,
+                              normalise_first: bool = False):
     """Plain version of K3 on bhld [B, H, L, D]; save_lse also returns the
     base-2 LSE fp32 [B, Lq, H] (for one head, JAX's [B*H, Lq] of the heads=1
-    forward under a gradient); the denominator as _k3_psum_rounded says."""
+    forward under a gradient). The denominator sums the rounded p with the
+    LSE (_fa_fwd runs the packed kernel with fused_psum), the fp32 p without
+    (_flash_kernel); normalise_first as K3's (flash_attention)."""
     flash_attention_reference.calls += 1
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    if normalise_first:
+        if save_lse:
+            raise ValueError("flash_attention: the normalise-first route writes no LSE")
+        out = _attention_normalised(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale)
+        return out.transpose(1, 2).to(q.dtype)
     res = _attention_base2(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale, with_lse=save_lse,
-        psum_rounded=_k3_psum_rounded(q.shape[-1], save_lse),
+        psum_rounded=save_lse,
     )
     if save_lse:
         return res[0].transpose(1, 2).to(q.dtype), res[1]
@@ -485,10 +575,10 @@ def _check_bhld(name, q, k, v):
     return dtype
 
 
-def _flash_attention_forward(q, k, v, scale: Optional[float], save_lse: bool):
+def _flash_attention_forward(q, k, v, scale: Optional[float], save_lse: bool, normalise_first: bool = False):
     """K3 on CUDA tensors (the plain version on CPU): out, or (out, lse)."""
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale, save_lse=save_lse)
+        return flash_attention_reference(q, k, v, scale, save_lse=save_lse, normalise_first=normalise_first)
     dtype = _check_bhld("flash_attention", q, k, v)
     b, h, lq, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else scale
@@ -500,11 +590,12 @@ def _flash_attention_forward(q, k, v, scale: Optional[float], save_lse: bool):
         "vs_flash_attention_bhld", _cuda.DTYPE_CODES[dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if save_lse else None,
-        b, h, lq, k.shape[2], strides, float(_rounded_qscale(scale, dtype)),
-        int(_k3_psum_rounded(d, save_lse)),
+        b, h, lq, k.shape[2], strides, _kernel_qscale(scale, dtype, normalise_first),
+        _sum_mode(save_lse, normalise_first),
     )
     flash_attention.launches += 1
     flash_attention.wgmma_launches += route == "wgmma"
+    flash_attention.normalised_launches += normalise_first and route != "fma"
     return (out, lse) if save_lse else out
 
 
@@ -526,21 +617,24 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def flash_attention(q, k, v, scale: Optional[float] = None):
+def flash_attention(q, k, v, scale: Optional[float] = None, normalise_first: bool = False):
     """K3: flash attention on bhld [B, H, L, D] through strides (D in
     {64, 80, 512}: the VAE's single 512-dim head and CLIP's 80-dim heads), so
     a strided view (CLIP's [B, L, H, D] projections seen as bhld) is read in
     place. bf16 runs on the tensor cores (wgmma at D = 512 and 64, mma.sync at
     80) and needs 16-byte aligned rows; fp32 runs the FMA kernel.
-    Differentiable: with grad on, the forward also writes the LSE and the
-    backward is K13 (K5 at D = 64)."""
+    normalise_first (bf16 D = 64 and 80) computes mha_reference's softmax
+    (no gradient). Differentiable otherwise: with grad on, the forward also
+    writes the LSE and the backward is K13 (K5 at D = 64)."""
+    _refuse_normalised_grad("flash_attention", normalise_first, q, k, v)
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, scale)
-    return _flash_attention_forward(q, k, v, scale, save_lse=False)
+    return _flash_attention_forward(q, k, v, scale, save_lse=False, normalise_first=normalise_first)
 
 
 flash_attention.launches = 0
 flash_attention.wgmma_launches = 0   # D = 64 and 512 in bf16
+flash_attention.normalised_launches = 0   # bf16 launches in the normalise-first mode
 
 
 # -- K13: bhld flash-attention backward ----------------------------------------
@@ -582,25 +676,25 @@ def flash_attention_backward(q, k, v, out, lse, g, scale: Optional[float] = None
         raise ValueError("flash_attention_backward: lse must be contiguous fp32 on q's device")
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
-    delta = torch.empty((b, lq, h), dtype=torch.float32, device=q.device)  # scratch
     strides = _cuda.strides_arg(q, k, v, out, g, dq, dk, dv, dims=(0, 2, 1))
     _check_bf16_rows("flash_attention_backward", dtype, strides, 15, q, k, v, out, g)
     k5 = d == 64
-    _cuda.call(
+    route = _cuda.call_routed(
         "vs_flash_attention_packed_bwd" if k5 else "vs_flash_attention_bhld_bwd",
         _cuda.DTYPE_CODES[dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), _bwd_scratch(b, h, lq, q.device).data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, h, lq, lk, strides, float(_rounded_qscale(scale, dtype)), float(scale),
     )
-    if k5:
-        flash_attention_packed_backward.launches += 1
-    else:
-        flash_attention_backward.launches += 1
+    counter = flash_attention_packed_backward if k5 else flash_attention_backward
+    counter.launches += 1
+    counter.wgmma_launches += route == "wgmma"
     return dq, dk, dv
 
 
 flash_attention_backward.launches = 0
+flash_attention_backward.wgmma_launches = 0   # bf16 D = 512, on the wgmma kernels
 
 
 # -- dispatcher -------------------------------------------------------------
@@ -614,11 +708,14 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None, layout: str = 
       result is V broadcast over the queries; no kernel runs.
     - CPU tensors: plain attention with an fp32 softmax (what the JAX
       package runs on its CPU backend).
-    - CUDA tensors: K1 for blhd (every spatial self-attention site, long or
-      short), K3 for bhld."""
+    - CUDA tensors: what site_route names, as JAX's TPU dispatch runs it: K1
+      for blhd (small_batched_attention), K3 for bhld; at an "mha_reference"
+      site K3 in its normalise-first mode (CLIP's 257 tokens), or with its
+      LSE under a gradient (no path trains such a site)."""
     l_axis = 1 if layout == "blhd" else 2
     lq, lk = q.shape[l_axis], k.shape[l_axis]
-    if lk == 1:
+    route = site_route(layout, q.shape[0], lq, lk)
+    if route == "one_key":
         shape = list(v.shape)
         shape[l_axis] = lq
         return v.expand(shape).to(q.dtype)
@@ -626,7 +723,8 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None, layout: str = 
         return mha_reference(q, k, v, scale=scale, layout=layout)
     if layout == "blhd":
         return small_batched_attention(q, k, v, scale=scale)
-    return flash_attention(q, k, v, scale=scale)
+    return flash_attention(q, k, v, scale=scale,
+                           normalise_first=route == "mha_reference" and not _needs_grad(q, k, v))
 
 
 PLAIN_COUNTERS = (

@@ -1,9 +1,10 @@
 """Device time of K1 (flash_attention_packed), K11 (matmul_bias), K4
 (temporal_conv_1x1), the GroupNorm forward, K2 (temporal_attention_direct)
-and its backward K6 at the main paths' shapes, beside the one PyTorch call
-for the same function, on one CUDA card.
+and its backward K6, the flash backwards K5 and K13, the normalise-first
+route of K1 and K3, and the GroupNorm backward K9 + K10 at the main paths'
+shapes, beside the one PyTorch call for the same function, on one CUDA card.
 
-    python3 -m vidseg_diffusion_tpu_torch.scripts.time_kernels [--only k11,k1,k4,gn,k2,k6]
+    python3 -m vidseg_diffusion_tpu_torch.scripts.time_kernels [--only k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb]
 
 Each call is captured 20 times into a CUDA graph and the replay is timed with
 CUDA events, so the readings are device time without the host's launch cost
@@ -26,8 +27,19 @@ back-to-back calls as K4's backward rows are (K6 also as a CUDA graph: its
 device time). Each row carries its bound (bytes over 3.35 TB/s or
 operations over 989 TFLOP/s, whichever is larger). Each output is also held
 to the plain version (bf16 steps at max |plain|, relative RMS error; K1's
-LSE too). Prints the card's name and power limit and ptxas's register /
-spill lines for the wgmma and the temporal-attention kernels.
+LSE too). K5 and K13 (`--only k5,k13`) are timed as CUDA graphs beside SDPA's
+backward through autograd.grad, whose device time is the sum of its kernels in
+torch.profiler (a graph cannot capture it); their bound counts the five
+products (10 L^2 D flops), and the line also gives the flops the kernels
+execute (S and dP recomputed: 14 L^2 D for K5, 18 L^2 D for K13). The
+normalise-first sites (`nf`: SD 2.1's cross-attention at 5824 and 1456 queries,
+CLIP) are graphs beside SDPA and beside the flash route the port ran there
+before (the rounded sum), each held to mha_reference. K9 + K10 (`gnb`) run as
+GroupNormFn's backward calls them, at the GroupNorm sites, beside the library
+backward (autograd.grad through F.group_norm (+ F.silu), profiled), with a
+bound of x and dy read and dx written. Prints the card's name and power limit
+and ptxas's register / spill lines for the wgmma, the mma.sync flash and the
+temporal-attention kernels.
 """
 
 import argparse
@@ -55,6 +67,13 @@ TCONV_SHAPES = [(2, 14, 5824, 320, 320, False), (2, 14, 1456, 640, 640, False), 
                 (2, 14, 91, 1280, 1280, False), (1, 7, 5824, 512, 512, False), (1, 7, 23296, 512, 512, False),
                 (1, 7, 93184, 256, 256, False), (1, 7, 372736, 128, 128, False), (1, 7, 372736, 3, 3, False),
                 (2, 14, 5824, 320, 320, True), (2, 14, 364, 1280, 1280, True)]
+# (B, L, H): K5 at the training path's spatial sites (ds1 on a B = 2 slice and at
+# the training batch of 2 x 14 frames)
+K5_SHAPES = [(2, 5824, 5), (28, 5824, 5), (28, 1456, 10), (28, 364, 20), (28, 91, 20)]
+# (B, H, Lq, Lk, D): K13 at the autoencoder step's VAE mid attention and off the tiles
+K13_SHAPES = [(2, 1, 5824, 5824, 512), (1, 1, 130, 77, 512)]
+# normalise-first sites: (layout, B, Lq, Lk, H, D)
+NF_SHAPES = [("blhd", 28, 5824, 77, 5, 64), ("blhd", 28, 1456, 77, 10, 64), ("bhld", 1, 257, 257, 16, 80)]
 # (S, H): the temporal self-attention sites per level (t = 14 frames, 2 videos)
 TEMPORAL_SHAPES = [(5824, 5), (1456, 10), (364, 20), (91, 20)]
 # (shape, dtype, silu, eps): chip_smoke.py's GroupNorm sites
@@ -103,6 +122,27 @@ def events_ms(torch, fn, n=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def profiled_ms(torch, fn, n=5):
+    """Device ms per call: the CUDA kernels' time that torch.profiler records
+    over n calls (for calls a CUDA graph cannot capture: autograd's backward);
+    None if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                for e in prof.key_averages())
+    return total / n / 1e3 if total > 0 else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def errors(out, ref):
@@ -237,6 +277,127 @@ def time_temporal(torch, F, rn, only):
         torch.cuda.empty_cache()
 
 
+def time_flash_backward(torch, F, rn, only):
+    """K5 (packed [B, L, H*64]) and K13 (bhld, D = 512) beside SDPA's backward
+    on views of the same tensors, each held to its plain version where the
+    plain version's [B, H, L, L] fp32 tensors fit (under ~2 GB)."""
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    bf = torch.bfloat16
+    cases = [("k5", b, h, l, l, 64) for b, l, h in K5_SHAPES] + [("k13",) + s for s in K13_SHAPES]
+    for key, b, h, lq, lk, d in cases:
+        if key not in only:
+            continue
+        if key == "k5":
+            q, go = (rn(b, lq, h * d).to(bf) for _ in range(2))
+            k, v = (rn(b, lk, h * d).to(bf) for _ in range(2))
+            out, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True)
+            fn, plain = A.flash_attention_packed_backward, A.flash_attention_packed_backward_reference
+            args = (q, k, v, out, lse, go, h)
+            view = lambda x: x.view(b, x.shape[1], h, d).transpose(1, 2)
+            executed = 14
+        else:
+            q, go = (rn(b, h, lq, d).to(bf) for _ in range(2))
+            k, v = (rn(b, h, lk, d).to(bf) for _ in range(2))
+            out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
+            fn, plain = A.flash_attention_backward, A.flash_attention_backward_reference
+            args = (q, k, v, out, lse, go)
+            view = lambda x: x
+            executed = 18
+        check = ""
+        if 4 * b * h * lq * lk * 4 <= 2e9:
+            got, ref = fn(*args), plain(*args)
+            check = ", " + ", ".join("%.2f bf16 steps, rel. RMS %.2e" % errors(x, r) for x, r in zip(got, ref))
+            del got, ref
+        leaves = [view(x).detach().requires_grad_() for x in (q, k, v)]
+        y = F.scaled_dot_product_attention(*leaves)
+        lib_ms = profiled_ms(torch, lambda: torch.autograd.grad(y, leaves, view(go), retain_graph=True))
+        before = routes(fn)
+        fn(*args)
+        moved = {key2: val - before[key2] for key2, val in routes(fn).items()}
+        ms = graph_ms(torch, lambda: fn(*args), 5)
+        nbytes = 2 * (4 * b * h * lq * d + 4 * b * h * lk * d) + 4 * b * h * lq
+        flops = 10 * b * h * lq * lk * d
+        print(f"{key.upper()} [{b},{h},{lq}x{lk},{d}]: {ms:.4f} ms (SDPA backward {fmt_ms(lib_ms)}, bound "
+              f"{bound_ms(nbytes, flops):.4f} for {flops:.3e} flops; executed {executed / 10 * flops:.3e} "
+              f"flops){check}; routes of one call {moved}", flush=True)
+        del q, k, v, go, out, lse, args, leaves, y
+        torch.cuda.empty_cache()
+
+
+def time_normalised(torch, F, rn):
+    """The normalise-first route at NF_SHAPES beside SDPA and beside the flash
+    route with the rounded sum (what the port ran there before), held to
+    mha_reference."""
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    bf = torch.bfloat16
+    for layout, b, lq, lk, h, d in NF_SHAPES:
+        if layout == "blhd":
+            q = rn(b, lq, h * d).to(bf)
+            k, v = (rn(b, lk, h * d).to(bf) for _ in range(2))
+            fn, old = A.flash_attention_packed, lambda: A.flash_attention_packed(q, k, v, h, psum_rounded=True)
+            nf = lambda: A.flash_attention_packed(q, k, v, h, normalise_first=True)
+            view = lambda x: x.view(b, x.shape[1], h, d).transpose(1, 2)
+            ref = A.mha_reference(*(x.view(b, x.shape[1], h, d) for x in (q, k, v)), layout="blhd").reshape(q.shape)
+        else:
+            q, k, v = (rn(b, h, lq, d).to(bf) for _ in range(3))
+            fn = A.flash_attention
+            old = lambda: A._flash_attention_forward(q, k, v, None, save_lse=False)
+            nf = lambda: A.flash_attention(q, k, v, normalise_first=True)
+            view = lambda x: x
+            ref = A.mha_reference(q, k, v)
+        out = nf()
+        diff = (out.float() - ref.float()).abs()
+        step = 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
+        before = routes(fn)
+        nf()
+        moved = {key: val - before[key] for key, val in routes(fn).items()}
+        ms, old_ms = graph_ms(torch, nf, 5), graph_ms(torch, old, 5)
+        lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(view(q), view(k), view(v)), 5)
+        nbytes, flops = 2 * 2 * b * h * (lq + lk) * d, 4 * b * h * lq * lk * d
+        print(f"normalise-first {layout} [{b},{lq}x{lk},{h}x{d}]: {ms:.4f} ms (SDPA {lib_ms:.4f}, the flash "
+              f"route with the rounded sum {old_ms:.4f}, bound {bound_ms(nbytes, flops):.4f}); vs mha_reference "
+              f"{diff.max().item() / step:.2f} bf16 steps, {(diff > 0).float().mean().item():.2e} of the elements "
+              f"differ; routes of one call {moved}", flush=True)
+        del q, k, v, out, ref, diff
+        torch.cuda.empty_cache()
+
+
+def time_group_norm_backward(torch, F, rn):
+    """K9 + K10 as GroupNormFn's backward calls them, at GN_SITES, beside
+    autograd.grad through F.group_norm (+ F.silu) on the channels-last view
+    (profiled device time), held to the plain backward."""
+    from vidseg_diffusion_tpu_torch.ops import norm as N
+
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    for shape, dt, silu, eps in GN_SITES:
+        dtype, c = dtypes[dt], shape[-1]
+        x = (rn(*shape) * 1.5 + 0.3).to(dtype)
+        dy = rn(*shape).to(dtype)
+        w, b = (rn(c) * 0.5 + 1.0).to(dtype), rn(c).to(dtype)
+        with torch.no_grad():
+            _, a, s, mean, inv = N._forward(x, w, b, 32, eps, silu)
+
+            def port():
+                coef, _, _ = N.group_norm_backward_stats(x, dy, w, a, s, mean, inv, 32, silu)
+                return N.group_norm_backward_apply(x, dy, a, s, coef, silu)
+
+            steps, rms = errors(port(), N.group_norm_backward_plain(x, dy, w, a, s, mean, inv, 32, silu)[0])
+            ms = graph_ms(torch, port, 5)
+        cl = lambda t: t.permute(0, t.dim() - 1, *range(1, t.dim() - 1))   # the channels-last view
+        leaves = [cl(x).detach().requires_grad_(), w.detach().requires_grad_(), b.detach().requires_grad_()]
+        y = F.group_norm(leaves[0], 32, leaves[1], leaves[2], eps)
+        y = F.silu(y) if silu else y
+        lib_ms = profiled_ms(torch, lambda: torch.autograd.grad(y, leaves, cl(dy), retain_graph=True))
+        nbytes = 3 * x.numel() * x.element_size()   # x and dy read once, dx written once
+        print(f"GroupNorm backward K9+K10 {'+SiLU ' if silu else ''}{list(shape)} {dt}: {ms:.4f} ms (library "
+              f"backward {fmt_ms(lib_ms)}, bound {bound_ms(nbytes, 0):.4f}), dx {steps:.2e} "
+              f"{'bf16 steps' if dt == 'bf16' else 'relative'}, rel. RMS {rms:.2e}", flush=True)
+        del x, dy, leaves, y
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
     import torch.nn.functional as F
@@ -246,7 +407,8 @@ def main():
     from vidseg_diffusion_tpu_torch.ops import matmul as MM
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", default="k11,k1,k4,gn,k2,k6", help="comma-separated: k11, k1, k4, gn, k2, k6")
+    parser.add_argument("--only", default="k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb",
+                        help="comma-separated: k11, k1, k4, gn, k2, k6, k5, k13, nf, gnb")
     only = set(parser.parse_args().only.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels needs a CUDA card")
@@ -257,7 +419,7 @@ def main():
     with open(os.path.join(_cuda.BUILD_DIR, "build.log")) as f:
         log = f.read().splitlines()
     for i, line in enumerate(log):
-        if "Function properties for" in line and ("wgmma" in line or "temporal_attn" in line):
+        if "Function properties for" in line and any(n in line for n in ("wgmma", "temporal_attn", "mma_kernel")):
             print("ptxas:", line.split("for ")[-1], "|", " | ".join(s.strip() for s in log[i + 1:i + 3]))
         if "C7512" in line:
             print("ptxas:", line.strip())
@@ -271,6 +433,12 @@ def main():
         time_group_norm(torch, F, rn)
     if only & {"k2", "k6"}:
         time_temporal(torch, F, rn, only)
+    if only & {"k5", "k13"}:
+        time_flash_backward(torch, F, rn, only)
+    if "nf" in only:
+        time_normalised(torch, F, rn)
+    if "gnb" in only:
+        time_group_norm_backward(torch, F, rn)
     for m, k, n, with_bias in MM_SHAPES if "k11" in only else ():
         x, w = rn(m, k).to(bf), (rn(n, k) / k ** 0.5).to(bf)
         b = rn(n).to(bf) if with_bias else None
