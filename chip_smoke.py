@@ -74,7 +74,9 @@ Phases, in order; any failure exits non-zero:
    D = 512 mid attention) with LPIPS and the PatchGAN discriminator:
    backward passes of the reconstruction loss (L1 + LPIPS + KL) and of the
    discriminator loss with the adversarial term, on the card through the
-   kernels (K3 with its LSE, K13, K7-K10) vs the CPU through the plain
+   kernels (K7-K10; the 64-token mid attentions are "mha_reference" sites,
+   which run mha_reference_site under a gradient, so no K3 or K13: route_probe
+   holds K3 + K13 under autograd at a flash site) vs the CPU through the plain
    versions; every parameter's gradient within GRAD_REL_TOL by norm.
 10. ae_train: the full-width autoencoder training step of
    vidseg_diffusion_tpu_torch/scripts/autoencoder_train_path.py (sd_2_1.yaml
@@ -95,10 +97,39 @@ Phases, in order; any failure exits non-zero:
    by the EMA (check_last_update), K1, K2, K4, K5, K6, K7-K10, K11 and K12
    launched exactly as often as a remat step of these modules implies
    (train_launches) and no plain version called; step time and peak memory.
+12. route_probe (right after the kernels): ROADMAP section C on the card: a
+   bf16 bhld D = 512 attention of 300 tokens runs mha_reference_site (no
+   normalise-first kernel takes D = 512), within one bf16 step of the CPU
+   mha_reference; a 40-dim "flash" site raises the named ValueError and
+   launches nothing; a gradient through SD 2.1's 640 x 77 cross-attention
+   site runs mha_reference_site, held to the CPU mha_reference's gradients;
+   a gradient through a "flash" bhld site (fp32 [2,1,1024,512], the VAE mid
+   attention of two 256x256 frames) runs K3 with its LSE and K13 once each,
+   dq / dk / dv within GRAD_REL_TOL by norm of the CPU's.
+13. sweep (after inject, on its pipeline): run_vspw_sweep through
+   scripts/svd_pipeline_vspw.py at its defaults (20 k-means clusters matched
+   to the GT, bf16, decoding_t 1) over a synthetic tree in a temp dir: A, 16
+   frames of 448x832 -> windows (0,14), (2,16); B, 15 frames -> (0,14),
+   (1,15); C, an empty origin/. GT labels 0, 3, 7 in three column blocks the
+   frames' texture follows. Each window runs with the counts set to 0 and
+   checked after it (check_window: the launches its K masks imply, by kernel
+   and route, no plain version); the first window of a video is seeded by
+   its GT, every later one by the state the previous one returned; labels
+   within the GT's; videos_failed exactly [C]; the confusion matrix a numpy
+   recount of the returned maps; mIoU in [0, 1]; a second call on the
+   manifest skips A and B and runs nothing; the carried-state window's KNN
+   on the card vs the CPU's (identical labels but at near-ties); seconds per
+   window and per video, peak memory.
+14. refine: one 14-frame window with match_gt_mask and is_refine_mask: the
+   launches of a sweep window, the refined masks vs the CPU
+   correct_low_res_mask on the same features and masks.
+15. sweep_sd (after sd, on its pipeline): scripts/sd_pipeline_vspw.py at its
+   defaults over video A: the same checks, K1's normalise-first launches
+   among the routes.
 
 Before the last line come the kernels JSON (per kernel: launches in the run
 of its path and in the other runs (injected, SD, diffusion training,
-autoencoder training), for K1-K6, K11 and K13 the launches of each run by the
+autoencoder training, the SVD and SD sweeps summed over their windows), for K1-K6, K11 and K13 the launches of each run by the
 kernel that ran (`routes`), worst error, kernel, plain, bound and
 library-call ms at its headline shape; the normalise-first kernels of K1 and
 K3 as entries of their own, their path the SD run and the main run; K5 also
@@ -1142,6 +1173,7 @@ def count_group_norm_route(module, args):
 
 
 def reset_counts():
+    from vidseg_diffusion_tpu_torch.ops import attention as A
     from vidseg_diffusion_tpu_torch.ops import norm as N
 
     counters, plains = kernel_fns()
@@ -1152,6 +1184,7 @@ def reset_counts():
                 setattr(f, f"{route}_launches", 0)
     for f in plains:
         f.calls = 0
+    A.mha_reference_site.calls = 0
     N.group_norm.copies = 0
     GN_ROUTES.update(fused=0, stream=0)
 
@@ -1277,6 +1310,9 @@ def run_main_path(torch, pipe, tag, injected):
     by_module, per_call = module_launches(pipe, MAIN_CALLS)
     check(all(by_module[k] == MAIN_LAUNCHES[k] for k in ("matmul_bias", "conv3x3_same")),
           f"K11 / K12 launches reckoned from the modules {by_module} differ from {MAIN_LAUNCHES}")
+    reckoned = window_launches(pipe, True, MAIN_CALLS)[0]   # the sweep's per-window reckoning, at these calls
+    check(all(reckoned[k] == n for k, n in MAIN_LAUNCHES.items()),
+          f"window_launches {reckoned} disagrees with MAIN_LAUNCHES {MAIN_LAUNCHES}")
     expected = {name: MAIN_LAUNCHES.get(name, 0) for name in launches}
     expected.update(group_norm_expected(tag, by_module.pop("group_norm")), **by_module)
     check(launches == expected, f"inference launches {launches}, expected {expected} (modules "
@@ -1351,7 +1387,7 @@ def phase_inject(torch, pipe, plain_res):
 
 def phase_sd(torch):
     """The SD 2.1 path of scripts/sd_path.py with its checks; returns its
-    kernel launches."""
+    kernel launches and its pipeline (for sweep_sd)."""
     import numpy as np
 
     from vidseg_diffusion_tpu_torch.diffusion.sampling import EulerEDMSampler
@@ -1441,10 +1477,8 @@ def phase_sd(torch):
     print(f"[sd] max|+lambda - -lambda| = {dpm:.4f}; outside-mask deviation after step "
           f"{blend_end} = {outside} (inside {inside:.4f}); labels used "
           f"{sorted(int(v) for v in np.unique(res.seg_raw))}", flush=True)
-    del pipe, res, after_blend
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches
+    del res, after_blend
+    return launches, pipe
 
 
 def phase_train(torch):
@@ -1520,10 +1554,10 @@ def phase_train(torch):
 
 def phase_ae_grad(torch):
     """The full-width first stage's gradients under the autoencoder losses,
-    on the card through the kernels (K3 with its LSE and K13 in the mid
-    attentions, K7-K10 at every GroupNorm) vs the CPU through the plain
-    versions; same fp32 weights, frames and posterior noise, TF32 off on the
-    card. Two backward passes, held by norm:
+    on the card through the kernels (K7-K10 at every GroupNorm; the 64-token
+    mid attentions run mha_reference_site, as JAX differentiates mha_reference
+    there) vs the CPU through the plain versions; same fp32 weights, frames
+    and posterior noise, TF32 off on the card. Two backward passes, held by norm:
     - the generator's reconstruction loss (L1 + LPIPS + KL) -> every
       first-stage parameter within GRAD_REL_TOL, the library convolutions
       without cuDNN;
@@ -1576,13 +1610,16 @@ def phase_ae_grad(torch):
         named = list(first_stage.modules().named_parameters()) + [(f"disc.{n}", p) for n, p in disc.named_parameters()]
         return (rec_loss.item(), d_loss.item()), {n: p.grad for n, p in named}
 
-    launches = A.flash_attention.launches, A.flash_attention_backward.launches
+    launches = A.flash_attention.launches, A.flash_attention_backward.launches, A.mha_reference_site.calls
     t0 = time.perf_counter()
     loss_card, g_card = grads(*card, "cuda")
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    check(A.flash_attention.launches - launches[0] == 2 and A.flash_attention_backward.launches - launches[1] == 2,
-          "the card's autoencoder backward did not run K3 and K13 once per mid attention")
+    # an 8x8 latent's 64-token mid attention is a site JAX's TPU dispatch sends to
+    # mha_reference, which JAX differentiates: mha_reference_site, no K3 / K13
+    check(A.flash_attention.launches - launches[0] == 0 and A.flash_attention_backward.launches - launches[1] == 0
+          and A.mha_reference_site.calls - launches[2] == 2,
+          "the card's autoencoder backward did not run mha_reference_site once per mid attention")
     t0 = time.perf_counter()
     loss_cpu, g_cpu = grads(*cpu, "cpu")
     cpu_s = time.perf_counter() - t0
@@ -1742,6 +1779,450 @@ def check_adam_step(torch, optimizer, named_params, params0, step_count):
     return n_grad, n_due, n_moved
 
 
+# the VSPW sweep CLIs' windows at their defaults: 14 frames, decoding_t 1 (one
+# frame a VAE call), K masks = the GT labels match_gt_mask kept. Per SVD UNet
+# call 16 spatial and 16 temporal self-attention sites (K1, K2) and 44
+# temporal convs (K4); 29 temporal convs per decoder call; CLIP's 32 layers
+# once a window (K3's normalise-first mode). The SD 2.1 UNet launches K1 once
+# per CrossAttention module, the normalise-first mode at SD_NORMALISED_PER_UNET.
+SVD_PER_UNET = {"flash_attention_packed": 16, "temporal_attention_direct": 16, "temporal_conv_1x1": 44}
+TCONV_PER_DECODER, CLIP_LAYERS = 29, 32
+SWEEP_GT = (0, 3, 7)             # the synthetic GT's labels, in three column blocks
+SWEEP_VIDEOS = (("A", 16, True), ("B", 15, True), ("C", 0, True))   # (name, frames, masks); C's origin/ is empty
+SWEEP_WINDOWS = {"A": [(0, 14), (2, 16)], "B": [(0, 14), (1, 15)]}
+# a token's KNN label may differ card vs CPU only where its 4th and 5th nearest
+# distances tie within KNN_TIE_REL of the terms the fp32 formula x2 - 2 x.r + r2
+# cancels (|x|^2 + |r|^2: its rounding error scales with them, not with the
+# distance; relative to the distance itself near neighbours read ~1e-3)
+KNN_TIE_REL = 1e-5
+# refined masks may differ card vs CPU only where the dense tracks part at a near-tie:
+# both candidates scoring within TRACK_TIE_ULPS fp32 ulps (identical masks pass as they are)
+TRACK_TIE_ULPS = 2
+SWEEP = {}                       # tag -> {kernel: launches summed over the windows}
+
+
+def window_calls(video, k, frames=14, steps=25):
+    """Calls per model of one sweep window with k masks at the CLIs' defaults:
+    the feature pass from the modulated step (SVD 17, SD 22), 2k runs from
+    three steps before it, the first-stage encoder on one frame a call
+    (decoding_t 1; + the conditioning frame's for SVD), the decoder on as many
+    calls per run."""
+    mod_step = 17 if video else 22
+    return {"unet": (steps - mod_step) + 2 * k * (steps - (mod_step - 3)),
+            "encoder": frames + (1 if video else 0), "decoder": 2 * k * frames}
+
+
+def window_launches(pipe, video, calls):
+    """({kernel or "group_norm": launches}, {kernel: normalise-first launches})
+    that `calls` imply (module_launches for GroupNorm, K11 and K12)."""
+    from vidseg_diffusion_tpu_torch.models.layers import CrossAttention
+
+    out, _ = module_launches(pipe, calls)
+    u, e, d = calls["unet"], calls["encoder"], calls["decoder"]
+    if video:
+        out.update({k: n * u for k, n in SVD_PER_UNET.items()})
+        out["temporal_conv_1x1"] += TCONV_PER_DECODER * d
+        out["flash_attention"] = CLIP_LAYERS + e + d
+        return out, dict(MAIN_NORMALISED)
+    out["flash_attention_packed"] = sum(isinstance(m, CrossAttention) for m in pipe.unet.modules()) * u
+    out["flash_attention"] = e + d
+    return out, {k: n * u for k, n in SD_NORMALISED_PER_UNET.items()}
+
+
+def check_window(tag, pipe, video, k):
+    """One window's launches (counted since reset_counts()) against what its
+    k masks imply, by kernel and by route; no plain version, no
+    mha_reference_site. Returns (launches, routes)."""
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    launches, plain_calls = read_counts()
+    calls = window_calls(video, k)
+    implied, normalised = window_launches(pipe, video, calls)
+    expected = {name: implied.get(name, 0) for name in launches}
+    expected.update(group_norm_expected(tag, implied["group_norm"]))
+    check(launches == expected, f"[{tag}] launches {launches}, expected {expected} for {k} masks ({calls})")
+    check(all(n == 0 for n in plain_calls.values()), f"[{tag}] plain versions ran on the card: {plain_calls}")
+    check(A.mha_reference_site.calls == 0, f"[{tag}] {A.mha_reference_site.calls} attention sites ran mha_reference")
+    narrow = calls["decoder"] * narrow_tconv_sites(pipe.first_stage.decoder) if video else 0
+    return launches, check_routes(tag, launches, narrow, normalised)
+
+
+def sweep_frames(n):
+    """[n, 448, 832, 3] uint8 frames whose colour and texture follow the GT's
+    three column blocks, drifting a little from frame to frame, plus noise."""
+    import numpy as np
+
+    from vidseg_diffusion_tpu_torch.scripts import main_path
+
+    h, w = main_path.HEIGHT, main_path.WIDTH
+    rng = np.random.RandomState(11)
+    block = np.arange(w) * 3 // w
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    colour = np.array([[200, 60, 50], [40, 170, 70], [60, 80, 210]], np.float32)[block]
+    out = []
+    for i in range(n):
+        tex = 40 * np.sin(18 * (xx + 0.01 * i) + (3 + block) * 7 * yy)[..., None]
+        out.append(np.clip(colour[None] + tex + 12 * rng.randn(h, w, 3), 0, 255).astype(np.uint8))
+    return out
+
+
+def sweep_gt():
+    import numpy as np
+
+    from vidseg_diffusion_tpu_torch.scripts import main_path
+
+    w = main_path.WIDTH
+    row = np.array(SWEEP_GT, np.uint8)[np.arange(w) * 3 // w]
+    return np.broadcast_to(row, (main_path.HEIGHT, w)).copy()
+
+
+def make_sweep_tree(root, videos):
+    """<root>/<name>/origin/<i>.png (+ mask/<i>.png) for (name, frames, masks)."""
+    from PIL import Image
+
+    frames = sweep_frames(max(n for _, n, _ in videos))
+    gt = Image.fromarray(sweep_gt())
+    for name, n, masks in videos:
+        os.makedirs(os.path.join(root, name, "origin"))
+        if masks:
+            os.makedirs(os.path.join(root, name, "mask"))
+        for i in range(n):
+            Image.fromarray(frames[i]).save(os.path.join(root, name, "origin", f"{i}.png"))
+            if masks:
+                gt.save(os.path.join(root, name, "mask", f"{i}.png"))
+
+
+class WindowRecorder:
+    """Stands in for run_single_video inside pipelines/vspw.py: each window
+    runs with the counts set to 0 just before it and checked just after
+    (check_window), and is kept with its seconds."""
+
+    def __init__(self, torch, pipe, video, tag):
+        self.torch, self.pipe, self.video, self.tag = torch, pipe, video, tag
+        self.windows = []
+
+    def __call__(self, pipeline, frames, names, args, **kw):
+        from vidseg_diffusion_tpu_torch.pipelines.single_video import run_single_video
+
+        torch = self.torch
+        stages = {}
+        if kw.get("timings") is None:
+            kw["timings"] = stages
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run_single_video(pipeline, frames, names, args, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k = len(res.unique_labels)
+        launches, routes = check_window(f"{self.tag} window {len(self.windows)}", self.pipe, self.video, k)
+        self.windows.append(dict(names=list(names), gt_state=kw.get("gt_state"), gt_mask=kw.get("gt_mask"),
+                                 result=res, seconds=seconds, launches=launches, routes=routes, stages=stages))
+        return res
+
+
+def numpy_confusion(results, root, num_classes):
+    """The sweep's confusion matrix recounted in numpy from the label maps it
+    returned and the GT on disk."""
+    import numpy as np
+
+    from vidseg_diffusion_tpu_torch.pipelines import vspw
+
+    cm = np.zeros((num_classes, num_classes), np.int64)
+    for name, res in results.items():
+        pred, gt = vspw._load_gt_for_eval(os.path.join(root, name, "origin"), res)
+        pred, gt = pred.astype(np.int64), gt.astype(np.int64)
+        keep = (gt != 255) & (gt >= 0) & (gt < num_classes) & (pred >= 0) & (pred < num_classes)
+        np.add.at(cm, (gt[keep], pred[keep]), 1)
+    return cm
+
+
+def run_sweep(torch, tag, cli, pipe, video, root, expected_windows, failed):
+    """One sweep through the CLI module's code path at its defaults on the tree
+    at `root`, every window checked; then the checks that hold for the whole
+    sweep. Returns the recorder."""
+    import numpy as np
+    from unittest import mock
+
+    from vidseg_diffusion_tpu_torch.pipelines import vspw
+
+    manifest = os.path.join(root, "manifest.jsonl")
+    args = cli.parse_args(["--data_root", root, "--manifest", manifest])
+    check(args.num_masks == 20 and args.feature_extraction_mode == "match_gt_mask" and args.device == "cuda",
+          f"[{tag}] the CLI defaults moved: {args}")
+    recorder = WindowRecorder(torch, pipe, video, tag)
+    results, evaluators = {}, []
+    run_video, make_evaluator = vspw.run_vspw_video, vspw.SegmentationEvaluator
+
+    def video_recorder(*a, **kw):   # each finished video's result, by name
+        res = run_video(*a, **kw)
+        results[os.path.basename(os.path.dirname(a[1]))] = res
+        return res
+
+    def evaluator_recorder(*a, **kw):   # the sweep's evaluator, for its confusion matrix
+        evaluators.append(make_evaluator(*a, **kw))
+        return evaluators[-1]
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(vspw, "run_single_video", recorder), \
+            mock.patch.object(vspw, "run_vspw_video", video_recorder), \
+            mock.patch.object(vspw, "SegmentationEvaluator", evaluator_recorder):
+        out = cli.sweep(args, pipe)
+    total = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{tag}] sweep {json.dumps(out, default=str)}", flush=True)
+    check([v for v, _ in out["videos_failed"]] == failed,
+          f"[{tag}] failed videos {out['videos_failed']}, expected exactly {failed}")
+    check(out["videos_done"] == len(expected_windows) and out.get("videos_evaluated") == len(expected_windows),
+          f"[{tag}] {out['videos_done']} videos done / {out.get('videos_evaluated')} scored")
+    check(0.0 <= out["mIoU"] <= 1.0, f"[{tag}] mIoU {out['mIoU']}")
+    cm = numpy_confusion(results, root, args.num_classes)
+    check(len(evaluators) == 1 and np.array_equal(evaluators[0].confusion.numpy(), cm), f"[{tag}] the sweep's confusion matrix is not a recount of its maps")
+    per_video, windows = {}, iter(recorder.windows)
+    for name, spans in expected_windows.items():
+        mine = [next(windows) for _ in spans]
+        per_video[name] = mine
+        check([(int(w["names"][0]), int(w["names"][-1]) + 1) for w in mine] == spans,
+              f"[{tag}] video {name}: windows {[w['names'] for w in mine]}, expected {spans}")
+        check(mine[0]["gt_state"] is None and mine[0]["gt_mask"] is not None, f"[{tag}] {name}: first window unseeded")
+        for prev, cur in zip(mine, mine[1:]):
+            check(cur["gt_state"] is prev["result"].gt_state and cur["gt_mask"] is None,
+                  f"[{tag}] {name}: window {cur['names'][0]} did not start from the previous window's state")
+        for w in mine:
+            check(set(w["result"].unique_labels.tolist()) <= set(SWEEP_GT),
+                  f"[{tag}] {name}: labels {w['result'].unique_labels} outside the GT's {SWEEP_GT}")
+        check(len(results[name].seg) == spans[-1][1], f"[{tag}] {name}: {len(results[name].seg)} label maps")
+    check(next(windows, None) is None, f"[{tag}] {len(recorder.windows)} windows ran")
+    for name, mine in per_video.items():
+        print(f"[{tag}] video {name}: windows {[(w['names'][0], w['names'][-1]) for w in mine]}, masks "
+              f"{[len(w['result'].unique_labels) for w in mine]} (labels "
+              f"{[w['result'].unique_labels.tolist() for w in mine]}), seconds per window "
+              f"{[round(w['seconds'], 3) for w in mine]}, per video {sum(w['seconds'] for w in mine):.3f}; stage "
+              f"seconds {[{k: round(v, 3) for k, v in w['stages'].items()} for w in mine]}", flush=True)
+    print(f"[{tag}] {len(recorder.windows)} windows in {total:.2f} s (loading and scoring included); mIoU "
+          f"{out['mIoU']:.4f}, mVC_8 {out.get('mVC_8')}, mVC_16 {out.get('mVC_16')}; peak device memory "
+          f"{peak_gb:.2f} GB ({card_line()})", flush=True)
+    # a second call on the same manifest: the finished videos are skipped and nothing runs
+    n = len(recorder.windows)
+    with mock.patch.object(vspw, "run_single_video", recorder):
+        again = cli.sweep(args, pipe)
+    check(len(recorder.windows) == n and again["videos_skipped"] == len(expected_windows)
+          and again["videos_done"] == 0, f"[{tag}] the resumed sweep ran windows: {again}")
+    SWEEP[tag] = {k: sum(w["launches"][k] for w in recorder.windows) for k in recorder.windows[0]["launches"]}
+    ROUTE_COUNTS[tag] = {k: {r: sum(w["routes"][k][r] for w in recorder.windows) for r in v}
+                         for k, v in recorder.windows[0]["routes"].items()}
+    return recorder
+
+
+def knn_card_vs_cpu(torch, tag, window):
+    """The carried-state window's KNN vote on the card against the port's CPU
+    knn_predict on the same features and state: labels identical but where a
+    token's 4th and 5th nearest distances tie within KNN_TIE_REL."""
+    from vidseg_diffusion_tpu_torch.engine.masks import _normalize
+    from vidseg_diffusion_tpu_torch.ops.knn import knn_distances, knn_predict
+
+    state, res = window["gt_state"], window["result"]
+    t = len(window["names"])
+    x = _normalize(torch.from_numpy(res.cluster_features).float())[t:].reshape(-1, res.cluster_features.shape[-1])
+    k_classes = len(state.unique_labels)
+    card = knn_predict(state.ref_features, state.ref_labels, x.cuda(), num_classes=k_classes).cpu()
+    ref_x, ref_y = state.ref_features.cpu(), state.ref_labels.cpu()
+    cpu = knn_predict(ref_x, ref_y, x, num_classes=k_classes)
+    differ = (card != cpu).nonzero().flatten()
+    worst = worst_d = 0.0
+    r2 = (ref_x * ref_x).sum(dim=1)
+    for i in differ.tolist():
+        d, j = torch.sort(knn_distances(ref_x, x[i:i + 1])[0])
+        gap = abs(d[4] - d[3]).item()
+        worst = max(worst, gap / ((x[i] * x[i]).sum() + r2[j[3]]).item())
+        worst_d = max(worst_d, gap / max(abs(d[4]).item(), 1e-30))
+    print(f"[{tag}] carried-state KNN [{x.shape[0]} x {ref_x.shape[0]}] card vs CPU: {len(differ)} of {x.shape[0]} "
+          f"labels differ, worst 4th/5th distance gap there {worst:.2e} of |x|^2 + |r|^2 (tol {KNN_TIE_REL:.0e}), "
+          f"{worst_d:.2e} of the distance", flush=True)
+    check(worst <= KNN_TIE_REL, f"[{tag}] KNN labels differ card vs CPU beyond a near-tie")
+
+
+def phase_sweep(torch, pipe):
+    """The VSPW sweep of scripts/svd_pipeline_vspw.py at its defaults on the
+    main path's pipeline over a synthetic tree: A (16 frames), B (15), C (an
+    empty origin/)."""
+    import tempfile
+
+    from vidseg_diffusion_tpu_torch.scripts import svd_pipeline_vspw as svd_cli
+
+    with tempfile.TemporaryDirectory() as root:
+        make_sweep_tree(root, SWEEP_VIDEOS)
+        recorder = run_sweep(torch, "sweep", svd_cli, pipe, True, root, SWEEP_WINDOWS, ["C"])
+    carried = [w for w in recorder.windows if w["gt_state"] is not None]
+    knn_card_vs_cpu(torch, "sweep", carried[-1])
+    del recorder, carried
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_sweep_sd(torch, pipe):
+    """The SD 2.1 sweep of scripts/sd_pipeline_vspw.py at its defaults on the
+    SD path's pipeline: one 16-frame video, two windows."""
+    import tempfile
+
+    from vidseg_diffusion_tpu_torch.scripts import sd_pipeline_vspw as sd_cli
+
+    with tempfile.TemporaryDirectory() as root:
+        make_sweep_tree(root, SWEEP_VIDEOS[:1])
+        recorder = run_sweep(torch, "sweep_sd", sd_cli, pipe, False, root, {"A": SWEEP_WINDOWS["A"]}, [])
+    knn_card_vs_cpu(torch, "sweep_sd", recorder.windows[-1])
+    del recorder
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tracks_tie(torch, cond_cpu, traj_card, traj_cpu):
+    """Where the card's dense tracks leave the CPU's: the largest gap, in fp32
+    ulps of the CPU's scores, between the two candidates at the first step
+    that differs (later steps start from other points)."""
+    import numpy as np
+
+    from vidseg_diffusion_tpu_torch.ops.matching import _l2norm, tracking_scores
+
+    f = _l2norm(cond_cpu.float())
+    for step in range(1, traj_cpu.shape[0]):
+        differ = (traj_card[step] != traj_cpu[step]).nonzero().flatten()
+        if len(differ):
+            scores = tracking_scores(f, traj_cpu[step - 1], step - 1).numpy()
+            gaps = [abs(scores[p, traj_card[step, p]] - scores[p, traj_cpu[step, p]])
+                    / np.spacing(np.float32(max(abs(scores[p, traj_card[step, p]]),
+                                                abs(scores[p, traj_cpu[step, p]]))))
+                    for p in differ.tolist()]
+            return step, len(differ), float(max(gaps))
+    return None, 0, 0.0
+
+
+def phase_refine(torch, pipe):
+    """One 14-frame SVD window with match_gt_mask and is_refine_mask through the
+    sweep CLI's arguments: its launches as a sweep window's, and the refined
+    masks against the port's CPU correct_low_res_mask on the same harvested
+    features and masks (identical, or apart only where the card's and the CPU's
+    dense tracks part at a near-tie of TRACK_TIE_ULPS)."""
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+
+    from vidseg_diffusion_tpu_torch.engine.masks import _normalize, correct_low_res_mask
+    from vidseg_diffusion_tpu_torch.io.video import list_video_frames, load_frames
+    from vidseg_diffusion_tpu_torch.ops.matching import dense_tracking
+    from vidseg_diffusion_tpu_torch.pipelines import single_video as SV
+    from vidseg_diffusion_tpu_torch.pipelines import vspw
+    from vidseg_diffusion_tpu_torch.scripts import svd_pipeline_vspw as svd_cli
+
+    seen = []
+
+    def recording(features, masks, num_frames, width):
+        out = correct_low_res_mask(features, masks, num_frames, width)
+        seen.append((features.detach().cpu(), masks.detach().cpu(), num_frames, width, out.cpu()))
+        return out
+
+    with tempfile.TemporaryDirectory() as root:
+        make_sweep_tree(root, [("A", 14, True)])
+        args = svd_cli.parse_args(["--data_root", root, "--is_refine_mask"])
+        vargs = svd_cli.vidseg_args(args)
+        video_dir = os.path.join(root, "A", "origin")
+        frames, names, ori_hw = load_frames(list_video_frames(video_dir))
+        fh, fw = SV.cluster_feature_hw(pipe, vargs, frames.shape[1], frames.shape[2], len(names))
+        gt = vspw.load_gt_mask(video_dir, names[0], fh, fw)
+    recorder = WindowRecorder(torch, pipe, True, "refine")
+    with mock.patch.object(SV, "correct_low_res_mask", recording):
+        res = recorder(pipe, frames, names, vargs, ori_hw=ori_hw, gt_mask=gt, write_outputs=False)
+    check(len(seen) == 1, f"[refine] correct_low_res_mask ran {len(seen)} times")
+    feats, masks, t, width, card = seen[0]
+    cpu = correct_low_res_mask(feats, masks, t, width)
+    cond = _normalize(feats.float())[t:]
+    traj_card, traj_cpu = dense_tracking(cond.cuda()).cpu(), dense_tracking(cond)
+    step, n_differ, gap = tracks_tie(torch, cond, traj_card, traj_cpu)
+    same = torch.equal(card, cpu)
+    changed = int((masks.argmax(0) != cpu.argmax(0)).sum())
+    print(f"[refine] {recorder.windows[0]['seconds']:.3f} s; {len(res.unique_labels)} masks (labels "
+          f"{res.unique_labels.tolist()}); tracking block features {tuple(feats.shape)}, width {width}; refinement "
+          f"relabelled {changed} of {masks.shape[1] * masks.shape[2]} tokens; card vs CPU refined masks "
+          f"{'identical' if same else 'differ'}; tracks part at step {step} ({n_differ} points, largest candidate "
+          f"gap {gap:.2f} ulps, tol {TRACK_TIE_ULPS})", flush=True)
+    check(same or step is not None, "[refine] refined masks differ card vs CPU on identical tracks")
+    check(same or gap <= TRACK_TIE_ULPS,
+          f"[refine] refined masks differ where the card's tracks leave the CPU's beyond a near-tie ({gap:.2f} ulps)")
+    check(np.isfinite(res.final_latents).all() and set(res.unique_labels.tolist()) <= set(SWEEP_GT),
+          "[refine] latents not finite or labels outside the GT's")
+
+
+def phase_route_probe(torch):
+    """ROADMAP section C on the card: a bf16 bhld D = 512 attention of 300 tokens
+    (a VAE attention of a frame under 181 x 181 px) runs mha_reference_site,
+    within one bf16 step of the CPU mha_reference; a "flash" site with 40-dim
+    heads raises the named ValueError before any launch; a gradient through an
+    "mha_reference" site (SD 2.1's 77-key cross-attention) runs
+    mha_reference_site, its gradients held to the CPU's mha_reference gradients
+    at the CPU tests' bound (one bf16 step, at most MHA_DIFFERING differing);
+    a gradient through a "flash" bhld site (fp32, 1024 tokens, D = 512) runs
+    K3 with its LSE and K13 once each, held to the CPU's gradients by norm."""
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    rn = lambda *s: (torch.randn(*s, generator=g, device="cuda") * 1.5).to(torch.bfloat16)
+    reset_counts()
+    q, k, v = rn(1, 1, 300, 512), rn(1, 1, 300, 512), rn(1, 1, 300, 512)
+    out = A.dot_product_attention(q, k, v)
+    launches, _ = read_counts()
+    check(A.mha_reference_site.calls == 1 and sum(launches.values()) == 0,
+          f"[route_probe] D = 512 x 300: site calls {A.mha_reference_site.calls}, launches {launches}")
+    held_to_mha_reference(torch, "route_probe", "bf16 bhld D = 512 x 300 tokens (mha_reference_site)",
+                          out.cpu(), A.mha_reference(q.cpu(), k.cpu(), v.cpu()))
+    q, k, v = rn(2, 640, 4, 40), rn(2, 640, 4, 40), rn(2, 640, 4, 40)
+    try:
+        A.dot_product_attention(q, k, v, layout="blhd")
+        fail("[route_probe] a 40-dim 'flash' site ran")
+    except ValueError as e:
+        check("'flash' attention site: head dim 40" in str(e) and "ROADMAP section C" in str(e),
+              f"[route_probe] unexpected refusal: {e}")
+        print(f"[route_probe] D = 40 'flash' site refused: {e}", flush=True)
+    check(sum(read_counts()[0].values()) == 0, "[route_probe] the refused site launched a kernel")
+    b, lq, lk, h = 2, 640, 77, 5
+    q, k, v, go = rn(b, lq, h, 64), rn(b, lk, h, 64), rn(b, lk, h, 64), rn(b, lq, h, 64)
+    check(A.site_route("blhd", b, lq, lk) == "mha_reference", "[route_probe] 640 x 77 is no mha_reference site")
+
+    def grads(fn, dev):
+        xs = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        fn(*xs).backward(go.to(dev))
+        return [x.grad for x in xs]
+
+    calls = A.mha_reference_site.calls
+    card = grads(lambda *x: A.dot_product_attention(*x, layout="blhd"), "cuda")
+    check(A.mha_reference_site.calls == calls + 1 and sum(read_counts()[0].values()) == 0,
+          "[route_probe] the gradient did not run mha_reference_site alone")
+    cpu = grads(lambda *x: A.mha_reference(*x, layout="blhd"), "cpu")
+    for name, a, w in zip("qkv", card, cpu):
+        held_to_mha_reference(torch, "route_probe", f"d{name} at 640 x 77 (mha_reference_site under a gradient)",
+                              a.cpu(), w)
+    # a "flash" bhld site under a gradient keeps K3 with its LSE and K13, through
+    # the autograd Function the VAE's mid attention runs (the mid attention of
+    # two 256x256 frames: 1024 tokens, one 512-dim head), fp32 as in ae_grad
+    b, l, d = 2, 1024, 512
+    check(A.site_route("bhld", b, l, l) == "flash", "[route_probe] 1024 tokens is no flash site")
+    g32 = torch.Generator().manual_seed(37)
+    q, k, v, go = (torch.randn(b, 1, l, d, generator=g32) for _ in range(4))
+    reset_counts()
+    calls = A.mha_reference_site.calls
+    card = grads(A.dot_product_attention, "cuda")
+    launches, plains = read_counts()
+    check(launches["flash_attention"] == 1 and launches["flash_attention_backward"] == 1
+          and sum(launches.values()) == 2 and A.mha_reference_site.calls == calls and sum(plains.values()) == 0,
+          f"[route_probe] the flash site's gradient did not run K3 and K13 once each: {launches}")
+    cpu = grads(A.dot_product_attention, "cpu")
+    worst = max((a.cpu() - w).norm().item() / w.norm().item() for a, w in zip(card, cpu))
+    print(f"[route_probe] fp32 bhld [2,1,1024,512] 'flash' site under a gradient: K3 + K13, dq/dk/dv vs the CPU's "
+          f"gradients worst relative error by norm {worst:.3e} (tol {GRAD_REL_TOL:.0e})", flush=True)
+    check(worst <= GRAD_REL_TOL, f"[route_probe] the flash site's gradients disagree with the CPU's: {worst}")
+
+
 def main():
     import torch
 
@@ -1770,6 +2251,9 @@ def main():
     t0 = time.perf_counter()
     rows, k5_train = phase_kernels(torch)
     phases["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_route_probe(torch)
+    phases["route_probe"] = time.perf_counter() - t0
     for name, fn in (("unet", phase_unet), ("train_grad", phase_train_grad)):
         t0 = time.perf_counter()
         fn(torch)
@@ -1780,12 +2264,23 @@ def main():
     t0 = time.perf_counter()
     inject_launches = phase_inject(torch, pipe, plain_res)
     phases["inject"] = time.perf_counter() - t0
-    del pipe, plain_res
+    del plain_res
+    for name, fn in (("sweep", phase_sweep), ("refine", phase_refine)):
+        t0 = time.perf_counter()
+        fn(torch, pipe)
+        phases[name] = time.perf_counter() - t0
+    del pipe
     gc.collect()   # free the SVD models before the SD and training phases
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    sd_launches = phase_sd(torch)
+    sd_launches, pipe = phase_sd(torch)
     phases["sd"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_sweep_sd(torch, pipe)
+    phases["sweep_sd"] = time.perf_counter() - t0
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     train_launches = phase_train(torch)
     phases["train"] = time.perf_counter() - t0
@@ -1798,7 +2293,7 @@ def main():
     print(f"[phases] seconds {json.dumps({k: round(v, 1) for k, v in phases.items()})}", flush=True)
 
     kernels = []
-    tags = ("main", "inject", "sd", "train", "ae_train")
+    tags = ("main", "inject", "sd", "train", "ae_train", "sweep", "sweep_sd")
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         head = next(r for r in mine if r["shape"] == HEADLINE[name])
@@ -1812,14 +2307,16 @@ def main():
             path_launches = (launches if name in INFERENCE_KERNELS
                              else ae_launches if name in AE_KERNELS else train_launches)
             runs = dict(main=path_launches[name], inject=inject_launches[name], sd=sd_launches[name],
-                        train=train_launches[name], ae_train=ae_launches[name])
+                        train=train_launches[name], ae_train=ae_launches[name], sweep=SWEEP["sweep"][name],
+                        sweep_sd=SWEEP["sweep_sd"][name])
             # K1, K2, K3, K4, K5, K6, K11 and K13: the launches of each path by the kernel that ran
             # (checked); the GroupNorm forward's routes are kernels of their own (K7 + K8, the fused K7+K8)
             routed = {tag: ROUTE_COUNTS[tag][name] for tag in tags} if name in ROUTED else None
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=runs["main"], inject_launches=runs["inject"], sd_launches=runs["sd"],
-            train_launches=runs["train"], ae_launches=runs["ae_train"],
+            train_launches=runs["train"], ae_launches=runs["ae_train"], sweep_launches=runs["sweep"],
+            sweep_sd_launches=runs["sweep_sd"],
             max_abs_err=max(r["max_abs_err"] for r in mine), shape=head["shape"],
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],

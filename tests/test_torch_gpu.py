@@ -378,7 +378,8 @@ def test_normalise_first_route_holds_to_mha_reference(cuda, layout, shape):
     """At the sites JAX's TPU dispatch sends to mha_reference, dot_product_attention
     runs K1 / K3 in the normalise-first mode (their `.normalised_launches` move,
     bf16 on the tensor cores), held to mha_reference on the card; under a
-    gradient the same sites keep the flash route with its LSE."""
+    gradient the same sites run mha_reference_site (JAX differentiates
+    mha_reference there) and no kernel."""
     bf = torch.bfloat16
     if layout == "blhd":
         b, lq, lk, h = shape
@@ -396,11 +397,30 @@ def test_normalise_first_route_holds_to_mha_reference(cuda, layout, shape):
     assert (fn.launches, fn.normalised_launches) == (before[0] + 1, before[1] + 1)
     _held_to_mha_reference(out, A.mha_reference(q, k, v, layout=layout))
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    before = fn.launches, fn.normalised_launches
+    before = fn.launches, fn.normalised_launches, A.mha_reference_site.calls
     A.dot_product_attention(*leaves, layout=layout).float().sum().backward()
     torch.cuda.synchronize()
-    assert (fn.launches, fn.normalised_launches) == (before[0] + 1, before[1])
+    assert (fn.launches, fn.normalised_launches, A.mha_reference_site.calls) == (before[0], before[1], before[2] + 1)
     assert all(x.grad is not None and bool(torch.isfinite(x.grad).all()) for x in leaves)
+
+
+@pytest.mark.gpu
+def test_unsupported_head_dims_on_the_card(cuda):
+    """ROADMAP section C (a): a bf16 bhld D = 512 attention under 512 tokens (a
+    VAE attention of a small frame) runs mha_reference_site on the card, held to
+    the CPU's mha_reference; a "flash" blhd site with 40-dim heads raises the
+    named ValueError before any launch."""
+    bf = torch.bfloat16
+    q, k, v = (_randn(cuda, 170 + i, bf, 1, 1, 300, 512, scale=1.5) for i in range(3))
+    before = A.flash_attention.launches, A.mha_reference_site.calls
+    out = A.dot_product_attention(q, k, v)
+    assert (A.flash_attention.launches, A.mha_reference_site.calls) == (before[0], before[1] + 1)
+    _held_to_mha_reference(out.cpu(), A.mha_reference(q.cpu(), k.cpu(), v.cpu()))
+    q, k, v = (_randn(cuda, 173 + i, bf, 2, 640, 4, 40) for i in range(3))
+    before = A.flash_attention_packed.launches
+    with pytest.raises(ValueError, match="'flash' attention site: head dim 40"):
+        A.dot_product_attention(q, k, v, layout="blhd")
+    assert A.flash_attention_packed.launches == before
 
 
 # D = 512 (wgmma in bf16): Lq off the 64-row tile, Lq != Lk, a key tail off the

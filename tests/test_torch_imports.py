@@ -51,7 +51,9 @@ def test_port_imports_no_jax():
                 "ops.matmul", "ops.conv3x3", "io.tokenizer", "scripts.sd_path", "scripts.main_path",
                 "scripts.profile_single_video", "diffusion.denoiser", "diffusion.discretization",
                 "diffusion.guidance", "models.conditioner", "models.lpips", "models.regularizers",
-                "scripts.autoencoder_train_path", "scripts.time_kernels"}
+                "scripts.autoencoder_train_path", "scripts.time_kernels", "ops.knn", "ops.matching",
+                "engine.masks", "eval.metrics", "pipelines.vspw", "scripts.svd_pipeline_vspw",
+                "scripts.sd_pipeline_vspw"}
     assert expected <= {m.split(".", 1)[1] for m in res["modules"]}
     assert res["jax"] == []
     assert res["after_color_map"] == [] and res["palette"] == [128, 3]
@@ -75,9 +77,10 @@ def test_port_sources_do_not_name_the_jax_package():
 
 
 def test_entry_points_default_to_the_card():
-    """build_pipeline, the CLI and the full-width path scripts (SVD, SD 2.1,
-    diffusion and autoencoder training) run on cuda unless the caller asks
-    for the CPU; without a card the default raises instead of falling back."""
+    """build_pipeline, the CLIs (single video and both VSPW sweeps) and the
+    full-width path scripts (SVD, SD 2.1, diffusion and autoencoder training)
+    run on cuda unless the caller asks for the CPU; without a card the
+    default raises instead of falling back."""
     import inspect
 
     import torch
@@ -85,6 +88,7 @@ def test_entry_points_default_to_the_card():
     from vidseg_diffusion_tpu_torch.engine.build import build_pipeline
     from vidseg_diffusion_tpu_torch.scripts import svd_single_video_inference as cli
     from vidseg_diffusion_tpu_torch.scripts import autoencoder_train_path, main_path, sd_path, train_path
+    from vidseg_diffusion_tpu_torch.scripts import sd_pipeline_vspw, svd_pipeline_vspw
 
     assert inspect.signature(build_pipeline).parameters["device"].default == "cuda"
     for script in (main_path, sd_path, autoencoder_train_path):
@@ -92,6 +96,10 @@ def test_entry_points_default_to_the_card():
     for fn in (autoencoder_train_path.batch, autoencoder_train_path.noise_generator):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert cli.parse_args([]).device == "cuda" and cli.parse_args(["--device", "cpu"]).device == "cpu"
+    for sweep_cli in (svd_pipeline_vspw, sd_pipeline_vspw):
+        assert sweep_cli.parse_args(["--data_root", "x"]).device == "cuda"
+        args = sweep_cli.parse_args(["--data_root", "x", "--device", "cpu"])
+        assert args.device == "cpu" and args.dtype is None   # bf16 on the card, fp32 on the CPU (build)
     assert train_path.DEVICE == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):

@@ -366,6 +366,86 @@ def test_normalise_first_route_matches_mha_reference(layout, shape):
     _holds_to_jax(got, jatt.mha_reference(_JB(q), _JB(k), _JB(v), layout=layout))
 
 
+def _grads_held_to_jax(got, want):
+    """_holds_to_jax's bound on each gradient: within one bf16 step at its max
+    |want|, at most 0.1 % of the elements differing; returns whether it held."""
+    for g_, w_ in zip(got, want):
+        g_, w_ = g_.float().numpy(), np.asarray(jnp.asarray(w_, jnp.float32))
+        diff = np.abs(g_ - w_)
+        step = 2.0 ** (np.floor(np.log2(np.abs(w_).max())) - 7)
+        if diff.max() > step or np.mean(diff > 0) > 1e-3:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("layout,shape", [
+    ("blhd", (2, 640, 77, 2, 64)),    # the SD 2.1 cross-attention's 77 keys
+    ("blhd", (2, 640, 300, 2, 64)),   # keys over several tiles
+    ("bhld", (1, 2, 257, 257, 80)),   # CLIP ViT-H's 257 tokens at D = 80
+])
+def test_mha_reference_site_gradients_match_jax_grad(layout, shape):
+    """Under a gradient, a site JAX's TPU dispatch sends to mha_reference runs
+    mha_reference_site (counted apart from the plain versions), and its
+    gradients hold to jax.grad through JAX's mha_reference in bf16 at
+    _holds_to_jax's bound; the flash route it replaced (K1 / K3 with the LSE,
+    then the K5 / K13 plain backward) misses that bound."""
+    if layout == "blhd":
+        b, lq, lk, h, d = shape
+        sq, sk = (b, lq, h, d), (b, lk, h, d)
+    else:
+        b, h, lq, lk, d = shape
+        sq, sk = (b, h, lq, d), (b, h, lk, d)
+    q, k, v, g = _bf16_inputs(lk, sq, sk, sk, sq)
+    assert tatt.site_route(layout, b, lq, lk) == "mha_reference"
+    loss = lambda *x: jnp.sum(jatt.mha_reference(*x, layout=layout).astype(jnp.float32) * _JB(g).astype(jnp.float32))
+    want = jax.grad(loss, argnums=(0, 1, 2))(_JB(q), _JB(k), _JB(v))
+
+    def grads(fn):
+        xs = [_TB(a).requires_grad_() for a in (q, k, v)]
+        fn(*xs).backward(_TB(g))
+        return [x.grad for x in xs]
+
+    calls = tatt.mha_reference_site.calls, tatt.mha_reference.calls
+    if layout == "blhd":
+        got = grads(tatt.small_batched_attention)
+        flat = lambda x: x.reshape(b, x.shape[1], h * d)
+        old = grads(lambda *x: tatt._FlashAttentionPacked.apply(*map(flat, x), h, None, max(lq, lk) >= 512).reshape(sq))
+    else:
+        assert tatt._runs_mha_reference("bhld", *(_TB(a).requires_grad_() for a in (q, k, v)))
+        got = grads(lambda *x: tatt.mha_reference_site(*x, layout="bhld"))
+        old = grads(lambda *x: tatt._FlashAttention.apply(*x, None))
+    assert (tatt.mha_reference_site.calls, tatt.mha_reference.calls) == (calls[0] + 1, calls[1])
+    assert _grads_held_to_jax(got, want)
+    assert not _grads_held_to_jax(old, want)
+
+
+@pytest.mark.parametrize("layout,shape,dtype,runs_site", [
+    ("bhld", (1, 1, 300, 512), torch.bfloat16, True),    # a VAE attention of a frame under 181 x 181 px
+    ("bhld", (1, 16, 257, 80), torch.bfloat16, False),   # CLIP: K3's normalise-first mode
+    ("bhld", (1, 1, 300, 512), torch.float32, False),    # fp32: the FMA kernel serves the site
+    ("blhd", (1, 91, 4, 40), torch.bfloat16, True),      # one video item, 40-dim heads
+    ("blhd", (2, 640, 2, 64), torch.bfloat16, False),    # K1's normalise-first mode
+])
+def test_mha_reference_sites_run_where_no_normalise_first_kernel_takes_them(layout, shape, dtype, runs_site):
+    """Without a gradient, an "mha_reference" site runs mha_reference_site
+    only where no normalise-first kernel takes its dtype and head dim."""
+    x = torch.zeros(shape, dtype=dtype)
+    lq = shape[2] if layout == "bhld" else shape[1]
+    assert tatt.site_route(layout, shape[0], lq, lq if lq != 640 else 77) == "mha_reference"
+    assert tatt._runs_mha_reference(layout, x, x, x) == runs_site
+
+
+def test_flash_sites_refuse_head_dims_no_kernel_takes():
+    """A "flash" / "small_batched" site whose head dim no kernel takes is refused
+    by name (route, shape, the D the kernels take, ROADMAP section C) before any
+    launch; the check reads the shape alone."""
+    with pytest.raises(ValueError, match=r"'flash' attention site: head dim 40 .*\(64,\).*ROADMAP section C"):
+        tatt._check_head_dim("'flash' attention site", "blhd", (2, 640, 4, 40), 40)
+    with pytest.raises(ValueError, match=r"head dim 128 .*\(64, 80, 512\)"):
+        tatt._check_head_dim("'flash' attention site", "bhld", (1, 1, 640, 128), 128)
+    tatt._check_head_dim("temporal attention site", "temporal", (28, 91, 5, 64), 64)
+
+
 # every attention site of the four paths at full width (B = 28 is the CFG batch
 # of 14 frames and the training batch of 2 x 14 frames; SD 2.1's 77-token text
 # context; CLIP ViT-H; the VAE's one 512-dim head at 448x832 and in ae_grad's

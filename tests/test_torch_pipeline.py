@@ -12,8 +12,8 @@ both feature passes cache (JAX in its default direct layout) must agree, and
 so must the injected runs; and a third time with is_aggre_attn (the cluster
 features are the mean of three blocks' q, rounded where jnp.mean rounds).
 A fourth run hands both the same precomputed masks (mask_override). The
-signature, cluster_feature_hw and the refusal of gt_mask / gt_state are held
-to the JAX function's too.
+signature and cluster_feature_hw are held to the JAX function's too
+(match_gt_mask with gt_mask / gt_state and is_refine_mask: test_torch_masks.py).
 """
 
 import inspect
@@ -363,16 +363,6 @@ def test_cluster_feature_hw_matches_jax(config, hpx, wpx, flags, want):
         assert got == want
 
 
-@pytest.mark.parametrize("which", ["gt_mask", "gt_state"])
-def test_gt_mask_and_state_raise_not_implemented(which):
-    """A caller written against the JAX signature (gt_mask 6th, gt_state 7th
-    positionally) gets the roadmap's NotImplementedError, not a TypeError."""
-    frames = np.zeros((T, HPX, WPX, 3), np.float32)
-    given = {"gt_mask": (np.zeros(16 * 16, np.int32), None), "gt_state": (None, object())}[which]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 1"):
-        run_single_video(None, frames, ["0", "1", "2"], VidSegArgs(**ARGS), None, *given)
-
-
 def test_signature_follows_jax():
     """run_single_video's parameters are JAX's, in JAX's order and with its
     defaults, less `mesh` (not ported); the port's own draws follow as
@@ -387,10 +377,7 @@ def test_signature_follows_jax():
     assert extra == ["cond_aug_noise", "noise", "kmeans_init"]
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("is_refine_mask", True),
-    ("feature_extraction_mode", "match_gt_mask"), ("inversion_type", "inversion"),
-])
+@pytest.mark.parametrize("flag,value", [("inversion_type", "inversion")])
 def test_unported_flags_raise(flag, value):
     args = VidSegArgs(**{**ARGS, flag: value})
     frames = np.zeros((T, HPX, WPX, 3), np.float32)

@@ -190,3 +190,16 @@ def build_pipeline(config_path: str, ckpt_path: Optional[str] = None,
     if video:
         return Pipeline(spec, unet, first_stage, tower, cond_enc, device)
     return Pipeline(spec, unet, first_stage, None, None, device, text=tower)
+
+
+def build_pipeline_from_args(args, num_frames: int) -> Pipeline:
+    """The pipeline a CLI's flags name (--model_config, --ckpt_path,
+    --num_steps, --seed) on --device, in --dtype: bf16 on the card and fp32 on
+    the CPU when the flag is not given. A --ckpt_path that does not exist
+    raises FileNotFoundError, as build_pipeline does."""
+    device = torch.device(args.device)
+    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}.get(
+        args.dtype, torch.bfloat16 if device.type == "cuda" else torch.float32)
+    print("device:", device, "dtype:", dtype)
+    return build_pipeline(args.model_config, ckpt_path=args.ckpt_path, num_steps=args.num_steps,
+                          num_frames=num_frames, dtype=dtype, device=device, seed=args.seed)

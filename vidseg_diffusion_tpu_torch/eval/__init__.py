@@ -1,0 +1,1 @@
+"""eval of the PyTorch port (see the package docstring)."""

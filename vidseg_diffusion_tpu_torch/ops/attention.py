@@ -40,7 +40,13 @@ kernel from it. Where JAX sends a site to no Pallas kernel but to mha_reference
 rows), the card runs K1 or K3 in their normalise-first mode: S from the
 unscaled q in fp32 times scale*log2(e), p = exp2(s - m) / l normalised in fp32
 before it is rounded to the input dtype, and no division after P.V
-(_attention_normalised is its plain version).
+(_attention_normalised is its plain version). At such a site under a
+gradient, and where no normalise-first kernel takes the dtype and head dim
+(bf16 K1 at D = 64, K3 at D = 64 and 80), the port runs mha_reference itself
+under autograd on either device, as JAX runs and differentiates it there
+(mha_reference_site, counted apart from the plain versions). A "flash" or
+"small_batched" site whose head dim no kernel takes raises a ValueError on
+the card before any launch.
 """
 
 from __future__ import annotations
@@ -111,10 +117,7 @@ def _refuse_normalised_grad(name, normalise_first, *tensors):
                          "the flash route (site_route)")
 
 
-def mha_reference(q, k, v, scale: Optional[float] = None, layout: str = "bhld"):
-    """Plain attention with an fp32 softmax (the JAX package's mha_reference).
-    layout 'bhld' [B, H, L, D] or 'blhd' [B, L, H, D]."""
-    mha_reference.calls += 1
+def _mha(q, k, v, scale: Optional[float], layout: str):
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if layout == "blhd":
@@ -126,7 +129,27 @@ def mha_reference(q, k, v, scale: Optional[float] = None, layout: str = "bhld"):
     return torch.einsum("bhqk,bhkd->bhqd", w.float(), v.float()).to(q.dtype)
 
 
+def mha_reference(q, k, v, scale: Optional[float] = None, layout: str = "bhld"):
+    """Plain attention with an fp32 softmax (the JAX package's mha_reference).
+    layout 'bhld' [B, H, L, D] or 'blhd' [B, L, H, D]."""
+    mha_reference.calls += 1
+    return _mha(q, k, v, scale, layout)
+
+
 mha_reference.calls = 0
+
+
+def mha_reference_site(q, k, v, scale: Optional[float] = None, layout: str = "bhld"):
+    """mha_reference run as the route of an attention site, on the card as on
+    the CPU: where JAX's TPU dispatch runs mha_reference and the site takes a
+    gradient (JAX differentiates mha_reference there) or no normalise-first
+    kernel takes its dtype and head dim. Its own counter (`.calls`) tells it
+    from the plain versions that hold the kernels."""
+    mha_reference_site.calls += 1
+    return _mha(q, k, v, scale, layout)
+
+
+mha_reference_site.calls = 0
 
 
 # -- K1: packed flash attention (forward, optional LSE) ------------------------
@@ -189,6 +212,7 @@ def _flash_attention_packed_forward(q, k, v, heads: int, scale: Optional[float],
     b, lq, hd = q.shape
     lk = k.shape[1]
     d = hd // heads
+    _check_head_dim("flash_attention_packed", "blhd", (b, lq, heads, d), d)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     out = torch.empty((b, lq, heads, d), dtype=dtype, device=q.device)
     lse = torch.empty((b, lq, heads), dtype=torch.float32, device=q.device) if save_lse else None
@@ -301,6 +325,7 @@ def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
     b, lq, hd = q.shape
     lk = k.shape[1]
     d = hd // heads
+    _check_head_dim("flash_attention_packed_backward", "blhd", (b, lq, heads, d), d)
     if out.shape != q.shape or g.shape != q.shape or lse.shape != (b, lq, heads):
         raise ValueError(f"flash_attention_packed_backward: bad shapes out {out.shape}, "
                          f"g {g.shape}, lse {lse.shape} for q {q.shape}")
@@ -354,12 +379,34 @@ def _best_fold(b: int, lq: int, lk: int) -> int:
     return next(f for f in range(min(cap, b), 0, -1) if b % f == 0)
 
 
+# head dims built into the kernels: K1 (blhd sites), K2 (temporal sites) and K3
+# (bhld sites); of those, the ones whose bf16 kernel has the normalise-first
+# mode (fp32 has no rounding to order, so its kernels serve either way)
+HEAD_DIMS = {"blhd": (64,), "temporal": (64,), "bhld": (64, 80, 512)}
+NORMALISED_HEAD_DIMS = {"blhd": (64,), "bhld": (64, 80)}
+
+
+def _check_head_dim(where: str, kind: str, shape, d: int) -> None:
+    """Refuse, before any launch, a head dim no kernel of the site takes."""
+    if d not in HEAD_DIMS[kind]:
+        raise ValueError(f"{where}: head dim {d} of shape {tuple(shape)} is not built into the kernels "
+                         f"(D in {HEAD_DIMS[kind]}); ROADMAP section C")
+
+
+def _runs_mha_reference(layout: str, q, k, v) -> bool:
+    """At an "mha_reference" site: whether mha_reference_site runs it (under a
+    gradient, or where no normalise-first kernel takes the dtype and D)."""
+    d = q.shape[-1]
+    takes = d in (HEAD_DIMS if q.dtype == torch.float32 else NORMALISED_HEAD_DIMS)[layout]
+    return _needs_grad(q, k, v) or not takes
+
+
 def site_route(layout: str, b: int, lq: int, lk: int) -> str:
     """Which function JAX's TPU dispatch runs at an attention site: "one_key"
     (Lk = 1: V itself), "small_batched" (_small_seq_kernel; blhd only),
     "flash" (the packed flash kernel for blhd, _flash_kernel for bhld) or
     "mha_reference". The port runs K1 with the fp32 sum, K1 / K3 with theirs,
-    and K1 / K3 in the normalise-first mode at these."""
+    and K1 / K3 in the normalise-first mode (or mha_reference_site) at these."""
     if lk == 1:
         return "one_key"
     if layout == "blhd" and max(lq, lk) < SHORT_SEQ and _best_fold(b, lq, lk) * lq >= SMALL_MIN_ROWS:
@@ -375,16 +422,18 @@ def small_batched_attention(q, k, v, scale: Optional[float] = None):
     ("small_batched"), the rounded sum of the packed kernel's fused_psum
     ("flash"), or the normalise-first mode ("mha_reference"). On the TPU
     short problems fold into one MXU tile; on the GPU short and long problems
-    alike are rows of K1's grid. Under a gradient an "mha_reference" site keeps
-    K1 with the sum of its length (the rounded one from SHORT_SEQ on), whose
-    backward is K5: no path trains such a site."""
+    alike are rows of K1's grid. An "mha_reference" site under a gradient, or
+    of a dtype and D no normalise-first kernel takes, runs mha_reference_site."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
     route = site_route("blhd", b, lq, lk)
-    normalise_first = route == "mha_reference" and not _needs_grad(q, k, v)
+    if route == "mha_reference" and _runs_mha_reference("blhd", q, k, v):
+        return mha_reference_site(q, k, v, scale=scale, layout="blhd")
+    if q.device.type == "cuda":
+        _check_head_dim(f"'{route}' attention site", "blhd", q.shape, d)
     out = flash_attention_packed(
         q.reshape(b, lq, h * d), k.reshape(b, lk, h * d), v.reshape(b, lk, h * d),
-        heads=h, scale=scale, psum_rounded=max(lq, lk) >= SHORT_SEQ, normalise_first=normalise_first,
+        heads=h, scale=scale, psum_rounded=max(lq, lk) >= SHORT_SEQ, normalise_first=route == "mha_reference",
     )
     return out.reshape(b, lq, h, d)
 
@@ -435,6 +484,7 @@ def _temporal_attention_direct_forward(q, k, v, t: int, scale: Optional[float]):
     if q.device.type == "cpu":
         return temporal_attention_direct_reference(q, k, v, t, scale)
     dtype = _check_temporal("temporal_attention_direct", t, q, k, v)
+    _check_head_dim("temporal attention site", "temporal", q.shape, q.shape[-1])
     bt, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     out = torch.empty_like(q)
@@ -521,6 +571,7 @@ def temporal_attention_direct_backward(q, k, v, out, g, t: int, scale: Optional[
     if q.device.type == "cpu":
         return temporal_attention_direct_backward_reference(q, k, v, out, g, t, scale)
     dtype = _check_temporal("temporal_attention_direct_backward", t, q, k, v, out, g)
+    _check_head_dim("temporal attention backward", "temporal", q.shape, q.shape[-1])
     bt, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -710,8 +761,9 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None, layout: str = 
       package runs on its CPU backend).
     - CUDA tensors: what site_route names, as JAX's TPU dispatch runs it: K1
       for blhd (small_batched_attention), K3 for bhld; at an "mha_reference"
-      site K3 in its normalise-first mode (CLIP's 257 tokens), or with its
-      LSE under a gradient (no path trains such a site)."""
+      site K3 in its normalise-first mode (CLIP's 257 tokens), or
+      mha_reference_site under a gradient and where no normalise-first kernel
+      takes the dtype and D (a bf16 VAE attention under 512 tokens)."""
     l_axis = 1 if layout == "blhd" else 2
     lq, lk = q.shape[l_axis], k.shape[l_axis]
     route = site_route(layout, q.shape[0], lq, lk)
@@ -723,8 +775,10 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None, layout: str = 
         return mha_reference(q, k, v, scale=scale, layout=layout)
     if layout == "blhd":
         return small_batched_attention(q, k, v, scale=scale)
-    return flash_attention(q, k, v, scale=scale,
-                           normalise_first=route == "mha_reference" and not _needs_grad(q, k, v))
+    if route == "mha_reference" and _runs_mha_reference("bhld", q, k, v):
+        return mha_reference_site(q, k, v, scale=scale, layout="bhld")
+    _check_head_dim(f"'{route}' attention site", "bhld", q.shape, q.shape[-1])
+    return flash_attention(q, k, v, scale=scale, normalise_first=route == "mha_reference")
 
 
 PLAIN_COUNTERS = (

@@ -18,6 +18,13 @@ every frame is an image of the UNet batch, the image VAE decodes, and with
 one; is_injected_features caches and injects the spatial self- and
 cross-attention q/k.
 
+Masks: kmeans_masks, or match_gt_mask (:468-473) seeded by `gt_mask` (the
+first frame's GT at the clustering block's token resolution, or the clusters
+themselves without one) in a first window and by the carried `gt_state` in
+later ones; the result's gt_state is the state for the next window. With
+is_refine_mask the feature pass also harvests output block 7's spatial q and
+the masks are refined along its dense tracks (:475-498).
+
 The parameters are the JAX function's, in its order (:269-284), less its
 `mesh`: `mask_override` ([K, T, fh*fw] masks at the clustering block's token
 resolution, `cluster_feature_hw`) replaces the clustering as in JAX
@@ -25,10 +32,9 @@ resolution, `cluster_feature_hw`) replaces the clustering as in JAX
 args.seed; a caller (a parity test) can instead hand over, by keyword, the
 cond-aug noise, the add_noise noise and the kmeans initial centres JAX drew.
 
-Not ported yet (they raise NotImplementedError, see ROADMAP Queue A):
-is_refine_mask, match_gt_mask with its `gt_mask` / `gt_state` and
-inversion_type 'inversion'. The multi-device mesh and the host-RAM streaming
-of the JAX package are TPU workarounds and are not ported.
+Not ported yet: inversion_type 'inversion' (it raises NotImplementedError,
+see ROADMAP Queue A). The multi-device mesh and the host-RAM streaming of the
+JAX package are TPU workarounds and are not ported.
 """
 
 from __future__ import annotations
@@ -43,7 +49,13 @@ import torch
 
 from vidseg_diffusion_tpu_torch.io import video as vio
 from vidseg_diffusion_tpu_torch.engine.build import Pipeline
-from vidseg_diffusion_tpu_torch.engine.masks import aggregate_blocks, kmeans_masks
+from vidseg_diffusion_tpu_torch.engine.masks import (
+    GTMatchState,
+    aggregate_blocks,
+    correct_low_res_mask,
+    kmeans_masks,
+    match_gt_mask,
+)
 from vidseg_diffusion_tpu_torch.engine.modulation import ModulationConfig
 from vidseg_diffusion_tpu_torch.engine.segmentation import (
     compute_difference,
@@ -111,25 +123,15 @@ class VidSegResult:
     masks_latent: np.ndarray       # [K, T, h, w] latent-blend masks
     injected_sites: int = 0        # (block, step) sites that took cached q/k, all runs
     injected_cache_bytes: int = 0  # device bytes of the cached q/k that are injected
-    gt_state: Optional[object] = None  # the carried GT match state: None until match_gt_mask is ported
+    gt_state: Optional[GTMatchState] = None  # match_gt_mask: the state carried to the next window
 
 
-def _not_ported(what: str, item: Optional[int] = None):
-    where = "ROADMAP Queue A" + (f" item {item}" if item is not None else "")
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet ({where})")
-
-
-def _check_supported(args: VidSegArgs, gt_mask=None, gt_state=None) -> None:
-    if args.is_refine_mask:
-        raise _not_ported("is_refine_mask (ops/matching.py dense tracking)")
-    if args.feature_extraction_mode == "match_gt_mask":
-        raise _not_ported("feature_extraction_mode='match_gt_mask' (ops/knn.py)", item=1)
-    if gt_mask is not None or gt_state is not None:
-        raise _not_ported("gt_mask / gt_state (match_gt_mask, knn_predict, GTMatchState)", item=1)
-    if args.feature_extraction_mode != "kmeans_masks":
+def _check_supported(args: VidSegArgs) -> None:
+    if args.feature_extraction_mode not in ("kmeans_masks", "match_gt_mask"):
         raise ValueError(args.feature_extraction_mode)
     if args.inversion_type == "inversion":
-        raise _not_ported("inversion_type='inversion'")
+        raise NotImplementedError("inversion_type='inversion' is not ported to the PyTorch package yet "
+                                  "(ROADMAP Queue A item 4)")
     if args.inversion_type != "add_noise":
         raise ValueError(f"Invalid inversion type {args.inversion_type}")
 
@@ -188,13 +190,15 @@ def cluster_feature_hw(pipeline: Pipeline, args: VidSegArgs, hpx: int, wpx: int,
 
 
 def make_harvest(args: VidSegArgs, video: bool, cluster_blocks: Sequence[int],
-                 injection_blocks: Sequence[int]) -> HarvestSpec:
-    """The feature pass's harvest: the clustering q, plus with
-    is_injected_features the q/k of `injection_blocks` (temporal self for the
-    video UNet, spatial self and cross for the image UNet;
-    single_video.py:199-216)."""
+                 track_blocks: Sequence[int], injection_blocks: Sequence[int]) -> HarvestSpec:
+    """The feature pass's harvest: the spatial q of the clustering blocks and
+    of the refinement's tracking blocks (output block 7,
+    svd_single_video_inference.py:393), plus with is_injected_features the
+    q/k of `injection_blocks` (temporal self for the video UNet, spatial self
+    and cross for the image UNet; single_video.py:194-217)."""
     spec = svd_harvest_spec if video else sd_harvest_spec
-    return spec(cluster_blocks=tuple(cluster_blocks), injection=args.is_injected_features,
+    cluster = tuple(cluster_blocks) + tuple(b for b in track_blocks if b not in cluster_blocks)
+    return spec(cluster_blocks=cluster, injection=args.is_injected_features,
                 injection_blocks=tuple(injection_blocks))
 
 
@@ -228,8 +232,8 @@ def run_single_video(
     frame_names: Sequence[str],
     args: VidSegArgs,
     ori_hw: Optional[Tuple[int, int]] = None,
-    gt_mask: Optional[np.ndarray] = None,          # match_gt_mask: not ported, must be None
-    gt_state=None,                                 # match_gt_mask: not ported, must be None
+    gt_mask: Optional[np.ndarray] = None,          # [fh*fw] first-frame GT ids (match_gt_mask)
+    gt_state: Optional[GTMatchState] = None,       # carried from the previous window
     text_tokens: Optional[np.ndarray] = None,      # [1, 77] token ids, the SD 2.1 path
     write_outputs: bool = True,
     mask_override: Optional[np.ndarray] = None,    # [K, T, fh*fw] precomputed masks
@@ -239,7 +243,7 @@ def run_single_video(
     noise: Optional[np.ndarray] = None,            # [T, H/8, W/8, z]
     kmeans_init: Optional[np.ndarray] = None,      # [n_init, K, C]
 ) -> VidSegResult:
-    _check_supported(args, gt_mask, gt_state)
+    _check_supported(args)
     dev = pipeline.device
     clock = {"t": time.perf_counter()}
 
@@ -259,11 +263,13 @@ def run_single_video(
     base_cfg = make_mod_config(args, t)
     cluster_blocks, fh, fw = _cluster_site(unet_cfg, args, base_cfg, h_lat, w_lat)
     mod_blocks, mod_div = _resolve_blocks(unet_cfg, tuple(args.modulate_block_idx), base_cfg)
+    track_blocks, track_div = (_resolve_blocks(unet_cfg, (7,), base_cfg) if args.is_refine_mask
+                               else ((), {}))
     _, _, out_layout = unet_cfg.block_layout()
     attn_blocks = tuple(i for i, s in enumerate(out_layout) if s.get("attn"))
     mod_cfg = dataclasses.replace(base_cfg, modulate_block_idx=mod_blocks,
                                   output_block_indices=attn_blocks)
-    engine = pipeline.make_engine(mod_cfg, make_harvest(args, video, cluster_blocks, attn_blocks))
+    engine = pipeline.make_engine(mod_cfg, make_harvest(args, video, cluster_blocks, track_blocks, attn_blocks))
     fs = pipeline.first_stage
 
     # ---- conditioning (svd_single_video_inference.py:282-312) -------------
@@ -309,16 +315,26 @@ def run_single_video(
         )
     feats = [cache[HarvestSpec.name(b, "spatial_self", "q")][feat_t - cache_t0] for b in cluster_blocks]
     feat = aggregate_blocks(feats) if len(feats) > 1 else feats[0]
+    init = None if kmeans_init is None else torch.tensor(np.asarray(kmeans_init, dtype=np.float32))
+    new_gt_state = None
     if mask_override is not None:
         # externally supplied masks replace the clustering (JAX :458-463)
         masks_tok = torch.as_tensor(np.asarray(mask_override), dtype=torch.float32,
                                     device=feat.device).reshape(-1, t, fh * fw)
         unique_labels = np.arange(masks_tok.shape[0])
-    else:
-        init = None if kmeans_init is None else torch.tensor(np.asarray(kmeans_init, dtype=np.float32))
+    elif args.feature_extraction_mode == "kmeans_masks":
         masks_tok, unique_labels = kmeans_masks(
             feat, args.num_masks, t, generator=_generator(args.seed, 3), init_centers=init
         )
+    else:
+        masks_tok, new_gt_state = match_gt_mask(
+            feat, args.num_masks, t, gt_mask=gt_mask, state=gt_state,
+            generator=_generator(args.seed, 3), init_centers=init,
+        )
+        unique_labels = new_gt_state.unique_labels
+    if args.is_refine_mask:
+        masks_tok = _refine(cache[HarvestSpec.name(track_blocks[0], "spatial_self", "q")][feat_t - cache_t0],
+                            masks_tok, t, (h_lat, w_lat), (fh, fw), track_div[track_blocks[0]])
     k = masks_tok.shape[0]
     masks_px = masks_tok.reshape(k, t, fh, fw)
     mark("masks")
@@ -364,7 +380,23 @@ def run_single_video(
         injected_sites=engine.injected_sites,
         injected_cache_bytes=sum(v.numel() * v.element_size() for n, v in cache.items()
                                  if args.is_injected_features and any(s in n for s in injected)),
+        gt_state=new_gt_state,
     )
+
+
+def _refine(track_feat, masks_tok, t, latent_hw, feature_hw, tdiv):
+    """--is_refine_mask (JAX :477-498): correct_low_res_mask on the tracking
+    block's features; masks cross to its token resolution and back by a
+    bicubic resize thresholded at 0.5 where the two resolutions differ."""
+    (h_lat, w_lat), (fh, fw) = latent_hw, feature_hw
+    th, tw = h_lat // tdiv, w_lat // tdiv
+    k = masks_tok.shape[0]
+    if (th, tw) == (fh, fw):
+        return correct_low_res_mask(track_feat, masks_tok, t, width=tw)
+    tm = resize_bicubic(masks_tok.reshape(k, t, fh, fw), (th, tw))
+    refined = correct_low_res_mask(track_feat, (tm > 0.5).float().reshape(k, t, th * tw), t, width=tw)
+    rm = resize_bicubic(refined.reshape(k, t, th, tw), (fh, fw))
+    return (rm > 0.5).float().reshape(k, t, fh * fw)
 
 
 def _write_outputs(args, masks_px, decoded, seg_raw, seg_filtered, cluster_blocks,

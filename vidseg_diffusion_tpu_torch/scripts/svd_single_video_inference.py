@@ -8,8 +8,10 @@ Frames load through vidseg_diffusion_tpu_torch/io/video.py. The run is on
 the card (--device cuda, bf16) and raises without one; --device cpu asks for
 the CPU (fp32 by default). --is_injected_features caches the feature pass's
 temporal self-attention q/k on the device and injects them into the
-modulated runs. Flags whose paths are not ported yet (refinement,
-match_gt_mask, inversion) raise NotImplementedError.
+modulated runs. --feature_extraction_mode match_gt_mask needs --gt_mask_path,
+the first frame's GT label image, which loads nearest-resized to the
+clustering block's token grid. inversion_type 'inversion' is not ported yet
+and raises NotImplementedError.
 """
 
 import argparse
@@ -67,25 +69,18 @@ def _csv_strs(s):
 
 def main(argv=None):
     args = parse_args(argv)
-    import torch
-
+    from vidseg_diffusion_tpu_torch.engine.build import build_pipeline_from_args
     from vidseg_diffusion_tpu_torch.io.video import list_video_frames, load_frames
-    from vidseg_diffusion_tpu_torch.engine.build import build_pipeline
-    from vidseg_diffusion_tpu_torch.pipelines.single_video import VidSegArgs, run_single_video
+    from vidseg_diffusion_tpu_torch.pipelines.single_video import VidSegArgs, cluster_feature_hw, run_single_video
+    from vidseg_diffusion_tpu_torch.pipelines.vspw import load_label_image
 
     if not args.input_video_path:
         raise SystemExit("--input_video_path is required")
-    device = torch.device(args.device)
-    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}.get(
-        args.dtype, torch.bfloat16 if device.type == "cuda" else torch.float32
-    )
-    print("device:", device, "dtype:", dtype)
+    if args.feature_extraction_mode == "match_gt_mask" and not args.gt_mask_path:
+        raise SystemExit("--gt_mask_path is required for --feature_extraction_mode match_gt_mask")
     frames, names, ori_hw = load_frames(list_video_frames(args.input_video_path))
     print(f"loaded {len(names)} frames, model size {frames.shape[1]}x{frames.shape[2]}")
-    if args.ckpt_path and not os.path.exists(args.ckpt_path):
-        raise FileNotFoundError(f"--ckpt_path {args.ckpt_path!r} does not exist")
-    pipeline = build_pipeline(args.model_config, ckpt_path=args.ckpt_path, num_steps=args.num_steps,
-                              num_frames=len(names), dtype=dtype, device=device, seed=args.seed)
+    pipeline = build_pipeline_from_args(args, len(names))
     vargs = VidSegArgs(
         exp_name=args.exp_name, num_steps=args.num_steps, seed=args.seed,
         motion_bucket_id=args.motion_bucket_id, cond_aug=args.cond_aug,
@@ -104,7 +99,11 @@ def main(argv=None):
         is_aggre_attn=args.is_aggre_attn, feature_folder=args.feature_folder,
         decoding_t=args.decoding_t,
     )
-    result = run_single_video(pipeline, frames, names, vargs, ori_hw=ori_hw)
+    gt_mask = None
+    if args.feature_extraction_mode == "match_gt_mask":
+        gt_mask = load_label_image(args.gt_mask_path,
+                                   *cluster_feature_hw(pipeline, vargs, frames.shape[1], frames.shape[2], len(names)))
+    result = run_single_video(pipeline, frames, names, vargs, ori_hw=ori_hw, gt_mask=gt_mask)
     print(f"unique_labels: {result.unique_labels}")
     print(f"wrote outputs under {args.feature_folder}/{args.exp_name}")
 
