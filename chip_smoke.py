@@ -126,17 +126,44 @@ Phases, in order; any failure exits non-zero:
 15. sweep_sd (after sd, on its pipeline): scripts/sd_pipeline_vspw.py at its
    defaults over video A: the same checks, K1's normalise-first launches
    among the routes.
+16. tiny (after route_probe): configs/inference/svd_tiny.yaml as shipped
+   (16-dim heads) through run_single_video on the main path's frames and
+   settings in bf16: every K1 and K2 launch at D = 16 (the wrappers'
+   .dim_launches), K1 on the mma.sync template, K3 at D = 16 at its CLIP
+   tower in the normalise-first mode (.normalised_dim_launches), no plain
+   version, finite outputs.
+17. inversion (after inject, on its pipeline): the main path with
+   inversion_type 'inversion' and is_injected_features: 94 UNet calls (25 to
+   invert, 25 in the feature pass, 44 in the runs), the cache window t0 = 0
+   with 25 steps and its q/k bytes, 288 injected sites, the launches by kernel
+   and route those calls imply, finite outputs, +lambda != -lambda,
+   outside-mask latents pinned; the inversion's seconds, stage seconds, peak
+   memory.
+18. vae_time_mode (last): svd.yaml's VideoDecoder at time_mode 'all' and
+   'attn-only' with seeded random weights, 14 latents of 56x104 decoded at
+   decoding_t 7 in bf16: K1 and K2 at one 512-dim head (K3's wgmma kernel,
+   the wide kernel) and K3 twice a decode, every launch reckoned; then fp32
+   card vs CPU at 2 frames of 32x32 latents.
+The kernel phase also holds the instances at the head dims the tuned kernels
+are not built for (D = 16: K1, K2, K3, K5, K6, K13; one 512-dim head: K1, K2)
+against their plain versions in bf16 and fp32, and the normalise-first mode
+of K1 and K3 at D = 16 in bf16, also held to mha_reference.
 
 Before the last line come the kernels JSON (per kernel: launches in the run
 of its path and in the other runs (injected, SD, diffusion training,
-autoencoder training, the SVD and SD sweeps summed over their windows), for K1-K6, K11 and K13 the launches of each run by the
-kernel that ran (`routes`), worst error, kernel, plain, bound and
-library-call ms at its headline shape; the normalise-first kernels of K1 and
-K3 as entries of their own, their path the SD run and the main run; K5 also
+autoencoder training, the SVD and SD sweeps summed over their windows, the
+inversion run, the two VideoDecoder decodes summed, the tiny run; a head-dim
+instance's at its D, its `path` naming the run of its `launches`), for
+K1-K6, K11 and K13 the launches of each run by the kernel that ran
+(`routes`), worst error, kernel, plain, bound and library-call ms at its
+headline shape; the normalise-first kernels of K1 and K3 as entries of their
+own at each D (D = 64 and 80: their path the SD run and the main run; D =
+16: K3's the tiny run), counted apart from the other launches at that D; K5 also
 at the training batch) and the card's name and power limit; the last line
 is {"ok": true, "device": ...}.
 """
 
+import dataclasses
 import gc
 import json
 import math
@@ -210,16 +237,51 @@ KERNELS = {
     ),
     # the normalise-first kernels of K1 (D = 64) and K3 (D = 80): the sites that
     # JAX's TPU dispatch sends to no Pallas kernel but to mha_reference (:75,
-    # dispatched at :1644); the wrappers' .normalised_launches count them
+    # dispatched at :1644); the wrappers' .normalised_dim_launches count them at
+    # their head dim in the run of their `path`
     "flash_attention_packed_normalised": dict(
         id="K1 normalise-first", source="vidseg_diffusion_tpu_torch/csrc/flash_attention.cu",
         replaces="vidseg_diffusion_tpu/ops/attention.py:75", rms_tol=4e-3, wrapper="flash_attention_packed",
+        dim=64, path="sd", normalised=True,
     ),
     "flash_attention_normalised": dict(
         id="K3 normalise-first", source="vidseg_diffusion_tpu_torch/csrc/flash_attention.cu",
         replaces="vidseg_diffusion_tpu/ops/attention.py:75", rms_tol=4e-3, wrapper="flash_attention",
+        dim=80, path="main", normalised=True,
     ),
 }
+# the instances at the head dims the tuned kernels are not built for (ROADMAP
+# section C): entries of their own, on the wrapper of the kernel they instance,
+# their launches counted by head dim (the wrappers' .dim_launches) in the run of
+# their `path`: the tiny phase (svd_tiny.yaml as shipped, 16-dim heads), the
+# vae_time_mode phase (the VideoAttnBlock's one 512-dim head); no path runs the
+# D = 16 backwards (K13 at D = 16 is K5's D = 16 instance on K3's strides). The
+# normalise-first D = 16 instances (`normalised`) count their wrapper's
+# .normalised_dim_launches, the others the rest of its launches at that D: the
+# tiny config's K3 launches at D = 16 are its CLIP tower's, all normalise-first
+_CSRC, _JAX = "vidseg_diffusion_tpu_torch/csrc/", "vidseg_diffusion_tpu/ops/attention.py:"
+for _name, _id, _src, _line, _tol, _wrapper, _dim, _path in (
+    ("flash_attention_packed_d16", "K1 D=16", "flash_attention.cu", 527, 4e-3, "flash_attention_packed", 16, "tiny"),
+    ("temporal_attention_direct_d16", "K2 D=16", "temporal_attention.cu", 1458, 1e-3, "temporal_attention_direct", 16,
+     "tiny"),
+    ("flash_attention_d16", "K3 D=16", "flash_attention.cu", 297, 4e-3, "flash_attention", 16, None),
+    ("flash_attention_normalised_d16", "K3 normalise-first D=16", "flash_attention.cu", 75, 4e-3, "flash_attention",
+     16, "tiny"),
+    ("flash_attention_packed_normalised_d16", "K1 normalise-first D=16", "flash_attention.cu", 75, 4e-3,
+     "flash_attention_packed", 16, None),
+    ("flash_attention_packed_backward_d16", "K5 D=16", "flash_attention_bwd.cu", 993, 1e-3,
+     "flash_attention_packed_backward", 16, None),
+    ("temporal_attention_direct_backward_d16", "K6 D=16", "temporal_attention_bwd.cu", 1167, 2e-4,
+     "temporal_attention_direct_backward", 16, None),
+    ("flash_attention_backward_d16", "K13 D=16", "flash_attention_bwd.cu", 1025, 1e-3,
+     "flash_attention_packed_backward", 16, None),
+    ("flash_attention_packed_d512", "K1 D=512 one head", "flash_attention.cu", 527, 4e-3, "flash_attention_packed",
+     512, "vae_time_mode"),
+    ("temporal_attention_direct_d512", "K2 D=512", "temporal_attention.cu", 1458, 1e-3, "temporal_attention_direct",
+     512, "vae_time_mode"),
+):
+    KERNELS[_name] = dict(id=_id, source=_CSRC + _src, replaces=_JAX + str(_line), rms_tol=_tol, wrapper=_wrapper,
+                          dim=_dim, path=_path, normalised="normalised" in _name)
 INFERENCE_KERNELS = ("flash_attention_packed", "temporal_attention_direct", "flash_attention",
                      "temporal_conv_1x1", "group_norm_stats", "group_norm_apply", "group_norm_fused",
                      "matmul_bias", "conv3x3_same")
@@ -252,6 +314,10 @@ MAIN_CALLS = {"unet": 52, "encoder": 3, "decoder": 8}
 # K3 is the VAE's mid attention, once per encoder / decoder chunk.
 SD_CALLS = {"unet": 51, "encoder": 2, "decoder": 16}
 INJECT_BLOCKS, INJECT_STEPS = 9, 8   # attention-bearing output blocks; steps 17..24
+# q and k of the 9 attention-bearing output blocks on the [uc; c] batch of 28
+# frames, bf16: three blocks each at 5824 x 320, 1456 x 640 and 364 x 1280
+# tokens x channels, per cached step
+INJECT_BYTES_PER_STEP = 2 * 28 * 2 * 3 * (5824 * 320 + 1456 * 640 + 364 * 1280)
 # Published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds:
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 outside the tensor cores
@@ -310,6 +376,16 @@ HEADLINE = {  # the shape of its path each kernel is timed at
     "flash_attention_backward": "VAE mid [2,1,5824,512]",
     "flash_attention_packed_normalised": "SD cross ds1 [28,5824x77,5x64]",
     "flash_attention_normalised": "CLIP ViT-H [1,16,257,80]",
+    "flash_attention_packed_d16": "tiny ds1 B=2 slice [2,5824,2x16] bf16",
+    "temporal_attention_direct_d16": "tiny ds1 [28,5824,2,16] t=14 bf16",
+    "flash_attention_d16": "tiny CLIP [1,4,257,16] bf16",
+    "flash_attention_normalised_d16": "tiny CLIP [1,4,257,16]",
+    "flash_attention_packed_normalised_d16": "[2,640x77,4x16]",
+    "flash_attention_packed_backward_d16": "tiny ds1 B=2 slice [2,5824,2x16] bf16",
+    "temporal_attention_direct_backward_d16": "tiny ds1 [28,5824,2,16] t=14 bf16",
+    "flash_attention_backward_d16": "[2,2,1024,16] bf16",
+    "flash_attention_packed_d512": "VideoAttnBlock attn2 [7,5824,1x512] bf16",
+    "temporal_attention_direct_d512": "VideoAttnBlock time mix [7,5824,1,512] t=7 bf16",
 }
 # launches of one training step (remat on: every ResBlock and transformer runs
 # its forward twice, in the step's forward and in the backward's recompute):
@@ -621,7 +697,123 @@ def kernel_cases(torch):
             kern=A.flash_attention_backward, plain=A.flash_attention_backward_reference, iters=3,
             work=attn_work(*shape, backward=True, dtype="bf16" if dtype == bf else "fp32"),
             library=lambda q, k, v, o, lse, g: sdpa_backward([q, k, v], g))
-    return cases + group_norm_cases(torch, rn) + gemm_cases(torch, rn)
+    return cases + head_dim_cases(torch, rn) + group_norm_cases(torch, rn) + gemm_cases(torch, rn)
+
+
+def head_dim_cases(torch, rn):
+    """The instances at the head dims the tuned kernels are not built for, in
+    bf16 and fp32 (ROADMAP section C): D = 16 at svd_tiny.yaml's sites at the
+    main path's 448x832 (CFG batch 28: ds1 5824 tokens x 2 heads, ds2 1456 x 4,
+    the tiny CLIP tower's 257 tokens x 4 heads; K1 and K5 at ds1 on a B = 2
+    slice, as the D = 64 cases), their backwards, K13 at D = 16 (K5's instance
+    on K3's strides); D = 512 at the VideoDecoder VideoAttnBlock's sites of
+    svd.yaml's decode (decoding_t 7 and 14: attn2 [bt, 5824, 1 x 512] through
+    K1, the time mix [bt, 5824, 1, 512] through K2). Library: SDPA on the
+    [B, H, L, D] views (K2: the [b, s, H, t, D] view)."""
+    import torch.nn.functional as F
+
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    sdpa = F.scaled_dot_product_attention
+    heads = lambda x, h: x.view(x.shape[0], x.shape[1], h, x.shape[2] // h).transpose(1, 2)
+    frames = lambda x, t: x.view(x.shape[0] // t, t, *x.shape[1:]).permute(0, 2, 3, 1, 4)
+
+    def sdpa_backward(qkv, g):
+        leaves = [x.detach().requires_grad_() for x in qkv]
+        out = sdpa(*leaves)
+        return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+    cases = []
+    for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        # the input makers bind this loop's dtype (and are bound as defaults where they run later)
+        mk = lambda *shapes, dtype=dtype: (lambda: tuple((rn(*s) * 1.5).to(dtype) for s in shapes))
+        for label, b, l, h in (("tiny ds1 B=2 slice [2,5824,2x16]", 2, 5824, 2), ("tiny ds2 [28,1456,4x16]", 28, 1456, 4)):
+            add = dict(iters=3, work=attn_work(b, h, l, l, 16, dtype=dname))
+            cases.append(dict(kernel="flash_attention_packed_d16", label=f"{label} {dname}",
+                              make=lambda b=b, l=l, h=h, mk=mk: mk(*[(b, l, h * 16)] * 3)() + (h,),
+                              kern=lambda q, k, v, h: A.flash_attention_packed(q, k, v, h),
+                              plain=lambda q, k, v, h: A.flash_attention_packed_reference(q, k, v, h),
+                              library=lambda q, k, v, h: (lambda a=[heads(x, h) for x in (q, k, v)]: sdpa(*a)), **add))
+
+            def k5_make(b=b, l=l, h=h, mk=mk):
+                q, k, v, g = mk(*[(b, l, h * 16)] * 4)()
+                out, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True)
+                return q, k, v, out, lse, g, h
+
+            cases.append(dict(kernel="flash_attention_packed_backward_d16", label=f"{label} {dname}", make=k5_make,
+                              kern=A.flash_attention_packed_backward,
+                              plain=A.flash_attention_packed_backward_reference, iters=3,
+                              work=attn_work(b, h, l, l, 16, backward=True, dtype=dname),
+                              library=lambda q, k, v, o, lse, g, h: sdpa_backward([heads(x, h) for x in (q, k, v)],
+                                                                                  heads(g, h))))
+        for label, s, h in (("tiny ds1 [28,5824,2,16] t=14", 5824, 2), ("tiny ds2 [28,1456,4,16] t=14", 1456, 4)):
+            cases.append(dict(kernel="temporal_attention_direct_d16", label=f"{label} {dname}",
+                              make=mk(*[(28, s, h, 16)] * 3),
+                              kern=lambda q, k, v: A.temporal_attention_direct(q, k, v, t=14),
+                              plain=lambda q, k, v: A.temporal_attention_direct_reference(q, k, v, t=14), iters=3,
+                              work=attn_work(2 * s, h, 14, 14, 16, dtype=dname),
+                              library=lambda q, k, v: (lambda a=[frames(x, 14) for x in (q, k, v)]: sdpa(*a))))
+
+            def k6_make(s=s, h=h, mk=mk):
+                q, k, v, g = mk(*[(28, s, h, 16)] * 4)()
+                return q, k, v, A.temporal_attention_direct(q, k, v, t=14), g
+
+            cases.append(dict(kernel="temporal_attention_direct_backward_d16", label=f"{label} {dname}", make=k6_make,
+                              kern=lambda q, k, v, o, g: A.temporal_attention_direct_backward(q, k, v, o, g, t=14),
+                              plain=lambda q, k, v, o, g: A.temporal_attention_direct_backward_reference(
+                                  q, k, v, o, g, t=14), iters=3,
+                              work=attn_work(2 * s, h, 14, 14, 16, backward=True, dtype=dname),
+                              library=lambda q, k, v, o, g: sdpa_backward([frames(x, 14) for x in (q, k, v)],
+                                                                          frames(g, 14))))
+        if dtype == torch.bfloat16:
+            # the normalise-first mode at D = 16 (bf16 only, as at D = 64 and 80): the tiny CLIP tower's
+            # 257 tokens (K3) and a 77-key cross-attention (K1), each also held to mha_reference
+            packed_mha = lambda q, k, v, h: A.mha_reference(
+                *(x.view(x.shape[0], x.shape[1], h, 16) for x in (q, k, v)), layout="blhd").reshape(q.shape)
+            cases.append(dict(kernel="flash_attention_normalised_d16", label="tiny CLIP [1,4,257,16]",
+                              make=mk(*[(1, 4, 257, 16)] * 3),
+                              kern=lambda q, k, v: A.flash_attention(q, k, v, normalise_first=True),
+                              plain=lambda q, k, v: A.flash_attention_reference(q, k, v, normalise_first=True),
+                              reference=A.mha_reference, iters=5, work=attn_work(1, 4, 257, 257, 16),
+                              library=lambda q, k, v: (lambda: sdpa(q, k, v))))
+            cases.append(dict(kernel="flash_attention_packed_normalised_d16", label="[2,640x77,4x16]",
+                              make=lambda mk=mk: mk((2, 640, 64), (2, 77, 64), (2, 77, 64))() + (4,),
+                              kern=lambda q, k, v, h: A.flash_attention_packed(q, k, v, h, normalise_first=True),
+                              plain=lambda q, k, v, h: A.flash_attention_packed_reference(q, k, v, h,
+                                                                                          normalise_first=True),
+                              reference=packed_mha, iters=5, work=attn_work(2, 4, 640, 77, 16),
+                              library=lambda q, k, v, h: (lambda a=[heads(x, h) for x in (q, k, v)]: sdpa(*a))))
+        for label, shape in (("tiny CLIP [1,4,257,16]", (1, 4, 257, 16)), ("[2,2,1024,16]", (2, 2, 1024, 16))):
+            b, h, l, d = shape
+            cases.append(dict(kernel="flash_attention_d16", label=f"{label} {dname}", make=mk(shape, shape, shape),
+                              kern=A.flash_attention, plain=A.flash_attention_reference, iters=5,
+                              work=attn_work(b, h, l, l, d, dtype=dname), library=lambda q, k, v: (lambda: sdpa(q, k, v))))
+
+        def k13_make(shape=(2, 2, 1024, 16), mk=mk):
+            q, k, v, g = mk(*[shape] * 4)()
+            out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
+            return q, k, v, out, lse, g
+
+        cases.append(dict(kernel="flash_attention_backward_d16", label=f"[2,2,1024,16] {dname}", make=k13_make,
+                          kern=A.flash_attention_backward, plain=A.flash_attention_backward_reference, iters=3,
+                          work=attn_work(2, 2, 1024, 1024, 16, backward=True, dtype=dname),
+                          library=lambda q, k, v, o, lse, g: sdpa_backward([q, k, v], g)))
+        for label, b in (("VideoAttnBlock attn2 [7,5824,1x512]", 7), ("VideoAttnBlock attn2 [14,5824,1x512]", 14)):
+            cases.append(dict(kernel="flash_attention_packed_d512", label=f"{label} {dname}",
+                              make=lambda b=b, mk=mk: mk(*[(b, 5824, 512)] * 3)() + (1,),
+                              kern=lambda q, k, v, h: A.flash_attention_packed(q, k, v, h),
+                              plain=lambda q, k, v, h: A.flash_attention_packed_reference(q, k, v, h),
+                              iters=2, work=attn_work(b, 1, 5824, 5824, 512, dtype=dname),
+                              library=lambda q, k, v, h: (lambda a=[heads(x, 1) for x in (q, k, v)]: sdpa(*a))))
+        for label, t in (("VideoAttnBlock time mix [7,5824,1,512] t=7", 7),
+                         ("VideoAttnBlock time mix [14,5824,1,512] t=14", 14)):
+            cases.append(dict(kernel="temporal_attention_direct_d512", label=f"{label} {dname}",
+                              make=mk(*[(t, 5824, 1, 512)] * 3),
+                              kern=lambda q, k, v, t=t: A.temporal_attention_direct(q, k, v, t=t),
+                              plain=lambda q, k, v, t=t: A.temporal_attention_direct_reference(q, k, v, t=t), iters=5,
+                              work=attn_work(5824, 1, t, t, 512, dtype=dname),
+                              library=lambda q, k, v, t=t: (lambda a=[frames(x, t) for x in (q, k, v)]: sdpa(*a))))
+    return cases
 
 
 def gemm_cases(torch, rn):
@@ -1154,7 +1346,7 @@ def kernel_fns():
 ROUTED = ("flash_attention_packed", "flash_attention", "temporal_conv_1x1", "matmul_bias",
           "temporal_attention_direct", "temporal_attention_direct_backward", "flash_attention_packed_backward",
           "flash_attention_backward")
-ROUTE_NAMES = ("wgmma", "narrow", "mma", "normalised")
+ROUTE_NAMES = ("wgmma", "narrow", "mma", "normalised", "wide")
 GN_ROUTES = {"fused": 0, "stream": 0}   # GroupNorm32 calls per route since reset_counts()
 
 
@@ -1182,6 +1374,9 @@ def reset_counts():
         for route in ROUTE_NAMES:
             if hasattr(f, f"{route}_launches"):
                 setattr(f, f"{route}_launches", 0)
+        for attr in ("dim_launches", "normalised_dim_launches"):
+            if hasattr(f, attr):
+                getattr(f, attr).clear()
     for f in plains:
         f.calls = 0
     A.mha_reference_site.calls = 0
@@ -1197,6 +1392,16 @@ def read_routes():
 
 
 ROUTE_COUNTS = {}   # phase -> read_routes() after its run
+DIM_COUNTS = {}     # phase -> {attention wrapper (".normalised": its normalise-first launches): {head dim: launches}}
+
+
+def read_dims():
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    dims = {f.__name__: dict(f.dim_launches) for f in A.KERNEL_COUNTERS}
+    dims.update({f"{f.__name__}.normalised": dict(f.normalised_dim_launches)
+                 for f in A.KERNEL_COUNTERS if hasattr(f, "normalised_dim_launches")})
+    return dims
 
 
 def check_routes(tag, launches, narrow=0, normalised=None):
@@ -1211,17 +1416,33 @@ def check_routes(tag, launches, narrow=0, normalised=None):
     normalised = normalised or {}
     want = {name: {"wgmma": launches[name]} for name in ("matmul_bias", "flash_attention_packed_backward",
                                                           "flash_attention_backward")}
-    want["flash_attention_packed"] = {"wgmma": launches["flash_attention_packed"],
+    want["flash_attention_packed"] = {"wgmma": launches["flash_attention_packed"], "mma": 0,
                                       "normalised": normalised.get("flash_attention_packed", 0)}
     nf3 = normalised.get("flash_attention", 0)
     want["flash_attention"] = {"wgmma": launches["flash_attention"] - nf3, "normalised": nf3}
     want["temporal_conv_1x1"] = {"wgmma": launches["temporal_conv_1x1"] - narrow, "narrow": narrow}
-    for name in ("temporal_attention_direct", "temporal_attention_direct_backward"):
-        want[name] = {"mma": launches[name]}
+    want["temporal_attention_direct"] = {"mma": launches["temporal_attention_direct"], "wide": 0}
+    want["temporal_attention_direct_backward"] = {"mma": launches["temporal_attention_direct_backward"]}
     got = {name: routes[name] for name in ROUTED}
     check(got == want, f"[{tag}] launches by route {got}, expected {want}")
     ROUTE_COUNTS[tag] = routes
+    DIM_COUNTS[tag] = read_dims()
+    for name in ("flash_attention_packed", "flash_attention"):
+        check(sum(DIM_COUNTS[tag][f"{name}.normalised"].values()) == routes[name]["normalised"],
+              f"[{tag}] {name}: normalise-first launches by head dim {DIM_COUNTS[tag][f'{name}.normalised']}, "
+              f"{routes[name]['normalised']} in all")
     return routes
+
+
+def sum_dims(runs):
+    """read_dims() of several runs, summed."""
+    out = {}
+    for dims in runs:
+        for w, by_dim in dims.items():
+            mine = out.setdefault(w, {})
+            for d, n in by_dim.items():
+                mine[d] = mine.get(d, 0) + n
+    return out
 
 
 def narrow_tconv_sites(model):
@@ -1359,10 +1580,7 @@ def phase_inject(torch, pipe, plain_res):
     """The main path with is_injected_features, same frames, seed and weights."""
     import numpy as np
 
-    # reckoned before the run: q and k of the 9 attention-bearing output blocks
-    # on the [uc; c] batch of 28 frames, bf16: three blocks each at 5824 x 320,
-    # 1456 x 640 and 364 x 1280 tokens x channels, per cached step
-    per_step = 2 * 28 * 2 * 3 * (5824 * 320 + 1456 * 640 + 364 * 1280)
+    per_step = INJECT_BYTES_PER_STEP   # reckoned before the run
     print(f"[inject] expected q/k cache: {per_step / 1e9:.2f} GB per cached step, "
           f"{INJECT_STEPS * per_step / 1e9:.2f} GB for {INJECT_STEPS} steps", flush=True)
     launches, res = run_main_path(torch, pipe, "inject", injected=True)
@@ -1383,6 +1601,242 @@ def phase_inject(torch, pipe, plain_res):
           f"max |injected - un-injected final latents| = {moved:.4f} (feature passes differ by {noise})",
           flush=True)
     return launches
+
+
+INVERSION_CALLS = {"unet": 25 + 25 + 4 * 11, "encoder": 3, "decoder": 8}   # invert, feature pass, 4 runs of 11
+
+
+def phase_inversion(torch, pipe):
+    """The main path with inversion_type 'inversion' and is_injected_features
+    (scripts/main_path.py's third configuration): the latents inverted over all
+    25 steps, the feature pass from step 0, so its q/k cache holds 25 steps; the
+    UNet calls (a pre-hook counts them: 25 + 25 + 44), the cache window t0 = 0
+    and its bytes, the injected sites, the launches by kernel and route those
+    calls imply, finite outputs, +lambda != -lambda, outside-mask latents
+    pinned; the inversion's own seconds, the stage seconds and peak memory."""
+    import numpy as np
+
+    from vidseg_diffusion_tpu_torch.engine import vidseg as V
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+    from vidseg_diffusion_tpu_torch.pipelines.single_video import run_single_video
+    from vidseg_diffusion_tpu_torch.scripts import main_path
+
+    calls = {"unet": 0}
+    hook = pipe.unet.register_forward_pre_hook(lambda *a: calls.update(unet=calls["unet"] + 1))
+    invert, invert_s = V.VidSegEngine.invert, {}
+
+    def timed_invert(self, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = invert(self, *a)
+        torch.cuda.synchronize()
+        invert_s.update(s=time.perf_counter() - t0, unet_calls=calls["unet"])
+        return out
+
+    V.VidSegEngine.invert = timed_invert
+    args = main_path.vidseg_args(is_injected_features=True, inversion_type="inversion")
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        res = run_single_video(pipe, main_path.frames(), main_path.frame_names(), args, write_outputs=False,
+                               timings=timings)
+        total = time.perf_counter() - t0
+    finally:
+        V.VidSegEngine.invert = invert
+        hook.remove()
+    launches, plain_calls = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[inversion] run_single_video {total:.2f} s (invert {invert_s['s']:.2f} s of the feature_pass stage), "
+          f"stages_s {json.dumps({k: round(v, 3) for k, v in timings.items()})}; peak device memory {peak_gb:.1f} GB "
+          f"({card_line()})", flush=True)
+    check(calls["unet"] == INVERSION_CALLS["unet"] and invert_s["unet_calls"] == 25,
+          f"[inversion] {calls['unet']} UNet calls ({invert_s['unet_calls']} in invert), expected "
+          f"{INVERSION_CALLS['unet']} (25 of them in invert)")
+    implied, normalised = window_launches(pipe, True, INVERSION_CALLS)
+    expected = {name: implied.get(name, 0) for name in launches}
+    expected.update(group_norm_expected("inversion", implied["group_norm"]))
+    check(launches == expected, f"[inversion] launches {launches}, expected {expected} ({INVERSION_CALLS})")
+    check(all(n == 0 for n in plain_calls.values()) and A.mha_reference_site.calls == 0,
+          f"[inversion] plain versions ran on the card: {plain_calls}, site {A.mha_reference_site.calls}")
+    narrow = INVERSION_CALLS["decoder"] * narrow_tconv_sites(pipe.first_stage.decoder)
+    print(f"[inversion] kernel launches {json.dumps(launches)}; by route "
+          f"{json.dumps(check_routes('inversion', launches, narrow, normalised))}", flush=True)
+    k, steps = args.num_masks, main_path.NUM_STEPS
+    check(res.cache_t0 == 0 and res.cached_xt.shape[0] == steps,
+          f"[inversion] cache window t0 {res.cache_t0}, {res.cached_xt.shape[0]} cached steps, expected 0 and {steps}")
+    check(res.injected_cache_bytes == steps * INJECT_BYTES_PER_STEP,
+          f"[inversion] q/k cache holds {res.injected_cache_bytes} bytes, expected {steps * INJECT_BYTES_PER_STEP}")
+    n_sites = INJECT_BLOCKS * INJECT_STEPS * 2 * k
+    check(res.injected_sites == n_sites, f"[inversion] {res.injected_sites} injected sites, expected {n_sites}")
+    fin = res.final_latents
+    check(np.isfinite(fin).all() and np.isfinite(res.feature_x0).all() and np.isfinite(res.diff_maps).all(),
+          "[inversion] outputs not finite")
+    check(set(np.unique(res.seg_raw)) <= set(range(k)), "[inversion] labels out of range")
+    dpm = float(np.abs(fin[0] - fin[1]).max())
+    check(dpm > 0, "[inversion] +lambda and -lambda runs are identical")
+    outside = max(float(np.abs((fin[s_, m] - res.cached_xt[-1]) * (1 - res.masks_latent[m][..., None])).max())
+                  for s_ in range(2) for m in range(k))
+    check(outside == 0.0, f"[inversion] outside-mask latents deviate from the cached trajectory by {outside}")
+    print(f"[inversion] {calls['unet']} UNet calls, cache t0 0 x {steps} steps, q/k cache "
+          f"{res.injected_cache_bytes / 1e9:.2f} GB, {res.injected_sites} injected sites; max|+lambda - -lambda| = "
+          f"{dpm:.4f}; outside-mask deviation {outside}", flush=True)
+    return launches
+
+
+TINY_CONFIG = "configs/inference/svd_tiny.yaml"
+
+
+def phase_tiny(torch):
+    """svd_tiny.yaml as shipped (16-dim heads at every UNet site and at its tiny
+    CLIP tower) through run_single_video on the card in bf16, on the main
+    path's frames and settings (14 x 448x832, 25 steps, 2 masks, decoding_t 7):
+    the D = 16 instances of K1 (the mma.sync template) and K2 (CUDA cores), K3
+    at D = 16 on CLIP's "mha_reference" site (normalise-first); every K1 and
+    K2 launch at D = 16, no plain version, finite outputs. Returns the launches
+    and keeps the head-dim counts (DIM_COUNTS["tiny"])."""
+    import numpy as np
+
+    from vidseg_diffusion_tpu_torch.engine.build import build_pipeline
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+    from vidseg_diffusion_tpu_torch.pipelines.single_video import run_single_video
+    from vidseg_diffusion_tpu_torch.scripts import main_path
+
+    pipe = build_pipeline(os.path.join(ROOT, TINY_CONFIG), num_steps=main_path.NUM_STEPS,
+                          num_frames=main_path.NUM_FRAMES, dtype=torch.bfloat16, device="cuda", seed=0)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_single_video(pipe, main_path.frames(), main_path.frame_names(), main_path.vidseg_args(),
+                           write_outputs=False)
+    total = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    dims = read_dims()
+    DIM_COUNTS["tiny"], ROUTE_COUNTS["tiny"] = dims, read_routes()
+    print(f"[tiny] {TINY_CONFIG} run_single_video {total:.2f} s; launches {json.dumps(launches)}; by head dim "
+          f"{json.dumps(dims)}", flush=True)
+    check(all(n == 0 for n in plain_calls.values()) and A.mha_reference_site.calls == 0,
+          f"[tiny] plain versions ran on the card: {plain_calls}")
+    for name in ("flash_attention_packed", "temporal_attention_direct"):
+        check(launches[name] > 0 and dims[name] == {16: launches[name]},
+              f"[tiny] {name}: {launches[name]} launches, by head dim {dims[name]} (all at D = 16 expected)")
+    check(A.flash_attention_packed.mma_launches == launches["flash_attention_packed"],
+          "[tiny] a D = 16 K1 launch did not run the mma.sync template")
+    check(A.temporal_attention_direct.mma_launches == 0 and A.temporal_attention_direct.wide_launches == 0,
+          "[tiny] a D = 16 K2 launch ran the D = 64 or the D = 512 kernel")
+    nf16 = dims["flash_attention.normalised"].get(16, 0)
+    check(nf16 > 0 and dims["flash_attention"].get(16, 0) == nf16,
+          f"[tiny] K3 at D = 16: {dims['flash_attention']} launches, {nf16} of them normalise-first (CLIP's, all "
+          "expected)")
+    check(np.isfinite(res.final_latents).all() and np.isfinite(res.diff_maps).all(), "[tiny] outputs not finite")
+    check(float(np.abs(res.final_latents[0] - res.final_latents[1]).max()) > 0, "[tiny] +lambda == -lambda")
+    del pipe
+    return launches
+
+
+VAE_TIME_MODES = ("all", "attn-only")
+
+
+def vae_time_mode_decoder(torch, mode, dtype, seed=7):
+    """svd.yaml's first-stage decoder in `mode`, every parameter drawn from a
+    seed as a random build draws them (engine.build.randomize_)."""
+    from vidseg_diffusion_tpu_torch.config import load_model_spec
+    from vidseg_diffusion_tpu_torch.engine.build import randomize_
+    from vidseg_diffusion_tpu_torch.models.vae import Decoder
+
+    spec = load_model_spec(os.path.join(ROOT, "configs/inference/svd.yaml"), num_frames=14)
+    dec = Decoder(dataclasses.replace(spec.vae_config, time_mode=mode, dtype=dtype)).cuda()
+    with torch.no_grad():
+        randomize_(dec, torch.Generator(device="cuda").manual_seed(seed))
+    return dec.to(dtype).eval().requires_grad_(False), spec.scale_factor
+
+
+def phase_vae_time_mode(torch):
+    """The VideoDecoder at time_mode 'all' and 'attn-only' (svd.yaml's first
+    stage, seeded random weights; 'conv-only', svd.yaml's own, beside them for
+    the time): 14 latents of 56x104 decoded at decoding_t 7
+    in bf16, the counts set to 0 before each decode: the VideoAttnBlock's K3
+    (spatial, [7,1,5824,512]), K2 at D = 512 on the wide kernel (the time mix,
+    t = 7) and K1 at one 512-dim head on K3's wgmma kernel (attn2, a "flash"
+    site over the 5824 tokens) twice a decode (two calls), K11 at its eight
+    projections, K4 at the video ResnetBlocks ('all' only), every launch reckoned
+    and no plain version; finite frames. Then each mode in fp32 at 2 frames of
+    32x32 latents (1024 tokens: every attention site a kernel site) on the card
+    vs the CPU's plain versions, the library convolutions off cuDNN and TF32 off,
+    within UNET_REL_TOL of max |CPU|. Returns {mode: launches}."""
+    import copy
+
+    from vidseg_diffusion_tpu_torch.engine.diffusion_engine import FirstStage
+    from vidseg_diffusion_tpu_torch.models.layers import CrossAttention, GroupNorm32
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(8)
+    z = torch.randn(14, 56, 104, 4, generator=g, device="cuda").to(torch.bfloat16)
+    for mode in ("conv-only",) + VAE_TIME_MODES:   # svd.yaml's own mode: the time it is compared with
+        dec, scale = vae_time_mode_decoder(torch, mode, torch.bfloat16)
+        fs = FirstStage(None, dec, scale)
+        fs.decode(z[:7], chunk=7)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        frames = fs.decode(z, chunk=7)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, plain_calls = read_counts()
+        dims, calls = read_dims(), 2
+        mixed = calls if mode in VAE_TIME_MODES else 0   # the VideoAttnBlock's K1 and K2 launches
+        n_gn = sum(isinstance(m, GroupNorm32) for m in dec.modules())
+        n_attn = sum(isinstance(m, CrossAttention) for m in dec.modules())
+        want = {name: 0 for name in launches}
+        want.update(flash_attention_packed=mixed, temporal_attention_direct=mixed, flash_attention=calls,
+                    matmul_bias=4 * n_attn * calls,
+                    temporal_conv_1x1=TCONV_PER_DECODER * calls if mode != "attn-only" else 0)
+        want.update(group_norm_expected(f"vae {mode}", n_gn * calls))
+        check(launches == want, f"[vae_time_mode {mode}] launches {launches}, expected {want}")
+        check(all(n == 0 for n in plain_calls.values()) and A.mha_reference_site.calls == 0,
+              f"[vae_time_mode {mode}] plain versions ran on the card: {plain_calls}")
+        at512 = lambda n: {512: n} if n else {}
+        check(dims["flash_attention_packed"] == at512(mixed) and dims["temporal_attention_direct"] == at512(mixed)
+              and dims["flash_attention"] == {512: calls}, f"[vae_time_mode {mode}] launches by head dim {dims}")
+        check(A.flash_attention_packed.wgmma_launches == mixed and A.temporal_attention_direct.wide_launches == mixed
+              and A.flash_attention.wgmma_launches == calls,
+              f"[vae_time_mode {mode}] K1 / K2 / K3 off their D = 512 kernels: {read_routes()}")
+        check(frames.shape == (14, 448, 832, 3) and bool(torch.isfinite(frames).all()),
+              f"[vae_time_mode {mode}] frames {tuple(frames.shape)} not finite or misshaped")
+        ROUTE_COUNTS[f"vae_{mode}"], DIM_COUNTS[f"vae_{mode}"] = read_routes(), dims
+        print(f"[vae_time_mode {mode}] decode of 14 x 56x104 latents at decoding_t 7 (bf16): {secs:.3f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; launches {json.dumps(launches)}; by route "
+              f"{json.dumps(ROUTE_COUNTS[f'vae_{mode}'])} ({card_line()})", flush=True)
+        if mode in VAE_TIME_MODES:
+            out[mode] = launches
+        del dec, fs, frames
+        torch.cuda.empty_cache()
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = torch.backends.cudnn.enabled = False
+    try:
+        zs = torch.randn(2, 32, 32, 4, generator=torch.Generator().manual_seed(9))
+        for mode in VAE_TIME_MODES:
+            dec, _ = vae_time_mode_decoder(torch, mode, torch.float32)
+            cpu = copy.deepcopy(dec).cpu()
+            reset_counts()
+            with torch.no_grad():
+                card = dec(zs.cuda(), 2).cpu()
+                launches, plain_calls = read_counts()
+                ref = cpu(zs, 2)
+            check(launches["flash_attention_packed"] == 1 and launches["temporal_attention_direct"] == 1
+                  and launches["flash_attention"] == 1, f"[vae_time_mode {mode} fp32] launches {launches}")
+            err = (card - ref).abs().max().item() / ref.abs().max().item()
+            print(f"[vae_time_mode {mode} fp32] 2 x 32x32 latents, card vs CPU: max |diff| {err:.3e} of max |CPU| "
+                  f"(tol {UNET_REL_TOL:.0e})", flush=True)
+            check(err <= UNET_REL_TOL and bool(torch.isfinite(card).all()),
+                  f"[vae_time_mode {mode} fp32] card vs CPU {err}")
+            del dec, cpu
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled = saved
+    return out
 
 
 def phase_sd(torch):
@@ -1917,7 +2371,8 @@ class WindowRecorder:
         k = len(res.unique_labels)
         launches, routes = check_window(f"{self.tag} window {len(self.windows)}", self.pipe, self.video, k)
         self.windows.append(dict(names=list(names), gt_state=kw.get("gt_state"), gt_mask=kw.get("gt_mask"),
-                                 result=res, seconds=seconds, launches=launches, routes=routes, stages=stages))
+                                 result=res, seconds=seconds, launches=launches, routes=routes, dims=read_dims(),
+                                 stages=stages))
         return res
 
 
@@ -2012,6 +2467,7 @@ def run_sweep(torch, tag, cli, pipe, video, root, expected_windows, failed):
     SWEEP[tag] = {k: sum(w["launches"][k] for w in recorder.windows) for k in recorder.windows[0]["launches"]}
     ROUTE_COUNTS[tag] = {k: {r: sum(w["routes"][k][r] for w in recorder.windows) for r in v}
                          for k, v in recorder.windows[0]["routes"].items()}
+    DIM_COUNTS[tag] = sum_dims(w["dims"] for w in recorder.windows)
     return recorder
 
 
@@ -2245,6 +2701,12 @@ def main():
         spills = sum(int(s.split(" bytes spill stores")[0].split()[-1]) for s in ptxas if "spill stores" in s)
         print(f"[build] ptxas: {len(regs)} kernel instances, registers {min(regs)}-{max(regs)}, "
               f"spill stores {spills} bytes", flush=True)
+        with open(log) as f:   # the instances that spill: a "Function properties" line, then its spill line
+            lines = f.read().splitlines()
+        spilling = [a.split("Function properties for ")[1] + ": " + b.strip() for a, b in zip(lines, lines[1:])
+                    if "Function properties for " in a and "spill stores" in b and " 0 bytes spill stores" not in b]
+        for entry in spilling:
+            print(f"[build] spills: {entry}", flush=True)
 
     torch.nn.modules.module.register_module_forward_pre_hook(count_group_norm_route)
     phases = {}
@@ -2254,6 +2716,9 @@ def main():
     t0 = time.perf_counter()
     phase_route_probe(torch)
     phases["route_probe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tiny_launches = phase_tiny(torch)
+    phases["tiny"] = time.perf_counter() - t0
     for name, fn in (("unet", phase_unet), ("train_grad", phase_train_grad)):
         t0 = time.perf_counter()
         fn(torch)
@@ -2265,6 +2730,13 @@ def main():
     inject_launches = phase_inject(torch, pipe, plain_res)
     phases["inject"] = time.perf_counter() - t0
     del plain_res
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    inversion_launches = phase_inversion(torch, pipe)
+    phases["inversion"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
     for name, fn in (("sweep", phase_sweep), ("refine", phase_refine)):
         t0 = time.perf_counter()
         fn(torch, pipe)
@@ -2290,16 +2762,35 @@ def main():
     t0 = time.perf_counter()
     ae_launches = phase_ae_train(torch)
     phases["ae_train"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    vae_launches = phase_vae_time_mode(torch)
+    phases["vae_time_mode"] = time.perf_counter() - t0
     print(f"[phases] seconds {json.dumps({k: round(v, 1) for k, v in phases.items()})}", flush=True)
 
     kernels = []
     tags = ("main", "inject", "sd", "train", "ae_train", "sweep", "sweep_sd")
+    # this slice's paths: the inversion run, the VideoDecoder's two time modes
+    # (their decodes summed), and the tiny config's run for the D = 16 instances
+    slice_runs = {"inversion": inversion_launches, "tiny": tiny_launches,
+                  "vae_time_mode": {k: sum(r[k] for r in vae_launches.values()) for k in inversion_launches}}
+    DIM_COUNTS["vae_time_mode"] = sum_dims(DIM_COUNTS[f"vae_{m}"] for m in VAE_TIME_MODES)
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         head = next(r for r in mine if r["shape"] == HEADLINE[name])
-        if "wrapper" in meta:  # a normalise-first kernel: its wrapper's .normalised_launches in each run
-            runs = {tag: ROUTE_COUNTS[tag][meta["wrapper"]]["normalised"] for tag in tags}
-            runs["main"] = runs["sd" if name == "flash_attention_packed_normalised" else "main"]  # its path
+        extra = {}
+        if "dim" in meta:  # an instance at one head dim: its wrapper's launches at that D in each run,
+            # the normalise-first ones or the rest
+            def at_dim(tag, meta=meta):
+                by_dim = DIM_COUNTS[tag]
+                nf = by_dim.get(f"{meta['wrapper']}.normalised", {}).get(meta["dim"], 0)
+                return nf if meta["normalised"] else by_dim[meta["wrapper"]].get(meta["dim"], 0) - nf
+
+            runs = {tag: at_dim(tag) for tag in tags + tuple(slice_runs)}
+            runs["main"] = runs[meta["path"]] if meta["path"] else 0   # its path's run
+            check(not meta["path"] or runs["main"] > 0, f"{name} never launched in the {meta['path']} run")
+            extra = {"path": meta["path"] or "none (no path runs it)", "dim": meta["dim"]}
             routed = None
         else:
             # the run of its path: inference for K1-K4, K7, K8, K11, K12, diffusion training for
@@ -2308,19 +2799,21 @@ def main():
                              else ae_launches if name in AE_KERNELS else train_launches)
             runs = dict(main=path_launches[name], inject=inject_launches[name], sd=sd_launches[name],
                         train=train_launches[name], ae_train=ae_launches[name], sweep=SWEEP["sweep"][name],
-                        sweep_sd=SWEEP["sweep_sd"][name])
+                        sweep_sd=SWEEP["sweep_sd"][name],
+                        **{tag: r[name] for tag, r in slice_runs.items()})
             # K1, K2, K3, K4, K5, K6, K11 and K13: the launches of each path by the kernel that ran
             # (checked); the GroupNorm forward's routes are kernels of their own (K7 + K8, the fused K7+K8)
-            routed = {tag: ROUTE_COUNTS[tag][name] for tag in tags} if name in ROUTED else None
+            routed = ({tag: ROUTE_COUNTS[tag][name] for tag in tags + ("inversion",)} if name in ROUTED else None)
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=runs["main"], inject_launches=runs["inject"], sd_launches=runs["sd"],
             train_launches=runs["train"], ae_launches=runs["ae_train"], sweep_launches=runs["sweep"],
-            sweep_sd_launches=runs["sweep_sd"],
+            sweep_sd_launches=runs["sweep_sd"], inversion_launches=runs["inversion"],
+            vae_time_mode_launches=runs["vae_time_mode"], tiny_launches=runs["tiny"],
             max_abs_err=max(r["max_abs_err"] for r in mine), shape=head["shape"],
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
-            library_covers=head["library_covers"], routes=routed,
+            library_covers=head["library_covers"], routes=routed, **extra,
             **({"train_batch": k5_train} if name == "flash_attention_packed_backward" else {}),
         ))
     print(json.dumps({"kernels": kernels}))

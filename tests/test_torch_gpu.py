@@ -647,7 +647,9 @@ def test_vae_attn_block_autograd_matches_the_cpu(cuda):
             for p in block.parameters():
                 p.copy_(torch.randn(p.shape, generator=gen, device=cuda) * (0.5 if p.dim() == 1 else 0.05))
         cpu_block = copy.deepcopy(block).cpu()
-        x, g = _randn(cuda, 64, torch.float32, 2, 9, 11, 512), _randn(cuda, 65, torch.float32, 2, 9, 11, 512)
+        # 32 x 32 = 1024 tokens: a "flash" site (under 512 tokens the site is
+        # JAX's mha_reference, which runs mha_reference_site under a gradient)
+        x, g = _randn(cuda, 64, torch.float32, 2, 32, 32, 512), _randn(cuda, 65, torch.float32, 2, 32, 32, 512)
         launches = A.flash_attention.launches, A.flash_attention_backward.launches
 
         def grads(mod, dev):
@@ -674,8 +676,9 @@ def test_aggre_attn_tiny_pipeline_in_bf16_matches_the_cpu(cuda, tmp_path):
     card and on the CPU with the same weights and draws. The config takes
     three output blocks per level (tests/test_torch_pipeline.py's
     configuration) and 64-dim heads everywhere (UNet model_channels 64,
-    num_head_channels 64; CLIP one head of 64), the head dim the attention
-    kernels are built for (svd_tiny's own 16 is not). The block mean of
+    num_head_channels 64; CLIP one head of 64), the head dim of the tuned
+    kernels the full-width paths run (svd_tiny's own 16-dim heads run in
+    test_svd_tiny_as_shipped_runs_on_the_card). The block mean of
     bf16 features is bit for bit the CPU's; the run's aggregated cluster
     features come out bf16-valued (rounded once, as jnp.mean rounds) and
     agree with the CPU's (relative RMS 0.1: bf16 through the feature pass,
@@ -1115,3 +1118,246 @@ def test_autograd_through_matmul_bias_and_conv3x3(cuda, dt):
         with torch.no_grad():
             assert fn(*leaves).grad_fn is None
     torch.backends.cudnn.allow_tf32 = saved
+
+
+# -- the head dims of part A of ROADMAP section C's repair: D = 16 (the tiny
+# configs) for K1, K2, K3 and their backwards K5, K6, K13 (K5 on K13's
+# strides); one 512-dim head for K1 (K3's D = 512 wgmma kernel on the packed
+# rows) and K2 (the wide kernel); D = 512 backwards of K1 / K2 and 512 at two
+# blhd heads refused before any launch
+
+D16_PACKED = [(2, 300, 300, 2), (28, 91, 91, 4), (2, 100, 37, 2), (1, 600, 600, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("rounded", [False, True])
+@pytest.mark.parametrize("b,lq,lk,h", D16_PACKED)
+def test_flash_attention_packed_d16(cuda, dt, rounded, b, lq, lk, h):
+    """K1 at 16-dim heads, both sums: bf16 on the mma.sync template
+    (`.mma_launches`), fp32 on the FMA kernel, within chip_smoke.py's forward
+    bounds of the plain version; its LSE within LSE_TOL."""
+    dtype = DTYPES[dt]
+    q = _randn(cuda, 200, dtype, b, lq, h * 16, scale=1.5)
+    k, v = (_randn(cuda, i, dtype, b, lk, h * 16, scale=1.5) for i in (201, 202))
+    mma, launches = A.flash_attention_packed.mma_launches, A.flash_attention_packed.launches
+    out = A.flash_attention_packed(q, k, v, h, psum_rounded=rounded)
+    torch.cuda.synchronize()
+    assert A.flash_attention_packed.launches == launches + 1
+    assert A.flash_attention_packed.mma_launches == mma + (dtype == torch.bfloat16)
+    ref = A.flash_attention_packed_reference(q, k, v, h, psum_rounded=rounded)
+    _close_grads((out,), (ref,), RMS_TOL["K1"])
+    _, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True, psum_rounded=rounded)
+    _, lse_ref = A.flash_attention_packed_reference(q, k, v, h, save_lse=True, psum_rounded=rounded)
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+
+
+NF16_DRAWS = 8   # the draws the normalise-first D = 16 test pools (seeds 210 + 3i, 211 + 3i, 212 + 3i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,qshape,kshape", [
+    ("blhd", (1, 91, 2, 16), (1, 91, 2, 16)),     # one video item's mid attention: too few folded rows
+    ("bhld", (1, 4, 257, 16), (1, 4, 257, 16)),   # a tiny CLIP tower's 257 tokens
+    ("blhd", (2, 640, 4, 16), (2, 77, 4, 16)),    # lengths on both sides of 512
+    ("bhld", (4, 4, 257, 16), (4, 4, 257, 16)),
+])
+def test_normalise_first_d16_holds_to_mha_reference(cuda, layout, qshape, kshape):
+    """The "mha_reference" sites at 16-dim heads run the normalise-first
+    mma.sync kernel: every element within one bf16 step of mha_reference on
+    the same inputs (per draw), at most 0.1 % of the elements differing over
+    NF16_DRAWS draws pooled (the first the draw of seeds 210-212). At 2912
+    elements a draw the bound is a count of two, and the plain version of the
+    kernel's own base-2 arithmetic (_attention_normalised) on the CPU passes
+    three on some draws (PERF.md section 7), so one draw is not a measurement
+    of the share; the kernel is also held to that plain version under the
+    same bounds, the second witness."""
+    lq, lk = (qshape[1], kshape[1]) if layout == "blhd" else (qshape[2], kshape[2])
+    assert A.site_route(layout, qshape[0], lq, lk) == "mha_reference"
+    fn = A.flash_attention_packed if layout == "blhd" else A.flash_attention
+    to_blhd = (lambda x: x.transpose(1, 2)) if layout == "bhld" else (lambda x: x)
+    diffs = {"mha_reference": [], "_attention_normalised": []}
+    for i in range(NF16_DRAWS):
+        q = _randn(cuda, 210 + 3 * i, torch.bfloat16, *qshape, scale=1.5)
+        k, v = (_randn(cuda, 211 + 3 * i + j, torch.bfloat16, *kshape, scale=1.5) for j in range(2))
+        nf, site = fn.normalised_launches, A.mha_reference_site.calls
+        out = A.dot_product_attention(q, k, v, layout=layout)
+        torch.cuda.synchronize()
+        assert fn.normalised_launches == nf + 1 and A.mha_reference_site.calls == site
+        qc, kc, vc = q.cpu(), k.cpu(), v.cpu()
+        plain = A._attention_normalised(to_blhd(qc), to_blhd(kc), to_blhd(vc), 1.0 / math.sqrt(qshape[-1]))
+        for name, ref in (("mha_reference", A.mha_reference(qc, kc, vc, layout=layout)),
+                          ("_attention_normalised", to_blhd(plain.to(torch.bfloat16)))):
+            assert out.shape == ref.shape and ref.dtype == torch.bfloat16
+            diff = (out.cpu().float() - ref.float()).abs()
+            step = 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
+            assert diff.max().item() <= step, (name, i, diff.max().item(), step)
+            diffs[name].append(diff.flatten())
+    for name, d in diffs.items():
+        frac = (torch.cat(d) > 0).float().mean().item()
+        assert frac <= 1e-3, (name, frac, [int((x > 0).sum()) for x in d])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("b,h,lq,lk", [(2, 4, 100, 100), (1, 16, 257, 257), (1, 2, 600, 90)])
+def test_flash_attention_bhld_d16(cuda, dt, b, h, lq, lk):
+    """K3 at 16-dim heads (bf16 on the mma.sync template) against its plain
+    version without a gradient (the fp32 sum) and with its LSE (the rounded
+    sum); K13 at D = 16 runs K5 on the bhld strides."""
+    dtype = DTYPES[dt]
+    q, g = (_randn(cuda, i, dtype, b, h, lq, 16, scale=1.5) for i in (220, 221))
+    k, v = (_randn(cuda, i, dtype, b, h, lk, 16, scale=1.5) for i in (222, 223))
+    _check(A.flash_attention, A.flash_attention_reference, q, k, v)
+    out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
+    _, lse_ref = A.flash_attention_reference(q, k, v, save_lse=True)
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    k13, k5 = A.flash_attention_backward.launches, A.flash_attention_packed_backward.launches
+    got = A.flash_attention_backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert A.flash_attention_backward.launches == k13 and A.flash_attention_packed_backward.launches == k5 + 1
+    _close_grads(got, A.flash_attention_backward_reference(q, k, v, out, lse, g), RMS_TOL["K5"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("b,lq,lk,h", D16_PACKED)
+def test_flash_attention_packed_backward_d16(cuda, dt, b, lq, lk, h):
+    """K5 at 16-dim heads (the FMA kernels, bf16 roundings applied; no wgmma
+    launch) on K1's LSE, within chip_smoke.py's backward bounds."""
+    dtype = DTYPES[dt]
+    q, g = (_randn(cuda, i, dtype, b, lq, h * 16, scale=1.5) for i in (230, 231))
+    k, v = (_randn(cuda, i, dtype, b, lk, h * 16, scale=1.5) for i in (232, 233))
+    out, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True)
+    wg = A.flash_attention_packed_backward.wgmma_launches
+    _check(A.flash_attention_packed_backward, A.flash_attention_packed_backward_reference,
+           q, k, v, out, lse, g, h, rms_tol=RMS_TOL["K5"])
+    assert A.flash_attention_packed_backward.wgmma_launches == wg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("t,s,h", [(1, 9, 2), (3, 91, 2), (14, 364, 4), (32, 20, 1)])
+def test_temporal_attention_direct_d16_and_backward(cuda, dt, t, s, h):
+    """K2 and K6 at 16-dim heads on the CUDA-core kernels (no mma.sync
+    launch), bf16 roundings applied, within chip_smoke.py's bounds; and
+    autograd through K2 + K6 against autograd of the plain forward."""
+    dtype = DTYPES[dt]
+    q, k, v, g = (_randn(cuda, i, dtype, 2 * t, s, h, 16, scale=1.5) for i in (240, 241, 242, 243))
+    mma = A.temporal_attention_direct.mma_launches, A.temporal_attention_direct_backward.mma_launches
+    out = A.temporal_attention_direct(q, k, v, t=t)
+    torch.cuda.synchronize()
+    _close_grads((out,), (A.temporal_attention_direct_reference(q, k, v, t=t),), RMS_TOL["K2"])
+    _check(A.temporal_attention_direct_backward, A.temporal_attention_direct_backward_reference,
+           q, k, v, out, g, t, rms_tol=RMS_TOL["K6"])
+    assert (A.temporal_attention_direct.mma_launches, A.temporal_attention_direct_backward.mma_launches) == mma
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("b,l", [(2, 600), (1, 1024), (7, 5824)])
+def test_flash_attention_packed_one_512_head(cuda, dt, b, l):
+    """K1 at one 512-dim head (the VideoAttnBlock's attn2, [7, 5824, 1 x 512]
+    at svd.yaml's decode): a "flash" site, the rounded sum; bf16 on K3's D =
+    512 wgmma kernel through the packed strides (`.wgmma_launches`), fp32 on
+    the FMA kernel; within chip_smoke.py's forward bounds (the plain version on
+    one batch item at 5824 tokens)."""
+    dtype = DTYPES[dt]
+    q, k, v = (_randn(cuda, 250 + i, dtype, b, l, 512) for i in range(3))
+    assert A.site_route("blhd", b, l, l) == "flash"
+    wg, k3 = A.flash_attention_packed.wgmma_launches, A.flash_attention.launches
+    out = A.small_batched_attention(*(x.view(b, l, 1, 512) for x in (q, k, v))).view(b, l, 512)
+    torch.cuda.synchronize()
+    assert A.flash_attention_packed.wgmma_launches == wg + (dtype == torch.bfloat16)
+    assert A.flash_attention.launches == k3   # counted as K1's launch
+    n = 1 if l > 2048 else b
+    ref = A.flash_attention_packed_reference(q[:n], k[:n], v[:n], 1, psum_rounded=True)
+    _close_grads((out[:n],), (ref,), RMS_TOL["K1"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("t,s", [(7, 5824), (14, 5824), (1, 40), (2, 1024), (32, 17)])
+def test_temporal_attention_direct_512(cuda, dt, t, s):
+    """K2 at one 512-dim head (the VideoAttnBlock's time mix: t = 7 or 14 frames
+    of 5824 tokens at svd.yaml's decode) on the wide kernel (`.wide_launches`),
+    within chip_smoke.py's forward bounds."""
+    dtype = DTYPES[dt]
+    b = 1 if s > 2048 else 2
+    q, k, v = (_randn(cuda, 260 + i, dtype, b * t, s, 1, 512) for i in range(3))
+    wide = A.temporal_attention_direct.wide_launches
+    _check(A.temporal_attention_direct, A.temporal_attention_direct_reference, q, k, v, t=t)
+    assert A.temporal_attention_direct.wide_launches == wide + 1
+
+
+@pytest.mark.gpu
+def test_head_dims_off_the_table_are_refused_on_the_card(cuda):
+    """512 at two blhd heads, a D = 512 gradient through K1 or K2 (no
+    backward kernel takes it) and 40 at a temporal site raise the named
+    ValueError before any launch."""
+    bf = torch.bfloat16
+    before = sum(f.launches for f in A.KERNEL_COUNTERS)
+    q = _randn(cuda, 270, bf, 2, 600, 2, 512)
+    with pytest.raises(ValueError, match="head dim 512 .*at one head only"):
+        A.dot_product_attention(q, q, q, layout="blhd")
+    q = _randn(cuda, 271, bf, 2, 600, 1, 512).requires_grad_()
+    with pytest.raises(ValueError, match="head dim 512 .*backward kernels"):
+        A.dot_product_attention(q, q, q, layout="blhd")
+    q = _randn(cuda, 272, bf, 14, 91, 1, 512).requires_grad_()
+    with pytest.raises(ValueError, match="temporal attention site: head dim 512 .*backward kernels"):
+        A.temporal_attention_direct(q, q, q, t=14)
+    q = _randn(cuda, 273, bf, 14, 91, 2, 40)
+    with pytest.raises(ValueError, match="temporal attention site: head dim 40"):
+        A.temporal_attention_direct(q, q, q, t=14)
+    assert sum(f.launches for f in A.KERNEL_COUNTERS) == before
+
+
+@pytest.mark.gpu
+def test_svd_tiny_as_shipped_runs_on_the_card(cuda):
+    """configs/inference/svd_tiny.yaml as shipped (16-dim heads: K1, K2 and, at
+    the tiny CLIP tower, K3 at D = 16) through run_single_video on the card in
+    bf16, add_noise and inversion: no plain version runs, every K1 launch on
+    the mma.sync template, K3 normalise-first at the "mha_reference" sites
+    (the CLIP tower's, the VAE's 64 tokens); finite
+    latents, labels in range; the add_noise run's cluster features agree with
+    the CPU's on the same weights and draws (relative RMS 0.1, as the aggre test
+    holds them)."""
+    import numpy as np
+
+    from vidseg_diffusion_tpu_torch.engine.build import build_pipeline
+    from vidseg_diffusion_tpu_torch.pipelines.single_video import VidSegArgs, run_single_video
+
+    config = os.path.join(ROOT, "configs/inference/svd_tiny.yaml")
+    t, hpx = 3, 64
+    frames = np.random.RandomState(0).uniform(-1, 1, (t, hpx, hpx, 3)).astype(np.float32)
+    rs = np.random.RandomState(2)
+    draws = dict(cond_aug_noise=rs.randn(1, hpx, hpx, 3).astype(np.float32),
+                 noise=rs.randn(t, hpx // 8, hpx // 8, 4).astype(np.float32))
+    pipes = {dev: build_pipeline(config, num_steps=6, num_frames=t, dtype=torch.bfloat16, device=dev, seed=4)
+             for dev in ("cuda", "cpu")}
+    for name in ("unet", "clip", "cond_encoder"):
+        getattr(pipes["cuda"], name).load_state_dict(getattr(pipes["cpu"], name).state_dict())
+    for name in ("encoder", "decoder"):
+        getattr(pipes["cuda"].first_stage, name).load_state_dict(getattr(pipes["cpu"].first_stage, name).state_dict())
+    plains = [f.calls for f in A.PLAIN_COUNTERS]
+    k1 = A.flash_attention_packed.launches, A.flash_attention_packed.mma_launches
+    k3_nf = A.flash_attention.normalised_launches
+    for inversion in ("add_noise", "inversion"):
+        args = VidSegArgs(num_steps=6, num_masks=2, modulate_timestep=(3,), feature_timestep=(5,), decoding_t=3,
+                          seed=1, inversion_type=inversion)
+        card = run_single_video(pipes["cuda"], frames, [str(i) for i in range(t)], args, write_outputs=False,
+                                **draws)
+        assert np.isfinite(card.final_latents).all() and card.seg_raw.shape == (t, hpx, hpx)
+        assert set(np.unique(card.seg_raw)) <= {0, 1}
+        assert card.cache_t0 == (0 if inversion == "inversion" else 3)
+        if inversion == "add_noise":
+            cpu = run_single_video(pipes["cpu"], frames, [str(i) for i in range(t)], args, write_outputs=False,
+                                   **draws)
+            diff = np.linalg.norm(card.cluster_features - cpu.cluster_features)
+            assert diff <= 0.1 * np.linalg.norm(cpu.cluster_features)
+            plains = [f.calls for f in A.PLAIN_COUNTERS]   # the CPU run's plain versions
+    assert [f.calls for f in A.PLAIN_COUNTERS] == plains
+    launched = A.flash_attention_packed.launches - k1[0]
+    assert launched > 0 and A.flash_attention_packed.mma_launches - k1[1] == launched
+    assert A.flash_attention.normalised_launches > k3_nf   # the tiny CLIP tower's D = 16 and the VAE's 64 tokens
+

@@ -605,3 +605,115 @@ def test_discrete_denoiser_with_vanilla_cfg_takes_a_euler_step():
     np.testing.assert_array_equal(seen["t"], seen["j"])
     assert seen["t"].dtype.kind == "i" and seen["t"].shape == (6,)
     _close(got, want, 1e-5)
+
+
+def _toy_denoiser(scale_by):
+    """A seeded denoiser that depends on sigma and the step: x * (1 - a(sigma))
+    + b * sin(i), the same arithmetic in both frameworks (fp32)."""
+    def jfn(x, sigma, i):
+        return x * (1.0 - sigma / (sigma + 1.0) * scale_by) + 0.01 * jnp.sin(jnp.float32(i)), None
+
+    def tfn(x, sigma, i):
+        s = torch.tensor(sigma, dtype=torch.float32)
+        return x * (1.0 - s / (s + 1.0) * scale_by) + 0.01 * torch.sin(torch.tensor(float(i))), None
+
+    return jfn, tfn
+
+
+@pytest.mark.parametrize("disc", ["edm", "legacy"])
+def test_sigmas_flip_and_inversion_match_jax(disc):
+    """EulerEDMSampler.sigmas(flip=True) (reversed, 1e-8 added to the first
+    entry) bit for bit, and inversion on a seeded toy denoiser: x_T and the
+    [num_steps + 1] latents from the pre-scaled start (JAX's
+    test_diffusion_core.py::test_inversion_shapes_and_final_scale shapes),
+    within 1e-6 of the scale."""
+    if disc == "edm":
+        jd, td = jdisc.EDMDiscretization(sigma_min=0.1, sigma_max=10.0), tdisc.EDMDiscretization(sigma_min=0.1,
+                                                                                               sigma_max=10.0)
+    else:
+        jd, td = jdisc.LegacyDDPMDiscretization(), tdisc.LegacyDDPMDiscretization()
+    js, ts = jsamp.EulerEDMSampler(jd, num_steps=5), tsamp.EulerEDMSampler(td, num_steps=5)
+    np.testing.assert_array_equal(ts.sigmas(flip=True).numpy(), np.asarray(js.sigmas(flip=True)))
+    js7, ts7 = jsamp.EulerEDMSampler(jd, num_steps=7), tsamp.EulerEDMSampler(td, num_steps=7)
+    np.testing.assert_array_equal(ts7.sigmas(flip=True).numpy(), np.asarray(js7.sigmas(flip=True)))
+    assert ts.sigmas(flip=True)[0].item() == np.float32(1e-8)
+    np.testing.assert_array_equal(ts.sigmas().numpy(), np.asarray(js.sigmas()))   # the unflipped schedule
+    x = np.random.RandomState(5).randn(2, 3, 4, 4).astype(np.float32)
+    jfn, tfn = _toy_denoiser(0.7)
+    jx, jlat = js.inversion(jfn, jnp.asarray(x))
+    tx, tlat = ts.inversion(tfn, torch.from_numpy(x))
+    assert tlat.shape == jlat.shape == (6, 2, 3, 4, 4) and tx.shape == x.shape and tx.dtype == torch.float32
+    scale = max(1.0, float(np.abs(jlat).max()))
+    _close(tlat / scale, np.asarray(jlat) / scale, 1e-6)
+    _close(tx, jx, 1e-6 * max(1.0, float(np.abs(jx).max())))
+    np.testing.assert_array_equal(tlat[0].numpy(), np.asarray(jlat[0]))   # the pre-scale: x * 1
+
+
+def test_inversion_promotes_a_bf16_latent_to_fp32():
+    """JAX multiplies the latent by its fp32 pre-scale, which promotes bf16:
+    the port's inversion keeps the latents in fp32 too."""
+    ts = tsamp.EulerEDMSampler(tdisc.EDMDiscretization(sigma_min=0.1, sigma_max=10.0), num_steps=3)
+    x = torch.ones(1, 2, dtype=torch.bfloat16)
+    xt, lat = ts.inversion(lambda x, s, i: (x * 0.5, None), x)
+    assert xt.dtype == lat.dtype == torch.float32
+
+
+_VIDEO_VAE = dict(ch=16, ch_mult=(1, 2), num_res_blocks=1, video_decoder=True)
+
+
+@pytest.mark.parametrize("time_mode", ["all", "attn-only"])
+def test_video_decoder_time_modes_match_jax(time_mode):
+    """The VideoDecoder at time_mode 'all' (video ResnetBlocks, VideoAttnBlock,
+    conv_out's time mix) and 'attn-only' (plain ResnetBlocks, VideoAttnBlock):
+    fp32 against JAX's Decoder, weights moved by io/convert.py (the reference's
+    keys: mid.attn_1.time_mix_block.*, mid.attn_1.video_time_embed.{0,2}.*,
+    mid.attn_1.mix_factor) and back by the JAX package's convert_state_dict
+    with the port's key function; a 16 x 16 latent, so the mid attention's
+    64 tokens and the temporal attention over 3 frames are real."""
+    t = 3
+    z = np.random.RandomState(9).randn(t, 16, 16, 4).astype(np.float32)
+    jd = jvae.Decoder(jvae.VAEConfig(time_mode=time_mode, **_VIDEO_VAE))
+    params = _init_tree(jd, 3, jnp.asarray(z), timesteps=t)
+    mix = params["mid_attn_1"]["mix_factor"]
+    params["mid_attn_1"]["mix_factor"] = np.full_like(mix, 0.3)   # both branches of the merge weigh in
+    td = _load(tvae.Decoder(tvae.VAEConfig(time_mode=time_mode, **_VIDEO_VAE)), params, convert.vae_key_fn)
+    assert isinstance(td.mid.attn_1, tvae.VideoAttnBlock)
+    assert isinstance(td.mid.block_1, tvae.VideoVAEResnetBlock) == (time_mode == "all")
+    assert isinstance(td.conv_out, tvae.AE3DConv) == (time_mode == "all")
+    keys = set(td.state_dict())
+    assert {"mid.attn_1.mix_factor", "mid.attn_1.video_time_embed.0.weight", "mid.attn_1.video_time_embed.2.bias",
+            "mid.attn_1.time_mix_block.ff_in.net.0.proj.weight", "mid.attn_1.time_mix_block.attn2.to_out.0.weight",
+            "mid.attn_1.time_mix_block.norm_in.weight"} <= keys
+    with torch.no_grad():
+        _close(td(torch.from_numpy(z), t), _apply(jd, params, jnp.asarray(z), timesteps=t), MODULE_TOL)
+    _round_trip(params, td, convert.vae_key_fn)
+
+
+def test_video_decoder_refuses_an_unknown_time_mode():
+    with pytest.raises(ValueError, match="time_mode"):
+        tvae.Decoder(tvae.VAEConfig(time_mode="temporal", **_VIDEO_VAE))
+
+
+def test_jax_video_attn_block_attn2_layout_hazard(monkeypatch):
+    """Pinned JAX hazard (ROADMAP section C): JAX's VideoAttnBlock builds its
+    time_mix_block with no context, so attn2 is a self-attention over the rows
+    of whatever layout the block runs in: the s tokens of each frame in the
+    direct layout (the default, which the port follows), the t frames of each
+    token in the folded one (the reference's). The two layouts give different
+    outputs; the port equals the direct one."""
+    t, c = 3, 32
+    x = np.random.RandomState(4).randn(t, 4, 4, c).astype(np.float32)
+    jb = jvae.VideoAttnBlock()
+    params = _init_tree(jb, 6, jnp.asarray(x), timesteps=t)
+    params["mix_factor"] = np.full_like(params["mix_factor"], 0.3)
+    monkeypatch.setenv("VIDSEG_TEMPORAL_LAYOUT", "direct")
+    direct = np.asarray(_apply(jb, params, jnp.asarray(x), timesteps=t))
+    monkeypatch.setenv("VIDSEG_TEMPORAL_LAYOUT", "folded")
+    folded = np.asarray(_apply(jb, params, jnp.asarray(x), timesteps=t))
+    assert np.abs(direct - folded).max() > 1e-2 * np.abs(direct).max()
+    tb = tvae.VideoAttnBlock(c)
+    sd = convert.jax_to_state_dict(params, lambda p: convert.vae_key_fn(("mid_attn_1",) + p)[len("mid.attn_1."):])
+    tb.load_state_dict({k: torch.tensor(v) for k, v in sd.items()}, strict=True)
+    with torch.no_grad():
+        got = tb.eval()(torch.from_numpy(x), t)
+    _close(got, direct, MODULE_TOL)

@@ -75,6 +75,18 @@ def test_flash_attention_packed_plain_matches_pallas(b, h, lq, lk):
     _close(got, want)
 
 
+@pytest.mark.parametrize("lq", [512, 600])
+def test_flash_attention_packed_one_512_head_matches_pallas(lq):
+    """K1 at one 512-dim head (the VideoDecoder VideoAttnBlock's attn2 on
+    [B, L, 1 x 512]): the plain version against the packed Pallas kernel in
+    interpret mode, the flash sites' rounded sum (fused_psum)."""
+    b, h, d = 1, 1, 512
+    q, k, v = _arrays(lq + 3, (b, lq, h * d), (b, lq, h * d), (b, lq, h * d))
+    want = jatt.flash_attention_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads=h, interpret=True)
+    assert tatt.site_route("blhd", b, lq, lq) == "flash"
+    _close(tatt.small_batched_attention(*(T(x).reshape(b, lq, h, d) for x in (q, k, v))).reshape(b, lq, d), want)
+
+
 @pytest.mark.parametrize("b,lq,h", [(4, 14, 2), (2, 91, 3)])
 def test_small_batched_attention_matches_pallas(b, lq, h):
     d = 16
@@ -111,7 +123,8 @@ def test_flash_attention_packed_backward_plain_matches_pallas(lq, lk):
 # -- K2 ---------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("b,t,s,h,d", [(2, 3, 32, 2, 16), (1, 14, 16, 2, 8), (2, 1, 16, 1, 16)])
+@pytest.mark.parametrize("b,t,s,h,d", [(2, 3, 32, 2, 16), (1, 14, 16, 2, 8), (2, 1, 16, 1, 16),
+                                       (1, 7, 32, 1, 512)])   # the VideoAttnBlock's one 512-dim head
 def test_temporal_attention_direct_plain_matches_pallas(b, t, s, h, d):
     q, k, v = _arrays(s + t, (b * t, s, h, d), (b * t, s, h, d), (b * t, s, h, d))
     want = jatt.temporal_attention_direct(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), t=t,
@@ -338,6 +351,34 @@ def test_flash_attention_packed_bf16_denominator(route):
     assert np.abs(got_lse.numpy() - np.asarray(lse)).max() <= LSE_BF16_TOL
 
 
+@pytest.mark.parametrize("site", ["temporal", "short", "long", "one_512_head"])
+def test_new_head_dims_sum_the_denominator_of_their_jax_kernel(site):
+    """The plain versions the card's new head-dim instances are held to, in
+    bf16 against the JAX kernel of their site: 16-dim heads at a temporal site
+    (the direct kernel, the fp32 sum), a short blhd site (the folded tiny-seq
+    kernel, the fp32 sum) and a long one (the packed kernel with fused_psum, the
+    rounded sum); one 512-dim blhd head (the VideoAttnBlock's attn2: the packed
+    kernel with fused_psum), at _holds_to_jax's bound."""
+    if site == "temporal":
+        t, shape = 14, (28, 32, 2, 16)
+        q, k, v = _bf16_inputs(31, shape, shape, shape)
+        want = jatt.temporal_attention_direct(_JB(q), _JB(k), _JB(v), t=t, force=True, interpret=True)
+        _holds_to_jax(tatt.temporal_attention_direct(_TB(q), _TB(k), _TB(v), t=t), want)
+        return
+    if site == "short":
+        shape = (6, 64, 2, 16)
+        q, k, v = _bf16_inputs(32, shape, shape, shape)
+        want = jatt.small_batched_attention(_JB(q), _JB(k), _JB(v), interpret=True)
+        _holds_to_jax(tatt.small_batched_attention(_TB(q), _TB(k), _TB(v)), want)
+        return
+    b, l, h, d = (2, 600, 2, 16) if site == "long" else (1, 520, 1, 512)
+    q, k, v = _bf16_inputs(33, *[(b, l, h * d)] * 3)
+    want = jatt._flash_attention_packed_impl(_JB(q), _JB(k), _JB(v), heads=h, fused_psum=True, interpret=True)
+    blhd = lambda a: _TB(a).reshape(b, l, h, d)
+    assert tatt.site_route("blhd", b, l, l) == "flash"
+    _holds_to_jax(tatt.small_batched_attention(blhd(q), blhd(k), blhd(v)).reshape(b, l, -1), want)
+
+
 # -- the normalise-first route (JAX's mha_reference sites) ----------------------
 
 
@@ -425,6 +466,11 @@ def test_mha_reference_site_gradients_match_jax_grad(layout, shape):
     ("bhld", (1, 1, 300, 512), torch.float32, False),    # fp32: the FMA kernel serves the site
     ("blhd", (1, 91, 4, 40), torch.bfloat16, True),      # one video item, 40-dim heads
     ("blhd", (2, 640, 2, 64), torch.bfloat16, False),    # K1's normalise-first mode
+    ("blhd", (1, 91, 2, 16), torch.bfloat16, False),     # the tiny configs' heads: K1's mma.sync mode
+    ("bhld", (1, 4, 257, 16), torch.bfloat16, False),    # a tiny CLIP tower: K3's mma.sync mode
+    ("blhd", (1, 91, 1, 512), torch.bfloat16, True),     # one 512-dim head: no normalise-first kernel
+    ("blhd", (1, 91, 1, 512), torch.float32, False),     # fp32: the FMA kernel serves it
+    ("blhd", (1, 91, 2, 512), torch.float32, True),      # 512 at two heads: no kernel at all
 ])
 def test_mha_reference_sites_run_where_no_normalise_first_kernel_takes_them(layout, shape, dtype, runs_site):
     """Without a gradient, an "mha_reference" site runs mha_reference_site
@@ -439,11 +485,62 @@ def test_flash_sites_refuse_head_dims_no_kernel_takes():
     """A "flash" / "small_batched" site whose head dim no kernel takes is refused
     by name (route, shape, the D the kernels take, ROADMAP section C) before any
     launch; the check reads the shape alone."""
-    with pytest.raises(ValueError, match=r"'flash' attention site: head dim 40 .*\(64,\).*ROADMAP section C"):
-        tatt._check_head_dim("'flash' attention site", "blhd", (2, 640, 4, 40), 40)
-    with pytest.raises(ValueError, match=r"head dim 128 .*\(64, 80, 512\)"):
+    with pytest.raises(ValueError, match=r"'flash' attention site: head dim 40 .*\(16, 64, 512\).*"
+                                         r"\(512,\) at one head only.*ROADMAP section C"):
+        tatt._check_head_dim("'flash' attention site", "blhd", (2, 640, 4, 40), 40, 4)
+    with pytest.raises(ValueError, match=r"head dim 128 .*\(16, 64, 80, 512\)"):
         tatt._check_head_dim("'flash' attention site", "bhld", (1, 1, 640, 128), 128)
     tatt._check_head_dim("temporal attention site", "temporal", (28, 91, 5, 64), 64)
+
+
+# the head dims the configs produce at kernel sites (16: the tiny configs; 64;
+# CLIP's 80 at bhld; 512: the VAE's bhld sites and the VideoDecoder's
+# VideoAttnBlock, one blhd head and its temporal site): (kind, D, heads, forward,
+# backward); 40 and 128 stay refused, and 512 at more than one blhd head
+HEAD_DIM_TABLE = [
+    ("blhd", 16, 4, True, True), ("blhd", 64, 5, True, True), ("blhd", 512, 1, True, False),
+    ("blhd", 512, 2, False, False), ("blhd", 80, 16, False, False), ("blhd", 40, 4, False, False),
+    ("temporal", 16, 2, True, True), ("temporal", 64, 5, True, True), ("temporal", 512, 1, True, False),
+    ("temporal", 80, 1, False, False), ("temporal", 40, 1, False, False),
+    ("bhld", 16, 4, True, True), ("bhld", 64, 1, True, True), ("bhld", 80, 16, True, True),
+    ("bhld", 512, 1, True, True), ("bhld", 40, 4, False, False), ("bhld", 128, 1, False, False),
+]
+
+
+@pytest.mark.parametrize("kind,d,heads,forward,backward", HEAD_DIM_TABLE)
+def test_head_dims_admitted_are_the_configs(kind, d, heads, forward, backward):
+    """_check_head_dim admits exactly the table: forward K1 at D in {16, 64,
+    512 at one head}, K2 at {16, 64, 512}, K3 at {16, 64, 80, 512}; backward
+    K5 / K6 at {16, 64}, K13 at all four; every other D gets the named
+    ValueError."""
+    shape = (2, 640, heads, d)
+    for backward_kernels, admitted in ((False, forward), (True, backward)):
+        if admitted:
+            tatt._check_head_dim("site", kind, shape, d, heads, backward=backward_kernels)
+        else:
+            with pytest.raises(ValueError, match=rf"site: head dim {d} .*ROADMAP section C"):
+                tatt._check_head_dim("site", kind, shape, d, heads, backward=backward_kernels)
+
+
+def test_every_config_head_dim_is_admitted():
+    """The head dims of every shipped inference config's UNet attention (its
+    num_head_channels) and of the SVD VAE's one head are in HEAD_DIMS at the
+    sites that run them."""
+    import glob
+    import os
+
+    import yaml
+
+    seen = set()
+    for path in glob.glob(os.path.join(os.path.dirname(__file__), "..", "configs", "inference", "*.yaml")):
+        with open(path) as f:
+            net = yaml.safe_load(f)["model"]["params"]["network_config"]["params"]
+        if "num_head_channels" in net and net["num_head_channels"] > 0:
+            seen.add(net["num_head_channels"])
+    assert seen and seen <= {16, 64}
+    for d in seen:
+        for kind in ("blhd", "temporal", "bhld"):
+            tatt._check_head_dim("site", kind, (2, 640, 1, d), d)
 
 
 # every attention site of the four paths at full width (B = 28 is the CFG batch

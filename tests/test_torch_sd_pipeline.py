@@ -13,7 +13,10 @@ x0, cached trajectory and final run latents are captured by wrapping its
 engine entry points (the JAX package is not changed). The same comparison
 runs a second time with is_injected_features: the spatial self- and
 cross-attention q/k that both feature passes cache must agree, and so must
-the injected runs.
+the injected runs; and a third time with inversion_type 'inversion', as
+the packages run it and with the flipped schedule's first sigma raised to
+the denoiser table's smallest (the inversion's arithmetic where it is well
+conditioned).
 """
 
 import inspect
@@ -36,6 +39,7 @@ from vidseg_diffusion_tpu.pipelines.single_video import run_single_video as j_ru
 from vidseg_diffusion_tpu_torch.engine import vidseg as tvidseg
 from vidseg_diffusion_tpu_torch.engine.build import build_pipeline as t_build
 from vidseg_diffusion_tpu_torch.io import convert
+from vidseg_diffusion_tpu_torch.diffusion.discretization import LegacyDDPMDiscretization
 from vidseg_diffusion_tpu_torch.io.tokenizer import tokenize_empty
 from vidseg_diffusion_tpu_torch.pipelines.single_video import VidSegArgs, run_single_video
 
@@ -71,7 +75,7 @@ def _run_both(**flags):
 
     captured = {}
     eng = jvidseg.VidSegEngine
-    orig_xt, orig_runs = eng.jit_xt_cache, eng.modulated_runs_host_stepped
+    orig_xt, orig_runs, orig_invert = eng.jit_xt_cache, eng.modulated_runs_host_stepped, eng.jit_invert
 
     def xt_cache(self):
         f = orig_xt.func(self)
@@ -89,9 +93,19 @@ def _run_both(**flags):
         captured["finals"] = np.asarray(out)
         return out
 
+    def invert(self):
+        f = orig_invert.func(self)
+
+        def run(*a):
+            captured["inverted"] = np.asarray(f(*a))
+            return captured["inverted"]
+
+        return run
+
     mp = pytest.MonkeyPatch()
     mp.setattr(eng, "jit_xt_cache", property(xt_cache))
     mp.setattr(eng, "modulated_runs_host_stepped", runs_stepped)
+    mp.setattr(eng, "jit_invert", property(invert))
     try:
         jres = j_run(jp, frames, names, JArgs(mesh="off", runs_chunk=1, **ARGS, **flags),
                      text_tokens=j_tokenize_empty(1), write_outputs=False)
@@ -114,12 +128,16 @@ def _run_both(**flags):
     tparams = inspect.getclosurevars(jp.clip_apply).nonlocals["tparams"]
     tp.text.load_state_dict(_sd(tparams, clip_text_key_fn))
     tcache = {}
-    orig_pass = tvidseg.VidSegEngine.xt_cache_pass
+    orig_pass, orig_tinvert = tvidseg.VidSegEngine.xt_cache_pass, tvidseg.VidSegEngine.invert
 
     def xt_cache_pass(self, *a, **kw):
         x0, cache = orig_pass(self, *a, **kw)
         tcache.update(cache)
         return x0, cache
+
+    def tinvert(self, *a):
+        tcache["inverted"] = orig_tinvert(self, *a)
+        return tcache["inverted"]
 
     # the latents that enter the step after the SD blend window: the feature
     # pass's first, then those of the 2 * MASKS runs in order
@@ -132,6 +150,7 @@ def _run_both(**flags):
         return orig_step(self, denoise_fn, x, sigma, next_sigma, i)
 
     mp.setattr(tvidseg.VidSegEngine, "xt_cache_pass", xt_cache_pass)
+    mp.setattr(tvidseg.VidSegEngine, "invert", tinvert)
     mp.setattr(tvidseg.EulerEDMSampler, "step", step)
     try:
         tres = run_single_video(tp, frames, names, VidSegArgs(**ARGS, **flags), write_outputs=False,
@@ -150,6 +169,11 @@ def runs():
 @pytest.fixture(scope="module")
 def injected_runs():
     return _run_both(is_injected_features=True)
+
+
+@pytest.fixture(scope="module")
+def inversion_runs():
+    return _run_both(inversion_type="inversion")
 
 
 def _rel_close(got, want, rtol):
@@ -237,6 +261,63 @@ def test_sd_injected_runs_match_jax(runs, injected_runs):
     blocks = len([n for n in tcache if n.endswith("_spatial_self_q")])
     assert tres.injected_sites == 2 * MASKS * (STEPS - MOD_STEP) * blocks > 0
     assert plain.injected_sites == 0 and plain.injected_cache_bytes == 0
+
+
+def test_sd_inversion_runs_match_jax(inversion_runs):
+    """inversion_type 'inversion' on the image backbone: the inverted latent,
+    the feature pass over all STEPS from it (cache window t0 = 0) and the
+    modulated runs against JAX's; equal masks, diff maps and label maps.
+
+    Pinned JAX hazard: the flipped schedule starts at sigma = 1e-8, which the
+    DiscreteDenoiser snaps to its table's smallest sigma (~0.03) for c_out,
+    while the Euler step divides by 1e-8: the first step moves the latent by
+    ~0.03^2 / 1e-8 times the predicted noise. The latents reach ~1e6, every
+    decoded frame saturates, both +-lambda decodes agree, and the difference
+    maps are zero in both packages (so the labels are the argmax's tie)."""
+    jres, cap, tres, tcache = inversion_runs
+    assert tcache["inverted"].shape == cap["inverted"].shape == (T, HPX // 8, WPX // 8, 4)
+    _rel_close(tcache["inverted"].numpy(), cap["inverted"], LATENT_RTOL)
+    assert tres.cache_t0 == 0 and tres.cached_xt.shape == cap["xt"].shape == (STEPS, T, HPX // 8, WPX // 8, 4)
+    _rel_close(tres.cached_xt, cap["xt"], LATENT_RTOL)
+    _rel_close(tres.feature_x0, cap["x0"], LATENT_RTOL)
+    np.testing.assert_array_equal(tres.masks, jres.masks)
+    _rel_close(tres.final_latents, cap["finals"], LATENT_RTOL)
+    assert np.abs(cap["inverted"]).max() > 1e3 and np.abs(tcache["inverted"].numpy()).max() > 1e3
+    np.testing.assert_array_equal(tres.diff_maps, jres.diff_maps)
+    np.testing.assert_array_equal(tres.seg_raw, jres.seg_raw)
+    np.testing.assert_array_equal(tres.seg_filtered, jres.seg_filtered)
+
+
+def test_sd_inversion_well_conditioned_matches_jax():
+    """The inversion with the flipped schedule's first sigma raised, in both
+    packages, to the smallest sigma of the DiscreteDenoiser's 1000-entry
+    table, where its c_out is the step's own sigma (the first step is then an
+    epsilon step): the inverted latent, every cached step, x0 and the runs
+    within LATENT_RTOL, equal masks, the diff maps within one uint8 quantum
+    (98.2-98.4 % equal measured: the decoded maps peak at about 20 quanta
+    here) and the labels equal wherever JAX's top-2 margin exceeds
+    LABEL_MARGIN quanta (they part at near-ties: measured, 30-43 of 12288
+    pixels, each at a margin of at most one quantum)."""
+    from test_torch_pipeline import LABEL_MARGIN, raised_first_sigma
+
+    mp = raised_first_sigma(float(LegacyDDPMDiscretization()(1000, do_append_zero=False).min()))
+    try:
+        jres, cap, tres, tcache = _run_both(inversion_type="inversion")
+    finally:
+        mp.undo()
+    _rel_close(tcache["inverted"].numpy(), cap["inverted"], LATENT_RTOL)
+    assert tres.cache_t0 == 0 and tres.cached_xt.shape == cap["xt"].shape == (STEPS, T, HPX // 8, WPX // 8, 4)
+    _rel_close(tres.cached_xt, cap["xt"], LATENT_RTOL)
+    _rel_close(tres.feature_x0, cap["x0"], LATENT_RTOL)
+    np.testing.assert_array_equal(tres.masks, jres.masks)
+    _rel_close(tres.final_latents, cap["finals"], LATENT_RTOL)
+    assert np.abs(cap["finals"]).max() < 1e2   # no blow-up: the hazard above is gone
+    assert np.abs(tres.diff_maps.astype(np.int32) - jres.diff_maps.astype(np.int32)).max() <= 1
+    maxes = jres.diff_maps.max(axis=(-2, -1), keepdims=True)
+    top2 = np.sort(jres.diff_maps / (maxes + 1e-5), axis=0)[-2:]
+    sure = (top2[1] - top2[0]) * maxes.min(axis=0) > LABEL_MARGIN
+    assert sure.mean() > 0.3
+    np.testing.assert_array_equal(tres.seg_raw[sure], jres.seg_raw[sure])
 
 
 def test_sd_path_needs_text_tokens():

@@ -44,14 +44,17 @@
 //   softmax and products interleave, K/V tiles through a ring filled by a
 //   producer warp;
 // - bf16 K3 at D = 80 (CLIP's heads) runs on the tensor cores with mma.sync
-//   (flash_fwd_mma_kernel);
-// - bf16 K3 at D = 512 (the VAE's one-head mid attention) runs on wgmma
+//   (flash_fwd_mma_kernel), and so do K1 and K3 at D = 16 (the tiny configs'
+//   heads: the same template, instanced at D = 16);
+// - bf16 K3 at D = 512 (the VAE's one-head mid attention), and K1 at one
+//   512-dim head (the VideoDecoder VideoAttnBlock's attn2, whose packed
+//   [B, L, 512] rows are K3's [B, 1, L, 512]) run on wgmma
 //   (flash_fwd_wgmma512_kernel, below): a 64 x 512 fp32 output tile is 128
 //   accumulator registers a thread over 256 threads, so two warpgroups each
 //   own 256 output columns and keys arrive in 32-key tiles through a two-stage
 //   ring that one thread fills by TMA while the previous tile multiplies;
 // - fp32 inputs (the card-vs-CPU checks; no main path sends them) run
-//   flash_fwd_kernel, fp32 FMAs on shared-memory tiles (4x4 register
+//   flash_fwd_kernel at every D, fp32 FMAs on shared-memory tiles (4x4 register
 //   micro-tiles per thread for S = Q K^T and for P V; D = 512 uses 32-row
 //   tiles and ~200 KB of dynamic shared memory).
 //
@@ -61,7 +64,7 @@
 // [B*H, Lq], the layout of JAX's heads=1 forward under a gradient), from the
 // final running max m and the denominator l (summed as SUM_ROUNDED says). The
 // backwards recompute p = exp2(s - lse) from it: K5 (flash_attention_bwd.cu)
-// for K1 and for K3 at D = 64, K13 (flash_attention_bhld_bwd.cu) for K3 at
+// for K1 and for K3 at D = 16 and 64, K13 (flash_attention_bhld_bwd.cu) for K3 at
 // D = 512 and 80.
 #include "common.cuh"
 #include "wgmma_tile.cuh"
@@ -251,6 +254,8 @@ int dispatch_head_dim(int D, const void* q, const void* k, const void* v, void* 
                       float* lse, int B, int H, int Lq, int Lk, const long long* st,
                       float qscale, cudaStream_t stream) {
   switch (D) {
+    case 16:
+      return launch_flash<T, 16, 64, 64>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
     case 64:
       return launch_flash<T, 64, 64, 64>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
     case 80:
@@ -1341,76 +1346,85 @@ inline bool flash_sizes_ok(int B, int H, int Lq, int Lk) {
   return B > 0 && H > 0 && Lq > 0 && Lk > 0 && B * H <= 65535;  // the grid's y limit
 }
 
-}  // namespace vs
+// bf16 by head dim and sum mode: the head dims the tuned kernels were built for
+// (D = 64 on wgmma, 80 on mma.sync, 512 on wgmma), and any other D a config
+// produces as an instance of the mma.sync template (D = 16: the tiny configs);
+// one more D is one more case. The D = 512 kernel has no normalise-first mode
+// (no path runs a bf16 D = 512 site shorter than 512). route: 2 wgmma, 1 mma.sync.
+inline int flash_bf16_by_dim(int D, int mode, const void* q, const void* k, const void* v, void* o, float* lse,
+                             int B, int H, int Lq, int Lk, const long long* st, float qscale, cudaStream_t s,
+                             int* route) {
+  switch (D) {
+    case 16:
+      *route = 1;
+      return mode == 2 ? launch_flash_mma<16, 2>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s)
+             : mode    ? launch_flash_mma<16, 1>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s)
+                       : launch_flash_mma<16, 0>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s);
+    case 64:
+      *route = 2;
+      return launch_flash_wgmma64_mode(mode, q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s);
+    case 80:
+      *route = 1;
+      return mode == 2 ? launch_flash_mma<80, 2>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s)
+             : mode    ? launch_flash_mma<80, 1>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s)
+                       : launch_flash_mma<80, 0>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s);
+    case 512:
+      *route = 2;
+      return mode == 2 ? kErrUnsupported
+             : mode    ? launch_flash_wgmma512<true>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s)
+                       : launch_flash_wgmma512<false>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s);
+    default:
+      return kErrUnsupported;
+  }
+}
 
-// strides: 12 element strides (batch, row, head) for q, k, v, o in that order;
-// the head-dim stride must be 1. bf16 runs the D = 64 wgmma kernel (16-byte
-// aligned rows, or kErrBadArgument), fp32 the FMA kernel.
-// lse: NULL, or fp32 [B, Lq, H] contiguous for the base-2 logsumexp.
-// sum_mode: 1, the denominator sums the p rounded to bf16; 0, the fp32 p; 2,
-// normalise first (qscale then multiplies the fp32 logits; no lse). No effect
-// in fp32.
-// route (or NULL) receives the kernel that ran: 2 wgmma, 1 mma.sync, 0 fp32 FMAs.
-extern "C" int vs_flash_attention_packed(int dtype, int D, const void* q, const void* k,
-                                         const void* v, void* o, void* lse, int B, int H,
-                                         int Lq, int Lk, const long long* strides,
-                                         float qscale, int sum_mode, int* route, void* stream) {
-  if (D != 64) return vs::kErrUnsupported;  // every spatial UNet site has 64-dim heads
-  if (!vs::flash_sizes_ok(B, H, Lq, Lk) || sum_mode < 0 || sum_mode > 2 || (sum_mode == 2 && lse != nullptr))
-    return vs::kErrBadArgument;
+// the entries' common body: sizes and mode checked, bf16 by head dim, fp32 on the FMA kernel
+inline int flash_entry(int dtype, int D, const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                       int H, int Lq, int Lk, const long long* strides, float qscale, int sum_mode, int* route,
+                       void* stream) {
+  if (!flash_sizes_ok(B, H, Lq, Lk) || sum_mode < 0 || sum_mode > 2 || (sum_mode == 2 && lse != nullptr))
+    return kErrBadArgument;
   float* l = static_cast<float*>(lse);
-  int r = -1, rc = vs::kErrUnsupported;
-  if (dtype == vs::kBFloat16) {
-    r = 2;
-    rc = vs::launch_flash_wgmma64_mode(sum_mode, q, k, v, o, l, B, H, Lq, Lk, strides, qscale,
-                                       static_cast<cudaStream_t>(stream));
-  } else if (dtype == vs::kFloat32) {
+  int r = -1, rc = kErrUnsupported;
+  if (dtype == kBFloat16) {
+    rc = flash_bf16_by_dim(D, sum_mode, q, k, v, o, l, B, H, Lq, Lk, strides, qscale,
+                           static_cast<cudaStream_t>(stream), &r);
+  } else if (dtype == kFloat32) {
     r = 0;
-    rc = vs::flash_entry_fp32(D, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, stream);
+    rc = flash_entry_fp32(D, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, stream);
   }
   if (route != nullptr) *route = r;
   return rc;
 }
 
-// D in {64, 80, 512}: bf16 runs wgmma at 64 and 512, mma.sync at 80; the
-// normalise-first mode at 64 and 80. lse: NULL (inference), or fp32 [B, Lq, H]
-// contiguous under a gradient. sum_mode and route as above.
+}  // namespace vs
+
+// strides: 12 element strides (batch, row, head) for q, k, v, o in that order;
+// the head-dim stride must be 1. D in {16, 64}, and 512 at one head (H = 1: the
+// packed [B, L, 512] rows are K3's [B, 1, L, 512], so K3's D = 512 kernel runs
+// them; the VideoDecoder's VideoAttnBlock). bf16 needs 16-byte aligned rows (or
+// kErrBadArgument); fp32 runs the FMA kernel.
+// lse: NULL, or fp32 [B, Lq, H] contiguous for the base-2 logsumexp.
+// sum_mode: 1, the denominator sums the p rounded to bf16; 0, the fp32 p; 2,
+// normalise first (qscale then multiplies the fp32 logits; no lse; not at D =
+// 512). No effect in fp32.
+// route (or NULL) receives the kernel that ran: 2 wgmma, 1 mma.sync, 0 fp32 FMAs.
+extern "C" int vs_flash_attention_packed(int dtype, int D, const void* q, const void* k,
+                                         const void* v, void* o, void* lse, int B, int H,
+                                         int Lq, int Lk, const long long* strides,
+                                         float qscale, int sum_mode, int* route, void* stream) {
+  if (D != 16 && D != 64 && !(D == 512 && H == 1)) return vs::kErrUnsupported;
+  return vs::flash_entry(dtype, D, q, k, v, o, lse, B, H, Lq, Lk, strides, qscale, sum_mode, route, stream);
+}
+
+// D in {16, 64, 80, 512}: bf16 runs wgmma at 64 and 512, mma.sync at 16 and 80;
+// the normalise-first mode at 16, 64 and 80. lse: NULL (inference), or fp32 [B,
+// Lq, H] contiguous under a gradient. sum_mode and route as above.
 extern "C" int vs_flash_attention_bhld(int dtype, int D, const void* q, const void* k,
                                        const void* v, void* o, void* lse, int B, int H, int Lq,
                                        int Lk, const long long* strides, float qscale, int sum_mode,
                                        int* route, void* stream) {
-  if (!vs::flash_sizes_ok(B, H, Lq, Lk) || sum_mode < 0 || sum_mode > 2 || (sum_mode == 2 && lse != nullptr))
-    return vs::kErrBadArgument;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  int r = -1, rc = vs::kErrUnsupported;
-  if (dtype == vs::kBFloat16) {
-    switch (D) {
-      case 64:
-        r = 2;
-        rc = vs::launch_flash_wgmma64_mode(sum_mode, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
-        break;
-      case 80:
-        r = 1;
-        rc = sum_mode == 2 ? vs::launch_flash_mma<80, 2>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s)
-             : sum_mode  ? vs::launch_flash_mma<80, 1>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s)
-                         : vs::launch_flash_mma<80, 0>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
-        break;
-      case 512:  // no normalise-first mode: no path runs a bf16 D = 512 site shorter than 512
-        r = 2;
-        rc = sum_mode == 2 ? vs::kErrUnsupported
-             : sum_mode  ? vs::launch_flash_wgmma512<true>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s)
-                         : vs::launch_flash_wgmma512<false>(q, k, v, o, l, B, H, Lq, Lk, strides, qscale, s);
-        break;
-      default:
-        break;
-    }
-  } else if (dtype == vs::kFloat32) {
-    r = 0;
-    rc = vs::flash_entry_fp32(D, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, stream);
-  }
-  if (route != nullptr) *route = r;
-  return rc;
+  return vs::flash_entry(dtype, D, q, k, v, o, lse, B, H, Lq, Lk, strides, qscale, sum_mode, route, stream);
 }
 
 extern "C" const char* vs_error_string(int code) {

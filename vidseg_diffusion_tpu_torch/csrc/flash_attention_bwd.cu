@@ -24,9 +24,10 @@
 // memory. At D = 64 each (query, key) pair also costs two exp2 (one a kernel)
 // on the MUFU, as much time as its products on the tensor cores, so the design
 // keeps two warpgroups a block, one's exponentials beside the other's wgmmas.
-// bf16 runs on wgmma fed by TMA (below: two warpgroups of 64 rows a block, the
-// walked side in 128-row tiles through a four-stage ring); fp32 runs fp32
-// FMAs on shared-memory tiles (the fp32 UNet check).
+// bf16 at D = 64 runs on wgmma fed by TMA (below: two warpgroups of 64 rows a
+// block, the walked side in 128-row tiles through a four-stage ring); fp32
+// (the fp32 UNet check) and bf16 at D = 16 (the tiny configs' heads, on no
+// full-width path) run FMAs on shared-memory tiles, templated on D.
 #include <string.h>
 
 #include "common.cuh"
@@ -40,28 +41,33 @@ struct BwdStrides {
 };
 static_assert(sizeof(BwdStrides) == 24 * sizeof(long long), "packed strides");
 
-constexpr int BW_D = 64;         // head dim (every spatial UNet site)
-constexpr int BW_T = 64;         // query rows and key rows per tile
-constexpr int BW_S = BW_D + 1;   // padded fp32 smem row: conflict-free columns
+constexpr int BW_T = 64;          // query rows and key rows per tile
+constexpr int BW_P = BW_T + 1;    // padded fp32 smem row of a [query][key] tile
 constexpr float kInvLog2E = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
-// fp32: FMAs on shared-memory tiles, 256 threads as a 16x16 grid, 4x4
-// register micro-tiles (rows ty + 16 i, columns tx + 16 j).
+// The FMA kernels, templated on the head dim D (a multiple of 16): fp32 at
+// every D (the fp32 UNet check), and bf16 at the head dims the wgmma kernels
+// below are not built for (D = 16: the tiny configs' heads), where the bf16
+// roundings of qf, p and ds are applied to the fp32 values (round_to). 256
+// threads as a 16x16 grid, 4 x (D / 16) register micro-tiles (rows ty + 16 i,
+// columns tx + 16 j); d rows padded to D + 1 floats in shared memory.
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ o, const T* __restrict__ g, const float* __restrict__ lse,
     float* __restrict__ delta, T* __restrict__ dq, int H, int Lq, int Lk, BwdStrides st,
     float qscale, float scale) {
+  constexpr int DS = D + 1, RD = D / 16;
+  static_assert(D % 16 == 0, "head dim");
   extern __shared__ float smem[];
-  float* Qs = smem;                  // [BW_T][BW_S] qf
-  float* Gs = Qs + BW_T * BW_S;      // g
-  float* Ks = Gs + BW_T * BW_S;
-  float* Vs = Ks + BW_T * BW_S;
-  float* Ds = Vs + BW_T * BW_S;      // ds, rounded to T
-  float* row_lse = Ds + BW_T * BW_S;
+  float* Qs = smem;                  // [BW_T][DS] qf
+  float* Gs = Qs + BW_T * DS;        // g
+  float* Ks = Gs + BW_T * DS;
+  float* Vs = Ks + BW_T * DS;
+  float* Ds = Vs + BW_T * DS;        // [BW_T][BW_P] ds, rounded to T
+  float* row_lse = Ds + BW_T * BW_P;
   float* row_delta = row_lse + BW_T;
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -75,21 +81,21 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(
   const T* gb = g + b * st.g[0] + h * st.g[2];
   T* dqb = dq + b * st.dq[0] + h * st.dq[2];
 
-  for (int e = tid; e < BW_T * BW_D; e += 256) {
-    const int r = e / BW_D, d = e % BW_D;
+  for (int e = tid; e < BW_T * D; e += 256) {
+    const int r = e / D, d = e % D;
     float qv = 0.f, gv = 0.f;
     if (q0 + r < Lq) {
       qv = round_to<T>(to_f<T>(qb[(long long)(q0 + r) * st.q[1] + d]) * qscale);
       gv = to_f<T>(gb[(long long)(q0 + r) * st.g[1] + d]);
     }
-    Qs[r * BW_S + d] = qv;
-    Gs[r * BW_S + d] = gv;
+    Qs[r * DS + d] = qv;
+    Gs[r * DS + d] = gv;
   }
   for (int r = warp; r < BW_T; r += 8) {  // delta: one warp per row
     const int row = q0 + r;
     float acc = 0.f;
     if (row < Lq)
-      for (int d = lane; d < BW_D; d += 32)
+      for (int d = lane; d < D; d += 32)
         acc += to_f<T>(gb[(long long)row * st.g[1] + d]) * to_f<T>(ob[(long long)row * st.o[1] + d]);
     acc = warp_sum(acc);
     if (lane == 0) {
@@ -99,23 +105,23 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(
     }
   }
 
-  float acc[4][4];
+  float acc[4][RD];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < RD; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < Lk; k0 += BW_T) {
     __syncthreads();  // previous tile's reads done (and the staging above)
-    for (int e = tid; e < BW_T * BW_D; e += 256) {
-      const int r = e / BW_D, d = e % BW_D;
+    for (int e = tid; e < BW_T * D; e += 256) {
+      const int r = e / D, d = e % D;
       float kv = 0.f, vv = 0.f;
       if (k0 + r < Lk) {
         kv = to_f<T>(kb[(long long)(k0 + r) * st.k[1] + d]);
         vv = to_f<T>(vb[(long long)(k0 + r) * st.v[1] + d]);
       }
-      Ks[r * BW_S + d] = kv;
-      Vs[r * BW_S + d] = vv;
+      Ks[r * DS + d] = kv;
+      Vs[r * DS + d] = vv;
     }
     __syncthreads();
 
@@ -125,17 +131,17 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < BW_D; ++d) {
+    for (int d = 0; d < D; ++d) {
       float qv[4], gv[4], kv[4], vv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty + 16 * i) * BW_S + d];
-        gv[i] = Gs[(ty + 16 * i) * BW_S + d];
+        qv[i] = Qs[(ty + 16 * i) * DS + d];
+        gv[i] = Gs[(ty + 16 * i) * DS + d];
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * BW_S + d];
-        vv[j] = Vs[(tx + 16 * j) * BW_S + d];
+        kv[j] = Ks[(tx + 16 * j) * DS + d];
+        vv[j] = Vs[(tx + 16 * j) * DS + d];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -153,22 +159,22 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const float p = (k0 + c < Lk) ? exp2f(s[i][j] - l) : 0.f;
-        Ds[r * BW_S + c] = round_to<T>(p * (dp[i][j] - dl));
+        Ds[r * BW_P + c] = round_to<T>(p * (dp[i][j] - dl));
       }
     }
     __syncthreads();
 
 #pragma unroll 4
     for (int kk = 0; kk < BW_T; ++kk) {
-      float dsv[4], kv[4];
+      float dsv[4], kv[RD];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = Ds[(ty + 16 * i) * BW_S + kk];
+      for (int i = 0; i < 4; ++i) dsv[i] = Ds[(ty + 16 * i) * BW_P + kk];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[kk * BW_S + tx + 16 * j];
+      for (int j = 0; j < RD; ++j) kv[j] = Ks[kk * DS + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
+        for (int j = 0; j < RD; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
     }
   }
 
@@ -178,24 +184,26 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(
     if (row >= Lq) continue;
     T* drow = dqb + (long long)row * st.dq[1];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) drow[tx + 16 * j] = from_f<T>(acc[i][j] * scale);
+    for (int j = 0; j < RD; ++j) drow[tx + 16 * j] = from_f<T>(acc[i][j] * scale);
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(256) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dk, T* __restrict__ dv, int H, int Lq, int Lk, BwdStrides st,
     float qscale) {
+  constexpr int DS = D + 1, RD = D / 16;
+  static_assert(D % 16 == 0, "head dim");
   extern __shared__ float smem[];
-  float* Ks = smem;                  // [BW_T][BW_S] this block's keys
-  float* Vs = Ks + BW_T * BW_S;
-  float* Qs = Vs + BW_T * BW_S;      // qf of the current query tile
-  float* Gs = Qs + BW_T * BW_S;
-  float* Ps = Gs + BW_T * BW_S;      // p [query][key], rounded to T
-  float* Ds = Ps + BW_T * BW_S;      // ds [query][key], rounded to T
-  float* row_lse = Ds + BW_T * BW_S;
+  float* Ks = smem;                  // [BW_T][DS] this block's keys
+  float* Vs = Ks + BW_T * DS;
+  float* Qs = Vs + BW_T * DS;        // qf of the current query tile
+  float* Gs = Qs + BW_T * DS;
+  float* Ps = Gs + BW_T * DS;        // [BW_T][BW_P] p [query][key], rounded to T
+  float* Ds = Ps + BW_T * BW_P;      // ds [query][key], rounded to T
+  float* row_lse = Ds + BW_T * BW_P;
   float* row_delta = row_lse + BW_T;
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -206,34 +214,34 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_kernel(
   const T* vb = v + b * st.v[0] + h * st.v[2];
   const T* gb = g + b * st.g[0] + h * st.g[2];
 
-  for (int e = tid; e < BW_T * BW_D; e += 256) {
-    const int r = e / BW_D, d = e % BW_D;
+  for (int e = tid; e < BW_T * D; e += 256) {
+    const int r = e / D, d = e % D;
     float kv = 0.f, vv = 0.f;
     if (k0 + r < Lk) {
       kv = to_f<T>(kb[(long long)(k0 + r) * st.k[1] + d]);
       vv = to_f<T>(vb[(long long)(k0 + r) * st.v[1] + d]);
     }
-    Ks[r * BW_S + d] = kv;
-    Vs[r * BW_S + d] = vv;
+    Ks[r * DS + d] = kv;
+    Vs[r * DS + d] = vv;
   }
 
-  float acc_dk[4][4], acc_dv[4][4];  // rows: keys ty + 16 i; columns: d = tx + 16 j
+  float acc_dk[4][RD], acc_dv[4][RD];  // rows: keys ty + 16 i; columns: d = tx + 16 j
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
+    for (int j = 0; j < RD; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
 
   for (int q0 = 0; q0 < Lq; q0 += BW_T) {
     __syncthreads();
-    for (int e = tid; e < BW_T * BW_D; e += 256) {
-      const int r = e / BW_D, d = e % BW_D;
+    for (int e = tid; e < BW_T * D; e += 256) {
+      const int r = e / D, d = e % D;
       float qv = 0.f, gv = 0.f;
       if (q0 + r < Lq) {
         qv = round_to<T>(to_f<T>(qb[(long long)(q0 + r) * st.q[1] + d]) * qscale);
         gv = to_f<T>(gb[(long long)(q0 + r) * st.g[1] + d]);
       }
-      Qs[r * BW_S + d] = qv;
-      Gs[r * BW_S + d] = gv;
+      Qs[r * DS + d] = qv;
+      Gs[r * DS + d] = gv;
     }
     if (tid < BW_T) {
       const int row = q0 + tid;
@@ -250,17 +258,17 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < BW_D; ++d) {
+    for (int d = 0; d < D; ++d) {
       float qv[4], gv[4], kv[4], vv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty + 16 * i) * BW_S + d];
-        gv[i] = Gs[(ty + 16 * i) * BW_S + d];
+        qv[i] = Qs[(ty + 16 * i) * DS + d];
+        gv[i] = Gs[(ty + 16 * i) * DS + d];
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * BW_S + d];
-        vv[j] = Vs[(tx + 16 * j) * BW_S + d];
+        kv[j] = Ks[(tx + 16 * j) * DS + d];
+        vv[j] = Vs[(tx + 16 * j) * DS + d];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -278,8 +286,8 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_kernel(
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const float p = (k0 + c < Lk) ? exp2f(s[i][j] - l) : 0.f;
-        Ps[r * BW_S + c] = round_to<T>(p);
-        Ds[r * BW_S + c] = round_to<T>(p * (dp[i][j] - dl));
+        Ps[r * BW_P + c] = round_to<T>(p);
+        Ds[r * BW_P + c] = round_to<T>(p * (dp[i][j] - dl));
       }
     }
     __syncthreads();
@@ -287,21 +295,21 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_kernel(
     // dv += p^T g, dk += ds^T qf over this tile's queries
 #pragma unroll 4
     for (int qq = 0; qq < BW_T; ++qq) {
-      float pv[4], dsv[4], gv[4], qv[4];
+      float pv[4], dsv[4], gv[RD], qv[RD];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[qq * BW_S + ty + 16 * i];
-        dsv[i] = Ds[qq * BW_S + ty + 16 * i];
+        pv[i] = Ps[qq * BW_P + ty + 16 * i];
+        dsv[i] = Ds[qq * BW_P + ty + 16 * i];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        gv[j] = Gs[qq * BW_S + tx + 16 * j];
-        qv[j] = Qs[qq * BW_S + tx + 16 * j];
+      for (int j = 0; j < RD; ++j) {
+        gv[j] = Gs[qq * DS + tx + 16 * j];
+        qv[j] = Qs[qq * DS + tx + 16 * j];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RD; ++j) {
           acc_dv[i][j] = fmaf(pv[i], gv[j], acc_dv[i][j]);
           acc_dk[i][j] = fmaf(dsv[i], qv[j], acc_dk[i][j]);
         }
@@ -315,36 +323,36 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_kernel(
     const int key = k0 + ty + 16 * i;
     if (key >= Lk) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < RD; ++j) {
       dkb[(long long)key * st.dk[1] + tx + 16 * j] = from_f<T>(acc_dk[i][j] * kInvLog2E);
       dvb[(long long)key * st.dv[1] + tx + 16 * j] = from_f<T>(acc_dv[i][j]);
     }
   }
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_bwd_fma(const void* q, const void* k, const void* v, const void* o, const void* g,
                    const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
                    int Lq, int Lk, const BwdStrides& st, float qscale, float scale,
                    cudaStream_t stream) {
-  const size_t smem_dq = sizeof(float) * (5 * BW_T * BW_S + 2 * BW_T);
-  const size_t smem_dkv = sizeof(float) * (6 * BW_T * BW_S + 2 * BW_T);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkv);
-  if (err != cudaSuccess) return (int)err;
+  const size_t smem_dq = sizeof(float) * (4 * BW_T * (D + 1) + BW_T * BW_P + 2 * BW_T);
+  const size_t smem_dkv = sizeof(float) * (4 * BW_T * (D + 1) + 2 * BW_T * BW_P + 2 * BW_T);
+  static const cudaError_t attr_dq = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+  static const cudaError_t attr_dkv = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkv);
+  if (attr_dq != cudaSuccess) return (int)attr_dq;
+  if (attr_dkv != cudaSuccess) return (int)attr_dkv;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* gt = static_cast<const T*>(g);
-  flash_bwd_dq_kernel<T><<<dim3((Lq + BW_T - 1) / BW_T, B * H), 256, smem_dq, stream>>>(
+  flash_bwd_dq_kernel<T, D><<<dim3((Lq + BW_T - 1) / BW_T, B * H), 256, smem_dq, stream>>>(
       qt, kt, vt, static_cast<const T*>(o), gt, lse, delta, static_cast<T*>(dq), H, Lq, Lk, st,
       qscale, scale);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<T><<<dim3((Lk + BW_T - 1) / BW_T, B * H), 256, smem_dkv, stream>>>(
+  flash_bwd_dkv_kernel<T, D><<<dim3((Lk + BW_T - 1) / BW_T, B * H), 256, smem_dkv, stream>>>(
       qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, Lq, Lk, st,
       qscale);
   return (int)cudaGetLastError();
@@ -883,28 +891,34 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
 // (batch, row, head) of q, k, v, o, g, dq, dk, dv; head-dim stride 1);
 // lse: fp32 [B, Lq, H] from K1; delta: fp32 scratch of 2 * B * H * (Lq rounded
 // up to 4) (the dq kernel writes each row's delta there, and in bf16 its LSE,
-// for the dk/dv kernel on the same stream). route (or NULL) receives the
-// kernels that ran: 2 wgmma (bf16), 0 fp32 FMAs.
+// for the dk/dv kernel on the same stream). D in {16, 64}: bf16 runs the wgmma
+// kernels at 64 and the FMA kernels at 16, fp32 the FMA kernels. route (or
+// NULL) receives the kernels that ran: 2 wgmma, 0 FMAs.
 extern "C" int vs_flash_attention_packed_bwd(int dtype, int D, const void* q, const void* k,
                                              const void* v, const void* o, const void* g,
                                              const void* lse, void* delta, void* dq, void* dk,
                                              void* dv, int B, int H, int Lq, int Lk,
                                              const long long* strides, float qscale,
                                              float scale, int* route, void* stream) {
-  if (D != vs::BW_D) return vs::kErrUnsupported;
+  if (D != 16 && D != 64) return vs::kErrUnsupported;
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B * H > 65535) return vs::kErrBadArgument;
   vs::BwdStrides st;
   memcpy(&st, strides, sizeof(st));
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
   int r = -1, rc = vs::kErrUnsupported;
-  if (dtype == vs::kBFloat16) {
+  if (dtype == vs::kBFloat16 && D == 64) {
     r = 2;
     rc = vs::launch_bwd_wgmma(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, strides, qscale, scale, s);
+  } else if (dtype == vs::kBFloat16) {
+    r = 0;
+    rc = vs::launch_bwd_fma<bf, 16>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s);
   } else if (dtype == vs::kFloat32) {
     r = 0;
-    rc = vs::launch_bwd_fma<float>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s);
+    rc = D == 64 ? vs::launch_bwd_fma<float, 64>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s)
+                 : vs::launch_bwd_fma<float, 16>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s);
   }
   if (route != nullptr) *route = r;
   return rc;

@@ -28,8 +28,14 @@
 // operand of O = P V (8 n-tiles x 1 k-step, V through ldmatrix.trans), O / l
 // staged in the problem's q rows and written back by a TMA store (frames >= t
 // and tokens past s dropped). 16 < t <= 32 takes 32-frame boxes and two m16
-// row tiles. fp32 (the card-vs-CPU checks only) runs temporal_attn_kernel:
-// one warp per problem on CUDA cores, lane i keeping query row i.
+// row tiles. That tile is built for 64-dim heads; the other head dims the
+// configs produce run kernels templated on D, one warp per problem on CUDA
+// cores: D = 16 (the tiny configs) in both dtypes and fp32 at 64 (the
+// card-vs-CPU checks) on temporal_attn_kernel, lane i keeping query row i;
+// D = 512 (the VideoDecoder's VideoAttnBlock) on temporal_attn_wide_kernel,
+// lanes across the head dim.
+#include <algorithm>
+
 #include "common.cuh"
 #include "temporal_tile.cuh"
 
@@ -38,12 +44,19 @@ namespace vs {
 constexpr int kMaxFrames = 32;
 constexpr int kWarpsPerBlock = 4;
 
-// ---- fp32: CUDA cores ---------------------------------------------------------
+// ---- CUDA cores: fp32 at D = 64, both dtypes at the other head dims ----------
+//
+// temporal_attn_kernel<T, D> (D <= 64: fp32 at 64, bf16 and fp32 at 16): one
+// warp per problem, four a block; the warp stages the problem's t rows of k and
+// v in shared memory as fp32, then lane i (< t) keeps query row i (scaled by
+// qscale and rounded to T) and its t logits in registers, takes the base-2
+// softmax, rounds p to T for P V and sums the unrounded p in fp32, and writes
+// its output row.
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock) temporal_attn_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int nvid, int t, int S, int H, float qscale) {
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, int nvid, int t, int S, int H, float qscale) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long prob = (long long)blockIdx.x * kWarpsPerBlock + warp;
@@ -62,8 +75,8 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) temporal_attn_kernel(
   for (int e = lane; e < t * D; e += 32) {
     const int i = e / D, d = e % D;
     const long long off = base + i * frame_stride + d;
-    Ks[e] = k[off];
-    Vs[e] = v[off];
+    Ks[e] = to_f<T>(k[off]);
+    Vs[e] = to_f<T>(v[off]);
   }
   __syncwarp();
   if (lane >= t) return;
@@ -71,7 +84,7 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) temporal_attn_kernel(
   const long long qoff = base + lane * frame_stride;
   float qv[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) qv[d] = q[qoff + d] * qscale;
+  for (int d = 0; d < D; ++d) qv[d] = round_to<T>(to_f<T>(q[qoff + d]) * qscale);
 
   float sc[kMaxFrames];
   float m = -INFINITY;
@@ -89,8 +102,9 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) temporal_attn_kernel(
 #pragma unroll
   for (int j = 0; j < kMaxFrames; ++j) {
     if (j < t) {
-      sc[j] = exp2f(sc[j] - m);
-      l += sc[j];
+      const float e = exp2f(sc[j] - m);
+      l += e;                  // the fp32 sum of the unrounded p
+      sc[j] = round_to<T>(e);  // the p of P V
     }
   }
   float ov[D];
@@ -104,24 +118,153 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) temporal_attn_kernel(
     }
   }
 #pragma unroll
-  for (int d = 0; d < D; ++d) o[qoff + d] = ov[d] / l;
+  for (int d = 0; d < D; ++d) o[qoff + d] = from_f<T>(ov[d] / l);
 }
 
-int launch_temporal_fp32(const void* q, const void* k, const void* v, void* o, int nvid, int t, int S, int H,
-                         float qscale, cudaStream_t stream) {
-  constexpr int D = 64;
-  auto kern = temporal_attn_kernel<D>;
+template <typename T, int D>
+int launch_temporal_cores(const void* q, const void* k, const void* v, void* o, int nvid, int t, int S, int H,
+                          float qscale, cudaStream_t stream) {
+  auto kern = temporal_attn_kernel<T, D>;
   const size_t smem = sizeof(float) * kWarpsPerBlock * 2 * t * D;
-  cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)(sizeof(float) * kWarpsPerBlock * 2 * kMaxFrames * D));
-  if (err != cudaSuccess) return (int)err;
+  if (attr != cudaSuccess) return (int)attr;
   const long long nprob = (long long)nvid * S * H;
   const long long blocks = (nprob + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > 0x7fffffffLL) return kErrBadArgument;
   kern<<<(unsigned)blocks, 32 * kWarpsPerBlock, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), nvid, t, S, H, qscale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), nvid, t, S, H, qscale);
+  return (int)cudaGetLastError();
+}
+
+// ---- D = 512: one warp per problem, lanes across the head dim ---------------
+//
+// The VideoDecoder's VideoAttnBlock mixes frames over one 512-dim head ([bt,
+// 5824, 1, 512] at t = 7 or 14 on svd.yaml's decode). A query row is too wide
+// for one lane, so lane L owns the 16 channels [8L, 8L + 8) and [256 + 8L,
+// 256 + 8L + 8) of every row: each logit is a 16-term partial dot product per
+// lane and a warp sum; p, its fp32 sum and the rounding as above; each lane
+// accumulates its 16 output channels over the t frames. The problem's t rows of
+// k and v wait in shared memory in the input dtype (2 t 512 elements a warp: 28
+// KB at t = 14 in bf16, 57 KB in fp32), as many warps a block as fit in 192 KB
+// (at most 4). Loads are 16-byte vectors, so every row must be 16-byte aligned.
+// Bound by bytes like the other temporal sites: q, k, v read and o written once.
+
+constexpr int kWideD = 512;
+constexpr int kWideMaxWarps = 4;
+constexpr size_t kWideSmemBudget = 192 * 1024;
+
+template <typename T>
+__device__ __forceinline__ void wide_load(const T* p, float* out);   // 8 elements from a 16-byte aligned address
+template <>
+__device__ __forceinline__ void wide_load<__nv_bfloat16>(const __nv_bfloat16* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int u = 0; u < 8; ++u) out[u] = __bfloat162float(x[u]);
+}
+template <>
+__device__ __forceinline__ void wide_load<float>(const float* p, float* out) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  out[0] = a.x, out[1] = a.y, out[2] = a.z, out[3] = a.w, out[4] = b.x, out[5] = b.y, out[6] = b.z, out[7] = b.w;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kWideMaxWarps) temporal_attn_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o, int nvid,
+    int t, int S, int H, float qscale, int warps) {
+  constexpr int D = kWideD, VEC = 16 / sizeof(T);  // elements per 16-byte vector
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long prob = (long long)blockIdx.x * warps + warp;
+  if (prob >= (long long)nvid * S * H) return;  // only warp-level sync below
+  const int h = (int)(prob % H);
+  const long long rest = prob / H;
+  const int s = (int)(rest % S);
+  const int b = (int)(rest / S);
+
+  T* Ks = reinterpret_cast<T*>(wide_smem) + (size_t)warp * 2 * t * D;  // [t][D]
+  T* Vs = Ks + t * D;                                                  // [t][D]
+  const long long hd = (long long)H * D;
+  const long long frame_stride = (long long)S * hd;
+  const long long base = (long long)b * t * frame_stride + (long long)s * hd + (long long)h * D;
+  for (int e = lane; e < t * (D / VEC); e += 32) {
+    const int i = e / (D / VEC), c = (e % (D / VEC)) * VEC;
+    const long long off = base + i * frame_stride + c;
+    *reinterpret_cast<uint4*>(Ks + i * D + c) = *reinterpret_cast<const uint4*>(k + off);
+    *reinterpret_cast<uint4*>(Vs + i * D + c) = *reinterpret_cast<const uint4*>(v + off);
+  }
+  __syncwarp();
+
+  const int c0 = 8 * lane, c1 = 256 + 8 * lane;  // this lane's two runs of 8 channels
+  for (int i = 0; i < t; ++i) {
+    const long long qoff = base + i * frame_stride;
+    float qv[16];
+    wide_load<T>(q + qoff + c0, qv);
+    wide_load<T>(q + qoff + c1, qv + 8);
+#pragma unroll
+    for (int u = 0; u < 16; ++u) qv[u] = round_to<T>(qv[u] * qscale);
+    float sc[kMaxFrames];
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kMaxFrames; ++j) {
+      if (j < t) {
+        float kv[16];
+        wide_load<T>(Ks + j * D + c0, kv);
+        wide_load<T>(Ks + j * D + c1, kv + 8);
+        float a = 0.f;
+#pragma unroll
+        for (int u = 0; u < 16; ++u) a = fmaf(qv[u], kv[u], a);
+        sc[j] = warp_sum(a);
+        m = fmaxf(m, sc[j]);
+      }
+    }
+    float l = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxFrames; ++j) {
+      if (j < t) {
+        const float e = exp2f(sc[j] - m);
+        l += e;                  // the fp32 sum of the unrounded p
+        sc[j] = round_to<T>(e);  // the p of P V
+      }
+    }
+    float ov[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) ov[u] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxFrames; ++j) {
+      if (j < t) {
+        float vv[16];
+        wide_load<T>(Vs + j * D + c0, vv);
+        wide_load<T>(Vs + j * D + c1, vv + 8);
+#pragma unroll
+        for (int u = 0; u < 16; ++u) ov[u] = fmaf(sc[j], vv[u], ov[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 16; ++u) o[qoff + (u < 8 ? c0 + u : c1 + u - 8)] = from_f<T>(ov[u] / l);
+  }
+}
+
+template <typename T>
+int launch_temporal_wide(const void* q, const void* k, const void* v, void* o, int nvid, int t, int S, int H,
+                         float qscale, cudaStream_t stream) {
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if (bases % 16) return kErrBadArgument;
+  const size_t per_warp = sizeof(T) * 2 * (size_t)t * kWideD;
+  const int warps = (int)std::min<size_t>(kWideMaxWarps, kWideSmemBudget / per_warp);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      temporal_attn_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWideSmemBudget);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long nprob = (long long)nvid * S * H;
+  const long long blocks = (nprob + warps - 1) / warps;
+  if (blocks > 0x7fffffffLL) return kErrBadArgument;
+  temporal_attn_wide_kernel<T><<<(unsigned)blocks, 32 * warps, per_warp * warps, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), nvid, t,
+      S, H, qscale, warps);
   return (int)cudaGetLastError();
 }
 
@@ -235,22 +378,33 @@ int launch_temporal_bf16(const void* q, const void* k, const void* v, void* o, i
 
 }  // namespace vs
 
-// q, k, v, o: contiguous [(nvid*t), S, H*D], D = 64 (bf16: 16-byte aligned).
-// route (or NULL) receives the kernel that ran: 1 mma.sync (bf16), 0 CUDA cores (fp32).
+// q, k, v, o: contiguous [(nvid*t), S, H*D], D in {16, 64, 512} (bf16 at 64 and
+// every D at 512: 16-byte aligned). bf16 at D = 64 runs the tensor-core kernel,
+// D = 512 the wide kernel, the rest the CUDA-core kernel. route (or NULL)
+// receives the kernel that ran: 1 mma.sync, 4 the wide kernel, 0 CUDA cores.
 extern "C" int vs_temporal_attention_direct(int dtype, int D, const void* q, const void* k,
                                             const void* v, void* o, int nvid, int t, int S,
                                             int H, float qscale, int* route, void* stream) {
   if (nvid <= 0 || S <= 0 || H <= 0 || t <= 0 || t > vs::kMaxFrames)
     return vs::kErrBadArgument;
-  if (D != 64) return vs::kErrUnsupported;
+  if (D != 16 && D != 64 && D != vs::kWideD) return vs::kErrUnsupported;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int r = -1, rc = vs::kErrUnsupported;
-  if (dtype == vs::kBFloat16) {
+  using bf = __nv_bfloat16;
+  const bool bf16 = dtype == vs::kBFloat16;
+  if (!bf16 && dtype != vs::kFloat32) return vs::kErrUnsupported;
+  int r = 0, rc;
+  if (D == vs::kWideD) {
+    r = 4;
+    rc = bf16 ? vs::launch_temporal_wide<bf>(q, k, v, o, nvid, t, S, H, qscale, s)
+              : vs::launch_temporal_wide<float>(q, k, v, o, nvid, t, S, H, qscale, s);
+  } else if (bf16 && D == 64) {
     r = 1;
     rc = vs::launch_temporal_bf16(q, k, v, o, nvid, t, S, H, qscale, s);
-  } else if (dtype == vs::kFloat32) {
-    r = 0;
-    rc = vs::launch_temporal_fp32(q, k, v, o, nvid, t, S, H, qscale, s);
+  } else if (D == 64) {
+    rc = vs::launch_temporal_cores<float, 64>(q, k, v, o, nvid, t, S, H, qscale, s);
+  } else {
+    rc = bf16 ? vs::launch_temporal_cores<bf, 16>(q, k, v, o, nvid, t, S, H, qscale, s)
+              : vs::launch_temporal_cores<float, 16>(q, k, v, o, nvid, t, S, H, qscale, s);
   }
   if (route != nullptr) *route = r;
   return rc;

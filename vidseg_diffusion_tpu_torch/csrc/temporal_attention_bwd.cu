@@ -34,9 +34,12 @@
 // to a small per-warp tile, from which ldmatrix.trans reads p^T and ds^T as A
 // operands of dV = round(p)^T G (through v's rows) and dK = ds^T Qf / log2(e)
 // (through k's rows). 16 < t <= 32 takes 32-frame boxes and two row tiles per
-// product. fp32 (the card-vs-CPU checks) runs temporal_attn_bwd_kernel: one
-// warp per problem on CUDA cores, the inputs staged as fp32 rows, lane i owning
-// query row i and then key row i.
+// product. That tile is built for 64-dim heads; fp32 (the card-vs-CPU checks)
+// and bf16 at D = 16 (the tiny configs' heads) run temporal_attn_bwd_kernel,
+// templated on the dtype and D: one warp per problem on CUDA cores, the inputs
+// staged as fp32 rows (qf rounded to the dtype; p and ds rounded where they
+// feed products), lane i owning query row i and then key row i. D = 512 (the
+// VideoDecoder's VideoAttnBlock) runs no backward on any path and is refused.
 #include "common.cuh"
 #include "temporal_tile.cuh"
 
@@ -49,11 +52,11 @@ __host__ __device__ constexpr int bwd_warp_floats(int t, int D) {
   return 5 * t * (D + 1) + 2 * t * (t + 1);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(32 * kBwdWarps) temporal_attn_bwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ o, const float* __restrict__ g, float* __restrict__ dq, float* __restrict__ dk,
-    float* __restrict__ dv, int nvid, int t, int S, int H, float qscale, float scale) {
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ o, const T* __restrict__ g, T* __restrict__ dq, T* __restrict__ dk,
+    T* __restrict__ dv, int nvid, int t, int S, int H, float qscale, float scale) {
   constexpr int DP = D + 1;
   constexpr float kInvLog2E = 0.6931471805599453f;
   extern __shared__ float smem[];
@@ -71,8 +74,8 @@ __global__ void __launch_bounds__(32 * kBwdWarps) temporal_attn_bwd_kernel(
   float* Vs = Ks + t * DP;   // v; after the query pass, dv
   float* Gs = Vs + t * DP;   // g
   float* Os = Gs + t * DP;   // o; row i becomes dq once lane i has its delta
-  float* Ps = Os + t * DP;   // [t][TP] p
-  float* DSs = Ps + t * TP;  // [t][TP] ds
+  float* Ps = Os + t * DP;   // [t][TP] p rounded to T
+  float* DSs = Ps + t * TP;  // [t][TP] ds rounded to T
 
   const long long hd = (long long)H * D;
   const long long frame_stride = (long long)S * hd;
@@ -81,11 +84,11 @@ __global__ void __launch_bounds__(32 * kBwdWarps) temporal_attn_bwd_kernel(
   for (int e = lane; e < t * D; e += 32) {
     const int i = e / D, d = e % D;
     const long long off = base + i * frame_stride + d;
-    Qs[i * DP + d] = q[off] * qscale;
-    Ks[i * DP + d] = k[off];
-    Vs[i * DP + d] = v[off];
-    Gs[i * DP + d] = g[off];
-    Os[i * DP + d] = o[off];
+    Qs[i * DP + d] = round_to<T>(to_f<T>(q[off]) * qscale);
+    Ks[i * DP + d] = to_f<T>(k[off]);
+    Vs[i * DP + d] = to_f<T>(v[off]);
+    Gs[i * DP + d] = to_f<T>(g[off]);
+    Os[i * DP + d] = to_f<T>(o[off]);
   }
   __syncwarp();
 
@@ -121,8 +124,8 @@ __global__ void __launch_bounds__(32 * kBwdWarps) temporal_attn_bwd_kernel(
 #pragma unroll 8
         for (int d = 0; d < D; ++d) dp = fmaf(Gs[i * DP + d], Vs[j * DP + d], dp);
         const float p = sc[j] / sum;
-        Ps[i * TP + j] = p;
-        sc[j] = p * (dp - delta);  // ds
+        Ps[i * TP + j] = round_to<T>(p);
+        sc[j] = round_to<T>(p * (dp - delta));  // ds
         DSs[i * TP + j] = sc[j];
       }
     }
@@ -155,29 +158,29 @@ __global__ void __launch_bounds__(32 * kBwdWarps) temporal_attn_bwd_kernel(
   for (int e = lane; e < t * D; e += 32) {
     const int i = e / D, d = e % D;
     const long long off = base + i * frame_stride + d;
-    dq[off] = Os[i * DP + d];
-    dk[off] = Ks[i * DP + d];
-    dv[off] = Vs[i * DP + d];
+    dq[off] = from_f<T>(Os[i * DP + d]);
+    dk[off] = from_f<T>(Ks[i * DP + d]);
+    dv[off] = from_f<T>(Vs[i * DP + d]);
   }
 }
 
-int launch_temporal_bwd_fp32(const void* q, const void* k, const void* v, const void* o,
-                             const void* g, void* dq, void* dk, void* dv, int nvid, int t, int S,
-                             int H, float qscale, float scale, cudaStream_t stream) {
-  constexpr int D = 64;
-  auto kern = temporal_attn_bwd_kernel<D>;
+template <typename T, int D>
+int launch_temporal_bwd_cores(const void* q, const void* k, const void* v, const void* o,
+                              const void* g, void* dq, void* dk, void* dv, int nvid, int t, int S,
+                              int H, float qscale, float scale, cudaStream_t stream) {
+  auto kern = temporal_attn_bwd_kernel<T, D>;
   const size_t smem = sizeof(float) * kBwdWarps * bwd_warp_floats(t, D);
-  cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)(sizeof(float) * kBwdWarps * bwd_warp_floats(kBwdFrames, D)));
-  if (err != cudaSuccess) return (int)err;
+  if (attr != cudaSuccess) return (int)attr;
   const long long nprob = (long long)nvid * S * H;
   const long long blocks = (nprob + kBwdWarps - 1) / kBwdWarps;
   if (blocks > 0x7fffffffLL) return kErrBadArgument;
   kern<<<(unsigned)blocks, 32 * kBwdWarps, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(o), static_cast<const float*>(g), static_cast<float*>(dq),
-      static_cast<float*>(dk), static_cast<float*>(dv), nvid, t, S, H, qscale, scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const T*>(g), static_cast<T*>(dq),
+      static_cast<T*>(dk), static_cast<T*>(dv), nvid, t, S, H, qscale, scale);
   return (int)cudaGetLastError();
 }
 
@@ -374,24 +377,32 @@ int launch_temporal_bwd_bf16(const void* q, const void* k, const void* v, const 
 
 }  // namespace vs
 
-// q, k, v, o, g, dq, dk, dv: contiguous [(nvid*t), S, H*D], D = 64 (bf16: 16-byte
-// aligned). route (or NULL) receives the kernel that ran: 1 mma.sync (bf16), 0
-// CUDA cores (fp32).
+// q, k, v, o, g, dq, dk, dv: contiguous [(nvid*t), S, H*D], D in {16, 64} (bf16
+// at 64: 16-byte aligned). bf16 at D = 64 runs the tensor-core kernel, the rest
+// the CUDA-core kernel. route (or NULL) receives the kernel that ran: 1
+// mma.sync, 0 CUDA cores.
 extern "C" int vs_temporal_attention_direct_bwd(int dtype, int D, const void* q, const void* k,
                                                 const void* v, const void* o, const void* g,
                                                 void* dq, void* dk, void* dv, int nvid, int t,
                                                 int S, int H, float qscale, float scale,
                                                 int* route, void* stream) {
   if (nvid <= 0 || S <= 0 || H <= 0 || t <= 0 || t > vs::kBwdFrames) return vs::kErrBadArgument;
-  if (D != 64) return vs::kErrUnsupported;
+  if (D != 16 && D != 64) return vs::kErrUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
   int r = -1, rc = vs::kErrUnsupported;
-  if (dtype == vs::kBFloat16) {
+  if (dtype == vs::kBFloat16 && D == 64) {
     r = 1;
     rc = vs::launch_temporal_bwd_bf16(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st);
+  } else if (dtype == vs::kBFloat16) {
+    r = 0;
+    rc = vs::launch_temporal_bwd_cores<bf, 16>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st);
   } else if (dtype == vs::kFloat32) {
     r = 0;
-    rc = vs::launch_temporal_bwd_fp32(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st);
+    rc = D == 64 ? vs::launch_temporal_bwd_cores<float, 64>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale,
+                                                            scale, st)
+                 : vs::launch_temporal_bwd_cores<float, 16>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale,
+                                                            scale, st);
   }
   if (route != nullptr) *route = r;
   return rc;

@@ -1,7 +1,8 @@
 """The VidSeg engine (PyTorch): harvest pass and modulated runs.
 
 Counterpart of vidseg_diffusion_tpu/engine/vidseg.py for the single-device
-path: HarvestSpec / svd_harvest_spec / sd_harvest_spec, the feature/x_t pass that harvests
+path: HarvestSpec / svd_harvest_spec / sd_harvest_spec, the DDIM inversion of
+the clean latent (`invert`), the feature/x_t pass that harvests
 attention q/k and the post-step latent trajectory (`xt_cache_pass`, with the
 windowed cache contract: entries are indexed [i - t0] with t0 = cache["t0"]),
 and the (mask, +/-lambda) runs grid, runs outer and stepped, with latent
@@ -169,6 +170,16 @@ class VidSegEngine:
             return self.guider(denoised, sigma), aux
 
         return denoise_fn
+
+    @torch.no_grad()
+    def invert(self, c: Cond, uc: Cond, latent: torch.Tensor) -> torch.Tensor:
+        """Step-1 DDIM inversion (JAX engine/vidseg.py:496-506): the
+        un-modulated CFG denoiser over the flipped sigma schedule, no harvest.
+        Returns the noised latent in the sqrt(1 + sigma_0^2)-normalised frame
+        add_noise produces, so the feature pass and the modulated runs take it
+        unchanged."""
+        x, _ = self.sampler.inversion(self._denoise_fn(c, uc), latent)
+        return x
 
     @torch.no_grad()
     def xt_cache_pass(self, c: Cond, uc: Cond, noised: torch.Tensor, t_start: int):

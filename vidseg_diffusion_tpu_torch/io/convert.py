@@ -4,7 +4,8 @@ The port's modules carry the reference's sgm / open_clip state-dict key
 names, the names the JAX package's io/checkpoint.py key functions map its
 flax paths to. This module holds those key functions (unet, image or video;
 vae, image or video decoder; clip vision; clip text: the same rules, without
-the JAX package's jax imports) and
+the JAX package's jax imports; the VAE's also names the VideoAttnBlock's
+parameters as the reference does, which the JAX package's does not) and
 turns a flax parameter tree (nested dicts of numpy arrays) into a state dict
 for the port. The autoencoder-training losses (LPIPS with its VGG16 trunk,
 the PatchGAN discriminator) keep the flax module names, so their key
@@ -79,6 +80,14 @@ def unet_key_fn(path: Path) -> str:
     return ".".join(segs)
 
 
+# inside the VideoDecoder's VideoAttnBlock (mid.attn_1): its transformer
+# block's FeedForward / to_out and the frame embedding's Linear layers, under
+# the reference's sequential indices (the JAX package's own vae_key_fn keeps
+# the flax names there)
+_VAE_TIME_MIX = {"to_out": "to_out.0", "net_in": "net.0", "net_out": "net.2",
+                 "video_time_embed_0": "video_time_embed.0", "video_time_embed_2": "video_time_embed.2"}
+
+
 def vae_key_fn(path: Path) -> str:
     """flax path -> sgm key of the VAE encoder / (video) decoder."""
     parts = [p for p in path[:-1] if p != "gn"]
@@ -103,6 +112,8 @@ def vae_key_fn(path: Path) -> str:
             i += 1
         elif p == "conv_out_time_mix":
             segs.append("conv_out.time_mix_conv")
+        elif p in _VAE_TIME_MIX:
+            segs.append(_VAE_TIME_MIX[p])
         else:
             segs.append(p)
         i += 1

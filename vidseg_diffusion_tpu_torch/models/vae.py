@@ -2,12 +2,17 @@
 
 Counterpart of vidseg_diffusion_tpu/models/vae.py: Encoder; Decoder, either
 the image decoder (SD 2.1: VAEResnetBlocks, no time mix) or, with
-`video_decoder`, the SVD VideoDecoder in time_mode 'conv-only' (every
-ResnetBlock gains a (3,1,1) temporal ResBlock with a learned alpha merge,
-and conv_out a temporal mix conv); AttnBlock (single-head attention over
-the latent's tokens: K3 on CUDA) and gaussian_sample. Module names are the
-sgm keys (down.{i}.block.{j}, mid.attn_1, up.{i}.upsample, conv_out.time_mix_conv).
-The 'all' / 'attn-only' time modes (VideoAttnBlock) are not ported yet.
+`video_decoder`, the SVD VideoDecoder in its three time modes: 'conv-only'
+(svd.yaml's: every ResnetBlock gains a (3,1,1) temporal ResBlock with a
+learned alpha merge, and conv_out a temporal mix conv), 'all' (that, and the
+mid attention a VideoAttnBlock) and 'attn-only' (plain ResnetBlocks and
+conv_out, the mid attention a VideoAttnBlock); AttnBlock (single-head
+attention over the latent's tokens: K3 on CUDA), VideoAttnBlock (AttnBlock's
+attention, then a one-head VideoTransformerBlock over a frame-position
+embedding: K2 and K1 at one 512-dim head on CUDA) and gaussian_sample.
+Module names are the sgm keys (down.{i}.block.{j}, mid.attn_1,
+mid.attn_1.time_mix_block, mid.attn_1.video_time_embed.{0,2}, up.{i}.upsample,
+conv_out.time_mix_conv).
 """
 
 from __future__ import annotations
@@ -19,8 +24,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vidseg_diffusion_tpu_torch.models.layers import Conv2dNHWC, GroupNorm32
+from vidseg_diffusion_tpu_torch.models.layers import Conv2dNHWC, GroupNorm32, linear, timestep_embedding
 from vidseg_diffusion_tpu_torch.models.unet import TemporalConv, nearest_up2
+from vidseg_diffusion_tpu_torch.models.video_layers import VideoTransformerBlock
 from vidseg_diffusion_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -94,14 +100,45 @@ class AttnBlock(nn.Module):
         self.v = Conv2dNHWC(c, c, 1)
         self.proj_out = Conv2dNHWC(c, c, 1)
 
-    def forward(self, x):
+    def attend(self, x):
+        """The single-head attention over the tokens of each image: [B, H, W, C]
+        -> [B, H*W, C] (before proj_out)."""
         b, h, w, c = x.shape
         hn = self.norm(x)
         # the projections come out channels-last (no copy); a convolution
         # without cuDNN returns them NCHW, which K3 cannot read in place
         q, k, v = (m(hn).reshape(b, 1, h * w, c).contiguous() for m in (self.q, self.k, self.v))
-        out = dot_product_attention(q, k, v).reshape(b, h, w, c)
-        return x + self.proj_out(out)
+        return dot_product_attention(q, k, v).reshape(b, h * w, c)
+
+    def forward(self, x):
+        return x + self.proj_out(self.attend(x).reshape(x.shape))
+
+
+class VideoAttnBlock(AttnBlock):
+    """Spatio-temporal VAE attention of the VideoDecoder's 'all' and
+    'attn-only' time modes (JAX vae.py:116-148, temporal_ae.py VideoBlock
+    :110-177): AttnBlock's attention, then the sinusoidal frame-position
+    embedding through video_time_embed.{0,2}, a one-head VideoTransformerBlock
+    (dim_head = C, ff_in, no context: attn2 attends over the tokens of each
+    frame in the direct layout, as JAX does), the sigmoid(mix_factor) merge,
+    proj_out and the residual."""
+
+    def __init__(self, c: int):
+        super().__init__(c)
+        self.time_mix_block = VideoTransformerBlock(c, 1, c, context_dim=None)
+        self.video_time_embed = nn.ModuleList([nn.Linear(c, 4 * c), nn.SiLU(), nn.Linear(4 * c, c)])
+        self.mix_factor = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x, timesteps: int):
+        bt, h, w, c = x.shape
+        att = self.attend(x)
+        frame_ids = torch.arange(timesteps, device=x.device).repeat(bt // timesteps)
+        emb = linear(timestep_embedding(frame_ids, c).to(att.dtype), self.video_time_embed[0])
+        emb = linear(F.silu(emb), self.video_time_embed[2])
+        x_mix = self.time_mix_block(att + emb[:, None, :], None, timesteps)
+        a = torch.sigmoid(self.mix_factor.float()).to(att.dtype)
+        merged = a * att + (1.0 - a) * x_mix
+        return x + self.proj_out(merged.reshape(bt, h, w, c))
 
 
 class VAEDownsample(nn.Module):
@@ -193,28 +230,33 @@ class Encoder(nn.Module):
         return self.conv_out(self.norm_out(h, silu=True))
 
 
+TIME_MODES = ("conv-only", "all", "attn-only")
+
+
 class Decoder(nn.Module):
     """z [B, h, w, z] -> x [B, 8h, 8w, 3] (model.py:604-748). The image
     decoder treats the batch as images; with `video_decoder` it is the SVD
-    VideoDecoder, time_mode 'conv-only' (temporal_ae.py:293-349), the batch
-    being one video of `timesteps` frames."""
+    VideoDecoder (temporal_ae.py:293-349, JAX vae.py:224-277), the batch
+    being one video of `timesteps` frames: time_mode 'conv-only' and 'all'
+    hold video ResnetBlocks and conv_out's temporal mix conv, 'all' and
+    'attn-only' a VideoAttnBlock as the mid attention."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
-        if cfg.video_decoder and cfg.time_mode != "conv-only":
-            raise NotImplementedError(
-                "of the VideoDecoder only time_mode 'conv-only' is ported ('all' / 'attn-only' "
-                "need VideoAttnBlock, a ROADMAP Queue A item)"
-            )
+        if cfg.time_mode not in TIME_MODES:
+            raise ValueError(f"time_mode {cfg.time_mode!r} not in {TIME_MODES}")
         self.config = cfg
         kernel = tuple(cfg.video_kernel_size)
         block_in = cfg.ch * cfg.ch_mult[-1]
+        self.time_res = cfg.video_decoder and cfg.time_mode != "attn-only"
+        self.time_attn = cfg.video_decoder and cfg.time_mode in ("all", "attn-only")
 
         def res(cin, cout):
-            return VideoVAEResnetBlock(cin, cout, kernel) if cfg.video_decoder else VAEResnetBlock(cin, cout)
+            return VideoVAEResnetBlock(cin, cout, kernel) if self.time_res else VAEResnetBlock(cin, cout)
 
         self.conv_in = Conv2dNHWC(cfg.z_channels, block_in, 3, padding=1)
-        self.mid = _Mid(res(block_in, block_in), AttnBlock(block_in), res(block_in, block_in))
+        attn = VideoAttnBlock(block_in) if self.time_attn else AttnBlock(block_in)
+        self.mid = _Mid(res(block_in, block_in), attn, res(block_in, block_in))
         levels = [None] * len(cfg.ch_mult)
         cin = block_in
         for i_level in reversed(range(len(cfg.ch_mult))):
@@ -230,13 +272,15 @@ class Decoder(nn.Module):
             levels[i_level] = level
         self.up = nn.ModuleList(levels)
         self.norm_out = _norm(cin)
-        self.conv_out = (AE3DConv(cin, cfg.out_ch, kernel) if cfg.video_decoder
+        self.conv_out = (AE3DConv(cin, cfg.out_ch, kernel) if self.time_res
                          else Conv2dNHWC(cin, cfg.out_ch, 3, padding=1))
 
     def forward(self, z, timesteps: int = 1):
-        t = (timesteps,) if self.config.video_decoder else ()
+        t = (timesteps,) if self.time_res else ()
         h = self.conv_in(z.to(self.config.dtype))
-        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h, *t)), *t)
+        h = self.mid.block_1(h, *t)
+        h = self.mid.attn_1(h, timesteps) if self.time_attn else self.mid.attn_1(h)
+        h = self.mid.block_2(h, *t)
         for i_level in reversed(range(len(self.up))):
             level = self.up[i_level]
             for block in level.block:

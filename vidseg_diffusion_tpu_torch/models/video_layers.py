@@ -35,9 +35,12 @@ class VideoTransformerBlock(nn.Module):
     """Temporal transformer block (video_attention.py:18-288), SVD form:
     ff_in with residual, temporal self-attention, cross-attention to the
     first frame's context, FF. Only attn1 accepts injected q/k/v
-    (video_attention.py:166-195)."""
+    (video_attention.py:166-195). With context_dim None (the VideoDecoder's
+    VideoAttnBlock) attn2 is a self-attention over the block's own tokens as
+    JAX builds it: in the direct layout over the s tokens of each frame, not
+    over the t frames the reference's folded layout attends across."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int]):
         super().__init__()
         self.ff_in = FeedForward(dim, dim_out=dim)
         self.norm_in = nn.LayerNorm(dim, eps=1e-5)

@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel an entry with a `route` out-parameter reports it ran
-ROUTES = {0: "fma", 1: "mma_sync", 2: "wgmma", 3: "narrow"}
+ROUTES = {0: "fma", 1: "mma_sync", 2: "wgmma", 3: "narrow", 4: "wide"}
 
 
 def _find_nvcc() -> Optional[str]:

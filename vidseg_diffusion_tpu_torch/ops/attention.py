@@ -10,7 +10,9 @@ Each kernel wrapper takes its plain version for tensors on the CPU and
 launches its CUDA kernel (csrc/) for tensors on a CUDA device, or raises;
 there is no fallback between the two. Each wrapper and each plain version
 carries a plain integer counter (`.launches` / `.calls`) that a run can read
-to show which path it took.
+to show which path it took; the wrappers also count their launches by head
+dim (`.dim_launches`, a Counter; K1 and K3 their normalise-first launches
+too, `.normalised_dim_launches`) and by the kernel that ran (`.*_launches`).
 
 Gradients: when grad mode is on and an input requires grad, K1, K2 and K3
 run inside a torch.autograd.Function (the JAX package's custom_vjps,
@@ -42,15 +44,23 @@ unscaled q in fp32 times scale*log2(e), p = exp2(s - m) / l normalised in fp32
 before it is rounded to the input dtype, and no division after P.V
 (_attention_normalised is its plain version). At such a site under a
 gradient, and where no normalise-first kernel takes the dtype and head dim
-(bf16 K1 at D = 64, K3 at D = 64 and 80), the port runs mha_reference itself
-under autograd on either device, as JAX runs and differentiates it there
-(mha_reference_site, counted apart from the plain versions). A "flash" or
-"small_batched" site whose head dim no kernel takes raises a ValueError on
-the card before any launch.
+(bf16 K1 at D = 16 and 64, K3 at D = 16, 64 and 80), the port runs
+mha_reference itself under autograd on either device, as JAX runs and
+differentiates it there (mha_reference_site, counted apart from the plain
+versions).
+
+Head dims: the kernels take every head dim the shipped configs produce at a
+kernel site (HEAD_DIMS: 16 from the tiny configs, 64, CLIP's 80 at bhld, and
+512 at the VAE's bhld sites and the VideoDecoder VideoAttnBlock's blhd (one
+head) and temporal sites), forward and, where a training path can reach them,
+backward (BACKWARD_HEAD_DIMS). A site whose head dim no kernel takes raises a
+ValueError on the card before any launch; nothing falls back to a plain
+version.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional
 
@@ -212,7 +222,7 @@ def _flash_attention_packed_forward(q, k, v, heads: int, scale: Optional[float],
     b, lq, hd = q.shape
     lk = k.shape[1]
     d = hd // heads
-    _check_head_dim("flash_attention_packed", "blhd", (b, lq, heads, d), d)
+    _check_head_dim("flash_attention_packed", "blhd", (b, lq, heads, d), d, heads)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     out = torch.empty((b, lq, heads, d), dtype=dtype, device=q.device)
     lse = torch.empty((b, lq, heads), dtype=torch.float32, device=q.device) if save_lse else None
@@ -227,8 +237,12 @@ def _flash_attention_packed_forward(q, k, v, heads: int, scale: Optional[float],
         _sum_mode(psum_rounded, normalise_first),
     )
     flash_attention_packed.launches += 1
+    flash_attention_packed.dim_launches[d] += 1
     flash_attention_packed.wgmma_launches += route == "wgmma"
-    flash_attention_packed.normalised_launches += normalise_first and route == "wgmma"
+    flash_attention_packed.mma_launches += route == "mma_sync"
+    if normalise_first and route != "fma":
+        flash_attention_packed.normalised_launches += 1
+        flash_attention_packed.normalised_dim_launches[d] += 1
     out = out.view(b, lq, hd)
     return (out, lse) if save_lse else out
 
@@ -254,10 +268,12 @@ class _FlashAttentionPacked(torch.autograd.Function):
 
 def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
                            psum_rounded: bool = True, normalise_first: bool = False):
-    """K1: online-softmax attention on packed [B, L, H*D] (any L, D = 64),
-    read through the tensors' strides with no transpose; bf16 runs the wgmma
-    kernel fed by TMA and needs 16-byte aligned rows (a view that is not is
-    refused), fp32 the FMA kernel. The denominator sums the rounded p
+    """K1: online-softmax attention on packed [B, L, H*D] (any L; D = 16 or
+    64, or 512 at one head), read through the tensors' strides with no
+    transpose; bf16 runs the wgmma kernel fed by TMA at D = 64 (at one 512-dim
+    head K3's D = 512 kernel, which reads the same rows), the mma.sync
+    template at D = 16, and needs 16-byte aligned rows (a view that is not is
+    refused); fp32 the FMA kernel. The denominator sums the rounded p
     (psum_rounded, JAX's fused_psum default) or the fp32 p (the short sites,
     small_batched_attention); the LSE written under a gradient is m + log2 of
     that same sum. normalise_first computes mha_reference's softmax instead
@@ -271,8 +287,11 @@ def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
 
 
 flash_attention_packed.launches = 0
-flash_attention_packed.wgmma_launches = 0   # of .launches, those that ran the wgmma kernel
-flash_attention_packed.normalised_launches = 0   # of .wgmma_launches, those in the normalise-first mode
+flash_attention_packed.dim_launches = collections.Counter()   # launches by head dim
+flash_attention_packed.wgmma_launches = 0   # of .launches, those that ran a wgmma kernel (D = 64, 512)
+flash_attention_packed.mma_launches = 0   # of .launches, those on the mma.sync template (bf16 D = 16)
+flash_attention_packed.normalised_launches = 0   # bf16 launches in the normalise-first mode
+flash_attention_packed.normalised_dim_launches = collections.Counter()   # those by head dim
 
 
 # -- K5: packed flash-attention backward ---------------------------------------
@@ -325,7 +344,7 @@ def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
     b, lq, hd = q.shape
     lk = k.shape[1]
     d = hd // heads
-    _check_head_dim("flash_attention_packed_backward", "blhd", (b, lq, heads, d), d)
+    _check_head_dim("flash_attention_packed_backward", "blhd", (b, lq, heads, d), d, heads, backward=True)
     if out.shape != q.shape or g.shape != q.shape or lse.shape != (b, lq, heads):
         raise ValueError(f"flash_attention_packed_backward: bad shapes out {out.shape}, "
                          f"g {g.shape}, lse {lse.shape} for q {q.shape}")
@@ -346,12 +365,14 @@ def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
         b, heads, lq, lk, strides, float(_rounded_qscale(scale, dtype)), float(scale),
     )
     flash_attention_packed_backward.launches += 1
+    flash_attention_packed_backward.dim_launches[d] += 1
     flash_attention_packed_backward.wgmma_launches += route == "wgmma"
     return dq.view(b, lq, hd), dk.view(b, lk, hd), dv.view(b, lk, hd)
 
 
 flash_attention_packed_backward.launches = 0
-flash_attention_packed_backward.wgmma_launches = 0   # bf16, on the wgmma kernels
+flash_attention_packed_backward.dim_launches = collections.Counter()
+flash_attention_packed_backward.wgmma_launches = 0   # bf16 D = 64, on the wgmma kernels
 
 
 def _bwd_scratch(b, h, lq, device):
@@ -379,25 +400,34 @@ def _best_fold(b: int, lq: int, lk: int) -> int:
     return next(f for f in range(min(cap, b), 0, -1) if b % f == 0)
 
 
-# head dims built into the kernels: K1 (blhd sites), K2 (temporal sites) and K3
-# (bhld sites); of those, the ones whose bf16 kernel has the normalise-first
-# mode (fp32 has no rounding to order, so its kernels serve either way)
-HEAD_DIMS = {"blhd": (64,), "temporal": (64,), "bhld": (64, 80, 512)}
-NORMALISED_HEAD_DIMS = {"blhd": (64,), "bhld": (64, 80)}
+# head dims built into the kernels, forward: K1 (blhd sites; 512 at one head
+# only), K2 (temporal sites) and K3 (bhld sites); backward: K5, K6 and K13 (K5
+# at 16 and 64); of the forward ones, those whose bf16 kernel has the
+# normalise-first mode (fp32 has no rounding to order, so its kernels serve
+# either way). A head dim the configs come to produce is one more entry here
+# and one more case in the kernels' dispatch.
+HEAD_DIMS = {"blhd": (16, 64, 512), "temporal": (16, 64, 512), "bhld": (16, 64, 80, 512)}
+ONE_HEAD_DIMS = {"blhd": (512,)}   # taken at one head only
+BACKWARD_HEAD_DIMS = {"blhd": (16, 64), "temporal": (16, 64), "bhld": (16, 64, 80, 512)}
+NORMALISED_HEAD_DIMS = {"blhd": (16, 64), "bhld": (16, 64, 80)}
 
 
-def _check_head_dim(where: str, kind: str, shape, d: int) -> None:
-    """Refuse, before any launch, a head dim no kernel of the site takes."""
-    if d not in HEAD_DIMS[kind]:
-        raise ValueError(f"{where}: head dim {d} of shape {tuple(shape)} is not built into the kernels "
-                         f"(D in {HEAD_DIMS[kind]}); ROADMAP section C")
+def _check_head_dim(where: str, kind: str, shape, d: int, heads: int = 1, backward: bool = False) -> None:
+    """Refuse, before any launch, a head dim no kernel of the site takes
+    (with `backward`, also the gradient's kernel)."""
+    dims = BACKWARD_HEAD_DIMS[kind] if backward else HEAD_DIMS[kind]
+    if d not in dims or (heads != 1 and d in ONE_HEAD_DIMS.get(kind, ())):
+        one = f", {ONE_HEAD_DIMS[kind]} at one head only" if kind in ONE_HEAD_DIMS and not backward else ""
+        raise ValueError(f"{where}: head dim {d} of shape {tuple(shape)} is not built into the "
+                         f"{'backward ' if backward else ''}kernels (D in {dims}{one}); ROADMAP section C")
 
 
 def _runs_mha_reference(layout: str, q, k, v) -> bool:
     """At an "mha_reference" site: whether mha_reference_site runs it (under a
     gradient, or where no normalise-first kernel takes the dtype and D)."""
-    d = q.shape[-1]
-    takes = d in (HEAD_DIMS if q.dtype == torch.float32 else NORMALISED_HEAD_DIMS)[layout]
+    d, heads = q.shape[-1], q.shape[2 if layout == "blhd" else 1]
+    takes = (d in (HEAD_DIMS if q.dtype == torch.float32 else NORMALISED_HEAD_DIMS)[layout]
+             and (heads == 1 or d not in ONE_HEAD_DIMS.get(layout, ())))
     return _needs_grad(q, k, v) or not takes
 
 
@@ -430,7 +460,7 @@ def small_batched_attention(q, k, v, scale: Optional[float] = None):
     if route == "mha_reference" and _runs_mha_reference("blhd", q, k, v):
         return mha_reference_site(q, k, v, scale=scale, layout="blhd")
     if q.device.type == "cuda":
-        _check_head_dim(f"'{route}' attention site", "blhd", q.shape, d)
+        _check_head_dim(f"'{route}' attention site", "blhd", q.shape, d, h, backward=_needs_grad(q, k, v))
     out = flash_attention_packed(
         q.reshape(b, lq, h * d), k.reshape(b, lk, h * d), v.reshape(b, lk, h * d),
         heads=h, scale=scale, psum_rounded=max(lq, lk) >= SHORT_SEQ, normalise_first=route == "mha_reference",
@@ -484,7 +514,6 @@ def _temporal_attention_direct_forward(q, k, v, t: int, scale: Optional[float]):
     if q.device.type == "cpu":
         return temporal_attention_direct_reference(q, k, v, t, scale)
     dtype = _check_temporal("temporal_attention_direct", t, q, k, v)
-    _check_head_dim("temporal attention site", "temporal", q.shape, q.shape[-1])
     bt, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     out = torch.empty_like(q)
@@ -494,7 +523,9 @@ def _temporal_attention_direct_forward(q, k, v, t: int, scale: Optional[float]):
         bt // t, t, s, h, float(_rounded_qscale(scale, dtype)),
     )
     temporal_attention_direct.launches += 1
+    temporal_attention_direct.dim_launches[d] += 1
     temporal_attention_direct.mma_launches += route == "mma_sync"
+    temporal_attention_direct.wide_launches += route == "wide"
     return out
 
 
@@ -518,16 +549,22 @@ class _TemporalAttentionDirect(torch.autograd.Function):
 
 def temporal_attention_direct(q, k, v, t: int, scale: Optional[float] = None):
     """K2: softmax over the t frames of each (video, token, head), read from
-    the spatial token layout [(b t), s, H, D] (contiguous, D = 64, t <= 32,
-    any s). bf16 runs on the tensor cores (mma.sync, q/k/v boxes by TMA), fp32
-    on CUDA cores. Differentiable: with grad on, the backward is K6."""
+    the spatial token layout [(b t), s, H, D] (contiguous, D in {16, 64, 512},
+    t <= 32, any s). bf16 at D = 64 runs on the tensor cores (mma.sync, q/k/v
+    boxes by TMA); D = 512 on the wide kernel (lanes across the head dim);
+    the rest on CUDA cores. Differentiable: with grad on, the backward is K6
+    (D in {16, 64})."""
+    if q.device.type == "cuda":
+        _check_head_dim("temporal attention site", "temporal", q.shape, q.shape[-1], backward=_needs_grad(q, k, v))
     if _needs_grad(q, k, v):
         return _TemporalAttentionDirect.apply(q, k, v, t, scale)
     return _temporal_attention_direct_forward(q, k, v, t, scale)
 
 
 temporal_attention_direct.launches = 0
-temporal_attention_direct.mma_launches = 0   # of .launches, those on the tensor cores (bf16)
+temporal_attention_direct.dim_launches = collections.Counter()
+temporal_attention_direct.mma_launches = 0   # of .launches, those on the tensor cores (bf16 D = 64)
+temporal_attention_direct.wide_launches = 0   # of .launches, those on the D = 512 kernel
 
 
 # -- K6: direct-layout temporal-attention backward -----------------------------
@@ -571,7 +608,7 @@ def temporal_attention_direct_backward(q, k, v, out, g, t: int, scale: Optional[
     if q.device.type == "cpu":
         return temporal_attention_direct_backward_reference(q, k, v, out, g, t, scale)
     dtype = _check_temporal("temporal_attention_direct_backward", t, q, k, v, out, g)
-    _check_head_dim("temporal attention backward", "temporal", q.shape, q.shape[-1])
+    _check_head_dim("temporal attention backward", "temporal", q.shape, q.shape[-1], backward=True)
     bt, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -582,12 +619,14 @@ def temporal_attention_direct_backward(q, k, v, out, g, t: int, scale: Optional[
         bt // t, t, s, h, float(_rounded_qscale(scale, dtype)), float(scale),
     )
     temporal_attention_direct_backward.launches += 1
+    temporal_attention_direct_backward.dim_launches[d] += 1
     temporal_attention_direct_backward.mma_launches += route == "mma_sync"
     return dq, dk, dv
 
 
 temporal_attention_direct_backward.launches = 0
-temporal_attention_direct_backward.mma_launches = 0   # bf16, on the tensor cores
+temporal_attention_direct_backward.dim_launches = collections.Counter()
+temporal_attention_direct_backward.mma_launches = 0   # bf16 D = 64, on the tensor cores
 
 
 # -- K3: bhld flash attention (forward, LSE under a gradient) ------------------
@@ -645,8 +684,11 @@ def _flash_attention_forward(q, k, v, scale: Optional[float], save_lse: bool, no
         _sum_mode(save_lse, normalise_first),
     )
     flash_attention.launches += 1
+    flash_attention.dim_launches[d] += 1
     flash_attention.wgmma_launches += route == "wgmma"
-    flash_attention.normalised_launches += normalise_first and route != "fma"
+    if normalise_first and route != "fma":
+        flash_attention.normalised_launches += 1
+        flash_attention.normalised_dim_launches[d] += 1
     return (out, lse) if save_lse else out
 
 
@@ -670,13 +712,14 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, scale: Optional[float] = None, normalise_first: bool = False):
     """K3: flash attention on bhld [B, H, L, D] through strides (D in
-    {64, 80, 512}: the VAE's single 512-dim head and CLIP's 80-dim heads), so
-    a strided view (CLIP's [B, L, H, D] projections seen as bhld) is read in
-    place. bf16 runs on the tensor cores (wgmma at D = 512 and 64, mma.sync at
-    80) and needs 16-byte aligned rows; fp32 runs the FMA kernel.
-    normalise_first (bf16 D = 64 and 80) computes mha_reference's softmax
-    (no gradient). Differentiable otherwise: with grad on, the forward also
-    writes the LSE and the backward is K13 (K5 at D = 64)."""
+    {16, 64, 80, 512}: the VAE's single 512-dim head, CLIP's 80-dim heads and
+    the tiny configs' 16), so a strided view (CLIP's [B, L, H, D] projections
+    seen as bhld) is read in place. bf16 runs on the tensor cores (wgmma at D
+    = 512 and 64, mma.sync at 80 and 16) and needs 16-byte aligned rows; fp32
+    runs the FMA kernel. normalise_first (bf16 D = 16, 64 and 80) computes
+    mha_reference's softmax (no gradient). Differentiable otherwise: with grad
+    on, the forward also writes the LSE and the backward is K13 (K5 at D = 16
+    and 64)."""
     _refuse_normalised_grad("flash_attention", normalise_first, q, k, v)
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, scale)
@@ -684,8 +727,10 @@ def flash_attention(q, k, v, scale: Optional[float] = None, normalise_first: boo
 
 
 flash_attention.launches = 0
-flash_attention.wgmma_launches = 0   # D = 64 and 512 in bf16
+flash_attention.dim_launches = collections.Counter()
+flash_attention.wgmma_launches = 0   # D = 64 and 512 in bf16 (D = 16 and 80 run mma.sync)
 flash_attention.normalised_launches = 0   # bf16 launches in the normalise-first mode
+flash_attention.normalised_dim_launches = collections.Counter()   # those by head dim
 
 
 # -- K13: bhld flash-attention backward ----------------------------------------
@@ -711,15 +756,16 @@ flash_attention_backward_reference.calls = 0
 def flash_attention_backward(q, k, v, out, lse, g, scale: Optional[float] = None):
     """K13: (dq, dk, dv) of K3 from its saved LSE, bhld [B, H, L, D] read and
     written through strides; two kernels, dq over key tiles and dk/dv over
-    query tiles, each the only writer of its outputs. D = 512 and 80; D = 64
-    runs K5 on the same strides (the JAX package routes every head dim through
-    the one packed backward). The plain version on CPU."""
+    query tiles, each the only writer of its outputs. D = 512 and 80; D = 16
+    and 64 run K5 on the same strides (the JAX package routes every head dim
+    through the one packed backward). The plain version on CPU."""
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, out, lse, g, scale)
     dtype = _check_bhld("flash_attention_backward", q, k, v)
     _cuda.check_cuda_tensors("flash_attention_backward", q, out, g)
     b, h, lq, d = q.shape
     lk = k.shape[2]
+    _check_head_dim("flash_attention_backward", "bhld", q.shape, d, backward=True)
     if out.shape != q.shape or g.shape != q.shape or lse.shape != (b, lq, h):
         raise ValueError(f"flash_attention_backward: bad shapes out {out.shape}, g {g.shape}, "
                          f"lse {lse.shape} for q {q.shape}")
@@ -729,7 +775,7 @@ def flash_attention_backward(q, k, v, out, lse, g, scale: Optional[float] = None
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
     strides = _cuda.strides_arg(q, k, v, out, g, dq, dk, dv, dims=(0, 2, 1))
     _check_bf16_rows("flash_attention_backward", dtype, strides, 15, q, k, v, out, g)
-    k5 = d == 64
+    k5 = d in (16, 64)
     route = _cuda.call_routed(
         "vs_flash_attention_packed_bwd" if k5 else "vs_flash_attention_bhld_bwd",
         _cuda.DTYPE_CODES[dtype], d,
@@ -740,11 +786,13 @@ def flash_attention_backward(q, k, v, out, lse, g, scale: Optional[float] = None
     )
     counter = flash_attention_packed_backward if k5 else flash_attention_backward
     counter.launches += 1
+    counter.dim_launches[d] += 1
     counter.wgmma_launches += route == "wgmma"
     return dq, dk, dv
 
 
 flash_attention_backward.launches = 0
+flash_attention_backward.dim_launches = collections.Counter()
 flash_attention_backward.wgmma_launches = 0   # bf16 D = 512, on the wgmma kernels
 
 
@@ -777,7 +825,7 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None, layout: str = 
         return small_batched_attention(q, k, v, scale=scale)
     if route == "mha_reference" and _runs_mha_reference("bhld", q, k, v):
         return mha_reference_site(q, k, v, scale=scale, layout="bhld")
-    _check_head_dim(f"'{route}' attention site", "bhld", q.shape, q.shape[-1])
+    _check_head_dim(f"'{route}' attention site", "bhld", q.shape, q.shape[-1], backward=_needs_grad(q, k, v))
     return flash_attention(q, k, v, scale=scale, normalise_first=route == "mha_reference")
 
 

@@ -2,7 +2,10 @@
 
 Counterpart of vidseg_diffusion_tpu/pipelines/single_video.py
 (run_single_video, :269-646) for its default flags: conditioning, VAE
-encode, add_noise, the feature/x_t pass with the q harvest, KMeans
+encode, add_noise (or, with inversion_type 'inversion', the DDIM inversion of
+the latent over all num_steps, :372-387), the feature/x_t pass with the q
+harvest (from step min(modulate_timestep), or from step 0 after an
+inversion), KMeans
 proto-masks, the 2*num_masks +/-lambda modulated runs with latent blending
 (each run decoded by the temporal VAE as soon as it finishes), uint8_wrap
 difference maps and the argmax; with is_injected_features the feature pass
@@ -32,9 +35,8 @@ resolution, `cluster_feature_hw`) replaces the clustering as in JAX
 args.seed; a caller (a parity test) can instead hand over, by keyword, the
 cond-aug noise, the add_noise noise and the kmeans initial centres JAX drew.
 
-Not ported yet: inversion_type 'inversion' (it raises NotImplementedError,
-see ROADMAP Queue A). The multi-device mesh and the host-RAM streaming of the
-JAX package are TPU workarounds and are not ported.
+The multi-device mesh and the host-RAM streaming of the JAX package are TPU
+workarounds and are not ported.
 """
 
 from __future__ import annotations
@@ -129,10 +131,7 @@ class VidSegResult:
 def _check_supported(args: VidSegArgs) -> None:
     if args.feature_extraction_mode not in ("kmeans_masks", "match_gt_mask"):
         raise ValueError(args.feature_extraction_mode)
-    if args.inversion_type == "inversion":
-        raise NotImplementedError("inversion_type='inversion' is not ported to the PyTorch package yet "
-                                  "(ROADMAP Queue A item 4)")
-    if args.inversion_type != "add_noise":
+    if args.inversion_type not in ("add_noise", "inversion"):
         raise ValueError(f"Invalid inversion type {args.inversion_type}")
 
 
@@ -290,13 +289,19 @@ def run_single_video(
         c, uc = {"crossattn": ctx}, {"crossattn": ctx}
     mark("conditioning")
 
-    # ---- steps 1+2: add_noise + feature/x_t pass ---------------------------
-    t_start_feat = min(args.modulate_timestep)
+    # ---- steps 1+2: add_noise or inversion + feature/x_t pass ---------------
+    # t_start: min(modulate_timestep) for add_noise, 0 for inversion (JAX :372-375)
+    t_start_feat = min(args.modulate_timestep) if args.inversion_type == "add_noise" else 0
     latent = fs.encode(frames_t, chunk=args.decoding_t)
     mark("encode")
-    eps = None if noise is None else torch.tensor(np.asarray(noise))
-    noised = engine.sampler.add_noise(latent, t_start_feat, noise=eps,
-                                      generator=_generator(args.seed, 2))
+    if args.inversion_type == "add_noise":
+        eps = None if noise is None else torch.tensor(np.asarray(noise))
+        noised = engine.sampler.add_noise(latent, t_start_feat, noise=eps,
+                                          generator=_generator(args.seed, 2))
+    else:
+        # the full inversion over the flipped schedule (JAX :380-383); its
+        # seconds count in "feature_pass", as in JAX
+        noised = engine.invert(c, uc, latent)
     x0, cache = engine.xt_cache_pass(c, uc, noised, t_start_feat)
     mark("feature_pass")
 
@@ -310,8 +315,9 @@ def run_single_video(
     if feat_t < cache_t0:
         raise ValueError(
             f"feature_timestep {feat_t} precedes the cache window start {cache_t0} "
-            "(= min(modulate_timestep)): the feature pass only runs steps >= t_start, "
-            "so features at earlier steps were never produced."
+            "(= min(modulate_timestep) for add_noise inversion): the feature pass only runs "
+            "steps >= t_start, so features at earlier steps were never produced. Use "
+            "feature_timestep >= min(modulate_timestep) or inversion_type='inversion'."
         )
     feats = [cache[HarvestSpec.name(b, "spatial_self", "q")][feat_t - cache_t0] for b in cluster_blocks]
     feat = aggregate_blocks(feats) if len(feats) > 1 else feats[0]

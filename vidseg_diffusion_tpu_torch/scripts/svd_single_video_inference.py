@@ -10,8 +10,10 @@ the CPU (fp32 by default). --is_injected_features caches the feature pass's
 temporal self-attention q/k on the device and injects them into the
 modulated runs. --feature_extraction_mode match_gt_mask needs --gt_mask_path,
 the first frame's GT label image, which loads nearest-resized to the
-clustering block's token grid. inversion_type 'inversion' is not ported yet
-and raises NotImplementedError.
+clustering block's token grid. --inversion_type inversion replaces add_noise
+by the DDIM inversion of the latents over all --num_steps (the feature pass
+then runs every step); the JAX package's CLI has no such flag and keeps
+add_noise, which stays the default here.
 """
 
 import argparse
@@ -45,6 +47,8 @@ def parse_args(argv=None):
     p.add_argument("--disable_latent_blending", default=False, action="store_true")
     p.add_argument("--is_refine_mask", default=False, action="store_true")
     p.add_argument("--is_aggre_attn", default=False, action="store_true")
+    p.add_argument("--inversion_type", type=str, default="add_noise", choices=["add_noise", "inversion"],
+                   help="noise the latents at min(modulate_timestep), or invert them over every step")
     p.add_argument("--model_config", type=str, default="configs/inference/svd.yaml")
     p.add_argument("--ckpt_path", type=str, default=None,
                    help="override the YAML ckpt_path; omit + missing file -> random weights")
@@ -97,7 +101,7 @@ def main(argv=None):
         gt_mask_path=args.gt_mask_path, is_injected_features=args.is_injected_features,
         is_latent_blending=not args.disable_latent_blending, is_refine_mask=args.is_refine_mask,
         is_aggre_attn=args.is_aggre_attn, feature_folder=args.feature_folder,
-        decoding_t=args.decoding_t,
+        decoding_t=args.decoding_t, inversion_type=args.inversion_type,
     )
     gt_mask = None
     if args.feature_extraction_mode == "match_gt_mask":
