@@ -2,7 +2,8 @@
 the card unless asked for the CPU, and its kernels never fall back.
 
 Importing every module of vidseg_diffusion_tpu_torch in a fresh interpreter,
-and reading its colour map, leaves jax, flax and every module of
+reading its colour map and tokenizing a prompt with its own copy of the tiny
+BPE vocabulary leaves jax, flax and every module of
 vidseg_diffusion_tpu out of sys.modules; no source line of the port or of
 chip_smoke.py names the JAX package in an import or an attribute path.
 Loading the kernel library where nvcc cannot be found raises a clear error
@@ -33,8 +34,12 @@ foreign = lambda: sorted(m for m in sys.modules
 after_import = foreign()
 from vidseg_diffusion_tpu_torch.engine.segmentation import soft_color_map
 palette = soft_color_map()
-print(json.dumps({"modules": names, "jax": after_import, "after_color_map": foreign(),
-                  "palette": list(palette.shape)}))
+after_color_map = foreign()
+from vidseg_diffusion_tpu_torch.io.tokenizer import TINY_VOCAB, tokenize
+tokens = tokenize(["a photo of a cat"], bpe_path=TINY_VOCAB)
+print(json.dumps({"modules": names, "jax": after_import, "after_color_map": after_color_map,
+                  "palette": list(palette.shape), "after_tokenize": foreign(),
+                  "tokens": tokens[0, :8].tolist(), "vocab": TINY_VOCAB}))
 """
 
 
@@ -53,10 +58,14 @@ def test_port_imports_no_jax():
                 "diffusion.guidance", "models.conditioner", "models.lpips", "models.regularizers",
                 "scripts.autoencoder_train_path", "scripts.time_kernels", "ops.knn", "ops.matching",
                 "engine.masks", "eval.metrics", "pipelines.vspw", "scripts.svd_pipeline_vspw",
-                "scripts.sd_pipeline_vspw"}
+                "scripts.sd_pipeline_vspw", "diffusion.sampling", "diffusion.sampling_extra",
+                "diffusion.scaling", "inference.api", "scripts.api_path"}
     assert expected <= {m.split(".", 1)[1] for m in res["modules"]}
     assert res["jax"] == []
     assert res["after_color_map"] == [] and res["palette"] == [128, 3]
+    # a prompt tokenized with the port's own copy of the tiny vocabulary
+    assert res["after_tokenize"] == [] and res["tokens"][0] != 0 and 0 not in res["tokens"][:5]
+    assert res["vocab"].startswith(os.path.join(ROOT, "vidseg_diffusion_tpu_torch", "assets"))
 
 
 def test_port_sources_do_not_name_the_jax_package():
@@ -78,8 +87,8 @@ def test_port_sources_do_not_name_the_jax_package():
 
 def test_entry_points_default_to_the_card():
     """build_pipeline, the CLIs (single video and both VSPW sweeps) and the
-    full-width path scripts (SVD, SD 2.1, diffusion and autoencoder training)
-    run on cuda unless the caller asks for the CPU; without a card the
+    full-width path scripts (SVD, SD 2.1, diffusion and autoencoder training,
+    the sampling API's) run on cuda unless the caller asks for the CPU; without a card the
     default raises instead of falling back."""
     import inspect
 
@@ -88,10 +97,10 @@ def test_entry_points_default_to_the_card():
     from vidseg_diffusion_tpu_torch.engine.build import build_pipeline
     from vidseg_diffusion_tpu_torch.scripts import svd_single_video_inference as cli
     from vidseg_diffusion_tpu_torch.scripts import autoencoder_train_path, main_path, sd_path, train_path
-    from vidseg_diffusion_tpu_torch.scripts import sd_pipeline_vspw, svd_pipeline_vspw
+    from vidseg_diffusion_tpu_torch.scripts import api_path, sd_pipeline_vspw, svd_pipeline_vspw
 
     assert inspect.signature(build_pipeline).parameters["device"].default == "cuda"
-    for script in (main_path, sd_path, autoencoder_train_path):
+    for script in (main_path, sd_path, autoencoder_train_path, api_path):
         assert inspect.signature(script.build).parameters["device"].default == "cuda"
     for fn in (autoencoder_train_path.batch, autoencoder_train_path.noise_generator):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -106,6 +115,8 @@ def test_entry_points_default_to_the_card():
             build_pipeline(os.path.join(ROOT, "configs/inference/svd_tiny.yaml"), num_steps=2, num_frames=2)
         with pytest.raises((RuntimeError, AssertionError)):
             build_pipeline(os.path.join(ROOT, "configs/inference/sd_tiny.yaml"), num_steps=2, num_frames=2)
+        with pytest.raises((RuntimeError, AssertionError)):   # the sampling API's full-width stack
+            build_pipeline(os.path.join(ROOT, "configs/inference/sd_xl_base.yaml"))
 
 
 def test_kernel_library_without_nvcc_raises(monkeypatch, tmp_path):

@@ -1,7 +1,8 @@
 """Classifier-free-guidance guiders (PyTorch) of
 vidseg_diffusion_tpu/diffusion/guidance.py: LinearPredictionGuider, per-frame
-CFG scale linspace(min, max, T) (SVD; guiders.py:60-100), and VanillaCFG, one
-scale (SD 2.1; guiders.py:24-42).
+CFG scale linspace(min, max, T) (SVD; guiders.py:60-100), VanillaCFG, one
+scale (SD 2.1, SDXL; guiders.py:24-42), and IdentityGuider, no guidance
+(guiders.py:45-57).
 
 The batch contract is the reference's and the VidSeg modulation depends on
 it: `prepare_inputs` doubles the batch as [uc; c] on axis 0 and `__call__`
@@ -33,6 +34,17 @@ class VanillaCFG:
     def __call__(self, x: torch.Tensor, sigma) -> torch.Tensor:
         x_u, x_c = x.chunk(2, dim=0)
         return x_u + self.scale * (x_c - x_u)
+
+
+@dataclasses.dataclass(frozen=True)
+class IdentityGuider:
+    """No guidance: the batch is not doubled."""
+
+    def prepare_inputs(self, x, s, c, uc) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+        return x, s, dict(c)
+
+    def __call__(self, x: torch.Tensor, sigma) -> torch.Tensor:
+        return x
 
 
 @dataclasses.dataclass(frozen=True)

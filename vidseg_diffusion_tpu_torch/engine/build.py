@@ -1,12 +1,16 @@
-"""Assemble a model stack (SVD or SD 2.1) from a YAML and a checkpoint or a
-seed.
+"""Assemble a model stack (SVD, SD 2.1, SDXL base or refiner) from a YAML and
+a checkpoint or a seed.
 
 Counterpart of vidseg_diffusion_tpu/engine/build.py (Pipeline,
-build_pipeline): the SVD stack is the video UNet, the VAE with the temporal
-decoder, the OpenCLIP image tower and the conditioning-frame encoder; the SD
-2.1 stack is the image UNet, the VAE with the image decoder and the OpenCLIP
-text tower. With a checkpoint, the sgm state dict loads straight into the
-modules (their names are the sgm keys; the open_clip in_proj is split).
+build_pipeline, :352-430 for SDXL): the SVD stack is the video UNet, the VAE
+with the temporal decoder, the OpenCLIP image tower and the
+conditioning-frame encoder; the SD 2.1 stack is the image UNet, the VAE with
+the image decoder and the OpenCLIP text tower; the SDXL base adds to the
+image UNet (per-level depth, a class embedding) the HF CLIP-L tower and the
+pooled bigG tower, the refiner the bigG tower alone. `Pipeline.conditioner`
+is the stack's conditioner and `kind` names it. With a checkpoint, the sgm
+state dict loads straight into the modules (their names are the sgm keys;
+the open_clip in_proj is split; CLIP-L keeps HF's names).
 Without one, weights are random from a seed
 and scaled as the JAX package's _synthesize_params scales them
 (build.py:62-99): every parameter of rank <= 1 (biases, norm scales, mix
@@ -33,9 +37,16 @@ from vidseg_diffusion_tpu_torch.io.convert import split_packed_qkv
 from vidseg_diffusion_tpu_torch.models.clip import (
     CLIPTextTransformer,
     CLIPVisionTransformer,
+    HFCLIPTextTransformer,
     clip_preprocess,
 )
-from vidseg_diffusion_tpu_torch.models.conditioner import build_svd_conditioner
+from vidseg_diffusion_tpu_torch.models.conditioner import (
+    Conditioner,
+    build_sd_text_conditioner,
+    build_sdxl_conditioner,
+    build_sdxl_refiner_conditioner,
+    build_svd_conditioner,
+)
 from vidseg_diffusion_tpu_torch.models.layers import Conv2dNHWC
 from vidseg_diffusion_tpu_torch.models.unet import UNetModel
 from vidseg_diffusion_tpu_torch.models.vae import Decoder, Encoder, gaussian_sample
@@ -78,8 +89,9 @@ def _sub(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
 
 @dataclasses.dataclass
 class Pipeline:
-    """A model stack on one device, ready for run_single_video: `clip` and
-    `cond_encoder` are the SVD conditioner's towers, `text` the SD 2.1 one."""
+    """A model stack on one device: `clip` and `cond_encoder` are the SVD
+    conditioner's towers, `text` SD 2.1's, `text_l` and `text_g` SDXL's
+    (the refiner has text_g alone); `conditioner` runs them."""
 
     spec: ModelSpec
     unet: UNetModel
@@ -88,6 +100,14 @@ class Pipeline:
     cond_encoder: Optional[Encoder]
     device: torch.device
     text: Optional[CLIPTextTransformer] = None
+    text_l: Optional[HFCLIPTextTransformer] = None
+    text_g: Optional[CLIPTextTransformer] = None
+    conditioner: Optional[Conditioner] = None
+
+    @property
+    def kind(self) -> str:
+        """'svd', 'sd_text', 'sdxl' or 'sdxl_refiner'."""
+        return self.spec.kind
 
     def make_engine(self, mod_cfg: ModulationConfig, harvest: HarvestSpec) -> VidSegEngine:
         return VidSegEngine(self.unet, self.spec.denoiser, self.spec.sampler,
@@ -103,10 +123,6 @@ class Pipeline:
         repeated per frame."""
         dev = self.device
         image = image.to(dev)
-        conditioner = build_svd_conditioner(
-            lambda f: self.clip(clip_preprocess(f)),
-            lambda f: gaussian_sample(self.cond_encoder(f)),
-        )
         batch = {
             "cond_frames_without_noise": image,
             "cond_frames": image + cond_aug * cond_aug_noise.to(dev),
@@ -114,7 +130,7 @@ class Pipeline:
             "motion_bucket_id": torch.tensor([motion_bucket_id], device=dev),
             "cond_aug": torch.tensor([cond_aug], device=dev),
         }
-        c, uc = conditioner.get_unconditional_conditioning(
+        c, uc = self.conditioner.get_unconditional_conditioning(
             batch, force_uc_zero_embeddings=["cond_frames", "cond_frames_without_noise"]
         )
         rep = lambda d: {k: torch.repeat_interleave(v, t, dim=0) for k, v in d.items()}
@@ -124,6 +140,33 @@ class Pipeline:
     def clip_apply(self, tokens) -> torch.Tensor:
         """SD 2.1 text conditioning: token ids [b, 77] -> [b, 77, width]."""
         return self.text(torch.as_tensor(tokens).to(self.device))
+
+
+def _towers(spec: ModelSpec):
+    """{Pipeline field: (module, checkpoint prefix)} of the conditioner's
+    towers (the SVD conditioning-frame encoder apart)."""
+    if spec.kind == "svd":
+        return {"clip": (CLIPVisionTransformer(spec.clip_config), "conditioner.embedders.0.open_clip.model.visual.")}
+    if spec.kind == "sd_text":
+        return {"text": (CLIPTextTransformer(spec.text_config, penultimate=spec.text_penultimate),
+                         "conditioner.embedders.0.model.")}
+    g = CLIPTextTransformer(spec.text_g_config, return_pooled=True)
+    if spec.kind == "sdxl_refiner":
+        return {"text_g": (g, "conditioner.embedders.0.model.")}
+    return {"text_l": (HFCLIPTextTransformer(spec.text_l_config, spec.text_l_layer_idx),
+                       "conditioner.embedders.0.transformer."),
+            "text_g": (g, "conditioner.embedders.1.model.")}
+
+
+def _conditioner(pipe: Pipeline) -> Conditioner:
+    if pipe.kind == "svd":
+        return build_svd_conditioner(lambda f: pipe.clip(clip_preprocess(f)),
+                                     lambda f: gaussian_sample(pipe.cond_encoder(f)))
+    if pipe.kind == "sd_text":
+        return build_sd_text_conditioner(pipe.text)
+    if pipe.kind == "sdxl_refiner":
+        return build_sdxl_refiner_conditioner(pipe.text_g, pipe.spec.size_outdim)
+    return build_sdxl_conditioner(pipe.text_l, pipe.text_g, pipe.spec.size_outdim)
 
 
 def build_pipeline(config_path: str, ckpt_path: Optional[str] = None,
@@ -136,16 +179,19 @@ def build_pipeline(config_path: str, ckpt_path: Optional[str] = None,
     raises."""
     device = torch.device(device)
     spec = load_model_spec(config_path, num_steps=num_steps, num_frames=num_frames, dtype=dtype)
-    video = spec.unet_config.video
-    unet = UNetModel(spec.unet_config)
-    enc, dec = Encoder(spec.vae_config), Decoder(spec.vae_config)
-    if video:
-        tower, cond_enc = CLIPVisionTransformer(spec.clip_config), Encoder(spec.vae_config)
-        tower_prefix = "conditioner.embedders.0.open_clip.model.visual."
-    else:
-        tower, cond_enc = CLIPTextTransformer(spec.text_config), None
-        tower_prefix = "conditioner.embedders.0.model."
-    modules = [unet, enc, dec, tower] + ([cond_enc] if video else [])
+    video = spec.kind == "svd"
+    # built without storage, then given uninitialised storage on the device: the
+    # checkpoint or randomize_ writes every parameter (the modules hold no
+    # buffers), so no default initialisation runs and no full-width stack passes
+    # through host memory
+    with torch.device("meta"):
+        unet = UNetModel(spec.unet_config)
+        enc, dec = Encoder(spec.vae_config), Decoder(spec.vae_config)
+        towers = _towers(spec)
+        cond_enc = Encoder(spec.vae_config) if video else None
+    modules = [unet, enc, dec] + [m for m, _ in towers.values()] + ([cond_enc] if video else [])
+    for m in modules:
+        m.to_empty(device=device)
     quant = post_quant = None
 
     if ckpt_path is not None and not os.path.exists(ckpt_path):
@@ -156,11 +202,12 @@ def build_pipeline(config_path: str, ckpt_path: Optional[str] = None,
         unet.load_state_dict(_sub(sd, "model.diffusion_model."))
         enc.load_state_dict(_sub(sd, "first_stage_model.encoder."))
         dec.load_state_dict(_sub(sd, "first_stage_model.decoder."))
-        tower_sd = split_packed_qkv(_sub(sd, tower_prefix))
-        # the checkpoint also holds what the tower never runs (the text tower's
-        # last block, text_projection, attn_mask): every key the tower has must
-        # be there, the rest is left unused
-        tower.load_state_dict({k: tower_sd[k] for k in tower.state_dict()})
+        for tower, prefix in towers.values():
+            tower_sd = split_packed_qkv(_sub(sd, prefix))
+            # the checkpoint also holds what a tower never runs (the layers past
+            # the one it reads, the final norms it skips, attn_mask, position_ids):
+            # every key the tower has must be there, the rest is left unused
+            tower.load_state_dict({k: tower_sd[k] for k in tower.state_dict()})
         if video:
             cond_sd = _sub(sd, "conditioner.embedders.3.encoder.encoder.")
             cond_enc.load_state_dict(cond_sd or enc.state_dict())
@@ -175,7 +222,7 @@ def build_pipeline(config_path: str, ckpt_path: Optional[str] = None,
             m.to(device=device, dtype=dtype)
     else:
         gen = torch.Generator(device=device)
-        for i, m in enumerate((unet, enc, dec, tower)):
+        for i, m in enumerate([unet, enc, dec] + [m for m, _ in towers.values()]):
             m.to(device=device)
             randomize_(m, gen.manual_seed(seed * 1000 + i + 1))
             m.to(dtype=dtype)
@@ -187,9 +234,10 @@ def build_pipeline(config_path: str, ckpt_path: Optional[str] = None,
     for m in modules:
         m.eval().requires_grad_(False)
     first_stage = FirstStage(enc, dec, spec.scale_factor, quant, post_quant)
-    if video:
-        return Pipeline(spec, unet, first_stage, tower, cond_enc, device)
-    return Pipeline(spec, unet, first_stage, None, None, device, text=tower)
+    pipe = Pipeline(spec, unet, first_stage, towers.pop("clip", (None,))[0], cond_enc, device,
+                    **{name: m for name, (m, _) in towers.items()})
+    pipe.conditioner = _conditioner(pipe)
+    return pipe
 
 
 def build_pipeline_from_args(args, num_frames: int) -> Pipeline:

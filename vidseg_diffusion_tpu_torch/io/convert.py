@@ -3,8 +3,8 @@
 The port's modules carry the reference's sgm / open_clip state-dict key
 names, the names the JAX package's io/checkpoint.py key functions map its
 flax paths to. This module holds those key functions (unet, image or video;
-vae, image or video decoder; clip vision; clip text: the same rules, without
-the JAX package's jax imports; the VAE's also names the VideoAttnBlock's
+vae, image or video decoder; clip vision; clip text, open_clip and HF CLIP-L
+(hf_clip_text_key_fn): the same rules, without the JAX package's jax imports; the VAE's also names the VideoAttnBlock's
 parameters as the reference does, which the JAX package's does not) and
 turns a flax parameter tree (nested dicts of numpy arrays) into a state dict
 for the port. The autoencoder-training losses (LPIPS with its VGG16 trunk,
@@ -142,9 +142,27 @@ def clip_vision_key_fn(path: Path) -> str:
             segs.append("mlp." + p.split("_", 1)[1])
         else:
             segs.append(p)
-    if leaf in ("positional_embedding", "class_embedding", "proj"):
+    if leaf in ("positional_embedding", "class_embedding", "proj", "text_projection"):
         return "visual." + ".".join(segs + [leaf])
     return "visual." + ".".join(segs + [{"kernel": "weight", "scale": "weight", "bias": "bias"}[leaf]])
+
+
+_HF_LAYER = {"ln_1": "layer_norm1", "ln_2": "layer_norm2", "attn_q": "self_attn.q_proj",
+             "attn_k": "self_attn.k_proj", "attn_v": "self_attn.v_proj", "attn_out": "self_attn.out_proj",
+             "mlp_c_fc": "mlp.fc1", "mlp_c_proj": "mlp.fc2", "ln_final": "text_model.final_layer_norm"}
+
+
+def hf_clip_text_key_fn(path: Path) -> str:
+    """flax path -> HF CLIPTextModel key of the SDXL CLIP-L tower (the
+    checkpoint's conditioner.embedders.0.transformer.*)."""
+    leaf = path[-1]
+    if leaf == "token_embedding":
+        return "text_model.embeddings.token_embedding.weight"
+    if leaf == "positional_embedding":
+        return "text_model.embeddings.position_embedding.weight"
+    segs = ["text_model.encoder.layers." + p[len("resblocks_"):] if p.startswith("resblocks_") else _HF_LAYER[p]
+            for p in path[:-1]]
+    return ".".join(segs + [_LEAF[leaf]])
 
 
 def autoencoder_loss_key_fn(path: Path) -> str:

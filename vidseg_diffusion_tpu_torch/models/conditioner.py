@@ -1,20 +1,22 @@
 """Conditioner: embedders routed to vector / crossattn / concat (PyTorch).
 
-Counterpart of vidseg_diffusion_tpu/models/conditioner.py for the SVD
-conditioner (configs/inference/svd.yaml conditioner_config): the CLIP image
-embedding of the first frame -> crossattn [b, 1, 1024]; sinusoidal
-embeddings of fps_id, motion_bucket_id and cond_aug -> vector [b, 768];
-the VAE mode-encoding of the noised first frame -> concat [b, h, w, 4].
-Outputs route by rank (2 -> vector, 3 -> crossattn, 4 -> concat) and
-`get_unconditional_conditioning` zeroes the outputs of the force-zero keys.
-The SD 2.1 conditioner (configs/inference/sd_2_1.yaml) is one OpenCLIP text
-embedder: token ids -> crossattn [b, 77, 1024].
+Counterpart of vidseg_diffusion_tpu/models/conditioner.py (:62-99,
+:171-244): the SVD conditioner (configs/inference/svd.yaml: the CLIP image
+embedding of the first frame -> crossattn [b, 1, 1024]; sinusoidal embeddings
+of fps_id, motion_bucket_id and cond_aug -> vector [b, 768]; the VAE
+mode-encoding of the noised first frame -> concat [b, h, w, 4]); SD 2.1's one
+OpenCLIP text embedder (token ids -> crossattn [b, 77, 1024]); SDXL's base
+(CLIP-L 768 | bigG 1280 -> crossattn 2048; vector = bigG pooled 1280 | orig
+512 | crop 512 | target 512 = 2816) and refiner (bigG only -> crossattn 1280;
+vector = pooled 1280 | orig | crop | aesthetic 256 = 2560). An embedder may
+emit several outputs (bigG: hidden and pooled). Outputs route by rank (2 ->
+vector, 3 -> crossattn, 4 -> concat) and concatenate in embedder order.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,27 +40,54 @@ def concat_timestep_embedder(x: torch.Tensor, outdim: int = 256) -> torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class EmbedderSpec:
     input_key: str
-    fn: Callable[[torch.Tensor], torch.Tensor]
+    fn: Callable
+
+
+def _outputs(spec: EmbedderSpec, value) -> Tuple[torch.Tensor, ...]:
+    out = spec.fn(value)
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+def _route(out: Batch, emb: torch.Tensor) -> None:
+    key = _DIM2KEY[emb.dim()]
+    out[key] = torch.cat([out[key], emb], dim=_KEY2DIM[key]) if key in out else emb
 
 
 @dataclasses.dataclass(frozen=True)
 class Conditioner:
     embedders: Tuple[EmbedderSpec, ...]
 
-    def get_unconditional_conditioning(self, batch: Batch,
-                                       force_uc_zero_embeddings: Sequence[str] = ()):
-        """(c, uc) for one batch. Each embedder runs once; uc takes zeros for
-        the force-zero keys (eager PyTorch would otherwise run the CLIP tower
-        and the VAE encoder a second time only to zero their output)."""
+    def get_unconditional_conditioning(self, batch_c: Batch, batch_uc: Optional[Batch] = None,
+                                       force_uc_zero_embeddings: Sequence[str] = (),
+                                       force_cond_zero_embeddings: Sequence[str] = ()):
+        """(c, uc): c from batch_c, uc from batch_uc (default batch_c), each
+        with the outputs of its force-zero keys zeroed (modules.py:154-184).
+        An embedder runs once for both where uc reads the same value as c or
+        zeroes it (eager PyTorch would otherwise run a tower a second time
+        only to zero its output); where uc reads another value (the
+        refiner's negative prompt and aesthetic score) it runs on each."""
+        batch_uc = batch_c if batch_uc is None else batch_uc
         c: Batch = {}
         uc: Batch = {}
         for spec in self.embedders:
-            emb = spec.fn(batch[spec.input_key])
-            key = _DIM2KEY[emb.dim()]
-            uc_emb = torch.zeros_like(emb) if spec.input_key in force_uc_zero_embeddings else emb
-            for out, e in ((c, emb), (uc, uc_emb)):
-                out[key] = torch.cat([out[key], e], dim=_KEY2DIM[key]) if key in out else e
+            key = spec.input_key
+            embs = _outputs(spec, batch_c[key])
+            if key in force_uc_zero_embeddings:
+                uc_embs = tuple(torch.zeros_like(e) for e in embs)
+            elif batch_uc[key] is batch_c[key]:
+                uc_embs = embs
+            else:
+                uc_embs = _outputs(spec, batch_uc[key])
+            if key in force_cond_zero_embeddings:
+                embs = tuple(torch.zeros_like(e) for e in embs)
+            for e, u in zip(embs, uc_embs):
+                _route(c, e)
+                _route(uc, u)
         return c, uc
+
+
+def _sizes(names: Sequence[str], outdim: int) -> Tuple[EmbedderSpec, ...]:
+    return tuple(EmbedderSpec(n, lambda v: concat_timestep_embedder(v, outdim)) for n in names)
 
 
 def build_svd_conditioner(
@@ -79,3 +108,19 @@ def build_svd_conditioner(
 def build_sd_text_conditioner(clip_text_fn: Callable[[torch.Tensor], torch.Tensor]) -> Conditioner:
     """clip_text_fn: token ids [b, 77] -> hidden states [b, 77, 1024]."""
     return Conditioner(embedders=(EmbedderSpec("txt_tokens", clip_text_fn),))
+
+
+def build_sdxl_conditioner(clip_l_fn: Callable, clip_g_fn: Callable, size_outdim: int = 256) -> Conditioner:
+    """SDXL base (sd_xl_base.yaml:35-73). clip_l_fn: tokens -> [b, 77, 768];
+    clip_g_fn: tokens -> ([b, 77, 1280], pooled [b, 1280]); both read the
+    same tokens."""
+    return Conditioner(embedders=(
+        EmbedderSpec("txt_tokens", clip_l_fn), EmbedderSpec("txt_tokens", clip_g_fn),
+    ) + _sizes(("original_size_as_tuple", "crop_coords_top_left", "target_size_as_tuple"), size_outdim))
+
+
+def build_sdxl_refiner_conditioner(clip_g_fn: Callable, size_outdim: int = 256) -> Conditioner:
+    """SDXL refiner (sd_xl_refiner.yaml:36-63): bigG only, the target-size
+    embedder replaced by the aesthetic score's."""
+    return Conditioner(embedders=(EmbedderSpec("txt_tokens", clip_g_fn),)
+                       + _sizes(("original_size_as_tuple", "crop_coords_top_left", "aesthetic_score"), size_outdim))

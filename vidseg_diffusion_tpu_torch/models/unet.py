@@ -1,5 +1,5 @@
 """The diffusion UNets (PyTorch), channels-last: the SVD video UNet and the
-SD 2.1 image UNet.
+image UNet (SD 2.1, the SDXL base and refiner).
 
 Counterpart of vidseg_diffusion_tpu/models/unet.py: ResBlock, TemporalConv,
 TemporalResBlock3D, VideoResBlock and UNetModel with the VidSeg hooks
@@ -7,9 +7,11 @@ TemporalResBlock3D, VideoResBlock and UNetModel with the VidSeg hooks
 `UNetConfig.video` the blocks are VideoResBlock + SpatialVideoTransformer on
 video tensors [(b t), H, W, C], the temporal (kt,1,1) convolutions running on
 [b, t, H*W, C] through K4 on CUDA; without it they are plain ResBlock +
-SpatialTransformer, every frame an image of the batch, and there is no class
-embedding (adm_in_channels None). The two 3x3 convolutions of every ResBlock
-go through conv3x3_same (K12 on CUDA). The block topology is built from the
+SpatialTransformer, every frame an image of the batch, with a class
+embedding where adm_in_channels is set (SDXL: 2816 base, 2560 refiner).
+`transformer_depth` is one depth or one per level (SDXL [1, 2, 10]; the
+middle block takes the last level's). The two 3x3 convolutions of every
+ResBlock go through conv3x3_same (K12 on CUDA). The block topology is built from the
 config exactly as the reference's constructor loops build it, so module
 names are the sgm state-dict keys (input_blocks.{i}.{j}, middle_block,
 output_blocks, out).
@@ -23,7 +25,7 @@ kept. Inference (no grad) and blocks with VidSeg hooks run as they are.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -73,7 +75,8 @@ class UNetConfig:
     attention_resolutions: Tuple[int, ...] = (4, 2, 1)
     channel_mult: Tuple[int, ...] = (1, 2, 4, 4)
     num_head_channels: int = 64
-    transformer_depth: int = 1
+    # int (every level) or one depth per level: SDXL's [1, 2, 10]
+    transformer_depth: Union[int, Tuple[int, ...]] = 1
     context_dim: int = 1024
     adm_in_channels: Optional[int] = 768
     video: bool = True
@@ -84,6 +87,10 @@ class UNetConfig:
     # per-block activation recompute in the backward (use_checkpoint; the
     # JAX package's nn.remat with the default full-recompute policy)
     remat: bool = False
+
+    def depth_for_level(self, level: int) -> int:
+        td = self.transformer_depth
+        return td[level] if isinstance(td, (tuple, list)) else td
 
     def block_layout(self):
         """Per input/output block (kind, ch, ds, attn, ...), reproducing the
@@ -250,14 +257,14 @@ class UNetModel(nn.Module):
             return VideoResBlock(cin, cout, emb_dim, cfg.merge_factor, cfg.merge_strategy,
                                  tuple(cfg.video_kernel_size))
 
-        def attn(ch):
+        def attn(ch, level):
             heads = ch // cfg.num_head_channels
+            depth = cfg.depth_for_level(level)
             if not cfg.video:
-                return SpatialTransformer(ch, heads, cfg.num_head_channels, cfg.context_dim,
-                                          depth=cfg.transformer_depth)
+                return SpatialTransformer(ch, heads, cfg.num_head_channels, cfg.context_dim, depth=depth)
             return SpatialVideoTransformer(
                 ch, heads, cfg.num_head_channels, cfg.context_dim,
-                depth=cfg.transformer_depth, merge_factor=cfg.merge_factor,
+                depth=depth, merge_factor=cfg.merge_factor,
                 merge_strategy=cfg.merge_strategy,
             )
 
@@ -272,15 +279,16 @@ class UNetModel(nn.Module):
                 mods = [res(ch, spec["ch"])]
                 ch = spec["ch"]
                 if spec.get("attn"):
-                    mods.append(attn(ch))
+                    mods.append(attn(ch, spec["level"]))
             self.input_blocks.append(nn.ModuleList(mods))
-        self.middle_block = nn.ModuleList([res(ch, ch), attn(ch), res(ch, ch)])
+        # the middle block takes the last level's depth
+        self.middle_block = nn.ModuleList([res(ch, ch), attn(ch, middle["level"]), res(ch, ch)])
         self.output_blocks = nn.ModuleList()
         for spec in output_layout:
             mods = [res(ch + spec["skip_ch"], spec["ch"])]
             ch = spec["ch"]
             if spec.get("attn"):
-                mods.append(attn(ch))
+                mods.append(attn(ch, spec["level"]))
             if spec.get("up"):
                 mods.append(Upsample(ch))
             self.output_blocks.append(nn.ModuleList(mods))

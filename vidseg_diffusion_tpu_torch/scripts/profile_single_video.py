@@ -1,6 +1,6 @@
 """Where the time goes in the port's main path on one CUDA card.
 
-    python3 -m vidseg_diffusion_tpu_torch.scripts.profile_single_video [--injected | --sd]
+    python3 -m vidseg_diffusion_tpu_torch.scripts.profile_single_video [--injected | --sd | --sdxl]
 
 Runs the main path of scripts/main_path.py (the run chip_smoke.py checks:
 svd.yaml at full width, random bf16 weights, 14 synthetic 448x832 frames)
@@ -16,7 +16,9 @@ attention projections and the ResBlock 3x3 convolutions are kernels of csrc/
 (K11 matmul_bias, K12 conv3x3): the linear and Conv2dNHWC ranges hold only the
 sites that stayed library calls, and Conv3x3 the re-laying of K12's weights.
 With --injected it profiles the is_injected_features configuration, with --sd
-the SD 2.1 path of scripts/sd_path.py.
+the SD 2.1 path of scripts/sd_path.py, with --sdxl the sampling API's
+text_to_image on the SDXL base of scripts/api_path.py (1024x1024, 40 Euler
+steps; its wall time also measured once without the profiler).
 """
 
 import json
@@ -118,6 +120,8 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_single_video needs a CUDA card")
+    if "--sdxl" in sys.argv[1:]:
+        return profile_sdxl(torch, profile, ProfilerActivity)
     injected, sd = "--injected" in sys.argv[1:], "--sd" in sys.argv[1:]
     print(card_line(), "| is_injected_features", injected, "| sd_2_1", sd, flush=True)
     if sd:
@@ -137,6 +141,27 @@ def main():
     print("profiled stages_s", json.dumps({k: round(v, 3) for k, v in stages.items()}), flush=True)
 
     print(device_time_report(prof, wall))
+    print(glue_split(prof))
+
+
+def profile_sdxl(torch, profile, ProfilerActivity):
+    from vidseg_diffusion_tpu_torch.scripts import api_path
+
+    print(card_line(), "| SDXL base text_to_image 1024x1024, 40 steps", flush=True)
+    api, tokens, params = api_path.build("configs/inference/sd_xl_base.yaml"), api_path.tokens(), api_path.sdxl_params()
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.text_to_image(params, tokens, generator=torch.Generator(device="cuda").manual_seed(3))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run()   # warm-up
+    unprofiled = run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = run()
+    print(device_time_report(prof, wall, unprofiled_wall=unprofiled))
     print(glue_split(prof))
 
 
