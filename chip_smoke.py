@@ -179,6 +179,32 @@ Phases, in order; any failure exits non-zero:
    each of the six samplers for 3 steps through text_to_image and the refiner,
    card (kernels, all on their FMA routes) vs CPU (plain versions) on the same
    weights and noise: latents and images within API_FP32_TOL of max |CPU|.
+23. api_t5 (after api_fp32): sd_2_1.yaml's UNet (context_dim 4096) under a
+   T5 v1.1-XXL encoder at full width (scripts/t5_path.py; random bf16 weights,
+   the YAML written to a temp dir): text_to_image at 512x512, 25 Euler steps,
+   CFG 5, on 77 seeded ids; seconds per image, of the two T5 passes and per
+   UNet call (CUDA events), peak memory, without the call-counting hook; one
+   T5 pass's device time as a CUDA graph's replay (its idle share); then with
+   the hook: the decode finite before the clamp, launches by kernel and route
+   as the module calls imply, the normalise-first K1 at the 10 77-key sites
+   of 4096 and 1024 queries per UNet call, the short walk at 256 and 64. Then
+   a tiny T5 in fp32 card vs CPU (T5_FP32_TOL) and the class-conditioned tiny
+   config's conditioner card vs CPU.
+24. demo: scripts/demo/serve.py's DemoApp on sd_2_1.yaml at 512x512 served on
+   127.0.0.1 in a thread: GET / and /health, a txt2img and an img2img POST
+   (25 steps; strength 0.75 on a PNG under --init-root), each timed without
+   the call-counting hook and sent again under it for its launches, each PNG
+   within DEMO_PNG_LEVELS of the SamplingPipeline's image for the same seed, an init
+   path escaping the root answered by JSON 500 (PermissionError); then a
+   DemoApp on svd.yaml, one img2vid POST at 1024x576 x 14 frames returning a
+   14-frame GIF; each request's launches; seconds per request.
+25. safety: SafetyFilter with a CLIP ViT-L/14 tower (random bf16) on the demo's
+   two images, synthetic heads (one flags every frame): K3's normalise-first
+   mode at D = 64 only, features / logits / flags / blurred frames held to the
+   same tower in fp32 on the CPU; embed_watermark on a 512x512 image, 48 of 48
+   bits decoded; frechet_distance in float64 on the card for two seeded 2048 x
+   1024 populations vs scipy's sqrtm (FID_RTOL); prefetch_to_device onto the
+   card in order; utils/profiling.trace naming a K1 kernel.
 The kernel phase also holds the instances at the head dims the tuned kernels
 are not built for (D = 16: K1, K2, K3, K5, K6, K13; one 512-dim head: K1, K2)
 against their plain versions in bf16 and fp32, and the normalise-first mode
@@ -189,13 +215,14 @@ of its path and in the other runs (injected, SD, diffusion training,
 autoencoder training, the SVD and SD sweeps summed over their windows, the
 inversion run, the two VideoDecoder decodes summed, the tiny run, and the
 sampling API's runs: api_launches (api_sdxl's runs summed), img2vid_launches,
-nti_launches; a head-dim
+nti_launches; t5_launches,
+demo_launches (its three requests summed), safety_launches; a head-dim
 instance's at its D, its `path` naming the run of its `launches`), for
 K1-K6, K11 and K13 the launches of each run by the kernel that ran
 (`routes`), worst error, kernel, plain, bound and library-call ms at its
 headline shape; the normalise-first kernels of K1 and K3 as entries of their
 own at each D (D = 64 and 80: their path the SD run and the main run; D =
-16: K3's the tiny run), counted apart from the other launches at that D; K5 also
+16: K3's the tiny run; K3 at D = 64: the safety run), counted apart from the other launches at that D; K5 also
 at the training batch) and the card's name and power limit; the last line
 is {"ok": true, "device": ...}.
 """
@@ -299,6 +326,9 @@ KERNELS = {
 # tiny config's K3 launches at D = 16 are its CLIP tower's, all normalise-first
 _CSRC, _JAX = "vidseg_diffusion_tpu_torch/csrc/", "vidseg_diffusion_tpu/ops/attention.py:"
 for _name, _id, _src, _line, _tol, _wrapper, _dim, _path in (
+    # the safety filter's CLIP ViT-L/14 (64-dim heads, 257 tokens), K3's normalise-first mode at D = 64
+    ("flash_attention_normalised_d64", "K3 normalise-first D=64", "flash_attention.cu", 75, 4e-3, "flash_attention",
+     64, "safety"),
     ("flash_attention_packed_d16", "K1 D=16", "flash_attention.cu", 527, 4e-3, "flash_attention_packed", 16, "tiny"),
     ("temporal_attention_direct_d16", "K2 D=16", "temporal_attention.cu", 1458, 1e-3, "temporal_attention_direct", 16,
      "tiny"),
@@ -424,6 +454,7 @@ HEADLINE = {  # the shape of its path each kernel is timed at
     "flash_attention_backward_d16": "[2,2,1024,16] bf16",
     "flash_attention_packed_d512": "VideoAttnBlock attn2 [7,5824,1x512] bf16",
     "temporal_attention_direct_d512": "VideoAttnBlock time mix [7,5824,1,512] t=7 bf16",
+    "flash_attention_normalised_d64": "ViT-L/14 [2,16,257,64]",
 }
 # launches of one training step (remat on: every ResBlock and transformer runs
 # its forward twice, in the step's forward and in the backward's recompute):
@@ -793,7 +824,62 @@ def kernel_cases(torch):
             iters=3, work=attn_work(2, h, l, l, 64, backward=True),
             library=lambda q, k, v, o, lse, g, h: sdpa_backward([heads_view(x, h) for x in (q, k, v)],
                                                                 heads_view(g, h)))
-    return cases + head_dim_cases(torch, rn) + group_norm_cases(torch, rn) + gemm_cases(torch, rn) + late
+    return (cases + head_dim_cases(torch, rn) + group_norm_cases(torch, rn) + gemm_cases(torch, rn) + late
+            + t5_demo_safety_cases(torch, rn, k1, packed, packed_mha, bhld, sdpa_packed))
+
+
+def t5_demo_safety_cases(torch, rn, k1, packed, packed_mha, bhld, sdpa_packed):
+    """The shapes the T5, demo and safety paths give the kernels, drawn after every other case:
+    SD 2.1's UNet and VAE at 512x512 under the T5-XXL context (api_t5) and the
+    demo's OpenCLIP one (demo): K1 at the four levels' self-attention and at the
+    short 77-key sites (ds4, mid; the ds1 / ds2 ones run the normalise-first
+    mode: ds2 here, ds1 is NTI's case), K3 at the VAE's mid attention over
+    64x64 latents, K11 at to_q (ds1) and the to_k / to_v of the 4096-wide T5
+    context and the 1024-wide OpenCLIP one (M = 2 x 77), K12 per level and the
+    ds1 skip concatenation, the GroupNorm at the UNet's ds1 / ds2 and the VAE's
+    512x512 sites; the normalise-first K3 at the safety filter's CLIP ViT-L/14
+    (D = 64, two frames), also held to mha_reference."""
+    import torch.nn.functional as F
+
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    bf = torch.bfloat16
+    sdpa = F.scaled_dot_product_attention
+    cases = []
+    add = lambda **kw: cases.append(kw)
+    for label, l, lk, h in (("SD 512 ds1 [2,4096,5x64]", 4096, 4096, 5), ("SD 512 ds2 [2,1024,10x64]", 1024, 1024, 10),
+                            ("SD 512 ds4 [2,256,20x64]", 256, 256, 20), ("SD 512 mid [2,64,20x64]", 64, 64, 20),
+                            ("SD 512 cross ds4 [2,256x77,20x64]", 256, 77, 20),
+                            ("SD 512 cross mid [2,64x77,20x64]", 64, 77, 20)):
+        kern, plain = k1(l, lk)
+        add(kernel="flash_attention_packed", label=label, make=packed(2, l, h, lk), kern=kern, plain=plain, iters=3,
+            work=attn_work(2, h, l, lk, 64), library=sdpa_packed)
+    add(kernel="flash_attention_packed_normalised", label="SD 512 cross ds2 [2,1024x77,10x64]",
+        make=packed(2, 1024, 10, 77), kern=lambda q, k, v, h: A.flash_attention_packed(q, k, v, h, normalise_first=True),
+        plain=lambda q, k, v, h: A.flash_attention_packed_reference(q, k, v, h, normalise_first=True),
+        reference=packed_mha, iters=3, work=attn_work(2, 10, 1024, 77, 64), library=sdpa_packed)
+    add(kernel="flash_attention", label="SD 512 VAE mid [1,1,4096,512]", make=bhld(1, 1, 4096, 512),
+        kern=A.flash_attention, plain=A.flash_attention_reference, iters=2, work=attn_work(1, 1, 4096, 4096, 512),
+        library=lambda q, k, v: (lambda: sdpa(q, k, v)))
+    add(kernel="flash_attention_normalised_d64", label=HEADLINE["flash_attention_normalised_d64"],
+        make=bhld(2, 16, 257, 64), kern=lambda q, k, v: A.flash_attention(q, k, v, normalise_first=True),
+        plain=lambda q, k, v: A.flash_attention_reference(q, k, v, normalise_first=True),
+        reference=lambda q, k, v: A.mha_reference(q, k, v), iters=5, work=attn_work(2, 16, 257, 257, 64),
+        library=lambda q, k, v: (lambda: sdpa(q, k, v)))
+    projections = (("SD 512 ds1 to_q [8192,320->320]", 8192, 320, 320, False, bf),
+                   ("T5 to_k ds1 [154,4096->320]", 154, 4096, 320, False, bf),
+                   ("T5 to_v ds2 [154,4096->640]", 154, 4096, 640, False, bf),
+                   ("T5 to_k ds4 [154,4096->1280]", 154, 4096, 1280, False, bf),
+                   ("demo to_k ds1 [154,1024->320]", 154, 1024, 320, False, bf))
+    convs = (("SD 512 ds1 [2,64,64,320->320]", 2, 64, 64, 320, 320, bf),
+             ("SD 512 ds1 skip concat [2,64,64,960->320]", 2, 64, 64, 960, 320, bf),
+             ("SD 512 ds2 [2,32,32,640->640]", 2, 32, 32, 640, 640, bf),
+             ("SD 512 ds4 [2,16,16,1280->1280]", 2, 16, 16, 1280, 1280, bf),
+             ("SD 512 ds8 [2,8,8,1280->1280]", 2, 8, 8, 1280, 1280, bf))
+    sites = [("SD 512 UNet ds1 [2,64,64,320]", (2, 64, 64, 320), bf, True, 1e-5),
+             ("SD 512 UNet ds2 [2,32,32,640]", (2, 32, 32, 640), bf, True, 1e-5),
+             ("SD 512 VAE [1,512,512,128]", (1, 512, 512, 128), bf, True, 1e-6)]
+    return cases + gemm_cases(torch, rn, projections, convs) + group_norm_cases(torch, rn, sites)
 
 
 def head_dim_cases(torch, rn):
@@ -912,7 +998,7 @@ def head_dim_cases(torch, rn):
     return cases
 
 
-def gemm_cases(torch, rn):
+def gemm_cases(torch, rn, projections=None, convs=None):
     """K11 at the CrossAttention projections and K12 at the ResBlock 3x3
     convolutions of the main paths (CFG batch 28 at 56x104 latents). K11: the
     q/k/v projections (no bias) and to_out (bias) per level, the to_k / to_v
@@ -927,7 +1013,7 @@ def gemm_cases(torch, rn):
 
     bf, f32 = torch.bfloat16, torch.float32
     cases = []
-    for label, m, k, n, bias, dtype in (
+    for label, m, k, n, bias, dtype in projections or (
         ("ds1 to_q [163072,320->320]", 163072, 320, 320, False, bf),
         ("ds1 to_out [163072,320->320] bias", 163072, 320, 320, True, bf),
         ("ds2 [40768,640->640]", 40768, 640, 640, False, bf),
@@ -951,7 +1037,7 @@ def gemm_cases(torch, rn):
             kernel="matmul_bias", label=label, make=make, kern=MM.matmul_bias, plain=MM.matmul_bias_plain,
             iters=5, work=matmul_work(m, k, n, bias, "bf16" if dtype == bf else "fp32"),
             library=lambda x, w, b: (lambda: F.linear(x, w, b))))
-    for label, b, h, w, cin, cout, dtype in (
+    for label, b, h, w, cin, cout, dtype in convs or (
         ("ds1 [28,56,104,320->320]", 28, 56, 104, 320, 320, bf),
         ("ds1 skip concat [28,56,104,960->320]", 28, 56, 104, 960, 320, bf),
         ("ds2 [28,28,52,640->640]", 28, 28, 52, 640, 640, bf),
@@ -977,7 +1063,7 @@ def gemm_cases(torch, rn):
     return cases
 
 
-def group_norm_cases(torch, rn):
+def group_norm_cases(torch, rn, sites=None):
     """K7-K10 at the GroupNorm sites of the main paths: the UNet's ResBlock
     norms (SiLU, eps 1e-5; [28, H, W, C] per level, the output blocks' skip
     concatenations, the time_stack's 5-D [2, 14, H, W, C] whose statistics
@@ -1001,7 +1087,7 @@ def group_norm_cases(torch, rn):
     from vidseg_diffusion_tpu_torch.ops import norm as N
 
     bf, f32 = torch.bfloat16, torch.float32
-    sites = [
+    sites = sites or [
         ("UNet ds1 [28,56,104,320]", (28, 56, 104, 320), bf, True, 1e-5),
         ("UNet ds1 [28,56,104,320] no SiLU", (28, 56, 104, 320), bf, False, 1e-6),
         ("UNet ds1 concat [28,56,104,960]", (28, 56, 104, 960), bf, True, 1e-5),
@@ -1588,29 +1674,35 @@ def read_dims():
     return dims
 
 
+K3_NORMALISED_WGMMA_DIMS = (64,)   # K3's normalise-first mode on K1's wgmma kernel; at D = 80 and 16 on mma.sync
+
+
 def check_routes(tag, launches, narrow=0, normalised=None):
     """Every K1, K11, K5 and K13 launch of the run took the wgmma kernel (none
     the mma.sync tile or an FMA kernel), every K3 launch but the `normalised`
-    ones (CLIP's, on the mma.sync kernel), every K4 launch but `narrow` of
-    them, which took the narrow kernel, and every K2 and K6 launch the
-    tensor-core kernel (none the fp32 CUDA-core one); K1 and K3 ran the
-    normalise-first mode `normalised[name]` times ({kernel: launches}); keeps
-    and returns the route counts."""
+    ones at D = 80 and 16 (CLIP ViT-H's and the tiny towers', on the mma.sync
+    kernel; at D = 64 they run K1's wgmma kernel and count on both), every K4
+    launch but `narrow` of them, which took the narrow kernel, and every K2
+    and K6 launch the tensor-core kernel (none the fp32 CUDA-core one); K1 and
+    K3 ran the normalise-first mode `normalised[name]` times ({kernel:
+    launches}); keeps and returns the route counts."""
     routes = read_routes()
     normalised = normalised or {}
+    DIM_COUNTS[tag] = read_dims()
     want = {name: {"wgmma": launches[name]} for name in ("matmul_bias", "flash_attention_packed_backward",
                                                           "flash_attention_backward")}
     want["flash_attention_packed"] = {"wgmma": launches["flash_attention_packed"], "mma": 0,
                                       "normalised": normalised.get("flash_attention_packed", 0)}
     nf3 = normalised.get("flash_attention", 0)
-    want["flash_attention"] = {"wgmma": launches["flash_attention"] - nf3, "normalised": nf3}
+    nf3_wgmma = sum(n for d, n in DIM_COUNTS[tag]["flash_attention.normalised"].items()
+                    if d in K3_NORMALISED_WGMMA_DIMS)
+    want["flash_attention"] = {"wgmma": launches["flash_attention"] - nf3 + nf3_wgmma, "normalised": nf3}
     want["temporal_conv_1x1"] = {"wgmma": launches["temporal_conv_1x1"] - narrow, "narrow": narrow}
     want["temporal_attention_direct"] = {"mma": launches["temporal_attention_direct"], "wide": 0}
     want["temporal_attention_direct_backward"] = {"mma": launches["temporal_attention_direct_backward"]}
     got = {name: routes[name] for name in ROUTED}
     check(got == want, f"[{tag}] launches by route {got}, expected {want}")
     ROUTE_COUNTS[tag] = routes
-    DIM_COUNTS[tag] = read_dims()
     for name in ("flash_attention_packed", "flash_attention"):
         check(sum(DIM_COUNTS[tag][f"{name}.normalised"].values()) == routes[name]["normalised"],
               f"[{tag}] {name}: normalise-first launches by head dim {DIM_COUNTS[tag][f'{name}.normalised']}, "
@@ -3238,6 +3330,473 @@ def phase_api_fp32(torch):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled = saved
 
 
+# ---- T5-XXL-conditioned txt2img, the demo server, the safety / watermark / FID utilities ----
+
+T5_FP32_TOL = 1e-5            # tiny T5 in fp32, card vs CPU, x max |CPU| (TF32 off)
+T5_NORMALISED_PER_UNET = 10   # the 77-key cross-attention sites with 4096 or 1024 queries, per UNet call
+DEMO_PNG_LEVELS = 1           # a demo PNG vs the sampling API's image for the same seed, uint8 levels
+# the safety filter's CLIP ViT-L/14 image tower (DeepFloydDataFiltering's), random bf16 weights
+VIT_L14 = dict(image_size=224, patch_size=14, width=1024, heads=16, layers=24, output_dim=768)
+SAFETY_FEAT_TOL = 5e-2        # ViT-L/14 features, bf16 on the card vs fp32 on the CPU, relative by norm
+SAFETY_BLUR_TOL = 2.0 ** -8   # a blurred frame vs the CPU's blur of the same frame, x max |CPU|: half a
+#                               bf16 step at 1.0 (cuDNN's fp32 convolutions may take TF32 products)
+FID_FEATURES, FID_RTOL = (2048, 1024), 1e-7   # two populations of N x D (ViT-H width); vs scipy's sqrtm
+
+
+def t5_fp32_card_vs_cpu(torch):
+    """A 2-layer T5 of width 64 (T5-XXL's vocabulary), both FFN kinds, in fp32:
+    the card against the CPU on the same weights and ids (TF32 off), within
+    T5_FP32_TOL of max |CPU|."""
+    from vidseg_diffusion_tpu_torch.engine.build import randomize_
+    from vidseg_diffusion_tpu_torch.models.t5 import T5Config, T5Encoder
+    from vidseg_diffusion_tpu_torch.scripts import t5_path as T5P
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ids = torch.from_numpy(T5P.tokens(seed=15))
+        for ff in ("gated-gelu", "relu"):
+            cfg = T5Config(**dict(T5P.T5_TINY, feed_forward_proj=ff))
+            cpu = T5Encoder(cfg)
+            randomize_(cpu, torch.Generator().manual_seed(3))
+            card = T5Encoder(cfg).to("cuda")
+            card.load_state_dict(cpu.state_dict())
+            with torch.no_grad():
+                got, want = card(ids.cuda()).cpu(), cpu(ids)
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            print(f"[api_t5] tiny T5 ({ff}) fp32 card vs CPU: {err:.3e} of max |CPU| (tol {T5_FP32_TOL:.0e})",
+                  flush=True)
+            check(err <= T5_FP32_TOL and bool(torch.isfinite(got).all()), f"[api_t5] tiny T5 {ff}: {err}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def class_card_vs_cpu(torch, tmp):
+    """The tiny class-conditioned config (t5_path.write_class_config): built
+    by build_pipeline on the card and on the CPU in fp32, the card's weights
+    on the CPU; the conditioner's output and clip_apply card vs CPU."""
+    from vidseg_diffusion_tpu_torch.engine.build import build_pipeline
+    from vidseg_diffusion_tpu_torch.scripts import t5_path as T5P
+
+    path = T5P.write_class_config(tmp)
+    card = build_pipeline(path, dtype=torch.float32, device="cuda", seed=4)
+    cpu = build_pipeline(path, dtype=torch.float32, device="cpu", seed=4)
+    cpu.class_embedder.load_state_dict(card.class_embedder.state_dict())
+    check(card.kind == cpu.kind == "class", f"[api_t5] class config built as {card.kind}")
+    labels = torch.tensor([0, 6, 3])
+    got = card.conditioner({"cls": labels.cuda()})
+    want = cpu.conditioner({"cls": labels})
+    check(got.keys() == want.keys() == {"crossattn"} and torch.equal(got["crossattn"].cpu(), want["crossattn"])
+          and tuple(want["crossattn"].shape) == (3, 1, card.spec.unet_config.context_dim)
+          and torch.equal(card.clip_apply(labels).cpu(), cpu.clip_apply(labels)),
+          "[api_t5] class conditioner card vs CPU")
+    uc = card.class_embedder.get_unconditional_class(3)
+    check(uc.tolist() == [6, 6, 6], f"[api_t5] unconditional class {uc.tolist()}")
+    print(f"[api_t5] class conditioner (tiny config, fp32): card equals CPU, crossattn "
+          f"{tuple(want['crossattn'].shape)}, unconditional class {uc.tolist()[0]}", flush=True)
+
+
+T5_GRAPH_REPLAYS = 5   # replays of the captured T5 pass timed together
+
+
+def t5_pass_graph_ms(torch, t5, ids):
+    """One T5 pass (no gradient) captured as a CUDA graph: ms of a replay,
+    the mean of T5_GRAPH_REPLAYS after a warm one (the pass's kernels back to
+    back, no host between them: its device time)."""
+    x = torch.as_tensor(ids, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad():
+        with torch.cuda.stream(side):
+            t5(x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = t5(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(T5_GRAPH_REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), "[api_t5] the T5 graph's output is not finite")
+    del graph, out
+    return start.elapsed_time(end) / T5_GRAPH_REPLAYS
+
+
+def phase_api_t5(torch):
+    """T5 v1.1-XXL widths conditioning sd_2_1.yaml's UNet (context_dim 4096)
+    through build_pipeline (scripts/t5_path.py; the YAML written to a temp
+    dir), random bf16 weights: text_to_image at 512x512, 25 Euler steps, CFG 5,
+    on 77 seeded ids, after a 2-step warm-up, timed without the call-counting
+    hook (seconds per image, the two T5 passes and each UNet call with CUDA
+    events, peak memory), one T5 pass's device time as a CUDA graph's replay
+    (against the timed pass: its idle share), then again with the hook: 25 UNet calls, 2 T5 passes, the
+    decode finite before the clamp, the launches by kernel and route the
+    module calls imply (hooked_launches), the normalise-first K1 at the 10
+    77-key sites with 4096 or 1024 queries per UNet call and the short walk at
+    the 256- and 64-query ones (site_route). Then the tiny T5 in fp32 card vs
+    CPU and the class-conditioned tiny config."""
+    import tempfile
+
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+    from vidseg_diffusion_tpu_torch.scripts import t5_path as T5P
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        api = T5P.build(tmp, seed=0)
+    torch.cuda.synchronize()
+    pipe = api.pipeline
+    n_t5 = sum(p.numel() for p in pipe.t5.parameters())
+    n_unet = sum(p.numel() for p in pipe.unet.parameters())
+    check(pipe.kind == "t5_text" and pipe.spec.unet_config.context_dim == 4096 and 4.75e9 < n_t5 < 4.77e9,
+          f"[api_t5] built {pipe.kind}, context {pipe.spec.unet_config.context_dim}, T5 {n_t5}")
+    print(f"[api_t5] built sd_2_1.yaml with T5 v1.1-XXL (T5 {n_t5 / 1e9:.3f} B, UNet {n_unet / 1e9:.3f} B, bf16) in "
+          f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB resident", flush=True)
+    ids, p25 = T5P.tokens(), T5P.params()
+    gen = lambda: torch.Generator(device="cuda").manual_seed(5)
+    api.text_to_image(T5P.params(steps=2), ids, generator=gen())   # warm-up
+    unet_t, t5_t = UNetTimer(torch, pipe.unet), UNetTimer(torch, pipe.t5)
+    watch = DecoderWatch(torch, pipe.first_stage.decoder)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    image = api.text_to_image(p25, ids, generator=gen())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    per_call, t5_s, peak = unet_t.mean_s(), t5_t.mean_s() * t5_t.calls, torch.cuda.max_memory_allocated() / 1e9
+    check(unet_t.calls == T5P.STEPS and t5_t.calls == 2, f"[api_t5] {unet_t.calls} UNet calls, {t5_t.calls} T5")
+    watch.check("api_t5 timed", 1)
+    check(tuple(image.shape) == (1, T5P.SIZE, T5P.SIZE, 3) and bool(torch.isfinite(image).all()),
+          f"[api_t5] image {tuple(image.shape)}")
+    print(f"[api_t5] seconds per 512x512 image at 25 steps {secs:.3f}, of which the two T5-XXL passes {t5_s:.4f} "
+          f"(CUDA events), per UNet call {per_call:.4f}, peak {peak:.2f} GB, without the call-counting hook "
+          f"({card_line()})", flush=True)
+    graph_ms, pass_ms = t5_pass_graph_ms(torch, pipe.t5, ids), t5_s / 2 * 1e3
+    print(f"[api_t5] one T5-XXL pass as a CUDA graph: {graph_ms:.3f} ms a replay (its device time); the timed "
+          f"image's passes {pass_ms:.3f} ms each (device idle {1 - graph_ms / pass_ms:.1%} of a pass)", flush=True)
+    unet_t.reset()
+    t5_t.reset()
+    reset_counts()
+    with counting_calls(torch):
+        again = api.text_to_image(p25, ids, generator=gen())
+    torch.cuda.synchronize()
+    watch.check("api_t5 counted", 1)
+    check(unet_t.calls == T5P.STEPS and t5_t.calls == 2, f"[api_t5] counted run: {unet_t.calls} UNet calls")
+    launches, routes = check_api_run("t5", "txt2img 25 steps")
+    sites = {lq: A.site_route("blhd", 2, lq, 77) for lq in (4096, 1024, 256, 64)}
+    check(sites == {4096: "mha_reference", 1024: "mha_reference", 256: "small_batched", 64: "small_batched"}
+          and routes["flash_attention_packed"]["normalised"] == T5_NORMALISED_PER_UNET * T5P.STEPS,
+          f"[api_t5] 77-key sites {sites}, normalise-first K1 {routes['flash_attention_packed']['normalised']}")
+    drift = (again - image).abs().max().item()
+    print(f"[api_t5] counted run: launches {json.dumps(launches)}; by route {json.dumps(routes)}; 77-key sites "
+          f"{json.dumps(sites)}; max |image - timed run's| {drift:.3e}", flush=True)
+    for w in (unet_t, t5_t, watch):
+        w.remove()
+    del api, pipe, image, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    t5_fp32_card_vs_cpu(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        class_card_vs_cpu(torch, tmp)
+
+
+def _http(url, form=None, timeout=600):
+    """(status, content type, body) of a GET (form None) or a POST of `form`."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    data = None if form is None else urllib.parse.urlencode(form).encode()
+    try:
+        with urllib.request.urlopen(url, data=data, timeout=timeout) as resp:
+            return resp.status, resp.headers["Content-Type"], resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+@contextlib.contextmanager
+def serving(app):
+    """The app's handler on a ThreadingHTTPServer at 127.0.0.1 (a free port)
+    in a thread; yields its URL; shut down and closed on exit."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from vidseg_diffusion_tpu_torch.scripts.demo.serve import make_handler
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(app))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{srv.server_address[1]}"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+
+
+def phase_demo(torch):
+    """The demo server (scripts/demo/serve.py) on sd_2_1.yaml at 512x512, bf16,
+    random weights, served on 127.0.0.1 in a thread: GET / and /health; a
+    2-step warm-up request (the first call's weight re-lays); a txt2img POST
+    (25 steps, a prompt in the tiny BPE vocabulary) and an img2img POST on a
+    PNG under --init-root (strength 0.75), each timed without the
+    call-counting hook, then sent again under it for its launches (as its
+    module calls imply); each PNG 512x512x3 within DEMO_PNG_LEVELS of the
+    SamplingPipeline's image for the same seed and parameters; an init path that
+    escapes the root answers JSON 500 with PermissionError. Then a second app on
+    svd.yaml: one img2vid POST at 1024x576 x 14 frames, 25 steps, a GIF of 14
+    frames, its launches as window_launches reckons them. Seconds per request.
+    Returns the two PNGs' images [2, 512, 512, 3] in [0, 1] on the card."""
+    import io
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from vidseg_diffusion_tpu_torch.io.tokenizer import TINY_VOCAB
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+    from vidseg_diffusion_tpu_torch.scripts import api_path as AP
+    from vidseg_diffusion_tpu_torch.scripts.demo.serve import DemoApp, load_init, to_uint8
+
+    seconds, images = {}, []
+    with tempfile.TemporaryDirectory() as root:
+        to_png = lambda a, name: Image.fromarray(((a[0] + 1.0) * 127.5).astype(np.uint8)).save(
+            os.path.join(root, name))
+        to_png(AP.image(512, 512), "init.png")
+        to_png(AP.image(576, 1024), "cond.png")
+        t0 = time.perf_counter()
+        app = DemoApp(os.path.join(ROOT, "configs/inference/sd_2_1.yaml"), default_size=512, init_root=root,
+                      bpe_path=TINY_VOCAB)
+        torch.cuda.synchronize()
+        print(f"[demo] DemoApp on sd_2_1.yaml (bf16) up in {time.perf_counter() - t0:.1f} s", flush=True)
+        unet_t, watch = UNetTimer(torch, app.pipeline.unet), DecoderWatch(torch, app.pipeline.first_stage.decoder)
+        with serving(app) as url:
+            status, ctype, body = _http(url + "/")
+            check(status == 200 and ctype.startswith("text/html") and b"<form" in body, f"[demo] GET / {status}")
+            status, _, body = _http(url + "/health")
+            check(status == 200 and json.loads(body) == {"ok": True}, f"[demo] GET /health {status} {body[:80]}")
+            status, ctype, _ = _http(url + "/generate", dict(mode="txt2img", steps=2, width=512, height=512))
+            check(status == 200 and ctype == "image/png", f"[demo] warm-up request: {status}")   # weight re-lays
+            watch.check("demo warm-up", 1)
+            forms = {"txt2img": dict(mode="txt2img", prompt=AP.PROMPT, steps=25, scale=5.0, width=512, height=512,
+                                     seed=7),
+                     "img2img": dict(mode="img2img", prompt=AP.PROMPT, steps=25, scale=5.0, width=512, height=512,
+                                     seed=8, init_path="init.png", strength=0.75)}
+            for label, form in forms.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                status, ctype, body = _http(url + "/generate", form)
+                seconds[label] = time.perf_counter() - t0
+                check(status == 200 and ctype == "image/png", f"[demo] {label}: {status} {body[:200]}")
+                watch.check(f"demo {label} timed", 1)
+                unet_t.reset()
+                reset_counts()
+                t0 = time.perf_counter()
+                with counting_calls(torch):
+                    status, ctype, counted = _http(url + "/generate", form)
+                hooked_s = time.perf_counter() - t0
+                unet_calls = unet_t.calls
+                check(status == 200 and ctype == "image/png", f"[demo] {label} counted: {status} {counted[:200]}")
+                watch.check(f"demo {label} counted", 1)
+                launches, routes = check_api_run("demo", label)
+                got, again = (np.asarray(Image.open(io.BytesIO(b))) for b in (body, counted))
+                params = app.sampling_params(form)
+                tok, neg = app._tokens(form["prompt"]), app._tokens("")
+                if label == "txt2img":
+                    want = app.api.text_to_image(params, tok, neg, generator=app.generator(form))
+                else:
+                    init = load_init(os.path.join(root, "init.png"), 512, 512)
+                    want = app.api.image_to_image(params, init, tok, neg, generator=app.generator(form))
+                watch.flags = []
+                levels = [int(np.abs(a.astype(np.int16) - to_uint8(want[0]).astype(np.int16)).max())
+                          for a in (got, again)]
+                check(got.shape == again.shape == (512, 512, 3) and max(levels) <= DEMO_PNG_LEVELS,
+                      f"[demo] {label}: PNGs {got.shape} {again.shape}, {levels} uint8 levels from the API's image")
+                images.append(torch.from_numpy(got.astype(np.float32) / 255.0).cuda())
+                print(f"[demo] {label}: {seconds[label]:.3f} s a request (without the call-counting hook); "
+                      f"counted request, with it: {hooked_s:.3f} s, {unet_calls} UNet calls; PNGs {got.shape}, {levels} uint8 levels from the "
+                      f"API's image (timed, counted); launches {json.dumps(launches)}; by route "
+                      f"{json.dumps(routes)}", flush=True)
+            status, ctype, body = _http(url + "/generate", dict(steps=2, init_path=os.path.join(root, "..", "x.png")))
+            err = json.loads(body).get("error", "") if ctype == "application/json" else ""
+            check(status == 500 and err.startswith("PermissionError"), f"[demo] escaping path: {status} {err}")
+            print(f"[demo] an init path outside --init-root: {status} {err}", flush=True)
+        for w in (unet_t, watch):
+            w.remove()
+        del app
+        gc.collect()
+        torch.cuda.empty_cache()
+        app = DemoApp(os.path.join(ROOT, "configs/inference/svd.yaml"), default_size=512, init_root=root)
+        unet_t, watch = UNetTimer(torch, app.pipeline.unet), DecoderWatch(torch, app.pipeline.first_stage.decoder)
+        with serving(app) as url:
+            form = dict(mode="img2vid", steps=25, width=1024, height=576, num_frames=14, init_path="cond.png", seed=9)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            status, ctype, body = _http(url + "/generate", form)
+            seconds["img2vid"] = time.perf_counter() - t0
+        check(status == 200 and ctype == "image/gif", f"[demo] img2vid: {status} {body[:200]}")
+        gif = Image.open(io.BytesIO(body))
+        check(gif.n_frames == 14 and gif.size == (1024, 576), f"[demo] GIF {gif.n_frames} frames of {gif.size}")
+        vp = app.video_params(form)
+        calls = {"unet": unet_t.calls, "encoder": 1, "decoder": vp.num_frames // vp.decoding_t}
+        watch.check("demo img2vid", calls["decoder"])
+        check(calls["unet"] == vp.steps, f"[demo] img2vid {calls['unet']} UNet calls")
+        launches, plain_calls = read_counts()
+        implied, normalised = window_launches(app.pipeline, True, calls)
+        expected = {name: implied.get(name, 0) for name in launches}
+        expected.update(group_norm_expected("demo img2vid", implied["group_norm"]))
+        check(launches == expected and all(n == 0 for n in plain_calls.values())
+              and A.mha_reference_site.calls == 0, f"[demo] img2vid launches {launches}, expected {expected}")
+        routes = check_routes("demo img2vid", launches,
+                              calls["decoder"] * narrow_tconv_sites(app.pipeline.first_stage.decoder), normalised)
+        add_run("demo", launches, routes)
+        print(f"[demo] img2vid svd.yaml 14 x 1024x576, 25 steps: {seconds['img2vid']:.3f} s a request, GIF of "
+              f"{gif.n_frames} frames ({len(body) / 1e6:.1f} MB); launches {json.dumps(launches)}", flush=True)
+        for w in (unet_t, watch):
+            w.remove()
+        del app
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[demo] seconds per request {json.dumps({k: round(v, 3) for k, v in seconds.items()})} "
+          f"({card_line()})", flush=True)
+    return torch.stack(images)
+
+
+def phase_safety(torch, images):
+    """SafetyFilter with a CLIP ViT-L/14 image tower (width 1024, 24 layers, 16
+    heads, patch 14, 224, output 768; random bf16) on the demo's two images,
+    synthetic heads: p (bias -10) flags none, w (bias +10) every frame. Its
+    launches: K3 in the normalise-first mode at the 24 [2,16,257,64] sites,
+    nothing else. Held to the same tower in fp32 on the CPU: the features
+    within SAFETY_FEAT_TOL by norm, the flags equal, each head's logits within
+    the bound the feature error gives, each output frame the CPU's blur of the
+    input within SAFETY_BLUR_TOL. Then embed_watermark on a 512x512 image and
+    its decode: 48 of 48 bits, the top bucket; frechet_distance in float64 on
+    the card for two seeded 2048 x 1024 populations vs scipy's sqrtm formula on
+    the CPU (FID_RTOL); prefetch_to_device landing on the card in order;
+    utils/profiling.trace writing a trace that names a K1 kernel. Returns the
+    filter's launches."""
+    import tempfile
+
+    import numpy as np
+    import scipy.linalg
+
+    from vidseg_diffusion_tpu_torch.engine.build import randomize_
+    from vidseg_diffusion_tpu_torch.eval.fid import feature_stats, frechet_distance
+    from vidseg_diffusion_tpu_torch.io.data import prefetch_to_device
+    from vidseg_diffusion_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionTransformer, clip_preprocess
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+    from vidseg_diffusion_tpu_torch.utils import profiling
+    from vidseg_diffusion_tpu_torch.utils.safety import SafetyFilter, blur_frames, embed_watermark
+    from vidseg_diffusion_tpu_torch.utils.watermark import MATCH_VALUES, classify_match, watermark_match_bits
+
+    with torch.device("meta"):
+        tower = CLIPVisionTransformer(CLIPVisionConfig(dtype=torch.bfloat16, **VIT_L14))
+    tower.to(torch.bfloat16).to_empty(device="cuda")
+    randomize_(tower, torch.Generator(device="cuda").manual_seed(11))
+    tower.eval().requires_grad_(False)
+    cpu_tower = CLIPVisionTransformer(CLIPVisionConfig(dtype=torch.float32, **VIT_L14)).eval().requires_grad_(False)
+    cpu_tower.load_state_dict({k: v.float().cpu() for k, v in tower.state_dict().items()})
+    clip_fn = lambda t: (lambda f: t(clip_preprocess(f * 2.0 - 1.0)))
+    rs = np.random.RandomState(12)
+    d = VIT_L14["output_dim"]
+    heads = dict(p_head=(rs.randn(1, d).astype(np.float32) / d ** 0.5, np.array([-10.0], np.float32)),
+                 w_head=(rs.randn(1, d).astype(np.float32) / d ** 0.5, np.array([10.0], np.float32)))
+    card_f, cpu_f = SafetyFilter(clip_fn(tower), **heads), SafetyFilter(clip_fn(cpu_tower), **heads)
+    frames = images.float()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = card_f(frames)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    layers = VIT_L14["layers"]
+    expected = {name: (layers if name == "flash_attention" else 0) for name in launches}
+    check(launches == expected and all(n == 0 for n in plain_calls.values()),
+          f"[safety] launches {launches}, expected {expected}; plain {plain_calls}")
+    routes = check_routes("safety", launches, normalised={"flash_attention": layers})
+    check(DIM_COUNTS["safety"]["flash_attention.normalised"] == {64: layers},
+          f"[safety] K3 normalise-first by head dim {DIM_COUNTS['safety']['flash_attention.normalised']}")
+    with torch.no_grad():
+        f_card, f_cpu = tower(clip_preprocess(frames * 2.0 - 1.0)).float().cpu(), cpu_tower(
+            clip_preprocess(frames.cpu() * 2.0 - 1.0))
+    feat_err = ((f_card - f_cpu).norm() / f_cpu.norm()).item()
+    s_card, s_cpu = card_f.scores(frames), cpu_f.scores(frames.cpu())
+    # the heads' logits as they see the features (cast to fp16); |w . (f16(a) - f16(b))| <= ||w|| (||a - b||
+    # + the two fp16 roundings, 2^-11 of ||b|| each)
+    logits = lambda f: np.stack([f.numpy().astype(np.float16) @ w.T + b for w, b in heads.values()])
+    logit_err = float(np.abs(logits(f_card) - logits(f_cpu)).max())
+    bound = max(float(np.linalg.norm(h[0])) for h in heads.values()) * (
+        (f_card - f_cpu).norm(dim=1).max().item() + 2.0 ** -10 * f_cpu.norm(dim=1).max().item())
+    cpu_out = cpu_f(frames.cpu())
+    want = blur_frames(frames.cpu())
+    blur_err = ((out.cpu() - want).abs().max() / want.abs().max()).item()
+    flags = [(s > 0.5).tolist() for s in s_card]
+    check(feat_err <= SAFETY_FEAT_TOL and logit_err <= bound and flags == [(s > 0.5).tolist() for s in s_cpu]
+          and flags == [[False] * len(frames), [True] * len(frames)] and blur_err <= SAFETY_BLUR_TOL
+          and torch.equal(cpu_out, want),
+          f"[safety] features {feat_err}, logits {logit_err} (bound {bound}), flags {flags}, blur {blur_err}")
+    print(f"[safety] SafetyFilter ViT-L/14 bf16 on {len(frames)} frames of 512x512: {secs:.3f} s; features vs fp32 "
+          f"CPU {feat_err:.3e} by norm (tol {SAFETY_FEAT_TOL:.0e}); logits within {logit_err:.3e} (bound "
+          f"{bound:.3e}); flags p {flags[0]} w {flags[1]}; blurred frames vs the CPU's blur {blur_err:.3e} of max "
+          f"(tol {SAFETY_BLUR_TOL:.2e}); launches {json.dumps(launches)}; by route {json.dumps(routes)}", flush=True)
+
+    marked = embed_watermark(frames[:1], 1.0)
+    bits = int(watermark_match_bits(marked.cpu().numpy().astype(np.float64))[0])
+    plain_bits = int(watermark_match_bits(frames[:1].cpu().numpy().astype(np.float64))[0])
+    moved = (marked - frames[:1]).abs().max().item()
+    check(bits == 48 and classify_match(bits) == MATCH_VALUES[-1][1] and marked.device == frames.device,
+          f"[safety] watermark: {bits} of 48 bits, {classify_match(bits)}")
+    print(f"[safety] embed_watermark 512x512: {bits} of 48 bits decoded ({classify_match(bits)!r}); the unmarked "
+          f"image matches {plain_bits}; max pixel change {moved:.4f}", flush=True)
+
+    g = torch.Generator().manual_seed(13)
+    n, dim = FID_FEATURES
+    mix = torch.randn(dim, dim, generator=g, dtype=torch.float64) / dim ** 0.5
+    pops = [torch.randn(n, dim, generator=g, dtype=torch.float64) @ (mix + s * torch.eye(dim, dtype=torch.float64))
+            + s for s in (0.0, 0.1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = [feature_stats(p.cuda()) for p in pops]
+    fid = frechet_distance(*stats[0], *stats[1])
+    torch.cuda.synchronize()
+    fid_s = time.perf_counter() - t0
+    mu1, s1 = pops[0].mean(0).numpy(), np.cov(pops[0].numpy(), rowvar=False)
+    mu2, s2 = pops[1].mean(0).numpy(), np.cov(pops[1].numpy(), rowvar=False)
+    covmean = scipy.linalg.sqrtm(s1 @ s2).real
+    want_fid = float((mu1 - mu2) @ (mu1 - mu2) + np.trace(s1) + np.trace(s2) - 2.0 * np.trace(covmean))
+    fid_rel = abs(fid.item() - want_fid) / abs(want_fid)
+    check(fid.dtype == torch.float64 and fid.device.type == "cuda" and fid_rel <= FID_RTOL,
+          f"[safety] FID {fid.item()} vs scipy {want_fid}: {fid_rel}")
+    print(f"[safety] frechet_distance float64 on the card, 2 x {n} x {dim}: {fid.item():.10f} vs scipy sqrtm "
+          f"{want_fid:.10f}, {fid_rel:.3e} relative (tol {FID_RTOL:.0e}); {fid_s:.3f} s on the card", flush=True)
+
+    items = [(np.full((4,), i, np.float32), {"i": torch.full((2,), float(i))}) for i in range(6)]
+    got = list(prefetch_to_device(iter(items), size=2, device="cuda"))
+    check(len(got) == 6 and all(x.is_cuda and y["i"].is_cuda and int(x[0].item()) == i == int(y["i"][0].item())
+                                for i, (x, y) in enumerate(got)), "[safety] prefetch_to_device order / device")
+
+    q, k, v = (torch.randn(2, 4096, 320, device="cuda", dtype=torch.bfloat16) for _ in range(3))
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        with profiling.trace(tmp):
+            with profiling.annotate("vs:k1_probe"):
+                A.flash_attention_packed(q, k, v, 5)
+            torch.cuda.synchronize()
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel" and "flash_fwd" in e.get("name", "")})
+    check(kernels and any(e.get("name") == "vs:k1_probe" for e in events), f"[safety] trace kernels {kernels}")
+    print(f"[safety] prefetch_to_device: 6 batches on cuda in order; profiling.trace names {kernels}", flush=True)
+    reset_counts()
+    return launches
+
+
 def main():
     import torch
 
@@ -3314,10 +3873,19 @@ def main():
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    for name, fn in (("api_sdxl", phase_api_sdxl), ("api_fp32", phase_api_fp32)):
+    for name, fn in (("api_sdxl", phase_api_sdxl), ("api_fp32", phase_api_fp32), ("api_t5", phase_api_t5)):
         t0 = time.perf_counter()
         fn(torch)
         phases[name] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    demo_images = phase_demo(torch)
+    phases["demo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    safety_launches = phase_safety(torch, demo_images)
+    phases["safety"] = time.perf_counter() - t0
+    del demo_images
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3344,9 +3912,11 @@ def main():
                   "vae_time_mode": {k: sum(r[k] for r in vae_launches.values()) for k in inversion_launches}}
     DIM_COUNTS["vae_time_mode"] = sum_dims(DIM_COUNTS[f"vae_{m}"] for m in VAE_TIME_MODES)
     # the sampling API's runs, each summed over its tag's runs (the fp32 tiny runs apart)
-    for tag in ("api", "img2vid", "nti"):
+    for tag in ("api", "img2vid", "nti", "t5", "demo"):
         slice_runs[tag] = {k: API_RUNS[tag].get(k, 0) for k in inversion_launches}
         DIM_COUNTS[tag], ROUTE_COUNTS[tag] = API_DIMS[tag], API_ROUTES[tag]
+    # the T5-XXL txt2img and the demo's requests (API runs, above), the safety filter's tower
+    slice_runs["safety"] = safety_launches
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         head = next(r for r in mine if r["shape"] == HEADLINE[name])
@@ -3374,7 +3944,8 @@ def main():
                         **{tag: r[name] for tag, r in slice_runs.items()})
             # K1, K2, K3, K4, K5, K6, K11 and K13: the launches of each path by the kernel that ran
             # (checked); the GroupNorm forward's routes are kernels of their own (K7 + K8, the fused K7+K8)
-            routed = ({tag: ROUTE_COUNTS[tag][name] for tag in tags + ("inversion", "api", "img2vid", "nti")}
+            routed = ({tag: ROUTE_COUNTS[tag][name] for tag in tags + ("inversion", "api", "img2vid", "nti", "t5",
+                                                                     "demo", "safety")}
                       if name in ROUTED else None)
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
@@ -3383,6 +3954,7 @@ def main():
             sweep_sd_launches=runs["sweep_sd"], inversion_launches=runs["inversion"],
             vae_time_mode_launches=runs["vae_time_mode"], tiny_launches=runs["tiny"],
             api_launches=runs["api"], img2vid_launches=runs["img2vid"], nti_launches=runs["nti"],
+            t5_launches=runs["t5"], demo_launches=runs["demo"], safety_launches=runs["safety"],
             max_abs_err=max(r["max_abs_err"] for r in mine), shape=head["shape"],
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],

@@ -186,7 +186,7 @@ def lpips_pair():
     params = _init_tree(jm, 11, x, x)
     for i in range(5):
         params[f"lin_{i}"]["kernel"] = np.abs(params[f"lin_{i}"]["kernel"])
-    tm = _load(tlp.LPIPS(), params, convert.autoencoder_loss_key_fn)
+    tm = _load(tlp.LPIPS(), params, convert.module_key_fn)
     return jm, params, tm
 
 
@@ -224,7 +224,7 @@ def test_discriminator_matches_jax(size):
     x = rs.uniform(-1, 1, (2, size, size, 3)).astype(np.float32)
     jm = jlp.NLayerDiscriminator(ndf=8, n_layers=3)
     params = _init_tree(jm, 12, jnp.asarray(x))
-    tm = _load(tlp.NLayerDiscriminator(ndf=8, n_layers=3), params, convert.autoencoder_loss_key_fn)
+    tm = _load(tlp.NLayerDiscriminator(ndf=8, n_layers=3), params, convert.module_key_fn)
     want = _apply(jm, params, jnp.asarray(x))
     with torch.no_grad():
         got = tm(T(x))
@@ -343,7 +343,7 @@ def test_autoencoder_train_step_matches_jax(disc_loss, disc_start, with_lpips, l
     je, jd, ep, dp, te, td = _tiny_vae(14, x, np.zeros((2, 8, 8, 4), np.float32))
     jdisc = jlp.NLayerDiscriminator(ndf=8, n_layers=2)
     discp = _init_tree(jdisc, 15, jnp.asarray(x))
-    tdisc = _load(tlp.NLayerDiscriminator(ndf=8, n_layers=2), discp, convert.autoencoder_loss_key_fn).train()
+    tdisc = _load(tlp.NLayerDiscriminator(ndf=8, n_layers=2), discp, convert.module_key_fn).train()
     cfg = dataclasses.replace(jlp.AutoencoderLossConfig(), disc_start=disc_start, disc_loss=disc_loss,
                               kl_weight=1e-2)
     tcfg = dataclasses.replace(tlp.AutoencoderLossConfig(), disc_start=disc_start, disc_loss=disc_loss,
@@ -366,7 +366,7 @@ def test_autoencoder_train_step_matches_jax(disc_loss, disc_start, with_lpips, l
     def params_of(gen, disc):
         sd = {f"{part}.{k}": v for part in ("encoder", "decoder")
               for k, v in convert.jax_to_state_dict(gen[part], convert.vae_key_fn).items()}
-        sd.update({f"disc.{k}": v for k, v in convert.jax_to_state_dict(disc, convert.autoencoder_loss_key_fn).items()})
+        sd.update({f"disc.{k}": v for k, v in convert.jax_to_state_dict(disc, convert.module_key_fn).items()})
         return sd
 
     before = params_of(gp, discp)

@@ -37,9 +37,18 @@ palette = soft_color_map()
 after_color_map = foreign()
 from vidseg_diffusion_tpu_torch.io.tokenizer import TINY_VOCAB, tokenize
 tokens = tokenize(["a photo of a cat"], bpe_path=TINY_VOCAB)
+after_tokenize = foreign()
+from vidseg_diffusion_tpu_torch.engine.segmentation import camvid_color_map
+from vidseg_diffusion_tpu_torch.models.t5 import byt5_tokenize
+from vidseg_diffusion_tpu_torch.utils.watermark import embed_watermark_frames
+import numpy as np
+camvid = camvid_color_map()
+byt5 = byt5_tokenize(["a swan"], 8)
+marked = embed_watermark_frames(np.full((256, 256, 3), 0.5))
 print(json.dumps({"modules": names, "jax": after_import, "after_color_map": after_color_map,
-                  "palette": list(palette.shape), "after_tokenize": foreign(),
-                  "tokens": tokens[0, :8].tolist(), "vocab": TINY_VOCAB}))
+                  "palette": list(palette.shape), "after_tokenize": after_tokenize,
+                  "tokens": tokens[0, :8].tolist(), "vocab": TINY_VOCAB, "camvid": list(camvid.shape),
+                  "byt5": byt5[0].tolist(), "after_slice_14": foreign()}))
 """
 
 
@@ -59,13 +68,18 @@ def test_port_imports_no_jax():
                 "scripts.autoencoder_train_path", "scripts.time_kernels", "ops.knn", "ops.matching",
                 "engine.masks", "eval.metrics", "pipelines.vspw", "scripts.svd_pipeline_vspw",
                 "scripts.sd_pipeline_vspw", "diffusion.sampling", "diffusion.sampling_extra",
-                "diffusion.scaling", "inference.api", "scripts.api_path"}
+                "diffusion.scaling", "inference.api", "scripts.api_path", "models.t5", "models.aux_encoders",
+                "utils.safety", "utils.watermark", "eval.fid", "io.data", "utils.profiling",
+                "scripts.demo.serve", "scripts.demo.sampling", "scripts.detect_watermark"}
     assert expected <= {m.split(".", 1)[1] for m in res["modules"]}
     assert res["jax"] == []
     assert res["after_color_map"] == [] and res["palette"] == [128, 3]
     # a prompt tokenized with the port's own copy of the tiny vocabulary
     assert res["after_tokenize"] == [] and res["tokens"][0] != 0 and 0 not in res["tokens"][:5]
     assert res["vocab"].startswith(os.path.join(ROOT, "vidseg_diffusion_tpu_torch", "assets"))
+    # the CamVid palette from the port's own asset, ByT5 ids, a watermark: still no JAX
+    assert res["camvid"] == [32, 3] and res["byt5"] == [100, 35, 118, 122, 100, 113, 1, 0]
+    assert res["after_slice_14"] == []
 
 
 def test_port_sources_do_not_name_the_jax_package():
@@ -85,19 +99,25 @@ def test_port_sources_do_not_name_the_jax_package():
     assert hits == []
 
 
-def test_entry_points_default_to_the_card():
-    """build_pipeline, the CLIs (single video and both VSPW sweeps) and the
-    full-width path scripts (SVD, SD 2.1, diffusion and autoencoder training,
-    the sampling API's) run on cuda unless the caller asks for the CPU; without a card the
-    default raises instead of falling back."""
+def test_entry_points_default_to_the_card(tmp_path):
+    """build_pipeline (also with the T5 conditioner), the CLIs (single video,
+    both VSPW sweeps, the demo server and the demo sampling CLI), DemoApp,
+    prefetch_to_device and the full-width path scripts (SVD, SD 2.1,
+    diffusion and autoencoder training, the sampling API's) run on cuda
+    unless the caller asks for the CPU; without a card the default raises
+    instead of falling back."""
     import inspect
 
     import torch
+    import yaml
 
     from vidseg_diffusion_tpu_torch.engine.build import build_pipeline
     from vidseg_diffusion_tpu_torch.scripts import svd_single_video_inference as cli
     from vidseg_diffusion_tpu_torch.scripts import autoencoder_train_path, main_path, sd_path, train_path
     from vidseg_diffusion_tpu_torch.scripts import api_path, sd_pipeline_vspw, svd_pipeline_vspw
+    from vidseg_diffusion_tpu_torch.io.data import prefetch_to_device
+    from vidseg_diffusion_tpu_torch.scripts.demo import sampling as demo_cli
+    from vidseg_diffusion_tpu_torch.scripts.demo import serve
 
     assert inspect.signature(build_pipeline).parameters["device"].default == "cuda"
     for script in (main_path, sd_path, autoencoder_train_path, api_path):
@@ -110,6 +130,18 @@ def test_entry_points_default_to_the_card():
         args = sweep_cli.parse_args(["--data_root", "x", "--device", "cpu"])
         assert args.device == "cpu" and args.dtype is None   # bf16 on the card, fp32 on the CPU (build)
     assert train_path.DEVICE == "cuda"
+    for demo in (serve, demo_cli):
+        assert demo.parse_args([]).device == "cuda" and demo.parse_args(["--device", "cpu"]).device == "cpu"
+        assert demo.parse_args([]).dtype is None
+    assert inspect.signature(serve.DemoApp).parameters["device"].default == "cuda"
+    assert inspect.signature(prefetch_to_device).parameters["device"].default == "cuda"
+    t5_yaml = tmp_path / "t5.yaml"   # sd_tiny.yaml with the T5 embedder in place of OpenCLIP's
+    with open(os.path.join(ROOT, "configs/inference/sd_tiny.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model"]["params"]["conditioner_config"]["params"]["emb_models"] = [dict(
+        target="sgm.modules.encoders.modules.FrozenT5Embedder",
+        params={"t5_cfg": dict(vocab_size=64, d_model=16, d_kv=4, num_heads=4, d_ff=32, num_layers=1)})]
+    t5_yaml.write_text(yaml.safe_dump(cfg))
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             build_pipeline(os.path.join(ROOT, "configs/inference/svd_tiny.yaml"), num_steps=2, num_frames=2)
@@ -117,6 +149,13 @@ def test_entry_points_default_to_the_card():
             build_pipeline(os.path.join(ROOT, "configs/inference/sd_tiny.yaml"), num_steps=2, num_frames=2)
         with pytest.raises((RuntimeError, AssertionError)):   # the sampling API's full-width stack
             build_pipeline(os.path.join(ROOT, "configs/inference/sd_xl_base.yaml"))
+        with pytest.raises((RuntimeError, AssertionError)):   # the T5-conditioned stack, and the demo on it
+            build_pipeline(str(t5_yaml))
+        with pytest.raises((RuntimeError, AssertionError)):
+            serve.DemoApp(str(t5_yaml))
+        with pytest.raises((RuntimeError, AssertionError)):
+            next(prefetch_to_device(iter([torch.zeros(2)])))
+    assert build_pipeline(str(t5_yaml), device="cpu").kind == "t5_text"
 
 
 def test_kernel_library_without_nvcc_raises(monkeypatch, tmp_path):

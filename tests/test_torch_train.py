@@ -109,7 +109,7 @@ def test_sigma_samplers_and_lpips():
     x0 = np.random.RandomState(5).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
     jm = jlp.LPIPS()
     params = _init_tree(jm, 6, jnp.asarray(x0), jnp.asarray(x0))
-    tm = _load(tlp.LPIPS(), params, convert.autoencoder_loss_key_fn)
+    tm = _load(tlp.LPIPS(), params, convert.module_key_fn)
     jl = jloss.StandardDiffusionLoss(jden.Denoiser(jscal.EpsScaling()), jloss.EDMSigmaSampling(),
                                      weighting=jloss.eps_weighting, loss_type="lpips",
                                      lpips_fn=lambda a, b: jm.apply({"params": params}, a, b))

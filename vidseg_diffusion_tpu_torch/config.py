@@ -11,9 +11,10 @@ s_tmin / s_tmax / s_noise, eta, order), its discretization and guider
 (VanillaCFG, LinearPredictionGuider, IdentityGuider), and the conditioner's
 embedders: the SVD image conditioner, SD 2.1's OpenCLIP text embedder (layer
 'penultimate' or 'last'), SDXL's CLIP-L (layer 'hidden') + bigG (pooled)
-and the refiner's bigG, with their ConcatTimestepEmbedderND size embedders.
-Any other target raises NotImplementedError (the T5 and class conditioners
-are ROADMAP Queue A items).
+and the refiner's bigG, with their ConcatTimestepEmbedderND size embedders,
+the T5 / ByT5 text embedder (FrozenT5Embedder / FrozenByT5Embedder; the
+architecture from the checkpoint, else from params.t5_cfg) and the
+ClassEmbedder. Any other target raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from vidseg_diffusion_tpu_torch.diffusion.scaling import (
     VScalingWithEDMcNoise,
 )
 from vidseg_diffusion_tpu_torch.models.clip import CLIPTextConfig, CLIPVisionConfig
+from vidseg_diffusion_tpu_torch.models.t5 import T5Config
 from vidseg_diffusion_tpu_torch.models.unet import UNetConfig
 from vidseg_diffusion_tpu_torch.models.vae import VAEConfig
 
@@ -104,8 +106,12 @@ class ModelSpec:
     """`kind` names the conditioner: 'svd' (clip_config, the image tower),
     'sd_text' (text_config, layer 'penultimate' unless text_penultimate is
     False), 'sdxl' (text_l_config with text_l_layer_idx, and text_g_config)
-    or 'sdxl_refiner' (text_g_config); size_outdim is the SDXL size
-    embedders' width. sampler and guider are None without a sampler_config."""
+    or 'sdxl_refiner' (text_g_config), 't5_text' (t5_config, the YAML's
+    t5_cfg; a checkpoint's shapes override it) or 'class' (class_config:
+    embed_dim, n_classes, add_sequence_dim); embedder_index is the T5 or
+    class embedder's place in emb_models (its checkpoint prefix);
+    size_outdim is the SDXL size embedders' width. sampler and guider are
+    None without a sampler_config."""
 
     unet_config: UNetConfig
     vae_config: VAEConfig
@@ -122,15 +128,25 @@ class ModelSpec:
     text_l_layer_idx: int = 11
     text_g_config: Optional[CLIPTextConfig] = None
     size_outdim: int = 256
+    t5_config: Optional[T5Config] = None
+    class_config: Optional[Dict[str, Any]] = None
+    embedder_index: int = 0
 
 
 def _conditioner(root: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
     """The ModelSpec fields of the conditioner_config's embedders."""
     out: Dict[str, Any] = {}
     outdims = []
-    for emb in root.get("conditioner_config", {}).get("params", {}).get("emb_models", []):
+    for idx, emb in enumerate(root.get("conditioner_config", {}).get("params", {}).get("emb_models", [])):
         name, params = _name(emb), emb.get("params") or {}
-        if name == "FrozenOpenCLIPImagePredictionEmbedder":
+        if name in ("FrozenT5Embedder", "FrozenByT5Embedder"):
+            out["t5_config"] = T5Config(dtype=dtype, **(params.get("t5_cfg") or {}))
+            out["embedder_index"] = idx
+        elif name == "ClassEmbedder":
+            out["class_config"] = dict(embed_dim=params["embed_dim"], n_classes=params.get("n_classes", 1000),
+                                       add_sequence_dim=params.get("add_sequence_dim", False))
+            out["embedder_index"] = idx
+        elif name == "FrozenOpenCLIPImagePredictionEmbedder":
             out["clip_config"] = CLIPVisionConfig(dtype=dtype, **(params.get("vision_cfg") or {}))
         elif name == "FrozenOpenCLIPEmbedder":
             layer = params.get("layer", "last")
@@ -160,11 +176,12 @@ def _conditioner(root: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
     has = lambda k: out.get(k) is not None
     kinds = [k for k, ok in (("svd", has("clip_config")), ("sd_text", has("text_config")),
                              ("sdxl", has("text_l_config") and has("text_g_config")),
-                             ("sdxl_refiner", has("text_g_config") and not has("text_l_config"))) if ok]
+                             ("sdxl_refiner", has("text_g_config") and not has("text_l_config")),
+                             ("t5_text", has("t5_config")), ("class", has("class_config"))) if ok]
     if len(kinds) != 1 or (has("text_l_config") and not has("text_g_config")):
         raise NotImplementedError(
-            "the ported conditioners are SVD's image conditioner, SD 2.1's OpenCLIP text embedder and SDXL's "
-            "base and refiner text embedders")
+            "the ported conditioners are SVD's image conditioner, SD 2.1's OpenCLIP text embedder, SDXL's "
+            "base and refiner text embedders, the T5 / ByT5 text embedder and the ClassEmbedder, one at a time")
     out["kind"] = kinds[0]
     return out
 

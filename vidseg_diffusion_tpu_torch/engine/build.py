@@ -1,5 +1,6 @@
-"""Assemble a model stack (SVD, SD 2.1, SDXL base or refiner) from a YAML and
-a checkpoint or a seed.
+"""Assemble a model stack (SVD, SD 2.1, SDXL base or refiner, or an image
+UNet conditioned by T5 / ByT5 or a class label) from a YAML and a checkpoint
+or a seed.
 
 Counterpart of vidseg_diffusion_tpu/engine/build.py (Pipeline,
 build_pipeline, :352-430 for SDXL): the SVD stack is the video UNet, the VAE
@@ -7,10 +8,14 @@ with the temporal decoder, the OpenCLIP image tower and the
 conditioning-frame encoder; the SD 2.1 stack is the image UNet, the VAE with
 the image decoder and the OpenCLIP text tower; the SDXL base adds to the
 image UNet (per-level depth, a class embedding) the HF CLIP-L tower and the
-pooled bigG tower, the refiner the bigG tower alone. `Pipeline.conditioner`
+pooled bigG tower, the refiner the bigG tower alone; a T5 stack has the
+image UNet and an HF-named T5 encoder (build.py:453-496: its architecture
+read from the checkpoint's conditioner.embedders.{i}.transformer.*, else
+the YAML's t5_cfg), a class stack the ClassEmbedder (build.py:497-528:
+conditioner.embedders.{i}.embedding.weight). `Pipeline.conditioner`
 is the stack's conditioner and `kind` names it. With a checkpoint, the sgm
 state dict loads straight into the modules (their names are the sgm keys;
-the open_clip in_proj is split; CLIP-L keeps HF's names).
+the open_clip in_proj is split; CLIP-L and T5 keep HF's names).
 Without one, weights are random from a seed
 and scaled as the JAX package's _synthesize_params scales them
 (build.py:62-99): every parameter of rank <= 1 (biases, norm scales, mix
@@ -40,14 +45,18 @@ from vidseg_diffusion_tpu_torch.models.clip import (
     HFCLIPTextTransformer,
     clip_preprocess,
 )
+from vidseg_diffusion_tpu_torch.models.aux_encoders import ClassEmbedder
 from vidseg_diffusion_tpu_torch.models.conditioner import (
     Conditioner,
+    build_class_conditioner,
     build_sd_text_conditioner,
     build_sdxl_conditioner,
     build_sdxl_refiner_conditioner,
     build_svd_conditioner,
+    build_t5_text_conditioner,
 )
 from vidseg_diffusion_tpu_torch.models.layers import Conv2dNHWC
+from vidseg_diffusion_tpu_torch.models.t5 import T5Encoder, t5_config_from_state_dict
 from vidseg_diffusion_tpu_torch.models.unet import UNetModel
 from vidseg_diffusion_tpu_torch.models.vae import Decoder, Encoder, gaussian_sample
 
@@ -91,7 +100,8 @@ def _sub(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
 class Pipeline:
     """A model stack on one device: `clip` and `cond_encoder` are the SVD
     conditioner's towers, `text` SD 2.1's, `text_l` and `text_g` SDXL's
-    (the refiner has text_g alone); `conditioner` runs them."""
+    (the refiner has text_g alone), `t5` the T5 stack's, `class_embedder`
+    the class stack's; `conditioner` runs them."""
 
     spec: ModelSpec
     unet: UNetModel
@@ -102,11 +112,13 @@ class Pipeline:
     text: Optional[CLIPTextTransformer] = None
     text_l: Optional[HFCLIPTextTransformer] = None
     text_g: Optional[CLIPTextTransformer] = None
+    t5: Optional[T5Encoder] = None
+    class_embedder: Optional[ClassEmbedder] = None
     conditioner: Optional[Conditioner] = None
 
     @property
     def kind(self) -> str:
-        """'svd', 'sd_text', 'sdxl' or 'sdxl_refiner'."""
+        """'svd', 'sd_text', 'sdxl', 'sdxl_refiner', 't5_text' or 'class'."""
         return self.spec.kind
 
     def make_engine(self, mod_cfg: ModulationConfig, harvest: HarvestSpec) -> VidSegEngine:
@@ -138,8 +150,13 @@ class Pipeline:
 
     @torch.no_grad()
     def clip_apply(self, tokens) -> torch.Tensor:
-        """SD 2.1 text conditioning: token ids [b, 77] -> [b, 77, width]."""
-        return self.text(torch.as_tensor(tokens).to(self.device))
+        """The one conditioning tower of an SD 2.1, T5 or class stack: token
+        ids [b, 77] -> [b, 77, width] (SD 2.1), ids [b, l] -> [b, l, d_model]
+        (T5), labels -> embeddings (class)."""
+        tower = {"sd_text": self.text, "t5_text": self.t5, "class": self.class_embedder}.get(self.kind)
+        if tower is None:
+            raise ValueError(f"clip_apply needs an SD 2.1, T5 or class stack, not {self.kind!r}")
+        return tower(torch.as_tensor(tokens).to(self.device))
 
 
 def _towers(spec: ModelSpec):
@@ -150,6 +167,11 @@ def _towers(spec: ModelSpec):
     if spec.kind == "sd_text":
         return {"text": (CLIPTextTransformer(spec.text_config, penultimate=spec.text_penultimate),
                          "conditioner.embedders.0.model.")}
+    if spec.kind == "t5_text":
+        return {"t5": (T5Encoder(spec.t5_config), f"conditioner.embedders.{spec.embedder_index}.transformer.")}
+    if spec.kind == "class":
+        return {"class_embedder": (ClassEmbedder(**spec.class_config),
+                                   f"conditioner.embedders.{spec.embedder_index}.")}
     g = CLIPTextTransformer(spec.text_g_config, return_pooled=True)
     if spec.kind == "sdxl_refiner":
         return {"text_g": (g, "conditioner.embedders.0.model.")}
@@ -164,6 +186,10 @@ def _conditioner(pipe: Pipeline) -> Conditioner:
                                      lambda f: gaussian_sample(pipe.cond_encoder(f)))
     if pipe.kind == "sd_text":
         return build_sd_text_conditioner(pipe.text)
+    if pipe.kind == "t5_text":
+        return build_t5_text_conditioner(pipe.t5)
+    if pipe.kind == "class":
+        return build_class_conditioner(pipe.class_embedder)
     if pipe.kind == "sdxl_refiner":
         return build_sdxl_refiner_conditioner(pipe.text_g, pipe.spec.size_outdim)
     return build_sdxl_conditioner(pipe.text_l, pipe.text_g, pipe.spec.size_outdim)
@@ -179,11 +205,21 @@ def build_pipeline(config_path: str, ckpt_path: Optional[str] = None,
     raises."""
     device = torch.device(device)
     spec = load_model_spec(config_path, num_steps=num_steps, num_frames=num_frames, dtype=dtype)
+    if ckpt_path is not None and not os.path.exists(ckpt_path):
+        raise FileNotFoundError(ckpt_path)
+    ckpt = ckpt_path or (spec.ckpt_path if spec.ckpt_path and os.path.exists(spec.ckpt_path) else None)
+    sd = _load_checkpoint(ckpt) if ckpt else None
+    if sd is not None and spec.kind == "t5_text":
+        # the reference YAMLs name only the HF version: the architecture is the checkpoint's
+        t5_sd = _sub(sd, f"conditioner.embedders.{spec.embedder_index}.transformer.")
+        spec = dataclasses.replace(spec, t5_config=t5_config_from_state_dict(t5_sd, dtype))
     video = spec.kind == "svd"
-    # built without storage, then given uninitialised storage on the device: the
-    # checkpoint or randomize_ writes every parameter (the modules hold no
-    # buffers), so no default initialisation runs and no full-width stack passes
-    # through host memory
+    # built without storage, then given uninitialised storage in `dtype` on the
+    # device: the checkpoint or randomize_ writes every parameter (the modules
+    # hold no buffers), so no default initialisation runs, no full-width stack
+    # passes through host memory and none is held in fp32 on the way to bf16
+    # (19 GB for T5-XXL); a load or randomize_'s fp32 draw rounds once into the
+    # parameter, as a cast afterwards would
     with torch.device("meta"):
         unet = UNetModel(spec.unet_config)
         enc, dec = Encoder(spec.vae_config), Decoder(spec.vae_config)
@@ -191,14 +227,10 @@ def build_pipeline(config_path: str, ckpt_path: Optional[str] = None,
         cond_enc = Encoder(spec.vae_config) if video else None
     modules = [unet, enc, dec] + [m for m, _ in towers.values()] + ([cond_enc] if video else [])
     for m in modules:
-        m.to_empty(device=device)
+        m.to(dtype=dtype).to_empty(device=device)
     quant = post_quant = None
 
-    if ckpt_path is not None and not os.path.exists(ckpt_path):
-        raise FileNotFoundError(ckpt_path)
-    ckpt = ckpt_path or (spec.ckpt_path if spec.ckpt_path and os.path.exists(spec.ckpt_path) else None)
-    if ckpt:
-        sd = _load_checkpoint(ckpt)
+    if sd is not None:
         unet.load_state_dict(_sub(sd, "model.diffusion_model."))
         enc.load_state_dict(_sub(sd, "first_stage_model.encoder."))
         dec.load_state_dict(_sub(sd, "first_stage_model.decoder."))
@@ -223,14 +255,11 @@ def build_pipeline(config_path: str, ckpt_path: Optional[str] = None,
     else:
         gen = torch.Generator(device=device)
         for i, m in enumerate([unet, enc, dec] + [m for m, _ in towers.values()]):
-            m.to(device=device)
             randomize_(m, gen.manual_seed(seed * 1000 + i + 1))
-            m.to(dtype=dtype)
         if video:
             # the JAX package's random build reuses the first-stage encoder
             # weights for the conditioning-frame encoder
             cond_enc.load_state_dict(enc.state_dict())
-            cond_enc.to(device=device, dtype=dtype)
     for m in modules:
         m.eval().requires_grad_(False)
     first_stage = FirstStage(enc, dec, spec.scale_factor, quant, post_quant)

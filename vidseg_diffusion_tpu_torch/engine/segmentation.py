@@ -66,3 +66,12 @@ def soft_color_map(n: int = 128, seed: int = 0) -> np.ndarray:
     val = 0.75 + 0.2 * rng.rand(extra)
     rgb = np.array([colorsys.hsv_to_rgb(h, s, v) for h, s, v in zip(hues, sat, val)])
     return np.concatenate([base, (rgb * 255).astype(np.uint8)], axis=0)
+
+
+def camvid_color_map() -> np.ndarray:
+    """The CamVid palette, [32, 3] uint8 (the reference's
+    scripts/util/color_map_camvid.txt; the package's own copy in
+    assets/color_map_camvid.txt)."""
+    table = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "assets", "color_map_camvid.txt")
+    return np.loadtxt(table, delimiter=",", dtype=np.int64).astype(np.uint8)

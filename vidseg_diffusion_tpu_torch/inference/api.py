@@ -3,7 +3,8 @@
 
 `SamplingParams` / `VideoSamplingParams` and the `Sampler` / `Discretization`
 / `Guider` enums; `SamplingPipeline` over a built Pipeline:
-`text_to_image` (SD 2.1 or the SDXL base; `txt2noisy_strength` stops the
+`text_to_image` (SD 2.1, the SDXL base, or an image UNet conditioned by T5
+ids or class labels [b, 1]; `txt2noisy_strength` stops the
 loop at a nonzero sigma, `return_latents` hands the latents on),
 `image_to_image`, `refiner` (the SDXL refiner on base latents, `add_noise`
 False to finish a noisy handoff) and `image_to_video` (SVD). Randomness comes
@@ -221,9 +222,13 @@ class SamplingPipeline:
     def make_cond(self, params: SamplingParams, prompt_tokens, negative_prompt_tokens, batch_size: int):
         """(c, uc) of the CFG pair, each repeated to batch_size. uc's prompt is
         the negative one, by default the empty prompt framed with the prompt's
-        own SOT / EOT ids (EOT the largest id). SD 2.1: the text tower's
-        crossattn. SDXL base: the dual-text conditioner with the size / crop /
-        target-size vector, uc's text outputs zeroed (hidden and pooled);
+        own SOT / EOT ids (EOT the largest id): zeros, column 0 the prompt's
+        first id, column 1 its largest, as JAX builds it for every kind (for
+        T5 ids too; for labels [b, 1] column 1 does not exist, JAX's scatter
+        drops it, so the default negative is the label itself). SD 2.1, T5,
+        class: the one tower's output (`clip_apply`) as crossattn. SDXL base:
+        the dual-text conditioner with the size / crop / target-size vector,
+        uc's text outputs zeroed (hidden and pooled);
         refiner: the aesthetic score (negative for uc), uc's text not zeroed
         (the reference calls its img2img with force_uc_zero_embeddings=[])."""
         p = self.pipeline
@@ -231,7 +236,8 @@ class SamplingPipeline:
         if negative_prompt_tokens is None:
             neg = torch.zeros_like(pt)
             neg[:, 0] = pt[:, 0]
-            neg[:, 1] = pt.max(dim=1).values
+            if pt.shape[1] > 1:
+                neg[:, 1] = pt.max(dim=1).values
         else:
             neg = self._tokens(negative_prompt_tokens)
         rep = lambda d: {k: torch.repeat_interleave(v, batch_size, dim=0) for k, v in d.items()}
@@ -252,8 +258,8 @@ class SamplingPipeline:
             c, uc = p.conditioner.get_unconditional_conditioning(
                 batch_c, batch_uc, force_uc_zero_embeddings=[] if refiner else ["txt_tokens"])
             return rep(c), rep(uc)
-        if p.kind != "sd_text":
-            raise ValueError(f"text conditioning needs a text pipeline, not {p.kind!r}")
+        if p.kind not in ("sd_text", "t5_text", "class"):
+            raise ValueError(f"text conditioning needs a text or class pipeline, not {p.kind!r}")
         return rep({"crossattn": p.clip_apply(pt)}), rep({"crossattn": p.clip_apply(neg)})
 
     def decode(self, z: torch.Tensor, chunk: Optional[int] = None) -> torch.Tensor:

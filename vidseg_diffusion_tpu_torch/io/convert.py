@@ -4,12 +4,14 @@ The port's modules carry the reference's sgm / open_clip state-dict key
 names, the names the JAX package's io/checkpoint.py key functions map its
 flax paths to. This module holds those key functions (unet, image or video;
 vae, image or video decoder; clip vision; clip text, open_clip and HF CLIP-L
-(hf_clip_text_key_fn): the same rules, without the JAX package's jax imports; the VAE's also names the VideoAttnBlock's
+(hf_clip_text_key_fn); T5 / ByT5 under HF T5EncoderModel's names
+(t5_key_fn): the same rules, without the JAX package's jax imports; the VAE's also names the VideoAttnBlock's
 parameters as the reference does, which the JAX package's does not) and
 turns a flax parameter tree (nested dicts of numpy arrays) into a state dict
 for the port. The autoencoder-training losses (LPIPS with its VGG16 trunk,
-the PatchGAN discriminator) keep the flax module names, so their key
-function only joins the path:
+the PatchGAN discriminator), the ClassEmbedder (`embedding.weight`) and the
+SpatialRescaler's `channel_mapper` keep the flax module names, so their key
+function (module_key_fn) only joins the path:
 
     Dense kernel [in, out]                  -> Linear weight [out, in]
     Conv kernel HWIO [kh, kw, in, out]      -> Conv2d weight OIHW
@@ -165,10 +167,35 @@ def hf_clip_text_key_fn(path: Path) -> str:
     return ".".join(segs + [_LEAF[leaf]])
 
 
-def autoencoder_loss_key_fn(path: Path) -> str:
-    """flax path -> key of the port's LPIPS (vgg.conv_{i}, lin_{i}) or
-    NLayerDiscriminator (conv0, conv{i}, norm{i}, conv_out)."""
+def module_key_fn(path: Path) -> str:
+    """flax path -> key of a port module named as its flax module: LPIPS
+    (vgg.conv_{i}, lin_{i}), NLayerDiscriminator (conv0, conv{i}, norm{i},
+    conv_out), ClassEmbedder (embedding.weight), SpatialRescaler
+    (channel_mapper.weight / .bias)."""
     return ".".join(path[:-1] + (_LEAF[path[-1]],))
+
+
+_T5_SUB = {"attn_q": "layer.0.SelfAttention.q", "attn_k": "layer.0.SelfAttention.k",
+           "attn_v": "layer.0.SelfAttention.v", "attn_o": "layer.0.SelfAttention.o",
+           "ln_attn": "layer.0.layer_norm", "wi": "layer.1.DenseReluDense.wi",
+           "wi_0": "layer.1.DenseReluDense.wi_0", "wi_1": "layer.1.DenseReluDense.wi_1",
+           "wo": "layer.1.DenseReluDense.wo", "ln_ff": "layer.1.layer_norm"}
+
+
+def t5_key_fn(path: Path) -> str:
+    """flax path of the JAX T5Encoder -> HF T5EncoderModel key (the port's
+    models/t5.py names)."""
+    name = path[0]
+    if name == "token_embedding":
+        return "shared.weight"
+    if name == "rel_bias":
+        return "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+    if name == "ln_final":
+        return "encoder.final_layer_norm.weight"
+    m = re.match(r"block_(\d+)$", name)
+    if m:
+        return f"encoder.block.{m.group(1)}.{_T5_SUB[path[1]]}.weight"
+    raise KeyError(f"unmapped T5 path {path}")
 
 
 def _flatten(tree: Dict, prefix: Path = ()) -> Dict[Path, np.ndarray]:

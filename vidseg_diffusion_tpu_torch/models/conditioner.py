@@ -8,8 +8,11 @@ mode-encoding of the noised first frame -> concat [b, h, w, 4]); SD 2.1's one
 OpenCLIP text embedder (token ids -> crossattn [b, 77, 1024]); SDXL's base
 (CLIP-L 768 | bigG 1280 -> crossattn 2048; vector = bigG pooled 1280 | orig
 512 | crop 512 | target 512 = 2816) and refiner (bigG only -> crossattn 1280;
-vector = pooled 1280 | orig | crop | aesthetic 256 = 2560). An embedder may
-emit several outputs (bigG: hidden and pooled). Outputs route by rank (2 ->
+vector = pooled 1280 | orig | crop | aesthetic 256 = 2560); the T5 / ByT5
+text conditioner (ids 'txt_t5_tokens' -> crossattn [b, l, d_model]) and the
+class conditioner (labels 'cls' -> vector, or crossattn with
+add_sequence_dim). An embedder may emit several outputs (bigG: hidden and
+pooled; the CLIP + T5 pair). Outputs route by rank (2 ->
 vector, 3 -> crossattn, 4 -> concat) and concatenate in embedder order.
 """
 
@@ -56,6 +59,15 @@ def _route(out: Batch, emb: torch.Tensor) -> None:
 @dataclasses.dataclass(frozen=True)
 class Conditioner:
     embedders: Tuple[EmbedderSpec, ...]
+
+    def __call__(self, batch: Batch, force_zero_embeddings: Sequence[str] = ()) -> Batch:
+        """Every embedder on its input key, routed; the outputs of the
+        force-zero keys zeroed (modules.py:142-157)."""
+        out: Batch = {}
+        for spec in self.embedders:
+            for e in _outputs(spec, batch[spec.input_key]):
+                _route(out, torch.zeros_like(e) if spec.input_key in force_zero_embeddings else e)
+        return out
 
     def get_unconditional_conditioning(self, batch_c: Batch, batch_uc: Optional[Batch] = None,
                                        force_uc_zero_embeddings: Sequence[str] = (),
@@ -124,3 +136,15 @@ def build_sdxl_refiner_conditioner(clip_g_fn: Callable, size_outdim: int = 256) 
     embedder replaced by the aesthetic score's."""
     return Conditioner(embedders=(EmbedderSpec("txt_tokens", clip_g_fn),)
                        + _sizes(("original_size_as_tuple", "crop_coords_top_left", "aesthetic_score"), size_outdim))
+
+
+def build_t5_text_conditioner(t5_fn: Callable[[torch.Tensor], torch.Tensor]) -> Conditioner:
+    """FrozenT5Embedder / FrozenByT5Embedder (modules.py:249-328): ids
+    'txt_t5_tokens' [b, l] -> the last hidden state [b, l, d_model]."""
+    return Conditioner(embedders=(EmbedderSpec("txt_t5_tokens", t5_fn),))
+
+
+def build_class_conditioner(class_fn: Callable[[torch.Tensor], torch.Tensor]) -> Conditioner:
+    """ClassEmbedder (modules.py:215-234): labels 'cls' -> an embedding,
+    routed by rank (vector, or crossattn with add_sequence_dim)."""
+    return Conditioner(embedders=(EmbedderSpec("cls", class_fn),))

@@ -7,7 +7,7 @@ GeneralLPIPSWithDiscriminator with the NLayerDiscriminator and the hinge /
 vanilla losses). The convolutions are library convolutions, as JAX's nn.Conv
 are: no Pallas kernel runs here. Module names are the flax module names
 (vgg.conv_{i}, lin_{i}; conv0, conv{i}, norm{i}, conv_out), which
-io/convert.py's autoencoder_loss_key_fn maps; the JAX package loads no
+io/convert.py's module_key_fn maps; the JAX package loads no
 checkpoint into these modules either.
 
 Three places where the JAX modules differ from a plain torch transcription,
