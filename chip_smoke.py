@@ -7,10 +7,11 @@ Phases, in order; any failure exits non-zero:
 1. card: print `nvidia-smi --query-gpu=name,power.limit`.
 2. build: compile the kernels from vidseg_diffusion_tpu_torch/csrc with nvcc
    (one process per source, in parallel).
-3. kernels: each kernel (K1-K13 and the one-launch GroupNorm forward)
-   against its plain PyTorch version on the same inputs at the shapes of its
-   path (K1-K4, K7, K8, the fused K7+K8, K11, K12 inference; K5, K6, K9, K10
-   and K4's dx launch training; bf16, the GroupNorm kernels, K4, K11 and K12
+3. kernels: each kernel (K1-K13, the one-launch GroupNorm forward and the
+   GroupNorm backward's slab kernel) against its plain PyTorch version on the
+   same inputs at the shapes of its path (K1-K4, K7, K8, the fused K7+K8, K11,
+   K12 inference; K5, K6, the slab kernel, K9, K10 and K4's dx launch training,
+   each backward case labelled with its site's backward route; bf16, the GroupNorm kernels, K4, K11 and K12
    also fp32; K1 also at the SD cross-attention's 77 keys; K4 also at one and
    two frames, one token a frame, one tap and Cin != Cout);
    errors within the stated bounds; kernel and plain times with CUDA events
@@ -90,18 +91,22 @@ Phases, in order; any failure exits non-zero:
    TRAIN_STEPS steps; every logged loss finite and p_loss > 0, every gradient
    finite, the mid attentions' q/k/v gradients non-zero, the last Adam step of
    both phases taken by every parameter with a gradient (check_adam_step),
-   K3 = K13 = 2 and K7 = K8 = K9 = K10 = the first stage's GroupNorm modules
-   per step, every other kernel 0 and no plain version called; step time and
-   peak memory.
+   K3 = K13 = 2, one GroupNorm forward and one backward per first-stage
+   GroupNorm module per step (52: the backward on the slab kernel or on K9 +
+   K10 by the route ops.norm.group_norm_backward_route gives the module's
+   input; the slab kernel's .cluster_launches those on a cluster), every
+   other kernel 0 and no plain version called; step time and peak memory.
 11. train: the full-width training step of
    vidseg_diffusion_tpu_torch/scripts/train_path.py (svd.yaml UNet, bf16,
    remat, 2 x 14 frames of 56x104 latents, Adam, EMA): a warm-up step, then
    TRAIN_STEPS steps; the loss finite at every step, every gradient finite,
    the self-attention q/k/v projections' gradients non-zero (spatial and
    temporal), the last step taken by every parameter with a gradient and
-   by the EMA (check_last_update), K1, K2, K4, K5, K6, K7-K10, K11 and K12
-   launched exactly as often as a remat step of these modules implies
-   (train_launches) and no plain version called; step time and peak memory.
+   by the EMA (check_last_update), K1, K2, K4, K5, K6, K7, K8, K11, K12 and
+   the GroupNorm backward (105 a step, on the slab kernel or K9 + K10 by
+   route, as in ae_train) launched exactly as often as a remat step of these
+   modules implies (train_launches) and no plain version called; step time
+   and peak memory.
 12. route_probe (right after the kernels): ROADMAP section C on the card: a
    bf16 bhld D = 512 attention of 300 tokens runs mha_reference_site (no
    normalise-first kernel takes D = 512), within one bf16 step of the CPU
@@ -160,8 +165,9 @@ Phases, in order; any failure exits non-zero:
    512x512 through scripts/api_path.py: the inversion of an encoded image over
    a 4-step schedule (its first sigma raised to the denoiser table's smallest),
    null_text_optimization with 3 inner steps under autograd (K1 with its LSE
-   and K5, mha_reference_site at the 77-key sites of 4096 and 1024 queries, K9
-   + K10), edit with its window at steps 1-2: the summed loss falls, the uc
+   and K5, mha_reference_site at the 77-key sites of 4096 and 1024 queries, the
+   GroupNorm backward: 696 backwards, by route on the slab kernel or K9 + K10),
+   edit with its window at steps 1-2: the summed loss falls, the uc
    finite, both decodes finite before the clamp, the edit apart from the base
    run; 30 UNet calls; launches by kernel and route as the module calls imply
    (hooked_launches, from calls counted only inside these API runs).
@@ -278,6 +284,12 @@ KERNELS = {
         id="K7+K8", source="vidseg_diffusion_tpu_torch/csrc/group_norm.cu",
         replaces="vidseg_diffusion_tpu/ops/norm.py:183", rms_tol=5e-4,
     ),
+    # K9 + K10 in one launch where one sample's slab of x and dy fits in the shared memory of a
+    # block or a cluster: JAX's _gn_bwd_pallas runs both pallas_calls (the stats at :258, the apply at :294)
+    "group_norm_backward_slab": dict(
+        id="K9+K10 slab", source="vidseg_diffusion_tpu_torch/csrc/group_norm_bwd.cu",
+        replaces="vidseg_diffusion_tpu/ops/norm.py:258", rms_tol=5e-4,
+    ),
     "group_norm_backward_stats": dict(
         id="K9", source="vidseg_diffusion_tpu_torch/csrc/group_norm_bwd.cu",
         replaces="vidseg_diffusion_tpu/ops/norm.py:258", rms_tol=5e-4,
@@ -355,8 +367,8 @@ INFERENCE_KERNELS = ("flash_attention_packed", "temporal_attention_direct", "fla
                      "matmul_bias", "conv3x3_same")
 TRAIN_KERNELS = ("flash_attention_packed", "temporal_attention_direct", "temporal_conv_1x1",
                  "flash_attention_packed_backward", "temporal_attention_direct_backward",
-                 "group_norm_stats", "group_norm_apply", "group_norm_fused", "group_norm_backward_stats",
-                 "group_norm_backward_apply", "matmul_bias", "conv3x3_same")
+                 "group_norm_stats", "group_norm_apply", "group_norm_fused", "group_norm_backward_slab",
+                 "group_norm_backward_stats", "group_norm_backward_apply", "matmul_bias", "conv3x3_same")
 AE_KERNELS = ("flash_attention_backward",)   # the kernels whose path is autoencoder training
 # the normalise-first launches of a path: CLIP's 32 layers once a video (K3 at D
 # = 80); the SD 2.1 UNet's 10 cross-attention sites with 5824 or 1456 queries
@@ -437,8 +449,9 @@ HEADLINE = {  # the shape of its path each kernel is timed at
     "group_norm_stats": "UNet ds1 [28,56,104,320]",
     "group_norm_apply": "UNet ds1 [28,56,104,320]",
     "group_norm_fused": "UNet mid [28,7,13,1280]",
-    "group_norm_backward_stats": "UNet ds1 [28,56,104,320]",
-    "group_norm_backward_apply": "UNet ds1 [28,56,104,320]",
+    "group_norm_backward_slab": "UNet ds2 [28,28,52,640] (backward: cluster 2)",
+    "group_norm_backward_stats": "UNet time_stack [2,14,56,104,320] (backward: stream)",
+    "group_norm_backward_apply": "UNet time_stack [2,14,56,104,320] (backward: stream)",
     "matmul_bias": "ds1 to_q [163072,320->320]",
     "conv3x3_same": "ds1 [28,56,104,320->320]",
     "flash_attention_backward": "VAE mid [2,1,5824,512]",
@@ -459,8 +472,8 @@ HEADLINE = {  # the shape of its path each kernel is timed at
 # launches of one training step (remat on: every ResBlock and transformer runs
 # its forward twice, in the step's forward and in the backward's recompute):
 # 16 spatial and 16 temporal self-attention sites x 2 forwards and 1 backward;
-# 44 temporal convs x (2 forwards + the dx launch of the backward). K7-K10,
-# K11 and K12 are reckoned from the modules (train_launches).
+# 44 temporal convs x (2 forwards + the dx launch of the backward). The
+# GroupNorm kernels, K11 and K12 are reckoned from the modules (train_launches).
 TRAIN_LAUNCHES = {"flash_attention_packed": 32, "temporal_attention_direct": 32,
                   "flash_attention_packed_backward": 16, "temporal_attention_direct_backward": 16,
                   "temporal_conv_1x1": 132}
@@ -1064,7 +1077,7 @@ def gemm_cases(torch, rn, projections=None, convs=None):
 
 
 def group_norm_cases(torch, rn, sites=None):
-    """K7-K10 at the GroupNorm sites of the main paths: the UNet's ResBlock
+    """K7-K10 and the backward's slab kernel at the GroupNorm sites of the main paths: the UNet's ResBlock
     norms (SiLU, eps 1e-5; [28, H, W, C] per level, the output blocks' skip
     concatenations, the time_stack's 5-D [2, 14, H, W, C] whose statistics
     span (t, H, W)), its transformer norms (no SiLU, eps 1e-6) and the VAE's
@@ -1081,7 +1094,15 @@ def group_norm_cases(torch, rn, sites=None):
     ops.norm.group_norm_route sends a site to the one-launch kernel
     (group_norm_fused: ds2, ds4, mid, ds8 and the ds8 time_stack), that kernel
     is held to the plain forward too (y, a, s, mean, inv), and its statistics
-    to fp64."""
+    to fp64. Where ops.norm.group_norm_backward_route sends a site's backward
+    to the slab kernel (one launch on a block or a cluster of n: the UNet
+    from ds2 down, the ds4 time_stack, the inversion's ds1 concat at 512 x
+    512 and the autoencoder step's 112 x 208 x 512, the last three on clusters
+    of 4, 16 and 8), it is held to the plain backward (dx, dweight, dbias); K9
+    and K10, the stream route, run at every site (at a slab site, what that
+    route would cost there). The backward
+    cases' labels carry the site's backward route; their bound is x and dy
+    read once and dx written once."""
     import torch.nn.functional as F
 
     from vidseg_diffusion_tpu_torch.ops import norm as N
@@ -1103,6 +1124,9 @@ def group_norm_cases(torch, rn, sites=None):
         ("UNet ds1 [28,56,104,320] fp32", (28, 56, 104, 320), f32, True, 1e-5),
         ("UNet mid [28,7,13,1280] fp32", (28, 7, 13, 1280), f32, False, 1e-6),
         ("UNet time_stack [2,14,56,104,320] fp32", (2, 14, 56, 104, 320), f32, True, 1e-5),
+        ("UNet time_stack ds4 [2,14,14,26,1280]", (2, 14, 14, 26, 1280), bf, True, 1e-5),
+        ("SD 2.1 NTI ds1 concat [2,64,64,960]", (2, 64, 64, 960), bf, True, 1e-5),
+        ("autoencoder [2,112,208,512]", (2, 112, 208, 512), bf, True, 1e-6),
     ]
     groups = 32
     cases = []
@@ -1112,6 +1136,8 @@ def group_norm_cases(torch, rn, sites=None):
         for d in shape:
             n *= d
         fused = N.group_norm_route(shape[0], n // (shape[0] * c), c, groups, item, True)[0] == "fused"
+        bwd_route, plan = N.group_norm_backward_route(shape[0], n // (shape[0] * c), c, groups, item, True)
+        bwd_label = f"{label} (backward: {bwd_route}{f' {plan.n}' if bwd_route == 'cluster' else ''})"
 
         def inputs(shape=shape, dtype=dtype, silu=silu, eps=eps, shared=shared, label=label, fused=fused):
             if shared:
@@ -1156,19 +1182,24 @@ def group_norm_cases(torch, rn, sites=None):
             plain=lambda x, a, s, silu=silu: N.group_norm_apply_plain(x, a, s, silu),
             work=(2 * n * item + 2 * small, (8 if silu else 2) * n, "fp32"),
             library=lambda *a, shared=shared: shared["library"]["forward"], library_covers="K7+K8", **common))
+        backward = dict(common, label=bwd_label, library_covers="K9+K10",
+                        library=lambda *a, shared=shared: shared["library"]["backward"])
+        if bwd_route != "stream":
+            cases.append(dict(
+                kernel="group_norm_backward_slab", make=pick("x", "dy", "w", "a", "s", "mean", "inv"),
+                kern=lambda *a, silu=silu: N.group_norm_backward_slab(*a, groups, silu),
+                plain=lambda *a, silu=silu: N.group_norm_backward_plain(*a, groups, silu),
+                work=(3 * n * item + 7 * small, (30 if silu else 7) * n, "fp32"), **backward))
         cases.append(dict(
             kernel="group_norm_backward_stats", make=pick("x", "dy", "w", "a", "s", "mean", "inv"),
             kern=lambda *a, silu=silu: split_coef(N.group_norm_backward_stats(*a, groups, silu)),
             plain=lambda *a, silu=silu: split_coef(N.group_norm_backward_coef_plain(*a, groups, silu)),
-            work=(2 * n * item + 7 * small, (14 if silu else 3) * n, "fp32"),
-            library=lambda *a, shared=shared: shared["library"]["backward"], library_covers="K9+K10", **common))
+            work=(2 * n * item + 7 * small, (14 if silu else 3) * n, "fp32"), **backward))
         cases.append(dict(
             kernel="group_norm_backward_apply", make=pick("x", "dy", "a", "s", "coef"),
             kern=lambda *a, silu=silu: N.group_norm_backward_apply(*a, silu),
             plain=lambda *a, silu=silu: N.group_norm_backward_apply_plain(*a, silu),
-            work=(3 * n * item + 5 * small, (16 if silu else 4) * n, "fp32"),
-            library=lambda *a, shared=shared: shared["library"]["backward"], library_covers="K9+K10",
-            after=free, **common))
+            work=(3 * n * item + 5 * small, (16 if silu else 4) * n, "fp32"), after=free, **backward))
     return cases
 
 
@@ -1565,13 +1596,18 @@ def kernel_fns():
 ROUTED = ("flash_attention_packed", "flash_attention", "temporal_conv_1x1", "matmul_bias",
           "temporal_attention_direct", "temporal_attention_direct_backward", "flash_attention_packed_backward",
           "flash_attention_backward")
-ROUTE_NAMES = ("wgmma", "narrow", "mma", "normalised", "wide")
+ROUTE_NAMES = ("wgmma", "narrow", "mma", "normalised", "wide", "cluster")
 GN_ROUTES = {"fused": 0, "stream": 0}   # GroupNorm32 calls per route since reset_counts()
+# the backward's route (ops.norm.group_norm_backward_route) of each GroupNorm32 module that
+# ran under a gradient since reset_counts(), by id (a remat step runs a module's forward
+# twice and its backward once, so training reckons the backwards from the modules)
+GN_BWD_OF = {}
+GN_BWD_RUNS = {}   # tag -> the backwards of its run by route
 # module calls since reset_counts() inside counting_calls, for the launches the
 # sampling-API runs imply (api_launches): spatial CrossAttention calls by (site_route, under a gradient),
-# GroupNorm32 calls under a gradient, CrossAttention (K11) and UNet ResBlock (K12)
-# calls, VAE Encoder / Decoder calls (each one K3 at its mid attention)
-CALLS = {"attn": {}, "gn_grad": 0, "xattn": 0, "res": 0, "vae": 0}
+# GroupNorm32 calls under a gradient (and by the backward's route), CrossAttention (K11)
+# and UNet ResBlock (K12) calls, VAE Encoder / Decoder calls (each one K3 at its mid attention)
+CALLS = {"attn": {}, "gn_grad": 0, "gn_bwd": {}, "xattn": 0, "res": 0, "vae": 0}
 
 
 HOOKS = {}   # the forward pre-hooks module_hooks() binds in main, by name
@@ -1582,7 +1618,8 @@ def module_hooks():
     port is imported only after a card is found): "group_norm_route",
     registered for the whole run, counts a GroupNorm32 call under the route
     ops.norm.group_norm_route gives its input (a strided input is copied, and
-    the copy is aligned); "api_calls", registered only around the sampling-API
+    the copy is aligned) and, under a gradient, keeps the route
+    ops.norm.group_norm_backward_route gives it (GN_BWD_OF); "api_calls", registered only around the sampling-API
     runs that reckon their launches from it (`counting_calls`), counts CALLS."""
     import torch
 
@@ -1594,20 +1631,29 @@ def module_hooks():
 
     vae = (Encoder, Decoder)
 
+    def routes(module, x):
+        """(forward route, backward route) of a GroupNorm32 call."""
+        b, c = x.shape[0], x.shape[-1]
+        aligned = not x.is_contiguous() or x.data_ptr() % 16 == 0
+        shape = (b, x.numel() // (b * c), c, module.groups, x.element_size(), aligned)
+        return N.group_norm_route(*shape)[0], N.group_norm_backward_route(*shape)[0]
+
     def group_norm_route(module, args):
         if isinstance(module, GroupNorm32):
-            x = args[0]
-            b, c = x.shape[0], x.shape[-1]
-            aligned = not x.is_contiguous() or x.data_ptr() % 16 == 0
-            GN_ROUTES[N.group_norm_route(b, x.numel() // (b * c), c, module.groups, x.element_size(),
-                                         aligned)[0]] += 1
+            forward, backward = routes(module, args[0])
+            GN_ROUTES[forward] += 1
+            if grad(args[0], module.weight, module.bias):
+                GN_BWD_OF[id(module)] = backward
 
     def grad(*xs):
         return torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in xs)
 
     def api_calls(module, args):
         if isinstance(module, GroupNorm32):
-            CALLS["gn_grad"] += grad(args[0])
+            if grad(args[0]):
+                CALLS["gn_grad"] += 1
+                route = routes(module, args[0])[1]
+                CALLS["gn_bwd"][route] = CALLS["gn_bwd"].get(route, 0) + 1
         elif isinstance(module, CrossAttention):
             CALLS["xattn"] += 1
             if not module.temporal:
@@ -1651,7 +1697,8 @@ def reset_counts():
     A.mha_reference_site.calls = 0
     N.group_norm.copies = 0
     GN_ROUTES.update(fused=0, stream=0)
-    CALLS.update(attn={}, gn_grad=0, xattn=0, res=0, vae=0)
+    GN_BWD_OF.clear()
+    CALLS.update(attn={}, gn_grad=0, gn_bwd={}, xattn=0, res=0, vae=0)
 
 
 def read_routes():
@@ -1739,6 +1786,36 @@ def group_norm_expected(tag, n_gn):
             "group_norm_fused": GN_ROUTES["fused"]}
 
 
+def group_norm_backward_expected(tag, by_route, n_bwd):
+    """The backward's launches by route ({"fused" / "cluster" / "stream":
+    backwards}, which must sum to the n_bwd the modules imply): the slab kernel
+    once per backward on "fused" and "cluster" (the latter also on its
+    .cluster_launches), K9 and K10 once each per backward on "stream"."""
+    from vidseg_diffusion_tpu_torch.ops import norm as N
+
+    by_route = {r: by_route.get(r, 0) for r in ("fused", "cluster", "stream")}
+    check(sum(by_route.values()) == n_bwd, f"[{tag}] GroupNorm backwards by route {by_route}, expected {n_bwd} in all")
+    check(N.group_norm_backward_slab.cluster_launches == by_route["cluster"],
+          f"[{tag}] slab kernel launches on a cluster {N.group_norm_backward_slab.cluster_launches}, "
+          f"expected {by_route['cluster']}")
+    GN_BWD_RUNS[tag] = by_route
+    return {"group_norm_backward_slab": by_route["fused"] + by_route["cluster"],
+            "group_norm_backward_stats": by_route["stream"], "group_norm_backward_apply": by_route["stream"]}
+
+
+def modules_backward_routes(model, steps):
+    """{route: backwards} of `steps` steps that run each GroupNorm32 module of
+    `model` backward once, from the routes the hook kept (GN_BWD_OF)."""
+    from vidseg_diffusion_tpu_torch.models.layers import GroupNorm32
+
+    mods = [m for m in model.modules() if isinstance(m, GroupNorm32)]
+    check(all(id(m) in GN_BWD_OF for m in mods), "a GroupNorm32 module never ran under a gradient")
+    out = {}
+    for m in mods:
+        out[GN_BWD_OF[id(m)]] = out.get(GN_BWD_OF[id(m)], 0) + steps
+    return out
+
+
 def module_launches(pipe, calls):
     """Launches an inference path implies from its modules and its `calls` per
     model: one GroupNorm forward (K7 + K8 or the fused kernel) per GroupNorm
@@ -1762,15 +1839,15 @@ def train_launches(unet):
     from the modules, K11 four per CrossAttention and K12 two per ResBlock in
     each of the two forwards; a GroupNorm forward (K7 + K8 or the fused kernel)
     twice per GroupNorm but once for the output norm, which no remat block
-    holds; K9 / K10 once per GroupNorm."""
+    holds; its backward once per GroupNorm (by route: train_backward)."""
     from vidseg_diffusion_tpu_torch.models.layers import CrossAttention, GroupNorm32
     from vidseg_diffusion_tpu_torch.models.unet import ResBlock
 
     count = lambda cls: sum(isinstance(x, cls) for x in unet.modules())
     n_gn = count(GroupNorm32)
     return dict(TRAIN_LAUNCHES, flash_attention=0, flash_attention_backward=0, group_norm=2 * n_gn - 1,
-                group_norm_backward_stats=n_gn, group_norm_backward_apply=n_gn,
-                matmul_bias=2 * 4 * count(CrossAttention), conv3x3_same=2 * 2 * count(ResBlock))
+                group_norm_backward=n_gn, matmul_bias=2 * 4 * count(CrossAttention),
+                conv3x3_same=2 * 2 * count(ResBlock))
 
 
 def read_counts():
@@ -2272,11 +2349,13 @@ def phase_train(torch):
     check(all(launches[k] > 0 for k in TRAIN_KERNELS), f"a kernel of the training path never launched: {launches}")
     expected = {k: TRAIN_STEPS * n for k, n in train_launches(unet).items()}
     expected.update(group_norm_expected("train", expected.pop("group_norm")))
+    expected.update(group_norm_backward_expected("train", modules_backward_routes(unet, TRAIN_STEPS),
+                                                 expected.pop("group_norm_backward")))
     check(launches == expected, f"training launches {launches}, expected {expected} "
                                 f"({TRAIN_STEPS} steps of a remat UNet)")
     check(all(n == 0 for n in plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
     print(f"[train] launches by route {json.dumps(check_routes('train', launches))}; GroupNorm calls by route "
-          f"{json.dumps(GN_ROUTES)}", flush=True)
+          f"{json.dumps(GN_ROUTES)}, backwards by route {json.dumps(GN_BWD_RUNS['train'])}", flush=True)
     del trainer, unet, params0, ema0
     torch.cuda.empty_cache()
     return launches
@@ -2382,14 +2461,14 @@ def phase_ae_grad(torch):
 
 def ae_launches_per_step(fs):
     """Launches one autoencoder step implies: K3 and K13 once per mid
-    attention (encoder and decoder, each on the whole batch); K7-K10 once per
-    GroupNorm module of the first stage (no remat); nothing else (the VAE's,
-    LPIPS's and the discriminator's convolutions are library calls in JAX too)."""
+    attention (encoder and decoder, each on the whole batch); a GroupNorm
+    forward and backward once per GroupNorm module of the first stage (no
+    remat); nothing else (the VAE's, LPIPS's and the discriminator's
+    convolutions are library calls in JAX too)."""
     from vidseg_diffusion_tpu_torch.models.layers import GroupNorm32
 
     n_gn = sum(isinstance(m, GroupNorm32) for mod in fs.modules().values() for m in mod.modules())
-    return dict(flash_attention=2, flash_attention_backward=2, group_norm=n_gn,
-                group_norm_backward_stats=n_gn, group_norm_backward_apply=n_gn)
+    return dict(flash_attention=2, flash_attention_backward=2, group_norm=n_gn, group_norm_backward=n_gn)
 
 
 def phase_ae_train(torch):
@@ -2451,9 +2530,15 @@ def phase_ae_train(torch):
     expected = {k: 0 for k in launches}
     expected.update({k: TRAIN_STEPS * n for k, n in ae_launches_per_step(fs).items()})
     expected.update(group_norm_expected("ae_train", expected.pop("group_norm")))
+    by_route = {}
+    for mod in fs.modules().values():
+        for r, k in modules_backward_routes(mod, TRAIN_STEPS).items():
+            by_route[r] = by_route.get(r, 0) + k
+    expected.update(group_norm_backward_expected("ae_train", by_route, expected.pop("group_norm_backward")))
     check(launches == expected, f"autoencoder launches {launches}, expected {expected} ({TRAIN_STEPS} steps)")
     check(all(n == 0 for n in plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
     check_routes("ae_train", launches)
+    print(f"[ae_train] GroupNorm backwards by route {json.dumps(GN_BWD_RUNS['ae_train'])}", flush=True)
     del trainer, fs, gen0, disc0, named, attn
     gc.collect()
     torch.cuda.empty_cache()
@@ -3014,8 +3099,9 @@ def hooked_launches(tag):
     site, and at an "mha_reference" site without a gradient (the normalise-first
     mode), K5 once more at the former under a gradient, mha_reference_site at
     the latter under a gradient; K11 four per CrossAttention, K12 two per
-    ResBlock call; one GroupNorm forward per GroupNorm32 call (by route) and K9
-    + K10 per call under a gradient; K3 once per VAE encoder / decoder call."""
+    ResBlock call; one GroupNorm forward per GroupNorm32 call (by route) and
+    one backward per call under a gradient (the slab kernel, or K9 + K10, by
+    route); K3 once per VAE encoder / decoder call."""
     kernel = lambda route: route in ("small_batched", "flash")
     attn = CALLS["attn"]
     fwd = sum(n for (route, grad), n in attn.items() if kernel(route) or not grad)
@@ -3024,9 +3110,9 @@ def hooked_launches(tag):
     site = sum(n for (route, grad), n in attn.items() if route == "mha_reference" and grad)
     check(all(route != "one_key" for route, _ in attn), f"[{tag}] a one-key site in an image UNet: {attn}")
     out = dict(flash_attention_packed=fwd, flash_attention_packed_backward=bwd, flash_attention=CALLS["vae"],
-               matmul_bias=4 * CALLS["xattn"], conv3x3_same=2 * CALLS["res"],
-               group_norm_backward_stats=CALLS["gn_grad"], group_norm_backward_apply=CALLS["gn_grad"])
+               matmul_bias=4 * CALLS["xattn"], conv3x3_same=2 * CALLS["res"])
     out.update(group_norm_expected(tag, GN_ROUTES["fused"] + GN_ROUTES["stream"]))
+    out.update(group_norm_backward_expected(tag, CALLS["gn_bwd"], CALLS["gn_grad"]))
     return out, {"flash_attention_packed": nf}, site
 
 
@@ -3230,7 +3316,8 @@ def phase_api_nti(torch, pipe):
     at 512x512 (scripts/api_path.py nti_and_edit): the inversion of an encoded
     image over a 4-step schedule, null_text_optimization with 3 inner steps
     under autograd (K1 with its LSE and K5 at the kernel sites, mha_reference_site
-    at the 77-key cross-attention sites of 4096 and 1024 queries, K9 + K10),
+    at the 77-key cross-attention sites of 4096 and 1024 queries, the GroupNorm
+    backward by route),
     then edit with its window at steps 1-2 and the base-only run: the loss
     summed over the outer steps falls from the first inner step to the last,
     every optimized uc finite, both decodes finite before the clamp, the
@@ -3935,7 +4022,7 @@ def main():
             routed = None
         else:
             # the run of its path: inference for K1-K4, K7, K8, K11, K12, diffusion training for
-            # K5, K6, K9, K10, autoencoder training for K13
+            # K5, K6, the GroupNorm backward's kernels, autoencoder training for K13
             path_launches = (launches if name in INFERENCE_KERNELS
                              else ae_launches if name in AE_KERNELS else train_launches)
             runs = dict(main=path_launches[name], inject=inject_launches[name], sd=sd_launches[name],
@@ -3947,6 +4034,8 @@ def main():
             routed = ({tag: ROUTE_COUNTS[tag][name] for tag in tags + ("inversion", "api", "img2vid", "nti", "t5",
                                                                      "demo", "safety")}
                       if name in ROUTED else None)
+            if name.startswith("group_norm_backward"):   # the runs' GroupNorm backwards by route
+                extra = {"backward_routes": {tag: r for tag, r in GN_BWD_RUNS.items() if any(r.values())}}
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=runs["main"], inject_launches=runs["inject"], sd_launches=runs["sd"],

@@ -18,8 +18,8 @@ max |plain| and ||kernel - plain|| <= RMS_TOL * ||plain|| (per kernel, as
 chip_smoke.py); in fp32 both relative to 1e-4. A gradient that is 0 up to
 rounding (K6's dq and dk at t = 1) is measured against GRAD_FLOOR times the
 largest gradient of the same call. K1's saved LSE: within LSE_TOL (log2
-units) of the plain LSE. The GroupNorm kernels (K7 + K8 forward, K9 + K10
-backward) take the same bounds with RMS_TOL["GN"]; K7's mean and inv-std are
+units) of the plain LSE. The GroupNorm kernels (K7 + K8 forward; the slab
+kernel or K9 + K10 backward) take the same bounds with RMS_TOL["GN"]; K7's mean and inv-std are
 also held to fp64 statistics of the same input (STATS_TOL, relative). K11
 (matmul_bias) and K12 (conv3x3_same) take chip_smoke.py's forward bounds too
 (2 bf16 steps at max |plain|, RMS_TOL["K11"] / ["K12"]; fp32 1e-4). K13
@@ -45,7 +45,9 @@ mha_reference within one bf16 step and 0.1 % of the elements differing. K5 and
 K13 (bf16 D = 512) run wgmma kernels: `.wgmma_launches` moves with every bf16
 launch. The GroupNorm forward
 takes the fused one-launch kernel or K7 + K8 as ops.norm.group_norm_route
-says, and is bitwise the same from run to run on either.
+says, the backward the slab kernel (one launch, on one block or a cluster) or
+K9 + K10 as ops.norm.group_norm_backward_route says; both are bitwise the
+same from run to run on every route.
 """
 
 import math
@@ -881,42 +883,119 @@ def test_group_norm_routes_at_the_sites(cuda, dt, silu, shape, bf16_route, fp32_
     assert all(torch.equal(p, q) for p, q in zip((y, a, s, mean, inv), again))
 
 
+# the backward's routes (ops.norm.group_norm_backward_route) in bf16 and fp32:
+# the slab kernel on one block ("fused") or a cluster of 2, 4, 8 and 16 blocks
+# ("cluster": [2, 48, 48, 320], [2, 96, 96, 512], the autoencoder's [2, 112,
+# 208, 512], the inversion's ds1 concat and, in fp32, the ds8 time_stack), K9 +
+# K10 ("stream") where no slab fits (the ds1 time_stack), where a cluster of 8
+# or 16 would walk many items (UNet ds1 and its concat at 28 frames), where no
+# slab of whole groups has rows of a multiple of 16 bytes, or where its rows
+# are narrower than 32 bytes (the first three: 8 and 16 groups of 4 channels)
+GN_BWD_CASES = [((2, 6, 8, 32), 8, "stream", "stream"), ((3, 7, 13, 64), 16, "stream", "stream"),
+                ((2, 14, 8, 8, 32), 8, "stream", "stream"),
+                ((2, 6, 8, 128), 8, "fused", "fused"), ((28, 91, 1280), 32, "fused", "fused"),
+                ((2, 33, 2560), 32, "fused", "fused"), ((1, 5000, 128), 32, "stream", "stream"),
+                ((2, 48, 48, 320), 32, "cluster", "cluster"), ((2, 96, 96, 512), 32, "cluster", "cluster"),
+                ((2, 112, 208, 512), 32, "cluster", "cluster"), ((2, 64, 64, 960), 32, "cluster", "cluster"),
+                ((28, 56, 104, 320), 32, "stream", "stream"),
+                ((28, 56, 104, 960), 32, "stream", "stream"), ((2, 14, 7, 13, 1280), 32, "fused", "cluster"),
+                ((2, 14, 56, 104, 320), 32, "stream", "stream"), ((3, 17, 5, 6), 2, "stream", "stream"),
+                ((2, 9, 4, 36), 4, "stream", "fused")]
+
+
+def _gn_bwd_counts():
+    return (N.group_norm_backward_slab.launches, N.group_norm_backward_slab.cluster_launches,
+            N.group_norm_backward_stats.launches, N.group_norm_backward_apply.launches)
+
+
+def _gn_bwd_inputs(cuda, dtype, shape, groups, seed=70):
+    x, w, b = _gn_inputs(cuda, dtype, shape, seed=seed)
+    dy = _randn(cuda, seed + 5, dtype, *shape)
+    return (x, dy, w) + N.group_norm_stats(x, w, b, groups, 1e-5)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("silu", [False, True])
-@pytest.mark.parametrize("shape,groups", GN_SHAPES)
-def test_group_norm_backward(cuda, dt, silu, shape, groups):
-    """K9 + K10 vs the plain coefficient-form backward on the forward's
-    statistics."""
-    x, w, b = _gn_inputs(cuda, DTYPES[dt], shape, seed=70)
-    dy = _randn(cuda, 75, DTYPES[dt], *shape)
-    a, s, mean, inv = N.group_norm_stats(x, w, b, groups, 1e-5)
-    launches = N.group_norm_backward_stats.launches, N.group_norm_backward_apply.launches
-    calls = N.group_norm_backward_plain.calls
-    coef, dw, db = N.group_norm_backward_stats(x, dy, w, a, s, mean, inv, groups, silu)
-    dx = N.group_norm_backward_apply(x, dy, a, s, coef, silu)
+@pytest.mark.parametrize("shape,groups,bf16_route,fp32_route", GN_BWD_CASES)
+def test_group_norm_backward(cuda, dt, silu, shape, groups, bf16_route, fp32_route):
+    """The backward on the route group_norm_backward_route gives (one launch
+    of the slab kernel on "fused" and "cluster", K9 + K10 on "stream", no
+    plain call) vs the plain coefficient form on the forward's statistics: dx,
+    dweight and dbias; two runs bitwise equal."""
+    dtype = DTYPES[dt]
+    route = bf16_route if dtype == torch.bfloat16 else fp32_route
+    args = _gn_bwd_inputs(cuda, dtype, shape, groups)
+    x = args[0]
+    got, plan = N.group_norm_backward_route(shape[0], x.numel() // (shape[0] * shape[-1]), shape[-1], groups,
+                                            x.element_size(), True)
+    assert got == route
+    before, calls = _gn_bwd_counts(), N.group_norm_backward_plain.calls
+    out = N._backward(*args, groups, silu)
     torch.cuda.synchronize()
-    assert (N.group_norm_backward_stats.launches, N.group_norm_backward_apply.launches) == (
-        launches[0] + 1, launches[1] + 1)
+    slab = route != "stream"
+    assert tuple(q - p for p, q in zip(before, _gn_bwd_counts())) == (
+        slab, route == "cluster", not slab, not slab)
     assert N.group_norm_backward_plain.calls == calls
-    ref = N.group_norm_backward_plain(x, dy, w, a, s, mean, inv, groups, silu)
-    _close_grads((dx,), ref[:1], RMS_TOL["GN"])
-    _close_grads((dw, db), ref[1:], RMS_TOL["GN"])
+    ref = N.group_norm_backward_plain(*args, groups, silu)
+    _close_grads(out[:1], ref[:1], RMS_TOL["GN"])
+    _close_grads(out[1:], ref[1:], RMS_TOL["GN"])
+    again = N._backward(*args, groups, silu)
+    assert all(torch.equal(p, q) for p, q in zip(out, again))
 
 
 @pytest.mark.gpu
-def test_group_norm_autograd_and_strided_input(cuda):
-    """With grad on the CUDA path runs GroupNormFn (K9 + K10 in the backward),
-    agrees with autograd through the plain forward, and is the same from run
-    to run; a strided input is copied and counted."""
-    x, w, b = _gn_inputs(cuda, torch.float32, (2, 10, 12, 64), seed=80)
+def test_group_norm_backward_refuses_a_cluster_the_device_cannot_place(cuda, monkeypatch):
+    """A cluster of 32 blocks (the H100 places at most 16) is refused at the
+    launch: RuntimeError before any output is returned, no launch counted, no
+    other route taken."""
+    args = _gn_bwd_inputs(cuda, torch.bfloat16, (2, 48, 48, 320), 32, seed=71)
+    route, plan = N.group_norm_backward_route(2, 48 * 48, 320, 32, 2, True)
+    assert route == "cluster"
+    forced = plan._replace(n=32, rows=72, box_rows=72)   # 32 blocks of 72 rows cover 2304
+    monkeypatch.setattr(N, "group_norm_backward_route", lambda *a: ("cluster", forced))
+    before, calls = _gn_bwd_counts(), N.group_norm_backward_plain.calls
+    with pytest.raises(RuntimeError, match="vs_group_norm_bwd_slab"):
+        N._backward(*args, 32, True)
+    assert _gn_bwd_counts() == before and N.group_norm_backward_plain.calls == calls
+
+
+@pytest.mark.gpu
+def test_group_norm_backward_unaligned_pointers(cuda):
+    """An x off a 16-byte boundary takes the stream route with element loads;
+    a dy off one on a slab route is copied (and counted) for the slab kernel,
+    which itself refuses it."""
+    shape = (28, 7, 13, 1280)
+    x, dy, w, a, s, mean, inv = _gn_bwd_inputs(cuda, torch.bfloat16, shape, 32, seed=72)
+    odd = lambda t: torch.cat([t.new_zeros(1), t.flatten()])[1:].view(shape)   # contiguous, 2 bytes off
+    ref = N.group_norm_backward_plain(x, dy, w, a, s, mean, inv, 32, True)
+    before = _gn_bwd_counts()
+    out = N._backward(odd(x), dy, w, a, s, mean, inv, 32, True)
+    assert tuple(q - p for p, q in zip(before, _gn_bwd_counts())) == (0, 0, 1, 1)
+    _close_grads(out[:1], ref[:1], RMS_TOL["GN"])
+    _close_grads(out[1:], ref[1:], RMS_TOL["GN"])
+    copies, before = N.group_norm.copies, _gn_bwd_counts()
+    out = N._backward(x, odd(dy), w, a, s, mean, inv, 32, True)
+    assert N.group_norm.copies == copies + 1 and _gn_bwd_counts()[0] == before[0] + 1
+    assert all(torch.equal(p, q) for p, q in zip(out, N._backward(x, dy, w, a, s, mean, inv, 32, True)))
+    with pytest.raises(ValueError, match="no slab"):
+        N.group_norm_backward_slab(x, odd(dy), w, a, s, mean, inv, 32, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,launches", [(64, (0, 0, 1, 1)), (256, (1, 0, 0, 0))])
+def test_group_norm_autograd_and_strided_input(cuda, c, launches):
+    """With grad on the CUDA path runs GroupNormFn (in the backward K9 + K10
+    at 64 channels, rows of 8 bytes a group; the slab kernel on one block at
+    256), agrees with autograd through the plain forward, and is the same from
+    run to run; a strided input is copied and counted."""
+    x, w, b = _gn_inputs(cuda, torch.float32, (2, 10, 12, c), seed=80)
     leaves = [t.clone().requires_grad_() for t in (x, w, b)]
     y = N.group_norm(*leaves, 32, 1e-5, silu=True)
     assert y.grad_fn is not None
-    before = N.group_norm_backward_stats.launches, N.group_norm_backward_apply.launches
+    before = _gn_bwd_counts()
     y.square().sum().backward()
-    assert (N.group_norm_backward_stats.launches, N.group_norm_backward_apply.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert tuple(q - p for p, q in zip(before, _gn_bwd_counts())) == launches
     plain = [t.clone().requires_grad_() for t in (x, w, b)]
     N.group_norm_plain(*plain, 32, 1e-5, silu=True).square().sum().backward()
     _close_grads([t.grad for t in leaves], [t.grad for t in plain], None)
@@ -924,7 +1003,7 @@ def test_group_norm_autograd_and_strided_input(cuda):
     N.group_norm(*again, 32, 1e-5, silu=True).square().sum().backward()
     assert all(torch.equal(p.grad, q.grad) for p, q in zip(leaves, again))
 
-    xt = x.permute(0, 2, 1, 3)  # [2, 12, 10, 64], strided
+    xt = x.permute(0, 2, 1, 3)  # [2, 12, 10, C], strided
     copies = N.group_norm.copies
     with torch.no_grad():
         _close(N.group_norm(xt, w, b, 32), N.group_norm_plain(xt, w, b, 32))

@@ -938,6 +938,23 @@ def test_group_norm_backward_matches_pallas(shape, groups, dt, tol):
     oracle of K9 + K10) against jax.grad through _gn, whose VJP is the Pallas
     backward kernels in interpret mode (silu=False, all it covers): dx, dgamma,
     dbeta, relative to the largest gradient; bf16 at the JAX test's 5e-2."""
+    _gn_backward_vs_pallas(shape, groups, dt, tol)
+
+
+@pytest.mark.parametrize("dt,tol", [("fp32", 2e-5), ("bf16", 5e-2)])
+def test_group_norm_backward_matches_pallas_at_a_cluster_slab(dt, tol):
+    """The same at [2, 48, 48, 320], 32 groups, whose backward the card runs on
+    a cluster of two blocks (the 369 KB slab of x and dy over four groups of ten
+    channels, two in fp32, is more than one block holds): the coefficient form
+    held to JAX's Pallas backward at a multi-block slab's row count."""
+    shape = (2, 48, 48, 320)
+    itemsize = 4 if dt == "fp32" else 2
+    route, plan = tnorm.group_norm_backward_route(2, 48 * 48, 320, 32, itemsize, True)
+    assert (route, plan.n) == ("cluster", 2)
+    _gn_backward_vs_pallas(shape, 32, dt, tol)
+
+
+def _gn_backward_vs_pallas(shape, groups, dt, tol):
     x, s, b = _gn_arrays(shape, seed=2)
     g = np.random.RandomState(3).randn(*shape).astype(np.float32)
     jdt = jnp.float32 if dt == "fp32" else jnp.bfloat16
@@ -1041,6 +1058,79 @@ def test_group_norm_route_sends_each_site_where_it_fits(shape, itemsize, route, 
     else:
         vec, rows, chunks = detail
         assert rows * chunks >= r > rows * (chunks - 1)
+
+
+# the backward's route at chip_smoke.py's GroupNorm sites, the null-text
+# inversion's at 512x512 (UNet ds1, its concatenation, ds2), the autoencoder
+# step's (2 frames of 448x832: the first stage at 112x208 x 512, 224x416 x 256,
+# 448x832 x 128) and the edges: with 64 bf16 (32 fp32) channels a group, rows
+# of 128 bytes, one block holds 868 rows of x and dy, two blocks one row more,
+# a cluster of 16 blocks 13888 rows and no cluster 13889 (17 blocks' worth);
+# rows narrower than 32 bytes take the stream route (TMA moves them row by row),
+# and so does a slab that needs a cluster of 8 or more over 128 (sample, slab)
+# items or more (K9 + K10 read faster there on the card).
+# (shape, itemsize, route, blocks a cluster, pointers)
+GN_BWD_ROUTE_SITES = [
+    ((28, 56, 104, 320), 2, "stream", 0, None),      # ds1: 4 groups of 10 channels, 910 KB: cluster 8, 224 items
+    ((28, 56, 104, 960), 2, "stream", 0, None),      # ds1 concat: 2.8 MB: cluster 16, 224 items
+    ((28, 28, 52, 640), 2, "cluster", 2, None),      # ds2: 233 KB
+    ((28, 28, 52, 1920), 2, "cluster", 4, None),     # ds2 concat: 699 KB
+    ((28, 14, 26, 1280), 2, "fused", 1, None),       # ds4: 58 KB
+    ((28, 7, 13, 1280), 2, "fused", 1, None),        # mid: 15 KB
+    ((28, 7, 13, 2560), 2, "fused", 1, None),        # ds8 concat: 29 KB
+    ((2, 14, 7, 13, 1280), 2, "fused", 1, None),     # time_stack ds8: 204 KB beside the sums
+    ((2, 14, 14, 26, 1280), 2, "cluster", 4, None),  # time_stack ds4: 815 KB
+    ((7, 56, 104, 512), 2, "cluster", 2, None),      # VAE mid: 373 KB
+    ((2, 64, 64, 320), 2, "cluster", 4, None),       # NTI ds1: 655 KB
+    ((2, 64, 64, 960), 2, "cluster", 16, None),      # NTI ds1 concat: 1.97 MB
+    ((2, 32, 32, 640), 2, "fused", 1, None),         # NTI ds2: 164 KB
+    ((2, 112, 208, 512), 2, "cluster", 8, None),     # autoencoder: 1.49 MB, 64 items
+    ((2, 112, 208, 512), 4, "cluster", 16, None),    # the same in fp32: 2.98 MB
+    ((2, 224, 416, 256), 2, "stream", 0, None),      # autoencoder: 2.98 MB, but rows of 16 bytes (one group)
+    ((2, 14, 56, 104, 320), 2, "stream", 0, None),   # time_stack ds1: 13 MB
+    ((7, 448, 832, 128), 2, "stream", 0, None),      # VAE
+    ((1, 7, 448, 832, 128), 2, "stream", 0, None),   # VAE time_stack
+    ((2, 448, 832, 128), 2, "stream", 0, None),      # autoencoder at 448x832
+    ((2, 48, 48, 320), 2, "cluster", 2, None),       # the CPU test's multi-block slab: 369 KB
+    ((2, 96, 96, 64), 2, "stream", 0, None),         # 288 KB, but rows of 16 bytes (four groups of two channels)
+    ((2, 96, 96, 512), 2, "cluster", 4, None),       # one group of 16 channels: rows of 32 bytes, the narrowest taken
+    ((28, 56, 104, 320), 4, "stream", 0, None),      # ds1 fp32: 932 KB: cluster 8, 448 items
+    ((2, 96, 96, 512), 4, "cluster", 8, None),       # fp32 rows of 64 bytes, 64 items
+    ((3, 5000, 2048), 2, "cluster", 8, None),        # cluster 8 over 96 items
+    ((4, 5000, 2048), 2, "stream", 0, None),         # cluster 8 over 128 items: the stream route
+    ((28, 7, 13, 1280), 4, "fused", 1, None),        # mid fp32: 29 KB
+    ((2, 14, 7, 13, 1280), 4, "cluster", 2, None),   # time_stack ds8 fp32: 408 KB
+    ((2, 14, 56, 104, 320), 4, "stream", 0, None),   # time_stack ds1 fp32
+    ((2, 868, 2048), 2, "fused", 1, None),           # the last slab one block holds
+    ((2, 869, 2048), 2, "cluster", 2, None),         # one row more
+    ((2, 13888, 2048), 2, "cluster", 16, None),      # a cluster of exactly 16
+    ((2, 13889, 2048), 2, "stream", 0, None),        # 17 blocks' worth
+    ((28, 7, 13, 1280), 2, "stream", 0, "unaligned"),  # x off a 16-byte boundary: element loads
+]
+
+
+@pytest.mark.parametrize("shape,itemsize,route,n,arg", GN_BWD_ROUTE_SITES)
+def test_group_norm_backward_route_sends_each_site_where_it_fits(shape, itemsize, route, n, arg):
+    """group_norm_backward_route (32 groups): the slab kernel with its cluster
+    size where one sample's slab of x and dy fits in the shared memory of a
+    block or a cluster, within the 227 KB a block may take, its blocks'
+    rows covering R (none left empty) in TMA boxes of up to 256 rows of 16-byte
+    multiples; else K9 + K10 with a plan that covers every row."""
+    b, c = shape[0], shape[-1]
+    r = int(np.prod(shape)) // (b * c)
+    got, plan = tnorm.group_norm_backward_route(b, r, c, 32, itemsize, arg != "unaligned")
+    assert got == route
+    if route == "stream":
+        vec, rows, chunks = plan
+        assert vec == (1 if arg == "unaligned" else 16 // itemsize)
+        assert rows * chunks >= r > rows * (chunks - 1)
+        assert b * chunks <= tnorm._BWD_STATS_TARGET_BLOCKS   # one wave: K9's last block finds every partial
+        return
+    w = plan.gc * (c // 32)
+    assert plan.n == n and plan.n * plan.rows >= r > (plan.n - 1) * plan.rows
+    assert w * itemsize % 16 == 0 and w <= 256 and 32 % plan.gc == 0
+    assert plan.box_rows <= 256 and plan.rows % plan.box_rows == 0 and plan.rows // plan.box_rows <= 32
+    assert 2 * plan.rows * w * itemsize < plan.smem <= tnorm._BWD_SMEM_MAX
 
 
 @pytest.mark.parametrize("src,dst", [((16, 24), (7, 13)), ((4, 6), (8, 9)), ((30, 40), (224, 224)), ((5, 5), (5, 3))])

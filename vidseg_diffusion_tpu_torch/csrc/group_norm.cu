@@ -334,44 +334,6 @@ __global__ void __launch_bounds__(kGnThreads, kStatsBlocksPerSM) gn_stats_kernel
   if (tid == 0) counters[b] = 0;  // ready for the next call
 }
 
-// The partial-sum reduction of the backward's statistics (declared in group_norm.cuh).
-constexpr int kReduceCols = 64;
-constexpr int kReduceSlices = 8;
-
-__global__ void __launch_bounds__(kReduceCols * kReduceSlices) gn_reduce_partials_kernel(
-    const float* __restrict__ partial, float* __restrict__ sums, int nchunks, int n2) {
-  __shared__ float rows[kReduceSlices][kReduceCols];
-  const int tx = threadIdx.x % kReduceCols, sl = threadIdx.x / kReduceCols;
-  const int j = blockIdx.x * kReduceCols + tx;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if (j < n2) {
-    const float* mine = partial + (size_t)blockIdx.y * nchunks * n2 + j;
-    int k = sl;
-    for (; k + 3 * kReduceSlices < nchunks; k += 4 * kReduceSlices) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[u] += mine[(size_t)(k + u * kReduceSlices) * n2];
-    }
-    for (; k < nchunks; k += kReduceSlices) acc[0] += mine[(size_t)k * n2];
-  }
-  rows[sl][tx] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-  __syncthreads();
-  if (sl == 0 && j < n2) {
-    float a = 0.f;
-#pragma unroll
-    for (int s = 0; s < kReduceSlices; ++s) a += rows[s][tx];
-    sums[(size_t)blockIdx.y * n2 + j] = a;
-  }
-}
-
-int gn_launch_reduce(const float* partial, float* sums, int B, int nchunks, int C,
-                            cudaStream_t stream) {
-  const int n2 = 2 * C;
-  const dim3 grid((unsigned)((n2 + kReduceCols - 1) / kReduceCols), (unsigned)B);
-  gn_reduce_partials_kernel<<<grid, kReduceCols * kReduceSlices, 0, stream>>>(partial, sums,
-                                                                             nchunks, n2);
-  return (int)cudaGetLastError();
-}
-
 template <typename T, int VEC, bool SILU>
 __global__ void __launch_bounds__(kGnThreads) gn_apply_kernel(
     const T* __restrict__ x, const float* __restrict__ a, const float* __restrict__ s,

@@ -1,5 +1,5 @@
 // Shared pieces of the GroupNorm kernels (group_norm.cu forward, K7 + K8;
-// group_norm_bwd.cu backward, K9 + K10).
+// group_norm_bwd.cu backward: the slab kernel, K9 + K10).
 //
 // The activation is channels-last and contiguous, [B, R, C] with R every
 // non-batch, non-channel position. The four streaming kernels walk it the same way: a
@@ -10,12 +10,11 @@
 // threads of a warp read consecutive addresses and a thread's per-channel
 // coefficients or sums stay in registers for the whole chunk.
 //
-// K9 writes one partial sum per (batch, chunk, channel); a second kernel adds
-// the partials in a fixed order and a third, tiny one does the per-group math.
-// K7 writes per-group partials and its last block of each batch item adds them
-// (group_norm.cu). No float atomics, so the result is the same from run to
-// run, and the chunking makes the fp32 summation a tree (thread, block, chunk
-// slices) instead of one long chain.
+// K9 writes one partial sum per (batch, chunk, channel) and K7 per-group
+// partials; the last block of each batch item to arrive adds them
+// (group_norm_bwd.cu, group_norm.cu). No float atomics, so the result is the
+// same from run to run, and the chunking makes the fp32 summation a tree
+// (thread, block, chunk slices) instead of one long chain.
 #pragma once
 
 #include "common.cuh"
@@ -24,7 +23,6 @@ namespace vs {
 
 constexpr int kGnThreads = 256;   // threads per block of the streaming kernels
 constexpr int kTileVecs = 256;    // channel vectors per column tile
-constexpr int kFinishThreads = 256;  // the per-batch-item group math
 constexpr int kMaxGroups = 1024;     // it keeps two floats per group in shared memory
 
 // VEC elements of T as one aligned load / store (16 bytes for the wide forms).
@@ -113,19 +111,6 @@ __device__ __forceinline__ void gn_write_partial(const GnTile& t, const float (&
     }
   }
 }
-
-// Finishing step, first half: sums[b][j] = sum over chunks of partial[b][chunk][j]
-// for the 2 * C per-channel values j of each batch item. grid = (column
-// tiles of kReduceCols, B); a block's threads are kReduceSlices rows of
-// kReduceCols columns: row s adds chunks s, s + kReduceSlices, ... with four
-// independent accumulators (the loads of one chain would each wait for the
-// one before), then the rows are added in order: a fixed tree, the same from
-// run to run. Many small blocks, because one block per batch item would chase
-// hundreds of dependent loads on a few SMs and take longer than the
-// statistics pass itself.
-// Defined once, in group_norm.cu.
-int gn_launch_reduce(const float* partial, float* sums, int B, int nchunks, int C,
-                     cudaStream_t stream);
 
 // Affine parameters may be stored in fp32 or in bf16, whatever the activation.
 __device__ __forceinline__ float load_param(const void* p, int i, int dtype) {

@@ -154,10 +154,14 @@ _SIGNATURES = {
     "vs_group_norm_fused": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # dtype, x, a, s, y, B, R, C, vec, rows_per_chunk, nchunks, silu, stream
     "vs_group_norm_apply": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # dtype, x, dy, a, s, partial, gamma, wdtype, mean, inv, coef, dparam, B, R, C, G, vec,
-    # rows_per_chunk, nchunks, silu, stream
-    "vs_group_norm_bwd_stats": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _P],
+    # dtype, x, dy, a, s, gamma, wdtype, mean, inv, dx, dparam scratch, counters, dgamma, dbeta,
+    # B, R, C, G, groups per slab, cluster size, rows per block, rows per box, silu, stream
+    "vs_group_norm_bwd_slab": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, x, dy, a, s, partial, counters, gamma, wdtype, mean, inv, coef, dparam scratch, dgamma,
+    # dbeta, B, R, C, G, vec, rows_per_chunk, nchunks, silu, stream
+    "vs_group_norm_bwd_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, x, dy, a, s, coef, dx, B, R, C, vec, rows_per_chunk, nchunks, silu, stream
     "vs_group_norm_bwd_apply": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, x, w [N, K], bias (NULL: none), y, M, K, N, route (int*), stream

@@ -18,13 +18,22 @@ one of two routes, which `group_norm_route` picks from the shape:
   _affine_from_stats), then K8 `group_norm_apply`: one read, one write (its
   _apply_kernel);
 
-and the backward is
+and the backward takes one of three routes, which
+`group_norm_backward_route` picks from the shape and the dtype:
 
-- K9 `group_norm_backward_stats`: one read of x and dy -> the coefficients
-  a2, b2, c2 [B, C] and dgamma, dbeta (its _gn_bwd_stats_kernel and the
-  coefficient math of _gn_bwd_pallas);
-- K10 `group_norm_backward_apply`: dx = a2 * u + b2 * x + c2 (its
-  _gn_bwd_apply_kernel).
+- "fused" / "cluster": `group_norm_backward_slab`, one launch, where one
+  sample's slab of x and dy over whole groups fits in the shared memory of one
+  block or of a cluster of up to 16 blocks (the UNet from ds2 down, and its
+  ds1 at the inversion's two samples; the autoencoder step from 112 x 208
+  down), save a cluster of 8 or 16 over a large batch (the UNet's ds1 at 28
+  frames), which K9 + K10 run faster: x and dy read once, dx, dgamma and
+  dbeta written (both TPU kernels and the coefficient math of
+  _gn_bwd_pallas);
+- "stream" elsewhere: K9 `group_norm_backward_stats`, one read of x and dy ->
+  the coefficients a2, b2, c2 [B, C] and dgamma, dbeta (its
+  _gn_bwd_stats_kernel and the coefficient math), then K10
+  `group_norm_backward_apply`: dx = a2 * u + b2 * x + c2 (its
+  _gn_bwd_apply_kernel). Two launches, nothing between them.
 
 The JAX package keeps these kernels switched off on the TPU because XLA fuses
 the statistics into the preceding convolution; eager PyTorch fuses nothing,
@@ -37,6 +46,8 @@ plain versions below run, forward and backward.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 from torch.profiler import record_function
 
@@ -47,6 +58,20 @@ _TILE_VECS = 256      # channel vectors per column tile
 _TARGET_BLOCKS = 1024  # about eight blocks per SM of an H100
 _STATS_TARGET_BLOCKS = 528  # K7: one wave of four blocks an SM (csrc/group_norm.cu kStatsBlocksPerSM)
 _SLAB_MAX_BYTES = 196608  # the fused kernel's slab in shared memory (csrc/group_norm.cu kSlabMaxBytes)
+# the backward (csrc/group_norm_bwd.cu): a slab block's threads, the shared memory a
+# block may take on the H100, TMA boxes a block, the largest cluster; K9's one wave
+_BWD_SLAB_THREADS = 512
+_BWD_SMEM_MAX = 232448
+_BWD_MAX_BOXES = 64
+_BWD_BOX_BYTES = 8192   # a TMA box of x or dy: the threads sum one while the next lands
+_BWD_MAX_CLUSTER = 16
+_BWD_STATS_TARGET_BLOCKS = 396  # three blocks an SM of an H100 (two and four read slower on the card)
+_BWD_SLAB_MIN_ROW = 32  # bytes of a slab's row: TMA moves a narrower box row by row, slower than K9 + K10
+# a cluster of 8 or 16 blocks works item by item, each item's sums exchanged across
+# its SMs: with this many (sample, slab) items K9 + K10's one wave reads faster on the
+# card (UNet ds1 and its concatenation, bf16 and fp32); with fewer (two samples of the
+# autoencoder or the inversion) or on a cluster of 2 or 4 the cluster reads faster
+_BWD_STREAM_ITEMS = 128
 
 
 def _stats_dtype(x):
@@ -164,16 +189,72 @@ def _plan(b: int, r: int, c: int, itemsize: int, aligned: bool, target: int = _T
     return vec, rows, -(-r // rows)
 
 
+def _slab_groups(c: int, groups: int, itemsize: int):
+    """The fewest whole groups whose rows are a multiple of 16 bytes (the
+    forward's rule, and a TMA box's), or None."""
+    cg = c // groups
+    return next((k for k in range(1, groups + 1) if groups % k == 0 and k * cg * itemsize % 16 == 0), None)
+
+
 def group_norm_route(b: int, r: int, c: int, groups: int, itemsize: int, aligned: bool):
     """The forward's route for x [B, R, C]: ("fused", gc) where gc whole groups
     of one sample (the fewest whose rows are a multiple of 16 bytes) fit in the
     fused kernel's shared-memory slab, else ("stream", the K7 / K8 plan)."""
     cg = c // groups
-    if aligned:
-        gc = next((k for k in range(1, groups + 1) if groups % k == 0 and k * cg * itemsize % 16 == 0), None)
-        if gc is not None and r * gc * cg * itemsize <= _SLAB_MAX_BYTES and gc * cg <= _THREADS:
-            return "fused", gc
+    gc = _slab_groups(c, groups, itemsize) if aligned else None
+    if gc is not None and r * gc * cg * itemsize <= _SLAB_MAX_BYTES and gc * cg <= _THREADS:
+        return "fused", gc
     return "stream", _plan(b, r, c, itemsize, aligned)
+
+
+class SlabPlan(NamedTuple):
+    """How the slab kernel holds one sample's slab: n blocks a cluster (1:
+    "fused"), gc whole groups a slab, rows a block in TMA boxes of box_rows,
+    smem bytes of dynamic shared memory a block."""
+    n: int
+    gc: int
+    rows: int
+    box_rows: int
+    smem: int
+
+
+def _slab_smem(rows: int, box_rows: int, w: int, itemsize: int, gc: int) -> int:
+    """A slab block's dynamic shared memory (csrc/group_norm_bwd.cu slab_layout):
+    x's and dy's boxes (each rounded up to 128 bytes), the threads' sums, the
+    block's and the cluster's per-channel sums, the group means, two sets of an
+    item's gamma, mean and inv, one mbarrier a box, and the alignment of the
+    base."""
+    nbox = rows // box_rows
+    box_bytes = -(-box_rows * w * itemsize // 128) * 128
+    par = 2 * nbox * box_bytes + _BWD_SLAB_THREADS * 16 + 16 * w + 8 * gc
+    return -(-(par + 8 * (w + 2 * gc)) // 8) * 8 + 8 * nbox + 128
+
+
+def group_norm_backward_route(b: int, r: int, c: int, groups: int, itemsize: int, aligned: bool):
+    """The backward's route for x, dy [B, R, C]: ("fused", SlabPlan) where one
+    sample's slab of x and dy over the fewest whole groups with rows of a
+    multiple of 16 bytes (at most 256 channels, a TMA box's width, and at least
+    32 bytes; boxes of about 8 KB and at most 256 rows) fits in one block's
+    shared memory, ("cluster", SlabPlan) where it fits across the n
+    blocks of a cluster (the smallest power of two up to 16; 16 is a cluster
+    size the H100 places only on request) unless n is 8 or more and the batch
+    brings _BWD_STREAM_ITEMS (sample, slab) items or more, else ("stream", the
+    K9 plan: vec, rows per chunk, chunks)."""
+    gc = _slab_groups(c, groups, itemsize) if aligned else None
+    if gc is not None and gc * (c // groups) <= 256 and gc * (c // groups) * itemsize >= _BWD_SLAB_MIN_ROW:
+        w = gc * (c // groups)
+        n = 1
+        while n <= _BWD_MAX_CLUSTER:
+            share = -(-r // n)
+            box = -(-share // max(-(-share // 256), -(-share * w * itemsize // _BWD_BOX_BYTES)))
+            nbox = -(-share // box)
+            smem = _slab_smem(nbox * box, box, w, itemsize, gc)
+            if nbox <= _BWD_MAX_BOXES and smem <= _BWD_SMEM_MAX:
+                if n >= 8 and b * (groups // gc) >= _BWD_STREAM_ITEMS:
+                    break
+                return ("fused" if n == 1 else "cluster"), SlabPlan(n, gc, nbox * box, box, smem)
+            n *= 2
+    return "stream", _plan(b, r, c, itemsize, aligned, _BWD_STATS_TARGET_BLOCKS)
 
 
 def _flat(name, x, *same):
@@ -214,7 +295,7 @@ def _statistics(x, b, c, groups, scratch=0):
     return a, s, mean, inv, buf[2 * b * c + 2 * b * groups:]
 
 
-_COUNTERS = {}  # device -> int32 arrival counters of K7, zero between calls (each call leaves them zero)
+_COUNTERS = {}  # device -> int32 arrival counters of K7, K9 and the slab kernel, zero between calls (each leaves them zero)
 
 
 def _arrival_counters(device, b):
@@ -291,28 +372,69 @@ def group_norm_apply(x, a, s, silu: bool):
 group_norm_apply.launches = 0
 
 
-def group_norm_backward_stats(x, dy, weight, a, s, mean, inv, groups: int, silu: bool):
-    """K9 on contiguous CUDA x, dy: coef fp32 [B, 3, C] (a2, b2, c2) for K10 and
-    (dweight, dbias) in weight's dtype."""
-    name = "group_norm_backward_stats"
-    code, b, r, c, (vec, rows, chunks) = _flat(name, x, dy)
+def _check_stats(name, x, groups, mean, inv):
+    for t in (mean, inv):
+        if (t.device != x.device or t.dtype != torch.float32 or t.shape != (x.shape[0], groups)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: mean and inv must be contiguous fp32 [{x.shape[0]}, {groups}] on {x.device}")
+
+
+def group_norm_backward_slab(x, dy, weight, a, s, mean, inv, groups: int, silu: bool):
+    """K9 + K10 in one launch on contiguous CUDA x, dy whose backward route is
+    "fused" or "cluster": (dx, dweight, dbias), the parameter gradients in
+    weight's dtype. Counts its launches, and apart those on a cluster of more
+    than one block (.cluster_launches)."""
+    name = "group_norm_backward_slab"
+    code, b, r, c, _ = _flat(name, x, dy)
     wcode = _check_params(name, x, groups, weight)
     _check_coef(name, x, a, s)
-    for t in (mean, inv):
-        if t.dtype != torch.float32 or t.shape != (b, groups) or not t.is_contiguous():
-            raise ValueError(f"{name}: mean and inv must be contiguous fp32 [{b}, {groups}]")
-    f32 = dict(dtype=torch.float32, device=x.device)
-    partial = torch.empty((b, chunks + 1, 2, c), **f32)  # partial sums, then their totals
-    coef = torch.empty((b, 3, c), **f32)
-    dparam = torch.empty((b, 2, c), **f32)
+    _check_stats(name, x, groups, mean, inv)
+    route, plan = group_norm_backward_route(b, r, c, groups, x.element_size(),
+                                            x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0)
+    if route == "stream":
+        raise ValueError(f"group_norm_backward_slab: no slab of whole groups of {tuple(x.shape)} fits in the "
+                         "shared memory of a cluster")
+    dx = torch.empty_like(x)
+    scratch = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)   # each item's dweight, dbias shares
+    dparams = torch.empty((2, c), dtype=weight.dtype, device=x.device)
+    _cuda.call(
+        "vs_group_norm_bwd_slab", code, x.data_ptr(), dy.data_ptr(), a.data_ptr(), s.data_ptr(), weight.data_ptr(),
+        wcode, mean.data_ptr(), inv.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
+        _arrival_counters(x.device, groups // plan.gc).data_ptr(), dparams[0].data_ptr(), dparams[1].data_ptr(),
+        b, r, c, groups, plan.gc, plan.n, plan.rows, plan.box_rows, int(bool(silu)),
+    )
+    group_norm_backward_slab.launches += 1
+    group_norm_backward_slab.cluster_launches += plan.n > 1
+    return dx, dparams[0], dparams[1]
+
+
+group_norm_backward_slab.launches = 0
+group_norm_backward_slab.cluster_launches = 0
+
+
+def group_norm_backward_stats(x, dy, weight, a, s, mean, inv, groups: int, silu: bool):
+    """K9 on contiguous CUDA x, dy, in one launch: coef fp32 [B, 3, C] (a2, b2,
+    c2) for K10 and (dweight, dbias) in weight's dtype."""
+    name = "group_norm_backward_stats"
+    code, b, r, c, _ = _flat(name, x, dy)
+    wcode = _check_params(name, x, groups, weight)
+    _check_coef(name, x, a, s)
+    _check_stats(name, x, groups, mean, inv)
+    aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    vec, rows, chunks = _plan(b, r, c, x.element_size(), aligned, _BWD_STATS_TARGET_BLOCKS)
+    # the partial sums [B, chunks, 2, C], coef [B, 3, C] and each item's dweight, dbias shares [B, 2, C]
+    n_partial = b * chunks * 2 * c
+    f32 = torch.empty(n_partial + b * 5 * c, dtype=torch.float32, device=x.device)
+    partial, coef, shares = f32[:n_partial], f32[n_partial:n_partial + b * 3 * c].view(b, 3, c), f32[n_partial + b * 3 * c:]
+    dparams = torch.empty((2, c), dtype=weight.dtype, device=x.device)
     _cuda.call(
         "vs_group_norm_bwd_stats", code, x.data_ptr(), dy.data_ptr(), a.data_ptr(), s.data_ptr(),
-        partial.data_ptr(), weight.data_ptr(), wcode, mean.data_ptr(), inv.data_ptr(),
-        coef.data_ptr(), dparam.data_ptr(), b, r, c, groups, vec, rows, chunks, int(bool(silu)),
+        partial.data_ptr(), _arrival_counters(x.device, b + 1).data_ptr(), weight.data_ptr(), wcode,
+        mean.data_ptr(), inv.data_ptr(), coef.data_ptr(), shares.data_ptr(), dparams[0].data_ptr(),
+        dparams[1].data_ptr(), b, r, c, groups, vec, rows, chunks, int(bool(silu)),
     )
     group_norm_backward_stats.launches += 1
-    dparam = dparam.sum(0).to(weight.dtype)  # [2, C]: batch items in index order
-    return coef, dparam[0], dparam[1]
+    return coef, dparams[0], dparams[1]
 
 
 group_norm_backward_stats.launches = 0
@@ -361,10 +483,29 @@ def _forward(x, weight, bias, groups, eps, silu):
     return group_norm_apply(x, a, s, silu), a, s, mean, inv
 
 
+def _backward(x, dy, weight, a, s, mean, inv, groups, silu):
+    """(dx, dweight, dbias) from the forward's statistics: on CUDA the slab
+    kernel or K9 + K10, as group_norm_backward_route says from x (a dy off a
+    16-byte boundary on a slab route is copied, and counted); the plain
+    coefficient form on CPU."""
+    if x.device.type == "cpu":
+        return group_norm_backward_plain(x, dy, weight, a, s, mean, inv, groups, silu)
+    b, c = x.shape[0], x.shape[-1]
+    route, _ = group_norm_backward_route(b, x.numel() // max(1, b * c), c, groups, x.element_size(),
+                                         x.data_ptr() % 16 == 0)
+    if route != "stream":
+        if dy.data_ptr() % 16:
+            group_norm.copies += 1
+            dy = dy.clone()
+        return group_norm_backward_slab(x, dy, weight, a, s, mean, inv, groups, silu)
+    coef, dw, db = group_norm_backward_stats(x, dy, weight, a, s, mean, inv, groups, silu)
+    return group_norm_backward_apply(x, dy, a, s, coef, silu), dw, db
+
+
 class GroupNormFn(torch.autograd.Function):
-    """GroupNorm (+ SiLU) whose backward is K9 + K10 on CUDA and the plain
-    coefficient form on CPU. Saves x, the parameters and the [B, C] / [B, G]
-    statistics; never an fp32 activation."""
+    """GroupNorm (+ SiLU) whose backward is the slab kernel or K9 + K10 on
+    CUDA and the plain coefficient form on CPU. Saves x, the parameters and the
+    [B, C] / [B, G] statistics; never an fp32 activation."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, groups, eps, silu):
@@ -377,20 +518,14 @@ class GroupNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, weight, a, s, mean, inv = ctx.saved_tensors
-        dy = _contiguous(dy)
-        if x.device.type == "cpu":
-            dx, dw, db = group_norm_backward_plain(x, dy, weight, a, s, mean, inv,
-                                                   ctx.groups, ctx.silu)
-        else:
-            coef, dw, db = group_norm_backward_stats(x, dy, weight, a, s, mean, inv,
-                                                     ctx.groups, ctx.silu)
-            dx = group_norm_backward_apply(x, dy, a, s, coef, ctx.silu)
+        dx, dw, db = _backward(x, _contiguous(dy), weight, a, s, mean, inv, ctx.groups, ctx.silu)
         return dx, dw, db, None, None, None
 
 
 def group_norm(x, weight, bias, groups: int = 32, eps: float = 1e-5, silu: bool = False):
     """GroupNorm (+ SiLU) of x [B, ..., C] (channels last). CUDA tensors go
-    through the fused kernel or K7 + K8 (K9 + K10 in the backward) or raise;
+    through the fused kernel or K7 + K8 (the slab kernel or K9 + K10 in the
+    backward) or raise;
     CPU tensors through the plain versions. Under torch.no_grad() nothing is
     saved."""
     if x.shape[-1] % groups:
@@ -403,6 +538,6 @@ def group_norm(x, weight, bias, groups: int = 32, eps: float = 1e-5, silu: bool 
 
 group_norm.copies = 0
 
-KERNEL_COUNTERS = (group_norm_stats, group_norm_apply, group_norm_fused, group_norm_backward_stats,
-                   group_norm_backward_apply)
+KERNEL_COUNTERS = (group_norm_stats, group_norm_apply, group_norm_fused, group_norm_backward_slab,
+                   group_norm_backward_stats, group_norm_backward_apply)
 PLAIN_COUNTERS = (group_norm_plain, group_norm_backward_plain)

@@ -13,7 +13,9 @@ Prints the card's name and power limit, the step times, the peak device
 memory, the device time by group and by kernel name (top 30), the device
 idle share of the profiled step and of the mean timed step (the profiler
 adds host time), and the split of PyTorch's own kernels by launch site
-(profile_single_video.glue_split); for the autoencoder also the vendor GEMM
+(profile_single_video.glue_split), the GroupNorm backward's device time and
+launches (its kernels, and any other kernel its autograd node launched); for
+the autoencoder also the vendor GEMM
 / convolution kernels by model (the "vs:ae:" ranges of AutoencoderTrainStep:
 encoder, decoder, LPIPS, discriminator; backward kernels by autograd node).
 The warm-up step includes the kernels' build in a fresh checkout.
@@ -26,6 +28,30 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
 
 STEPS = 3
+
+
+def group_norm_backward_report(prof) -> str:
+    """Device time and launches of the GroupNorm backward in a profiled step:
+    its kernels by name (vs::gn_bwd_*) and PyTorch's own kernels launched
+    inside GroupNormFn's backward node (the dy copies)."""
+    events = prof.key_averages()
+    attr = "device_time_total" if hasattr(events[0], "device_time_total") else "cuda_time_total"
+    mine = [e for e in events if e.device_type.name == "CUDA" and "gn_bwd" in e.key]
+    lines = [f"GroupNorm backward kernels: {sum(getattr(e, attr) for e in mine) / 1e3:.3f} ms device, "
+             f"{sum(e.count for e in mine)} launches"]
+    for e in sorted(mine, key=lambda e: -getattr(e, attr)):
+        lines.append(f"  {getattr(e, attr) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+    us, n = 0.0, 0
+    for ev in prof.events():
+        up = ev
+        while up is not None and not up.name.startswith("autograd::engine::evaluate_function: GroupNormFnBackward"):
+            up = up.cpu_parent
+        if up is not None:
+            extra = [k for k in getattr(ev, "kernels", ()) if "gn_bwd" not in k.name]
+            us += sum(k.duration for k in extra)
+            n += len(extra)
+    lines.append(f"  other kernels launched inside GroupNormFn's backward: {us / 1e3:.3f} ms device, {n} launches")
+    return "\n".join(lines)
 
 
 def main():
@@ -76,6 +102,7 @@ def main():
         wall = time.perf_counter() - t0
     print(device_time_report(prof, wall, unprofiled_wall=sum(times) / len(times)))
     print(glue_split(prof))
+    print(group_norm_backward_report(prof))
     if autoencoder:
         print(glue_split(prof, group="GEMM / conv (cuBLAS, cuDNN)", prefix="vs:ae:"))
         print(glue_split(prof, group="port kernels (csrc)", prefix="vs:ae:"))

@@ -1,7 +1,7 @@
 """Device time of K1 (flash_attention_packed), K11 (matmul_bias), K4
 (temporal_conv_1x1), the GroupNorm forward, K2 (temporal_attention_direct)
 and its backward K6, the flash backwards K5 and K13, the normalise-first
-route of K1 and K3, and the GroupNorm backward K9 + K10 at the main paths'
+route of K1 and K3, and the GroupNorm backward at the main paths'
 shapes, beside the one PyTorch call for the same function, on one CUDA card.
 
     python3 -m vidseg_diffusion_tpu_torch.scripts.time_kernels [--only k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb]
@@ -34,10 +34,13 @@ products (10 L^2 D flops), and the line also gives the flops the kernels
 execute (S and dP recomputed: 14 L^2 D for K5, 18 L^2 D for K13). The
 normalise-first sites (`nf`: SD 2.1's cross-attention at 5824 and 1456 queries,
 CLIP) are graphs beside SDPA and beside the flash route the port ran there
-before (the rounded sum), each held to mha_reference. K9 + K10 (`gnb`) run as
-GroupNormFn's backward calls them, at the GroupNorm sites, beside the library
-backward (autograd.grad through F.group_norm (+ F.silu), profiled), with a
-bound of x and dy read and dx written. Prints the card's name and power limit
+before (the rounded sum), each held to mha_reference. The GroupNorm backward
+(`gnb`) runs as GroupNormFn's backward calls it (the slab kernel or K9 + K10,
+by route) at the GroupNorm sites and the backward's cluster sites, beside the
+library backward (autograd.grad through F.group_norm (+ F.silu), profiled),
+with a bound of x and dy read and dx written; at a slab site K9 + K10 also,
+at a K9 + K10 site each launch also alone, and the slab kernel where a
+cluster would hold the slab but the route sends its many items to K9 + K10. Prints the card's name and power limit
 and ptxas's register / spill lines for the wgmma, the mma.sync flash and the
 temporal-attention kernels.
 """
@@ -86,6 +89,10 @@ GN_SITES = [((28, 56, 104, 320), "bf16", True, 1e-5), ((28, 56, 104, 320), "bf16
             ((7, 448, 832, 128), "bf16", True, 1e-6), ((1, 7, 448, 832, 128), "bf16", True, 1e-6),
             ((28, 56, 104, 320), "fp32", True, 1e-5), ((28, 7, 13, 1280), "fp32", False, 1e-6),
             ((2, 14, 56, 104, 320), "fp32", True, 1e-5)]
+# the backward's also at its cluster sites off chip_smoke's list: UNet ds2 concat, the
+# ds4 time_stack, the inversion's ds1 concat at 512 x 512, the autoencoder step at 112 x 208
+GN_BWD_SITES = GN_SITES + [((28, 28, 52, 1920), "bf16", True, 1e-5), ((2, 14, 14, 26, 1280), "bf16", True, 1e-5),
+                           ((2, 64, 64, 960), "bf16", True, 1e-5), ((2, 112, 208, 512), "bf16", True, 1e-6)]
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
 
 
@@ -365,36 +372,65 @@ def time_normalised(torch, F, rn):
 
 
 def time_group_norm_backward(torch, F, rn):
-    """K9 + K10 as GroupNormFn's backward calls them, at GN_SITES, beside
-    autograd.grad through F.group_norm (+ F.silu) on the channels-last view
-    (profiled device time), held to the plain backward."""
+    """The GroupNorm backward as GroupNormFn's backward calls it (ops.norm:
+    the slab kernel or K9 + K10, by group_norm_backward_route), at
+    GN_BWD_SITES, beside autograd.grad through F.group_norm (+ F.silu) on the
+    channels-last view (profiled device time), held to the plain backward;
+    where the route is the slab kernel, also K9 + K10 at the same site (the
+    other route); where it is K9 + K10, each of the two launches alone, K10
+    with its rate (x and dy read, dx written)."""
     from vidseg_diffusion_tpu_torch.ops import norm as N
 
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
-    for shape, dt, silu, eps in GN_SITES:
+    for shape, dt, silu, eps in GN_BWD_SITES:
         dtype, c = dtypes[dt], shape[-1]
         x = (rn(*shape) * 1.5 + 0.3).to(dtype)
         dy = rn(*shape).to(dtype)
         w, b = (rn(c) * 0.5 + 1.0).to(dtype), rn(c).to(dtype)
+        nbytes = 3 * x.numel() * x.element_size()   # x and dy read once, dx written once
         with torch.no_grad():
             _, a, s, mean, inv = N._forward(x, w, b, 32, eps, silu)
+            args = (x, dy, w, a, s, mean, inv)
+            route, plan = N.group_norm_backward_route(shape[0], x.numel() // (shape[0] * c), c, 32,
+                                                      x.element_size(), True)
+            route += f" {plan.n}" if route == "cluster" else ""
+            steps, rms = errors(N._backward(*args, 32, silu)[0], N.group_norm_backward_plain(*args, 32, silu)[0])
+            ms = graph_ms(torch, lambda: N._backward(*args, 32, silu), 5)
 
-            def port():
-                coef, _, _ = N.group_norm_backward_stats(x, dy, w, a, s, mean, inv, 32, silu)
+            def stream():
+                coef = N.group_norm_backward_stats(*args, 32, silu)[0]
                 return N.group_norm_backward_apply(x, dy, a, s, coef, silu)
 
-            steps, rms = errors(port(), N.group_norm_backward_plain(x, dy, w, a, s, mean, inv, 32, silu)[0])
-            ms = graph_ms(torch, port, 5)
+            if route == "stream":
+                coef = N.group_norm_backward_stats(*args, 32, silu)[0]
+                k9 = graph_ms(torch, lambda: N.group_norm_backward_stats(*args, 32, silu), 5)
+                k10 = graph_ms(torch, lambda: N.group_norm_backward_apply(x, dy, a, s, coef, silu), 5)
+                other = (f"; K9 alone {k9:.4f}, K10 alone {k10:.4f} ({nbytes / k10 / 1e9:.2f} TB/s, "
+                         f"{100 * nbytes / k10 / 1e9 / (HBM_BYTES_PER_S / 1e12):.0f}% of 3.35 TB/s)")
+                # where a cluster of 8 or 16 would hold the slab but the batch has too many
+                # items for it (ops.norm._BWD_STREAM_ITEMS), the slab kernel on that cluster too
+                items = N._BWD_STREAM_ITEMS
+                N._BWD_STREAM_ITEMS = math.inf
+                try:
+                    held, plan = N.group_norm_backward_route(shape[0], x.numel() // (shape[0] * c), c, 32,
+                                                             x.element_size(), True)
+                    if held == "cluster":
+                        slab = graph_ms(torch, lambda: N.group_norm_backward_slab(*args, 32, silu), 5)
+                        other += f"; the slab kernel on a cluster of {plan.n} here {slab:.4f}"
+                finally:
+                    N._BWD_STREAM_ITEMS = items
+            else:
+                other = f"; K9 + K10 here {graph_ms(torch, stream, 5):.4f}"
         cl = lambda t: t.permute(0, t.dim() - 1, *range(1, t.dim() - 1))   # the channels-last view
         leaves = [cl(x).detach().requires_grad_(), w.detach().requires_grad_(), b.detach().requires_grad_()]
         y = F.group_norm(leaves[0], 32, leaves[1], leaves[2], eps)
         y = F.silu(y) if silu else y
         lib_ms = profiled_ms(torch, lambda: torch.autograd.grad(y, leaves, cl(dy), retain_graph=True))
-        nbytes = 3 * x.numel() * x.element_size()   # x and dy read once, dx written once
-        print(f"GroupNorm backward K9+K10 {'+SiLU ' if silu else ''}{list(shape)} {dt}: {ms:.4f} ms (library "
-              f"backward {fmt_ms(lib_ms)}, bound {bound_ms(nbytes, 0):.4f}), dx {steps:.2e} "
+        bound = bound_ms(nbytes, 0)
+        print(f"GroupNorm backward ({route}) {'+SiLU ' if silu else ''}{list(shape)} {dt}: {ms:.4f} ms "
+              f"({ms / bound:.2f}x bound {bound:.4f}; library backward {fmt_ms(lib_ms)}){other}, dx {steps:.2e} "
               f"{'bf16 steps' if dt == 'bf16' else 'relative'}, rel. RMS {rms:.2e}", flush=True)
-        del x, dy, leaves, y
+        del x, dy, leaves, y, args
         torch.cuda.empty_cache()
 
 
