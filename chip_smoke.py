@@ -211,6 +211,35 @@ Phases, in order; any failure exits non-zero:
    bits decoded; frechet_distance in float64 on the card for two seeded 2048 x
    1024 populations vs scipy's sqrtm (FID_RTOL); prefetch_to_device onto the
    card in order; utils/profiling.trace naming a K1 kernel.
+26. model_options (after tiny): svd_tiny.yaml's UNet with the AlphaBlender
+   merge 'fixed' and 'learned' and video_kernel_size (2, 1, 1), (3, 3, 3) and
+   (1, 3, 3), the VideoDecoder with the three kernels: fp32 card vs CPU,
+   forward and one backward (outputs within UNET_REL_TOL x max |CPU|,
+   gradients within GRAD_REL_TOL by norm); K4 launched twice (forward, dx) per
+   (kt, 1, 1) TemporalConv, kt = 2 included, none where kh or kw is above 1,
+   which runs kt F.conv2d taps forward instead. The kernel phase holds K4 and
+   its dx at kt = 2 and 4 in bf16 at UNet ds2.
+27. fsdp_runs (after main, on its pipeline): a one-rank NCCL process group
+   (parallel/mesh.py) and the main path's run_single_video with its runs over
+   it (parallel/runs.py): the main run's launches, and its latents, maps,
+   masks and labels bit-equal to the main run's.
+28. fsdp (after train): the train phase's step wrapped by parallel/fsdp.py's
+   fsdp_wrap on that group (FSDPTrainStep), FSDP_STEPS steps, cuDNN's
+   deterministic algorithms on: the launches of as many remat steps; no
+   K4 / K12 weight copy read in the last step older than its weight; every
+   step-1 gradient, parameter and EMA element equal, leaf by leaf, to an
+   unwrapped run given FSDP's input nodes (a planted fault, one leaf's update
+   undone, must be reported); against the plain unwrapped run the step-1
+   gradients and what the steps changed within FSDP_GRAD_TOL /
+   FSDP_UPDATE_TOL by norm (FSDP's input nodes re-associate the bf16 sums of
+   multi-consumer gradients); step seconds of both; then trap (b) forced
+   (copies never retired, the storage pointer unread): the stale-copy count
+   and the leaf check must both report it.
+With `--ranks` under `torchrun --nproc_per_node W` on W cards (main_ranks):
+the main path's runs over the W ranks bit-equal to one rank's run, and the
+training step FSDP-wrapped over the W ranks, a video each, against the
+unwrapped step on one card's batch of W videos;
+one JSON line of those readings (no kernels line).
 The kernel phase also holds the instances at the head dims the tuned kernels
 are not built for (D = 16: K1, K2, K3, K5, K6, K13; one 512-dim head: K1, K2)
 against their plain versions in bf16 and fp32, and the normalise-first mode
@@ -222,7 +251,9 @@ autoencoder training, the SVD and SD sweeps summed over their windows, the
 inversion run, the two VideoDecoder decodes summed, the tiny run, and the
 sampling API's runs: api_launches (api_sdxl's runs summed), img2vid_launches,
 nti_launches; t5_launches,
-demo_launches (its three requests summed), safety_launches; a head-dim
+demo_launches (its three requests summed), safety_launches; the model options'
+card runs, the runs over the group and the FSDP steps: model_options_launches,
+fsdp_runs_launches, fsdp_launches; a head-dim
 instance's at its D, its `path` naming the run of its `launches`), for
 K1-K6, K11 and K13 the launches of each run by the kernel that ran
 (`routes`), worst error, kernel, plain, bound and library-call ms at its
@@ -438,6 +469,7 @@ GRAD_FLOOR = 1e-3
 # the PatchGAN discriminator's parameter gradients, card vs CPU (ae_grad): it runs
 # library ops only, whose fp32 card numerics read 1.1e-3 on the reconstruction
 DISC_GRAD_TOL = 5e-3
+OPTION_GRAD_FACTOR = 4.0   # model_options: a card gradient's distance to the float64 run, x the CPU fp32 one's
 TRAIN_STEPS = 3
 HEADLINE = {  # the shape of its path each kernel is timed at
     "flash_attention_packed": "ds1 B=2 slice [2,5824,5x64]",
@@ -520,6 +552,9 @@ def attn_work(b, h, lq, lk, d, backward=False, dtype="bf16"):
     if backward:
         return item * (4 * q + 4 * kv) + 4 * b * h * lq, 10 * b * h * lq * lk * d, dtype
     return item * (2 * q + 2 * kv), 4 * b * h * lq * lk * d, dtype
+
+
+EVEN_KT_LIBRARY = "F.conv3d pads kt // 2 frames on both sides: T + 1 output frames"
 
 
 def tconv_work(b, t, m, cin, cout, kt=3, dtype="bf16"):
@@ -618,8 +653,8 @@ def kernel_cases(torch):
             return q, k, v, A.temporal_attention_direct(q, k, v, t=14), g
         return make
 
-    def tconv_bwd(b, t, m, c):
-        return lambda: (rn(b, t, m, c).to(bf), (rn(3, c, c) / (3 * c) ** 0.5).to(bf),
+    def tconv_bwd(b, t, m, c, kt=3):
+        return lambda: (rn(b, t, m, c).to(bf), (rn(kt, c, c) / (kt * c) ** 0.5).to(bf),
                         rn(b, t, m, c).to(bf))
 
     # the library yardsticks: F.scaled_dot_product_attention on views of the
@@ -646,7 +681,8 @@ def kernel_cases(torch):
         w5 = w.permute(2, 1, 0).contiguous()[..., None, None].detach().requires_grad_()
         b5 = torch.zeros(w.shape[2], dtype=x.dtype, device=x.device, requires_grad=True)
         y = F.conv3d(x5, w5, b5, padding=(w.shape[0] // 2, 0, 0))
-        g5 = g.permute(0, 3, 1, 2).unsqueeze(-1)
+        # an even kt gives one frame more (symmetric padding): its gradient is zero
+        g5 = F.pad(g.permute(0, 3, 1, 2).unsqueeze(-1), (0, 0, 0, 0, 0, y.shape[2] - g.shape[1]))
         return lambda: torch.autograd.grad(y, (x5, w5, b5), g5, retain_graph=True)
 
     def packed_lse(b, l, h, lk):
@@ -738,23 +774,31 @@ def kernel_cases(torch):
         ("T=2 [3,2,1000,320->640]", 3, 2, 1000, 320, 640, 3, bf),
         ("M=1 [28,14,1,1280]", 28, 14, 1, 1280, 1280, 3, bf),
         ("kt=1 [2,14,364,1280]", 2, 14, 364, 1280, 1280, 1, bf),
+        ("kt=2 UNet ds2 [2,14,1456,640]", 2, 14, 1456, 640, 640, 2, bf),
+        ("kt=4 UNet ds2 [2,14,1456,640]", 2, 14, 1456, 640, 640, 4, bf),
         ("fp32 [2,14,91,320]", 2, 14, 91, 320, 320, 3, torch.float32),
     ):
         dname = "bf16" if dtype == bf else "fp32"
         add(kernel="temporal_conv_1x1", label=label, make=tconv(b, t, m, ci, co, kt, dtype),
             kern=TC.temporal_conv_1x1, plain=TC.temporal_conv_1x1_reference, iters=3,
-            work=tconv_work(b, t, m, ci, co, kt, dname), library=conv3d_call)
+            work=tconv_work(b, t, m, ci, co, kt, dname), library=conv3d_call,
+            library_covers=EVEN_KT_LIBRARY if kt % 2 == 0 else None)
     # training path (the train phase's batch of 2 videos x 14 frames):
     # K4's dx launch inside the temporal-conv backward (dW/db are matmuls),
     # K5 at every spatial self-attention width (ds1 on a B=2 slice: the
     # plain backward holds several [B, H, L, L] fp32 tensors), K6 at every
     # temporal one
-    for label, m, c in (("dx UNet ds1 [2,14,5824,320]", 5824, 320),
-                        ("dx UNet ds4 [2,14,364,1280]", 364, 1280)):
-        bts, fl, pk = tconv_work(2, 14, m, c, c)
-        add(kernel="temporal_conv_1x1", label=label, make=tconv_bwd(2, 14, m, c),
+    # (kt = 2 and 4: dx's taps one frame off K4's own offset, read as kt + 1
+    # taps with a zero tap in front)
+    for label, m, c, kt in (("dx UNet ds1 [2,14,5824,320]", 5824, 320, 3),
+                            ("dx UNet ds4 [2,14,364,1280]", 364, 1280, 3),
+                            ("dx kt=2 UNet ds2 [2,14,1456,640]", 1456, 640, 2),
+                            ("dx kt=4 UNet ds2 [2,14,1456,640]", 1456, 640, 4)):
+        bts, fl, pk = tconv_work(2, 14, m, c, c, kt)
+        add(kernel="temporal_conv_1x1", label=label, make=tconv_bwd(2, 14, m, c, kt),
             kern=TC.temporal_conv_1x1_backward, plain=TC.temporal_conv_1x1_backward_reference,
-            iters=3, work=(2 * bts, 2 * fl, pk), library=conv3d_backward)  # dx and dW: two such products
+            iters=3, work=(2 * bts, 2 * fl, pk), library=conv3d_backward,  # dx and dW: two such products
+            library_covers=EVEN_KT_LIBRARY if kt % 2 == 0 else None)
     for label, b, l, h in spatial:
         add(kernel="flash_attention_packed_backward", label=label, make=packed_bwd(b, l, h),
             kern=A.flash_attention_packed_backward, plain=A.flash_attention_packed_backward_reference,
@@ -1855,9 +1899,10 @@ def read_counts():
     return {f.__name__: f.launches for f in counters}, {f.__name__: f.calls for f in plains}
 
 
-def run_main_path(torch, pipe, tag, injected):
-    """One run_single_video of scripts/main_path.py with its checks; returns
-    (launches, result)."""
+def run_main_path(torch, pipe, tag, injected, process_group=None):
+    """One run_single_video of scripts/main_path.py (its runs over
+    `process_group`'s ranks when given) with its checks; returns (launches,
+    result)."""
     import numpy as np
 
     from vidseg_diffusion_tpu_torch.ops import norm as N
@@ -1871,7 +1916,8 @@ def run_main_path(torch, pipe, tag, injected):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    res = run_single_video(pipe, frames, names, args, write_outputs=False, timings=timings)
+    res = run_single_video(pipe, frames, names, args, write_outputs=False, timings=timings,
+                           process_group=process_group)
     total = time.perf_counter() - t0
     launches, plain_calls = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2084,6 +2130,130 @@ def phase_tiny(torch):
     check(np.isfinite(res.final_latents).all() and np.isfinite(res.diff_maps).all(), "[tiny] outputs not finite")
     check(float(np.abs(res.final_latents[0] - res.final_latents[1]).max()) > 0, "[tiny] +lambda == -lambda")
     del pipe
+    return launches
+
+
+MODEL_OPTIONS = {   # the model options no shipped config sets, on svd_tiny.yaml's UNet and VideoDecoder
+    "fixed": dict(merge_strategy="fixed", merge_factor=0.3),
+    "learned": dict(merge_strategy="learned", merge_factor=0.3),
+    "k211": dict(video_kernel_size=(2, 1, 1)),
+    "k333": dict(video_kernel_size=(3, 3, 3)),
+    "k133": dict(video_kernel_size=(1, 3, 3)),
+}
+
+
+def grads_card_vs_cpu(torch, tag, model, cpu_model, run, inputs):
+    """run(model, *inputs) -> output on the card (fp32), on the CPU (fp32) and
+    on the CPU in float64 (a copy of the model and its config), then the
+    gradients of sum(output * g) for a seeded g. The card's output within
+    UNET_REL_TOL x max |CPU| of the CPU's; each parameter's and the first
+    input's gradient no farther (by norm, floor GRAD_FLOOR x the largest)
+    from the float64 run's than OPTION_GRAD_FACTOR x the CPU fp32 run's
+    distance, or GRAD_REL_TOL. (The tiny UNet's time-embedding projections
+    sum the whole map's gradient: there the CPU's own fp32 gradient reads
+    5e-4 to 1.1e-3 from the float64 run's, the default config's too.)
+    Returns (card forward + backward seconds, output error x max, worst
+    card error, its CPU error, gradients compared)."""
+    import copy
+    import dataclasses
+
+    wide = copy.deepcopy(cpu_model).double()
+    wide.config = dataclasses.replace(wide.config, dtype=torch.float64)
+    outs, grads = {}, {}
+    for dev, m in (("cuda", model), ("cpu", cpu_model), ("float64", wide)):
+        dt = torch.float64 if dev == "float64" else torch.float32
+        on = "cpu" if dev == "float64" else dev
+        xs = [x.detach().clone().to(on, dt if x.is_floating_point() else x.dtype).requires_grad_(i == 0)
+              for i, x in enumerate(inputs)]
+        t0 = time.perf_counter()
+        out = run(m, *xs)
+        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(5)).to(on, dt)
+        (out * g).sum().backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+        outs[dev] = out.detach().cpu().double()
+        grads[dev] = {n: p.grad.cpu().double() for n, p in m.named_parameters() if p.grad is not None}
+        grads[dev]["input0"] = xs[0].grad.cpu().double()
+    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    scale = outs["cpu"].abs().max().item()
+    check(bool(torch.isfinite(outs["cuda"]).all()) and err <= UNET_REL_TOL * scale,
+          f"[{tag}] output on the card disagrees with the CPU: {err} (tol {UNET_REL_TOL * scale})")
+    check(grads["cuda"].keys() == grads["cpu"].keys() == grads["float64"].keys(),
+          f"[{tag}] gradients missing on one side")
+    floor = GRAD_FLOOR * max(g.norm().item() for g in grads["float64"].values())
+    worst, worst_cpu, worst_name = 0.0, 0.0, ""
+    for name, ref in grads["float64"].items():
+        denom = max(ref.norm().item(), floor)
+        card, cpu = ((grads[d][name] - ref).norm().item() / denom for d in ("cuda", "cpu"))
+        check(card <= max(GRAD_REL_TOL, OPTION_GRAD_FACTOR * cpu),
+              f"[{tag}] gradient of {name}: the card's {card:.2e} from the float64 run's, the CPU's {cpu:.2e}")
+        if card > worst:
+            worst, worst_cpu, worst_name = card, cpu, name
+    return card_s, err / max(scale, 1e-30), (worst, worst_cpu, worst_name), len(grads["cpu"])
+
+
+def phase_model_options(torch):
+    """The AlphaBlender's 'fixed' and 'learned' merges and video_kernel_size
+    (2, 1, 1), (3, 3, 3) and (1, 3, 3) on svd_tiny.yaml's UNet (and, for the
+    kernels, its VideoDecoder): fp32 on the card against the CPU, forward and
+    one backward (TF32 off). Every (kt, 1, 1) TemporalConv launches K4 once
+    forward and once backward (dx), kt = 2 included; where kh or kw is above
+    1 it launches no K4 and runs kt F.conv2d taps forward. Returns the
+    launches of all the variants' card runs."""
+    import copy
+    import dataclasses
+
+    from vidseg_diffusion_tpu_torch.config import load_model_spec
+    from vidseg_diffusion_tpu_torch.engine.build import randomize_
+    from vidseg_diffusion_tpu_torch.models.unet import TemporalConv, UNetModel
+    from vidseg_diffusion_tpu_torch.models.vae import Decoder
+
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t, b = 3, 6   # two 3-frame videos
+    spec = load_model_spec(os.path.join(ROOT, TINY_CONFIG), num_frames=t)
+    g = torch.Generator().manual_seed(6)
+    unet_in = (torch.randn(b, 16, 16, 8, generator=g), torch.randn(b, generator=g),
+               torch.randn(b, 1, 1024, generator=g), torch.randn(b, 768, generator=g))
+    z = torch.randn(t, 8, 8, 4, generator=g)
+    total = {}
+    reset_counts()
+    for name, opts in MODEL_OPTIONS.items():
+        models = [("UNet", UNetModel(dataclasses.replace(spec.unet_config, **opts)),
+                   lambda m, x, ts, ctx, y: m(x, ts, ctx, y, num_video_frames=t, image_only_indicator=None
+                                              if "merge_strategy" in opts else torch.zeros(2, t, device=x.device)),
+                   unet_in)]
+        if "video_kernel_size" in opts:
+            models.append(("VideoDecoder", Decoder(dataclasses.replace(spec.vae_config, **opts)),
+                           lambda m, zz: m(zz, t), (z,)))
+        for part, model, run, inputs in models:
+            randomize_(model, torch.Generator().manual_seed(7))
+            cpu_model, model = copy.deepcopy(model), model.cuda()
+            convs = [m for m in model.modules() if isinstance(m, TemporalConv)]
+            kt, kh, kw = convs[0].kernel
+            check(all(m.kernel == (kt, kh, kw) for m in convs), f"[model_options] {name}: mixed kernels")
+            before, taps = read_counts()[0], TemporalConv.conv2d_taps
+            card_s, out_err, grad_err, n_grads = grads_card_vs_cpu(torch, f"model_options {name} {part}", model,
+                                                                  cpu_model, run, inputs)
+            after = read_counts()[0]
+            card_taps = (TemporalConv.conv2d_taps - taps) // 3   # the CPU runs (fp32, float64) take as many
+            k4 = after["temporal_conv_1x1"] - before["temporal_conv_1x1"]
+            want_k4, want_taps = (2 * len(convs), 0) if (kh, kw) == (1, 1) else (0, kt * len(convs))
+            print(f"[model_options] {name} {part} ({opts}): fp32 card vs CPU, output {out_err:.2e} x max, "
+                  f"{n_grads} gradients, the worst against the float64 run {grad_err[0]:.2e} (the CPU's "
+                  f"{grad_err[1]:.2e}, {grad_err[2]}); {len(convs)} TemporalConv {kt, kh, kw}: "
+                  f"K4 launches {k4} (expected {want_k4}), F.conv2d taps {card_taps} (expected {want_taps}); "
+                  f"card forward + backward {card_s:.2f} s", flush=True)
+            check(k4 == want_k4 and card_taps == want_taps,
+                  f"[model_options] {name} {part}: K4 launches {k4}, taps {card_taps}")
+            del model, cpu_model
+    launches, plain_calls = read_counts()
+    check(launches["temporal_conv_1x1"] > 0, "[model_options] K4 never launched")
+    DIM_COUNTS["model_options"], ROUTE_COUNTS["model_options"] = read_dims(), read_routes()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2358,6 +2528,276 @@ def phase_train(torch):
           f"{json.dumps(GN_ROUTES)}, backwards by route {json.dumps(GN_BWD_RUNS['train'])}", flush=True)
     del trainer, unet, params0, ema0
     torch.cuda.empty_cache()
+    return launches
+
+
+FSDP_STEPS = 2   # step 2 is the first to run on weights an optimizer step wrote
+FSDP_GRAD_TOL = 5e-2     # step-1 gradient tensors by norm, FSDP vs unwrapped (bf16 sums re-associated)
+FSDP_UPDATE_TOL = 5e-2   # the two steps' change of params and EMA by norm, FSDP vs unwrapped
+
+
+def join_group():
+    """A one-rank NCCL process group on this card (parallel/mesh.py), at a
+    free localhost port: NCCL places one rank on a card."""
+    import socket
+
+    from vidseg_diffusion_tpu_torch.parallel.mesh import initialize_distributed
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    return initialize_distributed(f"localhost:{port}", num_processes=1, process_id=0)
+
+
+def phase_fsdp_runs(torch, pipe, plain_res, main_launches, group):
+    """The main path's run_single_video with its runs over the one-rank
+    group (parallel/runs.py's split, gather and broadcast): the same launches
+    as the plain run, and its latents, maps and labels bit-equal to it."""
+    import numpy as np
+
+    launches, res = run_main_path(torch, pipe, "fsdp_runs", injected=False, process_group=group)
+    check(launches == main_launches, f"[fsdp_runs] launches {launches} differ from the main run's {main_launches}")
+    for key in ("final_latents", "diff_maps", "seg_raw", "seg_filtered", "masks", "unique_labels"):
+        a, b = getattr(res, key), getattr(plain_res, key)
+        check(a.shape == b.shape and np.array_equal(a, b),
+              f"[fsdp_runs] {key} differs from the plain run's (max {np.abs(a - b).max() if a.shape == b.shape else a.shape})")
+    print("[fsdp_runs] final latents, difference maps, masks and both label maps bit-equal to the main run's",
+          flush=True)
+    DIM_COUNTS["fsdp_runs"], ROUTE_COUNTS["fsdp_runs"] = read_dims(), read_routes()
+    return launches
+
+
+def stale_copy_counter(torch, model):
+    """Forward pre-hooks on every TemporalConv and Conv3x3NHWC of `model`
+    that compare the K4 / K12 weight copy the kernel is about to read with a
+    fresh re-layout of the module's weight; returns (the list of stale
+    module calls, a remover)."""
+    from vidseg_diffusion_tpu_torch.models.layers import Conv3x3NHWC
+    from vidseg_diffusion_tpu_torch.models.unet import TemporalConv
+    from vidseg_diffusion_tpu_torch.ops import conv3x3 as C3
+    from vidseg_diffusion_tpu_torch.ops import temporal_conv as TC
+
+    stale, handles = [], []
+
+    def hook(module, args):
+        w, dt = module.weight, args[0].dtype
+        with torch.no_grad():
+            if isinstance(module, TemporalConv):
+                cached, fresh = TC.k_major(w, dt), TC._relayout_k_major(w.detach(), dt)
+            else:
+                cached, fresh = C3.tap_major(w, dt), C3._relayout_tap_major(w.detach(), dt)
+        if not torch.equal(cached, fresh):
+            stale.append(type(module).__name__)
+
+    for m in model.modules():
+        if isinstance(m, Conv3x3NHWC) or (isinstance(m, TemporalConv) and m.kernel[1:] == (1, 1)):
+            handles.append(m.register_forward_pre_hook(hook))
+    return stale, lambda: [h.remove() for h in handles]
+
+
+def fsdp_input_nodes(torch, model):
+    """Give an unwrapped UNet the autograd nodes fsdp_wrap's FSDP puts on the
+    inputs of each wrapped module (parallel/fsdp.py::wrapped_modules): one
+    identity over the inputs that need a gradient, in each forward but not in
+    a remat recompute, where FSDP registers none. A tensor read by several
+    modules then sums its gradients in the wrapped model's association
+    (tests/test_torch_parallel.py holds this bit-equal on the CPU)."""
+    from vidseg_diffusion_tpu_torch.parallel.fsdp import wrapped_modules
+
+    class InputNode(torch.autograd.Function):   # as FSDP2's RegisterPostBackwardFunction
+        @staticmethod
+        def forward(ctx, *inputs):
+            return inputs
+
+        @staticmethod
+        def backward(ctx, *grads):
+            return grads
+
+    def hook(module, args):
+        if not torch.is_grad_enabled() or torch._C._current_graph_task_id() != -1:
+            return None
+        at = [i for i, a in enumerate(args) if torch.is_tensor(a) and a.requires_grad]
+        if not at:
+            return None
+        args = list(args)
+        for i, out in zip(at, InputNode.apply(*[args[i] for i in at])):
+            args[i] = out
+        return tuple(args)
+
+    for module in wrapped_modules(model):
+        module.register_forward_pre_hook(hook)
+
+
+def two_train_steps(torch, trainer, n_videos=None):
+    """FSDP_STEPS steps of scripts/train_path.py's batch (`n_videos` videos,
+    its own count when None) with fresh seeded generators; the last step's
+    weight copies checked (stale_copy_counter). Returns (the first step's
+    gradients, the params and EMA after the last step, all whole copies on
+    the card), step seconds, losses, stale copies."""
+    from vidseg_diffusion_tpu_torch.parallel.fsdp import full_tensor, replicated_state
+    from vidseg_diffusion_tpu_torch.scripts import train_path
+
+    latents, cond = train_path.batch(n_videos or train_path.N_VIDEOS)
+    gens = train_path.generators()
+    times, losses, grads, stale = [], [], None, []
+    for i in range(FSDP_STEPS):
+        remove = None
+        if i == FSDP_STEPS - 1:
+            stale, remove = stale_copy_counter(torch, trainer.model)
+        t0 = time.perf_counter()
+        loss = trainer.step(latents, cond, generators=gens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        if remove is not None:
+            remove()
+        if i == 0:
+            grads = {n: full_tensor(p.grad).clone() for n, p in trainer.model.named_parameters() if p.grad is not None}
+    params, ema = replicated_state(trainer.model, trainer.ema)
+    return (grads, {n: p.clone() for n, p in params.items()}, {n: e.clone() for n, e in ema.items()}), times, losses, stale
+
+
+def state_gap(torch, got, want, init):
+    """How far a run's (step-1 gradients, params, EMA) lie from another's:
+    the worst relative error by norm of a step-1 gradient tensor (floor
+    GRAD_FLOOR x the largest norm); over all params and EMA tensors together
+    the relative error by norm of what the steps changed, ||d_got - d_want||
+    / ||d_want|| with d the change from the initial weights `init`; and the
+    elements more than one bf16 step apart."""
+    g_got, g_want = got[0], want[0]
+    floor = GRAD_FLOOR * max(g.float().norm().item() for g in g_want.values())
+    grad_err = max((g_got[n].float() - g.float()).norm().item() / max(g.float().norm().item(), floor)
+                   for n, g in g_want.items())
+    num = den = 0.0
+    far = 0
+    for part in (1, 2):
+        for name, w in want[part].items():
+            a, b = got[part][name].float(), w.float()
+            num += (a - b).norm().item() ** 2
+            den += (b - init[name].float()).norm().item() ** 2
+            step = torch.exp2(torch.log2(b.abs()).clamp(min=-126) - 7)
+            far += int(((a - b).abs() > step).sum())
+    return grad_err, (num / den) ** 0.5, far
+
+
+def leaf_diffs(torch, got, want):
+    """{(part, name): elements that differ} over the step-1 gradients, the
+    params and the EMA of two runs (part 0, 1, 2), leaf by leaf; a leaf one
+    run lacks counts whole."""
+    out = {}
+    for part in range(3):
+        for name in set(got[part]) | set(want[part]):
+            a, b = got[part].get(name), want[part].get(name)
+            n = (a.numel() if a is not None else b.numel()) if a is None or b is None or a.shape != b.shape \
+                else int((a != b).sum())
+            if n:
+                out[(part, name)] = n
+    return out
+
+
+def phase_fsdp(torch):
+    """scripts/train_path.py's full-width SVD training step (bf16, remat,
+    Adam, EMA) wrapped by parallel/fsdp.py::fsdp_wrap on the one-rank NCCL
+    group (FSDPTrainStep), FSDP_STEPS steps, cuDNN's deterministic
+    algorithms on, against two unwrapped runs of the same steps:
+    - the unwrapped UNet given FSDP's input nodes (fsdp_input_nodes): every
+      element of every step-1 gradient, parameter and EMA tensor equal, leaf
+      by leaf (leaf_diffs). A planted fault, one leaf's update undone in the
+      wrapped state, must be reported by that check;
+    - the plain unwrapped UNet: the step-1 gradients within FSDP_GRAD_TOL and
+      what the steps changed within FSDP_UPDATE_TOL by norm. FSDP's input
+      nodes sum a multi-consumer tensor's gradient (the UNet's emb, a block
+      input its skip also reads) in another association, bf16 roundings
+      apart, and Adam's first steps, about lr x sign(g), turn a changed
+      rounding of a near-zero gradient into a changed step.
+    Also the launches of as many steps as phase_train's, and no K4 / K12
+    weight copy older than its weight read in the last step
+    (stale_copy_counter). Then trap (b) forced: a wrapped run whose copies
+    are never retired and whose cache ignores the storage pointer (the
+    allocator's reuse made always) must read stale copies in step 2, and the
+    leaf check against the input-node run must report them. Returns the
+    wrapped run's launches."""
+    from vidseg_diffusion_tpu_torch.ops import conv3x3 as C3
+    from vidseg_diffusion_tpu_torch.ops import relayout
+    from vidseg_diffusion_tpu_torch.ops import temporal_conv as TC
+    from vidseg_diffusion_tpu_torch.scripts import train_path
+
+    def run(kind, tag):
+        trainer = train_path.build(fsdp=kind == "fsdp")
+        if kind == "nodes":
+            fsdp_input_nodes(torch, trainer.model)
+        init = None if kind == "fsdp" else {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+        relays = TC.temporal_conv_1x1.relays, C3.conv3x3_same.relays
+        reset_counts()
+        state, times, losses, stale = two_train_steps(torch, trainer)
+        launches = read_counts()[0]
+        relays = TC.temporal_conv_1x1.relays - relays[0], C3.conv3x3_same.relays - relays[1]
+        print(f"[fsdp] {tag}: {FSDP_STEPS} steps, step_s {[round(x, 4) for x in times]}, losses {losses}, "
+              f"weight copies made (K4, K12) {relays}, stale copies read in the last step {len(stale)} "
+              f"({card_line()})", flush=True)
+        return trainer, state, launches, times, stale, init
+
+    def flush():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    trainer, plain, _, plain_times, plain_stale, init = run("plain", "unwrapped")
+    del trainer
+    flush()
+    trainer, nodes, _, _, nodes_stale, _ = run("nodes", "unwrapped with FSDP's input nodes")
+    del trainer
+    flush()
+    check(not plain_stale and not nodes_stale, "[fsdp] an unwrapped run read a stale weight copy")
+    trainer, state, launches, times, stale, _ = run("fsdp", "fsdp_wrap, world 1")
+    unet = trainer.model
+    kinds = {type(p).__name__ for p in unet.parameters()}
+    check(kinds == {"DTensor"}, f"[fsdp] wrapped parameters are {kinds}")
+    expected = {k: FSDP_STEPS * n for k, n in train_launches(unet).items()}
+    expected.update(group_norm_expected("fsdp", expected.pop("group_norm")))
+    expected.update(group_norm_backward_expected("fsdp", modules_backward_routes(unet, FSDP_STEPS),
+                                                 expected.pop("group_norm_backward")))
+    check(launches == expected, f"[fsdp] launches {launches}, expected {expected}")
+    check(all(launches[k] > 0 for k in TRAIN_KERNELS), "[fsdp] a kernel of the training path never launched")
+    DIM_COUNTS["fsdp"], ROUTE_COUNTS["fsdp"] = read_dims(), read_routes()
+    del trainer, unet
+    flush()
+
+    diffs = leaf_diffs(torch, state, nodes)
+    n_leaves = sum(len(part) for part in nodes)
+    print(f"[fsdp] against the input-node run: {len(diffs)} of {n_leaves} leaves differ "
+          f"({sum(diffs.values())} elements){'' if not diffs else ': ' + str(sorted(diffs.items())[:6])}", flush=True)
+    moved = max(state[1], key=lambda n: int((nodes[1][n] != init[n]).sum()))
+    planted = (state[0], dict(state[1], **{moved: init[moved]}), state[2])
+    caught = leaf_diffs(torch, planted, nodes)
+    print(f"[fsdp] planted fault, the update of {moved} undone: the leaf check reports "
+          f"{sorted(caught.items())[:4]}", flush=True)
+    check((1, moved) in caught, f"[fsdp] the leaf check missed a skipped update of {moved}")
+    gap = state_gap(torch, state, plain, init)
+    print(f"[fsdp] against the plain unwrapped steps: step-1 gradients {gap[0]:.2e} by norm (tol {FSDP_GRAD_TOL:.0e}), "
+          f"updates {gap[1]:.2e} (tol {FSDP_UPDATE_TOL:.0e}), {gap[2]} elements more than one bf16 step apart; "
+          f"step 2 {times[-1]:.4f} s wrapped vs {plain_times[-1]:.4f} s unwrapped ({card_line()})", flush=True)
+    check(not stale, f"[fsdp] the wrapped run read {len(stale)} stale weight copies")
+    check(not diffs, f"[fsdp] the wrapped steps differ from the input-node run in {len(diffs)} leaves")
+    check(gap[0] <= FSDP_GRAD_TOL and gap[1] <= FSDP_UPDATE_TOL, f"[fsdp] the wrapped steps differ: {gap}")
+
+    saved = relayout.invalidate, relayout._state
+    relayout.invalidate = lambda params: None
+    relayout._state = lambda weight, dtype: (weight._version, dtype)
+    try:
+        trainer, control, _, _, control_stale, _ = run("fsdp", "trap (b) forced: copies never retired, pointer unread")
+    finally:
+        relayout.invalidate, relayout._state = saved
+    del trainer
+    flush()
+    cdiffs = leaf_diffs(torch, control, nodes)
+    print(f"[fsdp] trap (b) forced: {len(control_stale)} stale copies read in step 2; the leaf check against the "
+          f"input-node run reports {len(cdiffs)} leaves ({sum(cdiffs.values())} elements)", flush=True)
+    check(bool(control_stale) and bool(cdiffs), "[fsdp] trap (b) forced went unseen by the stale-copy count or the leaf check")
+    torch.backends.cudnn.deterministic = saved_det
+    del control, plain, nodes, state, init, planted
+    flush()
     return launches
 
 
@@ -3884,6 +4324,184 @@ def phase_safety(torch, images):
     return launches
 
 
+def video_gradients(torch, trainer, n_videos):
+    """The step-1 gradients of each video of scripts/train_path.py's batch of
+    `n_videos`, alone, as the rank that holds it computes them under
+    FSDPTrainStep (sigma and noise drawn for the whole batch, then sliced;
+    the loss the mean over its frames): their mean and the mean of their
+    magnitudes over the videos, fp32, by parameter name."""
+    from vidseg_diffusion_tpu_torch.scripts import train_path
+
+    latents, cond = train_path.batch(n_videos)
+    sigma, noise = trainer.loss_mod.draw(latents, train_path.generators())
+    f = train_path.NUM_FRAMES
+    mean, scale = {}, {}
+    for r in range(n_videos):
+        share = slice(r * f, (r + 1) * f)
+        trainer.model.zero_grad(set_to_none=True)
+        loss = trainer.loss_mod(trainer.network_factory(trainer.model), latents[share],
+                                {k: v[share] for k, v in cond.items()}, sigma=sigma[share], noise=noise[share])
+        loss.backward()
+        for name, p in trainer.model.named_parameters():
+            if p.grad is not None:
+                g = p.grad.float()
+                mean[name] = mean[name] + g / n_videos if name in mean else g / n_videos
+                scale[name] = scale[name] + g.abs() / n_videos if name in scale else g.abs() / n_videos
+    trainer.model.zero_grad(set_to_none=True)
+    return mean, scale
+
+
+def reduced_gradient_violations(torch, grads, mean, scale, world):
+    """Elements of the reduced step-1 gradients `grads` farther from the mean
+    of the ranks' own gradients than a bf16 sum of `world` terms can round:
+    world x 2^-8 x the mean of their magnitudes (a leaf missing counts
+    whole)."""
+    bad = sum(mean[n].numel() for n in set(mean) - set(grads)) + sum(grads[n].numel() for n in set(grads) - set(mean))
+    for name in set(grads) & set(mean):
+        bad += int(((grads[name].float() - mean[name]).abs() > world * 2.0 ** -8 * scale[name]).sum())
+    return bad
+
+
+def adam_bound_violations(torch, got, want, lr):
+    """Elements of two runs' params and EMA (parts 1, 2 of a state) farther
+    apart than FSDP_STEPS bf16 Adam steps on different gradients can take
+    them: 2 x FSDP_STEPS x 1.05 lr (an early Adam step moves an element by at
+    most lr, 1 % more for the bf16 moments) plus 4 bf16 steps of the element
+    for the roundings of the params and the EMA."""
+    bad = 0
+    for part in (1, 2):
+        for name, w in want[part].items():
+            w = w.float()
+            ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=2.0 ** -126))) - 7)
+            bad += int(((got[part][name].float() - w).abs() > 2 * FSDP_STEPS * 1.05 * lr + 4 * ulp).sum())
+    return bad
+
+
+def main_ranks():
+    """`torchrun --nproc_per_node W chip_smoke.py --ranks` on W cards (the
+    kernels built beforehand, once): the two paths of parallel/ that exist
+    only across cards, each held to one card's result.
+    1. The main path's run_single_video (scripts/main_path.py: 2 masks, so
+       with W > 2 some ranks hold no mask and join every collective with
+       padding alone) with its runs over the W ranks, against the same call
+       without a group on each rank: final latents, difference maps, masks
+       and labels bit-equal on every rank; the seconds of both.
+    2. scripts/train_path.py's step FSDP-wrapped over the W ranks (NCCL
+       all-gather and reduce-scatter, each parameter sharded on JAX's dim)
+       on a batch of W videos, each rank on its video and its share of the
+       sigma / noise drawn for the whole batch (FSDPTrainStep), FSDP_STEPS
+       steps with cuDNN's deterministic algorithms. On the first rank:
+       - the reduced step-1 gradients against the mean of each video's
+         gradient computed alone on one card with FSDP's input nodes (what
+         each rank computes), within what a bf16 sum over W ranks can round
+         (reduced_gradient_violations); a sum where the mean is due must
+         fail that bound (checked);
+       - the params and EMA after the steps against the unwrapped steps on
+         one card's W-video batch, within what FSDP_STEPS Adam steps on
+         other gradients can move an element (adam_bound_violations); a
+         leaf whose shards trade places must fail it (checked); the loss
+         within 1e-2; no stale weight copy read. The gradients and updates
+         by norm against the unwrapped steps are printed (Adam's first steps,
+         about lr x sign(g), magnify a changed rounding of a near-zero
+         gradient). Step seconds of both.
+    Prints the card line and one JSON line of the readings."""
+    import numpy as np
+    import torch
+
+    from vidseg_diffusion_tpu_torch.ops import _cuda
+    from vidseg_diffusion_tpu_torch.parallel.mesh import initialize_distributed
+    from vidseg_diffusion_tpu_torch.pipelines.single_video import run_single_video
+    from vidseg_diffusion_tpu_torch.scripts import main_path, train_path
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs NVIDIA cards")
+    group = initialize_distributed()
+    rank, world = group.rank(), group.size()
+    _cuda.load_library()
+    say = (lambda msg: print(f"[ranks] {msg}", flush=True)) if rank == 0 else (lambda msg: None)
+    say(f"{world} ranks, NCCL; {card_line()}")
+    out = {"world": world}
+
+    pipe = main_path.build()
+    frames, names, args = main_path.frames(), main_path.frame_names(), main_path.vidseg_args()
+    seconds = {}
+    for tag, pg in (("one", None), ("group", group)):
+        torch.cuda.synchronize()
+        group.barrier()
+        t0 = time.perf_counter()
+        timings = {}
+        res = run_single_video(pipe, frames, names, args, write_outputs=False, timings=timings, process_group=pg)
+        seconds[tag] = (time.perf_counter() - t0, timings["modulated_runs"])
+        if pg is None:
+            ref = res
+    same = all(np.array_equal(getattr(res, k), getattr(ref, k))
+               for k in ("final_latents", "diff_maps", "seg_raw", "seg_filtered", "masks", "unique_labels"))
+    flags = torch.tensor([int(same)], device="cuda")
+    torch.distributed.all_reduce(flags, op=torch.distributed.ReduceOp.MIN, group=group)
+    out["runs"] = {"bit_equal_on_every_rank": bool(flags.item()), "one_rank_s": seconds["one"][0],
+                   "one_rank_modulated_runs_s": seconds["one"][1], "group_s": seconds["group"][0],
+                   "group_modulated_runs_s": seconds["group"][1], "masks": args.num_masks}
+    say(f"run_single_video alone {seconds['one'][0]:.2f} s (modulated_runs {seconds['one'][1]:.2f} s), over the "
+        f"{world} ranks {seconds['group'][0]:.2f} s ({seconds['group'][1]:.2f} s); bit-equal on every rank: "
+        f"{bool(flags.item())}")
+    check(bool(flags.item()), "[ranks] the runs over the ranks differ from one rank's run")
+    del pipe, res, ref
+    torch.cuda.empty_cache()
+
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    trainer = train_path.build(fsdp=True)
+    state, times, losses, stale = two_train_steps(torch, trainer, n_videos=world)
+    shard = {type(p).__name__ for p in trainer.model.parameters()}
+    check(shard == {"DTensor"}, f"[ranks] wrapped parameters are {shard}")
+    del trainer
+    torch.cuda.empty_cache()
+    n_stale = torch.tensor([len(stale)], device="cuda")
+    torch.distributed.all_reduce(n_stale, group=group)
+    if rank == 0:
+        plain_trainer = train_path.build()
+        init = {n: p.detach().clone() for n, p in plain_trainer.model.named_parameters()}
+        plain, plain_times, plain_losses, _ = two_train_steps(torch, plain_trainer, n_videos=world)
+        del plain_trainer
+        torch.cuda.empty_cache()
+        gap = state_gap(torch, state, plain, init)
+        del init
+        ref_trainer = train_path.build()
+        fsdp_input_nodes(torch, ref_trainer.model)
+        mean, scale = video_gradients(torch, ref_trainer, world)
+        del ref_trainer
+        torch.cuda.empty_cache()
+        grad_bad = reduced_gradient_violations(torch, state[0], mean, scale, world)
+        summed_bad = reduced_gradient_violations(torch, {n: g * world for n, g in state[0].items()}, mean, scale, world)
+        del mean, scale
+        adam_bad = adam_bound_violations(torch, state, plain, train_path.LR)
+        big = max(state[1], key=lambda n: state[1][n].numel())
+        swapped = (state[0], dict(state[1], **{big: state[1][big].roll(state[1][big].shape[0] // 2, 0)}), state[2])
+        swapped_bad = adam_bound_violations(torch, swapped, plain, train_path.LR)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+        out["fsdp"] = {"videos": world, "step_s": times, "unwrapped_step_s": plain_times, "losses": losses,
+                       "unwrapped_losses": plain_losses, "grad_elements_beyond_the_reduce_bound": grad_bad,
+                       "planted_sum_elements_beyond": summed_bad, "param_ema_elements_beyond_the_adam_bound": adam_bad,
+                       "planted_swap_elements_beyond": swapped_bad, "grad_err": gap[0], "update_err": gap[1],
+                       "elements_beyond_a_bf16_step": gap[2], "stale_copies": int(n_stale.item())}
+        say(f"FSDP over {world} ranks, a video each of {world}: step_s {[round(x, 4) for x in times]} vs unwrapped "
+            f"{[round(x, 4) for x in plain_times]} on one card; losses {losses} vs {plain_losses}; reduced step-1 "
+            f"gradients beyond the bf16 reduce bound {grad_bad} elements (a planted sum {summed_bad}); params and EMA "
+            f"beyond the Adam bound {adam_bad} (a planted shard swap of {big} {swapped_bad}); by norm against "
+            f"unwrapped: step-1 gradients {gap[0]:.2e}, updates {gap[1]:.2e}, {gap[2]} elements more than one bf16 "
+            f"step apart; stale copies read {int(n_stale.item())}")
+        check(grad_bad == 0 and adam_bad == 0 and n_stale.item() == 0 and loss_err <= 1e-2,
+              f"[ranks] the FSDP steps over {world} ranks differ from one card's: {grad_bad} gradient and {adam_bad} "
+              f"param / EMA elements beyond their bounds, loss {loss_err:.2e}, {int(n_stale.item())} stale copies")
+        check(summed_bad > 0 and swapped_bad > 0, "[ranks] a planted fault passed the bounds")
+    torch.backends.cudnn.deterministic = saved_det
+    group.barrier()
+    torch.distributed.destroy_process_group()
+    if rank == 0:
+        print(json.dumps({"ranks": out}))
+        print(card_line())
+
+
 def main():
     import torch
 
@@ -3925,6 +4543,9 @@ def main():
     t0 = time.perf_counter()
     tiny_launches = phase_tiny(torch)
     phases["tiny"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    options_launches = phase_model_options(torch)
+    phases["model_options"] = time.perf_counter() - t0
     for name, fn in (("unet", phase_unet), ("train_grad", phase_train_grad)):
         t0 = time.perf_counter()
         fn(torch)
@@ -3932,6 +4553,10 @@ def main():
     t0 = time.perf_counter()
     launches, pipe, plain_res = phase_main(torch)
     phases["main"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    group = join_group()
+    fsdp_runs_launches = phase_fsdp_runs(torch, pipe, plain_res, launches, group)
+    phases["fsdp_runs"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     inject_launches = phase_inject(torch, pipe, plain_res)
     phases["inject"] = time.perf_counter() - t0
@@ -3979,6 +4604,9 @@ def main():
     train_launches = phase_train(torch)
     phases["train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    fsdp_launches = phase_fsdp(torch)
+    phases["fsdp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     phase_ae_grad(torch)
     phases["ae_grad"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3989,7 +4617,8 @@ def main():
     t0 = time.perf_counter()
     vae_launches = phase_vae_time_mode(torch)
     phases["vae_time_mode"] = time.perf_counter() - t0
-    print(f"[phases] seconds {json.dumps({k: round(v, 1) for k, v in phases.items()})}", flush=True)
+    print(f"[phases] seconds {json.dumps({k: round(v, 1) for k, v in phases.items()})} ({card})", flush=True)
+    torch.distributed.destroy_process_group()
 
     kernels = []
     tags = ("main", "inject", "sd", "train", "ae_train", "sweep", "sweep_sd")
@@ -4004,6 +4633,8 @@ def main():
         DIM_COUNTS[tag], ROUTE_COUNTS[tag] = API_DIMS[tag], API_ROUTES[tag]
     # the T5-XXL txt2img and the demo's requests (API runs, above), the safety filter's tower
     slice_runs["safety"] = safety_launches
+    # the model options' card runs, the main path's runs over the one-rank group, the FSDP steps
+    slice_runs.update(model_options=options_launches, fsdp_runs=fsdp_runs_launches, fsdp=fsdp_launches)
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         head = next(r for r in mine if r["shape"] == HEADLINE[name])
@@ -4044,6 +4675,8 @@ def main():
             vae_time_mode_launches=runs["vae_time_mode"], tiny_launches=runs["tiny"],
             api_launches=runs["api"], img2vid_launches=runs["img2vid"], nti_launches=runs["nti"],
             t5_launches=runs["t5"], demo_launches=runs["demo"], safety_launches=runs["safety"],
+            model_options_launches=runs["model_options"], fsdp_runs_launches=runs["fsdp_runs"],
+            fsdp_launches=runs["fsdp"],
             max_abs_err=max(r["max_abs_err"] for r in mine), shape=head["shape"],
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
@@ -4057,4 +4690,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main_ranks() if sys.argv[1:] == ["--ranks"] else main()

@@ -70,7 +70,8 @@ def test_port_imports_no_jax():
                 "scripts.sd_pipeline_vspw", "diffusion.sampling", "diffusion.sampling_extra",
                 "diffusion.scaling", "inference.api", "scripts.api_path", "models.t5", "models.aux_encoders",
                 "utils.safety", "utils.watermark", "eval.fid", "io.data", "utils.profiling",
-                "scripts.demo.serve", "scripts.demo.sampling", "scripts.detect_watermark"}
+                "scripts.demo.serve", "scripts.demo.sampling", "scripts.detect_watermark",
+                "parallel.mesh", "parallel.fsdp", "parallel.runs", "ops.relayout"}
     assert expected <= {m.split(".", 1)[1] for m in res["modules"]}
     assert res["jax"] == []
     assert res["after_color_map"] == [] and res["palette"] == [128, 3]

@@ -497,14 +497,16 @@ def test_inversion_replaces_add_noise(runs, inversion_runs):
 
 def test_signature_follows_jax():
     """run_single_video's parameters are JAX's, in JAX's order and with its
-    defaults, less `mesh` (not ported); the port's own draws follow as
+    defaults, `process_group` (the runs over ranks) in the place of `mesh`
+    (the in-process runs mesh, not ported); the port's own draws follow as
     keyword-only parameters."""
     jsig = inspect.signature(j_run).parameters
     tsig = inspect.signature(run_single_video).parameters
-    shared = [n for n in jsig if n != "mesh"]
+    shared = [n if n != "mesh" else "process_group" for n in jsig]
     positional = [n for n, p in tsig.items() if p.kind == p.POSITIONAL_OR_KEYWORD]
     assert positional == shared
-    assert all(tsig[n].default == jsig[n].default for n in shared)
+    assert all(tsig[n].default == jsig[n].default for n in jsig if n != "mesh")
+    assert tsig["process_group"].default is None and jsig["mesh"].default is None
     extra = [n for n, p in tsig.items() if p.kind == p.KEYWORD_ONLY]
     assert extra == ["cond_aug_noise", "noise", "kmeans_init"]
 

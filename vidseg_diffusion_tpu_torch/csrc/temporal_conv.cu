@@ -285,7 +285,7 @@ int launch_temporal_conv_wgmma(const void* x, const void* w, const void* bias, v
 // the wgmma kernel, 3 the narrow CUDA-core kernel, 0 the fp32 FMA tile.
 extern "C" int vs_temporal_conv_1x1(int dtype, const void* x, const void* w, const void* bias, void* y, int B,
                                     int Tn, int M, int Cin, int Cout, int kt, int* route, void* stream) {
-  if (B <= 0 || Tn <= 0 || M <= 0 || Cin <= 0 || Cout <= 0 || kt <= 0 || kt % 2 == 0)
+  if (B <= 0 || Tn <= 0 || M <= 0 || Cin <= 0 || Cout <= 0 || kt <= 0)
     return vs::kErrBadArgument;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long R = (long long)B * Tn * M;

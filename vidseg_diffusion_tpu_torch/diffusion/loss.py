@@ -75,17 +75,25 @@ class StandardDiffusionLoss:
         if self.loss_type == "lpips" and self.lpips_fn is None:
             raise ValueError("loss_type='lpips' requires lpips_fn")
 
+    def draw(self, x0: torch.Tensor, generators: Optional[Tuple[torch.Generator, torch.Generator]] = None,
+             sigma: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(sigma [B], noise of x0's shape) for a batch x0: the ones given,
+        else drawn from generators = (sigma draw, noise draw)."""
+        g_sigma, g_noise = generators if generators is not None else (None, None)
+        if sigma is None:
+            sigma = self.sigma_sampler(x0.shape[0], generator=g_sigma, device=x0.device)
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=g_noise, device=x0.device, dtype=x0.dtype)
+        return sigma, noise
+
     def __call__(self, network, x0: torch.Tensor, cond: Dict[str, torch.Tensor],
                  generators: Optional[Tuple[torch.Generator, torch.Generator]] = None,
                  sigma: Optional[torch.Tensor] = None,
                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """generators = (sigma draw, noise draw); `sigma` [B] and `noise`
         (x0's shape) replace the draws they are given for."""
-        g_sigma, g_noise = generators if generators is not None else (None, None)
-        if sigma is None:
-            sigma = self.sigma_sampler(x0.shape[0], generator=g_sigma, device=x0.device)
-        if noise is None:
-            noise = torch.randn(x0.shape, generator=g_noise, device=x0.device, dtype=x0.dtype)
+        sigma, noise = self.draw(x0, generators, sigma, noise)
         sigma = sigma.to(device=x0.device, dtype=x0.dtype)
         noised = x0 + noise.to(x0.dtype) * append_dims(sigma, x0.dim())
         pred = self.denoiser(network, noised, sigma, cond)[0]

@@ -7,7 +7,9 @@ attention q/k and the post-step latent trajectory (`xt_cache_pass`, with the
 windowed cache contract: entries are indexed [i - t0] with t0 = cache["t0"]),
 and the (mask, +/-lambda) runs grid, runs outer and stepped, with latent
 blending and an `on_run_done` hook (the counterpart of
-modulated_runs_host_stepped's runs-outer branch, :1000-1018). With
+modulated_runs_host_stepped's runs-outer branch, :1000-1018), on one process
+or split over the ranks of a process group (modulated_runs_sharded's
+counterpart, parallel/runs.py). With
 is_injected_features the feature pass also keeps the temporal self-attention
 q and k of the attention-bearing output blocks, and every modulated run
 replaces the computed q/k of those sites by the cached ones from the first
@@ -22,6 +24,7 @@ import dataclasses
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from vidseg_diffusion_tpu_torch.diffusion.denoiser import Denoiser
 from vidseg_diffusion_tpu_torch.diffusion.guidance import LinearPredictionGuider, VanillaCFG
@@ -36,6 +39,7 @@ from vidseg_diffusion_tpu_torch.models.layers import (
 from vidseg_diffusion_tpu_torch.models.unet import UNetHooks, UNetModel
 from vidseg_diffusion_tpu_torch.models.video_layers import SiteInjection, SiteModulation
 from vidseg_diffusion_tpu_torch.ops.image import resize_nearest
+from vidseg_diffusion_tpu_torch.parallel.runs import all_gather_runs, all_reduce_sum, runs_of_rank
 
 Cond = Dict[str, torch.Tensor]
 
@@ -257,13 +261,20 @@ class VidSegEngine:
         cache: Dict,
         t_start: int,
         on_run_done: Optional[Callable[[int, torch.Tensor], None]] = None,
+        process_group=None,
     ) -> torch.Tensor:
         """All 2*M (+/-lambda, mask) runs, runs outer: run r = sign * M + mask
         with +lambda first. Each run denoises steps t_start..num_steps-1 from
         the same noised latent; with latent blending, steps in the blend
         window pin the outside-mask cells to the cached trajectory. Returns
         final latents [2, M, T, h, w, z]; on_run_done(r, x) runs as soon as
-        run r finishes (e.g. to decode it)."""
+        run r finishes (e.g. to decode it).
+
+        Under a `process_group` (the JAX package's runs mesh) this rank runs
+        only its share of the runs (parallel/runs.py: the masks k = rank mod
+        the group's size, both signs) and calls on_run_done for those; every
+        rank returns all the final latents, gathered in run order, and
+        `injected_sites` counts the sites of every rank's runs."""
         cfg = self.mod_cfg
         sampler = self.sampler
         sig = sampler.sigmas()
@@ -271,8 +282,12 @@ class VidSegEngine:
         b_start, b_end = cfg.blend_window()
         t0 = int(cache.get("t0", 0))
         m = masks_tokens.shape[0]
-        finals = []
-        for r in range(2 * m):
+        runs = range(2 * m)
+        if process_group is not None:
+            runs = runs_of_rank(m, dist.get_rank(process_group), dist.get_world_size(process_group))
+            sites_before = self.injected_sites
+        finals = {}
+        for r in runs:
             lam = cfg.lam() * (1.0 if r < m else -1.0)
             denoise_fn = self._denoise_fn(
                 c, uc, hooks_fn=self._build_hooks_fn(masks_tokens[r % m], lam, cache))
@@ -283,7 +298,12 @@ class VidSegEngine:
                 if cfg.is_latent_blending and b_start <= i <= b_end:
                     ori = cache["xt"][min(max(i - t0, 0), cache["xt"].shape[0] - 1)]
                     x = x * mlat + ori.to(x.dtype) * (1.0 - mlat)
-            finals.append(x)
+            finals[r] = x
             if on_run_done is not None:
                 on_run_done(r, x)
-        return torch.stack(finals).reshape((2, m) + x0.shape)
+        if process_group is None:
+            stacked = torch.stack([finals[r] for r in runs])
+        else:
+            stacked = all_gather_runs(finals, m, process_group)
+            self.injected_sites = sites_before + all_reduce_sum(self.injected_sites - sites_before, process_group)
+        return stacked.reshape((2, m) + x0.shape)

@@ -110,29 +110,42 @@ def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
 
 
 class AlphaBlender(nn.Module):
-    """Learned spatial/temporal mix (diffusionmodules/util.py:314-381) with
-    merge_strategy 'learned_with_images' (the SVD config's): alpha = 1 on
-    image-only frames, sigmoid(mix_factor) elsewhere. `image_only_indicator`
-    is [b, t]; the per-frame alpha broadcasts over [(b t), ...] ('bt') or
-    [b, t, ...] ('b_t')."""
+    """Spatial/temporal mix alpha * x_spatial + (1 - alpha) * x_temporal
+    (diffusionmodules/util.py:314-381; JAX AlphaBlender and AlphaBlenderB1T):
+    - 'learned_with_images' (the SVD config's): alpha = 1 on image-only
+      frames, sigmoid(mix_factor) elsewhere; `image_only_indicator` is [b, t]
+      and the per-frame alpha broadcasts over [(b t), ...] ('bt') or [b, t,
+      ...] ('b_t');
+    - 'learned': sigmoid(mix_factor) over everything, no indicator read;
+    - 'fixed': alpha = mix_factor itself, a buffer as in the reference (so
+      its state dict loads), holding `alpha`; JAX has no leaf for it.
+    alpha is rounded to x's dtype before the mix, as in JAX."""
 
     def __init__(self, alpha: float = 0.5, merge_strategy: str = "learned_with_images",
                  broadcast: str = "bt"):
         super().__init__()
-        if merge_strategy != "learned_with_images":
-            raise NotImplementedError(f"merge_strategy {merge_strategy!r} is not ported")
+        if merge_strategy not in ("fixed", "learned", "learned_with_images"):
+            raise ValueError(f"unknown merge_strategy {merge_strategy!r}")
+        self.merge_strategy = merge_strategy
         self.broadcast = broadcast
-        self.mix_factor = nn.Parameter(torch.full((1,), float(alpha)))
+        if merge_strategy == "fixed":
+            self.register_buffer("mix_factor", torch.full((1,), float(alpha)))
+        else:
+            self.mix_factor = nn.Parameter(torch.full((1,), float(alpha)))
 
-    def forward(self, x_spatial, x_temporal, image_only_indicator):
+    def forward(self, x_spatial, x_temporal, image_only_indicator=None):
         with record_function("vs:AlphaBlender"):
-            alpha = torch.sigmoid(self.mix_factor.float())
-            alpha = torch.where(image_only_indicator.bool(), torch.ones_like(alpha), alpha)  # [b, t]
-            b, t = alpha.shape
-            if self.broadcast == "bt":
-                alpha = alpha.reshape((b * t,) + (1,) * (x_spatial.dim() - 1))
+            if self.merge_strategy == "fixed":
+                alpha = self.mix_factor
             else:
-                alpha = alpha.reshape((b, t) + (1,) * (x_spatial.dim() - 2))
+                alpha = torch.sigmoid(self.mix_factor.float())
+            if self.merge_strategy == "learned_with_images":
+                alpha = torch.where(image_only_indicator.bool(), torch.ones_like(alpha), alpha)  # [b, t]
+                b, t = alpha.shape
+                if self.broadcast == "bt":
+                    alpha = alpha.reshape((b * t,) + (1,) * (x_spatial.dim() - 1))
+                else:
+                    alpha = alpha.reshape((b, t) + (1,) * (x_spatial.dim() - 2))
             alpha = alpha.to(x_spatial.dtype)
             return alpha * x_spatial + (1.0 - alpha) * x_temporal
 

@@ -6,8 +6,9 @@ TemporalResBlock3D, VideoResBlock and UNetModel with the VidSeg hooks
 (per-output-block modulation, injection and the q/k harvest). With
 `UNetConfig.video` the blocks are VideoResBlock + SpatialVideoTransformer on
 video tensors [(b t), H, W, C], the temporal (kt,1,1) convolutions running on
-[b, t, H*W, C] through K4 on CUDA; without it they are plain ResBlock +
-SpatialTransformer, every frame an image of the batch, with a class
+[b, t, H*W, C] through K4 on CUDA (a video_kernel_size wider than one token,
+kh or kw above 1, as per-tap 2-D convolutions); without it they are plain
+ResBlock + SpatialTransformer, every frame an image of the batch, with a class
 embedding where adm_in_channels is set (SDXL: 2816 base, 2560 refiner).
 `transformer_depth` is one depth or one per level (SDXL [1, 2, 10]; the
 middle block takes the last level's). The two 3x3 convolutions of every
@@ -128,22 +129,46 @@ class UNetConfig:
 
 
 class TemporalConv(nn.Module):
-    """(kt, 1, 1) video convolution with Conv3d parameters [Cout, Cin, kt, 1, 1]
-    (the reference's nn.Conv3d), computed by temporal_conv_1x1 (K4 on CUDA,
-    which reads a cached K-major copy of the weight) on x [b, t, H, W, C]."""
+    """(kt, kh, kw) video convolution with Conv3d parameters [Cout, Cin, kt,
+    kh, kw] (the reference's nn.Conv3d) on x [b, t, H, W, C], zero frames
+    kt//2 before and after (JAX models/unet.py:255-300):
+    - (kt, 1, 1), any kt: temporal_conv_1x1 (K4 on CUDA, which reads a
+      cached K-major copy of the weight);
+    - kh or kw above 1: kt per-tap 2-D convolutions with lax's SAME padding
+      ((k-1)//2 before, k//2 after), each rounded to x's dtype, summed in it
+      in tap order, then the bias added in it: JAX's lax.conv route, which
+      runs no Pallas kernel. `conv2d_taps` counts those taps."""
+
+    conv2d_taps = 0
 
     def __init__(self, cin: int, cout: int, kernel: Tuple[int, int, int] = (3, 1, 1)):
         super().__init__()
-        if tuple(kernel[1:]) != (1, 1) or kernel[0] % 2 == 0:
-            raise NotImplementedError(f"temporal conv kernel {kernel}: only (odd, 1, 1)")
-        self.weight = nn.Parameter(torch.empty(cout, cin, *kernel))
+        self.kernel = tuple(int(k) for k in kernel)
+        self.weight = nn.Parameter(torch.empty(cout, cin, *self.kernel))
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, h, w, c = x.shape
         with record_function("vs:TemporalConv"):
-            y = temporal_conv_1x1(x.reshape(b, t, h * w, c).contiguous(), self.weight, self.bias)
-            return y.reshape(b, t, h, w, -1)
+            if self.kernel[1:] == (1, 1):
+                y = temporal_conv_1x1(x.reshape(b, t, h * w, c).contiguous(), self.weight, self.bias)
+                return y.reshape(b, t, h, w, -1)
+            return self._per_tap(x)
+
+    def _per_tap(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, h, w, c = x.shape
+        kt, kh, kw = self.kernel
+        pad = kt // 2
+        xp = F.pad(x, (0, 0, 0, 0, 0, 0, pad, pad)).permute(0, 1, 4, 2, 3)   # [b, t + 2 pad, C, H, W]
+        weight = self.weight.to(x.dtype)
+        out = None
+        for j in range(kt):
+            xj = F.pad(xp[:, j:j + t].reshape(b * t, c, h, w), ((kw - 1) // 2, kw // 2, (kh - 1) // 2, kh // 2))
+            y = F.conv2d(xj, weight[:, :, j])
+            TemporalConv.conv2d_taps += 1
+            out = y if out is None else out + y
+        out = out + self.bias.to(x.dtype)[:, None, None]
+        return out.reshape(b, t, -1, h, w).permute(0, 1, 3, 4, 2).contiguous()
 
 
 class ResBlock(nn.Module):

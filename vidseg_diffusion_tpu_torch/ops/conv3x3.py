@@ -18,8 +18,8 @@ CPU call takes the plain version.
 K12 reads per-tap [Cout, Cin] slabs whose rows are contiguous channels, so the
 wrapper re-lays the weight once as [9, Cout, Cin] in x's dtype and keeps the
 copy for as long as the weight tensor lives and is not written to (its version
-counter and storage pointer): a frozen model pays one copy per parameter, a
-training step one per optimizer update. The weight itself may be kept in
+counter and storage pointer; ops/relayout.py): a frozen model pays one copy per
+parameter, a training step one per optimizer update. The weight itself may be kept in
 another floating dtype than x (fp32 parameters under bf16 activations, the JAX
 modules' `dtype=` cast): the cast is part of the cached copy, so it is not paid
 per call either. `relays` counts the copies made.
@@ -31,7 +31,6 @@ conv2d_input and conv2d_weight on the channels-last views, db = sum g.
 
 from __future__ import annotations
 
-import weakref
 from typing import Optional
 
 import torch
@@ -39,6 +38,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from vidseg_diffusion_tpu_torch.ops import _cuda
+from vidseg_diffusion_tpu_torch.ops.relayout import RelayoutCache
 
 
 def conv3x3_plain(x, weight, bias=None):
@@ -60,23 +60,20 @@ def conv3x3_plain(x, weight, bias=None):
 
 conv3x3_plain.calls = 0
 
-_RELAID = {}  # id(weight) -> (weakref to the weight, (version, storage pointer, dtype), the [9, Cout, Cin] copy)
+_RELAID = RelayoutCache()   # the [9, Cout, Cin] copies
+
+
+def _relayout_tap_major(weight, dtype):
+    with record_function("vs:Conv3x3"):
+        return weight.to(dtype).permute(2, 3, 0, 1).reshape(9, weight.shape[0], weight.shape[1]).contiguous()
 
 
 def tap_major(weight: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """[Cout, Cin, 3, 3] -> contiguous [9, Cout, Cin] in `dtype` (the weight's
-    own when None) with tap = 3*dy + dx, cached per weight tensor and version."""
-    dtype = dtype or weight.dtype
-    key, state = id(weight), (weight._version, weight.data_ptr(), dtype)
-    hit = _RELAID.get(key)
-    if hit is not None and hit[0]() is weight and hit[1] == state:
-        return hit[2]
-    with record_function("vs:Conv3x3"), torch.no_grad():
-        relaid = weight.detach().to(dtype).permute(2, 3, 0, 1).reshape(9, weight.shape[0], weight.shape[1]).contiguous()
-    if hit is None or hit[0]() is not weight:
-        weakref.finalize(weight, _RELAID.pop, key, None)
-    _RELAID[key] = (weakref.ref(weight), state, relaid)
-    conv3x3_same.relays += 1
+    own when None) with tap = 3*dy + dx, cached per weight tensor and version
+    (ops/relayout.py)."""
+    relaid, made = _RELAID.get(weight, dtype or weight.dtype, _relayout_tap_major)
+    conv3x3_same.relays += made
     return relaid
 
 

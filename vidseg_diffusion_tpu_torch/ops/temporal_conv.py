@@ -14,8 +14,9 @@ contiguous, as the tensor cores take them). `temporal_conv_1x1` takes W in
 JAX's [kt, Cin, Cout] or as nn.Conv3d stores it, [Cout, Cin, kt, 1, 1] (the
 TemporalConv module's parameter), and hands the kernel a K-major copy in x's
 dtype that is kept for as long as the weight tensor lives and is not written
-to (`k_major`; `temporal_conv_1x1.relays` counts the copies): a frozen model
-pays one per parameter, a training step one per optimizer update. The kernel
+to (`k_major`, ops/relayout.py; `temporal_conv_1x1.relays` counts the
+copies): a frozen model pays one per parameter, a training step one per
+optimizer update. The kernel
 entry reports which kernel ran: bf16 with Cin and Cout multiples of 8 and
 16-byte aligned bases (every UNet and VAE time_stack) the persistent wgmma
 kernel (`.wgmma_launches`), other bf16 (the VAE's 3-channel
@@ -27,22 +28,24 @@ the XLA VJP of the shifted-matmul reference): dx is the same (kt, 1, 1)
 convolution applied to the output gradient with the taps reversed and each
 tap's W transposed,
 
-    dx[b, s] = sum_j g[b, s + j - kt//2] @ W[kt-1-j]^T,
+    dx[b, s] = sum_j g[b, s + j - (kt - 1 - kt//2)] @ W[kt-1-j]^T,
 
 so on CUDA dx is K4 itself, whose K-major weight for it is JAX's [kt, Cin,
-Cout] flipped along the taps; dW and db are matrix products and sums outside
-any kernel, as in JAX.
+Cout] flipped along the taps (`_dx_taps`). For an odd kt the offset kt - 1 -
+kt//2 is K4's own kt//2; for an even kt it is one frame less, which K4 reads
+as kt + 1 taps with a zero tap in front. dW and db are matrix products and
+sums outside any kernel, as in JAX.
 """
 
 from __future__ import annotations
 
-import weakref
 from typing import Optional
 
 import torch
 from torch.profiler import record_function
 
 from vidseg_diffusion_tpu_torch.ops import _cuda
+from vidseg_diffusion_tpu_torch.ops.relayout import RelayoutCache
 
 
 def temporal_conv_1x1_reference(x, w, bias):
@@ -70,23 +73,20 @@ def _jax_layout(w):
     return w if w.dim() == 3 else w[:, :, :, 0, 0].permute(2, 1, 0)
 
 
-_RELAID = {}  # id(weight) -> (weakref to the weight, (version, storage pointer, dtype), the [kt, Cout, Cin] copy)
+_RELAID = RelayoutCache()   # the [kt, Cout, Cin] copies
+
+
+def _relayout_k_major(weight, dtype):
+    with record_function("vs:TemporalConv"):
+        return _jax_layout(weight).transpose(1, 2).to(dtype).contiguous()
 
 
 def k_major(weight: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """[kt, Cin, Cout] or [Cout, Cin, kt, 1, 1] -> contiguous [kt, Cout, Cin] in
-    `dtype` (the weight's own when None), cached per weight tensor and version."""
-    dtype = dtype or weight.dtype
-    key, state = id(weight), (weight._version, weight.data_ptr(), dtype)
-    hit = _RELAID.get(key)
-    if hit is not None and hit[0]() is weight and hit[1] == state:
-        return hit[2]
-    with record_function("vs:TemporalConv"), torch.no_grad():
-        relaid = _jax_layout(weight.detach()).transpose(1, 2).to(dtype).contiguous()
-    if hit is None or hit[0]() is not weight:
-        weakref.finalize(weight, _RELAID.pop, key, None)
-    _RELAID[key] = (weakref.ref(weight), state, relaid)
-    temporal_conv_1x1.relays += 1
+    `dtype` (the weight's own when None), cached per weight tensor and version
+    (ops/relayout.py)."""
+    relaid, made = _RELAID.get(weight, dtype or weight.dtype, _relayout_k_major)
+    temporal_conv_1x1.relays += made
     return relaid
 
 
@@ -119,8 +119,6 @@ def _temporal_conv_forward(x, w, bias):
     wj = _jax_layout(w)
     if x.dim() != 4 or wj.shape[1] != x.shape[3] or bias.shape != (wj.shape[2],):
         raise ValueError(f"temporal_conv_1x1: bad shapes {x.shape} {w.shape} {bias.shape}")
-    if wj.shape[0] % 2 == 0:
-        raise ValueError(f"temporal_conv_1x1: even tap count {wj.shape[0]}")
     if not (x.is_contiguous() and bias.is_contiguous()):
         raise ValueError("temporal_conv_1x1: x and bias must be contiguous")
     return _launch(x, k_major(w, dtype), bias.to(dtype))
@@ -140,12 +138,22 @@ def _weight_and_bias_grads(x, g, kt):
     return dw, g.float().sum(dim=(0, 1, 2)).to(x.dtype)
 
 
+def _dx_taps(w):
+    """The K-major weight [kt', Cin, Cout] of dx's convolution for w [kt, Cin,
+    Cout]: the taps reversed, and for an even kt a zero tap in front, so that
+    the convolution's own offset kt'//2 is kt - 1 - kt//2."""
+    taps = w.flip(0)
+    if w.shape[0] % 2 == 0:
+        taps = torch.cat([torch.zeros_like(taps[:1]), taps])
+    return taps
+
+
 def temporal_conv_1x1_backward_reference(x, w, g):
     """Plain backward: (dx, dW, db) for w [kt, Cin, Cout], dx by the plain
-    forward on g with the reversed, transposed taps."""
+    forward on g with the reversed, transposed taps (`_dx_taps`)."""
     temporal_conv_1x1_backward_reference.calls += 1
     zero = torch.zeros(w.shape[1], dtype=x.dtype, device=x.device)
-    dx = temporal_conv_1x1_reference(g, w.flip(0).transpose(1, 2), zero)
+    dx = temporal_conv_1x1_reference(g, _dx_taps(w).transpose(1, 2), zero)
     return (dx,) + _weight_and_bias_grads(x, g, w.shape[0])
 
 
@@ -154,12 +162,12 @@ temporal_conv_1x1_backward_reference.calls = 0
 
 def temporal_conv_1x1_backward(x, w, g):
     """(dx, dW, db) of temporal_conv_1x1 for w [kt, Cin, Cout]: dx by a K4
-    launch on g (no bias) whose K-major weight is w flipped along the taps;
-    the plain version on CPU."""
+    launch on g (no bias) whose K-major weight is `_dx_taps(w)`; the plain
+    version on CPU."""
     if x.device.type == "cpu":
         return temporal_conv_1x1_backward_reference(x, w, g)
     _cuda.check_cuda_tensors("temporal_conv_1x1", x, g)
-    dx = _launch(g, w.flip(0).to(x.dtype).contiguous(), None)
+    dx = _launch(g, _dx_taps(w).to(x.dtype).contiguous(), None)
     return (dx,) + _weight_and_bias_grads(x, g, w.shape[0])
 
 
@@ -181,9 +189,9 @@ class _TemporalConv1x1(torch.autograd.Function):
 
 def temporal_conv_1x1(x, w, bias):
     """K4 on CUDA tensors (contiguous x [B, T, M, Cin], w [kt, Cin, Cout] or
-    nn.Conv3d's [Cout, Cin, kt, 1, 1] in any floating dtype, bias [Cout], odd
-    kt, any T including 1); the plain version on CPU. Differentiable: with
-    grad on, dx is a second K4 launch."""
+    nn.Conv3d's [Cout, Cin, kt, 1, 1] in any floating dtype, bias [Cout], any
+    kt, odd or even, any T including 1); the plain version on CPU.
+    Differentiable: with grad on, dx is a second K4 launch."""
     if torch.is_grad_enabled() and any(a.requires_grad for a in (x, w, bias)):
         return _TemporalConv1x1.apply(x, w, bias)
     return _temporal_conv_forward(x, w, bias)

@@ -28,15 +28,22 @@ later ones; the result's gt_state is the state for the next window. With
 is_refine_mask the feature pass also harvests output block 7's spatial q and
 the masks are refined along its dense tracks (:475-498).
 
-The parameters are the JAX function's, in its order (:269-284), less its
-`mesh`: `mask_override` ([K, T, fh*fw] masks at the clustering block's token
-resolution, `cluster_feature_hw`) replaces the clustering as in JAX
-(:458-463). Random sites draw from their own torch.Generator seeded from
-args.seed; a caller (a parity test) can instead hand over, by keyword, the
-cond-aug noise, the add_noise noise and the kmeans initial centres JAX drew.
+The parameters are the JAX function's, in its order (:269-284), with
+`process_group` in the place of its `mesh`: `mask_override` ([K, T, fh*fw]
+masks at the clustering block's token resolution, `cluster_feature_hw`)
+replaces the clustering as in JAX (:458-463). Under a `process_group` of W
+ranks (JAX's runs mesh, which run_single_video takes whenever it sees more
+than one device) every rank runs the conditioning, encode and feature pass
+itself (the injected q/k cache is not sent between ranks), takes the first
+rank's masks and labels, runs and decodes its share of the 2*K modulated
+runs (parallel/runs.py) and gathers the others'; every rank returns the same
+result, and only the first rank writes outputs. Random sites draw from their
+own torch.Generator seeded from args.seed; a caller (a parity test) can
+instead hand over, by keyword, the cond-aug noise, the add_noise noise and the
+kmeans initial centres JAX drew.
 
-The multi-device mesh and the host-RAM streaming of the JAX package are TPU
-workarounds and are not ported.
+The in-process device mesh and the host-RAM streaming of the JAX package are
+TPU workarounds and are not ported.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vidseg_diffusion_tpu_torch.io import video as vio
 from vidseg_diffusion_tpu_torch.engine.build import Pipeline
@@ -71,6 +79,7 @@ from vidseg_diffusion_tpu_torch.engine.vidseg import (
     svd_harvest_spec,
 )
 from vidseg_diffusion_tpu_torch.ops.image import resize_bicubic
+from vidseg_diffusion_tpu_torch.parallel.runs import all_gather_runs, broadcast_from_first
 
 
 @dataclasses.dataclass
@@ -237,6 +246,7 @@ def run_single_video(
     write_outputs: bool = True,
     mask_override: Optional[np.ndarray] = None,    # [K, T, fh*fw] precomputed masks
     timings: Optional[Dict[str, float]] = None,    # out-param: per-stage seconds
+    process_group=None,                            # the runs over its ranks (JAX's runs mesh)
     *,
     cond_aug_noise: Optional[np.ndarray] = None,   # [1, H, W, 3]
     noise: Optional[np.ndarray] = None,            # [T, H/8, W/8, z]
@@ -341,6 +351,11 @@ def run_single_video(
     if args.is_refine_mask:
         masks_tok = _refine(cache[HarvestSpec.name(track_blocks[0], "spatial_self", "q")][feat_t - cache_t0],
                             masks_tok, t, (h_lat, w_lat), (fh, fw), track_div[track_blocks[0]])
+    if process_group is not None:
+        # one clustering for every rank: the first rank's
+        masks_cpu, unique_labels, new_gt_state = broadcast_from_first(
+            (masks_tok.cpu(), np.asarray(unique_labels), _state_to(new_gt_state, "cpu")), process_group)
+        masks_tok, new_gt_state = masks_cpu.to(feat.device), _state_to(new_gt_state, feat.device)
     k = masks_tok.shape[0]
     masks_px = masks_tok.reshape(k, t, fh, fw)
     mark("masks")
@@ -358,9 +373,12 @@ def run_single_video(
         decoded_runs[r] = fs.decode(x_final, chunk=args.decoding_t)
 
     finals = engine.modulated_runs(noised, c, uc, masks_block, masks_latent, cache,
-                                   t_start_mod, on_run_done=on_run_done)
+                                   t_start_mod, on_run_done=on_run_done, process_group=process_group)
     mark("modulated_runs")
-    decoded = torch.stack([decoded_runs[r] for r in range(2 * k)])
+    if process_group is None:
+        decoded = torch.stack([decoded_runs[r] for r in range(2 * k)])
+    else:
+        decoded = all_gather_runs(decoded_runs, k, process_group)
     decoded = decoded.reshape((2, k) + decoded.shape[1:])
     decoded = ((decoded + 1.0) / 2.0).clamp(0.0, 1.0) * 255.0
     mark("decode")
@@ -373,7 +391,7 @@ def run_single_video(
     mark("seg_assembly")
 
     masks_np = masks_px.cpu().numpy()
-    if write_outputs:
+    if write_outputs and (process_group is None or dist.get_rank(process_group) == 0):
         _write_outputs(args, masks_np, decoded, seg_raw, seg_filtered, cluster_blocks,
                        frame_names, feat_t, unique_labels, ori_hw)
     f32 = lambda a: a.float().cpu().numpy()
@@ -388,6 +406,13 @@ def run_single_video(
                                  if args.is_injected_features and any(s in n for s in injected)),
         gt_state=new_gt_state,
     )
+
+
+def _state_to(state: Optional[GTMatchState], device) -> Optional[GTMatchState]:
+    if state is None:
+        return None
+    return dataclasses.replace(state, ref_features=state.ref_features.to(device),
+                               ref_labels=state.ref_labels.to(device))
 
 
 def _refine(track_feat, masks_tok, t, latent_hw, feature_hw, tdiv):

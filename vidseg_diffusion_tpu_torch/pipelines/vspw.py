@@ -32,6 +32,7 @@ from PIL import Image
 from vidseg_diffusion_tpu_torch.engine.build import Pipeline
 from vidseg_diffusion_tpu_torch.eval.metrics import SegmentationEvaluator
 from vidseg_diffusion_tpu_torch.io.video import list_video_frames, load_frames
+from vidseg_diffusion_tpu_torch.parallel.mesh import process_slice
 from vidseg_diffusion_tpu_torch.pipelines.single_video import VidSegArgs, cluster_feature_hw, run_single_video
 
 GT_EXTENSIONS = (".png", ".jpg")
@@ -143,6 +144,7 @@ def run_vspw_sweep(
     num_classes: int = 124,
     evaluate: bool = True,
     manifest_path: Optional[str] = None,
+    process_shard: bool = False,
 ) -> Dict:
     """Sweep <data_root>/<video>/origin for the named videos, skipping failed
     ones (svd_pipeline_vspw.py:651-676) and scoring the label maps against
@@ -150,10 +152,16 @@ def run_vspw_sweep(
 
     `manifest_path` journals each video as a JSON line ("done" or "failed"); a
     re-run skips the done ones and does not score them again, so its metrics
-    cover the fresh videos only (`metrics_partial`)."""
+    cover the fresh videos only (`metrics_partial`). `process_shard` cuts the
+    video list (after exp_start_idx / num_exp) to this process's contiguous
+    share of the process group (parallel/mesh.py::process_slice) before the
+    manifest is read, as JAX :200-203 does: each process runs and scores its
+    own videos, and nothing is gathered."""
     names = list(video_names)[exp_start_idx:]
     if num_exp is not None:
         names = names[:num_exp]
+    if process_shard:
+        names = names[process_slice(len(names))]
     already = _done_in_manifest(manifest_path)
 
     def journal(rec):

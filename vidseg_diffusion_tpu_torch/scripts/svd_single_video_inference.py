@@ -14,6 +14,15 @@ clustering block's token grid. --inversion_type inversion replaces add_noise
 by the DDIM inversion of the latents over all --num_steps (the feature pass
 then runs every step); the JAX package's CLI has no such flag and keeps
 add_noise, which stays the default here.
+
+Under torchrun (WORLD_SIZE above 1) the process group is joined
+(parallel/mesh.py::initialize_distributed: NCCL, one card per rank; gloo with
+--device cpu) and the 2 * num_masks modulated runs split over the ranks,
+where the JAX package's CLI shards them over its devices (mesh "auto"); the
+first rank writes the outputs:
+
+    torchrun --nproc_per_node 4 -m vidseg_diffusion_tpu_torch.scripts.svd_single_video_inference \
+        --input_video_path path/to/frames --exp_name swan
 """
 
 import argparse
@@ -82,6 +91,11 @@ def main(argv=None):
         raise SystemExit("--input_video_path is required")
     if args.feature_extraction_mode == "match_gt_mask" and not args.gt_mask_path:
         raise SystemExit("--gt_mask_path is required for --feature_extraction_mode match_gt_mask")
+    group = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from vidseg_diffusion_tpu_torch.parallel.mesh import initialize_distributed
+
+        group = initialize_distributed(device=args.device)
     frames, names, ori_hw = load_frames(list_video_frames(args.input_video_path))
     print(f"loaded {len(names)} frames, model size {frames.shape[1]}x{frames.shape[2]}")
     pipeline = build_pipeline_from_args(args, len(names))
@@ -107,9 +121,11 @@ def main(argv=None):
     if args.feature_extraction_mode == "match_gt_mask":
         gt_mask = load_label_image(args.gt_mask_path,
                                    *cluster_feature_hw(pipeline, vargs, frames.shape[1], frames.shape[2], len(names)))
-    result = run_single_video(pipeline, frames, names, vargs, ori_hw=ori_hw, gt_mask=gt_mask)
-    print(f"unique_labels: {result.unique_labels}")
-    print(f"wrote outputs under {args.feature_folder}/{args.exp_name}")
+    result = run_single_video(pipeline, frames, names, vargs, ori_hw=ori_hw, gt_mask=gt_mask,
+                              process_group=group)
+    if group is None or group.rank() == 0:
+        print(f"unique_labels: {result.unique_labels}")
+        print(f"wrote outputs under {args.feature_folder}/{args.exp_name}")
 
 
 if __name__ == "__main__":

@@ -67,20 +67,29 @@ def loss_module() -> StandardDiffusionLoss:
     return StandardDiffusionLoss(Denoiser(VScalingWithEDMcNoise()), EDMSigmaSampling())
 
 
-def build() -> DiffusionTrainStep:
-    """The trainer: bf16 UNet with random N(0, INIT_STD) weights, Adam, EMA."""
+def build(fsdp: bool = False) -> DiffusionTrainStep:
+    """The trainer: bf16 UNet with random N(0, INIT_STD) weights, Adam, EMA.
+    With `fsdp` the UNet is sharded over the default process group
+    (parallel/fsdp.py::fsdp_wrap) before the optimizer and the EMA are made
+    over its parameters, and each rank steps on its share of the videos
+    (FSDPTrainStep)."""
     with torch.device(DEVICE):
         unet = UNetModel(unet_config())
     unet.to(torch.bfloat16)
     init_normal_(unet, torch.Generator(device=DEVICE).manual_seed(WEIGHT_SEED))
-    opt = torch.optim.Adam(unet.parameters(), lr=LR)
-    return DiffusionTrainStep(unet, network_factory(NUM_FRAMES), loss_module(), opt)
+    opt = lambda: torch.optim.Adam(unet.parameters(), lr=LR)
+    if not fsdp:
+        return DiffusionTrainStep(unet, network_factory(NUM_FRAMES), loss_module(), opt())
+    from vidseg_diffusion_tpu_torch.parallel.fsdp import FSDPTrainStep, fsdp_wrap
+
+    fsdp_wrap(unet)
+    return FSDPTrainStep(unet, network_factory(NUM_FRAMES), loss_module(), opt(), unit=NUM_FRAMES)
 
 
-def batch():
-    """(latents [28, 56, 104, 4], cond) in bf16 from a seed."""
+def batch(n_videos: int = N_VIDEOS):
+    """(latents [n_videos x 14, 56, 104, 4], cond) in bf16 from a seed."""
     g = torch.Generator(device=DEVICE).manual_seed(BATCH_SEED)
-    n = N_VIDEOS * NUM_FRAMES
+    n = n_videos * NUM_FRAMES
     rn = lambda *shape: torch.randn(*shape, generator=g, device=DEVICE).to(torch.bfloat16)
     latents = rn(n, HEIGHT, WIDTH, 4)
     cond = {"crossattn": rn(n, 1, 1024), "vector": rn(n, 768), "concat": rn(n, HEIGHT, WIDTH, 4)}
