@@ -235,20 +235,41 @@ Phases, in order; any failure exits non-zero:
    multi-consumer gradients); step seconds of both; then trap (b) forced
    (copies never retired, the storage pointer unread): the stale-copy count
    and the leaf check must both report it.
+29. ae_video_train (last): svd.yaml's own first stage (Encoder + the temporal
+   VideoDecoder, no quant convs) through scripts/autoencoder_train_path.py's
+   AutoencoderTrainStep (bf16, LPIPS, the discriminator, Adam x2, the
+   adversarial term from step 0) on one clip of 7 frames of 448x832, at
+   time_mode 'conv-only' (svd.yaml's), 'all' and 'attn-only': a warm-up step,
+   then AE_VIDEO_STEPS steps with the counts set to 0; every launch reckoned
+   from the modules (ae_video_launches_per_step): K3 and K13 at the mid
+   attentions [7,1,5824,512]; in a VideoAttnBlock K1 + K5 at one 512-dim head
+   ([7,5824,1x512]: K5 on K13's wgmma kernels through the packed strides) and
+   K2 + K6 at D = 512 on the wide kernels (the time mix at t = 7), K11 at its
+   eight projections; K4 forward and dx at every TemporalConv ([1,7,372736,128]
+   and up), the narrow kernel at conv_out's 3-channel time mix; the GroupNorm
+   forward and backward by route, the backward's route as the card places it
+   (the live placement query agrees with the shape's, in every phase); no
+   plain version; finite logs, p_loss > 0, every gradient finite, the last
+   Adam step of both phases taken (check_adam_step); seconds per step, peak
+   memory. Then 'all' in fp32 at 2 frames of 128x256 (a 512-token latent: the
+   mid attentions, attn2 and the time mix on their kernels as at full width),
+   card vs CPU gradients of every first-stage parameter within GRAD_REL_TOL.
 With `--ranks` under `torchrun --nproc_per_node W` on W cards (main_ranks):
 the main path's runs over the W ranks bit-equal to one rank's run, and the
 training step FSDP-wrapped over the W ranks, a video each, against the
 unwrapped step on one card's batch of W videos;
 one JSON line of those readings (no kernels line).
 The kernel phase also holds the instances at the head dims the tuned kernels
-are not built for (D = 16: K1, K2, K3, K5, K6, K13; one 512-dim head: K1, K2)
+are not built for (D = 16: K1, K2, K3, K5, K6, K13; one 512-dim head: K1, K2,
+and their backwards K5 (K13's kernels on the packed strides) and K6 (the wide kernel))
 against their plain versions in bf16 and fp32, and the normalise-first mode
 of K1 and K3 at D = 16 in bf16, also held to mha_reference.
 
 Before the last line come the kernels JSON (per kernel: launches in the run
 of its path and in the other runs (injected, SD, diffusion training,
 autoencoder training, the SVD and SD sweeps summed over their windows, the
-inversion run, the two VideoDecoder decodes summed, the tiny run, and the
+inversion run, the two VideoDecoder decodes summed, the tiny run, the
+three modes' steps of svd.yaml's first stage summed (ae_video_train_launches), and the
 sampling API's runs: api_launches (api_sdxl's runs summed), img2vid_launches,
 nti_launches; t5_launches,
 demo_launches (its three requests summed), safety_launches; the model options'
@@ -266,6 +287,7 @@ is {"ok": true, "device": ...}.
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -390,6 +412,12 @@ for _name, _id, _src, _line, _tol, _wrapper, _dim, _path in (
      512, "vae_time_mode"),
     ("temporal_attention_direct_d512", "K2 D=512", "temporal_attention.cu", 1458, 1e-3, "temporal_attention_direct",
      512, "vae_time_mode"),
+    # their gradients, when svd.yaml's first stage trains: K5 at one 512-dim head runs K13's
+    # D = 512 kernels on the packed strides (JAX reaches :993 / :1025 there), K6 its wide kernel
+    ("flash_attention_packed_backward_d512", "K5 D=512 one head", "flash_attention_bhld_bwd.cu", 993, 1e-3,
+     "flash_attention_packed_backward", 512, "ae_video_train"),
+    ("temporal_attention_direct_backward_d512", "K6 D=512", "temporal_attention_bwd.cu", 1167, 2e-4,
+     "temporal_attention_direct_backward", 512, "ae_video_train"),
 ):
     KERNELS[_name] = dict(id=_id, source=_CSRC + _src, replaces=_JAX + str(_line), rms_tol=_tol, wrapper=_wrapper,
                           dim=_dim, path=_path, normalised="normalised" in _name)
@@ -500,6 +528,8 @@ HEADLINE = {  # the shape of its path each kernel is timed at
     "flash_attention_packed_d512": "VideoAttnBlock attn2 [7,5824,1x512] bf16",
     "temporal_attention_direct_d512": "VideoAttnBlock time mix [7,5824,1,512] t=7 bf16",
     "flash_attention_normalised_d64": "ViT-L/14 [2,16,257,64]",
+    "flash_attention_packed_backward_d512": "VideoAttnBlock attn2 [7,5824,1x512] bf16",
+    "temporal_attention_direct_backward_d512": "VideoAttnBlock time mix [7,5824,1,512] t=7 bf16",
 }
 # launches of one training step (remat on: every ResBlock and transformer runs
 # its forward twice, in the step's forward and in the backward's recompute):
@@ -947,8 +977,11 @@ def head_dim_cases(torch, rn):
     slice, as the D = 64 cases), their backwards, K13 at D = 16 (K5's instance
     on K3's strides); D = 512 at the VideoDecoder VideoAttnBlock's sites of
     svd.yaml's decode (decoding_t 7 and 14: attn2 [bt, 5824, 1 x 512] through
-    K1, the time mix [bt, 5824, 1, 512] through K2). Library: SDPA on the
-    [B, H, L, D] views (K2: the [b, s, H, t, D] view)."""
+    K1, the time mix [bt, 5824, 1, 512] through K2) and their backwards on the
+    7-frame training clip (K5 at one 512-dim head on K13's kernels, t = 7; K6
+    on the wide kernel at t = 7 and 14). Library: SDPA on the [B, H, L, D]
+    views (K2: the [b, s, H, t, D] view), its backward through autograd.grad
+    (the backend that takes the headline printed)."""
     import torch.nn.functional as F
 
     from vidseg_diffusion_tpu_torch.ops import attention as A
@@ -1052,6 +1085,32 @@ def head_dim_cases(torch, rn):
                               plain=lambda q, k, v, t=t: A.temporal_attention_direct_reference(q, k, v, t=t), iters=5,
                               work=attn_work(5824, 1, t, t, 512, dtype=dname),
                               library=lambda q, k, v, t=t: (lambda a=[frames(x, t) for x in (q, k, v)]: sdpa(*a))))
+
+        def k5_512_make(mk=mk):
+            q, k, v, g = mk(*[(7, 5824, 512)] * 4)()
+            out, lse = A._flash_attention_packed_forward(q, k, v, 1, None, save_lse=True)
+            return q, k, v, out, lse, g, 1
+
+        cases.append(dict(kernel="flash_attention_packed_backward_d512",
+                          label=f"VideoAttnBlock attn2 [7,5824,1x512] {dname}", make=k5_512_make,
+                          kern=A.flash_attention_packed_backward, plain=A.flash_attention_packed_backward_reference,
+                          iters=2, work=attn_work(7, 1, 5824, 5824, 512, backward=True, dtype=dname),
+                          library=lambda q, k, v, o, lse, g, h: sdpa_backward([heads(x, 1) for x in (q, k, v)],
+                                                                              heads(g, 1))))
+        for label, t in (("VideoAttnBlock time mix [7,5824,1,512] t=7", 7),
+                         ("VideoAttnBlock time mix [14,5824,1,512] t=14", 14)):
+            def k6_512_make(t=t, mk=mk):
+                q, k, v, g = mk(*[(t, 5824, 1, 512)] * 4)()
+                return q, k, v, A.temporal_attention_direct(q, k, v, t=t), g
+
+            cases.append(dict(kernel="temporal_attention_direct_backward_d512", label=f"{label} {dname}",
+                              make=k6_512_make,
+                              kern=lambda q, k, v, o, g, t=t: A.temporal_attention_direct_backward(q, k, v, o, g, t=t),
+                              plain=lambda q, k, v, o, g, t=t: A.temporal_attention_direct_backward_reference(
+                                  q, k, v, o, g, t=t), iters=3,
+                              work=attn_work(5824, 1, t, t, 512, backward=True, dtype=dname),
+                              library=lambda q, k, v, o, g, t=t: sdpa_backward([frames(x, t) for x in (q, k, v)],
+                                                                               frames(g, t))))
     return cases
 
 
@@ -1370,6 +1429,12 @@ def phase_kernels(torch):
         if kname == "flash_attention_backward" and label == HEADLINE[kname]:
             print(f"[kernels] SDPA backends that take {label}: {sdpa_backends(torch, *args[:3])} "
                   "(the first is the library call's)", flush=True)
+        if kname.endswith("backward_d512") and label == HEADLINE[kname]:
+            view = ((lambda x: x.view(7, 5824, 1, 512).transpose(1, 2)) if kname.startswith("flash")
+                    else (lambda x: x.view(1, 7, 5824, 1, 512).permute(0, 2, 3, 1, 4)))
+            print(f"[kernels] SDPA backends that take {label}: "
+                  f"{sdpa_backends(torch, *(view(x) for x in args[:3]))} (the first is the library call's)",
+                  flush=True)
         nbytes, flops, peak_key = case["work"]
         by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[peak_key] * 1e3
         row = dict(kernel=kname, shape=label, max_abs_err=err, bf16_steps=steps, fp32_rel_err=rel,
@@ -1663,7 +1728,9 @@ def module_hooks():
     registered for the whole run, counts a GroupNorm32 call under the route
     ops.norm.group_norm_route gives its input (a strided input is copied, and
     the copy is aligned) and, under a gradient, keeps the route
-    ops.norm.group_norm_backward_route gives it (GN_BWD_OF); "api_calls", registered only around the sampling-API
+    ops.norm.group_norm_backward_route gives it (GN_BWD_OF), and on the card
+    checks that the route as the card places it (ops.norm.slab_placement, the
+    backward's own query) is that one; "api_calls", registered only around the sampling-API
     runs that reckon their launches from it (`counting_calls`), counts CALLS."""
     import torch
 
@@ -1688,6 +1755,14 @@ def module_hooks():
             GN_ROUTES[forward] += 1
             if grad(args[0], module.weight, module.bias):
                 GN_BWD_OF[id(module)] = backward
+            x = args[0]   # on the card, the route as it places it (the backward's own query) is the shape's
+            if x.is_cuda and grad(x, module.weight, module.bias):
+                b, c = x.shape[0], x.shape[-1]
+                aligned = not x.is_contiguous() or x.data_ptr() % 16 == 0
+                live = N.group_norm_backward_route(b, x.numel() // (b * c), c, module.groups, x.element_size(),
+                                                   aligned, functools.partial(N.slab_placement, x.device, x.dtype))
+                check(live[0] == backward, f"GroupNorm backward {tuple(x.shape)}: the card places the "
+                      f"{live[0]} route, the shape reckons {backward}")
 
     def grad(*xs):
         return torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in xs)
@@ -1768,13 +1843,14 @@ def read_dims():
 K3_NORMALISED_WGMMA_DIMS = (64,)   # K3's normalise-first mode on K1's wgmma kernel; at D = 80 and 16 on mma.sync
 
 
-def check_routes(tag, launches, narrow=0, normalised=None):
+def check_routes(tag, launches, narrow=0, normalised=None, wide=0):
     """Every K1, K11, K5 and K13 launch of the run took the wgmma kernel (none
     the mma.sync tile or an FMA kernel), every K3 launch but the `normalised`
     ones at D = 80 and 16 (CLIP ViT-H's and the tiny towers', on the mma.sync
     kernel; at D = 64 they run K1's wgmma kernel and count on both), every K4
     launch but `narrow` of them, which took the narrow kernel, and every K2
-    and K6 launch the tensor-core kernel (none the fp32 CUDA-core one); K1 and
+    and K6 launch but `wide` of each (D = 512, the wide kernels) the
+    tensor-core kernel (none the fp32 CUDA-core one); K1 and
     K3 ran the normalise-first mode `normalised[name]` times ({kernel:
     launches}); keeps and returns the route counts."""
     routes = read_routes()
@@ -1789,8 +1865,8 @@ def check_routes(tag, launches, narrow=0, normalised=None):
                     if d in K3_NORMALISED_WGMMA_DIMS)
     want["flash_attention"] = {"wgmma": launches["flash_attention"] - nf3 + nf3_wgmma, "normalised": nf3}
     want["temporal_conv_1x1"] = {"wgmma": launches["temporal_conv_1x1"] - narrow, "narrow": narrow}
-    want["temporal_attention_direct"] = {"mma": launches["temporal_attention_direct"], "wide": 0}
-    want["temporal_attention_direct_backward"] = {"mma": launches["temporal_attention_direct_backward"]}
+    for name in ("temporal_attention_direct", "temporal_attention_direct_backward"):
+        want[name] = {"mma": launches[name] - wide, "wide": wide}
     got = {name: routes[name] for name in ROUTED}
     check(got == want, f"[{tag}] launches by route {got}, expected {want}")
     ROUTE_COUNTS[tag] = routes
@@ -2983,6 +3059,187 @@ def phase_ae_train(torch):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+AE_VIDEO_MODES = ("conv-only", "all", "attn-only")   # svd.yaml ships conv-only
+AE_VIDEO_STEPS = 2   # timed steps a mode, after a warm-up
+
+
+def ae_video_launches_per_step(fs):
+    """(launches, narrow K4 launches) one step of a first stage with the
+    temporal VideoDecoder implies (no remat, the batch one clip): K3 and K13
+    once per mid attention (encoder, decoder); per VideoAttnBlock K1 + K5 at
+    one 512-dim head (attn2), K2 + K6 at D = 512 (the time mix) and K11 at
+    its time_mix_block's eight projections (forward only: their backward is
+    library products, as in JAX); K4 twice per (kt,1,1) TemporalConv
+    (forward, dx), both on the narrow kernel at conv_out's 3-channel time mix;
+    a GroupNorm forward and backward once per GroupNorm module."""
+    from vidseg_diffusion_tpu_torch.models.layers import CrossAttention, GroupNorm32
+    from vidseg_diffusion_tpu_torch.models.unet import TemporalConv
+    from vidseg_diffusion_tpu_torch.models.vae import VideoAttnBlock
+
+    mods = list(fs.modules().values())
+    count = lambda cls: sum(isinstance(m, cls) for mod in mods for m in mod.modules())
+    n_va = count(VideoAttnBlock)
+    return (dict(flash_attention=2, flash_attention_backward=2, flash_attention_packed=n_va,
+                 flash_attention_packed_backward=n_va, temporal_attention_direct=n_va,
+                 temporal_attention_direct_backward=n_va, matmul_bias=4 * count(CrossAttention),
+                 temporal_conv_1x1=2 * count(TemporalConv), group_norm=count(GroupNorm32),
+                 group_norm_backward=count(GroupNorm32)),
+            2 * sum(narrow_tconv_sites(mod) for mod in mods))
+
+
+def phase_ae_video_train(torch):
+    """svd.yaml's own first stage trained on one 7-frame clip of 448x832 at
+    each decoder time mode (docstring, phase 29); then ae_video_grad.
+    Returns {mode: launches of its AE_VIDEO_STEPS steps}."""
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+    from vidseg_diffusion_tpu_torch.ops import norm as N
+    from vidseg_diffusion_tpu_torch.scripts import autoencoder_train_path as ae_path
+
+    out = {}
+    for mode in AE_VIDEO_MODES:
+        tag = f"ae_video {mode}"
+        t0 = time.perf_counter()
+        trainer, fs = ae_path.build(vae=ae_path.svd_vae_config(mode))
+        x, noise = ae_path.batch(frames=ae_path.SVD_FRAMES), ae_path.noise_generator()
+        gen_named = lambda: fs.modules().named_parameters()
+        disc = trainer.discriminator
+        n_gen = sum(p.numel() for _, p in gen_named())
+        check(fs.quant_conv is None and fs.decoder.config.video_decoder and fs.decoder.config.time_mode == mode,
+              f"[{tag}] not svd.yaml's first stage")
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        logs = trainer.step(x, 0, generator=noise)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        print(f"[{tag}] built svd.yaml's first stage ({n_gen / 1e6:.1f} M params; Encoder + VideoDecoder at "
+              f"'{mode}'), LPIPS, the discriminator, bf16, in {build_s:.1f} s; warm-up step on "
+              f"{tuple(x.shape)} {warm_s:.2f} s, g_loss {logs['g_loss'].item():.5f}", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        unplaced = N.group_norm_backward_route.unplaced
+        times, all_logs = [], []
+        for i in range(AE_VIDEO_STEPS):
+            if i == AE_VIDEO_STEPS - 1:  # the weights before the step that check_adam_step reads
+                gen0 = [p.detach().clone() for _, p in gen_named()]
+                disc0 = [p.detach().clone() for p in disc.parameters()]
+            t0 = time.perf_counter()
+            logs = trainer.step(x, i + 1, generator=noise)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            all_logs.append({k: v.item() for k, v in logs.items()})
+        launches, plain_calls = read_counts()
+        dims = read_dims()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[{tag}] {AE_VIDEO_STEPS} steps of 7 x 448x832: step_s {[round(t, 4) for t in times]}, peak device "
+              f"memory {peak_gb:.2f} GB ({card_line()})", flush=True)
+        print(f"[{tag}] logs {json.dumps([{k: round(v, 6) for k, v in l.items()} for l in all_logs])}", flush=True)
+        check(all(math.isfinite(v) for l in all_logs for v in l.values()), f"[{tag}] a logged loss is not finite")
+        check(all(l["p_loss"] > 0 for l in all_logs), f"[{tag}] the perceptual loss carries no signal")
+        for name, p in list(gen_named()) + [(f"disc.{n}", p) for n, p in disc.named_parameters()]:
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all()), f"[{tag}] gradient of {name}")
+        gen_counts = check_adam_step(torch, trainer.gen_optimizer, gen_named(), gen0, trainer.step_count)
+        disc_counts = check_adam_step(torch, trainer.disc_optimizer, disc.named_parameters(), disc0,
+                                      trainer.step_count)
+        per_step, narrow = ae_video_launches_per_step(fs)
+        expected = {k: 0 for k in launches}
+        expected.update({k: AE_VIDEO_STEPS * n for k, n in per_step.items()})
+        expected.update(group_norm_expected(tag, expected.pop("group_norm")))
+        by_route = {}
+        for mod in fs.modules().values():
+            for r, k in modules_backward_routes(mod, AE_VIDEO_STEPS).items():
+                by_route[r] = by_route.get(r, 0) + k
+        expected.update(group_norm_backward_expected(tag, by_route, expected.pop("group_norm_backward")))
+        check(launches == expected, f"[{tag}] launches {launches}, expected {expected} ({AE_VIDEO_STEPS} steps)")
+        check(all(n == 0 for n in plain_calls.values()) and A.mha_reference_site.calls == 0,
+              f"[{tag}] plain versions ran on the card: {plain_calls}")
+        mixed = AE_VIDEO_STEPS * per_step["flash_attention_packed"]
+        at512 = lambda n: {512: n} if n else {}
+        want_dims = {w: at512(mixed) for w in ("flash_attention_packed", "flash_attention_packed_backward",
+                                               "temporal_attention_direct", "temporal_attention_direct_backward")}
+        want_dims.update(flash_attention=at512(2 * AE_VIDEO_STEPS), flash_attention_backward=at512(2 * AE_VIDEO_STEPS))
+        check(all(dims[w] == d for w, d in want_dims.items()), f"[{tag}] launches by head dim {dims}")
+        routes = check_routes(tag, launches, narrow=AE_VIDEO_STEPS * narrow, wide=mixed)
+        check(N.group_norm_backward_route.unplaced == unplaced, f"[{tag}] a slab plan the card could not place")
+        add_run("ae_video_train", launches, routes)
+        print(f"[{tag}] launches {json.dumps(launches)}; by route {json.dumps(routes)}; GroupNorm backwards by "
+              f"route {json.dumps(GN_BWD_RUNS[tag])}; last step: generator {gen_counts[0]} parameters with a "
+              f"gradient, {gen_counts[1]} due to move and moved; discriminator {disc_counts[0]}, {disc_counts[1]}",
+              flush=True)
+        out[mode] = launches
+        del trainer, fs, x, gen0, disc0, logs
+        gc.collect()
+        torch.cuda.empty_cache()
+    ae_video_grad(torch)
+    return out
+
+
+def ae_video_grad(torch):
+    """svd.yaml's first stage at 'all' in fp32 on 2 frames of 128x256 (a
+    16x32 latent: the mid attentions' 512 tokens, the VideoAttnBlock's attn2
+    over them and its time mix over the 2 frames are the kernel sites they are
+    at full width: K3 + K13, K1 + K5 at one 512-dim head, K2 + K6 wide), the
+    gradients of sum(reconstruct(sample(moments(x))) * g) on the card through
+    the kernels vs the CPU through the plain versions, same weights, frames
+    and posterior noise, TF32 off, the library convolutions off cuDNN: every
+    first-stage parameter's gradient within GRAD_REL_TOL by norm (floor
+    GRAD_FLOOR x the largest)."""
+    import copy
+
+    from vidseg_diffusion_tpu_torch.models.regularizers import DiagonalGaussian
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+    from vidseg_diffusion_tpu_torch.scripts import autoencoder_train_path as ae_path
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        fs = ae_path.build(device="cuda", vae=ae_path.svd_vae_config("all", torch.float32))[1]
+        cpu = copy.deepcopy(fs)
+        for m in cpu.modules().values():
+            m.cpu()
+        g = torch.Generator().manual_seed(12)
+        x = torch.rand(2, 128, 256, 3, generator=g) * 2 - 1
+        noise, weight = torch.randn(2, 16, 32, 4, generator=g), torch.randn(2, 128, 256, 3, generator=g)
+
+        def grads(first_stage, dev):
+            torch.backends.cudnn.enabled = dev == "cpu"
+            post = DiagonalGaussian.from_moments(first_stage.moments(x.to(dev)))
+            recon = first_stage.reconstruct(post.sample(noise.to(dev)))
+            (recon * weight.to(dev)).sum().backward()
+            return {n: p.grad for n, p in first_stage.modules().named_parameters()}
+
+        reset_counts()
+        t0 = time.perf_counter()
+        g_card = grads(fs, "cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches, plain_calls = read_counts()
+        dims = read_dims()
+        check(all(n == 0 for n in plain_calls.values()) and A.mha_reference_site.calls == 0,
+              f"[ae_video fp32] plain versions ran on the card: {plain_calls}")
+        check(all(dims[w] == {512: n} for w, n in (("flash_attention", 2), ("flash_attention_backward", 2),
+                                                    ("flash_attention_packed", 1), ("flash_attention_packed_backward", 1),
+                                                    ("temporal_attention_direct", 1),
+                                                    ("temporal_attention_direct_backward", 1))),
+              f"[ae_video fp32] the attention sites off their kernels: {dims}")
+        t0 = time.perf_counter()
+        g_cpu = grads(cpu, "cpu")
+        cpu_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled = saved
+    check(g_card.keys() == g_cpu.keys() and all(v is not None for v in g_cpu.values()), "[ae_video fp32] gradients")
+    floor = GRAD_FLOOR * max(v.norm().item() for v in g_cpu.values())
+    worst = max(((g_card[n].cpu() - v).norm().item() / max(v.norm().item(), floor), n) for n, v in g_cpu.items())
+    print(f"[ae_video fp32] svd.yaml's first stage at 'all', 2 x 128x256 in fp32: {len(g_cpu)} first-stage "
+          f"gradients, card vs CPU worst {worst[0]:.3e} by norm ({worst[1]}; tol {GRAD_REL_TOL:.0e}); launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; card {card_s:.1f} s, CPU {cpu_s:.1f} s",
+          flush=True)
+    check(all(bool(torch.isfinite(v).all()) for v in g_card.values()), "[ae_video fp32] a card gradient not finite")
+    check(worst[0] <= GRAD_REL_TOL, f"[ae_video fp32] gradient of {worst[1]} on the card disagrees with the CPU")
+    del fs, cpu, g_card, g_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check_last_update(torch, trainer, params0, ema0):
@@ -4509,6 +4766,7 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA card")
     sys.path.insert(0, ROOT)
     from vidseg_diffusion_tpu_torch.ops import _cuda
+    from vidseg_diffusion_tpu_torch.ops import norm as N
 
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
@@ -4617,6 +4875,12 @@ def main():
     t0 = time.perf_counter()
     vae_launches = phase_vae_time_mode(torch)
     phases["vae_time_mode"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_ae_video_train(torch)
+    phases["ae_video_train"] = time.perf_counter() - t0
+    check(N.group_norm_backward_route.unplaced == 0, "a GroupNorm backward's slab plan the card could not place")
     print(f"[phases] seconds {json.dumps({k: round(v, 1) for k, v in phases.items()})} ({card})", flush=True)
     torch.distributed.destroy_process_group()
 
@@ -4627,8 +4891,9 @@ def main():
     slice_runs = {"inversion": inversion_launches, "tiny": tiny_launches,
                   "vae_time_mode": {k: sum(r[k] for r in vae_launches.values()) for k in inversion_launches}}
     DIM_COUNTS["vae_time_mode"] = sum_dims(DIM_COUNTS[f"vae_{m}"] for m in VAE_TIME_MODES)
-    # the sampling API's runs, each summed over its tag's runs (the fp32 tiny runs apart)
-    for tag in ("api", "img2vid", "nti", "t5", "demo"):
+    # the sampling API's runs, each summed over its tag's runs (the fp32 tiny runs apart), and
+    # svd.yaml's first stage trained at its three decoder modes (summed)
+    for tag in ("api", "img2vid", "nti", "t5", "demo", "ae_video_train"):
         slice_runs[tag] = {k: API_RUNS[tag].get(k, 0) for k in inversion_launches}
         DIM_COUNTS[tag], ROUTE_COUNTS[tag] = API_DIMS[tag], API_ROUTES[tag]
     # the T5-XXL txt2img and the demo's requests (API runs, above), the safety filter's tower
@@ -4663,7 +4928,7 @@ def main():
             # K1, K2, K3, K4, K5, K6, K11 and K13: the launches of each path by the kernel that ran
             # (checked); the GroupNorm forward's routes are kernels of their own (K7 + K8, the fused K7+K8)
             routed = ({tag: ROUTE_COUNTS[tag][name] for tag in tags + ("inversion", "api", "img2vid", "nti", "t5",
-                                                                     "demo", "safety")}
+                                                                     "demo", "safety", "ae_video_train")}
                       if name in ROUTED else None)
             if name.startswith("group_norm_backward"):   # the runs' GroupNorm backwards by route
                 extra = {"backward_routes": {tag: r for tag, r in GN_BWD_RUNS.items() if any(r.values())}}
@@ -4676,7 +4941,7 @@ def main():
             api_launches=runs["api"], img2vid_launches=runs["img2vid"], nti_launches=runs["nti"],
             t5_launches=runs["t5"], demo_launches=runs["demo"], safety_launches=runs["safety"],
             model_options_launches=runs["model_options"], fsdp_runs_launches=runs["fsdp_runs"],
-            fsdp_launches=runs["fsdp"],
+            fsdp_launches=runs["fsdp"], ae_video_train_launches=runs["ae_video_train"],
             max_abs_err=max(r["max_abs_err"] for r in mine), shape=head["shape"],
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],

@@ -944,6 +944,57 @@ def test_group_norm_backward(cuda, dt, silu, shape, groups, bf16_route, fp32_rou
     assert all(torch.equal(p, q) for p, q in zip(out, again))
 
 
+# the GroupNorm backward sites chip_smoke.py reckons beyond GN_BWD_CASES: svd.yaml's
+# first stage on a 7-frame clip of 448 x 832 (the VideoDecoder's up levels and
+# its time_stacks, the mid at 7 items) and the sd_2_1 autoencoder step's 448 x 832
+GN_BWD_VIDEO_SITES = [(7, 448, 832, 128), (1, 7, 448, 832, 128), (7, 224, 416, 256), (1, 7, 224, 416, 256),
+                      (7, 112, 208, 512), (1, 7, 112, 208, 512), (7, 56, 104, 512), (1, 7, 56, 104, 512),
+                      (2, 448, 832, 128), (2, 224, 416, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_group_norm_backward_route_asks_the_card(cuda, dt):
+    """At every site of GN_BWD_CASES and GN_BWD_VIDEO_SITES the route as the
+    card places it (ops.norm.slab_placement, the live placement query the
+    backward asks) is the route chip_smoke.py reckons from the shape alone,
+    and the card answers that it holds at least one block or cluster of every
+    slab plan."""
+    import functools
+
+    dtype = DTYPES[dt]
+    unplaced = N.group_norm_backward_route.unplaced
+    placed = functools.partial(N.slab_placement, cuda, dtype)
+    for shape, groups in [(c[0], c[1]) for c in GN_BWD_CASES] + [(v, 32) for v in GN_BWD_VIDEO_SITES]:
+        b, c = shape[0], shape[-1]
+        site = (b, math.prod(shape) // (b * c), c, groups, torch.finfo(dtype).bits // 8, True)
+        reckoned = N.group_norm_backward_route(*site)
+        assert N.group_norm_backward_route(*site, placed) == reckoned, shape
+        if reckoned[0] != "stream":
+            assert placed(reckoned[1].n, reckoned[1].smem) >= 1, shape
+    assert N.group_norm_backward_route.unplaced == unplaced
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,groups", [((2, 6, 8, 128), 8), ((28, 91, 1280), 32), ((2, 48, 48, 320), 32),
+                                          ((2, 112, 208, 512), 32), ((2, 64, 64, 960), 32)])
+def test_group_norm_backward_takes_k9_k10_where_the_card_places_nothing(cuda, monkeypatch, shape, groups):
+    """With a placement query that answers 0 (a card or partition that holds
+    no such block or cluster) a slab site's backward takes K9 + K10, chosen
+    before any launch and counted (.unplaced), and its dx, dweight and dbias
+    hold to the slab route's within the GroupNorm bounds."""
+    args = _gn_bwd_inputs(cuda, torch.bfloat16, shape, groups, seed=74)
+    slab = N._backward(*args, groups, True)
+    monkeypatch.setattr(N, "slab_placement", lambda *a: 0)
+    before, unplaced = _gn_bwd_counts(), N.group_norm_backward_route.unplaced
+    stream = N._backward(*args, groups, True)
+    torch.cuda.synchronize()
+    assert tuple(q - p for p, q in zip(before, _gn_bwd_counts())) == (0, 0, 1, 1)
+    assert N.group_norm_backward_route.unplaced == unplaced + 1
+    _close_grads(stream[:1], slab[:1], RMS_TOL["GN"])
+    _close_grads(stream[1:], slab[1:], RMS_TOL["GN"])
+
+
 @pytest.mark.gpu
 def test_group_norm_backward_refuses_a_cluster_the_device_cannot_place(cuda, monkeypatch):
     """A cluster of 32 blocks (the H100 places at most 16) is refused at the
@@ -1371,24 +1422,107 @@ def test_temporal_attention_direct_512(cuda, dt, t, s):
 
 @pytest.mark.gpu
 def test_head_dims_off_the_table_are_refused_on_the_card(cuda):
-    """512 at two blhd heads, a D = 512 gradient through K1 or K2 (no
-    backward kernel takes it) and 40 at a temporal site raise the named
-    ValueError before any launch."""
+    """512 at two blhd heads (forward, and under a gradient) and 40 at a
+    temporal site raise the named ValueError before any launch; the two
+    gradients at one 512-dim head run their kernels (K13's D = 512 kernels on
+    the packed strides, K6's wide kernel) within chip_smoke.py's backward
+    bounds of the plain versions."""
     bf = torch.bfloat16
     before = sum(f.launches for f in A.KERNEL_COUNTERS)
     q = _randn(cuda, 270, bf, 2, 600, 2, 512)
     with pytest.raises(ValueError, match="head dim 512 .*at one head only"):
         A.dot_product_attention(q, q, q, layout="blhd")
-    q = _randn(cuda, 271, bf, 2, 600, 1, 512).requires_grad_()
-    with pytest.raises(ValueError, match="head dim 512 .*backward kernels"):
-        A.dot_product_attention(q, q, q, layout="blhd")
-    q = _randn(cuda, 272, bf, 14, 91, 1, 512).requires_grad_()
-    with pytest.raises(ValueError, match="temporal attention site: head dim 512 .*backward kernels"):
-        A.temporal_attention_direct(q, q, q, t=14)
+    with pytest.raises(ValueError, match="head dim 512 .*backward kernels.*at one head only"):
+        A.dot_product_attention(q, q, q.requires_grad_(), layout="blhd")
     q = _randn(cuda, 273, bf, 14, 91, 2, 40)
     with pytest.raises(ValueError, match="temporal attention site: head dim 40"):
         A.temporal_attention_direct(q, q, q, t=14)
     assert sum(f.launches for f in A.KERNEL_COUNTERS) == before
+    # autograd through the kernels against autograd through the plain forward
+    # (as test_flash_attention_packed_autograd_matches_the_plain_forward): 1e-2 by norm
+    packed_plain = lambda a, b_, c: A.flash_attention_packed_reference(
+        *(x.reshape(2, 600, 512) for x in (a, b_, c)), 1).view(2, 600, 1, 512)
+    for seed, shape, run, plain, counter in (
+            (271, (2, 600, 1, 512), lambda a, b_, c: A.dot_product_attention(a, b_, c, layout="blhd"),
+             packed_plain, A.flash_attention_packed_backward),
+            (272, (14, 91, 1, 512), lambda a, b_, c: A.temporal_attention_direct(a, b_, c, t=14),
+             lambda a, b_, c: A.temporal_attention_direct_reference(a, b_, c, t=14),
+             A.temporal_attention_direct_backward)):
+        x = [_randn(cuda, seed + 10 * i, bf, *shape) for i in range(3)]
+        g = _randn(cuda, seed + 40, bf, *shape)
+        leaves, ref = ([t.clone().requires_grad_() for t in x] for _ in range(2))
+        launches, dims = counter.launches, counter.dim_launches[512]
+        run(*leaves).backward(g)
+        assert counter.launches == launches + 1 and counter.dim_launches[512] == dims + 1
+        plain(*ref).backward(g)
+        for got, want in zip(leaves, ref):
+            assert bool(torch.isfinite(got.grad).all())
+            rel = (got.grad.float() - want.grad.float()).norm().item() / want.grad.float().norm().item()
+            assert rel <= 1e-2, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("b,l", [(1, 300), (2, 1000), (1, 5824)])
+def test_packed_backward_at_one_512_head(cuda, dt, b, l):
+    """K5 at one 512-dim head (the VideoAttnBlock's attn2 under a gradient:
+    [7, 5824, 1 x 512] on the training clip) runs K13's D = 512 kernels on
+    the packed strides (`.wgmma_launches` in bf16, FMA in fp32), on the LSE
+    K1 writes there, within chip_smoke.py's backward bounds of the plain
+    version (RMS_TOL["K13"])."""
+    dtype = DTYPES[dt]
+    q, k, v, g = (_randn(cuda, 280 + i, dtype, b, l, 512) for i in range(4))
+    out, lse = A._flash_attention_packed_forward(q, k, v, 1, None, save_lse=True)
+    _, lse_ref = A.flash_attention_packed_reference(q, k, v, 1, save_lse=True)
+    assert lse.shape == (b, l, 1) and (lse - lse_ref).abs().max().item() <= LSE_TOL
+    wg, k13 = A.flash_attention_packed_backward.wgmma_launches, A.flash_attention_backward.launches
+    _check(A.flash_attention_packed_backward, A.flash_attention_packed_backward_reference, q, k, v, out, lse, g, 1,
+           rms_tol=RMS_TOL["K13"])
+    assert A.flash_attention_packed_backward.wgmma_launches == wg + (dtype == torch.bfloat16)
+    assert A.flash_attention_backward.launches == k13   # counted as K5's launch
+
+
+@pytest.mark.gpu
+def test_tma_kernels_launch_from_a_thread_that_has_launched_nothing(cuda):
+    """A thread's first CUDA call may be a TMA-fed kernel's tensor-map
+    encoding (a driver call, which needs a context current on the thread):
+    autograd's device thread runs the packed backward at one 512-dim head as
+    the first node of a backward, and a fresh thread calls it directly; both
+    launch K13's wgmma kernels and agree with the main thread's launch."""
+    import threading
+
+    bf = torch.bfloat16
+    q, k, v, g = (_randn(cuda, 300 + i, bf, 2, 600, 512) for i in range(4))
+    out, lse = A._flash_attention_packed_forward(q, k, v, 1, None, save_lse=True)
+    want = A.flash_attention_packed_backward(q, k, v, out, lse, g, 1)
+    got = []
+    worker = threading.Thread(target=lambda: got.append(A.flash_attention_packed_backward(q, k, v, out, lse, g, 1)))
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    assert len(got) == 1 and all(torch.equal(a, b) for a, b in zip(got[0], want))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    A.flash_attention_packed(*leaves, 1).backward(g)
+    assert all(torch.equal(x.grad, w) for x, w in zip(leaves, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("t,s", [(7, 5824), (14, 5824), (1, 40), (2, 1024), (3, 17)])
+def test_temporal_attention_direct_backward_512(cuda, dt, t, s):
+    """K6 at one 512-dim head (the VideoAttnBlock's time mix under a gradient:
+    t = 7 on the training clip, 14 on a decode of 14 latents) on the wide
+    kernel (`.wide_launches`, no `.mma_launches`), within chip_smoke.py's
+    backward bounds of the plain version (RMS_TOL["K6"])."""
+    dtype = DTYPES[dt]
+    b = 1 if s > 2048 else 2
+    q, k, v, g = (_randn(cuda, 290 + i, dtype, b * t, s, 1, 512) for i in range(4))
+    out = A.temporal_attention_direct(q, k, v, t=t)
+    wide, mma = A.temporal_attention_direct_backward.wide_launches, A.temporal_attention_direct_backward.mma_launches
+    _check(A.temporal_attention_direct_backward, A.temporal_attention_direct_backward_reference, q, k, v, out, g,
+           t=t, rms_tol=RMS_TOL["K6"])
+    assert A.temporal_attention_direct_backward.wide_launches == wide + 1
+    assert A.temporal_attention_direct_backward.mma_launches == mma
 
 
 @pytest.mark.gpu

@@ -495,12 +495,13 @@ def test_flash_sites_refuse_head_dims_no_kernel_takes():
 
 # the head dims the configs produce at kernel sites (16: the tiny configs; 64;
 # CLIP's 80 at bhld; 512: the VAE's bhld sites and the VideoDecoder's
-# VideoAttnBlock, one blhd head and its temporal site): (kind, D, heads, forward,
-# backward); 40 and 128 stay refused, and 512 at more than one blhd head
+# VideoAttnBlock, one blhd head and its temporal site, forward and, since the
+# SVD first stage trains, backward): (kind, D, heads, forward, backward); 40
+# and 128 stay refused, and 512 at more than one blhd head
 HEAD_DIM_TABLE = [
-    ("blhd", 16, 4, True, True), ("blhd", 64, 5, True, True), ("blhd", 512, 1, True, False),
+    ("blhd", 16, 4, True, True), ("blhd", 64, 5, True, True), ("blhd", 512, 1, True, True),
     ("blhd", 512, 2, False, False), ("blhd", 80, 16, False, False), ("blhd", 40, 4, False, False),
-    ("temporal", 16, 2, True, True), ("temporal", 64, 5, True, True), ("temporal", 512, 1, True, False),
+    ("temporal", 16, 2, True, True), ("temporal", 64, 5, True, True), ("temporal", 512, 1, True, True),
     ("temporal", 80, 1, False, False), ("temporal", 40, 1, False, False),
     ("bhld", 16, 4, True, True), ("bhld", 64, 1, True, True), ("bhld", 80, 16, True, True),
     ("bhld", 512, 1, True, True), ("bhld", 40, 4, False, False), ("bhld", 128, 1, False, False),
@@ -511,8 +512,8 @@ HEAD_DIM_TABLE = [
 def test_head_dims_admitted_are_the_configs(kind, d, heads, forward, backward):
     """_check_head_dim admits exactly the table: forward K1 at D in {16, 64,
     512 at one head}, K2 at {16, 64, 512}, K3 at {16, 64, 80, 512}; backward
-    K5 / K6 at {16, 64}, K13 at all four; every other D gets the named
-    ValueError."""
+    K5 at {16, 64, 512 at one head (K13's kernels)}, K6 at {16, 64, 512}, K13
+    at all four; every other D gets the named ValueError."""
     shape = (2, 640, heads, d)
     for backward_kernels, admitted in ((False, forward), (True, backward)):
         if admitted:
@@ -1131,6 +1132,37 @@ def test_group_norm_backward_route_sends_each_site_where_it_fits(shape, itemsize
     assert w * itemsize % 16 == 0 and w <= 256 and 32 % plan.gc == 0
     assert plan.box_rows <= 256 and plan.rows % plan.box_rows == 0 and plan.rows // plan.box_rows <= 32
     assert 2 * plan.rows * w * itemsize < plan.smem <= tnorm._BWD_SMEM_MAX
+
+
+@pytest.mark.parametrize("shape,itemsize,route,n,arg", [c for c in GN_BWD_ROUTE_SITES if c[2] != "stream"])
+def test_group_norm_backward_route_takes_the_stream_route_where_the_card_places_nothing(shape, itemsize, route, n,
+                                                                                         arg):
+    """A card that answers it places no block or cluster of a site's slab plan
+    (a MIG slice; a part with fewer SMs a GPC than a cluster of 8 or 16
+    needs) sends every slab site to K9 + K10 before any launch, with the
+    stream route's plan, and counts it (.unplaced); a card that places only
+    clusters of up to 4 keeps the one-block and the 2- and 4-block sites and
+    sends the 8- and 16-block ones (the autoencoder's [2, 112, 208, 512], the
+    NTI's concatenation) to the stream route; the query is asked with the
+    plan's cluster size and shared memory."""
+    b, c = shape[0], shape[-1]
+    r = int(np.prod(shape)) // (b * c)
+    asked = []
+
+    def none(n_, smem):
+        asked.append((n_, smem))
+        return 0
+
+    unplaced = tnorm.group_norm_backward_route.unplaced
+    got, plan = tnorm.group_norm_backward_route(b, r, c, 32, itemsize, True, none)
+    stream_plan = tnorm._plan(b, r, c, itemsize, True, tnorm._BWD_STATS_TARGET_BLOCKS)
+    assert (got, plan) == ("stream", stream_plan)
+    assert tnorm.group_norm_backward_route.unplaced == unplaced + 1
+    shape_plan = tnorm.group_norm_backward_route(b, r, c, 32, itemsize, True)[1]
+    assert asked == [(n, shape_plan.smem)]
+    small = lambda n_, smem: 132 if n_ <= 4 else 0
+    got, plan = tnorm.group_norm_backward_route(b, r, c, 32, itemsize, True, small)
+    assert (got, plan) == ((route, shape_plan) if n <= 4 else ("stream", stream_plan))
 
 
 @pytest.mark.parametrize("src,dst", [((16, 24), (7, 13)), ((4, 6), (8, 9)), ((30, 40), (224, 224)), ((5, 5), (5, 3))])

@@ -59,6 +59,43 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The one head dim of the wide temporal kernels (K2 and K6 at the VideoDecoder's
+// VideoAttnBlock), whose lanes split a row of 512 channels between them.
+constexpr int kWideD = 512;
+
+// 8 elements of T from / to a 16-byte aligned address (one 16-byte vector in
+// bf16, two in fp32), as fp32
+template <typename T>
+__device__ __forceinline__ void wide_load(const T* p, float* out);
+template <>
+__device__ __forceinline__ void wide_load<__nv_bfloat16>(const __nv_bfloat16* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int u = 0; u < 8; ++u) out[u] = __bfloat162float(x[u]);
+}
+template <>
+__device__ __forceinline__ void wide_load<float>(const float* p, float* out) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  out[0] = a.x, out[1] = a.y, out[2] = a.z, out[3] = a.w, out[4] = b.x, out[5] = b.y, out[6] = b.z, out[7] = b.w;
+}
+
+template <typename T>
+__device__ __forceinline__ void wide_store(T* p, const float* in);   // each value rounded to T once
+template <>
+__device__ __forceinline__ void wide_store<__nv_bfloat16>(__nv_bfloat16* p, const float* in) {
+  uint4 raw;
+  __nv_bfloat16* x = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int u = 0; u < 8; ++u) x[u] = __float2bfloat16(in[u]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+template <>
+__device__ __forceinline__ void wide_store<float>(float* p, const float* in) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(in[0], in[1], in[2], in[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(in[4], in[5], in[6], in[7]);
+}
+
 }  // namespace vs
 
 extern "C" const char* vs_error_string(int code);

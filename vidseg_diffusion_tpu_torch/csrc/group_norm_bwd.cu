@@ -587,6 +587,41 @@ int slab_clusters(Kernel kernel, int n, int smem, int* clusters) {
   return (int)rc;
 }
 
+// The slab kernel instance's opt-ins, once per process: more than 48 KB of
+// shared memory and clusters of 16.
+template <typename T, bool SILU>
+int prepare_slab() {
+  static const cudaError_t smem_attr =
+      cudaFuncSetAttribute(gn_bwd_slab_kernel<T, SILU>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSlabSmemMax);
+  if (smem_attr != cudaSuccess) return (int)smem_attr;
+  static const cudaError_t cluster_attr =
+      cudaFuncSetAttribute(gn_bwd_slab_kernel<T, SILU>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return (int)cluster_attr;
+}
+
+// What the device can place of the slab kernel with smem bytes a block: for
+// n = 1 the blocks it holds at once (blocks an SM times SMs), for n > 1 the
+// clusters of n blocks (0: none, e.g. a partition with fewer SMs per GPC than
+// the cluster needs).
+template <typename T, bool SILU>
+int slab_placement(int n, int smem, int* placed) {
+  *placed = 0;
+  if (n > kSlabMaxCluster || smem > kSlabSmemMax) return 0;
+  if (const int rc = prepare_slab<T, SILU>()) return rc;
+  if (n > 1) return slab_clusters(gn_bwd_slab_kernel<T, SILU>, n, smem, placed);
+  int blocks = 0, dev = 0, sms = 0;
+  cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gn_bwd_slab_kernel<T, SILU>, kSlabThreads,
+                                                                 (size_t)smem);
+  if (rc == cudaSuccess) rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc != cudaSuccess) {
+    cudaGetLastError();
+    return (int)rc;
+  }
+  *placed = blocks * sms;
+  return 0;
+}
+
 template <typename T, bool SILU>
 int launch_slab(const void* x, const void* dy, const float* a, const float* s, const void* gamma, int wdtype,
                 const float* mean, const float* inv, void* dx, float* dparam, int* counters, void* dgamma,
@@ -597,13 +632,7 @@ int launch_slab(const void* x, const void* dy, const float* a, const float* s, c
   const SlabLayout L = slab_layout(rows, box_rows, W, item, gc);
   if (L.total > kSlabSmemMax) return kErrBadArgument;
   if (n > kSlabMaxCluster) return (int)cudaErrorInvalidClusterSize;   // no H100 places a larger cluster
-  // more than 48 KB of shared memory and clusters of 16 are opted into once per process
-  static const cudaError_t smem_attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSlabSmemMax);
-  if (smem_attr != cudaSuccess) return (int)smem_attr;
-  static const cudaError_t cluster_attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (cluster_attr != cudaSuccess) return (int)cluster_attr;
+  if (const int rc = prepare_slab<T, SILU>()) return rc;
   const long long items = (long long)B * (G / gc);
   long long grid_clusters = items;   // one block an item on one-block clusters
   if (n > 1) {
@@ -620,7 +649,9 @@ int launch_slab(const void* x, const void* dy, const float* a, const float* s, c
       if (const int rc = slab_clusters(kernel, n, L.total, &clusters)) return rc;
       if (nknown < 64) known[nknown++] = {n, L.total, clusters};
     }
-    if (clusters == 0) return (int)cudaErrorInvalidClusterSize;  // the device cannot place one
+    // the device cannot place one: the route (ops/norm.py) asks vs_group_norm_bwd_slab_placement
+    // first and takes K9 + K10 then, so only a caller that skips the route gets here
+    if (clusters == 0) return (int)cudaErrorInvalidClusterSize;
     grid_clusters = items < clusters ? items : clusters;
   }
   if (n * grid_clusters > 0x7fffffffLL) return kErrBadArgument;
@@ -729,6 +760,26 @@ extern "C" int vs_group_norm_bwd_slab(int dtype, const void* x, const void* dy, 
                 : launch_slab<float, false>(x, dy, af, sf, gamma, wdtype, mf, vf, dx, dp, cnt, dgamma, dbeta, B, R,
                                             C, G, gc, n, rows, box_rows, st);
   return kErrUnsupported;
+}
+
+// What the device can place of the slab kernel for dtype with n blocks a cluster
+// and smem bytes of dynamic shared memory a block: *placed receives the blocks
+// (n = 1) or clusters (n > 1) it holds at once, the fewer of the instances with
+// and without SiLU; 0 when it places none. Launches nothing; returns 0 or the
+// CUDA error of the query.
+extern "C" int vs_group_norm_bwd_slab_placement(int dtype, int n, int smem, int* placed) {
+  using namespace vs;
+  if (n <= 0 || smem <= 0 || placed == nullptr) return kErrBadArgument;
+  int with = 0, without = 0, rc = kErrUnsupported;
+  if (dtype == kBFloat16) {
+    rc = slab_placement<__nv_bfloat16, true>(n, smem, &with);
+    if (rc == 0) rc = slab_placement<__nv_bfloat16, false>(n, smem, &without);
+  } else if (dtype == kFloat32) {
+    rc = slab_placement<float, true>(n, smem, &with);
+    if (rc == 0) rc = slab_placement<float, false>(n, smem, &without);
+  }
+  *placed = with < without ? with : without;
+  return rc;
 }
 
 // K9. x, dy: contiguous [B, R, C]; a, s: the forward's fp32 [B, C] scale and

@@ -152,24 +152,8 @@ int launch_temporal_cores(const void* q, const void* k, const void* v, void* o, 
 // (at most 4). Loads are 16-byte vectors, so every row must be 16-byte aligned.
 // Bound by bytes like the other temporal sites: q, k, v read and o written once.
 
-constexpr int kWideD = 512;
 constexpr int kWideMaxWarps = 4;
 constexpr size_t kWideSmemBudget = 192 * 1024;
-
-template <typename T>
-__device__ __forceinline__ void wide_load(const T* p, float* out);   // 8 elements from a 16-byte aligned address
-template <>
-__device__ __forceinline__ void wide_load<__nv_bfloat16>(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int u = 0; u < 8; ++u) out[u] = __bfloat162float(x[u]);
-}
-template <>
-__device__ __forceinline__ void wide_load<float>(const float* p, float* out) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
-  out[0] = a.x, out[1] = a.y, out[2] = a.z, out[3] = a.w, out[4] = b.x, out[5] = b.y, out[6] = b.z, out[7] = b.w;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(32 * kWideMaxWarps) temporal_attn_wide_kernel(

@@ -39,7 +39,11 @@
 // templated on the dtype and D: one warp per problem on CUDA cores, the inputs
 // staged as fp32 rows (qf rounded to the dtype; p and ds rounded where they
 // feed products), lane i owning query row i and then key row i. D = 512 (the
-// VideoDecoder's VideoAttnBlock) runs no backward on any path and is refused.
+// VideoDecoder's VideoAttnBlock, trained with the SVD first stage) runs
+// temporal_attn_bwd_wide_kernel in both dtypes, lanes across the head dim
+// (below).
+#include <algorithm>
+
 #include "common.cuh"
 #include "temporal_tile.cuh"
 
@@ -181,6 +185,205 @@ int launch_temporal_bwd_cores(const void* q, const void* k, const void* v, const
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const T*>(g), static_cast<T*>(dq),
       static_cast<T*>(dk), static_cast<T*>(dv), nvid, t, S, H, qscale, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---- D = 512: one warp per problem, lanes across the head dim ---------------
+//
+// The backward of K2's wide kernel (temporal_attention.cu), for the
+// VideoAttnBlock's time mix over one 512-dim head ([bt, 5824, 1, 512] at t = 7
+// when svd.yaml's first stage trains on 7-frame clips). Lane L owns the 16
+// channels [8L, 8L + 8) and [256 + 8L, 256 + 8L + 8) of every row, as in the
+// forward. The warp stages the problem's t rows of k, v, g and qf =
+// round(q * qscale) in shared memory in the input dtype; each lane reads and
+// writes only its own channels there, so the stage is lane-private and needs
+// only __syncwarp. Query pass, row i: delta = rowsum(g o), the t logits qf k^T
+// and the t dP = g v^T are 16-term partial products per lane and a warp sum
+// (the butterfly leaves the same bits on every lane); p = e / sum(e) in fp32,
+// round(p) and ds = round(p (dP - delta)) kept as [t][t] fp32 tiles (written by
+// lane 0); dq_i = scale * ds_i k on the lane's channels, stored. Key pass, row
+// j: dk_j = ds^T_j qf / log2(e) and dv_j = round(p)^T_j g over the staged rows,
+// no cross-lane sum. A warp's stage is 4 t 512 elements + 2 t^2 floats (29 KB
+// at t = 7 in bf16, 59 KB at t = 14; twice in fp32), as many warps a block as
+// fit in the budget (at most 8). Bound by bytes: q, k, v, o, g read and dq, dk,
+// dv written once (t^2 D work a problem).
+
+constexpr int kWideBwdMaxWarps = 8;
+constexpr size_t kWideBwdSmemBudget = 224 * 1024;
+
+// a warp's stage, rounded up to 16 bytes so that every warp's rows stay aligned
+__host__ __device__ constexpr size_t wide_bwd_warp_bytes(int t, size_t item) {
+  return (4 * (size_t)t * kWideD * item + 2 * (size_t)t * t * sizeof(float) + 15) / 16 * 16;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kWideBwdMaxWarps) temporal_attn_bwd_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ o,
+    const T* __restrict__ g, T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, int nvid, int t, int S,
+    int H, float qscale, float scale, int warps) {
+  constexpr int D = kWideD;
+  constexpr float kInvLog2E = 0.6931471805599453f;
+  extern __shared__ __align__(16) unsigned char wide_bwd_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long prob = (long long)blockIdx.x * warps + warp;
+  if (prob >= (long long)nvid * S * H) return;  // only warp-level sync below
+  const int h = (int)(prob % H);
+  const long long rest = prob / H;
+  const int s = (int)(rest % S);
+  const int b = (int)(rest / S);
+
+  T* Qs = reinterpret_cast<T*>(wide_bwd_smem + (size_t)warp * wide_bwd_warp_bytes(t, sizeof(T)));  // [t][D] qf
+  T* Ks = Qs + t * D;
+  T* Vs = Ks + t * D;
+  T* Gs = Vs + t * D;
+  float* Ps = reinterpret_cast<float*>(Gs + t * D);  // [t][t] round(p)
+  float* DSs = Ps + t * t;                            // [t][t] ds
+  const long long hd = (long long)H * D;
+  const long long frame_stride = (long long)S * hd;
+  const long long base = (long long)b * t * frame_stride + (long long)s * hd + (long long)h * D;
+  const int cs[2] = {8 * lane, 256 + 8 * lane};  // this lane's two runs of 8 channels
+
+  for (int i = 0; i < t; ++i) {
+    const long long off = base + i * frame_stride;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x[8];
+      wide_load<T>(q + off + cs[r], x);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) x[u] *= qscale;
+      wide_store<T>(Qs + i * D + cs[r], x);  // qf, rounded to T
+      wide_load<T>(k + off + cs[r], x);
+      wide_store<T>(Ks + i * D + cs[r], x);
+      wide_load<T>(v + off + cs[r], x);
+      wide_store<T>(Vs + i * D + cs[r], x);
+      wide_load<T>(g + off + cs[r], x);
+      wide_store<T>(Gs + i * D + cs[r], x);
+    }
+  }
+  __syncwarp();
+
+  // query pass
+  for (int i = 0; i < t; ++i) {
+    const long long off = base + i * frame_stride;
+    float qv[16], gv[16], ov[16];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      wide_load<T>(Qs + i * D + cs[r], qv + 8 * r);
+      wide_load<T>(Gs + i * D + cs[r], gv + 8 * r);
+      wide_load<T>(o + off + cs[r], ov + 8 * r);
+    }
+    float part = 0.f;
+#pragma unroll
+    for (int u = 0; u < 16; ++u) part = fmaf(gv[u], ov[u], part);
+    const float delta = warp_sum(part);
+    float sc[kBwdFrames], dp[kBwdFrames];
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kBwdFrames; ++j) {
+      if (j < t) {
+        float kv[16], vv[16];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          wide_load<T>(Ks + j * D + cs[r], kv + 8 * r);
+          wide_load<T>(Vs + j * D + cs[r], vv + 8 * r);
+        }
+        float a = 0.f, c = 0.f;
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          a = fmaf(qv[u], kv[u], a);
+          c = fmaf(gv[u], vv[u], c);
+        }
+        sc[j] = warp_sum(a);
+        dp[j] = warp_sum(c);
+        m = fmaxf(m, sc[j]);
+      }
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBwdFrames; ++j) {
+      if (j < t) {
+        sc[j] = exp2f(sc[j] - m);
+        sum += sc[j];
+      }
+    }
+    float acc[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) acc[u] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBwdFrames; ++j) {
+      if (j < t) {
+        const float p = sc[j] / sum;
+        const float ds = round_to<T>(p * (dp[j] - delta));
+        if (lane == 0) {
+          Ps[i * t + j] = round_to<T>(p);
+          DSs[i * t + j] = ds;
+        }
+        float kv[16];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) wide_load<T>(Ks + j * D + cs[r], kv + 8 * r);
+#pragma unroll
+        for (int u = 0; u < 16; ++u) acc[u] = fmaf(ds, kv[u], acc[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 16; ++u) acc[u] *= scale;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) wide_store<T>(dq + off + cs[r], acc + 8 * r);
+  }
+  __syncwarp();
+
+  // key pass: every read of the stage's k and v is done; qf and g are read here
+  for (int j = 0; j < t; ++j) {
+    float ak[16], av[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) ak[u] = av[u] = 0.f;
+    for (int i = 0; i < t; ++i) {
+      const float ds = DSs[i * t + j], p = Ps[i * t + j];
+      float qv[16], gv[16];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        wide_load<T>(Qs + i * D + cs[r], qv + 8 * r);
+        wide_load<T>(Gs + i * D + cs[r], gv + 8 * r);
+      }
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        ak[u] = fmaf(ds, qv[u], ak[u]);
+        av[u] = fmaf(p, gv[u], av[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 16; ++u) ak[u] *= kInvLog2E;
+    const long long off = base + j * frame_stride;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      wide_store<T>(dk + off + cs[r], ak + 8 * r);
+      wide_store<T>(dv + off + cs[r], av + 8 * r);
+    }
+  }
+}
+
+template <typename T>
+int launch_temporal_bwd_wide(const void* q, const void* k, const void* v, const void* o, const void* g, void* dq,
+                             void* dk, void* dv, int nvid, int t, int S, int H, float qscale, float scale,
+                             cudaStream_t stream) {
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+                          reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(dq) |
+                          reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
+  if (bases % 16) return kErrBadArgument;
+  const size_t per_warp = wide_bwd_warp_bytes(t, sizeof(T));
+  if (per_warp > kWideBwdSmemBudget) return kErrBadArgument;  // fp32 past 27 frames
+  const int warps = (int)std::min<size_t>(kWideBwdMaxWarps, kWideBwdSmemBudget / per_warp);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      temporal_attn_bwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWideBwdSmemBudget);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long nprob = (long long)nvid * S * H;
+  const long long blocks = (nprob + warps - 1) / warps;
+  if (blocks > 0x7fffffffLL) return kErrBadArgument;
+  temporal_attn_bwd_wide_kernel<T><<<(unsigned)blocks, 32 * warps, per_warp * warps, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), nvid, t, S, H,
+      qscale, scale, warps);
   return (int)cudaGetLastError();
 }
 
@@ -377,21 +580,27 @@ int launch_temporal_bwd_bf16(const void* q, const void* k, const void* v, const 
 
 }  // namespace vs
 
-// q, k, v, o, g, dq, dk, dv: contiguous [(nvid*t), S, H*D], D in {16, 64} (bf16
-// at 64: 16-byte aligned). bf16 at D = 64 runs the tensor-core kernel, the rest
-// the CUDA-core kernel. route (or NULL) receives the kernel that ran: 1
-// mma.sync, 0 CUDA cores.
+// q, k, v, o, g, dq, dk, dv: contiguous [(nvid*t), S, H*D], D in {16, 64, 512}
+// (bf16 at 64 and every D at 512: 16-byte aligned). bf16 at D = 64 runs the
+// tensor-core kernel, D = 512 the wide kernel, the rest the CUDA-core kernel.
+// route (or NULL) receives the kernel that ran: 1 mma.sync, 4 the wide kernel,
+// 0 CUDA cores.
 extern "C" int vs_temporal_attention_direct_bwd(int dtype, int D, const void* q, const void* k,
                                                 const void* v, const void* o, const void* g,
                                                 void* dq, void* dk, void* dv, int nvid, int t,
                                                 int S, int H, float qscale, float scale,
                                                 int* route, void* stream) {
   if (nvid <= 0 || S <= 0 || H <= 0 || t <= 0 || t > vs::kBwdFrames) return vs::kErrBadArgument;
-  if (D != 16 && D != 64) return vs::kErrUnsupported;
+  if (D != 16 && D != 64 && D != vs::kWideD) return vs::kErrUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
   int r = -1, rc = vs::kErrUnsupported;
-  if (dtype == vs::kBFloat16 && D == 64) {
+  if (D == vs::kWideD && (dtype == vs::kBFloat16 || dtype == vs::kFloat32)) {
+    r = 4;
+    rc = dtype == vs::kBFloat16
+             ? vs::launch_temporal_bwd_wide<bf>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st)
+             : vs::launch_temporal_bwd_wide<float>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st);
+  } else if (dtype == vs::kBFloat16 && D == 64) {
     r = 1;
     rc = vs::launch_temporal_bwd_bf16(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st);
   } else if (dtype == vs::kBFloat16) {

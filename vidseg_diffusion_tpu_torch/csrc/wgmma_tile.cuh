@@ -717,6 +717,17 @@ inline void* wgmma_libcuda_entry(const char* name) {
   return fn;
 }
 
+// The encoders are driver calls, which need a context current on the calling
+// thread. The runtime binds its primary context lazily, and a thread that has
+// launched nothing yet may hold none (PyTorch's autograd device threads, whose
+// first node can be a backward whose first CUDA call is this encoding: the
+// driver then answers CUDA_ERROR_INVALID_CONTEXT). Setting the thread's current
+// device binds it; when it is bound already this is a bookkeeping call.
+inline void bind_current_context() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) cudaSetDevice(dev);
+}
+
 // A tiled map of a tensor of `rank` dims (innermost first, unit stride;
 // strides: bytes of dims 1.., multiples of 16) with `box` elements per dim.
 inline int tma_tiled_map(CUtensorMapDataType dtype, CUtensorMapSwizzle swizzle, const void* base, int rank,
@@ -728,6 +739,7 @@ inline int tma_tiled_map(CUtensorMapDataType dtype, CUtensorMapSwizzle swizzle, 
                               CUtensorMapFloatOOBfill);
   static const Encode encode = reinterpret_cast<Encode>(wgmma_libcuda_entry("cuTensorMapEncodeTiled"));
   if (encode == nullptr) return kErrUnsupported;
+  bind_current_context();
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult rc = encode(map, dtype, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, elem,
                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -763,6 +775,7 @@ inline int wgmma_im2col3x3_map(const void* x, int B, int H, int W, int C, int bm
                               CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
   static const Encode encode = reinterpret_cast<Encode>(wgmma_libcuda_entry("cuTensorMapEncodeIm2col"));
   if (encode == nullptr) return kErrUnsupported;
+  bind_current_context();
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2, (cuuint64_t)H * W * C * 2};
   const int lower[2] = {-1, -1}, upper[2] = {-1, -1};

@@ -11,7 +11,9 @@ post_quant_conv before the decoder; the SVD first stage has neither.
 encode / decode run under torch.no_grad (inference); `moments` and
 `reconstruct` are the same modules under autograd, for autoencoder training
 (engine/train.py AutoencoderTrainStep), and `modules` holds what that
-training optimizes.
+training optimizes. A video decoder's temporal layers see the batch as one
+clip (a chunk of decode, or one training clip: its `timesteps` is the batch's
+length, as JAX's decode_apply closes over the clip length).
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ class FirstStage:
 
     def reconstruct(self, z: torch.Tensor) -> torch.Tensor:
         """Unscaled latents [B, h, w, z] -> frames [B, 8h, 8w, 3]
-        (post_quant_conv, then the decoder), under autograd."""
+        (post_quant_conv, then the decoder), under autograd; a video decoder
+        sees the B latents as one clip of B frames."""
         if self.post_quant_conv is not None:
             z = self.post_quant_conv(z.to(self.decoder.config.dtype))
         return self.decoder(z, z.shape[0])

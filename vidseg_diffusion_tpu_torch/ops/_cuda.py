@@ -158,6 +158,8 @@ _SIGNATURES = {
     # B, R, C, G, groups per slab, cluster size, rows per block, rows per box, silu, stream
     "vs_group_norm_bwd_slab": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, cluster size, shared memory a block, placed (int*: blocks or clusters the device holds)
+    "vs_group_norm_bwd_slab_placement": [_I, _I, _I, _P],
     # dtype, x, dy, a, s, partial, counters, gamma, wdtype, mean, inv, coef, dparam scratch, dgamma,
     # dbeta, B, R, C, G, vec, rows_per_chunk, nchunks, silu, stream
     "vs_group_norm_bwd_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,

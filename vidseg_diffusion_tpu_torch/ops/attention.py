@@ -336,7 +336,11 @@ def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
                                     scale: Optional[float] = None):
     """K5: (dq, dk, dv) of K1 from its saved LSE, on packed [B, L, H*D]
     through strides; two kernels, dq over key tiles and dk/dv over query
-    tiles, each the only writer of its outputs. The plain version on CPU."""
+    tiles, each the only writer of its outputs. At one 512-dim head (the
+    VideoAttnBlock's attn2) K13's D = 512 kernels run on the packed strides:
+    [B, L, 1 x 512] is [B, L, 1, 512] read as (batch, row, head), the LSE
+    [B, L, 1] is K13's [B, Lq, H], as JAX's _fa_bwd and _fap_bwd reach the
+    same packed backward at heads = 1. The plain version on CPU."""
     if q.device.type == "cpu":
         return flash_attention_packed_backward_reference(q, k, v, out, lse, g, heads, scale)
     dtype = _check_packed("flash_attention_packed_backward", q, k, v, heads)
@@ -358,7 +362,7 @@ def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
     strides = _cuda.strides_arg(r4(q, lq), r4(k, lk), r4(v, lk), r4(out, lq), r4(g, lq), dq, dk, dv)
     _check_bf16_rows("flash_attention_packed_backward", dtype, strides, 15, q, k, v, out, g)
     route = _cuda.call_routed(
-        "vs_flash_attention_packed_bwd", _cuda.DTYPE_CODES[dtype], d,
+        "vs_flash_attention_bhld_bwd" if d == 512 else "vs_flash_attention_packed_bwd", _cuda.DTYPE_CODES[dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
         lse.data_ptr(), _bwd_scratch(b, heads, lq, q.device).data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -372,7 +376,7 @@ def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
 
 flash_attention_packed_backward.launches = 0
 flash_attention_packed_backward.dim_launches = collections.Counter()
-flash_attention_packed_backward.wgmma_launches = 0   # bf16 D = 64, on the wgmma kernels
+flash_attention_packed_backward.wgmma_launches = 0   # bf16 D = 64 and 512 (K13's kernels), on the wgmma kernels
 
 
 def _bwd_scratch(b, h, lq, device):
@@ -401,14 +405,15 @@ def _best_fold(b: int, lq: int, lk: int) -> int:
 
 
 # head dims built into the kernels, forward: K1 (blhd sites; 512 at one head
-# only), K2 (temporal sites) and K3 (bhld sites); backward: K5, K6 and K13 (K5
-# at 16 and 64); of the forward ones, those whose bf16 kernel has the
+# only), K2 (temporal sites) and K3 (bhld sites); backward: K5 (at one 512-dim
+# head K13's kernels on the packed strides), K6 and K13 (K5 at 16 and 64); of
+# the forward ones, those whose bf16 kernel has the
 # normalise-first mode (fp32 has no rounding to order, so its kernels serve
 # either way). A head dim the configs come to produce is one more entry here
 # and one more case in the kernels' dispatch.
 HEAD_DIMS = {"blhd": (16, 64, 512), "temporal": (16, 64, 512), "bhld": (16, 64, 80, 512)}
 ONE_HEAD_DIMS = {"blhd": (512,)}   # taken at one head only
-BACKWARD_HEAD_DIMS = {"blhd": (16, 64), "temporal": (16, 64), "bhld": (16, 64, 80, 512)}
+BACKWARD_HEAD_DIMS = {"blhd": (16, 64, 512), "temporal": (16, 64, 512), "bhld": (16, 64, 80, 512)}
 NORMALISED_HEAD_DIMS = {"blhd": (16, 64), "bhld": (16, 64, 80)}
 
 
@@ -417,7 +422,7 @@ def _check_head_dim(where: str, kind: str, shape, d: int, heads: int = 1, backwa
     (with `backward`, also the gradient's kernel)."""
     dims = BACKWARD_HEAD_DIMS[kind] if backward else HEAD_DIMS[kind]
     if d not in dims or (heads != 1 and d in ONE_HEAD_DIMS.get(kind, ())):
-        one = f", {ONE_HEAD_DIMS[kind]} at one head only" if kind in ONE_HEAD_DIMS and not backward else ""
+        one = f", {ONE_HEAD_DIMS[kind]} at one head only" if kind in ONE_HEAD_DIMS else ""
         raise ValueError(f"{where}: head dim {d} of shape {tuple(shape)} is not built into the "
                          f"{'backward ' if backward else ''}kernels (D in {dims}{one}); ROADMAP section C")
 
@@ -552,8 +557,7 @@ def temporal_attention_direct(q, k, v, t: int, scale: Optional[float] = None):
     the spatial token layout [(b t), s, H, D] (contiguous, D in {16, 64, 512},
     t <= 32, any s). bf16 at D = 64 runs on the tensor cores (mma.sync, q/k/v
     boxes by TMA); D = 512 on the wide kernel (lanes across the head dim);
-    the rest on CUDA cores. Differentiable: with grad on, the backward is K6
-    (D in {16, 64})."""
+    the rest on CUDA cores. Differentiable: with grad on, the backward is K6."""
     if q.device.type == "cuda":
         _check_head_dim("temporal attention site", "temporal", q.shape, q.shape[-1], backward=_needs_grad(q, k, v))
     if _needs_grad(q, k, v):
@@ -603,8 +607,10 @@ def temporal_attention_direct_backward(q, k, v, out, g, t: int, scale: Optional[
     """K6: (dq, dk, dv) of K2, read and written in the UNet-native
     [(b t), s, H, D] layout (no canonical transposes); one warp per
     (video, token, head) problem, bf16 on the tensor cores (mma.sync, the
-    five inputs in and the three gradients out by TMA), fp32 on CUDA cores.
-    The plain version on CPU."""
+    five inputs in and the three gradients out by TMA), fp32 on CUDA cores;
+    D = 512 (the VideoAttnBlock's time mix) on the wide kernel, lanes across
+    the head dim, in both dtypes (t up to 27 in fp32: its stage of k, v, g and
+    q a warp in shared memory). The plain version on CPU."""
     if q.device.type == "cpu":
         return temporal_attention_direct_backward_reference(q, k, v, out, g, t, scale)
     dtype = _check_temporal("temporal_attention_direct_backward", t, q, k, v, out, g)
@@ -621,12 +627,14 @@ def temporal_attention_direct_backward(q, k, v, out, g, t: int, scale: Optional[
     temporal_attention_direct_backward.launches += 1
     temporal_attention_direct_backward.dim_launches[d] += 1
     temporal_attention_direct_backward.mma_launches += route == "mma_sync"
+    temporal_attention_direct_backward.wide_launches += route == "wide"
     return dq, dk, dv
 
 
 temporal_attention_direct_backward.launches = 0
 temporal_attention_direct_backward.dim_launches = collections.Counter()
 temporal_attention_direct_backward.mma_launches = 0   # bf16 D = 64, on the tensor cores
+temporal_attention_direct_backward.wide_launches = 0   # D = 512, on the wide kernel
 
 
 # -- K3: bhld flash attention (forward, LSE under a gradient) ------------------

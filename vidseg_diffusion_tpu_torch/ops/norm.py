@@ -19,7 +19,8 @@ one of two routes, which `group_norm_route` picks from the shape:
   _apply_kernel);
 
 and the backward takes one of three routes, which
-`group_norm_backward_route` picks from the shape and the dtype:
+`group_norm_backward_route` picks from the shape and the dtype and, on the
+card, from what the card answers it can place (`slab_placement`):
 
 - "fused" / "cluster": `group_norm_backward_slab`, one launch, where one
   sample's slab of x and dy over whole groups fits in the shared memory of one
@@ -28,7 +29,9 @@ and the backward takes one of three routes, which
   down), save a cluster of 8 or 16 over a large batch (the UNet's ds1 at 28
   frames), which K9 + K10 run faster: x and dy read once, dx, dgamma and
   dbeta written (both TPU kernels and the coefficient math of
-  _gn_bwd_pallas);
+  _gn_bwd_pallas), and where the card holds at least one such block or
+  cluster (a MIG slice, or a part with fewer SMs a GPC, may place no cluster
+  of 8 or 16);
 - "stream" elsewhere: K9 `group_norm_backward_stats`, one read of x and dy ->
   the coefficients a2, b2, c2 [B, C] and dgamma, dbeta (its
   _gn_bwd_stats_kernel and the coefficient math), then K10
@@ -46,7 +49,9 @@ plain versions below run, forward and backward.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.profiler import record_function
@@ -230,7 +235,8 @@ def _slab_smem(rows: int, box_rows: int, w: int, itemsize: int, gc: int) -> int:
     return -(-(par + 8 * (w + 2 * gc)) // 8) * 8 + 8 * nbox + 128
 
 
-def group_norm_backward_route(b: int, r: int, c: int, groups: int, itemsize: int, aligned: bool):
+def group_norm_backward_route(b: int, r: int, c: int, groups: int, itemsize: int, aligned: bool,
+                              placed: Optional[Callable[[int, int], int]] = None):
     """The backward's route for x, dy [B, R, C]: ("fused", SlabPlan) where one
     sample's slab of x and dy over the fewest whole groups with rows of a
     multiple of 16 bytes (at most 256 channels, a TMA box's width, and at least
@@ -239,7 +245,12 @@ def group_norm_backward_route(b: int, r: int, c: int, groups: int, itemsize: int
     blocks of a cluster (the smallest power of two up to 16; 16 is a cluster
     size the H100 places only on request) unless n is 8 or more and the batch
     brings _BWD_STREAM_ITEMS (sample, slab) items or more, else ("stream", the
-    K9 plan: vec, rows per chunk, chunks)."""
+    K9 plan: vec, rows per chunk, chunks). `placed(n, smem)`, where given,
+    answers how many blocks (n = 1) or clusters of n blocks with smem bytes a
+    block the card holds at once (slab_placement on the card): a slab plan the
+    card cannot place at all takes the stream route, and is counted
+    (`.unplaced`). Without it the route is the shape's alone, as an H100 SXM
+    places every plan."""
     gc = _slab_groups(c, groups, itemsize) if aligned else None
     if gc is not None and gc * (c // groups) <= 256 and gc * (c // groups) * itemsize >= _BWD_SLAB_MIN_ROW:
         w = gc * (c // groups)
@@ -252,9 +263,37 @@ def group_norm_backward_route(b: int, r: int, c: int, groups: int, itemsize: int
             if nbox <= _BWD_MAX_BOXES and smem <= _BWD_SMEM_MAX:
                 if n >= 8 and b * (groups // gc) >= _BWD_STREAM_ITEMS:
                     break
+                if placed is not None and placed(n, smem) < 1:
+                    group_norm_backward_route.unplaced += 1
+                    break
                 return ("fused" if n == 1 else "cluster"), SlabPlan(n, gc, nbox * box, box, smem)
             n *= 2
     return "stream", _plan(b, r, c, itemsize, aligned, _BWD_STATS_TARGET_BLOCKS)
+
+
+group_norm_backward_route.unplaced = 0   # slab plans the card could not place, sent to the stream route
+
+
+_PLACED = {}   # (device index, dtype code, n, smem) -> the card's answer, asked once
+
+
+def slab_placement(device: torch.device, dtype: torch.dtype, n: int, smem: int) -> int:
+    """How many slab blocks (n = 1) or clusters of n slab blocks with smem
+    bytes of shared memory a block the card `device` holds at once, 0 when it
+    places none (csrc/group_norm_bwd.cu vs_group_norm_bwd_slab_placement: the
+    CUDA occupancy queries; no launch). Asked once per (device, dtype, n,
+    smem)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, _cuda.DTYPE_CODES[dtype], n, smem)
+    if key not in _PLACED:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            rc = _cuda.load_library().vs_group_norm_bwd_slab_placement(key[1], n, smem, ctypes.byref(out))
+        if rc != 0:
+            msg = _cuda.load_library().vs_error_string(rc).decode()
+            raise RuntimeError(f"vs_group_norm_bwd_slab_placement failed: {msg} (code {rc})")
+        _PLACED[key] = out.value
+    return _PLACED[key]
 
 
 def _flat(name, x, *same):
@@ -390,10 +429,11 @@ def group_norm_backward_slab(x, dy, weight, a, s, mean, inv, groups: int, silu: 
     _check_coef(name, x, a, s)
     _check_stats(name, x, groups, mean, inv)
     route, plan = group_norm_backward_route(b, r, c, groups, x.element_size(),
-                                            x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0)
+                                            x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0,
+                                            functools.partial(slab_placement, x.device, x.dtype))
     if route == "stream":
         raise ValueError(f"group_norm_backward_slab: no slab of whole groups of {tuple(x.shape)} fits in the "
-                         "shared memory of a cluster")
+                         "shared memory of a cluster the card places")
     dx = torch.empty_like(x)
     scratch = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)   # each item's dweight, dbias shares
     dparams = torch.empty((2, c), dtype=weight.dtype, device=x.device)
@@ -485,14 +525,14 @@ def _forward(x, weight, bias, groups, eps, silu):
 
 def _backward(x, dy, weight, a, s, mean, inv, groups, silu):
     """(dx, dweight, dbias) from the forward's statistics: on CUDA the slab
-    kernel or K9 + K10, as group_norm_backward_route says from x (a dy off a
-    16-byte boundary on a slab route is copied, and counted); the plain
-    coefficient form on CPU."""
+    kernel or K9 + K10, as group_norm_backward_route says from x and from what
+    the card can place (a dy off a 16-byte boundary on a slab route is copied,
+    and counted); the plain coefficient form on CPU."""
     if x.device.type == "cpu":
         return group_norm_backward_plain(x, dy, weight, a, s, mean, inv, groups, silu)
     b, c = x.shape[0], x.shape[-1]
     route, _ = group_norm_backward_route(b, x.numel() // max(1, b * c), c, groups, x.element_size(),
-                                         x.data_ptr() % 16 == 0)
+                                         x.data_ptr() % 16 == 0, functools.partial(slab_placement, x.device, x.dtype))
     if route != "stream":
         if dy.data_ptr() % 16:
             group_norm.copies += 1

@@ -1,13 +1,15 @@
 """Where the time goes in the port's full-width training steps on one CUDA card.
 
-    python3 -m vidseg_diffusion_tpu_torch.scripts.profile_train [--autoencoder]
+    python3 -m vidseg_diffusion_tpu_torch.scripts.profile_train [--autoencoder [--svd=MODE]]
 
 Builds the training setup of scripts/train_path.py (the one chip_smoke.py
 checks: svd.yaml UNet at full width, bf16, remat, batch 2 x 14 frames of
 56x104 latents, Adam, EMA), or with --autoencoder that of
 scripts/autoencoder_train_path.py (sd_2_1.yaml's first stage at full width,
 bf16, LPIPS and the PatchGAN discriminator, 2 frames of 448x832, Adam for
-both phases), takes a warm-up step, times STEPS steps (host clock after
+both phases; with --svd=MODE svd.yaml's own first stage, its VideoDecoder at
+time_mode MODE (conv-only, all or attn-only), on one clip of 7 frames of
+448x832), takes a warm-up step, times STEPS steps (host clock after
 torch.cuda.synchronize), then profiles one more step under torch.profiler.
 Prints the card's name and power limit, the step times, the peak device
 memory, the device time by group and by kernel name (top 30), the device
@@ -72,8 +74,10 @@ def main():
     if autoencoder:
         from vidseg_diffusion_tpu_torch.scripts import autoencoder_train_path as ae_path
 
-        trainer = ae_path.build()[0]
-        x, noise = ae_path.batch(), ae_path.noise_generator()
+        svd = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--svd=")), None)
+        trainer = ae_path.build(vae=ae_path.svd_vae_config(svd) if svd else None)[0]
+        x = ae_path.batch(frames=ae_path.SVD_FRAMES) if svd else ae_path.batch()
+        noise = ae_path.noise_generator()
         take_step = lambda: trainer.step(x, trainer.step_count, generator=noise)["g_loss"]
     else:
         trainer = train_path.build()

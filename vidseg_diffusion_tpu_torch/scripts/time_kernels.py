@@ -4,7 +4,7 @@ and its backward K6, the flash backwards K5 and K13, the normalise-first
 route of K1 and K3, and the GroupNorm backward at the main paths'
 shapes, beside the one PyTorch call for the same function, on one CUDA card.
 
-    python3 -m vidseg_diffusion_tpu_torch.scripts.time_kernels [--only k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb]
+    python3 -m vidseg_diffusion_tpu_torch.scripts.time_kernels [--only k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w]
 
 Each call is captured 20 times into a CUDA graph and the replay is timed with
 CUDA events, so the readings are device time without the host's launch cost
@@ -38,9 +38,17 @@ before (the rounded sum), each held to mha_reference. The GroupNorm backward
 (`gnb`) runs as GroupNormFn's backward calls it (the slab kernel or K9 + K10,
 by route) at the GroupNorm sites and the backward's cluster sites, beside the
 library backward (autograd.grad through F.group_norm (+ F.silu), profiled),
-with a bound of x and dy read and dx written; at a slab site K9 + K10 also,
+with a bound of x and dy read and dx written (the GroupNorm sites also of
+svd.yaml's first stage trained on a 7-frame clip: its VideoDecoder's mid and
+up levels); at a slab site K9 + K10 also,
 at a K9 + K10 site each launch also alone, and the slab kernel where a
-cluster would hold the slab but the route sends its many items to K9 + K10. Prints the card's name and power limit
+cluster would hold the slab but the route sends its many items to K9 + K10. The
+backwards at one 512-dim head, on the 7-frame training clip of svd.yaml's
+first stage: K5 there (`k5w`: K13's kernels on the packed strides, [7, 5824,
+1 x 512], a CUDA graph beside SDPA's backward, profiled) and K6's wide kernel
+(`k6w`: [t, 5824, 1, 512] at t = 7 and 14, bf16 and fp32, CUDA events and a
+graph beside SDPA's backward on the canonical view, whose backend is named).
+Prints the card's name and power limit
 and ptxas's register / spill lines for the wgmma, the mma.sync flash and the
 temporal-attention kernels.
 """
@@ -75,6 +83,10 @@ TCONV_SHAPES = [(2, 14, 5824, 320, 320, False), (2, 14, 1456, 640, 640, False), 
 K5_SHAPES = [(2, 5824, 5), (28, 5824, 5), (28, 1456, 10), (28, 364, 20), (28, 91, 20)]
 # (B, H, Lq, Lk, D): K13 at the autoencoder step's VAE mid attention and off the tiles
 K13_SHAPES = [(2, 1, 5824, 5824, 512), (1, 1, 130, 77, 512)]
+# (B, L): K5 at one 512-dim head, the VideoAttnBlock's attn2 on the 7-frame training clip
+K5_WIDE_SHAPES = [(7, 5824)]
+# (t, S): K6 at D = 512, the VideoAttnBlock's time mix on that clip and on a 14-latent decode
+K6_WIDE_SHAPES = [(7, 5824), (14, 5824)]
 # normalise-first sites: (layout, B, Lq, Lk, H, D)
 NF_SHAPES = [("blhd", 28, 5824, 77, 5, 64), ("blhd", 28, 1456, 77, 10, 64), ("bhld", 1, 257, 257, 16, 80)]
 # (S, H): the temporal self-attention sites per level (t = 14 frames, 2 videos)
@@ -92,7 +104,11 @@ GN_SITES = [((28, 56, 104, 320), "bf16", True, 1e-5), ((28, 56, 104, 320), "bf16
 # the backward's also at its cluster sites off chip_smoke's list: UNet ds2 concat, the
 # ds4 time_stack, the inversion's ds1 concat at 512 x 512, the autoencoder step at 112 x 208
 GN_BWD_SITES = GN_SITES + [((28, 28, 52, 1920), "bf16", True, 1e-5), ((2, 14, 14, 26, 1280), "bf16", True, 1e-5),
-                           ((2, 64, 64, 960), "bf16", True, 1e-5), ((2, 112, 208, 512), "bf16", True, 1e-6)]
+                           ((2, 64, 64, 960), "bf16", True, 1e-5), ((2, 112, 208, 512), "bf16", True, 1e-6),
+                           # svd.yaml's VideoDecoder on a 7-frame clip: the mid (and its time_stack), the
+                           # 112x208 and 224x416 levels
+                           ((7, 56, 104, 512), "bf16", True, 1e-6), ((1, 7, 56, 104, 512), "bf16", True, 1e-6),
+                           ((7, 112, 208, 512), "bf16", True, 1e-6), ((7, 224, 416, 256), "bf16", True, 1e-6)]
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
 
 
@@ -291,18 +307,19 @@ def time_flash_backward(torch, F, rn, only):
     from vidseg_diffusion_tpu_torch.ops import attention as A
 
     bf = torch.bfloat16
-    cases = [("k5", b, h, l, l, 64) for b, l, h in K5_SHAPES] + [("k13",) + s for s in K13_SHAPES]
+    cases = ([("k5", b, h, l, l, 64) for b, l, h in K5_SHAPES] + [("k13",) + s for s in K13_SHAPES]
+             + [("k5w", b, 1, l, l, 512) for b, l in K5_WIDE_SHAPES])
     for key, b, h, lq, lk, d in cases:
         if key not in only:
             continue
-        if key == "k5":
+        if key in ("k5", "k5w"):
             q, go = (rn(b, lq, h * d).to(bf) for _ in range(2))
             k, v = (rn(b, lk, h * d).to(bf) for _ in range(2))
             out, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True)
             fn, plain = A.flash_attention_packed_backward, A.flash_attention_packed_backward_reference
             args = (q, k, v, out, lse, go, h)
             view = lambda x: x.view(b, x.shape[1], h, d).transpose(1, 2)
-            executed = 14
+            executed = 14 if d == 64 else 18   # at one 512-dim head K13's kernels
         else:
             q, go = (rn(b, h, lq, d).to(bf) for _ in range(2))
             k, v = (rn(b, h, lk, d).to(bf) for _ in range(2))
@@ -330,6 +347,49 @@ def time_flash_backward(torch, F, rn, only):
               f"flops){check}; routes of one call {moved}", flush=True)
         del q, k, v, go, out, lse, args, leaves, y
         torch.cuda.empty_cache()
+
+
+def time_temporal_wide_backward(torch, F, rn):
+    """K6 at D = 512 (the wide kernel) at K6_WIDE_SHAPES in bf16 and fp32, CUDA
+    events and a graph, beside SDPA's backward on the canonical view
+    ([1, S, 1, t, 512], strided) with CUDA events, held to the plain version;
+    the SDPA backends that take the view named."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    for t, s in K6_WIDE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, g = (rn(t, s, 1, 512).to(dtype) for _ in range(4))
+            frames = lambda x: x.view(1, t, s, 1, 512).permute(0, 2, 3, 1, 4)
+            o = A.temporal_attention_direct(q, k, v, t=t)
+            got = A.temporal_attention_direct_backward(q, k, v, o, g, t=t)
+            ref = A.temporal_attention_direct_backward_reference(q, k, v, o, g, t=t)
+            unit = "bf16 steps" if dtype == torch.bfloat16 else "relative"
+            check = ", ".join(f"%.2e {unit}, rel. RMS %.2e" % errors(x, r) for x, r in zip(got, ref))
+            takes = []
+            for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                            SDPBackend.MATH):
+                try:
+                    with sdpa_kernel([backend]):
+                        F.scaled_dot_product_attention(*(frames(x) for x in (q, k, v)))
+                    takes.append(backend.name)
+                except RuntimeError:
+                    pass
+            leaves = [frames(x).detach().requires_grad_() for x in (q, k, v)]
+            y = F.scaled_dot_product_attention(*leaves)
+            lib_ms = events_ms(torch, lambda: torch.autograd.grad(y, leaves, frames(g), retain_graph=True))
+            before = routes(A.temporal_attention_direct_backward)
+            ms = events_ms(torch, lambda: A.temporal_attention_direct_backward(q, k, v, o, g, t=t))
+            dev_ms = graph_ms(torch, lambda: A.temporal_attention_direct_backward(q, k, v, o, g, t=t), 5)
+            moved = {key: val - before[key] for key, val in routes(A.temporal_attention_direct_backward).items()}
+            item = q.element_size()
+            nbytes, flops = 8 * item * q.numel(), 10 * t * t * 512 * s
+            print(f"K6 D=512 [{t},{s},1,512] t={t} {str(dtype)[6:]} (CUDA events): {ms:.4f} ms (SDPA backward "
+                  f"{lib_ms:.4f}, backends taking the view {takes}; bound {bound_ms(nbytes, flops):.4f}; device time "
+                  f"{dev_ms:.4f}), {check}; routes over the timed launches {moved}", flush=True)
+            del q, k, v, g, o, got, ref, leaves, y
+            torch.cuda.empty_cache()
 
 
 def time_normalised(torch, F, rn):
@@ -443,8 +503,8 @@ def main():
     from vidseg_diffusion_tpu_torch.ops import matmul as MM
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", default="k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb",
-                        help="comma-separated: k11, k1, k4, gn, k2, k6, k5, k13, nf, gnb")
+    parser.add_argument("--only", default="k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w",
+                        help="comma-separated: k11, k1, k4, gn, k2, k6, k5, k13, nf, gnb, k5w, k6w")
     only = set(parser.parse_args().only.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels needs a CUDA card")
@@ -469,8 +529,10 @@ def main():
         time_group_norm(torch, F, rn)
     if only & {"k2", "k6"}:
         time_temporal(torch, F, rn, only)
-    if only & {"k5", "k13"}:
+    if only & {"k5", "k13", "k5w"}:
         time_flash_backward(torch, F, rn, only)
+    if "k6w" in only:
+        time_temporal_wide_backward(torch, F, rn)
     if "nf" in only:
         time_normalised(torch, F, rn)
     if "gnb" in only:
