@@ -24,7 +24,8 @@ Phases, in order; any failure exits non-zero:
    CFG batch of 28 beside SDPA, K5's at the training batch of 28 beside SDPA's backward; the
    normalise-first kernels of K1 (SD 2.1's cross-attention at 5824 and 1456 queries, 77 keys) and
    K3 (CLIP, D = 80, over 8 draws pooled) also held to mha_reference (one bf16 step, at most 0.1 % of
-   the elements); the sampling API's shapes: SDXL base K1 [2,4096,10x64] and [2,1024,20x64], the
+   the elements), and each timed beside the kernel that streams the keys from device memory (which
+   the resident ones replaced there); the sampling API's shapes: SDXL base K1 [2,4096,10x64] and [2,1024,20x64], the
    normalise-first K1 at their 77 keys, K3 [1,1,16384,512]; the refiner's K1 at 12 and 24 heads (its
    256-token mid block on the fp32-sum kernel) and normalise-first K1; img2vid's K1 [28,9216,5x64], K2
    [28,9216,5,64], K4 [2,14,9216,320], K3 [1,1,9216,512]; NTI's K5 [2,4096,5x64] and [2,1024,10x64]
@@ -615,7 +616,9 @@ def kernel_cases(torch):
     """Cases at the main-path shapes (swan: 14 frames at 448x832, CFG batch
     28): dicts of kernel, label, make (inputs builder), kern, plain, iters,
     work (bytes, flops, peak) and library (inputs -> the one PyTorch call that
-    computes the same function, or None)."""
+    computes the same function, or None); the normalise-first cases also
+    reference (mha_reference) and previous (the kernel that streams the keys
+    from device memory, timed beside the resident one)."""
     import torch.nn.functional as F
 
     from vidseg_diffusion_tpu_torch.ops import attention as A
@@ -760,17 +763,22 @@ def kernel_cases(torch):
     # keys); each also held to mha_reference on the same inputs (`reference`)
     packed_mha = lambda q, k, v, h: A.mha_reference(
         *(x.view(x.shape[0], x.shape[1], h, 64) for x in (q, k, v)), layout="blhd").reshape(q.shape)
+    # the kernels that stream the keys from device memory, timed beside the resident ones (`previous`)
+    packed_streamed = lambda q, k, v, h: A._flash_attention_packed_forward(q, k, v, h, None, save_lse=False,
+                                                                           normalise_first=True, streamed=True)
     for label, l, h in (("SD cross ds1 [28,5824x77,5x64]", 5824, 5), ("SD cross ds2 [28,1456x77,10x64]", 1456, 10)):
         add(kernel="flash_attention_packed_normalised", label=label, make=packed(28, l, h, 77),
             kern=lambda q, k, v, h: A.flash_attention_packed(q, k, v, h, normalise_first=True),
             plain=lambda q, k, v, h: A.flash_attention_packed_reference(q, k, v, h, normalise_first=True),
-            reference=packed_mha, iters=3, work=attn_work(28, h, l, 77, 64),
+            reference=packed_mha, previous=packed_streamed, iters=3, work=attn_work(28, h, l, 77, 64),
             library=lambda q, k, v, h: (lambda a=[heads_view(x, h) for x in (q, k, v)]: sdpa(*a)))
     # (CLIP's is held to mha_reference over several draws: clip_normalised_pooled)
+    bhld_streamed = lambda q, k, v: A._flash_attention_forward(q, k, v, None, save_lse=False, normalise_first=True,
+                                                               streamed=True)
     add(kernel="flash_attention_normalised", label="CLIP ViT-H [1,16,257,80]", make=bhld(1, 16, 257, 80),
         kern=lambda q, k, v: A.flash_attention(q, k, v, normalise_first=True),
         plain=lambda q, k, v: A.flash_attention_reference(q, k, v, normalise_first=True),
-        iters=5, work=attn_work(1, 16, 257, 257, 80),
+        previous=bhld_streamed, iters=5, work=attn_work(1, 16, 257, 257, 80),
         library=lambda q, k, v: (lambda: sdpa(q, k, v)))
     # K2: temporal self-attention, t = 14 frames, two videos (uc, c)
     for label, s, h in temporal:
@@ -891,7 +899,8 @@ def kernel_cases(torch):
         add(kernel="flash_attention_packed_normalised", label=label, make=packed(2, l, h, 77),
             kern=lambda q, k, v, h: A.flash_attention_packed(q, k, v, h, normalise_first=True),
             plain=lambda q, k, v, h: A.flash_attention_packed_reference(q, k, v, h, normalise_first=True),
-            reference=packed_mha, iters=3, work=attn_work(2, h, l, 77, 64), library=sdpa_packed)
+            reference=packed_mha, previous=packed_streamed, iters=3, work=attn_work(2, h, l, 77, 64),
+            library=sdpa_packed)
     for label, shape in (("SDXL VAE mid [1,1,16384,512]", (1, 1, 16384, 512)),
                          ("img2vid VAE mid [1,1,9216,512]", (1, 1, 9216, 512))):
         add(kernel="flash_attention", label=label, make=bhld(*shape), kern=A.flash_attention,
@@ -912,10 +921,11 @@ def kernel_cases(torch):
             library=lambda q, k, v, o, lse, g, h: sdpa_backward([heads_view(x, h) for x in (q, k, v)],
                                                                 heads_view(g, h)))
     return (cases + head_dim_cases(torch, rn) + group_norm_cases(torch, rn) + gemm_cases(torch, rn) + late
-            + t5_demo_safety_cases(torch, rn, k1, packed, packed_mha, bhld, sdpa_packed))
+            + t5_demo_safety_cases(torch, rn, k1, packed, packed_mha, packed_streamed, bhld, bhld_streamed,
+                                   sdpa_packed))
 
 
-def t5_demo_safety_cases(torch, rn, k1, packed, packed_mha, bhld, sdpa_packed):
+def t5_demo_safety_cases(torch, rn, k1, packed, packed_mha, packed_streamed, bhld, bhld_streamed, sdpa_packed):
     """The shapes the T5, demo and safety paths give the kernels, drawn after every other case:
     SD 2.1's UNet and VAE at 512x512 under the T5-XXL context (api_t5) and the
     demo's OpenCLIP one (demo): K1 at the four levels' self-attention and at the
@@ -944,14 +954,16 @@ def t5_demo_safety_cases(torch, rn, k1, packed, packed_mha, bhld, sdpa_packed):
     add(kernel="flash_attention_packed_normalised", label="SD 512 cross ds2 [2,1024x77,10x64]",
         make=packed(2, 1024, 10, 77), kern=lambda q, k, v, h: A.flash_attention_packed(q, k, v, h, normalise_first=True),
         plain=lambda q, k, v, h: A.flash_attention_packed_reference(q, k, v, h, normalise_first=True),
-        reference=packed_mha, iters=3, work=attn_work(2, 10, 1024, 77, 64), library=sdpa_packed)
+        reference=packed_mha, previous=packed_streamed, iters=3, work=attn_work(2, 10, 1024, 77, 64),
+        library=sdpa_packed)
     add(kernel="flash_attention", label="SD 512 VAE mid [1,1,4096,512]", make=bhld(1, 1, 4096, 512),
         kern=A.flash_attention, plain=A.flash_attention_reference, iters=2, work=attn_work(1, 1, 4096, 4096, 512),
         library=lambda q, k, v: (lambda: sdpa(q, k, v)))
     add(kernel="flash_attention_normalised_d64", label=HEADLINE["flash_attention_normalised_d64"],
         make=bhld(2, 16, 257, 64), kern=lambda q, k, v: A.flash_attention(q, k, v, normalise_first=True),
         plain=lambda q, k, v: A.flash_attention_reference(q, k, v, normalise_first=True),
-        reference=lambda q, k, v: A.mha_reference(q, k, v), iters=5, work=attn_work(2, 16, 257, 257, 64),
+        reference=lambda q, k, v: A.mha_reference(q, k, v), previous=bhld_streamed, iters=5,
+        work=attn_work(2, 16, 257, 257, 64),
         library=lambda q, k, v: (lambda: sdpa(q, k, v)))
     projections = (("SD 512 ds1 to_q [8192,320->320]", 8192, 320, 320, False, bf),
                    ("T5 to_k ds1 [154,4096->320]", 154, 4096, 320, False, bf),
@@ -1400,8 +1412,10 @@ def phase_kernels(torch):
     for case in kernel_cases(torch):
         kname, label, kern, plain, iters = (case[k] for k in ("kernel", "label", "kern", "plain", "iters"))
         args = case["make"]()
+        resident = resident_launches()
         out = kern(*args)
         torch.cuda.synchronize()
+        resident = resident_launches() - resident
         ref = plain(*args)
         torch.cuda.synchronize()
         # a backward returns several gradients: each is held to the bounds
@@ -1426,6 +1440,10 @@ def phase_kernels(torch):
             del lib
         if "reference" in case:
             held_to_mha_reference(torch, KERNELS[kname]["id"], label, out, case["reference"](*args))
+        previous_ms = None
+        if "previous" in case:   # the normalise-first kernels: the streaming kernel beside the resident one
+            apart = (case["previous"](*args) != out).float().mean().item()
+            previous_ms = time_ms(lambda: case["previous"](*args), iters)
         if kname == "flash_attention_backward" and label == HEADLINE[kname]:
             print(f"[kernels] SDPA backends that take {label}: {sdpa_backends(torch, *args[:3])} "
                   "(the first is the library call's)", flush=True)
@@ -1449,6 +1467,11 @@ def phase_kernels(torch):
               f"{rel:.2e} relative, tol {FP32_TOL:.0e}) rel_rms_err={rms:.3e} (tol {rms_tol:.0e}) "
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {row['bound_ms']:.3f} ms by "
               f"{row['bound_by']}, library {lib_txt}", flush=True)
+        if previous_ms is not None:
+            print(f"[kernels] {KERNELS[kname]['id']} {label}: {'resident' if resident else 'streaming'} kernel "
+                  f"{ms:.3f} ms "
+                  f"beside SDPA {lib_txt}, bound {row['bound_ms']:.3f} ms, the kernel streaming the keys "
+                  f"{previous_ms:.3f} ms (outputs {apart:.2e} of the elements apart)", flush=True)
         if "after" in case:  # the last case of a GroupNorm site: its four library timings
             lib_times = {k: round(v, 3) for k, v in case["site"]["library"].items() if "_" in k}
             print(f"[kernels] F.group_norm(+silu) {label}: ms {json.dumps(lib_times)}", flush=True)
@@ -1460,6 +1483,14 @@ def phase_kernels(torch):
     clip_normalised_pooled(torch)
     k1_at_cfg_batch(torch)
     return rows, k5_at_train_batch(torch)
+
+
+def resident_launches():
+    """K1's and K3's launches of the kernels that hold a head's K and V in
+    shared memory, as the launches reported them."""
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    return A.flash_attention_packed.resident_launches + A.flash_attention.resident_launches
 
 
 def held_to_mha_reference(torch, kid, label, out, ref):
@@ -1488,27 +1519,36 @@ def clip_normalised_pooled(torch):
     step at max |ref| in each draw, at most MHA_DIFFERING of the elements
     differing over the draws pooled. One draw does not measure the share: over
     20 draws it averaged 5.66e-4, and one draw read 1.14e-3 (PERF.md section
-    7); that draw stays in the sample."""
+    7); that draw stays in the sample. The kernel that streams the keys (sum
+    mode 3, which the resident one replaced here) is read on the same draws
+    beside it (printed, not held)."""
     from vidseg_diffusion_tpu_torch.ops import attention as A
 
-    differ, total, shares = 0, 0, []
+    pooled = {"resident": [0, 0], "streaming": [0, 0]}
+    shares = []
     for i in range(CLIP_NF_DRAWS):
         g = torch.Generator(device="cuda").manual_seed(i)
         if i == 0:
             g.set_offset(CLIP_NF_FAILED_OFFSET)
         q, k, v = (torch.randn(1, 16, 257, 80, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
-        out, ref = A.flash_attention(q, k, v, normalise_first=True).float(), A.mha_reference(q, k, v).float()
-        diff = (out - ref).abs()
+        ref = A.mha_reference(q, k, v).float()
         step = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
-        check(diff.max().item() <= step, f"K3 normalise-first CLIP draw {i}: {diff.max().item() / step:.2f} bf16 "
-                                         "steps from mha_reference")
-        n = int((diff > 0).sum())
-        differ, total = differ + n, total + diff.numel()
-        shares.append(n / diff.numel())
+        for name, streamed in (("resident", False), ("streaming", True)):
+            out = A._flash_attention_forward(q, k, v, None, save_lse=False, normalise_first=True, streamed=streamed)
+            diff = (out.float() - ref).abs()
+            check(diff.max().item() <= step, f"K3 normalise-first ({name}) CLIP draw {i}: "
+                                             f"{diff.max().item() / step:.2f} bf16 steps from mha_reference")
+            n = int((diff > 0).sum())
+            pooled[name][0] += n
+            pooled[name][1] += diff.numel()
+            if not streamed:
+                shares.append(n / diff.numel())
+    share = {name: n / total for name, (n, total) in pooled.items()}
     print(f"[kernels] K3 normalise-first CLIP ViT-H [1,16,257,80] vs mha_reference over {CLIP_NF_DRAWS} draws: "
-          f"{differ / total:.2e} of the elements differ (tol {MHA_DIFFERING:.0e}); each draw "
+          f"{share['resident']:.2e} of the elements differ (tol {MHA_DIFFERING:.0e}), the kernel streaming the "
+          f"keys {share['streaming']:.2e} on the same draws; each draw "
           f"{json.dumps([float(f'{x:.3e}') for x in shares])}, each within one bf16 step", flush=True)
-    check(differ / total <= MHA_DIFFERING, "K3 normalise-first CLIP departs from mha_reference")
+    check(share["resident"] <= MHA_DIFFERING, "K3 normalise-first CLIP departs from mha_reference")
 
 
 def k5_at_train_batch(torch):
@@ -1705,7 +1745,7 @@ def kernel_fns():
 ROUTED = ("flash_attention_packed", "flash_attention", "temporal_conv_1x1", "matmul_bias",
           "temporal_attention_direct", "temporal_attention_direct_backward", "flash_attention_packed_backward",
           "flash_attention_backward")
-ROUTE_NAMES = ("wgmma", "narrow", "mma", "normalised", "wide", "cluster")
+ROUTE_NAMES = ("wgmma", "narrow", "mma", "normalised", "resident", "wide", "cluster")
 GN_ROUTES = {"fused": 0, "stream": 0}   # GroupNorm32 calls per route since reset_counts()
 # the backward's route (ops.norm.group_norm_backward_route) of each GroupNorm32 module that
 # ran under a gradient since reset_counts(), by id (a remat step runs a module's forward
@@ -1841,6 +1881,10 @@ def read_dims():
 
 
 K3_NORMALISED_WGMMA_DIMS = (64,)   # K3's normalise-first mode on K1's wgmma kernel; at D = 80 and 16 on mma.sync
+# the head dim at which each wrapper's normalise-first launches of the paths take the kernels that hold a
+# head's K and V in shared memory (`.resident_launches`): K1's D = 64 sites have 77 keys (one S product),
+# K3's D = 80 site CLIP ViT-H's 257; K3's D = 64 site (ViT-L/14, 257 keys) and D = 16 stream the keys
+RESIDENT_NF_DIM = {"flash_attention_packed": 64, "flash_attention": 80}
 
 
 def check_routes(tag, launches, narrow=0, normalised=None, wide=0):
@@ -1852,7 +1896,9 @@ def check_routes(tag, launches, narrow=0, normalised=None, wide=0):
     and K6 launch but `wide` of each (D = 512, the wide kernels) the
     tensor-core kernel (none the fp32 CUDA-core one); K1 and
     K3 ran the normalise-first mode `normalised[name]` times ({kernel:
-    launches}); keeps and returns the route counts."""
+    launches}), and each of those at RESIDENT_NF_DIM, none other, on the
+    kernel that holds a head's K and V in shared memory, as the launch
+    reported it; keeps and returns the route counts."""
     routes = read_routes()
     normalised = normalised or {}
     DIM_COUNTS[tag] = read_dims()
@@ -1864,6 +1910,8 @@ def check_routes(tag, launches, narrow=0, normalised=None, wide=0):
     nf3_wgmma = sum(n for d, n in DIM_COUNTS[tag]["flash_attention.normalised"].items()
                     if d in K3_NORMALISED_WGMMA_DIMS)
     want["flash_attention"] = {"wgmma": launches["flash_attention"] - nf3 + nf3_wgmma, "normalised": nf3}
+    for name, d in RESIDENT_NF_DIM.items():
+        want[name]["resident"] = DIM_COUNTS[tag][f"{name}.normalised"].get(d, 0)
     want["temporal_conv_1x1"] = {"wgmma": launches["temporal_conv_1x1"] - narrow, "narrow": narrow}
     for name in ("temporal_attention_direct", "temporal_attention_direct_backward"):
         want[name] = {"mma": launches[name] - wide, "wide": wide}

@@ -406,6 +406,143 @@ def test_normalise_first_route_holds_to_mha_reference(cuda, layout, shape):
     assert all(x.grad is not None and bool(torch.isfinite(x.grad).all()) for x in leaves)
 
 
+# the resident normalise-first kernels (D = 64 up to 128 keys, D = 80 up to 512): (layout, B, Lq, Lk, H, D)
+NF_RESIDENT_CASES = [
+    ("blhd", 28, 5824, 77, 5, 64),    # SD 2.1 cross ds1 (the CFG batch)
+    ("blhd", 28, 1456, 77, 10, 64),   # SD 2.1 cross ds2
+    ("blhd", 2, 4096, 77, 10, 64),    # SDXL cross at 1024x1024
+    ("blhd", 2, 1024, 77, 20, 64),
+    ("blhd", 28, 5823, 77, 5, 64),    # a ragged query tail
+    ("blhd", 2, 640, 128, 2, 64),     # one 128-key product
+    ("blhd", 1, 100, 77, 1, 64),      # 2 work items: a persistent grid of 2 blocks
+    ("bhld", 1, 257, 257, 16, 80),    # CLIP ViT-H
+    ("bhld", 1, 257, 300, 2, 80),     # Lq != Lk, more keys than CLIP's
+    ("bhld", 1, 250, 511, 2, 80),     # a ragged query tile, the most keys but one
+]
+# the kernels that stream the keys from device memory, past the resident kernels' keys
+NF_STREAMED_CASES = [
+    ("blhd", 2, 640, 129, 2, 64),     # one key over a 128-key product
+    ("blhd", 2, 640, 257, 2, 64),
+    ("blhd", 2, 640, 511, 2, 64),
+    ("bhld", 2, 257, 257, 16, 64),    # CLIP ViT-L/14 (the safety filter) through K3's strides
+    ("blhd", 2, 77, 700, 2, 64),      # Lq < 512 <= Lk: site_route's mha_reference, on no path
+    ("bhld", 1, 100, 600, 2, 80),
+]
+
+
+def _nf_inputs(cuda, layout, b, lq, lk, h, d, seed=170):
+    if layout == "blhd":
+        q = _randn(cuda, seed, torch.bfloat16, b, lq, h * d, scale=1.5)
+        k, v = (_randn(cuda, seed + 1 + i, torch.bfloat16, b, lk, h * d, scale=1.5) for i in range(2))
+        return q, k, v
+    q = _randn(cuda, seed, torch.bfloat16, b, h, lq, d, scale=1.5)
+    k, v = (_randn(cuda, seed + 1 + i, torch.bfloat16, b, h, lk, d, scale=1.5) for i in range(2))
+    return q, k, v
+
+
+def _nf_call(layout, q, k, v, h, streamed=False):
+    """The normalise-first mode of K1 (blhd, packed) or K3 (bhld), and its
+    plain version and mha_reference on the same inputs."""
+    if layout == "blhd":
+        b, lq, hd = q.shape
+        heads = lambda x: x.view(x.shape[0], x.shape[1], h, hd // h)
+        out = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=False, normalise_first=True,
+                                                streamed=streamed)
+        plain = A.flash_attention_packed_reference(q, k, v, h, normalise_first=True)
+        return out, plain, A.mha_reference(heads(q), heads(k), heads(v), layout="blhd").reshape(q.shape)
+    out = A._flash_attention_forward(q, k, v, None, save_lse=False, normalise_first=True, streamed=streamed)
+    return out, A.flash_attention_reference(q, k, v, normalise_first=True), A.mha_reference(q, k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,b,lq,lk,h,d", NF_RESIDENT_CASES)
+def test_normalised_resident_kernels(cuda, layout, b, lq, lk, h, d):
+    """The resident normalise-first kernels (D = 64 on wgmma, its persistent
+    grid; D = 80 on mma.sync) at the paths' shapes and their edges: one launch
+    on the wrapper's route (`.wgmma_launches` at D = 64, none at 80) in the
+    normalise-first mode, reported by the library as the resident kernel
+    (`.resident_launches`), its output within one bf16 step of the plain
+    version and of mha_reference at max |ref| with at most 0.1 % of the
+    elements differing, and so is the kernel that streams the keys (sum mode
+    3, reported as not resident), its yardstick."""
+    fn = A.flash_attention_packed if layout == "blhd" else A.flash_attention
+    counts = lambda: (fn.launches, fn.normalised_launches, fn.wgmma_launches, fn.resident_launches)
+    q, k, v = _nf_inputs(cuda, layout, b, lq, lk, h, d)
+    before = counts()
+    out, plain, ref = _nf_call(layout, q, k, v, h)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + (d == 64), before[3] + 1)
+    _held_to_mha_reference(out, plain)
+    _held_to_mha_reference(out, ref)
+    before = counts()
+    streamed = _nf_call(layout, q, k, v, h, streamed=True)[0]
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + (d == 64), before[3])
+    _held_to_mha_reference(streamed, ref)
+
+
+NF_DRAWS = 4   # draws pooled for the share of the elements that differ from mha_reference
+# site_route sends sites with lengths on both sides of 512 to the normalise-first mode; every site of the
+# paths has Lq >= 512 > Lk (or is bhld shorter than 512), where the share is held; Lq < 512 <= Lk is on no path
+SHARE_HELD_BELOW = 512
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,b,lq,lk,h,d", NF_STREAMED_CASES)
+def test_normalised_streams_the_keys_past_the_resident_length(cuda, layout, b, lq, lk, h, d):
+    """Past the resident kernels' keys the normalise-first mode streams the keys
+    twice from device memory (one launch on the wrapper's route, not reported
+    resident), held to the plain version within chip_smoke.py's forward
+    bounds and to mha_reference within one bf16 step at max |ref| in each of
+    NF_DRAWS draws and, below SHARE_HELD_BELOW keys, at most 0.1 % of the
+    elements differing over the draws pooled (one draw does not measure the
+    share, as chip_smoke.py's CLIP check pools its draws). The plain
+    version's share on the same draws is printed beside the kernel's (`-s`).
+    At 700 keys, on no path, the kernel's pooled share read 1.05e-3 and the
+    plain version's 2.4e-4 (PERF.md section 7)."""
+    fn = A.flash_attention_packed if layout == "blhd" else A.flash_attention
+    counts = lambda: (fn.launches, fn.normalised_launches, fn.wgmma_launches, fn.resident_launches)
+    differ = {"kernel": [], "plain": []}
+    for i in range(NF_DRAWS):
+        q, k, v = _nf_inputs(cuda, layout, b, lq, lk, h, d, seed=180 + 10 * i)
+        before = counts()
+        out, plain, ref = _nf_call(layout, q, k, v, h)
+        torch.cuda.synchronize()
+        assert counts() == (before[0] + 1, before[1] + 1, before[2] + (d == 64), before[3])
+        _close_grads((out,), (plain,), RMS_TOL["K1"])
+        step = 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
+        for name, x in (("kernel", out), ("plain", plain)):
+            diff = (x.float() - ref.float()).abs()
+            differ[name].append((diff > 0).float().mean().item())
+            if name == "kernel":
+                assert diff.max().item() <= step, (i, diff.max().item(), step)
+    pooled = {name: sum(xs) / NF_DRAWS for name, xs in differ.items()}
+    print(f"normalise-first {layout} [{b},{lq}x{lk},{h}x{d}] vs mha_reference over {NF_DRAWS} draws: kernel "
+          f"{pooled['kernel']:.3e} {[f'{x:.2e}' for x in differ['kernel']]}, plain version {pooled['plain']:.3e} "
+          f"{[f'{x:.2e}' for x in differ['plain']]}")
+    if lk < SHARE_HELD_BELOW:
+        assert pooled["kernel"] <= 1e-3, pooled
+
+
+@pytest.mark.gpu
+def test_normalised_kernels_launch_from_a_thread_that_has_launched_nothing(cuda):
+    """The resident kernels encode their tensor maps on the launching thread
+    (D = 64: q, k, v and the TMA store's o; D = 80: two panels each of q, k and
+    v): from a fresh thread each launches and agrees with the main thread's
+    launch bit for bit."""
+    import threading
+
+    for layout, b, lq, lk, h, d in (("blhd", 2, 640, 77, 2, 64), ("bhld", 1, 257, 257, 16, 80)):
+        q, k, v = _nf_inputs(cuda, layout, b, lq, lk, h, d, seed=190)
+        want = _nf_call(layout, q, k, v, h)[0]
+        got = []
+        worker = threading.Thread(target=lambda: got.append(_nf_call(layout, q, k, v, h)[0]))
+        worker.start()
+        worker.join()
+        torch.cuda.synchronize()
+        assert len(got) == 1 and torch.equal(got[0], want)
+
+
 @pytest.mark.gpu
 def test_unsupported_head_dims_on_the_card(cuda):
     """ROADMAP section C (a): a bf16 bhld D = 512 attention under 512 tokens (a

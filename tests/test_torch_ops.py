@@ -386,6 +386,30 @@ def test_new_head_dims_sum_the_denominator_of_their_jax_kernel(site):
     ("blhd", (2, 640, 77, 2, 64)),    # the SD 2.1 cross-attention's 77 keys: one key tile
     ("blhd", (2, 640, 300, 2, 64)),   # keys over several tiles: the two-pass walk
     ("bhld", (1, 2, 257, 257, 80)),   # CLIP ViT-H's 257 tokens at D = 80
+    ("blhd", (2, 639, 77, 2, 64)),    # a ragged query tail (the last 64-row tile has 63 rows)
+    ("blhd", (1, 600, 80, 2, 64)),    # 80 keys: the most one 80-key product holds
+    ("blhd", (1, 600, 81, 2, 64)),    # 81: one 128-key product
+    ("blhd", (1, 600, 129, 2, 64)),   # 129: past one product, keys streamed in 128-key tiles (m, l first)
+    ("blhd", (1, 520, 511, 1, 64)),   # 511 keys streamed
+    ("bhld", (2, 2, 257, 257, 64)),   # CLIP ViT-L/14 (the safety filter) at D = 64
+    ("bhld", (1, 2, 250, 300, 80)),   # D = 80, a ragged 32-row tile, Lk > 256 off the 32-key steps
+    # the resident kernels' edges: D = 64 holds up to 128 keys in one S product of 80 or 128 keys over a
+    # persistent walk of 64-row query tiles; D = 80 up to 512 keys in 32-key steps over 32-row tiles
+    ("blhd", (1, 512, 2, 8, 64)),     # two keys, the fewest the route takes (one key is site_route's one_key)
+    ("blhd", (1, 513, 64, 4, 64)),    # a one-row last tile
+    ("blhd", (2, 575, 79, 2, 64)),    # 79 keys, a 63-row last tile
+    ("blhd", (1, 520, 127, 3, 64)),   # one key under a 128-key product
+    ("blhd", (1, 512, 128, 4, 64)),   # a full 128-key product
+    ("blhd", (2, 1000, 100, 3, 64)),  # three heads a row: the walk crosses (batch, head) inside a block
+    ("bhld", (1, 4, 100, 77, 64)),    # K3 at D = 64, 77 keys: the resident kernel through K3's strides
+    ("bhld", (1, 4, 200, 128, 64)),
+    ("bhld", (1, 8, 33, 2, 80)),      # D = 80, two keys
+    ("bhld", (1, 8, 31, 32, 80)),     # one full 32-key step, a ragged 32-row tile
+    ("bhld", (1, 8, 64, 33, 80)),     # a step and one key
+    ("bhld", (1, 3, 300, 256, 80)),   # eight full steps
+    ("bhld", (2, 1, 97, 200, 80)),    # two batch items, a ragged tile
+    ("bhld", (1, 2, 40, 511, 80)),    # sixteen steps, the last one key short
+    ("bhld", (1, 2, 100, 480, 80)),   # fifteen steps
 ])
 def test_normalise_first_route_matches_mha_reference(layout, shape):
     """Where JAX's TPU dispatch sends a site to mha_reference (lengths on both

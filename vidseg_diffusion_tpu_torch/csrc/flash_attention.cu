@@ -21,8 +21,10 @@
 // _flash_kernel for K3 without a gradient). Rounding to fp32 is the identity,
 // so the fp32 kernel has no flag.
 //
-// Normalise first (sum mode 2 of the entries; the MODE template argument 2 of
-// flash_fwd_mma_kernel and flash_fwd_wgmma64_nf_kernel): the sites that the JAX
+// Normalise first (sum mode 2 of the entries: flash_fwd_nf64_resident_kernel
+// and flash_fwd_nf80_resident_kernel where K and V fit in shared memory, else
+// the MODE template argument 2 of flash_fwd_mma_kernel and
+// flash_fwd_wgmma64_nf_kernel, which stream the keys): the sites that the JAX
 // package's TPU dispatch sends to no Pallas kernel but to mha_reference
 // (attention.py:75-100, :1623-1644: lengths on both sides of 512, bhld shorter
 // than 512) compute S from the unscaled bf16 q with fp32 accumulation, multiply
@@ -30,7 +32,7 @@
 // and l = sum exp2(s - m) in fp32, round p = exp2(s - m) / l to bf16, and sum
 // P.V in fp32 with no division after it. m and l come before any p is rounded:
 // from the one key tile where it holds every key, else from a first walk over
-// the key tiles that reads K alone.
+// the keys (the resident ones, or K alone read from device memory).
 //
 // What bounds it on the H100: at the main-path shapes (ds1 [28, 5824, 5*64],
 // VAE [n, 1, 5824, 512]) the work is ~4*L^2*D flops per (batch, head) with
@@ -1099,7 +1101,8 @@ inline int flash64_maps(const void* q, const void* k, const void* v, int B, int 
   return 0;
 }
 
-inline bool flash64_rows_ok(const void* q, const void* k, const void* v, const void* o, const long long* st) {
+// q, k, v and o rows move as 16-byte vectors or TMA boxes (aligned bases, strides in whole vectors)
+inline bool flash_vec_rows_ok(const void* q, const void* k, const void* v, const void* o, const long long* st) {
   return flash_bf16_rows_ok(q, k, v, o, st) && reinterpret_cast<uintptr_t>(o) % 16 == 0 && st[9] % 8 == 0 &&
          st[10] % 8 == 0 && st[11] % 8 == 0;
 }
@@ -1108,7 +1111,7 @@ inline bool flash64_rows_ok(const void* q, const void* k, const void* v, const v
 template <class C, bool SUM_ROUNDED>
 int launch_flash_wgmma64_cfg(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                              int Lq, int Lk, const long long* st, float qscale, cudaStream_t stream) {
-  if (!flash64_rows_ok(q, k, v, o, st)) return kErrBadArgument;
+  if (!flash_vec_rows_ok(q, k, v, o, st)) return kErrBadArgument;
   // more than 48 KB of shared memory is opted into once per process
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_wgmma64_kernel<C, SUM_ROUNDED>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
@@ -1123,12 +1126,15 @@ int launch_flash_wgmma64_cfg(const void* q, const void* k, const void* v, void* 
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 64 in the normalise-first mode (the SD 2.1 cross-attention's 77
-// keys at 5824 and 1456 queries, K3 at D = 64 shorter than 512): one consumer
-// warpgroup of 64 query rows and a producer warp, 128-key tiles, so the 77 keys
-// are one tile and m and l come from it before any p is rounded. With more keys
-// than a tile the producer walks the key tiles twice: K alone first (the row
-// max and the fp32 sum, rescaled online), then K and V. Per tile S = Q K^T
+// bf16 at D = 64 in the normalise-first mode with the keys streamed from device
+// memory: what runs where one product of the resident kernel below does not
+// hold every key (Lk > 128: ViT-L/14's 257 tokens; Lq < 512 <= Lk, which
+// site_route allows and no path has), and, as sum mode 3, the yardstick the
+// resident kernel is timed against (it was the only normalise-first kernel at
+// D = 64 before the resident one). One consumer warpgroup of 64 query rows and
+// a producer warp, 128-key tiles. With more keys than a tile the producer walks
+// the key tiles twice: K alone first (the row max and the fp32 sum, rescaled
+// online), then K and V. Per tile S = Q K^T
 // from the unscaled q (4 x m64n128k16), times qscale in fp32, p = exp2(s - m)
 // times 1 / l in fp32 rounded to bf16 into the A fragments (the product with
 // the correctly rounded reciprocal is within one fp32 ulp of the quotient; a
@@ -1302,7 +1308,7 @@ __global__ void __launch_bounds__(F64Nf::THREADS, F64Nf::MINB) flash_fwd_wgmma64
 int launch_flash_wgmma64_nf(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk,
                             const long long* st, float qscale, cudaStream_t stream) {
   using C = F64Nf;
-  if (!flash64_rows_ok(q, k, v, o, st)) return kErrBadArgument;
+  if (!flash_vec_rows_ok(q, k, v, o, st)) return kErrBadArgument;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_wgmma64_nf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
   if (attr != cudaSuccess) return (int)attr;
@@ -1311,6 +1317,518 @@ int launch_flash_wgmma64_nf(const void* q, const void* k, const void* v, void* o
   dim3 grid((Lq + 63) / 64, B * H);
   flash_fwd_wgmma64_nf_kernel<<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), H, Lq, Lk, st[9], st[10], st[11], qscale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The normalise-first kernels with K and V resident in shared memory: bf16 at
+// D = 64 where one S product holds every key (Lk <= NF64_RESIDENT_KEYS: K1 at
+// the SD 2.1 / SDXL cross-attention's 77 keys) and at D = 80 where the keys fit
+// (Lk <= NF80_RESIDENT_KEYS: K3 at CLIP ViT-H's 257 tokens). Same arithmetic as
+// the streaming kernels (mode 2 above); what they change:
+// - the 77-key sites are bound by bytes (ds1 [28, 5824 x 77, 5 x 64]: 1.6 GFLOP
+//   against 211 MB of Q read and O written). The streaming D = 64 kernel ran
+//   one serial chain a 64-row block (its barriers, Q by TMA, the (b, h)'s whole
+//   K / V tile fetched again by each of its 91 blocks, S, softmax, P V, then
+//   16-byte stores), and nothing in a block overlapped its loads and stores
+//   with its math. The resident D = 64 kernel is persistent: one block an SM
+//   walks a contiguous run of (b, h, 64-row tile) work items, (b, h) major,
+//   so K / V of a (b, h) are loaded once a block (into two buffers: the next
+//   (b, h) loads while this one runs) and cut to the live keys (80 for 77: one
+//   m64n80k16 a k-step of S, five m64n64k16 of P V); a producer warp keeps a
+//   ring of Q tiles full by TMA; consumer warpgroups take the tiles in turn, so
+//   one's softmax runs beside another's products and loads; O goes through a
+//   staging tile (two a warpgroup) to a TMA store, which overlaps the next
+//   tiles. With more keys than one product the streaming kernel stays: at
+//   ViT-L/14's 257 (five query tiles a head) a resident first walk read slower
+//   than it (PERF.md section 6).
+// - the streaming D = 80 kernel read K twice and V once a 64-row block in
+//   64-key tiles by plain loads between block barriers, on 80 blocks for 132
+//   SMs, each warp's walks one long serial chain. The resident one takes
+//   32-row tiles (9 x 16 = 144 blocks at CLIP, two an SM in 108 KB each); one
+//   thread asks TMA for the tile's q and the head's K and V, each row as a
+//   128-byte panel (d 0..63, 128-byte swizzle) and a 32-byte one (d 64..79,
+//   32-byte swizzle), so every ldmatrix is conflict-free, one mbarrier a 32-key
+//   step of K and of V, so the walks start on the first step to land. Four
+//   warps on mma.sync: two row halves of the tile times two halves of the key
+//   steps; the halves' m and l meet in shared memory before the second walk,
+//   their P V sums after it (added in a fixed order); O stored 16 bytes a lane.
+constexpr int NF64_RESIDENT_KEYS = 128, NF80_RESIDENT_KEYS = 512;
+// the route codes the entries report for these kernels (ops/_cuda.py::ROUTES)
+constexpr int kRouteWgmmaResident = 5, kRouteMmaResident = 6;
+constexpr int kMaxSmem = 232448;  // shared memory a block can have on the H100
+
+template <int NC_>
+struct NfRes64 {
+  static constexpr int NC = NC_;                  // the keys of the S product
+  static constexpr int NWG = NC == 80 ? 3 : 2;    // consumer warpgroups (a register cap of 152 / 224)
+  static constexpr int THREADS = 128 * NWG + 32;  // then the producer warp
+  static constexpr int STAGES = 3 * NWG;          // Q tiles in the ring; a multiple of NWG, so a stage's
+                                                  // tiles are one warpgroup's and its parity is never stale
+  static constexpr int TILE = 64 * 128;           // a 64-row Q or O tile of 128-byte rows
+  static constexpr int OBUFS = 2;                 // O staging tiles a warpgroup
+  static constexpr int KV_BYTES = NC * 128;       // K or V of a (b, h)
+  static constexpr int RING = STAGES * TILE, OUT = NWG * OBUFS * TILE, KV = RING + OUT;  // two K / V buffers
+  static constexpr int BARS = KV + 4 * KV_BYTES;  // full, empty [STAGES]; kv_full, kv_empty [2]
+  static constexpr int SMEM = 1024 + BARS + 8 * (2 * STAGES + 4);
+  static_assert(STAGES % NWG == 0 && KV_BYTES % 1024 == 0 && SMEM <= kMaxSmem, "layout");
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1) flash_fwd_nf64_resident_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap, int H, int Lk, int qtiles,
+    long long items, float qscale) {
+  constexpr int NC = C::NC, NWG = C::NWG, STAGES = C::STAGES, TILE = C::TILE, OBUFS = C::OBUFS;
+  constexpr int NS = NC / 2, KSTEPS = NC / 16, KV_BYTES = C::KV_BYTES;
+  constexpr float NEG_INF = -INFINITY;
+  extern __shared__ unsigned char flash_smem[];
+  const uint32_t ring = smem_u32(smem_align_1024(flash_smem));
+  const uint32_t obase = ring + C::RING, kvbase = ring + C::KV;  // buffer i: K at kvbase + 2 i KV_BYTES, then V
+  const uint32_t full_bar = ring + C::BARS, empty_bar = full_bar + 8 * STAGES;
+  const uint32_t kv_full = empty_bar + 8 * STAGES, kv_empty = kv_full + 16;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  // this block's run of work items: (b, h) major, then the 64-row query tiles
+  const long long first = items * blockIdx.x / gridDim.x, last = items * (blockIdx.x + 1) / gridDim.x;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, 1);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(kv_full + 8 * i, 1);
+      mbar_init(kv_empty + 8 * i, NWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // the producer warp: its first thread loads each (b, h)'s K and V once, into
+    // the buffer its last user but one has handed back, and keeps the Q ring full
+    if (tid == 128 * NWG) {
+      int gen = -1, cur = -1;
+      for (long long it = first; it < last; ++it) {
+        const int bh = (int)(it / qtiles), tile = (int)(it - (long long)bh * qtiles), b = bh / H, h = bh - b * H;
+        if (bh != cur) {
+          cur = bh;
+          ++gen;
+          const int buf = gen & 1;
+          if (gen >= 2) mbar_wait(kv_empty + 8 * buf, (gen / 2 - 1) & 1);
+          const uint32_t sk = kvbase + buf * 2 * KV_BYTES, bar = kv_full + 8 * buf;
+          mbar_expect_tx(bar, 2 * KV_BYTES);
+          tma_load_4d(sk, &kmap, bar, 0, 0, h, b);
+          tma_load_4d(sk + KV_BYTES, &vmap, bar, 0, 0, h, b);
+        }
+        const int i = (int)(it - first), stage = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty_bar + 8 * stage, (i / STAGES - 1) & 1);
+        mbar_expect_tx(full_bar + 8 * stage, TILE);
+        tma_load_4d(ring + stage * TILE, &qmap, full_bar + 8 * stage, 0, tile * 64, h, b);
+      }
+    }
+    return;
+  }
+
+  const int t = tid & 127, warp = t >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int wsync = 1 + wg;          // this warpgroup's named barrier
+  const int r_lo = warp * 16 + gid;  // this lane's rows of a tile: r_lo, r_lo + 8
+  float s[NS], acc[32];
+  int gen = -1, cur = -1, done = 0;
+  for (long long it = first; it < last; ++it) {
+    const int bh = (int)(it / qtiles);
+    if (bh != cur) {
+      // every warpgroup passes every (b, h) of the run: done with the last one's
+      // K / V, it waits for this one's, so an arrival for a buffer never runs
+      // ahead of the phase it belongs to
+      if (gen >= 0 && t == 0) mbar_arrive(kv_empty + 8 * (gen & 1));
+      cur = bh;
+      ++gen;
+      mbar_wait(kv_full + 8 * (gen & 1), (gen / 2) & 1);
+    }
+    const int i = (int)(it - first);
+    if (i % NWG != wg) continue;  // the warpgroups take the run's tiles in turn
+    const int tile = (int)(it - (long long)bh * qtiles), b = bh / H, h = bh - b * H, stage = i % STAGES;
+    const uint32_t sq = ring + stage * TILE, sk = kvbase + (gen & 1) * 2 * KV_BYTES, sv = sk + KV_BYTES;
+    mbar_wait(full_bar + 8 * stage, (i / STAGES) & 1);
+
+    // S = Q K^T from the unscaled q (s[e]: row r_lo + 8 ((e >> 1) & 1), key
+    // 8 (e >> 2) + 2 tig + (e & 1)), then the Q tile goes back to the ring
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = wgmma_desc(sq + kk * 32, 16, 1024), db = wgmma_desc(sk + kk * 32, 16, 1024);
+      if constexpr (NC == 80)
+        wgmma_m64n80k16_ss(s, da, db, kk);
+      else
+        wgmma_m64n128k16_ss(s, da, db, kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(s);
+    if (t == 0) mbar_arrive(empty_bar + 8 * stage);
+    // times qscale in fp32, keys past Lk at -inf; the rows' max m and fp32 sum
+    // l of exp2(s - m), all before any p is rounded
+    const int live = Lk - tig * 2;  // this lane's columns below it hold keys
+    float mx[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < NS; ++e) {
+      s[e] *= qscale;
+      if ((e >> 2) * 8 + (e & 1) >= live) s[e] = NEG_INF;
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+#pragma unroll
+    for (int e = 0; e < NS; ++e) {
+      s[e] = exp2f(s[e] - mx[(e >> 1) & 1]);
+      l[(e >> 1) & 1] += s[e];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // the whole row's sum in every lane of its quad
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    // p = exp2(s - m) times 1 / l in fp32, rounded to bf16 into the A fragments; O = P V
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    uint32_t pa[KSTEPS][4];
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const int e = 8 * kk + 2 * qq, r = qq & 1;
+        pa[kk][qq] = pack_bf16x2(s[e] * inv[r], s[e + 1] * inv[r]);
+      }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      wgmma_m64n64k16_rs_tb(acc, pa[kk], wgmma_desc(sv + kk * 16 * 128, KV_BYTES, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)  // p's registers stay untouched until the products have read them
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) asm volatile("" : "+r"(pa[kk][qq])::"memory");
+
+    // O rounded once into one of this warpgroup's staging tiles (swizzled 16-byte
+    // chunks, the box layout), then one TMA store: rows past Lq are dropped
+    const uint32_t so = obase + (wg * OBUFS + done % OBUFS) * TILE;
+    ++done;
+    if (t == 0) tma_store_wait_read<OBUFS - 1>();  // the store that read this staging tile last is done with it
+    bar_sync(wsync, 128);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t val = pack_bf16x2(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(so + sw128(r_lo + 8 * r, n) + tig * 4), "r"(val) : "memory");
+      }
+    fence_proxy_async();
+    bar_sync(wsync, 128);
+    if (t == 0) {
+      tma_store_4d(&omap, so, 0, tile * 64, h, b);
+      tma_store_commit();
+    }
+  }
+  if (t == 0) tma_store_wait_read();  // the staging tiles are read; the stores complete with the grid
+}
+
+// o [B, L, H, 64] through its (batch, row, head) strides: boxes of 64 d x 64 rows
+inline int flash64_out_map(void* o, int B, int H, int Lq, const long long* s, CUtensorMap* map) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)Lq, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s[1] * 2, (cuuint64_t)s[2] * 2, (cuuint64_t)s[0] * 2};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  return wgmma_tiled_map(o, 4, dims, strides, box, map);
+}
+
+template <int NC>
+int launch_nf64_resident(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk,
+                         const long long* st, float qscale, cudaStream_t stream) {
+  using C = NfRes64<NC>;
+  if (!flash_vec_rows_ok(q, k, v, o, st)) return kErrBadArgument;
+  static const cudaError_t attr = cudaFuncSetAttribute(flash_fwd_nf64_resident_kernel<C>,
+                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  int sms = 0;
+  if (const int rc = device_sms(&sms)) return rc;
+  CUtensorMap maps[4];
+  if (const int rc = flash64_maps(q, k, v, B, H, Lq, Lk, st, 64, NC, maps)) return rc;
+  if (const int rc = flash64_out_map(o, B, H, Lq, st + 9, &maps[3])) return rc;
+  const int qtiles = (Lq + 63) / 64;
+  const long long items = (long long)B * H * qtiles;
+  const int grid = items < sms ? (int)items : sms;  // a block an SM, or one a work item
+  flash_fwd_nf64_resident_kernel<C><<<grid, C::THREADS, C::SMEM, stream>>>(maps[0], maps[1], maps[2], maps[3], H, Lk,
+                                                                          qtiles, items, qscale);
+  return (int)cudaGetLastError();
+}
+
+namespace nf80 {
+constexpr int D = 80, BQ = 32, KB = 32, KSPLIT = 2, THREADS = 64 * KSPLIT;
+constexpr int KS = D / 16, NO = D / 8, PART = D + 8;  // k-steps of S, n-tiles of O, a partial row in floats
+__host__ __device__ inline int steps(int lk) { return (lk + KB - 1) / KB; }
+// Shared memory for n key steps, byte offsets past a 1024-byte aligned base:
+// q, K and V each as two panels, d 0..63 (128-byte rows under the 128-byte
+// swizzle) and d 64..79 (32-byte rows under the 32-byte swizzle); the fp32
+// partial outputs of key splits 1.. (then this block's bf16 output); each
+// split's row max and sum; the mbarriers (q, then K of each step, V of each).
+struct Smem {
+  int qa, ka, va, qb, kb, vb, part, ml, bars, bytes;
+  __host__ __device__ explicit Smem(int n)
+      : qa(0), ka(BQ * 128), va(ka + n * KB * 128), qb(va + n * KB * 128), kb(qb + BQ * 32), vb(kb + n * KB * 32),
+        part(vb + n * KB * 32), ml(part + (KSPLIT - 1) * BQ * PART * 4), bars(ml + KSPLIT * BQ * 2 * 4),
+        bytes(bars + 8 * (1 + 2 * n) + 1024) {}
+};
+}  // namespace nf80
+
+// Byte address of 16-byte chunk c (0..9) of row r of a panel pair: chunks 0..7
+// in the 128-byte-row panel at a, 8..9 in the 32-byte-row panel at b.
+__device__ __forceinline__ uint32_t nf80_chunk(uint32_t a, uint32_t b, int r, int c) {
+  return c < 8 ? a + sw128(r, c) : b + r * 32 + (((c - 8) ^ ((r >> 2) & 1)) << 4);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__global__ void __launch_bounds__(nf80::THREADS) flash_fwd_nf80_resident_kernel(
+    const __grid_constant__ CUtensorMap qa_map, const __grid_constant__ CUtensorMap qb_map,
+    const __grid_constant__ CUtensorMap ka_map, const __grid_constant__ CUtensorMap kb_map,
+    const __grid_constant__ CUtensorMap va_map, const __grid_constant__ CUtensorMap vb_map,
+    __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk, long long osb, long long osl, long long osh,
+    float qscale) {
+  using namespace nf80;
+  constexpr float NEG_INF = -INFINITY;
+  extern __shared__ unsigned char flash_smem[];
+  unsigned char* base = smem_align_1024(flash_smem);
+  const uint32_t sb = smem_u32(base);
+  const int nsteps = steps(Lk);
+  const Smem L(nsteps);
+  const uint32_t q_bar = sb + L.bars, k_bar = q_bar + 8, v_bar = k_bar + 8 * nsteps;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int rg = warp & 1, kh = warp >> 1;  // this warp's 16 rows of the tile, and its share of the key steps
+  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * BQ;
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int j = 0; j < 2 * nsteps; ++j) mbar_init(k_bar + 8 * j, 1);
+    mbar_init_fence();
+    // the tile's q, then each key step's K, then each one's V (rows past L arrive as zeros)
+    mbar_expect_tx(q_bar, BQ * D * 2);
+    tma_load_4d(sb + L.qa, &qa_map, q_bar, 0, q0, h, b);
+    tma_load_4d(sb + L.qb, &qb_map, q_bar, 64, q0, h, b);
+    for (int j = 0; j < nsteps; ++j) {
+      mbar_expect_tx(k_bar + 8 * j, KB * D * 2);
+      tma_load_4d(sb + L.ka + j * KB * 128, &ka_map, k_bar + 8 * j, 0, j * KB, h, b);
+      tma_load_4d(sb + L.kb + j * KB * 32, &kb_map, k_bar + 8 * j, 64, j * KB, h, b);
+    }
+    for (int j = 0; j < nsteps; ++j) {
+      mbar_expect_tx(v_bar + 8 * j, KB * D * 2);
+      tma_load_4d(sb + L.va + j * KB * 128, &va_map, v_bar + 8 * j, 0, j * KB, h, b);
+      tma_load_4d(sb + L.vb + j * KB * 32, &vb_map, v_bar + 8 * j, 64, j * KB, h, b);
+    }
+  }
+  __syncthreads();
+
+  // this warp's q as A fragments (ldmatrix x4: rows 16 rg + (lane & 7) + 8 ((lane >> 3) & 1), chunk 2 ks + (lane >> 4))
+  mbar_wait(q_bar, 0);
+  uint32_t qf[KS][4];
+  {
+    const int r = rg * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) ldsm_x4(qf[ks], nf80_chunk(sb + L.qa, sb + L.qb, r, 2 * ks + (lane >> 4)));
+  }
+  // S of key step j for this warp's 16 rows, from the unscaled q, times qscale
+  // in fp32, keys past Lk at -inf; s[t][0..1] are row 16 rg + gid, s[t][2..3]
+  // row 16 rg + gid + 8, at keys KB j + 8 t + 2 tig + {0, 1}
+  auto step_s = [&](float (&s)[4][4], int j) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {  // ldmatrix x4: the B fragments of key tiles 2 jj and 2 jj + 1
+        uint32_t bk[4];
+        const int r = j * KB + (2 * jj + (lane >> 4)) * 8 + (lane & 7);
+        ldsm_x4(bk, nf80_chunk(sb + L.ka, sb + L.kb, r, 2 * ks + ((lane >> 3) & 1)));
+        mma_bf16_16816(s[2 * jj], qf[ks], bk[0], bk[1]);
+        mma_bf16_16816(s[2 * jj + 1], qf[ks], bk[2], bk[3]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        s[t][u] *= qscale;
+        if (j * KB + t * 8 + tig * 2 + (u & 1) >= Lk) s[t][u] = NEG_INF;
+      }
+  };
+
+  // the first walk over this warp's key steps: the row max and the fp32 sum of
+  // exp2(s - m), rescaled online
+  float m_run[2] = {NEG_INF, NEG_INF};
+  float l_part[2] = {0.f, 0.f};  // this lane's share of the row sums
+  for (int j = kh; j < nsteps; j += KSPLIT) {
+    mbar_wait(k_bar + 8 * j, 0);
+    float s[4][4];
+    step_s(s, j);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) mx[u >> 1] = fmaxf(mx[u >> 1], s[t][u]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_run[i], mx[i]);  // finite: the step's first key is live
+      l_part[i] *= exp2f(m_run[i] - m_new);
+      m_run[i] = m_new;
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) l_part[u >> 1] += exp2f(s[t][u] - m_run[u >> 1]);
+  }
+  // each split's m and l of the tile's rows, then the rows' m and l over the splits in their order
+  float* ml = reinterpret_cast<float*>(base + L.ml);  // [KSPLIT][BQ][2]
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_part[i] += __shfl_xor_sync(0xffffffffu, l_part[i], 1);
+    l_part[i] += __shfl_xor_sync(0xffffffffu, l_part[i], 2);
+    if (tig == 0) {
+      ml[(kh * BQ + rg * 16 + gid + 8 * i) * 2] = m_run[i];
+      ml[(kh * BQ + rg * 16 + gid + 8 * i) * 2 + 1] = l_part[i];
+    }
+  }
+  __syncthreads();
+  float m[2], inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = rg * 16 + gid + 8 * i;
+    m[i] = NEG_INF;
+#pragma unroll
+    for (int k = 0; k < KSPLIT; ++k) m[i] = fmaxf(m[i], ml[(k * BQ + row) * 2]);
+    float l = 0.f;  // a split with no key step holds m = -inf, l = 0: it adds 0
+#pragma unroll
+    for (int k = 0; k < KSPLIT; ++k) l += ml[(k * BQ + row) * 2 + 1] * exp2f(ml[(k * BQ + row) * 2] - m[i]);
+    inv[i] = 1.f / l;
+  }
+
+  // the second walk: p = exp2(s - m) times 1 / l, rounded; acc += P V, 16 keys a k-step
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int j = kh; j < nsteps; j += KSPLIT) {
+    mbar_wait(v_bar + 8 * j, 0);
+    float s[4][4];
+    step_s(s, j);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) s[t][u] = exp2f(s[t][u] - m[u >> 1]) * inv[u >> 1];
+#pragma unroll
+    for (int kk = 0; kk < KB / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]), pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      // ldmatrix x4 trans: lanes 8i..8i+7 address matrix i = key rows KB j + 16 kk + (i & 1) 8 + (lane & 7)
+      // at chunk n + (i >> 1), i.e. the B fragments of n-tiles n and n + 1
+      const int r = j * KB + kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, nf80_chunk(sb + L.va, sb + L.vb, r, n + (lane >> 4)));
+        mma_bf16_16816(acc[n], pa, bv[0], bv[1]);
+        mma_bf16_16816(acc[n + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+
+  // O: the splits' partial sums added in their order in fp32 by split 0's warps,
+  // rounded once, staged in their own rows of split 1's partials, stored 16 bytes a lane
+  float* part = reinterpret_cast<float*>(base + L.part);  // [KSPLIT - 1][BQ][PART]
+  if (kh > 0) {
+    float* pr = part + ((kh - 1) * BQ + rg * 16) * PART;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(pr + (gid + 8 * i) * PART + n * 8 + tig * 2) =
+            make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+  __syncthreads();
+  if (kh > 0) return;
+#pragma unroll
+  for (int k = 1; k < KSPLIT; ++k) {
+    const float* pr = part + ((k - 1) * BQ + rg * 16) * PART;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const float2 x = *reinterpret_cast<const float2*>(pr + (gid + 8 * i) * PART + n * 8 + tig * 2);
+        acc[n][2 * i] += x.x;
+        acc[n][2 * i + 1] += x.y;
+      }
+  }
+  __syncwarp();
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(part + rg * 16 * PART);  // rows of PART bf16
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(stage + (gid + 8 * i) * PART + n * 8 + tig * 2) =
+          pack_bf16x2(acc[n][2 * i], acc[n][2 * i + 1]);
+  __syncwarp();
+  __nv_bfloat16* ob = o + b * osb + h * osh;
+  for (int e = lane; e < 16 * NO; e += 32) {
+    const int r = e / NO, c = e % NO, row = q0 + rg * 16 + r;
+    if (row < Lq)
+      *reinterpret_cast<uint4*>(ob + (long long)row * osl + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * PART + c * 8);
+  }
+}
+
+// q, k or v [B, L, H, 80] through its (batch, row, head) strides as two tiled
+// maps, boxes of 32 rows: d 0..63 (128-byte swizzle) and d 64..79 (32-byte swizzle)
+inline int nf80_maps(const void* x, int B, int H, int L, const long long* s, CUtensorMap* a, CUtensorMap* b) {
+  const cuuint64_t dims[4] = {(cuuint64_t)nf80::D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s[1] * 2, (cuuint64_t)s[2] * 2, (cuuint64_t)s[0] * 2};
+  const cuuint32_t box_a[4] = {64, nf80::KB, 1, 1}, box_b[4] = {16, nf80::KB, 1, 1};
+  if (const int rc = wgmma_tiled_map(x, 4, dims, strides, box_a, a)) return rc;
+  return tma_tiled_map(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_32B, x, 4, dims, strides, box_b, b);
+}
+
+int launch_nf80_resident(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk,
+                         const long long* st, float qscale, cudaStream_t stream) {
+  if (!flash_vec_rows_ok(q, k, v, o, st)) return kErrBadArgument;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(flash_fwd_nf80_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           nf80::Smem(nf80::steps(NF80_RESIDENT_KEYS)).bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap maps[6];
+  const void* xs[3] = {q, k, v};
+  const int lens[3] = {Lq, Lk, Lk};
+  for (int i = 0; i < 3; ++i)
+    if (const int rc = nf80_maps(xs[i], B, H, lens[i], st + 3 * i, &maps[2 * i], &maps[2 * i + 1])) return rc;
+  dim3 grid((Lq + nf80::BQ - 1) / nf80::BQ, B * H);
+  flash_fwd_nf80_resident_kernel<<<grid, nf80::THREADS, nf80::Smem(nf80::steps(Lk)).bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], static_cast<__nv_bfloat16*>(o), H, Lq, Lk, st[9],
+      st[10], st[11], qscale);
   return (int)cudaGetLastError();
 }
 
@@ -1333,11 +1851,11 @@ int launch_flash_wgmma64(const void* q, const void* k, const void* v, void* o, f
 }
 
 // bf16 D = 64 by sum mode: the flash kernel with the fp32 (0) or the rounded
-// (1) sum, or the normalise-first kernel (2)
+// (1) sum, or normalise first on the kernel that streams the keys (2, 3)
 inline int launch_flash_wgmma64_mode(int mode, const void* q, const void* k, const void* v, void* o, float* lse,
                                      int B, int H, int Lq, int Lk, const long long* st, float qscale,
                                      cudaStream_t stream) {
-  if (mode == 2) return launch_flash_wgmma64_nf(q, k, v, o, B, H, Lq, Lk, st, qscale, stream);
+  if (mode >= 2) return launch_flash_wgmma64_nf(q, k, v, o, B, H, Lq, Lk, st, qscale, stream);
   return mode ? launch_flash_wgmma64<true>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream)
               : launch_flash_wgmma64<false>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
 }
@@ -1350,14 +1868,28 @@ inline bool flash_sizes_ok(int B, int H, int Lq, int Lk) {
 // (D = 64 on wgmma, 80 on mma.sync, 512 on wgmma), and any other D a config
 // produces as an instance of the mma.sync template (D = 16: the tiny configs);
 // one more D is one more case. The D = 512 kernel has no normalise-first mode
-// (no path runs a bf16 D = 512 site shorter than 512). route: 2 wgmma, 1 mma.sync.
+// (no path runs a bf16 D = 512 site shorter than 512). Normalise first at D = 64
+// and 80: the resident kernels where the keys fit (mode 2), else and in mode 3
+// the streaming ones; at D = 16 the template's mode 2. route: 2 wgmma, 1
+// mma.sync, 5 the resident D = 64 kernel (wgmma), 6 the resident D = 80 one
+// (mma.sync).
 inline int flash_bf16_by_dim(int D, int mode, const void* q, const void* k, const void* v, void* o, float* lse,
                              int B, int H, int Lq, int Lk, const long long* st, float qscale, cudaStream_t s,
                              int* route) {
+  const bool resident = mode == 2 && ((D == 64 && Lk <= NF64_RESIDENT_KEYS) || (D == 80 && Lk <= NF80_RESIDENT_KEYS));
+  if (resident && D == 64) {
+    *route = kRouteWgmmaResident;
+    return Lk <= 80 ? launch_nf64_resident<80>(q, k, v, o, B, H, Lq, Lk, st, qscale, s)
+                    : launch_nf64_resident<128>(q, k, v, o, B, H, Lq, Lk, st, qscale, s);
+  }
+  if (resident) {
+    *route = kRouteMmaResident;
+    return launch_nf80_resident(q, k, v, o, B, H, Lq, Lk, st, qscale, s);
+  }
   switch (D) {
     case 16:
       *route = 1;
-      return mode == 2 ? launch_flash_mma<16, 2>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s)
+      return mode >= 2 ? launch_flash_mma<16, 2>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s)
              : mode    ? launch_flash_mma<16, 1>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s)
                        : launch_flash_mma<16, 0>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s);
     case 64:
@@ -1365,12 +1897,12 @@ inline int flash_bf16_by_dim(int D, int mode, const void* q, const void* k, cons
       return launch_flash_wgmma64_mode(mode, q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s);
     case 80:
       *route = 1;
-      return mode == 2 ? launch_flash_mma<80, 2>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s)
+      return mode >= 2 ? launch_flash_mma<80, 2>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s)
              : mode    ? launch_flash_mma<80, 1>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s)
                        : launch_flash_mma<80, 0>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s);
     case 512:
       *route = 2;
-      return mode == 2 ? kErrUnsupported
+      return mode >= 2 ? kErrUnsupported
              : mode    ? launch_flash_wgmma512<true>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s)
                        : launch_flash_wgmma512<false>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, s);
     default:
@@ -1382,7 +1914,7 @@ inline int flash_bf16_by_dim(int D, int mode, const void* q, const void* k, cons
 inline int flash_entry(int dtype, int D, const void* q, const void* k, const void* v, void* o, void* lse, int B,
                        int H, int Lq, int Lk, const long long* strides, float qscale, int sum_mode, int* route,
                        void* stream) {
-  if (!flash_sizes_ok(B, H, Lq, Lk) || sum_mode < 0 || sum_mode > 2 || (sum_mode == 2 && lse != nullptr))
+  if (!flash_sizes_ok(B, H, Lq, Lk) || sum_mode < 0 || sum_mode > 3 || (sum_mode >= 2 && lse != nullptr))
     return kErrBadArgument;
   float* l = static_cast<float*>(lse);
   int r = -1, rc = kErrUnsupported;
@@ -1407,8 +1939,11 @@ inline int flash_entry(int dtype, int D, const void* q, const void* k, const voi
 // lse: NULL, or fp32 [B, Lq, H] contiguous for the base-2 logsumexp.
 // sum_mode: 1, the denominator sums the p rounded to bf16; 0, the fp32 p; 2,
 // normalise first (qscale then multiplies the fp32 logits; no lse; not at D =
-// 512). No effect in fp32.
-// route (or NULL) receives the kernel that ran: 2 wgmma, 1 mma.sync, 0 fp32 FMAs.
+// 512); 3, normalise first on the kernel that streams the keys from device
+// memory (what mode 2 runs past the resident kernels' keys; at D = 16, mode 2).
+// No effect in fp32.
+// route (or NULL) receives the kernel that ran: 2 wgmma, 1 mma.sync, 0 fp32 FMAs,
+// 5 and 6 the resident normalise-first kernels at D = 64 (wgmma) and 80 (mma.sync).
 extern "C" int vs_flash_attention_packed(int dtype, int D, const void* q, const void* k,
                                          const void* v, void* o, void* lse, int B, int H,
                                          int Lq, int Lk, const long long* strides,

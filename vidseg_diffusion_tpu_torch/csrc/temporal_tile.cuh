@@ -103,25 +103,6 @@ __device__ __forceinline__ uint32_t tt_b_addr(uint32_t base, int r0, int np, int
   return base + sw128(r0 + (lane & 7) + 8 * ((lane >> 3) & 1), 2 * np + (lane >> 4));
 }
 
-// ---- TMA stores --------------------------------------------------------------
-
-// One box of shared memory -> a rank-4 map (elements outside the tensor are dropped).
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2,
-                                             int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-__device__ __forceinline__ void tma_store_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
-// The stores committed so far have read their shared memory (it may be written again).
-__device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-// The stores committed so far are complete.
-__device__ __forceinline__ void tma_store_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
-
 // ---- the walk ------------------------------------------------------------------
 
 template <int NMAPS>

@@ -36,8 +36,9 @@ NVCC_FLAGS = (
 )
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel an entry with a `route` out-parameter reports it ran
-ROUTES = {0: "fma", 1: "mma_sync", 2: "wgmma", 3: "narrow", 4: "wide"}
+# the kernel an entry with a `route` out-parameter reports it ran; 5 and 6 are
+# the normalise-first kernels that hold a head's K and V in shared memory
+ROUTES = {0: "fma", 1: "mma_sync", 2: "wgmma", 3: "narrow", 4: "wide", 5: "wgmma_resident", 6: "mma_sync_resident"}
 
 
 def _find_nvcc() -> Optional[str]:
@@ -128,7 +129,8 @@ _SIGNATURES = {
     # dtype, D, q, k, v, o, lse (NULL: none), B, H, Lq, Lk, strides[12], qscale,
     # sum_mode (0: the denominator sums the fp32 p, 1: the rounded p, 2: p is
     # normalised in fp32 before it is rounded; qscale then multiplies the fp32
-    # logits), route (int*: the kernel that ran, ROUTES), stream
+    # logits; 3: as 2 on the kernel that streams the keys), route (int*: the
+    # kernel that ran, ROUTES), stream
     "vs_flash_attention_packed": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _I, _P, _P],
     # the same arguments, bhld strides
     "vs_flash_attention_bhld": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _I, _P, _P],

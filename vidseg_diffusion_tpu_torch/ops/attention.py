@@ -42,11 +42,12 @@ kernel from it. Where JAX sends a site to no Pallas kernel but to mha_reference
 rows), the card runs K1 or K3 in their normalise-first mode: S from the
 unscaled q in fp32 times scale*log2(e), p = exp2(s - m) / l normalised in fp32
 before it is rounded to the input dtype, and no division after P.V
-(_attention_normalised is its plain version). At such a site under a
-gradient, and where no normalise-first kernel takes the dtype and head dim
-(bf16 K1 at D = 16 and 64, K3 at D = 16, 64 and 80), the port runs
-mha_reference itself under autograd on either device, as JAX runs and
-differentiates it there (mha_reference_site, counted apart from the plain
+(_attention_normalised is its plain version; where a head's keys fit, the
+kernels hold its K and V in shared memory, `.resident_launches`). At
+such a site under a gradient, and where no normalise-first kernel takes the
+dtype and head dim (bf16 K1 at D = 16 and 64, K3 at D = 16, 64 and 80), the
+port runs mha_reference itself under autograd on either device, as JAX runs
+and differentiates it there (mha_reference_site, counted apart from the plain
 versions).
 
 Head dims: the kernels take every head dim the shipped configs produce at a
@@ -108,10 +109,14 @@ def _attention_normalised(q, k, v, scale):
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float())
 
 
-def _sum_mode(psum_rounded: bool, normalise_first: bool) -> int:
+def _sum_mode(psum_rounded: bool, normalise_first: bool, streamed: bool = False) -> int:
     """The C entries' softmax mode: 0 the fp32 sum of p, 1 the sum of the
-    rounded p, 2 normalise first (mha_reference)."""
-    return 2 if normalise_first else int(psum_rounded)
+    rounded p, 2 normalise first (mha_reference), 3 normalise first on the
+    kernel that streams the keys from device memory where mode 2 would hold
+    them in shared memory (the yardstick chip_smoke.py times beside it)."""
+    if streamed and not normalise_first:
+        raise ValueError("streamed is a kernel of the normalise-first mode")
+    return (3 if streamed else 2) if normalise_first else int(psum_rounded)
 
 
 def _kernel_qscale(scale: float, dtype: torch.dtype, normalise_first: bool) -> float:
@@ -213,8 +218,11 @@ def _check_bf16_rows(name, dtype, strides, n_vec, *tensors):
 
 
 def _flash_attention_packed_forward(q, k, v, heads: int, scale: Optional[float], save_lse: bool,
-                                    psum_rounded: bool = True, normalise_first: bool = False):
-    """K1 on CUDA tensors (the plain version on CPU): out, or (out, lse)."""
+                                    psum_rounded: bool = True, normalise_first: bool = False,
+                                    streamed: bool = False):
+    """K1 on CUDA tensors (the plain version on CPU): out, or (out, lse).
+    streamed runs the normalise-first mode on the kernel that streams the keys
+    (sum mode 3)."""
     if q.device.type == "cpu":
         return flash_attention_packed_reference(q, k, v, heads, scale, save_lse=save_lse,
                                                 psum_rounded=psum_rounded, normalise_first=normalise_first)
@@ -234,10 +242,13 @@ def _flash_attention_packed_forward(q, k, v, heads: int, scale: Optional[float],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if save_lse else None,
         b, heads, lq, lk, strides, _kernel_qscale(scale, dtype, normalise_first),
-        _sum_mode(psum_rounded, normalise_first),
+        _sum_mode(psum_rounded, normalise_first, streamed),
     )
+    resident = route.endswith("_resident")
+    route = route.removesuffix("_resident")
     flash_attention_packed.launches += 1
     flash_attention_packed.dim_launches[d] += 1
+    flash_attention_packed.resident_launches += resident
     flash_attention_packed.wgmma_launches += route == "wgmma"
     flash_attention_packed.mma_launches += route == "mma_sync"
     if normalise_first and route != "fma":
@@ -292,6 +303,9 @@ flash_attention_packed.wgmma_launches = 0   # of .launches, those that ran a wgm
 flash_attention_packed.mma_launches = 0   # of .launches, those on the mma.sync template (bf16 D = 16)
 flash_attention_packed.normalised_launches = 0   # bf16 launches in the normalise-first mode
 flash_attention_packed.normalised_dim_launches = collections.Counter()   # those by head dim
+# of .normalised_launches, those on the kernel that holds a head's K and V in shared memory (D = 64,
+# up to 128 keys); the others stream the keys from device memory
+flash_attention_packed.resident_launches = 0
 
 
 # -- K5: packed flash-attention backward ---------------------------------------
@@ -673,8 +687,10 @@ def _check_bhld(name, q, k, v):
     return dtype
 
 
-def _flash_attention_forward(q, k, v, scale: Optional[float], save_lse: bool, normalise_first: bool = False):
-    """K3 on CUDA tensors (the plain version on CPU): out, or (out, lse)."""
+def _flash_attention_forward(q, k, v, scale: Optional[float], save_lse: bool, normalise_first: bool = False,
+                             streamed: bool = False):
+    """K3 on CUDA tensors (the plain version on CPU): out, or (out, lse);
+    streamed as K1's (_flash_attention_packed_forward)."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale, save_lse=save_lse, normalise_first=normalise_first)
     dtype = _check_bhld("flash_attention", q, k, v)
@@ -689,10 +705,13 @@ def _flash_attention_forward(q, k, v, scale: Optional[float], save_lse: bool, no
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if save_lse else None,
         b, h, lq, k.shape[2], strides, _kernel_qscale(scale, dtype, normalise_first),
-        _sum_mode(save_lse, normalise_first),
+        _sum_mode(save_lse, normalise_first, streamed),
     )
+    resident = route.endswith("_resident")
+    route = route.removesuffix("_resident")
     flash_attention.launches += 1
     flash_attention.dim_launches[d] += 1
+    flash_attention.resident_launches += resident
     flash_attention.wgmma_launches += route == "wgmma"
     if normalise_first and route != "fma":
         flash_attention.normalised_launches += 1
@@ -739,6 +758,9 @@ flash_attention.dim_launches = collections.Counter()
 flash_attention.wgmma_launches = 0   # D = 64 and 512 in bf16 (D = 16 and 80 run mma.sync)
 flash_attention.normalised_launches = 0   # bf16 launches in the normalise-first mode
 flash_attention.normalised_dim_launches = collections.Counter()   # those by head dim
+# of .normalised_launches, those on the kernels that hold a head's K and V in shared memory (D = 64 up
+# to 128 keys, on K1's kernel; D = 80 up to 512)
+flash_attention.resident_launches = 0
 
 
 # -- K13: bhld flash-attention backward ----------------------------------------

@@ -19,6 +19,10 @@ production vocabulary is not in the repository).
 
     python -m vidseg_diffusion_tpu_torch.scripts.api_path --config configs/inference/sd_xl_tiny.yaml \\
         --device cpu --size 64 --steps 4 [--refiner configs/inference/sd_xl_refiner_tiny.yaml]
+
+On the card at its defaults (SDXL base, 1024x1024, 40 steps), `--repeat 5`
+gives the seconds of an image after a warm-up, wall and the process's CPU
+time, each line one image.
 """
 
 import argparse
@@ -121,25 +125,29 @@ def main():
     ap.add_argument("--sampler", default="EulerEDMSampler")
     ap.add_argument("--prompt", default=PROMPT, help="tokenized with the repository's tiny vocabulary")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="images made one after another from the same seed, each timed (the first one warms up)")
     args = ap.parse_args()
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}.get(
         args.dtype, torch.bfloat16 if args.device == "cuda" else torch.float32)
     api = build(args.config, args.device, dtype)
+    ref = None if args.refiner is None else build(args.refiner, args.device, dtype, seed=1)
     params = sdxl_params(args.size, args.steps, sampler=args.sampler)
-    gen = torch.Generator(device=args.device).manual_seed(args.seed)
-    t0 = time.perf_counter()
-    if args.refiner is None:
-        out = api.text_to_image(params, tokens(args.prompt), generator=gen)
-    else:
-        _, z = api.text_to_image(params, tokens(args.prompt), generator=gen, txt2noisy_strength=HANDOFF_STRENGTH,
-                                 return_latents=True)
-        ref = build(args.refiner, args.device, dtype, seed=1)
-        out = ref.refiner(dataclasses.replace(params, img2img_strength=HANDOFF_STRENGTH), z, tokens(args.prompt),
-                          generator=gen, add_noise=False)
-    if args.device == "cuda":
-        torch.cuda.synchronize()
-    print(f"image {tuple(out.shape)} in [{out.min().item():.3f}, {out.max().item():.3f}], "
-          f"{time.perf_counter() - t0:.2f} s")
+    for _ in range(args.repeat):
+        gen = torch.Generator(device=args.device).manual_seed(args.seed)
+        t0, cpu0 = time.perf_counter(), time.process_time()
+        if ref is None:
+            out = api.text_to_image(params, tokens(args.prompt), generator=gen)
+        else:
+            _, z = api.text_to_image(params, tokens(args.prompt), generator=gen,
+                                     txt2noisy_strength=HANDOFF_STRENGTH, return_latents=True)
+            out = ref.refiner(dataclasses.replace(params, img2img_strength=HANDOFF_STRENGTH), z, tokens(args.prompt),
+                              generator=gen, add_noise=False)
+        if args.device == "cuda":
+            torch.cuda.synchronize()
+        print(f"image {tuple(out.shape)} in [{out.min().item():.3f}, {out.max().item():.3f}], "
+              f"{time.perf_counter() - t0:.3f} s, {time.process_time() - cpu0:.3f} s of the process's CPU time",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -32,9 +32,11 @@ backward through autograd.grad, whose device time is the sum of its kernels in
 torch.profiler (a graph cannot capture it); their bound counts the five
 products (10 L^2 D flops), and the line also gives the flops the kernels
 execute (S and dP recomputed: 14 L^2 D for K5, 18 L^2 D for K13). The
-normalise-first sites (`nf`: SD 2.1's cross-attention at 5824 and 1456 queries,
-CLIP) are graphs beside SDPA and beside the flash route the port ran there
-before (the rounded sum), each held to mha_reference. The GroupNorm backward
+normalise-first sites (`nf`: NF_SHAPES, the SD 2.1, SDXL and SD 512x512
+cross-attention, CLIP ViT-H and ViT-L/14) are graphs beside SDPA and beside the
+kernel that streams the keys from device memory (what ran there before the
+resident kernels), each held to mha_reference, with the route its launch
+reported (`resident_launches`). The GroupNorm backward
 (`gnb`) runs as GroupNormFn's backward calls it (the slab kernel or K9 + K10,
 by route) at the GroupNorm sites and the backward's cluster sites, beside the
 library backward (autograd.grad through F.group_norm (+ F.silu), profiled),
@@ -87,8 +89,12 @@ K13_SHAPES = [(2, 1, 5824, 5824, 512), (1, 1, 130, 77, 512)]
 K5_WIDE_SHAPES = [(7, 5824)]
 # (t, S): K6 at D = 512, the VideoAttnBlock's time mix on that clip and on a 14-latent decode
 K6_WIDE_SHAPES = [(7, 5824), (14, 5824)]
-# normalise-first sites: (layout, B, Lq, Lk, H, D)
-NF_SHAPES = [("blhd", 28, 5824, 77, 5, 64), ("blhd", 28, 1456, 77, 10, 64), ("bhld", 1, 257, 257, 16, 80)]
+# normalise-first sites: (layout, B, Lq, Lk, H, D): SD 2.1's cross-attention at ds1 and ds2 (the CFG batch of
+# 28 frames), the SDXL base's at 1024x1024, SD 2.1's at 512x512 (null-text inversion, T5, the demo), CLIP ViT-H
+# (the SVD conditioner), CLIP ViT-L/14 (the safety filter, two images)
+NF_SHAPES = [("blhd", 28, 5824, 77, 5, 64), ("blhd", 28, 1456, 77, 10, 64), ("blhd", 2, 4096, 77, 10, 64),
+             ("blhd", 2, 1024, 77, 20, 64), ("blhd", 2, 4096, 77, 5, 64), ("blhd", 2, 1024, 77, 10, 64),
+             ("bhld", 1, 257, 257, 16, 80), ("bhld", 2, 257, 257, 16, 64)]
 # (S, H): the temporal self-attention sites per level (t = 14 frames, 2 videos)
 TEMPORAL_SHAPES = [(5824, 5), (1456, 10), (364, 20), (91, 20)]
 # (shape, dtype, silu, eps): chip_smoke.py's GroupNorm sites
@@ -393,9 +399,9 @@ def time_temporal_wide_backward(torch, F, rn):
 
 
 def time_normalised(torch, F, rn):
-    """The normalise-first route at NF_SHAPES beside SDPA and beside the flash
-    route with the rounded sum (what the port ran there before), held to
-    mha_reference."""
+    """The normalise-first route at NF_SHAPES beside SDPA and beside the
+    kernel that streams the keys (what ran there before the resident kernels),
+    held to mha_reference."""
     from vidseg_diffusion_tpu_torch.ops import attention as A
 
     bf = torch.bfloat16
@@ -403,30 +409,37 @@ def time_normalised(torch, F, rn):
         if layout == "blhd":
             q = rn(b, lq, h * d).to(bf)
             k, v = (rn(b, lk, h * d).to(bf) for _ in range(2))
-            fn, old = A.flash_attention_packed, lambda: A.flash_attention_packed(q, k, v, h, psum_rounded=True)
+            fn = A.flash_attention_packed
+            old = lambda: A._flash_attention_packed_forward(q, k, v, h, None, save_lse=False, normalise_first=True,
+                                                            streamed=True)
             nf = lambda: A.flash_attention_packed(q, k, v, h, normalise_first=True)
             view = lambda x: x.view(b, x.shape[1], h, d).transpose(1, 2)
             ref = A.mha_reference(*(x.view(b, x.shape[1], h, d) for x in (q, k, v)), layout="blhd").reshape(q.shape)
         else:
             q, k, v = (rn(b, h, lq, d).to(bf) for _ in range(3))
             fn = A.flash_attention
-            old = lambda: A._flash_attention_forward(q, k, v, None, save_lse=False)
+            old = lambda: A._flash_attention_forward(q, k, v, None, save_lse=False, normalise_first=True, streamed=True)
             nf = lambda: A.flash_attention(q, k, v, normalise_first=True)
             view = lambda x: x
             ref = A.mha_reference(q, k, v)
         out = nf()
+        apart = (old() != out).float().mean().item()
         diff = (out.float() - ref.float()).abs()
         step = 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
         before = routes(fn)
         nf()
         moved = {key: val - before[key] for key, val in routes(fn).items()}
-        ms, old_ms = graph_ms(torch, nf, 5), graph_ms(torch, old, 5)
-        lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(view(q), view(k), view(v)), 5)
+        # in turns: the mode's kernel, the streaming one twice, the mode's again; SDPA twice
+        turns = [graph_ms(torch, fn_) for fn_ in (nf, old, old, nf)]
+        sdpa = lambda: F.scaled_dot_product_attention(view(q), view(k), view(v))
+        lib = [graph_ms(torch, sdpa) for _ in range(2)]
+        span = lambda xs: f"{min(xs):.4f}-{max(xs):.4f}"
         nbytes, flops = 2 * 2 * b * h * (lq + lk) * d, 4 * b * h * lq * lk * d
-        print(f"normalise-first {layout} [{b},{lq}x{lk},{h}x{d}]: {ms:.4f} ms (SDPA {lib_ms:.4f}, the flash "
-              f"route with the rounded sum {old_ms:.4f}, bound {bound_ms(nbytes, flops):.4f}); vs mha_reference "
-              f"{diff.max().item() / step:.2f} bf16 steps, {(diff > 0).float().mean().item():.2e} of the elements "
-              f"differ; routes of one call {moved}", flush=True)
+        print(f"normalise-first {layout} [{b},{lq}x{lk},{h}x{d}]: {span(turns[::3])} ms (SDPA {span(lib)}, the "
+              f"kernel streaming the keys {span(turns[1:3])}, its output {apart:.2e} of the elements apart, bound "
+              f"{bound_ms(nbytes, flops):.4f}); vs mha_reference {diff.max().item() / step:.2f} bf16 steps, "
+              f"{(diff > 0).float().mean().item():.2e} of the elements differ; routes of one call {moved}",
+              flush=True)
         del q, k, v, out, ref, diff
         torch.cuda.empty_cache()
 
