@@ -29,7 +29,13 @@ Phases, in order; any failure exits non-zero:
    normalise-first K1 at their 77 keys, K3 [1,1,16384,512]; the refiner's K1 at 12 and 24 heads (its
    256-token mid block on the fp32-sum kernel) and normalise-first K1; img2vid's K1 [28,9216,5x64], K2
    [28,9216,5,64], K4 [2,14,9216,320], K3 [1,1,9216,512]; NTI's K5 [2,4096,5x64] and [2,1024,10x64]
-   and normalise-first K1 [2,4096x77,5x64].
+   and normalise-first K1 [2,4096x77,5x64]. The fp32 attention at D = 512 on split TF32 products
+   (route tf32x3: K3 / K1 forward, K13 / K5 backward; entries flash_attention_tf32x3 and
+   flash_attention_backward_tf32x3 at the VAE mid attention [7,1,5824,512] and at [2,1,64,512])
+   is also held to its plain version run in float64 (relative RMS within FP64_RMS_TOL), and every
+   fp32 attention row prints that reading; every fp32 library call is timed in full fp32 (TF32 off
+   for matmuls and cuDNN), K12's fp32 rows also with TF32 on, for the record; an fp32 bound by
+   operations is flops over 165 TFLOP/s (three TF32 products at 495).
 4. unet: one full-width SVD UNet forward in fp32 (random weights, a 16x16
    latent, 2 frames) on the card through the kernels vs the same weights on
    the CPU through the plain versions; then the same for the full-width SD
@@ -116,7 +122,8 @@ Phases, in order; any failure exits non-zero:
    site runs mha_reference_site, held to the CPU mha_reference's gradients;
    a gradient through a "flash" bhld site (fp32 [2,1,1024,512], the VAE mid
    attention of two 256x256 frames) runs K3 with its LSE and K13 once each,
-   dq / dk / dv within GRAD_REL_TOL by norm of the CPU's.
+   both on the split-TF32 kernels (route tf32x3), dq / dk / dv within
+   GRAD_REL_TOL by norm of the CPU's.
 13. sweep (after inject, on its pipeline): run_vspw_sweep through
    scripts/svd_pipeline_vspw.py at its defaults (20 k-means clusters matched
    to the GT, bf16, decoding_t 1) over a synthetic tree in a temp dir: A, 16
@@ -184,7 +191,7 @@ Phases, in order; any failure exits non-zero:
    K11, K12, the GroupNorm forward), every decode finite before the clamp.
 22. api_fp32: sd_xl_tiny.yaml and sd_xl_refiner_tiny.yaml in fp32 at 256x256,
    each of the six samplers for 3 steps through text_to_image and the refiner,
-   card (kernels, all on their FMA routes) vs CPU (plain versions) on the same
+   card (kernels, all on their fp32 routes) vs CPU (plain versions) on the same
    weights and noise: latents and images within API_FP32_TOL of max |CPU|.
 23. api_t5 (after api_fp32): sd_2_1.yaml's UNet (context_dim 4096) under a
    T5 v1.1-XXL encoder at full width (scripts/t5_path.py; random bf16 weights,
@@ -253,8 +260,10 @@ Phases, in order; any failure exits non-zero:
    plain version; finite logs, p_loss > 0, every gradient finite, the last
    Adam step of both phases taken (check_adam_step); seconds per step, peak
    memory. Then 'all' in fp32 at 2 frames of 128x256 (a 512-token latent: the
-   mid attentions, attn2 and the time mix on their kernels as at full width),
-   card vs CPU gradients of every first-stage parameter within GRAD_REL_TOL.
+   mid attentions, attn2 and the time mix on their kernels as at full width;
+   K3 / K13 and K1 / K5 at D = 512 on the split-TF32 kernels, the run whose
+   launches the tf32x3 entries report), card vs CPU gradients of every
+   first-stage parameter within GRAD_REL_TOL.
 With `--ranks` under `torchrun --nproc_per_node W` on W cards (main_ranks):
 the main path's runs over the W ranks bit-equal to one rank's run, and the
 training step FSDP-wrapped over the W ranks, a video each, against the
@@ -380,6 +389,21 @@ KERNELS = {
         replaces="vidseg_diffusion_tpu/ops/attention.py:75", rms_tol=4e-3, wrapper="flash_attention",
         dim=80, path="main", normalised=True,
     ),
+    # the fp32 attention at D = 512 on split TF32 products (route 7, "tf32x3"): the forward of K3 at the
+    # VAE's mid attention and of K1 at one 512-dim head, and their gradients (K13, and K5 on K13's kernels);
+    # launched from flash_attention.cu / flash_attention_bhld_bwd.cu. Their launches are the `route_of`
+    # wrappers' .tf32x3_launches in the run of their path (ae_video_grad: svd.yaml's first stage at 'all'
+    # in fp32 under a gradient)
+    "flash_attention_tf32x3": dict(
+        id="K3/K1 fp32 D=512 split TF32", source="vidseg_diffusion_tpu_torch/csrc/tf32x3_attention.cuh",
+        replaces="vidseg_diffusion_tpu/ops/attention.py:297", rms_tol=4e-3,
+        route_of=("flash_attention", "flash_attention_packed"), path="ae_video_grad",
+    ),
+    "flash_attention_backward_tf32x3": dict(
+        id="K13/K5 fp32 D=512 split TF32", source="vidseg_diffusion_tpu_torch/csrc/tf32x3_attention.cuh",
+        replaces="vidseg_diffusion_tpu/ops/attention.py:1025", rms_tol=1e-3,
+        route_of=("flash_attention_backward", "flash_attention_packed_backward"), path="ae_video_grad",
+    ),
 }
 # the instances at the head dims the tuned kernels are not built for (ROADMAP
 # section C): entries of their own, on the wrapper of the kernel they instance,
@@ -460,7 +484,12 @@ INJECT_BLOCKS, INJECT_STEPS = 9, 8   # attention-bearing output blocks; steps 17
 INJECT_BYTES_PER_STEP = 2 * 28 * 2 * 3 * (5824 * 320 + 1456 * 640 + 364 * 1280)
 # Published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds:
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 outside the tensor cores
+# fp32: the least time this card needs for fp32-class products is on the tensor
+# cores, as three TF32 products of split operands at 495 TFLOP/s or six bf16
+# ones at 989 (the fp32 FMA units' 67 TFLOP/s are slower still), so an fp32
+# bound by operations is flops / 165 TFLOP/s; the fp32 library calls beside a
+# kernel run with TF32 off (full fp32), as the kernels compute
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 495e12 / 3}
 # Kernel output vs plain version, both from the same bf16 inputs: the plain
 # version computes in fp32 and rounds once to bf16; the kernel accumulates in
 # fp32 in another order, so elements may land one bf16 step apart. Bounds:
@@ -483,6 +512,10 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 ou
 # x) and inv-std (relative) vs fp64 statistics of the same input: STATS_TOL.
 MAX_STEPS = 2
 FP32_TOL = 1e-4
+# the fp32 D = 512 attention kernels on split TF32 products (route "tf32x3"): relative RMS error against the
+# plain version run in float64 (their card readings: 1.2e-6 forward, 1.3e-6 to 1.5e-6 backward at 5824 tokens;
+# one TF32 pass reads ~4e-4)
+FP64_RMS_TOL = 1e-5
 MHA_DIFFERING = 1e-3    # share of the elements a normalise-first output may differ from mha_reference's
 STATS_TOL = 2e-5
 UNET_REL_TOL = 1e-4     # fp32 UNet, card (kernels) vs CPU (plain versions), x max |CPU|
@@ -531,6 +564,8 @@ HEADLINE = {  # the shape of its path each kernel is timed at
     "flash_attention_normalised_d64": "ViT-L/14 [2,16,257,64]",
     "flash_attention_packed_backward_d512": "VideoAttnBlock attn2 [7,5824,1x512] bf16",
     "temporal_attention_direct_backward_d512": "VideoAttnBlock time mix [7,5824,1,512] t=7 bf16",
+    "flash_attention_tf32x3": "VAE mid [7,1,5824,512] fp32",
+    "flash_attention_backward_tf32x3": "VAE mid [7,1,5824,512] fp32",
 }
 # launches of one training step (remat on: every ResBlock and transformer runs
 # its forward twice, in the step's forward and in the backward's recompute):
@@ -643,8 +678,8 @@ def kernel_cases(torch):
     def direct(b, s, h):
         return lambda: tuple(rn(b, s, h, 64).to(bf) for _ in range(3))
 
-    def bhld(b, h, l, d):
-        return lambda: tuple(rn(b, h, l, d).to(bf) for _ in range(3))
+    def bhld(b, h, l, d, dtype=bf):
+        return lambda: tuple(rn(b, h, l, d).to(dtype) for _ in range(3))
 
     def tconv(b, t, m, cin, cout, kt=3, dtype=bf):
         return lambda: (rn(b, t, m, cin).to(dtype), (rn(kt, cin, cout) / (kt * cin) ** 0.5).to(dtype),
@@ -794,6 +829,14 @@ def kernel_cases(torch):
             plain=A.flash_attention_reference, iters=iters,
             work=attn_work(shape[0], shape[1], shape[2], shape[2], shape[3]),
             library=lambda q, k, v: (lambda: sdpa(q, k, v)))
+    # K3 in fp32 at D = 512 on split TF32 products: the VAE mid attention's shape and the 64 tokens of
+    # ae_grad's 64x64 frames
+    for label, shape, iters in (("VAE mid [7,1,5824,512] fp32", (7, 1, 5824, 512), 2),
+                                ("[2,1,64,512] fp32", (2, 1, 64, 512), 5)):
+        add(kernel="flash_attention_tf32x3", label=label, make=bhld(*shape, dtype=torch.float32),
+            kern=A.flash_attention, plain=A.flash_attention_reference, iters=iters,
+            work=attn_work(shape[0], shape[1], shape[2], shape[2], shape[3], dtype="fp32"),
+            library=lambda q, k, v: (lambda: sdpa(q, k, v)))
     # K4: UNet time_stack per level (two videos of 14 frames), VAE decoder
     # time_stack per level and conv_out_time_mix (decoding_t = 7); then the
     # wgmma kernel's edges (one frame, two frames and tokens off the tiles with
@@ -862,6 +905,12 @@ def kernel_cases(torch):
             kern=A.flash_attention_backward, plain=A.flash_attention_backward_reference, iters=3,
             work=attn_work(*shape, backward=True, dtype="bf16" if dtype == bf else "fp32"),
             library=lambda q, k, v, o, lse, g: sdpa_backward([q, k, v], g))
+    # K13 in fp32 at D = 512 on split TF32 products at the VAE mid attention's shape
+    add(kernel="flash_attention_backward_tf32x3", label="VAE mid [7,1,5824,512] fp32",
+        make=bhld_bwd(7, 1, 5824, 5824, 512, dtype=torch.float32), kern=A.flash_attention_backward,
+        plain=A.flash_attention_backward_reference, iters=2,
+        work=attn_work(7, 1, 5824, 5824, 512, backward=True, dtype="fp32"),
+        library=lambda q, k, v, o, lse, g: sdpa_backward([q, k, v], g))
     # the sampling API's paths, drawn after every other case, so the earlier
     # cases keep their inputs: the SDXL base at 1024x1024 (K1 at ds2 and at
     # ds4 = the mid block, the normalise-first K1 at their 77-key
@@ -1407,15 +1456,37 @@ def compare(torch, out, ref, rms_tol):
     return finite and rel <= FP32_TOL and rm <= FP32_TOL, e, rel, rm, pk
 
 
+def library_time(torch, case, args, iters, tf32=None):
+    """The case's library call on its inputs, in ms: with tf32 False in full
+    fp32 (TF32 off for matmuls and cuDNN), True with TF32 on, None as set;
+    the flags are restored afterwards."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    if tf32 is not None:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        lib = case["library"](*args)
+        return lib if isinstance(lib, float) else time_ms(lib, iters)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def fp64_rel_rms(torch, plain, args, outs):
+    """The largest relative RMS error of the kernel's outputs against the plain
+    version run in float64 on the same inputs."""
+    ref = plain(*[a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args])
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    return max(((o.double() - r).norm() / r.norm()).item() for o, r in zip(outs, refs))
+
+
 def phase_kernels(torch):
     rows = []
     for case in kernel_cases(torch):
         kname, label, kern, plain, iters = (case[k] for k in ("kernel", "label", "kern", "plain", "iters"))
         args = case["make"]()
-        resident = resident_launches()
+        resident, x3 = resident_launches(), tf32x3_launches()
         out = kern(*args)
         torch.cuda.synchronize()
-        resident = resident_launches() - resident
+        resident, x3 = resident_launches() - resident, tf32x3_launches() - x3
         ref = plain(*args)
         torch.cuda.synchronize()
         # a backward returns several gradients: each is held to the bounds
@@ -1431,13 +1502,22 @@ def phase_kernels(torch):
                 steps = max(steps, unit)
             else:
                 rel = max(rel, unit)
+        # the fp32 attention rows: the relative RMS error against the plain version in float64, held to
+        # FP64_RMS_TOL where the split-TF32 kernels ran
+        fp32 = args[0].dtype == torch.float32
+        fp64_rms = (fp64_rel_rms(torch, plain, args, outs)
+                    if fp32 and kname.startswith(("flash_attention", "temporal_attention")) else None)
+        if x3:
+            check(fp64_rms <= FP64_RMS_TOL, f"{kname} {label}: relative RMS error {fp64_rms} against float64 "
+                                            f"(tol {FP64_RMS_TOL})")
         ms = time_ms(lambda: kern(*args), iters)
         plain_ms = time_ms(lambda: plain(*args), iters)
-        library_ms = None
+        # fp32 library calls in full fp32; K12's fp32 rows also give cuDNN's TF32 reading, for the record
+        library_ms = library_tf32_ms = None
         if case.get("library") is not None:
-            lib = case["library"](*args)
-            library_ms = lib if isinstance(lib, float) else time_ms(lib, iters)
-            del lib
+            library_ms = library_time(torch, case, args, iters, tf32=False if fp32 else None)
+            if fp32 and kname == "conv3x3_same":
+                library_tf32_ms = library_time(torch, case, args, iters, tf32=True)
         if "reference" in case:
             held_to_mha_reference(torch, KERNELS[kname]["id"], label, out, case["reference"](*args))
         previous_ms = None
@@ -1458,15 +1538,20 @@ def phase_kernels(torch):
         row = dict(kernel=kname, shape=label, max_abs_err=err, bf16_steps=steps, fp32_rel_err=rel,
                    max_abs_plain=peak, rel_rms_err=rms, ok=ok, ms=ms, plain_ms=plain_ms,
                    bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations",
-                   library_ms=library_ms, library_covers=case.get("library_covers"))
+                   library_ms=library_ms, library_covers=case.get("library_covers"), library_tf32_ms=library_tf32_ms,
+                   rel_rms_fp64=fp64_rms, tf32x3=bool(x3))
         rows.append(row)
         lib_txt = "none" if library_ms is None else (
-            f"{library_ms:.3f} ms" + (f" ({case['library_covers']})" if case.get("library_covers") else ""))
+            f"{library_ms:.3f} ms" + (f" ({case['library_covers']})" if case.get("library_covers") else "")
+            + (" (full fp32: TF32 off)" if fp32 else "")
+            + (f", {library_tf32_ms:.3f} ms with TF32 on (for the record)" if library_tf32_ms is not None else ""))
         print(f"[kernels] {KERNELS[kname]['id']} {kname} {label}: max_abs_err={err:.3e} "
               f"({steps:.2f} bf16 steps at max|plain| {peak:.3e}, tol {MAX_STEPS}; fp32 outputs "
               f"{rel:.2e} relative, tol {FP32_TOL:.0e}) rel_rms_err={rms:.3e} (tol {rms_tol:.0e}) "
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {row['bound_ms']:.3f} ms by "
-              f"{row['bound_by']}, library {lib_txt}", flush=True)
+              f"{row['bound_by']}, library {lib_txt}"
+              + (f"; vs float64 rel_rms {fp64_rms:.3e}" + (f" (tol {FP64_RMS_TOL:.0e}, split TF32)" if x3 else "")
+                 if fp64_rms is not None else ""), flush=True)
         if previous_ms is not None:
             print(f"[kernels] {KERNELS[kname]['id']} {label}: {'resident' if resident else 'streaming'} kernel "
                   f"{ms:.3f} ms "
@@ -1483,6 +1568,15 @@ def phase_kernels(torch):
     clip_normalised_pooled(torch)
     k1_at_cfg_batch(torch)
     return rows, k5_at_train_batch(torch)
+
+
+def tf32x3_launches():
+    """Launches of the fp32 D = 512 attention kernels on split TF32 products
+    (forward and backward), as the launches reported them."""
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    return sum(f.tf32x3_launches for f in (A.flash_attention_packed, A.flash_attention,
+                                           A.flash_attention_packed_backward, A.flash_attention_backward))
 
 
 def resident_launches():
@@ -1745,7 +1839,10 @@ def kernel_fns():
 ROUTED = ("flash_attention_packed", "flash_attention", "temporal_conv_1x1", "matmul_bias",
           "temporal_attention_direct", "temporal_attention_direct_backward", "flash_attention_packed_backward",
           "flash_attention_backward")
-ROUTE_NAMES = ("wgmma", "narrow", "mma", "normalised", "resident", "wide", "cluster")
+ROUTE_NAMES = ("wgmma", "narrow", "mma", "normalised", "resident", "wide", "cluster", "tf32x3")
+# the wrappers whose fp32 D = 512 launches run the split-TF32 kernels (route "tf32x3")
+X3_WRAPPERS = ("flash_attention_packed", "flash_attention", "flash_attention_packed_backward",
+               "flash_attention_backward")
 GN_ROUTES = {"fused": 0, "stream": 0}   # GroupNorm32 calls per route since reset_counts()
 # the backward's route (ops.norm.group_norm_backward_route) of each GroupNorm32 module that
 # ran under a gradient since reset_counts(), by id (a remat step runs a module's forward
@@ -1915,6 +2012,8 @@ def check_routes(tag, launches, narrow=0, normalised=None, wide=0):
     want["temporal_conv_1x1"] = {"wgmma": launches["temporal_conv_1x1"] - narrow, "narrow": narrow}
     for name in ("temporal_attention_direct", "temporal_attention_direct_backward"):
         want[name] = {"mma": launches[name] - wide, "wide": wide}
+    for name in X3_WRAPPERS:   # bf16 runs: no fp32 launch
+        want[name]["tf32x3"] = 0
     got = {name: routes[name] for name in ROUTED}
     check(got == want, f"[{tag}] launches by route {got}, expected {want}")
     ROUTE_COUNTS[tag] = routes
@@ -1923,6 +2022,20 @@ def check_routes(tag, launches, narrow=0, normalised=None, wide=0):
               f"[{tag}] {name}: normalise-first launches by head dim {DIM_COUNTS[tag][f'{name}.normalised']}, "
               f"{routes[name]['normalised']} in all")
     return routes
+
+
+def check_tf32x3(tag, expected):
+    """An fp32 run: each X3_WRAPPERS wrapper's D = 512 launches (read_dims)
+    all took the split-TF32 kernels (route "tf32x3"), `expected` of them
+    ({wrapper: launches}, the others none); keeps and returns the routes."""
+    routes, dims = read_routes(), read_dims()
+    got = {n: routes[n]["tf32x3"] for n in X3_WRAPPERS}
+    at512 = {n: dims[n].get(512, 0) for n in X3_WRAPPERS}
+    want = {n: expected.get(n, 0) for n in X3_WRAPPERS}
+    check(got == at512 == want, f"[{tag}] fp32 D = 512 launches on the split-TF32 kernels {got}, at D = 512 "
+                                f"{at512}, expected {want}")
+    ROUTE_COUNTS[tag] = routes
+    return got
 
 
 def sum_dims(runs):
@@ -2475,6 +2588,7 @@ def phase_vae_time_mode(torch):
                 ref = cpu(zs, 2)
             check(launches["flash_attention_packed"] == 1 and launches["temporal_attention_direct"] == 1
                   and launches["flash_attention"] == 1, f"[vae_time_mode {mode} fp32] launches {launches}")
+            check_tf32x3(f"vae_time_mode {mode} fp32", {"flash_attention_packed": 1, "flash_attention": 1})
             err = (card - ref).abs().max().item() / ref.abs().max().item()
             print(f"[vae_time_mode {mode} fp32] 2 x 32x32 latents, card vs CPU: max |diff| {err:.3e} of max |CPU| "
                   f"(tol {UNET_REL_TOL:.0e})", flush=True)
@@ -3271,6 +3385,8 @@ def ae_video_grad(torch):
                                                     ("temporal_attention_direct", 1),
                                                     ("temporal_attention_direct_backward", 1))),
               f"[ae_video fp32] the attention sites off their kernels: {dims}")
+        x3 = check_tf32x3("ae_video_grad", {"flash_attention": 2, "flash_attention_backward": 2,
+                                            "flash_attention_packed": 1, "flash_attention_packed_backward": 1})
         t0 = time.perf_counter()
         g_cpu = grads(cpu, "cpu")
         cpu_s = time.perf_counter() - t0
@@ -3281,8 +3397,8 @@ def ae_video_grad(torch):
     worst = max(((g_card[n].cpu() - v).norm().item() / max(v.norm().item(), floor), n) for n, v in g_cpu.items())
     print(f"[ae_video fp32] svd.yaml's first stage at 'all', 2 x 128x256 in fp32: {len(g_cpu)} first-stage "
           f"gradients, card vs CPU worst {worst[0]:.3e} by norm ({worst[1]}; tol {GRAD_REL_TOL:.0e}); launches "
-          f"{json.dumps({k: v for k, v in launches.items() if v})}; card {card_s:.1f} s, CPU {cpu_s:.1f} s",
-          flush=True)
+          f"{json.dumps({k: v for k, v in launches.items() if v})}, on split TF32 products {json.dumps(x3)}; "
+          f"card {card_s:.1f} s, CPU {cpu_s:.1f} s", flush=True)
     check(all(bool(torch.isfinite(v).all()) for v in g_card.values()), "[ae_video fp32] a card gradient not finite")
     check(worst[0] <= GRAD_REL_TOL, f"[ae_video fp32] gradient of {worst[1]} on the card disagrees with the CPU")
     del fs, cpu, g_card, g_cpu
@@ -3778,6 +3894,7 @@ def phase_route_probe(torch):
     check(launches["flash_attention"] == 1 and launches["flash_attention_backward"] == 1
           and sum(launches.values()) == 2 and A.mha_reference_site.calls == calls and sum(plains.values()) == 0,
           f"[route_probe] the flash site's gradient did not run K3 and K13 once each: {launches}")
+    check_tf32x3("route_probe", {"flash_attention": 1, "flash_attention_backward": 1})
     cpu = grads(A.dot_product_attention, "cpu")
     worst = max((a.cpu() - w).norm().item() / w.norm().item() for a, w in zip(card, cpu))
     print(f"[route_probe] fp32 bhld [2,1,1024,512] 'flash' site under a gradient: K3 + K13, dq/dk/dv vs the CPU's "
@@ -3875,9 +3992,11 @@ def check_api_run(tag, label, fp32=False):
     check(all(n == 0 for n in plain_calls.values()), f"[{tag} {label}] plain versions ran on the card: {plain_calls}")
     check(A.mha_reference_site.calls == site, f"[{tag} {label}] mha_reference_site ran "
                                               f"{A.mha_reference_site.calls} times, expected {site}")
-    if fp32:   # fp32 runs the FMA kernels: no launch on a wgmma / mma.sync route
+    if fp32:   # fp32 runs the FMA kernels, at D = 512 the split-TF32 ones: no launch on a bf16 route
         routes = read_routes()
-        off = {k: {r: n for r, n in v.items() if r not in ("normalised",) and n} for k, v in routes.items()}
+        dims = read_dims()
+        check_tf32x3(f"{tag} {label}", {n: dims[n].get(512, 0) for n in X3_WRAPPERS})
+        off = {k: {r: n for r, n in v.items() if r not in ("normalised", "tf32x3") and n} for k, v in routes.items()}
         check(all(not v for v in off.values()) and routes["flash_attention_packed"]["normalised"] ==
               normalised["flash_attention_packed"], f"[{tag} {label}] fp32 launches by route {routes}")
     else:
@@ -4112,7 +4231,7 @@ def phase_api_fp32(torch):
     steps, on the card through the kernels and on the CPU through the plain
     versions, same weights, same noise (handed over), TF32 and cuDNN off: the
     latents and images within API_FP32_TOL of max |CPU|; launches as the
-    module calls imply, every one on an FMA kernel."""
+    module calls imply, every one on an fp32 kernel (FMAs; split TF32 at D = 512)."""
     from vidseg_diffusion_tpu_torch.inference.api import Sampler
     from vidseg_diffusion_tpu_torch.scripts import api_path as AP
 
@@ -4963,6 +5082,13 @@ def main():
             runs["main"] = runs[meta["path"]] if meta["path"] else 0   # its path's run
             check(not meta["path"] or runs["main"] > 0, f"{name} never launched in the {meta['path']} run")
             extra = {"path": meta["path"] or "none (no path runs it)", "dim": meta["dim"]}
+            routed = None
+        elif "route_of" in meta:  # the split-TF32 kernels: their wrappers' "tf32x3" launches in each run
+            runs = {tag: sum(ROUTE_COUNTS.get(tag, {}).get(w, {}).get("tf32x3", 0) for w in meta["route_of"])
+                    for tag in tags + tuple(slice_runs) + (meta["path"],)}
+            runs["main"] = runs[meta["path"]]   # its path's run
+            check(runs["main"] > 0, f"{name} never launched in the {meta['path']} run")
+            extra = {"path": meta["path"]}
             routed = None
         else:
             # the run of its path: inference for K1-K4, K7, K8, K11, K12, diffusion training for

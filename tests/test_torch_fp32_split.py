@@ -1,0 +1,160 @@
+"""The split-TF32 arithmetic of the fp32 D = 512 attention kernels, on the CPU.
+
+csrc/tf32x3_attention.cuh runs every product of the fp32 attention at D = 512
+(K3 / K1 forward, K13 / K5 backward) on the tensor cores in TF32, as three
+products of split operands: x = hi + lo with hi = x cut to TF32 (its low 13
+bits dropped, which is what the tensor cores read of an fp32 value) and
+lo = x - hi rounded to TF32 (10 mantissa bits; nearest, ties away from zero, as
+cvt.rna.tf32.f32 rounds, done on the fp32 bits), and
+a b ~ hi_a lo_b + lo_a hi_b + hi_a hi_b summed in fp32. No CUDA runs here:
+a test-local emulation of that arithmetic (numpy fp32 products of the TF32
+parts, exact in fp32, summed by BLAS) is held to the JAX package's Pallas
+kernels in interpret mode (the forward to _flash_attention_impl, the backward
+to jax.vjp of flash_attention with its Pallas backward) within FP32_TOL of max
+|JAX| and to a float64 evaluation of the same math within a relative RMS error
+of 1e-5. The negative control, one TF32 pass (each operand cut, as the tensor
+cores read raw fp32), reads above 1e-4 of max |fp64|
+at max error: the bounds tell the two classes apart. The card tests
+(tests/test_torch_gpu.py) and chip_smoke.py hold the kernels themselves to
+their plain versions and to fp64 with the same bounds.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from vidseg_diffusion_tpu.ops import attention as jatt
+
+FP32_TOL = 1e-4    # max |emulation - JAX| / max(1, max |JAX|)
+RMS_TOL = 1e-5     # ||emulation - fp64|| / ||fp64||
+LOG2_E = 1.4426950408889634
+D = 512
+
+
+def _tf32(x):
+    """fp32 -> the nearest TF32 value (ties away from zero), as fp32."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _cut(x):
+    """fp32 -> TF32 by dropping the low 13 bits, as the tensor cores read it."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    hi = _cut(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm_split(a, b):
+    """a @ b as the kernels compute it: three TF32 products, fp32 sums."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
+def _mm_one_pass(a, b):
+    return _cut(a) @ _cut(b)
+
+
+def _mm64(a, b):
+    return a.astype(np.float64) @ b.astype(np.float64)
+
+
+def _forward(q, k, v, mm):
+    """One [L, D] head: o and the base-2 LSE (the kernels' online softmax,
+    which agrees with this up to fp32 rounding)."""
+    dt = np.float64 if mm is _mm64 else np.float32
+    qs = q.astype(dt) * dt(np.float32(LOG2_E / np.sqrt(D)))
+    s = mm(qs, k.T)
+    m = s.max(-1, keepdims=True)
+    p = np.exp2(s - m)
+    l = p.sum(-1, keepdims=True)
+    return mm(p, v) / l, (m + np.log2(l))[:, 0]
+
+
+def _backward(q, k, v, o, lse, g, mm):
+    """dq, dk, dv of one head from the forward's o and LSE (K13's math)."""
+    dt = np.float64 if mm is _mm64 else np.float32
+    qs = q.astype(dt) * dt(np.float32(LOG2_E / np.sqrt(D)))
+    p = np.exp2(mm(qs, k.T) - lse[:, None])
+    delta = (g.astype(dt) * o).sum(-1)
+    ds = p * (mm(g, v.T) - delta[:, None])
+    return mm(ds, k) * dt(1 / np.sqrt(D)), mm(ds.T, qs) / dt(LOG2_E), mm(p.T, g)
+
+
+def _inputs(seed, lq, lk, n):
+    rs = np.random.RandomState(seed)
+    shapes = [(lq, D), (lk, D), (lk, D), (lq, D)][:n]
+    return [rs.randn(*s).astype(np.float32) for s in shapes]
+
+
+def _max_err(got, want):
+    return np.abs(got - want).max() / max(1.0, np.abs(want).max())
+
+
+def _rel_rms(got, want):
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+def test_split_forward_matches_the_pallas_kernel_and_fp64():
+    """The forward at D = 512, Lq != Lk (320 queries, 448 keys) against
+    _flash_attention_impl in interpret mode and against fp64."""
+    q, k, v = _inputs(0, 320, 448, 3)
+    want = np.asarray(jatt._flash_attention_impl(*(jnp.asarray(a)[None, None] for a in (q, k, v)),
+                                                 interpret=True))[0, 0]
+    got, _ = _forward(q, k, v, _mm_split)
+    ref, _ = _forward(q, k, v, _mm64)
+    assert _max_err(got, want) <= FP32_TOL
+    assert _rel_rms(got, ref) <= RMS_TOL
+
+
+def test_split_backward_matches_jax_vjp_and_fp64(monkeypatch):
+    """dq, dk, dv at D = 512, Lq != Lk (256 queries, 384 keys) against
+    jax.vjp of flash_attention with its Pallas backward in interpret mode
+    (VIDSEG_PALLAS_ATTN_BWD=1) and against fp64, each from the emulated
+    forward's o and LSE (the kernels' backward reads the forward kernel's)."""
+    monkeypatch.setenv("VIDSEG_PALLAS_ATTN_BWD", "1")
+    q, k, v, g = _inputs(1, 256, 384, 4)
+    _, vjp = jax.vjp(lambda *a: jatt.flash_attention(*a, interpret=True),
+                     *(jnp.asarray(a)[None, None] for a in (q, k, v)))
+    want = [np.asarray(w)[0, 0] for w in vjp(jnp.asarray(g)[None, None])]
+    o, lse = _forward(q, k, v, _mm_split)
+    got = _backward(q, k, v, o, lse, g, _mm_split)
+    o64, lse64 = _forward(q, k, v, _mm64)
+    ref = _backward(q, k, v, o64, lse64, g, _mm64)
+    for name, a, w, r in zip(("dq", "dk", "dv"), got, want, ref):
+        assert _max_err(a, w) <= FP32_TOL, name
+        assert _rel_rms(a, r) <= RMS_TOL, name
+
+
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_one_tf32_pass_fails_the_bounds(which):
+    """The negative control: one TF32 pass (no lo parts) reads above 1e-4 of
+    max |fp64| at max error where the split reads under 1e-5."""
+    q, k, v, g = _inputs(2, 256, 384, 4)
+    o64, lse64 = _forward(q, k, v, _mm64)
+    runs = {}
+    for name, mm in (("split", _mm_split), ("one", _mm_one_pass)):
+        o, lse = _forward(q, k, v, mm)
+        runs[name] = [o] if which == "forward" else list(_backward(q, k, v, o, lse, g, mm))
+    refs = [o64] if which == "forward" else list(_backward(q, k, v, o64, lse64, g, _mm64))
+    err = {n: max(np.abs(a - r).max() / np.abs(r).max() for a, r in zip(runs[n], refs)) for n in runs}
+    assert err["one"] > FP32_TOL, err
+    assert err["split"] < 1e-5, err
+
+
+def test_split_parts_are_tf32_and_exact():
+    """hi and lo carry 10 mantissa bits each, hi + lo recovers x to 2^-21 of
+    |x|, and lo's rounding is to nearest with ties away from zero."""
+    x = np.random.RandomState(3).randn(4096).astype(np.float32) * np.float32(10.0) ** np.arange(-3, 5).repeat(512)
+    hi, lo = _split(x)
+    for part in (hi, lo):
+        assert not np.any(part.view(np.uint32) & np.uint32(0x1FFF))
+    assert np.all(np.abs(hi.astype(np.float64) + lo - x) <= np.abs(x).astype(np.float64) * 2.0 ** -21)
+    one = np.float32(1.0)
+    tie = (one.view(np.uint32) | np.uint32(0x1000)).view(np.float32)   # halfway between two TF32 values
+    assert _tf32(np.array([tie, -tie])).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]

@@ -43,7 +43,9 @@ TPU dispatch sends to mha_reference (ops.attention.site_route) the dispatcher
 runs their normalise-first mode (`.normalised_launches`), held to
 mha_reference within one bf16 step and 0.1 % of the elements differing. K5 and
 K13 (bf16 D = 512) run wgmma kernels: `.wgmma_launches` moves with every bf16
-launch. The GroupNorm forward
+launch. In fp32 at D = 512, K1 / K3 and K5 / K13 run the kernels on split
+TF32 products (`.tf32x3_launches`), also held to the plain versions run in
+float64 (relative RMS within FP64_RMS_TOL). The GroupNorm forward
 takes the fused one-launch kernel or K7 + K8 as ops.norm.group_norm_route
 says, the backward the slab kernel (one launch, on one block or a cluster) or
 K9 + K10 as ops.norm.group_norm_backward_route says; both are bitwise the
@@ -73,6 +75,7 @@ FP32_TOL = 1e-4
 GRAD_FLOOR = 1e-2  # fp32 rounding noise of K6's t = 1 dq reads 5.8e-7 at a largest gradient of 3.5
 LSE_TOL = 5e-3
 GRAD_REL_TOL = 1e-4  # fp32 module gradients, card vs CPU, by norm (chip_smoke.py's bound)
+FP64_RMS_TOL = 1e-5  # the split-TF32 kernels vs the plain version in float64, relative RMS (chip_smoke.py's)
 
 
 @pytest.fixture
@@ -743,6 +746,97 @@ def test_flash_attention_bhld_backward(cuda, dt, b, h, lq, lk, d):
     _check(A.flash_attention_backward, A.flash_attention_backward_reference, q, k, v, out, lse, g,
            rms_tol=RMS_TOL["K13"])
     assert A.flash_attention_backward.wgmma_launches == wg + (dtype == torch.bfloat16 and d == 512)
+
+
+# fp32 at D = 512 on split TF32 products (route "tf32x3"): Lq off the 64-row
+# tile, Lq != Lk both ways, one key, the main path's 5824 tokens; up to 64 keys
+# (the forward) and 64 queries (the dv kernel) the kernels split the head dim
+# over their warpgroups: 64 x 64, 50 queries on 300 keys, 200 on 64
+X3_SHAPES = [(2, 1, 100, 100), (1, 1, 130, 77), (1, 1, 72, 200), (1, 1, 1, 1), (1, 1, 5824, 5824),
+             (2, 1, 64, 64), (1, 1, 50, 300), (3, 1, 200, 64)]
+
+
+def _fp64_rms(outs, plain, *args):
+    """The largest relative RMS error of `outs` against the plain version run
+    in float64 on the same inputs (a gradient that is 0 up to rounding is
+    measured against GRAD_FLOOR times the call's largest)."""
+    refs = plain(*(a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args))
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    floor = GRAD_FLOOR * max(r.norm().item() for r in refs)
+    return max((o.double() - r).norm().item() / max(r.norm().item(), floor) for o, r in zip(outs, refs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,lq,lk", X3_SHAPES)
+def test_fp32_d512_attention_on_split_tf32(cuda, b, h, lq, lk):
+    """K3 and its gradient K13 in fp32 at D = 512 run the split-TF32 kernels
+    (`.tf32x3_launches` moves with each launch, `.wgmma_launches` does not):
+    within FP32_TOL of their plain versions (K3's LSE within LSE_TOL) and
+    within FP64_RMS_TOL of the plain versions in float64."""
+    f32 = torch.float32
+    q, g = (_randn(cuda, 330 + i, f32, b, h, lq, 512) for i in range(2))
+    k, v = (_randn(cuda, 332 + i, f32, b, h, lk, 512) for i in range(2))
+    before = tuple(getattr(f, r) for f in (A.flash_attention, A.flash_attention_backward)
+                   for r in ("tf32x3_launches", "wgmma_launches"))
+    out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
+    ref, lse_ref = A.flash_attention_reference(q, k, v, save_lse=True)
+    _close(out, ref)
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    assert _fp64_rms((out,), A.flash_attention_reference, q, k, v) <= FP64_RMS_TOL
+    grads = A.flash_attention_backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    _close_grads(grads, A.flash_attention_backward_reference(q, k, v, out, lse, g), None)
+    # with one key p = 1 and ds = g.v - g.o cancels to rounding: dq and dk are 0 in exact arithmetic, and their
+    # fp32 noise (held above by FP32_TOL) has no relative error to measure; dv = g there
+    held = grads if lk > 1 else grads[2:]
+    assert _fp64_rms(held, lambda *a: A.flash_attention_backward_reference(*a)[3 - len(held):],
+                     q, k, v, out, lse, g) <= FP64_RMS_TOL
+    after = tuple(getattr(f, r) for f in (A.flash_attention, A.flash_attention_backward)
+                  for r in ("tf32x3_launches", "wgmma_launches"))
+    assert after == (before[0] + 1, before[1], before[2] + 1, before[3])
+
+
+@pytest.mark.gpu
+def test_fp32_d512_split_tf32_reads_strided_views(cuda):
+    """[B, L, H, D] projections seen as bhld and a batch slice are read in
+    place by the split-TF32 kernels, forward and backward; an fp32 D = 512
+    view off a 16-byte boundary is refused (TMA reads the rows)."""
+    f32 = torch.float32
+    q, k, v, g = (_randn(cuda, 340 + i, f32, 3, 90, 1, 512).transpose(1, 2)[::2] for i in range(4))
+    assert not q.is_contiguous()
+    x3 = A.flash_attention.tf32x3_launches, A.flash_attention_backward.tf32x3_launches
+    _check(A.flash_attention, A.flash_attention_reference, q, k, v)
+    out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
+    _check(A.flash_attention_backward, A.flash_attention_backward_reference, q, k, v, out, lse, g,
+           rms_tol=RMS_TOL["K13"])
+    assert (A.flash_attention.tf32x3_launches, A.flash_attention_backward.tf32x3_launches) == (x3[0] + 2, x3[1] + 1)
+    x = _randn(cuda, 344, f32, 40 * 512 + 1)[1:].view(1, 1, 40, 512)
+    with pytest.raises(ValueError, match="aligned"):
+        A.flash_attention(x, x, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l", [(2, 600), (1, 5824)])
+def test_fp32_one_512_head_packed_on_split_tf32(cuda, b, l):
+    """K1 and K5 in fp32 at one 512-dim head (packed [B, L, 1 x 512], the
+    VideoAttnBlock's attn2) on the split-TF32 kernels through the packed
+    strides, q / k / v as slices of one fused projection read in place: the
+    plain versions' bounds and FP64_RMS_TOL against float64."""
+    f32 = torch.float32
+    q, k, v = _randn(cuda, 350, f32, b, l, 3 * 512).split(512, dim=-1)
+    g = _randn(cuda, 351, f32, b, l, 512)
+    assert not q.is_contiguous()
+    x3 = A.flash_attention_packed.tf32x3_launches, A.flash_attention_packed_backward.tf32x3_launches
+    out, lse = A._flash_attention_packed_forward(q, k, v, 1, None, save_lse=True)
+    ref = A.flash_attention_packed_reference(q, k, v, 1)
+    _close(out, ref)
+    assert _fp64_rms((out,), A.flash_attention_packed_reference, q, k, v, 1) <= FP64_RMS_TOL
+    grads = A.flash_attention_packed_backward(q, k, v, out, lse, g, 1)
+    torch.cuda.synchronize()
+    _close_grads(grads, A.flash_attention_packed_backward_reference(q, k, v, out, lse, g, 1), None)
+    assert _fp64_rms(grads, A.flash_attention_packed_backward_reference, q, k, v, out, lse, g, 1) <= FP64_RMS_TOL
+    assert (A.flash_attention_packed.tf32x3_launches,
+            A.flash_attention_packed_backward.tf32x3_launches) == (x3[0] + 1, x3[1] + 1)
 
 
 @pytest.mark.gpu
@@ -1527,15 +1621,17 @@ def test_flash_attention_packed_one_512_head(cuda, dt, b, l):
     """K1 at one 512-dim head (the VideoAttnBlock's attn2, [7, 5824, 1 x 512]
     at svd.yaml's decode): a "flash" site, the rounded sum; bf16 on K3's D =
     512 wgmma kernel through the packed strides (`.wgmma_launches`), fp32 on
-    the FMA kernel; within chip_smoke.py's forward bounds (the plain version on
-    one batch item at 5824 tokens)."""
+    the split-TF32 kernel (`.tf32x3_launches`); within chip_smoke.py's forward
+    bounds (the plain version on one batch item at 5824 tokens)."""
     dtype = DTYPES[dt]
     q, k, v = (_randn(cuda, 250 + i, dtype, b, l, 512) for i in range(3))
     assert A.site_route("blhd", b, l, l) == "flash"
     wg, k3 = A.flash_attention_packed.wgmma_launches, A.flash_attention.launches
+    x3 = A.flash_attention_packed.tf32x3_launches
     out = A.small_batched_attention(*(x.view(b, l, 1, 512) for x in (q, k, v))).view(b, l, 512)
     torch.cuda.synchronize()
     assert A.flash_attention_packed.wgmma_launches == wg + (dtype == torch.bfloat16)
+    assert A.flash_attention_packed.tf32x3_launches == x3 + (dtype == torch.float32)
     assert A.flash_attention.launches == k3   # counted as K1's launch
     n = 1 if l > 2048 else b
     ref = A.flash_attention_packed_reference(q[:n], k[:n], v[:n], 1, psum_rounded=True)
@@ -1604,7 +1700,7 @@ def test_head_dims_off_the_table_are_refused_on_the_card(cuda):
 def test_packed_backward_at_one_512_head(cuda, dt, b, l):
     """K5 at one 512-dim head (the VideoAttnBlock's attn2 under a gradient:
     [7, 5824, 1 x 512] on the training clip) runs K13's D = 512 kernels on
-    the packed strides (`.wgmma_launches` in bf16, FMA in fp32), on the LSE
+    the packed strides (`.wgmma_launches` in bf16, `.tf32x3_launches` in fp32), on the LSE
     K1 writes there, within chip_smoke.py's backward bounds of the plain
     version (RMS_TOL["K13"])."""
     dtype = DTYPES[dt]
@@ -1613,9 +1709,11 @@ def test_packed_backward_at_one_512_head(cuda, dt, b, l):
     _, lse_ref = A.flash_attention_packed_reference(q, k, v, 1, save_lse=True)
     assert lse.shape == (b, l, 1) and (lse - lse_ref).abs().max().item() <= LSE_TOL
     wg, k13 = A.flash_attention_packed_backward.wgmma_launches, A.flash_attention_backward.launches
+    x3 = A.flash_attention_packed_backward.tf32x3_launches
     _check(A.flash_attention_packed_backward, A.flash_attention_packed_backward_reference, q, k, v, out, lse, g, 1,
            rms_tol=RMS_TOL["K13"])
     assert A.flash_attention_packed_backward.wgmma_launches == wg + (dtype == torch.bfloat16)
+    assert A.flash_attention_packed_backward.tf32x3_launches == x3 + (dtype == torch.float32)
     assert A.flash_attention_backward.launches == k13   # counted as K5's launch
 
 

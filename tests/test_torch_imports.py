@@ -203,4 +203,5 @@ def test_kernel_sources_are_packaged_and_hashed():
     assert len(_cuda._source_hash()) == 16
     # the shared headers are part of the hash: an edited tile rebuilds its kernels
     headers = sorted(os.path.basename(p) for p in glob.glob(os.path.join(_cuda.CSRC, "*.cuh")))
-    assert headers == ["common.cuh", "gemm_tile.cuh", "group_norm.cuh", "temporal_tile.cuh", "wgmma_tile.cuh"]
+    assert headers == ["common.cuh", "gemm_tile.cuh", "group_norm.cuh", "temporal_tile.cuh", "tf32x3_attention.cuh",
+                       "wgmma_tile.cuh"]

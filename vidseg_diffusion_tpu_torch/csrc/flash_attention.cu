@@ -55,10 +55,11 @@
 //   accumulator registers a thread over 256 threads, so two warpgroups each
 //   own 256 output columns and keys arrive in 32-key tiles through a two-stage
 //   ring that one thread fills by TMA while the previous tile multiplies;
-// - fp32 inputs (the card-vs-CPU checks; no main path sends them) run
-//   flash_fwd_kernel at every D, fp32 FMAs on shared-memory tiles (4x4 register
-//   micro-tiles per thread for S = Q K^T and for P V; D = 512 uses 32-row
-//   tiles and ~200 KB of dynamic shared memory).
+// - fp32 inputs (the card-vs-CPU checks and `--dtype float32`) run at D = 512
+//   on the tensor cores with split TF32 products (flash_fwd_tf32x3_kernel,
+//   tf32x3_attention.cuh: 3 products of hi / lo parts, fp32-class) and at
+//   D = 16, 64 and 80 flash_fwd_kernel, fp32 FMAs on shared-memory tiles (4x4
+//   register micro-tiles per thread for S = Q K^T and for P V).
 //
 // Training: with a non-null `lse` the kernels also write each row's base-2
 // logsumexp m + log2(l) per head, fp32 [B, Lq, H] (the JAX kernel's save_lse
@@ -69,6 +70,7 @@
 // for K1 and for K3 at D = 16 and 64, K13 (flash_attention_bhld_bwd.cu) for K3 at
 // D = 512 and 80.
 #include "common.cuh"
+#include "tf32x3_attention.cuh"
 #include "wgmma_tile.cuh"
 
 namespace vs {
@@ -262,18 +264,46 @@ int dispatch_head_dim(int D, const void* q, const void* k, const void* v, void* 
       return launch_flash<T, 64, 64, 64>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
     case 80:
       return launch_flash<T, 80, 64, 64>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
-    case 512:
-      return launch_flash<T, 512, 32, 32>(q, k, v, o, lse, B, H, Lq, Lk, st, qscale, stream);
     default:
       return kErrUnsupported;
   }
 }
 
-// The fp32 route of both entry points.
+// fp32 at D = 512 (K3 at the VAE's mid attention, K1 at one 512-dim head): the
+// split-TF32 kernel of tf32x3_attention.cuh in its forward role (own rows the
+// queries, 128-key tiles: BT 128 halves the re-reads of the q tile from L2; up
+// to 64 keys, SPLIT: the head dim split over the warpgroups, half the steps).
+template <bool SPLIT>
+__global__ void __launch_bounds__(256, 1) flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
+                                                                  const __grid_constant__ CUtensorMap kmap,
+                                                                  const __grid_constant__ CUtensorMap vmap,
+                                                                  const x3::Args args) {
+  x3::attention_body<x3::kFwd, SPLIT>(&qmap, &qmap, &kmap, &kmap, &vmap, args);
+}
+
+int launch_flash_tf32x3(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Lq,
+                        int Lk, const long long* st, float qscale, cudaStream_t stream) {
+  const void* bases[3] = {q, k, v};
+  if (!x3::rows_ok(bases, 3, st, 9)) return kErrBadArgument;
+  const bool split = Lk <= 64;
+  CUtensorMap qmap, kmap, vmap;
+  if (const int rc = x3::tiled_map(q, st, Lq, H, B, 64, &qmap)) return rc;
+  if (const int rc = x3::tiled_map(k, st + 3, Lk, H, B, split ? 64 : x3::Cfg<x3::kFwd>::BT, &kmap)) return rc;
+  if (const int rc = x3::tiled_map(v, st + 6, Lk, H, B, 64, &vmap)) return rc;
+  const x3::Args args{H, Lq, Lk, 0, qscale, 1.f, static_cast<float*>(o), st[9], st[10], st[11], lse, nullptr};
+  return split ? x3::launch<x3::kFwd, true>(flash_fwd_tf32x3_kernel<true>, Lq, B * H, stream, qmap, kmap, vmap, args)
+               : x3::launch<x3::kFwd, false>(flash_fwd_tf32x3_kernel<false>, Lq, B * H, stream, qmap, kmap, vmap,
+                                             args);
+}
+
+// The fp32 route of both entry points: route 7 (split TF32 on wgmma) at D = 512,
+// 0 (FMAs) at the others.
 int flash_entry_fp32(int D, const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                     int H, int Lq, int Lk, const long long* strides, float qscale, void* stream) {
-  return dispatch_head_dim<float>(D, q, k, v, o, lse, B, H, Lq, Lk, strides, qscale,
-                                  static_cast<cudaStream_t>(stream));
+                     int H, int Lq, int Lk, const long long* strides, float qscale, void* stream, int* route) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *route = D == 512 ? kRouteTf32x3 : 0;
+  if (D == 512) return launch_flash_tf32x3(q, k, v, o, lse, B, H, Lq, Lk, strides, qscale, s);
+  return dispatch_head_dim<float>(D, q, k, v, o, lse, B, H, Lq, Lk, strides, qscale, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1922,8 +1952,7 @@ inline int flash_entry(int dtype, int D, const void* q, const void* k, const voi
     rc = flash_bf16_by_dim(D, sum_mode, q, k, v, o, l, B, H, Lq, Lk, strides, qscale,
                            static_cast<cudaStream_t>(stream), &r);
   } else if (dtype == kFloat32) {
-    r = 0;
-    rc = flash_entry_fp32(D, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, stream);
+    rc = flash_entry_fp32(D, q, k, v, o, l, B, H, Lq, Lk, strides, qscale, stream, &r);
   }
   if (route != nullptr) *route = r;
   return rc;
@@ -1935,7 +1964,8 @@ inline int flash_entry(int dtype, int D, const void* q, const void* k, const voi
 // the head-dim stride must be 1. D in {16, 64}, and 512 at one head (H = 1: the
 // packed [B, L, 512] rows are K3's [B, 1, L, 512], so K3's D = 512 kernel runs
 // them; the VideoDecoder's VideoAttnBlock). bf16 needs 16-byte aligned rows (or
-// kErrBadArgument); fp32 runs the FMA kernel.
+// kErrBadArgument); fp32 runs the split-TF32 kernel at D = 512 (16-byte aligned
+// rows too) and the FMA kernel at 16 and 64.
 // lse: NULL, or fp32 [B, Lq, H] contiguous for the base-2 logsumexp.
 // sum_mode: 1, the denominator sums the p rounded to bf16; 0, the fp32 p; 2,
 // normalise first (qscale then multiplies the fp32 logits; no lse; not at D =
@@ -1943,7 +1973,8 @@ inline int flash_entry(int dtype, int D, const void* q, const void* k, const voi
 // memory (what mode 2 runs past the resident kernels' keys; at D = 16, mode 2).
 // No effect in fp32.
 // route (or NULL) receives the kernel that ran: 2 wgmma, 1 mma.sync, 0 fp32 FMAs,
-// 5 and 6 the resident normalise-first kernels at D = 64 (wgmma) and 80 (mma.sync).
+// 5 and 6 the resident normalise-first kernels at D = 64 (wgmma) and 80 (mma.sync),
+// 7 fp32 D = 512 on split TF32 products (wgmma).
 extern "C" int vs_flash_attention_packed(int dtype, int D, const void* q, const void* k,
                                          const void* v, void* o, void* lse, int B, int H,
                                          int Lq, int Lk, const long long* strides,

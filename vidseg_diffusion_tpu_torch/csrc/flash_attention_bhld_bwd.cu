@@ -28,10 +28,14 @@
 // kernels that follow: a block owns 16 rows (one mma row tile), the 16 x 64 S
 // and dP tiles are parked in shared memory as fp32, and the head dim is spread
 // over eight warps; the row-major operands of the second products come through
-// ldmatrix.trans. fp32 runs FMAs on the same tiling (the card-vs-CPU checks).
+// ldmatrix.trans. fp32 at D = 512 runs three kernels on the tensor cores with
+// split TF32 products (tf32x3_attention.cuh, below the bf16 kernels: dq,
+// dk and dv each the only writer of its output, after a delta kernel); fp32 at
+// D = 80 runs FMAs on the mma.sync kernels' tiling.
 #include <string.h>
 
 #include "common.cuh"
+#include "tf32x3_attention.cuh"
 #include "wgmma_tile.cuh"
 
 namespace vs {
@@ -869,7 +873,81 @@ int launch_wgmma512(const void* q, const void* k, const void* v, const void* o, 
 }
 
 // ---------------------------------------------------------------------------
-// fp32 on FMAs, the same tiling with 16-row tiles on both sides: 256 threads as
+// fp32 at D = 512 on split TF32 products (tf32x3_attention.cuh). Three kernels,
+// each the only writer of its output: dq (own rows the queries: S and dP, then
+// dQ += dS K), dk (own rows the keys: S^T and dP^T, then dK += dS^T qf) and dv
+// (S^T alone, then dV += P^T g; up to 64 queries with the head dim split over
+// its warpgroups): 16 L^2 D flops executed against the 10 the math needs (S
+// three times, dP twice); a 64 x 512 fp32 output is all two warpgroups'
+// accumulators, so dk and dv do not share a block. delta = rowsum(g o) comes
+// first, one warp a row, into the scratch.
+__global__ void __launch_bounds__(256) bhld_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ g,
+                                                             float* __restrict__ delta, int H, int Lq, int lq_pad,
+                                                             long long osb, long long osl, long long osh,
+                                                             long long gsb, long long gsl, long long gsh) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 8 + warp, bh = blockIdx.y, b = bh / H, h = bh % H;
+  if (row >= Lq) return;
+  const float4* orow = reinterpret_cast<const float4*>(o + b * osb + h * osh + (long long)row * osl);
+  const float4* grow = reinterpret_cast<const float4*>(g + b * gsb + h * gsh + (long long)row * gsl);
+  float acc = 0.f;
+#pragma unroll
+  for (int c = lane; c < 128; c += 32) {
+    const float4 x = orow[c], y = grow[c];
+    acc += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) delta[(long long)bh * lq_pad + row] = acc;
+}
+
+template <int ROLE, bool SPLIT>
+__global__ void __launch_bounds__(256, 1) bhld_bwd_tf32x3_kernel(
+    const __grid_constant__ CUtensorMap own1, const __grid_constant__ CUtensorMap own2,
+    const __grid_constant__ CUtensorMap oth1, const __grid_constant__ CUtensorMap oth2,
+    const __grid_constant__ CUtensorMap cmap, const x3::Args args) {
+  x3::attention_body<ROLE, SPLIT>(&own1, &own2, &oth1, &oth2, &cmap, args);
+}
+
+// q, k, v, o, g fp32 [B, H, L, 512] through their strides (bases 16-byte
+// aligned, strides whole 16-byte rows); scratch: [B*H, Lq rounded up to 4] fp32
+// for delta.
+int launch_tf32x3(const void* q, const void* k, const void* v, const void* o, const void* g, const float* lse,
+                  float* scratch, void* dq, void* dk, void* dv, int B, int H, int Lq, int Lk, const long long* st,
+                  float qscale, float scale, cudaStream_t stream) {
+  const void* bases[6] = {q, k, v, o, g, scratch};
+  if (!x3::rows_ok(bases, 6, st, 15)) return kErrBadArgument;
+  // q, k, v, g: boxes of 32 columns x 64 rows; q also x 128 (the dv kernel's other rows)
+  CUtensorMap q64, q128, k64, v64, g64;
+  if (const int rc = x3::tiled_map(q, st, Lq, H, B, 64, &q64)) return rc;
+  if (const int rc = x3::tiled_map(q, st, Lq, H, B, 128, &q128)) return rc;
+  if (const int rc = x3::tiled_map(k, st + 3, Lk, H, B, 64, &k64)) return rc;
+  if (const int rc = x3::tiled_map(v, st + 6, Lk, H, B, 64, &v64)) return rc;
+  if (const int rc = x3::tiled_map(g, st + 12, Lq, H, B, 64, &g64)) return rc;
+  const int lq_pad = (Lq + 3) / 4 * 4;
+  bhld_bwd_delta_kernel<<<dim3((Lq + 7) / 8, B * H), 256, 0, stream>>>(
+      static_cast<const float*>(o), static_cast<const float*>(g), scratch, H, Lq, lq_pad, st[9], st[10], st[11],
+      st[12], st[13], st[14]);
+  if (const cudaError_t err = cudaGetLastError()) return (int)err;
+  float* l = const_cast<float*>(lse);
+  // the maps of each role: own1, own2, other1, other2, C
+  const x3::Args aq{H, Lq, Lk, lq_pad, qscale, scale, static_cast<float*>(dq), st[15], st[16], st[17], l, scratch};
+  if (const int rc = x3::launch<x3::kDq, false>(bhld_bwd_tf32x3_kernel<x3::kDq, false>, Lq, B * H, stream, q64, g64,
+                                                k64, v64, k64, aq))
+    return rc;
+  const x3::Args ak{H, Lk, Lq, lq_pad, qscale, kInvLog2E, static_cast<float*>(dk), st[18], st[19], st[20], l, scratch};
+  if (const int rc = x3::launch<x3::kDk, false>(bhld_bwd_tf32x3_kernel<x3::kDk, false>, Lk, B * H, stream, k64, v64,
+                                                q64, g64, q64, ak))
+    return rc;
+  const x3::Args av{H, Lk, Lq, lq_pad, qscale, 1.f, static_cast<float*>(dv), st[21], st[22], st[23], l, nullptr};
+  // up to 64 queries the dv kernel splits the head dim over its warpgroups (half the steps)
+  return Lq <= 64 ? x3::launch<x3::kDv, true>(bhld_bwd_tf32x3_kernel<x3::kDv, true>, Lk, B * H, stream, k64, k64,
+                                              q64, q64, g64, av)
+                  : x3::launch<x3::kDv, false>(bhld_bwd_tf32x3_kernel<x3::kDv, false>, Lk, B * H, stream, k64, k64,
+                                               q128, q128, g64, av);
+}
+
+// ---------------------------------------------------------------------------
+// fp32 at D = 80 on FMAs, the same tiling with 16-row tiles on both sides: 256 threads as
 // 16 rows x 16 column groups; a thread owns row r and the head-dim columns
 // cg + 16 j. fp32 rows are padded by one float (conflict-free columns).
 
@@ -1076,7 +1154,8 @@ int launch_fma(const void* q, const void* k, const void* v, const void* o, const
 // fp32 [B, Lq, H] from K3; delta: fp32 scratch of 2 * B * H * (Lq rounded up
 // to 4) (written by the dq kernel, read by the dk/dv kernel, on the same
 // stream). D in {80, 512}; route (or NULL) receives the kernels that ran: 2
-// wgmma (bf16 D = 512), 1 mma.sync (bf16 D = 80), 0 fp32 FMAs.
+// wgmma (bf16 D = 512), 1 mma.sync (bf16 D = 80), 7 split TF32 on wgmma (fp32
+// D = 512; 16-byte aligned rows, or kErrBadArgument), 0 fp32 FMAs (D = 80).
 extern "C" int vs_flash_attention_bhld_bwd(int dtype, int D, const void* q, const void* k, const void* v,
                                            const void* o, const void* g, const void* lse, void* delta,
                                            void* dq, void* dk, void* dv, int B, int H, int Lq, int Lk,
@@ -1096,10 +1175,12 @@ extern "C" int vs_flash_attention_bhld_bwd(int dtype, int D, const void* q, cons
   } else if (dtype == vs::kBFloat16 && D == 80) {
     r = 1;
     rc = launch_mma<80>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, strides, st, qscale, scale, s);
-  } else if (dtype == vs::kFloat32 && (D == 512 || D == 80)) {
+  } else if (dtype == vs::kFloat32 && D == 512) {
+    r = vs::kRouteTf32x3;
+    rc = launch_tf32x3(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, strides, qscale, scale, s);
+  } else if (dtype == vs::kFloat32 && D == 80) {
     r = 0;
-    rc = D == 512 ? launch_fma<512>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s)
-                  : launch_fma<80>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s);
+    rc = launch_fma<80>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s);
   }
   if (route != nullptr) *route = r;
   return rc;

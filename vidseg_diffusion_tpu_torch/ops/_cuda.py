@@ -37,8 +37,10 @@ NVCC_FLAGS = (
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel an entry with a `route` out-parameter reports it ran; 5 and 6 are
-# the normalise-first kernels that hold a head's K and V in shared memory
-ROUTES = {0: "fma", 1: "mma_sync", 2: "wgmma", 3: "narrow", 4: "wide", 5: "wgmma_resident", 6: "mma_sync_resident"}
+# the normalise-first kernels that hold a head's K and V in shared memory, 7 the
+# fp32 D = 512 attention on split TF32 products (wgmma)
+ROUTES = {0: "fma", 1: "mma_sync", 2: "wgmma", 3: "narrow", 4: "wide", 5: "wgmma_resident", 6: "mma_sync_resident",
+          7: "tf32x3"}
 
 
 def _find_nvcc() -> Optional[str]:

@@ -209,12 +209,13 @@ def _check_packed(name, q, k, v, heads):
     return dtype
 
 
-def _check_bf16_rows(name, dtype, strides, n_vec, *tensors):
-    """The bf16 tensor-core kernels load rows as 16-byte vectors: the first
-    `n_vec` strides must be whole vectors and the base pointers aligned."""
-    if dtype == torch.bfloat16 and (any(s % 8 for s in strides[:n_vec])
-                                    or any(t.data_ptr() % 16 for t in tensors)):
-        raise ValueError(f"{name}: bf16 q/k/v rows must be 16-byte aligned")
+def _check_aligned_rows(name, dtype, d, strides, n_vec, *tensors):
+    """The tensor-core kernels load rows as 16-byte vectors (bf16, and fp32 at
+    D = 512, whose split-TF32 kernels read by TMA): the first `n_vec` strides
+    must be whole vectors and the base pointers aligned."""
+    vec = 8 if dtype == torch.bfloat16 else 4 if d == 512 else 0
+    if vec and (any(s % vec for s in strides[:n_vec]) or any(t.data_ptr() % 16 for t in tensors)):
+        raise ValueError(f"{name}: {'bf16' if vec == 8 else 'fp32 D = 512'} q/k/v rows must be 16-byte aligned")
 
 
 def _flash_attention_packed_forward(q, k, v, heads: int, scale: Optional[float], save_lse: bool,
@@ -236,7 +237,7 @@ def _flash_attention_packed_forward(q, k, v, heads: int, scale: Optional[float],
     lse = torch.empty((b, lq, heads), dtype=torch.float32, device=q.device) if save_lse else None
     strides = _cuda.strides_arg(q.view(b, lq, heads, d), k.view(b, lk, heads, d),
                                 v.view(b, lk, heads, d), out)
-    _check_bf16_rows("flash_attention_packed", dtype, strides, 9, q, k, v)
+    _check_aligned_rows("flash_attention_packed", dtype, d, strides, 9, q, k, v)
     route = _cuda.call_routed(
         "vs_flash_attention_packed", _cuda.DTYPE_CODES[dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -251,7 +252,8 @@ def _flash_attention_packed_forward(q, k, v, heads: int, scale: Optional[float],
     flash_attention_packed.resident_launches += resident
     flash_attention_packed.wgmma_launches += route == "wgmma"
     flash_attention_packed.mma_launches += route == "mma_sync"
-    if normalise_first and route != "fma":
+    flash_attention_packed.tf32x3_launches += route == "tf32x3"
+    if normalise_first and dtype == torch.bfloat16:
         flash_attention_packed.normalised_launches += 1
         flash_attention_packed.normalised_dim_launches[d] += 1
     out = out.view(b, lq, hd)
@@ -284,8 +286,9 @@ def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
     transpose; bf16 runs the wgmma kernel fed by TMA at D = 64 (at one 512-dim
     head K3's D = 512 kernel, which reads the same rows), the mma.sync
     template at D = 16, and needs 16-byte aligned rows (a view that is not is
-    refused); fp32 the FMA kernel. The denominator sums the rounded p
-    (psum_rounded, JAX's fused_psum default) or the fp32 p (the short sites,
+    refused); fp32 the FMA kernel, at one 512-dim head K3's split-TF32
+    kernel (`.tf32x3_launches`; 16-byte aligned rows too). The denominator
+    sums the rounded p (psum_rounded, JAX's fused_psum default) or the fp32 p (the short sites,
     small_batched_attention); the LSE written under a gradient is m + log2 of
     that same sum. normalise_first computes mha_reference's softmax instead
     (p normalised in fp32, then rounded; no gradient). Differentiable
@@ -301,6 +304,7 @@ flash_attention_packed.launches = 0
 flash_attention_packed.dim_launches = collections.Counter()   # launches by head dim
 flash_attention_packed.wgmma_launches = 0   # of .launches, those that ran a wgmma kernel (D = 64, 512)
 flash_attention_packed.mma_launches = 0   # of .launches, those on the mma.sync template (bf16 D = 16)
+flash_attention_packed.tf32x3_launches = 0   # of .launches, fp32 D = 512 on split TF32 products (wgmma)
 flash_attention_packed.normalised_launches = 0   # bf16 launches in the normalise-first mode
 flash_attention_packed.normalised_dim_launches = collections.Counter()   # those by head dim
 # of .normalised_launches, those on the kernel that holds a head's K and V in shared memory (D = 64,
@@ -374,7 +378,7 @@ def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
     dv = torch.empty_like(dk)
     r4 = lambda t, l: t.view(b, l, heads, d)
     strides = _cuda.strides_arg(r4(q, lq), r4(k, lk), r4(v, lk), r4(out, lq), r4(g, lq), dq, dk, dv)
-    _check_bf16_rows("flash_attention_packed_backward", dtype, strides, 15, q, k, v, out, g)
+    _check_aligned_rows("flash_attention_packed_backward", dtype, d, strides, 15, q, k, v, out, g)
     route = _cuda.call_routed(
         "vs_flash_attention_bhld_bwd" if d == 512 else "vs_flash_attention_packed_bwd", _cuda.DTYPE_CODES[dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
@@ -385,18 +389,21 @@ def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
     flash_attention_packed_backward.launches += 1
     flash_attention_packed_backward.dim_launches[d] += 1
     flash_attention_packed_backward.wgmma_launches += route == "wgmma"
+    flash_attention_packed_backward.tf32x3_launches += route == "tf32x3"
     return dq.view(b, lq, hd), dk.view(b, lk, hd), dv.view(b, lk, hd)
 
 
 flash_attention_packed_backward.launches = 0
 flash_attention_packed_backward.dim_launches = collections.Counter()
 flash_attention_packed_backward.wgmma_launches = 0   # bf16 D = 64 and 512 (K13's kernels), on the wgmma kernels
+flash_attention_packed_backward.tf32x3_launches = 0   # fp32 D = 512 (K13's kernels), on split TF32 products
 
 
 def _bwd_scratch(b, h, lq, device):
     """fp32 scratch of the flash backwards (K5, K13): the dq kernel writes each
     row's LSE and delta = rowsum(g * o) there as [2, B*H, Lq rounded up to 4]
-    (rows 16-byte aligned, read by the dk/dv kernel's TMA)."""
+    (rows 16-byte aligned, read by the dk/dv kernel's TMA); K13's fp32 D = 512
+    kernels write delta into the first half."""
     return torch.empty((2, b * h, (lq + 3) // 4 * 4), dtype=torch.float32, device=device)
 
 
@@ -699,7 +706,7 @@ def _flash_attention_forward(q, k, v, scale: Optional[float], save_lse: bool, no
     out = torch.empty((b, h, lq, d), dtype=dtype, device=q.device)
     lse = torch.empty((b, lq, h), dtype=torch.float32, device=q.device) if save_lse else None
     strides = _cuda.strides_arg(q, k, v, out, dims=(0, 2, 1))
-    _check_bf16_rows("flash_attention", dtype, strides, 9, q, k, v)
+    _check_aligned_rows("flash_attention", dtype, d, strides, 9, q, k, v)
     route = _cuda.call_routed(
         "vs_flash_attention_bhld", _cuda.DTYPE_CODES[dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -713,7 +720,8 @@ def _flash_attention_forward(q, k, v, scale: Optional[float], save_lse: bool, no
     flash_attention.dim_launches[d] += 1
     flash_attention.resident_launches += resident
     flash_attention.wgmma_launches += route == "wgmma"
-    if normalise_first and route != "fma":
+    flash_attention.tf32x3_launches += route == "tf32x3"
+    if normalise_first and dtype == torch.bfloat16:
         flash_attention.normalised_launches += 1
         flash_attention.normalised_dim_launches[d] += 1
     return (out, lse) if save_lse else out
@@ -743,7 +751,8 @@ def flash_attention(q, k, v, scale: Optional[float] = None, normalise_first: boo
     the tiny configs' 16), so a strided view (CLIP's [B, L, H, D] projections
     seen as bhld) is read in place. bf16 runs on the tensor cores (wgmma at D
     = 512 and 64, mma.sync at 80 and 16) and needs 16-byte aligned rows; fp32
-    runs the FMA kernel. normalise_first (bf16 D = 16, 64 and 80) computes
+    runs the FMA kernel, at D = 512 the tensor cores with split TF32 products
+    (`.tf32x3_launches`; 16-byte aligned rows too). normalise_first (bf16 D = 16, 64 and 80) computes
     mha_reference's softmax (no gradient). Differentiable otherwise: with grad
     on, the forward also writes the LSE and the backward is K13 (K5 at D = 16
     and 64)."""
@@ -756,6 +765,7 @@ def flash_attention(q, k, v, scale: Optional[float] = None, normalise_first: boo
 flash_attention.launches = 0
 flash_attention.dim_launches = collections.Counter()
 flash_attention.wgmma_launches = 0   # D = 64 and 512 in bf16 (D = 16 and 80 run mma.sync)
+flash_attention.tf32x3_launches = 0   # fp32 D = 512, on split TF32 products (wgmma)
 flash_attention.normalised_launches = 0   # bf16 launches in the normalise-first mode
 flash_attention.normalised_dim_launches = collections.Counter()   # those by head dim
 # of .normalised_launches, those on the kernels that hold a head's K and V in shared memory (D = 64 up
@@ -786,7 +796,8 @@ flash_attention_backward_reference.calls = 0
 def flash_attention_backward(q, k, v, out, lse, g, scale: Optional[float] = None):
     """K13: (dq, dk, dv) of K3 from its saved LSE, bhld [B, H, L, D] read and
     written through strides; two kernels, dq over key tiles and dk/dv over
-    query tiles, each the only writer of its outputs. D = 512 and 80; D = 16
+    query tiles, each the only writer of its outputs (fp32 at D = 512: dq, dk
+    and dv apart, on split TF32 products, `.tf32x3_launches`). D = 512 and 80; D = 16
     and 64 run K5 on the same strides (the JAX package routes every head dim
     through the one packed backward). The plain version on CPU."""
     if q.device.type == "cpu":
@@ -804,7 +815,7 @@ def flash_attention_backward(q, k, v, out, lse, g, scale: Optional[float] = None
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
     strides = _cuda.strides_arg(q, k, v, out, g, dq, dk, dv, dims=(0, 2, 1))
-    _check_bf16_rows("flash_attention_backward", dtype, strides, 15, q, k, v, out, g)
+    _check_aligned_rows("flash_attention_backward", dtype, d, strides, 15, q, k, v, out, g)
     k5 = d in (16, 64)
     route = _cuda.call_routed(
         "vs_flash_attention_packed_bwd" if k5 else "vs_flash_attention_bhld_bwd",
@@ -818,12 +829,14 @@ def flash_attention_backward(q, k, v, out, lse, g, scale: Optional[float] = None
     counter.launches += 1
     counter.dim_launches[d] += 1
     counter.wgmma_launches += route == "wgmma"
+    counter.tf32x3_launches += route == "tf32x3"
     return dq, dk, dv
 
 
 flash_attention_backward.launches = 0
 flash_attention_backward.dim_launches = collections.Counter()
 flash_attention_backward.wgmma_launches = 0   # bf16 D = 512, on the wgmma kernels
+flash_attention_backward.tf32x3_launches = 0   # fp32 D = 512, on split TF32 products (wgmma)
 
 
 # -- dispatcher -------------------------------------------------------------

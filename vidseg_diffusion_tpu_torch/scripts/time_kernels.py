@@ -4,7 +4,8 @@ and its backward K6, the flash backwards K5 and K13, the normalise-first
 route of K1 and K3, and the GroupNorm backward at the main paths'
 shapes, beside the one PyTorch call for the same function, on one CUDA card.
 
-    python3 -m vidseg_diffusion_tpu_torch.scripts.time_kernels [--only k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w]
+    python3 -m vidseg_diffusion_tpu_torch.scripts.time_kernels [--only k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3]
+                                                              [--root CHECKOUT]
 
 Each call is captured 20 times into a CUDA graph and the replay is timed with
 CUDA events, so the readings are device time without the host's launch cost
@@ -50,6 +51,16 @@ first stage: K5 there (`k5w`: K13's kernels on the packed strides, [7, 5824,
 1 x 512], a CUDA graph beside SDPA's backward, profiled) and K6's wide kernel
 (`k6w`: [t, 5824, 1, 512] at t = 7 and 14, bf16 and fp32, CUDA events and a
 graph beside SDPA's backward on the canonical view, whose backend is named).
+The fp32 attention at D = 512 on split TF32 products (`x3`): K1 at one 512-dim
+head ([7, 5824, 1 x 512] and [14, ...], the VideoDecoder's attn2), its
+backward K5 there on the 7-frame training clip, and K3 / K13 at [2, 1, 64,
+512] (ae_grad's mid attention), each a CUDA graph beside SDPA (its backend
+named; the backward profiled), held to the plain version and to the plain
+version in float64 (relative RMS). fp32 library calls run with TF32 off (full
+fp32, as the kernels compute), and an fp32 row's bound by operations is flops
+over 165 TFLOP/s (three TF32 products at 495), bf16's over 989. `--root` times
+the kernels of another checkout (a parent commit unpacked beside this one) with
+this script, so two versions compare in one call.
 Prints the card's name and power limit
 and ptxas's register / spill lines for the wgmma, the mma.sync flash and the
 temporal-attention kernels.
@@ -115,7 +126,12 @@ GN_BWD_SITES = GN_SITES + [((28, 28, 52, 1920), "bf16", True, 1e-5), ((2, 14, 14
                            # 112x208 and 224x416 levels
                            ((7, 56, 104, 512), "bf16", True, 1e-6), ((1, 7, 56, 104, 512), "bf16", True, 1e-6),
                            ((7, 112, 208, 512), "bf16", True, 1e-6), ((7, 224, 416, 256), "bf16", True, 1e-6)]
-HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
+HBM_BYTES_PER_S = 3.35e12
+# dense tensor-core peaks: bf16, and fp32-class products as three TF32 products (495 / 3)
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 495e12 / 3}
+# the fp32 D = 512 attention (`x3`): packed [B, L, 1 x 512] forwards (decoding_t 7 and 14), the packed
+# backward on the 7-frame training clip, and bhld [B, 1, L, 512] forward and backward at ae_grad's 64 tokens
+X3_FWD_SHAPES, X3_BWD_SHAPES, X3_BHLD = [(7, 5824), (14, 5824)], [(7, 5824)], (2, 1, 64, 512)
 
 
 def graph_ms(torch, fn, n=20):
@@ -182,8 +198,8 @@ def errors(out, ref):
     return diff.abs().max().item() / step, diff.norm().item() / ref.float().norm().item()
 
 
-def bound_ms(nbytes, flops):
-    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+def bound_ms(nbytes, flops, dtype="bf16"):
+    return max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]) * 1e3
 
 
 def routes(fn):
@@ -392,10 +408,98 @@ def time_temporal_wide_backward(torch, F, rn):
             item = q.element_size()
             nbytes, flops = 8 * item * q.numel(), 10 * t * t * 512 * s
             print(f"K6 D=512 [{t},{s},1,512] t={t} {str(dtype)[6:]} (CUDA events): {ms:.4f} ms (SDPA backward "
-                  f"{lib_ms:.4f}, backends taking the view {takes}; bound {bound_ms(nbytes, flops):.4f}; device time "
+                  f"{lib_ms:.4f}, backends taking the view {takes}; bound "
+                  f"{bound_ms(nbytes, flops, 'bf16' if item == 2 else 'fp32'):.4f}; device time "
                   f"{dev_ms:.4f}), {check}; routes over the timed launches {moved}", flush=True)
             del q, k, v, g, o, got, ref, leaves, y
             torch.cuda.empty_cache()
+
+
+def sdpa_backend(torch, F, *qkv):
+    """The first SDPA backend that takes these inputs: the one the library call runs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(*qkv)
+            return backend.name
+        except RuntimeError:
+            pass
+    return "none"
+
+
+def time_x3(torch, F, rn):
+    """The fp32 attention at D = 512 (`x3`): forwards and backwards as CUDA
+    graphs beside SDPA (backward: profiled), held to the plain version (max
+    error relative to max |plain|, relative RMS) and to the plain version in
+    float64 (relative RMS). Bound: bytes, or the five products (backward; the
+    kernels execute eight: S three times, dP twice) at 165 TFLOP/s."""
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    def check(got, plain, args):
+        ref, ref64 = plain(*args), plain(*(a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                                           for a in args))
+        got, ref, ref64 = ((x,) if torch.is_tensor(x) else x for x in (got, ref, ref64))
+        return ", ".join("%.2e relative, rel. RMS %.2e" % errors(x, r) + ", vs float64 rel. RMS %.2e"
+                         % ((x.double() - r64).norm() / r64.norm()).item() for x, r, r64 in zip(got, ref, ref64))
+
+    def bwd_lib(view, qkv, g):
+        leaves = [view(x).detach().requires_grad_() for x in qkv]
+        y = F.scaled_dot_product_attention(*leaves)
+        return profiled_ms(torch, lambda: torch.autograd.grad(y, leaves, view(g), retain_graph=True))
+
+    for b, l in X3_FWD_SHAPES:
+        q, k, v = (rn(b, l, 512) for _ in range(3))
+        heads = lambda x: x.view(b, l, 1, 512).transpose(1, 2)
+        before = routes(A.flash_attention_packed)
+        got = A.flash_attention_packed(q, k, v, 1)
+        moved = {key: val - before[key] for key, val in routes(A.flash_attention_packed).items()}
+        errs = check(got, A.flash_attention_packed_reference, (q, k, v, 1))
+        ms = graph_ms(torch, lambda: A.flash_attention_packed(q, k, v, 1), 5)
+        lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), 5)
+        print(f"X3 K1 fp32 [{b},{l},1x512]: {ms:.4f} ms (SDPA {lib_ms:.4f}, "
+              f"{sdpa_backend(torch, F, heads(q), heads(k), heads(v))}; bound "
+              f"{bound_ms(16 * b * l * 512, 4 * b * l * l * 512, 'fp32'):.4f}), {errs}; routes of one call {moved}",
+              flush=True)
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    for b, l in X3_BWD_SHAPES:
+        q, k, v, g = (rn(b, l, 512) for _ in range(4))
+        heads = lambda x: x.view(b, l, 1, 512).transpose(1, 2)
+        out, lse = A._flash_attention_packed_forward(q, k, v, 1, None, save_lse=True)
+        args = (q, k, v, out, lse, g, 1)
+        before = routes(A.flash_attention_packed_backward)
+        got = A.flash_attention_packed_backward(*args)
+        moved = {key: val - before[key] for key, val in routes(A.flash_attention_packed_backward).items()}
+        errs = check(got, A.flash_attention_packed_backward_reference, args)
+        ms = graph_ms(torch, lambda: A.flash_attention_packed_backward(*args), 3)
+        lib_ms = bwd_lib(heads, (q, k, v), g)
+        print(f"X3 K5 fp32 [{b},{l},1x512]: {ms:.4f} ms (SDPA backward {fmt_ms(lib_ms)}, "
+              f"{sdpa_backend(torch, F, heads(q), heads(k), heads(v))}; bound "
+              f"{bound_ms(32 * b * l * 512, 10 * b * l * l * 512, 'fp32'):.4f}), {errs}; routes of one call {moved}",
+              flush=True)
+        del q, k, v, g, out, lse, args, got
+        torch.cuda.empty_cache()
+    b, h, l, d = X3_BHLD
+    q, k, v, g = (rn(b, h, l, d) for _ in range(4))
+    out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
+    for name, fn, plain, args, lib_ms, flops in (
+            ("K3", lambda *a: A._flash_attention_forward(*a, None, save_lse=False), A.flash_attention_reference,
+             (q, k, v), graph_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)), 4 * b * l * l * d),
+            ("K13", A.flash_attention_backward, A.flash_attention_backward_reference, (q, k, v, out, lse, g),
+             bwd_lib(lambda x: x, (q, k, v), g), 10 * b * l * l * d)):
+        counter = A.flash_attention if name == "K3" else A.flash_attention_backward
+        before = routes(counter)
+        got = fn(*args)
+        moved = {key: val - before[key] for key, val in routes(counter).items()}
+        errs = check(got, plain, args)
+        ms = graph_ms(torch, lambda: fn(*args))
+        nbytes = (16 if name == "K3" else 32) * b * h * l * d
+        print(f"X3 {name} fp32 [{b},{h},{l},{d}]: {ms:.4f} ms (SDPA{' backward' if name == 'K13' else ''} "
+              f"{fmt_ms(lib_ms)}, {sdpa_backend(torch, F, q, k, v)}; bound {bound_ms(nbytes, flops, 'fp32'):.4f}), "
+              f"{errs}; routes of one call {moved}", flush=True)
 
 
 def time_normalised(torch, F, rn):
@@ -511,31 +615,52 @@ def main():
     import torch
     import torch.nn.functional as F
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", default="k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3",
+                        help="comma-separated: k11, k1, k4, gn, k2, k6, k5, k13, nf, gnb, k5w, k6w, x3")
+    parser.add_argument("--root", default=None,
+                        help="import vidseg_diffusion_tpu_torch (and build its kernels) from this checkout")
+    args = parser.parse_args()
+    only = set(args.only.split(","))
+    if args.root:   # that checkout's package, even where `-m` has imported this one's
+        sys.path.insert(0, os.path.abspath(args.root))
+        for name in [m for m in sys.modules if m.split(".")[0] == "vidseg_diffusion_tpu_torch"]:
+            del sys.modules[name]
     from vidseg_diffusion_tpu_torch.ops import _cuda
     from vidseg_diffusion_tpu_torch.ops import attention as A
     from vidseg_diffusion_tpu_torch.ops import matmul as MM
 
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", default="k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w",
-                        help="comma-separated: k11, k1, k4, gn, k2, k6, k5, k13, nf, gnb, k5w, k6w")
-    only = set(parser.parse_args().only.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; kernels of "
+          f"{os.path.dirname(os.path.dirname(_cuda.CSRC))}", flush=True)
     _cuda.load_library()
     with open(os.path.join(_cuda.BUILD_DIR, "build.log")) as f:
         log = f.read().splitlines()
     for i, line in enumerate(log):
-        if "Function properties for" in line and any(n in line for n in ("wgmma", "temporal_attn", "mma_kernel")):
+        if "Function properties for" in line and any(n in line for n in ("wgmma", "temporal_attn", "mma_kernel",
+                                                                         "tf32x3")):
             print("ptxas:", line.split("for ")[-1], "|", " | ".join(s.strip() for s in log[i + 1:i + 3]))
         if "C7512" in line:
             print("ptxas:", line.strip())
 
+    # fp32 library calls in full fp32, as the kernels compute (restored at the end)
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        run(torch, F, A, MM, only)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
+
+
+def run(torch, F, A, MM, only):
     g = torch.Generator(device="cuda").manual_seed(0)
     rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
     bf = torch.bfloat16
+    if "x3" in only:
+        time_x3(torch, F, rn)
     if "k4" in only:
         time_tconv(torch, F, rn)
     if "gn" in only:
