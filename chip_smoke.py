@@ -252,7 +252,8 @@ Phases, in order; any failure exits non-zero:
    from the modules (ae_video_launches_per_step): K3 and K13 at the mid
    attentions [7,1,5824,512]; in a VideoAttnBlock K1 + K5 at one 512-dim head
    ([7,5824,1x512]: K5 on K13's wgmma kernels through the packed strides) and
-   K2 + K6 at D = 512 on the wide kernels (the time mix at t = 7), K11 at its
+   K2 + K6 at D = 512 (the time mix at t = 7: K2 on the wide kernel, K6 on its
+   tensor-core kernel, route mma), K11 at its
    eight projections; K4 forward and dx at every TemporalConv ([1,7,372736,128]
    and up), the narrow kernel at conv_out's 3-channel time mix; the GroupNorm
    forward and backward by route, the backward's route as the card places it
@@ -262,7 +263,8 @@ Phases, in order; any failure exits non-zero:
    memory. Then 'all' in fp32 at 2 frames of 128x256 (a 512-token latent: the
    mid attentions, attn2 and the time mix on their kernels as at full width;
    K3 / K13 and K1 / K5 at D = 512 on the split-TF32 kernels, the run whose
-   launches the tf32x3 entries report), card vs CPU gradients of every
+   launches the tf32x3 entries report; K6 over the 2 frames on the wide
+   kernel, its route at so few frames), card vs CPU gradients of every
    first-stage parameter within GRAD_REL_TOL.
 With `--ranks` under `torchrun --nproc_per_node W` on W cards (main_ranks):
 the main path's runs over the W ranks bit-equal to one rank's run, and the
@@ -271,9 +273,15 @@ unwrapped step on one card's batch of W videos;
 one JSON line of those readings (no kernels line).
 The kernel phase also holds the instances at the head dims the tuned kernels
 are not built for (D = 16: K1, K2, K3, K5, K6, K13; one 512-dim head: K1, K2,
-and their backwards K5 (K13's kernels on the packed strides) and K6 (the wide kernel))
-against their plain versions in bf16 and fp32, and the normalise-first mode
-of K1 and K3 at D = 16 in bf16, also held to mha_reference.
+and their backwards K5 (K13's kernels on the packed strides) and K6 (its
+tensor-core kernel up to 16 frames, split TF32 in fp32, also held to the plain
+version in float64; the wide kernel at 3 and at 17 frames)) against their plain versions in bf16 and fp32 (K5 and K13
+at bf16 D = 16 on their mma.sync kernels), and the normalise-first mode
+of K1 and K3 at D = 16 in bf16, also held to mha_reference. The fp32 routes at
+D = 64 are timed at their ds1 shapes beside the library call in full fp32: K1
+at [2,5824,5x64] and the CFG batch [28,5824,5x64] (held to the plain version
+two batch items at a time), K5 at [2,5824,5x64], K2 and K6 at [28,5824,5,64]
+(t = 14), K4 at the UNet's ds1 time_stack [2,14,5824,320].
 
 Before the last line come the kernels JSON (per kernel: launches in the run
 of its path and in the other runs (injected, SD, diffusion training,
@@ -438,10 +446,11 @@ for _name, _id, _src, _line, _tol, _wrapper, _dim, _path in (
     ("temporal_attention_direct_d512", "K2 D=512", "temporal_attention.cu", 1458, 1e-3, "temporal_attention_direct",
      512, "vae_time_mode"),
     # their gradients, when svd.yaml's first stage trains: K5 at one 512-dim head runs K13's
-    # D = 512 kernels on the packed strides (JAX reaches :993 / :1025 there), K6 its wide kernel
+    # D = 512 kernels on the packed strides (JAX reaches :993 / :1025 there), K6 its tensor-core
+    # kernel (up to 16 frames; past them the wide kernel of temporal_attention_bwd.cu)
     ("flash_attention_packed_backward_d512", "K5 D=512 one head", "flash_attention_bhld_bwd.cu", 993, 1e-3,
      "flash_attention_packed_backward", 512, "ae_video_train"),
-    ("temporal_attention_direct_backward_d512", "K6 D=512", "temporal_attention_bwd.cu", 1167, 2e-4,
+    ("temporal_attention_direct_backward_d512", "K6 D=512", "temporal_attention_bwd_512.cu", 1167, 2e-4,
      "temporal_attention_direct_backward", 512, "ae_video_train"),
 ):
     KERNELS[_name] = dict(id=_id, source=_CSRC + _src, replaces=_JAX + str(_line), rms_tol=_tol, wrapper=_wrapper,
@@ -675,8 +684,8 @@ def kernel_cases(torch):
         return (lambda q, k, v, h: A.flash_attention_packed(q, k, v, h, psum_rounded=rounded(lq, lk)),
                 lambda q, k, v, h: A.flash_attention_packed_reference(q, k, v, h, psum_rounded=rounded(lq, lk)))
 
-    def direct(b, s, h):
-        return lambda: tuple(rn(b, s, h, 64).to(bf) for _ in range(3))
+    def direct(b, s, h, dtype=bf):
+        return lambda: tuple(rn(b, s, h, 64).to(dtype) for _ in range(3))
 
     def bhld(b, h, l, d, dtype=bf):
         return lambda: tuple(rn(b, h, l, d).to(dtype) for _ in range(3))
@@ -715,9 +724,9 @@ def kernel_cases(torch):
             return q, k, v, out, lse, g
         return make
 
-    def temporal_bwd(b, s, h):
+    def temporal_bwd(b, s, h, dtype=bf):
         def make():
-            q, k, v, g = (rn(b, s, h, 64).to(bf) for _ in range(4))
+            q, k, v, g = (rn(b, s, h, 64).to(dtype) for _ in range(4))
             return q, k, v, A.temporal_attention_direct(q, k, v, t=14), g
         return make
 
@@ -969,9 +978,44 @@ def kernel_cases(torch):
             iters=3, work=attn_work(2, h, l, l, 64, backward=True),
             library=lambda q, k, v, o, lse, g, h: sdpa_backward([heads_view(x, h) for x in (q, k, v)],
                                                                 heads_view(g, h)))
+    # the fp32 routes at D = 64 at their ds1 shapes, drawn after every other case: K1's FMA kernel at a B = 2
+    # slice and at the CFG batch of 28 (its plain version two batch items at a time), K5's at the B = 2 slice,
+    # K2's and K6's CUDA-core kernels at t = 14, K4's FMA tile at the UNet's ds1 time_stack
+    fp32_d64 = []
+    add = lambda **kw: fp32_d64.append(kw)
+    f32 = torch.float32
+    kern, plain = k1(5824, 5824)
+    for label, b in (("ds1 B=2 slice [2,5824,5x64] fp32", 2), ("ds1 CFG batch [28,5824,5x64] fp32", 28)):
+        add(kernel="flash_attention_packed", label=label, make=lambda b=b: tuple(rn(b, 5824, 320) for _ in range(3)) + (5,),
+            kern=kern, plain=plain if b == 2 else by_pairs(plain), iters=2,
+            work=attn_work(b, 5, 5824, 5824, 64, dtype="fp32"), library=sdpa_packed)
+
+    def k5_fp32():
+        q, k, v, g = (rn(2, 5824, 320) for _ in range(4))
+        return (q, k, v) + A._flash_attention_packed_forward(q, k, v, 5, None, save_lse=True) + (g, 5)
+
+    add(kernel="flash_attention_packed_backward", label="ds1 B=2 slice [2,5824,5x64] fp32", make=k5_fp32,
+        kern=A.flash_attention_packed_backward, plain=A.flash_attention_packed_backward_reference, iters=2,
+        work=attn_work(2, 5, 5824, 5824, 64, backward=True, dtype="fp32"),
+        library=lambda q, k, v, o, lse, g, h: sdpa_backward([heads_view(x, h) for x in (q, k, v)], heads_view(g, h)))
+    add(kernel="temporal_attention_direct", label="ds1 [28,5824,5,64] t=14 fp32", make=direct(28, 5824, 5, f32),
+        kern=lambda q, k, v: A.temporal_attention_direct(q, k, v, t=14),
+        plain=lambda q, k, v: A.temporal_attention_direct_reference(q, k, v, t=14), iters=3,
+        work=attn_work(2 * 5824, 5, 14, 14, 64, dtype="fp32"),
+        library=lambda q, k, v: (lambda a=[frames_view(x) for x in (q, k, v)]: sdpa(*a)))
+    add(kernel="temporal_attention_direct_backward", label="ds1 [28,5824,5,64] t=14 fp32",
+        make=temporal_bwd(28, 5824, 5, f32),
+        kern=lambda q, k, v, o, g: A.temporal_attention_direct_backward(q, k, v, o, g, t=14),
+        plain=lambda q, k, v, o, g: A.temporal_attention_direct_backward_reference(q, k, v, o, g, t=14), iters=3,
+        work=attn_work(2 * 5824, 5, 14, 14, 64, backward=True, dtype="fp32"),
+        library=lambda q, k, v, o, g: sdpa_backward([frames_view(x) for x in (q, k, v)], frames_view(g)))
+    add(kernel="temporal_conv_1x1", label="UNet ds1 [2,14,5824,320] fp32", make=tconv(2, 14, 5824, 320, 320, dtype=f32),
+        kern=TC.temporal_conv_1x1, plain=TC.temporal_conv_1x1_reference, iters=3,
+        work=tconv_work(2, 14, 5824, 320, 320, dtype="fp32"), library=conv3d_call)
     return (cases + head_dim_cases(torch, rn) + group_norm_cases(torch, rn) + gemm_cases(torch, rn) + late
             + t5_demo_safety_cases(torch, rn, k1, packed, packed_mha, packed_streamed, bhld, bhld_streamed,
-                                   sdpa_packed))
+                                   sdpa_packed)
+            + fp32_d64)
 
 
 def t5_demo_safety_cases(torch, rn, k1, packed, packed_mha, packed_streamed, bhld, bhld_streamed, sdpa_packed):
@@ -1040,7 +1084,8 @@ def head_dim_cases(torch, rn):
     svd.yaml's decode (decoding_t 7 and 14: attn2 [bt, 5824, 1 x 512] through
     K1, the time mix [bt, 5824, 1, 512] through K2) and their backwards on the
     7-frame training clip (K5 at one 512-dim head on K13's kernels, t = 7; K6
-    on the wide kernel at t = 7 and 14). Library: SDPA on the [B, H, L, D]
+    on its tensor-core kernel at t = 7 and 14, on the wide kernel at t = 3 and
+    17, each launch on its route counter). Library: SDPA on the [B, H, L, D]
     views (K2: the [b, s, H, t, D] view), its backward through autograd.grad
     (the backend that takes the headline printed)."""
     import torch.nn.functional as F
@@ -1158,14 +1203,20 @@ def head_dim_cases(torch, rn):
                           iters=2, work=attn_work(7, 1, 5824, 5824, 512, backward=True, dtype=dname),
                           library=lambda q, k, v, o, lse, g, h: sdpa_backward([heads(x, 1) for x in (q, k, v)],
                                                                               heads(g, 1))))
-        for label, t in (("VideoAttnBlock time mix [7,5824,1,512] t=7", 7),
-                         ("VideoAttnBlock time mix [14,5824,1,512] t=14", 14)):
+        # K6 at t = 7 and 14 on its tensor-core kernel (bf16 mma.sync, fp32 split TF32); at 3 frames
+        # and at 17 on the wide kernel, which the C entry keeps below 4 (bf16) / 5 (fp32) frames and past 16
+        k6 = A.temporal_attention_direct_backward
+        tc_route = ((lambda: k6.mma_launches) if dtype == torch.bfloat16 else (lambda: k6.tf32x3_launches))
+        for label, t, counted in (("VideoAttnBlock time mix [7,5824,1,512] t=7", 7, tc_route),
+                                  ("VideoAttnBlock time mix [14,5824,1,512] t=14", 14, tc_route),
+                                  ("time mix [3,5824,1,512] t=3 wide kernel", 3, lambda: k6.wide_launches),
+                                  ("time mix [17,5824,1,512] t=17 wide kernel", 17, lambda: k6.wide_launches)):
             def k6_512_make(t=t, mk=mk):
                 q, k, v, g = mk(*[(t, 5824, 1, 512)] * 4)()
                 return q, k, v, A.temporal_attention_direct(q, k, v, t=t), g
 
             cases.append(dict(kernel="temporal_attention_direct_backward_d512", label=f"{label} {dname}",
-                              make=k6_512_make,
+                              make=k6_512_make, counted=counted,
                               kern=lambda q, k, v, o, g, t=t: A.temporal_attention_direct_backward(q, k, v, o, g, t=t),
                               plain=lambda q, k, v, o, g, t=t: A.temporal_attention_direct_backward_reference(
                                   q, k, v, o, g, t=t), iters=3,
@@ -1483,10 +1534,13 @@ def phase_kernels(torch):
     for case in kernel_cases(torch):
         kname, label, kern, plain, iters = (case[k] for k in ("kernel", "label", "kern", "plain", "iters"))
         args = case["make"]()
-        resident, x3 = resident_launches(), tf32x3_launches()
+        counted = case.get("counted")   # the route counter this call must move by one launch
+        resident, x3, on_route = resident_launches(), tf32x3_launches(), counted() if counted else 0
         out = kern(*args)
         torch.cuda.synchronize()
         resident, x3 = resident_launches() - resident, tf32x3_launches() - x3
+        if counted:
+            check(counted() == on_route + 1, f"{kname} {label}: not launched on its route")
         ref = plain(*args)
         torch.cuda.synchronize()
         # a backward returns several gradients: each is held to the bounds
@@ -1576,7 +1630,8 @@ def tf32x3_launches():
     from vidseg_diffusion_tpu_torch.ops import attention as A
 
     return sum(f.tf32x3_launches for f in (A.flash_attention_packed, A.flash_attention,
-                                           A.flash_attention_packed_backward, A.flash_attention_backward))
+                                           A.flash_attention_packed_backward, A.flash_attention_backward,
+                                           A.temporal_attention_direct_backward))
 
 
 def resident_launches():
@@ -1842,7 +1897,7 @@ ROUTED = ("flash_attention_packed", "flash_attention", "temporal_conv_1x1", "mat
 ROUTE_NAMES = ("wgmma", "narrow", "mma", "normalised", "resident", "wide", "cluster", "tf32x3")
 # the wrappers whose fp32 D = 512 launches run the split-TF32 kernels (route "tf32x3")
 X3_WRAPPERS = ("flash_attention_packed", "flash_attention", "flash_attention_packed_backward",
-               "flash_attention_backward")
+               "flash_attention_backward", "temporal_attention_direct_backward")
 GN_ROUTES = {"fused": 0, "stream": 0}   # GroupNorm32 calls per route since reset_counts()
 # the backward's route (ops.norm.group_norm_backward_route) of each GroupNorm32 module that
 # ran under a gradient since reset_counts(), by id (a remat step runs a module's forward
@@ -1989,9 +2044,10 @@ def check_routes(tag, launches, narrow=0, normalised=None, wide=0):
     the mma.sync tile or an FMA kernel), every K3 launch but the `normalised`
     ones at D = 80 and 16 (CLIP ViT-H's and the tiny towers', on the mma.sync
     kernel; at D = 64 they run K1's wgmma kernel and count on both), every K4
-    launch but `narrow` of them, which took the narrow kernel, and every K2
-    and K6 launch but `wide` of each (D = 512, the wide kernels) the
-    tensor-core kernel (none the fp32 CUDA-core one); K1 and
+    launch but `narrow` of them, which took the narrow kernel, every K2
+    launch but `wide` of them (D = 512, the wide kernel) and every K6 launch
+    (D = 512 up to 16 frames too) the tensor-core kernel (none the fp32
+    CUDA-core one); K1 and
     K3 ran the normalise-first mode `normalised[name]` times ({kernel:
     launches}), and each of those at RESIDENT_NF_DIM, none other, on the
     kernel that holds a head's K and V in shared memory, as the launch
@@ -2001,6 +2057,7 @@ def check_routes(tag, launches, narrow=0, normalised=None, wide=0):
     DIM_COUNTS[tag] = read_dims()
     want = {name: {"wgmma": launches[name]} for name in ("matmul_bias", "flash_attention_packed_backward",
                                                           "flash_attention_backward")}
+    want["flash_attention_packed_backward"]["mma"] = 0   # bf16 D = 16
     want["flash_attention_packed"] = {"wgmma": launches["flash_attention_packed"], "mma": 0,
                                       "normalised": normalised.get("flash_attention_packed", 0)}
     nf3 = normalised.get("flash_attention", 0)
@@ -2010,8 +2067,8 @@ def check_routes(tag, launches, narrow=0, normalised=None, wide=0):
     for name, d in RESIDENT_NF_DIM.items():
         want[name]["resident"] = DIM_COUNTS[tag][f"{name}.normalised"].get(d, 0)
     want["temporal_conv_1x1"] = {"wgmma": launches["temporal_conv_1x1"] - narrow, "narrow": narrow}
-    for name in ("temporal_attention_direct", "temporal_attention_direct_backward"):
-        want[name] = {"mma": launches[name] - wide, "wide": wide}
+    want["temporal_attention_direct"] = {"mma": launches["temporal_attention_direct"] - wide, "wide": wide}
+    want["temporal_attention_direct_backward"] = {"mma": launches["temporal_attention_direct_backward"], "wide": 0}
     for name in X3_WRAPPERS:   # bf16 runs: no fp32 launch
         want[name]["tf32x3"] = 0
     got = {name: routes[name] for name in ROUTED}
@@ -2024,16 +2081,21 @@ def check_routes(tag, launches, narrow=0, normalised=None, wide=0):
     return routes
 
 
-def check_tf32x3(tag, expected):
+def check_tf32x3(tag, expected, wide=None):
     """An fp32 run: each X3_WRAPPERS wrapper's D = 512 launches (read_dims)
     all took the split-TF32 kernels (route "tf32x3"), `expected` of them
-    ({wrapper: launches}, the others none); keeps and returns the routes."""
+    ({wrapper: launches}, the others none), but K6's `wide` ones ({wrapper:
+    launches}: K6 below 5 frames), which took the wide kernel; keeps and
+    returns the routes."""
     routes, dims = read_routes(), read_dims()
+    wide = wide or {}
     got = {n: routes[n]["tf32x3"] for n in X3_WRAPPERS}
-    at512 = {n: dims[n].get(512, 0) for n in X3_WRAPPERS}
+    at512 = {n: dims[n].get(512, 0) - wide.get(n, 0) for n in X3_WRAPPERS}
     want = {n: expected.get(n, 0) for n in X3_WRAPPERS}
-    check(got == at512 == want, f"[{tag}] fp32 D = 512 launches on the split-TF32 kernels {got}, at D = 512 "
-                                f"{at512}, expected {want}")
+    on_wide = {n: routes[n].get("wide", 0) for n in wide}
+    check(got == at512 == want and on_wide == wide, f"[{tag}] fp32 D = 512 launches on the split-TF32 kernels {got}, "
+                                                    f"at D = 512 {at512} less {wide} on the wide kernel ({on_wide}), "
+                                                    f"expected {want}")
     ROUTE_COUNTS[tag] = routes
     return got
 
@@ -3341,7 +3403,8 @@ def ae_video_grad(torch):
     """svd.yaml's first stage at 'all' in fp32 on 2 frames of 128x256 (a
     16x32 latent: the mid attentions' 512 tokens, the VideoAttnBlock's attn2
     over them and its time mix over the 2 frames are the kernel sites they are
-    at full width: K3 + K13, K1 + K5 at one 512-dim head, K2 + K6 wide), the
+    at full width: K3 + K13, K1 + K5 at one 512-dim head, K2 + K6 wide: at 2
+    frames K6 keeps the wide kernel), the
     gradients of sum(reconstruct(sample(moments(x))) * g) on the card through
     the kernels vs the CPU through the plain versions, same weights, frames
     and posterior noise, TF32 off, the library convolutions off cuDNN: every
@@ -3386,7 +3449,8 @@ def ae_video_grad(torch):
                                                     ("temporal_attention_direct_backward", 1))),
               f"[ae_video fp32] the attention sites off their kernels: {dims}")
         x3 = check_tf32x3("ae_video_grad", {"flash_attention": 2, "flash_attention_backward": 2,
-                                            "flash_attention_packed": 1, "flash_attention_packed_backward": 1})
+                                            "flash_attention_packed": 1, "flash_attention_packed_backward": 1},
+                          wide={"temporal_attention_direct_backward": 1})
         t0 = time.perf_counter()
         g_cpu = grads(cpu, "cpu")
         cpu_s = time.perf_counter() - t0

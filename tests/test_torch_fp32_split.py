@@ -17,6 +17,14 @@ cores read raw fp32), reads above 1e-4 of max |fp64|
 at max error: the bounds tell the two classes apart. The card tests
 (tests/test_torch_gpu.py) and chip_smoke.py hold the kernels themselves to
 their plain versions and to fp64 with the same bounds.
+
+K6 at D = 512 (csrc/temporal_attention_bwd_512.cu: the direct-layout
+temporal backward, t <= 16 frames) runs the same split on mma.sync, each chain
+on the tensor cores one 32-channel panel (S, dP) or the t keys / frames (dq,
+dk, dv) long and added in fp32. Its emulation is held to jax.vjp of the
+direct-layout Pallas kernel in interpret mode (whose VJP runs the Pallas
+tiny-seq backward) within FP32_TOL and to fp64 within RMS_TOL; one TF32 pass
+reads above K6's relative RMS bound of 2e-4 (chip_smoke.py's rms_tol).
 """
 
 import jax
@@ -158,3 +166,73 @@ def test_split_parts_are_tf32_and_exact():
     one = np.float32(1.0)
     tie = (one.view(np.uint32) | np.uint32(0x1000)).view(np.float32)   # halfway between two TF32 values
     assert _tf32(np.array([tie, -tie])).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]
+
+
+# -- K6 at D = 512: the time mix's backward on the direct layout --------------------
+
+K6_RMS_TOL = 2e-4    # K6's rms_tol in chip_smoke.py (relative RMS against the plain version)
+PANEL = 32           # fp32 channels a chain on the tensor cores sums before the fp32 add
+
+
+def _mm_split_panels(a, b):
+    """a @ b over the channels as K6's kernel sums S and dP: each 32-channel
+    panel on the tensor cores (the split, in fp32), the panels added in fp32."""
+    out = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for c in range(0, a.shape[1], PANEL):
+        out += _mm_split(a[:, c:c + PANEL], b[c:c + PANEL])
+    return out
+
+
+def _k6_backward(q, k, v, o, g, mm, mm_channels):
+    """dq, dk, dv of one problem (t frames x 512): the kernel's math with the
+    products on `mm` (over the frames) and `mm_channels` (over the channels)."""
+    dt = np.float64 if mm is _mm64 else np.float32
+    scale = dt(1 / np.sqrt(D))
+    qf = q.astype(dt) * dt(np.float32(LOG2_E / np.sqrt(D)))
+    s = mm_channels(qf, k.T.astype(dt))
+    e = np.exp2(s - s.max(-1, keepdims=True))
+    p = e / e.sum(-1, keepdims=True)
+    delta = (g.astype(dt) * o).sum(-1)
+    ds = p * (mm_channels(g.astype(dt), v.T.astype(dt)) - delta[:, None])
+    return mm(ds, k.astype(dt)) * scale, mm(ds.T, qf) / dt(LOG2_E), mm(p.T, g.astype(dt))
+
+
+def _k6_run(t, s, seed, mm, mm_channels):
+    """q, k, v, g [t, s, 1, 512] (one video), o from JAX's forward: the
+    emulated gradients in the direct layout, and jax.vjp's."""
+    rs = np.random.RandomState(seed)
+    q, k, v, g = ((rs.randn(t, s, 1, D) * 1.5).astype(np.float32) for _ in range(4))
+    fwd = lambda *a: jatt.temporal_attention_direct(*a, t=t, force=True, interpret=True)
+    o, vjp = jax.vjp(fwd, *(jnp.asarray(a) for a in (q, k, v)))
+    o = np.asarray(o)
+    want = [np.asarray(w) for w in vjp(jnp.asarray(g))]
+    got = [np.zeros((t, s, 1, D), np.float64 if mm is _mm64 else np.float32) for _ in range(3)]
+    for j in range(s):
+        for out, x in zip(got, _k6_backward(q[:, j, 0], k[:, j, 0], v[:, j, 0], o[:, j, 0], g[:, j, 0], mm,
+                                            mm_channels)):
+            out[:, j, 0] = x
+    return got, want
+
+
+@pytest.mark.parametrize("t", [7, 14])
+def test_k6_split_matches_jax_vjp_and_fp64(t):
+    """K6's split products at D = 512, t = 7 (the training clip) and 14 (a
+    decode of 14 latents), 16 tokens: against jax.vjp of the direct-layout
+    Pallas kernel (interpret mode) within FP32_TOL of max |JAX| and against
+    fp64 of the same math within RMS_TOL."""
+    got, want = _k6_run(t, 16, 40 + t, _mm_split, _mm_split_panels)
+    ref, _ = _k6_run(t, 16, 40 + t, _mm64, _mm64)
+    for name, a, w, r in zip(("dq", "dk", "dv"), got, want, ref):
+        assert _max_err(a, w) <= FP32_TOL, name
+        assert _rel_rms(a, r) <= RMS_TOL, name
+
+
+def test_k6_one_tf32_pass_fails_its_bound():
+    """The negative control at t = 14: one TF32 pass (no lo parts) reads above
+    K6's relative RMS bound of 2e-4 against fp64 on some gradient, the split
+    under RMS_TOL on every one."""
+    ref, _ = _k6_run(14, 16, 60, _mm64, _mm64)
+    one, _ = _k6_run(14, 16, 60, _mm_one_pass, _mm_one_pass)
+    split, _ = _k6_run(14, 16, 60, _mm_split, _mm_split_panels)
+    assert max(_rel_rms(a, r) for a, r in zip(one, ref)) > K6_RMS_TOL
+    assert max(_rel_rms(a, r) for a, r in zip(split, ref)) < RMS_TOL

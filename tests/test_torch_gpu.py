@@ -43,9 +43,13 @@ TPU dispatch sends to mha_reference (ops.attention.site_route) the dispatcher
 runs their normalise-first mode (`.normalised_launches`), held to
 mha_reference within one bf16 step and 0.1 % of the elements differing. K5 and
 K13 (bf16 D = 512) run wgmma kernels: `.wgmma_launches` moves with every bf16
-launch. In fp32 at D = 512, K1 / K3 and K5 / K13 run the kernels on split
-TF32 products (`.tf32x3_launches`), also held to the plain versions run in
-float64 (relative RMS within FP64_RMS_TOL). The GroupNorm forward
+launch; K5 and K13 at bf16 D = 16 the mma.sync kernels (K5's `.mma_launches`),
+K6 at D = 512 up to 16 frames its tensor-core kernel (bf16 `.mma_launches`),
+past them the wide kernel (`.wide_launches`). In fp32 at D = 512, K1 / K3, K5 /
+K13 and K6 up to 16 frames run the kernels on split TF32 products
+(`.tf32x3_launches`), also held to the plain versions run in float64 (relative
+RMS within FP64_RMS_TOL). Those tensor-core backwards give the same bits from
+run to run and from a thread that has launched nothing. The GroupNorm forward
 takes the fused one-launch kernel or K7 + K8 as ops.norm.group_norm_route
 says, the backward the slab kernel (one launch, on one block or a cluster) or
 K9 + K10 as ops.norm.group_norm_backward_route says; both are bitwise the
@@ -1565,7 +1569,8 @@ def test_normalise_first_d16_holds_to_mha_reference(cuda, layout, qshape, kshape
 def test_flash_attention_bhld_d16(cuda, dt, b, h, lq, lk):
     """K3 at 16-dim heads (bf16 on the mma.sync template) against its plain
     version without a gradient (the fp32 sum) and with its LSE (the rounded
-    sum); K13 at D = 16 runs K5 on the bhld strides."""
+    sum); K13 at D = 16 runs K5 on the bhld strides (bf16: its mma.sync
+    kernels, counted on K5's `.mma_launches`)."""
     dtype = DTYPES[dt]
     q, g = (_randn(cuda, i, dtype, b, h, lq, 16, scale=1.5) for i in (220, 221))
     k, v = (_randn(cuda, i, dtype, b, h, lk, 16, scale=1.5) for i in (222, 223))
@@ -1574,9 +1579,11 @@ def test_flash_attention_bhld_d16(cuda, dt, b, h, lq, lk):
     _, lse_ref = A.flash_attention_reference(q, k, v, save_lse=True)
     assert (lse - lse_ref).abs().max().item() <= LSE_TOL
     k13, k5 = A.flash_attention_backward.launches, A.flash_attention_packed_backward.launches
+    mma = A.flash_attention_packed_backward.mma_launches
     got = A.flash_attention_backward(q, k, v, out, lse, g)
     torch.cuda.synchronize()
     assert A.flash_attention_backward.launches == k13 and A.flash_attention_packed_backward.launches == k5 + 1
+    assert A.flash_attention_packed_backward.mma_launches == mma + (dtype == torch.bfloat16)
     _close_grads(got, A.flash_attention_backward_reference(q, k, v, out, lse, g), RMS_TOL["K5"])
 
 
@@ -1584,16 +1591,17 @@ def test_flash_attention_bhld_d16(cuda, dt, b, h, lq, lk):
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("b,lq,lk,h", D16_PACKED)
 def test_flash_attention_packed_backward_d16(cuda, dt, b, lq, lk, h):
-    """K5 at 16-dim heads (the FMA kernels, bf16 roundings applied; no wgmma
-    launch) on K1's LSE, within chip_smoke.py's backward bounds."""
+    """K5 at 16-dim heads on K1's LSE, within chip_smoke.py's backward bounds:
+    bf16 on the mma.sync kernels (`.mma_launches`, no wgmma launch; ragged query
+    and key tails), fp32 on the FMA kernels (no route counter moves)."""
     dtype = DTYPES[dt]
     q, g = (_randn(cuda, i, dtype, b, lq, h * 16, scale=1.5) for i in (230, 231))
     k, v = (_randn(cuda, i, dtype, b, lk, h * 16, scale=1.5) for i in (232, 233))
     out, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True)
-    wg = A.flash_attention_packed_backward.wgmma_launches
-    _check(A.flash_attention_packed_backward, A.flash_attention_packed_backward_reference,
-           q, k, v, out, lse, g, h, rms_tol=RMS_TOL["K5"])
-    assert A.flash_attention_packed_backward.wgmma_launches == wg
+    fn = A.flash_attention_packed_backward
+    wg, mma = fn.wgmma_launches, fn.mma_launches
+    _check(fn, A.flash_attention_packed_backward_reference, q, k, v, out, lse, g, h, rms_tol=RMS_TOL["K5"])
+    assert fn.wgmma_launches == wg and fn.mma_launches == mma + (dtype == torch.bfloat16)
 
 
 @pytest.mark.gpu
@@ -1741,23 +1749,74 @@ def test_tma_kernels_launch_from_a_thread_that_has_launched_nothing(cuda):
     assert all(torch.equal(x.grad, w) for x, w in zip(leaves, want))
 
 
+K6_WIDE_MAX_T = {"bf16": 32, "fp32": 27}   # the longest problems K6 takes at D = 512 (the wide kernel's stage)
+# the frames K6's tensor-core kernel takes at D = 512 (the C entry's route by t: the wide kernel outside)
+K6_TC_FRAMES = {"bf16": range(4, 17), "fp32": range(5, 17)}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("t,s", [(7, 5824), (14, 5824), (1, 40), (2, 1024), (3, 17)])
+@pytest.mark.parametrize("t,s", [(7, 5824), (14, 5824), (1, 40), (2, 1024), (3, 17), (4, 90), (5, 91), (16, 300),
+                                 (17, 64), ("max", 17)])
 def test_temporal_attention_direct_backward_512(cuda, dt, t, s):
     """K6 at one 512-dim head (the VideoAttnBlock's time mix under a gradient:
-    t = 7 on the training clip, 14 on a decode of 14 latents) on the wide
-    kernel (`.wide_launches`, no `.mma_launches`), within chip_smoke.py's
-    backward bounds of the plain version (RMS_TOL["K6"])."""
+    t = 7 on the training clip, 14 on a decode of 14 latents) within
+    chip_smoke.py's backward bounds of the plain version (RMS_TOL["K6"]): at
+    K6_TC_FRAMES on the tensor-core kernel (bf16 `.mma_launches`; fp32 on split
+    TF32 products, `.tf32x3_launches`, also held to the plain version in float64
+    within FP64_RMS_TOL), at fewer frames and past 16 up to the dtype's largest
+    t on the wide kernel (`.wide_launches`)."""
     dtype = DTYPES[dt]
+    t = K6_WIDE_MAX_T[dt] if t == "max" else t
     b = 1 if s > 2048 else 2
     q, k, v, g = (_randn(cuda, 290 + i, dtype, b * t, s, 1, 512) for i in range(4))
     out = A.temporal_attention_direct(q, k, v, t=t)
-    wide, mma = A.temporal_attention_direct_backward.wide_launches, A.temporal_attention_direct_backward.mma_launches
-    _check(A.temporal_attention_direct_backward, A.temporal_attention_direct_backward_reference, q, k, v, out, g,
-           t=t, rms_tol=RMS_TOL["K6"])
-    assert A.temporal_attention_direct_backward.wide_launches == wide + 1
-    assert A.temporal_attention_direct_backward.mma_launches == mma
+    fn = A.temporal_attention_direct_backward
+    before = fn.wide_launches, fn.mma_launches, fn.tf32x3_launches
+    _check(fn, A.temporal_attention_direct_backward_reference, q, k, v, out, g, t=t, rms_tol=RMS_TOL["K6"])
+    tc = t in K6_TC_FRAMES[dt]
+    bf16 = dtype == torch.bfloat16
+    assert (fn.wide_launches, fn.mma_launches, fn.tf32x3_launches) == (
+        before[0] + (not tc), before[1] + (tc and bf16), before[2] + (tc and not bf16))
+    if tc and not bf16:   # against float64 on one video's first 512 tokens
+        xs = [x[:t, :512].contiguous() for x in (q, k, v, out, g)]
+        got = fn(*xs, t=t)
+        ref = A.temporal_attention_direct_backward_reference(*(x.double() for x in xs), t=t)
+        floor = GRAD_FLOOR * max(r.norm().item() for r in ref)
+        for x, r in zip(got, ref):
+            assert (x.double() - r).norm().item() / max(r.norm().item(), floor) <= FP64_RMS_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["k6_bf16", "k6_fp32", "k5_d16", "k13_d16"])
+def test_tensor_core_backwards_are_bitwise_repeatable_and_launch_from_a_fresh_thread(cuda, case):
+    """The tensor-core K6 at D = 512 (bf16 and fp32) and K5 / K13 at D = 16:
+    two runs on the same inputs give the same bits, and a thread that has
+    launched nothing before launches them with the same result."""
+    import threading
+
+    if case.startswith("k6"):
+        dtype = torch.bfloat16 if case == "k6_bf16" else torch.float32
+        q, k, v, g = (_randn(cuda, 310 + i, dtype, 14, 300, 1, 512) for i in range(4))
+        out = A.temporal_attention_direct(q, k, v, t=14)
+        run = lambda: A.temporal_attention_direct_backward(q, k, v, out, g, t=14)
+    elif case == "k5_d16":
+        q, k, v, g = (_randn(cuda, 320 + i, torch.bfloat16, 2, 600, 32, scale=1.5) for i in range(4))
+        out, lse = A._flash_attention_packed_forward(q, k, v, 2, None, save_lse=True)
+        run = lambda: A.flash_attention_packed_backward(q, k, v, out, lse, g, 2)
+    else:
+        q, k, v, g = (_randn(cuda, 330 + i, torch.bfloat16, 2, 2, 300, 16, scale=1.5) for i in range(4))
+        out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
+        run = lambda: A.flash_attention_backward(q, k, v, out, lse, g)
+    first, second = run(), run()
+    got = []
+    worker = threading.Thread(target=lambda: got.append(run()))
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    assert len(got) == 1
+    for a, b_, c in zip(first, second, got[0]):
+        assert torch.equal(a, b_) and torch.equal(a, c)
 
 
 @pytest.mark.gpu

@@ -25,12 +25,14 @@
 // on the MUFU, as much time as its products on the tensor cores, so the design
 // keeps two warpgroups a block, one's exponentials beside the other's wgmmas.
 // bf16 at D = 64 runs on wgmma fed by TMA (below: two warpgroups of 64 rows a
-// block, the walked side in 128-row tiles through a four-stage ring); fp32
-// (the fp32 UNet check) and bf16 at D = 16 (the tiny configs' heads, on no
-// full-width path) run FMAs on shared-memory tiles, templated on D.
+// block, the walked side in 128-row tiles through a four-stage ring); bf16 at
+// D = 16 (the tiny configs' heads, on no full-width path) on mma.sync fed by
+// cp.async (at the end); fp32 (the fp32 UNet check) runs FMAs on shared-memory
+// tiles, templated on D.
 #include <string.h>
 
 #include "common.cuh"
+#include "temporal_tile.cuh"
 #include "wgmma_tile.cuh"
 
 namespace vs {
@@ -46,18 +48,17 @@ constexpr int BW_P = BW_T + 1;    // padded fp32 smem row of a [query][key] tile
 constexpr float kInvLog2E = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
-// The FMA kernels, templated on the head dim D (a multiple of 16): fp32 at
-// every D (the fp32 UNet check), and bf16 at the head dims the wgmma kernels
-// below are not built for (D = 16: the tiny configs' heads), where the bf16
-// roundings of qf, p and ds are applied to the fp32 values (round_to). 256
-// threads as a 16x16 grid, 4 x (D / 16) register micro-tiles (rows ty + 16 i,
-// columns tx + 16 j); d rows padded to D + 1 floats in shared memory.
+// The FMA kernels, fp32, templated on the head dim D (a multiple of 16: the
+// fp32 UNet check's 16 and 64; bf16 runs the wgmma and mma.sync kernels
+// below). 256 threads as a 16x16 grid, 4 x (D / 16) register micro-tiles
+// (rows ty + 16 i, columns tx + 16 j); d rows padded to D + 1 floats in shared
+// memory.
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ o, const T* __restrict__ g, const float* __restrict__ lse,
-    float* __restrict__ delta, T* __restrict__ dq, int H, int Lq, int Lk, BwdStrides st,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ o, const float* __restrict__ g, const float* __restrict__ lse,
+    float* __restrict__ delta, float* __restrict__ dq, int H, int Lq, int Lk, BwdStrides st,
     float qscale, float scale) {
   constexpr int DS = D + 1, RD = D / 16;
   static_assert(D % 16 == 0, "head dim");
@@ -66,7 +67,7 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(
   float* Gs = Qs + BW_T * DS;        // g
   float* Ks = Gs + BW_T * DS;
   float* Vs = Ks + BW_T * DS;
-  float* Ds = Vs + BW_T * DS;        // [BW_T][BW_P] ds, rounded to T
+  float* Ds = Vs + BW_T * DS;        // [BW_T][BW_P] ds
   float* row_lse = Ds + BW_T * BW_P;
   float* row_delta = row_lse + BW_T;
 
@@ -74,19 +75,19 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(
   const int warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int q0 = blockIdx.x * BW_T;
-  const T* qb = q + b * st.q[0] + h * st.q[2];
-  const T* kb = k + b * st.k[0] + h * st.k[2];
-  const T* vb = v + b * st.v[0] + h * st.v[2];
-  const T* ob = o + b * st.o[0] + h * st.o[2];
-  const T* gb = g + b * st.g[0] + h * st.g[2];
-  T* dqb = dq + b * st.dq[0] + h * st.dq[2];
+  const float* qb = q + b * st.q[0] + h * st.q[2];
+  const float* kb = k + b * st.k[0] + h * st.k[2];
+  const float* vb = v + b * st.v[0] + h * st.v[2];
+  const float* ob = o + b * st.o[0] + h * st.o[2];
+  const float* gb = g + b * st.g[0] + h * st.g[2];
+  float* dqb = dq + b * st.dq[0] + h * st.dq[2];
 
   for (int e = tid; e < BW_T * D; e += 256) {
     const int r = e / D, d = e % D;
     float qv = 0.f, gv = 0.f;
     if (q0 + r < Lq) {
-      qv = round_to<T>(to_f<T>(qb[(long long)(q0 + r) * st.q[1] + d]) * qscale);
-      gv = to_f<T>(gb[(long long)(q0 + r) * st.g[1] + d]);
+      qv = qb[(long long)(q0 + r) * st.q[1] + d] * qscale;
+      gv = gb[(long long)(q0 + r) * st.g[1] + d];
     }
     Qs[r * DS + d] = qv;
     Gs[r * DS + d] = gv;
@@ -96,7 +97,7 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(
     float acc = 0.f;
     if (row < Lq)
       for (int d = lane; d < D; d += 32)
-        acc += to_f<T>(gb[(long long)row * st.g[1] + d]) * to_f<T>(ob[(long long)row * st.o[1] + d]);
+        acc += gb[(long long)row * st.g[1] + d] * ob[(long long)row * st.o[1] + d];
     acc = warp_sum(acc);
     if (lane == 0) {
       row_delta[r] = acc;
@@ -117,8 +118,8 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(
       const int r = e / D, d = e % D;
       float kv = 0.f, vv = 0.f;
       if (k0 + r < Lk) {
-        kv = to_f<T>(kb[(long long)(k0 + r) * st.k[1] + d]);
-        vv = to_f<T>(vb[(long long)(k0 + r) * st.v[1] + d]);
+        kv = kb[(long long)(k0 + r) * st.k[1] + d];
+        vv = vb[(long long)(k0 + r) * st.v[1] + d];
       }
       Ks[r * DS + d] = kv;
       Vs[r * DS + d] = vv;
@@ -159,7 +160,7 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const float p = (k0 + c < Lk) ? exp2f(s[i][j] - l) : 0.f;
-        Ds[r * BW_P + c] = round_to<T>(p * (dp[i][j] - dl));
+        Ds[r * BW_P + c] = p * (dp[i][j] - dl);
       }
     }
     __syncthreads();
@@ -182,17 +183,17 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= Lq) continue;
-    T* drow = dqb + (long long)row * st.dq[1];
+    float* drow = dqb + (long long)row * st.dq[1];
 #pragma unroll
-    for (int j = 0; j < RD; ++j) drow[tx + 16 * j] = from_f<T>(acc[i][j] * scale);
+    for (int j = 0; j < RD; ++j) drow[tx + 16 * j] = acc[i][j] * scale;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(256) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, int H, int Lq, int Lk, BwdStrides st,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int H, int Lq, int Lk, BwdStrides st,
     float qscale) {
   constexpr int DS = D + 1, RD = D / 16;
   static_assert(D % 16 == 0, "head dim");
@@ -201,25 +202,25 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_kernel(
   float* Vs = Ks + BW_T * DS;
   float* Qs = Vs + BW_T * DS;        // qf of the current query tile
   float* Gs = Qs + BW_T * DS;
-  float* Ps = Gs + BW_T * DS;        // [BW_T][BW_P] p [query][key], rounded to T
-  float* Ds = Ps + BW_T * BW_P;      // ds [query][key], rounded to T
+  float* Ps = Gs + BW_T * DS;        // [BW_T][BW_P] p [query][key]
+  float* Ds = Ps + BW_T * BW_P;      // ds [query][key]
   float* row_lse = Ds + BW_T * BW_P;
   float* row_delta = row_lse + BW_T;
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int k0 = blockIdx.x * BW_T;
-  const T* qb = q + b * st.q[0] + h * st.q[2];
-  const T* kb = k + b * st.k[0] + h * st.k[2];
-  const T* vb = v + b * st.v[0] + h * st.v[2];
-  const T* gb = g + b * st.g[0] + h * st.g[2];
+  const float* qb = q + b * st.q[0] + h * st.q[2];
+  const float* kb = k + b * st.k[0] + h * st.k[2];
+  const float* vb = v + b * st.v[0] + h * st.v[2];
+  const float* gb = g + b * st.g[0] + h * st.g[2];
 
   for (int e = tid; e < BW_T * D; e += 256) {
     const int r = e / D, d = e % D;
     float kv = 0.f, vv = 0.f;
     if (k0 + r < Lk) {
-      kv = to_f<T>(kb[(long long)(k0 + r) * st.k[1] + d]);
-      vv = to_f<T>(vb[(long long)(k0 + r) * st.v[1] + d]);
+      kv = kb[(long long)(k0 + r) * st.k[1] + d];
+      vv = vb[(long long)(k0 + r) * st.v[1] + d];
     }
     Ks[r * DS + d] = kv;
     Vs[r * DS + d] = vv;
@@ -237,8 +238,8 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_kernel(
       const int r = e / D, d = e % D;
       float qv = 0.f, gv = 0.f;
       if (q0 + r < Lq) {
-        qv = round_to<T>(to_f<T>(qb[(long long)(q0 + r) * st.q[1] + d]) * qscale);
-        gv = to_f<T>(gb[(long long)(q0 + r) * st.g[1] + d]);
+        qv = qb[(long long)(q0 + r) * st.q[1] + d] * qscale;
+        gv = gb[(long long)(q0 + r) * st.g[1] + d];
       }
       Qs[r * DS + d] = qv;
       Gs[r * DS + d] = gv;
@@ -286,8 +287,8 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_kernel(
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const float p = (k0 + c < Lk) ? exp2f(s[i][j] - l) : 0.f;
-        Ps[r * BW_P + c] = round_to<T>(p);
-        Ds[r * BW_P + c] = round_to<T>(p * (dp[i][j] - dl));
+        Ps[r * BW_P + c] = p;
+        Ds[r * BW_P + c] = p * (dp[i][j] - dl);
       }
     }
     __syncthreads();
@@ -316,21 +317,21 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_kernel(
     }
   }
 
-  T* dkb = dk + b * st.dk[0] + h * st.dk[2];
-  T* dvb = dv + b * st.dv[0] + h * st.dv[2];
+  float* dkb = dk + b * st.dk[0] + h * st.dk[2];
+  float* dvb = dv + b * st.dv[0] + h * st.dv[2];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty + 16 * i;
     if (key >= Lk) continue;
 #pragma unroll
     for (int j = 0; j < RD; ++j) {
-      dkb[(long long)key * st.dk[1] + tx + 16 * j] = from_f<T>(acc_dk[i][j] * kInvLog2E);
-      dvb[(long long)key * st.dv[1] + tx + 16 * j] = from_f<T>(acc_dv[i][j]);
+      dkb[(long long)key * st.dk[1] + tx + 16 * j] = acc_dk[i][j] * kInvLog2E;
+      dvb[(long long)key * st.dv[1] + tx + 16 * j] = acc_dv[i][j];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch_bwd_fma(const void* q, const void* k, const void* v, const void* o, const void* g,
                    const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
                    int Lq, int Lk, const BwdStrides& st, float qscale, float scale,
@@ -338,22 +339,22 @@ int launch_bwd_fma(const void* q, const void* k, const void* v, const void* o, c
   const size_t smem_dq = sizeof(float) * (4 * BW_T * (D + 1) + BW_T * BW_P + 2 * BW_T);
   const size_t smem_dkv = sizeof(float) * (4 * BW_T * (D + 1) + 2 * BW_T * BW_P + 2 * BW_T);
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
   static const cudaError_t attr_dkv = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkv);
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkv);
   if (attr_dq != cudaSuccess) return (int)attr_dq;
   if (attr_dkv != cudaSuccess) return (int)attr_dkv;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* gt = static_cast<const T*>(g);
-  flash_bwd_dq_kernel<T, D><<<dim3((Lq + BW_T - 1) / BW_T, B * H), 256, smem_dq, stream>>>(
-      qt, kt, vt, static_cast<const T*>(o), gt, lse, delta, static_cast<T*>(dq), H, Lq, Lk, st,
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* gt = static_cast<const float*>(g);
+  flash_bwd_dq_kernel<D><<<dim3((Lq + BW_T - 1) / BW_T, B * H), 256, smem_dq, stream>>>(
+      qt, kt, vt, static_cast<const float*>(o), gt, lse, delta, static_cast<float*>(dq), H, Lq, Lk, st,
       qscale, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<T, D><<<dim3((Lk + BW_T - 1) / BW_T, B * H), 256, smem_dkv, stream>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, Lq, Lk, st,
+  flash_bwd_dkv_kernel<D><<<dim3((Lk + BW_T - 1) / BW_T, B * H), 256, smem_dkv, stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, Lq, Lk, st,
       qscale);
   return (int)cudaGetLastError();
 }
@@ -885,6 +886,318 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D = 16 (the tiny configs' 16-dim heads; K13 at D = 16 comes here on
+// K3's strides) on mma.sync.m16n8k16. At D = 16 the products are small (S and
+// dP are one k16 step) and what bounds a good kernel is the exponentials: one
+// exp2 per (query, key) pair in each kernel, at 16 a clock an SM on the MUFU,
+// against which the FMA kernels above spent a shared-memory load per FMA and
+// three __syncthreads a tile. Two kernels as above, each the only writer of its
+// outputs, blocks of four warps, each warp 16 rows of the block's 64:
+// - dq (flash_bwd_dq_mma16_kernel): a warp holds its 16 query rows' qf and g
+//   as register A operands, computes their delta = rowsum(g o) and writes it
+//   with the rows' LSE to the scratch ([2, B*H, Lq rounded up to 4] fp32) for
+//   the second kernel, then walks 64-key tiles of K and V: S = qf K^T and
+//   dP = g V^T (8 + 8 m16n8k16), p = exp2(s - lse) (0 past Lk), ds = p (dp -
+//   delta) rounded into the A operand of dQ += ds K (8 more, K read through
+//   ldmatrix.trans);
+// - dk/dv (flash_bwd_dkv_mma16_kernel): a warp holds its 16 keys' K and V as A
+//   operands and walks 64-query tiles of q, g and the rows' LSE and delta: S^T
+//   = K qf^T, dP^T = V g^T, p^T and ds^T in registers, dV += round(p^T) g and
+//   dK += ds^T qf; qf = q * qscale rounded by bf16x2 products of the fragments
+//   (the exact product of two bf16 values fits in fp32, so one rounding gives
+//   JAX's fp32 product rounded to bf16).
+// Tiles reach shared memory by 16-byte cp.async copies (rows of 32 bytes, the
+// two 16-byte halves swapped on rows 4-7 of every 8 so that ldmatrix is free of
+// bank conflicts) through a four-stage ring, one __syncthreads a tile; rows past
+// Lq or Lk arrive as zeros. Ragged rows need no predicate but one, as in the
+// wgmma kernels: the dq kernel masks p past Lk. Tried and dropped: S and dP
+// accumulators starting from -lse and -delta (two subtractions an element fewer)
+// read 2-6 % slower (the dq kernel took 126 registers, not 115; PERF.md §6).
+namespace k5s {
+constexpr int WARPS = 4, THREADS = 32 * WARPS, TILE = 64, STAGES = 4;
+constexpr int ROWS = TILE * 32;                         // bytes of a 64-row x 16-d bf16 tile
+constexpr int DQ_STAGE = 2 * ROWS;                      // K, V
+constexpr int DKV_STAGE = 2 * ROWS + 2 * TILE * 4;      // q, g, the rows' LSE and delta
+constexpr int DQ_SMEM = STAGES * DQ_STAGE + 128, DKV_SMEM = STAGES * DKV_STAGE + 128;
+
+// byte offset of 16-byte half `c` of row `r` in a tile of 32-byte rows
+__device__ __forceinline__ uint32_t sw32(int r, int c) { return (uint32_t)(r * 32 + ((c ^ ((r >> 2) & 1)) << 4)); }
+// the B operands of two n-tiles from rows r0..r0+15 read as columns (the keys of S = Q K^T)
+__device__ __forceinline__ uint32_t bt_addr(uint32_t tile, int r0, int lane) {
+  return tile + sw32(r0 + (lane & 7) + 8 * (lane >> 4), (lane >> 3) & 1);
+}
+// the B operands of both 8-d n-tiles from rows r0..r0+15 read as the contraction (ldmatrix.trans)
+__device__ __forceinline__ uint32_t b_addr(uint32_t tile, int r0, int lane) {
+  return tile + sw32(r0 + (lane & 7) + 8 * ((lane >> 3) & 1), lane >> 4);
+}
+__device__ __forceinline__ void scale2(uint32_t (&x)[4], __nv_bfloat162 m) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&x[i]);
+    v = __hmul2(v, m);
+    x[i] = *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+// a warp's 16 x 64 fp32 accumulator (8 n-tiles) as the A operands of four k16 steps, rounded
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = tt_pack(x[2 * kk][0], x[2 * kk][1]);
+    a[kk][1] = tt_pack(x[2 * kk][2], x[2 * kk][3]);
+    a[kk][2] = tt_pack(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[kk][3] = tt_pack(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+  }
+}
+// the A fragment of rows r0..r0+15 (16 d) from device memory: a[0] row gid, a[1]
+// row gid + 8, a[2] / a[3] d 8.. ; zeros past `rows`
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* x, long long row_stride, int r0,
+                                       int rows, int gid, int tig) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + gid + 8 * (i & 1);
+    a[i] = r < rows ? *reinterpret_cast<const uint32_t*>(x + r * row_stride + 2 * tig + 8 * (i >> 1)) : 0u;
+  }
+}
+// a warp's 16 x 16 accumulator (two n-tiles) times `mul`, rounded, to rows r0.. of x (`rows` exist)
+__device__ __forceinline__ void store_c(const float (&c)[2][4], float mul, __nv_bfloat16* x, long long row_stride,
+                                        int r0, int rows, int gid, int tig) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + gid + 8 * i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      *reinterpret_cast<uint32_t*>(x + r * row_stride + 8 * n + 2 * tig) =
+          tt_pack(c[n][2 * i] * mul, c[n][2 * i + 1] * mul);
+  }
+}
+}  // namespace k5s
+
+__global__ void __launch_bounds__(k5s::THREADS) flash_bwd_dq_mma16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ g, const float* __restrict__ lse,
+    float* __restrict__ scratch, __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk, int lq_pad, BwdStrides st,
+    float qscale, float scale) {
+  using namespace k5s;
+  extern __shared__ unsigned char k5s_smem[];
+  const uint32_t base = (smem_u32(k5s_smem) + 127u) & ~127u;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int row0 = blockIdx.x * TILE + 16 * warp;  // this warp's first query row
+  const __nv_bfloat16* kb = k + b * st.k[0] + h * st.k[2];
+  const __nv_bfloat16* vb = v + b * st.v[0] + h * st.v[2];
+  const int ntiles = (Lk + TILE - 1) / TILE;
+
+  auto issue = [&](int j) {  // key tile j: one 16-byte half of a K row and of a V row a thread
+    const uint32_t sk = base + (j % STAGES) * DQ_STAGE;
+    const int r = tid >> 1, c = tid & 1, key = TILE * j + r;
+    const long long kr = key < Lk ? key : 0;
+    const int n = key < Lk ? 16 : 0;
+    tt_cp16_zfill(sk + sw32(r, c), kb + kr * st.k[1] + 8 * c, n);
+    tt_cp16_zfill(sk + ROWS + sw32(r, c), vb + kr * st.v[1] + 8 * c, n);
+  };
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {
+    if (j < ntiles) issue(j);
+    tt_cp_commit();
+  }
+
+  // this warp's rows: qf and g as A operands; delta = rowsum(g o), the rows' LSE, both to the scratch
+  uint32_t aq[4], ag[4], ao[4];
+  load_a(aq, q + b * st.q[0] + h * st.q[2], st.q[1], row0, Lq, gid, tig);
+  load_a(ag, g + b * st.g[0] + h * st.g[2], st.g[1], row0, Lq, gid, tig);
+  load_a(ao, o + b * st.o[0] + h * st.o[2], st.o[1], row0, Lq, gid, tig);
+  float lse_r[2], del_r[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    aq[i] = tt_pack(tt_lo(aq[i]) * qscale, tt_hi(aq[i]) * qscale);
+    del_r[i & 1] += tt_lo(ag[i]) * tt_lo(ao[i]) + tt_hi(ag[i]) * tt_hi(ao[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    del_r[i] += __shfl_xor_sync(0xffffffffu, del_r[i], 1);
+    del_r[i] += __shfl_xor_sync(0xffffffffu, del_r[i], 2);
+    const int row = row0 + gid + 8 * i;
+    lse_r[i] = row < Lq ? lse[((long long)b * Lq + row) * H + h] : 0.f;
+    if (tig == 0 && row < Lq) {
+      scratch[(long long)bh * lq_pad + row] = lse_r[i];
+      scratch[((long long)gridDim.y + bh) * lq_pad + row] = del_r[i];
+    }
+  }
+
+  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  for (int j = 0; j < ntiles; ++j) {
+    tt_cp_wait<STAGES - 2>();
+    __syncthreads();  // tile j is in; every warp is done with tile j - 1, whose stage is refilled
+    if (j + STAGES - 1 < ntiles) issue(j + STAGES - 1);
+    tt_cp_commit();
+    const uint32_t sk = base + (j % STAGES) * DQ_STAGE, sv = sk + ROWS;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) s[n][u] = dp[n][u] = 0.f;
+#pragma unroll
+    for (int grp = 0; grp < 4; ++grp) {  // 16 keys: S = qf K^T, dP = g V^T
+      uint32_t bk[4], bv[4];
+      tt_ldsm(bk, bt_addr(sk, 16 * grp, lane));
+      tt_ldsm(bv, bt_addr(sv, 16 * grp, lane));
+      tt_mma(s[2 * grp], aq, bk[0], bk[1]);
+      tt_mma(s[2 * grp + 1], aq, bk[2], bk[3]);
+      tt_mma(dp[2 * grp], ag, bv[0], bv[1]);
+      tt_mma(dp[2 * grp + 1], ag, bv[2], bv[3]);
+    }
+    // s[n][u]: row gid + 8 (u >> 1), key 64 j + 8 n + 2 tig + (u & 1)
+    const bool tail = TILE * j + TILE > Lk;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float p = bw_ex2(s[n][u] - lse_r[u >> 1]);
+        if (tail && TILE * j + 8 * n + 2 * tig + (u & 1) >= Lk) p = 0.f;
+        s[n][u] = p * (dp[n][u] - del_r[u >> 1]);
+      }
+    uint32_t a[4][4];
+    k5s::pack_a(a, s);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // dQ += ds K, 16 keys a step
+      uint32_t bb[4];
+      tt_ldsm_trans(bb, b_addr(sk, 16 * kk, lane));
+      tt_mma(acc[0], a[kk], bb[0], bb[1]);
+      tt_mma(acc[1], a[kk], bb[2], bb[3]);
+    }
+  }
+  store_c(acc, scale, dq + b * st.dq[0] + h * st.dq[2], st.dq[1], row0, Lq, gid, tig);
+}
+
+__global__ void __launch_bounds__(k5s::THREADS) flash_bwd_dkv_mma16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ g, const float* __restrict__ scratch, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int H, int Lq, int Lk, int lq_pad, BwdStrides st, float qscale) {
+  using namespace k5s;
+  extern __shared__ unsigned char k5s_smem[];
+  const uint32_t base = (smem_u32(k5s_smem) + 127u) & ~127u;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int key0 = blockIdx.x * TILE + 16 * warp;  // this warp's first key
+  const __nv_bfloat16* qb = q + b * st.q[0] + h * st.q[2];
+  const __nv_bfloat16* gb = g + b * st.g[0] + h * st.g[2];
+  const float* lrow = scratch + (long long)bh * lq_pad;
+  const float* drow = scratch + ((long long)gridDim.y + bh) * lq_pad;
+  const int ntiles = (Lq + TILE - 1) / TILE;
+
+  auto issue = [&](int j) {  // query tile j: q and g halves; threads 0-31 the rows' LSE and delta (16 bytes each)
+    const uint32_t sq = base + (j % STAGES) * DKV_STAGE;
+    const int r = tid >> 1, c = tid & 1, row = TILE * j + r;
+    const long long qr = row < Lq ? row : 0;
+    const int n = row < Lq ? 16 : 0;
+    tt_cp16_zfill(sq + sw32(r, c), qb + qr * st.q[1] + 8 * c, n);
+    tt_cp16_zfill(sq + ROWS + sw32(r, c), gb + qr * st.g[1] + 8 * c, n);
+    if (tid < 32) {
+      const int i = tid & 15, first = TILE * j + 4 * i;
+      const int bytes = first < Lq ? 4 * min(4, Lq - first) : 0;
+      tt_cp16_zfill(sq + 2 * ROWS + (tid >> 4) * TILE * 4 + 16 * i, (tid < 16 ? lrow : drow) + (bytes ? first : 0),
+                    bytes);
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {
+    if (j < ntiles) issue(j);
+    tt_cp_commit();
+  }
+
+  uint32_t ak[4], av[4];  // this warp's 16 keys as A operands
+  load_a(ak, k + b * st.k[0] + h * st.k[2], st.k[1], key0, Lk, gid, tig);
+  load_a(av, v + b * st.v[0] + h * st.v[2], st.v[1], key0, Lk, gid, tig);
+  const __nv_bfloat162 qs2 = __float2bfloat162_rn(qscale);
+  float dk_acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  float dv_acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  for (int j = 0; j < ntiles; ++j) {
+    tt_cp_wait<STAGES - 2>();
+    __syncthreads();
+    if (j + STAGES - 1 < ntiles) issue(j + STAGES - 1);
+    tt_cp_commit();
+    const uint32_t sq = base + (j % STAGES) * DKV_STAGE, sg = sq + ROWS, srow = sq + 2 * ROWS;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) s[n][u] = dp[n][u] = 0.f;
+#pragma unroll
+    for (int grp = 0; grp < 4; ++grp) {  // 16 queries: S^T = K qf^T, dP^T = V g^T
+      uint32_t bq[4], bg[4];
+      tt_ldsm(bq, bt_addr(sq, 16 * grp, lane));
+      scale2(bq, qs2);
+      tt_ldsm(bg, bt_addr(sg, 16 * grp, lane));
+      tt_mma(s[2 * grp], ak, bq[0], bq[1]);
+      tt_mma(s[2 * grp + 1], ak, bq[2], bq[3]);
+      tt_mma(dp[2 * grp], av, bg[0], bg[1]);
+      tt_mma(dp[2 * grp + 1], av, bg[2], bg[3]);
+    }
+    // s[n][u]: key gid + 8 (u >> 1), query 64 j + 8 n + 2 tig + (u & 1)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float l0, l1, d0, d1;
+      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(l0), "=f"(l1) : "r"(srow + 4 * (8 * n + 2 * tig)));
+      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                   : "=f"(d0), "=f"(d1)
+                   : "r"(srow + TILE * 4 + 4 * (8 * n + 2 * tig)));
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float p = bw_ex2(s[n][u] - ((u & 1) ? l1 : l0));
+        s[n][u] = p;
+        dp[n][u] = p * (dp[n][u] - ((u & 1) ? d1 : d0));
+      }
+    }
+    uint32_t ap[4][4], as[4][4];
+    k5s::pack_a(ap, s);
+    k5s::pack_a(as, dp);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // dV += round(p^T) g, dK += ds^T qf, 16 queries a step
+      uint32_t bg[4], bq[4];
+      tt_ldsm_trans(bg, b_addr(sg, 16 * kk, lane));
+      tt_mma(dv_acc[0], ap[kk], bg[0], bg[1]);
+      tt_mma(dv_acc[1], ap[kk], bg[2], bg[3]);
+      tt_ldsm_trans(bq, b_addr(sq, 16 * kk, lane));
+      scale2(bq, qs2);
+      tt_mma(dk_acc[0], as[kk], bq[0], bq[1]);
+      tt_mma(dk_acc[1], as[kk], bq[2], bq[3]);
+    }
+  }
+  store_c(dk_acc, kInvLog2E, dk + b * st.dk[0] + h * st.dk[2], st.dk[1], key0, Lk, gid, tig);
+  store_c(dv_acc, 1.f, dv + b * st.dv[0] + h * st.dv[2], st.dv[1], key0, Lk, gid, tig);
+}
+
+// bf16 D = 16: q, k, v, o, g and dq, dk, dv through their strides (16-byte aligned
+// bases, strides in whole 16-byte rows); scratch [2, B*H, Lq rounded up to 4]
+int launch_bwd_mma16(const void* q, const void* k, const void* v, const void* o, const void* g, const float* lse,
+                     float* scratch, void* dq, void* dk, void* dv, int B, int H, int Lq, int Lk,
+                     const long long* strides, float qscale, float scale, cudaStream_t stream) {
+  using namespace k5s;
+  using bf = __nv_bfloat16;
+  BwdStrides st;
+  memcpy(&st, strides, sizeof(st));
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+                          reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(dq) |
+                          reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv) |
+                          reinterpret_cast<uintptr_t>(scratch);
+  if (bases % 16) return kErrBadArgument;
+  for (int i = 0; i < 24; ++i)
+    if (strides[i] % 8) return kErrBadArgument;
+  const int lq_pad = (Lq + 3) / 4 * 4;
+  flash_bwd_dq_mma16_kernel<<<dim3((Lq + TILE - 1) / TILE, B * H), THREADS, DQ_SMEM, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v), static_cast<const bf*>(o),
+      static_cast<const bf*>(g), lse, scratch, static_cast<bf*>(dq), H, Lq, Lk, lq_pad, st, qscale, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkv_mma16_kernel<<<dim3((Lk + TILE - 1) / TILE, B * H), THREADS, DKV_SMEM, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v), static_cast<const bf*>(g),
+      scratch, static_cast<bf*>(dk), static_cast<bf*>(dv), H, Lq, Lk, lq_pad, st, qscale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace vs
 
 // q, k, v, o, g: [B, L, H*D] read through `strides` (24 element strides:
@@ -892,8 +1205,8 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
 // lse: fp32 [B, Lq, H] from K1; delta: fp32 scratch of 2 * B * H * (Lq rounded
 // up to 4) (the dq kernel writes each row's delta there, and in bf16 its LSE,
 // for the dk/dv kernel on the same stream). D in {16, 64}: bf16 runs the wgmma
-// kernels at 64 and the FMA kernels at 16, fp32 the FMA kernels. route (or
-// NULL) receives the kernels that ran: 2 wgmma, 0 FMAs.
+// kernels at 64 and the mma.sync kernels at 16, fp32 the FMA kernels. route (or
+// NULL) receives the kernels that ran: 2 wgmma, 1 mma.sync, 0 FMAs.
 extern "C" int vs_flash_attention_packed_bwd(int dtype, int D, const void* q, const void* k,
                                              const void* v, const void* o, const void* g,
                                              const void* lse, void* delta, void* dq, void* dk,
@@ -907,18 +1220,17 @@ extern "C" int vs_flash_attention_packed_bwd(int dtype, int D, const void* q, co
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using bf = __nv_bfloat16;
   int r = -1, rc = vs::kErrUnsupported;
   if (dtype == vs::kBFloat16 && D == 64) {
     r = 2;
     rc = vs::launch_bwd_wgmma(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, strides, qscale, scale, s);
   } else if (dtype == vs::kBFloat16) {
-    r = 0;
-    rc = vs::launch_bwd_fma<bf, 16>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s);
+    r = 1;
+    rc = vs::launch_bwd_mma16(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, strides, qscale, scale, s);
   } else if (dtype == vs::kFloat32) {
     r = 0;
-    rc = D == 64 ? vs::launch_bwd_fma<float, 64>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s)
-                 : vs::launch_bwd_fma<float, 16>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s);
+    rc = D == 64 ? vs::launch_bwd_fma<64>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s)
+                 : vs::launch_bwd_fma<16>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s);
   }
   if (route != nullptr) *route = r;
   return rc;

@@ -39,13 +39,16 @@
 // templated on the dtype and D: one warp per problem on CUDA cores, the inputs
 // staged as fp32 rows (qf rounded to the dtype; p and ds rounded where they
 // feed products), lane i owning query row i and then key row i. D = 512 (the
-// VideoDecoder's VideoAttnBlock, trained with the SVD first stage) runs
-// temporal_attn_bwd_wide_kernel in both dtypes, lanes across the head dim
-// (below).
+// VideoDecoder's VideoAttnBlock, trained with the SVD first stage) runs the
+// tensor-core kernel of temporal_attention_bwd_512.cu up to 16 frames in both
+// dtypes (a block of four warps a problem, its rows resident in shared
+// memory), and temporal_attn_bwd_wide_kernel past them, lanes across the head
+// dim (below), and below 4 frames in bf16 (5 in fp32), where it read faster.
 #include <algorithm>
 
 #include "common.cuh"
 #include "temporal_tile.cuh"
+#include "tf32x3_attention.cuh"
 
 namespace vs {
 
@@ -191,10 +194,11 @@ int launch_temporal_bwd_cores(const void* q, const void* k, const void* v, const
 // ---- D = 512: one warp per problem, lanes across the head dim ---------------
 //
 // The backward of K2's wide kernel (temporal_attention.cu), for the
-// VideoAttnBlock's time mix over one 512-dim head ([bt, 5824, 1, 512] at t = 7
-// when svd.yaml's first stage trains on 7-frame clips). Lane L owns the 16
-// channels [8L, 8L + 8) and [256 + 8L, 256 + 8L + 8) of every row, as in the
-// forward. The warp stages the problem's t rows of k, v, g and qf =
+// VideoAttnBlock's time mix over one 512-dim head past 16 frames and below 4
+// (bf16) or 5 (fp32) (between them the tensor-core kernel of
+// temporal_attention_bwd_512.cu runs; PERF.md row 26 has both times). Lane L
+// owns the 16 channels [8L, 8L + 8) and [256 + 8L, 256 + 8L + 8) of every row,
+// as in the forward. The warp stages the problem's t rows of k, v, g and qf =
 // round(q * qscale) in shared memory in the input dtype; each lane reads and
 // writes only its own channels there, so the stage is lane-private and needs
 // only __syncwarp. Query pass, row i: delta = rowsum(g o), the t logits qf k^T
@@ -567,6 +571,16 @@ __global__ void __launch_bounds__(K6Tile<FR>::THREADS) temporal_attn_bwd_mma_ker
   direct_walk<K6Tile<FR>>(maps, units, H, ntiles, temporal_bwd_smem, K6Problem<FR>{t, qscale, scale});
 }
 
+// temporal_attention_bwd_512.cu: D = 512 on the tensor cores, t from kTc512MinFrames* up to
+// kTc512Frames. Shorter problems keep the wide kernel, which read faster there (0.030-0.091 ms
+// against 0.099-0.105 at t = 1-3 in bf16, 0.050-0.253 against 0.254-0.261 at t = 1-4 in fp32,
+// [t, 5824, 1, 512], NVIDIA H100 80GB HBM3, PERF.md row 26): the tensor-core kernel's block of
+// four warps a problem takes a time of its own that few frames do not fill.
+constexpr int kTc512Frames = 16, kTc512MinFramesBf16 = 4, kTc512MinFramesF32 = 5;
+int launch_temporal_bwd_tc512(int dtype, const void* q, const void* k, const void* v, const void* o, const void* g,
+                              void* dq, void* dk, void* dv, int nvid, int t, int S, int H, float qscale, float scale,
+                              cudaStream_t stream);
+
 int launch_temporal_bwd_bf16(const void* q, const void* k, const void* v, const void* o, const void* g,
                              void* dq, void* dk, void* dv, int nvid, int t, int S, int H, float qscale,
                              float scale, cudaStream_t stream) {
@@ -582,9 +596,12 @@ int launch_temporal_bwd_bf16(const void* q, const void* k, const void* v, const 
 
 // q, k, v, o, g, dq, dk, dv: contiguous [(nvid*t), S, H*D], D in {16, 64, 512}
 // (bf16 at 64 and every D at 512: 16-byte aligned). bf16 at D = 64 runs the
-// tensor-core kernel, D = 512 the wide kernel, the rest the CUDA-core kernel.
-// route (or NULL) receives the kernel that ran: 1 mma.sync, 4 the wide kernel,
-// 0 CUDA cores.
+// tensor-core kernel; D = 512 the tensor-core kernel of
+// temporal_attention_bwd_512.cu from 4 (bf16) or 5 (fp32) up to kTc512Frames
+// frames (bf16 mma.sync, fp32 split TF32) and the wide kernel off that range;
+// the rest the CUDA-core kernel.
+// route (or NULL) receives the kernel that ran: 1 mma.sync (bf16 at 64 and 512),
+// 7 split TF32 (fp32 at 512), 4 the wide kernel, 0 CUDA cores.
 extern "C" int vs_temporal_attention_direct_bwd(int dtype, int D, const void* q, const void* k,
                                                 const void* v, const void* o, const void* g,
                                                 void* dq, void* dk, void* dv, int nvid, int t,
@@ -595,7 +612,11 @@ extern "C" int vs_temporal_attention_direct_bwd(int dtype, int D, const void* q,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
   int r = -1, rc = vs::kErrUnsupported;
-  if (D == vs::kWideD && (dtype == vs::kBFloat16 || dtype == vs::kFloat32)) {
+  const bool tc512 = t <= vs::kTc512Frames && t >= (dtype == vs::kBFloat16 ? vs::kTc512MinFramesBf16 : vs::kTc512MinFramesF32);
+  if (D == vs::kWideD && (dtype == vs::kBFloat16 || dtype == vs::kFloat32) && tc512) {
+    r = dtype == vs::kBFloat16 ? 1 : vs::kRouteTf32x3;
+    rc = vs::launch_temporal_bwd_tc512(dtype, q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st);
+  } else if (D == vs::kWideD && (dtype == vs::kBFloat16 || dtype == vs::kFloat32)) {
     r = 4;
     rc = dtype == vs::kBFloat16
              ? vs::launch_temporal_bwd_wide<bf>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st)

@@ -1,6 +1,8 @@
 // The tile loader and the 16 x 16 tensor-core tile that K2
 // (temporal_attention.cu) and its backward K6 (temporal_attention_bwd.cu)
-// share in bf16.
+// share in bf16. Its mma.sync, ldmatrix, movmatrix and cp.async helpers also
+// serve K6 at D = 512 (temporal_attention_bwd_512.cu) and K5 at D = 16
+// (flash_attention_bwd.cu).
 //
 // Both work on the UNet's direct temporal layout: q, k, v (and o, g, dq, dk,
 // dv) are contiguous [(nvid t), S, H * 64], and each (video, token, head) is
@@ -60,6 +62,51 @@ __device__ __forceinline__ void tt_ldsm_trans(uint32_t (&r)[4], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");
+}
+
+// Two 8 x 8 bf16 matrices (lanes 0-15 give the row addresses): the x4 forms' first
+// and third matrices where a tile has 8 rows, not 16
+__device__ __forceinline__ void tt_ldsm_x2(uint32_t& r0, uint32_t& r1, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n" : "=r"(r0), "=r"(r1) : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void tt_ldsm_x2_trans(uint32_t& r0, uint32_t& r1, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr)
+               : "memory");
+}
+
+// The transpose of the warp's 8 x 8 bf16 matrix held as one fragment register
+// (lane 4 r + c: row r, columns 2 c, 2 c + 1)
+__device__ __forceinline__ uint32_t tt_movt(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// mma.sync m16n8k8 in TF32 (fp32 accumulate): A 16 x 8 (a[0] row gid col tig,
+// a[1] row gid + 8, a[2] col tig + 4, a[3] both), B 8 x 8 (b0 row tig col gid,
+// b1 row tig + 4), C as m16n8k16's
+__device__ __forceinline__ void tt_mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16-byte copies from device memory into shared memory (cp.async); the zfill
+// form copies `bytes` (0-16) and writes zeros for the rest
+__device__ __forceinline__ void tt_cp16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void tt_cp16_zfill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void tt_cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void tt_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ uint32_t tt_pack(float lo, float hi) {

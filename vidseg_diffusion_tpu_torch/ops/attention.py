@@ -354,11 +354,13 @@ def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
                                     scale: Optional[float] = None):
     """K5: (dq, dk, dv) of K1 from its saved LSE, on packed [B, L, H*D]
     through strides; two kernels, dq over key tiles and dk/dv over query
-    tiles, each the only writer of its outputs. At one 512-dim head (the
-    VideoAttnBlock's attn2) K13's D = 512 kernels run on the packed strides:
-    [B, L, 1 x 512] is [B, L, 1, 512] read as (batch, row, head), the LSE
-    [B, L, 1] is K13's [B, Lq, H], as JAX's _fa_bwd and _fap_bwd reach the
-    same packed backward at heads = 1. The plain version on CPU."""
+    tiles, each the only writer of its outputs: bf16 at D = 64 on wgmma
+    (`.wgmma_launches`), at D = 16 on mma.sync (`.mma_launches`), fp32 on FMAs.
+    At one 512-dim head (the VideoAttnBlock's attn2) K13's D = 512 kernels run
+    on the packed strides: [B, L, 1 x 512] is [B, L, 1, 512] read as (batch,
+    row, head), the LSE [B, L, 1] is K13's [B, Lq, H], as JAX's _fa_bwd and
+    _fap_bwd reach the same packed backward at heads = 1. The plain version on
+    CPU."""
     if q.device.type == "cpu":
         return flash_attention_packed_backward_reference(q, k, v, out, lse, g, heads, scale)
     dtype = _check_packed("flash_attention_packed_backward", q, k, v, heads)
@@ -386,16 +388,28 @@ def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, heads, lq, lk, strides, float(_rounded_qscale(scale, dtype)), float(scale),
     )
-    flash_attention_packed_backward.launches += 1
-    flash_attention_packed_backward.dim_launches[d] += 1
-    flash_attention_packed_backward.wgmma_launches += route == "wgmma"
-    flash_attention_packed_backward.tf32x3_launches += route == "tf32x3"
+    _count_routes(flash_attention_packed_backward, d, route)
     return dq.view(b, lq, hd), dk.view(b, lk, hd), dv.view(b, lk, hd)
+
+
+_ROUTE_COUNTERS = {"wgmma": "wgmma_launches", "mma_sync": "mma_launches", "tf32x3": "tf32x3_launches",
+                   "wide": "wide_launches"}
+
+
+def _count_routes(counter, d, route):
+    """A backward launch on its wrapper's counters: launches, by head dim, and
+    by the kernel that ran where the wrapper counts that kernel."""
+    counter.launches += 1
+    counter.dim_launches[d] += 1
+    attr = _ROUTE_COUNTERS.get(route)
+    if attr is not None and hasattr(counter, attr):
+        setattr(counter, attr, getattr(counter, attr) + 1)
 
 
 flash_attention_packed_backward.launches = 0
 flash_attention_packed_backward.dim_launches = collections.Counter()
 flash_attention_packed_backward.wgmma_launches = 0   # bf16 D = 64 and 512 (K13's kernels), on the wgmma kernels
+flash_attention_packed_backward.mma_launches = 0   # bf16 D = 16 (K5's and K13's), on the mma.sync kernels
 flash_attention_packed_backward.tf32x3_launches = 0   # fp32 D = 512 (K13's kernels), on split TF32 products
 
 
@@ -628,10 +642,13 @@ def temporal_attention_direct_backward(q, k, v, out, g, t: int, scale: Optional[
     """K6: (dq, dk, dv) of K2, read and written in the UNet-native
     [(b t), s, H, D] layout (no canonical transposes); one warp per
     (video, token, head) problem, bf16 on the tensor cores (mma.sync, the
-    five inputs in and the three gradients out by TMA), fp32 on CUDA cores;
-    D = 512 (the VideoAttnBlock's time mix) on the wide kernel, lanes across
-    the head dim, in both dtypes (t up to 27 in fp32: its stage of k, v, g and
-    q a warp in shared memory). The plain version on CPU."""
+    five inputs in and the three gradients out by TMA), fp32 on CUDA cores.
+    D = 512 (the VideoAttnBlock's time mix) from 4 (bf16) or 5 (fp32) up to 16
+    frames on the tensor cores, a block a problem (bf16 mma.sync,
+    `.mma_launches`; fp32 split TF32 products, `.tf32x3_launches`); off that
+    range on the wide kernel, lanes across the head dim (`.wide_launches`; t
+    up to 27 in fp32: its stage of k, v, g and q a warp in shared memory). The
+    plain version on CPU."""
     if q.device.type == "cpu":
         return temporal_attention_direct_backward_reference(q, k, v, out, g, t, scale)
     dtype = _check_temporal("temporal_attention_direct_backward", t, q, k, v, out, g)
@@ -645,17 +662,15 @@ def temporal_attention_direct_backward(q, k, v, out, g, t: int, scale: Optional[
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         bt // t, t, s, h, float(_rounded_qscale(scale, dtype)), float(scale),
     )
-    temporal_attention_direct_backward.launches += 1
-    temporal_attention_direct_backward.dim_launches[d] += 1
-    temporal_attention_direct_backward.mma_launches += route == "mma_sync"
-    temporal_attention_direct_backward.wide_launches += route == "wide"
+    _count_routes(temporal_attention_direct_backward, d, route)
     return dq, dk, dv
 
 
 temporal_attention_direct_backward.launches = 0
 temporal_attention_direct_backward.dim_launches = collections.Counter()
-temporal_attention_direct_backward.mma_launches = 0   # bf16 D = 64, on the tensor cores
-temporal_attention_direct_backward.wide_launches = 0   # D = 512, on the wide kernel
+temporal_attention_direct_backward.mma_launches = 0   # bf16 D = 64, and D = 512 at 4-16 frames, on mma.sync
+temporal_attention_direct_backward.tf32x3_launches = 0   # fp32 D = 512 at 5-16 frames, on split TF32 products
+temporal_attention_direct_backward.wide_launches = 0   # D = 512 at other t, on the wide kernel
 
 
 # -- K3: bhld flash attention (forward, LSE under a gradient) ------------------
@@ -799,7 +814,8 @@ def flash_attention_backward(q, k, v, out, lse, g, scale: Optional[float] = None
     query tiles, each the only writer of its outputs (fp32 at D = 512: dq, dk
     and dv apart, on split TF32 products, `.tf32x3_launches`). D = 512 and 80; D = 16
     and 64 run K5 on the same strides (the JAX package routes every head dim
-    through the one packed backward). The plain version on CPU."""
+    through the one packed backward), counted on K5's wrapper. The plain
+    version on CPU."""
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, out, lse, g, scale)
     dtype = _check_bhld("flash_attention_backward", q, k, v)
@@ -825,11 +841,7 @@ def flash_attention_backward(q, k, v, out, lse, g, scale: Optional[float] = None
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, h, lq, lk, strides, float(_rounded_qscale(scale, dtype)), float(scale),
     )
-    counter = flash_attention_packed_backward if k5 else flash_attention_backward
-    counter.launches += 1
-    counter.dim_launches[d] += 1
-    counter.wgmma_launches += route == "wgmma"
-    counter.tf32x3_launches += route == "tf32x3"
+    _count_routes(flash_attention_packed_backward if k5 else flash_attention_backward, d, route)
     return dq, dk, dv
 
 

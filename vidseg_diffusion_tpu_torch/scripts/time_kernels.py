@@ -4,7 +4,8 @@ and its backward K6, the flash backwards K5 and K13, the normalise-first
 route of K1 and K3, and the GroupNorm backward at the main paths'
 shapes, beside the one PyTorch call for the same function, on one CUDA card.
 
-    python3 -m vidseg_diffusion_tpu_torch.scripts.time_kernels [--only k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3]
+    python3 -m vidseg_diffusion_tpu_torch.scripts.time_kernels [--only k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3,
+                                                                       k5d16,fp32]
                                                               [--root CHECKOUT]
 
 Each call is captured 20 times into a CUDA graph and the replay is timed with
@@ -48,9 +49,17 @@ at a K9 + K10 site each launch also alone, and the slab kernel where a
 cluster would hold the slab but the route sends its many items to K9 + K10. The
 backwards at one 512-dim head, on the 7-frame training clip of svd.yaml's
 first stage: K5 there (`k5w`: K13's kernels on the packed strides, [7, 5824,
-1 x 512], a CUDA graph beside SDPA's backward, profiled) and K6's wide kernel
-(`k6w`: [t, 5824, 1, 512] at t = 7 and 14, bf16 and fp32, CUDA events and a
-graph beside SDPA's backward on the canonical view, whose backend is named).
+1 x 512], a CUDA graph beside SDPA's backward, profiled) and K6 (`k6w`: [t,
+5824, 1, 512] at t = 7 and 14, bf16 and fp32, as CUDA events and a graph
+beside SDPA's backward on the canonical view, profiled, whose backend is named;
+then every other t up to 16 as a graph). K5 and K13 at D = 16 (`k5d16`:
+svd_tiny.yaml's ds1 on a B = 2 slice and ds2, K13 at [2, 2, 1024, 16], both
+dtypes; graphs beside SDPA's backward, the exp2 floor beside the bound). The
+kernels these replaced (the wide kernel at every t, the FMA kernels at bf16
+D = 16) are the parent commit's: time them with `--root`. The
+fp32 routes at D = 64 (`fp32`: K1 at ds1, B = 2 and 28, K5 at ds1, K2 and K6 at
+[28, 5824, 5, 64], K4 at the UNet's ds1 time_stack) beside the library call in
+full fp32.
 The fp32 attention at D = 512 on split TF32 products (`x3`): K1 at one 512-dim
 head ([7, 5824, 1 x 512] and [14, ...], the VideoDecoder's attn2), its
 backward K5 there on the 7-frame training clip, and K3 / K13 at [2, 1, 64,
@@ -98,8 +107,16 @@ K5_SHAPES = [(2, 5824, 5), (28, 5824, 5), (28, 1456, 10), (28, 364, 20), (28, 91
 K13_SHAPES = [(2, 1, 5824, 5824, 512), (1, 1, 130, 77, 512)]
 # (B, L): K5 at one 512-dim head, the VideoAttnBlock's attn2 on the 7-frame training clip
 K5_WIDE_SHAPES = [(7, 5824)]
-# (t, S): K6 at D = 512, the VideoAttnBlock's time mix on that clip and on a 14-latent decode
+# (t, S): K6 at D = 512, the VideoAttnBlock's time mix on that clip and on a 14-latent decode; the
+# other t its tensor-core kernel takes (up to 16 frames), timed beside the wide kernel to route them
 K6_WIDE_SHAPES = [(7, 5824), (14, 5824)]
+K6_ROUTE_TS = (1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 16)
+# K5 at D = 16 (svd_tiny.yaml's heads): (B, L, H) at ds1 on a B = 2 slice and at ds2; K13 there (B, H, L)
+K5_D16_SHAPES, K13_D16_SHAPE = [(2, 5824, 2), (28, 1456, 4)], (2, 2, 1024)
+# the fp32 routes at D = 64 (step 0 of the fp32 table cells): K1 at ds1 (a B = 2 slice and the CFG batch),
+# K5 at ds1 (B = 2), K2 and K6 at ds1 (t = 14, two videos), K4 at the UNet's ds1 time_stack
+FP32_K1_SHAPES, FP32_K5_SHAPE, FP32_TEMPORAL_SHAPE, FP32_K4_SHAPE = (
+    [(2, 5824, 5), (28, 5824, 5)], (2, 5824, 5), (5824, 5), (2, 14, 5824, 320, 320))
 # normalise-first sites: (layout, B, Lq, Lk, H, D): SD 2.1's cross-attention at ds1 and ds2 (the CFG batch of
 # 28 frames), the SDXL base's at 1024x1024, SD 2.1's at 512x512 (null-text inversion, T5, the demo), CLIP ViT-H
 # (the SVD conditioner), CLIP ViT-L/14 (the safety filter, two images)
@@ -372,47 +389,189 @@ def time_flash_backward(torch, F, rn, only):
 
 
 def time_temporal_wide_backward(torch, F, rn):
-    """K6 at D = 512 (the wide kernel) at K6_WIDE_SHAPES in bf16 and fp32, CUDA
-    events and a graph, beside SDPA's backward on the canonical view
-    ([1, S, 1, t, 512], strided) with CUDA events, held to the plain version;
-    the SDPA backends that take the view named."""
+    """K6 at D = 512 at K6_WIDE_SHAPES in bf16 and fp32 as its route takes it,
+    CUDA events and a graph, beside SDPA's backward on the canonical view ([1,
+    S, 1, t, 512], strided; torch.profiler's sum of its kernels), held to the
+    plain version; the SDPA backends that take the view named. Then every other
+    t up to 16 (K6_ROUTE_TS) as graphs. The route of each call is printed."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from vidseg_diffusion_tpu_torch.ops import attention as A
 
-    for t, s in K6_WIDE_SHAPES:
+    fn = A.temporal_attention_direct_backward
+    cases = [(t, s, True) for t, s in K6_WIDE_SHAPES] + [(t, 5824, False) for t in K6_ROUTE_TS]
+    for t, s, headline in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, g = (rn(t, s, 1, 512).to(dtype) for _ in range(4))
             frames = lambda x: x.view(1, t, s, 1, 512).permute(0, 2, 3, 1, 4)
             o = A.temporal_attention_direct(q, k, v, t=t)
-            got = A.temporal_attention_direct_backward(q, k, v, o, g, t=t)
+            got = fn(q, k, v, o, g, t=t)
             ref = A.temporal_attention_direct_backward_reference(q, k, v, o, g, t=t)
             unit = "bf16 steps" if dtype == torch.bfloat16 else "relative"
             check = ", ".join(f"%.2e {unit}, rel. RMS %.2e" % errors(x, r) for x, r in zip(got, ref))
-            takes = []
-            for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
-                            SDPBackend.MATH):
-                try:
-                    with sdpa_kernel([backend]):
-                        F.scaled_dot_product_attention(*(frames(x) for x in (q, k, v)))
-                    takes.append(backend.name)
-                except RuntimeError:
-                    pass
-            leaves = [frames(x).detach().requires_grad_() for x in (q, k, v)]
-            y = F.scaled_dot_product_attention(*leaves)
-            lib_ms = events_ms(torch, lambda: torch.autograd.grad(y, leaves, frames(g), retain_graph=True))
-            before = routes(A.temporal_attention_direct_backward)
-            ms = events_ms(torch, lambda: A.temporal_attention_direct_backward(q, k, v, o, g, t=t))
-            dev_ms = graph_ms(torch, lambda: A.temporal_attention_direct_backward(q, k, v, o, g, t=t), 5)
-            moved = {key: val - before[key] for key, val in routes(A.temporal_attention_direct_backward).items()}
+            before = routes(fn)
+            fn(q, k, v, o, g, t=t)
+            moved = {key: val - before[key] for key, val in routes(fn).items()}
+            dev_ms = graph_ms(torch, lambda: fn(q, k, v, o, g, t=t), 5)
             item = q.element_size()
             nbytes, flops = 8 * item * q.numel(), 10 * t * t * 512 * s
-            print(f"K6 D=512 [{t},{s},1,512] t={t} {str(dtype)[6:]} (CUDA events): {ms:.4f} ms (SDPA backward "
-                  f"{lib_ms:.4f}, backends taking the view {takes}; bound "
-                  f"{bound_ms(nbytes, flops, 'bf16' if item == 2 else 'fp32'):.4f}; device time "
-                  f"{dev_ms:.4f}), {check}; routes over the timed launches {moved}", flush=True)
-            del q, k, v, g, o, got, ref, leaves, y
+            bound = bound_ms(nbytes, flops, 'bf16' if item == 2 else 'fp32')
+            head = f"K6 D=512 [{t},{s},1,512] t={t} {str(dtype)[6:]}"
+            if headline:
+                takes = []
+                for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                                SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+                    try:
+                        with sdpa_kernel([backend]):
+                            F.scaled_dot_product_attention(*(frames(x) for x in (q, k, v)))
+                        takes.append(backend.name)
+                    except RuntimeError:
+                        pass
+                leaves = [frames(x).detach().requires_grad_() for x in (q, k, v)]
+                y = F.scaled_dot_product_attention(*leaves)
+                lib_ms = profiled_ms(torch, lambda: torch.autograd.grad(y, leaves, frames(g), retain_graph=True))
+                ms = events_ms(torch, lambda: fn(q, k, v, o, g, t=t))
+                print(f"{head} (CUDA events): {ms:.4f} ms (device time {dev_ms:.4f}; SDPA backward, device time, "
+                      f"{fmt_ms(lib_ms)}, backends taking the view {takes}; bound {bound:.4f}), {check}; routes of "
+                      f"one call {moved}", flush=True)
+                del leaves, y
+            else:
+                print(f"{head}: device time {dev_ms:.4f} ms (bound {bound:.4f}), {check}; routes of one call "
+                      f"{moved}", flush=True)
+            del q, k, v, g, o, got, ref
             torch.cuda.empty_cache()
+
+
+def time_k5_d16(torch, F, rn):
+    """K5 at D = 16 (K5_D16_SHAPES) and K13 there (K13_D16_SHAPE, K5's kernels
+    on K3's strides), bf16 and fp32, as CUDA graphs beside SDPA's backward
+    (torch.profiler's sum of its kernels), held to the plain version; the bound
+    (five products, 10 L^2 D flops, or bytes) and the exp2 floor (two exp2 a
+    (query, key) pair, one a kernel, at 16 a clock an SM at the card's largest
+    SM clock)."""
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    props = torch.cuda.get_device_properties(0)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, check=True).stdout.split()[0]
+    exp2_rate = 16 * props.multi_processor_count * float(clock) * 1e6
+    cases = [("K5", b, h, l) for b, l, h in K5_D16_SHAPES] + [("K13",) + K13_D16_SHAPE]
+    for name, b, h, l in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            if name == "K5":
+                q, k, v, go = (rn(b, l, h * 16).to(dtype) for _ in range(4))
+                out, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True)
+                args = (q, k, v, out, lse, go, h)
+                fn, plain, counter = A.flash_attention_packed_backward, A.flash_attention_packed_backward_reference, \
+                    A.flash_attention_packed_backward
+                view = lambda x: x.view(b, l, h, 16).transpose(1, 2)
+            else:
+                q, k, v, go = (rn(b, h, l, 16).to(dtype) for _ in range(4))
+                out, lse = A._flash_attention_forward(q, k, v, None, save_lse=True)
+                args = (q, k, v, out, lse, go)
+                fn, plain, counter = A.flash_attention_backward, A.flash_attention_backward_reference, \
+                    A.flash_attention_packed_backward
+                view = lambda x: x
+            got, ref = fn(*args), plain(*args)
+            unit = "bf16 steps" if dtype == torch.bfloat16 else "relative"
+            check = ", ".join(f"%.2e {unit}, rel. RMS %.2e" % errors(x, r) for x, r in zip(got, ref))
+            before = routes(counter)
+            fn(*args)
+            moved = {key: val - before[key] for key, val in routes(counter).items()}
+            ms = graph_ms(torch, lambda: fn(*args), 5)
+            leaves = [view(x).detach().requires_grad_() for x in (q, k, v)]
+            y = F.scaled_dot_product_attention(*leaves)
+            lib_ms = profiled_ms(torch, lambda: torch.autograd.grad(y, leaves, view(go), retain_graph=True))
+            item = q.element_size()
+            nbytes = item * 8 * b * h * l * 16 + 4 * b * h * l
+            bound = bound_ms(nbytes, 10 * b * h * l * l * 16, "bf16" if item == 2 else "fp32")
+            floor = 2 * b * h * l * l / exp2_rate * 1e3
+            print(f"{name} D=16 [{b},{l},{h}x16] {str(dtype)[6:]}: {ms:.4f} ms (SDPA backward {fmt_ms(lib_ms)}, "
+                  f"{sdpa_backend(torch, F, *leaves)}; bound {bound:.4f}, exp2 floor {floor:.4f} at {clock} MHz), "
+                  f"{check}; routes of one call {moved}", flush=True)
+            del q, k, v, go, out, lse, args, got, ref, leaves, y
+            torch.cuda.empty_cache()
+
+
+def time_fp32_d64(torch, F, rn):
+    """The fp32 routes at D = 64 (step 0's blank table cells) and K4's fp32 tile
+    at the UNet's ds1: device time as CUDA graphs (backwards: graphs too, SDPA's
+    profiled), beside the one PyTorch call in full fp32 (TF32 off), with the
+    fp32 bound (bytes, or flops at 165 TFLOP/s), held to the plain version
+    where it fits (B = 2)."""
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+    from vidseg_diffusion_tpu_torch.ops import temporal_conv as TC
+
+    f32 = torch.float32
+    heads = lambda x, b, h: x.view(b, x.shape[1], h, 64).transpose(1, 2)
+    for b, l, h in FP32_K1_SHAPES:
+        q, k, v = (rn(b, l, h * 64) for _ in range(3))
+        check = ""
+        if b == 2:
+            check = ", %.2e relative, rel. RMS %.2e" % errors(A.flash_attention_packed(q, k, v, h),
+                                                           A.flash_attention_packed_reference(q, k, v, h))
+        n = 5 if b == 2 else 2
+        ms = graph_ms(torch, lambda: A.flash_attention_packed(q, k, v, h), n)
+        lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(heads(q, b, h), heads(k, b, h),
+                                                                        heads(v, b, h)), n)
+        bound = bound_ms(4 * 4 * b * l * h * 64, 4 * b * h * l * l * 64, "fp32")
+        print(f"FP32 K1 [{b},{l},{h}x64]: {ms:.4f} ms (SDPA {lib_ms:.4f}, "
+              f"{sdpa_backend(torch, F, heads(q, b, h), heads(k, b, h), heads(v, b, h))}; bound {bound:.4f}){check}",
+              flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    b, l, h = FP32_K5_SHAPE
+    q, k, v, go = (rn(b, l, h * 64) for _ in range(4))
+    out, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True)
+    args = (q, k, v, out, lse, go, h)
+    check = ", ".join("%.2e relative, rel. RMS %.2e" % errors(x, r) for x, r in
+                      zip(A.flash_attention_packed_backward(*args), A.flash_attention_packed_backward_reference(*args)))
+    ms = graph_ms(torch, lambda: A.flash_attention_packed_backward(*args), 3)
+    leaves = [heads(x, b, h).detach().requires_grad_() for x in (q, k, v)]
+    y = F.scaled_dot_product_attention(*leaves)
+    lib_ms = profiled_ms(torch, lambda: torch.autograd.grad(y, leaves, heads(go, b, h), retain_graph=True))
+    bound = bound_ms(4 * 8 * b * l * h * 64 + 4 * b * h * l, 10 * b * h * l * l * 64, "fp32")
+    print(f"FP32 K5 [{b},{l},{h}x64]: {ms:.4f} ms (SDPA backward {fmt_ms(lib_ms)}, {sdpa_backend(torch, F, *leaves)}; "
+          f"bound {bound:.4f}), {check}", flush=True)
+    del q, k, v, go, out, lse, args, leaves, y
+    torch.cuda.empty_cache()
+    s, h = FP32_TEMPORAL_SHAPE
+    t, bt = 14, 28
+    q, k, v, g = (rn(bt, s, h, 64) for _ in range(4))
+    frames = lambda x: x.view(bt // t, t, *x.shape[1:]).permute(0, 2, 3, 1, 4)
+    o = A.temporal_attention_direct(q, k, v, t=t)
+    n = bt * s * h * 64
+    flops = 4 * t * t * 64 * (bt // t) * s * h
+    check = "%.2e relative, rel. RMS %.2e" % errors(o, A.temporal_attention_direct_reference(q, k, v, t=t))
+    ms = graph_ms(torch, lambda: A.temporal_attention_direct(q, k, v, t=t), 5)
+    lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(frames(q), frames(k), frames(v)), 5)
+    print(f"FP32 K2 [{bt},{s},{h},64] t={t}: {ms:.4f} ms (SDPA {lib_ms:.4f}, "
+          f"{sdpa_backend(torch, F, frames(q), frames(k), frames(v))}; bound {bound_ms(4 * 4 * n, flops, 'fp32'):.4f}), "
+          f"{check}", flush=True)
+    check = ", ".join("%.2e relative, rel. RMS %.2e" % errors(x, r) for x, r in zip(
+        A.temporal_attention_direct_backward(q, k, v, o, g, t=t),
+        A.temporal_attention_direct_backward_reference(q, k, v, o, g, t=t)))
+    ms = graph_ms(torch, lambda: A.temporal_attention_direct_backward(q, k, v, o, g, t=t), 3)
+    leaves = [frames(x).detach().requires_grad_() for x in (q, k, v)]
+    y = F.scaled_dot_product_attention(*leaves)
+    lib_ms = profiled_ms(torch, lambda: torch.autograd.grad(y, leaves, frames(g), retain_graph=True))
+    print(f"FP32 K6 [{bt},{s},{h},64] t={t}: {ms:.4f} ms (SDPA backward {fmt_ms(lib_ms)}, "
+          f"{sdpa_backend(torch, F, *leaves)}; bound {bound_ms(8 * 4 * n, 2.5 * flops, 'fp32'):.4f}), {check}",
+          flush=True)
+    del q, k, v, g, o, leaves, y
+    torch.cuda.empty_cache()
+    b, t, m, ci, co = FP32_K4_SHAPE
+    x, w, bias = rn(b, t, m, ci), rn(3, ci, co) / (3 * ci) ** 0.5, rn(co)
+    x5 = x.permute(0, 3, 1, 2).unsqueeze(-1)
+    w5 = w.permute(2, 1, 0).contiguous()[..., None, None]
+    check = "%.2e relative, rel. RMS %.2e" % errors(TC.temporal_conv_1x1(x, w, bias),
+                                                     TC.temporal_conv_1x1_reference(x, w, bias))
+    ms = graph_ms(torch, lambda: TC.temporal_conv_1x1(x, w, bias), 5)
+    lib_ms = graph_ms(torch, lambda: F.conv3d(x5, w5, bias, padding=(1, 0, 0)), 5)
+    pairs = sum(1 for f in range(t) for j in range(3) if 0 <= f + j - 1 < t)
+    bound = bound_ms(4 * (b * t * m * (ci + co) + 3 * ci * co + co), 2 * b * pairs * m * ci * co, "fp32")
+    print(f"FP32 K4 [{b},{t},{m},{ci}->{co}]: {ms:.4f} ms (F.conv3d {lib_ms:.4f}; bound {bound:.4f}), {check}",
+          flush=True)
 
 
 def sdpa_backend(torch, F, *qkv):
@@ -616,8 +775,8 @@ def main():
     import torch.nn.functional as F
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", default="k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3",
-                        help="comma-separated: k11, k1, k4, gn, k2, k6, k5, k13, nf, gnb, k5w, k6w, x3")
+    parser.add_argument("--only", default="k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3,k5d16,fp32",
+                        help="comma-separated: k11, k1, k4, gn, k2, k6, k5, k13, nf, gnb, k5w, k6w, x3, k5d16, fp32")
     parser.add_argument("--root", default=None,
                         help="import vidseg_diffusion_tpu_torch (and build its kernels) from this checkout")
     args = parser.parse_args()
@@ -671,6 +830,10 @@ def run(torch, F, A, MM, only):
         time_flash_backward(torch, F, rn, only)
     if "k6w" in only:
         time_temporal_wide_backward(torch, F, rn)
+    if "k5d16" in only:
+        time_k5_d16(torch, F, rn)
+    if "fp32" in only:
+        time_fp32_d64(torch, F, rn)
     if "nf" in only:
         time_normalised(torch, F, rn)
     if "gnb" in only:
