@@ -160,8 +160,13 @@ Phases, in order; any failure exits non-zero:
 18. vae_time_mode (last): svd.yaml's VideoDecoder at time_mode 'all' and
    'attn-only' with seeded random weights, 14 latents of 56x104 decoded at
    decoding_t 7 in bf16: K1 and K2 at one 512-dim head (K3's wgmma kernel,
-   the wide kernel) and K3 twice a decode, every launch reckoned; then fp32
-   card vs CPU at 2 frames of 32x32 latents.
+   the wide kernel) and K3 twice a decode, every launch reckoned; 'all' over
+   40 latents at decoding_t 40 (K2 at D = 512 over 40 frames, once, on the
+   frame-walking kernel); then fp32 card vs CPU at 2 frames of 32x32 latents,
+   and 'all' over 34 latents of 4x4 under a gradient (K2 and K6 at D = 512
+   over 34 frames on the frame-walking kernels: the run of the
+   temporal_attention_direct_backward_long entry), output and latent gradient
+   card vs CPU.
 19. api_img2vid (after refine, on the main path's pipeline): the sampling API's
    image_to_video (vidseg_diffusion_tpu_torch/inference/api.py) on svd.yaml at
    VideoSamplingParams' defaults (1024x576, 14 frames, 25 steps, decoding_t 1):
@@ -266,6 +271,14 @@ Phases, in order; any failure exits non-zero:
    launches the tf32x3 entries report; K6 over the 2 frames on the wide
    kernel, its route at so few frames), card vs CPU gradients of every
    first-stage parameter within GRAD_REL_TOL.
+30. long_video (after api_img2vid, on a pipeline of its own): the main path
+   of phase 6 at full width over 40 synthetic 448x832 frames, the pipeline
+   built for 40 frames: every temporal self-attention site runs K2 over 40
+   frames, past the 32 of its tiled kernels. The main path's checks at 40
+   frames (launches by kernel and route as the calls imply, the first stage at
+   6 chunks a pass), every K2 launch at t = 40 on the frame-walking kernel
+   (the run of the temporal_attention_direct_long entry); its seconds and
+   peak memory.
 With `--ranks` under `torchrun --nproc_per_node W` on W cards (main_ranks):
 the main path's runs over the W ranks bit-equal to one rank's run, and the
 training step FSDP-wrapped over the W ranks, a video each, against the
@@ -274,8 +287,11 @@ one JSON line of those readings (no kernels line).
 The kernel phase also holds the instances at the head dims the tuned kernels
 are not built for (D = 16: K1, K2, K3, K5, K6, K13; one 512-dim head: K1, K2,
 and their backwards K5 (K13's kernels on the packed strides) and K6 (its
-tensor-core kernel up to 16 frames, split TF32 in fp32, also held to the plain
-version in float64; the wide kernel at 3 and at 17 frames)) against their plain versions in bf16 and fp32 (K5 and K13
+tensor-core kernels at 7 and 14 frames and the 32-row tile at 17 and 32, split
+TF32 in fp32, also held to the plain version in float64; the wide kernel at 3
+frames)), and K2 and K6 past 32 frames (33 and 48) at D = 64 ([t,5824,5,64]),
+512 and 16 on the frame-walking kernels (fp32 at D = 512 also held to the
+plain version in float64), against their plain versions in bf16 and fp32 (K5 and K13
 at bf16 D = 16 on their mma.sync kernels), and the normalise-first mode
 of K1 and K3 at D = 16 in bf16, also held to mha_reference. The fp32 routes at
 D = 64 are timed at their ds1 shapes beside the library call in full fp32: K1
@@ -287,6 +303,7 @@ Before the last line come the kernels JSON (per kernel: launches in the run
 of its path and in the other runs (injected, SD, diffusion training,
 autoencoder training, the SVD and SD sweeps summed over their windows, the
 inversion run, the two VideoDecoder decodes summed, the tiny run, the
+40-frame main path (long_video_launches), the
 three modes' steps of svd.yaml's first stage summed (ae_video_train_launches), and the
 sampling API's runs: api_launches (api_sdxl's runs summed), img2vid_launches,
 nti_launches; t5_launches,
@@ -412,6 +429,20 @@ KERNELS = {
         replaces="vidseg_diffusion_tpu/ops/attention.py:1025", rms_tol=1e-3,
         route_of=("flash_attention_backward", "flash_attention_packed_backward"), path="ae_video_grad",
     ),
+    # K2 and K6 past 32 frames (route 8, "long"): the frame-walking kernels of temporal_attention_long.cu at
+    # every head dim and dtype. Their launches are the `route_of` wrappers' .long_launches in the run of
+    # their path (long_video: svd.yaml's main path over 40 frames; vae_long_grad: the VideoDecoder at 'all'
+    # in fp32 under a gradient over 34 latents)
+    "temporal_attention_direct_long": dict(
+        id="K2 past 32 frames", source="vidseg_diffusion_tpu_torch/csrc/temporal_attention_long.cu",
+        replaces="vidseg_diffusion_tpu/ops/attention.py:1458", rms_tol=1e-3,
+        route_of=("temporal_attention_direct",), route="long", path="long_video",
+    ),
+    "temporal_attention_direct_backward_long": dict(
+        id="K6 past 32 frames", source="vidseg_diffusion_tpu_torch/csrc/temporal_attention_long.cu",
+        replaces="vidseg_diffusion_tpu/ops/attention.py:1167", rms_tol=2e-4,
+        route_of=("temporal_attention_direct_backward",), route="long", path="vae_long_grad",
+    ),
 }
 # the instances at the head dims the tuned kernels are not built for (ROADMAP
 # section C): entries of their own, on the wrapper of the kernel they instance,
@@ -447,7 +478,7 @@ for _name, _id, _src, _line, _tol, _wrapper, _dim, _path in (
      512, "vae_time_mode"),
     # their gradients, when svd.yaml's first stage trains: K5 at one 512-dim head runs K13's
     # D = 512 kernels on the packed strides (JAX reaches :993 / :1025 there), K6 its tensor-core
-    # kernel (up to 16 frames; past them the wide kernel of temporal_attention_bwd.cu)
+    # kernels (4 (bf16) / 5 (fp32) to 32 frames; below them the wide kernel of temporal_attention_bwd.cu)
     ("flash_attention_packed_backward_d512", "K5 D=512 one head", "flash_attention_bhld_bwd.cu", 993, 1e-3,
      "flash_attention_packed_backward", 512, "ae_video_train"),
     ("temporal_attention_direct_backward_d512", "K6 D=512", "temporal_attention_bwd_512.cu", 1167, 2e-4,
@@ -481,6 +512,15 @@ MAIN_LAUNCHES = {"flash_attention_packed": 832, "temporal_attention_direct": 832
 # GroupNorm module per call, K11 four times per CrossAttention module and K12
 # twice per ResBlock per UNet call (module_launches).
 MAIN_CALLS = {"unet": 52, "encoder": 3, "decoder": 8}
+LONG_VIDEO_FRAMES = 40   # long_video: the main path over 40 frames
+
+
+def main_calls(t, decoding_t):
+    """MAIN_CALLS at t frames decoded decoding_t at a time: the UNet's calls
+    do not depend on t; the encoder runs one call a chunk of the video and one
+    for the conditioning frame, the decoder one a chunk for each of the 4 runs."""
+    chunks = -(-t // decoding_t)
+    return {"unet": MAIN_CALLS["unet"], "encoder": chunks + 1, "decoder": 4 * chunks}
 # the SD path (scripts/sd_path.py): 3 feature-pass + 8 runs x 6 UNet steps; the
 # encoder on 2 chunks of 7 frames; the decoder on 2 chunks per run. Its 32
 # CrossAttention modules (self and 77-key cross) each launch K1 once per call;
@@ -575,6 +615,8 @@ HEADLINE = {  # the shape of its path each kernel is timed at
     "temporal_attention_direct_backward_d512": "VideoAttnBlock time mix [7,5824,1,512] t=7 bf16",
     "flash_attention_tf32x3": "VAE mid [7,1,5824,512] fp32",
     "flash_attention_backward_tf32x3": "VAE mid [7,1,5824,512] fp32",
+    "temporal_attention_direct_long": "ds1 [48,5824,5,64] t=48 bf16",
+    "temporal_attention_direct_backward_long": "ds1 [48,5824,5,64] t=48 bf16",
 }
 # launches of one training step (remat on: every ResBlock and transformer runs
 # its forward twice, in the step's forward and in the backward's recompute):
@@ -1084,8 +1126,9 @@ def head_dim_cases(torch, rn):
     svd.yaml's decode (decoding_t 7 and 14: attn2 [bt, 5824, 1 x 512] through
     K1, the time mix [bt, 5824, 1, 512] through K2) and their backwards on the
     7-frame training clip (K5 at one 512-dim head on K13's kernels, t = 7; K6
-    on its tensor-core kernel at t = 7 and 14, on the wide kernel at t = 3 and
-    17, each launch on its route counter). Library: SDPA on the [B, H, L, D]
+    on its tensor-core kernels at t = 7, 14, 17 and 32, on the wide kernel at
+    t = 3, each launch on its route counter); K2 and K6 past 32 frames (33 and
+    48) at D = 64, 512 and 16 on the frame-walking kernels. Library: SDPA on the [B, H, L, D]
     views (K2: the [b, s, H, t, D] view), its backward through autograd.grad
     (the backend that takes the headline printed)."""
     import torch.nn.functional as F
@@ -1203,14 +1246,15 @@ def head_dim_cases(torch, rn):
                           iters=2, work=attn_work(7, 1, 5824, 5824, 512, backward=True, dtype=dname),
                           library=lambda q, k, v, o, lse, g, h: sdpa_backward([heads(x, 1) for x in (q, k, v)],
                                                                               heads(g, 1))))
-        # K6 at t = 7 and 14 on its tensor-core kernel (bf16 mma.sync, fp32 split TF32); at 3 frames
-        # and at 17 on the wide kernel, which the C entry keeps below 4 (bf16) / 5 (fp32) frames and past 16
-        k6 = A.temporal_attention_direct_backward
+        # K6 at t = 7 and 14 on its tensor-core kernel (bf16 mma.sync, fp32 split TF32), at 17 and 32 on its
+        # 32-row tile; at 3 frames on the wide kernel, which the C entry keeps below 4 (bf16) / 5 (fp32) frames
+        k2, k6 = A.temporal_attention_direct, A.temporal_attention_direct_backward
         tc_route = ((lambda: k6.mma_launches) if dtype == torch.bfloat16 else (lambda: k6.tf32x3_launches))
         for label, t, counted in (("VideoAttnBlock time mix [7,5824,1,512] t=7", 7, tc_route),
                                   ("VideoAttnBlock time mix [14,5824,1,512] t=14", 14, tc_route),
                                   ("time mix [3,5824,1,512] t=3 wide kernel", 3, lambda: k6.wide_launches),
-                                  ("time mix [17,5824,1,512] t=17 wide kernel", 17, lambda: k6.wide_launches)):
+                                  ("time mix [17,5824,1,512] t=17 32-row tile", 17, tc_route),
+                                  ("time mix [32,5824,1,512] t=32 32-row tile", 32, tc_route)):
             def k6_512_make(t=t, mk=mk):
                 q, k, v, g = mk(*[(t, 5824, 1, 512)] * 4)()
                 return q, k, v, A.temporal_attention_direct(q, k, v, t=t), g
@@ -1223,6 +1267,33 @@ def head_dim_cases(torch, rn):
                               work=attn_work(5824, 1, t, t, 512, backward=True, dtype=dname),
                               library=lambda q, k, v, o, g, t=t: sdpa_backward([frames(x, t) for x in (q, k, v)],
                                                                                frames(g, t))))
+        # K2 and K6 past 32 frames on the frame-walking kernels (`.long_launches`): one video of 33 and 48
+        # frames at the UNet's ds1 site, the time mix's one 512-dim head and svd_tiny.yaml's ds1 16-dim heads;
+        # fp32 at D = 512 also held to the plain version in float64 (FP64_RMS_TOL)
+        for t in (33, 48):
+            for label, h, d in ((f"ds1 [{t},5824,5,64] t={t}", 5, 64), (f"time mix [{t},5824,1,512] t={t}", 1, 512),
+                                (f"tiny ds1 [{t},5824,2,16] t={t}", 2, 16)):
+                add = dict(iters=2, fp64_held=dtype == torch.float32 and d == 512)
+                cases.append(dict(kernel="temporal_attention_direct_long", label=f"{label} {dname}",
+                                  make=mk(*[(t, 5824, h, d)] * 3), counted=lambda: k2.long_launches,
+                                  kern=lambda q, k, v, t=t: k2(q, k, v, t=t),
+                                  plain=lambda q, k, v, t=t: A.temporal_attention_direct_reference(q, k, v, t=t),
+                                  work=attn_work(5824, h, t, t, d, dtype=dname),
+                                  library=lambda q, k, v, t=t: (lambda a=[frames(x, t) for x in (q, k, v)]: sdpa(*a)),
+                                  **add))
+
+                def k6_long_make(t=t, h=h, d=d, mk=mk):
+                    q, k, v, g = mk(*[(t, 5824, h, d)] * 4)()
+                    return q, k, v, A.temporal_attention_direct(q, k, v, t=t), g
+
+                cases.append(dict(kernel="temporal_attention_direct_backward_long", label=f"{label} {dname}",
+                                  make=k6_long_make, counted=lambda: k6.long_launches,
+                                  kern=lambda q, k, v, o, g, t=t: k6(q, k, v, o, g, t=t),
+                                  plain=lambda q, k, v, o, g, t=t: A.temporal_attention_direct_backward_reference(
+                                      q, k, v, o, g, t=t),
+                                  work=attn_work(5824, h, t, t, d, backward=True, dtype=dname),
+                                  library=lambda q, k, v, o, g, t=t: sdpa_backward([frames(x, t) for x in (q, k, v)],
+                                                                                   frames(g, t)), **add))
     return cases
 
 
@@ -1561,7 +1632,7 @@ def phase_kernels(torch):
         fp32 = args[0].dtype == torch.float32
         fp64_rms = (fp64_rel_rms(torch, plain, args, outs)
                     if fp32 and kname.startswith(("flash_attention", "temporal_attention")) else None)
-        if x3:
+        if x3 or case.get("fp64_held"):
             check(fp64_rms <= FP64_RMS_TOL, f"{kname} {label}: relative RMS error {fp64_rms} against float64 "
                                             f"(tol {FP64_RMS_TOL})")
         ms = time_ms(lambda: kern(*args), iters)
@@ -1604,7 +1675,8 @@ def phase_kernels(torch):
               f"{rel:.2e} relative, tol {FP32_TOL:.0e}) rel_rms_err={rms:.3e} (tol {rms_tol:.0e}) "
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {row['bound_ms']:.3f} ms by "
               f"{row['bound_by']}, library {lib_txt}"
-              + (f"; vs float64 rel_rms {fp64_rms:.3e}" + (f" (tol {FP64_RMS_TOL:.0e}, split TF32)" if x3 else "")
+              + (f"; vs float64 rel_rms {fp64_rms:.3e}" + (f" (tol {FP64_RMS_TOL:.0e})" if x3 or case.get("fp64_held")
+                                                              else "")
                  if fp64_rms is not None else ""), flush=True)
         if previous_ms is not None:
             print(f"[kernels] {KERNELS[kname]['id']} {label}: {'resident' if resident else 'streaming'} kernel "
@@ -1894,7 +1966,7 @@ def kernel_fns():
 ROUTED = ("flash_attention_packed", "flash_attention", "temporal_conv_1x1", "matmul_bias",
           "temporal_attention_direct", "temporal_attention_direct_backward", "flash_attention_packed_backward",
           "flash_attention_backward")
-ROUTE_NAMES = ("wgmma", "narrow", "mma", "normalised", "resident", "wide", "cluster", "tf32x3")
+ROUTE_NAMES = ("wgmma", "narrow", "mma", "normalised", "resident", "wide", "cluster", "tf32x3", "long")
 # the wrappers whose fp32 D = 512 launches run the split-TF32 kernels (route "tf32x3")
 X3_WRAPPERS = ("flash_attention_packed", "flash_attention", "flash_attention_packed_backward",
                "flash_attention_backward", "temporal_attention_direct_backward")
@@ -2000,7 +2072,7 @@ def reset_counts():
         for route in ROUTE_NAMES:
             if hasattr(f, f"{route}_launches"):
                 setattr(f, f"{route}_launches", 0)
-        for attr in ("dim_launches", "normalised_dim_launches"):
+        for attr in ("dim_launches", "normalised_dim_launches", "frame_launches"):
             if hasattr(f, attr):
                 getattr(f, attr).clear()
     for f in plains:
@@ -2029,6 +2101,8 @@ def read_dims():
     dims = {f.__name__: dict(f.dim_launches) for f in A.KERNEL_COUNTERS}
     dims.update({f"{f.__name__}.normalised": dict(f.normalised_dim_launches)
                  for f in A.KERNEL_COUNTERS if hasattr(f, "normalised_dim_launches")})
+    dims.update({f"{f.__name__}.frames": dict(f.frame_launches)   # K2 / K6: launches by the frames t
+                 for f in A.KERNEL_COUNTERS if hasattr(f, "frame_launches")})
     return dims
 
 
@@ -2039,15 +2113,16 @@ K3_NORMALISED_WGMMA_DIMS = (64,)   # K3's normalise-first mode on K1's wgmma ker
 RESIDENT_NF_DIM = {"flash_attention_packed": 64, "flash_attention": 80}
 
 
-def check_routes(tag, launches, narrow=0, normalised=None, wide=0):
+def check_routes(tag, launches, narrow=0, normalised=None, wide=0, long_frames=0):
     """Every K1, K11, K5 and K13 launch of the run took the wgmma kernel (none
     the mma.sync tile or an FMA kernel), every K3 launch but the `normalised`
     ones at D = 80 and 16 (CLIP ViT-H's and the tiny towers', on the mma.sync
     kernel; at D = 64 they run K1's wgmma kernel and count on both), every K4
     launch but `narrow` of them, which took the narrow kernel, every K2
-    launch but `wide` of them (D = 512, the wide kernel) and every K6 launch
-    (D = 512 up to 16 frames too) the tensor-core kernel (none the fp32
-    CUDA-core one); K1 and
+    launch but `wide` of them (D = 512, the wide kernel) and `long_frames` of
+    them (past 32 frames, the frame-walking kernel) and every K6 launch (D =
+    512 up to 32 frames too) the tensor-core kernel (none the fp32 CUDA-core
+    one); K1 and
     K3 ran the normalise-first mode `normalised[name]` times ({kernel:
     launches}), and each of those at RESIDENT_NF_DIM, none other, on the
     kernel that holds a head's K and V in shared memory, as the launch
@@ -2067,8 +2142,10 @@ def check_routes(tag, launches, narrow=0, normalised=None, wide=0):
     for name, d in RESIDENT_NF_DIM.items():
         want[name]["resident"] = DIM_COUNTS[tag][f"{name}.normalised"].get(d, 0)
     want["temporal_conv_1x1"] = {"wgmma": launches["temporal_conv_1x1"] - narrow, "narrow": narrow}
-    want["temporal_attention_direct"] = {"mma": launches["temporal_attention_direct"] - wide, "wide": wide}
-    want["temporal_attention_direct_backward"] = {"mma": launches["temporal_attention_direct_backward"], "wide": 0}
+    want["temporal_attention_direct"] = {"mma": launches["temporal_attention_direct"] - wide - long_frames,
+                                         "wide": wide, "long": long_frames}
+    want["temporal_attention_direct_backward"] = {"mma": launches["temporal_attention_direct_backward"], "wide": 0,
+                                                  "long": 0}
     for name in X3_WRAPPERS:   # bf16 runs: no fp32 launch
         want[name]["tf32x3"] = 0
     got = {name: routes[name] for name in ROUTED}
@@ -2198,18 +2275,19 @@ def read_counts():
     return {f.__name__: f.launches for f in counters}, {f.__name__: f.calls for f in plains}
 
 
-def run_main_path(torch, pipe, tag, injected, process_group=None):
+def run_main_path(torch, pipe, tag, injected, process_group=None, n_frames=None):
     """One run_single_video of scripts/main_path.py (its runs over
-    `process_group`'s ranks when given) with its checks; returns (launches,
-    result)."""
+    `process_group`'s ranks when given; over `n_frames` frames when given, on
+    a pipeline built for them) with its checks; returns (launches, result)."""
     import numpy as np
 
+    from vidseg_diffusion_tpu_torch.ops import attention as A
     from vidseg_diffusion_tpu_torch.ops import norm as N
     from vidseg_diffusion_tpu_torch.pipelines.single_video import run_single_video
     from vidseg_diffusion_tpu_torch.scripts import main_path
 
-    t, hpx, wpx = main_path.NUM_FRAMES, main_path.HEIGHT, main_path.WIDTH
-    frames, names = main_path.frames(), main_path.frame_names()
+    t, hpx, wpx = n_frames or main_path.NUM_FRAMES, main_path.HEIGHT, main_path.WIDTH
+    frames, names = main_path.frames(t), main_path.frame_names(t)
     args = main_path.vidseg_args(is_injected_features=injected)
     timings = {}
     torch.cuda.reset_peak_memory_stats()
@@ -2226,20 +2304,27 @@ def run_main_path(torch, pipe, tag, injected, process_group=None):
           f"GroupNorm input copies {N.group_norm.copies}; peak device memory {peak_gb:.1f} GB "
           f"({card_line()})", flush=True)
 
-    by_module, per_call = module_launches(pipe, MAIN_CALLS)
-    check(all(by_module[k] == MAIN_LAUNCHES[k] for k in ("matmul_bias", "conv3x3_same")),
-          f"K11 / K12 launches reckoned from the modules {by_module} differ from {MAIN_LAUNCHES}")
-    reckoned = window_launches(pipe, True, MAIN_CALLS)[0]   # the sweep's per-window reckoning, at these calls
-    check(all(reckoned[k] == n for k, n in MAIN_LAUNCHES.items()),
-          f"window_launches {reckoned} disagrees with MAIN_LAUNCHES {MAIN_LAUNCHES}")
-    expected = {name: MAIN_LAUNCHES.get(name, 0) for name in launches}
+    calls = main_calls(t, args.decoding_t)
+    by_module, per_call = module_launches(pipe, calls)
+    reckoned = window_launches(pipe, True, calls)[0]   # the sweep's per-window reckoning, at these calls
+    if t == main_path.NUM_FRAMES:
+        check(all(by_module[k] == MAIN_LAUNCHES[k] for k in ("matmul_bias", "conv3x3_same")),
+              f"K11 / K12 launches reckoned from the modules {by_module} differ from {MAIN_LAUNCHES}")
+        check(all(reckoned[k] == n for k, n in MAIN_LAUNCHES.items()),
+              f"window_launches {reckoned} disagrees with MAIN_LAUNCHES {MAIN_LAUNCHES}")
+    expected = {name: reckoned.get(name, 0) for name in launches}
     expected.update(group_norm_expected(tag, by_module.pop("group_norm")), **by_module)
     check(launches == expected, f"inference launches {launches}, expected {expected} (modules "
                                 f"per call {per_call}; no backward)")
     check(all(n == 0 for n in plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
-    narrow = MAIN_CALLS["decoder"] * narrow_tconv_sites(pipe.first_stage.decoder)
-    print(f"[{tag}] launches by route {json.dumps(check_routes(tag, launches, narrow, MAIN_NORMALISED))}; "
-          f"GroupNorm calls by route {json.dumps(GN_ROUTES)}", flush=True)
+    narrow = calls["decoder"] * narrow_tconv_sites(pipe.first_stage.decoder)
+    k2 = "temporal_attention_direct"
+    long_frames = launches[k2] if t > A.TILED_FRAMES else 0   # past 32 frames: the frame-walking kernel
+    routes = check_routes(tag, launches, narrow, MAIN_NORMALISED, long_frames=long_frames)
+    print(f"[{tag}] launches by route {json.dumps(routes)}; GroupNorm calls by route {json.dumps(GN_ROUTES)}",
+          flush=True)
+    k2_frames = dict(DIM_COUNTS[tag].get(f"{k2}.frames", {}))
+    check(k2_frames == {t: launches[k2]}, f"[{tag}] K2 launches by frames {k2_frames}, expected all at t = {t}")
     k = args.num_masks
     h, w = hpx // 8, wpx // 8
     fin = res.final_latents
@@ -2298,6 +2383,29 @@ def phase_inject(torch, pipe, plain_res):
           f"{2 * plain_res.masks.shape[0]} runs), q/k cache {res.injected_cache_bytes / 1e9:.2f} GB; "
           f"max |injected - un-injected final latents| = {moved:.4f} (feature passes differ by {noise})",
           flush=True)
+    return launches
+
+
+def phase_long_video(torch):
+    """svd.yaml's main path over LONG_VIDEO_FRAMES = 40 synthetic 448x832
+    frames at full width (scripts/main_path.py's run: 25 steps, modulate step
+    17, 2 masks, decoding_t 7, seed 1; the pipeline built for 40 frames from
+    seed 0): every temporal self-attention site runs K2 over 40 frames, past
+    the 32 of its tiled kernels. run_main_path's checks at 40 frames: the
+    launches by kernel that the calls imply (the first stage at 6 chunks a
+    pass), every K2 launch at t = 40 (`.frame_launches`) on the frame-walking
+    kernel (`.long_launches`), the other kernels on their routes, no plain
+    version; finite latents, +lambda != -lambda, outside-mask latents pinned, a
+    label map over the 40 frames; its seconds and peak memory. Returns the
+    launches."""
+    from vidseg_diffusion_tpu_torch.scripts import main_path
+
+    t0 = time.perf_counter()
+    pipe = main_path.build(n=LONG_VIDEO_FRAMES)
+    torch.cuda.synchronize()
+    print(f"[long_video] built svd.yaml for {LONG_VIDEO_FRAMES} frames in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches, _ = run_main_path(torch, pipe, "long_video", injected=False, n_frames=LONG_VIDEO_FRAMES)
     return launches
 
 
@@ -2582,10 +2690,13 @@ def phase_vae_time_mode(torch):
     t = 7) and K1 at one 512-dim head on K3's wgmma kernel (attn2, a "flash"
     site over the 5824 tokens) twice a decode (two calls), K11 at its eight
     projections, K4 at the video ResnetBlocks ('all' only), every launch reckoned
-    and no plain version; finite frames. Then each mode in fp32 at 2 frames of
+    and no plain version; finite frames. Then 'all' over LONG_VIDEO_FRAMES = 40
+    latents at decoding_t 40 in bf16: one K2 launch at D = 512 over 40 frames,
+    on the frame-walking kernel. Then each mode in fp32 at 2 frames of
     32x32 latents (1024 tokens: every attention site a kernel site) on the card
     vs the CPU's plain versions, the library convolutions off cuDNN and TF32 off,
-    within UNET_REL_TOL of max |CPU|. Returns {mode: launches}."""
+    within UNET_REL_TOL of max |CPU|, and 'all' over 34 latents under a gradient
+    (vae_long_grad: K6 at D = 512 over 34 frames). Returns {mode: launches}."""
     import copy
 
     from vidseg_diffusion_tpu_torch.engine.diffusion_engine import FirstStage
@@ -2636,6 +2747,35 @@ def phase_vae_time_mode(torch):
         del dec, fs, frames
         torch.cuda.empty_cache()
 
+    # 'all' over 40 latents at decoding_t 40: the time mix's K2 at D = 512 over 40 frames, one launch on the
+    # frame-walking kernel
+    dec, scale = vae_time_mode_decoder(torch, "all", torch.bfloat16)
+    fs = FirstStage(None, dec, scale)
+    z40 = torch.randn(LONG_VIDEO_FRAMES, 56, 104, 4, generator=g, device="cuda").to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    frames = fs.decode(z40, chunk=LONG_VIDEO_FRAMES)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    dims, k2 = read_dims(), A.temporal_attention_direct
+    check(launches["temporal_attention_direct"] == 1 and k2.long_launches == 1
+          and dims["temporal_attention_direct"] == {512: 1}
+          and dims["temporal_attention_direct.frames"] == {LONG_VIDEO_FRAMES: 1},
+          f"[vae_time_mode all, {LONG_VIDEO_FRAMES} latents] K2 launches {launches['temporal_attention_direct']}, by "
+          f"route {read_routes()['temporal_attention_direct']}, by head dim and frames {dims}")
+    check(all(n == 0 for n in plain_calls.values()) and A.mha_reference_site.calls == 0,
+          f"[vae_time_mode all, {LONG_VIDEO_FRAMES} latents] plain versions ran on the card: {plain_calls}")
+    check(frames.shape == (LONG_VIDEO_FRAMES, 448, 832, 3) and bool(torch.isfinite(frames).all()),
+          f"[vae_time_mode all, {LONG_VIDEO_FRAMES} latents] frames {tuple(frames.shape)} not finite or misshaped")
+    print(f"[vae_time_mode all] decode of {LONG_VIDEO_FRAMES} x 56x104 latents at decoding_t {LONG_VIDEO_FRAMES} "
+          f"(bf16): {secs:.3f} s, peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB; launches "
+          f"{json.dumps(launches)}; K2 by route {json.dumps(read_routes()['temporal_attention_direct'])} "
+          f"({card_line()})", flush=True)
+    del dec, fs, frames, z40
+    torch.cuda.empty_cache()
+
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = torch.backends.cudnn.enabled = False
     try:
@@ -2657,9 +2797,53 @@ def phase_vae_time_mode(torch):
             check(err <= UNET_REL_TOL and bool(torch.isfinite(card).all()),
                   f"[vae_time_mode {mode} fp32] card vs CPU {err}")
             del dec, cpu
+        vae_long_grad(torch)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled = saved
     return out
+
+
+VAE_LONG_LATENTS = 34   # vae_long_grad: past the 32 frames of K6's tiled kernels
+
+
+def vae_long_grad(torch):
+    """The VideoDecoder at 'all' in fp32 (svd.yaml's, seeded random weights)
+    over VAE_LONG_LATENTS = 34 latents of 4x4 under a gradient: the time mix's
+    K2 and, in the backward, K6 at D = 512 over 34 frames, each once on the
+    frame-walking kernel (the run whose launches the temporal_attention_direct_backward_long entry
+    reports); the output and the latents' gradient (of the output against a
+    seeded cotangent) card vs CPU within UNET_REL_TOL of max |CPU| and
+    GRAD_REL_TOL by norm. The caller has turned TF32 and cuDNN off."""
+    import copy
+
+    t = VAE_LONG_LATENTS
+    dec, _ = vae_time_mode_decoder(torch, "all", torch.float32)
+    cpu = copy.deepcopy(dec).cpu()
+    gen = torch.Generator().manual_seed(10)
+    z = torch.randn(t, 4, 4, 4, generator=gen)
+    reset_counts()
+    zc = z.cuda().requires_grad_()
+    out = dec(zc, t)
+    cot = torch.randn(out.shape, generator=gen)
+    (out * cot.cuda()).sum().backward()
+    torch.cuda.synchronize()
+    routes, dims = read_routes(), read_dims()
+    ROUTE_COUNTS["vae_long_grad"] = routes
+    k2, k6 = "temporal_attention_direct", "temporal_attention_direct_backward"
+    check(routes[k2]["long"] == 1 and routes[k6]["long"] == 1 and dims[f"{k2}.frames"] == {t: 1}
+          and dims[f"{k6}.frames"] == {t: 1} and dims[k6] == {512: 1},
+          f"[vae_time_mode all fp32, {t} latents] K2 / K6 by route {routes[k2]} / {routes[k6]}, by frames "
+          f"{dims[f'{k2}.frames']} / {dims[f'{k6}.frames']}")
+    zr = z.clone().requires_grad_()
+    ref = cpu(zr, t)
+    (ref * cot).sum().backward()
+    err = (out.detach().cpu() - ref.detach()).abs().max().item() / ref.abs().max().item()
+    gerr = (zc.grad.cpu() - zr.grad).norm().item() / zr.grad.norm().item()
+    print(f"[vae_time_mode all fp32] {t} x 4x4 latents under a gradient, card vs CPU: output max |diff| {err:.3e} of "
+          f"max |CPU| (tol {UNET_REL_TOL:.0e}), latent gradient {gerr:.3e} by norm (tol {GRAD_REL_TOL:.0e}); K6 by "
+          f"route {json.dumps(routes[k6])}", flush=True)
+    check(err <= UNET_REL_TOL and gerr <= GRAD_REL_TOL and bool(torch.isfinite(zc.grad).all()),
+          f"[vae_time_mode all fp32, {t} latents] card vs CPU: output {err}, gradient {gerr}")
 
 
 def phase_sd(torch):
@@ -5065,6 +5249,11 @@ def main():
     gc.collect()   # free the SVD models before the SD and training phases
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    long_video_launches = phase_long_video(torch)
+    phases["long_video"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     sd_launches, pipe = phase_sd(torch)
     phases["sd"] = time.perf_counter() - t0
     for name, fn in (("sweep_sd", phase_sweep_sd), ("api_nti", phase_api_nti)):
@@ -5130,7 +5319,8 @@ def main():
     # the T5-XXL txt2img and the demo's requests (API runs, above), the safety filter's tower
     slice_runs["safety"] = safety_launches
     # the model options' card runs, the main path's runs over the one-rank group, the FSDP steps
-    slice_runs.update(model_options=options_launches, fsdp_runs=fsdp_runs_launches, fsdp=fsdp_launches)
+    slice_runs.update(model_options=options_launches, fsdp_runs=fsdp_runs_launches, fsdp=fsdp_launches,
+                      long_video=long_video_launches)
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         head = next(r for r in mine if r["shape"] == HEADLINE[name])
@@ -5147,8 +5337,10 @@ def main():
             check(not meta["path"] or runs["main"] > 0, f"{name} never launched in the {meta['path']} run")
             extra = {"path": meta["path"] or "none (no path runs it)", "dim": meta["dim"]}
             routed = None
-        elif "route_of" in meta:  # the split-TF32 kernels: their wrappers' "tf32x3" launches in each run
-            runs = {tag: sum(ROUTE_COUNTS.get(tag, {}).get(w, {}).get("tf32x3", 0) for w in meta["route_of"])
+        elif "route_of" in meta:  # the split-TF32 kernels, K2 / K6 past 32 frames: their wrappers' launches
+            # on that route ("tf32x3", "long") in each run
+            route = meta.get("route", "tf32x3")
+            runs = {tag: sum(ROUTE_COUNTS.get(tag, {}).get(w, {}).get(route, 0) for w in meta["route_of"])
                     for tag in tags + tuple(slice_runs) + (meta["path"],)}
             runs["main"] = runs[meta["path"]]   # its path's run
             check(runs["main"] > 0, f"{name} never launched in the {meta['path']} run")
@@ -5166,7 +5358,8 @@ def main():
             # K1, K2, K3, K4, K5, K6, K11 and K13: the launches of each path by the kernel that ran
             # (checked); the GroupNorm forward's routes are kernels of their own (K7 + K8, the fused K7+K8)
             routed = ({tag: ROUTE_COUNTS[tag][name] for tag in tags + ("inversion", "api", "img2vid", "nti", "t5",
-                                                                     "demo", "safety", "ae_video_train")}
+                                                                     "demo", "safety", "ae_video_train",
+                                                                     "long_video")}
                       if name in ROUTED else None)
             if name.startswith("group_norm_backward"):   # the runs' GroupNorm backwards by route
                 extra = {"backward_routes": {tag: r for tag, r in GN_BWD_RUNS.items() if any(r.values())}}
@@ -5180,6 +5373,7 @@ def main():
             t5_launches=runs["t5"], demo_launches=runs["demo"], safety_launches=runs["safety"],
             model_options_launches=runs["model_options"], fsdp_runs_launches=runs["fsdp_runs"],
             fsdp_launches=runs["fsdp"], ae_video_train_launches=runs["ae_video_train"],
+            long_video_launches=runs["long_video"],
             max_abs_err=max(r["max_abs_err"] for r in mine), shape=head["shape"],
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],

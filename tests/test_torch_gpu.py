@@ -32,10 +32,12 @@ can address) run wgmma kernels: their wrappers' route counters
 (`.wgmma_launches`) must move with the launch counters, an unaddressable K11
 input must take the mma.sync tile and a K4 input off the 8-element vector or
 off a 16-byte boundary the narrow kernel (`.narrow_launches`); K1 takes
-chip_smoke.py's forward bounds there (RMS_TOL["K1"]). K2 and K6 run on the
-tensor cores in bf16 and on CUDA cores in fp32: their `.mma_launches` counters
-move with every bf16 launch and with no fp32 one, within chip_smoke.py's
-bounds (RMS_TOL["K2"], ["K6"]). The attention kernels sum the softmax
+chip_smoke.py's forward bounds there (RMS_TOL["K1"]). K2 and K6 at D = 64 run
+on the tensor cores in bf16 and on CUDA cores in fp32 up to 32 frames: their
+`.mma_launches` counters move with every bf16 launch and with no fp32 one,
+within chip_smoke.py's bounds (RMS_TOL["K2"], ["K6"]); past 32 frames every
+head dim and dtype runs the frame-walking kernels (`.long_launches`), with no
+frame cap (t = 128). The attention kernels sum the softmax
 denominator as the JAX kernel of their site does (K1 at a short site and K3
 without a gradient: the fp32 p; K1 at a long site and K3 under a gradient: the
 rounded p), each held to the plain version with that sum; at the sites JAX's
@@ -44,9 +46,9 @@ runs their normalise-first mode (`.normalised_launches`), held to
 mha_reference within one bf16 step and 0.1 % of the elements differing. K5 and
 K13 (bf16 D = 512) run wgmma kernels: `.wgmma_launches` moves with every bf16
 launch; K5 and K13 at bf16 D = 16 the mma.sync kernels (K5's `.mma_launches`),
-K6 at D = 512 up to 16 frames its tensor-core kernel (bf16 `.mma_launches`),
-past them the wide kernel (`.wide_launches`). In fp32 at D = 512, K1 / K3, K5 /
-K13 and K6 up to 16 frames run the kernels on split TF32 products
+K6 at D = 512 from 4 (bf16) / 5 (fp32) to 32 frames its tensor-core kernels
+(bf16 `.mma_launches`), below them the wide kernel (`.wide_launches`). In fp32
+at D = 512, K1 / K3, K5 / K13 and K6 from 5 to 32 frames run the kernels on split TF32 products
 (`.tf32x3_launches`), also held to the plain versions run in float64 (relative
 RMS within FP64_RMS_TOL). Those tensor-core backwards give the same bits from
 run to run and from a thread that has launched nothing. The GroupNorm forward
@@ -250,27 +252,31 @@ def test_temporal_attention_direct(cuda, dt, b, t, s, h):
 
 
 # K2 / K6 on their routes: one frame, the main path's 14, a full 16-frame box,
-# one frame past it and two full boxes (32-frame boxes, two row tiles); tokens
-# off the 8- and 4-token units; one head, the ds1 and the ds4 / mid head counts
-TEMPORAL_ROUTE_CASES = [(t, s, h) for t in (1, 14, 16, 17, 32) for s in (9, 91, 364) for h in (1, 5, 20)]
+# one frame past it and two full boxes (32-frame boxes, two row tiles), then past
+# 32 frames (the frame-walking kernels); tokens off the 8- and 4-token units; one
+# head, the ds1 and the ds4 / mid head counts
+TEMPORAL_ROUTE_CASES = [(t, s, h) for t in (1, 14, 16, 17, 32, 33, 48, 64) for s in (9, 91, 364) for h in (1, 5, 20)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("t,s,h", TEMPORAL_ROUTE_CASES)
 def test_temporal_attention_direct_mma_route(cuda, dt, t, s, h):
-    """bf16 K2 runs on the tensor cores (its route counter moves with its
-    launch counter), fp32 on CUDA cores (it does not), each within
+    """bf16 K2 runs on the tensor cores up to 32 frames (its route counter
+    moves with its launch counter), fp32 on CUDA cores (it does not), both past
+    32 frames on the frame-walking kernel (`.long_launches`), each within
     chip_smoke.py's forward bounds of the plain version."""
     dtype = DTYPES[dt]
     q, k, v = (_randn(cuda, i, dtype, 2 * t, s, h, 64) for i in (140, 141, 142))
-    mma = A.temporal_attention_direct.mma_launches
-    launches, calls = A.temporal_attention_direct.launches, A.temporal_attention_direct_reference.calls
-    out = A.temporal_attention_direct(q, k, v, t=t)
+    fn = A.temporal_attention_direct
+    mma, long_ = fn.mma_launches, fn.long_launches
+    launches, calls = fn.launches, A.temporal_attention_direct_reference.calls
+    out = fn(q, k, v, t=t)
     torch.cuda.synchronize()
-    assert A.temporal_attention_direct.launches == launches + 1
+    assert fn.launches == launches + 1
     assert A.temporal_attention_direct_reference.calls == calls
-    assert A.temporal_attention_direct.mma_launches == mma + (dtype == torch.bfloat16)
+    tiled = t <= A.TILED_FRAMES
+    assert (fn.mma_launches, fn.long_launches) == (mma + (tiled and dtype == torch.bfloat16), long_ + (not tiled))
     _close_grads((out,), (A.temporal_attention_direct_reference(q, k, v, t=t),), RMS_TOL["K2"])
 
 
@@ -278,16 +284,18 @@ def test_temporal_attention_direct_mma_route(cuda, dt, t, s, h):
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("t,s,h", TEMPORAL_ROUTE_CASES)
 def test_temporal_attention_direct_backward_mma_route(cuda, dt, t, s, h):
-    """bf16 K6 runs on the tensor cores, fp32 on CUDA cores (the route
-    counter says which), each within chip_smoke.py's backward bounds of the
-    plain version on every gradient."""
+    """bf16 K6 runs on the tensor cores up to 32 frames, fp32 on CUDA cores,
+    both past 32 frames on the frame-walking kernel (the route counters say
+    which), each within chip_smoke.py's backward bounds of the plain version
+    on every gradient."""
     dtype = DTYPES[dt]
     q, k, v, g = (_randn(cuda, i, dtype, 2 * t, s, h, 64) for i in (143, 144, 145, 146))
     out = A.temporal_attention_direct_reference(q, k, v, t=t)
-    mma = A.temporal_attention_direct_backward.mma_launches
-    _check(A.temporal_attention_direct_backward, A.temporal_attention_direct_backward_reference,
-           q, k, v, out, g, t, rms_tol=RMS_TOL["K6"])
-    assert A.temporal_attention_direct_backward.mma_launches == mma + (dtype == torch.bfloat16)
+    fn = A.temporal_attention_direct_backward
+    mma, long_ = fn.mma_launches, fn.long_launches
+    _check(fn, A.temporal_attention_direct_backward_reference, q, k, v, out, g, t, rms_tol=RMS_TOL["K6"])
+    tiled = t <= A.TILED_FRAMES
+    assert (fn.mma_launches, fn.long_launches) == (mma + (tiled and dtype == torch.bfloat16), long_ + (not tiled))
 
 
 def _denominator_held(out, lse, plain, rounded):
@@ -1624,6 +1632,30 @@ def test_temporal_attention_direct_d16_and_backward(cuda, dt, t, s, h):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("d,h", [(16, 2), (64, 5), (512, 1)])
+@pytest.mark.parametrize("t,s", [(33, 91), (48, 20), (64, 9), (128, 3)])
+def test_temporal_attention_past_32_frames(cuda, dt, d, h, t, s):
+    """K2 and K6 past 32 frames at every head dim the configs produce, in
+    both dtypes, up to 128 frames (no frame cap): each launch on the
+    frame-walking kernels (`.long_launches`), within chip_smoke.py's bounds
+    of the plain versions; fp32 at D = 512 also within FP64_RMS_TOL of the
+    plain versions run in float64."""
+    dtype = DTYPES[dt]
+    q, k, v, g = (_randn(cuda, 340 + i, dtype, 2 * t, s, h, d, scale=1.5) for i in range(4))
+    k2, k6 = A.temporal_attention_direct, A.temporal_attention_direct_backward
+    long2, long6 = k2.long_launches, k6.long_launches
+    _check(k2, A.temporal_attention_direct_reference, q, k, v, t=t)
+    out = k2(q, k, v, t=t)
+    _check(k6, A.temporal_attention_direct_backward_reference, q, k, v, out, g, t, rms_tol=RMS_TOL["K6"])
+    assert (k2.long_launches, k6.long_launches) == (long2 + 2, long6 + 1)
+    if dtype == torch.float32 and d == 512:
+        assert _fp64_rms((out,), A.temporal_attention_direct_reference, q, k, v, t) <= FP64_RMS_TOL
+        assert _fp64_rms(k6(q, k, v, out, g, t), A.temporal_attention_direct_backward_reference,
+                         q, k, v, out, g, t) <= FP64_RMS_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("b,l", [(2, 600), (1, 1024), (7, 5824)])
 def test_flash_attention_packed_one_512_head(cuda, dt, b, l):
     """K1 at one 512-dim head (the VideoAttnBlock's attn2, [7, 5824, 1 x 512]
@@ -1648,17 +1680,20 @@ def test_flash_attention_packed_one_512_head(cuda, dt, b, l):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("t,s", [(7, 5824), (14, 5824), (1, 40), (2, 1024), (32, 17)])
+@pytest.mark.parametrize("t,s", [(7, 5824), (14, 5824), (1, 40), (2, 1024), (32, 17), (33, 300), (64, 40)])
 def test_temporal_attention_direct_512(cuda, dt, t, s):
     """K2 at one 512-dim head (the VideoAttnBlock's time mix: t = 7 or 14 frames
-    of 5824 tokens at svd.yaml's decode) on the wide kernel (`.wide_launches`),
+    of 5824 tokens at svd.yaml's decode) on the wide kernel (`.wide_launches`)
+    up to 32 frames, past them on the frame-walking kernel (`.long_launches`),
     within chip_smoke.py's forward bounds."""
     dtype = DTYPES[dt]
     b = 1 if s > 2048 else 2
     q, k, v = (_randn(cuda, 260 + i, dtype, b * t, s, 1, 512) for i in range(3))
-    wide = A.temporal_attention_direct.wide_launches
-    _check(A.temporal_attention_direct, A.temporal_attention_direct_reference, q, k, v, t=t)
-    assert A.temporal_attention_direct.wide_launches == wide + 1
+    fn = A.temporal_attention_direct
+    wide, long_ = fn.wide_launches, fn.long_launches
+    _check(fn, A.temporal_attention_direct_reference, q, k, v, t=t)
+    tiled = t <= A.TILED_FRAMES
+    assert (fn.wide_launches, fn.long_launches) == (wide + tiled, long_ + (not tiled))
 
 
 @pytest.mark.gpu
@@ -1749,35 +1784,37 @@ def test_tma_kernels_launch_from_a_thread_that_has_launched_nothing(cuda):
     assert all(torch.equal(x.grad, w) for x, w in zip(leaves, want))
 
 
-K6_WIDE_MAX_T = {"bf16": 32, "fp32": 27}   # the longest problems K6 takes at D = 512 (the wide kernel's stage)
-# the frames K6's tensor-core kernel takes at D = 512 (the C entry's route by t: the wide kernel outside)
-K6_TC_FRAMES = {"bf16": range(4, 17), "fp32": range(5, 17)}
+# the frames K6's tensor-core kernels take at D = 512 (the C entry's route by t: the wide kernel below them,
+# the frame-walking kernel past them)
+K6_TC_FRAMES = {"bf16": range(4, 33), "fp32": range(5, 33)}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("t,s", [(7, 5824), (14, 5824), (1, 40), (2, 1024), (3, 17), (4, 90), (5, 91), (16, 300),
-                                 (17, 64), ("max", 17)])
+                                 (17, 64), (17, 5824), (24, 300), (28, 91), (32, 17), (32, 5824), (40, 91),
+                                 (64, 17)])
 def test_temporal_attention_direct_backward_512(cuda, dt, t, s):
     """K6 at one 512-dim head (the VideoAttnBlock's time mix under a gradient:
     t = 7 on the training clip, 14 on a decode of 14 latents) within
     chip_smoke.py's backward bounds of the plain version (RMS_TOL["K6"]): at
-    K6_TC_FRAMES on the tensor-core kernel (bf16 `.mma_launches`; fp32 on split
-    TF32 products, `.tf32x3_launches`, also held to the plain version in float64
-    within FP64_RMS_TOL), at fewer frames and past 16 up to the dtype's largest
-    t on the wide kernel (`.wide_launches`)."""
+    K6_TC_FRAMES on the tensor-core kernels (16-row tiles up to 16 frames, the
+    32-row tile from 17; bf16 `.mma_launches`; fp32 on split TF32 products,
+    `.tf32x3_launches`, also held to the plain version in float64 within
+    FP64_RMS_TOL), at fewer frames on the wide kernel (`.wide_launches`), past
+    32 on the frame-walking kernel (`.long_launches`)."""
     dtype = DTYPES[dt]
-    t = K6_WIDE_MAX_T[dt] if t == "max" else t
     b = 1 if s > 2048 else 2
     q, k, v, g = (_randn(cuda, 290 + i, dtype, b * t, s, 1, 512) for i in range(4))
     out = A.temporal_attention_direct(q, k, v, t=t)
     fn = A.temporal_attention_direct_backward
-    before = fn.wide_launches, fn.mma_launches, fn.tf32x3_launches
+    before = fn.wide_launches, fn.mma_launches, fn.tf32x3_launches, fn.long_launches
     _check(fn, A.temporal_attention_direct_backward_reference, q, k, v, out, g, t=t, rms_tol=RMS_TOL["K6"])
-    tc = t in K6_TC_FRAMES[dt]
+    tc, tiled = t in K6_TC_FRAMES[dt], t <= A.TILED_FRAMES
     bf16 = dtype == torch.bfloat16
-    assert (fn.wide_launches, fn.mma_launches, fn.tf32x3_launches) == (
-        before[0] + (not tc), before[1] + (tc and bf16), before[2] + (tc and not bf16))
+    assert (fn.wide_launches, fn.mma_launches, fn.tf32x3_launches, fn.long_launches) == (
+        before[0] + (tiled and not tc), before[1] + (tc and bf16), before[2] + (tc and not bf16),
+        before[3] + (not tiled))
     if tc and not bf16:   # against float64 on one video's first 512 tokens
         xs = [x[:t, :512].contiguous() for x in (q, k, v, out, g)]
         got = fn(*xs, t=t)

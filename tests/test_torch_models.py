@@ -237,7 +237,19 @@ def tiny_unet():
 
 def test_video_unet_matches_jax_with_hooks(tiny_unet, monkeypatch):
     monkeypatch.delenv("VIDSEG_TEMPORAL_LAYOUT", raising=False)
-    jm, params, tm, t = tiny_unet
+    _video_unet_matches_jax_with_hooks(*tiny_unet)
+
+
+def test_video_unet_matches_jax_with_hooks_at_33_frames(tiny_unet, monkeypatch):
+    """The same UNet and hooks over 33 frames: every temporal site past the
+    32 frames at which the card's tiled K2 kernels stop (JAX's direct kernel
+    takes a 16-token tile there)."""
+    monkeypatch.delenv("VIDSEG_TEMPORAL_LAYOUT", raising=False)
+    jm, params, tm, _ = tiny_unet
+    _video_unet_matches_jax_with_hooks(jm, params, tm, 33)
+
+
+def _video_unet_matches_jax_with_hooks(jm, params, tm, t):
     rs = np.random.RandomState(5)
     x = rs.randn(2 * t, 8, 8, 8).astype(np.float32)
     ts = rs.randn(2 * t).astype(np.float32)

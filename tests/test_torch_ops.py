@@ -124,7 +124,11 @@ def test_flash_attention_packed_backward_plain_matches_pallas(lq, lk):
 
 
 @pytest.mark.parametrize("b,t,s,h,d", [(2, 3, 32, 2, 16), (1, 14, 16, 2, 8), (2, 1, 16, 1, 16),
-                                       (1, 7, 32, 1, 512)])   # the VideoAttnBlock's one 512-dim head
+                                       (1, 7, 32, 1, 512),   # the VideoAttnBlock's one 512-dim head
+                                       # past 32 frames (the card's frame-walking kernel; JAX's direct
+                                       # kernel takes a 16-token tile there)
+                                       (1, 33, 16, 2, 16), (1, 48, 32, 1, 16), (1, 33, 32, 1, 64),
+                                       (1, 48, 16, 2, 64), (1, 33, 16, 1, 512), (1, 48, 16, 1, 512)])
 def test_temporal_attention_direct_plain_matches_pallas(b, t, s, h, d):
     q, k, v = _arrays(s + t, (b * t, s, h, d), (b * t, s, h, d), (b * t, s, h, d))
     want = jatt.temporal_attention_direct(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), t=t,
@@ -145,7 +149,8 @@ def test_temporal_attention_direct_unaligned_s_matches_jax_dispatch(s):
 # -- K6 ---------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("b,t,s,h,d", [(2, 3, 32, 2, 16), (1, 14, 16, 2, 8)])
+@pytest.mark.parametrize("b,t,s,h,d", [(2, 3, 32, 2, 16), (1, 14, 16, 2, 8),
+                                       (1, 33, 16, 2, 16), (1, 33, 16, 1, 512)])   # past 32 frames
 def test_temporal_attention_direct_backward_plain_matches_pallas(b, t, s, h, d):
     """The plain K6 against jax.vjp of the direct-layout kernel in interpret
     mode, whose VJP runs the Pallas tiny-seq backward on the canonical
@@ -296,7 +301,7 @@ _JB = lambda a: jnp.asarray(a, jnp.bfloat16)
 _TB = lambda a: T(a).bfloat16()
 
 
-@pytest.mark.parametrize("t", [14, 3])
+@pytest.mark.parametrize("t", [14, 3, 40])
 def test_temporal_attention_direct_bf16_sums_the_fp32_p(t):
     """K2's plain version against the direct-layout Pallas kernel."""
     shape = (2 * t, 32, 2, 64)

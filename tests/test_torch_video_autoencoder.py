@@ -112,10 +112,11 @@ def test_packed_backward_at_one_512_head_matches_jax_vjp(lq, dt):
 # -- the temporal backward at D = 512 (the VideoAttnBlock's time mix) -------------
 
 
-@pytest.mark.parametrize("t,dt", [(7, "fp32"), (14, "fp32"), (7, "bf16")])
+@pytest.mark.parametrize("t,dt", [(7, "fp32"), (14, "fp32"), (7, "bf16"), (33, "fp32")])
 def test_temporal_backward_at_512_matches_jax_vjp(t, dt):
     """Autograd through K2's Function at one 512-dim head, t = 7 (the 7-frame
-    training clip) and 14 (a decode of 14 latents), against jax.vjp of the
+    training clip), 14 (a decode of 14 latents) and 33 (past the 32 frames of
+    the card's tiled kernels), against jax.vjp of the
     direct-layout kernel in interpret mode, whose VJP runs the Pallas tiny-seq
     backward on the canonical transposes; [(b t), s, 1, 512] in and out."""
     b, s = 1, 16

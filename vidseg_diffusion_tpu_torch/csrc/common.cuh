@@ -21,6 +21,9 @@ constexpr int kBFloat16 = 1;
 constexpr int kErrUnsupported = -1;  // dtype / head dim / tap count not built
 constexpr int kErrBadArgument = -2;  // sizes out of range
 
+// the `route` K2 and K6 report past 32 frames (temporal_attention_long.cu)
+constexpr int kRouteLong = 8;
+
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
 template <>

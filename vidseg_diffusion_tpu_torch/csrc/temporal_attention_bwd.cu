@@ -39,11 +39,15 @@
 // templated on the dtype and D: one warp per problem on CUDA cores, the inputs
 // staged as fp32 rows (qf rounded to the dtype; p and ds rounded where they
 // feed products), lane i owning query row i and then key row i. D = 512 (the
-// VideoDecoder's VideoAttnBlock, trained with the SVD first stage) runs the
-// tensor-core kernel of temporal_attention_bwd_512.cu up to 16 frames in both
-// dtypes (a block of four warps a problem, its rows resident in shared
-// memory), and temporal_attn_bwd_wide_kernel past them, lanes across the head
-// dim (below), and below 4 frames in bf16 (5 in fp32), where it read faster.
+// VideoDecoder's VideoAttnBlock, trained with the SVD first stage) runs, by t:
+// temporal_attn_bwd_wide_kernel below 4 frames in bf16 (5 in fp32), lanes
+// across the head dim (below), where it reads faster; the tensor-core kernels
+// of temporal_attention_bwd_512.cu from there to 32 frames in both dtypes (a
+// block a problem: 8- and 16-row tiles of frames up to 16, a 32-row tile with
+// v and o streamed through a smaller buffer from 17 to 32). All of these stop
+// at 32 frames; past 32 every head dim and dtype runs the frame-walking kernel
+// of temporal_attention_long.cu (route 8), which keeps this arithmetic over
+// all t keys and reads a scratch of three floats a query row.
 #include <algorithm>
 
 #include "common.cuh"
@@ -53,6 +57,7 @@
 namespace vs {
 
 constexpr int kBwdFrames = 32;
+constexpr int kWideBwdFrames = 4;   // the D = 512 problems the wide kernel takes (the C entry's route by t)
 constexpr int kBwdWarps = 4;
 
 __host__ __device__ constexpr int bwd_warp_floats(int t, int D) {
@@ -194,9 +199,9 @@ int launch_temporal_bwd_cores(const void* q, const void* k, const void* v, const
 // ---- D = 512: one warp per problem, lanes across the head dim ---------------
 //
 // The backward of K2's wide kernel (temporal_attention.cu), for the
-// VideoAttnBlock's time mix over one 512-dim head past 16 frames and below 4
-// (bf16) or 5 (fp32) (between them the tensor-core kernel of
-// temporal_attention_bwd_512.cu runs; PERF.md row 26 has both times). Lane L
+// VideoAttnBlock's time mix over one 512-dim head below 4 (bf16) or 5 (fp32)
+// frames (from there the tensor-core kernels of temporal_attention_bwd_512.cu
+// run; PERF.md row 26 has both times). Lane L
 // owns the 16 channels [8L, 8L + 8) and [256 + 8L, 256 + 8L + 8) of every row,
 // as in the forward. The warp stages the problem's t rows of k, v, g and qf =
 // round(q * qscale) in shared memory in the input dtype; each lane reads and
@@ -207,10 +212,10 @@ int launch_temporal_bwd_cores(const void* q, const void* k, const void* v, const
 // round(p) and ds = round(p (dP - delta)) kept as [t][t] fp32 tiles (written by
 // lane 0); dq_i = scale * ds_i k on the lane's channels, stored. Key pass, row
 // j: dk_j = ds^T_j qf / log2(e) and dv_j = round(p)^T_j g over the staged rows,
-// no cross-lane sum. A warp's stage is 4 t 512 elements + 2 t^2 floats (29 KB
-// at t = 7 in bf16, 59 KB at t = 14; twice in fp32), as many warps a block as
-// fit in the budget (at most 8). Bound by bytes: q, k, v, o, g read and dq, dk,
-// dv written once (t^2 D work a problem).
+// no cross-lane sum. A warp's stage is 4 t 512 elements + 2 t^2 floats (16 KB
+// at t = 4 in bf16, 32 KB in fp32), as many warps a block as fit in the budget
+// (at most 8). Bound by bytes: q, k, v, o, g read and dq, dk, dv written once
+// (t^2 D work a problem).
 
 constexpr int kWideBwdMaxWarps = 8;
 constexpr size_t kWideBwdSmemBudget = 224 * 1024;
@@ -280,10 +285,10 @@ __global__ void __launch_bounds__(32 * kWideBwdMaxWarps) temporal_attn_bwd_wide_
 #pragma unroll
     for (int u = 0; u < 16; ++u) part = fmaf(gv[u], ov[u], part);
     const float delta = warp_sum(part);
-    float sc[kBwdFrames], dp[kBwdFrames];
+    float sc[kWideBwdFrames], dp[kWideBwdFrames];
     float m = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < kBwdFrames; ++j) {
+    for (int j = 0; j < kWideBwdFrames; ++j) {
       if (j < t) {
         float kv[16], vv[16];
 #pragma unroll
@@ -304,7 +309,7 @@ __global__ void __launch_bounds__(32 * kWideBwdMaxWarps) temporal_attn_bwd_wide_
     }
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < kBwdFrames; ++j) {
+    for (int j = 0; j < kWideBwdFrames; ++j) {
       if (j < t) {
         sc[j] = exp2f(sc[j] - m);
         sum += sc[j];
@@ -314,7 +319,7 @@ __global__ void __launch_bounds__(32 * kWideBwdMaxWarps) temporal_attn_bwd_wide_
 #pragma unroll
     for (int u = 0; u < 16; ++u) acc[u] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kBwdFrames; ++j) {
+    for (int j = 0; j < kWideBwdFrames; ++j) {
       if (j < t) {
         const float p = sc[j] / sum;
         const float ds = round_to<T>(p * (dp[j] - delta));
@@ -374,9 +379,8 @@ int launch_temporal_bwd_wide(const void* q, const void* k, const void* v, const 
                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
                           reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(dq) |
                           reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
-  if (bases % 16) return kErrBadArgument;
+  if (bases % 16 || t > kWideBwdFrames) return kErrBadArgument;
   const size_t per_warp = wide_bwd_warp_bytes(t, sizeof(T));
-  if (per_warp > kWideBwdSmemBudget) return kErrBadArgument;  // fp32 past 27 frames
   const int warps = (int)std::min<size_t>(kWideBwdMaxWarps, kWideBwdSmemBudget / per_warp);
   static const cudaError_t attr = cudaFuncSetAttribute(
       temporal_attn_bwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWideBwdSmemBudget);
@@ -572,14 +576,20 @@ __global__ void __launch_bounds__(K6Tile<FR>::THREADS) temporal_attn_bwd_mma_ker
 }
 
 // temporal_attention_bwd_512.cu: D = 512 on the tensor cores, t from kTc512MinFrames* up to
-// kTc512Frames. Shorter problems keep the wide kernel, which read faster there (0.030-0.091 ms
+// kBwdFrames. Shorter problems keep the wide kernel, which read faster there (0.030-0.091 ms
 // against 0.099-0.105 at t = 1-3 in bf16, 0.050-0.253 against 0.254-0.261 at t = 1-4 in fp32,
 // [t, 5824, 1, 512], NVIDIA H100 80GB HBM3, PERF.md row 26): the tensor-core kernel's block of
 // four warps a problem takes a time of its own that few frames do not fill.
-constexpr int kTc512Frames = 16, kTc512MinFramesBf16 = 4, kTc512MinFramesF32 = 5;
+constexpr int kTc512MinFramesBf16 = 4, kTc512MinFramesF32 = 5;
+static_assert(kTc512MinFramesBf16 - 1 <= kWideBwdFrames && kTc512MinFramesF32 - 1 <= kWideBwdFrames, "routes");
 int launch_temporal_bwd_tc512(int dtype, const void* q, const void* k, const void* v, const void* o, const void* g,
                               void* dq, void* dk, void* dv, int nvid, int t, int S, int H, float qscale, float scale,
                               cudaStream_t stream);
+
+// temporal_attention_long.cu: every t past kBwdFrames, at each D and dtype
+int launch_temporal_bwd_long(int dtype, int D, const void* q, const void* k, const void* v, const void* o,
+                             const void* g, void* dq, void* dk, void* dv, void* stats, int nvid, int t, int S, int H,
+                             float qscale, float scale, cudaStream_t stream);
 
 int launch_temporal_bwd_bf16(const void* q, const void* k, const void* v, const void* o, const void* g,
                              void* dq, void* dk, void* dv, int nvid, int t, int S, int H, float qscale,
@@ -595,44 +605,48 @@ int launch_temporal_bwd_bf16(const void* q, const void* k, const void* v, const 
 }  // namespace vs
 
 // q, k, v, o, g, dq, dk, dv: contiguous [(nvid*t), S, H*D], D in {16, 64, 512}
-// (bf16 at 64 and every D at 512: 16-byte aligned). bf16 at D = 64 runs the
-// tensor-core kernel; D = 512 the tensor-core kernel of
-// temporal_attention_bwd_512.cu from 4 (bf16) or 5 (fp32) up to kTc512Frames
-// frames (bf16 mma.sync, fp32 split TF32) and the wide kernel off that range;
-// the rest the CUDA-core kernel.
+// (bf16 at 64 and every D at 512: 16-byte aligned), any t > 0; work: fp32
+// scratch of nvid * S * H * t * 3 floats past kBwdFrames frames (NULL up to
+// them). Up to 32 frames bf16 at D = 64 runs the tensor-core kernel; D = 512
+// the tensor-core kernels of temporal_attention_bwd_512.cu from 4 (bf16) or 5
+// (fp32) frames (bf16 mma.sync, fp32 split TF32) and the wide kernel below
+// them; the rest the CUDA-core kernel. Past 32 frames every D and dtype runs
+// the frame-walking kernel of temporal_attention_long.cu.
 // route (or NULL) receives the kernel that ran: 1 mma.sync (bf16 at 64 and 512),
-// 7 split TF32 (fp32 at 512), 4 the wide kernel, 0 CUDA cores.
+// 7 split TF32 (fp32 at 512), 4 the wide kernel, 0 CUDA cores, 8 the
+// frame-walking kernel.
 extern "C" int vs_temporal_attention_direct_bwd(int dtype, int D, const void* q, const void* k,
                                                 const void* v, const void* o, const void* g,
-                                                void* dq, void* dk, void* dv, int nvid, int t,
-                                                int S, int H, float qscale, float scale,
+                                                void* dq, void* dk, void* dv, void* work, int nvid,
+                                                int t, int S, int H, float qscale, float scale,
                                                 int* route, void* stream) {
-  if (nvid <= 0 || S <= 0 || H <= 0 || t <= 0 || t > vs::kBwdFrames) return vs::kErrBadArgument;
+  if (nvid <= 0 || S <= 0 || H <= 0 || t <= 0) return vs::kErrBadArgument;
   if (D != 16 && D != 64 && D != vs::kWideD) return vs::kErrUnsupported;
+  if (dtype != vs::kBFloat16 && dtype != vs::kFloat32) return vs::kErrUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
-  int r = -1, rc = vs::kErrUnsupported;
-  const bool tc512 = t <= vs::kTc512Frames && t >= (dtype == vs::kBFloat16 ? vs::kTc512MinFramesBf16 : vs::kTc512MinFramesF32);
-  if (D == vs::kWideD && (dtype == vs::kBFloat16 || dtype == vs::kFloat32) && tc512) {
-    r = dtype == vs::kBFloat16 ? 1 : vs::kRouteTf32x3;
+  const bool bf16 = dtype == vs::kBFloat16;
+  int r, rc;
+  if (t > vs::kBwdFrames) {
+    r = vs::kRouteLong;
+    rc = vs::launch_temporal_bwd_long(dtype, D, q, k, v, o, g, dq, dk, dv, work, nvid, t, S, H, qscale, scale, st);
+  } else if (D == vs::kWideD && t >= (bf16 ? vs::kTc512MinFramesBf16 : vs::kTc512MinFramesF32)) {
+    r = bf16 ? 1 : vs::kRouteTf32x3;
     rc = vs::launch_temporal_bwd_tc512(dtype, q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st);
-  } else if (D == vs::kWideD && (dtype == vs::kBFloat16 || dtype == vs::kFloat32)) {
+  } else if (D == vs::kWideD) {
     r = 4;
-    rc = dtype == vs::kBFloat16
-             ? vs::launch_temporal_bwd_wide<bf>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st)
-             : vs::launch_temporal_bwd_wide<float>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st);
-  } else if (dtype == vs::kBFloat16 && D == 64) {
+    rc = bf16 ? vs::launch_temporal_bwd_wide<bf>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st)
+              : vs::launch_temporal_bwd_wide<float>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st);
+  } else if (bf16 && D == 64) {
     r = 1;
     rc = vs::launch_temporal_bwd_bf16(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st);
-  } else if (dtype == vs::kBFloat16) {
+  } else {
     r = 0;
-    rc = vs::launch_temporal_bwd_cores<bf, 16>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st);
-  } else if (dtype == vs::kFloat32) {
-    r = 0;
-    rc = D == 64 ? vs::launch_temporal_bwd_cores<float, 64>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale,
-                                                            scale, st)
-                 : vs::launch_temporal_bwd_cores<float, 16>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale,
-                                                            scale, st);
+    rc = bf16 ? vs::launch_temporal_bwd_cores<bf, 16>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st)
+         : D == 64 ? vs::launch_temporal_bwd_cores<float, 64>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale,
+                                                              scale, st)
+                   : vs::launch_temporal_bwd_cores<float, 16>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale,
+                                                              scale, st);
   }
   if (route != nullptr) *route = r;
   return rc;

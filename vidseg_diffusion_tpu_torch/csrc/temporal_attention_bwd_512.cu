@@ -1,9 +1,13 @@
 // K6 temporal_attention_direct_bwd at D = 512 on the tensor cores: the
 // VideoAttnBlock's time-mix backward (one 512-dim head, t = 7 on svd.yaml's
-// 7-frame training clip, 14 on a decode of 14 latents) in bf16 and fp32, for
-// t <= 16 frames. The C entry (vs_temporal_attention_direct_bwd in
-// temporal_attention_bwd.cu) sends those problems here and longer ones to the
-// wide kernel there.
+// 7-frame training clip, 14 on a decode of 14 latents) in bf16 and fp32, from
+// 4 (bf16) / 5 (fp32) to 32 frames. The C entry (vs_temporal_attention_direct_bwd
+// in temporal_attention_bwd.cu) sends those problems here, shorter ones to the
+// wide kernel there and longer ones to the frame-walking kernel of
+// temporal_attention_long.cu. Two kernels, by t: up to 16 frames an 8- or
+// 16-row tile of frames with every input resident (below), from 17 to 32 a
+// 32-row tile with v and o streamed (temporal_attn_bwd_tc512_r32_kernel, after
+// it).
 //
 // Replaces (TPU): vidseg_diffusion_tpu/ops/attention.py:_small_seq_bwd_kernel
 // (via _small_batched_attention_bwd_impl, reached from _tad_bwd) at one
@@ -22,7 +26,7 @@
 // What held the wide kernel (one warp a problem, lanes across the channels): a
 // stage of 4 t 512 elements a warp left 1 to 7 warps an SM, each copying its rows
 // through registers 16 bytes a lane, so an SM had a few KB in flight; and
-// every S and dP element was a five-level warp sum. Here:
+// every S and dP element was a five-level warp sum. Up to 16 frames:
 // - one block a problem, four warps (eight past 8 frames). Its five inputs' t rows land in shared
 //   memory by 16-byte cp.async copies all issued at once (35 KB at t = 7 in
 //   bf16, 140 KB at t = 14 in fp32), as panels of FR (8 for t <= 8, else 16)
@@ -446,9 +450,366 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   return (int)cudaGetLastError();
 }
 
+// ---- 17 to 32 frames: a 32-row tile of frames ------------------------------------
+//
+// Two m16 row tiles of frames and 32 keys. Every input resident would take 5 x
+// 32 x 1 KB in bf16, 320 KB in fp32, over a block's 227 KB. v and o are read
+// only for dP = g V^T and delta = rowsum(g o), so q, k and g stay resident
+// (96 KB / 192 KB; each read by both passes) and v and o walk through a ring
+// of two chunk buffers, the next chunk's copies in flight while one is read:
+// one panel a chunk in bf16, which then fits two blocks an SM (115 KB; 5-7 %
+// faster than every row at once at 17-28 frames, PERF.md row 26), two panels
+// in fp32 (one block an SM, 224 KB). The split of pass 1
+// changes too: a channel split would leave each warp 2 x 32 x 32 partial sums
+// to meet in shared memory (64 KB for eight warps, more than is left in fp32),
+// so here the warps split the outputs instead. Warps 0-3 each own a 16 x 16
+// region of S = qf K^T (frames 16 mi.., keys 16 nj..) and warps 4-7 the same
+// region of dP = g V^T, each summed over all 512 channels by one warp (fp32:
+// chains of one panel's 32 channels on the tensor cores, added in registers);
+// every warp also sums g o over the channels of four rows (a lane a 16-byte
+// piece, the eight pieces by butterfly). No element is summed by two warps,
+// so every warp sees the same bits with no partials. S and dP meet in shared
+// memory (over the spent chunk buffers); warp w forms the softmax of rows w,
+// w + 8, ... (a lane a key, keys >= t masked, rows >= t zero): p = e / sum(e)
+// and ds = p (dP - delta) into two [32 x 40] tiles, rounded to T (bf16: the
+// rounding of round(p) and ds). Pass 2 is the channel split of up to 16
+// frames: warp w's panels of dq = scale ds K, dk = ds^T qf / log2(e) and dv =
+// round(p)^T g, [32 x 32] x [32 x 64 (fp32: 32)] products (bf16: ldmatrix and
+// ldmatrix.trans on the tiles, mma.sync.m16n8k16; fp32: split TF32
+// m16n8k8, one chain over the 32 keys or frames), written over the panel each
+// read (k, q, g) and copied out.
+
+template <typename T>
+struct Cfg32 {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int FR = 32, WARPS = 8, THREADS = 32 * WARPS;
+  static constexpr int NCH = kWideD * (int)sizeof(T) / 128;  // 128-byte panels a row: 8 (bf16), 16 (fp32)
+  static constexpr int PANEL = FR * 128;
+  static constexpr int CP = F32 ? 2 : 1;                     // v (and o) panels a chunk
+  static constexpr int NBUF = 2;                             // chunk buffers
+  static constexpr int MIN_BLOCKS = F32 ? 1 : 2;             // bf16: 115 KB, two blocks an SM
+  static constexpr int NCHUNK = NCH / CP;
+  static constexpr int CPW = NCH / WARPS;                    // pass 2: panels a warp
+  static constexpr int Q = 0, K = NCH * PANEL, G = 2 * NCH * PANEL, VO = 3 * NCH * PANEL;
+  static constexpr int BUF = 2 * CP * PANEL;                 // a chunk buffer: CP panels of v, then CP of o
+  static constexpr int DELTA = VO + NBUF * BUF;              // rowsum(g o), 32 floats
+  static constexpr int SMEM = DELTA + FR * 4 + 128;
+  // over the chunk buffers once the walk is done: S and dP (fp32 [32][32]), then the round(p) and ds tiles
+  static constexpr int XS = VO, XD = VO + FR * FR * 4, TPITCH = 40;  // tile rows: 40 elements
+  static constexpr int TP = VO + 2 * FR * FR * 4, TILE = FR * TPITCH * (int)sizeof(T), TDS = TP + TILE;
+  static_assert(TDS + TILE <= DELTA, "the p and ds tiles fit the chunk buffers");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+template <typename T>
+__global__ void __launch_bounds__(Cfg32<T>::THREADS, Cfg32<T>::MIN_BLOCKS) temporal_attn_bwd_tc512_r32_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ o,
+    const T* __restrict__ g, T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, int t, int S, int H,
+    float qscale, float scale) {
+  using C = Cfg32<T>;
+  constexpr bool F32 = C::F32;
+  constexpr int NCH = C::NCH, CP = C::CP, NBUF = C::NBUF, PANEL = C::PANEL;
+  extern __shared__ unsigned char k6r32_smem[];
+  const uint32_t base = (smem_u32(k6r32_smem) + 127u) & ~127u;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int h = (int)(blockIdx.x % H);
+  const long long rest = blockIdx.x / H;
+  const int s = (int)(rest % S);
+  const long long b = rest / S;
+  const long long frame = (long long)S * H * kWideD * (long long)sizeof(T);  // bytes from a frame's row to the next
+  const long long off0 = (b * t * S * H + (long long)s * H + h) * kWideD;
+  const uint32_t q_at = base + C::Q, k_at = base + C::K, g_at = base + C::G;
+
+  // rows t..31 of every panel (q, k, g and the chunk buffers, contiguous): zeros
+  const int pad = C::FR - t;
+  for (int e = tid; e < (3 * NCH + NBUF * 2 * CP) * pad * 8; e += C::THREADS) {
+    const int pr = e >> 3;
+    tt_st128(base + (uint32_t)((pr / pad) * PANEL + (t + pr % pad) * 128 + (e & 7) * 16), make_uint4(0u, 0u, 0u, 0u));
+  }
+  {  // q, k, g: every row, 16 bytes a copy
+    const T* const src[3] = {q, k, g};
+    const uint32_t dst[3] = {q_at, k_at, g_at};
+#pragma unroll
+    for (int x = 0; x < 3; ++x) {
+      const char* row0 = reinterpret_cast<const char*>(src[x] + off0);
+      for (int e = tid; e < t * NCH * 8; e += C::THREADS) {
+        const int r = e / (NCH * 8), c = (e >> 3) % NCH, piece = e & 7;
+        tt_cp16(dst[x] + c * PANEL + sw128(r, piece), row0 + r * frame + c * 128 + piece * 16);
+      }
+    }
+    tt_cp_commit();
+  }
+  // v and o panels ch CP .. ch CP + CP - 1 into buffer ch % NBUF; a group committed for every chunk buffer
+  auto load_chunk = [&](int ch) {
+    const uint32_t buf = base + C::VO + (ch % NBUF) * C::BUF;
+    for (int e = tid; e < 2 * t * CP * 8; e += C::THREADS) {
+      const int x = e / (t * CP * 8), rem = e % (t * CP * 8);
+      const int r = rem / (CP * 8), j = (rem >> 3) % CP, piece = rem & 7;
+      const char* row0 = reinterpret_cast<const char*>((x ? o : v) + off0);
+      tt_cp16(buf + (x * CP + j) * PANEL + sw128(r, piece), row0 + r * frame + (ch * CP + j) * 128 + piece * 16);
+    }
+  };
+#pragma unroll
+  for (int ch = 0; ch < NBUF; ++ch) {
+    if (ch < C::NCHUNK) load_chunk(ch);
+    tt_cp_commit();
+  }
+  tt_cp_wait<NBUF>();  // this thread's copies of q, k and g
+  __syncthreads();
+  // qf = round(q * qscale) in place, every panel (the walk's first barrier orders it before the products)
+  for (int e = tid; e < NCH * t * 8; e += C::THREADS) {
+    const int c = e / (t * 8), r = (e >> 3) % t;
+    const uint32_t addr = q_at + c * PANEL + sw128(r, e & 7);
+    uint4 x = tt_ld128(addr);
+    uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = F32 ? __float_as_uint(__uint_as_float(w[j]) * qscale) : tt_pack(tt_lo(w[j]) * qscale, tt_hi(w[j]) * qscale);
+    tt_st128(addr, x);
+  }
+
+  // pass 1: warps 0-3 S and warps 4-7 dP over their 16 x 16 region; every warp rowsum(g o) of four rows
+  const bool s_warp = warp < 4;
+  const int mi = (warp & 3) >> 1, nj = warp & 1;
+  const int drow = 4 * warp + (lane >> 3), dpiece = lane & 7;
+  float acc[2][4], dsum = 0.f;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[n][u] = 0.f;
+  for (int ch = 0; ch < C::NCHUNK; ++ch) {
+    tt_cp_wait<NBUF - 1>();  // this chunk's copies
+    __syncthreads();
+    const uint32_t buf = base + C::VO + (ch % NBUF) * C::BUF;
+#pragma unroll
+    for (int j = 0; j < CP; ++j) {
+      const int c = ch * CP + j;
+      const uint32_t pa = (s_warp ? q_at : g_at) + c * PANEL, pb = s_warp ? k_at + c * PANEL : buf + j * PANEL;
+      float pt[2][4];  // fp32: this panel's sums, on the tensor cores from zero
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) pt[n][u] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {  // 16 bf16 / 8 fp32 channels
+        uint32_t a[4], bb[4];
+        tt_ldsm(a, tt_a_addr(pa, 16 * mi, ks, lane));
+        tt_ldsm(bb, tt_bt_addr(pb, 16 * nj, ks, lane));
+        if constexpr (F32) {
+          uint32_t ah[4], al[4], bh[4], bl[4];
+          split_cut(a, ah, al);
+          split_cut(bb, bh, bl);
+          mma_x3(pt[0], ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma_x3(pt[1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+        } else {
+          tt_mma(acc[0], a, bb[0], bb[1]);
+          tt_mma(acc[1], a, bb[2], bb[3]);
+        }
+      }
+      if constexpr (F32) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) acc[n][u] += pt[n][u];
+      }
+      if (drow < t) {
+        const uint4 gv = tt_ld128(g_at + c * PANEL + sw128(drow, dpiece));
+        const uint4 ov = tt_ld128(buf + (CP + j) * PANEL + sw128(drow, dpiece));
+        const uint32_t* gw = reinterpret_cast<const uint32_t*>(&gv);
+        const uint32_t* ow = reinterpret_cast<const uint32_t*>(&ov);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          dsum += F32 ? __uint_as_float(gw[u]) * __uint_as_float(ow[u])
+                      : tt_lo(gw[u]) * tt_lo(ow[u]) + tt_hi(gw[u]) * tt_hi(ow[u]);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
+    if (ch + NBUF < C::NCHUNK) load_chunk(ch + NBUF);
+    tt_cp_commit();
+  }
+
+  // S and dP over the spent buffers, rowsum(g o) by butterfly over a row's eight pieces
+  {
+    const uint32_t x = base + (s_warp ? C::XS : C::XD);
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(
+                         x + 4 * ((16 * mi + gid + 8 * r) * C::FR + 16 * nj + 8 * n + 2 * tig)),
+                     "f"(acc[n][2 * r]), "f"(acc[n][2 * r + 1])
+                     : "memory");
+#pragma unroll
+    for (int m = 1; m < 8; m <<= 1) dsum += __shfl_xor_sync(0xffffffffu, dsum, m);
+    if (dpiece == 0) x3::stsf(base + C::DELTA + 4 * drow, dsum);
+  }
+  __syncthreads();
+  // the softmax of rows warp, warp + 8, ..., a lane a key: p = e / sum(e), ds = p (dP - delta), rows >= t zero
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    const int i = warp + 8 * rr;
+    float pv = 0.f, dsv = 0.f;
+    if (i < t) {
+      const float sij = lane < t ? x3::lds(base + C::XS + 4 * (i * C::FR + lane)) : -INFINITY;
+      const float e = exp2f(sij - warp_max(sij));
+      pv = e / warp_sum(e);
+      dsv = pv * (x3::lds(base + C::XD + 4 * (i * C::FR + lane)) - x3::lds(base + C::DELTA + 4 * i));
+    }
+    const uint32_t at = (uint32_t)((i * C::TPITCH + lane) * sizeof(T));
+    if constexpr (F32) {
+      x3::stsf(base + C::TP + at, pv);
+      x3::stsf(base + C::TDS + at, dsv);
+    } else {
+      const __nv_bfloat16 pb = __float2bfloat16(pv), db = __float2bfloat16(dsv);
+      asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(base + C::TP + at), "h"(*reinterpret_cast<const uint16_t*>(&pb))
+                   : "memory");
+      asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(base + C::TDS + at), "h"(*reinterpret_cast<const uint16_t*>(&db))
+                   : "memory");
+    }
+  }
+  __syncthreads();
+
+  // pass 2 over this warp's panels: dq = scale ds K into k's panel, dk = ds^T qf / log2(e) into q's,
+  // dv = round(p)^T g into g's; then those rows go out
+  auto copy_out = [&](int c, const uint32_t (&src)[3]) {
+    T* const dst[3] = {dq, dk, dv};
+#pragma unroll
+    for (int x = 0; x < 3; ++x) {
+      char* row0 = reinterpret_cast<char*>(dst[x] + off0) + c * 128;
+      for (int e = lane; e < t * 8; e += 32) {
+        const int r = e >> 3, piece = e & 7;
+        *reinterpret_cast<uint4*>(row0 + r * frame + piece * 16) = tt_ld128(src[x] + sw128(r, piece));
+      }
+    }
+  };
+  const uint32_t tp = base + C::TP, tds = base + C::TDS;
+  if constexpr (!F32) {
+    constexpr int PB = C::TPITCH * 2;  // bytes a tile row
+    // out = A B over this panel's 64 channels, A [32 x 32] from a tile (trans: the tile's transpose), B from `src`
+    // read as the contraction (rows = keys or frames)
+    auto product = [&](uint32_t tile, bool trans, uint32_t src, float mul) {
+      float out[2][8][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) out[m][n][0] = out[m][n][1] = out[m][n][2] = out[m][n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {  // 16 keys / frames a k-step
+        uint32_t a[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          if (trans)
+            tt_ldsm_trans(a[m], tile + (16 * kk + (lane & 7) + 8 * (lane >> 4)) * PB + (16 * m + 8 * ((lane >> 3) & 1)) * 2);
+          else
+            tt_ldsm(a[m], tile + (16 * m + (lane & 7) + 8 * ((lane >> 3) & 1)) * PB + (16 * kk + 8 * (lane >> 4)) * 2);
+        }
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bb[4];
+          tt_ldsm_trans(bb, tt_b_addr(src, 16 * kk, np, lane));
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            tt_mma(out[m][2 * np], a[m], bb[0], bb[1]);
+            tt_mma(out[m][2 * np + 1], a[m], bb[2], bb[3]);
+          }
+        }
+      }
+      __syncwarp();  // every lane's reads of the panel are done: the output goes over it
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          tt_st32(src + sw128(16 * m + gid, n) + 4 * tig, tt_pack(out[m][n][0] * mul, out[m][n][1] * mul));
+          tt_st32(src + sw128(16 * m + gid + 8, n) + 4 * tig, tt_pack(out[m][n][2] * mul, out[m][n][3] * mul));
+        }
+    };
+#pragma unroll
+    for (int cc = 0; cc < C::CPW; ++cc) {
+      const int c = warp * C::CPW + cc;
+      const uint32_t out[3] = {k_at + c * PANEL, q_at + c * PANEL, g_at + c * PANEL};  // dq, dk, dv
+      product(tds, false, out[0], scale);
+      product(tds, true, out[1], kInvLog2E);
+      product(tp, true, out[2], 1.f);
+      __syncwarp();
+      copy_out(c, out);
+    }
+  } else {
+    // k-step slot tig <-> key / frame 2 tig, slot tig + 4 <-> 2 tig + 1 (conflict-free B reads under the swizzle)
+    auto ld = [&](uint32_t tile, int r, int c) { return __float_as_uint(x3::lds(tile + 4 * (r * C::TPITCH + c))); };
+    auto product = [&](uint32_t tile, bool trans, uint32_t src, float mul) {
+      float out[2][4][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) out[m][n][0] = out[m][n][1] = out[m][n][2] = out[m][n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // 8 keys / frames a k-step: one chain of 32 terms
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const int r0 = 16 * m + gid, k0 = 8 * kk + 2 * tig;
+          // a[0] (row r0, slot tig), a[1] (r0 + 8, tig), a[2] (r0, tig + 4), a[3] (r0 + 8, tig + 4)
+          uint32_t x[4];
+          if (trans) {
+            x[0] = ld(tile, k0, r0), x[1] = ld(tile, k0, r0 + 8), x[2] = ld(tile, k0 + 1, r0);
+            x[3] = ld(tile, k0 + 1, r0 + 8);
+          } else {
+            x[0] = ld(tile, r0, k0), x[1] = ld(tile, r0 + 8, k0), x[2] = ld(tile, r0, k0 + 1);
+            x[3] = ld(tile, r0 + 8, k0 + 1);
+          }
+          split_cut(x, ah[m], al[m]);
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_cut(__float_as_uint(x3::lds(src + x3::sw(8 * kk + 2 * tig, 8 * n + gid))), bh0, bl0);
+          split_cut(__float_as_uint(x3::lds(src + x3::sw(8 * kk + 2 * tig + 1, 8 * n + gid))), bh1, bl1);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) mma_x3(out[m][n], ah[m], al[m], bh0, bh1, bl0, bl1);
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(src + x3::sw(16 * m + gid + 8 * r, 8 * n + 2 * tig)),
+                         "f"(out[m][n][2 * r] * mul), "f"(out[m][n][2 * r + 1] * mul)
+                         : "memory");
+    };
+#pragma unroll
+    for (int cc = 0; cc < C::CPW; ++cc) {
+      const int c = warp * C::CPW + cc;
+      const uint32_t out[3] = {k_at + c * PANEL, q_at + c * PANEL, g_at + c * PANEL};  // dq, dk, dv
+      product(tds, false, out[0], scale);
+      product(tds, true, out[1], kInvLog2E);
+      product(tp, true, out[2], 1.f);
+      __syncwarp();
+      copy_out(c, out);
+    }
+  }
+}
+
+template <typename T>
+int launch32(const void* q, const void* k, const void* v, const void* o, const void* g, void* dq, void* dk, void* dv,
+             int nvid, int t, int S, int H, float qscale, float scale, cudaStream_t stream) {
+  using C = Cfg32<T>;
+  auto kern = temporal_attn_bwd_tc512_r32_kernel<T>;
+  static const cudaError_t attr = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long nprob = (long long)nvid * S * H;
+  if (nprob > 0x7fffffffLL) return kErrBadArgument;
+  kern<<<(unsigned)nprob, C::THREADS, C::SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), t, S, H, qscale, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace k6tc
 
-// K6 at D = 512, t <= kTc512Frames, on the tensor cores (bf16 mma.sync, fp32 split TF32);
+// K6 at D = 512, t <= 32, on the tensor cores (bf16 mma.sync, fp32 split TF32);
 // contiguous [(nvid t), S, H * 512], bases 16-byte aligned
 int launch_temporal_bwd_tc512(int dtype, const void* q, const void* k, const void* v, const void* o, const void* g,
                               void* dq, void* dk, void* dv, int nvid, int t, int S, int H, float qscale, float scale,
@@ -457,14 +818,16 @@ int launch_temporal_bwd_tc512(int dtype, const void* q, const void* k, const voi
                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
                           reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(dq) |
                           reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
-  if (bases % 16 || t < 1 || t > 16) return kErrBadArgument;
+  if (bases % 16 || t < 1 || t > 32) return kErrBadArgument;
   using bf = __nv_bfloat16;
   if (dtype == kBFloat16)
-    return t <= 8 ? k6tc::launch<bf, 8>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, stream)
-                  : k6tc::launch<bf, 16>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, stream);
+    return t <= 8    ? k6tc::launch<bf, 8>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, stream)
+           : t <= 16 ? k6tc::launch<bf, 16>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, stream)
+                     : k6tc::launch32<bf>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, stream);
   if (dtype == kFloat32)
-    return t <= 8 ? k6tc::launch<float, 8>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, stream)
-                  : k6tc::launch<float, 16>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, stream);
+    return t <= 8    ? k6tc::launch<float, 8>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, stream)
+           : t <= 16 ? k6tc::launch<float, 16>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, stream)
+                     : k6tc::launch32<float>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, stream);
   return kErrUnsupported;
 }
 

@@ -38,9 +38,10 @@ NVCC_FLAGS = (
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel an entry with a `route` out-parameter reports it ran; 5 and 6 are
 # the normalise-first kernels that hold a head's K and V in shared memory, 7 the
-# fp32 D = 512 attention on split TF32 products (wgmma)
+# fp32 D = 512 attention on split TF32 products (wgmma), 8 the temporal attention
+# past 32 frames (K2 and K6 walking the frames)
 ROUTES = {0: "fma", 1: "mma_sync", 2: "wgmma", 3: "narrow", 4: "wide", 5: "wgmma_resident", 6: "mma_sync_resident",
-          7: "tf32x3"}
+          7: "tf32x3", 8: "long"}
 
 
 def _find_nvcc() -> Optional[str]:
@@ -145,8 +146,9 @@ _SIGNATURES = {
                                     _I, _I, _I, _I, _P, _F, _F, _P, _P],
     # dtype, D, q, k, v, o, nvid, t, S, H, qscale, route (int*), stream
     "vs_temporal_attention_direct": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
-    # dtype, D, q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, route (int*), stream
-    "vs_temporal_attention_direct_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+    # dtype, D, q, k, v, o, g, dq, dk, dv, work (fp32 scratch past 32 frames, else NULL), nvid, t, S, H,
+    # qscale, scale, route (int*), stream
+    "vs_temporal_attention_direct_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                          _I, _I, _I, _I, _F, _F, _P, _P],
     # dtype, x, w [kt, Cout, Cin], bias (NULL: none), y, B, T, M, Cin, Cout, kt, route (int*), stream
     "vs_temporal_conv_1x1": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],

@@ -393,7 +393,7 @@ def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
 
 
 _ROUTE_COUNTERS = {"wgmma": "wgmma_launches", "mma_sync": "mma_launches", "tf32x3": "tf32x3_launches",
-                   "wide": "wide_launches"}
+                   "wide": "wide_launches", "long": "long_launches"}
 
 
 def _count_routes(counter, d, route):
@@ -538,12 +538,17 @@ def temporal_attention_direct_reference(q, k, v, t: int, scale: Optional[float] 
 temporal_attention_direct_reference.calls = 0
 
 
+# past this many frames K2 and K6 run their frame-walking kernels (csrc/temporal_attention_long.cu), and K6
+# reads a scratch of three floats a query row
+TILED_FRAMES = 32
+
+
 def _check_temporal(name, t, *tensors):
     dtype = _cuda.check_cuda_tensors(name, *tensors)
     q = tensors[0]
     if q.dim() != 4 or any(x.shape != q.shape for x in tensors):
         raise ValueError(f"{name}: bad shapes {[tuple(x.shape) for x in tensors]}")
-    if q.shape[0] % t or not 0 < t <= 32:
+    if t <= 0 or q.shape[0] % t:
         raise ValueError(f"{name}: rows {q.shape[0]} vs t={t}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
@@ -564,8 +569,10 @@ def _temporal_attention_direct_forward(q, k, v, t: int, scale: Optional[float]):
     )
     temporal_attention_direct.launches += 1
     temporal_attention_direct.dim_launches[d] += 1
+    temporal_attention_direct.frame_launches[t] += 1
     temporal_attention_direct.mma_launches += route == "mma_sync"
     temporal_attention_direct.wide_launches += route == "wide"
+    temporal_attention_direct.long_launches += route == "long"
     return out
 
 
@@ -590,9 +597,11 @@ class _TemporalAttentionDirect(torch.autograd.Function):
 def temporal_attention_direct(q, k, v, t: int, scale: Optional[float] = None):
     """K2: softmax over the t frames of each (video, token, head), read from
     the spatial token layout [(b t), s, H, D] (contiguous, D in {16, 64, 512},
-    t <= 32, any s). bf16 at D = 64 runs on the tensor cores (mma.sync, q/k/v
-    boxes by TMA); D = 512 on the wide kernel (lanes across the head dim);
-    the rest on CUDA cores. Differentiable: with grad on, the backward is K6."""
+    any t and s). Up to 32 frames bf16 at D = 64 runs on the tensor cores
+    (mma.sync, q/k/v boxes by TMA), D = 512 on the wide kernel (lanes across
+    the head dim), the rest on CUDA cores; past 32 frames every D and dtype on
+    the frame-walking kernel (`.long_launches`). Differentiable: with grad on,
+    the backward is K6."""
     if q.device.type == "cuda":
         _check_head_dim("temporal attention site", "temporal", q.shape, q.shape[-1], backward=_needs_grad(q, k, v))
     if _needs_grad(q, k, v):
@@ -602,8 +611,10 @@ def temporal_attention_direct(q, k, v, t: int, scale: Optional[float] = None):
 
 temporal_attention_direct.launches = 0
 temporal_attention_direct.dim_launches = collections.Counter()
+temporal_attention_direct.frame_launches = collections.Counter()   # of .launches, by the frames t
 temporal_attention_direct.mma_launches = 0   # of .launches, those on the tensor cores (bf16 D = 64)
 temporal_attention_direct.wide_launches = 0   # of .launches, those on the D = 512 kernel
+temporal_attention_direct.long_launches = 0   # of .launches, those past 32 frames (the frame-walking kernel)
 
 
 # -- K6: direct-layout temporal-attention backward -----------------------------
@@ -643,12 +654,13 @@ def temporal_attention_direct_backward(q, k, v, out, g, t: int, scale: Optional[
     [(b t), s, H, D] layout (no canonical transposes); one warp per
     (video, token, head) problem, bf16 on the tensor cores (mma.sync, the
     five inputs in and the three gradients out by TMA), fp32 on CUDA cores.
-    D = 512 (the VideoAttnBlock's time mix) from 4 (bf16) or 5 (fp32) up to 16
+    D = 512 (the VideoAttnBlock's time mix) from 4 (bf16) or 5 (fp32) up to 32
     frames on the tensor cores, a block a problem (bf16 mma.sync,
-    `.mma_launches`; fp32 split TF32 products, `.tf32x3_launches`); off that
-    range on the wide kernel, lanes across the head dim (`.wide_launches`; t
-    up to 27 in fp32: its stage of k, v, g and q a warp in shared memory). The
-    plain version on CPU."""
+    `.mma_launches`; fp32 split TF32 products, `.tf32x3_launches`); below that
+    on the wide kernel, lanes across the head dim (`.wide_launches`). Past 32
+    frames every D and dtype runs the frame-walking kernel
+    (`.long_launches`), on a scratch of three floats a query row. The plain
+    version on CPU."""
     if q.device.type == "cpu":
         return temporal_attention_direct_backward_reference(q, k, v, out, g, t, scale)
     dtype = _check_temporal("temporal_attention_direct_backward", t, q, k, v, out, g)
@@ -656,21 +668,26 @@ def temporal_attention_direct_backward(q, k, v, out, g, t: int, scale: Optional[
     bt, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # past TILED_FRAMES: each query row's max, sum and delta = rowsum(g * out)
+    work = torch.empty(bt * s * h * 3, dtype=torch.float32, device=q.device) if t > TILED_FRAMES else None
     route = _cuda.call_routed(
         "vs_temporal_attention_direct_bwd", _cuda.DTYPE_CODES[dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if work is None else work.data_ptr(),
         bt // t, t, s, h, float(_rounded_qscale(scale, dtype)), float(scale),
     )
     _count_routes(temporal_attention_direct_backward, d, route)
+    temporal_attention_direct_backward.frame_launches[t] += 1
     return dq, dk, dv
 
 
 temporal_attention_direct_backward.launches = 0
 temporal_attention_direct_backward.dim_launches = collections.Counter()
-temporal_attention_direct_backward.mma_launches = 0   # bf16 D = 64, and D = 512 at 4-16 frames, on mma.sync
-temporal_attention_direct_backward.tf32x3_launches = 0   # fp32 D = 512 at 5-16 frames, on split TF32 products
-temporal_attention_direct_backward.wide_launches = 0   # D = 512 at other t, on the wide kernel
+temporal_attention_direct_backward.frame_launches = collections.Counter()   # of .launches, by the frames t
+temporal_attention_direct_backward.mma_launches = 0   # bf16 D = 64, and D = 512 at 4-32 frames, on mma.sync
+temporal_attention_direct_backward.tf32x3_launches = 0   # fp32 D = 512 at 5-32 frames, on split TF32 products
+temporal_attention_direct_backward.wide_launches = 0   # D = 512 below 4 / 5 frames, on the wide kernel
+temporal_attention_direct_backward.long_launches = 0   # past 32 frames, on the frame-walking kernel
 
 
 # -- K3: bhld flash attention (forward, LSE under a gradient) ------------------

@@ -5,7 +5,7 @@ route of K1 and K3, and the GroupNorm backward at the main paths'
 shapes, beside the one PyTorch call for the same function, on one CUDA card.
 
     python3 -m vidseg_diffusion_tpu_torch.scripts.time_kernels [--only k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3,
-                                                                       k5d16,fp32]
+                                                                       k5d16,fp32,long]
                                                               [--root CHECKOUT]
 
 Each call is captured 20 times into a CUDA graph and the replay is timed with
@@ -50,9 +50,13 @@ cluster would hold the slab but the route sends its many items to K9 + K10. The
 backwards at one 512-dim head, on the 7-frame training clip of svd.yaml's
 first stage: K5 there (`k5w`: K13's kernels on the packed strides, [7, 5824,
 1 x 512], a CUDA graph beside SDPA's backward, profiled) and K6 (`k6w`: [t,
-5824, 1, 512] at t = 7 and 14, bf16 and fp32, as CUDA events and a graph
-beside SDPA's backward on the canonical view, profiled, whose backend is named;
-then every other t up to 16 as a graph). K5 and K13 at D = 16 (`k5d16`:
+5824, 1, 512] at t = 7 and 14, at 17, 24 and 32 (the 32-row tile) and at 48
+(the frame-walking kernel), bf16 and fp32, as CUDA events and a graph beside
+SDPA's backward on the canonical view, profiled, whose backend is named; then
+other t up to 28 as a graph; a call a checkout refuses prints as refused). K2
+and K6 past 32 frames (`long`: one video of 48 frames at the UNet's ds1 site
+[48, 5824, 5, 64] and the time mix [48, 5824, 1, 512], both dtypes; graphs
+beside SDPA and its backward). K5 and K13 at D = 16 (`k5d16`:
 svd_tiny.yaml's ds1 on a B = 2 slice and ds2, K13 at [2, 2, 1024, 16], both
 dtypes; graphs beside SDPA's backward, the exp2 floor beside the bound). The
 kernels these replaced (the wide kernel at every t, the FMA kernels at bf16
@@ -107,10 +111,14 @@ K5_SHAPES = [(2, 5824, 5), (28, 5824, 5), (28, 1456, 10), (28, 364, 20), (28, 91
 K13_SHAPES = [(2, 1, 5824, 5824, 512), (1, 1, 130, 77, 512)]
 # (B, L): K5 at one 512-dim head, the VideoAttnBlock's attn2 on the 7-frame training clip
 K5_WIDE_SHAPES = [(7, 5824)]
-# (t, S): K6 at D = 512, the VideoAttnBlock's time mix on that clip and on a 14-latent decode; the
-# other t its tensor-core kernel takes (up to 16 frames), timed beside the wide kernel to route them
-K6_WIDE_SHAPES = [(7, 5824), (14, 5824)]
-K6_ROUTE_TS = (1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 16)
+# (t, S): K6 at D = 512, the VideoAttnBlock's time mix on that clip and on a 14-latent decode, the 32-row
+# tile at 17, 24 and 32 frames and the frame-walking kernel at 48; the other t its tensor-core kernels take
+# (up to 32 frames), timed beside the wide kernel to route them
+K6_WIDE_SHAPES = [(7, 5824), (14, 5824), (17, 5824), (24, 5824), (32, 5824), (48, 5824)]
+K6_ROUTE_TS = (1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 16, 20, 28)
+# (t, S, H, D): K2 and K6 past 32 frames on the frame-walking kernels: the UNet's ds1 temporal site and the
+# VideoAttnBlock's time mix, one video of 48 frames
+LONG_SHAPES = [(48, 5824, 5, 64), (48, 5824, 1, 512)]
 # K5 at D = 16 (svd_tiny.yaml's heads): (B, L, H) at ds1 on a B = 2 slice and at ds2; K13 there (B, H, L)
 K5_D16_SHAPES, K13_D16_SHAPE = [(2, 5824, 2), (28, 1456, 4)], (2, 2, 1024)
 # the fp32 routes at D = 64 (step 0 of the fp32 table cells): K1 at ds1 (a B = 2 slice and the CFG batch),
@@ -404,8 +412,12 @@ def time_temporal_wide_backward(torch, F, rn):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, g = (rn(t, s, 1, 512).to(dtype) for _ in range(4))
             frames = lambda x: x.view(1, t, s, 1, 512).permute(0, 2, 3, 1, 4)
-            o = A.temporal_attention_direct(q, k, v, t=t)
-            got = fn(q, k, v, o, g, t=t)
+            o = A.temporal_attention_direct_reference(q, k, v, t=t).contiguous()
+            try:   # an older checkout (--root) refuses some t
+                got = fn(q, k, v, o, g, t=t)
+            except (ValueError, RuntimeError) as e:
+                print(f"K6 D=512 [{t},{s},1,512] t={t} {str(dtype)[6:]}: refused ({str(e)[:80]})", flush=True)
+                continue
             ref = A.temporal_attention_direct_backward_reference(q, k, v, o, g, t=t)
             unit = "bf16 steps" if dtype == torch.bfloat16 else "relative"
             check = ", ".join(f"%.2e {unit}, rel. RMS %.2e" % errors(x, r) for x, r in zip(got, ref))
@@ -439,6 +451,55 @@ def time_temporal_wide_backward(torch, F, rn):
                 print(f"{head}: device time {dev_ms:.4f} ms (bound {bound:.4f}), {check}; routes of one call "
                       f"{moved}", flush=True)
             del q, k, v, g, o, got, ref
+            torch.cuda.empty_cache()
+
+
+def time_long_frames(torch, F, rn):
+    """K2 and K6 past 32 frames (LONG_SHAPES, both dtypes) on the frame-walking
+    kernels: CUDA graphs beside SDPA on the canonical view ([1, S, H, t, D],
+    strided) and its backward (torch.profiler's sum of its kernels), held to
+    the plain versions, the route of each launch printed."""
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    k2, k6 = A.temporal_attention_direct, A.temporal_attention_direct_backward
+    for t, s, h, d in LONG_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, g = (rn(t, s, h, d).to(dtype) for _ in range(4))
+            frames = lambda x: x.view(1, t, s, h, d).permute(0, 2, 3, 1, 4)
+            item, name = q.element_size(), f"[{t},{s},{h},{d}] t={t} {str(dtype)[6:]}"
+            for kind, fn, args, plain, nbytes, flops in (
+                    ("K2", k2, (q, k, v), A.temporal_attention_direct_reference, 4 * item * q.numel(),
+                     4 * t * t * d * s * h),
+                    ("K6", k6, None, A.temporal_attention_direct_backward_reference, 8 * item * q.numel(),
+                     10 * t * t * d * s * h)):
+                if args is None:
+                    args = (q, k, v, A.temporal_attention_direct_reference(q, k, v, t=t).contiguous(), g)
+                try:   # an older checkout (--root) refuses t > 32
+                    got = fn(*args, t=t)
+                except (ValueError, RuntimeError) as e:
+                    print(f"{kind} {name}: refused ({str(e)[:80]})", flush=True)
+                    continue
+                ref = plain(*args, t=t)
+                got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+                unit = "bf16 steps" if item == 2 else "relative"
+                check = ", ".join(f"%.2e {unit}, rel. RMS %.2e" % errors(x, r) for x, r in zip(got, ref))
+                before = routes(fn)
+                fn(*args, t=t)
+                moved = {key: val - before[key] for key, val in routes(fn).items() if val != before[key]}
+                ms = graph_ms(torch, lambda: fn(*args, t=t), 5)
+                if kind == "K2":
+                    lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(*(frames(x) for x in (q, k, v))),
+                                      5)
+                else:
+                    leaves = [frames(x).detach().requires_grad_() for x in (q, k, v)]
+                    y = F.scaled_dot_product_attention(*leaves)
+                    lib_ms = profiled_ms(torch, lambda: torch.autograd.grad(y, leaves, frames(g), retain_graph=True))
+                    del leaves, y
+                bound = bound_ms(nbytes, flops, "bf16" if item == 2 else "fp32")
+                print(f"{kind} past 32 frames {name}: device time {ms:.4f} ms (SDPA{' backward' if kind == 'K6' else ''}"
+                      f", device time, {fmt_ms(lib_ms)}; bound {bound:.4f}), {check}; routes of one call {moved}",
+                      flush=True)
+            del q, k, v, g
             torch.cuda.empty_cache()
 
 
@@ -775,8 +836,9 @@ def main():
     import torch.nn.functional as F
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", default="k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3,k5d16,fp32",
-                        help="comma-separated: k11, k1, k4, gn, k2, k6, k5, k13, nf, gnb, k5w, k6w, x3, k5d16, fp32")
+    parser.add_argument("--only", default="k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3,k5d16,fp32,long",
+                        help="comma-separated: k11, k1, k4, gn, k2, k6, k5, k13, nf, gnb, k5w, k6w, x3, k5d16, fp32, "
+                             "long")
     parser.add_argument("--root", default=None,
                         help="import vidseg_diffusion_tpu_torch (and build its kernels) from this checkout")
     args = parser.parse_args()
@@ -830,6 +892,8 @@ def run(torch, F, A, MM, only):
         time_flash_backward(torch, F, rn, only)
     if "k6w" in only:
         time_temporal_wide_backward(torch, F, rn)
+    if "long" in only:
+        time_long_frames(torch, F, rn)
     if "k5d16" in only:
         time_k5_d16(torch, F, rn)
     if "fp32" in only:
