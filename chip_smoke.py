@@ -162,9 +162,9 @@ Phases, in order; any failure exits non-zero:
    decoding_t 7 in bf16: K1 and K2 at one 512-dim head (K3's wgmma kernel,
    the wide kernel) and K3 twice a decode, every launch reckoned; 'all' over
    40 latents at decoding_t 40 (K2 at D = 512 over 40 frames, once, on the
-   frame-walking kernel); then fp32 card vs CPU at 2 frames of 32x32 latents,
+   tensor-core kernel past 32 frames); then fp32 card vs CPU at 2 frames of 32x32 latents,
    and 'all' over 34 latents of 4x4 under a gradient (K2 and K6 at D = 512
-   over 34 frames on the frame-walking kernels: the run of the
+   over 34 frames on the tensor-core kernels past 32 frames: the run of the
    temporal_attention_direct_backward_long entry), output and latent gradient
    card vs CPU.
 19. api_img2vid (after refine, on the main path's pipeline): the sampling API's
@@ -276,8 +276,8 @@ Phases, in order; any failure exits non-zero:
    built for 40 frames: every temporal self-attention site runs K2 over 40
    frames, past the 32 of its tiled kernels. The main path's checks at 40
    frames (launches by kernel and route as the calls imply, the first stage at
-   6 chunks a pass), every K2 launch at t = 40 on the frame-walking kernel
-   (the run of the temporal_attention_direct_long entry); its seconds and
+   6 chunks a pass), every K2 launch at t = 40 and D = 64 on the tensor-core
+   kernel past 32 frames (the run of the temporal_attention_direct_long entry); its seconds and
    peak memory.
 With `--ranks` under `torchrun --nproc_per_node W` on W cards (main_ranks):
 the main path's runs over the W ranks bit-equal to one rank's run, and the
@@ -289,8 +289,8 @@ are not built for (D = 16: K1, K2, K3, K5, K6, K13; one 512-dim head: K1, K2,
 and their backwards K5 (K13's kernels on the packed strides) and K6 (its
 tensor-core kernels at 7 and 14 frames and the 32-row tile at 17 and 32, split
 TF32 in fp32, also held to the plain version in float64; the wide kernel at 3
-frames)), and K2 and K6 past 32 frames (33 and 48) at D = 64 ([t,5824,5,64]),
-512 and 16 on the frame-walking kernels (fp32 at D = 512 also held to the
+frames)), and K2 and K6 past 32 frames (33, 48 and 64; 65 at D = 64) at D = 64 ([t,5824,5,64])
+and 512 on the tensor-core kernels and 16 on the frame walk (fp32 at D = 512 also held to the
 plain version in float64), against their plain versions in bf16 and fp32 (K5 and K13
 at bf16 D = 16 on their mma.sync kernels), and the normalise-first mode
 of K1 and K3 at D = 16 in bf16, also held to mha_reference. The fp32 routes at
@@ -429,19 +429,30 @@ KERNELS = {
         replaces="vidseg_diffusion_tpu/ops/attention.py:1025", rms_tol=1e-3,
         route_of=("flash_attention_backward", "flash_attention_packed_backward"), path="ae_video_grad",
     ),
-    # K2 and K6 past 32 frames (route 8, "long"): the frame-walking kernels of temporal_attention_long.cu at
-    # every head dim and dtype. Their launches are the `route_of` wrappers' .long_launches in the run of
+    # K2 and K6 past 32 frames (route 8, "long"): at D = 64 and 512 the tensor-core kernels of
+    # temporal_attention_long_tc.cu, at D = 16 the frame-walking kernels of temporal_attention_long.cu. Their
+    # launches are the wrapper's long-route launches at those head dims (.long_dim_launches) in the run of
     # their path (long_video: svd.yaml's main path over 40 frames; vae_long_grad: the VideoDecoder at 'all'
-    # in fp32 under a gradient over 34 latents)
+    # in fp32 under a gradient over 34 latents); no path runs the D = 16 instance past 32 frames
     "temporal_attention_direct_long": dict(
-        id="K2 past 32 frames", source="vidseg_diffusion_tpu_torch/csrc/temporal_attention_long.cu",
+        id="K2 past 32 frames D=64/512", source="vidseg_diffusion_tpu_torch/csrc/temporal_attention_long_tc.cu",
         replaces="vidseg_diffusion_tpu/ops/attention.py:1458", rms_tol=1e-3,
-        route_of=("temporal_attention_direct",), route="long", path="long_video",
+        wrapper="temporal_attention_direct", long_dims=(64, 512), path="long_video",
     ),
     "temporal_attention_direct_backward_long": dict(
-        id="K6 past 32 frames", source="vidseg_diffusion_tpu_torch/csrc/temporal_attention_long.cu",
+        id="K6 past 32 frames D=64/512", source="vidseg_diffusion_tpu_torch/csrc/temporal_attention_long_tc.cu",
         replaces="vidseg_diffusion_tpu/ops/attention.py:1167", rms_tol=2e-4,
-        route_of=("temporal_attention_direct_backward",), route="long", path="vae_long_grad",
+        wrapper="temporal_attention_direct_backward", long_dims=(64, 512), path="vae_long_grad",
+    ),
+    "temporal_attention_direct_long_d16": dict(
+        id="K2 past 32 frames D=16", source="vidseg_diffusion_tpu_torch/csrc/temporal_attention_long.cu",
+        replaces="vidseg_diffusion_tpu/ops/attention.py:1458", rms_tol=1e-3,
+        wrapper="temporal_attention_direct", long_dims=(16,), path=None,
+    ),
+    "temporal_attention_direct_backward_long_d16": dict(
+        id="K6 past 32 frames D=16", source="vidseg_diffusion_tpu_torch/csrc/temporal_attention_long.cu",
+        replaces="vidseg_diffusion_tpu/ops/attention.py:1167", rms_tol=2e-4,
+        wrapper="temporal_attention_direct_backward", long_dims=(16,), path=None,
     ),
 }
 # the instances at the head dims the tuned kernels are not built for (ROADMAP
@@ -617,6 +628,8 @@ HEADLINE = {  # the shape of its path each kernel is timed at
     "flash_attention_backward_tf32x3": "VAE mid [7,1,5824,512] fp32",
     "temporal_attention_direct_long": "ds1 [48,5824,5,64] t=48 bf16",
     "temporal_attention_direct_backward_long": "ds1 [48,5824,5,64] t=48 bf16",
+    "temporal_attention_direct_long_d16": "tiny ds1 [48,5824,2,16] t=48 bf16",
+    "temporal_attention_direct_backward_long_d16": "tiny ds1 [48,5824,2,16] t=48 bf16",
 }
 # launches of one training step (remat on: every ResBlock and transformer runs
 # its forward twice, in the step's forward and in the backward's recompute):
@@ -1127,8 +1140,9 @@ def head_dim_cases(torch, rn):
     K1, the time mix [bt, 5824, 1, 512] through K2) and their backwards on the
     7-frame training clip (K5 at one 512-dim head on K13's kernels, t = 7; K6
     on its tensor-core kernels at t = 7, 14, 17 and 32, on the wide kernel at
-    t = 3, each launch on its route counter); K2 and K6 past 32 frames (33 and
-    48) at D = 64, 512 and 16 on the frame-walking kernels. Library: SDPA on the [B, H, L, D]
+    t = 3, each launch on its route counter); K2 and K6 past 32 frames (33, 48
+    and 64; 65 at D = 64, past the block that holds a problem whole) at D = 64 and 512 on the tensor-core
+    kernels and 16 on the frame walk. Library: SDPA on the [B, H, L, D]
     views (K2: the [b, s, H, t, D] view), its backward through autograd.grad
     (the backend that takes the headline printed)."""
     import torch.nn.functional as F
@@ -1267,15 +1281,21 @@ def head_dim_cases(torch, rn):
                               work=attn_work(5824, 1, t, t, 512, backward=True, dtype=dname),
                               library=lambda q, k, v, o, g, t=t: sdpa_backward([frames(x, t) for x in (q, k, v)],
                                                                                frames(g, t))))
-        # K2 and K6 past 32 frames on the frame-walking kernels (`.long_launches`): one video of 33 and 48
-        # frames at the UNet's ds1 site, the time mix's one 512-dim head and svd_tiny.yaml's ds1 16-dim heads;
+        # K2 and K6 past 32 frames (`.long_dim_launches` at the case's head dim): one video of 33, 48 and 64
+        # frames at the UNet's ds1 site and the time mix's one 512-dim head (the tensor-core kernels: 64 frames
+        # the last whose logits stay in registers, at D = 64 the last a block holds whole) and svd_tiny.yaml's
+        # ds1 16-dim heads (the frame walk), and of 65 at ds1 (D = 64 on the kernels that walk the key tiles);
         # fp32 at D = 512 also held to the plain version in float64 (FP64_RMS_TOL)
-        for t in (33, 48):
+        for t in (33, 48, 64, 65):
             for label, h, d in ((f"ds1 [{t},5824,5,64] t={t}", 5, 64), (f"time mix [{t},5824,1,512] t={t}", 1, 512),
                                 (f"tiny ds1 [{t},5824,2,16] t={t}", 2, 16)):
+                if t == 65 and d != 64:
+                    continue
                 add = dict(iters=2, fp64_held=dtype == torch.float32 and d == 512)
-                cases.append(dict(kernel="temporal_attention_direct_long", label=f"{label} {dname}",
-                                  make=mk(*[(t, 5824, h, d)] * 3), counted=lambda: k2.long_launches,
+                k2_entry, k6_entry = (f"temporal_attention_direct{x}_long{'_d16' if d == 16 else ''}"
+                                      for x in ("", "_backward"))
+                cases.append(dict(kernel=k2_entry, label=f"{label} {dname}",
+                                  make=mk(*[(t, 5824, h, d)] * 3), counted=lambda d=d: k2.long_dim_launches[d],
                                   kern=lambda q, k, v, t=t: k2(q, k, v, t=t),
                                   plain=lambda q, k, v, t=t: A.temporal_attention_direct_reference(q, k, v, t=t),
                                   work=attn_work(5824, h, t, t, d, dtype=dname),
@@ -1286,8 +1306,8 @@ def head_dim_cases(torch, rn):
                     q, k, v, g = mk(*[(t, 5824, h, d)] * 4)()
                     return q, k, v, A.temporal_attention_direct(q, k, v, t=t), g
 
-                cases.append(dict(kernel="temporal_attention_direct_backward_long", label=f"{label} {dname}",
-                                  make=k6_long_make, counted=lambda: k6.long_launches,
+                cases.append(dict(kernel=k6_entry, label=f"{label} {dname}",
+                                  make=k6_long_make, counted=lambda d=d: k6.long_dim_launches[d],
                                   kern=lambda q, k, v, o, g, t=t: k6(q, k, v, o, g, t=t),
                                   plain=lambda q, k, v, o, g, t=t: A.temporal_attention_direct_backward_reference(
                                       q, k, v, o, g, t=t),
@@ -2072,7 +2092,7 @@ def reset_counts():
         for route in ROUTE_NAMES:
             if hasattr(f, f"{route}_launches"):
                 setattr(f, f"{route}_launches", 0)
-        for attr in ("dim_launches", "normalised_dim_launches", "frame_launches"):
+        for attr in ("dim_launches", "normalised_dim_launches", "frame_launches", "long_dim_launches"):
             if hasattr(f, attr):
                 getattr(f, attr).clear()
     for f in plains:
@@ -2103,6 +2123,8 @@ def read_dims():
                  for f in A.KERNEL_COUNTERS if hasattr(f, "normalised_dim_launches")})
     dims.update({f"{f.__name__}.frames": dict(f.frame_launches)   # K2 / K6: launches by the frames t
                  for f in A.KERNEL_COUNTERS if hasattr(f, "frame_launches")})
+    dims.update({f"{f.__name__}.long": dict(f.long_dim_launches)   # K2 / K6 past 32 frames by head dim
+                 for f in A.KERNEL_COUNTERS if hasattr(f, "long_dim_launches")})
     return dims
 
 
@@ -2120,7 +2142,7 @@ def check_routes(tag, launches, narrow=0, normalised=None, wide=0, long_frames=0
     kernel; at D = 64 they run K1's wgmma kernel and count on both), every K4
     launch but `narrow` of them, which took the narrow kernel, every K2
     launch but `wide` of them (D = 512, the wide kernel) and `long_frames` of
-    them (past 32 frames, the frame-walking kernel) and every K6 launch (D =
+    them (past 32 frames, the long route) and every K6 launch (D =
     512 up to 32 frames too) the tensor-core kernel (none the fp32 CUDA-core
     one); K1 and
     K3 ran the normalise-first mode `normalised[name]` times ({kernel:
@@ -2319,7 +2341,7 @@ def run_main_path(torch, pipe, tag, injected, process_group=None, n_frames=None)
     check(all(n == 0 for n in plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
     narrow = calls["decoder"] * narrow_tconv_sites(pipe.first_stage.decoder)
     k2 = "temporal_attention_direct"
-    long_frames = launches[k2] if t > A.TILED_FRAMES else 0   # past 32 frames: the frame-walking kernel
+    long_frames = launches[k2] if t > A.TILED_FRAMES else 0   # past 32 frames: the long route
     routes = check_routes(tag, launches, narrow, MAIN_NORMALISED, long_frames=long_frames)
     print(f"[{tag}] launches by route {json.dumps(routes)}; GroupNorm calls by route {json.dumps(GN_ROUTES)}",
           flush=True)
@@ -2393,8 +2415,9 @@ def phase_long_video(torch):
     seed 0): every temporal self-attention site runs K2 over 40 frames, past
     the 32 of its tiled kernels. run_main_path's checks at 40 frames: the
     launches by kernel that the calls imply (the first stage at 6 chunks a
-    pass), every K2 launch at t = 40 (`.frame_launches`) on the frame-walking
-    kernel (`.long_launches`), the other kernels on their routes, no plain
+    pass), every K2 launch at t = 40 (`.frame_launches`) and D = 64 on the
+    tensor-core kernel past 32 frames (`.long_launches`, `.long_dim_launches`),
+    the other kernels on their routes, no plain
     version; finite latents, +lambda != -lambda, outside-mask latents pinned, a
     label map over the 40 frames; its seconds and peak memory. Returns the
     launches."""
@@ -2406,6 +2429,10 @@ def phase_long_video(torch):
     print(f"[long_video] built svd.yaml for {LONG_VIDEO_FRAMES} frames in {time.perf_counter() - t0:.1f} s",
           flush=True)
     launches, _ = run_main_path(torch, pipe, "long_video", injected=False, n_frames=LONG_VIDEO_FRAMES)
+    long_dims = DIM_COUNTS["long_video"]["temporal_attention_direct.long"]
+    check(long_dims == {64: launches["temporal_attention_direct"]},
+          f"[long_video] K2 past 32 frames by head dim {long_dims}: not every launch at D = 64 on the tensor-core "
+          f"kernel of temporal_attention_long_tc.cu ({launches['temporal_attention_direct']} launches)")
     return launches
 
 
@@ -2692,7 +2719,7 @@ def phase_vae_time_mode(torch):
     projections, K4 at the video ResnetBlocks ('all' only), every launch reckoned
     and no plain version; finite frames. Then 'all' over LONG_VIDEO_FRAMES = 40
     latents at decoding_t 40 in bf16: one K2 launch at D = 512 over 40 frames,
-    on the frame-walking kernel. Then each mode in fp32 at 2 frames of
+    on the tensor-core kernel past 32 frames. Then each mode in fp32 at 2 frames of
     32x32 latents (1024 tokens: every attention site a kernel site) on the card
     vs the CPU's plain versions, the library convolutions off cuDNN and TF32 off,
     within UNET_REL_TOL of max |CPU|, and 'all' over 34 latents under a gradient
@@ -2748,7 +2775,7 @@ def phase_vae_time_mode(torch):
         torch.cuda.empty_cache()
 
     # 'all' over 40 latents at decoding_t 40: the time mix's K2 at D = 512 over 40 frames, one launch on the
-    # frame-walking kernel
+    # tensor-core kernel past 32 frames
     dec, scale = vae_time_mode_decoder(torch, "all", torch.bfloat16)
     fs = FirstStage(None, dec, scale)
     z40 = torch.randn(LONG_VIDEO_FRAMES, 56, 104, 4, generator=g, device="cuda").to(torch.bfloat16)
@@ -2761,7 +2788,7 @@ def phase_vae_time_mode(torch):
     launches, plain_calls = read_counts()
     dims, k2 = read_dims(), A.temporal_attention_direct
     check(launches["temporal_attention_direct"] == 1 and k2.long_launches == 1
-          and dims["temporal_attention_direct"] == {512: 1}
+          and dims["temporal_attention_direct"] == {512: 1} and dims["temporal_attention_direct.long"] == {512: 1}
           and dims["temporal_attention_direct.frames"] == {LONG_VIDEO_FRAMES: 1},
           f"[vae_time_mode all, {LONG_VIDEO_FRAMES} latents] K2 launches {launches['temporal_attention_direct']}, by "
           f"route {read_routes()['temporal_attention_direct']}, by head dim and frames {dims}")
@@ -2810,7 +2837,7 @@ def vae_long_grad(torch):
     """The VideoDecoder at 'all' in fp32 (svd.yaml's, seeded random weights)
     over VAE_LONG_LATENTS = 34 latents of 4x4 under a gradient: the time mix's
     K2 and, in the backward, K6 at D = 512 over 34 frames, each once on the
-    frame-walking kernel (the run whose launches the temporal_attention_direct_backward_long entry
+    tensor-core kernels past 32 frames (the run whose launches the temporal_attention_direct_backward_long entry
     reports); the output and the latents' gradient (of the output against a
     seeded cotangent) card vs CPU within UNET_REL_TOL of max |CPU| and
     GRAD_REL_TOL by norm. The caller has turned TF32 and cuDNN off."""
@@ -2828,12 +2855,15 @@ def vae_long_grad(torch):
     (out * cot.cuda()).sum().backward()
     torch.cuda.synchronize()
     routes, dims = read_routes(), read_dims()
-    ROUTE_COUNTS["vae_long_grad"] = routes
+    ROUTE_COUNTS["vae_long_grad"], DIM_COUNTS["vae_long_grad"] = routes, dims
     k2, k6 = "temporal_attention_direct", "temporal_attention_direct_backward"
+    # each past 32 frames at D = 512: the tensor-core kernels of temporal_attention_long_tc.cu
     check(routes[k2]["long"] == 1 and routes[k6]["long"] == 1 and dims[f"{k2}.frames"] == {t: 1}
-          and dims[f"{k6}.frames"] == {t: 1} and dims[k6] == {512: 1},
+          and dims[f"{k6}.frames"] == {t: 1} and dims[k6] == {512: 1}
+          and dims[f"{k2}.long"] == {512: 1} and dims[f"{k6}.long"] == {512: 1},
           f"[vae_time_mode all fp32, {t} latents] K2 / K6 by route {routes[k2]} / {routes[k6]}, by frames "
-          f"{dims[f'{k2}.frames']} / {dims[f'{k6}.frames']}")
+          f"{dims[f'{k2}.frames']} / {dims[f'{k6}.frames']}, past 32 frames by head dim {dims[f'{k2}.long']} / "
+          f"{dims[f'{k6}.long']}")
     zr = z.clone().requires_grad_()
     ref = cpu(zr, t)
     (ref * cot).sum().backward()
@@ -5337,10 +5367,16 @@ def main():
             check(not meta["path"] or runs["main"] > 0, f"{name} never launched in the {meta['path']} run")
             extra = {"path": meta["path"] or "none (no path runs it)", "dim": meta["dim"]}
             routed = None
-        elif "route_of" in meta:  # the split-TF32 kernels, K2 / K6 past 32 frames: their wrappers' launches
-            # on that route ("tf32x3", "long") in each run
-            route = meta.get("route", "tf32x3")
-            runs = {tag: sum(ROUTE_COUNTS.get(tag, {}).get(w, {}).get(route, 0) for w in meta["route_of"])
+        elif "long_dims" in meta:  # K2 / K6 past 32 frames: the wrapper's long-route launches at those head dims
+            runs = {tag: sum(DIM_COUNTS.get(tag, {}).get(f"{meta['wrapper']}.long", {}).get(d, 0)
+                             for d in meta["long_dims"])
+                    for tag in tags + tuple(slice_runs) + ((meta["path"],) if meta["path"] else ())}
+            runs["main"] = runs[meta["path"]] if meta["path"] else 0   # its path's run
+            check(not meta["path"] or runs["main"] > 0, f"{name} never launched in the {meta['path']} run")
+            extra = {"path": meta["path"] or "none (no path runs it)", "long_dims": list(meta["long_dims"])}
+            routed = None
+        elif "route_of" in meta:  # the split-TF32 kernels: their wrappers' launches on that route in each run
+            runs = {tag: sum(ROUTE_COUNTS.get(tag, {}).get(w, {}).get("tf32x3", 0) for w in meta["route_of"])
                     for tag in tags + tuple(slice_runs) + (meta["path"],)}
             runs["main"] = runs[meta["path"]]   # its path's run
             check(runs["main"] > 0, f"{name} never launched in the {meta['path']} run")

@@ -236,3 +236,100 @@ def test_k6_one_tf32_pass_fails_its_bound():
     split, _ = _k6_run(14, 16, 60, _mm_split, _mm_split_panels)
     assert max(_rel_rms(a, r) for a, r in zip(one, ref)) > K6_RMS_TOL
     assert max(_rel_rms(a, r) for a, r in zip(split, ref)) < RMS_TOL
+
+
+# -- K2 and K6 past 32 frames (csrc/temporal_attention_long_tc.cu) ------------------
+#
+# fp32 at D = 64 and 512: a team of D / 64 warps a problem, each warp's partial
+# of S and dP over its 64 channels (two 32-channel chains on the tensor cores,
+# added in fp32), the team's partials added in warp order; the row max over
+# every key before any exp2; O, dq over 16-key tiles and dk, dv over 16-query
+# tiles, one split chain a tile, the tiles added in fp32.
+
+LONG_TILE = 16       # keys (O, dq) or queries (dk, dv) a chain of the fp32 kernels past 32 frames
+
+
+def _long_channels(a, b, mm):
+    """a @ b over the channels as the long kernels sum S and dP: per warp its
+    two 32-channel chains added, then the warps' partials in warp order."""
+    total = None
+    for w in range(0, a.shape[1], 64):
+        part = mm(a[:, w:w + PANEL], b[w:w + PANEL]) + mm(a[:, w + PANEL:w + 64], b[w + PANEL:w + 64])
+        total = part if total is None else total + part
+    return total
+
+
+def _long_tiles(a, b, mm):
+    """a @ b over the frames in tiles of LONG_TILE, one chain a tile, the tiles added."""
+    out = mm(a[:, :LONG_TILE], b[:LONG_TILE])
+    for c in range(LONG_TILE, a.shape[1], LONG_TILE):
+        out = out + mm(a[:, c:c + LONG_TILE], b[c:c + LONG_TILE])
+    return out
+
+
+def _long_problem(q, k, v, o, g, d, mm):
+    """O (o and g None) or dq, dk, dv of one problem [t, d] with the products on `mm`."""
+    dt = np.float64 if mm is _mm64 else np.float32
+    qf = q.astype(dt) * dt(np.float32(LOG2_E / np.sqrt(d)))
+    k, v = k.astype(dt), v.astype(dt)
+    s = _long_channels(qf, k.T, mm)
+    e = np.exp2(s - s.max(-1, keepdims=True))
+    if g is None:
+        return (_long_tiles(e, v, mm) / e.sum(-1, keepdims=True),)
+    g = g.astype(dt)
+    p = e / e.sum(-1, keepdims=True)
+    ds = p * (_long_channels(g, v.T, mm) - (g * o).sum(-1)[:, None])
+    return (_long_tiles(ds, k, mm) * dt(1 / np.sqrt(d)), _long_tiles(ds.T, qf, mm) / dt(LOG2_E),
+            _long_tiles(p.T, g, mm))
+
+
+def _long_run(t, d, seed, mm, backward):
+    """q, k, v (and g) [t, 16, H, d] (one video; H = 2 at D = 64, 1 at 512): the
+    emulated output or gradients in the direct layout, and JAX's (the forward
+    _temporal_direct_impl in interpret mode; the gradients jax.vjp of the
+    direct-layout kernel, whose VJP runs the Pallas tiny-seq backward)."""
+    h, s = (2 if d == 64 else 1), 16
+    rs = np.random.RandomState(seed)
+    q, k, v, g = ((rs.randn(t, s, h, d) * 1.5).astype(np.float32) for _ in range(4))
+    if backward:
+        fwd = lambda *a: jatt.temporal_attention_direct(*a, t=t, force=True, interpret=True)
+        o, vjp = jax.vjp(fwd, *(jnp.asarray(a) for a in (q, k, v)))
+        o = np.asarray(o)
+        want = [np.asarray(w) for w in vjp(jnp.asarray(g))]
+    else:
+        o = g = None
+        want = [np.asarray(jatt._temporal_direct_impl(*(jnp.asarray(a) for a in (q, k, v)), t, interpret=True))]
+    got = [np.zeros((t, s, h, d), np.float64 if mm is _mm64 else np.float32) for _ in want]
+    for j in range(s):
+        for hh in range(h):
+            x = lambda a: None if a is None else a[:, j, hh]
+            for out, r in zip(got, _long_problem(x(q), x(k), x(v), x(o), x(g), d, mm)):
+                out[:, j, hh] = r
+    return got, want
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["K2", "K6"])
+@pytest.mark.parametrize("d", [64, 512])
+@pytest.mark.parametrize("t", [33, 48])
+def test_long_split_matches_jax_and_fp64(t, d, backward):
+    """The long kernels' split products past 32 frames against JAX's direct
+    kernel (or jax.vjp of it) in interpret mode within FP32_TOL of max |JAX|
+    and against fp64 of the same math within RMS_TOL."""
+    got, want = _long_run(t, d, 70 + t + d, _mm_split, backward)
+    ref, _ = _long_run(t, d, 70 + t + d, _mm64, backward)
+    for name, a, w, r in zip(("dq", "dk", "dv") if backward else ("o",), got, want, ref):
+        assert _max_err(a, w) <= FP32_TOL, name
+        assert _rel_rms(a, r) <= RMS_TOL, name
+
+
+@pytest.mark.parametrize("d", [64, 512])
+def test_long_one_tf32_pass_fails_its_bound(d):
+    """The negative control at t = 48: one TF32 pass (no lo parts) reads above
+    K6's relative RMS bound of 2e-4 against fp64 on some gradient and above
+    RMS_TOL on K2's output, the split under RMS_TOL on every one."""
+    for backward, bound in ((True, K6_RMS_TOL), (False, RMS_TOL)):
+        ref, _ = _long_run(48, d, 90 + d, _mm64, backward)
+        one, _ = _long_run(48, d, 90 + d, _mm_one_pass, backward)
+        split, _ = _long_run(48, d, 90 + d, _mm_split, backward)
+        assert max(_rel_rms(a, r) for a, r in zip(one, ref)) > bound, backward
+        assert max(_rel_rms(a, r) for a, r in zip(split, ref)) < RMS_TOL, backward

@@ -35,9 +35,11 @@ off a 16-byte boundary the narrow kernel (`.narrow_launches`); K1 takes
 chip_smoke.py's forward bounds there (RMS_TOL["K1"]). K2 and K6 at D = 64 run
 on the tensor cores in bf16 and on CUDA cores in fp32 up to 32 frames: their
 `.mma_launches` counters move with every bf16 launch and with no fp32 one,
-within chip_smoke.py's bounds (RMS_TOL["K2"], ["K6"]); past 32 frames every
-head dim and dtype runs the frame-walking kernels (`.long_launches`), with no
-frame cap (t = 128). The attention kernels sum the softmax
+within chip_smoke.py's bounds (RMS_TOL["K2"], ["K6"]); past 32 frames
+(`.long_launches`, by head dim `.dim_launches`) D = 64 and 512 run the
+tensor-core kernels of csrc/temporal_attention_long_tc.cu in both dtypes and
+D = 16 the frame-walking kernels, with no frame cap (t = 200), bitwise
+repeatable, an unaligned base refused before any launch. The attention kernels sum the softmax
 denominator as the JAX kernel of their site does (K1 at a short site and K3
 without a gradient: the fp32 p; K1 at a long site and K3 under a gradient: the
 rounded p), each held to the plain version with that sum; at the sites JAX's
@@ -253,7 +255,7 @@ def test_temporal_attention_direct(cuda, dt, b, t, s, h):
 
 # K2 / K6 on their routes: one frame, the main path's 14, a full 16-frame box,
 # one frame past it and two full boxes (32-frame boxes, two row tiles), then past
-# 32 frames (the frame-walking kernels); tokens off the 8- and 4-token units; one
+# 32 frames (the tensor-core tiles of temporal_attention_long_tc.cu); tokens off the 8- and 4-token units; one
 # head, the ds1 and the ds4 / mid head counts
 TEMPORAL_ROUTE_CASES = [(t, s, h) for t in (1, 14, 16, 17, 32, 33, 48, 64) for s in (9, 91, 364) for h in (1, 5, 20)]
 
@@ -264,7 +266,7 @@ TEMPORAL_ROUTE_CASES = [(t, s, h) for t in (1, 14, 16, 17, 32, 33, 48, 64) for s
 def test_temporal_attention_direct_mma_route(cuda, dt, t, s, h):
     """bf16 K2 runs on the tensor cores up to 32 frames (its route counter
     moves with its launch counter), fp32 on CUDA cores (it does not), both past
-    32 frames on the frame-walking kernel (`.long_launches`), each within
+    32 frames on the long route's tensor-core kernel (`.long_launches`), each within
     chip_smoke.py's forward bounds of the plain version."""
     dtype = DTYPES[dt]
     q, k, v = (_randn(cuda, i, dtype, 2 * t, s, h, 64) for i in (140, 141, 142))
@@ -285,8 +287,8 @@ def test_temporal_attention_direct_mma_route(cuda, dt, t, s, h):
 @pytest.mark.parametrize("t,s,h", TEMPORAL_ROUTE_CASES)
 def test_temporal_attention_direct_backward_mma_route(cuda, dt, t, s, h):
     """bf16 K6 runs on the tensor cores up to 32 frames, fp32 on CUDA cores,
-    both past 32 frames on the frame-walking kernel (the route counters say
-    which), each within chip_smoke.py's backward bounds of the plain version
+    both past 32 frames on the long route's tensor-core kernel (the route
+    counters say which), each within chip_smoke.py's backward bounds of the plain version
     on every gradient."""
     dtype = DTYPES[dt]
     q, k, v, g = (_randn(cuda, i, dtype, 2 * t, s, h, 64) for i in (143, 144, 145, 146))
@@ -1633,25 +1635,85 @@ def test_temporal_attention_direct_d16_and_backward(cuda, dt, t, s, h):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("d,h", [(16, 2), (64, 5), (512, 1)])
-@pytest.mark.parametrize("t,s", [(33, 91), (48, 20), (64, 9), (128, 3)])
+@pytest.mark.parametrize("t,s", [(33, 91), (40, 7), (47, 1000), (48, 20), (63, 20), (64, 9), (65, 9), (128, 3),
+                                 (200, 3)])
 def test_temporal_attention_past_32_frames(cuda, dt, d, h, t, s):
     """K2 and K6 past 32 frames at every head dim the configs produce, in
-    both dtypes, up to 128 frames (no frame cap): each launch on the
-    frame-walking kernels (`.long_launches`), within chip_smoke.py's bounds
-    of the plain versions; fp32 at D = 512 also within FP64_RMS_TOL of the
-    plain versions run in float64."""
+    both dtypes, over two videos, up to 200 frames (no frame cap; key tiles
+    ragged on both sides of the 64 frames whose logits stay in registers;
+    tokens off every unit): each launch on the long route (`.long_launches`,
+    by head dim `.dim_launches`: the tensor-core kernels at D = 64 and 512, the
+    frame walk at 16), within chip_smoke.py's bounds of the plain versions;
+    fp32 at D = 512 also within FP64_RMS_TOL of the plain versions run in
+    float64."""
     dtype = DTYPES[dt]
     q, k, v, g = (_randn(cuda, 340 + i, dtype, 2 * t, s, h, d, scale=1.5) for i in range(4))
     k2, k6 = A.temporal_attention_direct, A.temporal_attention_direct_backward
-    long2, long6 = k2.long_launches, k6.long_launches
+    long2, long6, dims2, dims6 = k2.long_launches, k6.long_launches, k2.dim_launches[d], k6.dim_launches[d]
     _check(k2, A.temporal_attention_direct_reference, q, k, v, t=t)
     out = k2(q, k, v, t=t)
     _check(k6, A.temporal_attention_direct_backward_reference, q, k, v, out, g, t, rms_tol=RMS_TOL["K6"])
     assert (k2.long_launches, k6.long_launches) == (long2 + 2, long6 + 1)
+    assert (k2.dim_launches[d], k6.dim_launches[d]) == (dims2 + 2, dims6 + 1)
     if dtype == torch.float32 and d == 512:
         assert _fp64_rms((out,), A.temporal_attention_direct_reference, q, k, v, t) <= FP64_RMS_TOL
         assert _fp64_rms(k6(q, k, v, out, g, t), A.temporal_attention_direct_backward_reference,
                          q, k, v, out, g, t) <= FP64_RMS_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("d,h", [(64, 5), (512, 1)])
+@pytest.mark.parametrize("t", [48, 65])
+def test_temporal_attention_past_32_frames_repeats_bitwise(cuda, dt, d, h, t):
+    """Two launches of K2 and of K6 past 32 frames on the same inputs give the
+    same bits (no atomics, no sum across blocks), with the logits held in
+    registers (48 frames) and walked twice (65)."""
+    dtype = DTYPES[dt]
+    q, k, v, g = (_randn(cuda, 360 + i, dtype, 2 * t, 91, h, d, scale=1.5) for i in range(4))
+    k2, k6 = A.temporal_attention_direct, A.temporal_attention_direct_backward
+    out = k2(q, k, v, t=t)
+    assert torch.equal(out, k2(q, k, v, t=t))
+    for a, b in zip(k6(q, k, v, out, g, t), k6(q, k, v, out, g, t)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_temporal_backward_fp32_512_frame_limit(cuda):
+    """K6 in fp32 at D = 512 has no frame limit: past the 32-row tiles' 64
+    frames the team kernel keeps each query row's max, sum and delta in
+    shared memory up to 784 frames and in the wrapper's device scratch past
+    them; 784, 785 and 1000 frames each run once, within chip_smoke.py's bound
+    of the plain version."""
+    k6 = A.temporal_attention_direct_backward
+    for t in (784, 785, 1000):
+        q, k, v, g = (_randn(cuda, 390 + i, torch.float32, t, 1, 1, 512, scale=1.5) for i in range(4))
+        out = A.temporal_attention_direct_reference(q, k, v, t=t).contiguous()
+        long6 = k6.long_dim_launches[512]
+        _check(k6, A.temporal_attention_direct_backward_reference, q, k, v, out, g, t, rms_tol=RMS_TOL["K6"])
+        assert k6.long_dim_launches[512] == long6 + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("d", [64, 512])
+def test_temporal_attention_past_32_frames_refuses_unaligned_bases(cuda, dt, d):
+    """Past 32 frames the tensor-core kernels read their rows by TMA: a
+    contiguous view whose base is off a 16-byte boundary raises a ValueError
+    naming the wrapper before any launch (no fallback)."""
+    dtype, t, s = DTYPES[dt], 40, 9
+    n = 2 * t * s * d
+    k2, k6 = A.temporal_attention_direct, A.temporal_attention_direct_backward
+    good = [_randn(cuda, 380 + i, dtype, 2 * t, s, 1, d) for i in range(4)]
+    bad = _randn(cuda, 384, dtype, n + 1)[1:].view(2 * t, s, 1, d)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    launches = k2.launches, k6.launches, k2.long_launches, k6.long_launches
+    with pytest.raises(ValueError, match="temporal_attention_direct: .*16-byte aligned"):
+        k2(bad, good[1], good[2], t=t)
+    with pytest.raises(ValueError, match="temporal_attention_direct_backward: .*16-byte aligned"):
+        k6(good[0], good[1], good[2], good[3], bad, t)
+    torch.cuda.synchronize()
+    assert (k2.launches, k6.launches, k2.long_launches, k6.long_launches) == launches
 
 
 @pytest.mark.gpu
@@ -1684,8 +1746,8 @@ def test_flash_attention_packed_one_512_head(cuda, dt, b, l):
 def test_temporal_attention_direct_512(cuda, dt, t, s):
     """K2 at one 512-dim head (the VideoAttnBlock's time mix: t = 7 or 14 frames
     of 5824 tokens at svd.yaml's decode) on the wide kernel (`.wide_launches`)
-    up to 32 frames, past them on the frame-walking kernel (`.long_launches`),
-    within chip_smoke.py's forward bounds."""
+    up to 32 frames, past them on the long route's tensor-core kernel
+    (`.long_launches`), within chip_smoke.py's forward bounds."""
     dtype = DTYPES[dt]
     b = 1 if s > 2048 else 2
     q, k, v = (_randn(cuda, 260 + i, dtype, b * t, s, 1, 512) for i in range(3))
@@ -1785,7 +1847,7 @@ def test_tma_kernels_launch_from_a_thread_that_has_launched_nothing(cuda):
 
 
 # the frames K6's tensor-core kernels take at D = 512 (the C entry's route by t: the wide kernel below them,
-# the frame-walking kernel past them)
+# the long route's tensor-core kernel past them)
 K6_TC_FRAMES = {"bf16": range(4, 33), "fp32": range(5, 33)}
 
 
@@ -1802,7 +1864,7 @@ def test_temporal_attention_direct_backward_512(cuda, dt, t, s):
     32-row tile from 17; bf16 `.mma_launches`; fp32 on split TF32 products,
     `.tf32x3_launches`, also held to the plain version in float64 within
     FP64_RMS_TOL), at fewer frames on the wide kernel (`.wide_launches`), past
-    32 on the frame-walking kernel (`.long_launches`)."""
+    32 on the long route's tensor-core kernel (`.long_launches`)."""
     dtype = DTYPES[dt]
     b = 1 if s > 2048 else 2
     q, k, v, g = (_randn(cuda, 290 + i, dtype, b * t, s, 1, 512) for i in range(4))

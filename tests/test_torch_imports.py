@@ -200,7 +200,7 @@ def test_kernel_sources_are_packaged_and_hashed():
     assert srcs == ["conv3x3.cu", "flash_attention.cu", "flash_attention_bhld_bwd.cu",
                     "flash_attention_bwd.cu", "group_norm.cu", "group_norm_bwd.cu", "matmul_bias.cu",
                     "temporal_attention.cu", "temporal_attention_bwd.cu", "temporal_attention_bwd_512.cu",
-                    "temporal_attention_long.cu", "temporal_conv.cu"]
+                    "temporal_attention_long.cu", "temporal_attention_long_tc.cu", "temporal_conv.cu"]
     assert len(_cuda._source_hash()) == 16
     # the shared headers are part of the hash: an edited tile rebuilds its kernels
     headers = sorted(os.path.basename(p) for p in glob.glob(os.path.join(_cuda.CSRC, "*.cuh")))

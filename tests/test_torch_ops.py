@@ -125,7 +125,7 @@ def test_flash_attention_packed_backward_plain_matches_pallas(lq, lk):
 
 @pytest.mark.parametrize("b,t,s,h,d", [(2, 3, 32, 2, 16), (1, 14, 16, 2, 8), (2, 1, 16, 1, 16),
                                        (1, 7, 32, 1, 512),   # the VideoAttnBlock's one 512-dim head
-                                       # past 32 frames (the card's frame-walking kernel; JAX's direct
+                                       # past 32 frames (the card's long route; JAX's direct
                                        # kernel takes a 16-token tile there)
                                        (1, 33, 16, 2, 16), (1, 48, 32, 1, 16), (1, 33, 32, 1, 64),
                                        (1, 48, 16, 2, 64), (1, 33, 16, 1, 512), (1, 48, 16, 1, 512)])
@@ -308,6 +308,55 @@ def test_temporal_attention_direct_bf16_sums_the_fp32_p(t):
     q, k, v = _bf16_inputs(t, shape, shape, shape)
     want = jatt.temporal_attention_direct(_JB(q), _JB(k), _JB(v), t=t, force=True, interpret=True)
     _holds_to_jax(tatt.temporal_attention_direct(_TB(q), _TB(k), _TB(v), t=t), want)
+
+
+def _bf16_round(x):
+    return np.asarray(np.asarray(x, np.float32).astype(jnp.bfloat16), np.float32)
+
+
+def _k2_tiled_walk_bf16(q, k, v, t):
+    """The bf16 walk of K2's tensor-core kernel past 32 frames
+    (csrc/temporal_attention_long_tc.cu), emulated in numpy on [(b t), s, H, D]
+    holding bf16 values: qf = round(q * qscale); S over the channels in fp32
+    (D = 512: each warp's 64 channels, the eight partials added in warp order);
+    the row max over every key tile before any exp2; e = exp2(S - max); the
+    denominator the fp32 sum of the unrounded e as the kernel orders it (each
+    lane of a quad its keys 2 tig, 2 tig + 1 of every 8, tile after tile, then
+    the quad's butterfly); O = sum over key tiles of 16 of round(e) V in fp32,
+    / sum (up to 64 frames; past them D = 64 walks tiles of 32)."""
+    bt, s, h, d = q.shape
+    wt = 16
+    prob = lambda x: x.reshape(bt // t, t, s, h, d).transpose(0, 2, 3, 1, 4).reshape(-1, t, d)
+    qp, kp, vp = (prob(x) for x in (q, k, v))
+    qf = _bf16_round(qp * np.float32(_bf16_round(np.float64(1 / np.sqrt(d)) * 1.4426950408889634)))
+    sc = None
+    for w in range(0, d, 64):
+        part = np.einsum("pqc,pkc->pqk", qf[..., w:w + 64], kp[..., w:w + 64]).astype(np.float32)
+        sc = part if sc is None else sc + part
+    e = np.exp2(sc - sc.max(-1, keepdims=True)).astype(np.float32)
+    lanes = np.zeros(e.shape[:2] + (4,), np.float32)
+    for key in range(t):
+        tig = (key % 8) // 2
+        lanes[..., tig] += e[..., key]
+    den = (lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3])
+    acc = np.zeros(qp.shape, np.float32)
+    for c in range(0, t, wt):
+        acc += np.einsum("pqk,pkc->pqc", _bf16_round(e[..., c:c + wt]), vp[:, c:c + wt]).astype(np.float32)
+    out = _bf16_round(acc / den[..., None])
+    return out.reshape(bt // t, s, h, t, d).transpose(0, 3, 1, 2, 4).reshape(bt, s, h, d)
+
+
+@pytest.mark.parametrize("t,h,d", [(33, 2, 64), (40, 2, 64), (64, 2, 64), (40, 1, 512)])
+def test_k2_tiled_walk_bf16_matches_pallas(t, h, d):
+    """The bf16 arithmetic of K2's tensor-core kernel past 32 frames (the max
+    over every key tile first, the fp32 sum of the unrounded p in the kernel's
+    order, round(p) V tile by tile) against the direct-layout Pallas kernel in
+    interpret mode: within one bf16 step at max |JAX|, at most 0.1 % of the
+    elements differing (the main path's long_video site at t = 40)."""
+    shape = (t, 32, h, d)
+    q, k, v = (_bf16_round(x) for x in _bf16_inputs(t + d, shape, shape, shape))
+    want = jatt.temporal_attention_direct(_JB(q), _JB(k), _JB(v), t=t, force=True, interpret=True)
+    _holds_to_jax(torch.from_numpy(_k2_tiled_walk_bf16(q, k, v, t)), want)
 
 
 @pytest.mark.parametrize("with_lse", [False, True])

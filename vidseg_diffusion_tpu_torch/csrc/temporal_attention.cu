@@ -34,8 +34,9 @@
 // card-vs-CPU checks) on temporal_attn_kernel, lane i keeping query row i;
 // D = 512 (the VideoDecoder's VideoAttnBlock) on temporal_attn_wide_kernel,
 // lanes across the head dim. All of these stop at kMaxFrames = 32 (a 32-frame
-// box, a row's logits in registers); past 32 frames every head dim and dtype
-// runs the frame-walking kernel of temporal_attention_long.cu (route 8), which
+// box, a row's logits in registers); past 32 frames D = 64 and 512 run the
+// tensor-core kernels of temporal_attention_long_tc.cu and D = 16 the
+// frame-walking kernel of temporal_attention_long.cu (both route 8), which
 // keeps this arithmetic with a walk over all t keys for the row max before a
 // second for the sum and P V.
 #include <algorithm>
@@ -364,18 +365,22 @@ int launch_temporal_bf16(const void* q, const void* k, const void* v, void* o, i
   return launch_direct<K2Tile<32>>(temporal_attn_mma_kernel<32>, tensors, nvid, t, S, H, stream, t, qscale);
 }
 
-// temporal_attention_long.cu: every t past kMaxFrames, at each D and dtype
+// past kMaxFrames: D = 16 the frame-walking kernel of temporal_attention_long.cu, D = 64 and 512 the
+// tensor-core kernels of temporal_attention_long_tc.cu
 int launch_temporal_long(int dtype, int D, const void* q, const void* k, const void* v, void* o, int nvid, int t,
                          int S, int H, float qscale, cudaStream_t stream);
+int launch_temporal_long_tc(int dtype, int D, const void* q, const void* k, const void* v, void* o, int nvid, int t,
+                            int S, int H, float qscale, cudaStream_t stream);
 
 }  // namespace vs
 
-// q, k, v, o: contiguous [(nvid*t), S, H*D], D in {16, 64, 512} (bf16 at 64 and
-// every D at 512: 16-byte aligned), any t > 0. Up to 32 frames bf16 at D = 64
+// q, k, v, o: contiguous [(nvid*t), S, H*D], D in {16, 64, 512} (bf16 at 64,
+// every D at 512 and D = 64 past 32 frames: 16-byte aligned), any t > 0. Up to 32 frames bf16 at D = 64
 // runs the tensor-core kernel, D = 512 the wide kernel, the rest the CUDA-core
-// kernel; past 32 frames every D and dtype the frame-walking kernel of
+// kernel; past 32 frames D = 64 and 512 the tensor-core kernels of
+// temporal_attention_long_tc.cu, D = 16 the frame-walking kernel of
 // temporal_attention_long.cu. route (or NULL) receives the kernel that ran: 1
-// mma.sync, 4 the wide kernel, 0 CUDA cores, 8 the frame-walking kernel.
+// mma.sync, 4 the wide kernel, 0 CUDA cores, 8 past 32 frames.
 extern "C" int vs_temporal_attention_direct(int dtype, int D, const void* q, const void* k,
                                             const void* v, void* o, int nvid, int t, int S,
                                             int H, float qscale, int* route, void* stream) {
@@ -388,7 +393,8 @@ extern "C" int vs_temporal_attention_direct(int dtype, int D, const void* q, con
   int r = 0, rc;
   if (t > vs::kMaxFrames) {
     r = vs::kRouteLong;
-    rc = vs::launch_temporal_long(dtype, D, q, k, v, o, nvid, t, S, H, qscale, s);
+    rc = D == 16 ? vs::launch_temporal_long(dtype, D, q, k, v, o, nvid, t, S, H, qscale, s)
+                 : vs::launch_temporal_long_tc(dtype, D, q, k, v, o, nvid, t, S, H, qscale, s);
   } else if (D == vs::kWideD) {
     r = 4;
     rc = bf16 ? vs::launch_temporal_wide<bf>(q, k, v, o, nvid, t, S, H, qscale, s)

@@ -45,9 +45,11 @@
 // of temporal_attention_bwd_512.cu from there to 32 frames in both dtypes (a
 // block a problem: 8- and 16-row tiles of frames up to 16, a 32-row tile with
 // v and o streamed through a smaller buffer from 17 to 32). All of these stop
-// at 32 frames; past 32 every head dim and dtype runs the frame-walking kernel
-// of temporal_attention_long.cu (route 8), which keeps this arithmetic over
-// all t keys and reads a scratch of three floats a query row.
+// at 32 frames; past 32 D = 64 and 512 run the tensor-core kernels of
+// temporal_attention_long_tc.cu and D = 16 the frame-walking kernel of
+// temporal_attention_long.cu (both route 8), which keep this arithmetic over
+// all t keys; the frame-walking kernel reads a scratch of three floats a query
+// row.
 #include <algorithm>
 
 #include "common.cuh"
@@ -586,10 +588,14 @@ int launch_temporal_bwd_tc512(int dtype, const void* q, const void* k, const voi
                               void* dq, void* dk, void* dv, int nvid, int t, int S, int H, float qscale, float scale,
                               cudaStream_t stream);
 
-// temporal_attention_long.cu: every t past kBwdFrames, at each D and dtype
+// past kBwdFrames: D = 16 the frame-walking kernel of temporal_attention_long.cu (on a scratch of three
+// floats a query row), D = 64 and 512 the tensor-core kernels of temporal_attention_long_tc.cu
 int launch_temporal_bwd_long(int dtype, int D, const void* q, const void* k, const void* v, const void* o,
                              const void* g, void* dq, void* dk, void* dv, void* stats, int nvid, int t, int S, int H,
                              float qscale, float scale, cudaStream_t stream);
+int launch_temporal_bwd_long_tc(int dtype, int D, const void* q, const void* k, const void* v, const void* o,
+                                const void* g, void* dq, void* dk, void* dv, void* work, int nvid, int t, int S, int H,
+                                float qscale, float scale, cudaStream_t stream);
 
 int launch_temporal_bwd_bf16(const void* q, const void* k, const void* v, const void* o, const void* g,
                              void* dq, void* dk, void* dv, int nvid, int t, int S, int H, float qscale,
@@ -605,16 +611,19 @@ int launch_temporal_bwd_bf16(const void* q, const void* k, const void* v, const 
 }  // namespace vs
 
 // q, k, v, o, g, dq, dk, dv: contiguous [(nvid*t), S, H*D], D in {16, 64, 512}
-// (bf16 at 64 and every D at 512: 16-byte aligned), any t > 0; work: fp32
-// scratch of nvid * S * H * t * 3 floats past kBwdFrames frames (NULL up to
-// them). Up to 32 frames bf16 at D = 64 runs the tensor-core kernel; D = 512
+// (bf16 at 64 and every D at 512, and D = 64 past 32 frames: 16-byte aligned),
+// any t > 0; work: fp32 scratch of nvid * S * H * t * 3 floats past kBwdFrames
+// frames (NULL up to them), each query row's max, sum and delta for the frame
+// walk (D = 16) and for the tensor-core kernels where shared memory cannot hold
+// them. Up to 32 frames bf16 at D = 64 runs the tensor-core kernel; D = 512
 // the tensor-core kernels of temporal_attention_bwd_512.cu from 4 (bf16) or 5
 // (fp32) frames (bf16 mma.sync, fp32 split TF32) and the wide kernel below
-// them; the rest the CUDA-core kernel. Past 32 frames every D and dtype runs
-// the frame-walking kernel of temporal_attention_long.cu.
+// them; the rest the CUDA-core kernel. Past 32 frames D = 64 and 512 run the
+// tensor-core kernels of temporal_attention_long_tc.cu, D = 16 the
+// frame-walking kernel of temporal_attention_long.cu.
 // route (or NULL) receives the kernel that ran: 1 mma.sync (bf16 at 64 and 512),
-// 7 split TF32 (fp32 at 512), 4 the wide kernel, 0 CUDA cores, 8 the
-// frame-walking kernel.
+// 7 split TF32 (fp32 at 512), 4 the wide kernel, 0 CUDA cores, 8 past 32
+// frames.
 extern "C" int vs_temporal_attention_direct_bwd(int dtype, int D, const void* q, const void* k,
                                                 const void* v, const void* o, const void* g,
                                                 void* dq, void* dk, void* dv, void* work, int nvid,
@@ -629,7 +638,10 @@ extern "C" int vs_temporal_attention_direct_bwd(int dtype, int D, const void* q,
   int r, rc;
   if (t > vs::kBwdFrames) {
     r = vs::kRouteLong;
-    rc = vs::launch_temporal_bwd_long(dtype, D, q, k, v, o, g, dq, dk, dv, work, nvid, t, S, H, qscale, scale, st);
+    rc = D == 16 ? vs::launch_temporal_bwd_long(dtype, D, q, k, v, o, g, dq, dk, dv, work, nvid, t, S, H, qscale,
+                                                scale, st)
+                 : vs::launch_temporal_bwd_long_tc(dtype, D, q, k, v, o, g, dq, dk, dv, work, nvid, t, S, H, qscale,
+                                                   scale, st);
   } else if (D == vs::kWideD && t >= (bf16 ? vs::kTc512MinFramesBf16 : vs::kTc512MinFramesF32)) {
     r = bf16 ? 1 : vs::kRouteTf32x3;
     rc = vs::launch_temporal_bwd_tc512(dtype, q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st);

@@ -3,8 +3,8 @@
 // 7-frame training clip, 14 on a decode of 14 latents) in bf16 and fp32, from
 // 4 (bf16) / 5 (fp32) to 32 frames. The C entry (vs_temporal_attention_direct_bwd
 // in temporal_attention_bwd.cu) sends those problems here, shorter ones to the
-// wide kernel there and longer ones to the frame-walking kernel of
-// temporal_attention_long.cu. Two kernels, by t: up to 16 frames an 8- or
+// wide kernel there and longer ones to the tensor-core kernels of
+// temporal_attention_long_tc.cu. Two kernels, by t: up to 16 frames an 8- or
 // 16-row tile of frames with every input resident (below), from 17 to 32 a
 // 32-row tile with v and o streamed (temporal_attn_bwd_tc512_r32_kernel, after
 // it).

@@ -1,10 +1,9 @@
-// K2 and K6 past 32 frames: the temporal softmax attention of each (video,
-// spatial token, head) over t > 32 frames, and its backward, on the UNet's
-// direct layout [(b t), s, H * D] at every head dim the configs produce (16,
-// 64, 512) in bf16 and fp32. The C entries of temporal_attention.cu and
-// temporal_attention_bwd.cu send every t > 32 here; their tiles (a 16- or
-// 32-frame box, a row of logits in registers, a problem's rows in shared
-// memory) stop at 32 frames, and a 64-frame box would not fit a block.
+// K2 and K6 past 32 frames at D = 16 (the tiny configs' 16-dim heads): the
+// temporal softmax attention of each (video, spatial token, head) over t > 32
+// frames, and its backward, on the UNet's direct layout [(b t), s, H * 16] in
+// bf16 and fp32. The C entries of temporal_attention.cu and
+// temporal_attention_bwd.cu send every t > 32 at D = 16 here; D = 64 and 512
+// run the tensor-core kernels of temporal_attention_long_tc.cu.
 //
 // Replaces (TPU): vidseg_diffusion_tpu/ops/attention.py:1375
 // _temporal_direct_kernel (via _temporal_direct_impl's pallas_call at :1458,
@@ -21,25 +20,22 @@
 // A softmax that rescales a running sum would round p against a stale max.
 //
 // Layout: one block a problem, eight warps. A warp takes a query row (then, in
-// the backward, a key row) at a time, the rows dealt out in turns; its lanes
-// split the row's channels (D = 512: 16 a lane, 64: 2, 16: one a lane on
-// lanes 0-15), so every logit and dP is a lane's partial product and a warp
-// sum, whose butterfly leaves the same bits on every lane. Keys are walked one
-// frame at a time from device memory; a problem's rows (t x D, at most 5 t KB
-// in bf16 at D = 512) stay in L1 / L2 while its warps walk them. The backward
-// first runs the query rows (delta, the max and the sum of each row into a
-// scratch of three floats a row, and dq over the key walk), then, after a
-// barrier, the key rows: each recomputes the logits and dP of its column with
-// the same lanes and the same order of products, so p and ds are the bits the
-// query rows saw, and sums dk and dv over the query walk. Nothing is summed
-// across blocks or with atomics: the same inputs give the same bits.
+// the backward, a key row) at a time, the rows dealt out in turns; lanes 0-15
+// hold one channel each (lanes 16-31 zeros), so every logit and dP is a lane's
+// product and a warp sum, whose butterfly leaves the same bits on every lane.
+// Keys are walked one frame at a time from device memory; a problem's rows
+// stay in L1 / L2 while its warps walk them. The backward first runs the query
+// rows (delta, the max and the sum of each row into a scratch of three floats
+// a row, and dq over the key walk), then, after a barrier, the key rows: each
+// recomputes the logits and dP of its column with the same lanes and the same
+// order of products, so p and ds are the bits the query rows saw, and sums dk
+// and dv over the query walk. Nothing is summed across blocks or with atomics:
+// the same inputs give the same bits.
 //
 // What bounds it on the H100: not the bytes (8 t D bytes forward, 16 t D
-// backward, each read once from device memory) but the walks: t^2 warp sums a
-// logit pass, two passes forward and five backward. A simple kernel first; it
-// runs on no default path (PERF.md row 27).
-#include <initializer_list>
-
+// backward) but the walks: t^2 warp sums a logit pass, two passes forward and
+// five backward. It runs on no default path (svd_tiny.yaml's 16-dim heads past
+// 32 frames only).
 #include "common.cuh"
 
 namespace vs {
@@ -48,42 +44,26 @@ namespace longt {
 constexpr int kWarps = 8;
 constexpr float kInvLog2E = 0.6931471805599453f;
 
-// the channels of a row that lane `lane` holds, as fp32: [CPL lane, CPL lane + CPL) for D >= 32; at D = 16
-// lanes 0-15 one each and lanes 16-31 none (zeros, which add nothing to a sum and are not stored)
+// the channel of a row that lane `lane` holds, as fp32: lanes 0-15 one each, lanes 16-31 none (zeros, which
+// add nothing to a sum and are not stored)
 template <typename T, int D>
 struct Row {
-  static constexpr int CPL = D >= 32 ? D / 32 : 1;
+  static_assert(D == 16, "the frame walk's head dim");
+  static constexpr int CPL = 1;
   __device__ static __forceinline__ void load(const T* row, int lane, float (&x)[CPL]) {
-    if constexpr (CPL == 16) {   // D = 512: two 16-byte aligned runs of 8 (the C entries check the bases)
-      wide_load<T>(row + 16 * lane, x);
-      wide_load<T>(row + 16 * lane + 8, x + 8);
-    } else {
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) x[c] = (D >= 32 || lane < D) ? to_f<T>(row[CPL * lane + c]) : 0.f;
-    }
+    x[0] = lane < D ? to_f<T>(row[lane]) : 0.f;
   }
   __device__ static __forceinline__ void store(T* row, int lane, const float (&x)[CPL]) {
-    if constexpr (CPL == 16) {
-      wide_store<T>(row + 16 * lane, x);
-      wide_store<T>(row + 16 * lane + 8, x + 8);
-    } else {
-#pragma unroll
-      for (int c = 0; c < CPL; ++c)
-        if (D >= 32 || lane < D) row[CPL * lane + c] = from_f<T>(x[c]);
-    }
+    if (lane < D) row[lane] = from_f<T>(x[0]);
   }
   // qf = round(q * qscale) to T
   __device__ static __forceinline__ void load_qf(const T* row, int lane, float qscale, float (&x)[CPL]) {
     load(row, lane, x);
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) x[c] = round_to<T>(x[c] * qscale);
+    x[0] = round_to<T>(x[0] * qscale);
   }
-  // the row product a . b: the lane's partial products in channel order, then the warp's butterfly
+  // the row product a . b: the lane's product, then the warp's butterfly
   __device__ static __forceinline__ float dot(const float (&a)[CPL], const float (&b)[CPL]) {
-    float s = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) s = fmaf(a[c], b[c], s);
-    return warp_sum(s);
+    return warp_sum(a[0] * b[0]);
   }
 };
 
@@ -222,14 +202,6 @@ __global__ void __launch_bounds__(32 * kWarps) temporal_attn_bwd_long_kernel(
   }
 }
 
-// D = 512 reads and writes 16-byte vectors
-inline bool aligned(int D, std::initializer_list<const void*> ptrs) {
-  if (D != kWideD) return true;
-  for (const void* x : ptrs)
-    if (reinterpret_cast<uintptr_t>(x) % 16) return false;
-  return true;
-}
-
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, long long nprob, int t, int S, int H,
                float qscale, cudaStream_t stream) {
@@ -252,51 +224,27 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 
 }  // namespace longt
 
-// K2 past 32 frames, any D of {16, 64, 512} in bf16 / fp32 (D = 512: bases 16-byte aligned)
+// K2 past 32 frames at D = 16, bf16 / fp32
 int launch_temporal_long(int dtype, int D, const void* q, const void* k, const void* v, void* o, int nvid, int t,
                          int S, int H, float qscale, cudaStream_t stream) {
   const long long nprob = (long long)nvid * S * H;
-  if (nprob > 0x7fffffffLL || !longt::aligned(D, {q, k, v, o})) return kErrBadArgument;
-  using bf = __nv_bfloat16;
-  const bool b16 = dtype == kBFloat16;
-  if (!b16 && dtype != kFloat32) return kErrUnsupported;
-  switch (D) {
-    case 16:
-      return b16 ? longt::launch_fwd<bf, 16>(q, k, v, o, nprob, t, S, H, qscale, stream)
-                 : longt::launch_fwd<float, 16>(q, k, v, o, nprob, t, S, H, qscale, stream);
-    case 64:
-      return b16 ? longt::launch_fwd<bf, 64>(q, k, v, o, nprob, t, S, H, qscale, stream)
-                 : longt::launch_fwd<float, 64>(q, k, v, o, nprob, t, S, H, qscale, stream);
-    case kWideD:
-      return b16 ? longt::launch_fwd<bf, kWideD>(q, k, v, o, nprob, t, S, H, qscale, stream)
-                 : longt::launch_fwd<float, kWideD>(q, k, v, o, nprob, t, S, H, qscale, stream);
-  }
-  return kErrUnsupported;
+  if (nprob > 0x7fffffffLL) return kErrBadArgument;
+  if (D != 16 || (dtype != kBFloat16 && dtype != kFloat32)) return kErrUnsupported;
+  return dtype == kBFloat16 ? longt::launch_fwd<__nv_bfloat16, 16>(q, k, v, o, nprob, t, S, H, qscale, stream)
+                            : longt::launch_fwd<float, 16>(q, k, v, o, nprob, t, S, H, qscale, stream);
 }
 
-// K6 past 32 frames; stats: fp32 scratch of nvid * S * H * t * 3 floats
+// K6 past 32 frames at D = 16; stats: fp32 scratch of nvid * S * H * t * 3 floats
 int launch_temporal_bwd_long(int dtype, int D, const void* q, const void* k, const void* v, const void* o,
                              const void* g, void* dq, void* dk, void* dv, void* stats, int nvid, int t, int S, int H,
                              float qscale, float scale, cudaStream_t stream) {
   const long long nprob = (long long)nvid * S * H;
-  if (nprob > 0x7fffffffLL || stats == nullptr || !longt::aligned(D, {q, k, v, o, g, dq, dk, dv}))
-    return kErrBadArgument;
-  using bf = __nv_bfloat16;
-  const bool b16 = dtype == kBFloat16;
-  if (!b16 && dtype != kFloat32) return kErrUnsupported;
+  if (nprob > 0x7fffffffLL || stats == nullptr) return kErrBadArgument;
+  if (D != 16 || (dtype != kBFloat16 && dtype != kFloat32)) return kErrUnsupported;
   float* st = static_cast<float*>(stats);
-#define VS_LONG_BWD(T, DD) \
-  longt::launch_bwd<T, DD>(q, k, v, o, g, dq, dk, dv, st, nprob, t, S, H, qscale, scale, stream)
-  switch (D) {
-    case 16:
-      return b16 ? VS_LONG_BWD(bf, 16) : VS_LONG_BWD(float, 16);
-    case 64:
-      return b16 ? VS_LONG_BWD(bf, 64) : VS_LONG_BWD(float, 64);
-    case kWideD:
-      return b16 ? VS_LONG_BWD(bf, kWideD) : VS_LONG_BWD(float, kWideD);
-  }
-#undef VS_LONG_BWD
-  return kErrUnsupported;
+  return dtype == kBFloat16
+             ? longt::launch_bwd<__nv_bfloat16, 16>(q, k, v, o, g, dq, dk, dv, st, nprob, t, S, H, qscale, scale, stream)
+             : longt::launch_bwd<float, 16>(q, k, v, o, g, dq, dk, dv, st, nprob, t, S, H, qscale, scale, stream);
 }
 
 }  // namespace vs

@@ -39,7 +39,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel an entry with a `route` out-parameter reports it ran; 5 and 6 are
 # the normalise-first kernels that hold a head's K and V in shared memory, 7 the
 # fp32 D = 512 attention on split TF32 products (wgmma), 8 the temporal attention
-# past 32 frames (K2 and K6 walking the frames)
+# past 32 frames (K2 and K6: tensor-core tiles at D = 64 and 512, the frame walk at 16)
 ROUTES = {0: "fma", 1: "mma_sync", 2: "wgmma", 3: "narrow", 4: "wide", 5: "wgmma_resident", 6: "mma_sync_resident",
           7: "tf32x3", 8: "long"}
 

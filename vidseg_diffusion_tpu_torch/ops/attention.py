@@ -538,8 +538,9 @@ def temporal_attention_direct_reference(q, k, v, t: int, scale: Optional[float] 
 temporal_attention_direct_reference.calls = 0
 
 
-# past this many frames K2 and K6 run their frame-walking kernels (csrc/temporal_attention_long.cu), and K6
-# reads a scratch of three floats a query row
+# past this many frames K2 and K6 run the tensor-core kernels of csrc/temporal_attention_long_tc.cu at D = 64
+# and 512 (TMA boxes: 16-byte aligned bases) and the frame-walking kernels of csrc/temporal_attention_long.cu
+# at D = 16, where K6 reads a scratch of three floats a query row
 TILED_FRAMES = 32
 
 
@@ -552,6 +553,9 @@ def _check_temporal(name, t, *tensors):
         raise ValueError(f"{name}: rows {q.shape[0]} vs t={t}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
+    if t > TILED_FRAMES and q.shape[-1] != 16 and any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError(f"{name}: past {TILED_FRAMES} frames at D = {q.shape[-1]} every base must be 16-byte "
+                         "aligned (the tensor-core kernels read their rows by TMA)")
     return dtype
 
 
@@ -573,6 +577,8 @@ def _temporal_attention_direct_forward(q, k, v, t: int, scale: Optional[float]):
     temporal_attention_direct.mma_launches += route == "mma_sync"
     temporal_attention_direct.wide_launches += route == "wide"
     temporal_attention_direct.long_launches += route == "long"
+    if route == "long":
+        temporal_attention_direct.long_dim_launches[d] += 1
     return out
 
 
@@ -599,9 +605,11 @@ def temporal_attention_direct(q, k, v, t: int, scale: Optional[float] = None):
     the spatial token layout [(b t), s, H, D] (contiguous, D in {16, 64, 512},
     any t and s). Up to 32 frames bf16 at D = 64 runs on the tensor cores
     (mma.sync, q/k/v boxes by TMA), D = 512 on the wide kernel (lanes across
-    the head dim), the rest on CUDA cores; past 32 frames every D and dtype on
-    the frame-walking kernel (`.long_launches`). Differentiable: with grad on,
-    the backward is K6."""
+    the head dim), the rest on CUDA cores; past 32 frames (`.long_launches`)
+    D = 64 and 512 on the tensor cores in both dtypes (bf16 mma.sync, fp32
+    split TF32; 16-byte aligned bases; at D = 64 up to 64 frames a block
+    holds the whole problem), D = 16 on the frame-walking kernel.
+    Differentiable: with grad on, the backward is K6."""
     if q.device.type == "cuda":
         _check_head_dim("temporal attention site", "temporal", q.shape, q.shape[-1], backward=_needs_grad(q, k, v))
     if _needs_grad(q, k, v):
@@ -614,7 +622,8 @@ temporal_attention_direct.dim_launches = collections.Counter()
 temporal_attention_direct.frame_launches = collections.Counter()   # of .launches, by the frames t
 temporal_attention_direct.mma_launches = 0   # of .launches, those on the tensor cores (bf16 D = 64)
 temporal_attention_direct.wide_launches = 0   # of .launches, those on the D = 512 kernel
-temporal_attention_direct.long_launches = 0   # of .launches, those past 32 frames (the frame-walking kernel)
+temporal_attention_direct.long_launches = 0   # of .launches, those past 32 frames
+temporal_attention_direct.long_dim_launches = collections.Counter()   # those by head dim (D = 16: the frame walk)
 
 
 # -- K6: direct-layout temporal-attention backward -----------------------------
@@ -658,9 +667,11 @@ def temporal_attention_direct_backward(q, k, v, out, g, t: int, scale: Optional[
     frames on the tensor cores, a block a problem (bf16 mma.sync,
     `.mma_launches`; fp32 split TF32 products, `.tf32x3_launches`); below that
     on the wide kernel, lanes across the head dim (`.wide_launches`). Past 32
-    frames every D and dtype runs the frame-walking kernel
-    (`.long_launches`), on a scratch of three floats a query row. The plain
-    version on CPU."""
+    frames (`.long_launches`) D = 64 and 512 run the tensor-core kernels
+    (16-byte aligned bases), D = 16 the frame-walking kernel, given a scratch
+    of three floats a query row (read by the frame walk, and by the
+    tensor-core kernels where shared memory cannot hold those statistics). The
+    plain version on CPU."""
     if q.device.type == "cpu":
         return temporal_attention_direct_backward_reference(q, k, v, out, g, t, scale)
     dtype = _check_temporal("temporal_attention_direct_backward", t, q, k, v, out, g)
@@ -668,7 +679,8 @@ def temporal_attention_direct_backward(q, k, v, out, g, t: int, scale: Optional[
     bt, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # past TILED_FRAMES: each query row's max, sum and delta = rowsum(g * out)
+    # past TILED_FRAMES: each query row's max, sum and delta = rowsum(g * out), read by the frame walk (D = 16) and
+    # by the tensor-core kernels where shared memory cannot hold them
     work = torch.empty(bt * s * h * 3, dtype=torch.float32, device=q.device) if t > TILED_FRAMES else None
     route = _cuda.call_routed(
         "vs_temporal_attention_direct_bwd", _cuda.DTYPE_CODES[dtype], d,
@@ -678,6 +690,8 @@ def temporal_attention_direct_backward(q, k, v, out, g, t: int, scale: Optional[
     )
     _count_routes(temporal_attention_direct_backward, d, route)
     temporal_attention_direct_backward.frame_launches[t] += 1
+    if route == "long":
+        temporal_attention_direct_backward.long_dim_launches[d] += 1
     return dq, dk, dv
 
 
@@ -687,7 +701,8 @@ temporal_attention_direct_backward.frame_launches = collections.Counter()   # of
 temporal_attention_direct_backward.mma_launches = 0   # bf16 D = 64, and D = 512 at 4-32 frames, on mma.sync
 temporal_attention_direct_backward.tf32x3_launches = 0   # fp32 D = 512 at 5-32 frames, on split TF32 products
 temporal_attention_direct_backward.wide_launches = 0   # D = 512 below 4 / 5 frames, on the wide kernel
-temporal_attention_direct_backward.long_launches = 0   # past 32 frames, on the frame-walking kernel
+temporal_attention_direct_backward.long_launches = 0   # past 32 frames
+temporal_attention_direct_backward.long_dim_launches = collections.Counter()   # those by head dim (16: the frame walk)
 
 
 # -- K3: bhld flash attention (forward, LSE under a gradient) ------------------

@@ -51,14 +51,15 @@ backwards at one 512-dim head, on the 7-frame training clip of svd.yaml's
 first stage: K5 there (`k5w`: K13's kernels on the packed strides, [7, 5824,
 1 x 512], a CUDA graph beside SDPA's backward, profiled) and K6 (`k6w`: [t,
 5824, 1, 512] at t = 7 and 14, at 17, 24 and 32 (the 32-row tile) and at 48
-(the frame-walking kernel), bf16 and fp32, as CUDA events and a graph beside
+(the long route), bf16 and fp32, as CUDA events and a graph beside
 SDPA's backward on the canonical view, profiled, whose backend is named; then
 other t up to 28 as a graph; a call a checkout refuses prints as refused). K2
-and K6 past 32 frames (`long`: one video of 48 frames at the UNet's ds1 site
-[48, 5824, 5, 64] and the time mix [48, 5824, 1, 512], both dtypes; graphs
-beside SDPA and its backward). K5 and K13 at D = 16 (`k5d16`:
-svd_tiny.yaml's ds1 on a B = 2 slice and ds2, K13 at [2, 2, 1024, 16], both
-dtypes; graphs beside SDPA's backward, the exp2 floor beside the bound). The
+and K6 past 32 frames (`long`: one video of 33, 40, 48 and 64 frames at the
+UNet's ds1 site [t, 5824, 5, 64] and of 48 and 64 at the time mix [t, 5824, 1,
+512], both dtypes; graphs beside SDPA and its backward and the bound). K5 and
+K13 at D = 16 (`k5d16`: svd_tiny.yaml's ds1 on a B = 2 slice and ds2, K13 at
+[2, 2, 1024, 16], both dtypes; graphs beside SDPA's backward, the exp2 floor
+beside the bound). The
 kernels these replaced (the wide kernel at every t, the FMA kernels at bf16
 D = 16) are the parent commit's: time them with `--root`. The
 fp32 routes at D = 64 (`fp32`: K1 at ds1, B = 2 and 28, K5 at ds1, K2 and K6 at
@@ -116,9 +117,10 @@ K5_WIDE_SHAPES = [(7, 5824)]
 # (up to 32 frames), timed beside the wide kernel to route them
 K6_WIDE_SHAPES = [(7, 5824), (14, 5824), (17, 5824), (24, 5824), (32, 5824), (48, 5824)]
 K6_ROUTE_TS = (1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 16, 20, 28)
-# (t, S, H, D): K2 and K6 past 32 frames on the frame-walking kernels: the UNet's ds1 temporal site and the
-# VideoAttnBlock's time mix, one video of 48 frames
-LONG_SHAPES = [(48, 5824, 5, 64), (48, 5824, 1, 512)]
+# (t, S, H, D): K2 and K6 past 32 frames (the tensor-core kernels of temporal_attention_long_tc.cu): the
+# UNet's ds1 temporal site (long_video's t = 40) and the VideoAttnBlock's time mix, one video
+LONG_SHAPES = [(33, 5824, 5, 64), (40, 5824, 5, 64), (48, 5824, 5, 64), (64, 5824, 5, 64), (48, 5824, 1, 512),
+               (64, 5824, 1, 512)]
 # K5 at D = 16 (svd_tiny.yaml's heads): (B, L, H) at ds1 on a B = 2 slice and at ds2; K13 there (B, H, L)
 K5_D16_SHAPES, K13_D16_SHAPE = [(2, 5824, 2), (28, 1456, 4)], (2, 2, 1024)
 # the fp32 routes at D = 64 (step 0 of the fp32 table cells): K1 at ds1 (a B = 2 slice and the CFG batch),
@@ -455,10 +457,10 @@ def time_temporal_wide_backward(torch, F, rn):
 
 
 def time_long_frames(torch, F, rn):
-    """K2 and K6 past 32 frames (LONG_SHAPES, both dtypes) on the frame-walking
-    kernels: CUDA graphs beside SDPA on the canonical view ([1, S, H, t, D],
-    strided) and its backward (torch.profiler's sum of its kernels), held to
-    the plain versions, the route of each launch printed."""
+    """K2 and K6 past 32 frames (LONG_SHAPES, both dtypes): CUDA graphs beside
+    SDPA on the canonical view ([1, S, H, t, D], strided) and its backward
+    (torch.profiler's sum of its kernels) and the bound, held to the plain
+    versions, the route of each launch printed."""
     from vidseg_diffusion_tpu_torch.ops import attention as A
 
     k2, k6 = A.temporal_attention_direct, A.temporal_attention_direct_backward
