@@ -159,10 +159,13 @@ Phases, in order; any failure exits non-zero:
    memory.
 18. vae_time_mode (last): svd.yaml's VideoDecoder at time_mode 'all' and
    'attn-only' with seeded random weights, 14 latents of 56x104 decoded at
-   decoding_t 7 in bf16: K1 and K2 at one 512-dim head (K3's wgmma kernel,
-   the wide kernel) and K3 twice a decode, every launch reckoned; 'all' over
+   decoding_t 7 in bf16: K1 and K2 at one 512-dim head (K3's wgmma kernel;
+   the team kernel of temporal_attention_long_tc.cu, route tc_short: the run
+   whose launches the temporal_attention_direct_d512_tc entry reports) and K3
+   twice a decode, every launch reckoned; 'all' over
    40 latents at decoding_t 40 (K2 at D = 512 over 40 frames, once, on the
-   tensor-core kernel past 32 frames); then fp32 card vs CPU at 2 frames of 32x32 latents,
+   tensor-core kernel past 32 frames); then fp32 card vs CPU at 2 frames of 32x32 latents
+   (K2 over the 2 frames on the wide kernel, below the crossover),
    and 'all' over 34 latents of 4x4 under a gradient (K2 and K6 at D = 512
    over 34 frames on the tensor-core kernels past 32 frames: the run of the
    temporal_attention_direct_backward_long entry), output and latent gradient
@@ -257,8 +260,8 @@ Phases, in order; any failure exits non-zero:
    from the modules (ae_video_launches_per_step): K3 and K13 at the mid
    attentions [7,1,5824,512]; in a VideoAttnBlock K1 + K5 at one 512-dim head
    ([7,5824,1x512]: K5 on K13's wgmma kernels through the packed strides) and
-   K2 + K6 at D = 512 (the time mix at t = 7: K2 on the wide kernel, K6 on its
-   tensor-core kernel, route mma), K11 at its
+   K2 + K6 at D = 512 (the time mix at t = 7: K2 on the team kernel, route
+   tc_short, K6 on its tensor-core kernel, route mma), K11 at its
    eight projections; K4 forward and dx at every TemporalConv ([1,7,372736,128]
    and up), the narrow kernel at conv_out's 3-channel time mix; the GroupNorm
    forward and backward by route, the backward's route as the card places it
@@ -268,8 +271,9 @@ Phases, in order; any failure exits non-zero:
    memory. Then 'all' in fp32 at 2 frames of 128x256 (a 512-token latent: the
    mid attentions, attn2 and the time mix on their kernels as at full width;
    K3 / K13 and K1 / K5 at D = 512 on the split-TF32 kernels, the run whose
-   launches the tf32x3 entries report; K6 over the 2 frames on the wide
-   kernel, its route at so few frames), card vs CPU gradients of every
+   launches the tf32x3 entries report; K2 and K6 over the 2 frames on the
+   wide kernels, their route at so few frames: the run whose launches the
+   temporal_attention_direct_d512 entry reports), card vs CPU gradients of every
    first-stage parameter within GRAD_REL_TOL.
 30. long_video (after api_img2vid, on a pipeline of its own): the main path
    of phase 6 at full width over 40 synthetic 448x832 frames, the pipeline
@@ -285,7 +289,9 @@ training step FSDP-wrapped over the W ranks, a video each, against the
 unwrapped step on one card's batch of W videos;
 one JSON line of those readings (no kernels line).
 The kernel phase also holds the instances at the head dims the tuned kernels
-are not built for (D = 16: K1, K2, K3, K5, K6, K13; one 512-dim head: K1, K2,
+are not built for (D = 16: K1, K2, K3, K5, K6, K13; one 512-dim head: K1, K2
+(the team kernel at 7, 14 and 32 frames, fp32 also held to the plain version in
+float64; the wide kernel at 2 frames and at the frame below the crossover),
 and their backwards K5 (K13's kernels on the packed strides) and K6 (its
 tensor-core kernels at 7 and 14 frames and the 32-row tile at 17 and 32, split
 TF32 in fp32, also held to the plain version in float64; the wide kernel at 3
@@ -297,7 +303,10 @@ of K1 and K3 at D = 16 in bf16, also held to mha_reference. The fp32 routes at
 D = 64 are timed at their ds1 shapes beside the library call in full fp32: K1
 at [2,5824,5x64] and the CFG batch [28,5824,5x64] (held to the plain version
 two batch items at a time), K5 at [2,5824,5x64], K2 and K6 at [28,5824,5,64]
-(t = 14), K4 at the UNet's ds1 time_stack [2,14,5824,320].
+(t = 14; K6 on the resident split-TF32 kernel, also at t = 2 and 32, held to
+the plain version in float64: the temporal_attention_direct_backward_fp32_tc
+entry, whose launches train_grad's run reports), K4 at the UNet's ds1
+time_stack [2,14,5824,320].
 
 Before the last line come the kernels JSON (per kernel: launches in the run
 of its path and in the other runs (injected, SD, diffusion training,
@@ -454,6 +463,28 @@ KERNELS = {
         replaces="vidseg_diffusion_tpu/ops/attention.py:1167", rms_tol=2e-4,
         wrapper="temporal_attention_direct_backward", long_dims=(16,), path=None,
     ),
+    # up to 32 frames on the tensor-core kernels of temporal_attention_long_tc.cu (route 9, "tc_short"): K2 at
+    # one 512-dim head from csrc/temporal_attention.cu's crossover (kTc512FwdMinFrames*: 5 frames in bf16, 7 in
+    # fp32; the team kernel) and K6 in fp32 at D = 64 from 2 frames (the resident kernel); below the crossover K2
+    # at D = 512 keeps the wide kernel of temporal_attention.cu (route "wide"). Their launches are the wrapper's
+    # launches on that `route` in the run of their path (vae_time_mode: the VideoDecoder's two time modes in
+    # bf16, t = 7; train_grad: the full-width UNet's fp32 gradients, t = 2; ae_video_grad: svd.yaml's first
+    # stage at 'all' in fp32 over 2 frames)
+    "temporal_attention_direct_d512_tc": dict(
+        id="K2 D=512 up to 32 frames", source="vidseg_diffusion_tpu_torch/csrc/temporal_attention_long_tc.cu",
+        replaces="vidseg_diffusion_tpu/ops/attention.py:1458", rms_tol=1e-3,
+        route_of=("temporal_attention_direct",), route="tc_short", path="vae_time_mode",
+    ),
+    "temporal_attention_direct_d512": dict(
+        id="K2 D=512 below the crossover", source="vidseg_diffusion_tpu_torch/csrc/temporal_attention.cu",
+        replaces="vidseg_diffusion_tpu/ops/attention.py:1458", rms_tol=1e-3,
+        route_of=("temporal_attention_direct",), route="wide", path="ae_video_grad",
+    ),
+    "temporal_attention_direct_backward_fp32_tc": dict(
+        id="K6 fp32 D=64 2-32 frames", source="vidseg_diffusion_tpu_torch/csrc/temporal_attention_long_tc.cu",
+        replaces="vidseg_diffusion_tpu/ops/attention.py:1167", rms_tol=2e-4,
+        route_of=("temporal_attention_direct_backward",), route="tc_short", path="train_grad",
+    ),
 }
 # the instances at the head dims the tuned kernels are not built for (ROADMAP
 # section C): entries of their own, on the wrapper of the kernel they instance,
@@ -484,8 +515,6 @@ for _name, _id, _src, _line, _tol, _wrapper, _dim, _path in (
     ("flash_attention_backward_d16", "K13 D=16", "flash_attention_bwd.cu", 1025, 1e-3,
      "flash_attention_packed_backward", 16, None),
     ("flash_attention_packed_d512", "K1 D=512 one head", "flash_attention.cu", 527, 4e-3, "flash_attention_packed",
-     512, "vae_time_mode"),
-    ("temporal_attention_direct_d512", "K2 D=512", "temporal_attention.cu", 1458, 1e-3, "temporal_attention_direct",
      512, "vae_time_mode"),
     # their gradients, when svd.yaml's first stage trains: K5 at one 512-dim head runs K13's
     # D = 512 kernels on the packed strides (JAX reaches :993 / :1025 there), K6 its tensor-core
@@ -620,7 +649,9 @@ HEADLINE = {  # the shape of its path each kernel is timed at
     "temporal_attention_direct_backward_d16": "tiny ds1 [28,5824,2,16] t=14 bf16",
     "flash_attention_backward_d16": "[2,2,1024,16] bf16",
     "flash_attention_packed_d512": "VideoAttnBlock attn2 [7,5824,1x512] bf16",
-    "temporal_attention_direct_d512": "VideoAttnBlock time mix [7,5824,1,512] t=7 bf16",
+    "temporal_attention_direct_d512": "time mix [2,5824,1,512] t=2 fp32",
+    "temporal_attention_direct_d512_tc": "VideoAttnBlock time mix [7,5824,1,512] t=7 bf16",
+    "temporal_attention_direct_backward_fp32_tc": "ds1 [28,5824,5,64] t=14 fp32",
     "flash_attention_normalised_d64": "ViT-L/14 [2,16,257,64]",
     "flash_attention_packed_backward_d512": "VideoAttnBlock attn2 [7,5824,1x512] bf16",
     "temporal_attention_direct_backward_d512": "VideoAttnBlock time mix [7,5824,1,512] t=7 bf16",
@@ -1035,7 +1066,8 @@ def kernel_cases(torch):
                                                                 heads_view(g, h)))
     # the fp32 routes at D = 64 at their ds1 shapes, drawn after every other case: K1's FMA kernel at a B = 2
     # slice and at the CFG batch of 28 (its plain version two batch items at a time), K5's at the B = 2 slice,
-    # K2's and K6's CUDA-core kernels at t = 14, K4's FMA tile at the UNet's ds1 time_stack
+    # K2's CUDA-core kernel at t = 14, K6's resident split-TF32 kernel at t = 14, 2 and 32, K4's FMA tile at the
+    # UNet's ds1 time_stack
     fp32_d64 = []
     add = lambda **kw: fp32_d64.append(kw)
     f32 = torch.float32
@@ -1058,12 +1090,21 @@ def kernel_cases(torch):
         plain=lambda q, k, v: A.temporal_attention_direct_reference(q, k, v, t=14), iters=3,
         work=attn_work(2 * 5824, 5, 14, 14, 64, dtype="fp32"),
         library=lambda q, k, v: (lambda a=[frames_view(x) for x in (q, k, v)]: sdpa(*a)))
-    add(kernel="temporal_attention_direct_backward", label="ds1 [28,5824,5,64] t=14 fp32",
-        make=temporal_bwd(28, 5824, 5, f32),
-        kern=lambda q, k, v, o, g: A.temporal_attention_direct_backward(q, k, v, o, g, t=14),
-        plain=lambda q, k, v, o, g: A.temporal_attention_direct_backward_reference(q, k, v, o, g, t=14), iters=3,
-        work=attn_work(2 * 5824, 5, 14, 14, 64, backward=True, dtype="fp32"),
-        library=lambda q, k, v, o, g: sdpa_backward([frames_view(x) for x in (q, k, v)], frames_view(g)))
+    # K6 in fp32 at two videos of the ds1 site on the resident split-TF32 kernel (route tc_short): t = 2
+    # (train_grad's), 14 and 32 (two warps a problem), also held to the plain version in float64
+    k6 = A.temporal_attention_direct_backward
+    for t in (14, 2, 32):
+        def k6_make(t=t):
+            q, k, v, g = (rn(2 * t, 5824, 5, 64) for _ in range(4))
+            return q, k, v, A.temporal_attention_direct(q, k, v, t=t), g
+
+        frames_t = lambda x, t=t: x.view(2, t, *x.shape[1:]).permute(0, 2, 3, 1, 4)
+        add(kernel="temporal_attention_direct_backward_fp32_tc", label=f"ds1 [{2 * t},5824,5,64] t={t} fp32",
+            make=k6_make, counted=lambda: k6.tc_short_launches, fp64_held=True,
+            kern=lambda q, k, v, o, g, t=t: A.temporal_attention_direct_backward(q, k, v, o, g, t=t),
+            plain=lambda q, k, v, o, g, t=t: A.temporal_attention_direct_backward_reference(q, k, v, o, g, t=t),
+            iters=3, work=attn_work(2 * 5824, 5, t, t, 64, backward=True, dtype="fp32"),
+            library=lambda q, k, v, o, g, f=frames_t: sdpa_backward([f(x) for x in (q, k, v)], f(g)))
     add(kernel="temporal_conv_1x1", label="UNet ds1 [2,14,5824,320] fp32", make=tconv(2, 14, 5824, 320, 320, dtype=f32),
         kern=TC.temporal_conv_1x1, plain=TC.temporal_conv_1x1_reference, iters=3,
         work=tconv_work(2, 14, 5824, 320, 320, dtype="fp32"), library=conv3d_call)
@@ -1137,7 +1178,8 @@ def head_dim_cases(torch, rn):
     slice, as the D = 64 cases), their backwards, K13 at D = 16 (K5's instance
     on K3's strides); D = 512 at the VideoDecoder VideoAttnBlock's sites of
     svd.yaml's decode (decoding_t 7 and 14: attn2 [bt, 5824, 1 x 512] through
-    K1, the time mix [bt, 5824, 1, 512] through K2) and their backwards on the
+    K1, the time mix [bt, 5824, 1, 512] through K2: the team kernel at 7, 14 and
+    32 frames, the wide kernel at 2 and below the crossover) and their backwards on the
     7-frame training clip (K5 at one 512-dim head on K13's kernels, t = 7; K6
     on its tensor-core kernels at t = 7, 14, 17 and 32, on the wide kernel at
     t = 3, each launch on its route counter); K2 and K6 past 32 frames (33, 48
@@ -1240,10 +1282,20 @@ def head_dim_cases(torch, rn):
                               plain=lambda q, k, v, h: A.flash_attention_packed_reference(q, k, v, h),
                               iters=2, work=attn_work(b, 1, 5824, 5824, 512, dtype=dname),
                               library=lambda q, k, v, h: (lambda a=[heads(x, 1) for x in (q, k, v)]: sdpa(*a))))
-        for label, t in (("VideoAttnBlock time mix [7,5824,1,512] t=7", 7),
-                         ("VideoAttnBlock time mix [14,5824,1,512] t=14", 14)):
-            cases.append(dict(kernel="temporal_attention_direct_d512", label=f"{label} {dname}",
-                              make=mk(*[(t, 5824, 1, 512)] * 3),
+        # K2 at D = 512 up to 32 frames: the team kernel (route tc_short) from the C entry's crossover (5 frames in
+        # bf16, 7 in fp32; fp32 also held to the plain version in float64), the wide kernel below it (2 frames,
+        # ae_video_grad's and the fp32 decodes'; the frame below the crossover)
+        k2 = A.temporal_attention_direct
+        below = 4 if dtype == torch.bfloat16 else 6
+        on_tc, on_wide = (lambda: k2.tc_short_launches), (lambda: k2.wide_launches)
+        for label, t, entry, counted in (
+                ("VideoAttnBlock time mix [7,5824,1,512] t=7", 7, "temporal_attention_direct_d512_tc", on_tc),
+                ("VideoAttnBlock time mix [14,5824,1,512] t=14", 14, "temporal_attention_direct_d512_tc", on_tc),
+                ("time mix [32,5824,1,512] t=32", 32, "temporal_attention_direct_d512_tc", on_tc),
+                ("time mix [2,5824,1,512] t=2", 2, "temporal_attention_direct_d512", on_wide),
+                (f"time mix [{below},5824,1,512] t={below}", below, "temporal_attention_direct_d512", on_wide)):
+            cases.append(dict(kernel=entry, label=f"{label} {dname}", make=mk(*[(t, 5824, 1, 512)] * 3),
+                              counted=counted, fp64_held=dtype == torch.float32 and counted is on_tc,
                               kern=lambda q, k, v, t=t: A.temporal_attention_direct(q, k, v, t=t),
                               plain=lambda q, k, v, t=t: A.temporal_attention_direct_reference(q, k, v, t=t), iters=5,
                               work=attn_work(5824, 1, t, t, 512, dtype=dname),
@@ -1885,7 +1937,10 @@ def phase_unet(torch):
 def phase_train_grad(torch):
     """Full-width UNet gradients: loss.backward() on the card through the
     kernels (K1/K5, K2/K6, K4) vs the CPU through the plain versions, same
-    fp32 weights, inputs, sigma and noise (TF32 off on the card)."""
+    fp32 weights, inputs, sigma and noise (TF32 off on the card). Every K6
+    launch (fp32, D = 64, 2 frames) on the resident split-TF32 kernel (route
+    tc_short): the run whose launches the
+    temporal_attention_direct_backward_fp32_tc entry reports."""
     import copy
     import dataclasses
 
@@ -1918,14 +1973,24 @@ def phase_train_grad(torch):
         loss.backward()
         return loss.item(), {n: p.grad for n, p in model.named_parameters()}
 
-    launches = A.flash_attention_packed_backward.launches, A.temporal_attention_direct_backward.launches
+    reset_counts()
     t0 = time.perf_counter()
     loss_card, g_card = grads(unet, "cuda")
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    check(A.flash_attention_packed_backward.launches > launches[0]
-          and A.temporal_attention_direct_backward.launches > launches[1],
+    k6 = A.temporal_attention_direct_backward
+    check(A.flash_attention_packed_backward.launches > 0 and k6.launches > 0,
           "the card's backward did not launch K5 and K6")
+    # K6 in fp32 at D = 64 over the videos' 2 frames: every launch on the resident split-TF32 kernel (route
+    # tc_short), none on the CUDA-core kernel it replaced
+    ROUTE_COUNTS["train_grad"] = read_routes()
+    k6_routes = ROUTE_COUNTS["train_grad"]["temporal_attention_direct_backward"]
+    want = {r: 0 for r in k6_routes}
+    want["tc_short"] = k6.launches
+    check(k6_routes == want and dict(k6.dim_launches) == {64: k6.launches},
+          f"[train_grad] K6 launches by route {k6_routes} and head dim {dict(k6.dim_launches)}, expected {want}")
+    print(f"[train_grad] K6 in fp32 at D = 64, t = {t}: {k6.launches} launches, by route {json.dumps(k6_routes)}",
+          flush=True)
     t0 = time.perf_counter()
     loss_cpu, g_cpu = grads(cpu_unet, "cpu")
     cpu_s = time.perf_counter() - t0
@@ -1980,13 +2045,15 @@ def kernel_fns():
 # takes the wgmma kernel, each of K4 too but the narrow_launches the path
 # implies (the VAE's 3-channel conv_out_time_mix, once per decoder call), each
 # of K3 but CLIP's (the normalise-first mma.sync kernel at D = 80), and each of
-# K2 and K6 (bf16 everywhere) the tensor-core (mma.sync) kernel; K1 and K3 run
+# K2 and K6 (bf16 everywhere) the tensor-core (mma.sync) kernel, but K2 at D =
+# 512 (the team kernel, `.tc_short_launches`, or the wide kernel); K1 and K3 run
 # the normalise-first mode exactly at the sites MAIN_NORMALISED and
 # SD_NORMALISED_PER_UNET count
 ROUTED = ("flash_attention_packed", "flash_attention", "temporal_conv_1x1", "matmul_bias",
           "temporal_attention_direct", "temporal_attention_direct_backward", "flash_attention_packed_backward",
           "flash_attention_backward")
-ROUTE_NAMES = ("wgmma", "narrow", "mma", "normalised", "resident", "wide", "cluster", "tf32x3", "long")
+ROUTE_NAMES = ("wgmma", "narrow", "mma", "normalised", "resident", "wide", "cluster", "tf32x3", "long", "tc_short",
+               "fma")
 # the wrappers whose fp32 D = 512 launches run the split-TF32 kernels (route "tf32x3")
 X3_WRAPPERS = ("flash_attention_packed", "flash_attention", "flash_attention_packed_backward",
                "flash_attention_backward", "temporal_attention_direct_backward")
@@ -2135,15 +2202,16 @@ K3_NORMALISED_WGMMA_DIMS = (64,)   # K3's normalise-first mode on K1's wgmma ker
 RESIDENT_NF_DIM = {"flash_attention_packed": 64, "flash_attention": 80}
 
 
-def check_routes(tag, launches, narrow=0, normalised=None, wide=0, long_frames=0):
+def check_routes(tag, launches, narrow=0, normalised=None, wide=0, long_frames=0, tc_short=0):
     """Every K1, K11, K5 and K13 launch of the run took the wgmma kernel (none
     the mma.sync tile or an FMA kernel), every K3 launch but the `normalised`
     ones at D = 80 and 16 (CLIP ViT-H's and the tiny towers', on the mma.sync
     kernel; at D = 64 they run K1's wgmma kernel and count on both), every K4
     launch but `narrow` of them, which took the narrow kernel, every K2
-    launch but `wide` of them (D = 512, the wide kernel) and `long_frames` of
-    them (past 32 frames, the long route) and every K6 launch (D =
-    512 up to 32 frames too) the tensor-core kernel (none the fp32 CUDA-core
+    launch but `wide` of them (D = 512 below the crossover, the wide kernel),
+    `tc_short` of them (D = 512 from the crossover, the team kernel) and
+    `long_frames` of them (past 32 frames, the long route) and every K6 launch
+    (D = 512 up to 32 frames too) the tensor-core kernel (none a CUDA-core
     one); K1 and
     K3 ran the normalise-first mode `normalised[name]` times ({kernel:
     launches}), and each of those at RESIDENT_NF_DIM, none other, on the
@@ -2164,10 +2232,10 @@ def check_routes(tag, launches, narrow=0, normalised=None, wide=0, long_frames=0
     for name, d in RESIDENT_NF_DIM.items():
         want[name]["resident"] = DIM_COUNTS[tag][f"{name}.normalised"].get(d, 0)
     want["temporal_conv_1x1"] = {"wgmma": launches["temporal_conv_1x1"] - narrow, "narrow": narrow}
-    want["temporal_attention_direct"] = {"mma": launches["temporal_attention_direct"] - wide - long_frames,
-                                         "wide": wide, "long": long_frames}
+    want["temporal_attention_direct"] = {"mma": launches["temporal_attention_direct"] - wide - long_frames
+                                         - tc_short, "wide": wide, "long": long_frames, "tc_short": tc_short}
     want["temporal_attention_direct_backward"] = {"mma": launches["temporal_attention_direct_backward"], "wide": 0,
-                                                  "long": 0}
+                                                  "long": 0, "tc_short": 0, "fma": 0}
     for name in X3_WRAPPERS:   # bf16 runs: no fp32 launch
         want[name]["tf32x3"] = 0
     got = {name: routes[name] for name in ROUTED}
@@ -2713,8 +2781,9 @@ def phase_vae_time_mode(torch):
     stage, seeded random weights; 'conv-only', svd.yaml's own, beside them for
     the time): 14 latents of 56x104 decoded at decoding_t 7
     in bf16, the counts set to 0 before each decode: the VideoAttnBlock's K3
-    (spatial, [7,1,5824,512]), K2 at D = 512 on the wide kernel (the time mix,
-    t = 7) and K1 at one 512-dim head on K3's wgmma kernel (attn2, a "flash"
+    (spatial, [7,1,5824,512]), K2 at D = 512 on the team kernel of
+    temporal_attention_long_tc.cu (the time mix, t = 7, route tc_short; none on
+    the wide kernel) and K1 at one 512-dim head on K3's wgmma kernel (attn2, a "flash"
     site over the 5824 tokens) twice a decode (two calls), K11 at its eight
     projections, K4 at the video ResnetBlocks ('all' only), every launch reckoned
     and no plain version; finite frames. Then 'all' over LONG_VIDEO_FRAMES = 40
@@ -2760,8 +2829,9 @@ def phase_vae_time_mode(torch):
         at512 = lambda n: {512: n} if n else {}
         check(dims["flash_attention_packed"] == at512(mixed) and dims["temporal_attention_direct"] == at512(mixed)
               and dims["flash_attention"] == {512: calls}, f"[vae_time_mode {mode}] launches by head dim {dims}")
-        check(A.flash_attention_packed.wgmma_launches == mixed and A.temporal_attention_direct.wide_launches == mixed
-              and A.flash_attention.wgmma_launches == calls,
+        k2 = A.temporal_attention_direct
+        check(A.flash_attention_packed.wgmma_launches == mixed and k2.tc_short_launches == mixed
+              and k2.wide_launches == 0 and A.flash_attention.wgmma_launches == calls,
               f"[vae_time_mode {mode}] K1 / K2 / K3 off their D = 512 kernels: {read_routes()}")
         check(frames.shape == (14, 448, 832, 3) and bool(torch.isfinite(frames).all()),
               f"[vae_time_mode {mode}] frames {tuple(frames.shape)} not finite or misshaped")
@@ -2818,6 +2888,9 @@ def phase_vae_time_mode(torch):
             check(launches["flash_attention_packed"] == 1 and launches["temporal_attention_direct"] == 1
                   and launches["flash_attention"] == 1, f"[vae_time_mode {mode} fp32] launches {launches}")
             check_tf32x3(f"vae_time_mode {mode} fp32", {"flash_attention_packed": 1, "flash_attention": 1})
+            k2_routes = read_routes()["temporal_attention_direct"]   # 2 frames: below the fp32 crossover
+            check(k2_routes["wide"] == 1 and k2_routes["tc_short"] == 0,
+                  f"[vae_time_mode {mode} fp32] K2 over 2 frames off the wide kernel: {k2_routes}")
             err = (card - ref).abs().max().item() / ref.abs().max().item()
             print(f"[vae_time_mode {mode} fp32] 2 x 32x32 latents, card vs CPU: max |diff| {err:.3e} of max |CPU| "
                   f"(tol {UNET_REL_TOL:.0e})", flush=True)
@@ -3598,7 +3671,7 @@ def phase_ae_video_train(torch):
                                                "temporal_attention_direct", "temporal_attention_direct_backward")}
         want_dims.update(flash_attention=at512(2 * AE_VIDEO_STEPS), flash_attention_backward=at512(2 * AE_VIDEO_STEPS))
         check(all(dims[w] == d for w, d in want_dims.items()), f"[{tag}] launches by head dim {dims}")
-        routes = check_routes(tag, launches, narrow=AE_VIDEO_STEPS * narrow, wide=mixed)
+        routes = check_routes(tag, launches, narrow=AE_VIDEO_STEPS * narrow, tc_short=mixed)
         check(N.group_norm_backward_route.unplaced == unplaced, f"[{tag}] a slab plan the card could not place")
         add_run("ae_video_train", launches, routes)
         print(f"[{tag}] launches {json.dumps(launches)}; by route {json.dumps(routes)}; GroupNorm backwards by "
@@ -3618,7 +3691,7 @@ def ae_video_grad(torch):
     16x32 latent: the mid attentions' 512 tokens, the VideoAttnBlock's attn2
     over them and its time mix over the 2 frames are the kernel sites they are
     at full width: K3 + K13, K1 + K5 at one 512-dim head, K2 + K6 wide: at 2
-    frames K6 keeps the wide kernel), the
+    frames both keep the wide kernels), the
     gradients of sum(reconstruct(sample(moments(x))) * g) on the card through
     the kernels vs the CPU through the plain versions, same weights, frames
     and posterior noise, TF32 off, the library convolutions off cuDNN: every
@@ -3665,6 +3738,9 @@ def ae_video_grad(torch):
         x3 = check_tf32x3("ae_video_grad", {"flash_attention": 2, "flash_attention_backward": 2,
                                             "flash_attention_packed": 1, "flash_attention_packed_backward": 1},
                           wide={"temporal_attention_direct_backward": 1})
+        k2_routes = ROUTE_COUNTS["ae_video_grad"]["temporal_attention_direct"]   # below the fp32 crossover
+        check(k2_routes["wide"] == 1 and k2_routes["tc_short"] == 0,
+              f"[ae_video fp32] K2 over 2 frames off the wide kernel: {k2_routes}")
         t0 = time.perf_counter()
         g_cpu = grads(cpu, "cpu")
         cpu_s = time.perf_counter() - t0
@@ -4270,11 +4346,12 @@ def check_api_run(tag, label, fp32=False):
     check(all(n == 0 for n in plain_calls.values()), f"[{tag} {label}] plain versions ran on the card: {plain_calls}")
     check(A.mha_reference_site.calls == site, f"[{tag} {label}] mha_reference_site ran "
                                               f"{A.mha_reference_site.calls} times, expected {site}")
-    if fp32:   # fp32 runs the FMA kernels, at D = 512 the split-TF32 ones: no launch on a bf16 route
+    if fp32:   # fp32 runs the FMA kernels, at D = 512 (and K6 at 64) the split-TF32 ones: no launch on a bf16 route
         routes = read_routes()
         dims = read_dims()
         check_tf32x3(f"{tag} {label}", {n: dims[n].get(512, 0) for n in X3_WRAPPERS})
-        off = {k: {r: n for r, n in v.items() if r not in ("normalised", "tf32x3") and n} for k, v in routes.items()}
+        off = {k: {r: n for r, n in v.items() if r not in ("normalised", "tf32x3", "tc_short", "fma") and n}
+               for k, v in routes.items()}
         check(all(not v for v in off.values()) and routes["flash_attention_packed"]["normalised"] ==
               normalised["flash_attention_packed"], f"[{tag} {label}] fp32 launches by route {routes}")
     else:
@@ -5341,6 +5418,7 @@ def main():
     slice_runs = {"inversion": inversion_launches, "tiny": tiny_launches,
                   "vae_time_mode": {k: sum(r[k] for r in vae_launches.values()) for k in inversion_launches}}
     DIM_COUNTS["vae_time_mode"] = sum_dims(DIM_COUNTS[f"vae_{m}"] for m in VAE_TIME_MODES)
+    ROUTE_COUNTS["vae_time_mode"] = sum_dims(ROUTE_COUNTS[f"vae_{m}"] for m in VAE_TIME_MODES)
     # the sampling API's runs, each summed over its tag's runs (the fp32 tiny runs apart), and
     # svd.yaml's first stage trained at its three decoder modes (summed)
     for tag in ("api", "img2vid", "nti", "t5", "demo", "ae_video_train"):
@@ -5375,12 +5453,13 @@ def main():
             check(not meta["path"] or runs["main"] > 0, f"{name} never launched in the {meta['path']} run")
             extra = {"path": meta["path"] or "none (no path runs it)", "long_dims": list(meta["long_dims"])}
             routed = None
-        elif "route_of" in meta:  # the split-TF32 kernels: their wrappers' launches on that route in each run
-            runs = {tag: sum(ROUTE_COUNTS.get(tag, {}).get(w, {}).get("tf32x3", 0) for w in meta["route_of"])
+        elif "route_of" in meta:  # the kernels of a route: their wrappers' launches on it in each run
+            route = meta.get("route", "tf32x3")
+            runs = {tag: sum(ROUTE_COUNTS.get(tag, {}).get(w, {}).get(route, 0) for w in meta["route_of"])
                     for tag in tags + tuple(slice_runs) + (meta["path"],)}
             runs["main"] = runs[meta["path"]]   # its path's run
             check(runs["main"] > 0, f"{name} never launched in the {meta['path']} run")
-            extra = {"path": meta["path"]}
+            extra = {"path": meta["path"], "counted_route": route}
             routed = None
         else:
             # the run of its path: inference for K1-K4, K7, K8, K11, K12, diffusion training for

@@ -25,6 +25,11 @@ dk, dv) long and added in fp32. Its emulation is held to jax.vjp of the
 direct-layout Pallas kernel in interpret mode (whose VJP runs the Pallas
 tiny-seq backward) within FP32_TOL and to fp64 within RMS_TOL; one TF32 pass
 reads above K6's relative RMS bound of 2e-4 (chip_smoke.py's rms_tol).
+
+The kernels of csrc/temporal_attention_long_tc.cu (K2 and K6 at D = 64 and
+512 past 32 frames; K6 in fp32 at D = 64 from 2 to 32 frames and K2 at D =
+512 up to 32 frames) are emulated with their chains (a 32-channel panel, a
+16-row tile) and held the same way, with a negative control each.
 """
 
 import jax
@@ -333,3 +338,43 @@ def test_long_one_tf32_pass_fails_its_bound(d):
         split, _ = _long_run(48, d, 90 + d, _mm_split, backward)
         assert max(_rel_rms(a, r) for a, r in zip(one, ref)) > bound, backward
         assert max(_rel_rms(a, r) for a, r in zip(split, ref)) < RMS_TOL, backward
+
+
+# -- up to 32 frames on the same kernels (route 9, "tc_short") ----------------------
+#
+# K6 in fp32 at D = 64 from 2 to 32 frames runs the resident kernel on 16 or 32
+# rows and K2 at D = 512 the team kernel: the products, chains and orders above
+# (S and dP a warp's two 32-channel chains, at D = 512 the eight warps'
+# partials in warp order; O, dq over 16-key tiles and dk, dv over 16-query
+# tiles, a chain a tile, the tiles added in fp32), so the emulation is
+# _long_run's. The key side of that K6 reads the query side's p and ds from
+# shared memory: the same values as the emulation's one p and ds.
+
+SHORT_CASES = [(7, 64, True), (14, 64, True), (17, 64, True), (32, 64, True), (7, 512, False), (14, 512, False),
+               (32, 512, False)]
+
+
+@pytest.mark.parametrize("t,d,backward", SHORT_CASES,
+                         ids=[f"{'K6' if b else 'K2'}-{d}-{t}" for t, d, b in SHORT_CASES])
+def test_short_split_matches_jax_and_fp64(t, d, backward):
+    """K6 in fp32 at D = 64 (t = 7, 14, 17, 32: one 16-row tile, two, the
+    ragged second tile) and K2 at D = 512 (t = 7, 14, 32) up to 32 frames:
+    the split products against JAX's direct kernel (jax.vjp of it for K6) in
+    interpret mode within FP32_TOL of max |JAX| and against fp64 of the same
+    math within RMS_TOL."""
+    got, want = _long_run(t, d, 110 + t + d, _mm_split, backward)
+    ref, _ = _long_run(t, d, 110 + t + d, _mm64, backward)
+    for name, a, w, r in zip(("dq", "dk", "dv") if backward else ("o",), got, want, ref):
+        assert _max_err(a, w) <= FP32_TOL, name
+        assert _rel_rms(a, r) <= RMS_TOL, name
+
+
+def test_short_k6_one_tf32_pass_fails_its_bound():
+    """The negative control for K6 in fp32 at D = 64, t = 14: one TF32 pass
+    (no lo parts) reads above K6's relative RMS bound of 2e-4 against fp64 on
+    some gradient, the split under RMS_TOL on every one."""
+    ref, _ = _long_run(14, 64, 130, _mm64, True)
+    one, _ = _long_run(14, 64, 130, _mm_one_pass, True)
+    split, _ = _long_run(14, 64, 130, _mm_split, True)
+    assert max(_rel_rms(a, r) for a, r in zip(one, ref)) > K6_RMS_TOL
+    assert max(_rel_rms(a, r) for a, r in zip(split, ref)) < RMS_TOL

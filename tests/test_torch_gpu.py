@@ -33,9 +33,13 @@ can address) run wgmma kernels: their wrappers' route counters
 input must take the mma.sync tile and a K4 input off the 8-element vector or
 off a 16-byte boundary the narrow kernel (`.narrow_launches`); K1 takes
 chip_smoke.py's forward bounds there (RMS_TOL["K1"]). K2 and K6 at D = 64 run
-on the tensor cores in bf16 and on CUDA cores in fp32 up to 32 frames: their
-`.mma_launches` counters move with every bf16 launch and with no fp32 one,
-within chip_smoke.py's bounds (RMS_TOL["K2"], ["K6"]); past 32 frames
+on the tensor cores in bf16 up to 32 frames: their `.mma_launches` counters
+move with every bf16 launch and with no fp32 one, within chip_smoke.py's
+bounds (RMS_TOL["K2"], ["K6"]); fp32 K2 there runs on CUDA cores, fp32 K6
+from 2 frames on the resident split-TF32 kernel of
+csrc/temporal_attention_long_tc.cu (`.tc_short_launches`, also held to the
+plain version in float64 within FP64_RMS_TOL; one frame and a base off 16
+bytes on CUDA cores, `.fma_launches`); past 32 frames
 (`.long_launches`, by head dim `.dim_launches`) D = 64 and 512 run the
 tensor-core kernels of csrc/temporal_attention_long_tc.cu in both dtypes and
 D = 16 the frame-walking kernels, with no frame cap (t = 200), bitwise
@@ -49,7 +53,10 @@ mha_reference within one bf16 step and 0.1 % of the elements differing. K5 and
 K13 (bf16 D = 512) run wgmma kernels: `.wgmma_launches` moves with every bf16
 launch; K5 and K13 at bf16 D = 16 the mma.sync kernels (K5's `.mma_launches`),
 K6 at D = 512 from 4 (bf16) / 5 (fp32) to 32 frames its tensor-core kernels
-(bf16 `.mma_launches`), below them the wide kernel (`.wide_launches`). In fp32
+(bf16 `.mma_launches`), below them the wide kernel (`.wide_launches`); K2 at
+D = 512 up to 32 frames the team kernel of temporal_attention_long_tc.cu from
+K2_TC512_FRAMES (`.tc_short_launches`; fp32 also within FP64_RMS_TOL of
+float64), the wide kernel below them. In fp32
 at D = 512, K1 / K3, K5 / K13 and K6 from 5 to 32 frames run the kernels on split TF32 products
 (`.tf32x3_launches`), also held to the plain versions run in float64 (relative
 RMS within FP64_RMS_TOL). Those tensor-core backwards give the same bits from
@@ -286,18 +293,21 @@ def test_temporal_attention_direct_mma_route(cuda, dt, t, s, h):
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("t,s,h", TEMPORAL_ROUTE_CASES)
 def test_temporal_attention_direct_backward_mma_route(cuda, dt, t, s, h):
-    """bf16 K6 runs on the tensor cores up to 32 frames, fp32 on CUDA cores,
-    both past 32 frames on the long route's tensor-core kernel (the route
-    counters say which), each within chip_smoke.py's backward bounds of the plain version
-    on every gradient."""
+    """bf16 K6 runs on the tensor cores up to 32 frames (`.mma_launches`),
+    fp32 from 2 frames on the resident split-TF32 kernel
+    (`.tc_short_launches`; one frame on CUDA cores), both past
+    32 frames on the long route's tensor-core kernel (the route counters say
+    which), each within chip_smoke.py's backward bounds of the plain version on
+    every gradient."""
     dtype = DTYPES[dt]
     q, k, v, g = (_randn(cuda, i, dtype, 2 * t, s, h, 64) for i in (143, 144, 145, 146))
     out = A.temporal_attention_direct_reference(q, k, v, t=t)
     fn = A.temporal_attention_direct_backward
-    mma, long_ = fn.mma_launches, fn.long_launches
+    mma, short, long_ = fn.mma_launches, fn.tc_short_launches, fn.long_launches
     _check(fn, A.temporal_attention_direct_backward_reference, q, k, v, out, g, t, rms_tol=RMS_TOL["K6"])
-    tiled = t <= A.TILED_FRAMES
-    assert (fn.mma_launches, fn.long_launches) == (mma + (tiled and dtype == torch.bfloat16), long_ + (not tiled))
+    tiled, bf16 = t <= A.TILED_FRAMES, dtype == torch.bfloat16
+    assert (fn.mma_launches, fn.tc_short_launches, fn.long_launches) == (
+        mma + (tiled and bf16), short + (1 < t <= A.TILED_FRAMES and not bf16), long_ + (not tiled))
 
 
 def _denominator_held(out, lse, plain, rounded):
@@ -1740,22 +1750,107 @@ def test_flash_attention_packed_one_512_head(cuda, dt, b, l):
     _close_grads((out[:n],), (ref,), RMS_TOL["K1"])
 
 
+# the frames at which K2 at D = 512 runs the team kernel of temporal_attention_long_tc.cu up to 32 frames
+# (csrc/temporal_attention.cu's kTc512FwdMinFrames*; the wide kernel below them)
+K2_TC512_FRAMES = {"bf16": range(5, 33), "fp32": range(7, 33)}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("t,s", [(7, 5824), (14, 5824), (1, 40), (2, 1024), (32, 17), (33, 300), (64, 40)])
+@pytest.mark.parametrize("t,s", [(7, 5824), (14, 5824), (1, 40), (2, 1024), (32, 17), (33, 300), (64, 40), (3, 300),
+                                 (4, 300), (5, 300), (6, 300), (7, 300), (13, 300), (16, 300), (17, 300), (31, 300)])
 def test_temporal_attention_direct_512(cuda, dt, t, s):
     """K2 at one 512-dim head (the VideoAttnBlock's time mix: t = 7 or 14 frames
-    of 5824 tokens at svd.yaml's decode) on the wide kernel (`.wide_launches`)
-    up to 32 frames, past them on the long route's tensor-core kernel
-    (`.long_launches`), within chip_smoke.py's forward bounds."""
+    of 5824 tokens at svd.yaml's decode) up to 32 frames on the team kernel at
+    K2_TC512_FRAMES (`.tc_short_launches`) and on the wide kernel below them
+    (`.wide_launches`: the crossover's sides at 4 / 5 frames in bf16 and 6 / 7
+    in fp32), past them on the long route's tensor-core kernel
+    (`.long_launches`), within chip_smoke.py's forward bounds, at ragged t and
+    300 tokens (no multiple of any tile); fp32 on the team kernel also within
+    FP64_RMS_TOL of the plain version in float64."""
     dtype = DTYPES[dt]
     b = 1 if s > 2048 else 2
     q, k, v = (_randn(cuda, 260 + i, dtype, b * t, s, 1, 512) for i in range(3))
     fn = A.temporal_attention_direct
-    wide, long_ = fn.wide_launches, fn.long_launches
+    wide, short, long_ = fn.wide_launches, fn.tc_short_launches, fn.long_launches
     _check(fn, A.temporal_attention_direct_reference, q, k, v, t=t)
-    tiled = t <= A.TILED_FRAMES
-    assert (fn.wide_launches, fn.long_launches) == (wide + tiled, long_ + (not tiled))
+    tiled, tc = t <= A.TILED_FRAMES, t in K2_TC512_FRAMES[dt]
+    assert (fn.wide_launches, fn.tc_short_launches, fn.long_launches) == (
+        wide + (tiled and not tc), short + (tiled and tc), long_ + (not tiled))
+    if tiled and tc and dtype == torch.float32:
+        assert _fp64_rms((fn(q, k, v, t=t),), A.temporal_attention_direct_reference, q, k, v, t) <= FP64_RMS_TOL
+
+
+# ragged frame counts up to 32 on K6's short tensor-core route: one frame (kept on CUDA cores), 3-5, 7, 13, both
+# sides of the 16-row tiles and of 32
+SHORT_TC_TS = (1, 3, 4, 5, 7, 13, 14, 16, 17, 31, 32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", SHORT_TC_TS)
+def test_temporal_backward_fp32_d64_short_route(cuda, t):
+    """K6 in fp32 at D = 64 up to 32 frames over two videos of 91 tokens and
+    5 heads: from 2 frames one launch on the resident split-TF32 kernel
+    (`.tc_short_launches`, none on CUDA cores; at one frame, where dq and dk
+    are rounding noise, the CUDA-core kernel, `.fma_launches`), within
+    chip_smoke.py's backward bounds of the plain version; on the split-TF32
+    kernel also within FP64_RMS_TOL of it in float64 on every gradient."""
+    f32 = torch.float32
+    q, k, v, g = (_randn(cuda, 420 + i, f32, 2 * t, 91, 5, 64, scale=1.5) for i in range(4))
+    out = A.temporal_attention_direct_reference(q, k, v, t=t).contiguous()
+    fn = A.temporal_attention_direct_backward
+    short, fma = fn.tc_short_launches, fn.fma_launches
+    _check(fn, A.temporal_attention_direct_backward_reference, q, k, v, out, g, t, rms_tol=RMS_TOL["K6"])
+    tc = t > 1
+    assert (fn.tc_short_launches, fn.fma_launches) == (short + tc, fma + (not tc))
+    if tc:
+        assert _fp64_rms(fn(q, k, v, out, g, t), A.temporal_attention_direct_backward_reference,
+                         q, k, v, out, g, t) <= FP64_RMS_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["k6_fp32", "k2_bf16", "k2_fp32"])
+@pytest.mark.parametrize("t", [14, 32])
+def test_short_tc_routes_repeat_bitwise(cuda, case, t):
+    """Two launches on the short tensor-core routes (K6 in fp32 at D = 64,
+    K2 at D = 512) on the same inputs give the same bits."""
+    dtype = torch.bfloat16 if case.endswith("bf16") else torch.float32
+    d, h = (64, 5) if case.startswith("k6") else (512, 1)
+    q, k, v, g = (_randn(cuda, 430 + i, dtype, 2 * t, 91, h, d, scale=1.5) for i in range(4))
+    if case.startswith("k2"):
+        assert torch.equal(A.temporal_attention_direct(q, k, v, t=t), A.temporal_attention_direct(q, k, v, t=t))
+        return
+    out = A.temporal_attention_direct_reference(q, k, v, t=t).contiguous()
+    fn = A.temporal_attention_direct_backward
+    for a, b in zip(fn(q, k, v, out, g, t), fn(q, k, v, out, g, t)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_short_tc_routes_unaligned_bases(cuda):
+    """A contiguous view whose base is off a 16-byte boundary: K6 in fp32 at
+    D = 64 routes it to the CUDA-core kernel (`.fma_launches`, the C entry's
+    route by alignment; none on `.tc_short_launches`), within chip_smoke.py's
+    backward bounds; K2 at D = 512 raises a ValueError naming the wrapper
+    before any launch (its wide and team kernels both read 16-byte vectors)."""
+    f32, t = torch.float32, 14
+    fn = A.temporal_attention_direct_backward
+    q, k, v = (_randn(cuda, 440 + i, f32, 2 * t, 91, 5, 64) for i in range(3))
+    n = 2 * t * 91 * 5 * 64
+    g = _randn(cuda, 443, f32, n + 1)[1:].view(2 * t, 91, 5, 64)
+    assert g.is_contiguous() and g.data_ptr() % 16
+    out = A.temporal_attention_direct_reference(q, k, v, t=t).contiguous()
+    short, fma = fn.tc_short_launches, fn.fma_launches
+    _check(fn, A.temporal_attention_direct_backward_reference, q, k, v, out, g, t, rms_tol=RMS_TOL["K6"])
+    assert (fn.tc_short_launches, fn.fma_launches) == (short, fma + 1)
+    k2 = A.temporal_attention_direct
+    good = [_randn(cuda, 444 + i, f32, t, 9, 1, 512) for i in range(2)]
+    bad = _randn(cuda, 446, f32, t * 9 * 512 + 1)[1:].view(t, 9, 1, 512)
+    launches = k2.launches
+    with pytest.raises(ValueError, match="temporal_attention_direct: .*16-byte aligned"):
+        k2(bad, *good, t=t)
+    torch.cuda.synchronize()
+    assert k2.launches == launches
 
 
 @pytest.mark.gpu

@@ -11,6 +11,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 namespace vs {
 
 // dtype codes shared with ops/_cuda.py
@@ -23,6 +25,16 @@ constexpr int kErrBadArgument = -2;  // sizes out of range
 
 // the `route` K2 and K6 report past 32 frames (temporal_attention_long.cu)
 constexpr int kRouteLong = 8;
+// the `route` K2 at D = 512 and K6 in fp32 at D = 64 report up to 32 frames on the tensor-core kernels of
+// temporal_attention_long_tc.cu
+constexpr int kRouteShortTc = 9;
+
+// every base 16-byte aligned (what TMA and 16-byte vector accesses need)
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* x : ptrs)
+    if (reinterpret_cast<uintptr_t>(x) % 16) return false;
+  return true;
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);

@@ -31,14 +31,17 @@
 // row tiles. That tile is built for 64-dim heads; the other head dims the
 // configs produce run kernels templated on D, one warp per problem on CUDA
 // cores: D = 16 (the tiny configs) in both dtypes and fp32 at 64 (the
-// card-vs-CPU checks) on temporal_attn_kernel, lane i keeping query row i;
-// D = 512 (the VideoDecoder's VideoAttnBlock) on temporal_attn_wide_kernel,
-// lanes across the head dim. All of these stop at kMaxFrames = 32 (a 32-frame
-// box, a row's logits in registers); past 32 frames D = 64 and 512 run the
-// tensor-core kernels of temporal_attention_long_tc.cu and D = 16 the
-// frame-walking kernel of temporal_attention_long.cu (both route 8), which
-// keeps this arithmetic with a walk over all t keys for the row max before a
-// second for the sum and P V.
+// card-vs-CPU checks) on temporal_attn_kernel, lane i keeping query row i.
+// D = 512 (the VideoDecoder's VideoAttnBlock) runs, from kTc512FwdMinFrames*
+// frames, the team kernel of temporal_attention_long_tc.cu (route 9: eight
+// warps a problem, each its own 64 channels by its own TMA boxes, S partials
+// met in warp order, bf16 mma.sync.m16n8k16, fp32 split TF32), and below them
+// temporal_attn_wide_kernel, lanes across the head dim. All of these stop at
+// kMaxFrames = 32 (a 32-frame box, a row's logits in registers); past 32
+// frames D = 64 and 512 run the tensor-core kernels of
+// temporal_attention_long_tc.cu and D = 16 the frame-walking kernel of
+// temporal_attention_long.cu (both route 8), which keeps this arithmetic with
+// a walk over all t keys for the row max before a second for the sum and P V.
 #include <algorithm>
 
 #include "common.cuh"
@@ -147,7 +150,9 @@ int launch_temporal_cores(const void* q, const void* k, const void* v, void* o, 
 // ---- D = 512: one warp per problem, lanes across the head dim ---------------
 //
 // The VideoDecoder's VideoAttnBlock mixes frames over one 512-dim head ([bt,
-// 5824, 1, 512] at t = 7 or 14 on svd.yaml's decode). A query row is too wide
+// 5824, 1, 512] at t = 7 or 14 on svd.yaml's decode); this kernel takes the t
+// below the C entry's crossover (kTc512FwdMinFrames*), the team kernel of
+// temporal_attention_long_tc.cu the rest up to 32. A query row is too wide
 // for one lane, so lane L owns the 16 channels [8L, 8L + 8) and [256 + 8L,
 // 256 + 8L + 8) of every row: each logit is a 16-term partial dot product per
 // lane and a warp sum; p, its fp32 sum and the rounding as above; each lane
@@ -372,15 +377,28 @@ int launch_temporal_long(int dtype, int D, const void* q, const void* k, const v
 int launch_temporal_long_tc(int dtype, int D, const void* q, const void* k, const void* v, void* o, int nvid, int t,
                             int S, int H, float qscale, cudaStream_t stream);
 
+// D = 512 up to kMaxFrames: the team kernel of temporal_attention_long_tc.cu from these frames, the wide kernel
+// below them. The team kernel's block a problem takes about the same time at any t up to 16 (bf16 0.107-0.113
+// ms at t = 1-5, fp32 0.246-0.262 at 1-7), the wide kernel grows with t: bf16 0.031 / 0.062 / 0.095 / 0.113 /
+// 0.158 at t = 1-5, fp32 0.049-0.241 at 1-6 and 0.289 at 7 (device time, [t, 5824, 1, 512], NVIDIA H100 80GB
+// HBM3, 700.00 W, scripts/time_kernels.py --only short; PERF.md row 23). At t = 4 in bf16 the two tie (0.1118 /
+// 0.1128), so the wide kernel keeps it.
+constexpr int kTc512FwdMinFramesBf16 = 5, kTc512FwdMinFramesF32 = 7;
+int launch_temporal_short_tc(int dtype, const void* q, const void* k, const void* v, void* o, int nvid, int t, int S,
+                             int H, float qscale, cudaStream_t stream);
+
 }  // namespace vs
 
 // q, k, v, o: contiguous [(nvid*t), S, H*D], D in {16, 64, 512} (bf16 at 64,
-// every D at 512 and D = 64 past 32 frames: 16-byte aligned), any t > 0. Up to 32 frames bf16 at D = 64
-// runs the tensor-core kernel, D = 512 the wide kernel, the rest the CUDA-core
-// kernel; past 32 frames D = 64 and 512 the tensor-core kernels of
+// every D at 512 and D = 64 past 32 frames: 16-byte aligned), any t > 0. Up to
+// 32 frames bf16 at D = 64 runs the tensor-core kernel, D = 512 the team
+// kernel of temporal_attention_long_tc.cu from kTc512FwdMinFrames* frames (the
+// dtype's) and the wide kernel below them, the rest the CUDA-core kernel; past
+// 32 frames D = 64 and 512 the tensor-core kernels of
 // temporal_attention_long_tc.cu, D = 16 the frame-walking kernel of
 // temporal_attention_long.cu. route (or NULL) receives the kernel that ran: 1
-// mma.sync, 4 the wide kernel, 0 CUDA cores, 8 past 32 frames.
+// mma.sync, 9 the team kernel up to 32 frames, 4 the wide kernel, 0 CUDA
+// cores, 8 past 32 frames.
 extern "C" int vs_temporal_attention_direct(int dtype, int D, const void* q, const void* k,
                                             const void* v, void* o, int nvid, int t, int S,
                                             int H, float qscale, int* route, void* stream) {
@@ -395,6 +413,9 @@ extern "C" int vs_temporal_attention_direct(int dtype, int D, const void* q, con
     r = vs::kRouteLong;
     rc = D == 16 ? vs::launch_temporal_long(dtype, D, q, k, v, o, nvid, t, S, H, qscale, s)
                  : vs::launch_temporal_long_tc(dtype, D, q, k, v, o, nvid, t, S, H, qscale, s);
+  } else if (D == vs::kWideD && t >= (bf16 ? vs::kTc512FwdMinFramesBf16 : vs::kTc512FwdMinFramesF32)) {
+    r = vs::kRouteShortTc;
+    rc = vs::launch_temporal_short_tc(dtype, q, k, v, o, nvid, t, S, H, qscale, s);
   } else if (D == vs::kWideD) {
     r = 4;
     rc = bf16 ? vs::launch_temporal_wide<bf>(q, k, v, o, nvid, t, S, H, qscale, s)

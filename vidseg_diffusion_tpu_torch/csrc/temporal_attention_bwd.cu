@@ -34,12 +34,20 @@
 // to a small per-warp tile, from which ldmatrix.trans reads p^T and ds^T as A
 // operands of dV = round(p)^T G (through v's rows) and dK = ds^T Qf / log2(e)
 // (through k's rows). 16 < t <= 32 takes 32-frame boxes and two row tiles per
-// product. That tile is built for 64-dim heads; fp32 (the card-vs-CPU checks)
-// and bf16 at D = 16 (the tiny configs' heads) run temporal_attn_bwd_kernel,
-// templated on the dtype and D: one warp per problem on CUDA cores, the inputs
-// staged as fp32 rows (qf rounded to the dtype; p and ds rounded where they
-// feed products), lane i owning query row i and then key row i. D = 512 (the
-// VideoDecoder's VideoAttnBlock, trained with the SVD first stage) runs, by t:
+// product. That tile is built for 64-dim heads and bf16; fp32 at D = 64 (the
+// UNet trained or checked with --dtype float32) runs from 2 frames, on 16-byte
+// aligned bases, the resident kernel of temporal_attention_long_tc.cu (route 9:
+// a block of one warp on 16 rows up to 16 frames, of two on 32 rows past them,
+// every product as three split-TF32 mma.sync.m16n8k8, p and ds handed from the
+// query side to the key side through shared memory). D = 16 (the tiny configs'
+// heads) in both dtypes, and fp32 at D = 64 at one frame (where dq and dk are
+// the rounding of dP - delta, which the split products and an FMA delta would
+// not round alike) or on a base off 16 bytes, run
+// temporal_attn_bwd_kernel, templated on the dtype and D: one warp per problem
+// on CUDA cores, the inputs staged as fp32 rows (qf rounded to the dtype; p and
+// ds rounded where they feed products), lane i owning query row i and then key
+// row i. D = 512 (the VideoDecoder's VideoAttnBlock, trained with the SVD
+// first stage) runs, by t:
 // temporal_attn_bwd_wide_kernel below 4 frames in bf16 (5 in fp32), lanes
 // across the head dim (below), where it reads faster; the tensor-core kernels
 // of temporal_attention_bwd_512.cu from there to 32 frames in both dtypes (a
@@ -596,6 +604,10 @@ int launch_temporal_bwd_long(int dtype, int D, const void* q, const void* k, con
 int launch_temporal_bwd_long_tc(int dtype, int D, const void* q, const void* k, const void* v, const void* o,
                                 const void* g, void* dq, void* dk, void* dv, void* work, int nvid, int t, int S, int H,
                                 float qscale, float scale, cudaStream_t stream);
+// fp32 at D = 64 up to kBwdFrames (16-byte aligned bases): the resident kernel of temporal_attention_long_tc.cu
+int launch_temporal_bwd_short_tc(const void* q, const void* k, const void* v, const void* o, const void* g, void* dq,
+                                 void* dk, void* dv, int nvid, int t, int S, int H, float qscale, float scale,
+                                 cudaStream_t stream);
 
 int launch_temporal_bwd_bf16(const void* q, const void* k, const void* v, const void* o, const void* g,
                              void* dq, void* dk, void* dv, int nvid, int t, int S, int H, float qscale,
@@ -615,15 +627,19 @@ int launch_temporal_bwd_bf16(const void* q, const void* k, const void* v, const 
 // any t > 0; work: fp32 scratch of nvid * S * H * t * 3 floats past kBwdFrames
 // frames (NULL up to them), each query row's max, sum and delta for the frame
 // walk (D = 16) and for the tensor-core kernels where shared memory cannot hold
-// them. Up to 32 frames bf16 at D = 64 runs the tensor-core kernel; D = 512
-// the tensor-core kernels of temporal_attention_bwd_512.cu from 4 (bf16) or 5
+// them. Up to 32 frames bf16 at D = 64 runs the tensor-core kernel; fp32 at
+// D = 64 from 2 frames the resident kernel of temporal_attention_long_tc.cu
+// where all eight bases are 16-byte aligned (TMA reads and the 16-byte
+// stores), the CUDA-core kernel at one frame and where a base is not (the
+// route by alignment; the wrapper counts both as `fma`); D = 512 the
+// tensor-core kernels of temporal_attention_bwd_512.cu from 4 (bf16) or 5
 // (fp32) frames (bf16 mma.sync, fp32 split TF32) and the wide kernel below
-// them; the rest the CUDA-core kernel. Past 32 frames D = 64 and 512 run the
+// them; D = 16 the CUDA-core kernel. Past 32 frames D = 64 and 512 run the
 // tensor-core kernels of temporal_attention_long_tc.cu, D = 16 the
 // frame-walking kernel of temporal_attention_long.cu.
 // route (or NULL) receives the kernel that ran: 1 mma.sync (bf16 at 64 and 512),
-// 7 split TF32 (fp32 at 512), 4 the wide kernel, 0 CUDA cores, 8 past 32
-// frames.
+// 7 split TF32 (fp32 at 512), 9 split TF32 on the resident kernel (fp32 at 64),
+// 4 the wide kernel, 0 CUDA cores, 8 past 32 frames.
 extern "C" int vs_temporal_attention_direct_bwd(int dtype, int D, const void* q, const void* k,
                                                 const void* v, const void* o, const void* g,
                                                 void* dq, void* dk, void* dv, void* work, int nvid,
@@ -652,6 +668,9 @@ extern "C" int vs_temporal_attention_direct_bwd(int dtype, int D, const void* q,
   } else if (bf16 && D == 64) {
     r = 1;
     rc = vs::launch_temporal_bwd_bf16(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st);
+  } else if (D == 64 && t > 1 && vs::aligned16({q, k, v, o, g, dq, dk, dv})) {
+    r = vs::kRouteShortTc;
+    rc = vs::launch_temporal_bwd_short_tc(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st);
   } else {
     r = 0;
     rc = bf16 ? vs::launch_temporal_bwd_cores<bf, 16>(q, k, v, o, g, dq, dk, dv, nvid, t, S, H, qscale, scale, st)

@@ -3,7 +3,13 @@
 // in bf16 (mma.sync.m16n8k16) and fp32 (mma.sync.m16n8k8 in TF32 as three
 // products of split operands). The C entries of temporal_attention.cu and
 // temporal_attention_bwd.cu send every t > 32 here at D = 64 and 512; D = 16
-// keeps the frame-walking kernels of temporal_attention_long.cu.
+// keeps the frame-walking kernels of temporal_attention_long.cu. Up to 32
+// frames they send here (route 9, "tc_short") K2 at D = 512 from their
+// crossover with the wide kernel (the team kernel below, which holds every
+// key tile's logits in registers there) and K6 in fp32 at D = 64 from 2
+// frames on 16-byte aligned bases (the resident kernel on 16 or 32 rows, one
+// or two warps, the key side reading the query side's p and ds from shared
+// memory).
 //
 // Replaces (TPU): vidseg_diffusion_tpu/ops/attention.py:1375
 // _temporal_direct_kernel (via _temporal_direct_impl's pallas_call at :1458,
@@ -64,8 +70,6 @@
 // S / dP regions over all 512 channels, q and g or k and v resident, the rest
 // streamed in 32 KB chunks through a block-wide ring): it read slower at 48
 // frames (PERF.md, the table's row 27) and is not kept.
-#include <initializer_list>
-
 #include "common.cuh"
 #include "temporal_tile.cuh"
 #include "tf32x3_attention.cuh"
@@ -850,9 +854,13 @@ __global__ void __launch_bounds__(Bwd<T, D>::THREADS) temporal_long_tc_bwd_kerne
 // walked from device memory again. K2: warp w takes query tile w. K6: warp w takes query tile w (delta, the
 // max, the sum from the held logits, dP, ds and dq), then, after a block barrier, key tile w (S and dP
 // recomputed from the same resident operands, dk and dv). The products, the softmax and the bit-for-bit
-// recompute are the walking kernels'; they only read their tiles in place.
+// recompute are the walking kernels'; they only read their tiles in place. fp32 K6 up to 32 frames (16 or 32
+// rows, a block of one or two warps, 24 / 51 KB: 9 / 4 blocks an SM) recomputes nothing: the query side
+// leaves each tile of p and ds in shared memory and the key side reads them transposed (Res::XCH), so it
+// sees the query side's bits by construction and runs 240 (t <= 16) rather than 336 split products a warp.
 
-// TP rows held (48: up to 48 frames, three warps; 64: up to 64, four), a warp a 16-row tile
+// TP rows held (48: up to 48 frames, three warps; 64: up to 64, four; fp32 K6 up to 32 frames: 16 or 32, one or
+// two warps), a warp a 16-row tile
 template <typename T, bool BWD, int TP_>
 struct Res {
   using Elem = T;
@@ -862,8 +870,13 @@ struct Res {
   static constexpr int WARPS = TP / 16, THREADS = 32 * WARPS;
   static constexpr int NTENS = BWD ? 5 : 3;
   static constexpr int TENSOR = TP * 128 * PPW;            // bytes of one tensor's rows
+  // fp32 K6 up to 32 frames: the query side leaves p and ds of the whole problem ([TP queries][XP floats] each)
+  // for the key side, which reads them transposed instead of recomputing S and dP; XP = TP + 4 keeps those reads
+  // free of bank conflicts
+  static constexpr bool XCH = BWD && F32 && TP <= 32;
+  static constexpr int XP = TP + 4;
   static constexpr int RED = NTENS * TENSOR;               // fp32 K6: each warp's p and ds tiles for their transposes
-  static constexpr int RED_BYTES = BWD && F32 ? 2 * 16 * RP * 4 : 0;
+  static constexpr int RED_BYTES = BWD && F32 ? (XCH ? 2 * TP * XP * 4 / WARPS : 2 * 16 * RP * 4) : 0;
   static constexpr int STATS = RED + WARPS * RED_BYTES;    // each row's max, sum and delta
   static constexpr int BAR = STATS + 3 * TP * 4;
   static constexpr int SMEM = 1024 + BAR + 8;
@@ -965,6 +978,7 @@ __global__ void __launch_bounds__(Res<T, true, TP>::THREADS) temporal_long_res_b
   const uint32_t q_at = base, k_at = q_at + C::TENSOR, v_at = k_at + C::TENSOR, o_at = v_at + C::TENSOR,
                  g_at = o_at + C::TENSOR;
   const uint32_t red_s = base + C::RED + warp * C::RED_BYTES, red_p = red_s + 16 * RP * 4;
+  const uint32_t xp = base + C::RED, xds = xp + TP * C::XP * 4;   // C::XCH: the problem's p and ds
   const uint32_t st_m = base + C::STATS, st_l = st_m + 4 * tp, st_d = st_l + 4 * tp;
   const float one[2] = {1.f, 1.f};
 
@@ -1020,20 +1034,23 @@ __global__ void __launch_bounds__(Res<T, true, TP>::THREADS) temporal_long_res_b
     for (int kt = 0; kt < HOLD; ++kt)
       if (kt < n16) {   // dP = g V^T, ds = round(p (dP - delta)), dq += ds K
         const int kv = min(16, t - 16 * kt);
-        float dp[NT][4], ds[NT][4];
+        float dp[NT][4], ds[NT][4], p[NT][4];
         qk_partial<T, NT>(dp, ga, tp, v_at + 16 * kt * 128, tp, 1, lane);
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
-            float p;
-            ds[j][u] = 0.f;
-            if (8 * j + 2 * tig + (u & 1) < kv)
-              softmax_ds(sh[kt][j][u], m[u >> 1], l[u >> 1], dp[j][u], delta[u >> 1], p, ds[j][u]);
+            p[j][u] = ds[j][u] = 0.f;
+            if (8 * j + 2 * tig + (u & 1) < kv && r0 + gid + 4 * (u & 2) < t)
+              softmax_ds(sh[kt][j][u], m[u >> 1], l[u >> 1], dp[j][u], delta[u >> 1], p[j][u], ds[j][u]);
           }
+        if constexpr (C::XCH) {   // this tile of p and ds, for the key side
+          put_partial<NT>(xp + 4 * (r0 * C::XP + 16 * kt), C::XP, p, lane);
+          put_partial<NT>(xds + 4 * (r0 * C::XP + 16 * kt), C::XP, ds, lane);
+        }
         frag_product<T, NT>(acc, ds, k_at + 16 * kt * 128, tp, kv, lane);
       }
-    if (tig == 0)
+    if (!C::XCH && tig == 0)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int q = r0 + gid + 8 * r;
@@ -1059,6 +1076,12 @@ __global__ void __launch_bounds__(Res<T, true, TP>::THREADS) temporal_long_res_b
     for (int qi = 0; qi < n16; ++qi) {
       const int qv = min(16, t - 16 * qi);
       const uint32_t qa = q_at + 16 * qi * 128, ga = g_at + 16 * qi * 128;
+      if constexpr (C::XCH) {   // p and ds as the query side formed them, read transposed
+        const uint32_t at = 4 * (16 * qi * C::XP + 16 * warp);
+        trans_product_f32(av, xp + at, C::XP, ga, tp, qv, lane);
+        trans_product_f32(ak, xds + at, C::XP, qa, tp, qv, lane);
+        continue;
+      }
       float s[NT][4], dp[NT][4], p[NT][4], ds[NT][4];
       qk_partial<T, NT>(s, qa, tp, ka, tp, 1, lane);
       qk_partial<T, NT>(dp, ga, tp, va, tp, 1, lane);
@@ -1193,19 +1216,13 @@ int bwd_res(const void* q, const void* k, const void* v, const void* o, const vo
   return (int)cudaGetLastError();
 }
 
-inline bool aligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* x : ptrs)
-    if (reinterpret_cast<uintptr_t>(x) % 16) return false;
-  return true;
-}
-
 }  // namespace ltc
 
 // K2 past 32 frames at D = 64 and 512, bf16 and fp32 (bases 16-byte aligned)
 int launch_temporal_long_tc(int dtype, int D, const void* q, const void* k, const void* v, void* o, int nvid, int t,
                             int S, int H, float qscale, cudaStream_t stream) {
   const long long nprob = (long long)nvid * S * H;
-  if (nprob > 0x7fffffffLL || t <= 32 || !ltc::aligned16({q, k, v, o})) return kErrBadArgument;
+  if (nprob > 0x7fffffffLL || t <= 32 || !aligned16({q, k, v, o})) return kErrBadArgument;
   using bf = __nv_bfloat16;
   const bool b16 = dtype == kBFloat16;
   if (!b16 && dtype != kFloat32) return kErrUnsupported;
@@ -1230,7 +1247,7 @@ int launch_temporal_bwd_long_tc(int dtype, int D, const void* q, const void* k, 
                                 const void* g, void* dq, void* dk, void* dv, void* work, int nvid, int t, int S, int H,
                                 float qscale, float scale, cudaStream_t stream) {
   const long long nprob = (long long)nvid * S * H;
-  if (nprob > 0x7fffffffLL || t <= 32 || !ltc::aligned16({q, k, v, o, g, dq, dk, dv})) return kErrBadArgument;
+  if (nprob > 0x7fffffffLL || t <= 32 || !aligned16({q, k, v, o, g, dq, dk, dv})) return kErrBadArgument;
   using bf = __nv_bfloat16;
   const bool b16 = dtype == kBFloat16;
   if (!b16 && dtype != kFloat32) return kErrUnsupported;
@@ -1246,6 +1263,29 @@ int launch_temporal_bwd_long_tc(int dtype, int D, const void* q, const void* k, 
   if (D == kWideD) return b16 ? VS_LTC_BWD(bf, kWideD) : VS_LTC_BWD(float, kWideD);
 #undef VS_LTC_BWD
   return kErrUnsupported;
+}
+
+// K2 at D = 512 up to 32 frames, bf16 and fp32 (bases 16-byte aligned): the team kernel, as past them (the C entry
+// of temporal_attention.cu sends it the t from its crossover with the wide kernel)
+int launch_temporal_short_tc(int dtype, const void* q, const void* k, const void* v, void* o, int nvid, int t, int S,
+                             int H, float qscale, cudaStream_t stream) {
+  const long long nprob = (long long)nvid * S * H;
+  if (nprob > 0x7fffffffLL || t > 32 || !aligned16({q, k, v, o})) return kErrBadArgument;
+  if (dtype == kBFloat16)
+    return ltc::fwd<__nv_bfloat16, kWideD>(q, k, v, o, nprob, nvid, t, S, H, qscale, stream);
+  if (dtype == kFloat32) return ltc::fwd<float, kWideD>(q, k, v, o, nprob, nvid, t, S, H, qscale, stream);
+  return kErrUnsupported;
+}
+
+// K6 in fp32 at D = 64 from 2 to 32 frames (bases 16-byte aligned): the problem resident, 16 rows and one warp up to 16
+// frames, 32 rows and two warps past them, p and ds handed to the key side through shared memory
+int launch_temporal_bwd_short_tc(const void* q, const void* k, const void* v, const void* o, const void* g, void* dq,
+                                 void* dk, void* dv, int nvid, int t, int S, int H, float qscale, float scale,
+                                 cudaStream_t stream) {
+  const long long nprob = (long long)nvid * S * H;
+  if (nprob > 0x7fffffffLL || t > 32 || !aligned16({q, k, v, o, g, dq, dk, dv})) return kErrBadArgument;
+  if (t <= 16) return ltc::bwd_res<float, 16>(q, k, v, o, g, dq, dk, dv, nprob, nvid, t, S, H, qscale, scale, stream);
+  return ltc::bwd_res<float, 32>(q, k, v, o, g, dq, dk, dv, nprob, nvid, t, S, H, qscale, scale, stream);
 }
 
 }  // namespace vs

@@ -39,9 +39,11 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel an entry with a `route` out-parameter reports it ran; 5 and 6 are
 # the normalise-first kernels that hold a head's K and V in shared memory, 7 the
 # fp32 D = 512 attention on split TF32 products (wgmma), 8 the temporal attention
-# past 32 frames (K2 and K6: tensor-core tiles at D = 64 and 512, the frame walk at 16)
+# past 32 frames (K2 and K6: tensor-core tiles at D = 64 and 512, the frame walk at 16),
+# 9 the tensor-core kernels of temporal_attention_long_tc.cu up to 32 frames (K2 at
+# D = 512, K6 in fp32 at D = 64)
 ROUTES = {0: "fma", 1: "mma_sync", 2: "wgmma", 3: "narrow", 4: "wide", 5: "wgmma_resident", 6: "mma_sync_resident",
-          7: "tf32x3", 8: "long"}
+          7: "tf32x3", 8: "long", 9: "tc_short"}
 
 
 def _find_nvcc() -> Optional[str]:

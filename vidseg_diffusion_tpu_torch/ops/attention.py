@@ -393,7 +393,8 @@ def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
 
 
 _ROUTE_COUNTERS = {"wgmma": "wgmma_launches", "mma_sync": "mma_launches", "tf32x3": "tf32x3_launches",
-                   "wide": "wide_launches", "long": "long_launches"}
+                   "wide": "wide_launches", "long": "long_launches", "tc_short": "tc_short_launches",
+                   "fma": "fma_launches"}
 
 
 def _count_routes(counter, d, route):
@@ -553,9 +554,11 @@ def _check_temporal(name, t, *tensors):
         raise ValueError(f"{name}: rows {q.shape[0]} vs t={t}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
-    if t > TILED_FRAMES and q.shape[-1] != 16 and any(x.data_ptr() % 16 for x in tensors):
-        raise ValueError(f"{name}: past {TILED_FRAMES} frames at D = {q.shape[-1]} every base must be 16-byte "
-                         "aligned (the tensor-core kernels read their rows by TMA)")
+    d = q.shape[-1]
+    if (d == 512 or t > TILED_FRAMES and d != 16) and any(x.data_ptr() % 16 for x in tensors):
+        where = "" if d == 512 else f"past {TILED_FRAMES} frames "
+        raise ValueError(f"{name}: {where}at D = {d} every base must be 16-byte aligned (the kernels read their rows "
+                         "by TMA or 16-byte vectors)")
     return dtype
 
 
@@ -576,6 +579,7 @@ def _temporal_attention_direct_forward(q, k, v, t: int, scale: Optional[float]):
     temporal_attention_direct.frame_launches[t] += 1
     temporal_attention_direct.mma_launches += route == "mma_sync"
     temporal_attention_direct.wide_launches += route == "wide"
+    temporal_attention_direct.tc_short_launches += route == "tc_short"
     temporal_attention_direct.long_launches += route == "long"
     if route == "long":
         temporal_attention_direct.long_dim_launches[d] += 1
@@ -604,8 +608,11 @@ def temporal_attention_direct(q, k, v, t: int, scale: Optional[float] = None):
     """K2: softmax over the t frames of each (video, token, head), read from
     the spatial token layout [(b t), s, H, D] (contiguous, D in {16, 64, 512},
     any t and s). Up to 32 frames bf16 at D = 64 runs on the tensor cores
-    (mma.sync, q/k/v boxes by TMA), D = 512 on the wide kernel (lanes across
-    the head dim), the rest on CUDA cores; past 32 frames (`.long_launches`)
+    (mma.sync, q/k/v boxes by TMA), D = 512 on the tensor cores too from the
+    C entry's crossover (`.tc_short_launches`: eight warps a problem, bf16
+    mma.sync, fp32 split TF32; 16-byte aligned bases) and on the wide kernel
+    below it (`.wide_launches`, lanes across the head dim), the rest on CUDA
+    cores; past 32 frames (`.long_launches`)
     D = 64 and 512 on the tensor cores in both dtypes (bf16 mma.sync, fp32
     split TF32; 16-byte aligned bases; at D = 64 up to 64 frames a block
     holds the whole problem), D = 16 on the frame-walking kernel.
@@ -621,7 +628,10 @@ temporal_attention_direct.launches = 0
 temporal_attention_direct.dim_launches = collections.Counter()
 temporal_attention_direct.frame_launches = collections.Counter()   # of .launches, by the frames t
 temporal_attention_direct.mma_launches = 0   # of .launches, those on the tensor cores (bf16 D = 64)
-temporal_attention_direct.wide_launches = 0   # of .launches, those on the D = 512 kernel
+temporal_attention_direct.wide_launches = 0   # of .launches, those on the D = 512 wide kernel
+# of .launches, those on the D = 512 tensor-core kernel up to 32 frames (from csrc/temporal_attention.cu's
+# kTc512FwdMinFrames*)
+temporal_attention_direct.tc_short_launches = 0
 temporal_attention_direct.long_launches = 0   # of .launches, those past 32 frames
 temporal_attention_direct.long_dim_launches = collections.Counter()   # those by head dim (D = 16: the frame walk)
 
@@ -660,10 +670,12 @@ temporal_attention_direct_backward_reference.calls = 0
 
 def temporal_attention_direct_backward(q, k, v, out, g, t: int, scale: Optional[float] = None):
     """K6: (dq, dk, dv) of K2, read and written in the UNet-native
-    [(b t), s, H, D] layout (no canonical transposes); one warp per
-    (video, token, head) problem, bf16 on the tensor cores (mma.sync, the
-    five inputs in and the three gradients out by TMA), fp32 on CUDA cores.
-    D = 512 (the VideoAttnBlock's time mix) from 4 (bf16) or 5 (fp32) up to 32
+    [(b t), s, H, D] layout (no canonical transposes). D = 64: bf16 one warp
+    per (video, token, head) problem on the tensor cores (mma.sync, the five
+    inputs in and the three gradients out by TMA); fp32 from 2 frames a block
+    per problem on split TF32 products (`.tc_short_launches`) where every base
+    is 16-byte aligned, on CUDA cores at one frame or where a base is not
+    (`.fma_launches`). D = 16 on CUDA cores. D = 512 (the VideoAttnBlock's time mix) from 4 (bf16) or 5 (fp32) up to 32
     frames on the tensor cores, a block a problem (bf16 mma.sync,
     `.mma_launches`; fp32 split TF32 products, `.tf32x3_launches`); below that
     on the wide kernel, lanes across the head dim (`.wide_launches`). Past 32
@@ -701,6 +713,9 @@ temporal_attention_direct_backward.frame_launches = collections.Counter()   # of
 temporal_attention_direct_backward.mma_launches = 0   # bf16 D = 64, and D = 512 at 4-32 frames, on mma.sync
 temporal_attention_direct_backward.tf32x3_launches = 0   # fp32 D = 512 at 5-32 frames, on split TF32 products
 temporal_attention_direct_backward.wide_launches = 0   # D = 512 below 4 / 5 frames, on the wide kernel
+temporal_attention_direct_backward.tc_short_launches = 0   # fp32 D = 64 at 2-32 frames, on split TF32 products
+# on CUDA cores: D = 16, and fp32 D = 64 at one frame or on a base off 16 bytes
+temporal_attention_direct_backward.fma_launches = 0
 temporal_attention_direct_backward.long_launches = 0   # past 32 frames
 temporal_attention_direct_backward.long_dim_launches = collections.Counter()   # those by head dim (16: the frame walk)
 

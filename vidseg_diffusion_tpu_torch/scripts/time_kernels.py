@@ -5,7 +5,7 @@ route of K1 and K3, and the GroupNorm backward at the main paths'
 shapes, beside the one PyTorch call for the same function, on one CUDA card.
 
     python3 -m vidseg_diffusion_tpu_torch.scripts.time_kernels [--only k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3,
-                                                                       k5d16,fp32,long]
+                                                                       k5d16,fp32,long,short]
                                                               [--root CHECKOUT]
 
 Each call is captured 20 times into a CUDA graph and the replay is timed with
@@ -56,7 +56,12 @@ SDPA's backward on the canonical view, profiled, whose backend is named; then
 other t up to 28 as a graph; a call a checkout refuses prints as refused). K2
 and K6 past 32 frames (`long`: one video of 33, 40, 48 and 64 frames at the
 UNet's ds1 site [t, 5824, 5, 64] and of 48 and 64 at the time mix [t, 5824, 1,
-512], both dtypes; graphs beside SDPA and its backward and the bound). K5 and
+512], both dtypes; graphs beside SDPA and its backward and the bound). Up to 32
+frames on the same file's kernels (`short`): K6 in fp32 at the UNet's ds1 site
+[2t, 5824, 5, 64] and K2 at the time mix [t, 5824, 1, 512] in both dtypes,
+every t from 1 to 32 as a graph, and at t = 7, 14, 17, 24 and 32 beside SDPA
+(K6: its backward, profiled) and the bound, held to the plain version; below
+the C entry's crossover K2 runs the wide kernel, as the printed routes say. K5 and
 K13 at D = 16 (`k5d16`: svd_tiny.yaml's ds1 on a B = 2 slice and ds2, K13 at
 [2, 2, 1024, 16], both dtypes; graphs beside SDPA's backward, the exp2 floor
 beside the bound). The
@@ -121,6 +126,11 @@ K6_ROUTE_TS = (1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 16, 20, 28)
 # UNet's ds1 temporal site (long_video's t = 40) and the VideoAttnBlock's time mix, one video
 LONG_SHAPES = [(33, 5824, 5, 64), (40, 5824, 5, 64), (48, 5824, 5, 64), (64, 5824, 5, 64), (48, 5824, 1, 512),
                (64, 5824, 1, 512)]
+# up to 32 frames on the tensor-core kernels of temporal_attention_long_tc.cu (`short`): K6 in fp32 at the UNet's
+# ds1 temporal site, two videos [2t, 5824, 5, 64], and K2 at the time mix's one 512-dim head, one video [t, 5824, 1,
+# 512] in both dtypes; SHORT_TS beside the library call, the bound and the plain version, every other t up to 32
+# as a graph alone (the crossover with the wide kernel, whose times are the parent's: `--root`)
+SHORT_TS = (7, 14, 17, 24, 32)
 # K5 at D = 16 (svd_tiny.yaml's heads): (B, L, H) at ds1 on a B = 2 slice and at ds2; K13 there (B, H, L)
 K5_D16_SHAPES, K13_D16_SHAPE = [(2, 5824, 2), (28, 1456, 4)], (2, 2, 1024)
 # the fp32 routes at D = 64 (step 0 of the fp32 table cells): K1 at ds1 (a B = 2 slice and the CFG batch),
@@ -456,53 +466,74 @@ def time_temporal_wide_backward(torch, F, rn):
             torch.cuda.empty_cache()
 
 
-def time_long_frames(torch, F, rn):
-    """K2 and K6 past 32 frames (LONG_SHAPES, both dtypes): CUDA graphs beside
-    SDPA on the canonical view ([1, S, H, t, D], strided) and its backward
-    (torch.profiler's sum of its kernels) and the bound, held to the plain
-    versions, the route of each launch printed."""
+def time_temporal_tc(torch, F, rn, kind, b, t, s, h, d, dtype, tag, full=True):
+    """K2 or K6 (`kind`) on b videos of [t, s, h, d] in `dtype` as a CUDA graph
+    beside the bound, with the route of one launch; `full`: also beside SDPA
+    on the canonical view ([b, s, h, t, d], strided; K6: its backward, the sum
+    of its kernels in torch.profiler), held to the plain version. A call the
+    checkout refuses (`--root` an older tree) prints as refused."""
     from vidseg_diffusion_tpu_torch.ops import attention as A
 
-    k2, k6 = A.temporal_attention_direct, A.temporal_attention_direct_backward
+    q, k, v, g = (rn(b * t, s, h, d).to(dtype) for _ in range(4))
+    frames = lambda x: x.view(b, t, s, h, d).permute(0, 2, 3, 1, 4)
+    item, name = q.element_size(), f"[{b * t},{s},{h},{d}] t={t} {str(dtype)[6:]}"
+    if kind == "K2":
+        fn, args, plain = A.temporal_attention_direct, (q, k, v), A.temporal_attention_direct_reference
+        nbytes, flops = 4 * item * q.numel(), 4 * t * t * d * b * s * h
+    else:
+        fn, plain = A.temporal_attention_direct_backward, A.temporal_attention_direct_backward_reference
+        args = (q, k, v, A.temporal_attention_direct_reference(q, k, v, t=t).contiguous(), g)
+        nbytes, flops = 8 * item * q.numel(), 10 * t * t * d * b * s * h
+    try:
+        got = fn(*args, t=t)
+    except (ValueError, RuntimeError) as e:
+        print(f"{kind} {tag} {name}: refused ({str(e)[:80]})", flush=True)
+        return
+    before = routes(fn)
+    fn(*args, t=t)
+    moved = {key: val - before[key] for key, val in routes(fn).items() if val != before[key]}
+    ms = graph_ms(torch, lambda: fn(*args, t=t), 5)
+    bound = bound_ms(nbytes, flops, "bf16" if item == 2 else "fp32")
+    if not full:
+        print(f"{kind} {tag} {name}: device time {ms:.4f} ms (bound {bound:.4f}); routes of one call {moved}",
+              flush=True)
+        return
+    ref = plain(*args, t=t)
+    got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+    unit = "bf16 steps" if item == 2 else "relative"
+    check = ", ".join(f"%.2e {unit}, rel. RMS %.2e" % errors(x, r) for x, r in zip(got, ref))
+    if kind == "K2":
+        lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(*(frames(x) for x in (q, k, v))), 5)
+    else:
+        leaves = [frames(x).detach().requires_grad_() for x in (q, k, v)]
+        y = F.scaled_dot_product_attention(*leaves)
+        lib_ms = profiled_ms(torch, lambda: torch.autograd.grad(y, leaves, frames(g), retain_graph=True))
+        del leaves, y
+    print(f"{kind} {tag} {name}: device time {ms:.4f} ms (SDPA{' backward' if kind == 'K6' else ''}, device time, "
+          f"{fmt_ms(lib_ms)}, {sdpa_backend(torch, F, *(frames(x) for x in (q, k, v)))}; bound {bound:.4f}), "
+          f"{check}; routes of one call {moved}", flush=True)
+    del q, k, v, g, args, got, ref
+    torch.cuda.empty_cache()
+
+
+def time_long_frames(torch, F, rn):
+    """K2 and K6 past 32 frames (LONG_SHAPES, one video, both dtypes), each
+    with time_temporal_tc in full."""
     for t, s, h, d in LONG_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, g = (rn(t, s, h, d).to(dtype) for _ in range(4))
-            frames = lambda x: x.view(1, t, s, h, d).permute(0, 2, 3, 1, 4)
-            item, name = q.element_size(), f"[{t},{s},{h},{d}] t={t} {str(dtype)[6:]}"
-            for kind, fn, args, plain, nbytes, flops in (
-                    ("K2", k2, (q, k, v), A.temporal_attention_direct_reference, 4 * item * q.numel(),
-                     4 * t * t * d * s * h),
-                    ("K6", k6, None, A.temporal_attention_direct_backward_reference, 8 * item * q.numel(),
-                     10 * t * t * d * s * h)):
-                if args is None:
-                    args = (q, k, v, A.temporal_attention_direct_reference(q, k, v, t=t).contiguous(), g)
-                try:   # an older checkout (--root) refuses t > 32
-                    got = fn(*args, t=t)
-                except (ValueError, RuntimeError) as e:
-                    print(f"{kind} {name}: refused ({str(e)[:80]})", flush=True)
-                    continue
-                ref = plain(*args, t=t)
-                got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
-                unit = "bf16 steps" if item == 2 else "relative"
-                check = ", ".join(f"%.2e {unit}, rel. RMS %.2e" % errors(x, r) for x, r in zip(got, ref))
-                before = routes(fn)
-                fn(*args, t=t)
-                moved = {key: val - before[key] for key, val in routes(fn).items() if val != before[key]}
-                ms = graph_ms(torch, lambda: fn(*args, t=t), 5)
-                if kind == "K2":
-                    lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(*(frames(x) for x in (q, k, v))),
-                                      5)
-                else:
-                    leaves = [frames(x).detach().requires_grad_() for x in (q, k, v)]
-                    y = F.scaled_dot_product_attention(*leaves)
-                    lib_ms = profiled_ms(torch, lambda: torch.autograd.grad(y, leaves, frames(g), retain_graph=True))
-                    del leaves, y
-                bound = bound_ms(nbytes, flops, "bf16" if item == 2 else "fp32")
-                print(f"{kind} past 32 frames {name}: device time {ms:.4f} ms (SDPA{' backward' if kind == 'K6' else ''}"
-                      f", device time, {fmt_ms(lib_ms)}; bound {bound:.4f}), {check}; routes of one call {moved}",
-                      flush=True)
-            del q, k, v, g
-            torch.cuda.empty_cache()
+            for kind in ("K2", "K6"):
+                time_temporal_tc(torch, F, rn, kind, 1, t, s, h, d, dtype, "past 32 frames")
+
+
+def time_short_frames(torch, F, rn):
+    """K6 in fp32 at D = 64 (two videos, [2t, 5824, 5, 64]) and K2 at D = 512
+    (one video, [t, 5824, 1, 512], bf16 and fp32) at every t from 1 to 32 with
+    time_temporal_tc, in full at SHORT_TS."""
+    for t in range(1, 33):
+        time_temporal_tc(torch, F, rn, "K6", 2, t, 5824, 5, 64, torch.float32, "short", full=t in SHORT_TS)
+    for t in range(1, 33):
+        for dtype in (torch.bfloat16, torch.float32):
+            time_temporal_tc(torch, F, rn, "K2", 1, t, 5824, 1, 512, dtype, "short", full=t in SHORT_TS)
 
 
 def time_k5_d16(torch, F, rn):
@@ -838,9 +869,9 @@ def main():
     import torch.nn.functional as F
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", default="k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3,k5d16,fp32,long",
+    parser.add_argument("--only", default="k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3,k5d16,fp32,long,short",
                         help="comma-separated: k11, k1, k4, gn, k2, k6, k5, k13, nf, gnb, k5w, k6w, x3, k5d16, fp32, "
-                             "long")
+                             "long, short")
     parser.add_argument("--root", default=None,
                         help="import vidseg_diffusion_tpu_torch (and build its kernels) from this checkout")
     args = parser.parse_args()
@@ -896,6 +927,8 @@ def run(torch, F, A, MM, only):
         time_temporal_wide_backward(torch, F, rn)
     if "long" in only:
         time_long_frames(torch, F, rn)
+    if "short" in only:
+        time_short_frames(torch, F, rn)
     if "k5d16" in only:
         time_k5_d16(torch, F, rn)
     if "fp32" in only:
