@@ -39,11 +39,14 @@ Phases, in order; any failure exits non-zero:
 4. unet: one full-width SVD UNet forward in fp32 (random weights, a 16x16
    latent, 2 frames) on the card through the kernels vs the same weights on
    the CPU through the plain versions; then the same for the full-width SD
-   2.1 image UNet with a 77-token context.
+   2.1 image UNet with a 77-token context; every K11 launch of the two on the
+   split-TF32 kernel (route tf32x3).
 5. train_grad: the same UNet in fp32 with remat, loss.backward() of the
    diffusion loss (explicit sigma and noise) on the card through the
    kernels and their backward kernels vs the CPU through the plain
-   versions; every parameter's gradient within a relative bound by norm.
+   versions; every parameter's gradient within a relative bound by norm;
+   every K5 launch (D = 64) and every K11 launch on the split-TF32 kernels
+   (route tf32x3), every K6 launch on the resident split-TF32 kernel.
 6. main: the run of vidseg_diffusion_tpu_torch/scripts/main_path.py
    (configs/inference/svd.yaml at full width with random bf16 weights,
    run_single_video on 14 synthetic 448x832 frames, 25 steps, modulate step
@@ -302,11 +305,20 @@ at bf16 D = 16 on their mma.sync kernels), and the normalise-first mode
 of K1 and K3 at D = 16 in bf16, also held to mha_reference. The fp32 routes at
 D = 64 are timed at their ds1 shapes beside the library call in full fp32: K1
 at [2,5824,5x64] and the CFG batch [28,5824,5x64] (held to the plain version
-two batch items at a time), K5 at [2,5824,5x64], K2 and K6 at [28,5824,5,64]
+two batch items at a time), K2 and K6 at [28,5824,5,64]
 (t = 14; K6 on the resident split-TF32 kernel, also at t = 2 and 32, held to
 the plain version in float64: the temporal_attention_direct_backward_fp32_tc
 entry, whose launches train_grad's run reports), K4 at the UNet's ds1
-time_stack [2,14,5824,320].
+time_stack [2,14,5824,320]. K5 in fp32 at D = 64 and K11 in fp32 run split-TF32
+tensor-core kernels (route tf32x3; entries flash_attention_packed_backward_tf32x3_d64,
+whose launches train_grad's run reports, and matmul_bias_tf32x3, whose launches the
+unet, api_fp32 and train_grad runs report): K5 at ds1 [2,5824,5x64] and at
+train_grad's four spatial sites ([4,256,5x64], [4,64,10x64], [4,16,20x64],
+[4,4,20x64]), K11 at ds2 [40768,640->640] with a bias and the SD context product
+[2156,1024->320], each also held to the plain version in float64 (FP64_RMS_TOL).
+The FMA kernels that fp32 inputs TMA cannot address still take are held too,
+each counted on its wrapper's .fma_launches: K5's at ds1 [2,5824,5x64] with
+bases 4 bytes off a 16-byte boundary, K11's tile at [40768,638->640] (K % 4 != 0).
 
 Before the last line come the kernels JSON (per kernel: launches in the run
 of its path and in the other runs (injected, SD, diffusion training,
@@ -485,6 +497,21 @@ KERNELS = {
         replaces="vidseg_diffusion_tpu/ops/attention.py:1167", rms_tol=2e-4,
         route_of=("temporal_attention_direct_backward",), route="tc_short", path="train_grad",
     ),
+    # K5 in fp32 at D = 64 and K11 in fp32 on split-TF32 products (route 7, "tf32x3"): K5's mma.sync kernels
+    # (flash_attention_bwd_x3.cu; JAX's dq and dk/dv pallas_calls at :993 and :1025) and the split-TF32 consumer
+    # of the persistent wgmma loop (wgmma_tile.cuh, launched from matmul_bias.cu). Their launches are the
+    # wrapper's tf32x3 launches in the run of their path (train_grad: the full-width UNet's fp32 gradients, every
+    # K5 launch at D = 64; unet and api_fp32: fp32 forwards, K11's launches there too, in `paths`)
+    "flash_attention_packed_backward_tf32x3_d64": dict(
+        id="K5 fp32 D=64 split TF32", source="vidseg_diffusion_tpu_torch/csrc/flash_attention_bwd_x3.cu",
+        replaces="vidseg_diffusion_tpu/ops/attention.py:993", rms_tol=1e-3,
+        route_of=("flash_attention_packed_backward",), route="tf32x3", path="train_grad",
+    ),
+    "matmul_bias_tf32x3": dict(
+        id="K11 fp32 split TF32", source="vidseg_diffusion_tpu_torch/csrc/matmul_bias.cu",
+        replaces="vidseg_diffusion_tpu/ops/matmul.py:94", rms_tol=5e-4,
+        route_of=("matmul_bias",), route="tf32x3", path="unet", paths=("unet", "api_fp32", "train_grad"),
+    ),
 }
 # the instances at the head dims the tuned kernels are not built for (ROADMAP
 # section C): entries of their own, on the wrapper of the kernel they instance,
@@ -652,6 +679,8 @@ HEADLINE = {  # the shape of its path each kernel is timed at
     "temporal_attention_direct_d512": "time mix [2,5824,1,512] t=2 fp32",
     "temporal_attention_direct_d512_tc": "VideoAttnBlock time mix [7,5824,1,512] t=7 bf16",
     "temporal_attention_direct_backward_fp32_tc": "ds1 [28,5824,5,64] t=14 fp32",
+    "flash_attention_packed_backward_tf32x3_d64": "ds1 B=2 slice [2,5824,5x64] fp32",
+    "matmul_bias_tf32x3": "ds2 [40768,640->640] bias fp32",
     "flash_attention_normalised_d64": "ViT-L/14 [2,16,257,64]",
     "flash_attention_packed_backward_d512": "VideoAttnBlock attn2 [7,5824,1x512] bf16",
     "temporal_attention_direct_backward_d512": "VideoAttnBlock time mix [7,5824,1,512] t=7 bf16",
@@ -1065,7 +1094,7 @@ def kernel_cases(torch):
             library=lambda q, k, v, o, lse, g, h: sdpa_backward([heads_view(x, h) for x in (q, k, v)],
                                                                 heads_view(g, h)))
     # the fp32 routes at D = 64 at their ds1 shapes, drawn after every other case: K1's FMA kernel at a B = 2
-    # slice and at the CFG batch of 28 (its plain version two batch items at a time), K5's at the B = 2 slice,
+    # slice and at the CFG batch of 28 (its plain version two batch items at a time), K5's split-TF32 kernels,
     # K2's CUDA-core kernel at t = 14, K6's resident split-TF32 kernel at t = 14, 2 and 32, K4's FMA tile at the
     # UNet's ds1 time_stack
     fp32_d64 = []
@@ -1077,14 +1106,37 @@ def kernel_cases(torch):
             kern=kern, plain=plain if b == 2 else by_pairs(plain), iters=2,
             work=attn_work(b, 5, 5824, 5824, 64, dtype="fp32"), library=sdpa_packed)
 
-    def k5_fp32():
-        q, k, v, g = (rn(2, 5824, 320) for _ in range(4))
+    # K5 in fp32 on the split-TF32 mma.sync kernels (route tf32x3) at ds1 and at train_grad's four spatial
+    # sites (two 2-frame videos of 16 x 16 latents), also held to the plain version in float64
+    k5 = A.flash_attention_packed_backward
+    for label, b, l, h in (("ds1 B=2 slice [2,5824,5x64] fp32", 2, 5824, 5), ("train_grad ds1 [4,256,5x64] fp32", 4, 256, 5),
+                           ("train_grad ds2 [4,64,10x64] fp32", 4, 64, 10),
+                           ("train_grad ds4 [4,16,20x64] fp32", 4, 16, 20),
+                           ("train_grad mid [4,4,20x64] fp32", 4, 4, 20)):
+        def k5_fp32(b=b, l=l, h=h):
+            q, k, v, g = (rn(b, l, h * 64) for _ in range(4))
+            return (q, k, v) + A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True) + (g, h)
+
+        add(kernel="flash_attention_packed_backward_tf32x3_d64", label=label, make=k5_fp32,
+            counted=lambda: k5.tf32x3_launches, kern=A.flash_attention_packed_backward,
+            plain=A.flash_attention_packed_backward_reference, iters=2 if l > 1000 else 5,
+            work=attn_work(b, h, l, l, 64, backward=True, dtype="fp32"),
+            library=lambda q, k, v, o, lse, g, h: sdpa_backward([heads_view(x, h) for x in (q, k, v)],
+                                                                heads_view(g, h)))
+
+    # K5's FMA kernels, which fp32 D = 64 inputs that TMA cannot address still take (and fp32 D = 16): q, k, v
+    # and g at ds1 with their bases 4 bytes off a 16-byte boundary; SDPA's backward (whose kernels fault on
+    # such bases) on aligned copies of the same values
+    def k5_fp32_unaligned():
+        q, k, v, g = (rn(2 * 5824 * 320 + 1)[1:].view(2, 5824, 320) for _ in range(4))
         return (q, k, v) + A._flash_attention_packed_forward(q, k, v, 5, None, save_lse=True) + (g, 5)
 
-    add(kernel="flash_attention_packed_backward", label="ds1 B=2 slice [2,5824,5x64] fp32", make=k5_fp32,
-        kern=A.flash_attention_packed_backward, plain=A.flash_attention_packed_backward_reference, iters=2,
+    add(kernel="flash_attention_packed_backward", label="ds1 B=2 slice [2,5824,5x64] fp32 unaligned (FMA)",
+        make=k5_fp32_unaligned, counted=lambda: k5.fma_launches, kern=A.flash_attention_packed_backward,
+        plain=A.flash_attention_packed_backward_reference, iters=2,
         work=attn_work(2, 5, 5824, 5824, 64, backward=True, dtype="fp32"),
-        library=lambda q, k, v, o, lse, g, h: sdpa_backward([heads_view(x, h) for x in (q, k, v)], heads_view(g, h)))
+        library=lambda q, k, v, o, lse, g, h: sdpa_backward([heads_view(x.clone(), h) for x in (q, k, v)],
+                                                            heads_view(g.clone(), h)))
     add(kernel="temporal_attention_direct", label="ds1 [28,5824,5,64] t=14 fp32", make=direct(28, 5824, 5, f32),
         kern=lambda q, k, v: A.temporal_attention_direct(q, k, v, t=14),
         plain=lambda q, k, v: A.temporal_attention_direct_reference(q, k, v, t=14), iters=3,
@@ -1400,14 +1452,20 @@ def gemm_cases(torch, rn, projections=None, convs=None):
         ("[2156,1032->640] bias", 2156, 1032, 640, True, bf),
         ("ds2 [40768,640->640] bias fp32", 40768, 640, 640, True, f32),
         ("SD to_k [2156,1024->320] fp32", 2156, 1024, 320, False, f32),
+        # fp32 that TMA cannot address (K % 4 != 0) keeps the FMA tile
+        ("ds2 [40768,638->640] bias fp32 (FMA)", 40768, 638, 640, True, f32),
     ):
         def make(m=m, k=k, n=n, bias=bias, dtype=dtype):
             return (rn(m, k).to(dtype), (rn(n, k) / k ** 0.5).to(dtype), rn(n).to(dtype) if bias else None)
 
+        # fp32 on the split-TF32 kernel (route tf32x3), also held to the plain version in float64; else the FMA tile
+        x3 = {} if dtype != f32 else (
+            dict(kernel="matmul_bias_tf32x3", counted=lambda: MM.matmul_bias.tf32x3_launches) if k % 4 == 0
+            else dict(counted=lambda: MM.matmul_bias.fma_launches))
         cases.append(dict(
-            kernel="matmul_bias", label=label, make=make, kern=MM.matmul_bias, plain=MM.matmul_bias_plain,
-            iters=5, work=matmul_work(m, k, n, bias, "bf16" if dtype == bf else "fp32"),
-            library=lambda x, w, b: (lambda: F.linear(x, w, b))))
+            dict(kernel="matmul_bias", label=label, make=make, kern=MM.matmul_bias, plain=MM.matmul_bias_plain,
+                 iters=5, work=matmul_work(m, k, n, bias, "bf16" if dtype == bf else "fp32"),
+                 library=lambda x, w, b: (lambda: F.linear(x, w, b))), **x3))
     for label, b, h, w, cin, cout, dtype in convs or (
         ("ds1 [28,56,104,320->320]", 28, 56, 104, 320, 320, bf),
         ("ds1 skip concat [28,56,104,960->320]", 28, 56, 104, 960, 320, bf),
@@ -1703,7 +1761,7 @@ def phase_kernels(torch):
         # FP64_RMS_TOL where the split-TF32 kernels ran
         fp32 = args[0].dtype == torch.float32
         fp64_rms = (fp64_rel_rms(torch, plain, args, outs)
-                    if fp32 and kname.startswith(("flash_attention", "temporal_attention")) else None)
+                    if fp32 and kname.startswith(("flash_attention", "temporal_attention", "matmul_bias")) else None)
         if x3 or case.get("fp64_held"):
             check(fp64_rms <= FP64_RMS_TOL, f"{kname} {label}: relative RMS error {fp64_rms} against float64 "
                                             f"(tol {FP64_RMS_TOL})")
@@ -1769,13 +1827,15 @@ def phase_kernels(torch):
 
 
 def tf32x3_launches():
-    """Launches of the fp32 D = 512 attention kernels on split TF32 products
-    (forward and backward), as the launches reported them."""
+    """Launches of the split-TF32 kernels (the fp32 attention at D = 512 both
+    ways, K5 in fp32 at D = 64, K11 in fp32, K6 in fp32 at D = 512), as the
+    launches reported them."""
     from vidseg_diffusion_tpu_torch.ops import attention as A
+    from vidseg_diffusion_tpu_torch.ops import matmul as MM
 
     return sum(f.tf32x3_launches for f in (A.flash_attention_packed, A.flash_attention,
                                            A.flash_attention_packed_backward, A.flash_attention_backward,
-                                           A.temporal_attention_direct_backward))
+                                           A.temporal_attention_direct_backward, MM.matmul_bias))
 
 
 def resident_launches():
@@ -1894,7 +1954,9 @@ def k1_at_cfg_batch(torch):
 def phase_unet(torch):
     """Full-width UNet forwards, the SVD video UNet and the SD 2.1 image UNet:
     kernels on the card vs plain versions on the CPU, same fp32 weights and
-    inputs (TF32 off on the card)."""
+    inputs (TF32 off on the card); every K11 launch of the two on the
+    split-TF32 kernel (route tf32x3): the run whose launches the
+    matmul_bias_tf32x3 entry reports."""
     import copy
 
     from vidseg_diffusion_tpu_torch.config import load_model_spec
@@ -1905,6 +1967,7 @@ def phase_unet(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t, b = 2, 4  # [uc; c] of one 2-frame video
+    reset_counts()
     for config, video in (("svd.yaml", True), ("sd_2_1.yaml", False)):
         spec = load_model_spec(os.path.join(ROOT, "configs/inference", config), num_frames=t)
         unet = UNetModel(spec.unet_config).cuda()
@@ -1931,7 +1994,22 @@ def phase_unet(torch):
         check(err <= UNET_REL_TOL * scale, f"{config} UNet on the card disagrees with the CPU plain path")
         del unet, cpu_unet
         torch.cuda.empty_cache()
+    ROUTE_COUNTS["unet"] = check_k11_tf32x3("unet")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
+
+
+def check_k11_tf32x3(tag):
+    """An fp32 run: every K11 launch since reset_counts() on the split-TF32
+    kernel (route tf32x3), none on the FMA tile or a bf16 route; returns the
+    routes."""
+    from vidseg_diffusion_tpu_torch.ops import matmul as MM
+
+    routes = read_routes()
+    got, n = routes["matmul_bias"], MM.matmul_bias.launches
+    check(n > 0 and got == {"wgmma": 0, "tf32x3": n, "fma": 0},
+          f"[{tag}] K11 fp32 launches by route {got}, expected all {n} on tf32x3")
+    print(f"[{tag}] K11 in fp32: {n} launches, by route {json.dumps(got)}", flush=True)
+    return routes
 
 
 def phase_train_grad(torch):
@@ -1939,8 +2017,11 @@ def phase_train_grad(torch):
     kernels (K1/K5, K2/K6, K4) vs the CPU through the plain versions, same
     fp32 weights, inputs, sigma and noise (TF32 off on the card). Every K6
     launch (fp32, D = 64, 2 frames) on the resident split-TF32 kernel (route
-    tc_short): the run whose launches the
-    temporal_attention_direct_backward_fp32_tc entry reports."""
+    tc_short), every K5 launch (fp32, D = 64) and every K11 launch on the
+    split-TF32 kernels (route tf32x3): the run whose launches the
+    temporal_attention_direct_backward_fp32_tc,
+    flash_attention_packed_backward_tf32x3_d64 and matmul_bias_tf32x3 entries
+    report."""
     import copy
     import dataclasses
 
@@ -1991,6 +2072,15 @@ def phase_train_grad(torch):
           f"[train_grad] K6 launches by route {k6_routes} and head dim {dict(k6.dim_launches)}, expected {want}")
     print(f"[train_grad] K6 in fp32 at D = 64, t = {t}: {k6.launches} launches, by route {json.dumps(k6_routes)}",
           flush=True)
+    # K5 in fp32 at D = 64: every launch on the split-TF32 kernels (route tf32x3), none on the FMA kernels
+    k5 = A.flash_attention_packed_backward
+    k5_routes = ROUTE_COUNTS["train_grad"]["flash_attention_packed_backward"]
+    want = {r: 0 for r in k5_routes}
+    want["tf32x3"] = k5.launches
+    check(k5_routes == want and dict(k5.dim_launches) == {64: k5.launches},
+          f"[train_grad] K5 launches by route {k5_routes} and head dim {dict(k5.dim_launches)}, expected {want}")
+    print(f"[train_grad] K5 in fp32 at D = 64: {k5.launches} launches, by route {json.dumps(k5_routes)}", flush=True)
+    check_k11_tf32x3("train_grad")
     t0 = time.perf_counter()
     loss_cpu, g_cpu = grads(cpu_unet, "cpu")
     cpu_s = time.perf_counter() - t0
@@ -2054,9 +2144,15 @@ ROUTED = ("flash_attention_packed", "flash_attention", "temporal_conv_1x1", "mat
           "flash_attention_backward")
 ROUTE_NAMES = ("wgmma", "narrow", "mma", "normalised", "resident", "wide", "cluster", "tf32x3", "long", "tc_short",
                "fma")
-# the wrappers whose fp32 D = 512 launches run the split-TF32 kernels (route "tf32x3")
-X3_WRAPPERS = ("flash_attention_packed", "flash_attention", "flash_attention_packed_backward",
-               "flash_attention_backward", "temporal_attention_direct_backward")
+# the wrappers whose fp32 launches run the split-TF32 kernels (route "tf32x3"), by the head dims they do so at
+X3_DIMS = {"flash_attention_packed": (512,), "flash_attention": (512,), "flash_attention_packed_backward": (64, 512),
+           "flash_attention_backward": (512,), "temporal_attention_direct_backward": (512,)}
+X3_WRAPPERS = tuple(X3_DIMS)
+
+
+def x3_dim_launches(dims, name):
+    """The launches of wrapper `name` (read_dims) at the head dims of its split-TF32 route."""
+    return sum(dims[name].get(d, 0) for d in X3_DIMS[name])
 GN_ROUTES = {"fused": 0, "stream": 0}   # GroupNorm32 calls per route since reset_counts()
 # the backward's route (ops.norm.group_norm_backward_route) of each GroupNorm32 module that
 # ran under a gradient since reset_counts(), by id (a remat step runs a module's forward
@@ -2222,7 +2318,8 @@ def check_routes(tag, launches, narrow=0, normalised=None, wide=0, long_frames=0
     DIM_COUNTS[tag] = read_dims()
     want = {name: {"wgmma": launches[name]} for name in ("matmul_bias", "flash_attention_packed_backward",
                                                           "flash_attention_backward")}
-    want["flash_attention_packed_backward"]["mma"] = 0   # bf16 D = 16
+    want["flash_attention_packed_backward"].update(mma=0, fma=0)   # bf16 D = 16; fp32 off the split-TF32 route
+    want["matmul_bias"].update(tf32x3=0, fma=0)   # fp32
     want["flash_attention_packed"] = {"wgmma": launches["flash_attention_packed"], "mma": 0,
                                       "normalised": normalised.get("flash_attention_packed", 0)}
     nf3 = normalised.get("flash_attention", 0)
@@ -2249,20 +2346,20 @@ def check_routes(tag, launches, narrow=0, normalised=None, wide=0, long_frames=0
 
 
 def check_tf32x3(tag, expected, wide=None):
-    """An fp32 run: each X3_WRAPPERS wrapper's D = 512 launches (read_dims)
-    all took the split-TF32 kernels (route "tf32x3"), `expected` of them
-    ({wrapper: launches}, the others none), but K6's `wide` ones ({wrapper:
-    launches}: K6 below 5 frames), which took the wide kernel; keeps and
-    returns the routes."""
+    """An fp32 run: each X3_WRAPPERS wrapper's launches at the head dims of
+    its split-TF32 route (X3_DIMS, by read_dims) all took the split-TF32
+    kernels (route "tf32x3"), `expected` of them ({wrapper: launches}, the
+    others none), but K6's `wide` ones ({wrapper: launches}: K6 below 5
+    frames), which took the wide kernel; keeps and returns the routes."""
     routes, dims = read_routes(), read_dims()
     wide = wide or {}
     got = {n: routes[n]["tf32x3"] for n in X3_WRAPPERS}
-    at512 = {n: dims[n].get(512, 0) - wide.get(n, 0) for n in X3_WRAPPERS}
+    on_dims = {n: x3_dim_launches(dims, n) - wide.get(n, 0) for n in X3_WRAPPERS}
     want = {n: expected.get(n, 0) for n in X3_WRAPPERS}
     on_wide = {n: routes[n].get("wide", 0) for n in wide}
-    check(got == at512 == want and on_wide == wide, f"[{tag}] fp32 D = 512 launches on the split-TF32 kernels {got}, "
-                                                    f"at D = 512 {at512} less {wide} on the wide kernel ({on_wide}), "
-                                                    f"expected {want}")
+    check(got == on_dims == want and on_wide == wide, f"[{tag}] fp32 launches on the split-TF32 kernels {got}, "
+                                                      f"at their head dims {on_dims} less {wide} on the wide "
+                                                      f"kernel ({on_wide}), expected {want}")
     ROUTE_COUNTS[tag] = routes
     return got
 
@@ -4346,10 +4443,12 @@ def check_api_run(tag, label, fp32=False):
     check(all(n == 0 for n in plain_calls.values()), f"[{tag} {label}] plain versions ran on the card: {plain_calls}")
     check(A.mha_reference_site.calls == site, f"[{tag} {label}] mha_reference_site ran "
                                               f"{A.mha_reference_site.calls} times, expected {site}")
-    if fp32:   # fp32 runs the FMA kernels, at D = 512 (and K6 at 64) the split-TF32 ones: no launch on a bf16 route
+    if fp32:   # fp32 runs the FMA kernels, the split-TF32 ones at D = 512, K5 at 64 and K11 (and K6 at 64): no launch
+        # on a bf16 route
         routes = read_routes()
         dims = read_dims()
-        check_tf32x3(f"{tag} {label}", {n: dims[n].get(512, 0) for n in X3_WRAPPERS})
+        check_tf32x3(f"{tag} {label}", {n: x3_dim_launches(dims, n) for n in X3_WRAPPERS})
+        check_k11_tf32x3(f"{tag} {label}")
         off = {k: {r: n for r, n in v.items() if r not in ("normalised", "tf32x3", "tc_short", "fma") and n}
                for k, v in routes.items()}
         check(all(not v for v in off.values()) and routes["flash_attention_packed"]["normalised"] ==
@@ -4586,7 +4685,8 @@ def phase_api_fp32(torch):
     steps, on the card through the kernels and on the CPU through the plain
     versions, same weights, same noise (handed over), TF32 and cuDNN off: the
     latents and images within API_FP32_TOL of max |CPU|; launches as the
-    module calls imply, every one on an fp32 kernel (FMAs; split TF32 at D = 512)."""
+    module calls imply, every one on an fp32 kernel (FMAs; split TF32 at D = 512
+    and K11: every K11 launch on the split-TF32 kernel)."""
     from vidseg_diffusion_tpu_torch.inference.api import Sampler
     from vidseg_diffusion_tpu_torch.scripts import api_path as AP
 
@@ -5455,11 +5555,15 @@ def main():
             routed = None
         elif "route_of" in meta:  # the kernels of a route: their wrappers' launches on it in each run
             route = meta.get("route", "tf32x3")
+            paths = meta.get("paths", (meta["path"],))
+            ROUTE_COUNTS.setdefault("api_fp32", API_ROUTES.get("api_fp32", {}))   # the fp32 sampling runs summed
             runs = {tag: sum(ROUTE_COUNTS.get(tag, {}).get(w, {}).get(route, 0) for w in meta["route_of"])
-                    for tag in tags + tuple(slice_runs) + (meta["path"],)}
+                    for tag in tags + tuple(slice_runs) + paths}
             runs["main"] = runs[meta["path"]]   # its path's run
-            check(runs["main"] > 0, f"{name} never launched in the {meta['path']} run")
+            check(all(runs[p] > 0 for p in paths), f"{name} never launched in a run of {paths}: {runs}")
             extra = {"path": meta["path"], "counted_route": route}
+            if len(paths) > 1:
+                extra["path_launches"] = {p: runs[p] for p in paths}
             routed = None
         else:
             # the run of its path: inference for K1-K4, K7, K8, K11, K12, diffusion training for

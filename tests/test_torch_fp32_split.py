@@ -30,6 +30,14 @@ The kernels of csrc/temporal_attention_long_tc.cu (K2 and K6 at D = 64 and
 512 past 32 frames; K6 in fp32 at D = 64 from 2 to 32 frames and K2 at D =
 512 up to 32 frames) are emulated with their chains (a 32-channel panel, a
 16-row tile) and held the same way, with a negative control each.
+
+K5 in fp32 at D = 64 (csrc/flash_attention_bwd_x3.cu: S and dP a chain a
+32-column panel, dq / dk / dv a chain a 32-row tile) is held to jax.vjp of the
+packed flash attention (its Pallas backward in interpret mode) and K11 in fp32
+(the split-TF32 consumer of csrc/wgmma_tile.cuh's persistent loop: a chain a
+32-channel slice, the bias added in fp32) to _matmul_bias_impl in interpret
+mode, each within FP32_TOL of JAX and RMS_TOL of float64, with a one-pass
+negative control each.
 """
 
 import jax
@@ -38,6 +46,7 @@ import numpy as np
 import pytest
 
 from vidseg_diffusion_tpu.ops import attention as jatt
+from vidseg_diffusion_tpu.ops import matmul as jmm
 
 FP32_TOL = 1e-4    # max |emulation - JAX| / max(1, max |JAX|)
 RMS_TOL = 1e-5     # ||emulation - fp64|| / ||fp64||
@@ -378,3 +387,133 @@ def test_short_k6_one_tf32_pass_fails_its_bound():
     split, _ = _long_run(14, 64, 130, _mm_split, True)
     assert max(_rel_rms(a, r) for a, r in zip(one, ref)) > K6_RMS_TOL
     assert max(_rel_rms(a, r) for a, r in zip(split, ref)) < RMS_TOL
+
+
+# -- K5 in fp32 at D = 64 (csrc/flash_attention_bwd_x3.cu) ---------------------------
+#
+# mma.sync m16n8k8 on split TF32: S and dP one chain a 32-column panel of the head
+# dim, the two added in fp32; dQ over 32-key tiles and dK, dV over 32-query tiles,
+# one chain a tile, the tiles added in fp32 in order. Both kernels read K1's o and
+# LSE; here JAX's packed forward (interpret mode) gives them, and JAX's backward is
+# jax.vjp of the packed flash attention, whose VJP runs the Pallas backward kernels.
+
+K5_TILE = 32         # walked rows (keys for dq, queries for dk / dv) a chain of K5's fp32 kernels
+
+
+def _tiled(a, b, mm, tile):
+    """a @ b over the contraction in tiles of `tile`, one chain a tile, the tiles added in order."""
+    out = mm(a[:, :tile], b[:tile])
+    for c in range(tile, a.shape[1], tile):
+        out = out + mm(a[:, c:c + tile], b[c:c + tile])
+    return out
+
+
+def _k5_head(q, k, v, o, lse, g, mm):
+    """dq, dk, dv of one [L, 64] head from the forward's o and base-2 LSE, with
+    K5's chains (fp32 with `mm` a split or one-pass product, float64 with _mm64)."""
+    dt = np.float64 if mm is _mm64 else np.float32
+    d = q.shape[1]
+    q, k, v, o, lse, g = (x.astype(dt) for x in (q, k, v, o, lse, g))
+    qf = q * dt(np.float32(LOG2_E / np.sqrt(d)))
+    s = mm(qf[:, :PANEL], k[:, :PANEL].T) + mm(qf[:, PANEL:], k[:, PANEL:].T)
+    dp = mm(g[:, :PANEL], v[:, :PANEL].T) + mm(g[:, PANEL:], v[:, PANEL:].T)
+    p = np.exp2(s - lse[:, None])
+    ds = p * (dp - (g * o).sum(-1)[:, None])
+    return (_tiled(ds, k, mm, K5_TILE) * dt(np.float32(1 / np.sqrt(d))),
+            _tiled(ds.T, qf, mm, K5_TILE) * dt(np.float32(1 / LOG2_E)), _tiled(p.T, g, mm, K5_TILE))
+
+
+def _k5_run(b, lq, lk, h, seed, mms):
+    """q, g [b, lq, h x 64], k, v [b, lk, h x 64]: jax.vjp's gradients (the Pallas
+    backward in interpret mode) and, for each of `mms`, K5's math per head on
+    JAX's forward o and LSE."""
+    rs = np.random.RandomState(seed)
+    q, g = ((rs.randn(b, lq, h * 64) * 1.5).astype(np.float32) for _ in range(2))
+    k, v = ((rs.randn(b, lk, h * 64) * 1.5).astype(np.float32) for _ in range(2))
+    out, vjp = jax.vjp(lambda *a: jatt.flash_attention_packed(*a, heads=h, interpret=True),
+                       *(jnp.asarray(a) for a in (q, k, v)))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(g))]
+    _, lse = jatt._flash_attention_packed_impl(*(jnp.asarray(a) for a in (q, k, v)), h, interpret=True,
+                                               save_lse=True, fused_psum=jatt._fused_psum_enabled())
+    o, lse = np.asarray(out), np.asarray(lse)   # lse [b, lq, h]
+    runs = []
+    for mm in mms:
+        got = [np.zeros(x.shape, np.float64 if mm is _mm64 else np.float32) for x in (q, k, v)]
+        for bi in range(b):
+            for hh in range(h):
+                c = slice(64 * hh, 64 * hh + 64)
+                for x, r in zip(got, _k5_head(q[bi, :, c], k[bi, :, c], v[bi, :, c], o[bi, :, c], lse[bi, :, hh],
+                                              g[bi, :, c], mm)):
+                    x[bi, :, c] = r
+        runs.append(got)
+    return want, runs
+
+
+K5_CASES = [(1, 100, 77, 2), (2, 45, 130, 5), (1, 96, 96, 3), (1, 33, 200, 4)]
+
+
+@pytest.mark.parametrize("b,lq,lk,h", K5_CASES, ids=[f"{b}x{lq}x{lk}x{h}" for b, lq, lk, h in K5_CASES])
+def test_k5_d64_split_matches_jax_vjp_and_fp64(monkeypatch, b, lq, lk, h):
+    """K5 in fp32 at D = 64 with its kernels' chains (Lq != Lk both ways, ragged
+    lengths off the 32-row tiles, heads 2 to 5): within FP32_TOL of max |JAX| of
+    jax.vjp of the packed flash attention (its Pallas backward in interpret mode)
+    and within RMS_TOL of the same math in float64 on the same o and LSE."""
+    monkeypatch.setenv("VIDSEG_PALLAS_ATTN_BWD", "1")
+    want, (got, ref) = _k5_run(b, lq, lk, h, 150 + lq + lk, (_mm_split, _mm64))
+    for name, a, w, r in zip(("dq", "dk", "dv"), got, want, ref):
+        assert _max_err(a, w) <= FP32_TOL, name
+        assert _rel_rms(a, r) <= RMS_TOL, name
+
+
+def test_k5_d64_one_tf32_pass_fails_its_bound(monkeypatch):
+    """The negative control: K5's math with one TF32 pass (no lo parts) reads
+    above RMS_TOL against float64 on some gradient, the split under it on every
+    one."""
+    monkeypatch.setenv("VIDSEG_PALLAS_ATTN_BWD", "1")
+    _, (one, split, ref) = _k5_run(1, 100, 77, 2, 170, (_mm_one_pass, _mm_split, _mm64))
+    assert max(_rel_rms(a, r) for a, r in zip(one, ref)) > RMS_TOL
+    assert max(_rel_rms(a, r) for a, r in zip(split, ref)) < RMS_TOL
+
+
+# -- K11 in fp32 (the persistent wgmma loop's split-TF32 consumer) --------------------
+#
+# Each 32-channel slice of K sums its three products on the tensor cores from zero
+# and is added to the tile's accumulator in fp32 (_mm_split_panels), then the bias
+# in fp32. The kernel forms both operands' lo parts as _split does (x's in shared
+# memory, W's by a pass before the products).
+
+def _k11(x, w, bias, mm_panels):
+    y = mm_panels(x, w.T)
+    return y if bias is None else y + bias
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("m,k,n", [(77, 320, 640), (130, 640, 320), (201, 1024, 160), (193, 1032, 168)])
+def test_k11_split_matches_the_pallas_kernel_and_fp64(m, k, n, with_bias):
+    """K11 in fp32 with its chains at K = 320, 640, 1024 and 1032 (a last slice
+    of 8 channels) and a ragged M and N, with and without a bias: within FP32_TOL of max |JAX| of _matmul_bias_impl in
+    interpret mode (zeros for a missing bias, as the JAX layers hand it) and
+    within RMS_TOL of float64."""
+    rs = np.random.RandomState(m + k + n + with_bias)
+    x = rs.randn(m, k).astype(np.float32)
+    w = (rs.randn(n, k) / np.sqrt(k)).astype(np.float32)   # nn.Linear's [N, K]; JAX's kernel is its transpose
+    bias = rs.randn(n).astype(np.float32) if with_bias else None
+    want = np.asarray(jmm._matmul_bias_impl(jnp.asarray(x), jnp.asarray(w.T),
+                                            jnp.asarray(bias if with_bias else np.zeros(n, np.float32)),
+                                            interpret=True))
+    got = _k11(x, w, bias, _mm_split_panels)
+    ref = _k11(x.astype(np.float64), w.astype(np.float64), None if bias is None else bias.astype(np.float64), _mm64)
+    assert _max_err(got, want) <= FP32_TOL
+    assert _rel_rms(got, ref) <= RMS_TOL
+
+
+def test_k11_one_tf32_pass_fails_its_bound():
+    """The negative control: one TF32 pass (no lo parts) reads above RMS_TOL
+    against float64, the split under it."""
+    rs = np.random.RandomState(190)
+    x, w = rs.randn(130, 640).astype(np.float32), (rs.randn(320, 640) / np.sqrt(640)).astype(np.float32)
+    ref = _mm64(x, w.T)
+    one = sum(_mm_one_pass(x[:, c:c + PANEL], w.T[c:c + PANEL]) for c in range(0, 640, PANEL))
+    assert _rel_rms(one, ref) > RMS_TOL
+    assert _rel_rms(_k11(x, w, None, _mm_split_panels), ref) < RMS_TOL
+

@@ -2062,3 +2062,129 @@ def test_svd_tiny_as_shipped_runs_on_the_card(cuda):
     assert launched > 0 and A.flash_attention_packed.mma_launches - k1[1] == launched
     assert A.flash_attention.normalised_launches > k3_nf   # the tiny CLIP tower's D = 16 and the VAE's 64 tokens
 
+
+
+# K5 in fp32 at D = 64 on split-TF32 mma.sync kernels: ragged lengths off the
+# 128-row block and the 32-row tile, Lq != Lk both ways, one to five heads
+K5_X3_SHAPES = [(2, 300, 300, 2), (28, 91, 91, 4), (2, 100, 37, 2), (1, 64, 200, 1), (3, 364, 364, 2),
+                (1, 130, 300, 3), (2, 600, 90, 5), (4, 4, 4, 5)]
+
+
+def _k5_fp32_inputs(cuda, seed, b, lq, lk, h):
+    q, g = (_randn(cuda, seed + i, torch.float32, b, lq, h * 64, scale=1.5) for i in range(2))
+    k, v = (_randn(cuda, seed + 2 + i, torch.float32, b, lk, h * 64, scale=1.5) for i in range(2))
+    out, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True)
+    return q, k, v, out, lse, g, h
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,lq,lk,h", K5_X3_SHAPES)
+def test_k5_fp32_d64_split_tf32(cuda, b, lq, lk, h):
+    """Every fp32 D = 64 K5 call on the split-TF32 kernels (`.tf32x3_launches`,
+    `.dim_launches[64]`; no other route counter moves), within chip_smoke.py's
+    backward bounds of the plain version and within FP64_RMS_TOL of it in
+    float64 on every gradient; a second call gives the same bits."""
+    args = _k5_fp32_inputs(cuda, 600, b, lq, lk, h)
+    fn = A.flash_attention_packed_backward
+    before = {k: v for k, v in vars(fn).items() if k.endswith("_launches")}
+    d64 = fn.dim_launches[64]
+    _check(fn, A.flash_attention_packed_backward_reference, *args, rms_tol=RMS_TOL["K5"])
+    moved = {k: v - before[k] for k, v in vars(fn).items() if k.endswith("_launches") and v != before[k]}
+    assert moved == {"tf32x3_launches": 1} and fn.dim_launches[64] == d64 + 1, moved
+    got = fn(*args)
+    assert _fp64_rms(got, A.flash_attention_packed_backward_reference, *args) <= FP64_RMS_TOL
+    for x, y in zip(got, fn(*args)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_k5_fp32_d64_split_tf32_reads_strided_views(cuda):
+    """q, k, v as slices of one fused [B, L, 3 x H x 64] projection and g a
+    slice of a wider tensor (strides in whole 16-byte rows): read in place on
+    the split-TF32 kernels, within FP64_RMS_TOL of float64."""
+    b, l, h = 2, 300, 3
+    qkv = _randn(cuda, 620, torch.float32, b, l, 3 * h * 64, scale=1.5)
+    q, k, v = qkv.split(h * 64, dim=-1)
+    g = _randn(cuda, 621, torch.float32, b, l, 2 * h * 64, scale=1.5)[..., h * 64:]
+    out, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True)
+    fn = A.flash_attention_packed_backward
+    x3 = fn.tf32x3_launches
+    got = fn(q, k, v, out, lse, g, h)
+    torch.cuda.synchronize()
+    assert fn.tf32x3_launches == x3 + 1
+    _close_grads(got, A.flash_attention_packed_backward_reference(q, k, v, out, lse, g, h), RMS_TOL["K5"])
+    assert _fp64_rms(got, A.flash_attention_packed_backward_reference, q, k, v, out, lse, g, h) <= FP64_RMS_TOL
+
+
+@pytest.mark.gpu
+def test_k5_fp32_off_the_split_route(cuda):
+    """fp32 at D = 16 and fp32 D = 64 with a base off a 16-byte boundary run the
+    FMA kernels (`.fma_launches`; `.tf32x3_launches` does not move), within
+    chip_smoke.py's backward bounds."""
+    fn = A.flash_attention_packed_backward
+    q, k, v, g = (_randn(cuda, 630 + i, torch.float32, 2, 100, 2 * 16, scale=1.5) for i in range(4))
+    out, lse = A._flash_attention_packed_forward(q, k, v, 2, None, save_lse=True)
+    x3, fma = fn.tf32x3_launches, fn.fma_launches
+    _check(fn, A.flash_attention_packed_backward_reference, q, k, v, out, lse, g, 2, rms_tol=RMS_TOL["K5"])
+    assert (fn.tf32x3_launches, fn.fma_launches) == (x3, fma + 1)
+    q, k, v, g = (_randn(cuda, 640 + i, torch.float32, 2 * 100 * 128 + 1)[1:].view(2, 100, 128) for i in range(4))
+    out, lse = A._flash_attention_packed_forward(q, k, v, 2, None, save_lse=True)
+    _check(fn, A.flash_attention_packed_backward_reference, q, k, v, out, lse, g, 2, rms_tol=RMS_TOL["K5"])
+    assert (fn.tf32x3_launches, fn.fma_launches) == (x3, fma + 2)
+
+
+# K11 in fp32 on the split-TF32 persistent wgmma loop: M from one row to the ds1
+# projection, N off the 160-wide tile (168, 200, 50), K off the 32-channel slice
+# (1032, 72, 20), with and without a bias
+MM_X3_SHAPES = [(1, 320, 320), (28, 1024, 320), (193, 1032, 168), (2156, 1024, 640), (300, 72, 200),
+                (257, 20, 50), (40768, 640, 640), (163072, 320, 320)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("m,k,n", MM_X3_SHAPES)
+def test_matmul_bias_fp32_split_tf32(cuda, with_bias, m, k, n):
+    """fp32 inputs that TMA can address run the split-TF32 kernel (only
+    `.tf32x3_launches` moves), within the forward bounds of the plain version
+    and within FP64_RMS_TOL of it in float64; a second call gives the same
+    bits."""
+    f32 = torch.float32
+    x = _randn(cuda, 650, f32, m, k)
+    w = _randn(cuda, 651, f32, n, k, scale=k ** -0.5)
+    bias = _randn(cuda, 652, f32, n) if with_bias else None
+    fn = MM.matmul_bias
+    before = (fn.wgmma_launches, fn.tf32x3_launches, fn.fma_launches)
+    y = _check_forward(fn, MM.matmul_bias_plain, RMS_TOL["K11"], x, w, bias)
+    assert (fn.wgmma_launches, fn.tf32x3_launches, fn.fma_launches) == (before[0], before[1] + 1, before[2])
+    assert _fp64_rms((y,), MM.matmul_bias_plain, x, w, bias) <= FP64_RMS_TOL
+    assert torch.equal(y, fn(x, w, bias))
+
+
+@pytest.mark.gpu
+def test_matmul_bias_fp32_unaddressable_takes_the_fma_tile(cuda):
+    """fp32 with K % 4 != 0 (rows off a 16-byte stride), or an x whose base is
+    off a 16-byte boundary, runs the FMA tile (`.fma_launches`; no
+    `.tf32x3_launches`), within the forward bounds."""
+    f32 = torch.float32
+    fn = MM.matmul_bias
+    cases = [(_randn(cuda, 660, f32, 50, 65), _randn(cuda, 661, f32, 40, 65, scale=65 ** -0.5)),
+             (_randn(cuda, 662, f32, 40 * 64 + 1)[1:].view(40, 64), _randn(cuda, 663, f32, 48, 64, scale=0.125))]
+    for x, w in cases:
+        x3, fma = fn.tf32x3_launches, fn.fma_launches
+        _check_forward(fn, MM.matmul_bias_plain, RMS_TOL["K11"], x, w, None)
+        assert (fn.tf32x3_launches, fn.fma_launches) == (x3, fma + 1)
+
+
+@pytest.mark.gpu
+def test_matmul_bias_fp32_keeps_no_weight_copy(cuda):
+    """The split-TF32 route forms W's lo parts in a scratch for the call: after
+    it, device memory has grown by y alone (no copy of W is kept per weight)."""
+    f32 = torch.float32
+    x = _randn(cuda, 670, f32, 256, 640)
+    w = _randn(cuda, 671, f32, 320, 640, scale=640 ** -0.5)
+    torch.cuda.synchronize()
+    before, x3 = torch.cuda.memory_allocated(), MM.matmul_bias.tf32x3_launches
+    y = MM.matmul_bias(x, w)
+    torch.cuda.synchronize()
+    assert MM.matmul_bias.tf32x3_launches == x3 + 1
+    assert torch.cuda.memory_allocated() - before == y.untyped_storage().nbytes()

@@ -198,7 +198,8 @@ def test_failed_build_is_not_repeated(monkeypatch, tmp_path):
 def test_kernel_sources_are_packaged_and_hashed():
     srcs = [os.path.basename(p) for p in _cuda._sources()]
     assert srcs == ["conv3x3.cu", "flash_attention.cu", "flash_attention_bhld_bwd.cu",
-                    "flash_attention_bwd.cu", "group_norm.cu", "group_norm_bwd.cu", "matmul_bias.cu",
+                    "flash_attention_bwd.cu", "flash_attention_bwd_x3.cu", "group_norm.cu", "group_norm_bwd.cu",
+                    "matmul_bias.cu",
                     "temporal_attention.cu", "temporal_attention_bwd.cu", "temporal_attention_bwd_512.cu",
                     "temporal_attention_long.cu", "temporal_attention_long_tc.cu", "temporal_conv.cu"]
     assert len(_cuda._source_hash()) == 16

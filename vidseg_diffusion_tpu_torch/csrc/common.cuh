@@ -23,6 +23,9 @@ constexpr int kBFloat16 = 1;
 constexpr int kErrUnsupported = -1;  // dtype / head dim / tap count not built
 constexpr int kErrBadArgument = -2;  // sizes out of range
 
+// the `route` the split-TF32 tensor-core kernels report (the fp32 attention at D = 512 of
+// tf32x3_attention.cuh, K5 in fp32 at D = 64, K11 in fp32, K6 in fp32 at D = 512)
+constexpr int kRouteTf32x3 = 7;
 // the `route` K2 and K6 report past 32 frames (temporal_attention_long.cu)
 constexpr int kRouteLong = 8;
 // the `route` K2 at D = 512 and K6 in fp32 at D = 64 report up to 32 frames on the tensor-core kernels of

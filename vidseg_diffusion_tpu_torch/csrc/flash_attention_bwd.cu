@@ -27,8 +27,9 @@
 // bf16 at D = 64 runs on wgmma fed by TMA (below: two warpgroups of 64 rows a
 // block, the walked side in 128-row tiles through a four-stage ring); bf16 at
 // D = 16 (the tiny configs' heads, on no full-width path) on mma.sync fed by
-// cp.async (at the end); fp32 (the fp32 UNet check) runs FMAs on shared-memory
-// tiles, templated on D.
+// cp.async (at the end); fp32 at D = 64 runs split-TF32 mma.sync kernels
+// (flash_attention_bwd_x3.cu) where TMA can address q, k, v and g, otherwise
+// (and at D = 16) FMAs on shared-memory tiles, templated on D.
 #include <string.h>
 
 #include "common.cuh"
@@ -1198,15 +1199,24 @@ int launch_bwd_mma16(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// flash_attention_bwd_x3.cu: fp32 at D = 64 on split-TF32 mma.sync kernels
+bool bwd_x3_addressable(const void* q, const void* k, const void* v, const void* o, const void* g,
+                        const long long* st);
+int launch_bwd_x3(const void* q, const void* k, const void* v, const void* o, const void* g, const float* lse,
+                  float* scratch, void* dq, void* dk, void* dv, int B, int H, int Lq, int Lk, const long long* st,
+                  float qscale, float scale, cudaStream_t stream);
+
 }  // namespace vs
 
 // q, k, v, o, g: [B, L, H*D] read through `strides` (24 element strides:
 // (batch, row, head) of q, k, v, o, g, dq, dk, dv; head-dim stride 1);
 // lse: fp32 [B, Lq, H] from K1; delta: fp32 scratch of 2 * B * H * (Lq rounded
 // up to 4) (the dq kernel writes each row's delta there, and in bf16 its LSE,
-// for the dk/dv kernel on the same stream). D in {16, 64}: bf16 runs the wgmma
-// kernels at 64 and the mma.sync kernels at 16, fp32 the FMA kernels. route (or
-// NULL) receives the kernels that ran: 2 wgmma, 1 mma.sync, 0 FMAs.
+// for the dk/dv kernel on the same stream; fp32 at D = 64: the delta pass). D in {16, 64}: bf16 runs the wgmma
+// kernels at 64 and the mma.sync kernels at 16, fp32 the split-TF32 kernels at 64
+// (where TMA can address q, k, v, o and g) and the FMA kernels otherwise. route
+// (or NULL) receives the kernels that ran: 2 wgmma, 1 mma.sync, 7 split TF32, 0
+// FMAs.
 extern "C" int vs_flash_attention_packed_bwd(int dtype, int D, const void* q, const void* k,
                                              const void* v, const void* o, const void* g,
                                              const void* lse, void* delta, void* dq, void* dk,
@@ -1227,6 +1237,9 @@ extern "C" int vs_flash_attention_packed_bwd(int dtype, int D, const void* q, co
   } else if (dtype == vs::kBFloat16) {
     r = 1;
     rc = vs::launch_bwd_mma16(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, strides, qscale, scale, s);
+  } else if (dtype == vs::kFloat32 && D == 64 && vs::bwd_x3_addressable(q, k, v, o, g, strides)) {
+    r = vs::kRouteTf32x3;
+    rc = vs::launch_bwd_x3(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, strides, qscale, scale, s);
   } else if (dtype == vs::kFloat32) {
     r = 0;
     rc = D == 64 ? vs::launch_bwd_fma<64>(q, k, v, o, g, l, dl, dq, dk, dv, B, H, Lq, Lk, st, qscale, scale, s)

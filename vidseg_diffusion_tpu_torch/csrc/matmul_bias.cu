@@ -29,9 +29,29 @@
 // straight from the accumulators with the staging tile's room given to one
 // more stage (4-byte stores half a sector wide: 1.4-1.8x slower).
 // Other bf16 inputs (K % 8 != 0, unaligned bases) take the mma.sync tile of
-// gemm_tile.cuh, fp32 the FMA tile (the card-vs-CPU checks); no main path
-// sends either. The entry reports which kernel ran (`route`). The residual /
-// AlphaBlender epilogue is not here yet.
+// gemm_tile.cuh; no main path sends them.
+// fp32 (every projection of a `--dtype float32` run, and of an fp32 fine-tune)
+// that TMA can address (K % 4 == 0, 16-byte aligned x and W) runs the same
+// persistent loop with split-TF32 products (wgmma_persistent_x3 in
+// wgmma_tile.cuh), after one pass over W that writes its TF32 lo parts into
+// the caller's [N, K] scratch (tf32_lo_kernel: 8 N K bytes moved, dropped with
+// the scratch after the call; a copy kept per weight version held 0.744 GiB
+// beside the SVD UNet's 5.68 GiB of fp32 weights, PERF.md §6): x by a
+// rank-2 tiled map in boxes of BM rows x 32 channels (128-byte fp32 rows under
+// the 128-byte swizzle; each consumer warpgroup forms the lo parts of its own
+// rows in shared memory), W and its lo parts by two maps in boxes of BN rows x
+// 32 channels; each 32-channel slice sums its three products on the tensor
+// cores from zero and is added in fp32 registers. What bounds it: three TF32
+// products, 2 M K N flops each at 495 TFLOP/s (165 in fp32-class), against
+// M K + N K + M N fp32 elements moved. The fp32 sums take twice the bf16
+// tile's registers (a slice's chain beside the tile's sums): the large tile,
+// 128 x 160 (two consumer warpgroups, three stages of 56 KB), has no producer
+// warp (the last warpgroup's first thread refills the ring; 255 registers a
+// thread); short products take 64 x 160 or 64 x 32 (one consumer warpgroup
+// and a producer warp, four stages), by the rounds of tiles an SM walks.
+// Other fp32 inputs take the FMA tile of gemm_tile.cuh. The entry reports
+// which kernel ran (`route`). The residual / AlphaBlender epilogue is not here
+// yet.
 #include "gemm_tile.cuh"
 #include "wgmma_tile.cuh"
 
@@ -68,6 +88,38 @@ __global__ void __launch_bounds__(C::THREADS, 1) matmul_bias_wgmma_kernel(
   extern __shared__ unsigned char mb_smem[];
   const RowsWalk walk{&xmap, &wmap, M, ncol, (K + WT_BK - 1) / WT_BK, C::BM, C::BN};
   wgmma_persistent<C>(walk, ntiles, bias, y, N, mb_smem);
+}
+
+// fp32: the same walk, W's lo parts by a third map (wgmma_persistent_x3's
+// slices of 32 channels)
+struct RowsWalkX3 {
+  const CUtensorMap* xmap;
+  const CUtensorMap* wmap;
+  const CUtensorMap* wlomap;
+  long long M;
+  int ncol, nk, bm, bn;
+  using Tile = RowsWalk::Tile;
+  __device__ __forceinline__ Tile tile(int i) const {
+    const long long row0 = (long long)(i / ncol) * bm;
+    return Tile{row0, (int)min((long long)bm, M - row0), (i % ncol) * bn};
+  }
+  __device__ __forceinline__ int slices(const Tile&) const { return nk; }
+  __device__ __forceinline__ void load(uint32_t a, uint32_t b, uint32_t blo, uint32_t bar, const Tile& t,
+                                       int s) const {
+    tma_load_2d(a, xmap, bar, s * 32, (int)t.out_row0);
+    tma_load_2d(b, wmap, bar, s * 32, t.col0);
+    tma_load_2d(blo, wlomap, bar, s * 32, t.col0);
+  }
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1) matmul_bias_x3_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+    const __grid_constant__ CUtensorMap wlomap, const float* __restrict__ bias, float* __restrict__ y, long long M,
+    int K, int N, int ncol, int ntiles) {
+  extern __shared__ unsigned char mb_smem[];
+  const RowsWalkX3 walk{&xmap, &wmap, &wlomap, M, ncol, (K + 31) / 32, C::BM, C::BN};
+  wgmma_persistent_x3<C>(walk, ntiles, bias, y, N, mb_smem);
 }
 
 template <int NT, bool VEC>
@@ -111,6 +163,67 @@ int launch_matmul_bias_wgmma_cfg(const void* x, const void* w, const void* bias,
   return (int)cudaGetLastError();
 }
 
+// fp32 [rows, K] (K contiguous) in boxes of 32 channels x `box_rows` rows, 128-byte swizzle
+inline int x3_rows_map(const void* base, long long rows, int K, int box_rows, CUtensorMap* map) {
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 4};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  return tma_tiled_map(CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_SWIZZLE_128B, base, 2, dims, strides, box, map);
+}
+
+// W's TF32 lo parts (tf32_lo of wgmma_tile.cuh), four elements a thread and step
+__global__ void __launch_bounds__(256) tf32_lo_kernel(const float4* __restrict__ w, uint4* __restrict__ lo,
+                                                      long long n4) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4; i += (long long)gridDim.x * 256) {
+    const float4 v = w[i];
+    lo[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z), tf32_lo(v.w));
+  }
+}
+
+template <class C>
+int launch_matmul_bias_x3_cfg(const void* x, const void* w, const void* wlo, const void* bias, void* y, long long M,
+                              int K, int N, int sms, cudaStream_t stream) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(matmul_bias_x3_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  unsigned tiles;
+  int ncol;
+  if (!wgmma_grid(M, N, C::BM, C::BN, &tiles, &ncol) || M > 0x7fffffffLL) return kErrBadArgument;
+  CUtensorMap xmap, wmap, wlomap;
+  if (const int rc = x3_rows_map(x, M, K, C::BM, &xmap)) return rc;
+  if (const int rc = x3_rows_map(w, N, K, C::BN, &wmap)) return rc;
+  if (const int rc = x3_rows_map(wlo, N, K, C::BN, &wlomap)) return rc;
+  const unsigned blocks = tiles < (unsigned)sms ? tiles : (unsigned)sms;  // persistent: one block per SM
+  matmul_bias_x3_kernel<C><<<blocks, C::THREADS, C::SMEM_BYTES, stream>>>(
+      xmap, wmap, wlomap, static_cast<const float*>(bias), static_cast<float*>(y), M, K, N, ncol, (int)tiles);
+  return (int)cudaGetLastError();
+}
+
+// What an SM pays under a tiling of bm x bn: its rounds of tiles, each a slice's fixed cost (the split, the
+// barrier, the wait for the products: about half a 128 x 160 slice's products) and its products.
+inline double x3_cost(long long M, int N, int bm, int bn, int sms) {
+  const long long tiles = ((M + bm - 1) / bm) * ((N + bn - 1) / bn);
+  return (double)((tiles + sms - 1) / sms) * (0.5 + (double)bm * bn / (128.0 * 160.0));
+}
+
+// 128 x 160 at the large projections; 64 x 160 where that leaves an SM less (the 2156-row context
+// products); 64 x 32 where even those leave most SMs idle (one-token contexts, 28 rows).
+int launch_matmul_bias_x3(const void* x, const void* w, void* wlo, const void* bias, void* y, long long M, int K,
+                          int N, cudaStream_t stream) {
+  int sms = 0;
+  if (const int rc = device_sms(&sms)) return rc;
+  const long long n4 = (long long)N * K / 4, lo_blocks = (n4 + 255) / 256;
+  tf32_lo_kernel<<<(unsigned)(lo_blocks < 4LL * sms ? lo_blocks : 4LL * sms), 256, 0, stream>>>(
+      static_cast<const float4*>(w), static_cast<uint4*>(wlo), n4);
+  const double big = x3_cost(M, N, 128, 160, sms), mid = x3_cost(M, N, 64, 160, sms),
+               thin = x3_cost(M, N, 64, 32, sms);
+  if (big <= mid && big <= thin)
+    return launch_matmul_bias_x3_cfg<PersistentTileX3<2, 160, 3>>(x, w, wlo, bias, y, M, K, N, sms, stream);
+  if (mid <= thin)
+    return launch_matmul_bias_x3_cfg<PersistentTileX3<1, 160, 4>>(x, w, wlo, bias, y, M, K, N, sms, stream);
+  return launch_matmul_bias_x3_cfg<PersistentTileX3<1, 32, 4>>(x, w, wlo, bias, y, M, K, N, sms, stream);
+}
+
 // rows one SM walks under a tiling of bm x 160
 inline long long mb_rows_per_sm(long long M, int N, int bm, int sms) {
   return persistent_rows_per_sm(((M + bm - 1) / bm) * ((N + 159) / 160), bm, sms);
@@ -149,10 +262,12 @@ int launch_matmul_bias_mma(const void* x, const void* w, const void* bias, void*
 
 }  // namespace vs
 
-// x [M, K], w [N, K], bias [N] or NULL, y [M, N]; all contiguous, one dtype.
+// x [M, K], w [N, K], bias [N] or NULL, y [M, N]; all contiguous, one dtype;
+// w_lo (fp32 only, or NULL): an [N, K] fp32 scratch, which the split-TF32 route
+// fills with the TF32 lo parts of w (w less its TF32 cut, rounded to TF32).
 // route (or NULL) receives the kernel that ran: 2 the wgmma kernel, 1 the
-// mma.sync tile, 0 the fp32 FMA tile.
-extern "C" int vs_matmul_bias(int dtype, const void* x, const void* w, const void* bias, void* y,
+// mma.sync tile, 7 the fp32 split-TF32 wgmma kernel, 0 the fp32 FMA tile.
+extern "C" int vs_matmul_bias(int dtype, const void* x, const void* w, void* w_lo, const void* bias, void* y,
                               long long M, int K, int N, int* route, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0) return vs::kErrBadArgument;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -166,6 +281,9 @@ extern "C" int vs_matmul_bias(int dtype, const void* x, const void* w, const voi
       rc = vs::gemm_wide_tile(N) ? vs::launch_matmul_bias_mma<4>(x, w, bias, y, M, K, N, s)
                                  : vs::launch_matmul_bias_mma<2>(x, w, bias, y, M, K, N, s);
     }
+  } else if (dtype == vs::kFloat32 && w_lo != nullptr && K % 4 == 0 && vs::aligned16({x, w, w_lo})) {
+    r = vs::kRouteTf32x3;
+    rc = vs::launch_matmul_bias_x3(x, w, w_lo, bias, y, M, K, N, s);
   } else if (dtype == vs::kFloat32) {
     unsigned blocks;
     int ncol;

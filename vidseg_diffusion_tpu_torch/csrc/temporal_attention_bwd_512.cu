@@ -111,7 +111,7 @@ __device__ __forceinline__ void ld_b(uint32_t (&b)[4], uint32_t panel, int np, i
 // x (fp32 bits) = hi + lo: hi cut to TF32, lo the rest rounded to TF32
 __device__ __forceinline__ void split_cut(uint32_t x, uint32_t& hi, uint32_t& lo) {
   hi = x & 0xffffe000u;
-  lo = x3::split_lo(__uint_as_float(x));
+  lo = tf32_lo(__uint_as_float(x));
 }
 template <int N>
 __device__ __forceinline__ void split_cut(const uint32_t (&x)[N], uint32_t (&hi)[N], uint32_t (&lo)[N]) {

@@ -73,8 +73,6 @@
 
 namespace vs {
 
-constexpr int kRouteTf32x3 = 7;  // the `route` these kernels report
-
 namespace x3 {
 
 enum Role { kFwd = 0, kDq = 1, kDk = 2, kDv = 3 };
@@ -115,17 +113,10 @@ struct Args {
   const float* delta;       // dq, dk: rowsum(g o) as [B * H][lq_pad]
 };
 
-__device__ __forceinline__ uint32_t tf32_round(uint32_t bits) { return (bits + 0x1000u) & 0xffffe000u; }
-
-// lo of x: x less its TF32 cut, rounded to TF32
-__device__ __forceinline__ uint32_t split_lo(float x) {
-  return tf32_round(__float_as_uint(x - __uint_as_float(__float_as_uint(x) & 0xffffe000u)));
-}
-
 // x = hi + lo as register operands (hi is x: the tensor cores cut it)
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = __float_as_uint(x);
-  lo = split_lo(x);
+  lo = tf32_lo(x);
 }
 
 // byte offset of fp32 column c (0-31) of row r in a panel of 128-byte rows under the 128-byte swizzle
@@ -226,7 +217,7 @@ __device__ __forceinline__ void split_panel(uint32_t hi, uint32_t lo, int t, boo
                    "f"(v.w)
                    : "memory");
     }
-    const uint32_t l[4] = {split_lo(v.x), split_lo(v.y), split_lo(v.z), split_lo(v.w)};
+    const uint32_t l[4] = {tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z), tf32_lo(v.w)};
     asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(lo + 16 * c), "r"(l[0]), "r"(l[1]), "r"(l[2]),
                  "r"(l[3])
                  : "memory");

@@ -740,6 +740,305 @@ __device__ __forceinline__ void wgmma_persistent(const Walk& walk, int ntiles, c
   }
 }
 
+// ---------------------------------------------------------------------------
+// The persistent loop in fp32-class arithmetic (K11 in fp32; K4's fp32 route is
+// the next caller it is built for): the walk, the producer warp and the ring of
+// wgmma_persistent, every product split TF32. An fp32 operand x is hi + lo: hi
+// is x as stored (the tensor cores read the top 19 bits of an fp32 value) and
+// lo = x - hi rounded to TF32 (tf32_lo below), and a b ~
+// hi_a lo_b + lo_a hi_b + hi_a hi_b. What differs from the bf16 loop:
+// - a slice is 32 channels (a 128-byte fp32 row under the 128-byte swizzle), so
+//   a stage holds the A box (BM x 32), the B box and the B lo box (BN x 32 each:
+//   the caller forms B's lo parts in device memory before the products, one
+//   pass over B, which every row tile reads. Split per slice in shared memory
+//   instead (each block splitting every B box it reads, the consumers meeting
+//   at one barrier a slice), the large products read 1.18-1.34x slower with A's
+//   fragments split in registers and 1.32-1.45x with A split in shared memory,
+//   PERF.md §6);
+// - A's lo part is formed by the warpgroup that reads it: each consumer
+//   warpgroup splits its own 64 rows of the stage into one of two lo slots of
+//   its own (no other warpgroup reads them, so a warpgroup barrier suffices),
+//   the next slice's while this slice's products run;
+// - the tensor cores' fp32 sums round toward zero (PERF.md §6), so each
+//   slice's twelve wgmmas (four 8-channel steps, three products each, small
+//   terms first) sum from zero into `part`, which is added to the tile's
+//   accumulator in fp32 registers: a chain is one load long;
+// - the epilogue adds the bias in fp32 and stores each thread's pairs of
+//   columns straight from the accumulator (8 bytes a thread, a quad fills a
+//   32-byte sector), with no staging tile;
+// - a slice's chain and the tile's accumulator take BN fp32 registers a thread
+//   together. A producer warp beside two consumer warpgroups (288 threads, which
+//   ptxas counts as 384) held the block to 168 registers, and 128 x 160 spilled;
+//   so two warpgroups have no producer warp: the first thread of the last one,
+//   once it has handed a stage back, waits until the other has too (the stage's
+//   `empty` mbarrier) and asks TMA for the slice STAGES ahead, walking the tiles
+//   with its own cursor (256 threads keep 255 registers). One warpgroup keeps
+//   its producer warp (160 threads: no cap below 255; the folded producer read
+//   1.3-2.4x slower there, PERF.md §6). The tile is 128 x 160 (two
+//   warpgroups), 64 x 160 or 64 x 32 (one); the caller picks the one whose
+//   rounds of tiles cost an SM least (a 2156-row context product walks 34 tiles
+//   of 128 x 160 on 132 SMs).
+// The walk's load is load(a, b, b_lo, bar, tile, s): A_BYTES + 2 B_BYTES to bar;
+// tile(i) may be asked for an i past the last tile and must not fault.
+template <int NWG_, int BN_, int STAGES_>
+struct PersistentTileX3 {
+  static constexpr int NWG = NWG_, BN = BN_, STAGES = STAGES_;
+  static constexpr int BM = 64 * NWG, BK = 32;         // rows a tile, channels a slice
+  static constexpr bool PRODUCER_WARP = NWG == 1;     // else the last warpgroup's first thread produces
+  static constexpr int THREADS = 128 * NWG + (PRODUCER_WARP ? 32 : 0);
+  static constexpr int A_BYTES = BM * 128, B_BYTES = BN * 128, STAGE_BYTES = A_BYTES + 2 * B_BYTES;
+  static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+  static constexpr int LO_SLOT = 64 * 128;             // a warpgroup's 64 rows of A's lo parts
+  static constexpr int BAR_OFFSET = RING_BYTES + NWG * 2 * LO_SLOT;  // STAGES full, then STAGES empty mbarriers
+  static constexpr int SMEM_BYTES = BAR_OFFSET + 16 * STAGES + 1024;
+  static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
+  static_assert(B_BYTES % 1024 == 0 && STAGES >= 2, "tile shape");
+};
+
+// D (64 x 160 fp32) (+)= A (64 x 8 TF32) * B (8 x 160 TF32), both K-major from
+// shared memory; scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_m64n160k8_tf32_ss(float (&d)[80], uint64_t desc_a, uint64_t desc_b,
+                                                        int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "%80, %81, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d)
+      : "memory");
+}
+
+// One m64nBNk8 TF32 wgmma, both operands K-major from shared memory: the widths
+// the fp32 loop is built for
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[BN / 2], uint64_t desc_a, uint64_t desc_b, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<160>(float (&d)[80], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  wgmma_m64n160k8_tf32_ss(d, desc_a, desc_b, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<32>(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  wgmma_m64n32k8_tf32_ss(d, desc_a, desc_b, scale_d);
+}
+
+// The lo part of an fp32 value for split-TF32 products (x = hi + lo, hi being x
+// as stored, which the tensor cores cut to TF32): x less its TF32 cut, rounded to
+// TF32 (nearest, ties away from zero, on the bits)
+__device__ __forceinline__ uint32_t tf32_lo(float x) {
+  const float rest = x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+  return (__float_as_uint(rest) + 0x1000u) & 0xffffe000u;
+}
+
+// smem: the kernel's dynamic shared memory, C::SMEM_BYTES of it.
+template <class C, class Walk>
+__device__ __forceinline__ void wgmma_persistent_x3(const Walk& walk, int ntiles, const float* __restrict__ bias,
+                                                    float* __restrict__ y, int N, unsigned char* smem_raw) {
+  constexpr int NWG = C::NWG, STAGES = C::STAGES, BN = C::BN;
+  constexpr int A_BYTES = C::A_BYTES, B_BYTES = C::B_BYTES;
+  constexpr int STAGE_BYTES = C::STAGE_BYTES, LO_SLOT = C::LO_SLOT;
+  unsigned char* smem = smem_align_1024(smem_raw);
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t full_bar = sbase + C::BAR_OFFSET, empty_bar = full_bar + 8 * STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, NWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if constexpr (C::PRODUCER_WARP) {
+    if (wg == NWG) {   // the producer warp: one thread keeps the ring full across the block's tiles
+      if (tid == 128 * NWG) {
+        int stage = 0, it = 0;
+        uint32_t parity = 1;  // of the empty barriers: the ring's round before this one
+        for (int i = blockIdx.x; i < ntiles; i += gridDim.x) {
+          const typename Walk::Tile t = walk.tile(i);
+          const int nsl = walk.slices(t);
+          for (int s = 0; s < nsl; ++s, ++it) {
+            if (it >= STAGES) mbar_wait(empty_bar + 8 * stage, parity);
+            const uint32_t sa = sbase + stage * STAGE_BYTES, bar = full_bar + 8 * stage;
+            mbar_expect_tx(bar, STAGE_BYTES);
+            walk.load(sa, sa + A_BYTES, sa + A_BYTES + B_BYTES, bar, t, s);
+            if (++stage == STAGES) {
+              stage = 0;
+              parity ^= 1;
+            }
+          }
+        }
+      }
+      return;
+    }
+  }
+  // else the producer is the first thread of the last warpgroup: its cursor over the block's (tile, slice) pairs
+  const bool producer = !C::PRODUCER_WARP && tid == 128 * (NWG - 1);
+  int p_tile = blockIdx.x, p_slice = 0, p_it = 0;
+  typename Walk::Tile p_t = walk.tile(p_tile);
+  int p_nsl = p_tile < ntiles ? walk.slices(p_t) : 0;
+  auto produce = [&]() {   // the next slice of the block into its stage, once every warpgroup has freed it
+    if (p_tile >= ntiles) return;
+    const int stage = p_it % STAGES;
+    if (p_it >= STAGES) mbar_wait(empty_bar + 8 * stage, ((p_it / STAGES) - 1) & 1);
+    const uint32_t sa = sbase + stage * STAGE_BYTES, bar = full_bar + 8 * stage;
+    mbar_expect_tx(bar, STAGE_BYTES);
+    walk.load(sa, sa + A_BYTES, sa + A_BYTES + B_BYTES, bar, p_t, p_slice);
+    ++p_it;
+    if (++p_slice == p_nsl) {
+      p_slice = 0;
+      p_tile += gridDim.x;
+      if (p_tile < ntiles) {
+        p_t = walk.tile(p_tile);
+        p_nsl = walk.slices(p_t);
+      }
+    }
+  };
+  if (producer)
+    for (int k = 0; k < STAGES; ++k) produce();
+
+  const int l = tid & 127, warp = l >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int wsync = 1 + wg;  // this warpgroup's named barrier
+  const uint32_t lo_base = sbase + C::RING_BYTES + wg * 2 * LO_SLOT;
+  // this warpgroup's 64 rows of the A box of `stage` -> their lo parts in `slot` (same swizzled offsets)
+  auto split_rows = [&](int stage, int slot) {
+    const uint32_t src = sbase + stage * STAGE_BYTES + wg * LO_SLOT, dst = lo_base + slot * LO_SLOT;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t off = 16 * (l + 128 * k);
+      float4 v;
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                   : "r"(src + off)
+                   : "memory");
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst + off), "r"(tf32_lo(v.x)),
+                   "r"(tf32_lo(v.y)), "r"(tf32_lo(v.z)), "r"(tf32_lo(v.w))
+                   : "memory");
+    }
+    fence_proxy_async();  // the wgmmas read the lo slot through the async proxy
+  };
+  const bool vec_out = N % 2 == 0 && reinterpret_cast<uintptr_t>(y) % 8 == 0;
+  int stage = 0;
+  uint32_t parity = 0;  // of the full barriers: the ring's current round
+  float acc[BN / 2], part[BN / 2];
+  for (int i = blockIdx.x; i < ntiles; i += gridDim.x) {
+    const typename Walk::Tile t = walk.tile(i);
+    const int nsl = walk.slices(t);
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+    mbar_wait(full_bar + 8 * stage, parity);
+    split_rows(stage, 0);
+    bar_sync(wsync, 128);
+    for (int s = 0; s < nsl; ++s) {
+      const uint32_t st = sbase + stage * STAGE_BYTES;
+      const uint32_t sa = st + wg * LO_SLOT, sb = st + A_BYTES, sbl = sb + B_BYTES;
+      const uint32_t sal = lo_base + (s & 1) * LO_SLOT;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {   // hi lo, lo hi, hi hi of each 8-channel step, from zero
+        wgmma_tf32_ss<BN>(part, wgmma_desc(sa + kk * 32, 16, 1024), wgmma_desc(sbl + kk * 32, 16, 1024), kk);
+        wgmma_tf32_ss<BN>(part, wgmma_desc(sal + kk * 32, 16, 1024), wgmma_desc(sb + kk * 32, 16, 1024), 1);
+        wgmma_tf32_ss<BN>(part, wgmma_desc(sa + kk * 32, 16, 1024), wgmma_desc(sb + kk * 32, 16, 1024), 1);
+      }
+      wgmma_commit();
+      const int next = stage + 1 == STAGES ? 0 : stage + 1;
+      const uint32_t next_parity = next == 0 ? parity ^ 1 : parity;
+      if (s + 1 < nsl) {   // the next slice's lo rows while these products run
+        mbar_wait(full_bar + 8 * next, next_parity);
+        split_rows(next, (s + 1) & 1);
+      }
+      wgmma_wait<0>();
+      wgmma_fence_regs(part);
+      if (l == 0) mbar_arrive(empty_bar + 8 * stage);
+      if (producer) produce();
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) acc[j] += part[j];
+      stage = next;
+      parity = next_parity;
+      if (s + 1 < nsl) bar_sync(wsync, 128);   // the next slice's lo rows are in place
+    }
+
+    // epilogue: bias in fp32, each thread's column pairs of rows gid, gid + 8 of its warp's 16
+    const int rows = t.rows - wg * 64;   // of this warpgroup's 64 that exist
+    float* yw = y + (t.out_row0 + wg * 64) * N + t.col0;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = j * 8 + tig * 2, col = t.col0 + c;
+      float b0 = 0.f, b1 = 0.f;
+      if (bias != nullptr) {
+        if (col < N) b0 = bias[col];
+        if (col + 1 < N) b1 = bias[col + 1];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + gid + 8 * h;
+        if (r >= rows || col >= N) continue;
+        float* dst = yw + (long long)r * N + c;
+        const float v0 = acc[4 * j + 2 * h] + b0, v1 = acc[4 * j + 2 * h + 1] + b1;
+        if (vec_out && col + 1 < N) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          dst[0] = v0;
+          if (col + 1 < N) dst[1] = v1;
+        }
+      }
+    }
+  }
+}
+
 // Rows one SM walks when `tiles` tiles of `bm` rows are spread over `sms` SMs:
 // its rounds of tiles times bm (the last round is the one that leaves SMs idle).
 inline long long persistent_rows_per_sm(long long tiles, int bm, int sms) { return (tiles + sms - 1) / sms * bm; }

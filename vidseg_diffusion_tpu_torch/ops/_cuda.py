@@ -38,7 +38,7 @@ NVCC_FLAGS = (
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel an entry with a `route` out-parameter reports it ran; 5 and 6 are
 # the normalise-first kernels that hold a head's K and V in shared memory, 7 the
-# fp32 D = 512 attention on split TF32 products (wgmma), 8 the temporal attention
+# fp32 D = 512 attention, K5 in fp32 at D = 64 and K11 in fp32 on split TF32 products, 8 the temporal attention
 # past 32 frames (K2 and K6: tensor-core tiles at D = 64 and 512, the frame walk at 16),
 # 9 the tensor-core kernels of temporal_attention_long_tc.cu up to 32 frames (K2 at
 # D = 512, K6 in fp32 at D = 64)
@@ -174,8 +174,9 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, x, dy, a, s, coef, dx, B, R, C, vec, rows_per_chunk, nchunks, silu, stream
     "vs_group_norm_bwd_apply": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # dtype, x, w [N, K], bias (NULL: none), y, M, K, N, route (int*), stream
-    "vs_matmul_bias": [_I, _P, _P, _P, _P, _L, _I, _I, _P, _P],
+    # dtype, x, w [N, K], w_lo (fp32: an [N, K] scratch the split-TF32 route fills with W's TF32 lo parts;
+    # NULL: none), bias (NULL: none), y, M, K, N, route (int*), stream
+    "vs_matmul_bias": [_I, _P, _P, _P, _P, _P, _L, _I, _I, _P, _P],
     # dtype, x, w [9, Cout, Cin], bias (NULL: none), y, B, H, W, Cin, Cout, stream
     "vs_conv3x3_same": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

@@ -335,15 +335,16 @@ def _packed_backward_math(q, k, v, out, lse, g, heads, scale):
     d = hd // heads
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     dt = q.dtype
-    qf = (q * _rounded_qscale(scale, dt).to(q.device)).reshape(b, lq, heads, d).float()
-    kf = k.reshape(b, lk, heads, d).float()
-    vf = v.reshape(b, lk, heads, d).float()
-    gf = g.to(dt).reshape(b, lq, heads, d).float()
-    delta = (g.float() * out.float()).reshape(b, lq, heads, d).sum(-1)        # [B, Lq, H]
-    p = torch.exp2(torch.einsum("bqhd,bkhd->bhqk", qf, kf) - lse.permute(0, 2, 1)[..., None])
+    acc = torch.float64 if dt == torch.float64 else torch.float32   # float64 inputs: the float64 reference
+    qf = (q * _rounded_qscale(scale, dt).to(q.device)).reshape(b, lq, heads, d).to(acc)
+    kf = k.reshape(b, lk, heads, d).to(acc)
+    vf = v.reshape(b, lk, heads, d).to(acc)
+    gf = g.to(dt).reshape(b, lq, heads, d).to(acc)
+    delta = (g.to(acc) * out.to(acc)).reshape(b, lq, heads, d).sum(-1)        # [B, Lq, H]
+    p = torch.exp2(torch.einsum("bqhd,bkhd->bhqk", qf, kf) - lse.to(acc).permute(0, 2, 1)[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
-    ds = (p * (dp - delta.permute(0, 2, 1)[..., None])).to(dt).float()
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), gf)
+    ds = (p * (dp - delta.permute(0, 2, 1)[..., None])).to(dt).to(acc)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).to(acc), gf)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * (1.0 / LOG2_E)
     return (dq.reshape(b, lq, hd).to(dt), dk.reshape(b, lk, hd).to(k.dtype),
@@ -355,7 +356,9 @@ def flash_attention_packed_backward(q, k, v, out, lse, g, heads: int,
     """K5: (dq, dk, dv) of K1 from its saved LSE, on packed [B, L, H*D]
     through strides; two kernels, dq over key tiles and dk/dv over query
     tiles, each the only writer of its outputs: bf16 at D = 64 on wgmma
-    (`.wgmma_launches`), at D = 16 on mma.sync (`.mma_launches`), fp32 on FMAs.
+    (`.wgmma_launches`), at D = 16 on mma.sync (`.mma_launches`), fp32 at
+    D = 64 on split-TF32 mma.sync products where TMA can address q, k, v, out
+    and g (`.tf32x3_launches`), else on FMAs (`.fma_launches`).
     At one 512-dim head (the VideoAttnBlock's attn2) K13's D = 512 kernels run
     on the packed strides: [B, L, 1 x 512] is [B, L, 1, 512] read as (batch,
     row, head), the LSE [B, L, 1] is K13's [B, Lq, H], as JAX's _fa_bwd and
@@ -411,7 +414,8 @@ flash_attention_packed_backward.launches = 0
 flash_attention_packed_backward.dim_launches = collections.Counter()
 flash_attention_packed_backward.wgmma_launches = 0   # bf16 D = 64 and 512 (K13's kernels), on the wgmma kernels
 flash_attention_packed_backward.mma_launches = 0   # bf16 D = 16 (K5's and K13's), on the mma.sync kernels
-flash_attention_packed_backward.tf32x3_launches = 0   # fp32 D = 512 (K13's kernels), on split TF32 products
+flash_attention_packed_backward.tf32x3_launches = 0   # fp32 D = 64 and 512 (K13's kernels), on split TF32 products
+flash_attention_packed_backward.fma_launches = 0   # fp32 D = 16, and fp32 D = 64 TMA cannot address, on FMAs
 
 
 def _bwd_scratch(b, h, lq, device):

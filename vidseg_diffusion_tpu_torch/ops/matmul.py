@@ -16,9 +16,14 @@ both are TPU findings about XLA's epilogue fusions. Eager PyTorch fuses no
 epilogue, so here every CUDA call launches K11 and every CPU call takes the
 plain version. On the card bf16 inputs that TMA can address (K % 8 == 0,
 16-byte aligned x and W: every projection of the UNets) run the persistent
-wgmma kernel; other bf16 inputs the mma.sync tile, fp32 the FMA tile. The
-kernel's entry reports which one ran: `matmul_bias.wgmma_launches` counts the
-wgmma launches beside `.launches`.
+wgmma kernel, other bf16 inputs the mma.sync tile. fp32 inputs that TMA can
+address (K % 4 == 0, 16-byte aligned x and W) run the same persistent loop on
+split-TF32 products (three TF32 products of x = hi + lo and W = hi + lo, an
+fp32-class result): the entry first writes W's lo parts into a scratch of W's
+size that this wrapper hands it for the call. Other fp32 inputs take the FMA
+tile. The kernel's entry reports which one ran:
+`matmul_bias.wgmma_launches`, `.tf32x3_launches` and `.fma_launches` count
+those launches beside `.launches`.
 
 Gradients (the JAX package's _mb custom_vjp, matmul.py:125-132, is closed-form
 matrix products outside any kernel): dx = g @ W, dW = g^T @ x, db = sum g, with
@@ -38,11 +43,13 @@ from vidseg_diffusion_tpu_torch.ops import _cuda
 
 def matmul_bias_plain(x, weight, bias=None):
     """Plain version: fp32-accumulating x @ W^T, bias added in fp32, one cast
-    to x's dtype (the kernel's arithmetic)."""
+    to x's dtype (the kernel's arithmetic); float64 inputs in float64 (the
+    split-TF32 kernel's reference)."""
     matmul_bias_plain.calls += 1
-    y = x.float() @ weight.float().t()
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    y = x.to(acc) @ weight.to(acc).t()
     if bias is not None:
-        y = y + bias.float()
+        y = y + bias.to(acc)
     return y.to(x.dtype)
 
 
@@ -64,12 +71,15 @@ def _matmul_bias_forward(x, weight, bias):
     m = x.numel() // k
     y = torch.empty(x.shape[:-1] + (n,), dtype=dtype, device=x.device)
     if m:
+        lo = torch.empty((n, k), dtype=dtype, device=x.device) if dtype == torch.float32 else None
         route = _cuda.call_routed(
             "vs_matmul_bias", _cuda.DTYPE_CODES[dtype], x.data_ptr(), weight.data_ptr(),
-            None if bias is None else bias.data_ptr(), y.data_ptr(), m, k, n,
+            None if lo is None else lo.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(), m, k, n,
         )
         matmul_bias.launches += 1
         matmul_bias.wgmma_launches += route == "wgmma"
+        matmul_bias.tf32x3_launches += route == "tf32x3"
+        matmul_bias.fma_launches += route == "fma"
     return y
 
 
@@ -108,4 +118,6 @@ def matmul_bias(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
 
 
 matmul_bias.launches = 0
-matmul_bias.wgmma_launches = 0
+matmul_bias.wgmma_launches = 0   # bf16 that TMA can address, on the persistent wgmma kernel
+matmul_bias.tf32x3_launches = 0   # fp32 that TMA can address, on the split-TF32 wgmma kernel
+matmul_bias.fma_launches = 0   # other fp32, on the FMA tile

@@ -5,7 +5,7 @@ route of K1 and K3, and the GroupNorm backward at the main paths'
 shapes, beside the one PyTorch call for the same function, on one CUDA card.
 
     python3 -m vidseg_diffusion_tpu_torch.scripts.time_kernels [--only k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3,
-                                                                       k5d16,fp32,long,short]
+                                                                       k5d16,fp32,long,short,x3d64,x3mm,mem]
                                                               [--root CHECKOUT]
 
 Each call is captured 20 times into a CUDA graph and the replay is timed with
@@ -77,7 +77,18 @@ backward K5 there on the 7-frame training clip, and K3 / K13 at [2, 1, 64,
 named; the backward profiled), held to the plain version and to the plain
 version in float64 (relative RMS). fp32 library calls run with TF32 off (full
 fp32, as the kernels compute), and an fp32 row's bound by operations is flops
-over 165 TFLOP/s (three TF32 products at 495), bf16's over 989. `--root` times
+over 165 TFLOP/s (three TF32 products at 495), bf16's over 989. K5 in fp32 at
+D = 64 and K11 in fp32 on split-TF32 products (`x3d64`: K5 at ds1 on a B = 2
+slice, at the training batch of 28, at ds2 and at the four spatial sites of
+chip_smoke.py's train_grad phase; `x3mm`: K11 at every fp32 shape chip_smoke.py
+times, the SVD projections and the kernel's edges): CUDA graphs beside the
+library call in full fp32 (SDPA's backward profiled; F.linear) and the bound,
+held to the plain version and to it in float64 (relative RMS) where the plain
+version fits the card, with the route counters one call moved; with `--root`
+the parent's kernels at the same shapes (FMA kernels there). `mem` (not in
+the default) reads the peak device memory of the fp32 full-width SVD UNet's
+forward and loss backward at chip_smoke.py's unet and train_grad shapes, and
+what ops/relayout.py's weight-copy caches hold. `--root` times
 the kernels of another checkout (a parent commit unpacked beside this one) with
 this script, so two versions compare in one call.
 Prints the card's name and power limit
@@ -137,6 +148,14 @@ K5_D16_SHAPES, K13_D16_SHAPE = [(2, 5824, 2), (28, 1456, 4)], (2, 2, 1024)
 # K5 at ds1 (B = 2), K2 and K6 at ds1 (t = 14, two videos), K4 at the UNet's ds1 time_stack
 FP32_K1_SHAPES, FP32_K5_SHAPE, FP32_TEMPORAL_SHAPE, FP32_K4_SHAPE = (
     [(2, 5824, 5), (28, 5824, 5)], (2, 5824, 5), (5824, 5), (2, 14, 5824, 320, 320))
+# K5 in fp32 at D = 64 on split TF32 (`x3d64`): (B, L, H) at ds1 on a B = 2 slice, at the training batch of 28,
+# at ds2, and the train_grad phase's spatial sites (two 2-frame videos of 16 x 16 latents: 256, 64, 16, 4 tokens)
+X3_K5_SHAPES = [(2, 5824, 5), (28, 5824, 5), (28, 1456, 10), (4, 256, 5), (4, 64, 10), (4, 16, 20), (4, 4, 20)]
+# K11 in fp32 on split TF32 (`x3mm`): (M, K, N, bias): chip_smoke.py's fp32 rows (ds2 with a bias, SD to_k),
+# the SVD projections and the kernel's edges (an N off the 160-wide tile, a K off the 32-channel slice)
+X3_MM_SHAPES = [(40768, 640, 640, True), (2156, 1024, 320, False), (163072, 320, 320, False),
+                (163072, 320, 320, True), (10192, 1280, 1280, True), (2548, 1280, 1280, False), (28, 1024, 320, False),
+                (2156, 1024, 1280, False), (193, 320, 168, True), (2156, 1032, 640, True)]
 # normalise-first sites: (layout, B, Lq, Lk, H, D): SD 2.1's cross-attention at ds1 and ds2 (the CFG batch of
 # 28 frames), the SDXL base's at 1024x1024, SD 2.1's at 512x512 (null-text inversion, T5, the demo), CLIP ViT-H
 # (the SVD conditioner), CLIP ViT-L/14 (the safety filter, two images)
@@ -755,6 +774,125 @@ def time_x3(torch, F, rn):
               f"{errs}; routes of one call {moved}", flush=True)
 
 
+def vs_float64(torch, got, plain, args):
+    """'max error relative to max |plain|, rel. RMS, vs float64 rel. RMS' for each output."""
+    ref = plain(*args)
+    ref64 = plain(*(a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args))
+    got, ref, ref64 = ((x,) if torch.is_tensor(x) else x for x in (got, ref, ref64))
+    return ", ".join("%.2e relative, rel. RMS %.2e" % errors(x, r) + ", vs float64 rel. RMS %.2e"
+                     % ((x.double() - r64).norm() / r64.norm()).item() for x, r, r64 in zip(got, ref, ref64))
+
+
+def moved_routes(torch, counter, fn):
+    """The route counters one call of fn moved."""
+    before = routes(counter)
+    fn()
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in routes(counter).items() if v != before[k]}
+
+
+def time_x3_d64(torch, F, rn):
+    """K5 in fp32 at D = 64 (`x3d64`) as CUDA graphs beside SDPA's backward in
+    full fp32 (profiled) and the bound (bytes, or the five products at 165
+    TFLOP/s), held to the plain version and to it in float64 up to B = 4 at
+    5824 tokens' worth of logits."""
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    for b, l, h in X3_K5_SHAPES:
+        q, k, v, g = (rn(b, l, h * 64) for _ in range(4))
+        heads = lambda x: x.view(b, l, h, 64).transpose(1, 2)
+        out, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True)
+        args = (q, k, v, out, lse, g, h)
+        moved = moved_routes(torch, A.flash_attention_packed_backward, lambda: A.flash_attention_packed_backward(*args))
+        errs = (vs_float64(torch, A.flash_attention_packed_backward(*args), A.flash_attention_packed_backward_reference,
+                           args) if b * h * l * l <= 2 * 5 * 5824 * 5824 else "plain version not run (memory)")
+        ms = graph_ms(torch, lambda: A.flash_attention_packed_backward(*args), 3 if l > 1000 else 20)
+        leaves = [heads(x).detach().requires_grad_() for x in (q, k, v)]
+        y = F.scaled_dot_product_attention(*leaves)
+        lib_ms = profiled_ms(torch, lambda: torch.autograd.grad(y, leaves, heads(g), retain_graph=True))
+        bound = bound_ms(4 * 8 * b * l * h * 64 + 4 * b * h * l, 10 * b * h * l * l * 64, "fp32")
+        print(f"X3D64 K5 fp32 [{b},{l},{h}x64]: {ms:.4f} ms (SDPA backward {fmt_ms(lib_ms)}, "
+              f"{sdpa_backend(torch, F, *leaves)}; bound {bound:.4f}), {errs}; routes of one call {moved}", flush=True)
+        del q, k, v, g, out, lse, args, leaves, y
+        torch.cuda.empty_cache()
+
+
+def time_x3_mm(torch, F, rn, MM):
+    """K11 in fp32 (`x3mm`) as CUDA graphs beside F.linear in full fp32 and the
+    bound (bytes, or 2 M K N flops at 165 TFLOP/s), held to the plain version
+    and to it in float64."""
+    for m, k, n, with_bias in X3_MM_SHAPES:
+        x, w = rn(m, k), rn(n, k) / k ** 0.5
+        b = rn(n) if with_bias else None
+        moved = moved_routes(torch, MM.matmul_bias, lambda: MM.matmul_bias(x, w, b))
+        errs = vs_float64(torch, MM.matmul_bias(x, w, b), MM.matmul_bias_plain, (x, w, b))
+        ms = graph_ms(torch, lambda: MM.matmul_bias(x, w, b))
+        lib_ms = graph_ms(torch, lambda: F.linear(x, w, b))
+        bound = bound_ms(4 * (m * k + n * k + m * n + (n if with_bias else 0)), 2 * m * k * n, "fp32")
+        print(f"X3MM K11 fp32 [{m},{k}->{n}]{' bias' if with_bias else ''}: {ms:.4f} ms (F.linear {lib_ms:.4f}; "
+              f"bound {bound:.4f}), {errs}; routes of one call {moved}", flush=True)
+        del x, w, b
+        torch.cuda.empty_cache()
+
+
+def time_memory(torch):
+    """Peak device memory (`mem`) of the fp32 runs of chip_smoke.py's unet and
+    train_grad phases on the card: the full-width SVD UNet's forward (a 16 x 16
+    latent, [uc; c] of one 2-frame video) and its diffusion loss's backward
+    (two 2-frame videos, remat on), with what the weight-copy caches of
+    ops/relayout.py hold after each."""
+    from vidseg_diffusion_tpu_torch.config import load_model_spec
+    from vidseg_diffusion_tpu_torch.engine.build import randomize_
+    from vidseg_diffusion_tpu_torch.models.unet import UNetModel
+    from vidseg_diffusion_tpu_torch.ops import _cuda, relayout
+    from vidseg_diffusion_tpu_torch.scripts import train_path
+
+    def cached():   # GiB each RelayoutCache holds, by the module attribute that keeps it
+        held = {}
+        for name, mod in list(sys.modules.items()):
+            for attr, val in (vars(mod).items() if name.startswith("vidseg_diffusion_tpu_torch") else ()):
+                if isinstance(val, relayout.RelayoutCache):
+                    held[f"{name.rsplit('.', 1)[-1]}.{attr}"] = round(sum(
+                        e[2].numel() * e[2].element_size() for e in val._entries.values() if e[2] is not None)
+                        / 2 ** 30, 3)
+        return held
+
+    def report(tag, unet):
+        weights = sum(p.numel() * p.element_size() for p in unet.parameters())
+        print(f"MEM {tag}: peak {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, weights "
+              f"{weights / 2 ** 30:.3f} GiB, relayout caches (GiB) {cached()}", flush=True)
+
+    root = os.path.dirname(os.path.dirname(_cuda.CSRC))
+    t, b = 2, 4
+    spec = load_model_spec(os.path.join(root, "configs/inference/svd.yaml"), num_frames=t)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    unet = UNetModel(spec.unet_config).cuda()
+    randomize_(unet, torch.Generator(device="cuda").manual_seed(1))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    with torch.no_grad():
+        unet(rn(b, 16, 16, spec.unet_config.in_channels), rn(b), rn(b, 1, 1024), rn(b, 768), num_video_frames=t,
+             image_only_indicator=torch.zeros(2, t, device="cuda"))
+    torch.cuda.synchronize()
+    report("unet fp32 forward [4,16,16] t=2", unet)
+    del unet
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = train_path.unet_config(dtype=torch.float32, num_frames=t)
+    with torch.device("cuda"):
+        unet = UNetModel(cfg)
+    randomize_(unet, torch.Generator(device="cuda").manual_seed(3))
+    cond = {"crossattn": rn(b, 1, 1024), "vector": rn(b, 768), "concat": rn(b, 16, 16, 4)}
+    loss = train_path.loss_module()(train_path.network_factory(t)(unet), rn(b, 16, 16, 4), cond,
+                                    sigma=torch.exp(-1.2 + 1.2 * rn(b)), noise=rn(b, 16, 16, 4))
+    loss.backward()
+    torch.cuda.synchronize()
+    report("train_grad fp32 forward + backward [4,16,16] t=2 remat", unet)
+    del unet, loss, cond
+    torch.cuda.empty_cache()
+
+
 def time_normalised(torch, F, rn):
     """The normalise-first route at NF_SHAPES beside SDPA and beside the
     kernel that streams the keys (what ran there before the resident kernels),
@@ -869,9 +1007,10 @@ def main():
     import torch.nn.functional as F
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", default="k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3,k5d16,fp32,long,short",
+    parser.add_argument("--only",
+                        default="k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3,k5d16,fp32,long,short,x3d64,x3mm",
                         help="comma-separated: k11, k1, k4, gn, k2, k6, k5, k13, nf, gnb, k5w, k6w, x3, k5d16, fp32, "
-                             "long, short")
+                             "long, short, x3d64, x3mm, mem (not in the default)")
     parser.add_argument("--root", default=None,
                         help="import vidseg_diffusion_tpu_torch (and build its kernels) from this checkout")
     args = parser.parse_args()
@@ -895,7 +1034,7 @@ def main():
         log = f.read().splitlines()
     for i, line in enumerate(log):
         if "Function properties for" in line and any(n in line for n in ("wgmma", "temporal_attn", "mma_kernel",
-                                                                         "tf32x3")):
+                                                                         "tf32x3", "x3_kernel")):
             print("ptxas:", line.split("for ")[-1], "|", " | ".join(s.strip() for s in log[i + 1:i + 3]))
         if "C7512" in line:
             print("ptxas:", line.strip())
@@ -915,6 +1054,12 @@ def run(torch, F, A, MM, only):
     bf = torch.bfloat16
     if "x3" in only:
         time_x3(torch, F, rn)
+    if "x3d64" in only:
+        time_x3_d64(torch, F, rn)
+    if "x3mm" in only:
+        time_x3_mm(torch, F, rn, MM)
+    if "mem" in only:
+        time_memory(torch)
     if "k4" in only:
         time_tconv(torch, F, rn)
     if "gn" in only:
