@@ -303,13 +303,23 @@ and 512 on the tensor-core kernels and 16 on the frame walk (fp32 at D = 512 als
 plain version in float64), against their plain versions in bf16 and fp32 (K5 and K13
 at bf16 D = 16 on their mma.sync kernels), and the normalise-first mode
 of K1 and K3 at D = 16 in bf16, also held to mha_reference. The fp32 routes at
-D = 64 are timed at their ds1 shapes beside the library call in full fp32: K1
-at [2,5824,5x64] and the CFG batch [28,5824,5x64] (held to the plain version
-two batch items at a time), K2 and K6 at [28,5824,5,64]
+D = 64 are timed at their ds1 shapes beside the library call in full fp32: K2
+and K6 at [28,5824,5,64]
 (t = 14; K6 on the resident split-TF32 kernel, also at t = 2 and 32, held to
 the plain version in float64: the temporal_attention_direct_backward_fp32_tc
-entry, whose launches train_grad's run reports), K4 at the UNet's ds1
-time_stack [2,14,5824,320]. K5 in fp32 at D = 64 and K11 in fp32 run split-TF32
+entry, whose launches train_grad's run reports). K1 / K3 in fp32 at D = 64 and
+K4 in fp32 run split-TF32 tensor-core kernels (route tf32x3; entries
+flash_attention_packed_tf32x3_d64, whose launches train_grad's run reports (also
+the unet and api_fp32 runs'), and temporal_conv_1x1_tf32x3, whose launches the
+unet run reports (also train_grad's and model_options')): K1 at ds1 on a B = 2
+slice and the CFG batch (the plain version two batch items at a time), ds2, ds4,
+mid, SD 2.1's 77-key cross-attention and train_grad's four spatial sites, K3 at
+ViT-L/14's [2,16,257,64]; K4 at the UNet's ds1, ds2 and ds4 time_stacks, the
+VAE's 448x832 frames, [2,14,91,320], one frame, Cin = 1032 and dx at ds4; each
+also held to the plain version in float64 (FP64_RMS_TOL). check_fp32_routes
+asserts, in unet, train_grad, each api_fp32 run and model_options, that every
+fp32 K1 / K3 launch at D = 64 (and 512) and every fp32 K4 launch TMA can address
+ran on tf32x3 and the rest on the FMA kernels. K5 in fp32 at D = 64 and K11 in fp32 run split-TF32
 tensor-core kernels (route tf32x3; entries flash_attention_packed_backward_tf32x3_d64,
 whose launches train_grad's run reports, and matmul_bias_tf32x3, whose launches the
 unet, api_fp32 and train_grad runs report): K5 at ds1 [2,5824,5x64] and at
@@ -317,8 +327,10 @@ train_grad's four spatial sites ([4,256,5x64], [4,64,10x64], [4,16,20x64],
 [4,4,20x64]), K11 at ds2 [40768,640->640] with a bias and the SD context product
 [2156,1024->320], each also held to the plain version in float64 (FP64_RMS_TOL).
 The FMA kernels that fp32 inputs TMA cannot address still take are held too,
-each counted on its wrapper's .fma_launches: K5's at ds1 [2,5824,5x64] with
-bases 4 bytes off a 16-byte boundary, K11's tile at [40768,638->640] (K % 4 != 0).
+each counted on its wrapper's .fma_launches: K5's and K1's at ds1 [2,5824,5x64] with
+bases 4 bytes off a 16-byte boundary, K1's at D = 16, K11's tile at [40768,638->640]
+(K % 4 != 0), K4's at the VAE's 3-channel conv_out_time_mix and at the ds1
+time_stack with x 4 bytes off.
 
 Before the last line come the kernels JSON (per kernel: launches in the run
 of its path and in the other runs (injected, SD, diffusion training,
@@ -512,6 +524,23 @@ KERNELS = {
         replaces="vidseg_diffusion_tpu/ops/matmul.py:94", rms_tol=5e-4,
         route_of=("matmul_bias",), route="tf32x3", path="unet", paths=("unet", "api_fp32", "train_grad"),
     ),
+    # K1 and K3 in fp32 at D = 64 and K4 in fp32 on split-TF32 products (route 7, "tf32x3"): K1's mma.sync kernel
+    # (flash_attention_x3.cu; JAX's packed forward at :527, also _small_seq_kernel at :687 and K3's _flash_kernel at
+    # :297) and K4 on the split-TF32 consumer of the persistent wgmma loop (launched from temporal_conv.cu). Their
+    # launches are the wrappers' tf32x3 launches in the run of their path (train_grad: the full-width UNet's fp32
+    # forward under a gradient, every K1 launch at D = 64; unet: fp32 forwards; api_fp32: the tiny SDXL VAEs'
+    # 64-dim mid attention (K3); model_options: svd_tiny's TemporalConv variants, in `paths`)
+    "flash_attention_packed_tf32x3_d64": dict(
+        id="K1/K3 fp32 D=64 split TF32", source="vidseg_diffusion_tpu_torch/csrc/flash_attention_x3.cu",
+        replaces="vidseg_diffusion_tpu/ops/attention.py:527", rms_tol=1e-3,
+        route_of=("flash_attention_packed", "flash_attention"), route="tf32x3", path="train_grad",
+        paths=("unet", "api_fp32", "train_grad"),
+    ),
+    "temporal_conv_1x1_tf32x3": dict(
+        id="K4 fp32 split TF32", source="vidseg_diffusion_tpu_torch/csrc/temporal_conv.cu",
+        replaces="vidseg_diffusion_tpu/ops/temporal_conv.py:103", rms_tol=5e-4,
+        route_of=("temporal_conv_1x1",), route="tf32x3", path="unet", paths=("unet", "train_grad", "model_options"),
+    ),
 }
 # the instances at the head dims the tuned kernels are not built for (ROADMAP
 # section C): entries of their own, on the wrapper of the kernel they instance,
@@ -681,6 +710,8 @@ HEADLINE = {  # the shape of its path each kernel is timed at
     "temporal_attention_direct_backward_fp32_tc": "ds1 [28,5824,5,64] t=14 fp32",
     "flash_attention_packed_backward_tf32x3_d64": "ds1 B=2 slice [2,5824,5x64] fp32",
     "matmul_bias_tf32x3": "ds2 [40768,640->640] bias fp32",
+    "flash_attention_packed_tf32x3_d64": "ds1 B=2 slice [2,5824,5x64] fp32",
+    "temporal_conv_1x1_tf32x3": "UNet ds1 [2,14,5824,320] fp32",
     "flash_attention_normalised_d64": "ViT-L/14 [2,16,257,64]",
     "flash_attention_packed_backward_d512": "VideoAttnBlock attn2 [7,5824,1x512] bf16",
     "temporal_attention_direct_backward_d512": "VideoAttnBlock time mix [7,5824,1,512] t=7 bf16",
@@ -981,7 +1012,6 @@ def kernel_cases(torch):
         ("kt=1 [2,14,364,1280]", 2, 14, 364, 1280, 1280, 1, bf),
         ("kt=2 UNet ds2 [2,14,1456,640]", 2, 14, 1456, 640, 640, 2, bf),
         ("kt=4 UNet ds2 [2,14,1456,640]", 2, 14, 1456, 640, 640, 4, bf),
-        ("fp32 [2,14,91,320]", 2, 14, 91, 320, 320, 3, torch.float32),
     ):
         dname = "bf16" if dtype == bf else "fp32"
         add(kernel="temporal_conv_1x1", label=label, make=tconv(b, t, m, ci, co, kt, dtype),
@@ -1093,18 +1123,44 @@ def kernel_cases(torch):
             iters=3, work=attn_work(2, h, l, l, 64, backward=True),
             library=lambda q, k, v, o, lse, g, h: sdpa_backward([heads_view(x, h) for x in (q, k, v)],
                                                                 heads_view(g, h)))
-    # the fp32 routes at D = 64 at their ds1 shapes, drawn after every other case: K1's FMA kernel at a B = 2
-    # slice and at the CFG batch of 28 (its plain version two batch items at a time), K5's split-TF32 kernels,
-    # K2's CUDA-core kernel at t = 14, K6's resident split-TF32 kernel at t = 14, 2 and 32, K4's FMA tile at the
-    # UNet's ds1 time_stack
+    # the fp32 routes at D = 64 and K4 in fp32, drawn after every other case: K1 / K3 and K5's split-TF32
+    # kernels, K2's CUDA-core kernel at t = 14, K6's resident split-TF32 kernel at t = 14, 2 and 32, K4's
+    # split-TF32 kernel; and the FMA kernels the fp32 inputs TMA cannot address keep
     fp32_d64 = []
     add = lambda **kw: fp32_d64.append(kw)
     f32 = torch.float32
+    # K1 in fp32 at D = 64 on the split-TF32 mma.sync kernel (route tf32x3), each also held to the plain version
+    # in float64: ds1 on a B = 2 slice and at the CFG batch of 28 (its plain version two batch items at a time),
+    # ds2, ds4, mid, SD 2.1's 77-key cross-attention at ds1 and train_grad's four spatial sites; K3 on its bhld
+    # strides at ViT-L/14's heads
+    k1f = A.flash_attention_packed
+    for label, b, lq, lk, h in (("ds1 B=2 slice [2,5824,5x64] fp32", 2, 5824, 5824, 5),
+                                ("ds1 CFG batch [28,5824,5x64] fp32", 28, 5824, 5824, 5),
+                                ("ds2 [28,1456,10x64] fp32", 28, 1456, 1456, 10),
+                                ("ds4 [28,364,20x64] fp32", 28, 364, 364, 20), ("mid [28,91,20x64] fp32", 28, 91, 91, 20),
+                                ("SD cross ds1 [28,5824x77,5x64] fp32", 28, 5824, 77, 5),
+                                ("train_grad ds1 [4,256,5x64] fp32", 4, 256, 256, 5),
+                                ("train_grad ds2 [4,64,10x64] fp32", 4, 64, 64, 10),
+                                ("train_grad ds4 [4,16,20x64] fp32", 4, 16, 16, 20),
+                                ("train_grad mid [4,4,20x64] fp32", 4, 4, 4, 20)):
+        kern, plain = k1(lq, lk)
+        add(kernel="flash_attention_packed_tf32x3_d64", label=label,
+            make=lambda b=b, lq=lq, lk=lk, h=h: (rn(b, lq, h * 64), rn(b, lk, h * 64), rn(b, lk, h * 64), h),
+            counted=lambda: k1f.tf32x3_launches, kern=kern,
+            plain=plain if b * h * lq * lk <= 10 * 5824 * 5824 else by_pairs(plain),
+            iters=2 if lq * lk > 1e7 else 5, work=attn_work(b, h, lq, lk, 64, dtype="fp32"), library=sdpa_packed)
+    add(kernel="flash_attention_packed_tf32x3_d64", label="K3 ViT-L/14 [2,16,257,64] fp32",
+        make=bhld(2, 16, 257, 64, dtype=f32), counted=lambda: A.flash_attention.tf32x3_launches, kern=A.flash_attention,
+        plain=A.flash_attention_reference, iters=5, work=attn_work(2, 16, 257, 257, 64, dtype="fp32"),
+        library=lambda q, k, v: (lambda: sdpa(q, k, v)))
+    # K1's FMA kernel, which fp32 D = 64 inputs that TMA cannot address keep (and D = 16): q, k and v at ds1
+    # with their bases 4 bytes off a 16-byte boundary; SDPA on aligned copies of the same values
     kern, plain = k1(5824, 5824)
-    for label, b in (("ds1 B=2 slice [2,5824,5x64] fp32", 2), ("ds1 CFG batch [28,5824,5x64] fp32", 28)):
-        add(kernel="flash_attention_packed", label=label, make=lambda b=b: tuple(rn(b, 5824, 320) for _ in range(3)) + (5,),
-            kern=kern, plain=plain if b == 2 else by_pairs(plain), iters=2,
-            work=attn_work(b, 5, 5824, 5824, 64, dtype="fp32"), library=sdpa_packed)
+    add(kernel="flash_attention_packed", label="ds1 B=2 slice [2,5824,5x64] fp32 unaligned (FMA)",
+        make=lambda: tuple(rn(2 * 5824 * 320 + 1)[1:].view(2, 5824, 320) for _ in range(3)) + (5,),
+        counted=lambda: k1f.fma_launches, kern=kern, plain=plain, iters=2,
+        work=attn_work(2, 5, 5824, 5824, 64, dtype="fp32"),
+        library=lambda q, k, v, h: sdpa_packed(q.clone(), k.clone(), v.clone(), h))
 
     # K5 in fp32 on the split-TF32 mma.sync kernels (route tf32x3) at ds1 and at train_grad's four spatial
     # sites (two 2-frame videos of 16 x 16 latents), also held to the plain version in float64
@@ -1157,9 +1213,36 @@ def kernel_cases(torch):
             plain=lambda q, k, v, o, g, t=t: A.temporal_attention_direct_backward_reference(q, k, v, o, g, t=t),
             iters=3, work=attn_work(2 * 5824, 5, t, t, 64, backward=True, dtype="fp32"),
             library=lambda q, k, v, o, g, f=frames_t: sdpa_backward([f(x) for x in (q, k, v)], f(g)))
-    add(kernel="temporal_conv_1x1", label="UNet ds1 [2,14,5824,320] fp32", make=tconv(2, 14, 5824, 320, 320, dtype=f32),
-        kern=TC.temporal_conv_1x1, plain=TC.temporal_conv_1x1_reference, iters=3,
-        work=tconv_work(2, 14, 5824, 320, 320, dtype="fp32"), library=conv3d_call)
+    # K4 in fp32 on the split-TF32 wgmma kernel (route tf32x3), each also held to the plain version in float64:
+    # the UNet's time_stacks at ds1, ds2 and ds4, the VAE decoder's at 448x832, the edges (91 tokens, one frame,
+    # Cin = 1032: a last slice of 8 channels) and dx (+ dW and db, library products) at ds4
+    tc = TC.temporal_conv_1x1
+    for label, b, t, m, ci, co in (("UNet ds1 [2,14,5824,320] fp32", 2, 14, 5824, 320, 320),
+                                   ("UNet ds2 [2,14,1456,640] fp32", 2, 14, 1456, 640, 640),
+                                   ("UNet ds4 [2,14,364,1280] fp32", 2, 14, 364, 1280, 1280),
+                                   ("VAE 448x832 [1,7,372736,128] fp32", 1, 7, 372736, 128, 128),
+                                   ("fp32 [2,14,91,320]", 2, 14, 91, 320, 320), ("T=1 [2,1,5824,320] fp32", 2, 1, 5824, 320, 320),
+                                   ("Cin=1032 [2,2,1456,1032->640] fp32", 2, 2, 1456, 1032, 640)):
+        add(kernel="temporal_conv_1x1_tf32x3", label=label, make=tconv(b, t, m, ci, co, dtype=f32),
+            counted=lambda: tc.tf32x3_launches, kern=tc, plain=TC.temporal_conv_1x1_reference, iters=3,
+            work=tconv_work(b, t, m, ci, co, dtype="fp32"), library=conv3d_call)
+    bts, fl, pk = tconv_work(2, 14, 364, 1280, 1280, dtype="fp32")
+    add(kernel="temporal_conv_1x1_tf32x3", label="dx UNet ds4 [2,14,364,1280] fp32",
+        make=lambda: (rn(2, 14, 364, 1280), rn(3, 1280, 1280) / (3 * 1280) ** 0.5, rn(2, 14, 364, 1280)),
+        counted=lambda: tc.tf32x3_launches, kern=TC.temporal_conv_1x1_backward,
+        plain=TC.temporal_conv_1x1_backward_reference, iters=3, work=(2 * bts, 2 * fl, pk), library=conv3d_backward)
+    # K4's FMA tile, which fp32 inputs TMA cannot address keep: the VAE's 3-channel conv_out_time_mix and the
+    # UNet's ds1 time_stack with x 4 bytes off a 16-byte boundary (F.conv3d on an aligned copy)
+    add(kernel="temporal_conv_1x1", label="VAE conv_out_time_mix [1,7,372736,3] fp32 (FMA)",
+        make=tconv(1, 7, 372736, 3, 3, dtype=f32), counted=lambda: tc.fma_launches, kern=tc,
+        plain=TC.temporal_conv_1x1_reference, iters=3, work=tconv_work(1, 7, 372736, 3, 3, dtype="fp32"),
+        library=conv3d_call)
+    add(kernel="temporal_conv_1x1", label="UNet ds1 [2,14,5824,320] fp32 unaligned (FMA)",
+        make=lambda: (rn(2 * 14 * 5824 * 320 + 1)[1:].view(2, 14, 5824, 320), rn(3, 320, 320) / (3 * 320) ** 0.5,
+                      rn(320)),
+        counted=lambda: tc.fma_launches, kern=tc, plain=TC.temporal_conv_1x1_reference, iters=3,
+        work=tconv_work(2, 14, 5824, 320, 320, dtype="fp32"),
+        library=lambda x, w, bias: conv3d_call(x.clone(), w, bias))
     return (cases + head_dim_cases(torch, rn) + group_norm_cases(torch, rn) + gemm_cases(torch, rn) + late
             + t5_demo_safety_cases(torch, rn, k1, packed, packed_mha, packed_streamed, bhld, bhld_streamed,
                                    sdpa_packed)
@@ -1258,7 +1341,8 @@ def head_dim_cases(torch, rn):
         mk = lambda *shapes, dtype=dtype: (lambda: tuple((rn(*s) * 1.5).to(dtype) for s in shapes))
         for label, b, l, h in (("tiny ds1 B=2 slice [2,5824,2x16]", 2, 5824, 2), ("tiny ds2 [28,1456,4x16]", 28, 1456, 4)):
             add = dict(iters=3, work=attn_work(b, h, l, l, 16, dtype=dname))
-            cases.append(dict(kernel="flash_attention_packed_d16", label=f"{label} {dname}",
+            fma = {} if dtype == torch.bfloat16 else {"counted": lambda: A.flash_attention_packed.fma_launches}
+            cases.append(dict(kernel="flash_attention_packed_d16", label=f"{label} {dname}", **fma,
                               make=lambda b=b, l=l, h=h, mk=mk: mk(*[(b, l, h * 16)] * 3)() + (h,),
                               kern=lambda q, k, v, h: A.flash_attention_packed(q, k, v, h),
                               plain=lambda q, k, v, h: A.flash_attention_packed_reference(q, k, v, h),
@@ -1761,7 +1845,8 @@ def phase_kernels(torch):
         # FP64_RMS_TOL where the split-TF32 kernels ran
         fp32 = args[0].dtype == torch.float32
         fp64_rms = (fp64_rel_rms(torch, plain, args, outs)
-                    if fp32 and kname.startswith(("flash_attention", "temporal_attention", "matmul_bias")) else None)
+                    if fp32 and kname.startswith(("flash_attention", "temporal_attention", "matmul_bias",
+                                                  "temporal_conv")) else None)
         if x3 or case.get("fp64_held"):
             check(fp64_rms <= FP64_RMS_TOL, f"{kname} {label}: relative RMS error {fp64_rms} against float64 "
                                             f"(tol {FP64_RMS_TOL})")
@@ -1828,14 +1913,16 @@ def phase_kernels(torch):
 
 def tf32x3_launches():
     """Launches of the split-TF32 kernels (the fp32 attention at D = 512 both
-    ways, K5 in fp32 at D = 64, K11 in fp32, K6 in fp32 at D = 512), as the
-    launches reported them."""
+    ways, K1 / K3 and K5 in fp32 at D = 64, K11 and K4 in fp32, K6 in fp32 at D
+    = 512), as the launches reported them."""
     from vidseg_diffusion_tpu_torch.ops import attention as A
     from vidseg_diffusion_tpu_torch.ops import matmul as MM
+    from vidseg_diffusion_tpu_torch.ops import temporal_conv as TC
 
     return sum(f.tf32x3_launches for f in (A.flash_attention_packed, A.flash_attention,
                                            A.flash_attention_packed_backward, A.flash_attention_backward,
-                                           A.temporal_attention_direct_backward, MM.matmul_bias))
+                                           A.temporal_attention_direct_backward, MM.matmul_bias,
+                                           TC.temporal_conv_1x1))
 
 
 def resident_launches():
@@ -1954,9 +2041,10 @@ def k1_at_cfg_batch(torch):
 def phase_unet(torch):
     """Full-width UNet forwards, the SVD video UNet and the SD 2.1 image UNet:
     kernels on the card vs plain versions on the CPU, same fp32 weights and
-    inputs (TF32 off on the card); every K11 launch of the two on the
-    split-TF32 kernel (route tf32x3): the run whose launches the
-    matmul_bias_tf32x3 entry reports."""
+    inputs (TF32 off on the card); every K11 launch of the two, every K1 / K3
+    launch at D = 64 and every K4 launch on the split-TF32 kernels (route
+    tf32x3): the run whose launches the matmul_bias_tf32x3 and
+    temporal_conv_1x1_tf32x3 entries report."""
     import copy
 
     from vidseg_diffusion_tpu_torch.config import load_model_spec
@@ -1994,7 +2082,8 @@ def phase_unet(torch):
         check(err <= UNET_REL_TOL * scale, f"{config} UNet on the card disagrees with the CPU plain path")
         del unet, cpu_unet
         torch.cuda.empty_cache()
-    ROUTE_COUNTS["unet"] = check_k11_tf32x3("unet")
+    check_k11_tf32x3("unet")
+    ROUTE_COUNTS["unet"] = check_fp32_routes("unet")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
 
 
@@ -2009,6 +2098,28 @@ def check_k11_tf32x3(tag):
     check(n > 0 and got == {"wgmma": 0, "tf32x3": n, "fma": 0},
           f"[{tag}] K11 fp32 launches by route {got}, expected all {n} on tf32x3")
     print(f"[{tag}] K11 in fp32: {n} launches, by route {json.dumps(got)}", flush=True)
+    return routes
+
+
+def check_fp32_routes(tag, narrow=0):
+    """An fp32 run: every K1 / K3 launch at D = 64 and 512 since reset_counts()
+    on the split-TF32 kernels (route tf32x3), the others (D = 16 and 80) on
+    the FMA kernel, none on a bf16 route; every K4 launch on the split-TF32
+    kernel but `narrow` of them (Cin % 4 != 0: the VAE decoder's 3-channel
+    conv_out_time_mix, forward and dx), which took the FMA tile; returns the
+    routes."""
+    from vidseg_diffusion_tpu_torch.ops import temporal_conv as TC
+
+    routes, dims = read_routes(), read_dims()
+    got = {n: routes[n] for n in ("flash_attention_packed", "flash_attention", "temporal_conv_1x1")}
+    want = {n: {r: 0 for r in by_route} for n, by_route in got.items()}
+    for n in ("flash_attention_packed", "flash_attention"):
+        x3 = x3_dim_launches(dims, n)
+        want[n].update(tf32x3=x3, fma=sum(dims[n].values()) - x3)
+    want["temporal_conv_1x1"].update(tf32x3=TC.temporal_conv_1x1.launches - narrow, fma=narrow)
+    check(got == want, f"[{tag}] fp32 K1 / K3 / K4 launches by route {got}, expected {want} (head dims "
+                       f"{ {n: dims[n] for n in ('flash_attention_packed', 'flash_attention')} })")
+    print(f"[{tag}] fp32 K1 / K3 / K4 launches by route {json.dumps(got)}", flush=True)
     return routes
 
 
@@ -2081,6 +2192,8 @@ def phase_train_grad(torch):
           f"[train_grad] K5 launches by route {k5_routes} and head dim {dict(k5.dim_launches)}, expected {want}")
     print(f"[train_grad] K5 in fp32 at D = 64: {k5.launches} launches, by route {json.dumps(k5_routes)}", flush=True)
     check_k11_tf32x3("train_grad")
+    # K1 in fp32 at D = 64 and K4 in fp32 (forward and dx): every launch on the split-TF32 kernels
+    check_fp32_routes("train_grad")
     t0 = time.perf_counter()
     loss_cpu, g_cpu = grads(cpu_unet, "cpu")
     cpu_s = time.perf_counter() - t0
@@ -2145,7 +2258,7 @@ ROUTED = ("flash_attention_packed", "flash_attention", "temporal_conv_1x1", "mat
 ROUTE_NAMES = ("wgmma", "narrow", "mma", "normalised", "resident", "wide", "cluster", "tf32x3", "long", "tc_short",
                "fma")
 # the wrappers whose fp32 launches run the split-TF32 kernels (route "tf32x3"), by the head dims they do so at
-X3_DIMS = {"flash_attention_packed": (512,), "flash_attention": (512,), "flash_attention_packed_backward": (64, 512),
+X3_DIMS = {"flash_attention_packed": (64, 512), "flash_attention": (64, 512), "flash_attention_packed_backward": (64, 512),
            "flash_attention_backward": (512,), "temporal_attention_direct_backward": (512,)}
 X3_WRAPPERS = tuple(X3_DIMS)
 
@@ -2320,15 +2433,16 @@ def check_routes(tag, launches, narrow=0, normalised=None, wide=0, long_frames=0
                                                           "flash_attention_backward")}
     want["flash_attention_packed_backward"].update(mma=0, fma=0)   # bf16 D = 16; fp32 off the split-TF32 route
     want["matmul_bias"].update(tf32x3=0, fma=0)   # fp32
-    want["flash_attention_packed"] = {"wgmma": launches["flash_attention_packed"], "mma": 0,
+    want["flash_attention_packed"] = {"wgmma": launches["flash_attention_packed"], "mma": 0, "fma": 0,
                                       "normalised": normalised.get("flash_attention_packed", 0)}
     nf3 = normalised.get("flash_attention", 0)
     nf3_wgmma = sum(n for d, n in DIM_COUNTS[tag]["flash_attention.normalised"].items()
                     if d in K3_NORMALISED_WGMMA_DIMS)
-    want["flash_attention"] = {"wgmma": launches["flash_attention"] - nf3 + nf3_wgmma, "normalised": nf3}
+    want["flash_attention"] = {"wgmma": launches["flash_attention"] - nf3 + nf3_wgmma, "normalised": nf3, "fma": 0}
     for name, d in RESIDENT_NF_DIM.items():
         want[name]["resident"] = DIM_COUNTS[tag][f"{name}.normalised"].get(d, 0)
-    want["temporal_conv_1x1"] = {"wgmma": launches["temporal_conv_1x1"] - narrow, "narrow": narrow}
+    want["temporal_conv_1x1"] = {"wgmma": launches["temporal_conv_1x1"] - narrow, "narrow": narrow, "tf32x3": 0,
+                                 "fma": 0}
     want["temporal_attention_direct"] = {"mma": launches["temporal_attention_direct"] - wide - long_frames
                                          - tc_short, "wide": wide, "long": long_frames, "tc_short": tc_short}
     want["temporal_attention_direct_backward"] = {"mma": launches["temporal_attention_direct_backward"], "wide": 0,
@@ -2817,7 +2931,7 @@ def phase_model_options(torch):
     unet_in = (torch.randn(b, 16, 16, 8, generator=g), torch.randn(b, generator=g),
                torch.randn(b, 1, 1024, generator=g), torch.randn(b, 768, generator=g))
     z = torch.randn(t, 8, 8, 4, generator=g)
-    total = {}
+    total, narrow = {}, 0
     reset_counts()
     for name, opts in MODEL_OPTIONS.items():
         models = [("UNet", UNetModel(dataclasses.replace(spec.unet_config, **opts)),
@@ -2847,10 +2961,13 @@ def phase_model_options(torch):
                   f"card forward + backward {card_s:.2f} s", flush=True)
             check(k4 == want_k4 and card_taps == want_taps,
                   f"[model_options] {name} {part}: K4 launches {k4}, taps {card_taps}")
+            if (kh, kw) == (1, 1):   # K4's launches on the FMA tile: forward (Cin) and dx (Cout) off 4 channels
+                narrow += sum((m.weight.shape[1] % 4 > 0) + (m.weight.shape[0] % 4 > 0) for m in convs)
             del model, cpu_model
     launches, plain_calls = read_counts()
     check(launches["temporal_conv_1x1"] > 0, "[model_options] K4 never launched")
-    DIM_COUNTS["model_options"], ROUTE_COUNTS["model_options"] = read_dims(), read_routes()
+    DIM_COUNTS["model_options"], ROUTE_COUNTS["model_options"] = read_dims(), check_fp32_routes("model_options",
+                                                                                                narrow)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
     torch.cuda.empty_cache()
     return launches
@@ -4449,6 +4566,7 @@ def check_api_run(tag, label, fp32=False):
         dims = read_dims()
         check_tf32x3(f"{tag} {label}", {n: x3_dim_launches(dims, n) for n in X3_WRAPPERS})
         check_k11_tf32x3(f"{tag} {label}")
+        check_fp32_routes(f"{tag} {label}")
         off = {k: {r: n for r, n in v.items() if r not in ("normalised", "tf32x3", "tc_short", "fma") and n}
                for k, v in routes.items()}
         check(all(not v for v in off.values()) and routes["flash_attention_packed"]["normalised"] ==

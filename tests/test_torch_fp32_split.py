@@ -38,6 +38,13 @@ packed flash attention (its Pallas backward in interpret mode) and K11 in fp32
 32-channel slice, the bias added in fp32) to _matmul_bias_impl in interpret
 mode, each within FP32_TOL of JAX and RMS_TOL of float64, with a one-pass
 negative control each.
+
+K1 / K3 in fp32 at D = 64 (csrc/flash_attention_x3.cu: S a chain a 32-column
+panel, a base-2 online softmax over 32-key tiles, P V a chain a key tile) is
+held to _flash_attention_packed_impl (o and LSE) and _small_batched_attention_impl
+in interpret mode, and K4 in fp32 (the same persistent loop as K11: a chain a
+tap's 32-channel slice) to _temporal_conv_impl in interpret mode, each within
+FP32_TOL of JAX and RMS_TOL of float64, with a one-pass negative control each.
 """
 
 import jax
@@ -47,6 +54,7 @@ import pytest
 
 from vidseg_diffusion_tpu.ops import attention as jatt
 from vidseg_diffusion_tpu.ops import matmul as jmm
+from vidseg_diffusion_tpu.ops import temporal_conv as jtc
 
 FP32_TOL = 1e-4    # max |emulation - JAX| / max(1, max |JAX|)
 RMS_TOL = 1e-5     # ||emulation - fp64|| / ||fp64||
@@ -517,3 +525,164 @@ def test_k11_one_tf32_pass_fails_its_bound():
     assert _rel_rms(one, ref) > RMS_TOL
     assert _rel_rms(_k11(x, w, None, _mm_split_panels), ref) < RMS_TOL
 
+
+
+# -- K1 / K3 in fp32 at D = 64 (csrc/flash_attention_x3.cu) --------------------------
+#
+# mma.sync m16n8k8 on split TF32: qf = q * qscale in fp32, S one chain a 32-column
+# panel of the head dim (the two added in fp32: _mm_split_panels), a base-2 online
+# softmax over 32-key tiles (the running max and sum rescaled by exp2(m_old - m_new)),
+# and P V one chain a key tile, added to the rescaled output in fp32; o = acc / l,
+# LSE = m + log2 l. In fp32 the bf16 kernels' roundings are the identity, so the one
+# kernel stands for _flash_kernel_packed (with its LSE), _small_seq_kernel and
+# _flash_kernel.
+
+K1_TILE = 32         # keys a tile of K1's fp32 kernel: one P V chain
+
+
+def _k1_head(q, k, v, mm):
+    """o and the base-2 LSE of one [L, 64] head with K1's chains (fp32 with `mm`
+    a split or one-pass product, float64 with _mm64)."""
+    dt = np.float64 if mm is _mm64 else np.float32
+    d = q.shape[1]
+    q, k, v = (x.astype(dt) for x in (q, k, v))
+    qf = q * dt(np.float32(LOG2_E / np.sqrt(d)))
+    panels = (lambda a, b: a @ b) if mm is _mm64 else (
+        lambda a, b: _mm_split_panels(a, b) if mm is _mm_split else sum(
+            _mm_one_pass(a[:, c:c + PANEL], b[c:c + PANEL]) for c in range(0, a.shape[1], PANEL)))
+    s = panels(qf, k.T)
+    m = np.full(q.shape[0], -np.inf, dt)
+    l = np.zeros(q.shape[0], dt)
+    acc = np.zeros(q.shape, dt)
+    for c in range(0, k.shape[0], K1_TILE):
+        st = s[:, c:c + K1_TILE]
+        mx = np.maximum(m, st.max(-1))
+        alpha = np.exp2(m - mx)
+        p = np.exp2(st - mx[:, None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[:, None] + mm(p, v[c:c + K1_TILE])
+        m = mx
+    return acc / l[:, None], m + np.log2(l)
+
+
+def _k1_run(q, k, v, h, mms):
+    """q [b, lq, h x 64], k, v [b, lk, h x 64]: for each of `mms`, K1's o and LSE [b, lq, h]."""
+    runs = []
+    for mm in mms:
+        dt = np.float64 if mm is _mm64 else np.float32
+        o, lse = np.zeros(q.shape, dt), np.zeros(q.shape[:2] + (h,), dt)
+        for bi in range(q.shape[0]):
+            for hh in range(h):
+                c = slice(64 * hh, 64 * hh + 64)
+                o[bi, :, c], lse[bi, :, hh] = _k1_head(q[bi, :, c], k[bi, :, c], v[bi, :, c], mm)
+        runs.append((o, lse))
+    return runs
+
+
+def _k1_inputs(b, lq, lk, h, seed):
+    rs = np.random.RandomState(seed)
+    return ((rs.randn(b, lq, h * 64) * 1.5).astype(np.float32), (rs.randn(b, lk, h * 64) * 1.5).astype(np.float32),
+            rs.randn(b, lk, h * 64).astype(np.float32))
+
+
+K1_CASES = [(1, 77, 91, 2), (2, 91, 77, 3), (1, 257, 257, 2), (1, 100, 45, 5), (2, 33, 130, 1)]
+
+
+@pytest.mark.parametrize("b,lq,lk,h", K1_CASES, ids=[f"{b}x{lq}x{lk}x{h}" for b, lq, lk, h in K1_CASES])
+def test_k1_d64_split_matches_the_pallas_kernel_and_fp64(b, lq, lk, h):
+    """K1 in fp32 at D = 64 with its kernel's chains (77, 91 and 257 tokens,
+    Lq != Lk both ways, lengths off the 32-key tiles): o and LSE within FP32_TOL
+    of max |JAX| of _flash_attention_packed_impl in interpret mode (save_lse)
+    and within RMS_TOL of the same math in float64."""
+    q, k, v = _k1_inputs(b, lq, lk, h, 210 + lq + lk)
+    want_o, want_lse = jatt._flash_attention_packed_impl(*(jnp.asarray(a) for a in (q, k, v)), h, interpret=True,
+                                                         save_lse=True, fused_psum=jatt._fused_psum_enabled())
+    (o, lse), (o64, lse64) = _k1_run(q, k, v, h, (_mm_split, _mm64))
+    assert _max_err(o, np.asarray(want_o)) <= FP32_TOL
+    assert _max_err(lse, np.asarray(want_lse)) <= FP32_TOL
+    assert _rel_rms(o, o64) <= RMS_TOL
+    assert _rel_rms(lse, lse64) <= RMS_TOL
+
+
+@pytest.mark.parametrize("b,l,h", [(4, 91, 2), (2, 77, 3)])
+def test_k1_d64_split_matches_the_short_site_kernel(b, l, h):
+    """K1 in fp32 at a short site (the one kernel serves _small_seq_kernel's
+    fp32 sum too): within FP32_TOL of max |JAX| of
+    _small_batched_attention_impl in interpret mode and within RMS_TOL of
+    float64."""
+    q, k, v = _k1_inputs(b, l, l, h, 230 + l)
+    heads = lambda a: jnp.asarray(a).reshape(b, l, h, 64)
+    want = np.asarray(jatt._small_batched_attention_impl(heads(q), heads(k), heads(v), interpret=True))
+    (o, _), (o64, _) = _k1_run(q, k, v, h, (_mm_split, _mm64))
+    assert _max_err(o, want.reshape(b, l, h * 64)) <= FP32_TOL
+    assert _rel_rms(o, o64) <= RMS_TOL
+
+
+def test_k1_d64_one_tf32_pass_fails_its_bound():
+    """The negative control: K1's math with one TF32 pass (no lo parts) reads
+    above RMS_TOL against float64, the split under it."""
+    q, k, v = _k1_inputs(1, 257, 257, 2, 250)
+    (one, _), (split, _), (ref, _) = _k1_run(q, k, v, 2, (_mm_one_pass, _mm_split, _mm64))
+    assert _rel_rms(one, ref) > RMS_TOL
+    assert _rel_rms(split, ref) < RMS_TOL
+
+
+# -- K4 in fp32 (the persistent wgmma loop's split-TF32 consumer, csrc/temporal_conv.cu) --
+#
+# y[b, t] = sum_j x[b, t + j - kt // 2] @ W[j] + bias: a tile's slices are its taps
+# whose frame exists (in tap order) by 32-channel slices of Cin, each slice's three
+# products summed on the tensor cores from zero and added to the tile's accumulator in
+# fp32 (the last slice of Cin = 1032 holds 8 channels, the rest zeros), then the bias.
+
+def _k4(x, w, bias, mm):
+    """K4's output [B, T, M, Cout] with its chains: x [B, T, M, Cin], w [kt, Cin,
+    Cout] (JAX's layout), bias [Cout] or None; `mm` a split or one-pass product
+    in fp32, or _mm64."""
+    dt = np.float64 if mm is _mm64 else np.float32
+    b, t, m, cin = x.shape
+    kt, cout = w.shape[0], w.shape[2]
+    x, w = x.astype(dt), w.astype(dt)
+    y = np.zeros((b, t, m, cout), dt)
+    for bi in range(b):
+        for f in range(t):
+            for j in range(kt):
+                src = f + j - kt // 2
+                if not 0 <= src < t:
+                    continue
+                for c in range(0, cin, PANEL):
+                    y[bi, f] += mm(x[bi, src, :, c:c + PANEL], w[j, c:c + PANEL])
+    return y if bias is None else y + bias.astype(dt)
+
+
+K4_CASES = [(1, 1, 9, 320, 160, 3), (2, 2, 7, 320, 96, 1), (1, 14, 5, 320, 160, 3), (1, 2, 6, 1032, 168, 3),
+            (1, 14, 4, 1032, 64, 1)]
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("b,t,m,cin,cout,kt", K4_CASES, ids=[f"t{t}_cin{ci}_kt{kt}" for _, t, _, ci, _, kt in K4_CASES])
+def test_k4_split_matches_the_pallas_kernel_and_fp64(b, t, m, cin, cout, kt, with_bias):
+    """K4 in fp32 with its chains at kt = 1 and 3, T = 1, 2 and 14, Cin = 320
+    and 1032 (a last slice of 8 channels), with and without a bias: within
+    FP32_TOL of max |JAX| of _temporal_conv_impl in interpret mode (zeros for
+    a missing bias) and within RMS_TOL of float64."""
+    rs = np.random.RandomState(b + t + m + cin + cout + kt + with_bias)
+    x = rs.randn(b, t, m, cin).astype(np.float32)
+    w = (rs.randn(kt, cin, cout) / np.sqrt(kt * cin)).astype(np.float32)
+    bias = rs.randn(cout).astype(np.float32) if with_bias else None
+    want = np.asarray(jtc._temporal_conv_impl(jnp.asarray(x), jnp.asarray(w),
+                                              jnp.asarray(bias if with_bias else np.zeros(cout, np.float32)),
+                                              interpret=True))
+    got = _k4(x, w, bias, _mm_split)
+    assert _max_err(got, want) <= FP32_TOL
+    assert _rel_rms(got, _k4(x, w, bias, _mm64)) <= RMS_TOL
+
+
+def test_k4_one_tf32_pass_fails_its_bound():
+    """The negative control: K4's math with one TF32 pass (no lo parts) reads
+    above RMS_TOL against float64, the split under it."""
+    rs = np.random.RandomState(260)
+    x = rs.randn(1, 3, 16, 320).astype(np.float32)
+    w = (rs.randn(3, 320, 160) / np.sqrt(960)).astype(np.float32)
+    ref = _k4(x, w, None, _mm64)
+    assert _rel_rms(_k4(x, w, None, _mm_one_pass), ref) > RMS_TOL
+    assert _rel_rms(_k4(x, w, None, _mm_split), ref) < RMS_TOL

@@ -59,7 +59,8 @@ K2_TC512_FRAMES (`.tc_short_launches`; fp32 also within FP64_RMS_TOL of
 float64), the wide kernel below them. In fp32
 at D = 512, K1 / K3, K5 / K13 and K6 from 5 to 32 frames run the kernels on split TF32 products
 (`.tf32x3_launches`), also held to the plain versions run in float64 (relative
-RMS within FP64_RMS_TOL). Those tensor-core backwards give the same bits from
+RMS within FP64_RMS_TOL); so do K1 / K3 and K5 at D = 64 and K11 and K4 where
+TMA can address their inputs (the others on `.fma_launches`). Those tensor-core backwards give the same bits from
 run to run and from a thread that has launched nothing. The GroupNorm forward
 takes the fused one-launch kernel or K7 + K8 as ops.norm.group_norm_route
 says, the backward the slab kernel (one launch, on one block or a cluster) or
@@ -2187,4 +2188,184 @@ def test_matmul_bias_fp32_keeps_no_weight_copy(cuda):
     y = MM.matmul_bias(x, w)
     torch.cuda.synchronize()
     assert MM.matmul_bias.tf32x3_launches == x3 + 1
+    assert torch.cuda.memory_allocated() - before == y.untyped_storage().nbytes()
+
+
+# K1 / K3 in fp32 at D = 64 on the split-TF32 mma.sync kernel: Lq and Lk of 1, 4,
+# 77, 91, 257 and 5824 (off the 128-row block and the 32-key tile), Lq != Lk both
+# ways, 2 to 20 heads; the plain version in float64 holds the main path's 5824
+# tokens on a B = 2 slice
+K1_X3_SHAPES = [(2, 1, 1, 5), (4, 4, 4, 20), (2, 77, 91, 5), (3, 91, 77, 2), (1, 257, 257, 16), (2, 5824, 5824, 5),
+                (4, 5824, 77, 5), (1, 300, 1, 3)]
+
+
+def _x3_moved(fn, before):
+    return {k: v - before[k] for k, v in vars(fn).items() if k.endswith("_launches") and v != before[k]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,lq,lk,h", K1_X3_SHAPES)
+def test_k1_fp32_d64_split_tf32(cuda, b, lq, lk, h):
+    """Every fp32 D = 64 K1 call that TMA can address on the split-TF32 kernel
+    (`.tf32x3_launches`, `.dim_launches[64]`; no other route counter moves):
+    the output within the forward bounds and FP64_RMS_TOL of the plain version
+    in float64, the base-2 LSE within LSE_TOL of the plain LSE; a second call
+    gives the same bits."""
+    f32 = torch.float32
+    q = _randn(cuda, 700, f32, b, lq, h * 64, scale=1.5)
+    k, v = (_randn(cuda, 701 + i, f32, b, lk, h * 64, scale=1.5) for i in range(2))
+    fn = A.flash_attention_packed
+    before, d64 = {k_: v_ for k_, v_ in vars(fn).items() if k_.endswith("_launches")}, fn.dim_launches[64]
+    out, lse = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True)
+    torch.cuda.synchronize()
+    assert _x3_moved(fn, before) == {"tf32x3_launches": 1} and fn.dim_launches[64] == d64 + 1
+    ref, ref_lse = A.flash_attention_packed_reference(q, k, v, h, save_lse=True)
+    _close_grads((out,), (ref,), RMS_TOL["K1"])
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+    assert _fp64_rms((out,), A.flash_attention_packed_reference, q, k, v, h) <= FP64_RMS_TOL
+    again, lse2 = A._flash_attention_packed_forward(q, k, v, h, None, save_lse=True)
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+
+
+@pytest.mark.gpu
+def test_k1_k3_fp32_d64_split_tf32_read_strided_views(cuda):
+    """q, k, v as slices of one fused [B, L, 3 x H x 64] projection (K1) and as
+    the [B, L, H, 64] projections seen as bhld (K3, ViT-L/14's heads), read in
+    place on the split-TF32 kernel, within FP64_RMS_TOL of float64."""
+    f32 = torch.float32
+    b, l, h = 2, 300, 3
+    qkv = _randn(cuda, 710, f32, b, l, 3 * h * 64, scale=1.5)
+    q, k, v = qkv.split(h * 64, dim=-1)
+    x3 = A.flash_attention_packed.tf32x3_launches
+    out = A.flash_attention_packed(q, k, v, h)
+    torch.cuda.synchronize()
+    assert A.flash_attention_packed.tf32x3_launches == x3 + 1
+    assert _fp64_rms((out,), A.flash_attention_packed_reference, q, k, v, h) <= FP64_RMS_TOL
+    q, k, v = (_randn(cuda, 711 + i, f32, 2, 257, 16, 64, scale=1.5).transpose(1, 2) for i in range(3))
+    before = {k_: v_ for k_, v_ in vars(A.flash_attention).items() if k_.endswith("_launches")}
+    out = A.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _x3_moved(A.flash_attention, before) == {"tf32x3_launches": 1}
+    _close_grads((out,), (A.flash_attention_reference(q, k, v),), RMS_TOL["K3"])
+    assert _fp64_rms((out,), A.flash_attention_reference, q, k, v) <= FP64_RMS_TOL
+    assert torch.equal(out, A.flash_attention(q, k, v))
+
+
+@pytest.mark.gpu
+def test_k1_k3_fp32_off_the_split_route(cuda):
+    """fp32 that the split-TF32 kernel does not take runs the FMA kernel
+    (`.fma_launches`; `.tf32x3_launches` does not move), within the forward
+    bounds: K1 at D = 64 with bases 4 bytes off a 16-byte boundary and at D =
+    16, K3 at D = 80 (CLIP's heads) and D = 16."""
+    f32 = torch.float32
+    fn = A.flash_attention_packed
+    unaligned = [_randn(cuda, 720 + i, f32, 2 * 100 * 128 + 1)[1:].view(2, 100, 128) for i in range(3)]
+    d16 = [_randn(cuda, 723 + i, f32, 2, 100, 32, scale=1.5) for i in range(3)]
+    for q, k, v in (unaligned, d16):
+        x3, fma = fn.tf32x3_launches, fn.fma_launches
+        _check_forward(fn, A.flash_attention_packed_reference, RMS_TOL["K1"], q, k, v, 2)
+        assert (fn.tf32x3_launches, fn.fma_launches) == (x3, fma + 1)
+    for d in (80, 16):
+        q, k, v = (_randn(cuda, 730 + i, f32, 1, 4, 257, d, scale=1.5) for i in range(3))
+        x3, fma = A.flash_attention.tf32x3_launches, A.flash_attention.fma_launches
+        _check_forward(A.flash_attention, A.flash_attention_reference, RMS_TOL["K3"], q, k, v)
+        assert (A.flash_attention.tf32x3_launches, A.flash_attention.fma_launches) == (x3, fma + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,h", [(2, 777, 5), (4, 64, 10)])
+def test_k1_lse_feeds_the_k5_split_backward(cuda, b, l, h):
+    """Autograd through K1 and K5 in fp32 at D = 64, both on the split-TF32
+    kernels (K5 recomputes p from K1's LSE): dq, dk, dv within GRAD_REL_TOL (by
+    norm) of autograd through the plain forward in float64."""
+    f32 = torch.float32
+    q, k, v = (_randn(cuda, 740 + i, f32, b, l, h * 64, scale=1.5).requires_grad_() for i in range(3))
+    g = _randn(cuda, 743, f32, b, l, h * 64)
+    x3 = A.flash_attention_packed.tf32x3_launches, A.flash_attention_packed_backward.tf32x3_launches
+    got = torch.autograd.grad(A.flash_attention_packed(q, k, v, h), (q, k, v), g)
+    assert (A.flash_attention_packed.tf32x3_launches,
+            A.flash_attention_packed_backward.tf32x3_launches) == (x3[0] + 1, x3[1] + 1)
+    leaves = [x.detach().double().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(A.flash_attention_packed_reference(*leaves, h), leaves, g.double())
+    for a, w in zip(got, want):
+        assert (a.double() - w).norm().item() <= GRAD_REL_TOL * w.norm().item()
+
+
+# K4 in fp32 on the split-TF32 persistent loop: the UNet's widths (320, 640, 1280),
+# the VAE's 128, T = 1, 2, 7, 14, M off the tiles, kt = 1, 3, 5, Cin != Cout, Cin =
+# 1032 (a last 32-channel slice of 8)
+K4_X3_SHAPES = [(2, 14, 5824, 320, 320, 3), (2, 14, 1456, 640, 640, 3), (2, 14, 364, 1280, 1280, 3),
+                (1, 7, 4096, 128, 128, 3), (2, 1, 300, 320, 320, 3), (2, 2, 77, 1032, 168, 1),
+                (1, 5, 91, 64, 96, 5), (3, 2, 1, 128, 256, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("b,t,m,cin,cout,kt", K4_X3_SHAPES)
+def test_temporal_conv_fp32_split_tf32(cuda, with_bias, b, t, m, cin, cout, kt):
+    """fp32 K4 with Cin % 4 == 0 on aligned bases runs the split-TF32 kernel
+    (only `.tf32x3_launches` moves), within the forward bounds and within
+    FP64_RMS_TOL of the plain version in float64; a second call gives the same
+    bits."""
+    f32 = torch.float32
+    x = _randn(cuda, 750, f32, b, t, m, cin)
+    w = _randn(cuda, 751, f32, kt, cin, cout, scale=(kt * cin) ** -0.5)
+    bias = _randn(cuda, 752, f32, cout) if with_bias else torch.zeros(cout, device=cuda)
+    fn = TC.temporal_conv_1x1
+    before = {k: v for k, v in vars(fn).items() if k.endswith("_launches")}
+    y = _check_forward(fn, TC.temporal_conv_1x1_reference, RMS_TOL["K4"], x, w, bias)
+    assert _x3_moved(fn, before) == {"tf32x3_launches": 1}
+    assert _fp64_rms((y,), TC.temporal_conv_1x1_reference, x, w, bias) <= FP64_RMS_TOL
+    assert torch.equal(y, fn(x, w, bias))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,c,kt", [(364, 1280, 3), (1456, 640, 2), (91, 320, 3)])
+def test_temporal_conv_fp32_dx_split_tf32(cuda, m, c, kt):
+    """K4's dx in fp32 (the output gradient through the flipped taps; even kt a
+    zero tap in front) on the split-TF32 kernel, within FP64_RMS_TOL of the
+    plain backward in float64 on every gradient (dW and db are library
+    products)."""
+    f32 = torch.float32
+    x, g = _randn(cuda, 760, f32, 2, 14, m, c), _randn(cuda, 761, f32, 2, 14, m, c)
+    w = _randn(cuda, 762, f32, kt, c, c, scale=(kt * c) ** -0.5)
+    x3 = TC.temporal_conv_1x1.tf32x3_launches
+    got = TC.temporal_conv_1x1_backward(x, w, g)
+    torch.cuda.synchronize()
+    assert TC.temporal_conv_1x1.tf32x3_launches == x3 + 1
+    _close_grads(got, TC.temporal_conv_1x1_backward_reference(x, w, g), RMS_TOL["K4"])
+    assert _fp64_rms(got, TC.temporal_conv_1x1_backward_reference, x, w, g) <= FP64_RMS_TOL
+    assert torch.equal(got[0], TC.temporal_conv_1x1_backward(x, w, g)[0])
+
+
+@pytest.mark.gpu
+def test_temporal_conv_fp32_off_the_split_route(cuda):
+    """fp32 that TMA cannot address (C = 3, as the VAE's conv_out_time_mix; an
+    x 4 bytes off a 16-byte boundary) runs the FMA tile (`.fma_launches`; no
+    `.tf32x3_launches`), within the forward bounds."""
+    f32 = torch.float32
+    fn = TC.temporal_conv_1x1
+    cases = [_randn(cuda, 770, f32, 1, 7, 5000, 3), _randn(cuda, 771, f32, 2 * 3 * 40 * 64 + 1)[1:].view(2, 3, 40, 64)]
+    for x in cases:
+        c = x.shape[-1]
+        w = _randn(cuda, 772, f32, 3, c, c, scale=(3 * c) ** -0.5)
+        x3, fma = fn.tf32x3_launches, fn.fma_launches
+        _check_forward(fn, TC.temporal_conv_1x1_reference, RMS_TOL["K4"], x, w, _randn(cuda, 773, f32, c))
+        assert (fn.tf32x3_launches, fn.fma_launches) == (x3, fma + 1)
+
+
+@pytest.mark.gpu
+def test_temporal_conv_fp32_keeps_no_lo_copy(cuda):
+    """The split-TF32 route forms W's lo parts in a scratch for the call: once
+    the K-major weight is cached, a call grows device memory by y alone."""
+    f32 = torch.float32
+    x = _randn(cuda, 780, f32, 2, 3, 100, 320)
+    w = _randn(cuda, 781, f32, 3, 320, 320, scale=(3 * 320) ** -0.5)
+    bias = _randn(cuda, 782, f32, 320)
+    TC.temporal_conv_1x1(x, w, bias)   # caches the K-major copy
+    torch.cuda.synchronize()
+    before, x3 = torch.cuda.memory_allocated(), TC.temporal_conv_1x1.tf32x3_launches
+    y = TC.temporal_conv_1x1(x, w, bias)
+    torch.cuda.synchronize()
+    assert TC.temporal_conv_1x1.tf32x3_launches == x3 + 1
     assert torch.cuda.memory_allocated() - before == y.untyped_storage().nbytes()

@@ -198,12 +198,13 @@ def test_failed_build_is_not_repeated(monkeypatch, tmp_path):
 def test_kernel_sources_are_packaged_and_hashed():
     srcs = [os.path.basename(p) for p in _cuda._sources()]
     assert srcs == ["conv3x3.cu", "flash_attention.cu", "flash_attention_bhld_bwd.cu",
-                    "flash_attention_bwd.cu", "flash_attention_bwd_x3.cu", "group_norm.cu", "group_norm_bwd.cu",
+                    "flash_attention_bwd.cu", "flash_attention_bwd_x3.cu", "flash_attention_x3.cu", "group_norm.cu",
+                    "group_norm_bwd.cu",
                     "matmul_bias.cu",
                     "temporal_attention.cu", "temporal_attention_bwd.cu", "temporal_attention_bwd_512.cu",
                     "temporal_attention_long.cu", "temporal_attention_long_tc.cu", "temporal_conv.cu"]
     assert len(_cuda._source_hash()) == 16
     # the shared headers are part of the hash: an edited tile rebuilds its kernels
     headers = sorted(os.path.basename(p) for p in glob.glob(os.path.join(_cuda.CSRC, "*.cuh")))
-    assert headers == ["common.cuh", "gemm_tile.cuh", "group_norm.cuh", "temporal_tile.cuh", "tf32x3_attention.cuh",
-                       "wgmma_tile.cuh"]
+    assert headers == ["common.cuh", "flash_x3_tile.cuh", "gemm_tile.cuh", "group_norm.cuh", "temporal_tile.cuh",
+                       "tf32x3_attention.cuh", "wgmma_tile.cuh"]

@@ -57,9 +57,12 @@
 //   ring that one thread fills by TMA while the previous tile multiplies;
 // - fp32 inputs (the card-vs-CPU checks and `--dtype float32`) run at D = 512
 //   on the tensor cores with split TF32 products (flash_fwd_tf32x3_kernel,
-//   tf32x3_attention.cuh: 3 products of hi / lo parts, fp32-class) and at
-//   D = 16, 64 and 80 flash_fwd_kernel, fp32 FMAs on shared-memory tiles (4x4
-//   register micro-tiles per thread for S = Q K^T and for P V).
+//   tf32x3_attention.cuh: 3 products of hi / lo parts, fp32-class), at D = 64
+//   on mma.sync with split TF32 products (flash_fwd_x3_kernel,
+//   flash_attention_x3.cu) where TMA can address q, k and v, and otherwise
+//   (D = 16, 80, unaligned D = 64) on flash_fwd_kernel, fp32 FMAs on
+//   shared-memory tiles (4x4 register micro-tiles per thread for S = Q K^T and
+//   for P V).
 //
 // Training: with a non-null `lse` the kernels also write each row's base-2
 // logsumexp m + log2(l) per head, fp32 [B, Lq, H] (the JAX kernel's save_lse
@@ -296,13 +299,26 @@ int launch_flash_tf32x3(const void* q, const void* k, const void* v, void* o, fl
                                              args);
 }
 
-// The fp32 route of both entry points: route 7 (split TF32 on wgmma) at D = 512,
-// 0 (FMAs) at the others.
+// flash_attention_x3.cu: fp32 at D = 64 on split-TF32 mma.sync products
+bool fwd_x3_addressable(const void* q, const void* k, const void* v, const void* o, const long long* st);
+int launch_flash_fwd_x3(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Lq,
+                        int Lk, const long long* st, float qscale, cudaStream_t stream);
+
+// The fp32 route of both entry points: route 7 (split TF32 products) at D = 512
+// (wgmma) and at D = 64 where TMA can address q, k and v (mma.sync,
+// flash_attention_x3.cu); 0 (FMAs) at the others (D = 16, 80, unaligned D = 64).
 int flash_entry_fp32(int D, const void* q, const void* k, const void* v, void* o, float* lse, int B,
                      int H, int Lq, int Lk, const long long* strides, float qscale, void* stream, int* route) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  *route = D == 512 ? kRouteTf32x3 : 0;
-  if (D == 512) return launch_flash_tf32x3(q, k, v, o, lse, B, H, Lq, Lk, strides, qscale, s);
+  if (D == 512) {
+    *route = kRouteTf32x3;
+    return launch_flash_tf32x3(q, k, v, o, lse, B, H, Lq, Lk, strides, qscale, s);
+  }
+  if (D == 64 && fwd_x3_addressable(q, k, v, o, strides)) {
+    *route = kRouteTf32x3;
+    return launch_flash_fwd_x3(q, k, v, o, lse, B, H, Lq, Lk, strides, qscale, s);
+  }
+  *route = 0;
   return dispatch_head_dim<float>(D, q, k, v, o, lse, B, H, Lq, Lk, strides, qscale, s);
 }
 
@@ -1964,8 +1980,9 @@ inline int flash_entry(int dtype, int D, const void* q, const void* k, const voi
 // the head-dim stride must be 1. D in {16, 64}, and 512 at one head (H = 1: the
 // packed [B, L, 512] rows are K3's [B, 1, L, 512], so K3's D = 512 kernel runs
 // them; the VideoDecoder's VideoAttnBlock). bf16 needs 16-byte aligned rows (or
-// kErrBadArgument); fp32 runs the split-TF32 kernel at D = 512 (16-byte aligned
-// rows too) and the FMA kernel at 16 and 64.
+// kErrBadArgument); fp32 runs the split-TF32 kernels at D = 512 (16-byte aligned
+// rows too) and at D = 64 where TMA can address q, k and v, the FMA kernel at 16
+// and at D = 64 otherwise.
 // lse: NULL, or fp32 [B, Lq, H] contiguous for the base-2 logsumexp.
 // sum_mode: 1, the denominator sums the p rounded to bf16; 0, the fp32 p; 2,
 // normalise first (qscale then multiplies the fp32 logits; no lse; not at D =
@@ -1974,7 +1991,7 @@ inline int flash_entry(int dtype, int D, const void* q, const void* k, const voi
 // No effect in fp32.
 // route (or NULL) receives the kernel that ran: 2 wgmma, 1 mma.sync, 0 fp32 FMAs,
 // 5 and 6 the resident normalise-first kernels at D = 64 (wgmma) and 80 (mma.sync),
-// 7 fp32 D = 512 on split TF32 products (wgmma).
+// 7 fp32 D = 512 (wgmma) and D = 64 (mma.sync) on split TF32 products.
 extern "C" int vs_flash_attention_packed(int dtype, int D, const void* q, const void* k,
                                          const void* v, void* o, void* lse, int B, int H,
                                          int Lq, int Lk, const long long* strides,

@@ -180,6 +180,12 @@ __global__ void __launch_bounds__(256) tf32_lo_kernel(const float4* __restrict__
   }
 }
 
+void launch_tf32_lo(const void* w, void* lo, long long n, int sms, cudaStream_t stream) {
+  const long long n4 = n / 4, blocks = (n4 + 255) / 256;
+  tf32_lo_kernel<<<(unsigned)(blocks < 4LL * sms ? blocks : 4LL * sms), 256, 0, stream>>>(
+      static_cast<const float4*>(w), static_cast<uint4*>(lo), n4);
+}
+
 template <class C>
 int launch_matmul_bias_x3_cfg(const void* x, const void* w, const void* wlo, const void* bias, void* y, long long M,
                               int K, int N, int sms, cudaStream_t stream) {
@@ -199,11 +205,9 @@ int launch_matmul_bias_x3_cfg(const void* x, const void* w, const void* wlo, con
   return (int)cudaGetLastError();
 }
 
-// What an SM pays under a tiling of bm x bn: its rounds of tiles, each a slice's fixed cost (the split, the
-// barrier, the wait for the products: about half a 128 x 160 slice's products) and its products.
+// What an SM pays under a tiling of bm x bn (wgmma_tile.cuh's x3_cost of its tiles).
 inline double x3_cost(long long M, int N, int bm, int bn, int sms) {
-  const long long tiles = ((M + bm - 1) / bm) * ((N + bn - 1) / bn);
-  return (double)((tiles + sms - 1) / sms) * (0.5 + (double)bm * bn / (128.0 * 160.0));
+  return x3_cost(((M + bm - 1) / bm) * ((N + bn - 1) / bn), bm, bn, sms);
 }
 
 // 128 x 160 at the large projections; 64 x 160 where that leaves an SM less (the 2156-row context
@@ -212,9 +216,7 @@ int launch_matmul_bias_x3(const void* x, const void* w, void* wlo, const void* b
                           int N, cudaStream_t stream) {
   int sms = 0;
   if (const int rc = device_sms(&sms)) return rc;
-  const long long n4 = (long long)N * K / 4, lo_blocks = (n4 + 255) / 256;
-  tf32_lo_kernel<<<(unsigned)(lo_blocks < 4LL * sms ? lo_blocks : 4LL * sms), 256, 0, stream>>>(
-      static_cast<const float4*>(w), static_cast<uint4*>(wlo), n4);
+  launch_tf32_lo(w, wlo, (long long)N * K, sms, stream);
   const double big = x3_cost(M, N, 128, 160, sms), mid = x3_cost(M, N, 64, 160, sms),
                thin = x3_cost(M, N, 64, 32, sms);
   if (big <= mid && big <= thin)

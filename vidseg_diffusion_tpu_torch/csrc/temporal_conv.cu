@@ -40,8 +40,19 @@
 // conv_out_time_mix; unaligned bases) take a CUDA-core kernel sized to the
 // row: one thread per output row, kt*Cin*Cout fp32 FMAs, element loads (the
 // 3-channel site moves 31 MB, bound 0.009 ms; a 128-column tensor-core tile
-// would compute 40x the columns it keeps). fp32 (the card-vs-CPU checks) takes the
-// FMA tile of gemm_tile.cuh. The entry reports which kernel ran (`route`).
+// would compute 40x the columns it keeps).
+// fp32 (`--dtype float32`, the card-vs-CPU checks, dx under an fp32 gradient)
+// with Cin % 4 == 0 and 16-byte aligned x, W and the lo scratch runs the same
+// persistent loop on split-TF32 products (wgmma_persistent_x3, K11's fp32
+// consumer): TconvWalkX3 is TconvWalk's tiles and skipped taps over 32-channel
+// slices (a 128-byte fp32 row), x by a rank-3 tiled fp32 map over [B, T*M, Cin]
+// (TMA zero-fills the frames outside the video and the channels past Cin), W
+// [kt, Cout, Cin] K-major and W's TF32 lo parts by two more maps. The entry
+// writes the lo parts into the caller's scratch of W's size with one pass
+// (launch_tf32_lo) per call: nothing is kept per weight. The tile is 128 x 160,
+// 64 x 160 or 64 x 32, whichever x3_cost finds an SM pays least for. Other fp32
+// inputs (Cin % 4 != 0: the VAE's 3-channel conv_out_time_mix; unaligned bases)
+// take the FMA tile of gemm_tile.cuh. The entry reports which kernel ran (`route`).
 #include "gemm_tile.cuh"
 #include "wgmma_tile.cuh"
 
@@ -98,6 +109,35 @@ __global__ void __launch_bounds__(C::THREADS, 1) temporal_conv_wgmma_kernel(
   walk.xmap = &xmap;
   walk.wmap = &wmap;
   wgmma_persistent<C>(walk, ntiles, bias, y, Cout, tc_smem);
+}
+
+// fp32 on split-TF32 products: TconvWalk's tiles over 32-channel slices, a third
+// load for W's lo parts
+struct TconvWalkX3 {
+  const CUtensorMap* xmap;
+  const CUtensorMap* wmap;
+  const CUtensorMap* wlomap;
+  TconvWalk geo;   // its nk counts 32-channel slices
+  using Tile = TconvWalk::Tile;
+  __device__ __forceinline__ Tile tile(int i) const { return geo.tile(i); }
+  __device__ __forceinline__ int slices(const Tile& t) const { return t.nj * geo.nk; }
+  __device__ __forceinline__ void load(uint32_t a, uint32_t b, uint32_t blo, uint32_t bar, const Tile& t,
+                                       int s) const {
+    const int j = t.j0 + s / geo.nk, k0 = (s % geo.nk) * 32;
+    tma_load_3d(a, xmap, bar, k0, t.r0 + (j - geo.kt / 2) * geo.M, t.b);
+    tma_load_3d(b, wmap, bar, k0, t.col0, j);
+    tma_load_3d(blo, wlomap, bar, k0, t.col0, j);
+  }
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1) temporal_conv_x3_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+    const __grid_constant__ CUtensorMap wlomap, const float* __restrict__ bias, float* __restrict__ y,
+    TconvWalk geo, int Cout, int ntiles) {
+  extern __shared__ unsigned char tcx_smem[];
+  const TconvWalkX3 walk{&xmap, &wmap, &wlomap, geo};
+  wgmma_persistent_x3<C>(walk, ntiles, bias, y, Cout, tcx_smem);
 }
 
 // One thread per output row. Rows whose taps and channels fit in registers
@@ -268,6 +308,62 @@ int launch_temporal_conv_wgmma_bn(const void* x, const void* w, const void* bias
                                                                           sms, stream);
 }
 
+// fp32 [rows, Cin] of `n` items (Cin contiguous) in boxes of 32 channels x `box_rows` rows x 1, 128-byte swizzle
+inline int tconv_x3_map(const void* base, int Cin, long long rows, int n, int box_rows, CUtensorMap* map) {
+  const cuuint64_t dims[3] = {(cuuint64_t)Cin, (cuuint64_t)rows, (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)Cin * 4, (cuuint64_t)rows * Cin * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+  return tma_tiled_map(CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_SWIZZLE_128B, base, 3, dims, strides, box, map);
+}
+
+template <class C>
+int launch_temporal_conv_x3_cfg(const void* x, const void* w, const void* wlo, const void* bias, void* y, int B,
+                                int Tn, int M, int Cin, int Cout, int kt, int sms, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      temporal_conv_x3_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  long long tiles;
+  TconvWalk geo = tconv_walk(B, Tn, M, Cin, Cout, kt, C::BM, C::BN, &tiles);
+  geo.nk = (Cin + 31) / 32;
+  if (tiles > 0x7fffffffLL) return kErrBadArgument;
+  CUtensorMap xmap, wmap, wlomap;
+  if (const int rc = tconv_x3_map(x, Cin, geo.TM, B, C::BM, &xmap)) return rc;
+  if (const int rc = tconv_x3_map(w, Cin, Cout, kt, C::BN, &wmap)) return rc;
+  if (const int rc = tconv_x3_map(wlo, Cin, Cout, kt, C::BN, &wlomap)) return rc;
+  const unsigned blocks = tiles < sms ? (unsigned)tiles : (unsigned)sms;  // persistent: one block per SM
+  temporal_conv_x3_kernel<C><<<blocks, C::THREADS, C::SMEM_BYTES, stream>>>(
+      xmap, wmap, wlomap, static_cast<const float*>(bias), static_cast<float*>(y), geo, Cout, (int)tiles);
+  return (int)cudaGetLastError();
+}
+
+// x3_cost of a bm x bn tiling of the convolution
+inline double tconv_x3_cost(int B, int Tn, int M, int Cin, int Cout, int kt, int bm, int bn, int sms) {
+  long long tiles;
+  tconv_walk(B, Tn, M, Cin, Cout, kt, bm, bn, &tiles);
+  return x3_cost(tiles, bm, bn, sms);
+}
+
+// W's lo parts into wlo, then the tile that costs an SM least: 128 x 160 at the
+// UNet's large frames, 64 x 160 or 64 x 32 where those leave SMs idle
+int launch_temporal_conv_x3(const void* x, const void* w, void* wlo, const void* bias, void* y, int B, int Tn, int M,
+                            int Cin, int Cout, int kt, cudaStream_t stream) {
+  int sms = 0;
+  if (const int rc = device_sms(&sms)) return rc;
+  if ((long long)Tn * M > 0x7fffffffLL) return kErrBadArgument;
+  launch_tf32_lo(w, wlo, (long long)kt * Cout * Cin, sms, stream);
+  const double big = tconv_x3_cost(B, Tn, M, Cin, Cout, kt, 128, 160, sms),
+               mid = tconv_x3_cost(B, Tn, M, Cin, Cout, kt, 64, 160, sms),
+               thin = tconv_x3_cost(B, Tn, M, Cin, Cout, kt, 64, 32, sms);
+  if (big <= mid && big <= thin)
+    return launch_temporal_conv_x3_cfg<PersistentTileX3<2, 160, 3>>(x, w, wlo, bias, y, B, Tn, M, Cin, Cout, kt,
+                                                                     sms, stream);
+  if (mid <= thin)
+    return launch_temporal_conv_x3_cfg<PersistentTileX3<1, 160, 4>>(x, w, wlo, bias, y, B, Tn, M, Cin, Cout, kt,
+                                                                     sms, stream);
+  return launch_temporal_conv_x3_cfg<PersistentTileX3<1, 32, 4>>(x, w, wlo, bias, y, B, Tn, M, Cin, Cout, kt, sms,
+                                                                  stream);
+}
+
 int launch_temporal_conv_wgmma(const void* x, const void* w, const void* bias, void* y, int B, int Tn, int M,
                                int Cin, int Cout, int kt, cudaStream_t stream) {
   int sms = 0;
@@ -281,10 +377,12 @@ int launch_temporal_conv_wgmma(const void* x, const void* w, const void* bias, v
 }  // namespace vs
 
 // x [B, T, M, Cin], w [kt, Cout, Cin], bias [Cout] or NULL, y [B, T, M, Cout];
-// all contiguous, one dtype. route (or NULL) receives the kernel that ran: 2
-// the wgmma kernel, 3 the narrow CUDA-core kernel, 0 the fp32 FMA tile.
-extern "C" int vs_temporal_conv_1x1(int dtype, const void* x, const void* w, const void* bias, void* y, int B,
-                                    int Tn, int M, int Cin, int Cout, int kt, int* route, void* stream) {
+// all contiguous, one dtype; w_lo (fp32 only, or NULL): a [kt, Cout, Cin] fp32
+// scratch, which the split-TF32 route fills with the TF32 lo parts of w. route
+// (or NULL) receives the kernel that ran: 2 the wgmma kernel, 3 the narrow
+// CUDA-core kernel, 7 the fp32 split-TF32 wgmma kernel, 0 the fp32 FMA tile.
+extern "C" int vs_temporal_conv_1x1(int dtype, const void* x, const void* w, void* w_lo, const void* bias, void* y,
+                                    int B, int Tn, int M, int Cin, int Cout, int kt, int* route, void* stream) {
   if (B <= 0 || Tn <= 0 || M <= 0 || Cin <= 0 || Cout <= 0 || kt <= 0)
     return vs::kErrBadArgument;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -309,6 +407,9 @@ extern "C" int vs_temporal_conv_1x1(int dtype, const void* x, const void* w, con
         vs::temporal_conv_narrow_kernel<<<(unsigned)blocks, 256, 0, s>>>(xb, wb, bb, yb, Tn, M, Cin, Cout, kt, R);
       rc = (int)cudaGetLastError();
     }
+  } else if (dtype == vs::kFloat32 && w_lo != nullptr && Cin % 4 == 0 && vs::aligned16({x, w, w_lo})) {
+    r = vs::kRouteTf32x3;
+    rc = vs::launch_temporal_conv_x3(x, w, w_lo, bias, y, B, Tn, M, Cin, Cout, kt, s);
   } else if (dtype == vs::kFloat32) {
     unsigned blocks;
     int ncol;

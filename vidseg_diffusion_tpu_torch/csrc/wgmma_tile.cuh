@@ -741,9 +741,9 @@ __device__ __forceinline__ void wgmma_persistent(const Walk& walk, int ntiles, c
 }
 
 // ---------------------------------------------------------------------------
-// The persistent loop in fp32-class arithmetic (K11 in fp32; K4's fp32 route is
-// the next caller it is built for): the walk, the producer warp and the ring of
-// wgmma_persistent, every product split TF32. An fp32 operand x is hi + lo: hi
+// The persistent loop in fp32-class arithmetic (K11 and K4 in fp32): the walk,
+// the producer warp and the ring of wgmma_persistent, every product split TF32.
+// An fp32 operand x is hi + lo: hi
 // is x as stored (the tensor cores read the top 19 bits of an fp32 value) and
 // lo = x - hi rounded to TF32 (tf32_lo below), and a b ~
 // hi_a lo_b + lo_a hi_b + hi_a hi_b. What differs from the bf16 loop:
@@ -1037,6 +1037,18 @@ __device__ __forceinline__ void wgmma_persistent_x3(const Walk& walk, int ntiles
       }
     }
   }
+}
+
+// The TF32 lo parts of the fp32 weights w (n of them, a multiple of 4; w and lo
+// 16-byte aligned) into lo, launched on `stream` (matmul_bias.cu): the third
+// operand of wgmma_persistent_x3's walks, formed once a call.
+void launch_tf32_lo(const void* w, void* lo, long long n, int sms, cudaStream_t stream);
+
+// What an SM pays for a persistent x3 launch of `tiles` tiles of bm x bn: its
+// rounds of tiles, each a slice's fixed cost (the split, the barrier, the wait for
+// the products: about half a 128 x 160 slice's products) and its products.
+inline double x3_cost(long long tiles, int bm, int bn, int sms) {
+  return (double)((tiles + sms - 1) / sms) * (0.5 + (double)bm * bn / (128.0 * 160.0));
 }
 
 // Rows one SM walks when `tiles` tiles of `bm` rows are spread over `sms` SMs:

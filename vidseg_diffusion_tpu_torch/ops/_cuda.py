@@ -38,7 +38,8 @@ NVCC_FLAGS = (
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel an entry with a `route` out-parameter reports it ran; 5 and 6 are
 # the normalise-first kernels that hold a head's K and V in shared memory, 7 the
-# fp32 D = 512 attention, K5 in fp32 at D = 64 and K11 in fp32 on split TF32 products, 8 the temporal attention
+# fp32 D = 512 attention, K1 / K3 and K5 in fp32 at D = 64, K11 and K4 in fp32 on split TF32 products, 8 the
+# temporal attention
 # past 32 frames (K2 and K6: tensor-core tiles at D = 64 and 512, the frame walk at 16),
 # 9 the tensor-core kernels of temporal_attention_long_tc.cu up to 32 frames (K2 at
 # D = 512, K6 in fp32 at D = 64)
@@ -152,8 +153,9 @@ _SIGNATURES = {
     # qscale, scale, route (int*), stream
     "vs_temporal_attention_direct_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                          _I, _I, _I, _I, _F, _F, _P, _P],
-    # dtype, x, w [kt, Cout, Cin], bias (NULL: none), y, B, T, M, Cin, Cout, kt, route (int*), stream
-    "vs_temporal_conv_1x1": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # dtype, x, w [kt, Cout, Cin], w_lo (fp32: a [kt, Cout, Cin] scratch the split-TF32 route fills with W's
+    # TF32 lo parts; NULL: none), bias (NULL: none), y, B, T, M, Cin, Cout, kt, route (int*), stream
+    "vs_temporal_conv_1x1": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # dtype, x, partial, counters, gamma, beta, wdtype, a, s, mean, inv, B, R, C, G, vec,
     # rows_per_chunk, nchunks, eps, stream
     "vs_group_norm_stats": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -253,6 +253,7 @@ def _flash_attention_packed_forward(q, k, v, heads: int, scale: Optional[float],
     flash_attention_packed.wgmma_launches += route == "wgmma"
     flash_attention_packed.mma_launches += route == "mma_sync"
     flash_attention_packed.tf32x3_launches += route == "tf32x3"
+    flash_attention_packed.fma_launches += route == "fma"
     if normalise_first and dtype == torch.bfloat16:
         flash_attention_packed.normalised_launches += 1
         flash_attention_packed.normalised_dim_launches[d] += 1
@@ -286,8 +287,10 @@ def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
     transpose; bf16 runs the wgmma kernel fed by TMA at D = 64 (at one 512-dim
     head K3's D = 512 kernel, which reads the same rows), the mma.sync
     template at D = 16, and needs 16-byte aligned rows (a view that is not is
-    refused); fp32 the FMA kernel, at one 512-dim head K3's split-TF32
-    kernel (`.tf32x3_launches`; 16-byte aligned rows too). The denominator
+    refused); fp32 at D = 64 and at one 512-dim head (K3's kernel) runs
+    split-TF32 tensor-core kernels (`.tf32x3_launches`) where TMA can address
+    q, k and v (16-byte aligned bases and rows), else (D = 16, unaligned D =
+    64) the FMA kernel (`.fma_launches`). The denominator
     sums the rounded p (psum_rounded, JAX's fused_psum default) or the fp32 p (the short sites,
     small_batched_attention); the LSE written under a gradient is m + log2 of
     that same sum. normalise_first computes mha_reference's softmax instead
@@ -304,7 +307,9 @@ flash_attention_packed.launches = 0
 flash_attention_packed.dim_launches = collections.Counter()   # launches by head dim
 flash_attention_packed.wgmma_launches = 0   # of .launches, those that ran a wgmma kernel (D = 64, 512)
 flash_attention_packed.mma_launches = 0   # of .launches, those on the mma.sync template (bf16 D = 16)
-flash_attention_packed.tf32x3_launches = 0   # of .launches, fp32 D = 512 on split TF32 products (wgmma)
+# of .launches, fp32 on split TF32 products: D = 512 (wgmma) and D = 64 where TMA can address q, k, v (mma.sync)
+flash_attention_packed.tf32x3_launches = 0
+flash_attention_packed.fma_launches = 0   # of .launches, the other fp32 ones (D = 16, unaligned D = 64), on FMAs
 flash_attention_packed.normalised_launches = 0   # bf16 launches in the normalise-first mode
 flash_attention_packed.normalised_dim_launches = collections.Counter()   # those by head dim
 # of .normalised_launches, those on the kernel that holds a head's K and V in shared memory (D = 64,
@@ -787,6 +792,7 @@ def _flash_attention_forward(q, k, v, scale: Optional[float], save_lse: bool, no
     flash_attention.resident_launches += resident
     flash_attention.wgmma_launches += route == "wgmma"
     flash_attention.tf32x3_launches += route == "tf32x3"
+    flash_attention.fma_launches += route == "fma"
     if normalise_first and dtype == torch.bfloat16:
         flash_attention.normalised_launches += 1
         flash_attention.normalised_dim_launches[d] += 1
@@ -817,8 +823,10 @@ def flash_attention(q, k, v, scale: Optional[float] = None, normalise_first: boo
     the tiny configs' 16), so a strided view (CLIP's [B, L, H, D] projections
     seen as bhld) is read in place. bf16 runs on the tensor cores (wgmma at D
     = 512 and 64, mma.sync at 80 and 16) and needs 16-byte aligned rows; fp32
-    runs the FMA kernel, at D = 512 the tensor cores with split TF32 products
-    (`.tf32x3_launches`; 16-byte aligned rows too). normalise_first (bf16 D = 16, 64 and 80) computes
+    runs the tensor cores with split TF32 products at D = 512 (16-byte aligned
+    rows too) and at D = 64 where TMA can address q, k and v
+    (`.tf32x3_launches`), the FMA kernel at D = 16, 80 and unaligned D = 64
+    (`.fma_launches`). normalise_first (bf16 D = 16, 64 and 80) computes
     mha_reference's softmax (no gradient). Differentiable otherwise: with grad
     on, the forward also writes the LSE and the backward is K13 (K5 at D = 16
     and 64)."""
@@ -831,7 +839,8 @@ def flash_attention(q, k, v, scale: Optional[float] = None, normalise_first: boo
 flash_attention.launches = 0
 flash_attention.dim_launches = collections.Counter()
 flash_attention.wgmma_launches = 0   # D = 64 and 512 in bf16 (D = 16 and 80 run mma.sync)
-flash_attention.tf32x3_launches = 0   # fp32 D = 512, on split TF32 products (wgmma)
+flash_attention.tf32x3_launches = 0   # fp32 D = 512 (wgmma) and addressable D = 64 (mma.sync), split TF32
+flash_attention.fma_launches = 0   # the other fp32 launches (D = 16, 80, unaligned D = 64), on FMAs
 flash_attention.normalised_launches = 0   # bf16 launches in the normalise-first mode
 flash_attention.normalised_dim_launches = collections.Counter()   # those by head dim
 # of .normalised_launches, those on the kernels that hold a head's K and V in shared memory (D = 64 up

@@ -21,7 +21,12 @@ entry reports which kernel ran: bf16 with Cin and Cout multiples of 8 and
 16-byte aligned bases (every UNet and VAE time_stack) the persistent wgmma
 kernel (`.wgmma_launches`), other bf16 (the VAE's 3-channel
 conv_out_time_mix) a CUDA-core kernel sized to the row (`.narrow_launches`),
-fp32 the FMA tile.
+fp32 with Cin % 4 == 0 and 16-byte aligned bases the same persistent loop on
+split-TF32 products (three TF32 products of x = hi + lo and W = hi + lo, an
+fp32-class result; `.tf32x3_launches`): the entry first writes W's lo parts
+into a scratch of W's size that this wrapper hands it for the call. Other
+fp32 (the VAE's 3-channel conv_out_time_mix, unaligned views) takes the FMA
+tile (`.fma_launches`).
 
 Gradients (the JAX package's _tc custom_vjp, temporal_conv.py:143-158, takes
 the XLA VJP of the shifted-matmul reference): dx is the same (kt, 1, 1)
@@ -96,13 +101,17 @@ def _launch(x, wk, bias):
     b, t, m, cin = x.shape
     kt, cout, _ = wk.shape
     y = torch.empty((b, t, m, cout), dtype=x.dtype, device=x.device)
+    lo = torch.empty_like(wk) if x.dtype == torch.float32 else None   # W's TF32 lo parts, for this call
     route = _cuda.call_routed(
         "vs_temporal_conv_1x1", _cuda.DTYPE_CODES[x.dtype], x.data_ptr(), wk.data_ptr(),
-        None if bias is None else bias.data_ptr(), y.data_ptr(), b, t, m, cin, cout, kt,
+        None if lo is None else lo.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
+        b, t, m, cin, cout, kt,
     )
     temporal_conv_1x1.launches += 1
     temporal_conv_1x1.wgmma_launches += route == "wgmma"
     temporal_conv_1x1.narrow_launches += route == "narrow"
+    temporal_conv_1x1.tf32x3_launches += route == "tf32x3"
+    temporal_conv_1x1.fma_launches += route == "fma"
     return y
 
 
@@ -200,4 +209,6 @@ def temporal_conv_1x1(x, w, bias):
 temporal_conv_1x1.launches = 0
 temporal_conv_1x1.wgmma_launches = 0
 temporal_conv_1x1.narrow_launches = 0
+temporal_conv_1x1.tf32x3_launches = 0   # fp32 that TMA can address, on the split-TF32 wgmma kernel
+temporal_conv_1x1.fma_launches = 0   # other fp32, on the FMA tile
 temporal_conv_1x1.relays = 0

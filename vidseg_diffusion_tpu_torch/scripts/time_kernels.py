@@ -5,7 +5,8 @@ route of K1 and K3, and the GroupNorm backward at the main paths'
 shapes, beside the one PyTorch call for the same function, on one CUDA card.
 
     python3 -m vidseg_diffusion_tpu_torch.scripts.time_kernels [--only k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3,
-                                                                       k5d16,fp32,long,short,x3d64,x3mm,mem]
+                                                                       k5d16,fp32,long,short,x3d64,x3mm,x3k1,x3k4,
+                                                                       mem]
                                                               [--root CHECKOUT]
 
 Each call is captured 20 times into a CUDA graph and the replay is timed with
@@ -85,7 +86,14 @@ times, the SVD projections and the kernel's edges): CUDA graphs beside the
 library call in full fp32 (SDPA's backward profiled; F.linear) and the bound,
 held to the plain version and to it in float64 (relative RMS) where the plain
 version fits the card, with the route counters one call moved; with `--root`
-the parent's kernels at the same shapes (FMA kernels there). `mem` (not in
+the parent's kernels at the same shapes (FMA kernels there). K1 / K3 in fp32
+at D = 64 and K4 in fp32 on split-TF32 products (`x3k1`: K1 at ds1 on a B = 2
+slice, the CFG batch, ds2, ds4, mid, SD 2.1's 77-key cross-attention and the
+train_grad phase's four sites, K3 at ViT-L/14's [2, 16, 257, 64], and the fp32
+attention left on the FMA kernel, K3 at D = 80 (CLIP ViT-H) and K3 / K1 at D =
+16; `x3k4`: K4 at the UNet's ds1, ds2 and ds4 time_stacks, the VAE decoder's
+448 x 832 frames, dx at ds4 and the edges T = 1 and Cin = 1032) the same way,
+beside SDPA / F.conv3d (dx: torch.nn.grad.conv3d_input) in full fp32. `mem` (not in
 the default) reads the peak device memory of the fp32 full-width SVD UNet's
 forward and loss backward at chip_smoke.py's unet and train_grad shapes, and
 what ops/relayout.py's weight-copy caches hold. `--root` times
@@ -153,6 +161,22 @@ FP32_K1_SHAPES, FP32_K5_SHAPE, FP32_TEMPORAL_SHAPE, FP32_K4_SHAPE = (
 X3_K5_SHAPES = [(2, 5824, 5), (28, 5824, 5), (28, 1456, 10), (4, 256, 5), (4, 64, 10), (4, 16, 20), (4, 4, 20)]
 # K11 in fp32 on split TF32 (`x3mm`): (M, K, N, bias): chip_smoke.py's fp32 rows (ds2 with a bias, SD to_k),
 # the SVD projections and the kernel's edges (an N off the 160-wide tile, a K off the 32-channel slice)
+# K1 / K3 in fp32 (`x3k1`): (layout, B, Lq, Lk, H, D): at D = 64 on split TF32, K1 at ds1 (a B = 2 slice and the
+# CFG batch), ds2, ds4, mid, SD 2.1's 77-key cross-attention at ds1 and the train_grad phase's spatial sites (256, 64,
+# 16, 4 tokens), K3 on its bhld strides at ViT-L/14's heads; on the FMA kernel, K3 at D = 80 (CLIP ViT-H) and K3 / K1
+# at D = 16 (the tiny configs: CLIP [1, 4, 257, 16], K13's [2, 2, 1024, 16], ds1 on a B = 2 slice)
+X3_K1_SHAPES = [("blhd", 2, 5824, 5824, 5, 64), ("blhd", 28, 5824, 5824, 5, 64), ("blhd", 28, 1456, 1456, 10, 64),
+                ("blhd", 28, 364, 364, 20, 64), ("blhd", 28, 91, 91, 20, 64), ("blhd", 28, 5824, 77, 5, 64),
+                ("blhd", 4, 256, 256, 5, 64), ("blhd", 4, 64, 64, 10, 64), ("blhd", 4, 16, 16, 20, 64),
+                ("blhd", 4, 4, 4, 20, 64), ("bhld", 2, 257, 257, 16, 64), ("bhld", 1, 257, 257, 16, 80),
+                ("bhld", 1, 257, 257, 4, 16), ("bhld", 2, 1024, 1024, 2, 16), ("blhd", 2, 5824, 5824, 2, 16)]
+# K4 in fp32 on split TF32 (`x3k4`): (B, T, M, Cin, Cout, kt, dx): the UNet's time_stacks at ds1, ds2 and ds4, the
+# VAE decoder's at 448 x 832 (one 7-frame clip, 128 channels), dx at ds4, and the edges: one frame, a last
+# 32-channel slice of 8 (Cin = 1032)
+X3_K4_SHAPES = [(2, 14, 5824, 320, 320, 3, False), (2, 14, 1456, 640, 640, 3, False),
+                (2, 14, 364, 1280, 1280, 3, False), (1, 7, 372736, 128, 128, 3, False),
+                (2, 14, 364, 1280, 1280, 3, True), (2, 1, 5824, 320, 320, 3, False),
+                (2, 2, 1456, 1032, 640, 3, False)]
 X3_MM_SHAPES = [(40768, 640, 640, True), (2156, 1024, 320, False), (163072, 320, 320, False),
                 (163072, 320, 320, True), (10192, 1280, 1280, True), (2548, 1280, 1280, False), (28, 1024, 320, False),
                 (2156, 1024, 1280, False), (193, 320, 168, True), (2156, 1032, 640, True)]
@@ -835,6 +859,72 @@ def time_x3_mm(torch, F, rn, MM):
         torch.cuda.empty_cache()
 
 
+def time_x3_k1(torch, F, rn):
+    """K1 / K3 in fp32 (`x3k1`) as CUDA graphs beside SDPA in full fp32 and the
+    bound (bytes, or 4 Lq Lk D flops a head at 165 TFLOP/s), held to the plain
+    version and to it in float64 up to the ds1 slice's logits."""
+    from vidseg_diffusion_tpu_torch.ops import attention as A
+
+    for layout, b, lq, lk, h, d in X3_K1_SHAPES:
+        if layout == "blhd":
+            q, k, v = rn(b, lq, h * d), rn(b, lk, h * d), rn(b, lk, h * d)
+            fn, plain, args = A.flash_attention_packed, A.flash_attention_packed_reference, (q, k, v, h)
+            lib_args = [x.view(b, x.shape[1], h, d).transpose(1, 2) for x in (q, k, v)]
+        else:
+            q, k, v = rn(b, h, lq, d), rn(b, h, lk, d), rn(b, h, lk, d)
+            fn, plain, args, lib_args = A.flash_attention, A.flash_attention_reference, (q, k, v), [q, k, v]
+        moved = moved_routes(torch, fn, lambda: fn(*args))
+        errs = (vs_float64(torch, fn(*args), plain, args) if b * h * lq * lk <= 2 * 5 * 5824 * 5824
+                else "plain version not run (memory)")
+        n = 3 if b * h * lq * lk > 1e9 else 20
+        ms = graph_ms(torch, lambda: fn(*args), n)
+        lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(*lib_args), n)
+        bound = bound_ms(4 * 2 * b * h * (lq + lk) * d, 4 * b * h * lq * lk * d, "fp32")
+        print(f"X3K1 {'K1' if layout == 'blhd' else 'K3'} fp32 {layout} [{b},{lq}x{lk},{h}x{d}]: {ms:.4f} ms (SDPA "
+              f"{lib_ms:.4f}, {sdpa_backend(torch, F, *lib_args)}; bound {bound:.4f}), {errs}; routes of one call "
+              f"{moved}", flush=True)
+        del q, k, v, args, lib_args
+        torch.cuda.empty_cache()
+
+
+def time_x3_k4(torch, F, rn):
+    """K4 in fp32 (`x3k4`) as CUDA graphs beside F.conv3d (dx:
+    torch.nn.grad.conv3d_input) in full fp32 and the bound, held to the plain
+    version and to it in float64; the dx rows time K4's launch on the output
+    gradient with the flipped taps alone."""
+    from vidseg_diffusion_tpu_torch.ops import temporal_conv as TC
+
+    for b, t, m, ci, co, kt, dx in X3_K4_SHAPES:
+        x, w = rn(b, t, m, ci), rn(kt, ci, co) / (kt * ci) ** 0.5
+        pairs = sum(1 for f in range(t) for j in range(kt) if 0 <= f + j - kt // 2 < t)
+        w5 = w.permute(2, 1, 0).contiguous()[..., None, None]  # [Cout, Cin, kt, 1, 1]
+        if dx:
+            g = rn(b, t, m, co)
+            wdx = TC._dx_taps(w).contiguous()
+            fn, args = (lambda g, wdx: TC._launch(g, wdx, None)), (g, wdx)
+            # dx as the plain backward computes it: the plain forward on g with the flipped taps
+            plain, plain_args = TC.temporal_conv_1x1_reference, (g, wdx.transpose(1, 2), torch.zeros_like(x[0, 0, 0]))
+            g5 = g.permute(0, 3, 1, 2).unsqueeze(-1)
+            library = lambda: torch.nn.grad.conv3d_input((b, ci, t, m, 1), w5, g5, padding=(kt // 2, 0, 0))
+        else:
+            bias = rn(co)
+            fn, args = TC.temporal_conv_1x1, (x, w, bias)
+            plain, plain_args = TC.temporal_conv_1x1_reference, (x, w, bias)
+            x5 = x.permute(0, 3, 1, 2).unsqueeze(-1)               # [B, Cin, T, M, 1]
+            library = lambda: F.conv3d(x5, w5, bias, padding=(kt // 2, 0, 0))
+        moved = moved_routes(torch, TC.temporal_conv_1x1, lambda: fn(*args))
+        errs = vs_float64(torch, fn(*args), plain, plain_args)
+        ms = graph_ms(torch, lambda: fn(*args), 5)
+        lib_ms = graph_ms(torch, library, 5)
+        bound = bound_ms(4 * (b * t * m * (ci + co) + kt * ci * co + (0 if dx else co)),
+                         2 * b * pairs * m * ci * co, "fp32")
+        print(f"X3K4 K4 fp32 {'dx ' if dx else ''}[{b},{t},{m},{ci}->{co}] kt={kt}: {ms:.4f} ms (F.conv3d"
+              f"{' input gradient' if dx else ''} {lib_ms:.4f}; bound {bound:.4f}), {errs}; routes of one call "
+              f"{moved}", flush=True)
+        del x, w, w5, args, plain_args
+        torch.cuda.empty_cache()
+
+
 def time_memory(torch):
     """Peak device memory (`mem`) of the fp32 runs of chip_smoke.py's unet and
     train_grad phases on the card: the full-width SVD UNet's forward (a 16 x 16
@@ -1008,9 +1098,10 @@ def main():
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only",
-                        default="k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3,k5d16,fp32,long,short,x3d64,x3mm",
+                        default="k11,k1,k4,gn,k2,k6,k5,k13,nf,gnb,k5w,k6w,x3,k5d16,fp32,long,short,x3d64,x3mm,"
+                                "x3k1,x3k4",
                         help="comma-separated: k11, k1, k4, gn, k2, k6, k5, k13, nf, gnb, k5w, k6w, x3, k5d16, fp32, "
-                             "long, short, x3d64, x3mm, mem (not in the default)")
+                             "long, short, x3d64, x3mm, x3k1, x3k4, mem (not in the default)")
     parser.add_argument("--root", default=None,
                         help="import vidseg_diffusion_tpu_torch (and build its kernels) from this checkout")
     args = parser.parse_args()
@@ -1058,6 +1149,10 @@ def run(torch, F, A, MM, only):
         time_x3_d64(torch, F, rn)
     if "x3mm" in only:
         time_x3_mm(torch, F, rn, MM)
+    if "x3k1" in only:
+        time_x3_k1(torch, F, rn)
+    if "x3k4" in only:
+        time_x3_k4(torch, F, rn)
     if "mem" in only:
         time_memory(torch)
     if "k4" in only:
